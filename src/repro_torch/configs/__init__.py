@@ -1,0 +1,33 @@
+"""Architecture registry: ``--arch <id>`` resolves here.
+
+Each module defines ``CONFIG`` (the exact assigned configuration) and
+``smoke_config()`` (a reduced same-family variant for CPU tests).  This
+slice of the port holds granite-3-2b only; the other nine architectures
+of ``repro.configs`` follow in ROADMAP.md, 'Next slices' item 1.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = ("granite_3_2b",)
+
+# canonical dashed ids (CLI spelling) -> module names
+ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
+
+
+def _module(arch: str):
+    name = ALIASES.get(arch, arch)
+    if name not in ARCH_IDS:
+        raise NotImplementedError(
+            f"architecture {arch!r} is not ported yet: ROADMAP.md, "
+            "'Next slices' item 1")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(arch: str):
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str):
+    return _module(arch).smoke_config()
+

@@ -1,0 +1,71 @@
+"""Launcher of the Hopper flash-attention kernel (``csrc/flash_attention.cu``).
+
+Replaces ``src/repro/kernels/flash_attention.py`` (``_kernel`` and
+``flash_attention_bh``).  The Pallas kernel took heads folded to
+(BH, S, D) with GQA expanded by the caller and padded S to its blocks;
+this kernel reads the model layout (B, S, H, D) in place, maps q head h
+to kv head h // (H / KV), and masks the ragged edge itself, so the
+launcher makes no copy.  The source's header says what bounds the
+kernel on the H100 and what its design does about it.
+
+The public entry is :func:`repro_torch.kernels.ops.flash_attention`,
+which counts the launches; this module only checks and launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPES = {torch.bfloat16: 1, torch.float32: 0}
+HEAD_DIMS = (64, 128)
+
+
+def _fn():
+    fn = build.library("flash_attention").flash_attention_fwd
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k, v must be (B, S, H, D)")
+    b, s, h, d = q.shape
+    bk, sk, kvh, dk = k.shape
+    if v.shape != k.shape or bk != b or dk != d:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} do not match")
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"flash_attention: {h} q heads do not group over {kvh} kv heads")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
+                        "the kernel takes bf16 or fp32, all alike")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, not {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be contiguous and 16-byte aligned")
+    if s == 0 or sk == 0 or b * h > 65535:
+        raise ValueError(f"flash_attention: empty sequence or B*H = {b * h} over the grid limit")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool, window: int) -> torch.Tensor:
+    """q: (B, S, H, D); k, v: (B, Sk, KV, D) on one CUDA device -> (B, S, H, D)."""
+    _check(q, k, v)
+    b, s, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    b, s, sk, h, kvh, d, int(causal), int(window), _DTYPES[q.dtype],
+                    torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
+    return o

@@ -1,0 +1,87 @@
+"""The PyTorch port stands alone: no jax, nothing of the JAX package.
+
+Every ``repro_torch`` module and ``chip_smoke.py`` import with jax
+blocked and leave no ``repro.*`` module behind; the sources hold no
+jax or ``repro.`` import; entry points refuse to run on a missing card.
+"""
+from __future__ import annotations
+
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+MODULES = sorted(
+    ".".join(p.relative_to(PORT.parent).with_suffix("").parts).removesuffix(".__init__")
+    for p in PORT.rglob("*.py"))
+
+BAD_IMPORT = re.compile(
+    r"^\s*(import\s+(jax|repro)\b(?!_torch)|from\s+(jax|repro)(\.|\s)(?!_torch))",
+    re.MULTILINE)
+
+
+def test_every_port_module_imports_without_jax_or_repro():
+    code = f"""
+import importlib, importlib.util, json, sys
+sys.modules["jax"] = None           # any `import jax` now raises ImportError
+sys.path.insert(0, {str(REPO / "src")!r})
+for name in {MODULES!r}:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", {str(REPO / "chip_smoke.py")!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(json.dumps(sorted(m for m in sys.modules
+                        if m == "repro" or m.startswith(("repro.", "jax")))))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == ["jax"]  # the None stub
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_source_has_no_jax_or_repro_import(path):
+    assert not BAD_IMPORT.findall(path.read_text()), path
+
+
+def test_import_pattern_catches_what_it_should():
+    for bad in ("import jax", "import jax.numpy as jnp", "from jax import lax",
+                "    from repro.models import x", "import repro.core", "from repro import api"):
+        assert BAD_IMPORT.search(bad), bad
+    for ok in ("import repro_torch", "from repro_torch.models import x",
+               "    from repro_torch.engine.dfk import y", "import torch"):
+        assert not BAD_IMPORT.search(ok), ok
+
+
+def test_backend_refuses_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.device import resolve_device
+    from repro_torch.serve import TorchDecodeBackend
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchDecodeBackend(get_smoke_config("granite_3_2b"), max_batch=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_card_and_alone(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    runs = [REPO / "chip_smoke.py"]
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    runs.append(tmp_path / "chip_smoke.py")
+    for script in runs:
+        proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                              text=True, timeout=120, cwd=script.parent)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
