@@ -1,15 +1,16 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
 Each module defines ``CONFIG`` (the exact assigned configuration) and
-``smoke_config()`` (a reduced same-family variant for CPU tests).  This
-slice of the port holds granite-3-2b only; the other nine architectures
-of ``repro.configs`` follow in ROADMAP.md, 'Next slices' item 1.
+``smoke_config()`` (a reduced same-family variant for CPU tests).  The
+port holds granite-3-2b and mamba2-780m so far; the other eight
+architectures of ``repro.configs`` follow in ROADMAP.md, 'Next slices'
+item 1.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("granite_3_2b",)
+ARCH_IDS = ("granite_3_2b", "mamba2_780m")
 
 # canonical dashed ids (CLI spelling) -> module names
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}

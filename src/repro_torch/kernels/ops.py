@@ -1,18 +1,19 @@
 """Public wrappers around the port's kernels.
 
 ``flash_attention`` takes model-layout tensors (B, S, H, D) with GQA
-(kv heads ≤ q heads).  On a CUDA tensor it launches the Hopper kernel
-(``kernels/csrc/flash_attention.cu``) or raises; on a CPU tensor it runs
-the kernel's plain version (``kernels.ref``).  It never falls back from
-the kernel to the plain version.  No autotune in this slice: the
-kernel's tiles are fixed.
+(kv heads ≤ q heads); ``ssd_scan`` takes the SSD scan's inputs with one
+B/C group.  On a CUDA tensor each launches its Hopper kernel
+(``kernels/csrc/``) or raises; on a CPU tensor it runs the kernel's
+plain version (``kernels.ref``).  Neither falls back from the kernel to
+the plain version.  No autotune yet: the kernels' tiles are fixed.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import flash_attention_ref, ssd_ref
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -30,3 +31,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, *, chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, N) or
+    (B, L, 1, N) -> (y (B, L, H, P), final state (B, H, P, N)).  Any L.
+
+    ``ssd_scan.launches`` counts kernel launches (CUDA only)."""
+    if b.dim() == 4:                        # (B, L, G, N) with G == 1
+        if b.shape[2] != 1 or c.shape[2] != 1:
+            raise ValueError(f"ssd_scan: {b.shape[2]} B/C groups; the kernel takes one")
+        b, c = b[:, :, 0], c[:, :, 0]
+    if x.device.type == "cuda":
+        out = ssd_scan_cuda(x, dt, a, b, c, chunk=chunk)
+        ssd_scan.launches += 1
+        return out
+    if x.device.type == "cpu":
+        return ssd_ref(x, dt, a, b, c)
+    raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+
+
+ssd_scan.launches = 0

@@ -38,3 +38,23 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vf = v.transpose(1, 2).reshape(b * h, -1, d)
     out = attention_ref(qf, kf, vf, causal=causal, window=window)
     return out.reshape(b, h, s, d).transpose(1, 2)
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Naive per-step SSD recurrence (fp32).
+
+    x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, N)  [G=1].
+    Returns (y (B, L, H, P), final_state (B, H, P, N)) in x's dtype.
+    """
+    bb, l, h, p = x.shape
+    n = b.shape[-1]
+    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
+    state = torch.zeros((bb, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(l):
+        decay = torch.exp(dtf[:, t] * a[None, :].float())             # (B,H)
+        upd = torch.einsum("bhp,bn,bh->bhpn", xf[:, t], bf[:, t], dtf[:, t])
+        state = state * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), state.to(x.dtype)

@@ -1,4 +1,5 @@
-"""Model zoo of the port, dense GQA subset (granite-3-2b's path)."""
+"""Model zoo of the port: the dense GQA decoder (granite-3-2b) and the
+Mamba-2 SSD model (mamba2-780m)."""
 from repro_torch.models.config import (
     BlockKind,
     MLACfg,

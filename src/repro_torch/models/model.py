@@ -1,5 +1,5 @@
-"""Model assembly, ``attn``/``dense`` subset: TransformerLM over per-layer
-block kinds.
+"""Model assembly, the ``("attn", "dense")`` and ``("ssd", "none")`` block
+kinds: TransformerLM over per-layer block kinds.
 
 Ports ``src/repro/models/model.py``.  Layers keep the reference's scan
 *segments* (``ModelConfig.scan_segments``): each segment stacks its
@@ -17,8 +17,10 @@ Public API (functions bound to a ModelConfig, forward only, under
 * ``prefill_forward(params, batch, cfg)``    — last-token logits + cache
 * ``decode_step(params, state, batch, cfg)`` — one-token serve step
 
-Other mixers and ffns raise ``NotImplementedError`` naming their ROADMAP
-item; ``loss_fn`` comes with the training slice.
+Attention blocks run the Hopper flash kernel on CUDA, SSD blocks the
+Hopper SSD scan kernel.  Other mixers and ffns raise
+``NotImplementedError`` naming their ROADMAP item; ``loss_fn`` comes
+with the training slice.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import ssm
+from repro_torch.models.config import BlockKind, ModelConfig
 from repro_torch.models.layers import (
     attention_decode,
     attention_train,
@@ -41,17 +44,16 @@ from repro_torch.models.spec import pdef, stack_defs, tree_map
 
 
 def _not_ported(what: str, name: str) -> NotImplementedError:
-    item = 3 if name == "ssd" else 4     # the SSM slice, or the remaining mixers
     return NotImplementedError(
-        f"{what} {name!r} is not ported yet: ROADMAP.md, 'Next slices' item {item}")
+        f"{what} {name!r} is not ported yet: ROADMAP.md, 'Next slices' item 4")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     cfg.validate()
     for mixer, ffn in cfg.block_kinds():
-        if mixer != "attn":
+        if mixer not in ("attn", "ssd"):
             raise _not_ported("mixer", mixer)
-        if ffn != "dense":
+        if ffn not in ("dense", "none"):
             raise _not_ported("ffn", ffn)
     if cfg.encoder_layers:
         raise _not_ported("encoder-decoder", cfg.name)
@@ -74,44 +76,84 @@ def _stack_leaves(trees: list) -> Any:
     return torch.stack(trees)
 
 
+def _store(stacked: dict, i: int, new: dict) -> None:
+    """Write layer ``i``'s new cache into the stacked cache tree, in place.
+
+    Leaves a block already updated in place (attention's ring buffer) are
+    left alone.  Where the new value is of another dtype than its buffer
+    (a bf16 SSD state under a float32 config: the reference's step
+    promotes it), the stacked buffer is recast once, as the reference's
+    returned tree would be."""
+    for k, v in new.items():
+        if isinstance(v, dict):
+            _store(stacked[k], i, v)
+            continue
+        if v.dtype != stacked[k].dtype:
+            stacked[k] = stacked[k].to(v.dtype)
+        dst = stacked[k][i]
+        if v.data_ptr() != dst.data_ptr():
+            dst.copy_(v)
+
+
 # ---------------------------------------------------------------------------
 # per-block parameter trees
 # ---------------------------------------------------------------------------
 
 
-def block_defs(cfg: ModelConfig) -> dict:
-    """Parameters of one ("attn", "dense") block."""
-    return {"ln1": make_norm_def(cfg.d_model), "attn": make_attention_defs(cfg),
-            "ln2": make_norm_def(cfg.d_model), "ffn": make_ffn_defs(cfg.d_model, cfg.d_ff)}
+def block_defs(cfg: ModelConfig, kind: BlockKind) -> dict:
+    mixer, ffn = kind
+    d: dict[str, Any] = {"ln1": make_norm_def(cfg.d_model)}
+    if mixer == "attn":
+        d["attn"] = make_attention_defs(cfg)
+    else:
+        d["ssd"] = ssm.make_ssd_defs(cfg)
+    if ffn == "dense":
+        d["ln2"] = make_norm_def(cfg.d_model)
+        d["ffn"] = make_ffn_defs(cfg.d_model, cfg.d_ff)
+    return d
 
 
-def _apply_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _apply_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
+               kind: BlockKind) -> torch.Tensor:
+    if kind[1] == "none":
+        return x
     return x + swiglu(params["ffn"], rms_norm(x, params["ln2"], cfg.norm_eps))
 
 
-def block_train(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def block_train(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                kind: BlockKind) -> torch.Tensor:
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    x = x + attention_train(params["attn"], h, cfg)
-    return _apply_ffn(params, x, cfg)
+    if kind[0] == "attn":
+        y = attention_train(params["attn"], h, cfg)
+    else:
+        y = ssm.ssd_block_train(params["ssd"], h, cfg)
+    return _apply_ffn(params, x + y, cfg, kind)
 
 
-def block_decode(params: dict, x: torch.Tensor, cache: dict,
-                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+def block_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
+                 kind: BlockKind) -> tuple[torch.Tensor, dict]:
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    y, c = attention_decode(params["attn"], h, cache["attn"], cfg)
-    x = _apply_ffn(params, x + y, cfg)
-    return x, {**cache, "attn": c}
+    if kind[0] == "attn":
+        y, c = attention_decode(params["attn"], h, cache["attn"], cfg)
+        new_cache = {**cache, "attn": c}
+    else:
+        y, c = ssm.ssd_block_decode(params["ssd"], h, cache["ssd"], cfg)
+        new_cache = {**cache, "ssd": c}
+    return _apply_ffn(params, x + y, cfg, kind), new_cache
 
 
-def block_prefill(params: dict, x: torch.Tensor,
-                  cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                  kind: BlockKind) -> tuple[torch.Tensor, dict]:
     """Like block_train but also captures the decode cache (prefill path)."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    y, kvs = attention_train(params["attn"], h, cfg, return_kv=True)
-    entry = {"attn": {**kvs, "len": torch.tensor(x.shape[1], dtype=torch.int32,
-                                                 device=x.device)}}
-    x = _apply_ffn(params, x + y, cfg)
-    return x, entry
+    if kind[0] == "attn":
+        y, kvs = attention_train(params["attn"], h, cfg, return_kv=True)
+        entry = {"attn": {**kvs, "len": torch.tensor(x.shape[1], dtype=torch.int32,
+                                                     device=x.device)}}
+    else:
+        y, c = ssm.ssd_block_train(params["ssd"], h, cfg, return_state=True)
+        entry = {"ssd": c}
+    return _apply_ffn(params, x + y, cfg, kind), entry
 
 
 # ---------------------------------------------------------------------------
@@ -119,7 +161,17 @@ def block_prefill(params: dict, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _block_cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+def _block_cache_defs(cfg: ModelConfig, kind: BlockKind, batch: int,
+                      seq_len: int) -> dict:
+    if kind[0] == "ssd":
+        s = cfg.ssm
+        dims = ssm.ssm_dims(cfg)
+        return {"ssd": {
+            "conv": pdef((batch, "batch"), (s.conv_width - 1, None),
+                         (dims["conv_dim"], "heads"), init="zeros"),
+            "state": pdef((batch, "batch"), (dims["n_heads"], "heads"),
+                          (s.head_dim, None), (s.d_state, None), init="zeros"),
+        }}
     hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
     return {"attn": {
         "k": pdef((batch, "batch"), (seq_len, "seq"), (kv, "kv_heads"), (hd, None),
@@ -145,7 +197,7 @@ def param_defs(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         defs["head"] = pdef((cfg.d_model, "d_model"), (cfg.vocab_size, "vocab"))
     defs["segments"] = [
-        {str(u): stack_defs(block_defs(cfg), repeats) for u in range(len(unit))}
+        {str(u): stack_defs(block_defs(cfg, kind), repeats) for u, kind in enumerate(unit)}
         for unit, repeats in cfg.scan_segments()
     ]
     return defs
@@ -156,8 +208,8 @@ def cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     _check_supported(cfg)
     return {
         "segments": [
-            {str(u): stack_defs(_block_cache_defs(cfg, batch, seq_len), repeats)
-             for u in range(len(unit))}
+            {str(u): stack_defs(_block_cache_defs(cfg, kind, batch, seq_len), repeats)
+             for u, kind in enumerate(unit)}
             for unit, repeats in cfg.scan_segments()
         ],
     }
@@ -181,8 +233,8 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig
     for seg_params, (unit, repeats) in zip(params["segments"], cfg.scan_segments()):
         for i in range(repeats):
             layer_params = _layer(seg_params, i)
-            for u in range(len(unit)):
-                x = block_train(layer_params[str(u)], x, cfg)
+            for u, kind in enumerate(unit):
+                x = block_train(layer_params[str(u)], x, cfg, kind)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, None, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -203,8 +255,8 @@ def prefill_forward(params: dict, batch: dict, cfg: ModelConfig
         for i in range(repeats):
             layer_params = _layer(seg_params, i)
             entry = {}
-            for u in range(len(unit)):
-                x, entry[str(u)] = block_prefill(layer_params[str(u)], x, cfg)
+            for u, kind in enumerate(unit):
+                x, entry[str(u)] = block_prefill(layer_params[str(u)], x, cfg, kind)
             entries.append(entry)
         segments_cache.append(_stack_leaves(entries))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -216,13 +268,14 @@ def prefill_forward(params: dict, batch: dict, cfg: ModelConfig
 def decode_step(params: dict, state: dict, batch: dict, cfg: ModelConfig
                 ) -> tuple[torch.Tensor, dict]:
     """One-token decode.  batch: {"inputs": (B,1) ids}.  Returns (logits,
-    state); the state's caches are updated in place."""
+    state); the state's caches are updated in place (see :func:`_store`)."""
     x = embed_inputs(params, batch, cfg)
     for seg_params, seg_cache, (unit, repeats) in zip(
             params["segments"], state["segments"], cfg.scan_segments()):
         for i in range(repeats):
             layer_params, layer_cache = _layer(seg_params, i), _layer(seg_cache, i)
-            for u in range(len(unit)):
-                x, _ = block_decode(layer_params[str(u)], x, layer_cache[str(u)], cfg)
+            for u, kind in enumerate(unit):
+                x, new = block_decode(layer_params[str(u)], x, layer_cache[str(u)], cfg, kind)
+                _store(seg_cache[str(u)], i, new)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg), state

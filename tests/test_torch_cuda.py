@@ -9,9 +9,10 @@ from __future__ import annotations
 
 import pytest
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels.ops import flash_attention
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ops import flash_attention, ssd_scan
+from repro_torch.kernels.ref import flash_attention_ref, ssd_ref
 
 
 @pytest.mark.cuda
@@ -32,3 +33,31 @@ def test_cuda_kernel_matches_plain_version(dtype, causal, window, s):
     want = flash_attention_ref(q, k, v, causal=causal, window=window)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,l,chunk,a_fp32", [
+    (torch.bfloat16, 1024, 128, False), (torch.bfloat16, 1000, 128, False),
+    (torch.bfloat16, 1024, 64, True), (torch.bfloat16, 300, 32, False),
+    (torch.float32, 1000, 128, True)])
+def test_cuda_ssd_kernel_matches_plain_version(dtype, l, chunk, a_fp32):
+    """mamba2-780m's head shape (P 64, N 128), inputs drawn as
+    tests/test_kernels.py draws them; its tolerances (bf16 5e-2, fp32 2e-3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, h = 2, 8
+    x = torch.randn(b, l, h, 64, generator=gen, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda")).to(dtype)
+    a = -torch.exp(0.3 * torch.randn(h, generator=gen, device="cuda"))
+    a = a if a_fp32 else a.to(dtype)
+    bm, cm = (torch.randn(b, l, 128, generator=gen, device="cuda").to(dtype) for _ in "bc")
+    before = ssd_scan.launches
+    y, state = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == state.dtype == dtype
+    want_y, want_state = ssd_ref(x, dt, a, bm, cm)
+    tol = 5e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(state.float(), want_state.float(), rtol=tol, atol=tol)

@@ -190,18 +190,18 @@ def test_decode_matches_train_forward():
     torch.testing.assert_close(torch.stack(dec, dim=1), train_logits, rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("arch", ["gemma3_27b", "mamba2-780m", "olmoe_1b_7b"])
+@pytest.mark.parametrize("arch", ["gemma3_27b", "recurrentgemma_9b", "olmoe_1b_7b"])
 def test_unported_architectures_say_where_they_wait(arch):
     assert arch not in ALIASES.values()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_config(arch)
 
 
-@pytest.mark.parametrize("pattern,item", [((("swa", "dense"),), 4), ((("ssd", "none"),), 3),
+@pytest.mark.parametrize("pattern,item", [((("swa", "dense"),), 4), ((("rglru", "dense"),), 4),
                                           ((("attn", "moe"),), 4)])
 def test_unported_mixers_say_where_they_wait(pattern, item):
-    from repro_torch.models.config import MoECfg, SSMCfg
-    cfg = get_smoke_config(ARCH).scaled(pattern=pattern, ssm=SSMCfg(),
+    from repro_torch.models.config import MoECfg, RGLRUCfg
+    cfg = get_smoke_config(ARCH).scaled(pattern=pattern, rglru=RGLRUCfg(),
                                         moe=MoECfg(n_experts=2, top_k=1, d_ff_expert=8))
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         TM.param_defs(cfg)

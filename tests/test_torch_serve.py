@@ -1,6 +1,6 @@
 """The port's serving plane: tests/test_serve.py on the torch backend,
-token-stream parity with ``JaxDecodeBackend`` on the same fp32 weights,
-a continuous run and the launcher."""
+token-stream parity with ``JaxDecodeBackend`` on the same fp32 weights
+(granite-3-2b and mamba2-780m), a continuous run and the launcher."""
 from __future__ import annotations
 
 import dataclasses
@@ -65,10 +65,10 @@ def test_serve_all_replicas_dead_fails_gracefully():
     assert rep.completed == 0
 
 
-def _fp32_pair(max_len=64):
+def _fp32_pair(max_len=64, arch="granite_3_2b"):
     """A JaxDecodeBackend and a TorchDecodeBackend on the same fp32 weights."""
-    jc = dataclasses.replace(jax_smoke("granite_3_2b"), compute_dtype="float32")
-    tc = dataclasses.replace(get_smoke_config("granite_3_2b"), compute_dtype="float32")
+    jc = dataclasses.replace(jax_smoke(arch), compute_dtype="float32")
+    tc = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
     jb = JaxDecodeBackend(jc, max_batch=4, max_len=max_len)
     jb.params = jax.tree.map(lambda x: x.astype(jnp.float32)
                              if jnp.issubdtype(x.dtype, jnp.floating) else x, jb.params)
@@ -77,10 +77,11 @@ def _fp32_pair(max_len=64):
     return jc, tc, jb, tb
 
 
-def test_token_streams_match_jax_backend():
+@pytest.mark.parametrize("arch", ["granite_3_2b", "mamba2_780m"])
+def test_token_streams_match_jax_backend(arch):
     """A full static serve() with a replica kill gives the same tokens on
     both backends (fresh replicas, the same fp32 weights)."""
-    jc, tc, jb, tb = _fp32_pair()
+    jc, tc, jb, tb = _fp32_pair(arch=arch)
     jreqs = _reqs(jc, 6, new_tokens=8, cls=JaxRequest)
     treqs = _reqs(tc, 6, new_tokens=8)
     jrep = JaxDriver(jc, n_replicas=2, max_batch=4, decode=jb).serve(
@@ -121,6 +122,7 @@ def test_serve_continuous_clean():
 
 @pytest.mark.parametrize("argv", [
     ["--device", "cpu", "--kill", "replica0:5", "--requests", "4"],
+    ["--arch", "mamba2-780m", "--device", "cpu", "--kill", "replica0:5", "--requests", "4"],
     ["--decode", "sim", "--continuous", "--kill", "replica1:3", "--requests", "12"]])
 def test_launcher(argv, monkeypatch, capsys):
     from repro_torch.launch import serve
