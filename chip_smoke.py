@@ -43,8 +43,13 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 PEAK_BYTES_S = 3.35e12
 
 # kernel vs plain tolerances, as tests/test_kernels.py holds the Pallas kernels
+# (allclose with rtol = atol = tol, i.e. max |out - ref| / (1 + |ref|) <= tol)
 TOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-4}
 SSD_TOL = {"torch.bfloat16": 5e-2, "torch.float32": 2e-3}
+# the SSD kernel at chunk 64 against itself at chunk 128, same inputs and
+# the same scaled measure: both carry fp32 and differ only in the order of
+# their sums and in the two final roundings to bf16 (2^-8 relative each)
+CHUNK_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-5}
 
 ARCHS = ("granite_3_2b", "mamba2_780m")
 
@@ -56,14 +61,21 @@ ARCHS = ("granite_3_2b", "mamba2_780m")
 # 0.5-0.67 away from fp32 on the same weights, and decode differs from
 # the kernel-driven forward by 0.13 max (the flash kernel rounds
 # unnormalised P to bf16, the decode path normalised p); 0.25 is twice that.
-# mamba2-780m (48 layers, 128 decode steps): fp32 1.3e-4 max.  In bf16
-# the forward is 0.40-0.54 away from fp32 on the same weights, and decode
-# drifts from the kernel-driven forward to 0.44 max (0.08 at the first
-# step, ~0.4 from the tenth on): decode keeps the SSD state in bf16 and
-# rounds it at every step, as the reference does, while the kernel
-# carries it in fp32 through the prompt; 0.9 is twice that.
+# mamba2-780m (48 layers, 128 decode steps): fp32 1.3e-4 max.  In bf16,
+# decode drifts from the kernel-driven forward to 0.44 max (0.08 at the
+# first decode step, ~0.4 from the tenth on): every step compounds the
+# rounding of 48 layers' recurrent states.  The bf16 forward is itself
+# 0.54 away from the fp32 forward on the same weights, so at this depth
+# any bf16 rounding difference reads ~0.4-0.5 and no tighter limit
+# separates a fault from rounding; 0.9 is twice the measured figure.  What
+# holds bf16 decode is the first layer alone (DEPTH1_BF16_REL_TOL): there
+# it is 9.3e-3 from the forward with the SSD state in bf16 and 6.7e-3
+# with it in fp32, so the state's rounding is not the main part.
 FP32_REL_TOL = 1e-3
 BF16_REL_TOL = {"granite_3_2b": 0.25, "mamba2_780m": 0.9}
+# mamba2-780m cut to its first layer (same weights), bf16 decode vs
+# forward over 128 steps: twice the 9.3e-3 measured on an H100
+DEPTH1_BF16_REL_TOL = 0.02
 
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 16, 16
 
@@ -75,6 +87,13 @@ def emit(phase: str, **fields) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def scaled_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |out - ref| / (1 + |ref|): allclose(rtol=atol=tol) holds iff
+    this is <= tol.  NaN if either holds a NaN."""
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs() / (1 + ref.abs())).max().item()
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -131,7 +150,7 @@ def phase_kernel_cases(seed: int) -> list[dict]:
         torch.cuda.synchronize()
         tol = TOL[str(dtype)]
         err = (out.float() - ref.float()).abs().max().item()
-        within = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+        scaled = scaled_err(out, ref)
         # the yardstick: one PyTorch call computing the same function
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         mask = None
@@ -148,13 +167,15 @@ def phase_kernel_cases(seed: int) -> list[dict]:
         bound_ms, bound_by, flops, nbytes = attention_bound(b, s, h, kv, d, str(dtype),
                                                             causal, window)
         row = {"case": name, "shape": [b, s, h, kv, d], "dtype": str(dtype),
-               "causal": causal, "window": window, "max_abs_err": err, "tol": tol,
-               "finite": bool(torch.isfinite(out.float()).all()), "ms": ms,
+               "causal": causal, "window": window, "max_abs_err": err,
+               "ref_abs_max": ref.float().abs().max().item(), "max_scaled_err": scaled,
+               "tol": tol, "finite": bool(torch.isfinite(out.float()).all()), "ms": ms,
                "plain_ms": plain_ms, "library_ms": library_ms, "library_max_abs_err": lib_err,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "tflops": flops / (ms * 1e-3) / 1e12, "flops": flops, "bytes": nbytes}
         emit("kernel_vs_plain", **row)
-        check(within and row["finite"], f"flash_attention {name}: max abs err {err} > {tol}")
+        check(scaled <= tol and row["finite"],
+              f"flash_attention {name}: max |out - ref| / (1 + |ref|) = {scaled} > {tol}")
         results.append(row)
         del q, k, v, out, ref, lib
         torch.cuda.empty_cache()
@@ -165,11 +186,20 @@ def ssd_bound(b: int, l: int, h: int, p: int, n: int, q: int, dtype,
               a_dtype) -> tuple[float, str, float, float]:
     """(bound ms, bound_by, flops, bytes) of one SSD scan on these inputs.
 
-    FLOPs count the full Q x Q tiles, as the Pallas kernel computes them:
-    per step C B^T (Q N), the decay tile times x dt (Q P), C . state and
-    the state update (P N each), 2 FLOPs per MAC.  Bytes: x, dt, a, b, c
-    read once, y and the final state written once."""
-    flops = 2.0 * b * h * l * (q * n + q * p + 2 * p * n)
+    FLOPs count what the function needs, 2 per MAC, chunk by chunk (the
+    last one may be short): C B^T on the causal pairs only, once per
+    (batch, chunk) since all heads share one B/C group; per head the
+    decay tile times x dt on the same pairs (P MACs a pair), C . state
+    (P N MACs a step; none in the first chunk, whose carried state is zero)
+    and the state update (P N MACs a step).  Bytes: x, dt, a, b, c read
+    once, y and the final state written once."""
+    pairs = steps = carried = 0
+    for l0 in range(0, l, q):
+        qc = min(q, l - l0)
+        pairs += qc * (qc + 1) // 2
+        steps += qc
+        carried += qc if l0 else 0
+    flops = 2.0 * b * (pairs * n + h * (pairs * p + (carried + steps) * p * n))
     es = 2 if dtype == "torch.bfloat16" else 4
     a_es = 2 if a_dtype == "torch.bfloat16" else 4
     nbytes = float(es * (2 * b * l * h * p + 2 * b * l * n + b * l * h + b * h * p * n)
@@ -212,14 +242,18 @@ def phase_ssd_cases(seed: int) -> list[dict]:
         tol = SSD_TOL[str(dtype)]
         err = max((y.float() - ref_y.float()).abs().max().item(),
                   (st.float() - ref_st.float()).abs().max().item())
-        within = (torch.allclose(y.float(), ref_y.float(), rtol=tol, atol=tol)
-                  and torch.allclose(st.float(), ref_st.float(), rtol=tol, atol=tol))
+        scaled = max(scaled_err(y, ref_y), scaled_err(st, ref_st))
         row = {"case": name, "shape": [b, l, h, p, n], "chunk": q, "dtype": str(dtype),
-               "max_abs_err": err, "ref_abs_max": ref_y.float().abs().max().item(),
-               "tol": tol, "finite": bool(torch.isfinite(y.float()).all()
-                                          and torch.isfinite(st.float()).all())}
+               "max_abs_err": err,
+               "ref_abs_max": max(ref_y.float().abs().max().item(),
+                                  ref_st.float().abs().max().item()),
+               "max_scaled_err": scaled, "tol": tol,
+               "finite": bool(torch.isfinite(y.float()).all()
+                              and torch.isfinite(st.float()).all())}
         if name == "chunk64":     # the chunk changes the order of sums, not the function
-            row["vs_chunk128_max_abs_diff"] = (y.float() - y128.float()).abs().max().item()
+            row.update(vs_chunk128_max_abs_diff=(y.float() - y128.float()).abs().max().item(),
+                       vs_chunk128_max_scaled_diff=scaled_err(y, y128),
+                       vs_chunk128_tol=CHUNK_TOL[str(dtype)])
         row["ms"] = cuda_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=q))
         row["plain_ms"] = cuda_ms(lambda: ssd_ref(x, dt, a, bm, cm), iters=2, warmup=1)
         row["library_ms"] = None   # no single PyTorch call computes the SSD scan
@@ -229,7 +263,12 @@ def phase_ssd_cases(seed: int) -> list[dict]:
                    tflops=flops / (row["ms"] * 1e-3) / 1e12,
                    gbytes_s=nbytes / (row["ms"] * 1e-3) / 1e9)
         emit("ssd_kernel_vs_plain", **row)
-        check(within and row["finite"], f"ssd_scan {name}: max abs err {err} > {tol}")
+        check(scaled <= tol and row["finite"],
+              f"ssd_scan {name}: max |out - ref| / (1 + |ref|) = {scaled} > {tol}")
+        if name == "chunk64":
+            check(row["vs_chunk128_max_scaled_diff"] <= row["vs_chunk128_tol"],
+                  f"ssd_scan chunk 64 vs chunk 128: max scaled difference "
+                  f"{row['vs_chunk128_max_scaled_diff']} > {row['vs_chunk128_tol']}")
         results.append(row)
         if name == "mamba2_prefill":
             base = ((x, dt, a, bm, cm), y)
@@ -278,10 +317,13 @@ def _rel_rows(a, b):
     return (a - b).norm(dim=-1) / b.norm(dim=-1)
 
 
-def _path_logits(params, cfg, ids, s: int, steps: int) -> dict:
+def _path_logits(params, cfg, ids, s: int, steps: int, *, state_dtype=None,
+                 timed: bool = True) -> dict:
     """Prefill ``ids[:, :s]``, teacher-force ``steps`` decode steps, and
     run the forward over all ``s + steps`` tokens; returns both sets of
-    logits at positions s-1 .. s+steps-1 with the timings."""
+    logits at positions s-1 .. s+steps-1 with (if ``timed``) the timings
+    and device profiles.  ``state_dtype`` recasts the SSD state that the
+    prefill hands to decode."""
     from repro_torch.distributed.step import build_prefill_step, build_serve_step
     from repro_torch.models import cache_defs, forward_train, materialize
     from repro_torch.models.model import _logits
@@ -304,7 +346,9 @@ def _path_logits(params, cfg, ids, s: int, steps: int) -> dict:
     for dst, src in zip(cache["segments"], pcache["segments"]):
         for u in dst:
             if "ssd" in dst[u]:
-                dst[u]["ssd"] = src[u]["ssd"]
+                st = src[u]["ssd"]["state"]
+                dst[u]["ssd"] = {"conv": src[u]["ssd"]["conv"],
+                                 "state": st.to(state_dtype) if state_dtype else st}
                 continue
             dst[u]["attn"]["k"][:, :, :s].copy_(src[u]["attn"]["k"])
             dst[u]["attn"]["v"][:, :, :s].copy_(src[u]["attn"]["v"])
@@ -319,23 +363,45 @@ def _path_logits(params, cfg, ids, s: int, steps: int) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         dec.append(lg[:, 0])
     launches = launch_counts()
-    profiles = {
-        "prefill": device_profile(lambda: prefill(params, {"inputs": ids[:, :s]})),
-        # one more step on the full cache (an attention ring buffer wraps
-        # onto slot 0; timing only)
-        "decode_step": device_profile(
-            lambda: serve_step(params, cache, {"inputs": ids[:, s:s + 1]})),
-    }
+    out = {"prefill_launches": prefill_launches, "launches": launches}
+    if timed:
+        out["profiles"] = {
+            "prefill": device_profile(lambda: prefill(params, {"inputs": ids[:, :s]})),
+            # one more step on the full cache (an attention ring buffer wraps
+            # onto slot 0; timing only)
+            "decode_step": device_profile(
+                lambda: serve_step(params, cache, {"inputs": ids[:, s:s + 1]})),
+        }
     del cache
     h, _, _ = forward_train(params, {"inputs": ids}, cfg)
-    ref = _logits(params, h[:, s - 1:], cfg)
-    prefill_ms = statistics.median(
-        cuda_ms(lambda: prefill(params, {"inputs": ids[:, :s]}), iters=1, warmup=0)
-        for _ in range(3))
-    return {"got": torch.stack(dec, dim=1), "ref": ref, "step_ms": step_ms,
-            "first_prefill_ms": first_prefill_ms, "prefill_ms": prefill_ms,
-            "prefill_launches": prefill_launches, "launches": launches,
-            "profiles": profiles}
+    out.update(got=torch.stack(dec, dim=1), ref=_logits(params, h[:, s - 1:], cfg))
+    if timed:
+        prefill_ms = statistics.median(
+            cuda_ms(lambda: prefill(params, {"inputs": ids[:, :s]}), iters=1, warmup=0)
+            for _ in range(3))
+        out.update(step_ms=step_ms, first_prefill_ms=first_prefill_ms, prefill_ms=prefill_ms)
+    return out
+
+
+def ssd_state_readings(params, cfg, ids, s: int, steps: int) -> dict:
+    """Decode vs the kernel-driven forward, bf16, on the model cut to its
+    first layer (the same weights): once with the SSD state as the
+    reference's decode keeps it (bf16, rounded at every step), once with it
+    widened to fp32 (the step then promotes what follows it to fp32, as the
+    reference's would).  Their gap is what the bf16 state costs before
+    depth amplifies it."""
+    from repro_torch.models.spec import tree_map
+
+    seg, = params["segments"]
+    params1 = {**params, "segments": [tree_map(lambda t: t[:1], seg)]}
+    cfg1 = cfg.scaled(n_layers=1)
+    out = {}
+    for name, state_dtype in (("bf16_state", None), ("fp32_state", torch.float32)):
+        r = _path_logits(params1, cfg1, ids, s, steps, state_dtype=state_dtype, timed=False)
+        rel = _rel_rows(r["got"], r["ref"])
+        out[name] = {"rel_err_max": rel.max().item(),
+                     "rel_err_by_pos": rel.max(dim=0).values.tolist()}
+    return out
 
 
 def expected_launches(cfg) -> dict[str, int]:
@@ -370,6 +436,7 @@ def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
     check(bf["prefill_launches"] == want,
           f"{arch}: prefill launched {bf['prefill_launches']}, expected {want}")
     check(bf["launches"] == want, f"{arch}: decode launched a kernel: {bf['launches']}")
+    depth1 = ssd_state_readings(params, cfg, ids, s, steps) if cfg.ssm else None
     # -- the same weights and tokens in fp32: the algorithms must agree ----
     cfg32 = cfg.scaled(compute_dtype="float32")
     params32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
@@ -401,6 +468,8 @@ def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
            "bf16_forward_vs_fp32_forward_by_pos": rel_bf_vs_32.max(dim=0).values.tolist(),
            "fp32_tol": FP32_REL_TOL, "bf16_tol": bf16_tol, "finite": finite,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if depth1:
+        out.update(depth1=depth1, depth1_bf16_tol=DEPTH1_BF16_REL_TOL)
     emit("prefill_decode", **out)
     emit("device_time", config=cfg.name, bf16=bf["profiles"], fp32=f32["profiles"])
     check(finite, f"{arch}: prefill/decode/forward logits are not all finite")
@@ -410,6 +479,10 @@ def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
     check(out["bf16_rel_err_max"] <= bf16_tol,
           f"{arch}: bf16 decode vs forward: max per-row relative error "
           f"{out['bf16_rel_err_max']} > {bf16_tol}")
+    if depth1:
+        got = depth1["bf16_state"]["rel_err_max"]
+        check(got <= DEPTH1_BF16_REL_TOL, f"{arch}: bf16 decode vs forward at depth 1: "
+              f"max per-row relative error {got} > {DEPTH1_BF16_REL_TOL}")
     return bf["launches"]
 
 
@@ -505,7 +578,8 @@ def main() -> int:
         table.append({"name": name, "route": "cuda",
                       "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                       "replaces": replaces, "launches": path_launches[arch][name],
-                      "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                      "max_abs_err": c["max_abs_err"], "ref_abs_max": c["ref_abs_max"],
+                      "max_scaled_err": c["max_scaled_err"], "tol": c["tol"], "ms": c["ms"],
                       "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                       "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
     print(json.dumps({"kernels": table}), flush=True)

@@ -18,15 +18,20 @@
 // What bounds it on the H100: at mamba2-780m's prefill (B 4, L 1024,
 // H 48, P 64, N 128, Q 128, bf16) one launch must move about 56 MB (x and
 // y 25.2 MB each, B and C 2.1 MB, the state 3.1 MB, dt 0.4 MB), 0.0167 ms
-// at 3.35 TB/s, and does 16.1 GFLOP counting the full Q x Q tiles,
-// 0.0163 ms at 989 TFLOP/s.  So bytes bound it, just.
+// at 3.35 TB/s.  The function needs 7.7 GFLOP (2 per MAC): per chunk C B^T
+// on the causal pairs only, once for all heads (one B/C group), and per
+// head the decay tile times x dt on the same pairs, C . state (none in the
+// first chunk, whose carried state is zero) and the state update; that is
+// 0.0078 ms at 989 TFLOP/s.  So bytes bound it, by 2x.
 //
 // What the design does about it, in this first, simple version:
 //  * The TPU grid's sequential chunk axis becomes a loop inside one
 //    thread block per (b, h), so the state never leaves the SM: it lives
 //    in shared memory (32 KB fp32) from the first chunk to the last, and
-//    only the final state is written.  Every input is read once and y
-//    is written once, so the kernel moves the bound's bytes and no more.
+//    only the final state is written.  Every input is read once, in
+//    place (x, B and C through their strides, as views of the model's
+//    conv output), and y is written once, so the kernel moves the bound's
+//    bytes and no more.
 //  * A chunk's B, C and x*dt are staged in shared memory as fp32 (about
 //    196 KB at Q 128, hence the opt-in above 48 KB).  The Q x Q decay
 //    tile (C B^T masked, then exp(cs_i - cs_j)) is built in registers and
@@ -66,14 +71,15 @@ __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 struct Params {
-  const void* x;      // (B, L, H, P)
-  const void* dt;     // (B, L, H)
+  const void* x;      // (B, L, H, P), each (H, P) row contiguous
+  const void* dt;     // (B, L, H), contiguous
   const void* a;      // (H,)
-  const void* b;      // (B, L, N)
-  const void* c;      // (B, L, N)
-  void* y;            // (B, L, H, P)
-  void* state;        // (B, H, P, N)
+  const void* b;      // (B, L, N), each N row contiguous
+  const void* c;      // (B, L, N), each N row contiguous
+  void* y;            // (B, L, H, P), contiguous
+  void* state;        // (B, H, P, N), contiguous
   int L, H;
+  long long xs_b, xs_l, bs_b, bs_l, cs_b, cs_l;   // batch and step strides, in elements
 };
 
 template <int Q>
@@ -99,10 +105,12 @@ __global__ void __launch_bounds__(NT) ssd_fwd(Params prm) {
   const int L = prm.L, H = prm.H;
   const int bh = blockIdx.x, bi = bh / H, h = bh % H;
   const int t = threadIdx.x;
-  const T* xg = static_cast<const T*>(prm.x);
-  const T* dtg = static_cast<const T*>(prm.dt);
-  const T* bg = static_cast<const T*>(prm.b);
-  const T* cg = static_cast<const T*>(prm.c);
+  // this (b, h)'s rows at step 0; step l is l strides further on
+  const T* xg = static_cast<const T*>(prm.x) + bi * prm.xs_b + h * P;
+  const T* dtg = static_cast<const T*>(prm.dt) + (size_t)bi * L * H + h;
+  const T* bg = static_cast<const T*>(prm.b) + bi * prm.bs_b;
+  const T* cg = static_cast<const T*>(prm.c) + bi * prm.cs_b;
+  const long long xs_l = prm.xs_l, bs_l = prm.bs_l, cs_l = prm.cs_l;
   T* yg = static_cast<T*>(prm.y);
   const float a = ld(static_cast<const TA*>(prm.a) + h);
 
@@ -122,22 +130,22 @@ __global__ void __launch_bounds__(NT) ssd_fwd(Params prm) {
     // -- stage dt, B, C and x of the chunk; steps past L are zeros ------
     if (t < Q) {
       const int l = l0 + t;
-      dts[t] = l < L ? ld(dtg + ((size_t)bi * L + l) * H + h) : 0.f;
+      dts[t] = l < L ? ld(dtg + (size_t)l * H) : 0.f;
     }
-    for (int e = t; e < Q * N; e += NT) {
-      const int i = e / N, n = e % N, l = l0 + i;
-      float bv = 0.f, cv = 0.f;
-      if (l < L) {
-        const size_t off = ((size_t)bi * L + l) * N + n;
-        bv = ld(bg + off);
-        cv = ld(cg + off);
-      }
-      bs[i * NS + n] = bv;
-      cs[i * NS + n] = cv;
+    // each thread keeps one column (n, or pp of x) and walks the rows; the
+    // trip counts are fixed and unrolled so that many loads are in flight
+    // at once (one block per SM hides little latency)
+    static_assert(NT % N == 0 && NT % P == 0, "rows are split evenly");
+#pragma unroll 8
+    for (int k = 0; k < Q * N / NT; ++k) {
+      const int i = t / N + k * (NT / N), n = t % N, l = l0 + i;
+      bs[i * NS + n] = l < L ? ld(bg + l * bs_l + n) : 0.f;
+      cs[i * NS + n] = l < L ? ld(cg + l * cs_l + n) : 0.f;
     }
-    for (int e = t; e < Q * P; e += NT) {
-      const int i = e / P, pp = e % P, l = l0 + i;
-      xdt[e] = l < L ? ld(xg + (((size_t)bi * L + l) * H + h) * P + pp) : 0.f;
+#pragma unroll 8
+    for (int k = 0; k < Q * P / NT; ++k) {
+      const int i = t / P + k * (NT / P), pp = t % P, l = l0 + i;
+      xdt[i * P + pp] = l < L ? ld(xg + l * xs_l + pp) : 0.f;
     }
     __syncthreads();
     // -- x * dt; warp 0 scans da = dt * a in fp64 ----------------------
@@ -310,15 +318,20 @@ int by_chunk(const Params& p, int blocks, int q, cudaStream_t stream) {
 }  // namespace
 
 // x, y: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, N); state:
-// (B, H, P, N).  All contiguous; x, dt, b, c, y, state of one type (bf16
-// if is_bf16 else fp32), a bf16 if a_is_bf16 else fp32.  q is the chunk
-// (32, 64 or 128).  Returns cudaGetLastError() after the launch.
+// (B, H, P, N).  x, b and c are read through their batch and step
+// strides (xs_*, bs_*, cs_*, in elements), so they may be views of one
+// wider tensor; each (H, P) row of x and each N row of b and c is
+// contiguous.  dt, a, y and state are contiguous.  x, dt, b, c, y, state
+// are of one type (bf16 if is_bf16 else fp32), a bf16 if a_is_bf16 else
+// fp32.  q is the chunk (32, 64 or 128).  Returns cudaGetLastError()
+// after the launch.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* a, const void* b,
                             const void* c, void* y, void* state, int B, int L, int H,
                             int p_dim, int n_dim, int q, int is_bf16, int a_is_bf16,
-                            void* stream) {
+                            long long xs_b, long long xs_l, long long bs_b, long long bs_l,
+                            long long cs_b, long long cs_l, void* stream) {
   if (p_dim != P || n_dim != N || B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  Params p{x, dt, a, b, c, y, state, L, H};
+  Params p{x, dt, a, b, c, y, state, L, H, xs_b, xs_l, bs_b, bs_l, cs_b, cs_l};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = B * H;
   if (is_bf16 && a_is_bf16) return by_chunk<__nv_bfloat16, __nv_bfloat16>(p, blocks, q, st);

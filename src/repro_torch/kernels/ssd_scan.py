@@ -2,9 +2,10 @@
 
 Replaces ``src/repro/kernels/ssd_scan.py`` (``_kernel`` and
 ``ssd_scan_kernel``).  The Pallas kernel padded L up to a multiple of
-the chunk with copies; this kernel reads the model layout in place and
-treats steps past L as dt = 0 identities itself, so the launcher makes
-no copy.  The source's header says what bounds the kernel on the H100
+the chunk with copies; this kernel reads the model layout in place (x, b
+and c through their batch and step strides, so the model's views of its
+conv output need no copy) and treats steps past L as dt = 0 identities
+itself, so the launcher makes no copy.  The source's header says what bounds the kernel on the H100
 and what its design does about it.
 
 The public entry is :func:`repro_torch.kernels.ops.ssd_scan`, which
@@ -27,7 +28,8 @@ CHUNKS = (32, 64, 128)     # the kernel's chunk tiles
 def _fn():
     fn = build.library("ssd_scan").ssd_scan_fwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 6
+                      + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -62,11 +64,17 @@ def _check(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                         f"c {c.dtype}; the kernel takes bf16 or fp32, all alike")
     if a.dtype not in (x.dtype, torch.float32):
         raise TypeError(f"ssd_scan: a is {a.dtype}; the kernel takes x's dtype or fp32")
+    # x, b and c may be strided views (the model's split of its conv
+    # output); their rows must be contiguous.  dt and a are read packed.
+    if (x.stride(3) != 1 or (h > 1 and x.stride(2) != p)
+            or b.stride(2) != 1 or c.stride(2) != 1):
+        raise ValueError("ssd_scan: each (H, P) row of x and each N row of b and c "
+                         "must be contiguous")
+    if not dt.is_contiguous() or not a.is_contiguous():
+        raise ValueError("ssd_scan: dt and a must be contiguous")
     for name, t in (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c)):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"ssd_scan: {name} is on {t.device}, not {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"ssd_scan: {name} must be contiguous")
     if bb == 0 or l == 0 or h == 0:
         raise ValueError("ssd_scan: empty batch, sequence or heads")
 
@@ -74,17 +82,19 @@ def _check(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                   c: torch.Tensor, *, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, N) on one CUDA
-    device -> (y (B, L, H, P), final state (B, H, P, N)), both in x's dtype."""
+    device -> (y (B, L, H, P), final state (B, H, P, N)), both in x's dtype
+    and contiguous.  x, b and c are read through their strides."""
     q = kernel_chunk(chunk)
     _check(x, dt, a, b, c)
     bb, l, h, p = x.shape
     n = b.shape[-1]
-    y = torch.empty_like(x)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     state = torch.empty((bb, h, p, n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _fn()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                     y.data_ptr(), state.data_ptr(), bb, l, h, p, n, q, _DTYPES[x.dtype],
-                    _DTYPES[a.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+                    _DTYPES[a.dtype], x.stride(0), x.stride(1), b.stride(0), b.stride(1),
+                    c.stride(0), c.stride(1), torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan: kernel launch failed with CUDA error {err}")
     return y, state

@@ -76,23 +76,19 @@ def _stack_leaves(trees: list) -> Any:
     return torch.stack(trees)
 
 
-def _store(stacked: dict, i: int, new: dict) -> None:
-    """Write layer ``i``'s new cache into the stacked cache tree, in place.
+def _widen(stacked: dict, i: int, new: dict) -> None:
+    """Store the cache leaves a block's step widened, and only those.
 
-    Leaves a block already updated in place (attention's ring buffer) are
-    left alone.  Where the new value is of another dtype than its buffer
-    (a bf16 SSD state under a float32 config: the reference's step
-    promotes it), the stacked buffer is recast once, as the reference's
-    returned tree would be."""
+    Blocks update their cache leaves in place.  Where a step returns a
+    leaf of another dtype (a bf16 SSD state under fp32 activations: the
+    reference's step promotes it), the stacked leaf is recast once and
+    layer ``i``'s value stored; later layers then update in place."""
     for k, v in new.items():
         if isinstance(v, dict):
-            _store(stacked[k], i, v)
-            continue
-        if v.dtype != stacked[k].dtype:
+            _widen(stacked[k], i, v)
+        elif v.dtype != stacked[k].dtype:
             stacked[k] = stacked[k].to(v.dtype)
-        dst = stacked[k][i]
-        if v.data_ptr() != dst.data_ptr():
-            dst.copy_(v)
+            stacked[k][i].copy_(v)
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +264,7 @@ def prefill_forward(params: dict, batch: dict, cfg: ModelConfig
 def decode_step(params: dict, state: dict, batch: dict, cfg: ModelConfig
                 ) -> tuple[torch.Tensor, dict]:
     """One-token decode.  batch: {"inputs": (B,1) ids}.  Returns (logits,
-    state); the state's caches are updated in place (see :func:`_store`)."""
+    state); the state's caches are updated in place (see :func:`_widen`)."""
     x = embed_inputs(params, batch, cfg)
     for seg_params, seg_cache, (unit, repeats) in zip(
             params["segments"], state["segments"], cfg.scan_segments()):
@@ -276,6 +272,6 @@ def decode_step(params: dict, state: dict, batch: dict, cfg: ModelConfig
             layer_params, layer_cache = _layer(seg_params, i), _layer(seg_cache, i)
             for u, kind in enumerate(unit):
                 x, new = block_decode(layer_params[str(u)], x, layer_cache[str(u)], cfg, kind)
-                _store(seg_cache[str(u)], i, new)
+                _widen(seg_cache[str(u)], i, new)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg), state

@@ -138,8 +138,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
             raise NotImplementedError(
                 "the SSD kernel takes one B/C group and no initial state: "
                 "ROADMAP.md, Queue 2 item 4")
-        return ssd_scan_kernel(x.contiguous(), dt.contiguous(), a.contiguous(),
-                               b.contiguous(), c.contiguous(), chunk=chunk)
+        # x, b and c stay views of the conv output: the kernel reads them in place
+        return ssd_scan_kernel(x, dt, a, b, c, chunk=chunk)
     return _ssd_scan_chunked(x, dt, a, b, c, chunk, initial_state)
 
 
@@ -197,8 +197,10 @@ def ssd_block_train(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 def ssd_block_decode(params: dict, x: torch.Tensor, cache: dict,
                      cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """Single-token update.  cache: {"conv": (B, W-1, conv_dim),
-    "state": (B, H, P, N)}.  Returns the new cache as new tensors, as the
-    reference does; ``model.decode_step`` stores them in place."""
+    "state": (B, H, P, N)}.  A leaf is updated in place and returned, as
+    attention's cache is, where its dtype holds the step's result.  Where
+    the step widens it (a bf16 leaf under fp32 activations, as the
+    reference's step promotes it), the new value is a new tensor."""
     s: SSMCfg = cfg.ssm  # type: ignore[assignment]
     dims = ssm_dims(cfg)
     bsz = x.shape[0]
@@ -208,15 +210,21 @@ def ssd_block_decode(params: dict, x: torch.Tensor, cache: dict,
     conv_in = torch.cat([xin, bc_in], dim=-1)
     conv_out, conv_state = _causal_conv(conv_in, params["conv_w"], params["conv_b"],
                                         state=cache["conv"])
+    if conv_state.dtype == cache["conv"].dtype:
+        conv_state = cache["conv"].copy_(conv_state)
     xin, b_in, c_in = torch.split(conv_out, [dims["d_inner"], g * n, g * n], dim=-1)
     dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None])[:, 0]   # (B,H)
     a = -torch.exp(params["a_log"])                      # (H,)
     xh = xin.reshape(bsz, h, p)
     bh = b_in.reshape(bsz, g, n).repeat_interleave(h // g, dim=1)          # (B,H,N)
     ch = c_in.reshape(bsz, g, n).repeat_interleave(h // g, dim=1)
-    decay = torch.exp(dt * a[None]).to(x.dtype)          # (B,H)
+    decay = torch.exp(dt * a[None]).to(x.dtype)[..., None, None]           # (B,H,1,1)
     upd = _einsum("bhp,bhn,bh->bhpn", xh, bh, dt.to(x.dtype))
-    state = cache["state"] * decay[..., None, None] + upd
+    state = cache["state"]
+    if torch.promote_types(state.dtype, x.dtype) == state.dtype:
+        state = state.mul_(decay).add_(upd)
+    else:
+        state = state * decay + upd
     y = _einsum("bhpn,bhn->bhp", state, ch)
     y = y + params["d_skip"].to(x.dtype)[None, :, None] * xh
     y = y.reshape(bsz, 1, dims["d_inner"])

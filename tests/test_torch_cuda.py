@@ -61,3 +61,24 @@ def test_cuda_ssd_kernel_matches_plain_version(dtype, l, chunk, a_fp32):
     tol = 5e-2 if dtype == torch.bfloat16 else 2e-3
     torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(state.float(), want_state.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_kernel_reads_strided_views():
+    """x, B and C as the model passes them: views of one conv output
+    (B, L, H*P + 2N), read in place by the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, l, h, p, n = 2, 300, 8, 64, 128
+    conv = torch.randn(b, l, h * p + 2 * n, generator=gen, device="cuda").to(torch.bfloat16)
+    x = conv[..., :h * p].reshape(b, l, h, p)
+    bm, cm = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+    assert not x.is_contiguous() and not bm.is_contiguous()
+    dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda")).to(torch.bfloat16)
+    a = -torch.exp(0.3 * torch.randn(h, generator=gen, device="cuda"))
+    y, state = ssd_scan(x, dt, a, bm, cm, chunk=128)
+    want_y, want_state = ssd_scan(x.contiguous(), dt, a, bm.contiguous(), cm.contiguous(),
+                                  chunk=128)
+    torch.testing.assert_close(y, want_y, rtol=0, atol=0)
+    torch.testing.assert_close(state, want_state, rtol=0, atol=0)

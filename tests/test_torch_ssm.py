@@ -236,9 +236,12 @@ def test_no_silent_fallback_off_cpu():
     (64, 128, torch.float16, torch.float16, 128, "bf16 or fp32"),
     (64, 128, torch.float32, torch.bfloat16, 128, "x's dtype or fp32"),
     (64, 128, torch.float32, torch.float32, 256, "chunk 256"),
+    (64, 128, torch.float32, torch.float32, 128, "row of x .* must be contiguous"),
 ])
 def test_launcher_rejects_what_the_kernel_does_not_take(p, n, dtype, a_dtype, chunk, match):
     x = torch.zeros(1, 64, 2, p, dtype=dtype)
+    if match.startswith("row of x"):            # heads not packed within a step
+        x = torch.zeros(1, 64, p, 2, dtype=dtype).transpose(2, 3)
     dt = torch.zeros(1, 64, 2, dtype=dtype)
     bc = torch.zeros(1, 64, n, dtype=dtype)
     with pytest.raises((ValueError, TypeError), match=match):
@@ -282,9 +285,10 @@ def test_ssd_block_decode_matches(setup):
     tparams = TS.tree_map(lambda t: t[0], tp["segments"][0]["0"]["ssd"])
     jy, jc_ = JSSM.ssd_block_decode(jparams, jnp.asarray(x),
                                     {"conv": jnp.asarray(conv), "state": jnp.asarray(state)}, jc)
+    # the port updates its cache in place: give it copies of the arrays
     ty, tc_ = TSSM.ssd_block_decode(tparams, torch.from_numpy(x),
-                                    {"conv": torch.from_numpy(conv),
-                                     "state": torch.from_numpy(state)}, tc)
+                                    {"conv": torch.from_numpy(conv.copy()),
+                                     "state": torch.from_numpy(state.copy())}, tc)
     _close(ty, jy)
     _close(tc_["conv"], jc_["conv"])
     _close(tc_["state"], jc_["state"])
