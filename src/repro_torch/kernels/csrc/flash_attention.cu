@@ -1,36 +1,44 @@
 // Flash attention forward for Hopper (sm_90a), model layout (B, S, H, D).
 //
-// Replaces src/repro/kernels/flash_attention.py:_kernel (the Pallas TPU
-// kernel behind flash_attention_bh) and computes the same function:
+// Replaces src/repro/kernels/flash_attention.py:flash_attention_bh (the
+// Pallas TPU kernel, body _kernel) and computes the same function:
 // softmax(q k^T / sqrt(D) + mask) v with fp32 scores, a running max m,
 // normaliser l and fp32 accumulator, the finite NEG_INF = -1e30 for
-// masked scores (causal, sliding window, keys past Sk), and an output of
-// acc / max(l, 1e-30) in q's dtype.
+// masked scores (causal, sliding window, keys past Sk), P rounded to bf16
+// for the P V product, and an output of acc / max(l, 1e-30) in q's dtype.
 //
-// What bounds it on the H100: at the serving path's prefill shapes
-// (S = 1024, D = 64, bf16, causal) the work is about 2 * B*H*S^2*D
-// FLOPs against about 4 * B*S*H*D * 2 bytes, i.e. hundreds of FLOPs per
-// byte, so the tensor cores bound it, not HBM.
+// What bounds it on the H100: the tensor cores.  At the serving path's
+// prefill shape (B 4, S 1024, H 32, KV 8, D 64, bf16, causal) the visible
+// pairs need 17.2 GFLOP (4 D FLOPs a pair), 0.0174 ms at 989 TFLOP/s,
+// against 42 MB of q, k, v and o, 0.0125 ms at 3.35 TB/s.  Next to the
+// products, exp2 on the special-function units costs as much again at
+// D 64 (16 a cycle per SM against 4096 tensor FLOPs a cycle).
 //
-// What the design does about it:
-//  * The TPU grid's sequential kv axis becomes a loop inside one thread
-//    block per (b*h, 64-row q tile); K/V tiles are staged through shared
-//    memory and every score stays in registers (fp32 m, l and acc too).
-//  * bf16 runs on the tensor cores with mma.sync m16n8k16 (fp32
-//    accumulate).  Each warp owns 16 q rows; the score fragment of
-//    S = Q K^T is re-packed in registers as the A operand of P V, so P
-//    never touches shared memory.  P is rounded to bf16 for that product
-//    (the reference rounds its normalised p to bf16 as well).
-//  * GQA is resolved by indexing: q head h reads kv head h / (H / KV);
-//    no repeated copy of K or V is made.
-//  * Tiles wholly above the causal diagonal or before the window are
-//    skipped; the ragged edge (S not a multiple of the tile) is masked
-//    in the kernel, with zero-filled shared memory and no padding copy.
+// What the bf16 design does about it:
+//  * Both products on wgmma: S = Q K^T as m64n128k16 with Q and K read
+//    from shared memory, O += P V as m64nDk16 with P in registers (the S
+//    accumulator's layout is the A-fragment layout, so P is packed to bf16
+//    pairs in place) and V read from shared memory as TMA wrote it,
+//    (kv, d) with d contiguous: the MN-major B operand, no transpose.
+//  * A block takes 128 q rows as two consumer warpgroups of 64 rows.
+//    Q, K and V arrive by TMA (cp.async.bulk.tensor, 128-byte swizzle,
+//    64-column boxes) into a ring of K/V stages guarded by mbarriers: a
+//    "full" barrier per stage and operand counts the TMA's bytes, an
+//    "empty" barrier per stage takes every consumer thread's arrival.
+//    One elected thread keeps the ring STAGES - 1 tiles ahead, so the
+//    loads of later tiles are in flight while a tile is computed.
+//  * TMA zero-fills rows past S or Sk, so ragged lengths need no padding
+//    copy; keys past Sk are still masked, as are the causal diagonal tile
+//    and the window's first tiles.  Tiles with no masked pair skip the
+//    mask; tiles with no visible pair are neither loaded nor computed.
+//  * Causal q tiles launch heaviest first (blockIdx.y counts down from
+//    the last q tile), so the last wave holds the shortest blocks.
+//  * GQA by index: q head h reads kv head h / (H / KV) through the K/V
+//    tensor maps; no copy of K or V is made.
 //  * fp32 inputs take a plain SIMT kernel (one q row per thread), exact
 //    in fp32 to the reference's 1e-4.
-// Later work (wgmma, TMA, a producer warp, double buffering) is noted in
-// ROADMAP.md; this first kernel is the simple, right one.
 
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,9 +47,12 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int BM = 64;        // q rows per block (both kernels)
-constexpr int BN = 64;        // kv rows per tile, bf16 kernel
+constexpr int BM = 64;        // q rows per block, fp32 kernel
 constexpr int TN = 32;        // kv rows per tile, fp32 kernel
+constexpr int WM = 128;       // q rows per block, bf16 kernel (two warpgroups of 64)
+constexpr int WN = 128;       // kv rows per tile, bf16 kernel
+constexpr int BOX = 64;       // bf16 columns of one TMA box: the 128-byte swizzle span
+constexpr int ROW = 128;      // bytes of one box row in shared memory
 
 struct Params {
   const void* q;
@@ -76,158 +87,339 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores, 4 warps x 16 q rows
+// mbarriers and TMA
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// this thread's arrival, and `bytes` more for the barrier's phase to wait on
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a 4-D tensor map (innermost coordinate first) into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+        "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1).
+// Offsets in 16-byte units.  K-major (Q, K): rows of 128 bytes, SBO = 1024 B
+// between 8-row groups, LBO unused.  MN-major (V): SBO = 1024 B between
+// 8-row groups along k, LBO = the step between 64-column boxes along n.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo) << 16) |
+         (static_cast<uint64_t>(sbo) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keeps the compiler from reading an accumulator before wgmma_wait_all
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, f32) {=, +=} a (64 x 16, smem) * b (16 x 128, smem), both K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += a (64 x 16, registers) * b (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, f32) += a (64 x 16, registers) * b (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// S (this warpgroup's 64 q rows x WN keys, fp32) = Q K^T.  q, k: shared
+// addresses of the warpgroup's Q rows and of the K tile, D / 64 boxes each.
+template <int D>
+__device__ __forceinline__ void qk_product(float (&s)[64], uint32_t q, uint32_t k) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {   // 16 columns (32 bytes) a step
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss_n128(s, smem_desc(q + (kk / 4) * (WM * ROW) + col, 1, 64),
+                  smem_desc(k + (kk / 4) * (WN * ROW) + col, 1, 64), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(s);
+}
+
+// O (64 x D, fp32) += P (64 x WN, bf16 A fragments) V (WN x D at shared address v)
+template <int D>
+__device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&pf)[WN / 16][4],
+                                           uint32_t v) {
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < WN / 16; ++j) {     // 16 kv rows (2048 bytes) a step
+    const uint64_t desc = smem_desc(v + j * 16 * ROW, WN * ROW / 16, 64);
+    if constexpr (D == 64) wgmma_rs_n64(o, pf[j], desc);
+    else wgmma_rs_n128(o, pf[j], desc);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(o);
+}
+
+// Shared memory of the bf16 kernel: Q, then STAGES K tiles, STAGES V
+// tiles (each D / 64 boxes of 128 rows x 128 bytes), then the mbarriers.
+template <int D>
+struct Smem {
+  static constexpr int STAGES = D == 64 ? 4 : 3;
+  static constexpr uint32_t Q_BYTES = WM * D * 2;
+  static constexpr uint32_t KV_BYTES = WN * D * 2;
+  static constexpr size_t BYTES =
+      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 3 * STAGES);   // 1024: alignment
+};
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma, TMA, two consumer warpgroups of 64 q rows
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(128) flash_fwd_bf16(Params p) {
-  constexpr int DP = D + 8;   // padded smem row of Q and K (bf16 elements)
-  constexpr int NP = BN + 8;  // padded smem row of V^T
-  constexpr int CH = D / 8;   // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);  // [BM][DP]
-  __nv_bfloat16* sK = sQ + BM * DP;                             // [BN][DP]
-  __nv_bfloat16* sVt = sK + BN * DP;                            // [D][NP]
+__global__ void __launch_bounds__(256, 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, Params p) {
+  using L = Smem<D>;
+  constexpr int STAGES = L::STAGES;
+  constexpr int BOXES = D / BOX;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  unsigned char* sQ = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* sK = sQ + L::Q_BYTES;
+  unsigned char* sV = sK + STAGES * L::KV_BYTES;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + STAGES * L::KV_BYTES);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty = full_v + STAGES;
 
-  const int bh = blockIdx.y;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;   // accumulator row group / column pair
+  const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H;
   const int kvh = h / (p.H / p.KV);
-  const int q0 = blockIdx.x * BM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;   // mma fragment row group / column pair
+  // causal: the first blocks take the last q tiles, which have the most kv tiles
+  const int qt = p.causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y) : blockIdx.y;
+  const int q0 = qt * WM;
+  int hi = p.Sk;
+  if (p.causal) hi = min(hi, q0 + WM);              // keys k <= q
+  const int lo = p.window ? max(0, q0 - p.window + 1) : 0;   // keys k > q - window
+  const int t_lo = lo / WN;
+  const int n = (hi + WN - 1) / WN - t_lo;           // kv tiles with a visible key
 
-  const size_t q_stride = (size_t)p.H * D;   // elements between sequence positions
-  const size_t kv_stride = (size_t)p.KV * D;
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(p.q) + ((size_t)b * p.S * p.H + h) * D;
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(p.k) + ((size_t)b * p.Sk * p.KV + kvh) * D;
-  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(p.v) + ((size_t)b * p.Sk * p.KV + kvh) * D;
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + ((size_t)b * p.S * p.H + h) * D;
+  auto load_kv = [&](int j) {   // kv tile t_lo + j into stage j % STAGES
+    const int s = j % STAGES, k0 = (t_lo + j) * WN;
+    mbar_expect_tx(&full_k[s], L::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < BOXES; ++c)
+      tma_load(sK + s * L::KV_BYTES + c * WN * ROW, &tm_k, &full_k[s], c * BOX, kvh, k0, b);
+    mbar_expect_tx(&full_v[s], L::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < BOXES; ++c)
+      tma_load(sV + s * L::KV_BYTES + c * WN * ROW, &tm_v, &full_v[s], c * BOX, kvh, k0, b);
+  };
 
-  for (int c = tid; c < BM * CH; c += blockDim.x) {
-    const int r = c / CH, cc = c % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < p.S) val = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * q_stride + cc * 8);
-    *reinterpret_cast<uint4*>(sQ + r * DP + cc * 8) = val;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], blockDim.x);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-
-  const int r0 = warp * 16 + g;   // this thread's rows in the tile: r0, r0 + 8
-  uint32_t qf[D / 16][4];
+  if (tid == 0 && n > 0) {
+    mbar_expect_tx(bar_q, L::Q_BYTES);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int col = kk * 16 + t4 * 2;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(sQ + r0 * DP + col);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(sQ + (r0 + 8) * DP + col);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(sQ + r0 * DP + col + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(sQ + (r0 + 8) * DP + col + 8);
+    for (int c = 0; c < BOXES; ++c) tma_load(sQ + c * WM * ROW, &tm_q, bar_q, c * BOX, h, q0, b);
+    for (int j = 0; j < min(STAGES, n); ++j) load_kv(j);
   }
 
-  float acc[D / 8][4];
+  float o[D / 2];   // the m64nD accumulator: 4 values per 8-column block
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-  float m0 = NEG_INF, m1 = NEG_INF;   // running max of rows r0, r0 + 8 (base 2)
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF;   // running max of rows row0, row1 (raw scores)
   float l0 = 0.f, l1 = 0.f;           // this thread's share of the normaliser
-  const int qpos0 = q0 + r0, qpos1 = qpos0 + 8;
+  const int wq0 = q0 + wg * 64;       // the warpgroup's first q row
+  const int row0 = wq0 + warp * 16 + g, row1 = row0 + 8;
+  const uint32_t q_smem = smem_u32(sQ) + wg * 64 * ROW;
+  if (n > 0) mbar_wait(bar_q, 0);
 
-  int t_lo, t_hi;
-  kv_tiles(p, q0, BN, t_lo, t_hi);
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * BN;
-    __syncthreads();   // the previous tile is consumed
-    for (int c = tid; c < BN * CH; c += blockDim.x) {
-      const int r = c / CH, cc = c % CH;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < p.Sk) val = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * kv_stride + cc * 8);
-      *reinterpret_cast<uint4*>(sK + r * DP + cc * 8) = val;
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES;
+    const uint32_t phase = (i / STAGES) & 1;
+    if (tid == 0 && i > 0 && i + STAGES - 1 < n) {
+      // the next tile goes where tile i - 1 was: wait until every thread is done with it
+      const int j = i + STAGES - 1;
+      mbar_wait(&empty[j % STAGES], ((j / STAGES) & 1) ^ 1);
+      load_kv(j);
     }
-    for (int c = tid; c < BN * CH; c += blockDim.x) {
-      const int r = c % BN, cc = c / BN;   // lanes walk kv rows: conflict-free transpose
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < p.Sk) val = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * kv_stride + cc * 8);
-      const uint32_t w[4] = {val.x, val.y, val.z, val.w};
-      uint16_t* col = reinterpret_cast<uint16_t*>(sVt) + (cc * 8) * NP + r;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        col[i * NP] = static_cast<uint16_t>((i & 1) ? (w[i / 2] >> 16) : (w[i / 2] & 0xffffu));
-    }
-    __syncthreads();
+    __syncwarp();
+    const int k0 = (t_lo + i) * WN;
 
-    float s[BN / 8][4];
+    float sc[64];
+    mbar_wait(&full_k[s], phase);
+    qk_product<D>(sc, q_smem, smem_u32(sK + s * L::KV_BYTES));
+
+    // mask only where this warpgroup's rows meet a masked pair
+    const bool edge = k0 + WN > p.Sk || (p.causal && k0 + WN - 1 > wq0) ||
+                      (p.window && k0 <= wq0 + 63 - p.window);
+    if (edge) {
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* krow = sK + (nt * 8 + g) * DP + kk * 16 + t4 * 2;
-        mma_bf16(s[nt], qf[kk], *reinterpret_cast<const uint32_t*>(krow),
-                 *reinterpret_cast<const uint32_t*>(krow + 8));
+      for (int e = 0; e < 64; ++e) {
+        const int kpos = k0 + (e / 4) * 8 + t4 * 2 + (e & 1);
+        if (!visible(p, (e & 2) ? row1 : row0, kpos)) sc[e] = NEG_INF;
       }
     }
-
     float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + nt * 8 + t4 * 2 + (e & 1);
-        const int qpos = e < 2 ? qpos0 : qpos1;
-        const float x = visible(p, qpos, kpos) ? s[nt][e] * p.scale_log2 : NEG_INF;
-        s[nt][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
-      }
+    for (int nb = 0; nb < WN / 8; ++nb) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * nb], sc[4 * nb + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * nb + 2], sc[4 * nb + 3]));
     }
-    // the four lanes of a quad share rows r0 and r0 + 8
+    // the four lanes of a quad share rows row0 and row1
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float a0 = exp2f(m0 - mx0), a1 = exp2f(m1 - mx1);
+    const float sl = p.scale_log2;
+    const float a0 = ex2((m0 - mx0) * sl), a1 = ex2((m1 - mx1) * sl);
     m0 = mx0;
     m1 = mx1;
+    // a row with no visible key yet keeps p = 0 (an fma against a max of
+    // NEG_INF could leave a residue of ~1e22 in the exponent)
+    const float ms0 = mx0 == NEG_INF ? 0.f : mx0 * sl;
+    const float ms1 = mx1 == NEG_INF ? 0.f : mx1 * sl;
 
-    // P as the A operand of P V: score n-tiles 2j and 2j+1 form k-step j
-    uint32_t pf[BN / 16][4];
+    // P as the A operand of P V: 8-column blocks 2j and 2j+1 form k-step j
+    uint32_t pf[WN / 16][4];
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      const float p0 = exp2f(s[nt][0] - m0), p1 = exp2f(s[nt][1] - m0);
-      const float p2 = exp2f(s[nt][2] - m1), p3 = exp2f(s[nt][3] - m1);
+    for (int nb = 0; nb < WN / 8; ++nb) {
+      const float p0 = ex2(fmaf(sc[4 * nb], sl, -ms0));
+      const float p1 = ex2(fmaf(sc[4 * nb + 1], sl, -ms0));
+      const float p2 = ex2(fmaf(sc[4 * nb + 2], sl, -ms1));
+      const float p3 = ex2(fmaf(sc[4 * nb + 3], sl, -ms1));
       rs0 += p0 + p1;
       rs1 += p2 + p3;
-      pf[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(p0, p1);
-      pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p2, p3);
+      pf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(p0, p1);
+      pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(p2, p3);
     }
     l0 = l0 * a0 + rs0;
     l1 = l1 * a1 + rs1;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= a0;
-      acc[dt][1] *= a0;
-      acc[dt][2] *= a1;
-      acc[dt][3] *= a1;
+      o[4 * dt + 0] *= a0;
+      o[4 * dt + 1] *= a0;
+      o[4 * dt + 2] *= a1;
+      o[4 * dt + 3] *= a1;
     }
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* vrow = sVt + (dt * 8 + g) * NP + j * 16 + t4 * 2;
-        mma_bf16(acc[dt], pf[j], *reinterpret_cast<const uint32_t*>(vrow),
-                 *reinterpret_cast<const uint32_t*>(vrow + 8));
-      }
-    }
+    mbar_wait(&full_v[s], phase);
+    pv_product<D>(o, pf, smem_u32(sV + s * L::KV_BYTES));
+    mbar_arrive(&empty[s]);
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -235,15 +427,17 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(Params p) {
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const size_t q_stride = (size_t)p.H * D;   // elements between sequence positions
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + ((size_t)b * p.S * p.H + h) * D;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int col = dt * 8 + t4 * 2;
-    if (qpos0 < p.S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)qpos0 * q_stride + col) =
-          __floats2bfloat162_rn(acc[dt][0] * inv0, acc[dt][1] * inv0);
-    if (qpos1 < p.S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)qpos1 * q_stride + col) =
-          __floats2bfloat162_rn(acc[dt][2] * inv1, acc[dt][3] * inv1);
+    if (row0 < p.S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * q_stride + col) =
+          __floats2bfloat162_rn(o[4 * dt + 0] * inv0, o[4 * dt + 1] * inv0);
+    if (row1 < p.S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * q_stride + col) =
+          __floats2bfloat162_rn(o[4 * dt + 2] * inv1, o[4 * dt + 3] * inv1);
   }
 }
 
@@ -322,13 +516,63 @@ __global__ void __launch_bounds__(BM) flash_fwd_f32(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (no -lcuda)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// layout: dims (D, heads, S, B), byte strides of dims 1-3, box, as
+// kernels/flash_attention.py:tma_layout computes them.  Returns 0, or -1
+// without the encoder, -2 if the layout is not the kernel's or is refused.
+int encode(CUtensorMap* map, const void* ptr, const long long* layout, int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return -1;
+  if (layout[7] != BOX || layout[8] != 1 || layout[9] != box_rows || layout[10] != 1) return -2;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4], unit[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) dims[i] = static_cast<cuuint64_t>(layout[i]);
+  for (int i = 0; i < 3; ++i) strides[i] = static_cast<cuuint64_t>(layout[4 + i]);
+  for (int i = 0; i < 4; ++i) box[i] = static_cast<cuuint32_t>(layout[7 + i]);
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -2;
+}
+
 template <int D>
-void launch_bf16(const Params& p, dim3 grid, cudaStream_t stream) {
-  constexpr size_t smem = ((size_t)BM * (D + 8) + (size_t)BN * (D + 8) + (size_t)D * (BN + 8)) *
-                          sizeof(__nv_bfloat16);
-  // above 48 KB (D = 128) the launch is refused unless the kernel opts in
+int launch_bf16(const Params& p, const long long* layout, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  int err = encode(&tm_q, p.q, layout, WM);
+  if (!err) err = encode(&tm_k, p.k, layout + 11, WN);
+  if (!err) err = encode(&tm_v, p.v, layout + 11, WN);
+  if (err) return err;
+  constexpr size_t smem = Smem<D>::BYTES;
+  // above 48 KB the launch is refused unless the kernel opts in
   cudaFuncSetAttribute(flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  flash_fwd_bf16<D><<<grid, 128, smem, stream>>>(p);
+  const dim3 grid(p.B * p.H, (p.S + WM - 1) / WM);
+  flash_fwd_bf16<D><<<grid, 256, smem, stream>>>(tm_q, tm_k, tm_v, p);
+  return 0;
 }
 
 template <int D>
@@ -339,17 +583,20 @@ void launch_f32(const Params& p, dim3 grid, cudaStream_t stream) {
 }  // namespace
 
 // q, o: (B, S, H, D); k, v: (B, Sk, KV, D); all contiguous, same dtype
-// (bf16 if is_bf16 else fp32).  Returns cudaGetLastError() after the launch.
+// (bf16 if is_bf16 else fp32).  layout: for bf16, the TMA layouts of q
+// (11 values) and of k and v (11 more); unused for fp32.  Returns
+// cudaGetLastError() after the launch, or a negative code from encode().
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int S, int Sk, int H, int KV, int D,
-                                   int causal, int window, int is_bf16, void* stream) {
+                                   int causal, int window, int is_bf16, void* stream,
+                                   const long long* layout) {
   Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)D)};
-  const dim3 grid((S + BM - 1) / BM, B * H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && D == 64) launch_bf16<64>(p, grid, st);
-  else if (is_bf16 && D == 128) launch_bf16<128>(p, grid, st);
-  else if (!is_bf16 && D == 64) launch_f32<64>(p, grid, st);
-  else if (!is_bf16 && D == 128) launch_f32<128>(p, grid, st);
+  int err = 0;
+  if (is_bf16 && D == 64) err = launch_bf16<64>(p, layout, st);
+  else if (is_bf16 && D == 128) err = launch_bf16<128>(p, layout, st);
+  else if (!is_bf16 && D == 64) launch_f32<64>(p, dim3((S + BM - 1) / BM, B * H), st);
+  else if (!is_bf16 && D == 128) launch_f32<128>(p, dim3((S + BM - 1) / BM, B * H), st);
   else return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return err ? err : (int)cudaGetLastError();
 }

@@ -5,8 +5,10 @@ Replaces ``src/repro/kernels/flash_attention.py`` (``_kernel`` and
 (BH, S, D) with GQA expanded by the caller and padded S to its blocks;
 this kernel reads the model layout (B, S, H, D) in place, maps q head h
 to kv head h // (H / KV), and masks the ragged edge itself, so the
-launcher makes no copy.  The source's header says what bounds the
-kernel on the H100 and what its design does about it.
+launcher makes no copy.  The bf16 kernel loads its tiles by TMA: this
+module computes the tensor maps' layouts (:func:`tma_layout`) and the C
+side encodes them.  The source's header says what bounds the kernel on
+the H100 and what its design does about it.
 
 The public entry is :func:`repro_torch.kernels.ops.flash_attention`,
 which counts the launches; this module only checks and launches.
@@ -14,6 +16,7 @@ which counts the launches; this module only checks and launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -21,12 +24,44 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 HEAD_DIMS = (64, 128)
+# the bf16 kernel's tiles (WM, WN in the source): q rows per block, kv rows per stage
+BLOCK_Q = BLOCK_KV = 128
+# columns of one TMA box: 128 bytes of bf16, the span of the 128-byte swizzle
+BOX_COLS = 64
+
+
+class TmaLayout(NamedTuple):
+    """A (B, S, heads, D) tensor as a 4-D TMA tensor map: ``dims``
+    innermost first (D, heads, S, B), ``strides`` in bytes of dims 1-3,
+    and the ``box`` one load brings (BOX_COLS, 1, rows, 1)."""
+    dims: tuple[int, int, int, int]
+    strides: tuple[int, int, int]
+    box: tuple[int, int, int, int]
+
+    def flat(self) -> tuple[int, ...]:
+        return self.dims + self.strides + self.box
+
+
+def tma_layout(shape: tuple[int, int, int, int], elem_bytes: int, rows: int) -> TmaLayout:
+    """The tensor-map layout of a contiguous (B, S, heads, D) tensor whose
+    boxes are ``rows`` sequence positions by BOX_COLS columns of one head.
+    Raises where TMA would refuse it: a byte stride that is not a multiple
+    of 16, or a head dim that is not whole boxes."""
+    b, s, h, d = shape
+    if d % BOX_COLS:
+        raise ValueError(f"tma_layout: head dim {d} is not a multiple of {BOX_COLS}")
+    strides = (d * elem_bytes, h * d * elem_bytes, s * h * d * elem_bytes)
+    for st in strides:
+        if st % 16 or st >= 1 << 40:
+            raise ValueError(f"tma_layout: byte stride {st} of {tuple(shape)} is not a "
+                             "multiple of 16 below 2**40")
+    return TmaLayout((d, h, s, b), strides, (BOX_COLS, 1, rows, 1))
 
 
 def _fn():
     fn = build.library("flash_attention").flash_attention_fwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return fn
 
@@ -61,11 +96,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v)
     b, s, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
+    layout = None
+    if q.dtype == torch.bfloat16:
+        flat = (tma_layout(q.shape, 2, BLOCK_Q).flat()
+                + tma_layout(k.shape, 2, BLOCK_KV).flat())
+        layout = (ctypes.c_longlong * len(flat))(*flat)
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     b, s, sk, h, kvh, d, int(causal), int(window), _DTYPES[q.dtype],
-                    torch.cuda.current_stream(q.device).cuda_stream)
+                    torch.cuda.current_stream(q.device).cuda_stream, layout)
+    if err < 0:
+        raise RuntimeError(f"flash_attention: TMA tensor map not encoded (code {err})")
     if err:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
     return o
