@@ -265,9 +265,13 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&p
 
 // Shared memory of the bf16 kernel: Q, then STAGES K tiles, STAGES V
 // tiles (each D / 64 boxes of 128 rows x 128 bytes), then the mbarriers.
+// At D 64 two blocks share an SM (80 KB each): one block's loads and
+// epilogue overlap the other's products, and four warpgroups interleave
+// their softmax with the tensor cores.  A third stage gained nothing there.
 template <int D>
 struct Smem {
-  static constexpr int STAGES = D == 64 ? 4 : 3;
+  static constexpr int STAGES = D == 64 ? 2 : 3;
+  static constexpr int BLOCKS_PER_SM = D == 64 ? 2 : 1;
   static constexpr uint32_t Q_BYTES = WM * D * 2;
   static constexpr uint32_t KV_BYTES = WN * D * 2;
   static constexpr size_t BYTES =
@@ -278,7 +282,7 @@ struct Smem {
 // bf16: wgmma, TMA, two consumer warpgroups of 64 q rows
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(256, 1)
+__global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, Params p) {
