@@ -160,8 +160,11 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
 
-// keeps the compiler from reading an accumulator before wgmma_wait
+// keeps the compiler from reading an accumulator before wgmma_wait_all
 template <int N>
 __device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll
@@ -228,109 +231,58 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// issues S (this warpgroup's 64 q rows x WN keys, fp32) = Q K^T.  q, k:
-// shared addresses of the warpgroup's Q rows and of the K tile, D / 64
-// boxes each.
+// S (this warpgroup's 64 q rows x WN keys, fp32) = Q K^T.  q, k: shared
+// addresses of the warpgroup's Q rows and of the K tile, D / 64 boxes each.
 template <int D>
-__device__ __forceinline__ void qk_issue(float (&s)[64], uint32_t q, uint32_t k) {
+__device__ __forceinline__ void qk_product(float (&s)[64], uint32_t q, uint32_t k) {
+  wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {   // 16 columns (32 bytes) a step
     const uint32_t col = (kk % 4) * 32;
     wgmma_ss_n128(s, smem_desc(q + (kk / 4) * (WM * ROW) + col, 1, 64),
                   smem_desc(k + (kk / 4) * (WN * ROW) + col, 1, 64), kk > 0);
   }
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(s);
 }
 
-// issues O (64 x D, fp32) += P (64 x WN, bf16 A fragments) V (WN x D at
-// shared address v)
+// O (64 x D, fp32) += P (64 x WN, bf16 A fragments) V (WN x D at shared address v)
 template <int D>
-__device__ __forceinline__ void pv_issue(float (&o)[D / 2], const uint32_t (&pf)[WN / 16][4],
-                                         uint32_t v) {
+__device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&pf)[WN / 16][4],
+                                           uint32_t v) {
+  wgmma_fence();
 #pragma unroll
   for (int j = 0; j < WN / 16; ++j) {     // 16 kv rows (2048 bytes) a step
     const uint64_t desc = smem_desc(v + j * 16 * ROW, WN * ROW / 16, 64);
     if constexpr (D == 64) wgmma_rs_n64(o, pf[j], desc);
     else wgmma_rs_n128(o, pf[j], desc);
   }
-}
-
-// The online softmax of one score tile for this thread's rows row0 and
-// row0 + 8: masks it if `edge`, moves the running max m, scales the
-// normaliser l by alpha = exp2(m_old - m_new) and adds the tile's sum, and
-// leaves the tile's p = exp2(s - m) in sc, in fp32.  Returns alpha per
-// row, for O.
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], const Params& p, bool edge,
-                                             int k0, int row0, int t4) {
-  if (edge) {
-#pragma unroll
-    for (int e = 0; e < 64; ++e) {
-      const int kpos = k0 + (e / 4) * 8 + t4 * 2 + (e & 1);
-      if (!visible(p, (e & 2) ? row0 + 8 : row0, kpos)) sc[e] = NEG_INF;
-    }
-  }
-  float mx[2] = {m[0], m[1]};
-#pragma unroll
-  for (int nb = 0; nb < WN / 8; ++nb) {
-    mx[0] = fmaxf(mx[0], fmaxf(sc[4 * nb], sc[4 * nb + 1]));
-    mx[1] = fmaxf(mx[1], fmaxf(sc[4 * nb + 2], sc[4 * nb + 3]));
-  }
-  const float sl = p.scale_log2;
-  float ms[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    // the four lanes of a quad share a row
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    alpha[r] = ex2((m[r] - mx[r]) * sl);
-    m[r] = mx[r];
-    // a row with no visible key yet keeps p = 0 (an fma against a max of
-    // NEG_INF could leave a residue of ~1e22 in the exponent)
-    ms[r] = mx[r] == NEG_INF ? 0.f : mx[r] * sl;
-  }
-  float rs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int e = 0; e < 64; ++e) {
-    sc[e] = ex2(fmaf(sc[e], sl, -ms[(e >> 1) & 1]));
-    rs[(e >> 1) & 1] += sc[e];
-  }
-  l[0] = l[0] * alpha[0] + rs[0];
-  l[1] = l[1] * alpha[1] + rs[1];
-}
-
-// P, rounded to bf16, as the A operand of P V: 8-column blocks 2j and
-// 2j+1 of the score accumulator form k-step j
-__device__ __forceinline__ void pack_p(const float (&sc)[64], uint32_t (&pf)[WN / 16][4]) {
-#pragma unroll
-  for (int nb = 0; nb < WN / 8; ++nb) {
-    pf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(sc[4 * nb], sc[4 * nb + 1]);
-    pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(sc[4 * nb + 2], sc[4 * nb + 3]);
-  }
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(o);
 }
 
 // Shared memory of the bf16 kernel: Q, then STAGES K tiles, STAGES V
 // tiles (each D / 64 boxes of 128 rows x 128 bytes), then the mbarriers.
+// At D 64 two blocks share an SM (80 KB each): one block's loads and
+// epilogue overlap the other's products, and four warpgroups interleave
+// their softmax with the tensor cores.  A third stage gained nothing there.
 template <int D>
 struct Smem {
-  static constexpr int STAGES = D == 64 ? 4 : 3;
+  static constexpr int STAGES = D == 64 ? 2 : 3;
+  static constexpr int BLOCKS_PER_SM = D == 64 ? 2 : 1;
   static constexpr uint32_t Q_BYTES = WM * D * 2;
   static constexpr uint32_t KV_BYTES = WN * D * 2;
   static constexpr size_t BYTES =
       1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 3 * STAGES);   // 1024: alignment
 };
 
-constexpr int CONSUMERS = 256;   // two warpgroups of 64 q rows; a third one loads
-
 // ---------------------------------------------------------------------------
-// bf16: wgmma, TMA, a producer warpgroup and two consumer warpgroups
+// bf16: wgmma, TMA, two consumer warpgroups of 64 q rows
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(CONSUMERS + 128, 1)
+__global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, Params p) {
@@ -348,8 +300,10 @@ __global__ void __launch_bounds__(CONSUMERS + 128, 1)
   uint64_t* empty = full_v + STAGES;
 
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;   // accumulator row group / column pair
   const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H;
+  const int kvh = h / (p.H / p.KV);
   // causal: the first blocks take the last q tiles, which have the most kv tiles
   const int qt = p.causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y) : blockIdx.y;
   const int q0 = qt * WM;
@@ -359,124 +313,135 @@ __global__ void __launch_bounds__(CONSUMERS + 128, 1)
   const int t_lo = lo / WN;
   const int n = (hi + WN - 1) / WN - t_lo;           // kv tiles with a visible key
 
+  auto load_kv = [&](int j) {   // kv tile t_lo + j into stage j % STAGES
+    const int s = j % STAGES, k0 = (t_lo + j) * WN;
+    mbar_expect_tx(&full_k[s], L::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < BOXES; ++c)
+      tma_load(sK + s * L::KV_BYTES + c * WN * ROW, &tm_k, &full_k[s], c * BOX, kvh, k0, b);
+    mbar_expect_tx(&full_v[s], L::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < BOXES; ++c)
+      tma_load(sV + s * L::KV_BYTES + c * WN * ROW, &tm_v, &full_v[s], c * BOX, kvh, k0, b);
+  };
+
   if (tid == 0) {
     mbar_init(bar_q, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full_k[s], 1);
       mbar_init(&full_v[s], 1);
-      mbar_init(&empty[s], CONSUMERS);
+      mbar_init(&empty[s], blockDim.x);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  if (tid == 0 && n > 0) {
+    mbar_expect_tx(bar_q, L::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < BOXES; ++c) tma_load(sQ + c * WM * ROW, &tm_q, bar_q, c * BOX, h, q0, b);
+    for (int j = 0; j < min(STAGES, n); ++j) load_kv(j);
+  }
 
-  if (wg == 2) {
-    // producer: one thread keeps the ring full; the warpgroup gives its registers away
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
-    if (warp == 0 && lane == 0 && n > 0) {
-      const int kvh = h / (p.H / p.KV);
-      mbar_expect_tx(bar_q, L::Q_BYTES);
+  float o[D / 2];   // the m64nD accumulator: 4 values per 8-column block
 #pragma unroll
-      for (int c = 0; c < BOXES; ++c)
-        tma_load(sQ + c * WM * ROW, &tm_q, bar_q, c * BOX, h, q0, b);
-      for (int j = 0; j < n; ++j) {   // kv tile t_lo + j into stage j % STAGES
-        const int s = j % STAGES, k0 = (t_lo + j) * WN;
-        // the stage's previous tile, j - STAGES, is released by every consumer
-        if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
-        mbar_expect_tx(&full_k[s], L::KV_BYTES);
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF;   // running max of rows row0, row1 (raw scores)
+  float l0 = 0.f, l1 = 0.f;           // this thread's share of the normaliser
+  const int wq0 = q0 + wg * 64;       // the warpgroup's first q row
+  const int row0 = wq0 + warp * 16 + g, row1 = row0 + 8;
+  const uint32_t q_smem = smem_u32(sQ) + wg * 64 * ROW;
+  if (n > 0) mbar_wait(bar_q, 0);
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES;
+    const uint32_t phase = (i / STAGES) & 1;
+    if (tid == 0 && i > 0 && i + STAGES - 1 < n) {
+      // the next tile goes where tile i - 1 was: wait until every thread is done with it
+      const int j = i + STAGES - 1;
+      mbar_wait(&empty[j % STAGES], ((j / STAGES) & 1) ^ 1);
+      load_kv(j);
+    }
+    __syncwarp();
+    const int k0 = (t_lo + i) * WN;
+
+    float sc[64];
+    mbar_wait(&full_k[s], phase);
+    qk_product<D>(sc, q_smem, smem_u32(sK + s * L::KV_BYTES));
+
+    // mask only where this warpgroup's rows meet a masked pair
+    const bool edge = k0 + WN > p.Sk || (p.causal && k0 + WN - 1 > wq0) ||
+                      (p.window && k0 <= wq0 + 63 - p.window);
+    if (edge) {
 #pragma unroll
-        for (int c = 0; c < BOXES; ++c)
-          tma_load(sK + s * L::KV_BYTES + c * WN * ROW, &tm_k, &full_k[s], c * BOX, kvh, k0, b);
-        mbar_expect_tx(&full_v[s], L::KV_BYTES);
-#pragma unroll
-        for (int c = 0; c < BOXES; ++c)
-          tma_load(sV + s * L::KV_BYTES + c * WN * ROW, &tm_v, &full_v[s], c * BOX, kvh, k0, b);
+      for (int e = 0; e < 64; ++e) {
+        const int kpos = k0 + (e / 4) * 8 + t4 * 2 + (e & 1);
+        if (!visible(p, (e & 2) ? row1 : row0, kpos)) sc[e] = NEG_INF;
       }
     }
-  } else {
-    // consumers: S = Q K^T of tile i is issued before P V of tile i - 1, so
-    // the softmax of tile i runs while the tensor cores do that P V
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
-    const int g = lane >> 2, t4 = lane & 3;   // accumulator row group / column pair
-    const int wq0 = q0 + wg * 64;             // the warpgroup's first q row
-    const int row0 = wq0 + warp * 16 + g;     // this thread's rows: row0, row0 + 8
-    const uint32_t q_smem = smem_u32(sQ) + wg * 64 * ROW;
-    const uint32_t k_smem = smem_u32(sK), v_smem = smem_u32(sV);
-    // a masked pair for this warpgroup's rows in the tile at k0
-    auto edge = [&](int k0) {
-      return k0 + WN > p.Sk || (p.causal && k0 + WN - 1 > wq0) ||
-             (p.window && k0 <= wq0 + 63 - p.window);
-    };
-
-    float o[D / 2];   // the m64nD accumulator: 4 values per 8-column block
+    float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
-    if (n > 0) {
-      float sc[64];
-      uint32_t pf[WN / 16][4];   // P of the tile whose P V is next
-      mbar_wait(bar_q, 0);
-      mbar_wait(&full_k[0], 0);
-      wgmma_fence();
-      qk_issue<D>(sc, q_smem, k_smem);
-      wgmma_commit();
-      wgmma_wait<0>();
-      pin(sc);
-      softmax_tile(sc, m, l, alpha, p, edge(t_lo * WN), t_lo * WN, row0, t4);
-      pack_p(sc, pf);
-
-      for (int i = 1; i < n; ++i) {
-        const int s = i % STAGES, sp = (i - 1) % STAGES;
-        const int k0 = (t_lo + i) * WN;
-        mbar_wait(&full_k[s], (i / STAGES) & 1);
-        wgmma_fence();
-        qk_issue<D>(sc, q_smem, k_smem + s * L::KV_BYTES);
-        wgmma_commit();
-        mbar_wait(&full_v[sp], ((i - 1) / STAGES) & 1);
-        pv_issue<D>(o, pf, v_smem + sp * L::KV_BYTES);
-        wgmma_commit();
-        wgmma_wait<1>();   // S of tile i is done, P V of tile i - 1 may run on
-        pin(sc);
-        softmax_tile(sc, m, l, alpha, p, edge(k0), k0, row0, t4);
-        wgmma_wait<0>();   // P V of tile i - 1 has read pf: P of tile i may go there
-        pin(o);
-        mbar_arrive(&empty[sp]);
-        pack_p(sc, pf);
-#pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-          o[4 * dt + 0] *= alpha[0];
-          o[4 * dt + 1] *= alpha[0];
-          o[4 * dt + 2] *= alpha[1];
-          o[4 * dt + 3] *= alpha[1];
-        }
-      }
-      const int sl = (n - 1) % STAGES;
-      mbar_wait(&full_v[sl], ((n - 1) / STAGES) & 1);
-      wgmma_fence();
-      pv_issue<D>(o, pf, v_smem + sl * L::KV_BYTES);
-      wgmma_commit();
-      wgmma_wait<0>();
-      pin(o);
+    for (int nb = 0; nb < WN / 8; ++nb) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * nb], sc[4 * nb + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * nb + 2], sc[4 * nb + 3]));
     }
+    // the four lanes of a quad share rows row0 and row1
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float sl = p.scale_log2;
+    const float a0 = ex2((m0 - mx0) * sl), a1 = ex2((m1 - mx1) * sl);
+    m0 = mx0;
+    m1 = mx1;
+    // a row with no visible key yet keeps p = 0 (an fma against a max of
+    // NEG_INF could leave a residue of ~1e22 in the exponent)
+    const float ms0 = mx0 == NEG_INF ? 0.f : mx0 * sl;
+    const float ms1 = mx1 == NEG_INF ? 0.f : mx1 * sl;
 
+    // P as the A operand of P V: 8-column blocks 2j and 2j+1 form k-step j
+    uint32_t pf[WN / 16][4];
+    float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    for (int nb = 0; nb < WN / 8; ++nb) {
+      const float p0 = ex2(fmaf(sc[4 * nb], sl, -ms0));
+      const float p1 = ex2(fmaf(sc[4 * nb + 1], sl, -ms0));
+      const float p2 = ex2(fmaf(sc[4 * nb + 2], sl, -ms1));
+      const float p3 = ex2(fmaf(sc[4 * nb + 3], sl, -ms1));
+      rs0 += p0 + p1;
+      rs1 += p2 + p3;
+      pf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(p0, p1);
+      pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(p2, p3);
     }
-    const float inv0 = 1.f / fmaxf(l[0], 1e-30f), inv1 = 1.f / fmaxf(l[1], 1e-30f);
-    const size_t q_stride = (size_t)p.H * D;   // elements between sequence positions
-    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + ((size_t)b * p.S * p.H + h) * D;
+    l0 = l0 * a0 + rs0;
+    l1 = l1 * a1 + rs1;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
-      const int col = dt * 8 + t4 * 2;
-      if (row0 < p.S)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * q_stride + col) =
-            __floats2bfloat162_rn(o[4 * dt + 0] * inv0, o[4 * dt + 1] * inv0);
-      if (row0 + 8 < p.S)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)(row0 + 8) * q_stride + col) =
-            __floats2bfloat162_rn(o[4 * dt + 2] * inv1, o[4 * dt + 3] * inv1);
+      o[4 * dt + 0] *= a0;
+      o[4 * dt + 1] *= a0;
+      o[4 * dt + 2] *= a1;
+      o[4 * dt + 3] *= a1;
     }
+    mbar_wait(&full_v[s], phase);
+    pv_product<D>(o, pf, smem_u32(sV + s * L::KV_BYTES));
+    mbar_arrive(&empty[s]);
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const size_t q_stride = (size_t)p.H * D;   // elements between sequence positions
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + ((size_t)b * p.S * p.H + h) * D;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int col = dt * 8 + t4 * 2;
+    if (row0 < p.S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * q_stride + col) =
+          __floats2bfloat162_rn(o[4 * dt + 0] * inv0, o[4 * dt + 1] * inv0);
+    if (row1 < p.S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * q_stride + col) =
+          __floats2bfloat162_rn(o[4 * dt + 2] * inv1, o[4 * dt + 3] * inv1);
   }
 }
 
@@ -610,7 +575,7 @@ int launch_bf16(const Params& p, const long long* layout, cudaStream_t stream) {
   // above 48 KB the launch is refused unless the kernel opts in
   cudaFuncSetAttribute(flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid(p.B * p.H, (p.S + WM - 1) / WM);
-  flash_fwd_bf16<D><<<grid, CONSUMERS + 128, smem, stream>>>(tm_q, tm_k, tm_v, p);
+  flash_fwd_bf16<D><<<grid, 256, smem, stream>>>(tm_q, tm_k, tm_v, p);
   return 0;
 }
 
