@@ -138,6 +138,8 @@ def phase_kernel_cases(seed: int) -> list[dict]:
         ("window256", 4, 1024, 32, 8, 64, torch.bfloat16, True, 256),
         ("noncausal", 4, 1024, 32, 8, 64, torch.bfloat16, False, 0),
         ("fp32", 4, 1024, 32, 8, 64, torch.float32, True, 0),
+        ("d128", 4, 1024, 32, 8, 128, torch.bfloat16, True, 0),
+        ("short_s100", 4, 100, 32, 8, 64, torch.bfloat16, True, 0),   # one partial q tile
     ]
     results = []
     for name, b, s, h, kv, d, dtype, causal, window in cases:
@@ -171,7 +173,8 @@ def phase_kernel_cases(seed: int) -> list[dict]:
                "ref_abs_max": ref.float().abs().max().item(), "max_scaled_err": scaled,
                "tol": tol, "finite": bool(torch.isfinite(out.float()).all()), "ms": ms,
                "plain_ms": plain_ms, "library_ms": library_ms, "library_max_abs_err": lib_err,
-               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bound_frac": bound_ms / ms,
+               "vs_library": ms / library_ms,
                "tflops": flops / (ms * 1e-3) / 1e12, "flops": flops, "bytes": nbytes}
         emit("kernel_vs_plain", **row)
         check(scaled <= tol and row["finite"],
@@ -581,7 +584,9 @@ def main() -> int:
                       "max_abs_err": c["max_abs_err"], "ref_abs_max": c["ref_abs_max"],
                       "max_scaled_err": c["max_scaled_err"], "tol": c["tol"], "ms": c["ms"],
                       "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                      "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+                      "bound_by": c["bound_by"], "bound_frac": c["bound_ms"] / c["ms"],
+                      "library_ms": c["library_ms"],
+                      "vs_library": c["ms"] / c["library_ms"] if c["library_ms"] else None})
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

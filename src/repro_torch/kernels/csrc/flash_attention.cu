@@ -25,8 +25,15 @@
 //    64-column boxes) into a ring of K/V stages guarded by mbarriers: a
 //    "full" barrier per stage and operand counts the TMA's bytes, an
 //    "empty" barrier per stage takes every consumer thread's arrival.
-//    One elected thread keeps the ring STAGES - 1 tiles ahead, so the
-//    loads of later tiles are in flight while a tile is computed.
+//    One elected consumer thread keeps the ring STAGES - 1 tiles ahead,
+//    so the loads of later tiles are in flight while a tile is computed.
+//  * At D 64 a block holds 80 KB of shared memory and 127 registers a
+//    thread, so two blocks share an SM: one block's loads and epilogue
+//    overlap the other's products, and four warpgroups interleave their
+//    exp2 with the tensor cores.  A separate producer warp would take
+//    registers the consumers need at two blocks an SM (setmaxnreg can only
+//    hand on what the producer frees), and one block an SM with a producer
+//    warpgroup and S / P V overlap inside each warpgroup measured slower.
 //  * TMA zero-fills rows past S or Sk, so ragged lengths need no padding
 //    copy; keys past Sk are still masked, as are the causal diagonal tile
 //    and the window's first tiles.  Tiles with no masked pair skip the
@@ -37,6 +44,8 @@
 //    tensor maps; no copy of K or V is made.
 //  * fp32 inputs take a plain SIMT kernel (one q row per thread), exact
 //    in fp32 to the reference's 1e-4.
+// A row with no visible key at all (only possible when S > Sk) comes out
+// as zeros in the bf16 kernel; the reference averages every key there.
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>

@@ -42,19 +42,23 @@ class TmaLayout(NamedTuple):
         return self.dims + self.strides + self.box
 
 
-def tma_layout(shape: tuple[int, int, int, int], elem_bytes: int, rows: int) -> TmaLayout:
-    """The tensor-map layout of a contiguous (B, S, heads, D) tensor whose
-    boxes are ``rows`` sequence positions by BOX_COLS columns of one head.
-    Raises where TMA would refuse it: a byte stride that is not a multiple
-    of 16, or a head dim that is not whole boxes."""
+def tma_layout(shape: tuple[int, int, int, int], stride: tuple[int, int, int, int],
+               elem_bytes: int, rows: int) -> TmaLayout:
+    """The tensor-map layout of a (B, S, heads, D) tensor with element
+    strides ``stride`` whose boxes are ``rows`` sequence positions by
+    BOX_COLS columns of one head.  Raises where TMA would refuse it: a head
+    dim that is not whole boxes, a D that is not contiguous, or a byte
+    stride that is not a multiple of 16 below 2**40."""
     b, s, h, d = shape
     if d % BOX_COLS:
         raise ValueError(f"tma_layout: head dim {d} is not a multiple of {BOX_COLS}")
-    strides = (d * elem_bytes, h * d * elem_bytes, s * h * d * elem_bytes)
+    if stride[3] != 1:
+        raise ValueError(f"tma_layout: head dim stride {stride[3]}, not 1")
+    strides = (stride[2] * elem_bytes, stride[1] * elem_bytes, stride[0] * elem_bytes)
     for st in strides:
-        if st % 16 or st >= 1 << 40:
-            raise ValueError(f"tma_layout: byte stride {st} of {tuple(shape)} is not a "
-                             "multiple of 16 below 2**40")
+        if st % 16 or not 0 < st < 1 << 40:
+            raise ValueError(f"tma_layout: byte stride {st} of a {tuple(shape)} tensor is "
+                             "not a multiple of 16 below 2**40")
     return TmaLayout((d, h, s, b), strides, (BOX_COLS, 1, rows, 1))
 
 
@@ -98,8 +102,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sk, kvh = k.shape[1], k.shape[2]
     layout = None
     if q.dtype == torch.bfloat16:
-        flat = (tma_layout(q.shape, 2, BLOCK_Q).flat()
-                + tma_layout(k.shape, 2, BLOCK_KV).flat())
+        flat = (tma_layout(q.shape, q.stride(), 2, BLOCK_Q).flat()
+                + tma_layout(k.shape, k.stride(), 2, BLOCK_KV).flat())
         layout = (ctypes.c_longlong * len(flat))(*flat)
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):

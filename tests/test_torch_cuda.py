@@ -16,15 +16,18 @@ from repro_torch.kernels.ref import flash_attention_ref, ssd_ref
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,causal,window,s", [
-    (torch.bfloat16, True, 0, 1024), (torch.bfloat16, True, 0, 1000),
-    (torch.bfloat16, True, 256, 1024), (torch.bfloat16, False, 0, 1024),
-    (torch.float32, True, 0, 1000)])
-def test_cuda_kernel_matches_plain_version(dtype, causal, window, s):
+@pytest.mark.parametrize("dtype,causal,window,s,d", [
+    (torch.bfloat16, True, 0, 1024, 64), (torch.bfloat16, True, 0, 1000, 64),
+    (torch.bfloat16, True, 256, 1024, 64), (torch.bfloat16, False, 0, 1024, 64),
+    (torch.float32, True, 0, 1000, 64),
+    # the other head dim (two TMA boxes a row), one partial q tile, a longer prompt
+    (torch.bfloat16, True, 0, 1024, 128), (torch.bfloat16, True, 0, 100, 64),
+    (torch.bfloat16, True, 0, 2048, 64)])
+def test_cuda_kernel_matches_plain_version(dtype, causal, window, s, d):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(2, s, h, 64, generator=gen, device="cuda").to(dtype)
+    q, k, v = (torch.randn(2, s, h, d, generator=gen, device="cuda").to(dtype)
                for h in (32, 8, 8))
     before = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal, window=window)

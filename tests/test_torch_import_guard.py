@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no jax, nothing of the JAX package.
 
 Every ``repro_torch`` module and ``chip_smoke.py`` import with jax
-blocked and leave no ``repro.*`` module behind; the sources hold no
-jax or ``repro.`` import; entry points refuse to run on a missing card.
+blocked and leave no ``repro.*`` module behind; the sources (and
+``tools/flash_ab.py``) hold no jax or ``repro.`` import; entry points
+refuse to run on a missing card.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                        REPO / "tools" / "flash_ab.py"]
 MODULES = sorted(
     ".".join(p.relative_to(PORT.parent).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py"))

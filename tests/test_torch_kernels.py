@@ -16,7 +16,8 @@ import torch
 from repro.kernels import flash_attention as jax_flash
 from repro.kernels.ref import attention_ref as jax_attention_ref
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (BLOCK_KV, BLOCK_Q, flash_attention_cuda,
+                                                 tma_layout)
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.kernels.ref import attention_ref, flash_attention_ref
 
@@ -109,6 +110,37 @@ def test_launcher_rejects_what_the_kernel_does_not_take(shape_q, shape_kv, dtype
     kv = torch.zeros(shape_kv, dtype=dtype)
     with pytest.raises((ValueError, TypeError), match=match):
         flash_attention_cuda(q, kv, kv, causal=True, window=0)
+
+
+def _contiguous(shape):
+    return torch.empty(shape, device="meta").stride()
+
+
+@pytest.mark.parametrize("shape,rows,want", [
+    # granite-3-2b's prefill q (B 4, S 1024, 32 heads, D 64) and k / v (8 kv heads)
+    ((4, 1024, 32, 64), BLOCK_Q,
+     ((64, 32, 1024, 4), (128, 4096, 4 * 1024 * 1024), (64, 1, 128, 1))),
+    ((4, 1024, 8, 64), BLOCK_KV,
+     ((64, 8, 1024, 4), (128, 1024, 1024 * 1024), (64, 1, 128, 1))),
+    # D 128 is two 64-column boxes a row; a ragged S moves only its dim and the batch stride
+    ((2, 100, 4, 128), BLOCK_Q, ((128, 4, 100, 2), (256, 1024, 102400), (64, 1, 128, 1))),
+])
+def test_tma_layout_of_model_tensors(shape, rows, want):
+    """dims innermost first (D, heads, S, B), byte strides of dims 1-3, box."""
+    lay = tma_layout(shape, _contiguous(shape), 2, rows)
+    assert (lay.dims, lay.strides, lay.box) == want
+    assert lay.flat() == want[0] + want[1] + want[2]
+
+
+@pytest.mark.parametrize("shape,stride,match", [
+    # heads 66 elements (132 bytes) apart: a padded view TMA cannot address
+    ((1, 64, 2, 64), (64 * 132, 132, 66, 1), "not a multiple of 16"),
+    ((1, 64, 2, 72), (64 * 144, 144, 72, 1), "not a multiple of 64"),
+    ((1, 64, 2, 64), (1, 128, 64, 64 * 128), "stride 8192, not 1"),
+])
+def test_tma_layout_refuses_what_tma_does_not_take(shape, stride, match):
+    with pytest.raises(ValueError, match=match):
+        tma_layout(shape, stride, 2, BLOCK_Q)
 
 
 def test_build_is_keyed_by_sources():
