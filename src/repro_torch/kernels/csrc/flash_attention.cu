@@ -381,10 +381,22 @@ __global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
     const bool edge = k0 + WN > p.Sk || (p.causal && k0 + WN - 1 > wq0) ||
                       (p.window && k0 <= wq0 + 63 - p.window);
     if (edge) {
+      // key k0 + c is visible to a row iff lo <= c <= hi; c - 2 t4 is a
+      // constant of the element, so each element costs two compares
+      int lo[2] = {-(1 << 30), -(1 << 30)}, hi[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r ? row1 : row0;
+        hi[r] = p.Sk - 1 - k0;                               // k < Sk
+        if (p.causal) hi[r] = min(hi[r], row - k0);          // k <= q
+        if (p.window) lo[r] = row - p.window + 1 - k0;       // k > q - window
+        lo[r] -= 2 * t4;
+        hi[r] -= 2 * t4;
+      }
 #pragma unroll
       for (int e = 0; e < 64; ++e) {
-        const int kpos = k0 + (e / 4) * 8 + t4 * 2 + (e & 1);
-        if (!visible(p, (e & 2) ? row1 : row0, kpos)) sc[e] = NEG_INF;
+        const int c = (e / 4) * 8 + (e & 1), r = (e >> 1) & 1;
+        if (c < lo[r] || c > hi[r]) sc[e] = NEG_INF;
       }
     }
     float mx0 = m0, mx1 = m1;
