@@ -169,8 +169,11 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
 
-// keeps the compiler from reading an accumulator before wgmma_wait
+// keeps the compiler from reading an accumulator before wgmma_wait_all
 template <int N>
 __device__ __forceinline__ void pin(float (&d)[N]) {
 #pragma unroll
@@ -199,31 +202,33 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d (64 x 64, f32) += a (64 x 16, smem, K-major) * b (16 x 64, smem, MN-major)
-__device__ __forceinline__ void wgmma_sst_n64(float (&d)[32], uint64_t a, uint64_t b) {
+// d (64 x 64, f32) += a (64 x 16, registers) * b (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t b) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// d (64 x 128, f32) += a (64 x 16, smem, K-major) * b (16 x 128, smem, MN-major)
-__device__ __forceinline__ void wgmma_sst_n128(float (&d)[64], uint64_t a, uint64_t b) {
+// d (64 x 128, f32) += a (64 x 16, registers) * b (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t b) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -232,127 +237,54 @@ __device__ __forceinline__ void wgmma_sst_n128(float (&d)[64], uint64_t a, uint6
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// issues S (this warpgroup's 64 q rows x WN keys, fp32) = Q K^T.  q, k:
-// shared addresses of the warpgroup's Q rows and of the K tile, D / 64
-// boxes each.
+// S (this warpgroup's 64 q rows x WN keys, fp32) = Q K^T.  q, k: shared
+// addresses of the warpgroup's Q rows and of the K tile, D / 64 boxes each.
 template <int D>
-__device__ __forceinline__ void qk_issue(float (&s)[64], uint32_t q, uint32_t k) {
+__device__ __forceinline__ void qk_product(float (&s)[64], uint32_t q, uint32_t k) {
+  wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {   // 16 columns (32 bytes) a step
     const uint32_t col = (kk % 4) * 32;
     wgmma_ss_n128(s, smem_desc(q + (kk / 4) * (WM * ROW) + col, 1, 64),
                   smem_desc(k + (kk / 4) * (WN * ROW) + col, 1, 64), kk > 0);
   }
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(s);
 }
 
-// issues O (64 x D, fp32) += P V.  pa: the warpgroup's P (64 rows x WN
-// keys, bf16, K-major as two 64-column boxes); v: the V tile (WN x D).
+// O (64 x D, fp32) += P (64 x WN, bf16 A fragments) V (WN x D at shared address v)
 template <int D>
-__device__ __forceinline__ void pv_issue(float (&o)[D / 2], uint32_t pa, uint32_t v) {
+__device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&pf)[WN / 16][4],
+                                           uint32_t v) {
+  wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < WN / 16; ++j) {     // 16 kv rows a step
-    const uint64_t a = smem_desc(pa + (j / 4) * (64 * ROW) + (j % 4) * 32, 1, 64);
-    const uint64_t b = smem_desc(v + j * 16 * ROW, WN * ROW / 16, 64);
-    if constexpr (D == 64) wgmma_sst_n64(o, a, b);
-    else wgmma_sst_n128(o, a, b);
+  for (int j = 0; j < WN / 16; ++j) {     // 16 kv rows (2048 bytes) a step
+    const uint64_t desc = smem_desc(v + j * 16 * ROW, WN * ROW / 16, 64);
+    if constexpr (D == 64) wgmma_rs_n64(o, pf[j], desc);
+    else wgmma_rs_n128(o, pf[j], desc);
   }
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(o);
 }
 
-// The online softmax of one score tile for this thread's rows row0 and
-// row0 + 8: masks it if `edge`, moves the running max m, scales the
-// normaliser l by alpha = exp2(m_old - m_new) and adds the tile's sum, and
-// leaves the tile's p = exp2(s - m) in sc, in fp32.  Returns alpha per
-// row, for O.
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], const Params& p, bool edge,
-                                             int k0, int row0, int t4) {
-  if (edge) {
-    // key k0 + c is visible to a row iff lo <= c <= hi; c - 2 t4 is a
-    // constant of the element, so each element costs two compares
-    int lo[2] = {-(1 << 30), -(1 << 30)}, hi[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      hi[r] = p.Sk - 1 - k0;                               // k < Sk
-      if (p.causal) hi[r] = min(hi[r], row - k0);          // k <= q
-      if (p.window) lo[r] = row - p.window + 1 - k0;       // k > q - window
-      lo[r] -= 2 * t4;
-      hi[r] -= 2 * t4;
-    }
-#pragma unroll
-    for (int e = 0; e < 64; ++e) {
-      const int c = (e / 4) * 8 + (e & 1), r = (e >> 1) & 1;
-      if (c < lo[r] || c > hi[r]) sc[e] = NEG_INF;
-    }
-  }
-  float mx[2] = {m[0], m[1]};
-#pragma unroll
-  for (int nb = 0; nb < WN / 8; ++nb) {
-    mx[0] = fmaxf(mx[0], fmaxf(sc[4 * nb], sc[4 * nb + 1]));
-    mx[1] = fmaxf(mx[1], fmaxf(sc[4 * nb + 2], sc[4 * nb + 3]));
-  }
-  const float sl = p.scale_log2;
-  float ms[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    // the four lanes of a quad share a row
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    alpha[r] = ex2((m[r] - mx[r]) * sl);
-    m[r] = mx[r];
-    // a row with no visible key yet keeps p = 0 (an fma against a max of
-    // NEG_INF could leave a residue of ~1e22 in the exponent)
-    ms[r] = mx[r] == NEG_INF ? 0.f : mx[r] * sl;
-  }
-  float rs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int e = 0; e < 64; ++e) {
-    sc[e] = ex2(fmaf(sc[e], sl, -ms[(e >> 1) & 1]));
-    rs[(e >> 1) & 1] += sc[e];
-  }
-  l[0] = l[0] * alpha[0] + rs[0];
-  l[1] = l[1] * alpha[1] + rs[1];
-}
-
-// P, rounded to bf16, into the warpgroup's P tile `pw` as the K-major A
-// operand of P V: rows of 128 bytes in two 64-column boxes with the
-// 128-byte swizzle (16-byte chunk ^ row % 8), as TMA lays out Q.  This
-// thread's rows are r0 = 16 warp + g and r0 + 8, so row % 8 is g.  Then
-// the stores are made visible to wgmma and the warpgroup meets, so no
-// warp reads P before every warp has written it.
-__device__ __forceinline__ void store_p(const float (&sc)[64], unsigned char* pw, int wg,
-                                        int warp, int g, int t4) {
-  unsigned char* rows = pw + (16 * warp + g) * ROW + t4 * 4;
-#pragma unroll
-  for (int nb = 0; nb < WN / 8; ++nb) {
-    unsigned char* at = rows + (nb / 8) * (64 * ROW) + ((nb % 8) ^ g) * 16;
-    *reinterpret_cast<uint32_t*>(at) = pack_bf16(sc[4 * nb], sc[4 * nb + 1]);
-    *reinterpret_cast<uint32_t*>(at + 8 * ROW) = pack_bf16(sc[4 * nb + 2], sc[4 * nb + 3]);
-  }
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
-}
-
-// Shared memory of the bf16 kernel, from a 1024-byte-aligned base (the
-// 128-byte swizzle repeats every 1024 bytes): Q, STAGES K tiles, STAGES V
-// tiles (each D / 64 boxes of 128 rows x 128 bytes), both warpgroups' P,
-// then the mbarriers.  At D 64 that is 112 KB, so two blocks share an SM.
+// Shared memory of the bf16 kernel: Q, then STAGES K tiles, STAGES V
+// tiles (each D / 64 boxes of 128 rows x 128 bytes), then the mbarriers.
+// At D 64 two blocks share an SM (80 KB each): one block's loads and
+// epilogue overlap the other's products, and four warpgroups interleave
+// their softmax with the tensor cores.  A third stage gained nothing there.
 template <int D>
 struct Smem {
-  static constexpr int STAGES = 2;
+  static constexpr int STAGES = D == 64 ? 2 : 3;
   static constexpr int BLOCKS_PER_SM = D == 64 ? 2 : 1;
   static constexpr uint32_t Q_BYTES = WM * D * 2;
   static constexpr uint32_t KV_BYTES = WN * D * 2;
-  static constexpr uint32_t P_BYTES = WM * WN * 2;
-  static constexpr size_t BYTES = Q_BYTES + 2 * STAGES * KV_BYTES + P_BYTES + 8 * (1 + 4 * STAGES);
+  static constexpr size_t BYTES =
+      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 3 * STAGES);   // 1024: alignment
 };
 
 // ---------------------------------------------------------------------------
@@ -366,18 +298,15 @@ __global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
   using L = Smem<D>;
   constexpr int STAGES = L::STAGES;
   constexpr int BOXES = D / BOX;
-  extern __shared__ __align__(1024) unsigned char smem[];
-  // two blocks an SM leave no room to align by hand: refuse a base that is not
-  if (smem_u32(smem) & 1023u) __trap();
-  unsigned char* sQ = smem;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  unsigned char* sQ = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   unsigned char* sK = sQ + L::Q_BYTES;
   unsigned char* sV = sK + STAGES * L::KV_BYTES;
-  unsigned char* sP = sV + STAGES * L::KV_BYTES;
-  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sP + L::P_BYTES);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + STAGES * L::KV_BYTES);
   uint64_t* full_k = bar_q + 1;
   uint64_t* full_v = full_k + STAGES;
-  uint64_t* empty_k = full_v + STAGES;
-  uint64_t* empty_v = empty_k + STAGES;
+  uint64_t* empty = full_v + STAGES;
 
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;   // accumulator row group / column pair
@@ -393,17 +322,16 @@ __global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
   const int t_lo = lo / WN;
   const int n = (hi + WN - 1) / WN - t_lo;           // kv tiles with a visible key
 
-  // kv tile t_lo + j of K or V into its stage j % STAGES, once every
-  // consumer has released the stage's previous tile, j - STAGES
-  auto load = [&](const CUtensorMap* map, unsigned char* tiles, uint64_t* full, uint64_t* empty,
-                  int j) {
-    const int s = j % STAGES;
-    if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
-    mbar_expect_tx(&full[s], L::KV_BYTES);
+  auto load_kv = [&](int j) {   // kv tile t_lo + j into stage j % STAGES
+    const int s = j % STAGES, k0 = (t_lo + j) * WN;
+    mbar_expect_tx(&full_k[s], L::KV_BYTES);
 #pragma unroll
     for (int c = 0; c < BOXES; ++c)
-      tma_load(tiles + s * L::KV_BYTES + c * WN * ROW, map, &full[s], c * BOX, kvh,
-               (t_lo + j) * WN, b);
+      tma_load(sK + s * L::KV_BYTES + c * WN * ROW, &tm_k, &full_k[s], c * BOX, kvh, k0, b);
+    mbar_expect_tx(&full_v[s], L::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < BOXES; ++c)
+      tma_load(sV + s * L::KV_BYTES + c * WN * ROW, &tm_v, &full_v[s], c * BOX, kvh, k0, b);
   };
 
   if (tid == 0) {
@@ -411,8 +339,7 @@ __global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full_k[s], 1);
       mbar_init(&full_v[s], 1);
-      mbar_init(&empty_k[s], blockDim.x);
-      mbar_init(&empty_v[s], blockDim.x);
+      mbar_init(&empty[s], blockDim.x);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -421,89 +348,110 @@ __global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
     mbar_expect_tx(bar_q, L::Q_BYTES);
 #pragma unroll
     for (int c = 0; c < BOXES; ++c) tma_load(sQ + c * WM * ROW, &tm_q, bar_q, c * BOX, h, q0, b);
-    load(&tm_k, sK, full_k, empty_k, 0);
-    if (n > 1) load(&tm_k, sK, full_k, empty_k, 1);
-    load(&tm_v, sV, full_v, empty_v, 0);
+    for (int j = 0; j < min(STAGES, n); ++j) load_kv(j);
   }
-
-  const int wq0 = q0 + wg * 64;       // the warpgroup's first q row
-  const int row0 = wq0 + warp * 16 + g;   // this thread's rows: row0, row0 + 8
-  const uint32_t q_smem = smem_u32(sQ) + wg * 64 * ROW;
-  const uint32_t k_smem = smem_u32(sK), v_smem = smem_u32(sV);
-  unsigned char* pw = sP + wg * (64 * WN * 2);   // this warpgroup's P
-  const uint32_t p_smem = smem_u32(pw);
-  // a masked pair for this warpgroup's rows in the tile at k0
-  auto edge = [&](int k0) {
-    return k0 + WN > p.Sk || (p.causal && k0 + WN - 1 > wq0) ||
-           (p.window && k0 <= wq0 + 63 - p.window);
-  };
 
   float o[D / 2];   // the m64nD accumulator: 4 values per 8-column block
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
-  if (n > 0) {
-    // S of tile i and P V of tile i - 1 go to the tensor cores together;
-    // the softmax of tile i runs under that P V, and P waits in shared
-    // memory, so no registers are held for it while P V runs
-    float sc[64];
-    mbar_wait(bar_q, 0);
-    mbar_wait(&full_k[0], 0);
-    wgmma_fence();
-    qk_issue<D>(sc, q_smem, k_smem);
-    wgmma_commit();
-    wgmma_wait<0>();
-    pin(sc);
-    mbar_arrive(&empty_k[0]);
-    softmax_tile(sc, m, l, alpha, p, edge(t_lo * WN), t_lo * WN, row0, t4);
-    store_p(sc, pw, wg, warp, g, t4);
+  float m0 = NEG_INF, m1 = NEG_INF;   // running max of rows row0, row1 (raw scores)
+  float l0 = 0.f, l1 = 0.f;           // this thread's share of the normaliser
+  const int wq0 = q0 + wg * 64;       // the warpgroup's first q row
+  const int row0 = wq0 + warp * 16 + g, row1 = row0 + 8;
+  const uint32_t q_smem = smem_u32(sQ) + wg * 64 * ROW;
+  if (n > 0) mbar_wait(bar_q, 0);
 
-    for (int i = 1; i < n; ++i) {
-      if (tid == 0) {   // K one tile ahead, V as its stage frees (it is needed a tile later)
-        if (i + 1 < n) load(&tm_k, sK, full_k, empty_k, i + 1);
-        load(&tm_v, sV, full_v, empty_v, i);
-      }
-      __syncwarp();
-      const int s = i % STAGES, sp = (i - 1) % STAGES;
-      const int k0 = (t_lo + i) * WN;
-      mbar_wait(&full_k[s], (i / STAGES) & 1);
-      wgmma_fence();
-      qk_issue<D>(sc, q_smem, k_smem + s * L::KV_BYTES);
-      wgmma_commit();
-      mbar_wait(&full_v[sp], ((i - 1) / STAGES) & 1);
-      pv_issue<D>(o, p_smem, v_smem + sp * L::KV_BYTES);
-      wgmma_commit();
-      wgmma_wait<1>();   // S of tile i is done; P V of tile i - 1 may run on
-      pin(sc);
-      mbar_arrive(&empty_k[s]);
-      softmax_tile(sc, m, l, alpha, p, edge(k0), k0, row0, t4);
-      wgmma_wait<0>();   // P V of tile i - 1 is done with P and V
-      pin(o);
-      mbar_arrive(&empty_v[sp]);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        o[4 * dt + 0] *= alpha[0];
-        o[4 * dt + 1] *= alpha[0];
-        o[4 * dt + 2] *= alpha[1];
-        o[4 * dt + 3] *= alpha[1];
-      }
-      store_p(sc, pw, wg, warp, g, t4);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES;
+    const uint32_t phase = (i / STAGES) & 1;
+    if (tid == 0 && i > 0 && i + STAGES - 1 < n) {
+      // the next tile goes where tile i - 1 was: wait until every thread is done with it
+      const int j = i + STAGES - 1;
+      mbar_wait(&empty[j % STAGES], ((j / STAGES) & 1) ^ 1);
+      load_kv(j);
     }
-    const int sl = (n - 1) % STAGES;
-    mbar_wait(&full_v[sl], ((n - 1) / STAGES) & 1);
-    wgmma_fence();
-    pv_issue<D>(o, p_smem, v_smem + sl * L::KV_BYTES);
-    wgmma_commit();
-    wgmma_wait<0>();
-    pin(o);
+    __syncwarp();
+    const int k0 = (t_lo + i) * WN;
+
+    float sc[64];
+    mbar_wait(&full_k[s], phase);
+    qk_product<D>(sc, q_smem, smem_u32(sK + s * L::KV_BYTES));
+
+    // mask only where this warpgroup's rows meet a masked pair
+    const bool edge = k0 + WN > p.Sk || (p.causal && k0 + WN - 1 > wq0) ||
+                      (p.window && k0 <= wq0 + 63 - p.window);
+    if (edge) {
+      // key k0 + c is visible to a row iff lo <= c <= hi; c - 2 t4 is a
+      // constant of the element, so each element costs two compares
+      int lo[2] = {-(1 << 30), -(1 << 30)}, hi[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r ? row1 : row0;
+        hi[r] = p.Sk - 1 - k0;                               // k < Sk
+        if (p.causal) hi[r] = min(hi[r], row - k0);          // k <= q
+        if (p.window) lo[r] = row - p.window + 1 - k0;       // k > q - window
+        lo[r] -= 2 * t4;
+        hi[r] -= 2 * t4;
+      }
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        const int c = (e / 4) * 8 + (e & 1), r = (e >> 1) & 1;
+        if (c < lo[r] || c > hi[r]) sc[e] = NEG_INF;
+      }
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int nb = 0; nb < WN / 8; ++nb) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * nb], sc[4 * nb + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * nb + 2], sc[4 * nb + 3]));
+    }
+    // the four lanes of a quad share rows row0 and row1
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float sl = p.scale_log2;
+    const float a0 = ex2((m0 - mx0) * sl), a1 = ex2((m1 - mx1) * sl);
+    m0 = mx0;
+    m1 = mx1;
+    // a row with no visible key yet keeps p = 0 (an fma against a max of
+    // NEG_INF could leave a residue of ~1e22 in the exponent)
+    const float ms0 = mx0 == NEG_INF ? 0.f : mx0 * sl;
+    const float ms1 = mx1 == NEG_INF ? 0.f : mx1 * sl;
+
+    // P as the A operand of P V: 8-column blocks 2j and 2j+1 form k-step j
+    uint32_t pf[WN / 16][4];
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < WN / 8; ++nb) {
+      const float p0 = ex2(fmaf(sc[4 * nb], sl, -ms0));
+      const float p1 = ex2(fmaf(sc[4 * nb + 1], sl, -ms0));
+      const float p2 = ex2(fmaf(sc[4 * nb + 2], sl, -ms1));
+      const float p3 = ex2(fmaf(sc[4 * nb + 3], sl, -ms1));
+      rs0 += p0 + p1;
+      rs1 += p2 + p3;
+      pf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(p0, p1);
+      pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    l0 = l0 * a0 + rs0;
+    l1 = l1 * a1 + rs1;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      o[4 * dt + 0] *= a0;
+      o[4 * dt + 1] *= a0;
+      o[4 * dt + 2] *= a1;
+      o[4 * dt + 3] *= a1;
+    }
+    mbar_wait(&full_v[s], phase);
+    pv_product<D>(o, pf, smem_u32(sV + s * L::KV_BYTES));
+    mbar_arrive(&empty[s]);
   }
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  const float inv0 = 1.f / fmaxf(l[0], 1e-30f), inv1 = 1.f / fmaxf(l[1], 1e-30f);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   const size_t q_stride = (size_t)p.H * D;   // elements between sequence positions
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + ((size_t)b * p.S * p.H + h) * D;
 #pragma unroll
@@ -512,8 +460,8 @@ __global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
     if (row0 < p.S)
       *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * q_stride + col) =
           __floats2bfloat162_rn(o[4 * dt + 0] * inv0, o[4 * dt + 1] * inv0);
-    if (row0 + 8 < p.S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)(row0 + 8) * q_stride + col) =
+    if (row1 < p.S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * q_stride + col) =
           __floats2bfloat162_rn(o[4 * dt + 2] * inv1, o[4 * dt + 3] * inv1);
   }
 }
