@@ -10,9 +10,11 @@
 // What bounds it on the H100: the tensor cores.  At the serving path's
 // prefill shape (B 4, S 1024, H 32, KV 8, D 64, bf16, causal) the visible
 // pairs need 17.2 GFLOP (4 D FLOPs a pair), 0.0174 ms at 989 TFLOP/s,
-// against 42 MB of q, k, v and o, 0.0125 ms at 3.35 TB/s.  Next to the
-// products, exp2 on the special-function units costs as much again at
-// D 64 (16 a cycle per SM against 4096 tensor FLOPs a cycle).
+// against 42 MB of q, k, v and o, 0.0125 ms at 3.35 TB/s.  On paper exp2
+// on the special-function units (16 a cycle per SM against 4096 tensor
+// FLOPs a cycle) costs as much again at D 64; measured, an FMA in its
+// place saves 4%.  What holds the kernel is each warpgroup's serial chain
+// S -> softmax -> P V, which other warpgroups on the SM hide only in part.
 //
 // What the bf16 design does about it:
 //  * Both products on wgmma: S = Q K^T as m64n128k16 with Q and K read
@@ -32,8 +34,9 @@
 //    overlap the other's products, and four warpgroups interleave their
 //    exp2 with the tensor cores.  A separate producer warp would take
 //    registers the consumers need at two blocks an SM (setmaxnreg can only
-//    hand on what the producer frees), and one block an SM with a producer
-//    warpgroup and S / P V overlap inside each warpgroup measured slower.
+//    hand on what the producer frees).  Measured slower: one block an SM
+//    with a producer warpgroup and S / P V overlap in each warpgroup, and
+//    that overlap at two blocks an SM with P staged in shared memory.
 //  * TMA zero-fills rows past S or Sk, so ragged lengths need no padding
 //    copy; keys past Sk are still masked, as are the causal diagonal tile
 //    and the window's first tiles.  Tiles with no masked pair skip the
