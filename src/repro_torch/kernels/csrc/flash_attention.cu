@@ -277,9 +277,8 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&p
 
 // Shared memory of the bf16 kernel: Q, then STAGES K tiles, STAGES V
 // tiles (each D / 64 boxes of 128 rows x 128 bytes), then the mbarriers.
-// At D 64 two blocks share an SM (80 KB each): one block's loads and
-// epilogue overlap the other's products, and four warpgroups interleave
-// their softmax with the tensor cores.  A third stage gained nothing there.
+// At D 64 two stages keep a block at 80 KB, so two blocks share an SM; a
+// third stage (two blocks still fit) gained nothing.
 template <int D>
 struct Smem {
   static constexpr int STAGES = D == 64 ? 2 : 3;

@@ -16,7 +16,6 @@ which counts the launches; this module only checks and launches.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
@@ -63,15 +62,6 @@ def tma_layout(shape: tuple[int, int, int, int], stride: tuple[int, int, int, in
     return TmaLayout((d, h, s, b), strides, (BOX_COLS, 1, rows, 1))
 
 
-@functools.lru_cache(maxsize=64)
-def _layouts(q_shape, q_stride, k_shape, k_stride) -> ctypes.Array:
-    """The q and k/v tensor-map layouts the C side takes, 22 values; a
-    model's layers repeat their shapes, so the array is built once."""
-    flat = (tma_layout(q_shape, q_stride, 2, BLOCK_Q).flat()
-            + tma_layout(k_shape, k_stride, 2, BLOCK_KV).flat())
-    return (ctypes.c_longlong * len(flat))(*flat)
-
-
 def _fn():
     fn = build.library("flash_attention").flash_attention_fwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
@@ -111,8 +101,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, s, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     layout = None
-    if q.dtype == torch.bfloat16:
-        layout = _layouts(q.shape, q.stride(), k.shape, k.stride())
+    if q.dtype == torch.bfloat16:   # the TMA layouts of q and of k / v, 22 values
+        flat = (tma_layout(q.shape, q.stride(), 2, BLOCK_Q).flat()
+                + tma_layout(k.shape, k.stride(), 2, BLOCK_KV).flat())
+        layout = (ctypes.c_longlong * len(flat))(*flat)
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
