@@ -22,10 +22,12 @@ import statistics
 import subprocess
 import sys
 
-SHAPES = {  # (B, S, H, KV, D): granite-3-2b's prefill, a longer prompt, the other head dim
-    "granite": (4, 1024, 32, 8, 64),
-    "s2048": (4, 2048, 32, 8, 64),
-    "d128": (4, 1024, 32, 8, 128),
+SHAPES = {  # (B, S, H, KV, D, window): granite-3-2b's prefill, a longer prompt,
+    # the other head dim, a sliding window
+    "granite": (4, 1024, 32, 8, 64, 0),
+    "s2048": (4, 2048, 32, 8, 64, 0),
+    "d128": (4, 1024, 32, 8, 128, 0),
+    "window256": (4, 1024, 32, 8, 64, 256),
 }
 
 
@@ -52,17 +54,22 @@ def worker(src: str, shapes: list[str], seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out = {"src": src}
     for name in shapes:
-        b, s, h, kv, d = SHAPES[name]
+        b, s, h, kv, d, window = SHAPES[name]
         q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").bfloat16()
                    for n in (h, kv, kv))
-        got = flash_attention(q, k, v, causal=True)
-        ref = flash_attention_ref(q, k, v, causal=True)
+        got = flash_attention(q, k, v, causal=True, window=window)
+        ref = flash_attention_ref(q, k, v, causal=True, window=window)
         err = ((got.float() - ref.float()).abs() / (1 + ref.float().abs())).max().item()
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lib_kw = {"is_causal": True}
+        if window:
+            pos = torch.arange(s, device="cuda")
+            lib_kw = {"attn_mask": (pos[None, :] <= pos[:, None])
+                      & (pos[None, :] > pos[:, None] - window)}
         out[name] = {
-            "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=True)),
+            "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window)),
             "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
+                qt, kt, vt, enable_gqa=True, **lib_kw)),
             "max_scaled_err": err}
     return out
 
@@ -70,7 +77,7 @@ def worker(src: str, shapes: list[str], seed: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("srcs", nargs="+")
-    ap.add_argument("--shapes", default="granite,s2048,d128")
+    ap.add_argument("--shapes", default="granite,s2048,d128,window256")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
