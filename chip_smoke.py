@@ -226,12 +226,23 @@ def phase_ssd_cases(seed: int) -> list[dict]:
         ("ragged_l1000", 4, 1000, 48, 128, torch.bfloat16),
         ("chunk64", 4, 1024, 48, 64, torch.bfloat16),
         ("fp32", 4, 1024, 48, 128, torch.float32),
+        # x, B and C as the model passes them: views of one conv output
+        # (B, L, H P + 2 N), read in place through tensor maps
+        ("model_views", 4, 1024, 48, 128, torch.bfloat16),
     ]
     p, n = 64, 128
     results, base = [], None      # base: mamba2_prefill's inputs and output
     for name, b, l, h, q, dtype in cases:
         if name == "chunk64":
             (x, dt, a, bm, cm), y128 = base
+        elif name == "model_views":
+            conv = torch.randn(b, l, h * p + 2 * n, generator=gen, device="cuda").to(dtype)
+            x = conv[..., :h * p].reshape(b, l, h, p)
+            bm, cm = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+            check(not x.is_contiguous() and not bm.is_contiguous() and not cm.is_contiguous(),
+                  "model_views: x, B and C must be views of the conv output")
+            dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda")).to(dtype)
+            a = (-torch.exp(0.3 * torch.randn(h, generator=gen, device="cuda"))).to(dtype)
         else:
             x = torch.randn(b, l, h, p, generator=gen, device="cuda").to(dtype)
             dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda")).to(dtype)
@@ -262,8 +273,8 @@ def phase_ssd_cases(seed: int) -> list[dict]:
         row["library_ms"] = None   # no single PyTorch call computes the SSD scan
         bound_ms, bound_by, flops, nbytes = ssd_bound(b, l, h, p, n, q, str(dtype),
                                                       str(a.dtype))
-        row.update(bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
-                   tflops=flops / (row["ms"] * 1e-3) / 1e12,
+        row.update(bound_ms=bound_ms, bound_by=bound_by, bound_frac=bound_ms / row["ms"],
+                   flops=flops, bytes=nbytes, tflops=flops / (row["ms"] * 1e-3) / 1e12,
                    gbytes_s=nbytes / (row["ms"] * 1e-3) / 1e9)
         emit("ssd_kernel_vs_plain", **row)
         check(scaled <= tol and row["finite"],

@@ -11,9 +11,9 @@
 //   state  = exp(cs_Q) state + sum_j exp(cs_Q - cs_j) dt_j x_j B_j^T
 //
 // Steps past L are dt = 0 identities (exp(0) = 1, dt x = 0): they leave
-// the state as it is, and their y is not written.  x, dt, b, c come in
-// as bf16 or fp32 (all alike), a as x's type or fp32; all arithmetic is
-// fp32, and y and the final state are written in x's type.
+// the state as it is, and their y is not written.  y and the final state
+// are written in x's type.  Two kernels: ssd_fwd_bf16 for bf16 inputs
+// (the model's), ssd_fwd (fp32 SIMT, notes below) for fp32.
 //
 // What bounds it on the H100: at mamba2-780m's prefill (B 4, L 1024,
 // H 48, P 64, N 128, Q 128, bf16) one launch must move about 56 MB (x and
@@ -24,40 +24,52 @@
 // first chunk, whose carried state is zero) and the state update; that is
 // 0.0078 ms at 989 TFLOP/s.  So bytes bound it, by 2x.
 //
-// What the design does about it, in this first, simple version:
-//  * The TPU grid's sequential chunk axis becomes a loop inside one
-//    thread block per (b, h), so the state never leaves the SM: it lives
-//    in shared memory (32 KB fp32) from the first chunk to the last, and
-//    only the final state is written.  Every input is read once, in
-//    place (x, B and C through their strides, as views of the model's
-//    conv output), and y is written once, so the kernel moves the bound's
-//    bytes and no more.
-//  * A chunk's B, C and x*dt are staged in shared memory as fp32 (about
-//    196 KB at Q 128, hence the opt-in above 48 KB).  The Q x Q decay
-//    tile (C B^T masked, then exp(cs_i - cs_j)) is built in registers and
-//    written over C once C is no longer needed, so it costs no memory of
-//    its own.  The mask comes before the exp: above the diagonal nothing
-//    is exponentiated, so nothing overflows (the Pallas kernel takes the
-//    exp of the whole tile first).
-//  * The chunk's cumulative sum is one warp scan (__shfl_up_sync), taken
-//    in fp64.  With this repo's init da reaches tens per step, so over a
-//    chunk cs grows to about -1e3, and exp(cs_i - cs_j) of two fp32 sums
-//    that large loses ~1e-4 of its value to cancellation, more the later
-//    the step (the Pallas kernel and the jnp op do exactly that).  In fp64
-//    the difference is exact to fp32, so the kernel agrees with the
-//    step-by-step recurrence (decode, ssd_ref) at every position.
-//  * The products are fp32 FMAs on the CUDA cores with register tiles of
-//    up to 8 x 8 per thread, not the tensor cores.  So today the kernel
-//    is bound by shared-memory loads and FMA throughput, far from its byte
-//    bound.  Tensor-core products (mma/wgmma on bf16 tiles), cp.async or
-//    TMA staging, chunk-parallel state passing and sharing C B^T across
-//    heads (G = 1) are later work (ROADMAP.md).
+// What the bf16 design does about it:
+//  * The TPU grid's sequential chunk axis is a loop inside one block per
+//    (b, h), so the state never leaves the SM and every input is read
+//    once, in place (x, B and C through tensor maps over the model's
+//    views of its conv output), and y is written once.
+//  * All four products run on wgmma (bf16 operands, fp32 sums), on two
+//    consumer warpgroups that take rows 0-63 and 64-127 of a Q 128 chunk
+//    (one warpgroup at Q 64):
+//      y = C state^T             m64n64, B from bf16 copies of the state;
+//      y = exp(cs_i) y + M x     per 64 steps j: S = C B^T (m64n64, both
+//                                K-major), M = S exp(cs_i - cs_j) dt_j
+//                                masked to j <= i before the exp and packed
+//                                to bf16 in registers (as flash packs P),
+//                                then m64n64 with x MN-major; steps past a
+//                                warpgroup's last row are skipped;
+//      state = exp(cs_Q) state + xw^T B   m64n(128 / warpgroups), xw =
+//                                x exp(cs_Q - cs_j) dt_j and B both read
+//                                MN-major.
+//    The fp32 state is the update's accumulator and stays in registers
+//    from the first chunk to the last (32 a thread at Q 128).
+//  * Each operand the kernel rounds (M, the state's copy, xw) goes in as
+//    two bf16 parts, hi = bf16(v) and lo = bf16(v - hi), and its product
+//    runs on both: 16 bits of mantissa.  With one part, any of the three
+//    reads 0.08-0.13 max |out - ref| / (1 + |ref|) at mamba2's shape
+//    (limit 5e-2), from sums that cancel; with both, 0.008, y's own
+//    rounding.  C, B and x enter exactly.  This costs 7.0 M MACs a head
+//    and chunk where one part would take 4.25 M.
+//  * C, B and x arrive by TMA (128-byte swizzle, 64-column boxes; rows
+//    past L are zero-filled) into two stages guarded by full mbarriers:
+//    chunk k + 2's C is loaded as soon as chunk k's reads of C are done,
+//    its B and x when chunk k's state update is, so the loads run while
+//    chunk k + 1 computes.  The block-wide barrier that ends a chunk is
+//    what frees a stage.  The hi/lo copies take 211 KB of shared memory,
+//    one block an SM (one stage would be 131 KB, still one block).
+//  * The chunk's cumulative sum stays fp64 (one warp scan): with this
+//    repo's init da reaches tens per step and cs ~-1e3 over a chunk, where
+//    exp(cs_i - cs_j) of two fp32 sums loses ~1e-4 to cancellation.
+//  * C B^T is still computed once per head (G = 1 would let heads share it).
+//
+// What the measurements say still holds it back: see PERF.md (PR 15).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int P = 64;         // head dim (mamba2-780m)
 constexpr int N = 128;        // state dim
@@ -70,6 +82,17 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
+// ---------------------------------------------------------------------------
+// fp32: SIMT
+// ---------------------------------------------------------------------------
+// The fp32 kernel (PR 12's design, kept for fp32 inputs): one block of 256
+// threads per (b, h) loops over the chunks with the fp32 state in shared
+// memory (32 KB).  A chunk's B, C and x*dt are staged in shared memory as
+// fp32 (about 196 KB at Q 128, so one block an SM), the Q x Q decay tile
+// (C B^T masked, then exp(cs_i - cs_j)) is built in registers and written
+// over C, and the products are fp32 FMAs on the CUDA cores with register
+// tiles of up to 8 x 8 a thread.  So it is bound by shared-memory loads and
+// FMA throughput, not bytes: fp32 binds on operations at 67 TFLOP/s.
 struct Params {
   const void* x;      // (B, L, H, P), each (H, P) row contiguous
   const void* dt;     // (B, L, H), contiguous
@@ -315,6 +338,334 @@ int by_chunk(const Params& p, int blocks, int q, cudaStream_t stream) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: wgmma for the four products, TMA for the chunk's C, B and x
+// ---------------------------------------------------------------------------
+// Every operand that the kernel rounds to bf16 (the decay tile M, the
+// state's copy for C . state, x scaled by its weights for the state
+// update) is split into hi = bf16(v) and lo = bf16(v - hi), and each of
+// those products runs twice, on hi and on lo: 16 bits of mantissa, so the
+// products are as good as fp32 ones.  One bf16 operand alone reads 0.08-0.13
+// max |out - ref| / (1 + |ref|) at mamba2's shape (limit 5e-2), from sums
+// that cancel; C, B and x enter exactly.
+//
+// Shared memory at chunk Q: STAGES stages of the chunk's C (Q x N), B
+// (Q x N) and x (Q x P) as TMA writes them (64-column boxes of Q rows,
+// 128-byte swizzle); xw's lo part (Q x P, its hi part goes over x); the
+// state's hi and lo copies (P x N each, two boxes of P rows); then the
+// chunk's fp64 cumsum, two per-step vectors and the full barriers.
+template <int Q>
+struct Tile {
+  static constexpr int STAGES = 2;
+  static constexpr int NWG = Q / 64;          // consumer warpgroups, 64 chunk rows each
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int NW = N / NWG;          // state columns a warpgroup carries
+  static constexpr uint32_t CB_BYTES = Q * N * 2;   // C or B of one chunk
+  static constexpr uint32_t X_BYTES = Q * P * 2;
+  static constexpr uint32_t STAGE_BYTES = 2 * CB_BYTES + X_BYTES;
+  static constexpr uint32_t ST_BYTES = P * N * 2;   // one bf16 copy of the state
+  static constexpr size_t BYTES = 1024 + STAGES * STAGE_BYTES + X_BYTES + 2 * ST_BYTES +
+                                  Q * (8 + 2 * 4) + 8 * 2 * STAGES;   // 1024: alignment
+  static constexpr int BLOCKS_PER_SM = 232448 / (BYTES + 1024) > 0 ? 232448 / (BYTES + 1024) : 1;
+};
+
+struct BfParams {
+  const void* dt;     // (B, L, H), contiguous
+  const void* a;      // (H,)
+  void* y;            // (B, L, H, P), contiguous
+  void* state;        // (B, H, P, N), contiguous
+  int L, H;
+};
+
+// dt of steps l0 + j0 .. l0 + j0 + PER - 1; steps past L are 0
+template <int PER>
+__device__ __forceinline__ void load_dt(float (&dtv)[PER], const __nv_bfloat16* dtg, int l0,
+                                        int j0, int L, int H) {
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int l = l0 + j0 + k;
+    dtv[k] = l < L ? __bfloat162float(dtg[(size_t)l * H]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+template <int Q, typename TA>
+__global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
+    ssd_fwd_bf16(const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_b,
+                 const __grid_constant__ CUtensorMap tm_c, BfParams prm) {
+  using TL = Tile<Q>;
+  constexpr int STAGES = TL::STAGES, NW = TL::NW, PER = Q / 32;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  unsigned char* sStage = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* sXlo = sStage + STAGES * TL::STAGE_BYTES;
+  unsigned char* sStHi = sXlo + TL::X_BYTES;
+  unsigned char* sStLo = sStHi + TL::ST_BYTES;
+  double* cum = reinterpret_cast<double*>(sStLo + TL::ST_BYTES);   // (Q,) cumsum of da
+  float* wout = reinterpret_cast<float*>(cum + Q);  // exp(cum_last - cum_j) dt_j: step j into the state
+  float* dts = wout + Q;                            // dt_j
+  uint64_t* full_c = reinterpret_cast<uint64_t*>(dts + Q);
+  uint64_t* full_bx = full_c + STAGES;
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;   // accumulator row group / column pair
+  const int L = prm.L, H = prm.H;
+  const int bh = blockIdx.x, bi = bh / H, h = bh % H;
+  const int nchunks = (L + Q - 1) / Q;
+  const float a = ld(static_cast<const TA*>(prm.a) + h);
+  const __nv_bfloat16* dtg = static_cast<const __nv_bfloat16*>(prm.dt) + (size_t)bi * L * H + h;
+  // this thread's accumulator rows: chunk rows row0 and row0 + 8, and
+  // state rows p0 and p0 + 8
+  const int p0 = warp * 16 + g, row0 = wg * 64 + p0;
+
+  auto load_c = [&](int ch) {   // chunk ch's C into stage ch % STAGES
+    const int s = ch % STAGES;
+    unsigned char* dst = sStage + s * TL::STAGE_BYTES;
+    mbar_expect_tx(&full_c[s], TL::CB_BYTES);
+#pragma unroll
+    for (int c = 0; c < N / BOX; ++c)
+      tma_load(dst + c * Q * ROW, &tm_c, &full_c[s], c * BOX, 0, ch * Q, bi);
+  };
+  auto load_bx = [&](int ch) {  // chunk ch's B and x
+    const int s = ch % STAGES;
+    unsigned char* dst = sStage + s * TL::STAGE_BYTES + TL::CB_BYTES;
+    mbar_expect_tx(&full_bx[s], TL::CB_BYTES + TL::X_BYTES);
+#pragma unroll
+    for (int c = 0; c < N / BOX; ++c)
+      tma_load(dst + c * Q * ROW, &tm_b, &full_bx[s], c * BOX, 0, ch * Q, bi);
+    tma_load(dst + TL::CB_BYTES, &tm_x, &full_bx[s], 0, h, ch * Q, bi);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_c[s], 1);
+      mbar_init(&full_bx[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int ch = 0; ch < min(STAGES, nchunks); ++ch) {
+      load_c(ch);
+      load_bx(ch);
+    }
+  float dtv[PER];   // warp 0: the chunk's dt, PER steps a lane
+  if (tid < 32) load_dt<PER>(dtv, dtg, 0, lane * PER, L, H);
+
+  // the fp32 state, (P x NW) of it in each warpgroup: the accumulator of
+  // the update, kept in registers from the first chunk to the last
+  float state[NW / 2];
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) state[i] = 0.f;
+
+  for (int ch = 0; ch < nchunks; ++ch) {
+    const int s = ch % STAGES;
+    const uint32_t phase = (ch / STAGES) & 1;
+    unsigned char* sC = sStage + s * TL::STAGE_BYTES;
+    unsigned char* sB = sC + TL::CB_BYTES;
+    unsigned char* sX = sB + TL::CB_BYTES;
+    const int l0 = ch * Q;
+
+    // -- warp 0: da = dt a and its cumsum over the chunk, in fp64 -------
+    if (tid < 32) {
+      double v[PER];
+      double run = 0.0;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        run += (double)(dtv[k] * a);
+        v[k] = run;
+      }
+      double incl = run;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const double o = __shfl_up_sync(FULL, incl, off);
+        if (lane >= off) incl += o;
+      }
+      const double total = __shfl_sync(FULL, incl, 31);
+      const double excl = incl - run;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int j = lane * PER + k;
+        const double c_ = v[k] + excl;
+        cum[j] = c_;
+        wout[j] = __expf((float)(total - c_)) * dtv[k];
+        dts[j] = dtv[k];
+      }
+      // consumed next chunk, so the loads' latency is hidden
+      if (ch + 1 < nchunks) load_dt<PER>(dtv, dtg, l0 + Q, lane * PER, L, H);
+    }
+    __syncthreads();
+    const double c0 = cum[row0], c1 = cum[row0 + 8];
+    mbar_wait(&full_c[s], phase);
+
+    // -- y = exp(cum_i) (C_i . state): the state's hi and lo copies ------
+    float y[P / 2];
+#pragma unroll
+    for (int i = 0; i < P / 2; ++i) y[i] = 0.f;
+    if (ch > 0) {   // the first chunk's carried state is zero
+      qk_product<N, Q, P>(y, smem_u32(sC) + wg * 64 * ROW, smem_u32(sStHi));
+      qk_product<N, Q, P>(y, smem_u32(sC) + wg * 64 * ROW, smem_u32(sStLo), true);
+      const float e0 = __expf((float)c0), e1 = __expf((float)c1);
+#pragma unroll
+      for (int nb = 0; nb < P / 8; ++nb) {
+        y[4 * nb + 0] *= e0;
+        y[4 * nb + 1] *= e0;
+        y[4 * nb + 2] *= e1;
+        y[4 * nb + 3] *= e1;
+      }
+    }
+
+    // -- y += M x, 64 steps j at a time: S = C B^T on this warpgroup's
+    //    rows, M = S exp(cum_i - cum_j) dt_j for j <= i, else 0 (masked
+    //    before the exp); rows of warpgroup wg see steps j < (wg + 1) 64 ----
+    mbar_wait(&full_bx[s], phase);
+#pragma unroll
+    for (int hf = 0; hf < TL::NWG; ++hf) {
+      if (hf > wg) break;
+      float sc[32];
+      qk_product<N, Q, Q>(sc, smem_u32(sC) + wg * 64 * ROW, smem_u32(sB) + hf * 64 * ROW);
+      uint32_t mh[4][4], ml[4][4];
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        float m[4] = {0.f, 0.f, 0.f, 0.f};
+        const int j = hf * 64 + nb * 8 + 2 * t4;
+        if (hf * 64 + nb * 8 <= wg * 64 + warp * 16 + 15) {   // warp-uniform: past the diagonal is 0
+          const double2 cj = *reinterpret_cast<const double2*>(cum + j);
+          const float2 dj = *reinterpret_cast<const float2*>(dts + j);
+          if (j <= row0) m[0] = sc[4 * nb] * __expf((float)(c0 - cj.x)) * dj.x;
+          if (j + 1 <= row0) m[1] = sc[4 * nb + 1] * __expf((float)(c0 - cj.y)) * dj.y;
+          if (j <= row0 + 8) m[2] = sc[4 * nb + 2] * __expf((float)(c1 - cj.x)) * dj.x;
+          if (j + 1 <= row0 + 8) m[3] = sc[4 * nb + 3] * __expf((float)(c1 - cj.y)) * dj.y;
+        }
+        split_bf16(m[0], m[1], mh[nb / 2][(nb % 2) * 2 + 0], ml[nb / 2][(nb % 2) * 2 + 0]);
+        split_bf16(m[2], m[3], mh[nb / 2][(nb % 2) * 2 + 1], ml[nb / 2][(nb % 2) * 2 + 1]);
+      }
+      pv_product<P, 64>(y, mh, smem_u32(sX) + hf * 64 * ROW);
+      pv_product<P, 64>(y, ml, smem_u32(sX) + hf * 64 * ROW);
+    }
+    {
+      __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(prm.y) + ((size_t)bi * L * H + h) * P;
+      const size_t y_stride = (size_t)H * P;
+      const int l_0 = l0 + row0, l_1 = l_0 + 8;
+#pragma unroll
+      for (int nb = 0; nb < P / 8; ++nb) {
+        const int col = nb * 8 + 2 * t4;
+        if (l_0 < L)
+          *reinterpret_cast<__nv_bfloat162*>(yb + (size_t)l_0 * y_stride + col) =
+              __floats2bfloat162_rn(y[4 * nb + 0], y[4 * nb + 1]);
+        if (l_1 < L)
+          *reinterpret_cast<__nv_bfloat162*>(yb + (size_t)l_1 * y_stride + col) =
+              __floats2bfloat162_rn(y[4 * nb + 2], y[4 * nb + 3]);
+      }
+    }
+    __syncthreads();   // every read of C, of x and of the state copies is done
+    if (tid == 0 && ch + STAGES < nchunks) load_c(ch + STAGES);
+
+    // -- xw_j = x_j exp(cum_last - cum_j) dt_j: hi over x, lo beside it,
+    //    16 bytes a step.  The swizzle moves 16-byte pieces within a row
+    //    only, so a piece's row is its offset over ROW. ------------------
+    for (int e = tid; e < Q * P / 8; e += TL::THREADS) {
+      const float w = wout[e * 16 / ROW];
+      uint4 v = *reinterpret_cast<const uint4*>(sX + e * 16), lo;
+      uint32_t* u = reinterpret_cast<uint32_t*>(&v);
+      uint32_t* ul = reinterpret_cast<uint32_t*>(&lo);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u[k]));
+        split_bf16(f.x * w, f.y * w, u[k], ul[k]);
+      }
+      *reinterpret_cast<uint4*>(sX + e * 16) = v;
+      *reinterpret_cast<uint4*>(sXlo + e * 16) = lo;
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // -- state = exp(cum_last) state + xw^T B: A is xw (hi, then lo) read
+    //    MN-major, B this warpgroup's NW columns of B read MN-major ------
+    {
+      const float keep = __expf((float)cum[Q - 1]);
+#pragma unroll
+      for (int i = 0; i < NW / 2; ++i) state[i] *= keep;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2 * Q / 16; ++kk) {   // 16 steps (2048 bytes) a k-step
+        const uint32_t xa = (kk < Q / 16 ? smem_u32(sX) : smem_u32(sXlo)) + (kk % (Q / 16)) * 16 * ROW;
+        const uint64_t da = smem_desc(xa, Q * ROW / 16, 64);
+        const uint64_t db = smem_desc(smem_u32(sB) + wg * (NW / BOX) * Q * ROW +
+                                      (kk % (Q / 16)) * 16 * ROW, Q * ROW / 16, 64);
+        if constexpr (NW == 64) wgmma_ss_n64<1, 1>(state, da, db, 1);
+        else wgmma_ss_n128<1, 1>(state, da, db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(state);
+    }
+    // -- the state's hi and lo bf16 copies for the next chunk's C . state,
+    //    written as TMA would (K-major, 128-byte swizzle) ----------------
+    if (ch + 1 < nchunks) {
+#pragma unroll
+      for (int nb = 0; nb < NW / 8; ++nb) {
+        const int n = wg * NW + nb * 8 + 2 * t4;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int pr = p0 + 8 * r;
+          const uint32_t off = (n / BOX) * (P * ROW) + pr * ROW + (n % BOX) * 2;
+          const uint32_t swz = off ^ ((pr & 7) << 4);
+          split_bf16(state[4 * nb + 2 * r], state[4 * nb + 2 * r + 1],
+                     *reinterpret_cast<uint32_t*>(sStHi + swz),
+                     *reinterpret_cast<uint32_t*>(sStLo + swz));
+        }
+      }
+      fence_proxy_async();
+    }
+    __syncthreads();   // the stage is free, the state copies written
+    if (tid == 0 && ch + STAGES < nchunks) load_bx(ch + STAGES);
+  }
+
+  __nv_bfloat16* sg = static_cast<__nv_bfloat16*>(prm.state) + (size_t)bh * P * N;
+#pragma unroll
+  for (int nb = 0; nb < NW / 8; ++nb) {
+    const int n = wg * NW + nb * 8 + 2 * t4;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<__nv_bfloat162*>(sg + (p0 + 8 * r) * N + n) =
+          __floats2bfloat162_rn(state[4 * nb + 2 * r], state[4 * nb + 2 * r + 1]);
+  }
+}
+
+template <int Q, typename TA>
+int launch_bf16(const BfParams& p, const void* x, const void* b, const void* c,
+                const long long* layout, int blocks, cudaStream_t stream) {
+  CUtensorMap tm_x, tm_b, tm_c;
+  int err = encode(&tm_x, x, layout, Q);
+  if (!err) err = encode(&tm_b, b, layout + 11, Q);
+  if (!err) err = encode(&tm_c, c, layout + 22, Q);
+  if (err) return err;
+  constexpr size_t smem = Tile<Q>::BYTES;
+  // above 48 KB the launch is refused unless the kernel opts in
+  cudaFuncSetAttribute(ssd_fwd_bf16<Q, TA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  ssd_fwd_bf16<Q, TA><<<blocks, Tile<Q>::THREADS, smem, stream>>>(tm_x, tm_b, tm_c, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename TA>
+int bf16_by_chunk(const BfParams& p, const void* x, const void* b, const void* c,
+                  const long long* layout, int blocks, int q, cudaStream_t stream) {
+  switch (q) {
+    case 64: return launch_bf16<64, TA>(p, x, b, c, layout, blocks, stream);
+    case 128: return launch_bf16<128, TA>(p, x, b, c, layout, blocks, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // x, y: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, N); state:
@@ -323,19 +674,28 @@ int by_chunk(const Params& p, int blocks, int q, cudaStream_t stream) {
 // wider tensor; each (H, P) row of x and each N row of b and c is
 // contiguous.  dt, a, y and state are contiguous.  x, dt, b, c, y, state
 // are of one type (bf16 if is_bf16 else fp32), a bf16 if a_is_bf16 else
-// fp32.  q is the chunk (32, 64 or 128).  Returns cudaGetLastError()
-// after the launch.
+// fp32.  q is the chunk: 64 or 128 for bf16, 32, 64 or 128 for fp32.
+// layout: for bf16, the TMA layouts of x (viewed as (B, L, H, P)), b and
+// c (each viewed as (B, L, 1, N)), 11 values each, as
+// kernels/ssd_scan.py:tma_layouts computes them; unused for fp32.
+// Returns cudaGetLastError() after the launch, or a negative code from
+// encode().
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* a, const void* b,
                             const void* c, void* y, void* state, int B, int L, int H,
                             int p_dim, int n_dim, int q, int is_bf16, int a_is_bf16,
                             long long xs_b, long long xs_l, long long bs_b, long long bs_l,
-                            long long cs_b, long long cs_l, void* stream) {
+                            long long cs_b, long long cs_l, void* stream,
+                            const long long* layout) {
   if (p_dim != P || n_dim != N || B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  Params p{x, dt, a, b, c, y, state, L, H, xs_b, xs_l, bs_b, bs_l, cs_b, cs_l};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = B * H;
-  if (is_bf16 && a_is_bf16) return by_chunk<__nv_bfloat16, __nv_bfloat16>(p, blocks, q, st);
-  if (is_bf16) return by_chunk<__nv_bfloat16, float>(p, blocks, q, st);
+  if (is_bf16) {
+    if (layout == nullptr) return (int)cudaErrorInvalidValue;
+    BfParams p{dt, a, y, state, L, H};
+    if (a_is_bf16) return bf16_by_chunk<__nv_bfloat16>(p, x, b, c, layout, blocks, q, st);
+    return bf16_by_chunk<float>(p, x, b, c, layout, blocks, q, st);
+  }
+  Params p{x, dt, a, b, c, y, state, L, H, xs_b, xs_l, bs_b, bs_l, cs_b, cs_l};
   if (!a_is_bf16) return by_chunk<float, float>(p, blocks, q, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,8 +5,11 @@ Replaces ``src/repro/kernels/ssd_scan.py`` (``_kernel`` and
 the chunk with copies; this kernel reads the model layout in place (x, b
 and c through their batch and step strides, so the model's views of its
 conv output need no copy) and treats steps past L as dt = 0 identities
-itself, so the launcher makes no copy.  The source's header says what bounds the kernel on the H100
-and what its design does about it.
+itself, so the launcher makes no copy.  The bf16 kernel loads x, b and c
+by TMA: this module computes the tensor maps' layouts
+(:func:`tma_layouts`) and the C side encodes them.  The source's header
+says what bounds the kernel on the H100 and what its design does about
+it.
 
 The public entry is :func:`repro_torch.kernels.ops.ssd_scan`, which
 counts the launches; this module only checks and launches.
@@ -14,34 +17,72 @@ counts the launches; this module only checks and launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import TmaLayout, tma_layout
 
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 HEAD_DIMS = (64,)          # P
 STATE_DIMS = (128,)        # N
-CHUNKS = (32, 64, 128)     # the kernel's chunk tiles
+# the kernels' chunk tiles: the bf16 kernel's warpgroups take 64 rows each
+CHUNKS = {torch.bfloat16: (64, 128), torch.float32: (32, 64, 128)}
+
+
+class SsdTma(NamedTuple):
+    """The bf16 kernel's tensor maps: ``offsets``, the bytes from the
+    start of each tensor's storage to its first element (x, b, c), and
+    ``layouts``, x as (B, L, H, P) and b and c as (B, L, 1, N)."""
+    offsets: tuple[int, int, int]
+    layouts: tuple[TmaLayout, TmaLayout, TmaLayout]
+
+    def flat(self) -> tuple[int, ...]:
+        return sum((lay.flat() for lay in self.layouts), ())
+
+
+def tma_layouts(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, rows: int) -> SsdTma:
+    """The TMA layouts of x (B, L, H, P), b and c (B, L, N) with boxes of
+    ``rows`` steps, read in place through their strides (the model passes
+    views of one conv output).  Raises ValueError where TMA cannot
+    address a tensor: a start or a byte stride that is not a multiple of
+    16, or a row that is not contiguous."""
+    offsets = []
+    for name, t in (("x", x), ("b", b), ("c", c)):
+        off = t.storage_offset() * t.element_size()
+        if off % 16:
+            raise ValueError(f"ssd_scan: {name} starts {off} bytes into its storage; TMA "
+                             "needs a multiple of 16")
+        offsets.append(off)
+    es = x.element_size()
+    bb, l, _, _ = x.shape
+    n = b.shape[-1]
+    lays = [tma_layout(tuple(x.shape), x.stride(), es, rows)]
+    for t in (b, c):
+        lays.append(tma_layout((bb, l, 1, n), (t.stride(0), t.stride(1), n, t.stride(2)),
+                               es, rows))
+    return SsdTma(tuple(offsets), tuple(lays))
 
 
 def _fn():
     fn = build.library("ssd_scan").ssd_scan_fwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 6
-                      + [ctypes.c_void_p])
+                      + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return fn
 
 
-def kernel_chunk(chunk: int) -> int:
-    """The kernel's tile for a requested chunk: the smallest of CHUNKS that
-    holds it.  Steps past L are exact identities, so a larger tile
-    computes the same function (``min(128, L)`` for a short L)."""
-    for q in CHUNKS:
+def kernel_chunk(chunk: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The tile of the ``dtype`` kernel for a requested chunk: the smallest
+    of its CHUNKS that holds it.  Steps past L are exact identities, so a
+    larger tile computes the same function (``min(128, L)`` for a short L)."""
+    tiles = CHUNKS.get(dtype, CHUNKS[torch.float32])
+    for q in tiles:
         if 0 < chunk <= q:
             return q
-    raise ValueError(f"ssd_scan: chunk {chunk} is not in 1..{CHUNKS[-1]}")
+    raise ValueError(f"ssd_scan: chunk {chunk} is not in 1..{tiles[-1]}")
 
 
 def _check(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -84,17 +125,26 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.T
     """x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, N) on one CUDA
     device -> (y (B, L, H, P), final state (B, H, P, N)), both in x's dtype
     and contiguous.  x, b and c are read through their strides."""
-    q = kernel_chunk(chunk)
+    q = kernel_chunk(chunk, x.dtype)
     _check(x, dt, a, b, c)
     bb, l, h, p = x.shape
     n = b.shape[-1]
+    layout = None
+    if x.dtype == torch.bfloat16:   # the TMA layouts of x, b and c, 33 values
+        if any(t.data_ptr() % 16 for t in (x, b, c)):
+            raise ValueError("ssd_scan: x, b and c must start 16-byte aligned for TMA")
+        flat = tma_layouts(x, b, c, q).flat()
+        layout = (ctypes.c_longlong * len(flat))(*flat)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     state = torch.empty((bb, h, p, n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _fn()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                     y.data_ptr(), state.data_ptr(), bb, l, h, p, n, q, _DTYPES[x.dtype],
                     _DTYPES[a.dtype], x.stride(0), x.stride(1), b.stride(0), b.stride(1),
-                    c.stride(0), c.stride(1), torch.cuda.current_stream(x.device).cuda_stream)
+                    c.stride(0), c.stride(1), torch.cuda.current_stream(x.device).cuda_stream,
+                    layout)
+    if err < 0:
+        raise RuntimeError(f"ssd_scan: TMA tensor map not encoded (code {err})")
     if err:
         raise RuntimeError(f"ssd_scan: kernel launch failed with CUDA error {err}")
     return y, state

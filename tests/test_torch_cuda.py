@@ -42,7 +42,7 @@ def test_cuda_kernel_matches_plain_version(dtype, causal, window, s, d):
 @pytest.mark.parametrize("dtype,l,chunk,a_fp32", [
     (torch.bfloat16, 1024, 128, False), (torch.bfloat16, 1000, 128, False),
     (torch.bfloat16, 1024, 64, True), (torch.bfloat16, 300, 32, False),
-    (torch.float32, 1000, 128, True)])
+    (torch.float32, 1000, 128, True), (torch.bfloat16, 2048, 128, False)])
 def test_cuda_ssd_kernel_matches_plain_version(dtype, l, chunk, a_fp32):
     """mamba2-780m's head shape (P 64, N 128), inputs drawn as
     tests/test_kernels.py draws them; its tolerances (bf16 5e-2, fp32 2e-3)."""
@@ -67,13 +67,15 @@ def test_cuda_ssd_kernel_matches_plain_version(dtype, l, chunk, a_fp32):
 
 
 @pytest.mark.cuda
-def test_cuda_ssd_kernel_reads_strided_views():
+@pytest.mark.parametrize("l", [300, 1024, 1000])
+def test_cuda_ssd_kernel_reads_strided_views(l):
     """x, B and C as the model passes them: views of one conv output
-    (B, L, H*P + 2N), read in place by the kernel."""
+    (B, L, H*P + 2N), read in place by the kernel (through tensor maps in
+    bf16), bit for bit as from contiguous copies."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    b, l, h, p, n = 2, 300, 8, 64, 128
+    b, h, p, n = 2, 8, 64, 128
     conv = torch.randn(b, l, h * p + 2 * n, generator=gen, device="cuda").to(torch.bfloat16)
     x = conv[..., :h * p].reshape(b, l, h, p)
     bm, cm = conv[..., h * p:h * p + n], conv[..., h * p + n:]
@@ -85,3 +87,26 @@ def test_cuda_ssd_kernel_reads_strided_views():
                                   chunk=128)
     torch.testing.assert_close(y, want_y, rtol=0, atol=0)
     torch.testing.assert_close(state, want_state, rtol=0, atol=0)
+    ref_y, ref_state = ssd_ref(x, dt, a, bm, cm)
+    torch.testing.assert_close(y.float(), ref_y.float(), rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(state.float(), ref_state.float(), rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_kernel_chunk64_matches_chunk128():
+    """The two bf16 tilings compute one function: y and the final state at
+    chunk 64 against chunk 128 to chip_smoke.py's 1e-2 (both carry fp32
+    and differ in the order of their sums and the final roundings)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b, l, h = 2, 1000, 8
+    x = torch.randn(b, l, h, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda")).to(torch.bfloat16)
+    a = (-torch.exp(0.3 * torch.randn(h, generator=gen, device="cuda"))).to(torch.bfloat16)
+    bm, cm = (torch.randn(b, l, 128, generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in "bc")
+    y64, s64 = ssd_scan(x, dt, a, bm, cm, chunk=64)
+    y128, s128 = ssd_scan(x, dt, a, bm, cm, chunk=128)
+    torch.testing.assert_close(y64.float(), y128.float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(s64.float(), s128.float(), rtol=1e-2, atol=1e-2)

@@ -35,7 +35,7 @@ from repro_torch.configs import ALIASES, get_config, get_smoke_config
 from repro_torch.kernels import build
 from repro_torch.kernels.ops import ssd_scan
 from repro_torch.kernels.ref import ssd_ref
-from repro_torch.kernels.ssd_scan import kernel_chunk, ssd_scan_cuda
+from repro_torch.kernels.ssd_scan import kernel_chunk, ssd_scan_cuda, tma_layouts
 from repro_torch.models import spec as TS
 
 ARCH = "mamba2_780m"
@@ -248,9 +248,64 @@ def test_launcher_rejects_what_the_kernel_does_not_take(p, n, dtype, a_dtype, ch
         ssd_scan_cuda(x, dt, torch.zeros(2, dtype=a_dtype), bc, bc, chunk=chunk)
 
 
-def test_kernel_tiles_and_build():
-    assert [kernel_chunk(c) for c in (1, 32, 33, 64, 100, 128)] == [32, 32, 64, 64, 128, 128]
+def test_kernel_tiles_and_build(tmp_path, monkeypatch):
+    # the bf16 kernel's warpgroups take 64 chunk rows each; fp32 keeps its tiles
+    chunks = (1, 32, 33, 64, 100, 128)
+    assert [kernel_chunk(c) for c in chunks] == [64, 64, 64, 64, 128, 128]
+    assert [kernel_chunk(c, torch.bfloat16) for c in chunks] == [64, 64, 64, 64, 128, 128]
+    assert [kernel_chunk(c, torch.float32) for c in chunks] == [32, 32, 64, 64, 128, 128]
     assert {"flash_attention.cu", "ssd_scan.cu"} <= {p.name for p in build.sources()}
+    # the shared header is no library of its own, but it is hashed with the
+    # sources: an edit to it rebuilds both (checked on a copy of csrc/)
+    assert "hopper.cuh" not in {p.name for p in build.sources()}
+    for f in build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    orig = build.build_dir()
+    (tmp_path / "hopper.cuh").write_bytes((tmp_path / "hopper.cuh").read_bytes() + b"\n")
+    assert build.build_dir() != orig
+
+
+def _conv_views(b, l, h, p, n, width=None):
+    """x, B and C as the model splits its conv output (B, L, H P + 2 N)."""
+    conv = torch.empty(b, l, width or h * p + 2 * n, dtype=torch.bfloat16, device="meta")
+    return (conv[..., :h * p].reshape(b, l, h, p), conv[..., h * p:h * p + n],
+            conv[..., h * p + n:h * p + 2 * n])
+
+
+@pytest.mark.parametrize("views,rows", [(True, 128), (False, 128), (True, 64), (False, 64)])
+def test_ssd_tma_layouts(views, rows):
+    """mamba2-780m's prefill (B 4, L 1024, H 48, P 64, N 128): x, B and C
+    as views of one (4, 1024, 3328) bf16 conv output, or contiguous."""
+    b, l, h, p, n = 4, 1024, 48, 64, 128
+    if views:
+        x, bm, cm = _conv_views(b, l, h, p, n)
+        offsets, row = (0, 6144, 6400), 6656         # 3328 bf16 a step
+    else:
+        x, bm, cm = (torch.empty(s, dtype=torch.bfloat16, device="meta")
+                     for s in ((b, l, h, p), (b, l, n), (b, l, n)))
+        offsets = (0, 0, 0)
+    got = tma_layouts(x, bm, cm, rows)
+    assert got.offsets == offsets
+    box = (64, 1, rows, 1)
+    x_row = row if views else h * p * 2
+    bc_row = row if views else n * 2
+    assert got.layouts[0] == ((p, h, l, b), (p * 2, x_row, x_row * l), box)
+    for lay in got.layouts[1:]:
+        assert lay == ((n, 1, l, b), (n * 2, bc_row, bc_row * l), box)
+    assert len(got.flat()) == 33 and got.flat()[:11] == got.layouts[0].flat()
+
+
+@pytest.mark.parametrize("width,cut,match", [
+    (3329, 0, "byte stride 6658 .* not a multiple of 16"),   # odd row: 6658 bytes a step
+    (3328 + 4, 2, "starts 6148 bytes"),                        # B two elements off the 16-byte grid
+])
+def test_ssd_tma_layouts_refuse_what_tma_cannot_address(width, cut, match):
+    conv = torch.empty(2, 64, width, dtype=torch.bfloat16, device="meta")
+    x = conv[..., :3072].reshape(2, 64, 48, 64)
+    bm, cm = conv[..., 3072 + cut:3200 + cut], conv[..., 3200 + cut:3328 + cut]
+    with pytest.raises(ValueError, match=match):
+        tma_layouts(x, bm, cm, 128)
 
 
 # -- blocks with bridged weights ----------------------------------------------

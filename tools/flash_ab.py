@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Time the flash-attention kernel of several checkouts in turns on one GPU.
+"""Time the port's kernels of several checkouts in turns on one GPU.
 
     python3 tools/flash_ab.py SRC [SRC ...] [--shapes granite,s2048,d128] [--rounds 2]
+    python3 tools/flash_ab.py SRC [SRC ...] --shapes mamba2,mamba2_l2048,model_views
 
 Each SRC is the ``src`` directory of a checkout of this repository.  All
 checkouts' kernels are built first, in parallel.  Then every round runs
 each checkout once in a process of its own (the checkouts share package
 names), in the order given and then reversed, so two versions run as
-A B B A.  A run times ``repro_torch.kernels.ops.flash_attention`` with
-CUDA events on bf16 causal inputs made from a seed, beside one
-``scaled_dot_product_attention`` call on the same inputs, and reports
-the kernel's max |out - ref| / (1 + |ref|) against its checkout's
-``flash_attention_ref``.  Prints one JSON line per run, then the median
-ms per checkout and shape.  Needs a CUDA device.
+A B B A.  A run times each shape's kernel with CUDA events on bf16
+inputs made from a seed: ``repro_torch.kernels.ops.flash_attention``
+(causal) beside one ``scaled_dot_product_attention`` call on the same
+inputs, or ``repro_torch.kernels.ops.ssd_scan`` (no PyTorch call
+computes the SSD scan).  It reports the kernel's max |out - ref| /
+(1 + |ref|) against its checkout's plain version (``flash_attention_ref``
+or ``ssd_ref``).  Prints one JSON line per run, then the median of each
+number per checkout and shape.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -22,12 +25,18 @@ import statistics
 import subprocess
 import sys
 
-SHAPES = {  # (B, S, H, KV, D, window): granite-3-2b's prefill, a longer prompt,
-    # the other head dim, a sliding window
-    "granite": (4, 1024, 32, 8, 64, 0),
-    "s2048": (4, 2048, 32, 8, 64, 0),
-    "d128": (4, 1024, 32, 8, 128, 0),
-    "window256": (4, 1024, 32, 8, 64, 256),
+SHAPES = {  # flash: (B, S, H, KV, D, window): granite-3-2b's prefill, a
+    # longer prompt, the other head dim, a sliding window
+    "granite": ("flash", (4, 1024, 32, 8, 64, 0)),
+    "s2048": ("flash", (4, 2048, 32, 8, 64, 0)),
+    "d128": ("flash", (4, 1024, 32, 8, 128, 0)),
+    "window256": ("flash", (4, 1024, 32, 8, 64, 256)),
+    # ssd: (B, L, H, chunk, views): mamba2-780m's prefill (P 64, N 128), a
+    # longer prompt, and x, B, C as views of one conv output as the model
+    # passes them
+    "mamba2": ("ssd", (4, 1024, 48, 128, False)),
+    "mamba2_l2048": ("ssd", (4, 2048, 48, 128, False)),
+    "model_views": ("ssd", (4, 1024, 48, 128, True)),
 }
 
 
@@ -44,33 +53,63 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def worker(src: str, shapes: list[str], seed: int) -> dict:
-    sys.path.insert(0, src)
+def scaled_err(out, ref) -> float:
+    return ((out.float() - ref.float()).abs() / (1 + ref.float().abs())).max().item()
+
+
+def time_flash(gen, b, s, h, kv, d, window) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ops import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    out = {"src": src}
-    for name in shapes:
-        b, s, h, kv, d, window = SHAPES[name]
-        q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").bfloat16()
-                   for n in (h, kv, kv))
-        got = flash_attention(q, k, v, causal=True, window=window)
-        ref = flash_attention_ref(q, k, v, causal=True, window=window)
-        err = ((got.float() - ref.float()).abs() / (1 + ref.float().abs())).max().item()
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        lib_kw = {"is_causal": True}
-        if window:
-            pos = torch.arange(s, device="cuda")
-            lib_kw = {"attn_mask": (pos[None, :] <= pos[:, None])
-                      & (pos[None, :] > pos[:, None] - window)}
-        out[name] = {
-            "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window)),
+    q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").bfloat16()
+               for n in (h, kv, kv))
+    got = flash_attention(q, k, v, causal=True, window=window)
+    err = scaled_err(got, flash_attention_ref(q, k, v, causal=True, window=window))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib_kw = {"is_causal": True}
+    if window:
+        pos = torch.arange(s, device="cuda")
+        lib_kw = {"attn_mask": (pos[None, :] <= pos[:, None])
+                  & (pos[None, :] > pos[:, None] - window)}
+    return {"ms": cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window)),
             "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, enable_gqa=True, **lib_kw)),
             "max_scaled_err": err}
+
+
+def time_ssd(gen, b, l, h, chunk, views) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ops import ssd_scan
+    from repro_torch.kernels.ref import ssd_ref
+
+    p, n = 64, 128
+    if views:
+        conv = torch.randn(b, l, h * p + 2 * n, generator=gen, device="cuda").bfloat16()
+        x = conv[..., :h * p].reshape(b, l, h, p)
+        bm, cm = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+    else:
+        x = torch.randn(b, l, h, p, generator=gen, device="cuda").bfloat16()
+        bm, cm = (torch.randn(b, l, n, generator=gen, device="cuda").bfloat16() for _ in "bc")
+    dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda")).bfloat16()
+    a = (-torch.exp(0.3 * torch.randn(h, generator=gen, device="cuda"))).bfloat16()
+    y, st = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    ref_y, ref_st = ssd_ref(x, dt, a, bm, cm)
+    return {"ms": cuda_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=chunk)),
+            "max_scaled_err": max(scaled_err(y, ref_y), scaled_err(st, ref_st))}
+
+
+def worker(src: str, shapes: list[str], seed: int) -> dict:
+    sys.path.insert(0, src)
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {"src": src}
+    for name in shapes:
+        kind, args = SHAPES[name]
+        out[name] = (time_flash if kind == "flash" else time_ssd)(gen, *args)
     return out
 
 
@@ -83,6 +122,9 @@ def main() -> int:
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     shapes = args.shapes.split(",")
+    unknown = [name for name in shapes if name not in SHAPES]
+    if unknown:
+        raise SystemExit(f"flash_ab: unknown shapes {unknown}; known: {sorted(SHAPES)}")
     if args.worker:
         print(json.dumps(worker(args.srcs[0], shapes, args.seed)), flush=True)
         return 0
@@ -102,8 +144,7 @@ def main() -> int:
             print(json.dumps({"round": r, **row}), flush=True)
             for name in shapes:
                 runs[src].setdefault(name, []).append(row[name])
-    summary = {src: {name: {key: statistics.median(x[key] for x in rows)
-                            for key in ("ms", "sdpa_ms", "max_scaled_err")}
+    summary = {src: {name: {key: statistics.median(x[key] for x in rows) for key in rows[0]}
                      for name, rows in by_shape.items()}
                for src, by_shape in runs.items()}
     print(json.dumps({"median": summary}), flush=True)
