@@ -91,12 +91,6 @@ __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
   return ok;
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Shared memory of the bf16 kernel: Q, then STAGES K tiles, STAGES V
 // tiles (each D / 64 boxes of 128 rows x 128 bytes), then the mbarriers.
 // At D 64 two stages keep a block at 80 KB, so two blocks share an SM; a

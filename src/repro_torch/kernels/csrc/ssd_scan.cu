@@ -52,16 +52,23 @@
 //    rounding.  C, B and x enter exactly.  This costs 7.0 M MACs a head
 //    and chunk where one part would take 4.25 M.
 //  * C, B and x arrive by TMA (128-byte swizzle, 64-column boxes; rows
-//    past L are zero-filled) into two stages guarded by full mbarriers:
-//    chunk k + 2's C is loaded as soon as chunk k's reads of C are done,
-//    its B and x when chunk k's state update is, so the loads run while
-//    chunk k + 1 computes.  The block-wide barrier that ends a chunk is
-//    what frees a stage.  The hi/lo copies take 211 KB of shared memory,
-//    one block an SM (one stage would be 131 KB, still one block).
+//    past L are zero-filled) on full mbarriers; the next chunk's C is
+//    loaded once this chunk's C is read, its B and x after the state
+//    update.  y goes out through shared memory by one TMA store a
+//    warpgroup, which also clips rows past L.  A second stage measured no
+//    faster: the chunk's loads are not what holds a block.
 //  * The chunk's cumulative sum stays fp64 (one warp scan): with this
 //    repo's init da reaches tens per step and cs ~-1e3 over a chunk, where
-//    exp(cs_i - cs_j) of two fp32 sums loses ~1e-4 to cancellation.
-//  * C B^T is still computed once per head (G = 1 would let heads share it).
+//    exp(cs_i - cs_j) of two fp32 sums loses ~1e-4 to cancellation.  It is
+//    kept as the float pair hi + lo of cs log2(e), so that cs_i - cs_j is
+//    three fp32 adds and exp one ex2 (an fp64 difference and its
+//    conversion per element took a third of the kernel's time).
+//  * Warpgroup 0's rows see half the steps, so it also scales x into xw
+//    and scans the next chunk's dt (into a second set of per-step
+//    vectors) while warpgroup 1 finishes its rows.
+//  * 165 KB of shared memory and up to 170 registers a thread: one block
+//    an SM, so the 192 blocks of the prefill run in two waves.  C B^T is
+//    still computed once per head (G = 1 would let heads share it).
 //
 // What the measurements say still holds it back: see PERF.md (PR 15).
 
@@ -351,12 +358,13 @@ int by_chunk(const Params& p, int blocks, int q, cudaStream_t stream) {
 //
 // Shared memory at chunk Q: STAGES stages of the chunk's C (Q x N), B
 // (Q x N) and x (Q x P) as TMA writes them (64-column boxes of Q rows,
-// 128-byte swizzle); xw's lo part (Q x P, its hi part goes over x); the
-// state's hi and lo copies (P x N each, two boxes of P rows); then the
-// chunk's fp64 cumsum, two per-step vectors and the full barriers.
+// 128-byte swizzle); xw's hi and lo parts (Q x P each); the state's hi and
+// lo copies (P x N each, two boxes of P rows); y (Q x P) on its way out by
+// TMA; then two sets (this chunk's, the next one's) of four per-step
+// vectors and the full barriers.
 template <int Q>
 struct Tile {
-  static constexpr int STAGES = 2;
+  static constexpr int STAGES = 1;
   static constexpr int NWG = Q / 64;          // consumer warpgroups, 64 chunk rows each
   static constexpr int THREADS = 128 * NWG;
   static constexpr int NW = N / NWG;          // state columns a warpgroup carries
@@ -364,8 +372,8 @@ struct Tile {
   static constexpr uint32_t X_BYTES = Q * P * 2;
   static constexpr uint32_t STAGE_BYTES = 2 * CB_BYTES + X_BYTES;
   static constexpr uint32_t ST_BYTES = P * N * 2;   // one bf16 copy of the state
-  static constexpr size_t BYTES = 1024 + STAGES * STAGE_BYTES + X_BYTES + 2 * ST_BYTES +
-                                  Q * (8 + 2 * 4) + 8 * 2 * STAGES;   // 1024: alignment
+  static constexpr size_t BYTES = 1024 + STAGES * STAGE_BYTES + 3 * X_BYTES + 2 * ST_BYTES +
+                                  2 * Q * 4 * 4 + 8 * 2 * STAGES;   // 1024: alignment
   static constexpr int BLOCKS_PER_SM = 232448 / (BYTES + 1024) > 0 ? 232448 / (BYTES + 1024) : 1;
 };
 
@@ -388,6 +396,9 @@ __device__ __forceinline__ void load_dt(float (&dtv)[PER], const __nv_bfloat16* 
   }
 }
 
+// a and b as bf16 pairs: hi, each rounded to nearest, and lo, what is
+// left of each (exact in fp32) rounded to bf16.  hi + lo keeps 16 bits of
+// mantissa.  (An integer-only split measured slower.)
 __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   const float2 hf = __bfloat1622float2(h);
@@ -395,23 +406,66 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
   lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
+// warp 0: da = dt a over a chunk (dtv, PER steps a lane) and its cumsum
+// in fp64, into one set of per-step vectors (see the kernel)
+template <int Q>
+__device__ __forceinline__ void scan_chunk(float* set, const float (&dtv)[Q / 32], float a,
+                                           int lane) {
+  constexpr int PER = Q / 32;
+  constexpr double LOG2E = 1.4426950408889634;
+  float* chh = set;
+  float* chl = chh + Q;
+  float* wout = chl + Q;
+  float* dts = wout + Q;
+  double v[PER];
+  double run = 0.0;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    run += (double)(dtv[k] * a);
+    v[k] = run;
+  }
+  double incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double o = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += o;
+  }
+  const double total = __shfl_sync(FULL, incl, 31);
+  const double excl = incl - run;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int j = lane * PER + k;
+    const double c2 = (v[k] + excl) * LOG2E;
+    const float hi = (float)c2;
+    chh[j] = hi;
+    chl[j] = (float)(c2 - (double)hi);
+    wout[j] = __expf((float)(total - v[k] - excl)) * dtv[k];
+    dts[j] = dtv[k];
+  }
+}
+
 template <int Q, typename TA>
 __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
     ssd_fwd_bf16(const __grid_constant__ CUtensorMap tm_x,
                  const __grid_constant__ CUtensorMap tm_b,
-                 const __grid_constant__ CUtensorMap tm_c, BfParams prm) {
+                 const __grid_constant__ CUtensorMap tm_c,
+                 const __grid_constant__ CUtensorMap tm_y, BfParams prm) {
   using TL = Tile<Q>;
-  constexpr int STAGES = TL::STAGES, NW = TL::NW, PER = Q / 32;
+  constexpr int STAGES = TL::STAGES, NWG = TL::NWG, NW = TL::NW, PER = Q / 32;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   unsigned char* sStage = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  unsigned char* sXlo = sStage + STAGES * TL::STAGE_BYTES;
+  unsigned char* sXhi = sStage + STAGES * TL::STAGE_BYTES;
+  unsigned char* sXlo = sXhi + TL::X_BYTES;
   unsigned char* sStHi = sXlo + TL::X_BYTES;
   unsigned char* sStLo = sStHi + TL::ST_BYTES;
-  double* cum = reinterpret_cast<double*>(sStLo + TL::ST_BYTES);   // (Q,) cumsum of da
-  float* wout = reinterpret_cast<float*>(cum + Q);  // exp(cum_last - cum_j) dt_j: step j into the state
-  float* dts = wout + Q;                            // dt_j
-  uint64_t* full_c = reinterpret_cast<uint64_t*>(dts + Q);
+  unsigned char* sY = sStLo + TL::ST_BYTES;   // 64 rows (8 KB) a warpgroup
+  // per step j, two sets: the chunk's cumsum of da in base 2, cum_j
+  // log2(e), as the float pair ch_j + cl_j (a difference of two is then
+  // exact to fp32 in three adds); exp(cum_last - cum_j) dt_j, step j's
+  // weight into the state; dt_j
+  float* vec = reinterpret_cast<float*>(sY + TL::X_BYTES);
+  uint64_t* full_c = reinterpret_cast<uint64_t*>(vec + 2 * 4 * Q);
   uint64_t* full_bx = full_c + STAGES;
 
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
@@ -456,8 +510,13 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
       load_c(ch);
       load_bx(ch);
     }
-  float dtv[PER];   // warp 0: the chunk's dt, PER steps a lane
-  if (tid < 32) load_dt<PER>(dtv, dtg, 0, lane * PER, L, H);
+  float dtv[PER];   // warp 0: a chunk's dt, PER steps a lane
+  if (tid < 32) {
+    load_dt<PER>(dtv, dtg, 0, lane * PER, L, H);
+    scan_chunk<Q>(vec, dtv, a, lane);
+    if (nchunks > 1) load_dt<PER>(dtv, dtg, Q, lane * PER, L, H);
+  }
+  __syncthreads();
 
   // the fp32 state, (P x NW) of it in each warpgroup: the accumulator of
   // the update, kept in registers from the first chunk to the last
@@ -473,36 +532,11 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
     unsigned char* sX = sB + TL::CB_BYTES;
     const int l0 = ch * Q;
 
-    // -- warp 0: da = dt a and its cumsum over the chunk, in fp64 -------
-    if (tid < 32) {
-      double v[PER];
-      double run = 0.0;
-#pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        run += (double)(dtv[k] * a);
-        v[k] = run;
-      }
-      double incl = run;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const double o = __shfl_up_sync(FULL, incl, off);
-        if (lane >= off) incl += o;
-      }
-      const double total = __shfl_sync(FULL, incl, 31);
-      const double excl = incl - run;
-#pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        const int j = lane * PER + k;
-        const double c_ = v[k] + excl;
-        cum[j] = c_;
-        wout[j] = __expf((float)(total - c_)) * dtv[k];
-        dts[j] = dtv[k];
-      }
-      // consumed next chunk, so the loads' latency is hidden
-      if (ch + 1 < nchunks) load_dt<PER>(dtv, dtg, l0 + Q, lane * PER, L, H);
-    }
-    __syncthreads();
-    const double c0 = cum[row0], c1 = cum[row0 + 8];
+    float* chh = vec + (ch & 1) * 4 * Q;
+    float* chl = chh + Q;
+    float* wout = chl + Q;
+    float* dts = wout + Q;
+    const float c0h = chh[row0], c0l = chl[row0], c1h = chh[row0 + 8], c1l = chl[row0 + 8];
     mbar_wait(&full_c[s], phase);
 
     // -- y = exp(cum_i) (C_i . state): the state's hi and lo copies ------
@@ -512,7 +546,7 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
     if (ch > 0) {   // the first chunk's carried state is zero
       qk_product<N, Q, P>(y, smem_u32(sC) + wg * 64 * ROW, smem_u32(sStHi));
       qk_product<N, Q, P>(y, smem_u32(sC) + wg * 64 * ROW, smem_u32(sStLo), true);
-      const float e0 = __expf((float)c0), e1 = __expf((float)c1);
+      const float e0 = ex2(c0h + c0l), e1 = ex2(c1h + c1l);
 #pragma unroll
       for (int nb = 0; nb < P / 8; ++nb) {
         y[4 * nb + 0] *= e0;
@@ -527,7 +561,7 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
     //    before the exp); rows of warpgroup wg see steps j < (wg + 1) 64 ----
     mbar_wait(&full_bx[s], phase);
 #pragma unroll
-    for (int hf = 0; hf < TL::NWG; ++hf) {
+    for (int hf = 0; hf < NWG; ++hf) {
       if (hf > wg) break;
       float sc[32];
       qk_product<N, Q, Q>(sc, smem_u32(sC) + wg * 64 * ROW, smem_u32(sB) + hf * 64 * ROW);
@@ -537,12 +571,13 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
         float m[4] = {0.f, 0.f, 0.f, 0.f};
         const int j = hf * 64 + nb * 8 + 2 * t4;
         if (hf * 64 + nb * 8 <= wg * 64 + warp * 16 + 15) {   // warp-uniform: past the diagonal is 0
-          const double2 cj = *reinterpret_cast<const double2*>(cum + j);
+          const float2 jh = *reinterpret_cast<const float2*>(chh + j);
+          const float2 jl = *reinterpret_cast<const float2*>(chl + j);
           const float2 dj = *reinterpret_cast<const float2*>(dts + j);
-          if (j <= row0) m[0] = sc[4 * nb] * __expf((float)(c0 - cj.x)) * dj.x;
-          if (j + 1 <= row0) m[1] = sc[4 * nb + 1] * __expf((float)(c0 - cj.y)) * dj.y;
-          if (j <= row0 + 8) m[2] = sc[4 * nb + 2] * __expf((float)(c1 - cj.x)) * dj.x;
-          if (j + 1 <= row0 + 8) m[3] = sc[4 * nb + 3] * __expf((float)(c1 - cj.y)) * dj.y;
+          if (j <= row0) m[0] = sc[4 * nb] * ex2((c0h - jh.x) + (c0l - jl.x)) * dj.x;
+          if (j + 1 <= row0) m[1] = sc[4 * nb + 1] * ex2((c0h - jh.y) + (c0l - jl.y)) * dj.y;
+          if (j <= row0 + 8) m[2] = sc[4 * nb + 2] * ex2((c1h - jh.x) + (c1l - jl.x)) * dj.x;
+          if (j + 1 <= row0 + 8) m[3] = sc[4 * nb + 3] * ex2((c1h - jh.y) + (c1l - jl.y)) * dj.y;
         }
         split_bf16(m[0], m[1], mh[nb / 2][(nb % 2) * 2 + 0], ml[nb / 2][(nb % 2) * 2 + 0]);
         split_bf16(m[2], m[3], mh[nb / 2][(nb % 2) * 2 + 1], ml[nb / 2][(nb % 2) * 2 + 1]);
@@ -550,53 +585,72 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
       pv_product<P, 64>(y, mh, smem_u32(sX) + hf * 64 * ROW);
       pv_product<P, 64>(y, ml, smem_u32(sX) + hf * 64 * ROW);
     }
+    // -- y out: into this warpgroup's 64 rows of sY as TMA would write them
+    //    (128-byte swizzle), then one TMA store, which skips rows past L --
     {
-      __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(prm.y) + ((size_t)bi * L * H + h) * P;
-      const size_t y_stride = (size_t)H * P;
-      const int l_0 = l0 + row0, l_1 = l_0 + 8;
+      const bool elected = (tid & 127) == 0;
+      if (elected) bulk_wait_read();   // the previous chunk's store has read sY
+      named_sync(1 + wg, 128);
+      unsigned char* yw = sY + wg * 64 * ROW;
 #pragma unroll
       for (int nb = 0; nb < P / 8; ++nb) {
-        const int col = nb * 8 + 2 * t4;
-        if (l_0 < L)
-          *reinterpret_cast<__nv_bfloat162*>(yb + (size_t)l_0 * y_stride + col) =
-              __floats2bfloat162_rn(y[4 * nb + 0], y[4 * nb + 1]);
-        if (l_1 < L)
-          *reinterpret_cast<__nv_bfloat162*>(yb + (size_t)l_1 * y_stride + col) =
-              __floats2bfloat162_rn(y[4 * nb + 2], y[4 * nb + 3]);
-      }
-    }
-    __syncthreads();   // every read of C, of x and of the state copies is done
-    if (tid == 0 && ch + STAGES < nchunks) load_c(ch + STAGES);
-
-    // -- xw_j = x_j exp(cum_last - cum_j) dt_j: hi over x, lo beside it,
-    //    16 bytes a step.  The swizzle moves 16-byte pieces within a row
-    //    only, so a piece's row is its offset over ROW. ------------------
-    for (int e = tid; e < Q * P / 8; e += TL::THREADS) {
-      const float w = wout[e * 16 / ROW];
-      uint4 v = *reinterpret_cast<const uint4*>(sX + e * 16), lo;
-      uint32_t* u = reinterpret_cast<uint32_t*>(&v);
-      uint32_t* ul = reinterpret_cast<uint32_t*>(&lo);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u[k]));
-        split_bf16(f.x * w, f.y * w, u[k], ul[k]);
+        for (int r = 0; r < 2; ++r) {
+          const int rr = p0 + 8 * r;   // the row within the warpgroup's 64
+          const uint32_t off = rr * ROW + (nb * 8 + 2 * t4) * 2;
+          *reinterpret_cast<uint32_t*>(yw + (off ^ ((rr & 7) << 4))) =
+              pack_bf16(y[4 * nb + 2 * r], y[4 * nb + 2 * r + 1]);
+        }
       }
-      *reinterpret_cast<uint4*>(sX + e * 16) = v;
-      *reinterpret_cast<uint4*>(sXlo + e * 16) = lo;
+      fence_proxy_async();
+      named_sync(1 + wg, 128);
+      if (elected) {
+        tma_store(&tm_y, yw, 0, h, l0 + wg * 64, bi);
+        bulk_commit();
+      }
     }
-    fence_proxy_async();
-    __syncthreads();
+
+    // -- warpgroup 0, whose rows see half the steps, meanwhile: xw_j =
+    //    x_j exp(cum_last - cum_j) dt_j as hi and lo parts, 16 bytes a
+    //    step.  The swizzle moves 16-byte pieces within a row only, so a
+    //    piece's row is its offset over ROW. -----------------------------
+    if (wg == 0) {
+      for (int e = tid; e < Q * P / 8; e += 128) {
+        const float w = wout[e * 16 / ROW];
+        const uint4 v = *reinterpret_cast<const uint4*>(sX + e * 16);
+        const uint32_t* u = reinterpret_cast<const uint32_t*>(&v);
+        uint4 hi, lo;
+        uint32_t* uh = reinterpret_cast<uint32_t*>(&hi);
+        uint32_t* ul = reinterpret_cast<uint32_t*>(&lo);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[k]));
+          split_bf16(f.x * w, f.y * w, uh[k], ul[k]);
+        }
+        *reinterpret_cast<uint4*>(sXhi + e * 16) = hi;
+        *reinterpret_cast<uint4*>(sXlo + e * 16) = lo;
+      }
+      fence_proxy_async();
+      // the next chunk's per-step vectors, into the other set
+      if (tid < 32 && ch + 1 < nchunks) {
+        scan_chunk<Q>(vec + ((ch + 1) & 1) * 4 * Q, dtv, a, lane);
+        if (ch + 2 < nchunks) load_dt<PER>(dtv, dtg, l0 + 2 * Q, lane * PER, L, H);
+      }
+    }
+    __syncthreads();   // C, x and the state copies are read; xw and the next vectors written
+    if (tid == 0 && ch + STAGES < nchunks) load_c(ch + STAGES);
 
     // -- state = exp(cum_last) state + xw^T B: A is xw (hi, then lo) read
     //    MN-major, B this warpgroup's NW columns of B read MN-major ------
     {
-      const float keep = __expf((float)cum[Q - 1]);
+      const float keep = ex2(chh[Q - 1] + chl[Q - 1]);
 #pragma unroll
       for (int i = 0; i < NW / 2; ++i) state[i] *= keep;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 2 * Q / 16; ++kk) {   // 16 steps (2048 bytes) a k-step
-        const uint32_t xa = (kk < Q / 16 ? smem_u32(sX) : smem_u32(sXlo)) + (kk % (Q / 16)) * 16 * ROW;
+        const uint32_t xa = (kk < Q / 16 ? smem_u32(sXhi) : smem_u32(sXlo)) +
+                            (kk % (Q / 16)) * 16 * ROW;
         const uint64_t da = smem_desc(xa, Q * ROW / 16, 64);
         const uint64_t db = smem_desc(smem_u32(sB) + wg * (NW / BOX) * Q * ROW +
                                       (kk % (Q / 16)) * 16 * ROW, Q * ROW / 16, 64);
@@ -638,21 +692,23 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
       *reinterpret_cast<__nv_bfloat162*>(sg + (p0 + 8 * r) * N + n) =
           __floats2bfloat162_rn(state[4 * nb + 2 * r], state[4 * nb + 2 * r + 1]);
   }
+  if ((tid & 127) == 0) bulk_wait();
 }
 
 template <int Q, typename TA>
 int launch_bf16(const BfParams& p, const void* x, const void* b, const void* c,
                 const long long* layout, int blocks, cudaStream_t stream) {
-  CUtensorMap tm_x, tm_b, tm_c;
+  CUtensorMap tm_x, tm_b, tm_c, tm_y;
   int err = encode(&tm_x, x, layout, Q);
   if (!err) err = encode(&tm_b, b, layout + 11, Q);
   if (!err) err = encode(&tm_c, c, layout + 22, Q);
+  if (!err) err = encode(&tm_y, p.y, layout + 33, 64);
   if (err) return err;
   constexpr size_t smem = Tile<Q>::BYTES;
   // above 48 KB the launch is refused unless the kernel opts in
   cudaFuncSetAttribute(ssd_fwd_bf16<Q, TA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  ssd_fwd_bf16<Q, TA><<<blocks, Tile<Q>::THREADS, smem, stream>>>(tm_x, tm_b, tm_c, p);
+  ssd_fwd_bf16<Q, TA><<<blocks, Tile<Q>::THREADS, smem, stream>>>(tm_x, tm_b, tm_c, tm_y, p);
   return (int)cudaGetLastError();
 }
 
@@ -676,8 +732,9 @@ int bf16_by_chunk(const BfParams& p, const void* x, const void* b, const void* c
 // are of one type (bf16 if is_bf16 else fp32), a bf16 if a_is_bf16 else
 // fp32.  q is the chunk: 64 or 128 for bf16, 32, 64 or 128 for fp32.
 // layout: for bf16, the TMA layouts of x (viewed as (B, L, H, P)), b and
-// c (each viewed as (B, L, 1, N)), 11 values each, as
-// kernels/ssd_scan.py:tma_layouts computes them; unused for fp32.
+// c (each viewed as (B, L, 1, N)) with boxes of q rows, as
+// kernels/ssd_scan.py:tma_layouts computes them, and of y with boxes of
+// 64 rows, 11 values each; unused for fp32.
 // Returns cudaGetLastError() after the launch, or a negative code from
 // encode().
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* a, const void* b,

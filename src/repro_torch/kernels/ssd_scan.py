@@ -6,7 +6,7 @@ the chunk with copies; this kernel reads the model layout in place (x, b
 and c through their batch and step strides, so the model's views of its
 conv output need no copy) and treats steps past L as dt = 0 identities
 itself, so the launcher makes no copy.  The bf16 kernel loads x, b and c
-by TMA: this module computes the tensor maps' layouts
+and stores y by TMA: this module computes the tensor maps' layouts
 (:func:`tma_layouts`) and the C side encodes them.  The source's header
 says what bounds the kernel on the H100 and what its design does about
 it.
@@ -29,6 +29,7 @@ HEAD_DIMS = (64,)          # P
 STATE_DIMS = (128,)        # N
 # the kernels' chunk tiles: the bf16 kernel's warpgroups take 64 rows each
 CHUNKS = {torch.bfloat16: (64, 128), torch.float32: (32, 64, 128)}
+Y_ROWS = 64                # rows of y one warpgroup stores by TMA
 
 
 class SsdTma(NamedTuple):
@@ -129,14 +130,15 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.T
     _check(x, dt, a, b, c)
     bb, l, h, p = x.shape
     n = b.shape[-1]
-    layout = None
-    if x.dtype == torch.bfloat16:   # the TMA layouts of x, b and c, 33 values
-        if any(t.data_ptr() % 16 for t in (x, b, c)):
-            raise ValueError("ssd_scan: x, b and c must start 16-byte aligned for TMA")
-        flat = tma_layouts(x, b, c, q).flat()
-        layout = (ctypes.c_longlong * len(flat))(*flat)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     state = torch.empty((bb, h, p, n), dtype=x.dtype, device=x.device)
+    layout = None
+    if x.dtype == torch.bfloat16:   # the TMA layouts of x, b, c and y, 44 values
+        if any(t.data_ptr() % 16 for t in (x, b, c)):
+            raise ValueError("ssd_scan: x, b and c must start 16-byte aligned for TMA")
+        flat = (tma_layouts(x, b, c, q).flat()
+                + tma_layout(tuple(y.shape), y.stride(), 2, Y_ROWS).flat())
+        layout = (ctypes.c_longlong * len(flat))(*flat)
     with torch.cuda.device(x.device):
         err = _fn()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                     y.data_ptr(), state.data_ptr(), bb, l, h, p, n, q, _DTYPES[x.dtype],
