@@ -245,14 +245,13 @@ __device__ __forceinline__ void qk_product(float (&s)[NS], uint32_t a, uint32_t 
 }
 
 // O (64 x D, fp32) += P (64 x K_ROWS, bf16 A fragments) V (K_ROWS x D at
-// shared address v, MN-major), over the first `steps` 16-row k-steps
+// shared address v, MN-major)
 template <int D, int K_ROWS>
 __device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&pf)[K_ROWS / 16][4],
-                                           uint32_t v, int steps = K_ROWS / 16) {
+                                           uint32_t v) {
   wgmma_fence();
 #pragma unroll
   for (int j = 0; j < K_ROWS / 16; ++j) {     // 16 k rows (2048 bytes) a step
-    if (j >= steps) break;
     const uint64_t desc = smem_desc(v + j * 16 * ROW, K_ROWS * ROW / 16, 64);
     if constexpr (D == 64) wgmma_rs_n64(o, pf[j], desc);
     else wgmma_rs_n128(o, pf[j], desc);

@@ -70,7 +70,17 @@
 //    an SM, so the 192 blocks of the prefill run in two waves.  C B^T is
 //    still computed once per head (G = 1 would let heads share it).
 //
-// What the measurements say still holds it back: see PERF.md (PR 15).
+// What the measurements say still holds it back (0.100 ms at mamba2's
+// prefill, 17% of the byte bound; probes that drop one piece each, timed
+// with tools/flash_ab.py on an H100): no single piece.  Each block runs a
+// serial chain a chunk (products, waits, the elementwise decay tile,
+// block-wide barriers) that its two warpgroups hide only in part, and one
+// block an SM puts the prefill's 192 blocks in two waves on 132 SMs.  The
+// decay tile's elementwise work is 13% of the time, the state update 8%,
+// warpgroup 1's second 64 steps 4.5%; the carried term is hidden.  Two
+// blocks an SM (shared memory aliased, registers capped at 128, wrong
+// results) gained 11%.  The next step is structural: C B^T shared across
+// heads, or a chunk-parallel split that gives the SMs more, shorter blocks.
 
 #include "hopper.cuh"
 
@@ -87,12 +97,11 @@ constexpr unsigned FULL = 0xffffffffu;
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // ---------------------------------------------------------------------------
 // fp32: SIMT
 // ---------------------------------------------------------------------------
-// The fp32 kernel (PR 12's design, kept for fp32 inputs): one block of 256
+// The fp32 kernel (the first design, kept for fp32 inputs): one block of 256
 // threads per (b, h) loops over the chunks with the fp32 state in shared
 // memory (32 KB).  A chunk's B, C and x*dt are staged in shared memory as
 // fp32 (about 196 KB at Q 128, so one block an SM), the Q x Q decay tile
@@ -356,24 +365,22 @@ int by_chunk(const Params& p, int blocks, int q, cudaStream_t stream) {
 // max |out - ref| / (1 + |ref|) at mamba2's shape (limit 5e-2), from sums
 // that cancel; C, B and x enter exactly.
 //
-// Shared memory at chunk Q: STAGES stages of the chunk's C (Q x N), B
-// (Q x N) and x (Q x P) as TMA writes them (64-column boxes of Q rows,
+// Shared memory at chunk Q: the chunk's C (Q x N), B (Q x N) and x (Q x P)
+// as TMA writes them (64-column boxes of Q rows,
 // 128-byte swizzle); xw's hi and lo parts (Q x P each); the state's hi and
 // lo copies (P x N each, two boxes of P rows); y (Q x P) on its way out by
 // TMA; then two sets (this chunk's, the next one's) of four per-step
 // vectors and the full barriers.
 template <int Q>
 struct Tile {
-  static constexpr int STAGES = 1;
   static constexpr int NWG = Q / 64;          // consumer warpgroups, 64 chunk rows each
   static constexpr int THREADS = 128 * NWG;
   static constexpr int NW = N / NWG;          // state columns a warpgroup carries
   static constexpr uint32_t CB_BYTES = Q * N * 2;   // C or B of one chunk
   static constexpr uint32_t X_BYTES = Q * P * 2;
-  static constexpr uint32_t STAGE_BYTES = 2 * CB_BYTES + X_BYTES;
   static constexpr uint32_t ST_BYTES = P * N * 2;   // one bf16 copy of the state
-  static constexpr size_t BYTES = 1024 + STAGES * STAGE_BYTES + 3 * X_BYTES + 2 * ST_BYTES +
-                                  2 * Q * 4 * 4 + 8 * 2 * STAGES;   // 1024: alignment
+  static constexpr size_t BYTES = 1024 + 2 * CB_BYTES + 4 * X_BYTES + 2 * ST_BYTES +
+                                  2 * Q * 4 * 4 + 8 * 2;   // 1024: alignment
   static constexpr int BLOCKS_PER_SM = 232448 / (BYTES + 1024) > 0 ? 232448 / (BYTES + 1024) : 1;
 };
 
@@ -451,11 +458,13 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
                  const __grid_constant__ CUtensorMap tm_c,
                  const __grid_constant__ CUtensorMap tm_y, BfParams prm) {
   using TL = Tile<Q>;
-  constexpr int STAGES = TL::STAGES, NWG = TL::NWG, NW = TL::NW, PER = Q / 32;
+  constexpr int NWG = TL::NWG, NW = TL::NW, PER = Q / 32;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
-  unsigned char* sStage = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  unsigned char* sXhi = sStage + STAGES * TL::STAGE_BYTES;
+  unsigned char* sC = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* sB = sC + TL::CB_BYTES;
+  unsigned char* sX = sB + TL::CB_BYTES;
+  unsigned char* sXhi = sX + TL::X_BYTES;
   unsigned char* sXlo = sXhi + TL::X_BYTES;
   unsigned char* sStHi = sXlo + TL::X_BYTES;
   unsigned char* sStLo = sStHi + TL::ST_BYTES;
@@ -465,8 +474,8 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
   // exact to fp32 in three adds); exp(cum_last - cum_j) dt_j, step j's
   // weight into the state; dt_j
   float* vec = reinterpret_cast<float*>(sY + TL::X_BYTES);
-  uint64_t* full_c = reinterpret_cast<uint64_t*>(vec + 2 * 4 * Q);
-  uint64_t* full_bx = full_c + STAGES;
+  uint64_t* full_c = reinterpret_cast<uint64_t*>(vec + 2 * 4 * Q);   // C has landed
+  uint64_t* full_bx = full_c + 1;                                     // B and x have
 
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;   // accumulator row group / column pair
@@ -479,37 +488,30 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
   // state rows p0 and p0 + 8
   const int p0 = warp * 16 + g, row0 = wg * 64 + p0;
 
-  auto load_c = [&](int ch) {   // chunk ch's C into stage ch % STAGES
-    const int s = ch % STAGES;
-    unsigned char* dst = sStage + s * TL::STAGE_BYTES;
-    mbar_expect_tx(&full_c[s], TL::CB_BYTES);
+  auto load_c = [&](int ch) {   // chunk ch's C
+    mbar_expect_tx(full_c, TL::CB_BYTES);
 #pragma unroll
     for (int c = 0; c < N / BOX; ++c)
-      tma_load(dst + c * Q * ROW, &tm_c, &full_c[s], c * BOX, 0, ch * Q, bi);
+      tma_load(sC + c * Q * ROW, &tm_c, full_c, c * BOX, 0, ch * Q, bi);
   };
   auto load_bx = [&](int ch) {  // chunk ch's B and x
-    const int s = ch % STAGES;
-    unsigned char* dst = sStage + s * TL::STAGE_BYTES + TL::CB_BYTES;
-    mbar_expect_tx(&full_bx[s], TL::CB_BYTES + TL::X_BYTES);
+    mbar_expect_tx(full_bx, TL::CB_BYTES + TL::X_BYTES);
 #pragma unroll
     for (int c = 0; c < N / BOX; ++c)
-      tma_load(dst + c * Q * ROW, &tm_b, &full_bx[s], c * BOX, 0, ch * Q, bi);
-    tma_load(dst + TL::CB_BYTES, &tm_x, &full_bx[s], 0, h, ch * Q, bi);
+      tma_load(sB + c * Q * ROW, &tm_b, full_bx, c * BOX, 0, ch * Q, bi);
+    tma_load(sX, &tm_x, full_bx, 0, h, ch * Q, bi);
   };
 
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full_c[s], 1);
-      mbar_init(&full_bx[s], 1);
-    }
+    mbar_init(full_c, 1);
+    mbar_init(full_bx, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (tid == 0)
-    for (int ch = 0; ch < min(STAGES, nchunks); ++ch) {
-      load_c(ch);
-      load_bx(ch);
-    }
+  if (tid == 0) {
+    load_c(0);
+    load_bx(0);
+  }
   float dtv[PER];   // warp 0: a chunk's dt, PER steps a lane
   if (tid < 32) {
     load_dt<PER>(dtv, dtg, 0, lane * PER, L, H);
@@ -525,11 +527,7 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
   for (int i = 0; i < NW / 2; ++i) state[i] = 0.f;
 
   for (int ch = 0; ch < nchunks; ++ch) {
-    const int s = ch % STAGES;
-    const uint32_t phase = (ch / STAGES) & 1;
-    unsigned char* sC = sStage + s * TL::STAGE_BYTES;
-    unsigned char* sB = sC + TL::CB_BYTES;
-    unsigned char* sX = sB + TL::CB_BYTES;
+    const uint32_t phase = ch & 1;   // of both full barriers: one load each a chunk
     const int l0 = ch * Q;
 
     float* chh = vec + (ch & 1) * 4 * Q;
@@ -537,7 +535,7 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
     float* wout = chl + Q;
     float* dts = wout + Q;
     const float c0h = chh[row0], c0l = chl[row0], c1h = chh[row0 + 8], c1l = chl[row0 + 8];
-    mbar_wait(&full_c[s], phase);
+    mbar_wait(full_c, phase);
 
     // -- y = exp(cum_i) (C_i . state): the state's hi and lo copies ------
     float y[P / 2];
@@ -559,7 +557,7 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
     // -- y += M x, 64 steps j at a time: S = C B^T on this warpgroup's
     //    rows, M = S exp(cum_i - cum_j) dt_j for j <= i, else 0 (masked
     //    before the exp); rows of warpgroup wg see steps j < (wg + 1) 64 ----
-    mbar_wait(&full_bx[s], phase);
+    mbar_wait(full_bx, phase);
 #pragma unroll
     for (int hf = 0; hf < NWG; ++hf) {
       if (hf > wg) break;
@@ -638,7 +636,7 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
       }
     }
     __syncthreads();   // C, x and the state copies are read; xw and the next vectors written
-    if (tid == 0 && ch + STAGES < nchunks) load_c(ch + STAGES);
+    if (tid == 0 && ch + 1 < nchunks) load_c(ch + 1);
 
     // -- state = exp(cum_last) state + xw^T B: A is xw (hi, then lo) read
     //    MN-major, B this warpgroup's NW columns of B read MN-major ------
@@ -679,8 +677,8 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
       }
       fence_proxy_async();
     }
-    __syncthreads();   // the stage is free, the state copies written
-    if (tid == 0 && ch + STAGES < nchunks) load_bx(ch + STAGES);
+    __syncthreads();   // B and x are read, the state copies written
+    if (tid == 0 && ch + 1 < nchunks) load_bx(ch + 1);
   }
 
   __nv_bfloat16* sg = static_cast<__nv_bfloat16*>(prm.state) + (size_t)bh * P * N;
@@ -705,9 +703,17 @@ int launch_bf16(const BfParams& p, const void* x, const void* b, const void* c,
   if (!err) err = encode(&tm_y, p.y, layout + 33, 64);
   if (err) return err;
   constexpr size_t smem = Tile<Q>::BYTES;
-  // above 48 KB the launch is refused unless the kernel opts in
-  cudaFuncSetAttribute(ssd_fwd_bf16<Q, TA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  // above 48 KB the launch is refused unless the kernel opts in, once on
+  // each device (a call costs host time next to a ~0.1 ms kernel)
+  static uint32_t opted = 0;   // a bit per device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 32 || !((opted >> dev) & 1u)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ssd_fwd_bf16<Q, TA>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 32) opted |= 1u << dev;
+  }
   ssd_fwd_bf16<Q, TA><<<blocks, Tile<Q>::THREADS, smem, stream>>>(tm_x, tm_b, tm_c, tm_y, p);
   return (int)cudaGetLastError();
 }

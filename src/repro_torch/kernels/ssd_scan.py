@@ -86,6 +86,27 @@ def kernel_chunk(chunk: int, dtype: torch.dtype = torch.bfloat16) -> int:
     raise ValueError(f"ssd_scan: chunk {chunk} is not in 1..{tiles[-1]}")
 
 
+_LAYOUTS: dict[tuple, ctypes.Array] = {}
+
+
+def _layout_array(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, q: int) -> ctypes.Array:
+    """The 44 layout values the bf16 kernel takes (x, b and c, then the
+    contiguous y of x's shape), as a C array.  Cached by shape, strides
+    and storage offsets (at most 256 entries): a launch is ~0.1 ms on the
+    card, and building the layouts in Python takes ~0.03 ms of host time."""
+    key = (tuple(x.shape), x.stride(), b.shape[-1], b.stride(), c.stride(),
+           x.storage_offset(), b.storage_offset(), c.storage_offset(), q)
+    arr = _LAYOUTS.get(key)
+    if arr is None:
+        bb, l, h, p = x.shape
+        flat = (tma_layouts(x, b, c, q).flat()
+                + tma_layout((bb, l, h, p), (l * h * p, h * p, p, 1), 2, Y_ROWS).flat())
+        if len(_LAYOUTS) >= 256:
+            _LAYOUTS.clear()
+        arr = _LAYOUTS[key] = (ctypes.c_longlong * len(flat))(*flat)
+    return arr
+
+
 def _check(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
            c: torch.Tensor) -> None:
     if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or b.dim() != 3 or c.dim() != 3:
@@ -133,12 +154,10 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.T
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     state = torch.empty((bb, h, p, n), dtype=x.dtype, device=x.device)
     layout = None
-    if x.dtype == torch.bfloat16:   # the TMA layouts of x, b, c and y, 44 values
+    if x.dtype == torch.bfloat16:
         if any(t.data_ptr() % 16 for t in (x, b, c)):
             raise ValueError("ssd_scan: x, b and c must start 16-byte aligned for TMA")
-        flat = (tma_layouts(x, b, c, q).flat()
-                + tma_layout(tuple(y.shape), y.stride(), 2, Y_ROWS).flat())
-        layout = (ctypes.c_longlong * len(flat))(*flat)
+        layout = _layout_array(x, b, c, q)
     with torch.cuda.device(x.device):
         err = _fn()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                     y.data_ptr(), state.data_ptr(), bb, l, h, p, n, q, _DTYPES[x.dtype],

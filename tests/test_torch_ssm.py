@@ -35,7 +35,9 @@ from repro_torch.configs import ALIASES, get_config, get_smoke_config
 from repro_torch.kernels import build
 from repro_torch.kernels.ops import ssd_scan
 from repro_torch.kernels.ref import ssd_ref
-from repro_torch.kernels.ssd_scan import kernel_chunk, ssd_scan_cuda, tma_layouts
+from repro_torch.kernels.flash_attention import tma_layout
+from repro_torch.kernels.ssd_scan import (Y_ROWS, _layout_array, kernel_chunk, ssd_scan_cuda,
+                                          tma_layouts)
 from repro_torch.models import spec as TS
 
 ARCH = "mamba2_780m"
@@ -294,6 +296,14 @@ def test_ssd_tma_layouts(views, rows):
     for lay in got.layouts[1:]:
         assert lay == ((n, 1, l, b), (n * 2, bc_row, bc_row * l), box)
     assert len(got.flat()) == 33 and got.flat()[:11] == got.layouts[0].flat()
+    # what the launcher hands the kernel: these, then y's, contiguous, in
+    # boxes of one warpgroup's rows; cached by shape, strides and offsets
+    y_layout = tma_layout((b, l, h, p), torch.empty(b, l, h, p, device="meta").stride(), 2,
+                          Y_ROWS)
+    assert y_layout.strides == (p * 2, h * p * 2, l * h * p * 2)
+    arr = _layout_array(x, bm, cm, rows)
+    assert tuple(arr) == got.flat() + y_layout.flat()
+    assert _layout_array(x, bm, cm, rows) is arr
 
 
 @pytest.mark.parametrize("width,cut,match", [
