@@ -46,11 +46,12 @@
 //    from the first chunk to the last (32 a thread at Q 128).
 //  * Each operand the kernel rounds (M, the state's copy, xw) goes in as
 //    two bf16 parts, hi = bf16(v) and lo = bf16(v - hi), and its product
-//    runs on both: 16 bits of mantissa.  With one part, any of the three
-//    reads 0.08-0.13 max |out - ref| / (1 + |ref|) at mamba2's shape
-//    (limit 5e-2), from sums that cancel; with both, 0.008, y's own
-//    rounding.  C, B and x enter exactly.  This costs 7.0 M MACs a head
-//    and chunk where one part would take 4.25 M.
+//    runs on both: 16 bits of mantissa.  Rounded once, at mamba2's shape
+//    the decay tile alone puts y 0.125 max |out - ref| / (1 + |ref|) from
+//    ssd_ref and the state's copy 0.085 (limit 5e-2), xw 0.024 between
+//    chunk 64 and 128 (limit 1e-2), from sums that cancel; split, 0.004,
+//    y's own rounding (tools/ssd_rounding.py).  C, B and x enter exactly.
+//    This costs 7.0 M MACs a head and chunk where one part would take 4.25 M.
 //  * C, B and x arrive by TMA (128-byte swizzle, 64-column boxes; rows
 //    past L are zero-filled) on full mbarriers; the next chunk's C is
 //    loaded once this chunk's C is read, its B and x after the state
@@ -361,9 +362,8 @@ int by_chunk(const Params& p, int blocks, int q, cudaStream_t stream) {
 // state's copy for C . state, x scaled by its weights for the state
 // update) is split into hi = bf16(v) and lo = bf16(v - hi), and each of
 // those products runs twice, on hi and on lo: 16 bits of mantissa, so the
-// products are as good as fp32 ones.  One bf16 operand alone reads 0.08-0.13
-// max |out - ref| / (1 + |ref|) at mamba2's shape (limit 5e-2), from sums
-// that cancel; C, B and x enter exactly.
+// products are as good as fp32 ones (one part alone fails a gate of
+// chip_smoke.py: see the header).  C, B and x enter exactly.
 //
 // Shared memory at chunk Q: the chunk's C (Q x N), B (Q x N) and x (Q x P)
 // as TMA writes them (64-column boxes of Q rows,

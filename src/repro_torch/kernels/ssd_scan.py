@@ -92,8 +92,8 @@ _LAYOUTS: dict[tuple, ctypes.Array] = {}
 def _layout_array(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, q: int) -> ctypes.Array:
     """The 44 layout values the bf16 kernel takes (x, b and c, then the
     contiguous y of x's shape), as a C array.  Cached by shape, strides
-    and storage offsets (at most 256 entries): a launch is ~0.1 ms on the
-    card, and building the layouts in Python takes ~0.03 ms of host time."""
+    and storage offsets (at most 256 entries): building the layouts takes
+    tens of microseconds of host time, next to a kernel of ~0.1 ms."""
     key = (tuple(x.shape), x.stride(), b.shape[-1], b.stride(), c.stride(),
            x.storage_offset(), b.storage_offset(), c.storage_offset(), q)
     arr = _LAYOUTS.get(key)

@@ -2,7 +2,7 @@
 
 Every ``repro_torch`` module and ``chip_smoke.py`` import with jax
 blocked and leave no ``repro.*`` module behind; the sources (and
-``tools/flash_ab.py``) hold no jax or ``repro.`` import; entry points
+the tools under ``tools/``) hold no jax or ``repro.`` import; entry points
 refuse to run on a missing card.
 """
 from __future__ import annotations
@@ -20,7 +20,8 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                        REPO / "tools" / "flash_ab.py"]
+                                        REPO / "tools" / "flash_ab.py",
+                                        REPO / "tools" / "ssd_rounding.py"]
 MODULES = sorted(
     ".".join(p.relative_to(PORT.parent).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py"))
