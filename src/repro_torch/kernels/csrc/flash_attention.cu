@@ -49,6 +49,12 @@
 //    in fp32 to the reference's 1e-4.
 // A row with no visible key at all (only possible when S > Sk) comes out
 // as zeros in the bf16 kernel; the reference averages every key there.
+//
+// For training, both kernels also write each row's logsumexp of the scaled
+// scores, lse = m + log(l) in fp32, laid out (B, H, S), when the caller
+// passes a buffer for it (flash_attention_bwd.cu recomputes P from it).  A
+// row with no visible key gets lse = -inf.  With a null buffer the kernels
+// do exactly the serving path's work.
 
 #include "hopper.cuh"
 
@@ -71,6 +77,7 @@ struct Params {
   int B, S, Sk, H, KV;
   int causal, window;
   float scale_log2;           // log2(e) / sqrt(D): scores in base 2
+  float* lse;                 // (B, H, S) fp32 row logsumexp, or null
 };
 
 // kv tiles [t_lo, t_hi) that hold any unmasked key for q rows [q0, q0+BM)
@@ -270,6 +277,12 @@ __global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (p.lse != nullptr && t4 == 0) {   // natural log: m is a raw score, l sums exp2((s - m) sl)
+    float* lb = p.lse + ((size_t)b * p.H + h) * p.S;
+    const float sc = p.scale_log2 / LOG2E;
+    if (row0 < p.S) lb[row0] = m0 == NEG_INF ? -INFINITY : m0 * sc + logf(l0);
+    if (row1 < p.S) lb[row1] = m1 == NEG_INF ? -INFINITY : m1 * sc + logf(l1);
+  }
   const size_t q_stride = (size_t)p.H * D;   // elements between sequence positions
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + ((size_t)b * p.S * p.H + h) * D;
 #pragma unroll
@@ -352,6 +365,9 @@ __global__ void __launch_bounds__(BM) flash_fwd_f32(Params p) {
       for (int d = 0; d < D; ++d) acc[d] = fmaf(pj, sV[j][d], acc[d]);
     }
   }
+  if (qpos < p.S && p.lse != nullptr)   // m and l are in base 2 here
+    p.lse[((size_t)b * p.H + h) * p.S + qpos] =
+        m == NEG_INF ? -INFINITY : (m + log2f(l)) / LOG2E;
   if (qpos < p.S) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
@@ -386,13 +402,14 @@ void launch_f32(const Params& p, dim3 grid, cudaStream_t stream) {
 
 // q, o: (B, S, H, D); k, v: (B, Sk, KV, D); all contiguous, same dtype
 // (bf16 if is_bf16 else fp32).  layout: for bf16, the TMA layouts of q
-// (11 values) and of k and v (11 more); unused for fp32.  Returns
+// (11 values) and of k and v (11 more); unused for fp32.  lse: null, or a
+// (B, H, S) fp32 buffer for each row's logsumexp.  Returns
 // cudaGetLastError() after the launch, or a negative code from encode().
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int S, int Sk, int H, int KV, int D,
                                    int causal, int window, int is_bf16, void* stream,
-                                   const long long* layout) {
-  Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)D)};
+                                   const long long* layout, float* lse) {
+  Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)D), lse};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err = 0;
   if (is_bf16 && D == 64) err = launch_bf16<64>(p, layout, st);

@@ -10,8 +10,11 @@ module computes the tensor maps' layouts (:func:`tma_layout`) and the C
 side encodes them.  The source's header says what bounds the kernel on
 the H100 and what its design does about it.
 
-The public entry is :func:`repro_torch.kernels.ops.flash_attention`,
-which counts the launches; this module only checks and launches.
+:func:`flash_attention_bwd_cuda` launches the gradient's two kernels
+(``csrc/flash_attention_bwd.cu``) from the forward's output and per-row
+logsumexp.  The public entry is :func:`repro_torch.kernels.ops.flash_attention`
+(with :class:`repro_torch.kernels.ops.FlashAttention` for autograd), which
+counts the launches; this module only checks and launches.
 """
 from __future__ import annotations
 
@@ -65,7 +68,15 @@ def tma_layout(shape: tuple[int, int, int, int], stride: tuple[int, int, int, in
 def _fn():
     fn = build.library("flash_attention").flash_attention_fwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2)
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_fn():
+    fn = build.library("flash_attention_bwd").flash_attention_bwd
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -95,8 +106,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool, window: int) -> torch.Tensor:
-    """q: (B, S, H, D); k, v: (B, Sk, KV, D) on one CUDA device -> (B, S, H, D)."""
+                         causal: bool, window: int, return_lse: bool = False):
+    """q: (B, S, H, D); k, v: (B, Sk, KV, D) on one CUDA device -> o (B, S, H, D),
+    and with ``return_lse`` also each row's logsumexp (B, H, S) in fp32."""
     _check(q, k, v)
     b, s, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -106,12 +118,48 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 + tma_layout(k.shape, k.stride(), 2, BLOCK_KV).flat())
         layout = (ctypes.c_longlong * len(flat))(*flat)
     o = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     b, s, sk, h, kvh, d, int(causal), int(window), _DTYPES[q.dtype],
-                    torch.cuda.current_stream(q.device).cuda_stream, layout)
+                    torch.cuda.current_stream(q.device).cuda_stream, layout,
+                    None if lse is None else lse.data_ptr())
     if err < 0:
         raise RuntimeError(f"flash_attention: TMA tensor map not encoded (code {err})")
     if err:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
-    return o
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool, window: int
+                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`flash_attention_cuda`: q, o, do (B, S, H, D),
+    k, v (B, Sk, KV, D), lse (B, H, S) fp32 from the forward -> (dq, dk, dv)
+    in the inputs' dtype, dk and dv summed over each kv head's q heads."""
+    _check(q, k, v)
+    do = do.contiguous()
+    b, s, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} is {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}, not like q {tuple(q.shape)} {q.dtype} on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be contiguous")
+    if (lse.shape != (b, h, s) or lse.dtype != torch.float32 or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse is {tuple(lse.shape)} {lse.dtype} on "
+                         f"{lse.device}; expected contiguous ({b}, {h}, {s}) float32 on "
+                         f"{q.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                        delta.data_ptr(), b, s, sk, h, kvh, d, int(causal), int(window),
+                        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd: kernel launch failed with CUDA error {err}")
+    return dq, dk, dv

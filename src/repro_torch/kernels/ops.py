@@ -5,32 +5,84 @@
 B/C group.  On a CUDA tensor each launches its Hopper kernel
 (``kernels/csrc/``) or raises; on a CPU tensor it runs the kernel's
 plain version (``kernels.ref``).  Neither falls back from the kernel to
-the plain version.  No autotune yet: the kernels' tiles are fixed.
+the plain version.
+
+Attention differentiates through :class:`FlashAttention`: its forward
+launches the flash kernel with each row's logsumexp, its backward the
+gradient's kernels (``csrc/flash_attention_bwd.cu``); on the CPU the
+plain forward and ``flash_attention_bwd_ref``.  ``flash_attention``
+takes that path only when autograd needs it (grad enabled and an input
+requiring grad); prefill and decode make the direct call.  The SSD
+scan has no backward yet.  No autotune yet: the kernels' tiles are fixed.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.ref import flash_attention_ref, ssd_ref
+from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+from repro_torch.kernels.ref import (
+    flash_attention_bwd_ref,
+    flash_attention_lse_ref,
+    flash_attention_ref,
+    ssd_ref,
+)
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+
+def _no_kernel(name: str, device: torch.device) -> ValueError:
+    return ValueError(f"{name}: no kernel for device {device}")
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: ``FlashAttention.apply(q, k, v,
+    causal, window)``.  Saves q, k, v, o and the rows' logsumexp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        if q.device.type == "cuda":
+            o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                          return_lse=True)
+            flash_attention.launches += 1
+        elif q.device.type == "cpu":
+            o = flash_attention_ref(q, k, v, causal=causal, window=window)
+            lse = flash_attention_lse_ref(q, k, v, causal=causal, window=window)
+        else:
+            raise _no_kernel("flash_attention", q.device)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        kw = dict(causal=ctx.causal, window=ctx.window)
+        if q.device.type == "cuda":
+            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+            flash_attention.bwd_launches += 1
+        else:
+            dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B, S, H, D); k, v: (B, S, KV, D) -> (B, S, H, D).
 
-    ``flash_attention.launches`` counts kernel launches (CUDA only)."""
+    ``flash_attention.launches`` counts forward kernel launches and
+    ``flash_attention.bwd_launches`` backward ones (CUDA only)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window)
     if q.device.type == "cuda":
         out = flash_attention_cuda(q, k, v, causal=causal, window=window)
         flash_attention.launches += 1
         return out
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
-    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    raise _no_kernel("flash_attention", q.device)
 
 
 flash_attention.launches = 0
+flash_attention.bwd_launches = 0
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -49,7 +101,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
         return out
     if x.device.type == "cpu":
         return ssd_ref(x, dt, a, b, c)
-    raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    raise _no_kernel("ssd_scan", x.device)
 
 
 ssd_scan.launches = 0

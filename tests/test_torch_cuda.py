@@ -11,8 +11,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
 from repro_torch.kernels.ops import flash_attention, ssd_scan
-from repro_torch.kernels.ref import flash_attention_ref, ssd_ref
+from repro_torch.kernels.ref import flash_attention_lse_ref, flash_attention_ref, ssd_ref
 
 
 @pytest.mark.cuda
@@ -36,6 +37,73 @@ def test_cuda_kernel_matches_plain_version(dtype, causal, window, s, d):
     want = flash_attention_ref(q, k, v, causal=causal, window=window)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _scaled_err(got, want):
+    return ((got.float() - want.float()).abs() / (1 + want.float().abs())).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,window,s,d", [
+    (torch.bfloat16, True, 0, 1024, 64), (torch.bfloat16, True, 0, 100, 64),
+    (torch.bfloat16, True, 256, 1024, 64), (torch.bfloat16, False, 0, 1000, 64),
+    (torch.bfloat16, True, 0, 1000, 128), (torch.float32, True, 0, 1000, 64),
+    (torch.float32, True, 24, 200, 128)])
+def test_cuda_flash_backward_matches_autograd_of_plain_version(dtype, causal, window, s, d):
+    """The backward kernels against autograd of ``flash_attention_ref`` in
+    fp32 on the same values: bf16 5e-2, fp32 2e-3 (max |out - ref| /
+    (1 + |ref|), the forward's bf16 P and dS roundings and the bf16 O in
+    Delta)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(2, s, h, d, generator=gen, device="cuda").to(dtype)
+               for h in (32, 8, 8))
+    do = torch.randn(2, s, 32, d, generator=gen, device="cuda").to(dtype)
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=True)
+    dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = flash_attention_ref(*leaves, causal=causal, window=window)
+    want = torch.autograd.grad(ref, leaves, do.float())
+    tol = 5e-2 if dtype == torch.bfloat16 else 2e-3
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == w.shape
+        assert _scaled_err(got, w) <= tol, (name, _scaled_err(got, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,s", [(torch.bfloat16, 64, 1024), (torch.bfloat16, 128, 100),
+                                       (torch.float32, 64, 300)])
+def test_cuda_flash_forward_lse(dtype, d, s):
+    """With the lse buffer the forward writes the same output, bit for bit,
+    and each row's logsumexp to 1e-3 of the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn(2, s, h, d, generator=gen, device="cuda").to(dtype)
+               for h in (32, 8, 8))
+    o, lse = flash_attention_cuda(q, k, v, causal=True, window=0, return_lse=True)
+    o_plain = flash_attention_cuda(q, k, v, causal=True, window=0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, o_plain, rtol=0, atol=0)
+    torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, v, causal=True),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_autograd_counts_both_directions():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(2, 256, h, 64, generator=gen, device="cuda")
+               .to(torch.bfloat16).requires_grad_() for h in (8, 2, 2))
+    fwd, bwd = flash_attention.launches, flash_attention.bwd_launches
+    out = flash_attention(q, k, v, causal=True)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.bwd_launches) == (fwd + 1, bwd + 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
 
 
 @pytest.mark.cuda
