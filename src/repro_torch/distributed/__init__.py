@@ -1,1 +1,1 @@
-"""Step builders of the port (serving steps in this slice)."""
+"""Step builders of the port: training, prefill and serving steps."""

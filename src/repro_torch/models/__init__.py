@@ -12,6 +12,7 @@ from repro_torch.models.model import (
     cache_defs,
     decode_step,
     forward_train,
+    loss_fn,
     param_defs,
     prefill_forward,
 )
@@ -26,7 +27,7 @@ from repro_torch.models.spec import (
 
 __all__ = [
     "ModelConfig", "MoECfg", "MLACfg", "SSMCfg", "RGLRUCfg", "BlockKind",
-    "param_defs", "cache_defs", "forward_train", "prefill_forward", "decode_step",
+    "param_defs", "cache_defs", "forward_train", "loss_fn", "prefill_forward", "decode_step",
     "ParamDef", "abstract", "logical_axes", "materialize",
     "param_count", "param_bytes",
 ]

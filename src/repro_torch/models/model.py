@@ -8,19 +8,24 @@ parameters along a leading axis, and where the reference runs
 stacked tensors.  Within a segment the (mixer, ffn) unit is applied
 position by position.
 
-Public API (functions bound to a ModelConfig, forward only, under
-``torch.no_grad``):
+Public API (functions bound to a ModelConfig):
 
 * ``param_defs(cfg)``                        — ParamDef tree
 * ``forward_train(params, batch, cfg)``      — final hidden states
+* ``loss_fn(params, batch, cfg)``            — scalar fp32 loss (chunked CE)
 * ``cache_defs(cfg, batch, seq_len)``        — decode-state ParamDef tree
 * ``prefill_forward(params, batch, cfg)``    — last-token logits + cache
 * ``decode_step(params, state, batch, cfg)`` — one-token serve step
 
-Attention blocks run the Hopper flash kernel on CUDA, SSD blocks the
-Hopper SSD scan kernel.  Other mixers and ffns raise
-``NotImplementedError`` naming their ROADMAP item; ``loss_fn`` comes
-with the training slice.
+``forward_train`` and ``loss_fn`` differentiate with torch autograd:
+where the reference wraps each layer (and each CE chunk) in
+``jax.checkpoint``, ``remat`` wraps it in ``torch.utils.checkpoint``.
+Prefill and decode run under ``torch.no_grad``.
+
+Attention blocks run the Hopper flash kernel on CUDA, in both directions
+under autograd; SSD blocks the Hopper SSD scan kernel, forward only.
+Other mixers and ffns raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import ssm
 from repro_torch.models.config import BlockKind, ModelConfig
@@ -40,7 +46,7 @@ from repro_torch.models.layers import (
     rms_norm,
     swiglu,
 )
-from repro_torch.models.spec import pdef, stack_defs, tree_map
+from repro_torch.models.spec import pdef, stack_defs, tree_leaves, tree_map
 
 
 def _not_ported(what: str, name: str) -> NotImplementedError:
@@ -66,6 +72,15 @@ def _check_supported(cfg: ModelConfig) -> None:
 def _layer(tree: Any, i: int) -> Any:
     """Layer ``i`` of a stacked tree (views, no copy)."""
     return tree_map(lambda t: t[i], tree)
+
+
+def _unbind_layers(tree: Any, n: int) -> list:
+    """The ``n`` layers of a stacked tree as views from one ``unbind`` a
+    leaf, so autograd stacks each leaf's gradient once rather than adding
+    a full-size zero tensor a layer."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda p: p[i], parts, is_leaf=lambda p: isinstance(p, tuple))
+            for i in range(n)]
 
 
 def _stack_leaves(trees: list) -> Any:
@@ -220,17 +235,32 @@ def embed_inputs(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     return F.embedding(batch["inputs"], params["embed"]).to(cfg.cdtype)
 
 
-@torch.no_grad()
-def forward_train(params: dict, batch: dict, cfg: ModelConfig
+def _needs_grad(tree: Any) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tree_leaves(tree))
+
+
+def _run_unit(layer_params: dict, x: torch.Tensor, cfg: ModelConfig, unit) -> torch.Tensor:
+    for u, kind in enumerate(unit):
+        x = block_train(layer_params[str(u)], x, cfg, kind)
+    return x
+
+
+def forward_train(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool = True
                   ) -> tuple[torch.Tensor, None, torch.Tensor]:
     """Returns (hidden (B,S,d) after the final norm, enc_out (None: no
-    encoder in this slice), aux_loss (0: no MoE in this slice))."""
+    encoder in this slice), aux_loss (0: no MoE in this slice)).  Under
+    autograd with ``remat`` each layer keeps only its input and recomputes
+    the rest in the backward."""
+    grad = _needs_grad(params)
     x = embed_inputs(params, batch, cfg)
     for seg_params, (unit, repeats) in zip(params["segments"], cfg.scan_segments()):
-        for i in range(repeats):
-            layer_params = _layer(seg_params, i)
-            for u, kind in enumerate(unit):
-                x = block_train(layer_params[str(u)], x, cfg, kind)
+        layers = (_unbind_layers(seg_params, repeats) if grad
+                  else [_layer(seg_params, i) for i in range(repeats)])
+        for layer_params in layers:
+            if grad and remat:
+                x = checkpoint(_run_unit, layer_params, x, cfg, unit, use_reentrant=False)
+            else:
+                x = _run_unit(layer_params, x, cfg, unit)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, None, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -238,6 +268,46 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig
 def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     return (h @ w.to(h.dtype)).float()
+
+
+def _ce_chunk(params: dict, h: torch.Tensor, targets: torch.Tensor,
+              cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross entropy + z-loss for one sequence chunk; returns (sum, count)
+    over the positions whose target is >= 0."""
+    logits = _logits(params, h, cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    # a masked target (-1) reads any logit: its term is multiplied by 0
+    gold = torch.gather(logits, -1, targets.clamp(min=0).long()[..., None])[..., 0]
+    zloss = 1e-4 * lse ** 2
+    valid = (targets >= 0).float()
+    return torch.sum((lse - gold + zloss) * valid), torch.sum(valid)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool = True,
+            ce_chunk: int = 512) -> tuple[torch.Tensor, dict]:
+    """Scalar fp32 loss (mean CE + z-loss over targets >= 0, plus the aux
+    loss) and its metrics ``ce_loss`` and ``aux_loss``.  The CE runs in
+    sequence chunks of ``ce_chunk`` when they divide the sequence, so the
+    (B, S, vocab) logits are never held at once; under ``remat`` each
+    chunk's logits are recomputed in the backward."""
+    h, _, aux = forward_train(params, batch, cfg, remat=remat)
+    targets = batch["targets"]
+    b, s = targets.shape
+    if ce_chunk and s > ce_chunk and s % ce_chunk == 0:
+        grad = remat and _needs_grad(params)
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(0, s, ce_chunk):
+            hh, tt = h[:, i:i + ce_chunk], targets[:, i:i + ce_chunk]
+            if grad:
+                part, c = checkpoint(_ce_chunk, params, hh, tt, cfg, use_reentrant=False)
+            else:
+                part, c = _ce_chunk(params, hh, tt, cfg)
+            tot, cnt = tot + part, cnt + c
+    else:
+        tot, cnt = _ce_chunk(params, h, targets, cfg)
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss + aux, {"ce_loss": loss, "aux_loss": aux}
 
 
 @torch.no_grad()

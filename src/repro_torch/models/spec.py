@@ -61,6 +61,16 @@ def tree_map(fn: Callable[[Any], Any], tree: Any,
     return fn(tree)
 
 
+def tree_zip_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """Map ``fn`` over the matching leaves of trees of one structure,
+    matched by dict key and list index (not by their order)."""
+    if isinstance(tree, dict):
+        return {k: tree_zip_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_zip_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
 def tree_leaves(tree: Any, is_leaf: Callable[[Any], bool] | None = None) -> list:
     """Leaves in ``tree_map`` order (dict insertion order, list order)."""
     out: list = []

@@ -138,6 +138,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
             raise NotImplementedError(
                 "the SSD kernel takes one B/C group and no initial state: "
                 "ROADMAP.md, Queue 2 item 4")
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c)):
+            raise NotImplementedError(
+                "the SSD kernel has no backward yet: ROADMAP.md, Queue 2 item 5")
         # x, b and c stay views of the conv output: the kernel reads them in place
         return ssd_scan_kernel(x, dt, a, b, c, chunk=chunk)
     return _ssd_scan_chunked(x, dt, a, b, c, chunk, initial_state)
