@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: its serving paths on one GPU.
+"""Chip smoke of the PyTorch/CUDA port: its serving and training paths on one GPU.
 
     python3 chip_smoke.py [--seed N]
 
 Runs from the root of a checkout on a machine with one NVIDIA H100 (or
 another Hopper card) and the CUDA toolkit.  It builds the port's CUDA
 kernels from ``src/repro_torch/kernels/csrc/``, holds each against its
-plain PyTorch version, then drives each ported model at full width and
-full depth (random weights from ``--seed``) through the port's entry
-points: granite-3-2b (flash attention) and mamba2-780m (the SSD scan).
-For each: prefill, teacher-forced decode checked against the
-kernel-driven forward, and the WRATH serve driver through a replica
-kill.  Each phase prints one JSON line; any failed check ends the run
+plain PyTorch version (the flash backward against autograd of the plain
+forward), then drives each ported model at full width (random weights
+from ``--seed``) through the port's entry points: granite-3-2b (flash
+attention) and mamba2-780m (the SSD scan) at full depth, each with
+prefill, teacher-forced decode checked against the kernel-driven
+forward, and the WRATH serve driver through a replica kill; then
+granite-3-2b's training plane: ``loss_fn`` gradients through the kernels
+against the plain attention at depth 2, ``build_train_step`` at full
+depth, and ``WrathTrainSupervisor`` at depth 4 through a host loss and a
+NaN.  Each phase prints one JSON line; any failed check ends the run
 with a nonzero exit.
 The line before the last is the kernel table
 (``{"kernels": [...]}``), the last line is
@@ -23,7 +27,10 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -78,6 +85,21 @@ BF16_REL_TOL = {"granite_3_2b": 0.25, "mamba2_780m": 0.9}
 DEPTH1_BF16_REL_TOL = 0.02
 
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 16, 16
+
+# flash backward vs autograd of the plain forward in fp32, max |out - ref| /
+# (1 + |ref|) of each of dq, dk, dv: bf16 rounds P and dS as product
+# operands and reads the bf16 O for Delta; fp32 is exact arithmetic in
+# another order
+BWD_TOL = {"torch.bfloat16": 5e-2, "torch.float32": 2e-3}
+# each row's logsumexp from the forward against the plain version's
+LSE_TOL = 1e-3
+# loss_fn with the kernels against loss_fn with the plain attention, same
+# weights and batch (granite-3-2b at full width, depth 2): the loss to
+# |a - b| / (1 + |b|) and every parameter's gradient to the relative L2
+# error ||a - b|| / ||b||.  fp32 differs only in the order of sums; bf16
+# also in where P and dS are rounded
+GRAD_CHECK_TOL = {"float32": {"loss": 1e-4, "grad": 1e-3},
+                  "bfloat16": {"loss": 2e-2, "grad": 5e-2}}
 
 
 def emit(phase: str, **fields) -> None:
@@ -315,14 +337,18 @@ def device_profile(fn) -> dict:
             "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top]}
 
 
-def counters() -> dict:
-    """The kernel wrappers whose ``launches`` show what a path ran."""
+def zero_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
     from repro_torch.kernels.ops import flash_attention, ssd_scan
-    return {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    flash_attention.launches = flash_attention.bwd_launches = ssd_scan.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in counters().items()}
+    """The launches that show what a path ran, per kernel."""
+    from repro_torch.kernels.ops import flash_attention, ssd_scan
+    return {"flash_attention": flash_attention.launches,
+            "flash_attention_bwd": flash_attention.bwd_launches,
+            "ssd_scan": ssd_scan.launches}
 
 
 def _rel_rows(a, b):
@@ -346,8 +372,7 @@ def _path_logits(params, cfg, ids, s: int, steps: int, *, state_dtype=None,
     b = ids.shape[0]
     prefill, serve_step = build_prefill_step(cfg), build_serve_step(cfg)
     torch.cuda.synchronize()
-    for fn in counters().values():
-        fn.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     logits, pcache = prefill(params, {"inputs": ids[:, :s]})
     torch.cuda.synchronize()
@@ -387,7 +412,8 @@ def _path_logits(params, cfg, ids, s: int, steps: int, *, state_dtype=None,
                 lambda: serve_step(params, cache, {"inputs": ids[:, s:s + 1]})),
         }
     del cache
-    h, _, _ = forward_train(params, {"inputs": ids}, cfg)
+    with torch.no_grad():
+        h, _, _ = forward_train(params, {"inputs": ids}, cfg)
     out.update(got=torch.stack(dec, dim=1), ref=_logits(params, h[:, s - 1:], cfg))
     if timed:
         prefill_ms = statistics.median(
@@ -421,7 +447,8 @@ def ssd_state_readings(params, cfg, ids, s: int, steps: int) -> dict:
 def expected_launches(cfg) -> dict[str, int]:
     """Kernel launches of one prefill: one per attention or SSD layer."""
     mixers = [m for m, _ in cfg.block_kinds()]
-    return {"flash_attention": mixers.count("attn"), "ssd_scan": mixers.count("ssd")}
+    return {"flash_attention": mixers.count("attn"), "flash_attention_bwd": 0,
+            "ssd_scan": mixers.count("ssd")}
 
 
 def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
@@ -540,6 +567,314 @@ def phase_serve(arch: str, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+def attention_bwd_bound(b: int, s: int, h: int, kv: int, d: int, dtype, causal: bool,
+                        window: int) -> tuple[float, str, float, float]:
+    """(bound ms, bound_by, flops, bytes) of the attention gradient on these
+    inputs: five products over the visible pairs (q k, dO v, P^T dO, dS k,
+    dS^T q); q, k, v, o, dO and the three gradients moved once, and lse."""
+    _, _, fwd_flops, _ = attention_bound(b, s, h, kv, d, dtype, causal, window)
+    flops = fwd_flops * 5 / 2                          # the forward's two products are 4 D a pair
+    es = 2 if dtype == "torch.bfloat16" else 4
+    nbytes = float(es * (4 * b * s * h * d + 4 * b * s * kv * d) + 4 * b * h * s)
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            flops, nbytes)
+
+
+def _sdpa_kw(s: int, causal: bool, window: int) -> dict:
+    mask = None
+    if window:
+        pos = torch.arange(s, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    return dict(attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
+
+
+def phase_flash_bwd_cases(seed: int) -> list[dict]:
+    """The flash backward kernels against autograd of the plain forward in
+    fp32, on the same values; and the forward with its lse output on
+    against it off."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+    from repro_torch.kernels.ref import flash_attention_lse_ref, flash_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    cases = [  # (name, B, S, H, KV, D, dtype, causal, window)
+        ("granite_train", 4, 1024, 32, 8, 64, torch.bfloat16, True, 0),
+        ("granite_train_s2048", 4, 2048, 32, 8, 64, torch.bfloat16, True, 0),
+        ("ragged_s100", 4, 100, 32, 8, 64, torch.bfloat16, True, 0),
+        ("window256", 4, 1024, 32, 8, 64, torch.bfloat16, True, 256),
+        ("d128", 4, 1024, 32, 8, 128, torch.bfloat16, True, 0),
+        ("fp32", 4, 1024, 32, 8, 64, torch.float32, True, 0),
+        ("fp32_d128", 2, 512, 32, 8, 128, torch.float32, True, 0),
+    ]
+    results = []
+    for name, b, s, h, kv, d, dtype, causal, window in cases:
+        q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(b, s, kv, d, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(b, s, kv, d, generator=gen, device="cuda").to(dtype)
+        do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+        kw = dict(causal=causal, window=window)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        ref_out = flash_attention_ref(*leaves, **kw)
+        ref = torch.autograd.grad(ref_out, leaves, do.float(), retain_graph=True)
+        lse_ref = flash_attention_lse_ref(q, k, v, **kw)
+        # the yardstick: SDPA's backward on the same values
+        lib_leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib_leaves, **_sdpa_kw(s, causal, window))
+        do_t = do.transpose(1, 2)
+        lib = torch.autograd.grad(lib_out, lib_leaves, do_t, retain_graph=True)
+        torch.cuda.synchronize()
+        tol = BWD_TOL[str(dtype)]
+        names = ("dq", "dk", "dv")
+        row = {"case": name, "shape": [b, s, h, kv, d], "dtype": str(dtype), "causal": causal,
+               "window": window, "tol": tol,
+               "max_scaled_err": {n: scaled_err(g, r) for n, g, r in zip(names, grads, ref)},
+               "max_abs_err": {n: (g.float() - r).abs().max().item()
+                               for n, g, r in zip(names, grads, ref)},
+               "ref_abs_max": {n: r.abs().max().item() for n, r in zip(names, ref)},
+               "library_max_scaled_err": {n: scaled_err(g.transpose(1, 2), r)
+                                          for n, g, r in zip(names, lib, ref)},
+               "lse_max_abs_err": (lse - lse_ref).abs().max().item(), "lse_tol": LSE_TOL,
+               "finite": all(bool(torch.isfinite(g.float()).all()) for g in grads)}
+        row["ms"] = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw))
+        row["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(ref_out, leaves, do.float(),
+                                                              retain_graph=True),
+                                  iters=3, warmup=1)
+        row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, do_t,
+                                                                retain_graph=True))
+        bound_ms, bound_by, flops, nbytes = attention_bwd_bound(b, s, h, kv, d, str(dtype),
+                                                                causal, window)
+        row.update(bound_ms=bound_ms, bound_by=bound_by, bound_frac=bound_ms / row["ms"],
+                   vs_library=row["ms"] / row["library_ms"], flops=flops, bytes=nbytes,
+                   tflops=flops / (row["ms"] * 1e-3) / 1e12)
+        emit("flash_bwd_vs_plain", **row)
+        worst = max(row["max_scaled_err"].values())
+        check(worst <= tol and row["finite"],
+              f"flash backward {name}: max |grad - ref| / (1 + |ref|) = {worst} > {tol}")
+        check(row["lse_max_abs_err"] <= LSE_TOL,
+              f"flash forward lse {name}: max |lse - ref| = {row['lse_max_abs_err']}")
+        results.append(row)
+        del q, k, v, do, o, lse, grads, leaves, ref_out, ref, lib_leaves, lib_out, lib
+        torch.cuda.empty_cache()
+
+    # the forward with the lse epilogue against without, in turns (off on on off)
+    q = torch.randn(4, 1024, 32, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(4, 1024, 8, 64, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in "kv")
+    o_off = flash_attention_cuda(q, k, v, causal=True, window=0)
+    o_on, lse = flash_attention_cuda(q, k, v, causal=True, window=0, return_lse=True)
+    torch.cuda.synchronize()
+    times = {"off": [], "on": []}
+    for which in ("off", "on", "on", "off"):
+        times[which].append(cuda_ms(lambda: flash_attention_cuda(
+            q, k, v, causal=True, window=0, return_lse=which == "on"), iters=50, warmup=5))
+    row = {"case": "granite_prefill", "shape": [4, 1024, 32, 8, 64], "dtype": "torch.bfloat16",
+           "output_equal": bool(torch.equal(o_off, o_on)),
+           "lse_max_abs_err": (lse - flash_attention_lse_ref(q, k, v, causal=True))
+           .abs().max().item(), "lse_tol": LSE_TOL,
+           "ms_lse_off": statistics.mean(times["off"]), "ms_lse_on": statistics.mean(times["on"]),
+           "ms_rounds": times}
+    emit("flash_fwd_lse", **row)
+    check(row["output_equal"], "flash forward: the output changes when lse is written")
+    check(row["lse_max_abs_err"] <= LSE_TOL,
+          f"flash forward lse: max |lse - ref| = {row['lse_max_abs_err']} > {LSE_TOL}")
+    del q, k, v, o_off, o_on, lse
+    torch.cuda.empty_cache()
+    return results
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's attention through the plain version (autograd of
+    ``flash_attention_ref``) in place of the kernels, for a reference run."""
+    import repro_torch.models.layers as layers
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    kernel = layers.flash_attention
+    layers.flash_attention = lambda q, k, v, *, causal=True, window=0: flash_attention_ref(
+        q, k, v, causal=causal, window=window)
+    try:
+        yield
+    finally:
+        layers.flash_attention = kernel
+
+
+def _leaf_paths(tree, path=""):
+    if isinstance(tree, dict):
+        for key, val in tree.items():
+            yield from _leaf_paths(val, f"{path}/{key}")
+    elif isinstance(tree, list):
+        for i, val in enumerate(tree):
+            yield from _leaf_paths(val, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def phase_train_grad_check(seed: int) -> None:
+    """granite-3-2b at full width and depth 2: loss_fn and every parameter
+    gradient with attention on the kernels (both directions) against the
+    same loss_fn with attention through the plain version, in fp32 and
+    bf16 compute."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.distributed.step import batch_to, loss_and_grads
+    from repro_torch.models import materialize, param_defs
+    from repro_torch.models.spec import tree_map
+
+    base = get_config("granite_3_2b").scaled(n_layers=2)
+    b, s = 2, 1024
+    params_bf = materialize(param_defs(base), seed, "cuda")
+    batch = batch_to(batch_for(base, b, s, 0, seed=seed), torch.device("cuda"))
+    for compute in ("float32", "bfloat16"):
+        cfg = base.scaled(compute_dtype=compute)
+        params = params_bf if compute == "bfloat16" else tree_map(lambda t: t.float(), params_bf)
+        zero_counts()
+        loss_k, _, g_k = loss_and_grads(params, batch, cfg)
+        torch.cuda.synchronize()
+        kernel_launches = launch_counts()
+        with plain_attention():
+            zero_counts()
+            loss_p, _, g_p = loss_and_grads(params, batch, cfg)
+            torch.cuda.synchronize()
+            plain_launches = launch_counts()
+        rel = {path: ((a.float() - r.float()).norm() / r.float().norm()).item()
+               for (path, a), (_, r) in zip(_leaf_paths(g_k), _leaf_paths(g_p))}
+        worst = max(rel, key=rel.get)
+        tol = GRAD_CHECK_TOL[compute]
+        loss_err = abs(loss_k.item() - loss_p.item()) / (1 + abs(loss_p.item()))
+        finite = bool(torch.isfinite(loss_k)) and all(
+            bool(torch.isfinite(g).all()) for _, g in _leaf_paths(g_k))
+        want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+                "ssd_scan": 0}
+        emit("train_grad_check", config=cfg.name, layers=cfg.n_layers, batch=b, seq=s,
+             compute=compute, remat=True, loss_kernel=loss_k.item(), loss_plain=loss_p.item(),
+             loss_scaled_err=loss_err, worst_leaf=worst, worst_leaf_rel_l2=rel[worst],
+             leaves=len(rel), rel_l2_by_leaf=rel, tol=tol, finite=finite,
+             kernel_launches=kernel_launches, plain_launches=plain_launches)
+        check(finite, f"train_grad_check {compute}: a loss or gradient is not finite")
+        check(kernel_launches == want,
+              f"train_grad_check {compute}: kernel launches {kernel_launches}, expected {want}")
+        check(not any(plain_launches.values()),
+              f"train_grad_check {compute}: the plain run launched {plain_launches}")
+        check(loss_err <= tol["loss"],
+              f"train_grad_check {compute}: loss {loss_k.item()} vs {loss_p.item()}")
+        check(rel[worst] <= tol["grad"],
+              f"train_grad_check {compute}: gradient {worst} relative L2 error {rel[worst]}")
+        del params, g_k, g_p
+    del params_bf
+    torch.cuda.empty_cache()
+
+
+def phase_train_step(seed: int) -> dict[str, int]:
+    """granite-3-2b at full width and depth through build_train_step: bf16,
+    B 4, S 1024, remat; one warm-up step, then three timed steps on one
+    fixed batch.  Returns one step's kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.distributed.step import batch_to, build_train_step
+    from repro_torch.models import materialize, param_defs
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    cfg = get_config("granite_3_2b")
+    b, s = 4, 1024
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = materialize(param_defs(cfg), seed, "cuda")
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=1)   # the default 100 warm-up steps keep lr ~0
+    opt_state = init_opt_state(params, opt_cfg)
+    step = build_train_step(cfg, opt_cfg)
+    batch = batch_to(batch_for(cfg, b, s, 0, seed=seed), torch.device("cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt_state, _ = step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    warmup_ms = (time.perf_counter() - t0) * 1e3
+    steps = []
+    for _ in range(3):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": m["loss"].item(),
+                      "ce_loss": m["ce_loss"].item(), "grad_norm": m["grad_norm"].item(),
+                      "lr": m["lr"].item(), "launches": launch_counts()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = device_profile(lambda: step(params, opt_state, batch))
+    ms = statistics.median(x["ms"] for x in steps)
+    attn = [m for m, _ in cfg.block_kinds()].count("attn")
+    want = {"flash_attention": 2 * attn, "flash_attention_bwd": attn, "ssd_scan": 0}
+    emit("train_step", config=cfg.name, layers=cfg.n_layers, batch=b, seq=s, remat=True,
+         dtype="bfloat16", warmup_step_ms=warmup_ms, step_ms=ms, tokens_per_s=b * s / ms * 1e3,
+         steps=steps, peak_mem_gb=peak_gb, expected_launches=want, device_profile=prof)
+    check(all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"]) for x in steps),
+          "train_step: a loss or grad_norm is not finite")
+    check(all(x["launches"] == want for x in steps),
+          f"train_step: launches {[x['launches'] for x in steps]}, expected {want} a step")
+    check(steps[2]["loss"] < steps[0]["loss"],
+          f"train_step: loss did not fall: {[x['loss'] for x in steps]}")
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+    return steps[-1]["launches"]
+
+
+def phase_train_supervisor(seed: int) -> dict[str, int]:
+    """WrathTrainSupervisor on the card: granite-3-2b at full width and
+    depth 4, 3 hosts + bighost, global batch 6, seq 256, 20 steps,
+    checkpoints every 5, host01 lost at step 5 and a NaN at step 12; then a
+    fresh supervisor resumes from the last checkpoint.  Returns the run's
+    kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainEvent, WrathTrainSupervisor
+
+    cfg = get_config("granite_3_2b").scaled(n_layers=4)
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    steps, nan_step, every = 20, 12, 5
+    kw = dict(n_hosts=3, global_batch=6, seq_len=256, ckpt_dir=str(ckpt), ckpt_every=every,
+              data_seed=seed, device="cuda")
+    opt = OptConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    events = [TrainEvent(step=5, kind="host_down", host="host01"),
+              TrainEvent(step=nan_step, kind="nan")]
+    zero_counts()
+    t0 = time.perf_counter()
+    rep = WrathTrainSupervisor(cfg, opt, **kw).run(steps, events=events)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    rep2 = WrathTrainSupervisor(cfg, opt, **kw).run(steps + 2)   # resumes at step `steps`
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # the report counts every step it ran: the NaN at step 12 restores step
+    # 10's checkpoint, so step 11 runs twice
+    replayed = nan_step - 1 - (nan_step - 1) // every * every
+    emit("train_supervisor", config=cfg.name, layers=cfg.n_layers, hosts=3, global_batch=6,
+         seq=256, steps=steps, steps_completed=rep.steps_completed, replayed_steps=replayed,
+         restores=rep.restores, final_hosts=rep.final_hosts, denylisted=rep.denylisted,
+         speculations=rep.speculations, losses=rep.losses, wall_s=wall_s,
+         recoveries=[[r["step"], r["error"], r["host"], r["action"], r["rung"]]
+                     for r in rep.recoveries],
+         launches=launches, resumed_steps=rep2.steps_completed, resumed_losses=rep2.losses)
+    check(rep.steps_completed == steps + replayed,
+          f"train_supervisor: {rep.steps_completed} steps, expected {steps + replayed}")
+    check(rep.restores >= 1, "train_supervisor: the NaN did not restore a checkpoint")
+    check(any(r["error"] == "NumericalDivergenceError" for r in rep.recoveries),
+          "train_supervisor: no NumericalDivergenceError recovery")
+    check(rep.final_hosts == 2, f"train_supervisor: {rep.final_hosts} hosts left, expected 2")
+    check(all(math.isfinite(x) for x in rep.losses) and rep.losses[-1] < rep.losses[0],
+          f"train_supervisor: loss did not fall: {rep.losses[0]} -> {rep.losses[-1]}")
+    check(rep2.steps_completed == 2 and rep2.losses[0] < rep.losses[0],
+          f"train_supervisor: the resumed run ran {rep2.steps_completed} steps from loss "
+          f"{rep2.losses[:1]}, not from the trained checkpoint")
+    check(launches["flash_attention"] == launches["flash_attention_bwd"] > 0,
+          f"train_supervisor: launches {launches}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -571,28 +906,53 @@ def main() -> int:
                   for k, v in built.items()})
 
     # -- 3. kernels vs plain -------------------------------------------------
+    seconds = {}
+    t0 = time.perf_counter()
     flash_cases = phase_kernel_cases(args.seed)
     ssd_cases = phase_ssd_cases(args.seed)
+    bwd_cases = phase_flash_bwd_cases(args.seed)
+    seconds["kernels_vs_plain"] = time.perf_counter() - t0
 
     # -- 4. prefill + decode at full width and depth, 5. serve, per path -----
     # each path's counts are zeroed just before its run and read just after
     path_launches = {}
     for arch in ARCHS:
-        path_launches[arch] = phase_prefill_decode(arch, args.seed)
+        t0 = time.perf_counter()
+        path_launches[f"{arch} prefill+decode"] = phase_prefill_decode(arch, args.seed)
         phase_serve(arch, args.seed)
+        seconds[arch] = time.perf_counter() - t0
 
-    # -- 6. the kernel table ------------------------------------------------
-    rows = [("flash_attention", "granite_3_2b", flash_cases, "granite_prefill",
-             "src/repro/kernels/flash_attention.py:82"),
-            ("ssd_scan", "mamba2_780m", ssd_cases, "mamba2_prefill",
-             "src/repro/kernels/ssd_scan.py:80")]
+    # -- 6. the training plane: gradients, a full train step, the supervisor
+    t0 = time.perf_counter()
+    phase_train_grad_check(args.seed)
+    seconds["train_grad_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_launches["granite_3_2b train_step (one step)"] = phase_train_step(args.seed)
+    seconds["train_step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_launches["granite_3_2b train_supervisor"] = phase_train_supervisor(args.seed)
+    seconds["train_supervisor"] = time.perf_counter() - t0
+    emit("timing", seconds=seconds)
+
+    # -- 7. the kernel table ------------------------------------------------
+    rows = [("flash_attention", flash_cases, "granite_prefill",
+             "src/repro_torch/kernels/csrc/flash_attention.cu"),
+            ("flash_attention_bwd", bwd_cases, "granite_train",
+             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"),
+            ("ssd_scan", ssd_cases, "mamba2_prefill", "src/repro_torch/kernels/csrc/ssd_scan.cu")]
+    replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:82",
+                # the gradient of that kernel's function; the Pallas kernel has none
+                "flash_attention_bwd": "src/repro/kernels/flash_attention.py:82",
+                "ssd_scan": "src/repro/kernels/ssd_scan.py:80"}
     table = []
-    for name, arch, cases, case, replaces in rows:
+    for name, cases, case, source in rows:
         c = next(c for c in cases if c["case"] == case)
-        table.append({"name": name, "route": "cuda",
-                      "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                      "replaces": replaces, "launches": path_launches[arch][name],
-                      "max_abs_err": c["max_abs_err"], "ref_abs_max": c["ref_abs_max"],
+        by_path = {path: counts[name] for path, counts in path_launches.items()}
+        err = c["max_abs_err"]
+        table.append({"name": name, "route": "cuda", "source": source,
+                      "replaces": replaces[name], "launches": sum(by_path.values()),
+                      "launches_by_path": by_path,
+                      "max_abs_err": max(err.values()) if isinstance(err, dict) else err,
                       "max_scaled_err": c["max_scaled_err"], "tol": c["tol"], "ms": c["ms"],
                       "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                       "bound_by": c["bound_by"], "bound_frac": c["bound_ms"] / c["ms"],
