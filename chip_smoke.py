@@ -93,11 +93,17 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 16, 16
 BWD_TOL = {"torch.bfloat16": 5e-2, "torch.float32": 2e-3}
 # each row's logsumexp from the forward against the plain version's
 LSE_TOL = 1e-3
-# loss_fn with the kernels against loss_fn with the plain attention, same
-# weights and batch (granite-3-2b at full width, depth 2): the loss to
-# |a - b| / (1 + |b|) and every parameter's gradient to the relative L2
-# error ||a - b|| / ||b||.  fp32 differs only in the order of sums; bf16
-# also in where P and dS are rounded
+# loss_fn's loss and every parameter's gradient (granite-3-2b at full
+# width, depth 2), with the kernels and with the plain attention, each
+# against the same loss_fn computed in float64 with float64 attention: the
+# loss as |a - r| / (1 + |r|), each gradient as the relative L2 error
+# ||a - r|| / ||r||.  At this init the stacked fan-in (2 layers) puts the
+# attention scores near +-1000, so most rows are one-hot and dS = P (dP -
+# Delta) cancels: the gradients through the scores carry the rounding of
+# their dtype amplified many times, by any method (a first run read 6.5e-3
+# between the fp32 kernel and the fp32 plain path).  So the kernel path
+# must be within twice the plain path's own error in the same dtype, or
+# within these limits
 GRAD_CHECK_TOL = {"float32": {"loss": 1e-4, "grad": 1e-3},
                   "bfloat16": {"loss": 2e-2, "grad": 5e-2}}
 
@@ -686,16 +692,33 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
     return results
 
 
+def attention_in_dtype(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Softmax attention computed in q's dtype (the float64 referee)."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
+    pos = torch.arange(s, device=q.device)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    p = torch.softmax(scores.masked_fill(~mask, -math.inf), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
 @contextlib.contextmanager
-def plain_attention():
-    """The model's attention through the plain version (autograd of
-    ``flash_attention_ref``) in place of the kernels, for a reference run."""
+def plain_attention(fn=None):
+    """The model's attention through ``fn`` (default: autograd of the plain
+    version ``flash_attention_ref``) in place of the kernels."""
     import repro_torch.models.layers as layers
     from repro_torch.kernels.ref import flash_attention_ref
 
     kernel = layers.flash_attention
-    layers.flash_attention = lambda q, k, v, *, causal=True, window=0: flash_attention_ref(
-        q, k, v, causal=causal, window=window)
+    layers.flash_attention = fn or (lambda q, k, v, *, causal=True, window=0:
+                                    flash_attention_ref(q, k, v, causal=causal, window=window))
     try:
         yield
     finally:
@@ -715,19 +738,29 @@ def _leaf_paths(tree, path=""):
 
 def phase_train_grad_check(seed: int) -> None:
     """granite-3-2b at full width and depth 2: loss_fn and every parameter
-    gradient with attention on the kernels (both directions) against the
-    same loss_fn with attention through the plain version, in fp32 and
-    bf16 compute."""
+    gradient with attention on the kernels (both directions) and with it
+    through the plain version, in fp32 and in bf16 compute, each held to
+    the same loss_fn in float64 (GRAD_CHECK_TOL says how)."""
     from repro_torch.configs import get_config
     from repro_torch.data import batch_for
     from repro_torch.distributed.step import batch_to, loss_and_grads
     from repro_torch.models import materialize, param_defs
     from repro_torch.models.spec import tree_map
 
+    def rel_l2(a_tree, r_tree) -> dict[str, float]:
+        return {path: ((a.double() - r.double()).norm() / r.double().norm()).item()
+                for (path, a), (_, r) in zip(_leaf_paths(a_tree), _leaf_paths(r_tree))}
+
+    def loss_err(a, r) -> float:
+        return abs(a.item() - r.item()) / (1 + abs(r.item()))
+
     base = get_config("granite_3_2b").scaled(n_layers=2)
     b, s = 2, 1024
     params_bf = materialize(param_defs(base), seed, "cuda")
     batch = batch_to(batch_for(base, b, s, 0, seed=seed), torch.device("cuda"))
+    with plain_attention(attention_in_dtype):
+        loss64, _, g64 = loss_and_grads(tree_map(lambda t: t.double(), params_bf), batch,
+                                        base.scaled(compute_dtype="float64"))
     for compute in ("float32", "bfloat16"):
         cfg = base.scaled(compute_dtype=compute)
         params = params_bf if compute == "bfloat16" else tree_map(lambda t: t.float(), params_bf)
@@ -740,31 +773,36 @@ def phase_train_grad_check(seed: int) -> None:
             loss_p, _, g_p = loss_and_grads(params, batch, cfg)
             torch.cuda.synchronize()
             plain_launches = launch_counts()
-        rel = {path: ((a.float() - r.float()).norm() / r.float().norm()).item()
-               for (path, a), (_, r) in zip(_leaf_paths(g_k), _leaf_paths(g_p))}
-        worst = max(rel, key=rel.get)
+        err_k, err_p, k_vs_p = rel_l2(g_k, g64), rel_l2(g_p, g64), rel_l2(g_k, g_p)
         tol = GRAD_CHECK_TOL[compute]
-        loss_err = abs(loss_k.item() - loss_p.item()) / (1 + abs(loss_p.item()))
+        limit = {leaf: max(tol["grad"], 2 * err_p[leaf]) for leaf in err_k}
+        worst = max(err_k, key=lambda leaf: err_k[leaf] / limit[leaf])
+        lk, lp = loss_err(loss_k, loss64), loss_err(loss_p, loss64)
+        loss_limit = max(tol["loss"], 2 * lp)
         finite = bool(torch.isfinite(loss_k)) and all(
             bool(torch.isfinite(g).all()) for _, g in _leaf_paths(g_k))
         want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
                 "ssd_scan": 0}
         emit("train_grad_check", config=cfg.name, layers=cfg.n_layers, batch=b, seq=s,
              compute=compute, remat=True, loss_kernel=loss_k.item(), loss_plain=loss_p.item(),
-             loss_scaled_err=loss_err, worst_leaf=worst, worst_leaf_rel_l2=rel[worst],
-             leaves=len(rel), rel_l2_by_leaf=rel, tol=tol, finite=finite,
+             loss_f64=loss64.item(), loss_err_kernel=lk, loss_err_plain=lp,
+             loss_limit=loss_limit, worst_leaf=worst, worst_leaf_err_kernel=err_k[worst],
+             worst_leaf_err_plain=err_p[worst], worst_leaf_limit=limit[worst],
+             rel_l2_kernel_vs_f64=err_k, rel_l2_plain_vs_f64=err_p,
+             rel_l2_kernel_vs_plain=k_vs_p, tol=tol, finite=finite,
              kernel_launches=kernel_launches, plain_launches=plain_launches)
         check(finite, f"train_grad_check {compute}: a loss or gradient is not finite")
         check(kernel_launches == want,
               f"train_grad_check {compute}: kernel launches {kernel_launches}, expected {want}")
         check(not any(plain_launches.values()),
               f"train_grad_check {compute}: the plain run launched {plain_launches}")
-        check(loss_err <= tol["loss"],
-              f"train_grad_check {compute}: loss {loss_k.item()} vs {loss_p.item()}")
-        check(rel[worst] <= tol["grad"],
-              f"train_grad_check {compute}: gradient {worst} relative L2 error {rel[worst]}")
+        check(lk <= loss_limit, f"train_grad_check {compute}: loss {loss_k.item()} is {lk} "
+              f"from the float64 loss {loss64.item()}, limit {loss_limit}")
+        check(err_k[worst] <= limit[worst],
+              f"train_grad_check {compute}: gradient {worst} is {err_k[worst]} from float64 "
+              f"(the plain path {err_p[worst]}), limit {limit[worst]}")
         del params, g_k, g_p
-    del params_bf
+    del params_bf, g64
     torch.cuda.empty_cache()
 
 
