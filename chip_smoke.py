@@ -101,9 +101,12 @@ LSE_TOL = 1e-3
 # attention scores near +-1000, so most rows are one-hot and dS = P (dP -
 # Delta) cancels: the gradients through the scores carry the rounding of
 # their dtype amplified many times, by any method (a first run read 6.5e-3
-# between the fp32 kernel and the fp32 plain path).  So the kernel path
-# must be within twice the plain path's own error in the same dtype, or
-# within these limits
+# between the fp32 kernel and the fp32 plain path, each 7.6e-2 from
+# float64).  So the kernel path must be within twice the plain path's own
+# error in the same dtype, or within these limits.  The same weights with
+# each layer's matrices rescaled to a fan-in of their input width
+# (scores ~N(0, 1)) make a well-conditioned second case, where these
+# limits bind
 GRAD_CHECK_TOL = {"float32": {"loss": 1e-4, "grad": 1e-3},
                   "bfloat16": {"loss": 2e-2, "grad": 5e-2}}
 
@@ -318,6 +321,19 @@ def phase_ssd_cases(seed: int) -> list[dict]:
     del base, x, dt, a, bm, cm, y, st
     torch.cuda.empty_cache()
     return results
+
+
+def kernel_device_ms(fn, iters: int = 50) -> float:
+    """Mean device time a call of ``fn`` spends in kernels, from
+    torch.profiler (host time between launches excluded)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
 def device_profile(fn) -> dict:
@@ -673,10 +689,13 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
     o_off = flash_attention_cuda(q, k, v, causal=True, window=0)
     o_on, lse = flash_attention_cuda(q, k, v, causal=True, window=0, return_lse=True)
     torch.cuda.synchronize()
+    # the kernel's device time from the profiler: back-to-back launches of a
+    # 0.05 ms kernel are paced by the host, which the lse buffer's
+    # allocation would add to
     times = {"off": [], "on": []}
     for which in ("off", "on", "on", "off"):
-        times[which].append(cuda_ms(lambda: flash_attention_cuda(
-            q, k, v, causal=True, window=0, return_lse=which == "on"), iters=50, warmup=5))
+        times[which].append(kernel_device_ms(lambda: flash_attention_cuda(
+            q, k, v, causal=True, window=0, return_lse=which == "on")))
     row = {"case": "granite_prefill", "shape": [4, 1024, 32, 8, 64], "dtype": "torch.bfloat16",
            "output_equal": bool(torch.equal(o_off, o_on)),
            "lse_max_abs_err": (lse - flash_attention_lse_ref(q, k, v, causal=True))
@@ -740,11 +759,30 @@ def phase_train_grad_check(seed: int) -> None:
     """granite-3-2b at full width and depth 2: loss_fn and every parameter
     gradient with attention on the kernels (both directions) and with it
     through the plain version, in fp32 and in bf16 compute, each held to
-    the same loss_fn in float64 (GRAD_CHECK_TOL says how)."""
+    the same loss_fn in float64 (GRAD_CHECK_TOL says how), at the
+    reference's init and at a well-conditioned one."""
     from repro_torch.configs import get_config
     from repro_torch.data import batch_for
-    from repro_torch.distributed.step import batch_to, loss_and_grads
+    from repro_torch.distributed.step import batch_to
     from repro_torch.models import materialize, param_defs
+    from repro_torch.models.spec import tree_map
+
+    base = get_config("granite_3_2b").scaled(n_layers=2)
+    b, s = 2, 1024
+    batch = batch_to(batch_for(base, b, s, 0, seed=seed), torch.device("cuda"))
+    reference = materialize(param_defs(base), seed, "cuda")
+    # (L, d_in, d_out) leaves drawn at 1 / sqrt(L): rescaled to 1 / sqrt(d_in)
+    fan_in = {**reference, "segments": tree_map(
+        lambda t: t * math.sqrt(t.shape[0] / t.shape[1]) if t.dim() == 3 else t,
+        reference["segments"])}
+    for init, params_bf in (("reference", reference), ("fan_in_per_layer", fan_in)):
+        _grad_check_init(init, params_bf, batch, base)
+    del reference, fan_in
+    torch.cuda.empty_cache()
+
+
+def _grad_check_init(init: str, params_bf, batch, base) -> None:
+    from repro_torch.distributed.step import loss_and_grads
     from repro_torch.models.spec import tree_map
 
     def rel_l2(a_tree, r_tree) -> dict[str, float]:
@@ -754,10 +792,7 @@ def phase_train_grad_check(seed: int) -> None:
     def loss_err(a, r) -> float:
         return abs(a.item() - r.item()) / (1 + abs(r.item()))
 
-    base = get_config("granite_3_2b").scaled(n_layers=2)
-    b, s = 2, 1024
-    params_bf = materialize(param_defs(base), seed, "cuda")
-    batch = batch_to(batch_for(base, b, s, 0, seed=seed), torch.device("cuda"))
+    b, s = batch["inputs"].shape
     with plain_attention(attention_in_dtype):
         loss64, _, g64 = loss_and_grads(tree_map(lambda t: t.double(), params_bf), batch,
                                         base.scaled(compute_dtype="float64"))
@@ -783,27 +818,26 @@ def phase_train_grad_check(seed: int) -> None:
             bool(torch.isfinite(g).all()) for _, g in _leaf_paths(g_k))
         want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
                 "ssd_scan": 0}
-        emit("train_grad_check", config=cfg.name, layers=cfg.n_layers, batch=b, seq=s,
-             compute=compute, remat=True, loss_kernel=loss_k.item(), loss_plain=loss_p.item(),
-             loss_f64=loss64.item(), loss_err_kernel=lk, loss_err_plain=lp,
-             loss_limit=loss_limit, worst_leaf=worst, worst_leaf_err_kernel=err_k[worst],
-             worst_leaf_err_plain=err_p[worst], worst_leaf_limit=limit[worst],
-             rel_l2_kernel_vs_f64=err_k, rel_l2_plain_vs_f64=err_p,
-             rel_l2_kernel_vs_plain=k_vs_p, tol=tol, finite=finite,
+        what = f"train_grad_check {init} {compute}"
+        emit("train_grad_check", config=cfg.name, init=init, layers=cfg.n_layers, batch=b,
+             seq=s, compute=compute, remat=True, loss_kernel=loss_k.item(),
+             loss_plain=loss_p.item(), loss_f64=loss64.item(), loss_err_kernel=lk,
+             loss_err_plain=lp, loss_limit=loss_limit, worst_leaf=worst,
+             worst_leaf_err_kernel=err_k[worst], worst_leaf_err_plain=err_p[worst],
+             worst_leaf_limit=limit[worst], rel_l2_kernel_vs_f64=err_k,
+             rel_l2_plain_vs_f64=err_p, rel_l2_kernel_vs_plain=k_vs_p, tol=tol, finite=finite,
              kernel_launches=kernel_launches, plain_launches=plain_launches)
-        check(finite, f"train_grad_check {compute}: a loss or gradient is not finite")
-        check(kernel_launches == want,
-              f"train_grad_check {compute}: kernel launches {kernel_launches}, expected {want}")
-        check(not any(plain_launches.values()),
-              f"train_grad_check {compute}: the plain run launched {plain_launches}")
-        check(lk <= loss_limit, f"train_grad_check {compute}: loss {loss_k.item()} is {lk} "
-              f"from the float64 loss {loss64.item()}, limit {loss_limit}")
-        check(err_k[worst] <= limit[worst],
-              f"train_grad_check {compute}: gradient {worst} is {err_k[worst]} from float64 "
-              f"(the plain path {err_p[worst]}), limit {limit[worst]}")
+        check(finite, f"{what}: a loss or gradient is not finite")
+        check(kernel_launches == want, f"{what}: kernel launches {kernel_launches}, "
+              f"expected {want}")
+        check(not any(plain_launches.values()), f"{what}: the plain run launched "
+              f"{plain_launches}")
+        check(lk <= loss_limit, f"{what}: loss {loss_k.item()} is {lk} from the float64 "
+              f"loss {loss64.item()}, limit {loss_limit}")
+        check(err_k[worst] <= limit[worst], f"{what}: gradient {worst} is {err_k[worst]} from "
+              f"float64 (the plain path {err_p[worst]}), limit {limit[worst]}")
         del params, g_k, g_p
-    del params_bf, g64
-    torch.cuda.empty_cache()
+    del g64
 
 
 def phase_train_step(seed: int) -> dict[str, int]:
@@ -875,7 +909,7 @@ def phase_train_supervisor(seed: int) -> dict[str, int]:
     steps, nan_step, every = 20, 12, 5
     kw = dict(n_hosts=3, global_batch=6, seq_len=256, ckpt_dir=str(ckpt), ckpt_every=every,
               data_seed=seed, device="cuda")
-    opt = OptConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    opt = OptConfig(lr=3e-3, warmup_steps=2, total_steps=steps)   # launch/train.py's lr
     events = [TrainEvent(step=5, kind="host_down", host="host01"),
               TrainEvent(step=nan_step, kind="nan")]
     zero_counts()
@@ -902,11 +936,13 @@ def phase_train_supervisor(seed: int) -> dict[str, int]:
     check(any(r["error"] == "NumericalDivergenceError" for r in rep.recoveries),
           "train_supervisor: no NumericalDivergenceError recovery")
     check(rep.final_hosts == 2, f"train_supervisor: {rep.final_hosts} hosts left, expected 2")
-    check(all(math.isfinite(x) for x in rep.losses) and rep.losses[-1] < rep.losses[0],
-          f"train_supervisor: loss did not fall: {rep.losses[0]} -> {rep.losses[-1]}")
-    check(rep2.steps_completed == 2 and rep2.losses[0] < rep.losses[0],
-          f"train_supervisor: the resumed run ran {rep2.steps_completed} steps from loss "
-          f"{rep2.losses[:1]}, not from the trained checkpoint")
+    # each step draws a new batch: compare means of three steps
+    first, last = statistics.mean(rep.losses[:3]), statistics.mean(rep.losses[-3:])
+    check(all(math.isfinite(x) for x in rep.losses) and last < first,
+          f"train_supervisor: loss did not fall: {first} -> {last} (means of 3 steps)")
+    check(rep2.steps_completed == 2 and statistics.mean(rep2.losses) < first,
+          f"train_supervisor: the resumed run ran {rep2.steps_completed} steps at loss "
+          f"{rep2.losses}, not from the trained checkpoint (first steps {first})")
     check(launches["flash_attention"] == launches["flash_attention_bwd"] > 0,
           f"train_supervisor: launches {launches}")
     torch.cuda.empty_cache()
