@@ -254,9 +254,7 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool = 
     grad = _needs_grad(params)
     x = embed_inputs(params, batch, cfg)
     for seg_params, (unit, repeats) in zip(params["segments"], cfg.scan_segments()):
-        layers = (_unbind_layers(seg_params, repeats) if grad
-                  else [_layer(seg_params, i) for i in range(repeats)])
-        for layer_params in layers:
+        for layer_params in _unbind_layers(seg_params, repeats):
             if grad and remat:
                 x = checkpoint(_run_unit, layer_params, x, cfg, unit, use_reentrant=False)
             else:

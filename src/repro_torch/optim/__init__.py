@@ -4,11 +4,9 @@ ported yet: ROADMAP.md, Queue 1 item 1."""
 from repro_torch.optim.adamw import (
     OptConfig,
     adamw_apply,
-    global_norm,
     init_opt_state,
     lr_at,
     opt_state_defs,
 )
 
-__all__ = ["OptConfig", "adamw_apply", "global_norm", "opt_state_defs", "init_opt_state",
-           "lr_at"]
+__all__ = ["OptConfig", "adamw_apply", "opt_state_defs", "init_opt_state", "lr_at"]
