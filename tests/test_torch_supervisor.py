@@ -24,7 +24,10 @@ from repro_torch.train import TrainEvent, WrathTrainSupervisor
 
 
 def mk(tmp_path, tag, **kw):
-    defaults = dict(n_hosts=3, global_batch=6, seq_len=32,
+    """Straggler speculation follows wall times, so a loaded machine could
+    denylist a host in a test about something else: it is out of reach
+    (straggler_factor 1e6) except where a test asks for it."""
+    defaults = dict(n_hosts=3, global_batch=6, seq_len=32, straggler_factor=1e6,
                     ckpt_dir=str(tmp_path / tag), ckpt_every=5, device="cpu")
     defaults.update(kw)
     return WrathTrainSupervisor(get_smoke_config("granite_3_2b"),
@@ -63,8 +66,11 @@ def test_oom_shard_routed_to_big_host(tmp_path):
 
 
 def test_straggler_speculation_and_denylist(tmp_path):
-    rep = mk(tmp_path, "strag").run(
-        12, events=[TrainEvent(step=3, kind="straggler", host="host02", factor=50)])
+    """Speculation compares moving averages of per-sample shard times, so
+    the straggler starts once the first steps' one-off costs have decayed
+    (the reference's scenario runs 30 steps)."""
+    rep = mk(tmp_path, "strag", straggler_factor=3.0).run(
+        24, events=[TrainEvent(step=6, kind="straggler", host="host02", factor=50)])
     assert rep.speculations >= 1
     assert "host02" in rep.denylisted     # chronic straggler denylisted
 
