@@ -23,6 +23,18 @@ from repro_torch.optim import OptConfig
 from repro_torch.train import TrainEvent, WrathTrainSupervisor
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size compute gains nothing from threads, and in a parallel
+    test run every worker's default thread count oversubscribes the cores:
+    a shard then takes longer than a straggler's 0.5 s sleep, which the
+    straggler test must tell apart."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def mk(tmp_path, tag, **kw):
     """Straggler speculation follows wall times, so a loaded machine could
     denylist a host in a test about something else: it is out of reach

@@ -217,7 +217,8 @@ def test_train_cli_on_cpu(tmp_path):
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu", "--steps", "8",
            "--inject", "host_down:3:host01", "--json", "--ckpt-dir", str(tmp_path / "ck")]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=REPO,
-                          env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"})
+                          env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+                               "OMP_NUM_THREADS": "1"})   # smoke size: threads only contend
     assert proc.returncode == 0, proc.stderr
     rep = json.loads(proc.stdout)
     assert rep["arch"] == "granite-3-2b" and rep["steps"] == 8
