@@ -386,8 +386,9 @@ int launch_bf16(const Params& p, const long long* layout, cudaStream_t stream) {
   if (!err) err = encode(&tm_v, p.v, layout + 11, WN);
   if (err) return err;
   constexpr size_t smem = Smem<D>::BYTES;
-  // above 48 KB the launch is refused unless the kernel opts in
-  cudaFuncSetAttribute(flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static uint32_t opted = 0;   // a bit per device
+  err = opt_in_smem(reinterpret_cast<const void*>(flash_fwd_bf16<D>), smem, opted);
+  if (err) return err;
   const dim3 grid(p.B * p.H, (p.S + WM - 1) / WM);
   flash_fwd_bf16<D><<<grid, 256, smem, stream>>>(tm_q, tm_k, tm_v, p);
   return 0;

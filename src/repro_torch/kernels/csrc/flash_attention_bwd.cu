@@ -10,10 +10,10 @@
 // zero gradients.  FlashAttention-2's split into two kernels, deterministic,
 // with no atomics:
 //
-//   flash_bwd_dq    grid (q tiles, B*H):  Delta = rowsum(dO * O), stored for
-//                   the second kernel; over the kv tiles dP = dO V^T,
-//                   dS = P * (dP - Delta), dQ += dS K / sqrt(D)
-//   flash_bwd_dkdv  grid (kv tiles, B*KV): over the q heads of the kv head's
+//   flash_bwd_dq    grid (B*H, q tiles):  Delta = rowsum(dO * O) and lse in
+//                   base 2, stored for the second kernel; over the kv tiles
+//                   dP = dO V^T, dS = P * (dP - Delta), dQ += dS K / sqrt(D)
+//   flash_bwd_dkdv  grid (B*KV, kv tiles): over the q heads of the kv head's
 //                   GQA group and their q tiles dV += P^T dO,
 //                   dK += dS^T Q / sqrt(D), so the group's sum is taken in
 //                   the block and needs no second reduction
@@ -25,31 +25,50 @@
 // dO, lse and the three gradients, 0.025 ms at 3.35 TB/s.  The split does
 // seven (each kernel recomputes q k and dO v), the price of no atomics.
 //
-// What this first design does about it: the products run on the tensor
-// cores as mma.sync m16n8k16 (bf16 in, fp32 accumulate), four warps of 16
-// rows a block, tiles of 64 rows staged through padded shared memory with
-// 16-byte loads; the products that sum over a tile's rows read transposed
-// copies (K^T for dQ, Q^T and dO^T for dK and dV).  P and dS are rounded to
-// bf16 as the A operands of their products, as the forward rounds P.
-// Gradients accumulate in fp32 registers and are written once in the
-// inputs' dtype.  wgmma, TMA and a pipelined ring are later work.
+// What the bf16 design does about it (FlashAttention-3's backward, without
+// its dQ atomics).  For now only the dK/dV kernel has it: the dQ kernel is
+// still the first design's (mma.sync, K staged a second time transposed,
+// synchronous loads):
+//  * Every product on wgmma, no transposed copy.  The dK/dV kernel forms
+//    S^T = K Q^T and dP^T = V dO^T with K, V, Q and dO K-major as TMA
+//    writes them; the S^T accumulator's layout is the A-fragment layout,
+//    so P^T and dS^T pack to bf16 in registers and dV += P^T dO,
+//    dK += dS^T Q read dO and Q as MN-major B operands.  The dQ kernel
+//    forms S = Q K^T and dP = dO V^T, then dQ += dS K reads the same K
+//    tile MN-major.  P and dS are rounded to bf16 as product operands, as
+//    the forward rounds P; gradients accumulate in fp32 registers and are
+//    written once in the inputs' dtype.
+//  * A block is two consumer warpgroups of 64 rows: 128 kv rows (dK/dV)
+//    or 128 q rows (dQ) stay in shared memory; the other side streams
+//    through a ring of 64-row stages by TMA (128-byte swizzle, 64-column
+//    boxes), with a "full" mbarrier per stage counting the TMA's bytes and
+//    an "empty" one taking every thread's arrival.  One elected thread
+//    keeps the ring STAGES - 1 tiles ahead.  The dK/dV stage also brings
+//    the q tile's lse and Delta (a 256-byte bulk copy each from a scratch
+//    padded to 128 rows, which the dQ kernel writes).
+//  * TMA zero-fills rows past S or Sk, so ragged lengths need no padding
+//    copy.  Masks are tested on edge tiles only (the causal diagonal, the
+//    window's ends, the ragged ends); tiles a warpgroup does not see are
+//    not computed, and tiles the block does not see are not loaded.
+//  * Heaviest blocks first: under the causal mask the first kv tiles
+//    (dK/dV) and the last q tiles (dQ) run longest, and launch first.
+//  * GQA by index through the tensor maps: no copy of K or V.
 // fp32 inputs take SIMT kernels, one warp a row, exact in fp32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int BM = 64;    // q rows: of a dq block, of a q tile in the dkdv kernel
-constexpr int BN = 64;    // kv rows: of a kv tile in the dq kernel, of a dkdv block
-constexpr int NT = 128;   // bf16 blocks: 4 warps of 16 rows
-constexpr int WR = 8;     // fp32 blocks: 8 warps, one row each
-constexpr int TN = 32;    // fp32 kernels: rows of a staged tile
+constexpr int ROWS = 64;   // bf16: rows of a warpgroup's tile, of a stage and of a TMA box
+constexpr int PAD = 128;   // bf16: the lse / Delta scratch rows are padded to a multiple of this
+constexpr int WR = 8;      // fp32 blocks: 8 warps, one row each
+constexpr int TN = 32;     // fp32 kernels: rows of a staged tile
 
 struct Params {
   const void* q;
@@ -61,11 +80,13 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  float* delta;           // (B, H, S) scratch: rowsum(dO * O)
+  float* delta;           // scratch: rowsum(dO * O), (B, H, S) fp32, (B, H, s_pad) bf16
+  float* lse2;            // bf16 scratch: (B, H, s_pad) lse * log2(e); both 0 past S
   int B, S, Sk, H, KV;
   int causal, window;
   float scale;            // 1 / sqrt(D)
   float scale_log2;       // log2(e) / sqrt(D): scores in base 2
+  int s_pad;              // S rounded up to PAD
 };
 
 __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
@@ -93,10 +114,29 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// rows row0 and row0 + 8 of a wgmma accumulator (64 x D: 4 values per
+// 8-column block) into a (B, L, heads, D) tensor, times `scale`
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* base, size_t stride, int row0, int L,
+                                           const float (&acc)[D / 2], float scale, int t4) {
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int col = dt * 8 + t4 * 2;
+    if (row0 < L)
+      *reinterpret_cast<__nv_bfloat162*>(base + (size_t)row0 * stride + col) =
+          __floats2bfloat162_rn(acc[4 * dt] * scale, acc[4 * dt + 1] * scale);
+    if (row0 + 8 < L)
+      *reinterpret_cast<__nv_bfloat162*>(base + (size_t)(row0 + 8) * stride + col) =
+          __floats2bfloat162_rn(acc[4 * dt + 2] * scale, acc[4 * dt + 3] * scale);
+  }
 }
+
+// ---------------------------------------------------------------------------
+// bf16 dQ: mma.sync, 4 warps x 16 rows
+// ---------------------------------------------------------------------------
+constexpr int BM = 64;    // mma.sync dq: q rows of a block
+constexpr int BN = 64;    // mma.sync dq: kv rows of a tile
+constexpr int NT = 128;   // mma.sync dq: 4 warps of 16 rows
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -191,7 +231,7 @@ __device__ __forceinline__ void product_at(float (&acc)[D / 8][4], const uint32_
 
 // the accumulator rows r, r + 8 of a (B, L, heads, D) tensor, times `scale`
 template <int D>
-__device__ __forceinline__ void store_rows(bf16* base, size_t stride, int row0, int L,
+__device__ __forceinline__ void store_rows_mma(bf16* base, size_t stride, int row0, int L,
                                            const float (&acc)[D / 8][4], float scale, int t4) {
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
@@ -210,9 +250,6 @@ struct BwdSmem {
   static constexpr int DP = D + 8;
   // dq: Q, dO, K, V as [64][DP], K^T as [D][BN + 8]
   static constexpr size_t DQ = (size_t)(4 * 64 * DP + D * (BN + 8)) * sizeof(bf16);
-  // dkdv: K, V, Q, dO as [64][DP], Q^T and dO^T as [D][BM + 8], lse and Delta of a q tile
-  static constexpr size_t DKDV =
-      (size_t)(4 * 64 * DP + 2 * D * (BM + 8)) * sizeof(bf16) + 2 * BM * sizeof(float);
 };
 
 // ---------------------------------------------------------------------------
@@ -242,7 +279,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_bf16(Params p) {
   const bf16* dob = static_cast<const bf16*>(p.dout) + q_off;
   const bf16* kb = static_cast<const bf16*>(p.k) + kv_off;
   const bf16* vb = static_cast<const bf16*>(p.v) + kv_off;
-  const size_t row_off = ((size_t)b * p.H + h) * p.S;   // into lse and delta
+  const size_t row_off = ((size_t)b * p.H + h) * p.S;   // into lse
+  const size_t pad_off = ((size_t)b * p.H + h) * p.s_pad;   // into delta and lse2
 
   load_rows<D, BM>(sQ, qb, q_stride, q0, p.S);
   load_rows<D, BM>(sdO, dob, q_stride, q0, p.S);
@@ -259,7 +297,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_bf16(Params p) {
         acc += __bfloat162float(ob[(size_t)row * q_stride + d]) *
                __bfloat162float(dob[(size_t)row * q_stride + d]);
     acc = warp_sum(acc);
-    if (row < p.S && lane == 0) p.delta[row_off + row] = acc;
+    if (lane == 0) {
+      p.delta[pad_off + row] = acc;
+      p.lse2[pad_off + row] = row < p.S ? p.lse[row_off + row] * LOG2E : 0.f;
+    }
     if (r == g) d0 = acc;
     if (r == g + 8) d1 = acc;
   }
@@ -303,88 +344,167 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_bf16(Params p) {
     }
     product_at<D, BN>(dq, dsf, sKt, g, t4);      // dQ += dS K
   }
-  store_rows<D>(static_cast<bf16*>(p.dq) + q_off, q_stride, row0, p.S, dq, p.scale, t4);
+  store_rows_mma<D>(static_cast<bf16*>(p.dq) + q_off, q_stride, row0, p.S, dq, p.scale, t4);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dK/dV: wgmma, TMA, two consumer warpgroups of 64 kv rows
+// ---------------------------------------------------------------------------
+// Shared memory: K and V (128 rows each), then STAGES Q tiles, STAGES dO
+// tiles (64 rows each; D / 64 boxes of rows x 128 bytes), the stages' lse
+// and Delta, the mbarriers.
 template <int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dkdv_bf16(Params p) {
-  constexpr int DP = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);   // [BN][DP]
-  bf16* sV = sK + BN * DP;                      // [BN][DP]
-  bf16* sQ = sV + BN * DP;                      // [BM][DP]
-  bf16* sdO = sQ + BM * DP;                     // [BM][DP]
-  bf16* sQt = sdO + BM * DP;                    // [D][BM + 8]
-  bf16* sdOt = sQt + D * (BM + 8);              // [D][BM + 8]
-  float* sL = reinterpret_cast<float*>(sdOt + D * (BM + 8));   // [BM] lse, base 2
-  float* sDl = sL + BM;                                         // [BM] Delta
+struct DkdvSmem {
+  static constexpr int STAGES = 2;
+  static constexpr uint32_t KV_BYTES = 2 * ROWS * D * 2;
+  static constexpr uint32_t Q_BYTES = ROWS * D * 2;
+  static constexpr uint32_t VEC_BYTES = ROWS * 4;
+  static constexpr uint32_t STAGE_TX = 2 * Q_BYTES + 2 * VEC_BYTES;
+  static constexpr size_t BYTES =
+      1024 + 2 * KV_BYTES + STAGES * STAGE_TX + 8 * (1 + 2 * STAGES);   // 1024: alignment
+};
 
-  const int bk = blockIdx.y;
-  const int b = bk / p.KV, kvh = bk % p.KV;
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+    flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, Params p) {
+  using L = DkdvSmem<D>;
+  constexpr int STAGES = L::STAGES;
+  constexpr int BOXES = D / BOX;
+  constexpr int KB = 2 * ROWS;   // kv rows of the block
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  unsigned char* sK = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* sV = sK + L::KV_BYTES;
+  unsigned char* sQ = sV + L::KV_BYTES;
+  unsigned char* sdO = sQ + STAGES * L::Q_BYTES;
+  float* sL = reinterpret_cast<float*>(sdO + STAGES * L::Q_BYTES);   // [STAGES][ROWS]
+  float* sDl = sL + STAGES * ROWS;                                    // [STAGES][ROWS]
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(sDl + STAGES * ROWS);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;   // accumulator row group / column pair
+  const int b = blockIdx.x / p.KV, kvh = blockIdx.x % p.KV;
   const int group = p.H / p.KV;
-  const int k0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const size_t q_stride = (size_t)p.H * D, kv_stride = (size_t)p.KV * D;
-  const size_t kv_off = ((size_t)b * p.Sk * p.KV + kvh) * D;
-  load_rows<D, BN>(sK, static_cast<const bf16*>(p.k) + kv_off, kv_stride, k0, p.Sk);
-  load_rows<D, BN>(sV, static_cast<const bf16*>(p.v) + kv_off, kv_stride, k0, p.Sk);
-
-  const int r0 = warp * 16 + g;               // this thread's kv rows in the tile: r0, r0 + 8
-  const int krow0 = k0 + r0, krow1 = krow0 + 8;
-  const float sl = p.scale_log2;
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
-
+  // causal: the first kv tiles see the most q tiles, and blockIdx.y = 0 launches first
+  const int k0 = blockIdx.y * KB;
   int lo, hi;
-  q_range(p, k0, BN, lo, hi);
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = kvh * group + hh;
-    const size_t q_off = ((size_t)b * p.S * p.H + h) * D;
-    const bf16* qb = static_cast<const bf16*>(p.q) + q_off;
-    const bf16* dob = static_cast<const bf16*>(p.dout) + q_off;
-    const size_t row_off = ((size_t)b * p.H + h) * p.S;
-    for (int q0 = (lo / BM) * BM; q0 < hi; q0 += BM) {
-      __syncthreads();   // the previous q tile is consumed (and K, V are written)
-      load_rows<D, BM>(sQ, qb, q_stride, q0, p.S);
-      load_rows<D, BM>(sdO, dob, q_stride, q0, p.S);
-      load_rows_t<D, BM>(sQt, qb, q_stride, q0, p.S);
-      load_rows_t<D, BM>(sdOt, dob, q_stride, q0, p.S);
-      for (int i = tid; i < BM; i += NT) {
-        const bool in = q0 + i < p.S;
-        sL[i] = in ? p.lse[row_off + q0 + i] * LOG2E : 0.f;
-        sDl[i] = in ? p.delta[row_off + q0 + i] : 0.f;
-      }
-      __syncthreads();
+  q_range(p, k0, KB, lo, hi);
+  const int t_lo = lo / ROWS;
+  const int nq = hi > lo ? (hi + ROWS - 1) / ROWS - t_lo : 0;   // q tiles a head
+  const int n = group * nq;                                     // (head, q tile) items
 
-      float st[BM / 8][4], dpt[BM / 8][4];
-      product_abt<D, BM>(st, sK, r0, sQ, g, t4);    // S^T = K Q^T
-      product_abt<D, BM>(dpt, sV, r0, sdO, g, t4);  // dP^T = V dO^T
-      uint32_t pf[BM / 16][4], dsf[BM / 16][4];
+  auto load_q = [&](int j) {   // item j into stage j % STAGES
+    const int s = j % STAGES, h = kvh * group + j / nq, q0 = (t_lo + j % nq) * ROWS;
+    mbar_expect_tx(&full[s], L::STAGE_TX);
 #pragma unroll
-      for (int nt = 0; nt < BM / 8; ++nt) {
+    for (int c = 0; c < BOXES; ++c) {
+      tma_load(sQ + s * L::Q_BYTES + c * ROWS * ROW, &tm_q, &full[s], c * BOX, h, q0, b);
+      tma_load(sdO + s * L::Q_BYTES + c * ROWS * ROW, &tm_do, &full[s], c * BOX, h, q0, b);
+    }
+    const size_t off = ((size_t)b * p.H + h) * p.s_pad + q0;
+    bulk_load(sL + s * ROWS, p.lse2 + off, L::VEC_BYTES, &full[s]);
+    bulk_load(sDl + s * ROWS, p.delta + off, L::VEC_BYTES, &full[s]);
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], blockDim.x);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && n > 0) {
+    mbar_expect_tx(bar_kv, 2 * L::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < BOXES; ++c)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t at = c * KB * ROW + r * ROWS * ROW;
+        tma_load(sK + at, &tm_k, bar_kv, c * BOX, kvh, k0 + r * ROWS, b);
+        tma_load(sV + at, &tm_v, bar_kv, c * BOX, kvh, k0 + r * ROWS, b);
+      }
+    for (int j = 0; j < min(STAGES, n); ++j) load_q(j);
+  }
+
+  const int wk0 = k0 + wg * ROWS;   // the warpgroup's first kv row
+  const int krow0 = wk0 + warp * 16 + g, krow1 = krow0 + 8;
+  int wlo, whi;                     // q rows that see the warpgroup's kv rows
+  q_range(p, wk0, ROWS, wlo, whi);
+  const bool live = wk0 < p.Sk;
+  const uint32_t k_smem = smem_u32(sK) + wg * ROWS * ROW;
+  const uint32_t v_smem = smem_u32(sV) + wg * ROWS * ROW;
+  const float sl = p.scale_log2;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  if (n > 0) mbar_wait(bar_kv, 0);
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES;
+    if (tid == 0 && i > 0 && i + STAGES - 1 < n) {
+      // the next item goes where item i - 1 was: wait until every thread is done with it
+      const int j = i + STAGES - 1;
+      mbar_wait(&empty[j % STAGES], ((j / STAGES) & 1) ^ 1);
+      load_q(j);
+    }
+    __syncwarp();
+    const int q0 = (t_lo + i % nq) * ROWS;
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    if (live && q0 < whi && q0 + ROWS > wlo) {
+      const uint32_t q_s = smem_u32(sQ + s * L::Q_BYTES);
+      const uint32_t do_s = smem_u32(sdO + s * L::Q_BYTES);
+      float st[32], dpt[32];   // S^T, dP^T: 64 kv rows x 64 q columns
+      qk_product<D, KB, ROWS, 32, false>(st, k_smem, q_s);
+      qk_product<D, KB, ROWS, 32, false>(dpt, v_smem, do_s);
+      wgmma_wait_all();
+      pin(st);
+      pin(dpt);
+      // test the mask only where a pair of the tile is masked
+      const bool edge = q0 + ROWS > p.S || wk0 + ROWS > p.Sk ||
+                        (p.causal && wk0 + ROWS - 1 > q0) ||
+                        (p.window && q0 + ROWS - 1 >= wk0 + p.window);
+      const float* lse2 = sL + s * ROWS;
+      const float* delta = sDl + s * ROWS;
+      // P^T and dS^T as A operands: 8-column blocks 2j and 2j+1 form k-step j
+      uint32_t pf[ROWS / 16][4], dsf[ROWS / 16][4];
+#pragma unroll
+      for (int nb = 0; nb < ROWS / 8; ++nb) {
+        const int c = nb * 8 + 2 * t4;   // this thread's q columns c, c + 1
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(delta + c);
         float pe[4], ds[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int qc = nt * 8 + t4 * 2 + (e & 1);
-          pe[e] = visible(p, q0 + qc, e < 2 ? krow0 : krow1)
-                      ? exp2f(fmaf(st[nt][e], sl, -sL[qc])) : 0.f;
-          ds[e] = pe[e] * (dpt[nt][e] - sDl[qc]);
+          pe[e] = ex2(fmaf(st[4 * nb + e], sl, -((e & 1) ? l2.y : l2.x)));
+          ds[e] = pe[e] * (dpt[4 * nb + e] - ((e & 1) ? d2.y : d2.x));
+          if (edge && !visible(p, q0 + c + (e & 1), (e & 2) ? krow1 : krow0)) pe[e] = ds[e] = 0.f;
         }
-        pf[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(pe[0], pe[1]);
-        pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(pe[2], pe[3]);
-        dsf[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-        dsf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        pf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(pe[0], pe[1]);
+        pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(pe[2], pe[3]);
+        dsf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+        dsf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
       }
-      product_at<D, BM>(dv, pf, sdOt, g, t4);       // dV += P^T dO
-      product_at<D, BM>(dk, dsf, sQt, g, t4);       // dK += dS^T Q
+      pv_product<D, ROWS, false>(dv, pf, do_s);    // dV += P^T dO
+      pv_product<D, ROWS, false>(dk, dsf, q_s);    // dK += dS^T Q
+      wgmma_wait_all();
+      pin(dv);
+      pin(dk);
     }
+    mbar_arrive(&empty[s]);
   }
-  store_rows<D>(static_cast<bf16*>(p.dk) + kv_off, kv_stride, krow0, p.Sk, dk, p.scale, t4);
-  store_rows<D>(static_cast<bf16*>(p.dv) + kv_off, kv_stride, krow0, p.Sk, dv, 1.f, t4);
+  if (live) {
+    const size_t kv_stride = (size_t)p.KV * D;
+    const size_t kv_off = ((size_t)b * p.Sk * p.KV + kvh) * D;
+    store_rows<D>(static_cast<bf16*>(p.dk) + kv_off, kv_stride, krow0, p.Sk, dk, p.scale, t4);
+    store_rows<D>(static_cast<bf16*>(p.dv) + kv_off, kv_stride, krow0, p.Sk, dv, 1.f, t4);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -532,21 +652,30 @@ __global__ void __launch_bounds__(WR * 32) flash_bwd_dkdv_f32(Params p) {
     }
 }
 
+
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 template <int D>
-int launch_bf16(const Params& p, cudaStream_t stream) {
-  using L = BwdSmem<D>;
-  // above 48 KB a launch is refused unless the kernel opts in
-  cudaFuncSetAttribute(flash_bwd_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)L::DQ);
-  cudaFuncSetAttribute(flash_bwd_dkdv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)L::DKDV);
-  flash_bwd_dq_bf16<D><<<dim3((p.S + BM - 1) / BM, p.B * p.H), NT, L::DQ, stream>>>(p);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_bf16<D><<<dim3((p.Sk + BN - 1) / BN, p.B * p.KV), NT, L::DKDV, stream>>>(p);
+int launch_bf16(const Params& p, const long long* layout, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  int err = encode(&tm_q, p.q, layout, ROWS);
+  if (!err) err = encode(&tm_do, p.dout, layout, ROWS);
+  if (!err) err = encode(&tm_k, p.k, layout + 11, ROWS);
+  if (!err) err = encode(&tm_v, p.v, layout + 11, ROWS);
+  if (err) return err;
+  static uint32_t opted_dq = 0, opted_dkdv = 0;   // a bit per device
+  err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dq_bf16<D>), BwdSmem<D>::DQ,
+                    opted_dq);
+  if (!err)
+    err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_bf16<D>), DkdvSmem<D>::BYTES,
+                      opted_dkdv);
+  if (err) return err;
+  flash_bwd_dq_bf16<D><<<dim3((p.S + BM - 1) / BM, p.B * p.H), NT, BwdSmem<D>::DQ, stream>>>(p);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dkdv_bf16<D><<<dim3(p.B * p.KV, (p.Sk + 2 * ROWS - 1) / (2 * ROWS)), 256,
+                           DkdvSmem<D>::BYTES, stream>>>(tm_q, tm_do, tm_k, tm_v, p);
   return (int)cudaGetLastError();
 }
 
@@ -563,18 +692,25 @@ int launch_f32(const Params& p, cudaStream_t stream) {
 
 // q, o, dout, dq: (B, S, H, D); k, v, dk, dv: (B, Sk, KV, D); all contiguous,
 // one dtype (bf16 if is_bf16 else fp32).  lse: (B, H, S) fp32 from the
-// forward; delta: (B, H, S) fp32 scratch.  The two kernels run in order on
-// `stream`.  Returns cudaGetLastError() after the launches.
+// forward.  scratch: 2 * B * H * s_pad fp32, s_pad = S rounded up to 128.
+// layout: for bf16, the TMA layouts of q (also dout's) and of k (also
+// v's) with boxes of 64 rows, 11 values each, as
+// kernels/flash_attention.py:tma_layout computes them; unused for fp32.
+// The two kernels run in order on `stream`.  Returns cudaGetLastError()
+// after the launches, or a negative code from encode().
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, void* dq, void* dk,
-                                   void* dv, float* delta, int B, int S, int Sk, int H, int KV,
-                                   int D, int causal, int window, int is_bf16, void* stream) {
+                                   void* dv, float* scratch, int B, int S, int Sk, int H, int KV,
+                                   int D, int causal, int window, int is_bf16, void* stream,
+                                   const long long* layout) {
   const float scale = 1.f / sqrtf((float)D);
-  Params p{q, k, v, o, dout, lse, dq, dk, dv, delta, B, S, Sk, H, KV, causal, window,
-           scale, LOG2E * scale};
+  const int s_pad = (S + PAD - 1) / PAD * PAD;
+  Params p{q, k, v, o, dout, lse, dq, dk, dv, scratch, scratch + (size_t)B * H * s_pad,
+           B, S, Sk, H, KV, causal, window, scale, LOG2E * scale, s_pad};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && D == 64) return launch_bf16<64>(p, st);
-  if (is_bf16 && D == 128) return launch_bf16<128>(p, st);
+  if (is_bf16 && layout == nullptr) return (int)cudaErrorInvalidValue;
+  if (is_bf16 && D == 64) return launch_bf16<64>(p, layout, st);
+  if (is_bf16 && D == 128) return launch_bf16<128>(p, layout, st);
   if (!is_bf16 && D == 64) return launch_f32<64>(p, st);
   if (!is_bf16 && D == 128) return launch_f32<128>(p, st);
   return (int)cudaErrorInvalidValue;

@@ -80,6 +80,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) into shared memory, counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // one box of shared memory into a 4-D tensor map, in this thread's bulk
 // group; rows past the tensor's end are not written
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1,
@@ -225,8 +235,10 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 // S (64 rows x 2 NS columns, fp32) {=, +=} A B^T over a depth of D, both
 // operands K-major in shared memory: a, the first of the 64 A rows inside
 // an A_ROWS-row tile; b, the first of 2 NS B rows inside a B_ROWS-row
-// tile; D / 64 boxes each.  `accumulate` adds to S instead.
-template <int D, int A_ROWS, int B_ROWS, int NS>
+// tile; D / 64 boxes each.  `accumulate` adds to S instead.  WAIT false
+// leaves the product in flight: the caller waits (wgmma_wait_all, pin)
+// before it touches S.
+template <int D, int A_ROWS, int B_ROWS, int NS, bool WAIT = true>
 __device__ __forceinline__ void qk_product(float (&s)[NS], uint32_t a, uint32_t b,
                                            bool accumulate = false) {
   static_assert(NS == 64 || NS == 32, "64 or 128 columns");
@@ -240,13 +252,16 @@ __device__ __forceinline__ void qk_product(float (&s)[NS], uint32_t a, uint32_t 
     else wgmma_ss_n64(s, da, db, accumulate || kk > 0);
   }
   wgmma_commit();
-  wgmma_wait_all();
-  pin(s);
+  if constexpr (WAIT) {
+    wgmma_wait_all();
+    pin(s);
+  }
 }
 
 // O (64 x D, fp32) += P (64 x K_ROWS, bf16 A fragments) V (K_ROWS x D at
-// shared address v, MN-major)
-template <int D, int K_ROWS>
+// shared address v, MN-major).  WAIT as for qk_product; the fragments too
+// stay untouched until the wait.
+template <int D, int K_ROWS, bool WAIT = true>
 __device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&pf)[K_ROWS / 16][4],
                                            uint32_t v) {
   wgmma_fence();
@@ -257,8 +272,10 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&p
     else wgmma_rs_n128(o, pf[j], desc);
   }
   wgmma_commit();
-  wgmma_wait_all();
-  pin(o);
+  if constexpr (WAIT) {
+    wgmma_wait_all();
+    pin(o);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -284,6 +301,21 @@ inline EncodeTiled encoder() {
     if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
   }
   return fn;
+}
+
+// Above 48 KB of dynamic shared memory a launch is refused unless the
+// kernel opts in.  Opts in once on each device (`opted` holds a bit per
+// device, one variable per kernel): the call costs host time next to a
+// kernel of ~0.1 ms.  Returns 0 or the CUDA error.
+inline int opt_in_smem(const void* kernel, size_t bytes, uint32_t& opted) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 32 && ((opted >> dev) & 1u)) return 0;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 32) opted |= 1u << dev;
+  return 0;
 }
 
 // layout: dims (cols, heads, rows, batch) innermost first, byte strides

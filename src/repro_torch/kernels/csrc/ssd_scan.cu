@@ -703,17 +703,9 @@ int launch_bf16(const BfParams& p, const void* x, const void* b, const void* c,
   if (!err) err = encode(&tm_y, p.y, layout + 33, 64);
   if (err) return err;
   constexpr size_t smem = Tile<Q>::BYTES;
-  // above 48 KB the launch is refused unless the kernel opts in, once on
-  // each device (a call costs host time next to a ~0.1 ms kernel)
   static uint32_t opted = 0;   // a bit per device
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 32 || !((opted >> dev) & 1u)) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_fwd_bf16<Q, TA>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < 32) opted |= 1u << dev;
-  }
+  err = opt_in_smem(reinterpret_cast<const void*>(ssd_fwd_bf16<Q, TA>), smem, opted);
+  if (err) return err;
   ssd_fwd_bf16<Q, TA><<<blocks, Tile<Q>::THREADS, smem, stream>>>(tm_x, tm_b, tm_c, tm_y, p);
   return (int)cudaGetLastError();
 }

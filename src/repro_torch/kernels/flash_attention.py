@@ -29,6 +29,10 @@ _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 HEAD_DIMS = (64, 128)
 # the bf16 kernel's tiles (WM, WN in the source): q rows per block, kv rows per stage
 BLOCK_Q = BLOCK_KV = 128
+# the bf16 backward's TMA boxes (ROWS in csrc/flash_attention_bwd.cu): 64
+# rows of q, dO, k and v; its lse / Delta scratch pads S to PAD_ROWS
+BWD_BOX_ROWS = 64
+PAD_ROWS = 128
 # columns of one TMA box: 128 bytes of bf16, the span of the 128-byte swizzle
 BOX_COLS = 64
 
@@ -65,6 +69,27 @@ def tma_layout(shape: tuple[int, int, int, int], stride: tuple[int, int, int, in
     return TmaLayout((d, h, s, b), strides, (BOX_COLS, 1, rows, 1))
 
 
+_LAYOUTS: dict[tuple, ctypes.Array] = {}
+
+
+def layout_array(q_shape, q_stride, k_shape, k_stride, q_rows: int,
+                 kv_rows: int) -> ctypes.Array:
+    """The 22 layout values a bf16 launch takes (q's with boxes of
+    ``q_rows`` rows, then k's with boxes of ``kv_rows``), as a C array.
+    Cached by shapes, strides and rows (at most 256 entries): building the
+    layouts takes tens of microseconds of host time, next to a kernel of
+    ~0.05 ms."""
+    key = (tuple(q_shape), tuple(q_stride), tuple(k_shape), tuple(k_stride), q_rows, kv_rows)
+    arr = _LAYOUTS.get(key)
+    if arr is None:
+        flat = (tma_layout(tuple(q_shape), tuple(q_stride), 2, q_rows).flat()
+                + tma_layout(tuple(k_shape), tuple(k_stride), 2, kv_rows).flat())
+        if len(_LAYOUTS) >= 256:
+            _LAYOUTS.clear()
+        arr = _LAYOUTS[key] = (ctypes.c_longlong * len(flat))(*flat)
+    return arr
+
+
 def _fn():
     fn = build.library("flash_attention").flash_attention_fwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
@@ -76,7 +101,7 @@ def _fn():
 def _bwd_fn():
     fn = build.library("flash_attention_bwd").flash_attention_bwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
     return fn
 
@@ -113,10 +138,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, s, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     layout = None
-    if q.dtype == torch.bfloat16:   # the TMA layouts of q and of k / v, 22 values
-        flat = (tma_layout(q.shape, q.stride(), 2, BLOCK_Q).flat()
-                + tma_layout(k.shape, k.stride(), 2, BLOCK_KV).flat())
-        layout = (ctypes.c_longlong * len(flat))(*flat)
+    if q.dtype == torch.bfloat16:   # the TMA layouts of q and of k / v
+        layout = layout_array(q.shape, q.stride(), k.shape, k.stride(), BLOCK_Q, BLOCK_KV)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
@@ -146,20 +169,30 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"flash_attention_bwd: {name} is {tuple(t.shape)} {t.dtype} on "
                              f"{t.device}, not like q {tuple(q.shape)} {q.dtype} on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention_bwd: {name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {name} must be contiguous and 16-byte "
+                             "aligned")
     if (lse.shape != (b, h, s) or lse.dtype != torch.float32 or lse.device != q.device
             or not lse.is_contiguous()):
         raise ValueError(f"flash_attention_bwd: lse is {tuple(lse.shape)} {lse.dtype} on "
                          f"{lse.device}; expected contiguous ({b}, {h}, {s}) float32 on "
                          f"{q.device}")
+    layout = None
+    if q.dtype == torch.bfloat16:   # the TMA layouts of q (and dO) and of k (and v)
+        layout = layout_array(q.shape, q.stride(), k.shape, k.stride(), BWD_BOX_ROWS,
+                              BWD_BOX_ROWS)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    # Delta and lse in base 2 for the dK/dV kernel, written by the dQ kernel
+    s_pad = -(-s // PAD_ROWS) * PAD_ROWS
+    scratch = torch.empty(2 * b * h * s_pad, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                        delta.data_ptr(), b, s, sk, h, kvh, d, int(causal), int(window),
-                        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+                        scratch.data_ptr(), b, s, sk, h, kvh, d, int(causal), int(window),
+                        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+                        layout)
+    if err < 0:
+        raise RuntimeError(f"flash_attention_bwd: TMA tensor map not encoded (code {err})")
     if err:
         raise RuntimeError(f"flash_attention_bwd: kernel launch failed with CUDA error {err}")
     return dq, dk, dv

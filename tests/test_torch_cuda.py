@@ -43,23 +43,34 @@ def _scaled_err(got, want):
     return ((got.float() - want.float()).abs() / (1 + want.float().abs())).max().item()
 
 
+def _bwd_inputs(dtype, b, s, h, kv, d, seed=3):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(b, s, n, d, generator=gen, device="cuda").to(dtype)
+                   for n in (h, kv, kv, h))
+    return q, k, v, do
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,causal,window,s,d", [
-    (torch.bfloat16, True, 0, 1024, 64), (torch.bfloat16, True, 0, 100, 64),
-    (torch.bfloat16, True, 256, 1024, 64), (torch.bfloat16, False, 0, 1000, 64),
-    (torch.bfloat16, True, 0, 1000, 128), (torch.float32, True, 0, 1000, 64),
-    (torch.float32, True, 24, 200, 128)])
-def test_cuda_flash_backward_matches_autograd_of_plain_version(dtype, causal, window, s, d):
+@pytest.mark.parametrize("dtype,causal,window,s,d,b,h", [
+    (torch.bfloat16, True, 0, 1024, 64, 2, 32), (torch.bfloat16, True, 0, 100, 64, 2, 32),
+    (torch.bfloat16, True, 256, 1024, 64, 2, 32), (torch.bfloat16, False, 0, 1000, 64, 2, 32),
+    (torch.bfloat16, True, 0, 1000, 128, 2, 32), (torch.float32, True, 0, 1000, 64, 2, 32),
+    (torch.float32, True, 24, 200, 128, 2, 32),
+    # the edges of the bf16 tiling: S shorter than one 64-row tile, a GQA
+    # group of one (H = KV = 8), non-causal D 128 with a ragged S, a window
+    # that crosses tiles, B * H = 256 blocks of heads
+    (torch.bfloat16, True, 0, 40, 64, 2, 32), (torch.bfloat16, True, 0, 1024, 64, 2, 8),
+    (torch.bfloat16, False, 0, 1000, 128, 2, 32), (torch.bfloat16, True, 200, 1000, 64, 2, 32),
+    (torch.bfloat16, True, 0, 256, 64, 8, 32)])
+def test_cuda_flash_backward_matches_autograd_of_plain_version(dtype, causal, window, s, d,
+                                                               b, h):
     """The backward kernels against autograd of ``flash_attention_ref`` in
     fp32 on the same values: bf16 5e-2, fp32 2e-3 (max |out - ref| /
     (1 + |ref|), the forward's bf16 P and dS roundings and the bf16 O in
     Delta)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    q, k, v = (torch.randn(2, s, h, d, generator=gen, device="cuda").to(dtype)
-               for h in (32, 8, 8))
-    do = torch.randn(2, s, 32, d, generator=gen, device="cuda").to(dtype)
+    q, k, v, do = _bwd_inputs(dtype, b, s, h, 8, d)
     o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=True)
     dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -70,6 +81,25 @@ def test_cuda_flash_backward_matches_autograd_of_plain_version(dtype, causal, wi
     for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert got.dtype == dtype and got.shape == w.shape
         assert _scaled_err(got, w) <= tol, (name, _scaled_err(got, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,s,window", [(torch.bfloat16, 64, 1000, 0),
+                                              (torch.bfloat16, 128, 1024, 0),
+                                              (torch.bfloat16, 64, 1000, 200),
+                                              (torch.float32, 64, 300, 0)])
+def test_cuda_flash_backward_is_deterministic(dtype, d, s, window):
+    """Two launches on the same inputs give bit-equal dq, dk and dv: each
+    gradient is summed in one block, in a fixed order, with no atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    q, k, v, do = _bwd_inputs(dtype, 2, s, 32, 8, d, seed=6)
+    o, lse = flash_attention_cuda(q, k, v, causal=True, window=window, return_lse=True)
+    first = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=window)
+    second = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=window)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda

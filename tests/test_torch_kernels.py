@@ -16,8 +16,8 @@ import torch
 from repro.kernels import flash_attention as jax_flash
 from repro.kernels.ref import attention_ref as jax_attention_ref
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (BLOCK_KV, BLOCK_Q, flash_attention_cuda,
-                                                 tma_layout)
+from repro_torch.kernels.flash_attention import (BLOCK_KV, BLOCK_Q, BWD_BOX_ROWS,
+                                                 flash_attention_cuda, layout_array, tma_layout)
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.kernels.ref import attention_ref, flash_attention_ref
 
@@ -141,6 +141,29 @@ def test_tma_layout_of_model_tensors(shape, rows, want):
 def test_tma_layout_refuses_what_tma_does_not_take(shape, stride, match):
     with pytest.raises(ValueError, match=match):
         tma_layout(shape, stride, 2, BLOCK_Q)
+
+
+@pytest.mark.parametrize("q_rows,kv_rows", [(BLOCK_Q, BLOCK_KV), (BWD_BOX_ROWS, BWD_BOX_ROWS)],
+                         ids=["forward", "backward"])
+def test_layout_array_is_cached_by_shapes_and_strides(q_rows, kv_rows):
+    """Each launcher's C array of TMA layouts is built once for a shape and
+    stride pair, rebuilt for another, and holds tma_layout's values."""
+    def arr(q_shape, k_shape, q_stride=None):
+        return layout_array(q_shape, q_stride or _contiguous(q_shape), k_shape,
+                            _contiguous(k_shape), q_rows, kv_rows)
+
+    q_shape, k_shape = (4, 1024, 32, 64), (4, 1024, 8, 64)
+    first = arr(q_shape, k_shape)
+    assert arr(q_shape, k_shape) is first
+    want = (tma_layout(q_shape, _contiguous(q_shape), 2, q_rows).flat()
+            + tma_layout(k_shape, _contiguous(k_shape), 2, kv_rows).flat())
+    assert list(first) == list(want)
+    # another length, and the same shape stored (S, H, B, D): new arrays
+    ragged = arr((2, 100, 32, 64), (2, 100, 8, 64))
+    assert ragged is not first and list(ragged)[2] == 100
+    strided = arr(q_shape, k_shape, q_stride=(64, 32 * 64 * 4, 64 * 4, 1))
+    assert strided is not first and list(strided)[4:7] == [2 * 64 * 4, 2 * 32 * 64 * 4, 128]
+    assert arr(q_shape, k_shape) is first
 
 
 def test_build_is_keyed_by_sources():

@@ -2,6 +2,7 @@
 """Time the port's kernels of several checkouts in turns on one GPU.
 
     python3 tools/flash_ab.py SRC [SRC ...] [--shapes granite,s2048,d128] [--rounds 2]
+    python3 tools/flash_ab.py SRC [SRC ...] --shapes granite_bwd,s2048_bwd,d128_bwd
     python3 tools/flash_ab.py SRC [SRC ...] --shapes mamba2,mamba2_l2048,model_views
 
 Each SRC is the ``src`` directory of a checkout of this repository.  All
@@ -11,11 +12,14 @@ names), in the order given and then reversed, so two versions run as
 A B B A.  A run times each shape's kernel with CUDA events on bf16
 inputs made from a seed: ``repro_torch.kernels.ops.flash_attention``
 (causal) beside one ``scaled_dot_product_attention`` call on the same
-inputs, or ``repro_torch.kernels.ops.ssd_scan`` (no PyTorch call
-computes the SSD scan).  It reports the kernel's max |out - ref| /
-(1 + |ref|) against its checkout's plain version (``flash_attention_ref``
-or ``ssd_ref``).  Prints one JSON line per run, then the median of each
-number per checkout and shape.  Needs a CUDA device.
+inputs; the backward launcher ``flash_attention_bwd_cuda`` from the
+forward's (o, lse) beside SDPA's backward (``*_bwd`` shapes); or
+``repro_torch.kernels.ops.ssd_scan`` (no PyTorch call computes the SSD
+scan).  It reports the kernel's max |out - ref| / (1 + |ref|) against
+its checkout's plain version (``flash_attention_ref``, for the backward
+autograd of it in fp32, or ``ssd_ref``).  Prints one JSON line per run,
+then the median of each number per checkout and shape.  Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -31,6 +35,11 @@ SHAPES = {  # flash: (B, S, H, KV, D, window): granite-3-2b's prefill, a
     "s2048": ("flash", (4, 2048, 32, 8, 64, 0)),
     "d128": ("flash", (4, 1024, 32, 8, 128, 0)),
     "window256": ("flash", (4, 1024, 32, 8, 64, 256)),
+    # the same shapes through the backward: granite-3-2b's train step first
+    "granite_bwd": ("flash_bwd", (4, 1024, 32, 8, 64, 0)),
+    "s2048_bwd": ("flash_bwd", (4, 2048, 32, 8, 64, 0)),
+    "d128_bwd": ("flash_bwd", (4, 1024, 32, 8, 128, 0)),
+    "window256_bwd": ("flash_bwd", (4, 1024, 32, 8, 64, 256)),
     # ssd: (B, L, H, chunk, views): mamba2-780m's prefill (P 64, N 128), a
     # longer prompt, and x, B, C as views of one conv output as the model
     # passes them
@@ -57,6 +66,15 @@ def scaled_err(out, ref) -> float:
     return ((out.float() - ref.float()).abs() / (1 + ref.float().abs())).max().item()
 
 
+def _sdpa_kw(s: int, window: int) -> dict:
+    import torch
+    if not window:
+        return {"is_causal": True, "enable_gqa": True}
+    pos = torch.arange(s, device="cuda")
+    return {"attn_mask": (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window),
+            "enable_gqa": True}
+
+
 def time_flash(gen, b, s, h, kv, d, window) -> dict:
     import torch
     import torch.nn.functional as F
@@ -68,14 +86,33 @@ def time_flash(gen, b, s, h, kv, d, window) -> dict:
     got = flash_attention(q, k, v, causal=True, window=window)
     err = scaled_err(got, flash_attention_ref(q, k, v, causal=True, window=window))
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    lib_kw = {"is_causal": True}
-    if window:
-        pos = torch.arange(s, device="cuda")
-        lib_kw = {"attn_mask": (pos[None, :] <= pos[:, None])
-                  & (pos[None, :] > pos[:, None] - window)}
     return {"ms": cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window)),
             "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, enable_gqa=True, **lib_kw)),
+                qt, kt, vt, **_sdpa_kw(s, window))),
+            "max_scaled_err": err}
+
+
+def time_flash_bwd(gen, b, s, h, kv, d, window) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    q, k, v, do = (torch.randn(b, s, n, d, generator=gen, device="cuda").bfloat16()
+                   for n in (h, kv, kv, h))
+    kw = {"causal": True, "window": window}
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(flash_attention_ref(*leaves, **kw), leaves, do.float())
+    err = max(scaled_err(g, r) for g, r in zip(grads, ref))
+    del leaves, ref
+    lib_leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_leaves, **_sdpa_kw(s, window))
+    do_t = do.transpose(1, 2)
+    return {"ms": cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)),
+            "sdpa_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, do_t,
+                                                           retain_graph=True)),
             "max_scaled_err": err}
 
 
@@ -109,7 +146,8 @@ def worker(src: str, shapes: list[str], seed: int) -> dict:
     out = {"src": src}
     for name in shapes:
         kind, args = SHAPES[name]
-        out[name] = (time_flash if kind == "flash" else time_ssd)(gen, *args)
+        timer = {"flash": time_flash, "flash_bwd": time_flash_bwd, "ssd": time_ssd}[kind]
+        out[name] = timer(gen, *args)
     return out
 
 
