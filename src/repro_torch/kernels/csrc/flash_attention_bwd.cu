@@ -26,9 +26,7 @@
 // seven (each kernel recomputes q k and dO v), the price of no atomics.
 //
 // What the bf16 design does about it (FlashAttention-3's backward, without
-// its dQ atomics).  For now only the dK/dV kernel has it: the dQ kernel is
-// still the first design's (mma.sync, K staged a second time transposed,
-// synchronous loads):
+// its dQ atomics):
 //  * Every product on wgmma, no transposed copy.  The dK/dV kernel forms
 //    S^T = K Q^T and dP^T = V dO^T with K, V, Q and dO K-major as TMA
 //    writes them; the S^T accumulator's layout is the A-fragment layout,
@@ -132,219 +130,168 @@ __device__ __forceinline__ void store_rows(bf16* base, size_t stride, int row0, 
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ: mma.sync, 4 warps x 16 rows
+// bf16 dQ: wgmma, TMA, two consumer warpgroups of 64 q rows
 // ---------------------------------------------------------------------------
-constexpr int BM = 64;    // mma.sync dq: q rows of a block
-constexpr int BN = 64;    // mma.sync dq: kv rows of a tile
-constexpr int NT = 128;   // mma.sync dq: 4 warps of 16 rows
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows [r0, r0 + ROWS) of one head of a (B, L, heads, D) tensor (base at
-// that head, `stride` elements between positions) into a [ROWS][D + 8]
-// tile; rows past L are zero
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* base, size_t stride, int r0,
-                                          int L) {
-  constexpr int CH = D / 8, DP = D + 8;
-  for (int c = threadIdx.x; c < ROWS * CH; c += blockDim.x) {
-    const int r = c / CH, cc = c % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < L) val = *reinterpret_cast<const uint4*>(base + (size_t)(r0 + r) * stride + cc * 8);
-    *reinterpret_cast<uint4*>(dst + r * DP + cc * 8) = val;
-  }
-}
-
-// the same rows transposed into a [D][ROWS + 8] tile
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows_t(bf16* dst, const bf16* base, size_t stride, int r0,
-                                            int L) {
-  constexpr int CH = D / 8, NP = ROWS + 8;
-  for (int c = threadIdx.x; c < ROWS * CH; c += blockDim.x) {
-    const int r = c % ROWS, cc = c / ROWS;   // lanes walk rows: conflict-free stores
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < L) val = *reinterpret_cast<const uint4*>(base + (size_t)(r0 + r) * stride + cc * 8);
-    const uint32_t w[4] = {val.x, val.y, val.z, val.w};
-    uint16_t* col = reinterpret_cast<uint16_t*>(dst) + (cc * 8) * NP + r;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      col[i * NP] = static_cast<uint16_t>((i & 1) ? (w[i / 2] >> 16) : (w[i / 2] & 0xffffu));
-  }
-}
-
-// the A fragment of k-step kk from rows r0, r0 + 8 of a [rows][P] tile
-template <int P>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* tile, int r0, int kk, int t4) {
-  const bf16* x = tile + r0 * P + kk * 16 + t4 * 2;
-  a[0] = ld32(x);
-  a[1] = ld32(x + 8 * P);
-  a[2] = ld32(x + 8);
-  a[3] = ld32(x + 8 * P + 8);
-}
-
-// c[nt] = A (the warp's 16 rows of `a`, K = D) times B^T (rows nt*8.. of `bt`)
-template <int D, int NCOL>
-__device__ __forceinline__ void product_abt(float (&c)[NCOL / 8][4], const bf16* a, int r0,
-                                            const bf16* bt, int g, int t4) {
-  constexpr int DP = D + 8;
-#pragma unroll
-  for (int nt = 0; nt < NCOL / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    frag_a<DP>(af, a, r0, kk, t4);
-#pragma unroll
-    for (int nt = 0; nt < NCOL / 8; ++nt) {
-      const bf16* y = bt + (nt * 8 + g) * DP + kk * 16 + t4 * 2;
-      mma_bf16(c[nt], af, ld32(y), ld32(y + 8));
-    }
-  }
-}
-
-// acc[dt] += A (packed 16 x K fragments) times the [D][K + 8] transposed tile
-template <int D, int K>
-__device__ __forceinline__ void product_at(float (&acc)[D / 8][4], const uint32_t (&af)[K / 16][4],
-                                           const bf16* t, int g, int t4) {
-  constexpr int KP = K + 8;
-#pragma unroll
-  for (int j = 0; j < K / 16; ++j)
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const bf16* y = t + (dt * 8 + g) * KP + j * 16 + t4 * 2;
-      mma_bf16(acc[dt], af[j], ld32(y), ld32(y + 8));
-    }
-}
-
-// the accumulator rows r, r + 8 of a (B, L, heads, D) tensor, times `scale`
+// Shared memory: Q and dO (128 rows each), then STAGES K tiles and STAGES
+// V tiles (64 rows each; D / 64 boxes of rows x 128 bytes), the mbarriers.
 template <int D>
-__device__ __forceinline__ void store_rows_mma(bf16* base, size_t stride, int row0, int L,
-                                           const float (&acc)[D / 8][4], float scale, int t4) {
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + t4 * 2;
-    if (row0 < L)
-      *reinterpret_cast<__nv_bfloat162*>(base + (size_t)row0 * stride + col) =
-          __floats2bfloat162_rn(acc[dt][0] * scale, acc[dt][1] * scale);
-    if (row0 + 8 < L)
-      *reinterpret_cast<__nv_bfloat162*>(base + (size_t)(row0 + 8) * stride + col) =
-          __floats2bfloat162_rn(acc[dt][2] * scale, acc[dt][3] * scale);
-  }
-}
-
-template <int D>
-struct BwdSmem {
-  static constexpr int DP = D + 8;
-  // dq: Q, dO, K, V as [64][DP], K^T as [D][BN + 8]
-  static constexpr size_t DQ = (size_t)(4 * 64 * DP + D * (BN + 8)) * sizeof(bf16);
+struct DqSmem {
+  static constexpr int STAGES = 2;
+  static constexpr uint32_t Q_BYTES = 2 * ROWS * D * 2;
+  static constexpr uint32_t KV_BYTES = ROWS * D * 2;
+  static constexpr size_t BYTES =
+      1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES);   // 1024: alignment
 };
 
-// ---------------------------------------------------------------------------
-// bf16: mma.sync, 4 warps x 16 rows
-// ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_bf16(Params p) {
-  constexpr int DP = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);   // [BM][DP]
-  bf16* sdO = sQ + BM * DP;                     // [BM][DP]
-  bf16* sK = sdO + BM * DP;                     // [BN][DP]
-  bf16* sV = sK + BN * DP;                      // [BN][DP]
-  bf16* sKt = sV + BN * DP;                     // [D][BN + 8]
+__global__ void __launch_bounds__(256, 1)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, Params p) {
+  using L = DqSmem<D>;
+  constexpr int STAGES = L::STAGES;
+  constexpr int BOXES = D / BOX;
+  constexpr int QB = 2 * ROWS;   // q rows of the block
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* sdO = sQ + L::Q_BYTES;
+  unsigned char* sK = sdO + L::Q_BYTES;
+  unsigned char* sV = sK + STAGES * L::KV_BYTES;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + STAGES * L::KV_BYTES);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + STAGES;
 
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int kvh = h / (p.H / p.KV);
-  const int q0 = blockIdx.x * BM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const size_t q_stride = (size_t)p.H * D, kv_stride = (size_t)p.KV * D;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int kvh = h / (p.H / p.KV);
+  // causal: the first blocks take the last q tiles, which have the most kv tiles
+  const int qt = p.causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y) : blockIdx.y;
+  const int q0 = qt * QB;
+  int lo, hi;
+  kv_range(p, q0, QB, lo, hi);
+  const int t_lo = lo / ROWS;
+  const int n = hi > lo ? (hi + ROWS - 1) / ROWS - t_lo : 0;   // kv tiles with a visible key
+
+  auto load_kv = [&](int j) {   // kv tile t_lo + j into stage j % STAGES
+    const int s = j % STAGES, k0 = (t_lo + j) * ROWS;
+    mbar_expect_tx(&full[s], 2 * L::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < BOXES; ++c) {
+      tma_load(sK + s * L::KV_BYTES + c * ROWS * ROW, &tm_k, &full[s], c * BOX, kvh, k0, b);
+      tma_load(sV + s * L::KV_BYTES + c * ROWS * ROW, &tm_v, &full[s], c * BOX, kvh, k0, b);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], blockDim.x);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && n > 0) {
+    mbar_expect_tx(bar_q, 2 * L::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < BOXES; ++c)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t at = c * QB * ROW + r * ROWS * ROW;
+        tma_load(sQ + at, &tm_q, bar_q, c * BOX, h, q0 + r * ROWS, b);
+        tma_load(sdO + at, &tm_do, bar_q, c * BOX, h, q0 + r * ROWS, b);
+      }
+    for (int j = 0; j < min(STAGES, n); ++j) load_kv(j);
+  }
+
+  // Delta = rowsum(dO * O) and lse in base 2 of the warp's 16 rows, kept
+  // for this thread's rows and stored (0 past S) for the dK/dV kernel
+  const size_t q_stride = (size_t)p.H * D;
   const size_t q_off = ((size_t)b * p.S * p.H + h) * D;
-  const size_t kv_off = ((size_t)b * p.Sk * p.KV + kvh) * D;
-  const bf16* qb = static_cast<const bf16*>(p.q) + q_off;
   const bf16* ob = static_cast<const bf16*>(p.o) + q_off;
   const bf16* dob = static_cast<const bf16*>(p.dout) + q_off;
-  const bf16* kb = static_cast<const bf16*>(p.k) + kv_off;
-  const bf16* vb = static_cast<const bf16*>(p.v) + kv_off;
-  const size_t row_off = ((size_t)b * p.H + h) * p.S;   // into lse
-  const size_t pad_off = ((size_t)b * p.H + h) * p.s_pad;   // into delta and lse2
-
-  load_rows<D, BM>(sQ, qb, q_stride, q0, p.S);
-  load_rows<D, BM>(sdO, dob, q_stride, q0, p.S);
-
-  // Delta of the warp's 16 rows: lanes split the row, then a warp sum
-  const int r0 = warp * 16 + g;               // this thread's rows in the tile: r0, r0 + 8
-  const int row0 = q0 + r0, row1 = row0 + 8;
-  float d0 = 0.f, d1 = 0.f;
+  const size_t pad_off = ((size_t)b * p.H + h) * p.s_pad;
+  const int wq0 = q0 + wg * ROWS;   // the warpgroup's first q row
+  const int row0 = wq0 + warp * 16 + g, row1 = row0 + 8;
+  float d0 = 0.f, d1 = 0.f, l0 = 0.f, l1 = 0.f;
   for (int r = 0; r < 16; ++r) {
-    const int row = q0 + warp * 16 + r;
-    float acc = 0.f;
-    if (row < p.S)
-      for (int d = lane; d < D; d += 32)
-        acc += __bfloat162float(ob[(size_t)row * q_stride + d]) *
-               __bfloat162float(dob[(size_t)row * q_stride + d]);
+    const int row = wq0 + warp * 16 + r;
+    float acc = 0.f, l2 = 0.f;
+    if (row < p.S) {
+#pragma unroll
+      for (int c = 2 * lane; c < D; c += 64) {
+        const float2 x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(ob + (size_t)row * q_stride + c));
+        const float2 y = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(dob + (size_t)row * q_stride + c));
+        acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
+      }
+      l2 = p.lse[((size_t)b * p.H + h) * p.S + row] * LOG2E;
+    }
     acc = warp_sum(acc);
     if (lane == 0) {
       p.delta[pad_off + row] = acc;
-      p.lse2[pad_off + row] = row < p.S ? p.lse[row_off + row] * LOG2E : 0.f;
+      p.lse2[pad_off + row] = l2;
     }
-    if (r == g) d0 = acc;
-    if (r == g + 8) d1 = acc;
+    if (r == g) d0 = acc, l0 = l2;
+    if (r == g + 8) d1 = acc, l1 = l2;
   }
-  const float l0 = row0 < p.S ? p.lse[row_off + row0] * LOG2E : 0.f;
-  const float l1 = row1 < p.S ? p.lse[row_off + row1] * LOG2E : 0.f;
+
+  int wlo, whi;                     // kv rows the warpgroup's q rows see
+  kv_range(p, wq0, ROWS, wlo, whi);
+  const bool live = wq0 < p.S;
+  const uint32_t q_smem = smem_u32(sQ) + wg * ROWS * ROW;
+  const uint32_t do_smem = smem_u32(sdO) + wg * ROWS * ROW;
   const float sl = p.scale_log2;
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  if (n > 0) mbar_wait(bar_q, 0);
 
-  float dq[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[dt][e] = 0.f;
-
-  int lo, hi;
-  kv_range(p, q0, BM, lo, hi);
-  for (int k0 = (lo / BN) * BN; k0 < hi; k0 += BN) {
-    __syncthreads();   // the previous tile is consumed (and Q, dO are written)
-    load_rows<D, BN>(sK, kb, kv_stride, k0, p.Sk);
-    load_rows<D, BN>(sV, vb, kv_stride, k0, p.Sk);
-    load_rows_t<D, BN>(sKt, kb, kv_stride, k0, p.Sk);
-    __syncthreads();
-
-    float s[BN / 8][4], dp[BN / 8][4];
-    product_abt<D, BN>(s, sQ, r0, sK, g, t4);     // S = Q K^T
-    product_abt<D, BN>(dp, sdO, r0, sV, g, t4);   // dP = dO V^T
-    // dS as the A operand of dS K: 8-column blocks 2j and 2j+1 form k-step j
-    uint32_t dsf[BN / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + nt * 8 + t4 * 2 + (e & 1);
-        const bool top = e < 2;
-        const float pe = visible(p, top ? row0 : row1, kpos)
-                             ? exp2f(fmaf(s[nt][e], sl, -(top ? l0 : l1))) : 0.f;
-        ds[e] = pe * (dp[nt][e] - (top ? d0 : d1));
-      }
-      dsf[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      dsf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES;
+    if (tid == 0 && i > 0 && i + STAGES - 1 < n) {
+      // the next tile goes where tile i - 1 was: wait until every thread is done with it
+      const int j = i + STAGES - 1;
+      mbar_wait(&empty[j % STAGES], ((j / STAGES) & 1) ^ 1);
+      load_kv(j);
     }
-    product_at<D, BN>(dq, dsf, sKt, g, t4);      // dQ += dS K
+    __syncwarp();
+    const int k0 = (t_lo + i) * ROWS;
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    if (live && k0 < whi && k0 + ROWS > wlo) {
+      const uint32_t k_s = smem_u32(sK + s * L::KV_BYTES);
+      const uint32_t v_s = smem_u32(sV + s * L::KV_BYTES);
+      float sc[32], dp[32];   // S, dP: 64 q rows x 64 kv columns
+      qk_product<D, QB, ROWS, 32, false>(sc, q_smem, k_s);
+      qk_product<D, QB, ROWS, 32, false>(dp, do_smem, v_s);
+      wgmma_wait_all();
+      pin(sc);
+      pin(dp);
+      const bool edge = k0 + ROWS > p.Sk || (p.causal && k0 + ROWS - 1 > wq0) ||
+                        (p.window && k0 <= wq0 + ROWS - 1 - p.window);
+      // dS as the A operand of dS K: 8-column blocks 2j and 2j+1 form k-step j
+      uint32_t dsf[ROWS / 16][4];
+#pragma unroll
+      for (int nb = 0; nb < ROWS / 8; ++nb) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool top = e < 2;
+          const float pe = ex2(fmaf(sc[4 * nb + e], sl, -(top ? l0 : l1)));
+          ds[e] = pe * (dp[4 * nb + e] - (top ? d0 : d1));
+          if (edge && !visible(p, top ? row0 : row1, k0 + nb * 8 + 2 * t4 + (e & 1))) ds[e] = 0.f;
+        }
+        dsf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+        dsf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      pv_product<D, ROWS>(dq, dsf, k_s);   // dQ += dS K, K read MN-major
+    }
+    mbar_arrive(&empty[s]);
   }
-  store_rows_mma<D>(static_cast<bf16*>(p.dq) + q_off, q_stride, row0, p.S, dq, p.scale, t4);
+  store_rows<D>(static_cast<bf16*>(p.dq) + q_off, q_stride, row0, p.S, dq, p.scale, t4);
 }
 
 // ---------------------------------------------------------------------------
@@ -665,13 +612,14 @@ int launch_bf16(const Params& p, const long long* layout, cudaStream_t stream) {
   if (!err) err = encode(&tm_v, p.v, layout + 11, ROWS);
   if (err) return err;
   static uint32_t opted_dq = 0, opted_dkdv = 0;   // a bit per device
-  err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dq_bf16<D>), BwdSmem<D>::DQ,
+  err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dq_bf16<D>), DqSmem<D>::BYTES,
                     opted_dq);
   if (!err)
     err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_bf16<D>), DkdvSmem<D>::BYTES,
                       opted_dkdv);
   if (err) return err;
-  flash_bwd_dq_bf16<D><<<dim3((p.S + BM - 1) / BM, p.B * p.H), NT, BwdSmem<D>::DQ, stream>>>(p);
+  flash_bwd_dq_bf16<D><<<dim3(p.B * p.H, (p.S + 2 * ROWS - 1) / (2 * ROWS)), 256,
+                         DqSmem<D>::BYTES, stream>>>(tm_q, tm_do, tm_k, tm_v, p);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   flash_bwd_dkdv_bf16<D><<<dim3(p.B * p.KV, (p.Sk + 2 * ROWS - 1) / (2 * ROWS)), 256,
