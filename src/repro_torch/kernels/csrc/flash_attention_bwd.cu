@@ -36,18 +36,26 @@
 //    tile MN-major.  P and dS are rounded to bf16 as product operands, as
 //    the forward rounds P; gradients accumulate in fp32 registers and are
 //    written once in the inputs' dtype.
-//  * A block is two consumer warpgroups of 64 rows: 128 kv rows (dK/dV)
-//    or 128 q rows (dQ) stay in shared memory; the other side streams
-//    through a ring of 64-row stages by TMA (128-byte swizzle, 64-column
-//    boxes), with a "full" mbarrier per stage counting the TMA's bytes and
-//    an "empty" one taking every thread's arrival.  One elected thread
-//    keeps the ring STAGES - 1 tiles ahead.  The dK/dV stage also brings
-//    the q tile's lse and Delta (a 256-byte bulk copy each from a scratch
-//    padded to 128 rows, which the dQ kernel writes).
+//  * A block is one warpgroup: its 64 kv rows (dK/dV) or 64 q rows (dQ)
+//    stay in shared memory, and the other side streams through a ring of
+//    64-row stages by TMA (128-byte swizzle, 64-column boxes), with a
+//    "full" mbarrier per stage counting the TMA's bytes and an "empty"
+//    one taking every thread's arrival; one elected thread keeps the ring
+//    STAGES - 1 tiles ahead.  The dK/dV stage also brings the q tile's lse
+//    and Delta (a 256-byte bulk copy each from a scratch padded to 128
+//    rows, which the dQ kernel writes).  Within a tile, exp2 of S runs
+//    while dP is in flight, and the dV product while dS is formed; the
+//    dK/dV kernel also issues a tile's S^T and dP^T while the previous
+//    tile's dV and dK products finish.
+//  * Registers decide occupancy, as in the forward: the dQ kernel keeps to
+//    128 at D 64, so four blocks share an SM, the dK/dV kernel (dK, dV,
+//    S^T and dP^T in registers) two.  Measured slower: two warpgroups a
+//    block, which the producer's wait on the ring ties to each other's
+//    pace, and deeper rings.
 //  * TMA zero-fills rows past S or Sk, so ragged lengths need no padding
 //    copy.  Masks are tested on edge tiles only (the causal diagonal, the
-//    window's ends, the ragged ends); tiles a warpgroup does not see are
-//    not computed, and tiles the block does not see are not loaded.
+//    window's ends, the ragged ends); tiles with no visible pair are
+//    neither loaded nor computed.
 //  * Heaviest blocks first: under the causal mask the first kv tiles
 //    (dK/dV) and the last q tiles (dQ) run longest, and launch first.
 //  * GQA by index through the tensor maps: no copy of K or V.
@@ -130,21 +138,22 @@ __device__ __forceinline__ void store_rows(bf16* base, size_t stride, int row0, 
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ: wgmma, TMA, two consumer warpgroups of 64 q rows
+// bf16 dQ: wgmma, TMA, one warpgroup of 64 q rows
 // ---------------------------------------------------------------------------
-// Shared memory: Q and dO (128 rows each), then STAGES K tiles and STAGES
-// V tiles (64 rows each; D / 64 boxes of rows x 128 bytes), the mbarriers.
+// Shared memory: Q and dO, then STAGES K tiles and STAGES V tiles (64 rows
+// each: D / 64 boxes of 64 rows x 128 bytes), the mbarriers.  At D 64 the
+// kernel keeps to 128 registers, so four blocks share an SM.
 template <int D>
 struct DqSmem {
   static constexpr int STAGES = 2;
-  static constexpr uint32_t Q_BYTES = 2 * ROWS * D * 2;
-  static constexpr uint32_t KV_BYTES = ROWS * D * 2;
+  static constexpr int BLOCKS_PER_SM = D == 64 ? 4 : 2;
+  static constexpr uint32_t TILE_BYTES = ROWS * D * 2;
   static constexpr size_t BYTES =
-      1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES);   // 1024: alignment
+      1024 + 2 * (1 + STAGES) * TILE_BYTES + 8 * (1 + 2 * STAGES);   // 1024: alignment
 };
 
 template <int D>
-__global__ void __launch_bounds__(256, 1)
+__global__ void __launch_bounds__(128, DqSmem<D>::BLOCKS_PER_SM)
     flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_do,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -152,35 +161,35 @@ __global__ void __launch_bounds__(256, 1)
   using L = DqSmem<D>;
   constexpr int STAGES = L::STAGES;
   constexpr int BOXES = D / BOX;
-  constexpr int QB = 2 * ROWS;   // q rows of the block
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  unsigned char* sdO = sQ + L::Q_BYTES;
-  unsigned char* sK = sdO + L::Q_BYTES;
-  unsigned char* sV = sK + STAGES * L::KV_BYTES;
-  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + STAGES * L::KV_BYTES);
+  unsigned char* sdO = sQ + L::TILE_BYTES;
+  unsigned char* sK = sdO + L::TILE_BYTES;
+  unsigned char* sV = sK + STAGES * L::TILE_BYTES;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + STAGES * L::TILE_BYTES);
   uint64_t* full = bar_q + 1;
   uint64_t* empty = full + STAGES;
 
-  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;   // accumulator row group / column pair
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int kvh = h / (p.H / p.KV);
   // causal: the first blocks take the last q tiles, which have the most kv tiles
   const int qt = p.causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y) : blockIdx.y;
-  const int q0 = qt * QB;
+  const int q0 = qt * ROWS;
   int lo, hi;
-  kv_range(p, q0, QB, lo, hi);
+  kv_range(p, q0, ROWS, lo, hi);
   const int t_lo = lo / ROWS;
   const int n = hi > lo ? (hi + ROWS - 1) / ROWS - t_lo : 0;   // kv tiles with a visible key
 
   auto load_kv = [&](int j) {   // kv tile t_lo + j into stage j % STAGES
     const int s = j % STAGES, k0 = (t_lo + j) * ROWS;
-    mbar_expect_tx(&full[s], 2 * L::KV_BYTES);
+    mbar_expect_tx(&full[s], 2 * L::TILE_BYTES);
 #pragma unroll
     for (int c = 0; c < BOXES; ++c) {
-      tma_load(sK + s * L::KV_BYTES + c * ROWS * ROW, &tm_k, &full[s], c * BOX, kvh, k0, b);
-      tma_load(sV + s * L::KV_BYTES + c * ROWS * ROW, &tm_v, &full[s], c * BOX, kvh, k0, b);
+      const uint32_t at = s * L::TILE_BYTES + c * ROWS * ROW;
+      tma_load(sK + at, &tm_k, &full[s], c * BOX, kvh, k0, b);
+      tma_load(sV + at, &tm_v, &full[s], c * BOX, kvh, k0, b);
     }
   };
 
@@ -194,15 +203,12 @@ __global__ void __launch_bounds__(256, 1)
   }
   __syncthreads();
   if (tid == 0 && n > 0) {
-    mbar_expect_tx(bar_q, 2 * L::Q_BYTES);
+    mbar_expect_tx(bar_q, 2 * L::TILE_BYTES);
 #pragma unroll
-    for (int c = 0; c < BOXES; ++c)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const uint32_t at = c * QB * ROW + r * ROWS * ROW;
-        tma_load(sQ + at, &tm_q, bar_q, c * BOX, h, q0 + r * ROWS, b);
-        tma_load(sdO + at, &tm_do, bar_q, c * BOX, h, q0 + r * ROWS, b);
-      }
+    for (int c = 0; c < BOXES; ++c) {
+      tma_load(sQ + c * ROWS * ROW, &tm_q, bar_q, c * BOX, h, q0, b);
+      tma_load(sdO + c * ROWS * ROW, &tm_do, bar_q, c * BOX, h, q0, b);
+    }
     for (int j = 0; j < min(STAGES, n); ++j) load_kv(j);
   }
 
@@ -213,11 +219,10 @@ __global__ void __launch_bounds__(256, 1)
   const bf16* ob = static_cast<const bf16*>(p.o) + q_off;
   const bf16* dob = static_cast<const bf16*>(p.dout) + q_off;
   const size_t pad_off = ((size_t)b * p.H + h) * p.s_pad;
-  const int wq0 = q0 + wg * ROWS;   // the warpgroup's first q row
-  const int row0 = wq0 + warp * 16 + g, row1 = row0 + 8;
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
   float d0 = 0.f, d1 = 0.f, l0 = 0.f, l1 = 0.f;
   for (int r = 0; r < 16; ++r) {
-    const int row = wq0 + warp * 16 + r;
+    const int row = q0 + warp * 16 + r;
     float acc = 0.f, l2 = 0.f;
     if (row < p.S) {
 #pragma unroll
@@ -239,11 +244,7 @@ __global__ void __launch_bounds__(256, 1)
     if (r == g + 8) d1 = acc, l1 = l2;
   }
 
-  int wlo, whi;                     // kv rows the warpgroup's q rows see
-  kv_range(p, wq0, ROWS, wlo, whi);
-  const bool live = wq0 < p.S;
-  const uint32_t q_smem = smem_u32(sQ) + wg * ROWS * ROW;
-  const uint32_t do_smem = smem_u32(sdO) + wg * ROWS * ROW;
+  const uint32_t q_smem = smem_u32(sQ), do_smem = smem_u32(sdO);
   const float sl = p.scale_log2;
   float dq[D / 2];
 #pragma unroll
@@ -260,59 +261,61 @@ __global__ void __launch_bounds__(256, 1)
     }
     __syncwarp();
     const int k0 = (t_lo + i) * ROWS;
+    const uint32_t k_s = smem_u32(sK + s * L::TILE_BYTES);
+    const uint32_t v_s = smem_u32(sV + s * L::TILE_BYTES);
     mbar_wait(&full[s], (i / STAGES) & 1);
-    if (live && k0 < whi && k0 + ROWS > wlo) {
-      const uint32_t k_s = smem_u32(sK + s * L::KV_BYTES);
-      const uint32_t v_s = smem_u32(sV + s * L::KV_BYTES);
-      float sc[32], dp[32];   // S, dP: 64 q rows x 64 kv columns
-      qk_product<D, QB, ROWS, 32, false>(sc, q_smem, k_s);
-      qk_product<D, QB, ROWS, 32, false>(dp, do_smem, v_s);
-      wgmma_wait_all();
-      pin(sc);
-      pin(dp);
-      const bool edge = k0 + ROWS > p.Sk || (p.causal && k0 + ROWS - 1 > wq0) ||
-                        (p.window && k0 <= wq0 + ROWS - 1 - p.window);
-      // dS as the A operand of dS K: 8-column blocks 2j and 2j+1 form k-step j
-      uint32_t dsf[ROWS / 16][4];
+    float sc[32], dp[32];   // S, dP: 64 q rows x 64 kv columns
+    qk_product<D, ROWS, ROWS, 32, false>(sc, q_smem, k_s);
+    qk_product<D, ROWS, ROWS, 32, false>(dp, do_smem, v_s);
+    // test the mask only where a pair of the tile is masked
+    const bool edge = k0 + ROWS > p.Sk || (p.causal && k0 + ROWS - 1 > q0) ||
+                      (p.window && k0 <= q0 + ROWS - 1 - p.window);
+    wgmma_wait<1>();   // S is done; dP may still run
+    pin(sc);
 #pragma unroll
-      for (int nb = 0; nb < ROWS / 8; ++nb) {
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool top = e < 2;
-          const float pe = ex2(fmaf(sc[4 * nb + e], sl, -(top ? l0 : l1)));
-          ds[e] = pe * (dp[4 * nb + e] - (top ? d0 : d1));
-          if (edge && !visible(p, top ? row0 : row1, k0 + nb * 8 + 2 * t4 + (e & 1))) ds[e] = 0.f;
-        }
-        dsf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-        dsf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-      }
-      pv_product<D, ROWS>(dq, dsf, k_s);   // dQ += dS K, K read MN-major
+    for (int e = 0; e < 32; ++e) {   // P, in place of S
+      const bool top = (e & 2) == 0;
+      sc[e] = ex2(fmaf(sc[e], sl, -(top ? l0 : l1)));
+      if (edge && !visible(p, top ? row0 : row1, k0 + (e / 4) * 8 + 2 * t4 + (e & 1)))
+        sc[e] = 0.f;
     }
+    wgmma_wait<0>();
+    pin(dp);
+    // dS as the A operand of dS K: 8-column blocks 2j and 2j+1 form k-step j
+    uint32_t dsf[ROWS / 16][4];
+#pragma unroll
+    for (int nb = 0; nb < ROWS / 8; ++nb) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[e] = sc[4 * nb + e] * (dp[4 * nb + e] - (e < 2 ? d0 : d1));
+      dsf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+      dsf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    pv_product<D, ROWS>(dq, dsf, k_s);   // dQ += dS K, K read MN-major
     mbar_arrive(&empty[s]);
   }
   store_rows<D>(static_cast<bf16*>(p.dq) + q_off, q_stride, row0, p.S, dq, p.scale, t4);
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dK/dV: wgmma, TMA, two consumer warpgroups of 64 kv rows
+// bf16 dK/dV: wgmma, TMA, one warpgroup of 64 kv rows
 // ---------------------------------------------------------------------------
-// Shared memory: K and V (128 rows each), then STAGES Q tiles, STAGES dO
-// tiles (64 rows each; D / 64 boxes of rows x 128 bytes), the stages' lse
-// and Delta, the mbarriers.
+// Shared memory: K and V, then STAGES Q tiles and STAGES dO tiles (64 rows
+// each: D / 64 boxes of 64 rows x 128 bytes), the stages' lse and Delta,
+// the mbarriers.  Two blocks share an SM.
 template <int D>
 struct DkdvSmem {
   static constexpr int STAGES = 2;
-  static constexpr uint32_t KV_BYTES = 2 * ROWS * D * 2;
-  static constexpr uint32_t Q_BYTES = ROWS * D * 2;
+  static constexpr uint32_t TILE_BYTES = ROWS * D * 2;
   static constexpr uint32_t VEC_BYTES = ROWS * 4;
-  static constexpr uint32_t STAGE_TX = 2 * Q_BYTES + 2 * VEC_BYTES;
+  static constexpr uint32_t STAGE_TX = 2 * TILE_BYTES + 2 * VEC_BYTES;
   static constexpr size_t BYTES =
-      1024 + 2 * KV_BYTES + STAGES * STAGE_TX + 8 * (1 + 2 * STAGES);   // 1024: alignment
+      1024 + 2 * TILE_BYTES + STAGES * STAGE_TX + 8 * (1 + 2 * STAGES);   // 1024: alignment
 };
 
 template <int D>
-__global__ void __launch_bounds__(256, 1)
+__global__ void __launch_bounds__(128, 2)
     flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_do,
                         const __grid_constant__ CUtensorMap tm_k,
@@ -320,27 +323,25 @@ __global__ void __launch_bounds__(256, 1)
   using L = DkdvSmem<D>;
   constexpr int STAGES = L::STAGES;
   constexpr int BOXES = D / BOX;
-  constexpr int KB = 2 * ROWS;   // kv rows of the block
   extern __shared__ unsigned char smem_raw[];
-  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   unsigned char* sK = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  unsigned char* sV = sK + L::KV_BYTES;
-  unsigned char* sQ = sV + L::KV_BYTES;
-  unsigned char* sdO = sQ + STAGES * L::Q_BYTES;
-  float* sL = reinterpret_cast<float*>(sdO + STAGES * L::Q_BYTES);   // [STAGES][ROWS]
-  float* sDl = sL + STAGES * ROWS;                                    // [STAGES][ROWS]
+  unsigned char* sV = sK + L::TILE_BYTES;
+  unsigned char* sQ = sV + L::TILE_BYTES;
+  unsigned char* sdO = sQ + STAGES * L::TILE_BYTES;
+  float* sL = reinterpret_cast<float*>(sdO + STAGES * L::TILE_BYTES);   // [STAGES][ROWS]
+  float* sDl = sL + STAGES * ROWS;                                       // [STAGES][ROWS]
   uint64_t* bar_kv = reinterpret_cast<uint64_t*>(sDl + STAGES * ROWS);
   uint64_t* full = bar_kv + 1;
   uint64_t* empty = full + STAGES;
 
-  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;   // accumulator row group / column pair
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.x / p.KV, kvh = blockIdx.x % p.KV;
   const int group = p.H / p.KV;
   // causal: the first kv tiles see the most q tiles, and blockIdx.y = 0 launches first
-  const int k0 = blockIdx.y * KB;
+  const int k0 = blockIdx.y * ROWS;
   int lo, hi;
-  q_range(p, k0, KB, lo, hi);
+  q_range(p, k0, ROWS, lo, hi);
   const int t_lo = lo / ROWS;
   const int nq = hi > lo ? (hi + ROWS - 1) / ROWS - t_lo : 0;   // q tiles a head
   const int n = group * nq;                                     // (head, q tile) items
@@ -350,8 +351,9 @@ __global__ void __launch_bounds__(256, 1)
     mbar_expect_tx(&full[s], L::STAGE_TX);
 #pragma unroll
     for (int c = 0; c < BOXES; ++c) {
-      tma_load(sQ + s * L::Q_BYTES + c * ROWS * ROW, &tm_q, &full[s], c * BOX, h, q0, b);
-      tma_load(sdO + s * L::Q_BYTES + c * ROWS * ROW, &tm_do, &full[s], c * BOX, h, q0, b);
+      const uint32_t at = s * L::TILE_BYTES + c * ROWS * ROW;
+      tma_load(sQ + at, &tm_q, &full[s], c * BOX, h, q0, b);
+      tma_load(sdO + at, &tm_do, &full[s], c * BOX, h, q0, b);
     }
     const size_t off = ((size_t)b * p.H + h) * p.s_pad + q0;
     bulk_load(sL + s * ROWS, p.lse2 + off, L::VEC_BYTES, &full[s]);
@@ -368,90 +370,90 @@ __global__ void __launch_bounds__(256, 1)
   }
   __syncthreads();
   if (tid == 0 && n > 0) {
-    mbar_expect_tx(bar_kv, 2 * L::KV_BYTES);
+    mbar_expect_tx(bar_kv, 2 * L::TILE_BYTES);
 #pragma unroll
-    for (int c = 0; c < BOXES; ++c)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const uint32_t at = c * KB * ROW + r * ROWS * ROW;
-        tma_load(sK + at, &tm_k, bar_kv, c * BOX, kvh, k0 + r * ROWS, b);
-        tma_load(sV + at, &tm_v, bar_kv, c * BOX, kvh, k0 + r * ROWS, b);
-      }
+    for (int c = 0; c < BOXES; ++c) {
+      tma_load(sK + c * ROWS * ROW, &tm_k, bar_kv, c * BOX, kvh, k0, b);
+      tma_load(sV + c * ROWS * ROW, &tm_v, bar_kv, c * BOX, kvh, k0, b);
+    }
     for (int j = 0; j < min(STAGES, n); ++j) load_q(j);
   }
 
-  const int wk0 = k0 + wg * ROWS;   // the warpgroup's first kv row
-  const int krow0 = wk0 + warp * 16 + g, krow1 = krow0 + 8;
-  int wlo, whi;                     // q rows that see the warpgroup's kv rows
-  q_range(p, wk0, ROWS, wlo, whi);
-  const bool live = wk0 < p.Sk;
-  const uint32_t k_smem = smem_u32(sK) + wg * ROWS * ROW;
-  const uint32_t v_smem = smem_u32(sV) + wg * ROWS * ROW;
+  const int krow0 = k0 + warp * 16 + g, krow1 = krow0 + 8;
+  const uint32_t k_smem = smem_u32(sK), v_smem = smem_u32(sV);
   const float sl = p.scale_log2;
   float dk[D / 2], dv[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
   if (n > 0) mbar_wait(bar_kv, 0);
 
+  // Item i - 1's dV and dK products run on while item i's S^T and dP^T
+  // are issued; its stage is released once they are done.
   for (int i = 0; i < n; ++i) {
     const int s = i % STAGES;
-    if (tid == 0 && i > 0 && i + STAGES - 1 < n) {
-      // the next item goes where item i - 1 was: wait until every thread is done with it
-      const int j = i + STAGES - 1;
-      mbar_wait(&empty[j % STAGES], ((j / STAGES) & 1) ^ 1);
-      load_q(j);
-    }
-    __syncwarp();
     const int q0 = (t_lo + i % nq) * ROWS;
+    const uint32_t q_s = smem_u32(sQ + s * L::TILE_BYTES);
+    const uint32_t do_s = smem_u32(sdO + s * L::TILE_BYTES);
+    const float* lse2 = sL + s * ROWS;
+    const float* delta = sDl + s * ROWS;
     mbar_wait(&full[s], (i / STAGES) & 1);
-    if (live && q0 < whi && q0 + ROWS > wlo) {
-      const uint32_t q_s = smem_u32(sQ + s * L::Q_BYTES);
-      const uint32_t do_s = smem_u32(sdO + s * L::Q_BYTES);
-      float st[32], dpt[32];   // S^T, dP^T: 64 kv rows x 64 q columns
-      qk_product<D, KB, ROWS, 32, false>(st, k_smem, q_s);
-      qk_product<D, KB, ROWS, 32, false>(dpt, v_smem, do_s);
-      wgmma_wait_all();
-      pin(st);
-      pin(dpt);
-      // test the mask only where a pair of the tile is masked
-      const bool edge = q0 + ROWS > p.S || wk0 + ROWS > p.Sk ||
-                        (p.causal && wk0 + ROWS - 1 > q0) ||
-                        (p.window && q0 + ROWS - 1 >= wk0 + p.window);
-      const float* lse2 = sL + s * ROWS;
-      const float* delta = sDl + s * ROWS;
-      // P^T and dS^T as A operands: 8-column blocks 2j and 2j+1 form k-step j
-      uint32_t pf[ROWS / 16][4], dsf[ROWS / 16][4];
-#pragma unroll
-      for (int nb = 0; nb < ROWS / 8; ++nb) {
-        const int c = nb * 8 + 2 * t4;   // this thread's q columns c, c + 1
-        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + c);
-        const float2 d2 = *reinterpret_cast<const float2*>(delta + c);
-        float pe[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          pe[e] = ex2(fmaf(st[4 * nb + e], sl, -((e & 1) ? l2.y : l2.x)));
-          ds[e] = pe[e] * (dpt[4 * nb + e] - ((e & 1) ? d2.y : d2.x));
-          if (edge && !visible(p, q0 + c + (e & 1), (e & 2) ? krow1 : krow0)) pe[e] = ds[e] = 0.f;
-        }
-        pf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(pe[0], pe[1]);
-        pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(pe[2], pe[3]);
-        dsf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-        dsf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    float st[32], dpt[32];   // S^T, dP^T: 64 kv rows x 64 q columns
+    qk_product<D, ROWS, ROWS, 32, false>(st, k_smem, q_s);
+    qk_product<D, ROWS, ROWS, 32, false>(dpt, v_smem, do_s);
+    // test the mask only where a pair of the tile is masked
+    const bool edge = q0 + ROWS > p.S || k0 + ROWS > p.Sk ||
+                      (p.causal && k0 + ROWS - 1 > q0) ||
+                      (p.window && q0 + ROWS - 1 >= k0 + p.window);
+    wgmma_wait<1>();   // S^T and item i - 1's products are done; dP^T may still run
+    pin(st);
+    if (i > 0) {
+      mbar_arrive(&empty[(i - 1) % STAGES]);
+      if (tid == 0 && i + STAGES - 1 < n) {
+        // the next item goes where item i - 1 was: wait until every thread is done with it
+        const int j = i + STAGES - 1;
+        mbar_wait(&empty[j % STAGES], ((j / STAGES) & 1) ^ 1);
+        load_q(j);
       }
-      pv_product<D, ROWS, false>(dv, pf, do_s);    // dV += P^T dO
-      pv_product<D, ROWS, false>(dk, dsf, q_s);    // dK += dS^T Q
-      wgmma_wait_all();
-      pin(dv);
-      pin(dk);
+      __syncwarp();
     }
-    mbar_arrive(&empty[s]);
+    // P^T (in place of S^T) and then dS^T as A operands: 8-column blocks
+    // 2j and 2j+1 form k-step j; this thread's q columns are c, c + 1
+    uint32_t pf[ROWS / 16][4], dsf[ROWS / 16][4];
+#pragma unroll
+    for (int nb = 0; nb < ROWS / 8; ++nb) {
+      const int c = nb * 8 + 2 * t4;
+      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& pe = st[4 * nb + e];
+        pe = ex2(fmaf(pe, sl, -((e & 1) ? l2.y : l2.x)));
+        if (edge && !visible(p, q0 + c + (e & 1), (e & 2) ? krow1 : krow0)) pe = 0.f;
+      }
+      pf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(st[4 * nb], st[4 * nb + 1]);
+      pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(st[4 * nb + 2], st[4 * nb + 3]);
+    }
+    pv_product<D, ROWS, false>(dv, pf, do_s);    // dV += P^T dO, in flight
+    wgmma_wait<1>();   // dP^T is done
+    pin(dpt);
+#pragma unroll
+    for (int nb = 0; nb < ROWS / 8; ++nb) {
+      const float2 d2 = *reinterpret_cast<const float2*>(delta + nb * 8 + 2 * t4);
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[e] = st[4 * nb + e] * (dpt[4 * nb + e] - ((e & 1) ? d2.y : d2.x));
+      dsf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+      dsf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    pv_product<D, ROWS, false>(dk, dsf, q_s);    // dK += dS^T Q, in flight
   }
-  if (live) {
-    const size_t kv_stride = (size_t)p.KV * D;
-    const size_t kv_off = ((size_t)b * p.Sk * p.KV + kvh) * D;
-    store_rows<D>(static_cast<bf16*>(p.dk) + kv_off, kv_stride, krow0, p.Sk, dk, p.scale, t4);
-    store_rows<D>(static_cast<bf16*>(p.dv) + kv_off, kv_stride, krow0, p.Sk, dv, 1.f, t4);
-  }
+  wgmma_wait<0>();
+  pin(dv);
+  pin(dk);
+  const size_t kv_stride = (size_t)p.KV * D;
+  const size_t kv_off = ((size_t)b * p.Sk * p.KV + kvh) * D;
+  store_rows<D>(static_cast<bf16*>(p.dk) + kv_off, kv_stride, krow0, p.Sk, dk, p.scale, t4);
+  store_rows<D>(static_cast<bf16*>(p.dv) + kv_off, kv_stride, krow0, p.Sk, dv, 1.f, t4);
 }
 
 // ---------------------------------------------------------------------------
@@ -618,12 +620,12 @@ int launch_bf16(const Params& p, const long long* layout, cudaStream_t stream) {
     err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_bf16<D>), DkdvSmem<D>::BYTES,
                       opted_dkdv);
   if (err) return err;
-  flash_bwd_dq_bf16<D><<<dim3(p.B * p.H, (p.S + 2 * ROWS - 1) / (2 * ROWS)), 256,
-                         DqSmem<D>::BYTES, stream>>>(tm_q, tm_do, tm_k, tm_v, p);
+  flash_bwd_dq_bf16<D><<<dim3(p.B * p.H, (p.S + ROWS - 1) / ROWS), 128, DqSmem<D>::BYTES,
+                         stream>>>(tm_q, tm_do, tm_k, tm_v, p);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dkdv_bf16<D><<<dim3(p.B * p.KV, (p.Sk + 2 * ROWS - 1) / (2 * ROWS)), 256,
-                           DkdvSmem<D>::BYTES, stream>>>(tm_q, tm_do, tm_k, tm_v, p);
+  flash_bwd_dkdv_bf16<D><<<dim3(p.B * p.KV, (p.Sk + ROWS - 1) / ROWS), 128, DkdvSmem<D>::BYTES,
+                           stream>>>(tm_q, tm_do, tm_k, tm_v, p);
   return (int)cudaGetLastError();
 }
 
