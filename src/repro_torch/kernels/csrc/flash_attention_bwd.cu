@@ -42,16 +42,15 @@
 //    "full" mbarrier per stage counting the TMA's bytes and an "empty"
 //    one taking every thread's arrival; one elected thread keeps the ring
 //    STAGES - 1 tiles ahead.  The dK/dV stage also brings the q tile's lse
-//    and Delta (a 256-byte bulk copy each from a scratch padded to 128
-//    rows, which the dQ kernel writes).  Within a tile, exp2 of S runs
+//    and Delta (a 256-byte bulk copy each from a scratch padded to whole
+//    tiles, which the dQ kernel writes).  Within a tile, exp2 of S runs
 //    while dP is in flight, and the dV product while dS is formed; the
 //    dK/dV kernel also issues a tile's S^T and dP^T while the previous
 //    tile's dV and dK products finish.
 //  * Registers decide occupancy, as in the forward: the dQ kernel keeps to
 //    128 at D 64, so four blocks share an SM, the dK/dV kernel (dK, dV,
-//    S^T and dP^T in registers) two.  Measured slower: two warpgroups a
-//    block, which the producer's wait on the ring ties to each other's
-//    pace, and deeper rings.
+//    S^T and dP^T in registers) two.  Measured slower (PERF.md §6): two
+//    warpgroups a block, deeper rings, three dK/dV blocks an SM.
 //  * TMA zero-fills rows past S or Sk, so ragged lengths need no padding
 //    copy.  Masks are tested on edge tiles only (the causal diagonal, the
 //    window's ends, the ragged ends); tiles with no visible pair are
@@ -72,7 +71,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int ROWS = 64;   // bf16: rows of a warpgroup's tile, of a stage and of a TMA box
-constexpr int PAD = 128;   // bf16: the lse / Delta scratch rows are padded to a multiple of this
 constexpr int WR = 8;      // fp32 blocks: 8 warps, one row each
 constexpr int TN = 32;     // fp32 kernels: rows of a staged tile
 
@@ -92,7 +90,7 @@ struct Params {
   int causal, window;
   float scale;            // 1 / sqrt(D)
   float scale_log2;       // log2(e) / sqrt(D): scores in base 2
-  int s_pad;              // S rounded up to PAD
+  int s_pad;              // S rounded up to ROWS
 };
 
 __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
@@ -270,7 +268,7 @@ __global__ void __launch_bounds__(128, DqSmem<D>::BLOCKS_PER_SM)
     // test the mask only where a pair of the tile is masked
     const bool edge = k0 + ROWS > p.Sk || (p.causal && k0 + ROWS - 1 > q0) ||
                       (p.window && k0 <= q0 + ROWS - 1 - p.window);
-    wgmma_wait<1>();   // S is done; dP may still run
+    wgmma_wait_all_but_one();   // S is done; dP may still run
     pin(sc);
 #pragma unroll
     for (int e = 0; e < 32; ++e) {   // P, in place of S
@@ -279,7 +277,7 @@ __global__ void __launch_bounds__(128, DqSmem<D>::BLOCKS_PER_SM)
       if (edge && !visible(p, top ? row0 : row1, k0 + (e / 4) * 8 + 2 * t4 + (e & 1)))
         sc[e] = 0.f;
     }
-    wgmma_wait<0>();
+    wgmma_wait_all();
     pin(dp);
     // dS as the A operand of dS K: 8-column blocks 2j and 2j+1 form k-step j
     uint32_t dsf[ROWS / 16][4];
@@ -404,7 +402,7 @@ __global__ void __launch_bounds__(128, 2)
     const bool edge = q0 + ROWS > p.S || k0 + ROWS > p.Sk ||
                       (p.causal && k0 + ROWS - 1 > q0) ||
                       (p.window && q0 + ROWS - 1 >= k0 + p.window);
-    wgmma_wait<1>();   // S^T and item i - 1's products are done; dP^T may still run
+    wgmma_wait_all_but_one();   // S^T and item i - 1's products are done; dP^T may still run
     pin(st);
     if (i > 0) {
       mbar_arrive(&empty[(i - 1) % STAGES]);
@@ -433,7 +431,7 @@ __global__ void __launch_bounds__(128, 2)
       pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(st[4 * nb + 2], st[4 * nb + 3]);
     }
     pv_product<D, ROWS, false>(dv, pf, do_s);    // dV += P^T dO, in flight
-    wgmma_wait<1>();   // dP^T is done
+    wgmma_wait_all_but_one();   // dP^T is done
     pin(dpt);
 #pragma unroll
     for (int nb = 0; nb < ROWS / 8; ++nb) {
@@ -447,7 +445,7 @@ __global__ void __launch_bounds__(128, 2)
     }
     pv_product<D, ROWS, false>(dk, dsf, q_s);    // dK += dS^T Q, in flight
   }
-  wgmma_wait<0>();
+  wgmma_wait_all();
   pin(dv);
   pin(dk);
   const size_t kv_stride = (size_t)p.KV * D;
@@ -642,7 +640,7 @@ int launch_f32(const Params& p, cudaStream_t stream) {
 
 // q, o, dout, dq: (B, S, H, D); k, v, dk, dv: (B, Sk, KV, D); all contiguous,
 // one dtype (bf16 if is_bf16 else fp32).  lse: (B, H, S) fp32 from the
-// forward.  scratch: 2 * B * H * s_pad fp32, s_pad = S rounded up to 128.
+// forward.  scratch: 2 * B * H * s_pad fp32, s_pad = S rounded up to 64.
 // layout: for bf16, the TMA layouts of q (also dout's) and of k (also
 // v's) with boxes of 64 rows, 11 values each, as
 // kernels/flash_attention.py:tma_layout computes them; unused for fp32.
@@ -654,7 +652,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    int D, int causal, int window, int is_bf16, void* stream,
                                    const long long* layout) {
   const float scale = 1.f / sqrtf((float)D);
-  const int s_pad = (S + PAD - 1) / PAD * PAD;
+  const int s_pad = (S + ROWS - 1) / ROWS * ROWS;
   Params p{q, k, v, o, dout, lse, dq, dk, dv, scratch, scratch + (size_t)B * H * s_pad,
            B, S, Sk, H, KV, causal, window, scale, LOG2E * scale, s_pad};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

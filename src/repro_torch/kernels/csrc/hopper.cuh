@@ -145,10 +145,9 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
-// until at most N committed groups are in flight (they complete in order)
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+// until at most one committed group is in flight (they complete in order)
+__device__ __forceinline__ void wgmma_wait_all_but_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
 }
 
 // keeps the compiler from reading an accumulator before wgmma_wait_all

@@ -29,10 +29,9 @@ _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 HEAD_DIMS = (64, 128)
 # the bf16 kernel's tiles (WM, WN in the source): q rows per block, kv rows per stage
 BLOCK_Q = BLOCK_KV = 128
-# the bf16 backward's TMA boxes (ROWS in csrc/flash_attention_bwd.cu): 64
-# rows of q, dO, k and v; its lse / Delta scratch pads S to PAD_ROWS
+# the bf16 backward's tiles (ROWS in csrc/flash_attention_bwd.cu): TMA
+# boxes of 64 rows of q, dO, k and v; its lse / Delta scratch pads S to them
 BWD_BOX_ROWS = 64
-PAD_ROWS = 128
 # columns of one TMA box: 128 bytes of bf16, the span of the 128-byte swizzle
 BOX_COLS = 64
 
@@ -183,7 +182,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               BWD_BOX_ROWS)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # Delta and lse in base 2 for the dK/dV kernel, written by the dQ kernel
-    s_pad = -(-s // PAD_ROWS) * PAD_ROWS
+    s_pad = -(-s // BWD_BOX_ROWS) * BWD_BOX_ROWS
     scratch = torch.empty(2 * b * h * s_pad, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
