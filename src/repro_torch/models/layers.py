@@ -1,4 +1,4 @@
-"""Core transformer layers, dense subset: norms, RoPE, GQA attention, SwiGLU.
+"""Core transformer layers: norms, RoPE, GQA self- and cross-attention, SwiGLU.
 
 Ports ``src/repro/models/layers.py``.  ``params`` are dict trees (built
 from the ParamDef trees in each ``make_*_defs``), activations are
@@ -11,8 +11,10 @@ it is the reference's loop over query blocks, so the full (S × S) score
 matrix is never built.  Decode uses ring-buffer KV caches, updated in
 place (the reference returns a new cache tree).
 
-MLA, cross-attention and the activation-sharding context wait for
-later slices (ROADMAP.md, 'Next slices' item 4).
+Cross-attention (encoder-decoder) reads the encoder output without
+RoPE; its decode attends to a fixed memory and leaves the cache as it
+is.  MLA and the activation-sharding context wait for later slices
+(ROADMAP.md, 'Next slices' item 4).
 """
 from __future__ import annotations
 
@@ -102,7 +104,7 @@ def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def make_attention_defs(cfg: ModelConfig) -> dict[str, Any]:
+def make_attention_defs(cfg: ModelConfig, *, cross: bool = False) -> dict[str, Any]:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
     return {
@@ -161,7 +163,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def blockwise_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Causal/windowed attention over a whole sequence.
+    """Attention of q (B, S, H, D) over k, v (B, Sk, KV, D): causal,
+    windowed, or full (bidirectional, or cross-attention with Sk != S).
 
     CUDA tensors go to the Hopper flash kernel (it computes this function
     for ``dv == d``); CPU tensors take the reference's loop over query
@@ -221,22 +224,30 @@ def _pad_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_train(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                    bidirectional: bool = False, kv_source: torch.Tensor | None = None,
                     return_kv: bool = False):
-    """Causal self-attention over a full sequence.
+    """Self- (or cross-) attention over a full sequence.
 
-    return_kv: also return the (roped) K/V for prefill cache capture.
+    bidirectional: no causal mask (encoder self-attention).
+    kv_source: if given (encoder output, (B, Sk, d)), cross-attention
+    without RoPE and without a mask.
+    return_kv: also return the K/V for prefill cache capture (roped for
+    self-attention, as computed for cross-attention).
     """
     b, s, _ = x.shape
     hd, h, kv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    src = x if kv_source is None else kv_source
+    sk = src.shape[1]
     q = matmul(x, params["wq"]).reshape(b, s, h, hd)
-    k = matmul(x, params["wk"]).reshape(b, s, kv, hd)
-    v = matmul(x, params["wv"]).reshape(b, s, kv, hd)
-    pos = torch.arange(s, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    k = matmul(src, params["wk"]).reshape(b, sk, kv, hd)
+    v = matmul(src, params["wv"]).reshape(b, sk, kv, hd)
+    if kv_source is None:
+        pos = torch.arange(s, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
     kv_for_cache = {"k": k, "v": v}
     q, k, v, h_orig = _pad_heads(q, k, v, cfg)
-    out = blockwise_mha(q, k, v, causal=True)
+    out = blockwise_mha(q, k, v, causal=kv_source is None and not bidirectional)
     out = out[..., :h_orig, :]
     out = matmul(out.reshape(b, s, h * hd), params["wo"])
     if return_kv:
@@ -249,19 +260,24 @@ def attention_train(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 
-def attention_decode(params: dict, x: torch.Tensor, cache: dict,
-                     cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+def attention_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig, *,
+                     cross_memory: dict | None = None) -> tuple[torch.Tensor, dict]:
     """x: (B, 1, d).  cache: {"k","v": (B, Smax, KV, hd), "len": ()}.
 
     Ring-buffer semantics: the new KV overwrites slot ``len % Smax``.
     ``len`` is one scalar per layer, shared by the whole batch, as in
     the reference.  The cache is updated in place and returned.
+    Cross-attention (enc-dec) passes ``cross_memory`` = {"k","v"} instead:
+    the query attends to all of it, unroped, and the cache is untouched.
     """
     b = x.shape[0]
     hd, h, kvh = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = matmul(x, params["wq"]).reshape(b, 1, h, hd)
+    if cross_memory is not None:
+        out = mha(q, cross_memory["k"], cross_memory["v"], causal=False)
+        return matmul(out.reshape(b, 1, h * hd), params["wo"]), cache
     smax = cache["k"].shape[1]
     cur = cache["len"].reshape(1)                       # int32, on the device
-    q = matmul(x, params["wq"]).reshape(b, 1, h, hd)
     k_new = matmul(x, params["wk"]).reshape(b, 1, kvh, hd)
     v_new = matmul(x, params["wv"]).reshape(b, 1, kvh, hd)
     q = apply_rope(q, cur, cfg.rope_theta)

@@ -1,5 +1,6 @@
-"""Model assembly, the ``("attn", "dense")`` and ``("ssd", "none")`` block
-kinds: TransformerLM over per-layer block kinds.
+"""Model assembly, the ``("attn", "dense")``, ``("attn", "moe")`` and
+``("ssd", "none")`` block kinds and the encoder-decoder backbone:
+TransformerLM over per-layer block kinds.
 
 Ports ``src/repro/models/model.py``.  Layers keep the reference's scan
 *segments* (``ModelConfig.scan_segments``): each segment stacks its
@@ -15,6 +16,7 @@ Public API (functions bound to a ModelConfig):
 * ``loss_fn(params, batch, cfg)``            — scalar fp32 loss (chunked CE)
 * ``cache_defs(cfg, batch, seq_len)``        — decode-state ParamDef tree
 * ``prefill_forward(params, batch, cfg)``    — last-token logits + cache
+* ``prefill_cross_memory(params, cache, enc_out, cfg)`` — enc-dec cache fill
 * ``decode_step(params, state, batch, cfg)`` — one-token serve step
 
 ``forward_train`` and ``loss_fn`` differentiate with torch autograd:
@@ -23,9 +25,13 @@ where the reference wraps each layer (and each CE chunk) in
 Prefill and decode run under ``torch.no_grad``.
 
 Attention blocks run the Hopper flash kernel on CUDA, in both directions
-under autograd; SSD blocks the Hopper SSD scan kernel, forward only.
-Other mixers and ffns raise ``NotImplementedError`` naming their ROADMAP
-item.
+under autograd: causal self-attention, the encoder's bidirectional
+self-attention and the decoder's cross-attention over the encoder output
+(``encoder_layers`` > 0; the encoder reads ``batch["enc_embeds"]``).  SSD
+blocks run the Hopper SSD scan kernel, forward only; MoE FFNs are
+PyTorch ops (``models/moe.py``).  Other mixers, frame-embedding inputs
+and multi-token prediction raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.config import BlockKind, ModelConfig
 from repro_torch.models.layers import (
@@ -49,6 +56,9 @@ from repro_torch.models.layers import (
 from repro_torch.models.spec import pdef, stack_defs, tree_leaves, tree_map
 
 
+ENCODER_KIND: BlockKind = ("bidir", "dense")
+
+
 def _not_ported(what: str, name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} {name!r} is not ported yet: ROADMAP.md, 'Next slices' item 4")
@@ -59,10 +69,8 @@ def _check_supported(cfg: ModelConfig) -> None:
     for mixer, ffn in cfg.block_kinds():
         if mixer not in ("attn", "ssd"):
             raise _not_ported("mixer", mixer)
-        if ffn not in ("dense", "none"):
+        if ffn not in ("dense", "moe", "none"):
             raise _not_ported("ffn", ffn)
-    if cfg.encoder_layers:
-        raise _not_ported("encoder-decoder", cfg.name)
     if cfg.input_kind != "tokens":
         raise _not_ported("input kind", cfg.input_kind)
     if cfg.mtp:
@@ -111,38 +119,70 @@ def _widen(stacked: dict, i: int, new: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def block_defs(cfg: ModelConfig, kind: BlockKind) -> dict:
+def block_defs(cfg: ModelConfig, kind: BlockKind, *, cross: bool = False) -> dict:
     mixer, ffn = kind
     d: dict[str, Any] = {"ln1": make_norm_def(cfg.d_model)}
-    if mixer == "attn":
+    if mixer in ("attn", "bidir"):
         d["attn"] = make_attention_defs(cfg)
     else:
         d["ssd"] = ssm.make_ssd_defs(cfg)
+    if cross:
+        d["ln_x"] = make_norm_def(cfg.d_model)
+        d["cross"] = make_attention_defs(cfg, cross=True)
     if ffn == "dense":
         d["ln2"] = make_norm_def(cfg.d_model)
         d["ffn"] = make_ffn_defs(cfg.d_model, cfg.d_ff)
+    elif ffn == "moe":
+        d["ln2"] = make_norm_def(cfg.d_model)
+        d["moe"] = moe_mod.make_moe_defs(cfg)
     return d
 
 
 def _apply_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
-               kind: BlockKind) -> torch.Tensor:
-    if kind[1] == "none":
-        return x
-    return x + swiglu(params["ffn"], rms_norm(x, params["ln2"], cfg.norm_eps))
+               kind: BlockKind) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x + ffn(x), the MoE aux loss or 0)."""
+    ffn = kind[1]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn == "none":
+        return x, aux
+    h = rms_norm(x, params["ln2"], cfg.norm_eps)
+    if ffn == "dense":
+        y = swiglu(params["ffn"], h)
+    else:
+        y, aux = moe_mod.moe_ffn(params["moe"], h, cfg)
+    return x + y, aux
 
 
-def block_train(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                kind: BlockKind) -> torch.Tensor:
+def _cross(params: dict, x: torch.Tensor, cfg: ModelConfig, enc_out: torch.Tensor | None,
+           return_kv: bool = False):
+    """x plus the cross-attention over ``enc_out`` where the block has one
+    (and, with ``return_kv``, its K/V for the cache, else None)."""
+    if enc_out is None or "cross" not in params:
+        return (x, None) if return_kv else x
+    h = rms_norm(x, params["ln_x"], cfg.norm_eps)
+    out = attention_train(params["cross"], h, cfg, kv_source=enc_out, return_kv=return_kv)
+    if return_kv:
+        return x + out[0], out[1]
+    return x + out
+
+
+def block_train(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: BlockKind, *,
+                enc_out: torch.Tensor | None = None, bidirectional: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    mixer = kind[0]
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    if kind[0] == "attn":
-        y = attention_train(params["attn"], h, cfg)
+    if mixer in ("attn", "bidir"):
+        y = attention_train(params["attn"], h, cfg,
+                            bidirectional=bidirectional or mixer == "bidir")
     else:
         y = ssm.ssd_block_train(params["ssd"], h, cfg)
-    return _apply_ffn(params, x + y, cfg, kind)
+    x = _cross(params, x + y, cfg, enc_out)
+    return _apply_ffn(params, x, cfg, kind)
 
 
 def block_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
-                 kind: BlockKind) -> tuple[torch.Tensor, dict]:
+                 kind: BlockKind, *, cross_memory: dict | None = None
+                 ) -> tuple[torch.Tensor, dict]:
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     if kind[0] == "attn":
         y, c = attention_decode(params["attn"], h, cache["attn"], cfg)
@@ -150,11 +190,17 @@ def block_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
     else:
         y, c = ssm.ssd_block_decode(params["ssd"], h, cache["ssd"], cfg)
         new_cache = {**cache, "ssd": c}
-    return _apply_ffn(params, x + y, cfg, kind), new_cache
+    x = x + y
+    mem = cross_memory if cross_memory is not None else cache.get("cross")
+    if mem is not None and "cross" in params:
+        h = rms_norm(x, params["ln_x"], cfg.norm_eps)
+        y, _ = attention_decode(params["cross"], h, {}, cfg, cross_memory=mem)
+        x = x + y
+    return _apply_ffn(params, x, cfg, kind)[0], new_cache
 
 
-def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                  kind: BlockKind) -> tuple[torch.Tensor, dict]:
+def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: BlockKind, *,
+                  enc_out: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
     """Like block_train but also captures the decode cache (prefill path)."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     if kind[0] == "attn":
@@ -164,7 +210,10 @@ def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         y, c = ssm.ssd_block_train(params["ssd"], h, cfg, return_state=True)
         entry = {"ssd": c}
-    return _apply_ffn(params, x + y, cfg, kind), entry
+    x, cross_kv = _cross(params, x + y, cfg, enc_out, return_kv=True)
+    if cross_kv is not None:
+        entry["cross"] = cross_kv
+    return _apply_ffn(params, x, cfg, kind)[0], entry
 
 
 # ---------------------------------------------------------------------------
@@ -184,13 +233,17 @@ def _block_cache_defs(cfg: ModelConfig, kind: BlockKind, batch: int,
                           (s.head_dim, None), (s.d_state, None), init="zeros"),
         }}
     hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
-    return {"attn": {
-        "k": pdef((batch, "batch"), (seq_len, "seq"), (kv, "kv_heads"), (hd, None),
-                  init="zeros"),
-        "v": pdef((batch, "batch"), (seq_len, "seq"), (kv, "kv_heads"), (hd, None),
-                  init="zeros"),
-        "len": pdef(init="zeros", dtype=torch.int32),
-    }}
+
+    def kv_defs() -> dict:
+        return {name: pdef((batch, "batch"), (seq_len, "seq"), (kv, "kv_heads"), (hd, None),
+                           init="zeros") for name in ("k", "v")}
+
+    entry = {"attn": {**kv_defs(), "len": pdef(init="zeros", dtype=torch.int32)}}
+    if cfg.encoder_layers:
+        # enc-dec decoder blocks carry a static cross-attention KV memory,
+        # filled from the encoder output at prefill time
+        entry["cross"] = kv_defs()
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +253,7 @@ def _block_cache_defs(cfg: ModelConfig, kind: BlockKind, batch: int,
 
 def param_defs(cfg: ModelConfig) -> dict:
     _check_supported(cfg)
+    cross = cfg.encoder_layers > 0
     defs: dict[str, Any] = {
         "embed": pdef((cfg.vocab_size, "vocab"), (cfg.d_model, "d_model"),
                       scale=1.0),
@@ -208,9 +262,15 @@ def param_defs(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         defs["head"] = pdef((cfg.d_model, "d_model"), (cfg.vocab_size, "vocab"))
     defs["segments"] = [
-        {str(u): stack_defs(block_defs(cfg, kind), repeats) for u, kind in enumerate(unit)}
+        {str(u): stack_defs(block_defs(cfg, kind, cross=cross), repeats)
+         for u, kind in enumerate(unit)}
         for unit, repeats in cfg.scan_segments()
     ]
+    if cross:
+        defs["encoder"] = {
+            "blocks": stack_defs(block_defs(cfg, ENCODER_KIND), cfg.encoder_layers),
+            "final_norm": make_norm_def(cfg.d_model),
+        }
     return defs
 
 
@@ -239,28 +299,58 @@ def _needs_grad(tree: Any) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tree_leaves(tree))
 
 
-def _run_unit(layer_params: dict, x: torch.Tensor, cfg: ModelConfig, unit) -> torch.Tensor:
+def _run_unit(layer_params: dict, x: torch.Tensor, cfg: ModelConfig, unit,
+              enc_out: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for u, kind in enumerate(unit):
-        x = block_train(layer_params[str(u)], x, cfg, kind)
-    return x
+        x, a = block_train(layer_params[str(u)], x, cfg, kind, enc_out=enc_out)
+        aux = aux + a
+    return x, aux
+
+
+def _run_layers(x: torch.Tensor, layers: list, cfg: ModelConfig, unit, *, grad: bool,
+                remat: bool, enc_out: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Apply ``unit`` with each of ``layers``' parameters in turn; under
+    autograd with ``remat`` each layer keeps only its input."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer_params in layers:
+        if grad and remat:
+            x, a = checkpoint(_run_unit, layer_params, x, cfg, unit, enc_out,
+                              use_reentrant=False)
+        else:
+            x, a = _run_unit(layer_params, x, cfg, unit, enc_out)
+        aux = aux + a
+    return x, aux
+
+
+def _encoder_forward(params: dict, batch: dict, cfg: ModelConfig, *,
+                    remat: bool = True) -> torch.Tensor:
+    """The encoder stack over ``batch["enc_embeds"]`` (B, Se, d): its
+    normed output, the decoder's cross-attention memory."""
+    enc = params["encoder"]
+    x = batch["enc_embeds"].to(cfg.cdtype)
+    layers = _unbind_layers({"0": enc["blocks"]}, cfg.encoder_layers)
+    x, _ = _run_layers(x, layers, cfg, (ENCODER_KIND,), grad=_needs_grad(params), remat=remat)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
 def forward_train(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool = True
-                  ) -> tuple[torch.Tensor, None, torch.Tensor]:
-    """Returns (hidden (B,S,d) after the final norm, enc_out (None: no
-    encoder in this slice), aux_loss (0: no MoE in this slice)).  Under
-    autograd with ``remat`` each layer keeps only its input and recomputes
-    the rest in the backward."""
+                  ) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor]:
+    """Returns (hidden (B,S,d) after the final norm, the encoder output
+    (None without an encoder), the summed MoE aux loss (0 without MoE)).
+    Under autograd with ``remat`` each layer keeps only its input and
+    recomputes the rest in the backward."""
     grad = _needs_grad(params)
+    enc_out = _encoder_forward(params, batch, cfg, remat=remat) if cfg.encoder_layers else None
     x = embed_inputs(params, batch, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg_params, (unit, repeats) in zip(params["segments"], cfg.scan_segments()):
-        for layer_params in _unbind_layers(seg_params, repeats):
-            if grad and remat:
-                x = checkpoint(_run_unit, layer_params, x, cfg, unit, use_reentrant=False)
-            else:
-                x = _run_unit(layer_params, x, cfg, unit)
+        x, a = _run_layers(x, _unbind_layers(seg_params, repeats), cfg, unit, grad=grad,
+                           remat=remat, enc_out=enc_out)
+        aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, None, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, enc_out, aux
 
 
 def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -311,7 +401,10 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool = True,
 @torch.no_grad()
 def prefill_forward(params: dict, batch: dict, cfg: ModelConfig
                     ) -> tuple[torch.Tensor, dict]:
-    """Full-sequence prefill: returns (last-token logits, decode cache)."""
+    """Full-sequence prefill: returns (last-token logits, decode cache).
+    An enc-dec model runs its encoder over ``batch["enc_embeds"]`` and
+    stores each decoder layer's cross-attention K/V in the cache."""
+    enc_out = _encoder_forward(params, batch, cfg) if cfg.encoder_layers else None
     x = embed_inputs(params, batch, cfg)
     segments_cache = []
     for seg_params, (unit, repeats) in zip(params["segments"], cfg.scan_segments()):
@@ -320,7 +413,8 @@ def prefill_forward(params: dict, batch: dict, cfg: ModelConfig
             layer_params = _layer(seg_params, i)
             entry = {}
             for u, kind in enumerate(unit):
-                x, entry[str(u)] = block_prefill(layer_params[str(u)], x, cfg, kind)
+                x, entry[str(u)] = block_prefill(layer_params[str(u)], x, cfg, kind,
+                                                 enc_out=enc_out)
             entries.append(entry)
         segments_cache.append(_stack_leaves(entries))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -329,17 +423,47 @@ def prefill_forward(params: dict, batch: dict, cfg: ModelConfig
 
 
 @torch.no_grad()
+def prefill_cross_memory(params: dict, cache: dict, enc_out: torch.Tensor,
+                         cfg: ModelConfig) -> dict:
+    """Per-decoder-layer cross-attention K/V from the encoder output, stored
+    in (a new tree over) the decode cache: the enc-dec serving prefill.
+    The memory's length is the encoder's, whatever the cache's."""
+    hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
+    b, s, _ = enc_out.shape
+    new_segments = []
+    for seg_params, seg_cache, (unit, repeats) in zip(
+            params["segments"], cache["segments"], cfg.scan_segments()):
+        seg_new = {}
+        for u in range(len(unit)):
+            entry = dict(seg_cache[str(u)])
+            cross_p = seg_params[str(u)].get("cross")
+            if cross_p is not None and "cross" in entry:
+                entry["cross"] = {
+                    name: torch.einsum("bsd,rdf->rbsf", enc_out,
+                                       cross_p[w].to(enc_out.dtype))
+                    .reshape(repeats, b, s, kv, hd).to(entry["cross"][name].dtype)
+                    for name, w in (("k", "wk"), ("v", "wv"))}
+            seg_new[str(u)] = entry
+        new_segments.append(seg_new)
+    return {"segments": new_segments}
+
+
+@torch.no_grad()
 def decode_step(params: dict, state: dict, batch: dict, cfg: ModelConfig
                 ) -> tuple[torch.Tensor, dict]:
-    """One-token decode.  batch: {"inputs": (B,1) ids}.  Returns (logits,
-    state); the state's caches are updated in place (see :func:`_widen`)."""
+    """One-token decode.  batch: {"inputs": (B,1) ids}, optionally
+    {"cross_memory": {"k","v"}} for every enc-dec layer (else each layer
+    reads its cache's ``cross`` entry).  Returns (logits, state); the
+    state's caches are updated in place (see :func:`_widen`)."""
     x = embed_inputs(params, batch, cfg)
+    cross_mem = batch.get("cross_memory")
     for seg_params, seg_cache, (unit, repeats) in zip(
             params["segments"], state["segments"], cfg.scan_segments()):
         for i in range(repeats):
             layer_params, layer_cache = _layer(seg_params, i), _layer(seg_cache, i)
             for u, kind in enumerate(unit):
-                x, new = block_decode(layer_params[str(u)], x, layer_cache[str(u)], cfg, kind)
+                x, new = block_decode(layer_params[str(u)], x, layer_cache[str(u)], cfg, kind,
+                                      cross_memory=cross_mem)
                 _widen(seg_cache[str(u)], i, new)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg), state

@@ -39,6 +39,29 @@ def test_cuda_kernel_matches_plain_version(dtype, causal, window, s, d):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,s,sk,d", [
+    (torch.bfloat16, 256, 1024, 64), (torch.bfloat16, 256, 1000, 64),
+    (torch.bfloat16, 264, 1024, 64), (torch.bfloat16, 1024, 300, 128),
+    (torch.float32, 100, 333, 64)])
+def test_cuda_cross_attention_sk_ne_s(dtype, s, sk, d):
+    """Non-causal attention of S queries over Sk != S keys (an enc-dec
+    decoder's cross-attention): ragged key tiles are masked, no tile order
+    of the causal path applies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(2, s, 16, d, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(2, sk, 16, d, generator=gen, device="cuda").to(dtype) for _ in "kv")
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=False)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 def _scaled_err(got, want):
     return ((got.float() - want.float()).abs() / (1 + want.float().abs())).max().item()
 

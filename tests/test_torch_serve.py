@@ -1,6 +1,8 @@
 """The port's serving plane: tests/test_serve.py on the torch backend,
 token-stream parity with ``JaxDecodeBackend`` on the same fp32 weights
-(granite-3-2b and mamba2-780m), a continuous run and the launcher."""
+(granite-3-2b, mamba2-780m, minitron-4b, olmoe-1b-7b, and
+seamless-m4t-medium on the reference's zero cross memory), a continuous
+run and the launcher."""
 from __future__ import annotations
 
 import dataclasses
@@ -77,10 +79,13 @@ def _fp32_pair(max_len=64, arch="granite_3_2b"):
     return jc, tc, jb, tb
 
 
-@pytest.mark.parametrize("arch", ["granite_3_2b", "mamba2_780m"])
+@pytest.mark.parametrize("arch", ["granite_3_2b", "mamba2_780m", "minitron_4b", "olmoe_1b_7b",
+                                  "seamless_m4t_medium"])
 def test_token_streams_match_jax_backend(arch):
     """A full static serve() with a replica kill gives the same tokens on
-    both backends (fresh replicas, the same fp32 weights)."""
+    both backends (fresh replicas, the same fp32 weights).  The reference's
+    backend never fills an enc-dec model's cross memory (its replica cache
+    is the zero ``cache_defs``), so seamless decodes against zeros on both."""
     jc, tc, jb, tb = _fp32_pair(arch=arch)
     jreqs = _reqs(jc, 6, new_tokens=8, cls=JaxRequest)
     treqs = _reqs(tc, 6, new_tokens=8)
@@ -123,6 +128,8 @@ def test_serve_continuous_clean():
 @pytest.mark.parametrize("argv", [
     ["--device", "cpu", "--kill", "replica0:5", "--requests", "4"],
     ["--arch", "mamba2-780m", "--device", "cpu", "--kill", "replica0:5", "--requests", "4"],
+    ["--arch", "olmoe-1b-7b", "--device", "cpu", "--kill", "replica0:5", "--requests", "4"],
+    ["--arch", "minitron-4b", "--device", "cpu", "--kill", "replica0:5", "--requests", "4"],
     ["--decode", "sim", "--continuous", "--kill", "replica1:3", "--requests", "12"]])
 def test_launcher(argv, monkeypatch, capsys):
     from repro_torch.launch import serve

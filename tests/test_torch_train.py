@@ -99,6 +99,41 @@ def test_loss_fn_value_and_grads_match(setup, remat, ce_chunk):
     assert errs[worst] <= TOL, (worst, errs[worst])
 
 
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "seamless_m4t_medium"])
+def test_loss_fn_matches_moe_and_encoder_decoder(arch):
+    """loss_fn's loss, ce_loss and aux_loss (olmoe: the summed MoE
+    load-balancing loss; seamless: 0) and every gradient, on a batch_for
+    batch (seamless's carries the encoder frames).  Gradients are held as
+    each leaf's relative L2 error: at this init the encoder's attention is
+    nearly one-hot, and both frameworks' fp32 gradients of its norms lie
+    ~0.035 (max abs, of values ~9) from a float64 computation, 0.0055 from
+    each other, so single elements carry amplified rounding."""
+    jc = dataclasses.replace(jax_smoke(arch), compute_dtype="float32")
+    tc = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    jp = jax.tree.map(lambda x: x.astype(jnp.float32),
+                      JS.materialize(JM.param_defs(jc), jax.random.PRNGKey(5)))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    batch = jax_batch_for(jc, 2, 32, 0, seed=2)
+    assert ("enc_embeds" in batch) == bool(jc.encoder_layers)
+
+    def jloss(p):
+        return JM.loss_fn(p, {k: jnp.asarray(v) for k, v in batch.items()}, jc, ce_chunk=16)
+
+    (jl, jm), jg = jax.value_and_grad(jloss, has_aux=True)(jp)
+    tl, tm, tg = loss_and_grads(tp, {k: torch.from_numpy(v) for k, v in batch.items()}, tc,
+                                ce_chunk=16)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    np.testing.assert_allclose(float(tm["ce_loss"]), float(jm["ce_loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(tm["aux_loss"]), float(jm["aux_loss"]), rtol=1e-5,
+                               atol=1e-12)
+    assert (float(tm["aux_loss"]) > 0) == (tc.moe is not None)
+    errs = {path: float(np.linalg.norm(t.numpy() - np.asarray(j)) / np.linalg.norm(np.asarray(j)))
+            for path, j, t in _pairs(jg, tg)}
+    assert len(errs) == len(tree_leaves(tp))
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= TOL, (worst, errs[worst])
+
+
 def test_loss_fn_leaves_params_untouched_and_forward_is_grad_free(setup):
     _, tc, _, tp, ids, targets = setup
     batch = {"inputs": torch.from_numpy(ids), "targets": torch.from_numpy(targets)}
@@ -107,6 +142,16 @@ def test_loss_fn_leaves_params_untouched_and_forward_is_grad_free(setup):
     h, enc, aux = TM.forward_train(tp, batch, tc, remat=True)
     assert h.grad_fn is None and enc is None and float(aux) == 0.0
     assert set(metrics) == {"ce_loss", "aux_loss"}
+
+
+def test_batch_for_encoder_frames_are_byte_identical():
+    cfg, jcfg = get_smoke_config("seamless_m4t_medium"), jax_smoke("seamless_m4t_medium")
+    for step in (0, 5):
+        want = jax_batch_for(jcfg, 4, 24, step, seed=1)
+        got = batch_for(cfg, 4, 24, step, seed=1)
+        assert set(got) == set(want) == {"inputs", "targets", "enc_embeds"}
+        for k in want:
+            assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
 
 
 def _opt_trees(seed=5):
