@@ -21,7 +21,8 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                         REPO / "tools" / "flash_ab.py",
-                                        REPO / "tools" / "ssd_rounding.py"]
+                                        REPO / "tools" / "ssd_rounding.py",
+                                        REPO / "tools" / "decode_sensitivity.py"]
 MODULES = sorted(
     ".".join(p.relative_to(PORT.parent).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py"))
