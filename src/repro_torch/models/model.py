@@ -153,30 +153,28 @@ def _apply_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return x + y, aux
 
 
-def _cross(params: dict, x: torch.Tensor, cfg: ModelConfig, enc_out: torch.Tensor | None,
-           return_kv: bool = False):
-    """x plus the cross-attention over ``enc_out`` where the block has one
-    (and, with ``return_kv``, its K/V for the cache, else None)."""
+def _cross(params: dict, x: torch.Tensor, cfg: ModelConfig, enc_out: torch.Tensor | None
+           ) -> tuple[torch.Tensor, dict | None]:
+    """x plus the cross-attention over ``enc_out`` where the block has one,
+    and that attention's K/V for the cache (None where it has none)."""
     if enc_out is None or "cross" not in params:
-        return (x, None) if return_kv else x
+        return x, None
     h = rms_norm(x, params["ln_x"], cfg.norm_eps)
-    out = attention_train(params["cross"], h, cfg, kv_source=enc_out, return_kv=return_kv)
-    if return_kv:
-        return x + out[0], out[1]
-    return x + out
+    out, kvs = attention_train(params["cross"], h, cfg, kv_source=enc_out, return_kv=True)
+    return x + out, kvs
 
 
 def block_train(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: BlockKind, *,
-                enc_out: torch.Tensor | None = None, bidirectional: bool = False
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+                enc_out: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x after the block, the MoE aux loss or 0).  The ``bidir`` mixer is
+    the encoder's unmasked self-attention."""
     mixer = kind[0]
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     if mixer in ("attn", "bidir"):
-        y = attention_train(params["attn"], h, cfg,
-                            bidirectional=bidirectional or mixer == "bidir")
+        y = attention_train(params["attn"], h, cfg, bidirectional=mixer == "bidir")
     else:
         y = ssm.ssd_block_train(params["ssd"], h, cfg)
-    x = _cross(params, x + y, cfg, enc_out)
+    x, _ = _cross(params, x + y, cfg, enc_out)
     return _apply_ffn(params, x, cfg, kind)
 
 
@@ -210,7 +208,7 @@ def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: BlockKi
     else:
         y, c = ssm.ssd_block_train(params["ssd"], h, cfg, return_state=True)
         entry = {"ssd": c}
-    x, cross_kv = _cross(params, x + y, cfg, enc_out, return_kv=True)
+    x, cross_kv = _cross(params, x + y, cfg, enc_out)
     if cross_kv is not None:
         entry["cross"] = cross_kv
     return _apply_ffn(params, x, cfg, kind)[0], entry

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig, MoECfg
-from repro_torch.models.layers import matmul
+from repro_torch.models.layers import swiglu
 from repro_torch.models.spec import pdef
 
 
@@ -64,19 +64,9 @@ def _route(params: dict, xf: torch.Tensor, m: MoECfg
     return w.to(xf.dtype), idx, aux
 
 
-def _swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
-            w2: torch.Tensor) -> torch.Tensor:
-    return matmul(F.silu(matmul(x, w1)) * matmul(x, w3), w2)
-
-
 def _expert_ffn(experts: dict, h_in: torch.Tensor) -> torch.Tensor:
     """h_in: (E, C, d) -> (E, C, d); per-expert SwiGLU (batched over E)."""
-    return _swiglu(h_in, experts["w1"], experts["w3"], experts["w2"])
-
-
-def _shared(params: dict, xf: torch.Tensor) -> torch.Tensor:
-    sh = params["shared"]
-    return _swiglu(xf, sh["w1"], sh["w3"], sh["w2"])
+    return swiglu(experts, h_in)
 
 
 def _capacity(m: MoECfg, t: int) -> int:
@@ -106,7 +96,7 @@ def moe_gshard(params: dict, x: torch.Tensor, cfg: ModelConfig
     dt = torch.promote_types(combine.dtype, h_out.dtype)
     y = torch.einsum("tec,ecd->td", combine.to(dt), h_out.to(dt))
     if m.n_shared:
-        y = y + _shared(params, xf)
+        y = y + swiglu(params["shared"], xf)
     return y.reshape(b, s, d), aux
 
 
@@ -158,7 +148,7 @@ def moe_scatter(params: dict, x: torch.Tensor, cfg: ModelConfig
     gathered = torch.where(keep[:, None], gathered, 0)
     y = (gathered.reshape(t, m.top_k, d) * w[..., None].to(gathered.dtype)).sum(1)
     if m.n_shared:
-        y = y + _shared(params, xf)
+        y = y + swiglu(params["shared"], xf)
     return y.reshape(b, s, d), aux
 
 

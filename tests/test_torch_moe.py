@@ -124,6 +124,23 @@ def test_dispatch_matches_reference(weights, fn):
     np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
 
 
+@pytest.mark.parametrize("fn", ["moe_gshard", "moe_scatter"])
+def test_shared_experts_match_reference(fn):
+    """One shared expert beside the routed ones (deepseek-v3's layout; olmoe
+    has none): its SwiGLU is added to every token's output."""
+    jc, tc = _configs(capacity_factor=4.0)
+    jc = dataclasses.replace(jc, moe=dataclasses.replace(jc.moe, n_shared=1))
+    tc = dataclasses.replace(tc, moe=dataclasses.replace(tc.moe, n_shared=1))
+    jp = jax.tree.map(lambda x: x.astype(jnp.float32),
+                      JS.materialize(JMoE.make_moe_defs(jc), jax.random.PRNGKey(9)))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    assert set(tp) == {"router", "experts", "shared"}
+    x = _x(jc.d_model, seed=4)
+    jy, _ = getattr(JMoE, fn)(jp, jnp.asarray(x), jc)
+    ty, _ = getattr(TMoE, fn)(tp, torch.from_numpy(x), tc)
+    _close(ty, jy)
+
+
 def test_capacity_drop_keeps_the_reference_set(weights):
     """capacity_factor 0.05 (the reference's test_moe_capacity_drops_tokens):
     most assignments are dropped; the same ones are kept and the outputs
