@@ -231,3 +231,30 @@ def test_cuda_ssd_kernel_chunk64_matches_chunk128():
     y128, s128 = ssd_scan(x, dt, a, bm, cm, chunk=128)
     torch.testing.assert_close(y64.float(), y128.float(), rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(s64.float(), s128.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [0.05, 1.25])
+def test_cuda_moe_scatter_is_bit_stable(capacity_factor):
+    """The MoE scatter dispatch on the card (PyTorch ops, no kernel of its
+    own): two calls give the same bits, dropped assignments included (they
+    all land in the buffer's spare row), and the result matches the same
+    call on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    from repro_torch.models.spec import materialize, tree_map
+
+    cfg = get_smoke_config("olmoe_1b_7b").scaled(compute_dtype="float32")
+    cfg = cfg.scaled(moe=dataclasses.replace(cfg.moe, capacity_factor=capacity_factor))
+    params = tree_map(lambda t: t.float(), materialize(moe.make_moe_defs(cfg), 0, "cpu"))
+    x = torch.randn(4, 64, cfg.d_model, generator=torch.Generator().manual_seed(5))
+    want, _ = moe.moe_scatter(params, x, cfg)
+    on_card = tree_map(lambda t: t.cuda(), params)
+    y1, _ = moe.moe_scatter(on_card, x.cuda(), cfg)
+    y2, _ = moe.moe_scatter(on_card, x.cuda(), cfg)
+    assert torch.equal(y1, y2)
+    torch.testing.assert_close(y1.cpu(), want, rtol=1e-4, atol=1e-4)
