@@ -12,9 +12,12 @@ from ``--seed``) through the port's entry points at full depth, each with
 prefill and teacher-forced decode checked against the kernel-driven
 forward: granite-3-2b (flash attention), mamba2-780m (the SSD scan),
 minitron-4b (flash at D 128 over padded heads), olmoe-1b-7b (flash, MoE
-FFNs) and seamless-m4t-medium (flash in the encoder, the decoder and its
-cross-attention over the encoder frames); all but seamless also through
-the WRATH serve driver with a replica kill; then
+FFNs), seamless-m4t-medium (flash in the encoder, the decoder and its
+cross-attention over the encoder frames), recurrentgemma-9b (the RG-LRU
+and windowed flash at D 256, MQA) and gemma3-27b (5 windowed : 1 global
+flash layers), the last two over 2560-token prompts that wrap their
+ring-buffer caches; all but seamless also through the WRATH serve driver
+with a replica kill; then
 granite-3-2b's training plane: ``loss_fn`` gradients through the kernels
 against the plain attention at depth 2, ``build_train_step`` at full
 depth, and ``WrathTrainSupervisor`` at depth 4 through a host loss and a
@@ -32,6 +35,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import shutil
@@ -62,10 +66,22 @@ SSD_TOL = {"torch.bfloat16": 5e-2, "torch.float32": 2e-3}
 # their sums and in the two final roundings to bf16 (2^-8 relative each)
 CHUNK_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-5}
 
-ARCHS = ("granite_3_2b", "mamba2_780m", "minitron_4b", "olmoe_1b_7b", "seamless_m4t_medium")
+ARCHS = ("granite_3_2b", "mamba2_780m", "minitron_4b", "olmoe_1b_7b", "seamless_m4t_medium",
+         "recurrentgemma_9b", "gemma3_27b")
 # the reference's serve plane decodes an enc-dec model against a cross memory
 # it never fills (ROADMAP.md, Queue 3), so seamless-m4t-medium is not served
-SERVE_ARCHS = ("granite_3_2b", "mamba2_780m", "minitron_4b", "olmoe_1b_7b")
+SERVE_ARCHS = ("granite_3_2b", "mamba2_780m", "minitron_4b", "olmoe_1b_7b",
+               "recurrentgemma_9b", "gemma3_27b")
+# the prompt each path prefills (B 4) before its teacher-forced decode: 1024
+# but where named.  The windowed models take 2560 tokens, 2.5 windows of
+# gemma3's 1024 and 1.25 of recurrentgemma's 2048: 2560 mod window = 512
+# for both, so the prefill's ring buffers roll and the window mask bites
+PROMPT = {"seamless_m4t_medium": 256, "recurrentgemma_9b": 2560, "gemma3_27b": 2560}
+# the depth of the fp32 and per-layer fan-in comparisons where the full
+# depth does not fit the card in fp32 (gemma3-27b: 108 GB): the first 12
+# layers' weights, two (5 windowed + 1 global) units, so both kinds of layer
+# and the ring wrap are covered; the bf16 path runs at full depth
+CMP_DEPTH = {"gemma3_27b": 12}
 
 # decode vs forward, per-row relative L2 error of the logits at full
 # depth.  The reference's init draws stacked weights with fan-in = layer
@@ -101,7 +117,7 @@ SERVE_ARCHS = ("granite_3_2b", "mamba2_780m", "minitron_4b", "olmoe_1b_7b")
 # init's reading beside it.
 FP32_REL_TOL = 1e-3
 FP32_GATED_AT_REFERENCE_INIT = ("granite_3_2b", "mamba2_780m")
-# bf16 limits of the three: twice the first full run's reading on an NVIDIA
+# bf16 limits: twice the first full run's reading on an NVIDIA
 # H100 80GB HBM3 at 700.00 W, beside the bf16 forward's distance from the
 # fp32 forward on the same weights.  Reference init: minitron 0.107 (0.82),
 # seamless 0.345 (1.36), olmoe 1.21 (1.36; at no-drop capacity: the routing
@@ -109,9 +125,20 @@ FP32_GATED_AT_REFERENCE_INIT = ("granite_3_2b", "mamba2_780m")
 # ~1.4, so its limit holds nothing).  Per-layer fan-in init (WC_BF16_REL_TOL):
 # minitron 0.0242 (0.0229), seamless 0.0110 (0.0130), olmoe 0.107 (0.107;
 # 48 rows flip an expert in bf16, none in fp32, least top-8/9 gap 1.85e-6).
+# recurrentgemma-9b and gemma3-27b (same card and limit; fp32 decode vs
+# forward at the reference init 1.8e-3 at 38 layers and 6.6e-4 at gemma3's
+# 12, so both are gated at the per-layer fan-in init, 9.7e-6 and 5.1e-6):
+# reference init 0.762 (bf16 forward vs fp32 0.96) and 0.122 (gemma3 at
+# full depth; its bf16 forward is 0.83 from fp32 at 12 layers); fan-in
+# init 0.0501 (0.0401) and 0.0174 (0.0175, 12 layers).  recurrentgemma's
+# decode keeps the RG-LRU state h in the model dtype, as the reference's
+# does (griffin.py:rglru_block_decode), so its bf16 decode also drifts
+# from the prefill's fp32 scan: reference behaviour, part of its reading.
 BF16_REL_TOL = {"granite_3_2b": 0.25, "mamba2_780m": 0.9, "minitron_4b": 0.21,
-                "olmoe_1b_7b": 2.4, "seamless_m4t_medium": 0.69}
-WC_BF16_REL_TOL = {"minitron_4b": 0.048, "olmoe_1b_7b": 0.21, "seamless_m4t_medium": 0.022}
+                "olmoe_1b_7b": 2.4, "seamless_m4t_medium": 0.69,
+                "recurrentgemma_9b": 1.52, "gemma3_27b": 0.243}
+WC_BF16_REL_TOL = {"minitron_4b": 0.048, "olmoe_1b_7b": 0.21, "seamless_m4t_medium": 0.022,
+                   "recurrentgemma_9b": 0.10, "gemma3_27b": 0.035}
 # mamba2-780m cut to its first layer (same weights), bf16 decode vs
 # forward over 128 steps: twice the 9.3e-3 measured on an H100
 DEPTH1_BF16_REL_TOL = 0.02
@@ -213,6 +240,13 @@ def phase_kernel_cases(seed: int) -> list[dict]:
         ("seamless_encoder", 4, 1024, 1024, 16, 16, 64, torch.bfloat16, False, 0),
         ("seamless_cross", 4, 256, 1024, 16, 16, 64, torch.bfloat16, False, 0),
         ("cross_ragged", 4, 256, 1000, 16, 16, 64, torch.bfloat16, False, 0),
+        # recurrentgemma-9b's local attention (D 256, MQA, window 2048) in both
+        # dtypes, and gemma3-27b's local and global layers, at their 2560-token
+        # prefill
+        ("recurrentgemma_prefill", 4, 2560, 2560, 16, 1, 256, torch.bfloat16, True, 2048),
+        ("recurrentgemma_prefill_fp32", 4, 2560, 2560, 16, 1, 256, torch.float32, True, 2048),
+        ("gemma3_local", 4, 2560, 2560, 32, 16, 128, torch.bfloat16, True, 1024),
+        ("gemma3_global", 4, 2560, 2560, 32, 16, 128, torch.bfloat16, True, 0),
     ]
     results = []
     for name, b, s, sk, h, kv, d, dtype, causal, window in cases:
@@ -228,11 +262,7 @@ def phase_kernel_cases(seed: int) -> list[dict]:
         scaled = scaled_err(out, ref)
         # the yardstick: one PyTorch call computing the same function
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        mask = None
-        if window:
-            pos = torch.arange(s, device="cuda")
-            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
-        lib_kw = dict(attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
+        lib_kw = _sdpa_kw(s, causal, window)
         lib = F.scaled_dot_product_attention(qt, kt, vt, **lib_kw).transpose(1, 2)
         lib_err = (lib.float() - ref.float()).abs().max().item()
         ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal, window=window))
@@ -446,8 +476,10 @@ def _path_logits(params, cfg, ids, s: int, steps: int, *, enc=None, state_dtype=
     first_prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_launches = launch_counts()
     # an attention cache of length s has no free slot: copy it into a
-    # longer one; an SSD prefill cache (conv, state) is the decode cache, and
-    # so is an enc-dec model's cross memory (the encoder's length, not s)
+    # longer one; a sliding window's ring buffer (min(window, s) wide) goes
+    # to the front of one min(window, s + steps) wide; an SSD or RG-LRU
+    # prefill cache (conv and state) is the decode cache, and so is an
+    # enc-dec model's cross memory (the encoder's length, not s)
     cache = tree_map(lambda t: t.to(cfg.cdtype) if t.is_floating_point() else t,
                      materialize(cache_defs(cfg, b, s + steps), 0, "cuda"))
     for dst, src in zip(cache["segments"], pcache["segments"]):
@@ -457,8 +489,12 @@ def _path_logits(params, cfg, ids, s: int, steps: int, *, enc=None, state_dtype=
                 dst[u]["ssd"] = {"conv": src[u]["ssd"]["conv"],
                                  "state": st.to(state_dtype) if state_dtype else st}
                 continue
-            dst[u]["attn"]["k"][:, :, :s].copy_(src[u]["attn"]["k"])
-            dst[u]["attn"]["v"][:, :, :s].copy_(src[u]["attn"]["v"])
+            if "rglru" in dst[u]:
+                dst[u]["rglru"] = src[u]["rglru"]
+                continue
+            w = src[u]["attn"]["k"].shape[2]
+            dst[u]["attn"]["k"][:, :, :w].copy_(src[u]["attn"]["k"])
+            dst[u]["attn"]["v"][:, :, :w].copy_(src[u]["attn"]["v"])
             dst[u]["attn"]["len"].copy_(src[u]["attn"]["len"])
             if "cross" in dst[u]:
                 dst[u]["cross"] = src[u]["cross"]
@@ -515,11 +551,11 @@ def ssd_state_readings(params, cfg, ids, s: int, steps: int) -> dict:
 
 
 def expected_launches(cfg) -> dict[str, int]:
-    """Kernel launches of one prefill: one per attention or SSD layer; an
-    enc-dec model adds one per encoder layer and a cross-attention per
-    decoder layer."""
+    """Kernel launches of one prefill: one per attention (global or
+    windowed) or SSD layer, none for an RG-LRU layer; an enc-dec model adds
+    one per encoder layer and a cross-attention per decoder layer."""
     mixers = [m for m, _ in cfg.block_kinds()]
-    attn = mixers.count("attn")
+    attn = mixers.count("attn") + mixers.count("swa")
     if cfg.encoder_layers:
         attn = cfg.encoder_layers + 2 * attn
     return {"flash_attention": attn, "flash_attention_bwd": 0, "ssd_scan": mixers.count("ssd")}
@@ -579,19 +615,43 @@ def moe_flips(calls: list, n_layers: int, steps: int) -> dict:
             fwd[0]["experts"].shape[0]}
 
 
-def _fan_in_per_layer(params: dict) -> dict:
+def _fan_in_per_layer(params: dict, cfg) -> dict:
     """The same weights with each stacked matrix, (L, ..., d_in, d_out),
-    rescaled from the reference's fan-in (the layer count L) to d_in: a
-    well-conditioned init where attention is not near-hard."""
+    rescaled from the reference's fan-in (its stack depth L) to d_in: a
+    well-conditioned init where attention is not near-hard.  ``cfg`` is
+    the config the weights were drawn at: L comes from its definitions, so
+    a cut of them (``_first_layers``) is rescaled as the whole would be;
+    leaves drawn at a scale of their own (convolutions, the RG-LRU's gate
+    matrices) keep it."""
+    from repro_torch.models import param_defs
+    from repro_torch.models.spec import tree_zip_map
+
+    def rescale(t, d):
+        if len(d.shape) >= 3 and d.init == "normal" and d.scale is None:
+            return t * math.sqrt(d.shape[0] / d.shape[-2])
+        return t
+
+    defs = param_defs(cfg)
+    out = {**params, "segments": [tree_zip_map(rescale, seg, d)
+                                  for seg, d in zip(params["segments"], defs["segments"])]}
+    if "encoder" in params:
+        out["encoder"] = tree_zip_map(rescale, params["encoder"], defs["encoder"])
+    return out
+
+
+def _first_layers(params: dict, cfg, n: int, *, clone: bool = False):
+    """(params, cfg) of the model cut to its first ``n`` layers, the same
+    weights: ``n`` whole units of the first scan segment.  ``clone`` copies
+    the cut leaves, so the whole tree can then be freed."""
     from repro_torch.models.spec import tree_map
 
-    def rescale(t):
-        return t * math.sqrt(t.shape[0] / t.shape[-2]) if t.dim() >= 3 else t
-
-    out = {**params, "segments": tree_map(rescale, params["segments"])}
-    if "encoder" in params:
-        out["encoder"] = tree_map(rescale, params["encoder"])
-    return out
+    unit, repeats = cfg.scan_segments()[0]
+    r = n // len(unit)
+    cut = cfg.scaled(n_layers=n)
+    check(r * len(unit) == n and 0 < r <= repeats and cut.scan_segments() == [(unit, r)],
+          f"{cfg.name}: {n} layers are not whole units of the first segment")
+    seg = tree_map(lambda t: t[:r].clone() if clone else t[:r], params["segments"][0])
+    return {**params, "segments": [seg]}, cut
 
 
 def _to_fp32(params):
@@ -614,24 +674,34 @@ def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
     """Returns the kernel launches of the main-path run (prefill + decode).
 
     An enc-dec model prefills a 256-token prompt against 1024 encoder
-    frames (so its cross-attention has Sk != S).  An MoE model's timed
+    frames (so its cross-attention has Sk != S); the windowed models
+    prefill 2560 tokens (PROMPT).  An MoE model's timed
     path runs its shipped capacity factor, which drops assignments in the
     prefill and the forward but not in a decode step; its decode is held to
     the forward at capacity factor n_experts / top_k, where nothing drops.
     Archs not in FP32_GATED_AT_REFERENCE_INIT are also compared on the
-    weights rescaled by ``_fan_in_per_layer``, where the fp32 gate holds."""
+    weights rescaled by ``_fan_in_per_layer``, where the fp32 gate holds.
+    An arch in CMP_DEPTH runs its fp32 and fan-in comparisons (and the bf16
+    forward they are read against) on its first CMP_DEPTH layers, after the
+    full-depth weights are freed; ``peak_gb`` holds each part's peak."""
     from repro_torch.configs import get_config
     from repro_torch.distributed.step import build_prefill_step
     from repro_torch.models import materialize, param_defs
 
     cfg = get_config(arch)
-    b, s = 4, 1024
+    b, s = 4, PROMPT.get(arch, 1024)
     enc = None
     if cfg.encoder_layers:
-        s, enc_len = 256, 1024
+        enc_len = 1024
     # the forward over prompt + decoded tokens must keep the SSD scan's
     # L % chunk == 0 (the reference asserts it), so an SSD model decodes a chunk
     steps = cfg.ssm.chunk if cfg.ssm else 8
+    peaks = {}
+
+    def peak(part: str) -> None:   # the peak since the last part, then reset
+        peaks[part] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = materialize(param_defs(cfg), seed, "cuda")
@@ -667,15 +737,25 @@ def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
                               "decode_vs_forward_rel_err_max":
                               _rel_rows(bf["got"], bf["ref"]).max().item()}
         bf_cmp = _compared(params, cmp_cfg, ids, s, steps, enc, moe_out, "bf16")
+    peak("bf16_path")
+    # -- the comparisons' depth: the first CMP_DEPTH layers, the rest freed --
+    depth = CMP_DEPTH.get(arch, cfg.n_layers)
+    bf_at_depth = bf_cmp              # the bf16 forward the fp32 one is read against
+    if depth < cfg.n_layers:
+        params, cmp_cfg = _first_layers(params, cmp_cfg, depth, clone=True)
+        torch.cuda.empty_cache()
+        bf_at_depth = _compared(params, cmp_cfg, ids, s, steps, enc, moe_out, "bf16_cut")
+        peak("bf16_cut")
     # -- the same weights and tokens in fp32: the algorithms must agree ----
     cfg32 = cmp_cfg.scaled(compute_dtype="float32")
     params32 = _to_fp32(params)
     f32 = _path_logits(params32, cfg32, ids, s, steps, enc=enc)
     del params32
+    peak("fp32")
     # -- and on the well-conditioned init ----------------------------------
     wc = None
     if arch not in FP32_GATED_AT_REFERENCE_INIT:
-        params = _fan_in_per_layer(params)
+        params = _fan_in_per_layer(params, cfg)    # replaces the reference-init copy
         wc_bf = _compared(params, cmp_cfg, ids, s, steps, enc, moe_out, "fan_in_per_layer_bf16")
         params = _to_fp32(params)
         wc_32 = _compared(params, cfg32, ids, s, steps, enc, moe_out, "fan_in_per_layer_fp32")
@@ -691,20 +771,23 @@ def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
               "finite": all(bool(torch.isfinite(x).all()) for x in
                             (wc_bf["got"], wc_bf["ref"], wc_32["got"], wc_32["ref"]))}
         del wc_bf, wc_32
+        peak("fan_in_per_layer")
     del params
     torch.cuda.empty_cache()
 
     rel_bf = _rel_rows(bf_cmp["got"], bf_cmp["ref"])   # (B, steps + 1)
     rel_32 = _rel_rows(f32["got"], f32["ref"])
-    rel_bf_vs_32 = _rel_rows(bf_cmp["ref"], f32["ref"])   # bf16 forward vs fp32 forward
+    rel_bf_vs_32 = _rel_rows(bf_at_depth["ref"], f32["ref"])   # bf16 forward vs fp32 forward
     finite = all(bool(torch.isfinite(x).all()) for x in
-                 (bf["got"], bf["ref"], bf_cmp["got"], bf_cmp["ref"], f32["got"], f32["ref"]))
+                 (bf["got"], bf["ref"], bf_cmp["got"], bf_cmp["ref"], bf_at_depth["got"],
+                  bf_at_depth["ref"], f32["got"], f32["ref"]))
     bf16_tol = BF16_REL_TOL[arch]
     out = {"config": cfg.name, "batch": b, "prompt": s, "decode_steps": steps,
            "init_s": init_s, "prefill_launches": bf["prefill_launches"],
            "first_prefill_ms": bf["first_prefill_ms"], "prefill_ms": bf["prefill_ms"],
            "decode_step_ms": statistics.median(bf["step_ms"]),
            "decode_step_ms_all": bf["step_ms"],
+           "cmp_layers": depth,
            "fp32_prefill_ms": f32["prefill_ms"],
            "fp32_decode_step_ms": statistics.median(f32["step_ms"]),
            "bf16_rel_err_max": rel_bf.max().item(),
@@ -717,7 +800,10 @@ def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
            "bf16_forward_vs_fp32_forward_by_pos": rel_bf_vs_32.max(dim=0).values.tolist(),
            "fp32_tol": FP32_REL_TOL, "fp32_gated_at": "fan_in_per_layer" if wc else "reference",
            "bf16_tol": bf16_tol, "finite": finite,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_mem_gb": max(peaks.values()), "peak_gb": peaks}
+    if depth < cfg.n_layers:
+        rel_cut = _rel_rows(bf_at_depth["got"], bf_at_depth["ref"])
+        out["bf16_cut_rel_err_max"] = rel_cut.max().item()
     if enc is not None:
         out["encoder_frames"] = enc.shape[1]
     if depth1:
@@ -727,7 +813,8 @@ def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
     if moe_out:
         out.update(moe=moe_out, compared_capacity_factor=cmp_cfg.moe.capacity_factor)
     emit("prefill_decode", **out)
-    emit("device_time", config=cfg.name, bf16=bf["profiles"], fp32=f32["profiles"])
+    emit("device_time", config=cfg.name, bf16=bf["profiles"], fp32=f32["profiles"],
+         fp32_layers=depth)
     check(finite and (wc is None or wc["finite"]),
           f"{arch}: prefill/decode/forward logits are not all finite")
     fp32_err = wc["fp32_rel_err_max"] if wc else out["fp32_rel_err_max"]
@@ -784,8 +871,17 @@ def phase_serve(arch: str, seed: int) -> None:
          wall_s=rep.wall_s, decode_steps=rep.decode_steps)
     check(rep.completed == SERVE_REQUESTS and rep.failed == 0,
           f"{arch}: continuous serve completed {rep.completed}/{SERVE_REQUESTS}")
-    del backend, driver
+    driver.shutdown()
+    del backend, driver, cont
+
+
+def release() -> float:
+    """Free what the last phase left: the serve drivers hold their backend
+    (and its weights) in reference cycles that only the collector breaks.
+    Returns the GB still allocated."""
+    gc.collect()
     torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
 
 
 def attention_bwd_bound(b: int, s: int, h: int, kv: int, d: int, dtype, causal: bool,
@@ -986,7 +1082,7 @@ def phase_train_grad_check(seed: int) -> None:
     batch = batch_to(batch_for(base, b, s, 0, seed=seed), torch.device("cuda"))
     reference = materialize(param_defs(base), seed, "cuda")
     # (L, d_in, d_out) leaves drawn at 1 / sqrt(L): rescaled to 1 / sqrt(d_in)
-    fan_in = _fan_in_per_layer(reference)      # granite has no encoder
+    fan_in = _fan_in_per_layer(reference, base)      # granite has no encoder
     for init, params_bf in (("reference", reference), ("fan_in_per_layer", fan_in)):
         _grad_check_init(init, params_bf, batch, base)
     del reference, fan_in
@@ -1201,13 +1297,17 @@ def main() -> int:
 
     # -- 4. prefill + decode at full width and depth, 5. serve, per path -----
     # each path's counts are zeroed just before its run and read just after
-    path_launches = {}
+    path_launches, resident = {}, {}
     for arch in ARCHS:
         t0 = time.perf_counter()
         path_launches[f"{arch} prefill+decode"] = phase_prefill_decode(arch, args.seed)
         if arch in SERVE_ARCHS:
             phase_serve(arch, args.seed)
         seconds[arch] = time.perf_counter() - t0
+        # the next model (gemma3-27b: 54 GB) needs the card to itself
+        resident[arch] = release()
+        check(resident[arch] < 1.0, f"{arch}: {resident[arch]} GB still allocated after "
+              "its phases")
 
     # -- 6. the training plane: gradients, a full train step, the supervisor
     t0 = time.perf_counter()
@@ -1219,7 +1319,7 @@ def main() -> int:
     t0 = time.perf_counter()
     path_launches["granite_3_2b train_supervisor"] = phase_train_supervisor(args.seed)
     seconds["train_supervisor"] = time.perf_counter() - t0
-    emit("timing", seconds=seconds)
+    emit("timing", seconds=seconds, resident_gb_after=resident)
 
     # -- 7. the kernel table ------------------------------------------------
     rows = [("flash_attention", flash_cases, "granite_prefill",

@@ -2,16 +2,17 @@
 
 Each module defines ``CONFIG`` (the exact assigned configuration) and
 ``smoke_config()`` (a reduced same-family variant for CPU tests).  The
-port holds granite-3-2b, mamba2-780m, minitron-4b, olmoe-1b-7b and
-seamless-m4t-medium so far; the other five architectures of
-``repro.configs`` follow in ROADMAP.md, 'Next slices' item 1.
+port holds granite-3-2b, mamba2-780m, minitron-4b, olmoe-1b-7b,
+seamless-m4t-medium, recurrentgemma-9b and gemma3-27b so far; the other
+three architectures of ``repro.configs`` follow in ROADMAP.md, 'Next
+slices' item 1.
 """
 from __future__ import annotations
 
 import importlib
 
 ARCH_IDS = ("granite_3_2b", "mamba2_780m", "minitron_4b", "olmoe_1b_7b",
-            "seamless_m4t_medium")
+            "seamless_m4t_medium", "recurrentgemma_9b", "gemma3_27b")
 
 # canonical dashed ids (CLI spelling) -> module names
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}

@@ -47,6 +47,18 @@
 //    tensor maps; no copy of K or V is made.
 //  * fp32 inputs take a plain SIMT kernel (one q row per thread), exact
 //    in fp32 to the reference's 1e-4.
+//
+// D 256 (recurrentgemma-9b) has instantiations of its own; D 64 and 128
+// are unchanged.  In bf16 the 128-key tile of D 64/128 does not fit: Q
+// is 64 KB and a K/V stage 2 x 64 KB, over the 227 KB of an SM, and the
+// O accumulator (64 x 256 fp32 a warpgroup) takes 128 registers a thread
+// on top of S.  So D 256 takes 64-key tiles (Smem<256>::WN): K/V 32 KB a
+// stage, two stages and Q ~193 KB at one block an SM; S = Q K^T as
+// m64n64k16 over 16 k-steps and O += P V as m64n256k16, the widest wgmma
+// N.  In fp32 one q row's q[D] and acc[D] would be 512 floats a thread,
+// so four threads share a row (flash_fwd_f32_wide), each with 64 of its
+// columns, the dot products summed across the four by warp shuffles, on
+// 16-key tiles that keep K and V in 32 KB of static shared memory.
 // A row with no visible key at all (only possible when S > Sk) comes out
 // as zeros in the bf16 kernel; the reference averages every key there.
 //
@@ -67,7 +79,8 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int BM = 64;        // q rows per block, fp32 kernel
 constexpr int TN = 32;        // kv rows per tile, fp32 kernel
 constexpr int WM = 128;       // q rows per block, bf16 kernel (two warpgroups of 64)
-constexpr int WN = 128;       // kv rows per tile, bf16 kernel
+constexpr int PARTS = 4;      // threads a q row, fp32 kernel at D 256
+constexpr int TN_WIDE = 16;   // kv rows per tile, fp32 kernel at D 256
 
 struct Params {
   const void* q;
@@ -99,12 +112,14 @@ __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
 }
 
 // Shared memory of the bf16 kernel: Q, then STAGES K tiles, STAGES V
-// tiles (each D / 64 boxes of 128 rows x 128 bytes), then the mbarriers.
+// tiles (each D / 64 boxes of WN rows x 128 bytes), then the mbarriers.
 // At D 64 two stages keep a block at 80 KB, so two blocks share an SM; a
-// third stage (two blocks still fit) gained nothing.
+// third stage (two blocks still fit) gained nothing.  At D 256 the kv
+// tile is 64 rows, and two stages are all that fit.
 template <int D>
 struct Smem {
-  static constexpr int STAGES = D == 64 ? 2 : 3;
+  static constexpr int WN = D == 256 ? 64 : 128;   // kv rows per tile
+  static constexpr int STAGES = D == 128 ? 3 : 2;
   static constexpr int BLOCKS_PER_SM = D == 64 ? 2 : 1;
   static constexpr uint32_t Q_BYTES = WM * D * 2;
   static constexpr uint32_t KV_BYTES = WN * D * 2;
@@ -122,6 +137,7 @@ __global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
                    const __grid_constant__ CUtensorMap tm_v, Params p) {
   using L = Smem<D>;
   constexpr int STAGES = L::STAGES;
+  constexpr int WN = L::WN;
   constexpr int BOXES = D / BOX;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
@@ -198,7 +214,7 @@ __global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
     __syncwarp();
     const int k0 = (t_lo + i) * WN;
 
-    float sc[64];
+    float sc[WN / 2];
     mbar_wait(&full_k[s], phase);
     qk_product<D, WM, WN>(sc, q_smem, smem_u32(sK + s * L::KV_BYTES));
 
@@ -219,7 +235,7 @@ __global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
         hi[r] -= 2 * t4;
       }
 #pragma unroll
-      for (int e = 0; e < 64; ++e) {
+      for (int e = 0; e < WN / 2; ++e) {
         const int c = (e / 4) * 8 + (e & 1), r = (e >> 1) & 1;
         if (c < lo[r] || c > hi[r]) sc[e] = NEG_INF;
       }
@@ -376,14 +392,118 @@ __global__ void __launch_bounds__(BM) flash_fwd_f32(Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// fp32 at D 256: SIMT, PARTS threads a q row, each with D / PARTS columns
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(BM * PARTS) flash_fwd_f32_wide(Params p) {
+  constexpr int DP = D / PARTS;      // columns a thread: float4 i at 16 i + 4 part
+  __shared__ __align__(16) float sK[TN_WIDE][D];
+  __shared__ __align__(16) float sV[TN_WIDE][D];
+
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int kvh = h / (p.H / p.KV);
+  const int part = threadIdx.x % PARTS;   // the PARTS threads of a row are adjacent lanes
+  const int q0 = blockIdx.x * BM;
+  const int qpos = q0 + threadIdx.x / PARTS;
+  const size_t q_stride = (size_t)p.H * D;
+  const size_t kv_stride = (size_t)p.KV * D;
+  const float* qb = static_cast<const float*>(p.q) + ((size_t)b * p.S * p.H + h) * D;
+  const float* kb = static_cast<const float*>(p.k) + ((size_t)b * p.Sk * p.KV + kvh) * D;
+  const float* vb = static_cast<const float*>(p.v) + ((size_t)b * p.Sk * p.KV + kvh) * D;
+  float* ob = static_cast<float*>(p.o) + ((size_t)b * p.S * p.H + h) * D;
+
+  float q[DP], acc[DP];
+#pragma unroll
+  for (int i = 0; i < DP / 4; ++i) {
+    float4 q4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (qpos < p.S)
+      q4 = *reinterpret_cast<const float4*>(qb + (size_t)qpos * q_stride + 16 * i + 4 * part);
+    q[4 * i + 0] = q4.x;
+    q[4 * i + 1] = q4.y;
+    q[4 * i + 2] = q4.z;
+    q[4 * i + 3] = q4.w;
+  }
+#pragma unroll
+  for (int d = 0; d < DP; ++d) acc[d] = 0.f;
+  float m = NEG_INF, l = 0.f;
+
+  int t_lo, t_hi;
+  kv_tiles(p, q0, TN_WIDE, t_lo, t_hi);
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int k0 = t * TN_WIDE;
+    __syncthreads();
+    for (int c = threadIdx.x; c < TN_WIDE * D / 4; c += blockDim.x) {
+      const int r = c / (D / 4), cc = c % (D / 4);
+      float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
+      if (k0 + r < p.Sk) {
+        kv4 = *reinterpret_cast<const float4*>(kb + (size_t)(k0 + r) * kv_stride + cc * 4);
+        vv4 = *reinterpret_cast<const float4*>(vb + (size_t)(k0 + r) * kv_stride + cc * 4);
+      }
+      *reinterpret_cast<float4*>(&sK[r][cc * 4]) = kv4;
+      *reinterpret_cast<float4*>(&sV[r][cc * 4]) = vv4;
+    }
+    __syncthreads();
+
+    float s[TN_WIDE];
+    float mx = m;
+#pragma unroll
+    for (int j = 0; j < TN_WIDE; ++j) {
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < DP / 4; ++i) {
+        const float4 k4 = *reinterpret_cast<const float4*>(&sK[j][16 * i + 4 * part]);
+        dot = fmaf(q[4 * i + 0], k4.x, dot);
+        dot = fmaf(q[4 * i + 1], k4.y, dot);
+        dot = fmaf(q[4 * i + 2], k4.z, dot);
+        dot = fmaf(q[4 * i + 3], k4.w, dot);
+      }
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      s[j] = visible(p, qpos, k0 + j) ? dot * p.scale_log2 : NEG_INF;
+      mx = fmaxf(mx, s[j]);
+    }
+    const float alpha = exp2f(m - mx);
+    m = mx;
+    l *= alpha;
+#pragma unroll
+    for (int d = 0; d < DP; ++d) acc[d] *= alpha;
+#pragma unroll
+    for (int j = 0; j < TN_WIDE; ++j) {
+      const float pj = exp2f(s[j] - m);
+      l += pj;
+#pragma unroll
+      for (int i = 0; i < DP / 4; ++i) {
+        const float4 v4 = *reinterpret_cast<const float4*>(&sV[j][16 * i + 4 * part]);
+        acc[4 * i + 0] = fmaf(pj, v4.x, acc[4 * i + 0]);
+        acc[4 * i + 1] = fmaf(pj, v4.y, acc[4 * i + 1]);
+        acc[4 * i + 2] = fmaf(pj, v4.z, acc[4 * i + 2]);
+        acc[4 * i + 3] = fmaf(pj, v4.w, acc[4 * i + 3]);
+      }
+    }
+  }
+  if (qpos < p.S && p.lse != nullptr && part == 0)   // m and l are in base 2 here
+    p.lse[((size_t)b * p.H + h) * p.S + qpos] =
+        m == NEG_INF ? -INFINITY : (m + log2f(l)) / LOG2E;
+  if (qpos < p.S) {
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int i = 0; i < DP / 4; ++i)
+      *reinterpret_cast<float4*>(ob + (size_t)qpos * q_stride + 16 * i + 4 * part) =
+          make_float4(acc[4 * i + 0] * inv, acc[4 * i + 1] * inv, acc[4 * i + 2] * inv,
+                      acc[4 * i + 3] * inv);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 template <int D>
 int launch_bf16(const Params& p, const long long* layout, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   int err = encode(&tm_q, p.q, layout, WM);
-  if (!err) err = encode(&tm_k, p.k, layout + 11, WN);
-  if (!err) err = encode(&tm_v, p.v, layout + 11, WN);
+  if (!err) err = encode(&tm_k, p.k, layout + 11, Smem<D>::WN);
+  if (!err) err = encode(&tm_v, p.v, layout + 11, Smem<D>::WN);
   if (err) return err;
   constexpr size_t smem = Smem<D>::BYTES;
   static uint32_t opted = 0;   // a bit per device
@@ -397,6 +517,11 @@ int launch_bf16(const Params& p, const long long* layout, cudaStream_t stream) {
 template <int D>
 void launch_f32(const Params& p, dim3 grid, cudaStream_t stream) {
   flash_fwd_f32<D><<<grid, BM, 0, stream>>>(p);
+}
+
+template <int D>
+void launch_f32_wide(const Params& p, dim3 grid, cudaStream_t stream) {
+  flash_fwd_f32_wide<D><<<grid, BM * PARTS, 0, stream>>>(p);
 }
 
 }  // namespace
@@ -417,6 +542,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   else if (is_bf16 && D == 128) err = launch_bf16<128>(p, layout, st);
   else if (!is_bf16 && D == 64) launch_f32<64>(p, dim3((S + BM - 1) / BM, B * H), st);
   else if (!is_bf16 && D == 128) launch_f32<128>(p, dim3((S + BM - 1) / BM, B * H), st);
+  else if (is_bf16 && D == 256) err = launch_bf16<256>(p, layout, st);
+  else if (!is_bf16 && D == 256) launch_f32_wide<256>(p, dim3((S + BM - 1) / BM, B * H), st);
   else return (int)cudaErrorInvalidValue;
   return err ? err : (int)cudaGetLastError();
 }

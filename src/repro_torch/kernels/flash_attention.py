@@ -26,9 +26,13 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
-HEAD_DIMS = (64, 128)
-# the bf16 kernel's tiles (WM, WN in the source): q rows per block, kv rows per stage
+HEAD_DIMS = (64, 128, 256)
+# the head dims the backward kernels take; D 256 waits in ROADMAP.md, Queue 2 item 1
+BWD_HEAD_DIMS = (64, 128)
+# the bf16 kernel's tiles (WM, Smem<D>::WN in the source): q rows per block,
+# kv rows per stage; D 256 takes kv tiles of BLOCK_KV_D256 rows
 BLOCK_Q = BLOCK_KV = 128
+BLOCK_KV_D256 = 64
 # the bf16 backward's tiles (ROWS in csrc/flash_attention_bwd.cu): TMA
 # boxes of 64 rows of q, dO, k and v; its lse / Delta scratch pads S to them
 BWD_BOX_ROWS = 64
@@ -105,6 +109,11 @@ def _bwd_fn():
     return fn
 
 
+def block_kv(d: int) -> int:
+    """kv rows per stage of the bf16 forward kernel at head dim ``d``."""
+    return BLOCK_KV_D256 if d == 256 else BLOCK_KV
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be (B, S, H, D)")
@@ -138,7 +147,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sk, kvh = k.shape[1], k.shape[2]
     layout = None
     if q.dtype == torch.bfloat16:   # the TMA layouts of q and of k / v
-        layout = layout_array(q.shape, q.stride(), k.shape, k.stride(), BLOCK_Q, BLOCK_KV)
+        layout = layout_array(q.shape, q.stride(), k.shape, k.stride(), BLOCK_Q, block_kv(d))
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
@@ -159,7 +168,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of :func:`flash_attention_cuda`: q, o, do (B, S, H, D),
     k, v (B, Sk, KV, D), lse (B, H, S) fp32 from the forward -> (dq, dk, dv)
-    in the inputs' dtype, dk and dv summed over each kv head's q heads."""
+    in the inputs' dtype, dk and dv summed over each kv head's q heads.
+    Head dims in BWD_HEAD_DIMS only: D 256 raises (ROADMAP.md, Queue 2 item 1)."""
+    if q.dim() == 4 and q.shape[-1] not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_bwd: head dim {q.shape[-1]} has no backward kernel yet "
+            f"(it takes {BWD_HEAD_DIMS}): ROADMAP.md, Queue 2 item 1")
     _check(q, k, v)
     do = do.contiguous()
     b, s, h, d = q.shape

@@ -1,5 +1,7 @@
-"""Model zoo of the port: the dense GQA decoder (granite-3-2b) and the
-Mamba-2 SSD model (mamba2-780m)."""
+"""Model zoo of the port: dense GQA decoders (granite-3-2b, minitron-4b),
+sliding-window hybrids (gemma3-27b; recurrentgemma-9b with the RG-LRU),
+the Mamba-2 SSD model (mamba2-780m), MoE (olmoe-1b-7b) and the
+encoder-decoder backbone (seamless-m4t-medium)."""
 from repro_torch.models.config import (
     BlockKind,
     MLACfg,

@@ -11,9 +11,10 @@ it is the reference's loop over query blocks, so the full (S × S) score
 matrix is never built.  Decode uses ring-buffer KV caches, updated in
 place (the reference returns a new cache tree).
 
-Cross-attention (encoder-decoder) reads the encoder output without
-RoPE; its decode attends to a fixed memory and leaves the cache as it
-is.  MLA and the activation-sharding context wait for later slices
+Sliding-window layers (``swa``) pass ``window`` to the same kernel;
+their decode cache is a ring buffer one window wide.  Cross-attention
+(encoder-decoder) reads the encoder output without RoPE; its decode
+attends to a fixed memory and leaves the cache as it is.  MLA and the activation-sharding context wait for later slices
 (ROADMAP.md, 'Next slices' item 4).
 """
 from __future__ import annotations
@@ -224,10 +225,12 @@ def _pad_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_train(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                    bidirectional: bool = False, kv_source: torch.Tensor | None = None,
-                    return_kv: bool = False):
+                    window: int = 0, bidirectional: bool = False,
+                    kv_source: torch.Tensor | None = None, return_kv: bool = False):
     """Self- (or cross-) attention over a full sequence.
 
+    window: sliding-window self-attention (``swa``): query q sees keys
+    k with q - window < k <= q.
     bidirectional: no causal mask (encoder self-attention).
     kv_source: if given (encoder output, (B, Sk, d)), cross-attention
     without RoPE and without a mask.
@@ -247,7 +250,8 @@ def attention_train(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         k = apply_rope(k, pos, cfg.rope_theta)
     kv_for_cache = {"k": k, "v": v}
     q, k, v, h_orig = _pad_heads(q, k, v, cfg)
-    out = blockwise_mha(q, k, v, causal=kv_source is None and not bidirectional)
+    out = blockwise_mha(q, k, v, causal=kv_source is None and not bidirectional,
+                        window=window)
     out = out[..., :h_orig, :]
     out = matmul(out.reshape(b, s, h * hd), params["wo"])
     if return_kv:
@@ -264,9 +268,13 @@ def attention_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfi
                      cross_memory: dict | None = None) -> tuple[torch.Tensor, dict]:
     """x: (B, 1, d).  cache: {"k","v": (B, Smax, KV, hd), "len": ()}.
 
-    Ring-buffer semantics: the new KV overwrites slot ``len % Smax``.
-    ``len`` is one scalar per layer, shared by the whole batch, as in
-    the reference.  The cache is updated in place and returned.
+    Ring-buffer semantics: the new KV overwrites slot ``len % Smax`` and
+    the query attends to the ``min(len + 1, Smax)`` filled slots.  A
+    sliding-window layer's buffer is ``min(window, seq_len)`` wide, so
+    its window is implicit in the buffer's width (the reference takes a
+    ``window`` argument here and does not read it).  ``len`` is one
+    scalar per layer, shared by the whole batch, as in the reference.
+    The cache is updated in place and returned.
     Cross-attention (enc-dec) passes ``cross_memory`` = {"k","v"} instead:
     the query attends to all of it, unroped, and the cache is untouched.
     """

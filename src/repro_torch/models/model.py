@@ -1,5 +1,5 @@
-"""Model assembly, the ``("attn", "dense")``, ``("attn", "moe")`` and
-``("ssd", "none")`` block kinds and the encoder-decoder backbone:
+"""Model assembly, the ``attn``, ``swa``, ``ssd`` and ``rglru`` mixers
+with ``dense``, ``moe`` or no FFN, and the encoder-decoder backbone:
 TransformerLM over per-layer block kinds.
 
 Ports ``src/repro/models/model.py``.  Layers keep the reference's scan
@@ -25,12 +25,14 @@ where the reference wraps each layer (and each CE chunk) in
 Prefill and decode run under ``torch.no_grad``.
 
 Attention blocks run the Hopper flash kernel on CUDA, in both directions
-under autograd: causal self-attention, the encoder's bidirectional
-self-attention and the decoder's cross-attention over the encoder output
-(``encoder_layers`` > 0; the encoder reads ``batch["enc_embeds"]``).  SSD
-blocks run the Hopper SSD scan kernel, forward only; MoE FFNs are
-PyTorch ops (``models/moe.py``).  Other mixers, frame-embedding inputs
-and multi-token prediction raise ``NotImplementedError`` naming their
+under autograd: causal self-attention, sliding-window self-attention
+(``swa``, whose decode cache is a ring buffer one window wide), the
+encoder's bidirectional self-attention and the decoder's cross-attention
+over the encoder output (``encoder_layers`` > 0; the encoder reads
+``batch["enc_embeds"]``).  SSD blocks run the Hopper SSD scan kernel,
+forward only; RG-LRU blocks (``models/griffin.py``) and MoE FFNs
+(``models/moe.py``) are PyTorch ops.  MLA, frame-embedding inputs and
+multi-token prediction raise ``NotImplementedError`` naming their
 ROADMAP item.
 """
 from __future__ import annotations
@@ -41,8 +43,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import griffin, ssm
 from repro_torch.models import moe as moe_mod
-from repro_torch.models import ssm
 from repro_torch.models.config import BlockKind, ModelConfig
 from repro_torch.models.layers import (
     attention_decode,
@@ -67,7 +69,7 @@ def _not_ported(what: str, name: str) -> NotImplementedError:
 def _check_supported(cfg: ModelConfig) -> None:
     cfg.validate()
     for mixer, ffn in cfg.block_kinds():
-        if mixer not in ("attn", "ssd"):
+        if mixer not in ("attn", "swa", "ssd", "rglru"):
             raise _not_ported("mixer", mixer)
         if ffn not in ("dense", "moe", "none"):
             raise _not_ported("ffn", ffn)
@@ -122,10 +124,12 @@ def _widen(stacked: dict, i: int, new: dict) -> None:
 def block_defs(cfg: ModelConfig, kind: BlockKind, *, cross: bool = False) -> dict:
     mixer, ffn = kind
     d: dict[str, Any] = {"ln1": make_norm_def(cfg.d_model)}
-    if mixer in ("attn", "bidir"):
+    if mixer in ("attn", "swa", "bidir"):
         d["attn"] = make_attention_defs(cfg)
-    else:
+    elif mixer == "ssd":
         d["ssd"] = ssm.make_ssd_defs(cfg)
+    else:
+        d["rglru"] = griffin.make_rglru_defs(cfg)
     if cross:
         d["ln_x"] = make_norm_def(cfg.d_model)
         d["cross"] = make_attention_defs(cfg, cross=True)
@@ -172,8 +176,12 @@ def block_train(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: BlockKind
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     if mixer in ("attn", "bidir"):
         y = attention_train(params["attn"], h, cfg, bidirectional=mixer == "bidir")
-    else:
+    elif mixer == "swa":
+        y = attention_train(params["attn"], h, cfg, window=cfg.window)
+    elif mixer == "ssd":
         y = ssm.ssd_block_train(params["ssd"], h, cfg)
+    else:
+        y = griffin.rglru_block_train(params["rglru"], h, cfg)
     x, _ = _cross(params, x + y, cfg, enc_out)
     return _apply_ffn(params, x, cfg, kind)
 
@@ -181,13 +189,17 @@ def block_train(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: BlockKind
 def block_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
                  kind: BlockKind, *, cross_memory: dict | None = None
                  ) -> tuple[torch.Tensor, dict]:
+    mixer = kind[0]
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    if kind[0] == "attn":
+    if mixer in ("attn", "swa"):     # a window is the width of the swa ring buffer
         y, c = attention_decode(params["attn"], h, cache["attn"], cfg)
         new_cache = {**cache, "attn": c}
-    else:
+    elif mixer == "ssd":
         y, c = ssm.ssd_block_decode(params["ssd"], h, cache["ssd"], cfg)
         new_cache = {**cache, "ssd": c}
+    else:
+        y, c = griffin.rglru_block_decode(params["rglru"], h, cache["rglru"], cfg)
+        new_cache = {**cache, "rglru": c}
     x = x + y
     mem = cross_memory if cross_memory is not None else cache.get("cross")
     if mem is not None and "cross" in params:
@@ -199,15 +211,23 @@ def block_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
 
 def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: BlockKind, *,
                   enc_out: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
-    """Like block_train but also captures the decode cache (prefill path)."""
+    """Like block_train but also captures the decode cache (prefill path).
+    A sliding-window layer keeps the last ``w = min(window, S)`` keys in
+    the ring-buffer layout, token p at slot p % w."""
+    mixer, s = kind[0], x.shape[1]
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    if kind[0] == "attn":
-        y, kvs = attention_train(params["attn"], h, cfg, return_kv=True)
-        entry = {"attn": {**kvs, "len": torch.tensor(x.shape[1], dtype=torch.int32,
-                                                     device=x.device)}}
-    else:
+    if mixer in ("attn", "swa"):
+        window = cfg.window if mixer == "swa" else 0
+        y, kvs = attention_train(params["attn"], h, cfg, window=window, return_kv=True)
+        if window and s > window:
+            kvs = {k: torch.roll(v[:, -window:], s % window, dims=1) for k, v in kvs.items()}
+        entry = {"attn": {**kvs, "len": torch.tensor(s, dtype=torch.int32, device=x.device)}}
+    elif mixer == "ssd":
         y, c = ssm.ssd_block_train(params["ssd"], h, cfg, return_state=True)
         entry = {"ssd": c}
+    else:
+        y, c = griffin.rglru_block_train(params["rglru"], h, cfg, return_state=True)
+        entry = {"rglru": c}
     x, cross_kv = _cross(params, x + y, cfg, enc_out)
     if cross_kv is not None:
         entry["cross"] = cross_kv
@@ -221,7 +241,15 @@ def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: BlockKi
 
 def _block_cache_defs(cfg: ModelConfig, kind: BlockKind, batch: int,
                       seq_len: int) -> dict:
-    if kind[0] == "ssd":
+    mixer = kind[0]
+    if mixer == "rglru":
+        w = griffin.rglru_dims(cfg)["lru_width"]
+        return {"rglru": {
+            "conv": pdef((batch, "batch"), (cfg.rglru.conv_width - 1, None), (w, "d_ff"),
+                         init="zeros"),
+            "h": pdef((batch, "batch"), (w, "d_ff"), init="zeros"),
+        }}
+    if mixer == "ssd":
         s = cfg.ssm
         dims = ssm.ssm_dims(cfg)
         return {"ssd": {
@@ -232,15 +260,17 @@ def _block_cache_defs(cfg: ModelConfig, kind: BlockKind, batch: int,
         }}
     hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
 
-    def kv_defs() -> dict:
-        return {name: pdef((batch, "batch"), (seq_len, "seq"), (kv, "kv_heads"), (hd, None),
+    def kv_defs(smax: int, axis: str | None) -> dict:
+        return {name: pdef((batch, "batch"), (smax, axis), (kv, "kv_heads"), (hd, None),
                            init="zeros") for name in ("k", "v")}
 
-    entry = {"attn": {**kv_defs(), "len": pdef(init="zeros", dtype=torch.int32)}}
+    # a sliding-window layer's ring buffer is one window wide
+    kvs = kv_defs(min(cfg.window, seq_len), None) if mixer == "swa" else kv_defs(seq_len, "seq")
+    entry = {"attn": {**kvs, "len": pdef(init="zeros", dtype=torch.int32)}}
     if cfg.encoder_layers:
         # enc-dec decoder blocks carry a static cross-attention KV memory,
         # filled from the encoder output at prefill time
-        entry["cross"] = kv_defs()
+        entry["cross"] = kv_defs(seq_len, "seq")
     return entry
 
 

@@ -40,6 +40,65 @@ def test_cuda_kernel_matches_plain_version(dtype, causal, window, s, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,window,s,b,h,kv", [
+    # recurrentgemma-9b's local attention: MQA, window 2048, a ragged tile
+    (torch.bfloat16, True, 2048, 2560, 2, 16, 1), (torch.float32, True, 2048, 2560, 1, 16, 1),
+    (torch.bfloat16, True, 0, 1000, 2, 16, 1), (torch.float32, True, 100, 300, 2, 16, 1),
+    (torch.bfloat16, False, 0, 300, 2, 8, 2), (torch.float32, False, 0, 100, 2, 8, 2),
+    (torch.bfloat16, True, 0, 40, 2, 16, 1), (torch.bfloat16, True, 64, 200, 2, 16, 4)])
+def test_cuda_kernel_d256_matches_plain_version(dtype, causal, window, s, b, h, kv):
+    """D 256: the bf16 kernel's 64-key tiles and the fp32 kernel's four
+    threads a row, against the plain version at the repo's tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn(b, s, n, 256, generator=gen, device="cuda").to(dtype)
+               for n in (h, kv, kv))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,s", [(torch.bfloat16, 2560), (torch.bfloat16, 1000),
+                                     (torch.float32, 1100)])
+def test_cuda_window_at_gemma3_gqa(dtype, s):
+    """gemma3-27b's local layers: D 128, 32 q heads over 16 kv heads,
+    window 1024, prompts past the window (2560 = 2.5 windows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(1, s, n, 128, generator=gen, device="cuda").to(dtype)
+               for n in (32, 16, 16))
+    got = flash_attention(q, k, v, causal=True, window=1024)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, causal=True, window=1024)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_backward_refuses_d256_by_name(dtype):
+    """The backward has no D 256 kernel: it raises naming ROADMAP.md and
+    returns nothing from a plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    q, k, v, do = _bwd_inputs(dtype, 1, 128, 16, 1, 256)
+    o, lse = flash_attention_cuda(q, k, v, causal=True, window=0, return_lse=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 2 item 1"):
+        flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=0)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 2 item 1"):
+        out.backward(do)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,s,sk,d", [
     (torch.bfloat16, 256, 1024, 64), (torch.bfloat16, 256, 1000, 64),
     (torch.bfloat16, 264, 1024, 64), (torch.bfloat16, 1024, 300, 128),

@@ -50,6 +50,17 @@ print(json.dumps(sorted(m for m in sys.modules
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == ["jax"]  # the None stub
 
 
+@pytest.mark.parametrize("name", ["repro_torch.models.griffin",
+                                  "repro_torch.configs.recurrentgemma_9b",
+                                  "repro_torch.configs.gemma3_27b"])
+def test_guard_covers_the_newest_modules(name):
+    """The RG-LRU block and both new configs are among the modules the
+    guard imports with jax blocked, and among the sources it scans."""
+    assert name in MODULES
+    path = PORT.parent.joinpath(*name.split(".")).with_suffix(".py")
+    assert path in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_source_has_no_jax_or_repro_import(path):
     assert not BAD_IMPORT.findall(path.read_text()), path

@@ -16,7 +16,8 @@ import torch
 from repro.kernels import flash_attention as jax_flash
 from repro.kernels.ref import attention_ref as jax_attention_ref
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (BLOCK_KV, BLOCK_Q, BWD_BOX_ROWS,
+from repro_torch.kernels.flash_attention import (BLOCK_KV, BLOCK_KV_D256, BLOCK_Q, BWD_BOX_ROWS,
+                                                 HEAD_DIMS, block_kv, flash_attention_bwd_cuda,
                                                  flash_attention_cuda, layout_array, tma_layout)
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.kernels.ref import attention_ref, flash_attention_ref
@@ -53,6 +54,8 @@ CASES = [  # (b, s, h, kv, d, causal, window, q_block, kv_block)
     pytest.param(1, 130, 2, 2, 64, True, 0, 128, 128, id="ragged-s130"),
     pytest.param(1, 200, 2, 2, 64, False, 0, 128, 128, id="ragged-noncausal"),
     pytest.param(2, 160, 4, 2, 64, True, 64, 128, 128, id="ragged-gqa-window"),
+    # recurrentgemma-9b's layout: D 256, MQA (one kv head), a window, a ragged S
+    pytest.param(2, 160, 4, 1, 256, True, 48, 128, 128, id="d256-mqa-window-ragged"),
 ]
 
 
@@ -124,6 +127,12 @@ def _contiguous(shape):
      ((64, 8, 1024, 4), (128, 1024, 1024 * 1024), (64, 1, 128, 1))),
     # D 128 is two 64-column boxes a row; a ragged S moves only its dim and the batch stride
     ((2, 100, 4, 128), BLOCK_Q, ((128, 4, 100, 2), (256, 1024, 102400), (64, 1, 128, 1))),
+    # recurrentgemma-9b's prefill at D 256 (four boxes a row): q (16 heads) and
+    # its one kv head in boxes of 64 rows
+    ((4, 2560, 16, 256), BLOCK_Q,
+     ((256, 16, 2560, 4), (512, 8192, 2560 * 8192), (64, 1, 128, 1))),
+    ((4, 2560, 1, 256), BLOCK_KV_D256,
+     ((256, 1, 2560, 4), (512, 512, 2560 * 512), (64, 1, 64, 1))),
 ])
 def test_tma_layout_of_model_tensors(shape, rows, want):
     """dims innermost first (D, heads, S, B), byte strides of dims 1-3, box."""
@@ -173,3 +182,22 @@ def test_build_is_keyed_by_sources():
     assert d.parent == build.BUILD_ROOT and d.parent.parent.name == "build"
     assert d == build.build_dir()                       # deterministic
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_kv_tile_rows_by_head_dim():
+    """D 256 takes 64-row K/V boxes (two stages fit an SM); D 64 and 128
+    keep 128."""
+    assert HEAD_DIMS == (64, 128, 256)
+    assert [block_kv(d) for d in HEAD_DIMS] == [BLOCK_KV, BLOCK_KV, BLOCK_KV_D256]
+    assert BLOCK_KV_D256 == 64 and BLOCK_KV == 128
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_refuses_d256_naming_roadmap(dtype):
+    """The backward launcher refuses D 256 before any other check (here on
+    CPU tensors), naming where it waits; it does not take a plain version."""
+    q = torch.zeros(1, 64, 4, 256, dtype=dtype)
+    kv = torch.zeros(1, 64, 1, 256, dtype=dtype)
+    lse = torch.zeros(1, 4, 64)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 2 item 1"):
+        flash_attention_bwd_cuda(q, kv, kv, q, lse, q, causal=True, window=0)

@@ -80,7 +80,7 @@ def _fp32_pair(max_len=64, arch="granite_3_2b"):
 
 
 @pytest.mark.parametrize("arch", ["granite_3_2b", "mamba2_780m", "minitron_4b", "olmoe_1b_7b",
-                                  "seamless_m4t_medium"])
+                                  "seamless_m4t_medium", "recurrentgemma_9b", "gemma3_27b"])
 def test_token_streams_match_jax_backend(arch):
     """A full static serve() with a replica kill gives the same tokens on
     both backends (fresh replicas, the same fp32 weights).  The reference's
@@ -130,6 +130,8 @@ def test_serve_continuous_clean():
     ["--arch", "mamba2-780m", "--device", "cpu", "--kill", "replica0:5", "--requests", "4"],
     ["--arch", "olmoe-1b-7b", "--device", "cpu", "--kill", "replica0:5", "--requests", "4"],
     ["--arch", "minitron-4b", "--device", "cpu", "--kill", "replica0:5", "--requests", "4"],
+    ["--arch", "recurrentgemma-9b", "--device", "cpu", "--kill", "replica0:5", "--requests", "4"],
+    ["--arch", "gemma3-27b", "--device", "cpu", "--kill", "replica0:5", "--requests", "4"],
     ["--decode", "sim", "--continuous", "--kill", "replica1:3", "--requests", "12"]])
 def test_launcher(argv, monkeypatch, capsys):
     from repro_torch.launch import serve

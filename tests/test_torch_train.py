@@ -1,8 +1,9 @@
 """The port's training step against the JAX package on the same inputs.
 
 ``loss_fn`` (value and every gradient) and ``build_train_step`` on the
-smoke configs of granite-3-2b, minitron-4b and olmoe-1b-7b (``loss_fn``
-also on seamless-m4t-medium's), ``adamw_apply``, ``lr_at`` and
+smoke configs of granite-3-2b, minitron-4b, olmoe-1b-7b and
+recurrentgemma-9b (the RG-LRU scan and windowed attention under
+autograd; ``loss_fn`` also on seamless-m4t-medium's), ``adamw_apply``, ``lr_at`` and
 ``batch_for``, with fp32 compute; JAX materializes the weights and
 ``repro_torch.bridge.params_from_numpy`` carries them across.  Also the
 CPU training CLI.
@@ -42,7 +43,7 @@ from repro_torch.optim import OptConfig, adamw_apply, init_opt_state, lr_at, opt
 
 REPO = Path(__file__).resolve().parent.parent
 ARCH = "granite_3_2b"            # the base of the architecture-free tests
-ARCHS = ("granite_3_2b", "minitron_4b", "olmoe_1b_7b")
+ARCHS = ("granite_3_2b", "minitron_4b", "olmoe_1b_7b", "recurrentgemma_9b")
 TOL = 2e-3          # tests/test_models.py's fp32 model tolerance
 
 

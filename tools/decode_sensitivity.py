@@ -8,10 +8,14 @@ width (random weights from seed 0, as ``chip_smoke.py`` draws them, cast
 to fp32; an MoE at capacity factor n_experts / top_k, where nothing
 drops) it prints one JSON line per reading of ``chip_smoke.py``'s
 decode-vs-forward measure (the per-row relative L2 error of the logits at
-the prompt's last position and at 8 teacher-forced decode steps):
+the prompt's last position and at 8 teacher-forced decode steps), over
+``chip_smoke.py``'s prompt (``PROMPT``):
 
-* ``reference_init`` at full depth, and the model cut to its first 1, 2,
-  4, 8 and 16 layers (the same weights): how the reading grows with depth;
+* ``reference_init`` at ``chip_smoke.py``'s comparison depth (the full
+  depth, or ``CMP_DEPTH`` where fp32 at full depth does not fit), and the
+  model cut to its first 1, 2, 4, 8 and 16 units of layers (the same
+  weights; a unit is the first scan segment's, one layer but for the
+  windowed models): how the reading grows with depth;
 * ``fan_in_per_layer``: the same draws with each stacked matrix rescaled
   to the fan-in of its input width (a well-conditioned init);
 * for an MoE, each of those again with the forward's routing replayed
@@ -94,14 +98,18 @@ def main() -> int:
 
     build.build_all()
     for arch in sys.argv[1:] or ARCHS:
-        cfg = get_config(arch).scaled(compute_dtype="float32")
+        drawn = get_config(arch)
+        cfg = drawn.scaled(compute_dtype="float32")
         if cfg.moe:
             cfg = cfg.scaled(moe=dataclasses.replace(
                 cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
-        b, s, steps, enc = 4, 1024, 8, None
-        if cfg.encoder_layers:
-            s = 256
-        params = cs._to_fp32(materialize(param_defs(get_config(arch)), 0, "cuda"))
+        b, s, steps, enc = 4, cs.PROMPT.get(arch, 1024), 8, None
+        params = materialize(param_defs(drawn), 0, "cuda")
+        depth = cs.CMP_DEPTH.get(arch, cfg.n_layers)
+        if depth < cfg.n_layers:    # fp32 at full depth does not fit: chip_smoke's cut
+            params, cfg = cs._first_layers(params, cfg, depth, clone=True)
+            torch.cuda.empty_cache()
+        params = cs._to_fp32(params)
         rng = np.random.default_rng(0)
         ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s + steps),
                                             dtype=np.int32)).cuda()
@@ -109,14 +117,16 @@ def main() -> int:
             enc = torch.from_numpy(rng.standard_normal((b, 1024, cfg.d_model))
                                    .astype(np.float32) * 0.02).cuda()
         replays = (False, True) if cfg.moe else (False,)
-        seg, = params["segments"]
-        for n in [n for n in (1, 2, 4, 8, 16) if n < cfg.n_layers] + [cfg.n_layers]:
-            cut = {**params, "segments": [tree_map(lambda t: t[:n], seg)]}
-            case = "reference_init" if n == cfg.n_layers else f"depth{n}"
+        unit = len(cfg.scan_segments()[0][0])
+        repeats = cfg.scan_segments()[0][1]
+        for n in [unit * r for r in (1, 2, 4, 8, 16) if r <= repeats and unit * r < depth]:
+            cut, cut_cfg = cs._first_layers(params, cfg, n)
             for replay in replays:
-                reading(case, cut, cfg.scaled(n_layers=n), ids, s, steps, enc, replay)
-        del seg, cut
-        params = cs._fan_in_per_layer(params)
+                reading(f"depth{n}", cut, cut_cfg, ids, s, steps, enc, replay)
+            del cut
+        for replay in replays:
+            reading("reference_init", params, cfg, ids, s, steps, enc, replay)
+        params = cs._fan_in_per_layer(params, drawn)
         for replay in replays:
             reading("fan_in_per_layer", params, cfg, ids, s, steps, enc, replay)
         del params
