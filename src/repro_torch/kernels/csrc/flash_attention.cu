@@ -48,6 +48,11 @@
 //  * fp32 inputs take a plain SIMT kernel (one q row per thread), exact
 //    in fp32 to the reference's 1e-4.
 //
+// The kernels are templated on the q/k head dim DK and the v head dim DV:
+// (64, 64), (128, 128) and (256, 256), and (192, 128) for deepseek-v3's
+// multi-head latent attention (MLA), whose prefill attends with 128 "nope"
+// + 64 rope columns of q and k and 128 columns of v.
+//
 // D 256 (recurrentgemma-9b) has instantiations of its own; D 64 and 128
 // are unchanged.  In bf16 the 128-key tile of D 64/128 does not fit: Q
 // is 64 KB and a K/V stage 2 x 64 KB, over the 227 KB of an SM, and the
@@ -59,6 +64,13 @@
 // so four threads share a row (flash_fwd_f32_wide), each with 64 of its
 // columns, the dot products summed across the four by warp shuffles, on
 // 16-key tiles that keep K and V in 32 KB of static shared memory.
+// (192, 128) keeps D 128's 128-key tiles: Q is 48 KB, a K/V stage 48 +
+// 32 KB, two stages and Q ~209 KB at one block an SM.  S = Q K^T is
+// m64n128k16 over 12 k-steps, three 64-column boxes of Q and K; O += P V
+// is m64n128k16 as at D 128, so the registers are D 128's (S and O each
+// 64 a thread).  V has a tensor map of its own (DV columns); the scale is
+// 1 / sqrt(DK).  In fp32 the four-threads-a-row kernel takes it, each
+// thread with 48 columns of q and 32 of the accumulator.
 // A row with no visible key at all (only possible when S > Sk) comes out
 // as zeros in the bf16 kernel; the reference averages every key there.
 //
@@ -89,7 +101,7 @@ struct Params {
   void* o;
   int B, S, Sk, H, KV;
   int causal, window;
-  float scale_log2;           // log2(e) / sqrt(D): scores in base 2
+  float scale_log2;           // log2(e) / sqrt(DK): scores in base 2
   float* lse;                 // (B, H, S) fp32 row logsumexp, or null
 };
 
@@ -111,40 +123,43 @@ __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
   return ok;
 }
 
-// Shared memory of the bf16 kernel: Q, then STAGES K tiles, STAGES V
-// tiles (each D / 64 boxes of WN rows x 128 bytes), then the mbarriers.
-// At D 64 two stages keep a block at 80 KB, so two blocks share an SM; a
-// third stage (two blocks still fit) gained nothing.  At D 256 the kv
-// tile is 64 rows, and two stages are all that fit.
-template <int D>
+// Shared memory of the bf16 kernel: Q, then STAGES K tiles (each DK / 64
+// boxes of WN rows x 128 bytes), STAGES V tiles (DV / 64 boxes each), then
+// the mbarriers.  At D 64 two stages keep a block at 80 KB, so two blocks
+// share an SM; a third stage (two blocks still fit) gained nothing.  At D
+// 256 the kv tile is 64 rows, and two stages are all that fit; so at
+// (192, 128), where a third stage would take 289 KB.
+template <int DK, int DV>
 struct Smem {
-  static constexpr int WN = D == 256 ? 64 : 128;   // kv rows per tile
-  static constexpr int STAGES = D == 128 ? 3 : 2;
-  static constexpr int BLOCKS_PER_SM = D == 64 ? 2 : 1;
-  static constexpr uint32_t Q_BYTES = WM * D * 2;
-  static constexpr uint32_t KV_BYTES = WN * D * 2;
+  static constexpr int WN = DK == 256 ? 64 : 128;   // kv rows per tile
+  static constexpr int STAGES = DK == 128 ? 3 : 2;
+  static constexpr int BLOCKS_PER_SM = DK == 64 ? 2 : 1;
+  static constexpr uint32_t Q_BYTES = WM * DK * 2;
+  static constexpr uint32_t K_BYTES = WN * DK * 2;
+  static constexpr uint32_t V_BYTES = WN * DV * 2;
   static constexpr size_t BYTES =
-      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 3 * STAGES);   // 1024: alignment
+      1024 + Q_BYTES + STAGES * (K_BYTES + V_BYTES) + 8 * (1 + 3 * STAGES);   // 1024: alignment
+  static_assert(BYTES <= 232448, "over the shared memory of an SM");
 };
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma, TMA, two consumer warpgroups of 64 q rows
 // ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
+template <int DK, int DV>
+__global__ void __launch_bounds__(256, Smem<DK, DV>::BLOCKS_PER_SM)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, Params p) {
-  using L = Smem<D>;
+  using L = Smem<DK, DV>;
   constexpr int STAGES = L::STAGES;
   constexpr int WN = L::WN;
-  constexpr int BOXES = D / BOX;
+  constexpr int K_BOXES = DK / BOX, V_BOXES = DV / BOX;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   unsigned char* sQ = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   unsigned char* sK = sQ + L::Q_BYTES;
-  unsigned char* sV = sK + STAGES * L::KV_BYTES;
-  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + STAGES * L::KV_BYTES);
+  unsigned char* sV = sK + STAGES * L::K_BYTES;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + STAGES * L::V_BYTES);
   uint64_t* full_k = bar_q + 1;
   uint64_t* full_v = full_k + STAGES;
   uint64_t* empty = full_v + STAGES;
@@ -165,14 +180,14 @@ __global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
 
   auto load_kv = [&](int j) {   // kv tile t_lo + j into stage j % STAGES
     const int s = j % STAGES, k0 = (t_lo + j) * WN;
-    mbar_expect_tx(&full_k[s], L::KV_BYTES);
+    mbar_expect_tx(&full_k[s], L::K_BYTES);
 #pragma unroll
-    for (int c = 0; c < BOXES; ++c)
-      tma_load(sK + s * L::KV_BYTES + c * WN * ROW, &tm_k, &full_k[s], c * BOX, kvh, k0, b);
-    mbar_expect_tx(&full_v[s], L::KV_BYTES);
+    for (int c = 0; c < K_BOXES; ++c)
+      tma_load(sK + s * L::K_BYTES + c * WN * ROW, &tm_k, &full_k[s], c * BOX, kvh, k0, b);
+    mbar_expect_tx(&full_v[s], L::V_BYTES);
 #pragma unroll
-    for (int c = 0; c < BOXES; ++c)
-      tma_load(sV + s * L::KV_BYTES + c * WN * ROW, &tm_v, &full_v[s], c * BOX, kvh, k0, b);
+    for (int c = 0; c < V_BOXES; ++c)
+      tma_load(sV + s * L::V_BYTES + c * WN * ROW, &tm_v, &full_v[s], c * BOX, kvh, k0, b);
   };
 
   if (tid == 0) {
@@ -188,13 +203,13 @@ __global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
   if (tid == 0 && n > 0) {
     mbar_expect_tx(bar_q, L::Q_BYTES);
 #pragma unroll
-    for (int c = 0; c < BOXES; ++c) tma_load(sQ + c * WM * ROW, &tm_q, bar_q, c * BOX, h, q0, b);
+    for (int c = 0; c < K_BOXES; ++c) tma_load(sQ + c * WM * ROW, &tm_q, bar_q, c * BOX, h, q0, b);
     for (int j = 0; j < min(STAGES, n); ++j) load_kv(j);
   }
 
-  float o[D / 2];   // the m64nD accumulator: 4 values per 8-column block
+  float o[DV / 2];   // the m64nDV accumulator: 4 values per 8-column block
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF;   // running max of rows row0, row1 (raw scores)
   float l0 = 0.f, l1 = 0.f;           // this thread's share of the normaliser
   const int wq0 = q0 + wg * 64;       // the warpgroup's first q row
@@ -216,7 +231,7 @@ __global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
 
     float sc[WN / 2];
     mbar_wait(&full_k[s], phase);
-    qk_product<D, WM, WN>(sc, q_smem, smem_u32(sK + s * L::KV_BYTES));
+    qk_product<DK, WM, WN>(sc, q_smem, smem_u32(sK + s * L::K_BYTES));
 
     // mask only where this warpgroup's rows meet a masked pair
     const bool edge = k0 + WN > p.Sk || (p.causal && k0 + WN - 1 > wq0) ||
@@ -277,14 +292,14 @@ __global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
     l0 = l0 * a0 + rs0;
     l1 = l1 * a1 + rs1;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
+    for (int dt = 0; dt < DV / 8; ++dt) {
       o[4 * dt + 0] *= a0;
       o[4 * dt + 1] *= a0;
       o[4 * dt + 2] *= a1;
       o[4 * dt + 3] *= a1;
     }
     mbar_wait(&full_v[s], phase);
-    pv_product<D, WN>(o, pf, smem_u32(sV + s * L::KV_BYTES));
+    pv_product<DV, WN>(o, pf, smem_u32(sV + s * L::V_BYTES));
     mbar_arrive(&empty[s]);
   }
 
@@ -299,16 +314,16 @@ __global__ void __launch_bounds__(256, Smem<D>::BLOCKS_PER_SM)
     if (row0 < p.S) lb[row0] = m0 == NEG_INF ? -INFINITY : m0 * sc + logf(l0);
     if (row1 < p.S) lb[row1] = m1 == NEG_INF ? -INFINITY : m1 * sc + logf(l1);
   }
-  const size_t q_stride = (size_t)p.H * D;   // elements between sequence positions
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + ((size_t)b * p.S * p.H + h) * D;
+  const size_t o_stride = (size_t)p.H * DV;   // elements between sequence positions of o
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + ((size_t)b * p.S * p.H + h) * DV;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
+  for (int dt = 0; dt < DV / 8; ++dt) {
     const int col = dt * 8 + t4 * 2;
     if (row0 < p.S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * q_stride + col) =
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * o_stride + col) =
           __floats2bfloat162_rn(o[4 * dt + 0] * inv0, o[4 * dt + 1] * inv0);
     if (row1 < p.S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * q_stride + col) =
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * o_stride + col) =
           __floats2bfloat162_rn(o[4 * dt + 2] * inv1, o[4 * dt + 3] * inv1);
   }
 }
@@ -391,14 +406,29 @@ __global__ void __launch_bounds__(BM) flash_fwd_f32(Params p) {
   }
 }
 
+// rows [k0, k0 + ROWS) of a (Sk, W) fp32 operand with `stride` elements
+// between rows into shared memory, zeros past Sk; every thread of the block
+template <int ROWS, int W>
+__device__ __forceinline__ void load_rows(float (*dst)[W], const float* src, size_t stride,
+                                          int k0, int Sk) {
+  for (int c = threadIdx.x; c < ROWS * W / 4; c += blockDim.x) {
+    const int r = c / (W / 4), cc = c % (W / 4);
+    float4 v4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k0 + r < Sk) v4 = *reinterpret_cast<const float4*>(src + (size_t)(k0 + r) * stride + cc * 4);
+    *reinterpret_cast<float4*>(&dst[r][cc * 4]) = v4;
+  }
+}
+
 // ---------------------------------------------------------------------------
-// fp32 at D 256: SIMT, PARTS threads a q row, each with D / PARTS columns
+// fp32 at D 256 and (192, 128): SIMT, PARTS threads a q row, each with
+// DK / PARTS columns of q and DV / PARTS of the accumulator
 // ---------------------------------------------------------------------------
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(BM * PARTS) flash_fwd_f32_wide(Params p) {
-  constexpr int DP = D / PARTS;      // columns a thread: float4 i at 16 i + 4 part
-  __shared__ __align__(16) float sK[TN_WIDE][D];
-  __shared__ __align__(16) float sV[TN_WIDE][D];
+  constexpr int DP = DK / PARTS;     // q columns a thread: float4 i at 16 i + 4 part
+  constexpr int VP = DV / PARTS;     // accumulator columns a thread, laid out alike
+  __shared__ __align__(16) float sK[TN_WIDE][DK];
+  __shared__ __align__(16) float sV[TN_WIDE][DV];
 
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
@@ -406,14 +436,14 @@ __global__ void __launch_bounds__(BM * PARTS) flash_fwd_f32_wide(Params p) {
   const int part = threadIdx.x % PARTS;   // the PARTS threads of a row are adjacent lanes
   const int q0 = blockIdx.x * BM;
   const int qpos = q0 + threadIdx.x / PARTS;
-  const size_t q_stride = (size_t)p.H * D;
-  const size_t kv_stride = (size_t)p.KV * D;
-  const float* qb = static_cast<const float*>(p.q) + ((size_t)b * p.S * p.H + h) * D;
-  const float* kb = static_cast<const float*>(p.k) + ((size_t)b * p.Sk * p.KV + kvh) * D;
-  const float* vb = static_cast<const float*>(p.v) + ((size_t)b * p.Sk * p.KV + kvh) * D;
-  float* ob = static_cast<float*>(p.o) + ((size_t)b * p.S * p.H + h) * D;
+  const size_t q_stride = (size_t)p.H * DK, o_stride = (size_t)p.H * DV;
+  const size_t k_stride = (size_t)p.KV * DK, v_stride = (size_t)p.KV * DV;
+  const float* qb = static_cast<const float*>(p.q) + ((size_t)b * p.S * p.H + h) * DK;
+  const float* kb = static_cast<const float*>(p.k) + ((size_t)b * p.Sk * p.KV + kvh) * DK;
+  const float* vb = static_cast<const float*>(p.v) + ((size_t)b * p.Sk * p.KV + kvh) * DV;
+  float* ob = static_cast<float*>(p.o) + ((size_t)b * p.S * p.H + h) * DV;
 
-  float q[DP], acc[DP];
+  float q[DP], acc[VP];
 #pragma unroll
   for (int i = 0; i < DP / 4; ++i) {
     float4 q4 = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -425,7 +455,7 @@ __global__ void __launch_bounds__(BM * PARTS) flash_fwd_f32_wide(Params p) {
     q[4 * i + 3] = q4.w;
   }
 #pragma unroll
-  for (int d = 0; d < DP; ++d) acc[d] = 0.f;
+  for (int d = 0; d < VP; ++d) acc[d] = 0.f;
   float m = NEG_INF, l = 0.f;
 
   int t_lo, t_hi;
@@ -433,16 +463,8 @@ __global__ void __launch_bounds__(BM * PARTS) flash_fwd_f32_wide(Params p) {
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * TN_WIDE;
     __syncthreads();
-    for (int c = threadIdx.x; c < TN_WIDE * D / 4; c += blockDim.x) {
-      const int r = c / (D / 4), cc = c % (D / 4);
-      float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
-      if (k0 + r < p.Sk) {
-        kv4 = *reinterpret_cast<const float4*>(kb + (size_t)(k0 + r) * kv_stride + cc * 4);
-        vv4 = *reinterpret_cast<const float4*>(vb + (size_t)(k0 + r) * kv_stride + cc * 4);
-      }
-      *reinterpret_cast<float4*>(&sK[r][cc * 4]) = kv4;
-      *reinterpret_cast<float4*>(&sV[r][cc * 4]) = vv4;
-    }
+    load_rows<TN_WIDE, DK>(sK, kb, k_stride, k0, p.Sk);
+    load_rows<TN_WIDE, DV>(sV, vb, v_stride, k0, p.Sk);
     __syncthreads();
 
     float s[TN_WIDE];
@@ -467,13 +489,13 @@ __global__ void __launch_bounds__(BM * PARTS) flash_fwd_f32_wide(Params p) {
     m = mx;
     l *= alpha;
 #pragma unroll
-    for (int d = 0; d < DP; ++d) acc[d] *= alpha;
+    for (int d = 0; d < VP; ++d) acc[d] *= alpha;
 #pragma unroll
     for (int j = 0; j < TN_WIDE; ++j) {
       const float pj = exp2f(s[j] - m);
       l += pj;
 #pragma unroll
-      for (int i = 0; i < DP / 4; ++i) {
+      for (int i = 0; i < VP / 4; ++i) {
         const float4 v4 = *reinterpret_cast<const float4*>(&sV[j][16 * i + 4 * part]);
         acc[4 * i + 0] = fmaf(pj, v4.x, acc[4 * i + 0]);
         acc[4 * i + 1] = fmaf(pj, v4.y, acc[4 * i + 1]);
@@ -488,8 +510,8 @@ __global__ void __launch_bounds__(BM * PARTS) flash_fwd_f32_wide(Params p) {
   if (qpos < p.S) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < DP / 4; ++i)
-      *reinterpret_cast<float4*>(ob + (size_t)qpos * q_stride + 16 * i + 4 * part) =
+    for (int i = 0; i < VP / 4; ++i)
+      *reinterpret_cast<float4*>(ob + (size_t)qpos * o_stride + 16 * i + 4 * part) =
           make_float4(acc[4 * i + 0] * inv, acc[4 * i + 1] * inv, acc[4 * i + 2] * inv,
                       acc[4 * i + 3] * inv);
   }
@@ -498,19 +520,19 @@ __global__ void __launch_bounds__(BM * PARTS) flash_fwd_f32_wide(Params p) {
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-template <int D>
+template <int DK, int DV>
 int launch_bf16(const Params& p, const long long* layout, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   int err = encode(&tm_q, p.q, layout, WM);
-  if (!err) err = encode(&tm_k, p.k, layout + 11, Smem<D>::WN);
-  if (!err) err = encode(&tm_v, p.v, layout + 11, Smem<D>::WN);
+  if (!err) err = encode(&tm_k, p.k, layout + 11, Smem<DK, DV>::WN);
+  if (!err) err = encode(&tm_v, p.v, layout + 22, Smem<DK, DV>::WN);
   if (err) return err;
-  constexpr size_t smem = Smem<D>::BYTES;
+  constexpr size_t smem = Smem<DK, DV>::BYTES;
   static uint32_t opted = 0;   // a bit per device
-  err = opt_in_smem(reinterpret_cast<const void*>(flash_fwd_bf16<D>), smem, opted);
+  err = opt_in_smem(reinterpret_cast<const void*>(flash_fwd_bf16<DK, DV>), smem, opted);
   if (err) return err;
   const dim3 grid(p.B * p.H, (p.S + WM - 1) / WM);
-  flash_fwd_bf16<D><<<grid, 256, smem, stream>>>(tm_q, tm_k, tm_v, p);
+  flash_fwd_bf16<DK, DV><<<grid, 256, smem, stream>>>(tm_q, tm_k, tm_v, p);
   return 0;
 }
 
@@ -519,31 +541,40 @@ void launch_f32(const Params& p, dim3 grid, cudaStream_t stream) {
   flash_fwd_f32<D><<<grid, BM, 0, stream>>>(p);
 }
 
-template <int D>
+template <int DK, int DV>
 void launch_f32_wide(const Params& p, dim3 grid, cudaStream_t stream) {
-  flash_fwd_f32_wide<D><<<grid, BM * PARTS, 0, stream>>>(p);
+  flash_fwd_f32_wide<DK, DV><<<grid, BM * PARTS, 0, stream>>>(p);
 }
 
 }  // namespace
 
-// q, o: (B, S, H, D); k, v: (B, Sk, KV, D); all contiguous, same dtype
-// (bf16 if is_bf16 else fp32).  layout: for bf16, the TMA layouts of q
-// (11 values) and of k and v (11 more); unused for fp32.  lse: null, or a
-// (B, H, S) fp32 buffer for each row's logsumexp.  Returns
+// q: (B, S, H, DK); k: (B, Sk, KV, DK); v: (B, Sk, KV, DV); o: (B, S, H, DV);
+// all contiguous, same dtype (bf16 if is_bf16 else fp32).  layout: for
+// bf16, the TMA layouts of q, k and v (11 values each); unused for fp32.
+// lse: null, or a (B, H, S) fp32 buffer for each row's logsumexp.  Returns
 // cudaGetLastError() after the launch, or a negative code from encode().
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int B, int S, int Sk, int H, int KV, int D,
+                                   int B, int S, int Sk, int H, int KV, int DK, int DV,
                                    int causal, int window, int is_bf16, void* stream,
                                    const long long* layout, float* lse) {
-  Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)D), lse};
+  Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)DK), lse};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((S + BM - 1) / BM, B * H);   // the fp32 kernels'
   int err = 0;
-  if (is_bf16 && D == 64) err = launch_bf16<64>(p, layout, st);
-  else if (is_bf16 && D == 128) err = launch_bf16<128>(p, layout, st);
-  else if (!is_bf16 && D == 64) launch_f32<64>(p, dim3((S + BM - 1) / BM, B * H), st);
-  else if (!is_bf16 && D == 128) launch_f32<128>(p, dim3((S + BM - 1) / BM, B * H), st);
-  else if (is_bf16 && D == 256) err = launch_bf16<256>(p, layout, st);
-  else if (!is_bf16 && D == 256) launch_f32_wide<256>(p, dim3((S + BM - 1) / BM, B * H), st);
-  else return (int)cudaErrorInvalidValue;
+  if (DK == DV && DK == 64) {
+    if (is_bf16) err = launch_bf16<64, 64>(p, layout, st);
+    else launch_f32<64>(p, grid, st);
+  } else if (DK == DV && DK == 128) {
+    if (is_bf16) err = launch_bf16<128, 128>(p, layout, st);
+    else launch_f32<128>(p, grid, st);
+  } else if (DK == DV && DK == 256) {
+    if (is_bf16) err = launch_bf16<256, 256>(p, layout, st);
+    else launch_f32_wide<256, 256>(p, grid, st);
+  } else if (DK == 192 && DV == 128) {
+    if (is_bf16) err = launch_bf16<192, 128>(p, layout, st);
+    else launch_f32_wide<192, 128>(p, grid, st);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return err ? err : (int)cudaGetLastError();
 }

@@ -5,10 +5,12 @@ Replaces ``src/repro/kernels/flash_attention.py`` (``_kernel`` and
 (BH, S, D) with GQA expanded by the caller and padded S to its blocks;
 this kernel reads the model layout (B, S, H, D) in place, maps q head h
 to kv head h // (H / KV), and masks the ragged edge itself, so the
-launcher makes no copy.  The bf16 kernel loads its tiles by TMA: this
-module computes the tensor maps' layouts (:func:`tma_layout`) and the C
-side encodes them.  The source's header says what bounds the kernel on
-the H100 and what its design does about it.
+launcher makes no copy.  v may be narrower than q and k (multi-head
+latent attention: q/k dim 192, v dim 128); the output has v's width.
+The bf16 kernel loads its tiles by TMA: this module computes the tensor
+maps' layouts (:func:`tma_layout`) and the C side encodes them.  The
+source's header says what bounds the kernel on the H100 and what its
+design does about it.
 
 :func:`flash_attention_bwd_cuda` launches the gradient's two kernels
 (``csrc/flash_attention_bwd.cu``) from the forward's output and per-row
@@ -26,11 +28,13 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
-HEAD_DIMS = (64, 128, 256)
-# the head dims the backward kernels take; D 256 waits in ROADMAP.md, Queue 2 item 1
+# the (q/k head dim, v head dim) pairs the forward kernels take
+HEAD_DIMS = frozenset({(64, 64), (128, 128), (256, 256), (192, 128)})
+# the head dims the backward kernels take (with v's equal); D 256 and
+# (192, 128) wait in ROADMAP.md, Queue 2 item 1
 BWD_HEAD_DIMS = (64, 128)
-# the bf16 kernel's tiles (WM, Smem<D>::WN in the source): q rows per block,
-# kv rows per stage; D 256 takes kv tiles of BLOCK_KV_D256 rows
+# the bf16 kernel's tiles (WM, Smem<DK, DV>::WN in the source): q rows per
+# block, kv rows per stage; q/k dim 256 takes kv tiles of BLOCK_KV_D256 rows
 BLOCK_Q = BLOCK_KV = 128
 BLOCK_KV_D256 = 64
 # the bf16 backward's tiles (ROWS in csrc/flash_attention_bwd.cu): TMA
@@ -75,18 +79,23 @@ def tma_layout(shape: tuple[int, int, int, int], stride: tuple[int, int, int, in
 _LAYOUTS: dict[tuple, ctypes.Array] = {}
 
 
-def layout_array(q_shape, q_stride, k_shape, k_stride, q_rows: int,
-                 kv_rows: int) -> ctypes.Array:
-    """The 22 layout values a bf16 launch takes (q's with boxes of
-    ``q_rows`` rows, then k's with boxes of ``kv_rows``), as a C array.
+def layout_array(q_shape, q_stride, k_shape, k_stride, q_rows: int, kv_rows: int,
+                 v_shape=None, v_stride=None) -> ctypes.Array:
+    """The 33 layout values a bf16 launch takes (q's with boxes of
+    ``q_rows`` rows, then k's and v's with boxes of ``kv_rows``; v's are
+    k's unless ``v_shape`` and ``v_stride`` are given), as a C array.
     Cached by shapes, strides and rows (at most 256 entries): building the
     layouts takes tens of microseconds of host time, next to a kernel of
     ~0.05 ms."""
-    key = (tuple(q_shape), tuple(q_stride), tuple(k_shape), tuple(k_stride), q_rows, kv_rows)
+    if v_shape is None:
+        v_shape, v_stride = k_shape, k_stride
+    key = (tuple(q_shape), tuple(q_stride), tuple(k_shape), tuple(k_stride),
+           tuple(v_shape), tuple(v_stride), q_rows, kv_rows)
     arr = _LAYOUTS.get(key)
     if arr is None:
         flat = (tma_layout(tuple(q_shape), tuple(q_stride), 2, q_rows).flat()
-                + tma_layout(tuple(k_shape), tuple(k_stride), 2, kv_rows).flat())
+                + tma_layout(tuple(k_shape), tuple(k_stride), 2, kv_rows).flat()
+                + tma_layout(tuple(v_shape), tuple(v_stride), 2, kv_rows).flat())
         if len(_LAYOUTS) >= 256:
             _LAYOUTS.clear()
         arr = _LAYOUTS[key] = (ctypes.c_longlong * len(flat))(*flat)
@@ -96,7 +105,7 @@ def layout_array(q_shape, q_stride, k_shape, k_stride, q_rows: int,
 def _fn():
     fn = build.library("flash_attention").flash_attention_fwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3)
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
     return fn
 
@@ -110,7 +119,7 @@ def _bwd_fn():
 
 
 def block_kv(d: int) -> int:
-    """kv rows per stage of the bf16 forward kernel at head dim ``d``."""
+    """kv rows per stage of the bf16 forward kernel at q/k head dim ``d``."""
     return BLOCK_KV_D256 if d == 256 else BLOCK_KV
 
 
@@ -119,13 +128,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: q, k, v must be (B, S, H, D)")
     b, s, h, d = q.shape
     bk, sk, kvh, dk = k.shape
-    if v.shape != k.shape or bk != b or dk != d:
+    if v.shape[:3] != k.shape[:3] or bk != b or dk != d:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not match")
     if kvh == 0 or h % kvh:
         raise ValueError(f"flash_attention: {h} q heads do not group over {kvh} kv heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if (d, v.shape[-1]) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dims (q/k {d}, v {v.shape[-1]}) not in "
+                         f"{sorted(HEAD_DIMS)}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
                         "the kernel takes bf16 or fp32, all alike")
@@ -140,19 +150,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool, window: int, return_lse: bool = False):
-    """q: (B, S, H, D); k, v: (B, Sk, KV, D) on one CUDA device -> o (B, S, H, D),
-    and with ``return_lse`` also each row's logsumexp (B, H, S) in fp32."""
+    """q: (B, S, H, D); k: (B, Sk, KV, D); v: (B, Sk, KV, Dv) on one CUDA
+    device -> o (B, S, H, Dv), and with ``return_lse`` also each row's
+    logsumexp (B, H, S) in fp32.  (D, Dv) is one of HEAD_DIMS."""
     _check(q, k, v)
     b, s, h, d = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
+    sk, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     layout = None
-    if q.dtype == torch.bfloat16:   # the TMA layouts of q and of k / v
-        layout = layout_array(q.shape, q.stride(), k.shape, k.stride(), BLOCK_Q, block_kv(d))
-    o = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:   # the TMA layouts of q, k and v
+        layout = layout_array(q.shape, q.stride(), k.shape, k.stride(), BLOCK_Q, block_kv(d),
+                              v.shape, v.stride())
+    o = q.new_empty((b, s, h, dv))
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    b, s, sk, h, kvh, d, int(causal), int(window), _DTYPES[q.dtype],
+                    b, s, sk, h, kvh, d, dv, int(causal), int(window), _DTYPES[q.dtype],
                     torch.cuda.current_stream(q.device).cuda_stream, layout,
                     None if lse is None else lse.data_ptr())
     if err < 0:
@@ -169,7 +181,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradient of :func:`flash_attention_cuda`: q, o, do (B, S, H, D),
     k, v (B, Sk, KV, D), lse (B, H, S) fp32 from the forward -> (dq, dk, dv)
     in the inputs' dtype, dk and dv summed over each kv head's q heads.
-    Head dims in BWD_HEAD_DIMS only: D 256 raises (ROADMAP.md, Queue 2 item 1)."""
+    Head dims in BWD_HEAD_DIMS only, v's equal to q's: D 256 and a v
+    narrower than q (MLA's 192 / 128) raise (ROADMAP.md, Queue 2 item 1)."""
+    if q.dim() == 4 and v.dim() == 4 and v.shape[-1] != q.shape[-1]:
+        raise NotImplementedError(
+            f"flash_attention_bwd: dv {v.shape[-1]} != d {q.shape[-1]} (MLA) has no backward "
+            "kernel yet: ROADMAP.md, Queue 2 item 1")
     if q.dim() == 4 and q.shape[-1] not in BWD_HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention_bwd: head dim {q.shape[-1]} has no backward kernel yet "

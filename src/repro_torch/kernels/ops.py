@@ -66,7 +66,7 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, S, H, D); k, v: (B, Sk, KV, D) -> (B, S, H, D).
+    """q: (B, S, H, D); k: (B, Sk, KV, D); v: (B, Sk, KV, Dv) -> (B, S, H, Dv).
 
     ``flash_attention.launches`` counts forward kernel launches and
     ``flash_attention.bwd_launches`` backward ones (CUDA only)."""

@@ -8,7 +8,8 @@ import torch
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q, k, v: (BH, S, D) — dense softmax attention in fp32."""
+    """q, k: (BH, S, D); v: (BH, S, Dv) — dense softmax attention in fp32,
+    scaled by 1 / sqrt(D)."""
     bh, s, d = q.shape
     sk = k.shape[1]
     scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(d)
@@ -26,18 +27,18 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0) -> torch.Tensor:
     """The flash kernel's function in the model layout: q (B, S, H, D),
-    k, v (B, S, KV, D) -> (B, S, H, D), GQA by repeating kv heads and
-    folding heads into the batch as ``repro.kernels.ops`` does."""
+    k (B, S, KV, D), v (B, S, KV, Dv) -> (B, S, H, Dv), GQA by repeating kv
+    heads and folding heads into the batch as ``repro.kernels.ops`` does."""
     b, s, h, d = q.shape
-    kvh = k.shape[2]
+    kvh, dv = k.shape[2], v.shape[3]
     if h != kvh:
         k = k.repeat_interleave(h // kvh, dim=2)
         v = v.repeat_interleave(h // kvh, dim=2)
     qf = q.transpose(1, 2).reshape(b * h, s, d)
     kf = k.transpose(1, 2).reshape(b * h, -1, d)
-    vf = v.transpose(1, 2).reshape(b * h, -1, d)
+    vf = v.transpose(1, 2).reshape(b * h, -1, dv)
     out = attention_ref(qf, kf, vf, causal=causal, window=window)
-    return out.reshape(b, h, s, d).transpose(1, 2)
+    return out.reshape(b, h, s, dv).transpose(1, 2)
 
 
 def _grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int):
@@ -77,13 +78,14 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The flash backward kernel's formulas in fp32 (not autograd): P from
     the forward's lse, Delta = rowsum(dO * O), dS = P * (dO V^T - Delta),
     dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D), dV = P^T dO, with dK and dV
-    summed over each kv head's q heads.  q, o, do (B, S, H, D); k, v
-    (B, Sk, KV, D); lse (B, H, S) -> (dq, dk, dv) in the inputs' dtypes."""
+    summed over each kv head's q heads.  q (B, S, H, D); o, do (B, S, H,
+    Dv); k (B, Sk, KV, D), v (B, Sk, KV, Dv); lse (B, H, S) -> (dq, dk, dv)
+    in the inputs' dtypes."""
     b, s, h, d = q.shape
-    kvh = k.shape[2]
+    kvh, dv = k.shape[2], v.shape[3]
     qg, kg, vg, scores, mask = _grouped(q, k, v, causal, window)
-    dog = do.float().reshape(b, s, kvh, h // kvh, d).permute(0, 2, 3, 1, 4)
-    og = o.float().reshape(b, s, kvh, h // kvh, d).permute(0, 2, 3, 1, 4)
+    dog = do.float().reshape(b, s, kvh, h // kvh, dv).permute(0, 2, 3, 1, 4)
+    og = o.float().reshape(b, s, kvh, h // kvh, dv).permute(0, 2, 3, 1, 4)
     lse_g = lse.float().reshape(b, kvh, h // kvh, s)
     p = torch.where(mask, torch.exp(scores - lse_g[..., None]), 0.0)
     delta = (dog * og).sum(-1)                                           # (B, KV, G, S)

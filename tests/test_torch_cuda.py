@@ -317,3 +317,82 @@ def test_cuda_moe_scatter_is_bit_stable(capacity_factor):
     y2, _ = moe.moe_scatter(on_card, x.cuda(), cfg)
     assert torch.equal(y1, y2)
     torch.testing.assert_close(y1.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,s,b,h", [
+    # deepseek-v3's MLA prefill (q/k dim 192, v dim 128, MHA), ragged tiles
+    # and one partial q tile, in both dtypes
+    (torch.bfloat16, True, 1024, 2, 16), (torch.bfloat16, True, 1000, 2, 16),
+    (torch.bfloat16, True, 100, 2, 16), (torch.bfloat16, False, 300, 2, 8),
+    (torch.float32, True, 1000, 1, 16), (torch.float32, True, 130, 2, 8)])
+def test_cuda_kernel_dk192_dv128_matches_plain_version(dtype, causal, s, b, h):
+    """MLA's head dims: the bf16 kernel with v's own tensor map and an
+    m64n128k16 P V product, the fp32 kernel of four threads a row, against
+    the plain version at the repo's tolerances; the output is v's width."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k = (torch.randn(b, s, h, 192, generator=gen, device="cuda").to(dtype) for _ in "qk")
+    v = torch.randn(b, s, h, 128, generator=gen, device="cuda").to(dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and got.shape == (b, s, h, 128)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, window=0, return_lse=True)
+    torch.testing.assert_close(o, got, rtol=0, atol=0)
+    torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, v, causal=causal),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_backward_refuses_dv_ne_d_by_name(dtype):
+    """The backward has no kernel for v narrower than q (MLA): it raises
+    naming ROADMAP.md, through the launcher and through autograd."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k = (torch.randn(1, 128, 4, 192, generator=gen, device="cuda").to(dtype) for _ in "qk")
+    v, do = (torch.randn(1, 128, 4, 128, generator=gen, device="cuda").to(dtype) for _ in "vd")
+    o, lse = flash_attention_cuda(q, k, v, causal=True, window=0, return_lse=True)
+    with pytest.raises(NotImplementedError, match="dv 128 != d 192.*ROADMAP.md, Queue 2 item 1"):
+        flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=0)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 2 item 1"):
+        out.backward(do)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_decode_matches_cpu():
+    """The absorbed MLA decode (PyTorch ops, no kernel) on the card from a
+    prefilled latent cache: each step's output and cache against the same
+    call on the CPU, in fp32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers
+    from repro_torch.models.spec import materialize, tree_map
+
+    cfg = get_smoke_config("deepseek_v3_671b").scaled(compute_dtype="float32")
+    params = tree_map(lambda t: t.float(), materialize(layers.make_mla_defs(cfg), 3, "cpu"))
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 24, cfg.d_model, generator=gen)
+    _, c = layers.mla_train(params, x[:, :16], cfg, return_cache=True)
+    cpu = {name: torch.zeros(2, 24, c[name].shape[-1]) for name in c}
+    for name in c:
+        cpu[name][:, :16] = c[name]
+    cpu["len"] = torch.tensor(16, dtype=torch.int32)
+    card = tree_map(lambda t: t.cuda(), cpu)
+    on_card = tree_map(lambda t: t.cuda(), params)
+    for t in range(16, 24):
+        want, cpu = layers.mla_decode(params, x[:, t:t + 1], cpu, cfg)
+        got, card = layers.mla_decode(on_card, x[:, t:t + 1].cuda(), card, cfg)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        for name in ("ckv", "k_rope"):
+            torch.testing.assert_close(card[name].cpu(), cpu[name], rtol=1e-4, atol=1e-4)
+        assert int(card["len"]) == int(cpu["len"]) == t + 1

@@ -115,6 +115,19 @@ def test_launcher_rejects_what_the_kernel_does_not_take(shape_q, shape_kv, dtype
         flash_attention_cuda(q, kv, kv, causal=True, window=0)
 
 
+@pytest.mark.parametrize("dk,dv,match", [
+    (128, 64, "head dims"),          # v narrower, but not a pair the kernel has
+    (192, 192, "head dims"),
+    (192, 128, "is on cpu"),         # MLA's pair passes the shape check
+    (192, 96, "head dims"),
+])
+def test_launcher_takes_v_narrower_only_for_listed_pairs(dk, dv, match):
+    q, k = torch.zeros(1, 64, 2, dk), torch.zeros(1, 64, 2, dk)
+    v = torch.zeros(1, 64, 2, dv)
+    with pytest.raises(ValueError, match=match):
+        flash_attention_cuda(q, k, v, causal=True, window=0)
+
+
 def _contiguous(shape):
     return torch.empty(shape, device="meta").stride()
 
@@ -164,8 +177,9 @@ def test_layout_array_is_cached_by_shapes_and_strides(q_rows, kv_rows):
     q_shape, k_shape = (4, 1024, 32, 64), (4, 1024, 8, 64)
     first = arr(q_shape, k_shape)
     assert arr(q_shape, k_shape) is first
+    # q's layout, then k's, then v's (k's when v has no shape of its own)
     want = (tma_layout(q_shape, _contiguous(q_shape), 2, q_rows).flat()
-            + tma_layout(k_shape, _contiguous(k_shape), 2, kv_rows).flat())
+            + 2 * tma_layout(k_shape, _contiguous(k_shape), 2, kv_rows).flat())
     assert list(first) == list(want)
     # another length, and the same shape stored (S, H, B, D): new arrays
     ragged = arr((2, 100, 32, 64), (2, 100, 8, 64))
@@ -186,10 +200,21 @@ def test_build_is_keyed_by_sources():
 
 def test_kv_tile_rows_by_head_dim():
     """D 256 takes 64-row K/V boxes (two stages fit an SM); D 64 and 128
-    keep 128."""
-    assert HEAD_DIMS == (64, 128, 256)
-    assert [block_kv(d) for d in HEAD_DIMS] == [BLOCK_KV, BLOCK_KV, BLOCK_KV_D256]
+    keep 128, and so does MLA's q/k dim 192 (with v dim 128)."""
+    assert HEAD_DIMS == {(64, 64), (128, 128), (256, 256), (192, 128)}
+    assert [block_kv(d) for d in (64, 128, 256, 192)] == [BLOCK_KV, BLOCK_KV, BLOCK_KV_D256,
+                                                           BLOCK_KV]
     assert BLOCK_KV_D256 == 64 and BLOCK_KV == 128
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_refuses_dv_ne_d_naming_roadmap(dtype):
+    """MLA's (192, 128): the backward launcher refuses v narrower than q
+    before any other check, naming where it waits."""
+    q, k = torch.zeros(1, 64, 4, 192, dtype=dtype), torch.zeros(1, 64, 4, 192, dtype=dtype)
+    v, o = torch.zeros(1, 64, 4, 128, dtype=dtype), torch.zeros(1, 64, 4, 128, dtype=dtype)
+    with pytest.raises(NotImplementedError, match=r"dv 128 != d 192.*ROADMAP.md, Queue 2 item 1"):
+        flash_attention_bwd_cuda(q, k, v, o, torch.zeros(1, 4, 64), o, causal=True, window=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
