@@ -1,4 +1,5 @@
-"""Core transformer layers: norms, RoPE, GQA self- and cross-attention, SwiGLU.
+"""Core transformer layers: norms, RoPE, GQA self- and cross-attention,
+multi-head latent attention (MLA), SwiGLU.
 
 Ports ``src/repro/models/layers.py``.  ``params`` are dict trees (built
 from the ParamDef trees in each ``make_*_defs``), activations are
@@ -14,8 +15,15 @@ place (the reference returns a new cache tree).
 Sliding-window layers (``swa``) pass ``window`` to the same kernel;
 their decode cache is a ring buffer one window wide.  Cross-attention
 (encoder-decoder) reads the encoder output without RoPE; its decode
-attends to a fixed memory and leaves the cache as it is.  MLA and the activation-sharding context wait for later slices
-(ROADMAP.md, 'Next slices' item 4).
+attends to a fixed memory and leaves the cache as it is.
+
+MLA (deepseek-v3) prefills through the same kernel with q/k dim
+``qk_nope_head_dim + qk_rope_head_dim`` and v dim ``v_head_dim``; its
+decode is the reference's absorbed form over the compressed latent cache
+(``ckv`` and the shared roped key ``k_rope``), plain torch on every
+device, as the reference computes it in jnp outside any Pallas kernel.
+The activation-sharding context waits for the distribution slice
+(ROADMAP.md, Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import flash_attention
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import MLACfg, ModelConfig
 from repro_torch.models.spec import ParamDef, pdef
 
 NEG_INF = -1e30
@@ -36,6 +44,12 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with JAX's type promotion (bf16 @ fp32 -> fp32)."""
     dt = torch.promote_types(x.dtype, w.dtype)
     return x.to(dt) @ w.to(dt)
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum`` of two operands, with JAX's type promotion."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +130,22 @@ def make_attention_defs(cfg: ModelConfig, *, cross: bool = False) -> dict[str, A
     }
 
 
+def make_mla_defs(cfg: ModelConfig) -> dict[str, Any]:
+    m: MLACfg = cfg.mla  # type: ignore[assignment]
+    d, h = cfg.d_model, cfg.n_heads
+    return {
+        "wq_a": pdef((d, "d_model"), (m.q_lora_rank, None)),
+        "q_norm": pdef((m.q_lora_rank, None), init="zeros", dtype=torch.float32),
+        "wq_b": pdef((m.q_lora_rank, None), (h * m.qk_head_dim, "heads")),
+        "wkv_a": pdef((d, "d_model"), (m.kv_lora_rank, None)),
+        "kv_norm": pdef((m.kv_lora_rank, None), init="zeros", dtype=torch.float32),
+        "wkv_b": pdef((m.kv_lora_rank, None),
+                      (h * (m.qk_nope_head_dim + m.v_head_dim), "heads")),
+        "wk_rope": pdef((d, "d_model"), (m.qk_rope_head_dim, None)),
+        "wo": pdef((h * m.v_head_dim, "heads"), (d, "d_model")),
+    }
+
+
 # ---------------------------------------------------------------------------
 # blockwise multi-head attention (training / prefill)
 # ---------------------------------------------------------------------------
@@ -134,16 +164,16 @@ def _softmax_weights(scores: torch.Tensor, mask: torch.Tensor,
 
 
 def _weighted_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    dt = torch.promote_types(p.dtype, v.dtype)
-    return torch.einsum("bkgqs,bskd->bqkgd", p.to(dt), v.to(dt))
+    return einsum("bkgqs,bskd->bqkgd", p, v)
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool, window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """Dense attention with GQA and optional sliding window.
 
-    q: (B, Sq, H, D); k, v: (B, Sk, KV, D).  Returns (B, Sq, H, D).
-    ``q_offset``: absolute position of q[0].
+    q: (B, Sq, H, D); k: (B, Sk, KV, D); v: (B, Sk, KV, Dv) (Dv may
+    differ: MLA).  Returns (B, Sq, H, Dv).  ``q_offset``: absolute
+    position of q[0].
     """
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -164,21 +194,18 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def blockwise_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Attention of q (B, S, H, D) over k, v (B, Sk, KV, D): causal,
-    windowed, or full (bidirectional, or cross-attention with Sk != S).
+    """Attention of q (B, S, H, D) over k (B, Sk, KV, D) and v (B, Sk, KV,
+    Dv): causal, windowed, or full (bidirectional, or cross-attention with
+    Sk != S).  Returns (B, S, H, Dv).
 
-    CUDA tensors go to the Hopper flash kernel (it computes this function
-    for ``dv == d``); CPU tensors take the reference's loop over query
-    blocks, reading only the (window + qb)-wide KV slice per block for
-    sliding-window attention.
+    CUDA tensors go to the Hopper flash kernel, which takes MLA's q/k dim
+    192 with v dim 128 as well as D = Dv; CPU tensors take the reference's
+    loop over query blocks, reading only the (window + qb)-wide KV slice
+    per block for sliding-window attention.
     """
     b, s, h, d = q.shape
     dv = v.shape[-1]
     if q.device.type == "cuda":
-        if dv != d:
-            raise NotImplementedError(
-                "attention with dv != d (MLA) has no kernel yet: ROADMAP.md, "
-                "'Next slices' item 4")
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=causal, window=window)
     qb = _pick_q_block(s)
@@ -259,6 +286,38 @@ def attention_train(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     return out
 
 
+def mla_train(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              return_cache: bool = False):
+    """DeepSeek-V3 multi-head latent attention over a full sequence (the
+    train / prefill path): q and the latent ``ckv`` through their low-rank
+    projections and norms, per-head K and V from ``ckv``, a roped key
+    shared by all heads, causal attention of q/k dim ``qk_head_dim`` over v
+    dim ``v_head_dim``.  ``return_cache``: also the decode cache, ``ckv``
+    (B, S, kv_lora_rank) and the roped ``k_rope`` (B, S, qk_rope_head_dim)."""
+    m: MLACfg = cfg.mla  # type: ignore[assignment]
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    pos = torch.arange(s, device=x.device)
+    cq = rms_norm(matmul(x, params["wq_a"]), params["q_norm"], cfg.norm_eps)
+    q = matmul(cq, params["wq_b"]).reshape(b, s, h, m.qk_head_dim)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+
+    ckv = rms_norm(matmul(x, params["wkv_a"]), params["kv_norm"], cfg.norm_eps)
+    kvu = matmul(ckv, params["wkv_b"]).reshape(b, s, h, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kvu.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k_rope = apply_rope(matmul(x, params["wk_rope"]), pos, cfg.rope_theta)   # (B, S, rope)
+
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, m.qk_rope_head_dim)],
+                       dim=-1)
+    out = blockwise_mha(q_full, k_full, v, causal=True)
+    out = matmul(out.reshape(b, s, h * m.v_head_dim), params["wo"])
+    if return_cache:
+        return out, {"ckv": ckv, "k_rope": k_rope}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # decode (single new token against a ring-buffer cache)
 # ---------------------------------------------------------------------------
@@ -302,5 +361,50 @@ def attention_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfi
     mask = torch.arange(smax, device=x.device)[None, :] < n_valid
     p = _softmax_weights(scores, mask, x.dtype)
     out = _weighted_values(p, cv).reshape(b, 1, h * hd)
+    cache["len"].add_(1)
+    return matmul(out, params["wo"]), cache
+
+
+def mla_decode(params: dict, x: torch.Tensor, cache: dict,
+               cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """Absorbed MLA decode: x (B, 1, d) against the compressed latent cache
+    {"ckv": (B, Smax, kv_lora_rank), "k_rope": (B, Smax, rope), "len": ()}
+    without materialising per-head K/V.  q_nope is folded through
+    ``wkv_b``'s K half, scores are taken against ``ckv`` and ``k_rope``
+    (scaled by 1 / sqrt(qk_head_dim)), and the context over ``ckv`` is
+    projected through the V half.  Ring-buffer slots as
+    :func:`attention_decode`; the cache is updated in place and returned."""
+    m: MLACfg = cfg.mla  # type: ignore[assignment]
+    b = x.shape[0]
+    h = cfg.n_heads
+    smax = cache["ckv"].shape[1]
+    cur = cache["len"].reshape(1)                       # int32, on the device
+
+    cq = rms_norm(matmul(x, params["wq_a"]), params["q_norm"], cfg.norm_eps)
+    q = matmul(cq, params["wq_b"]).reshape(b, 1, h, m.qk_head_dim)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, cur, cfg.rope_theta)
+
+    ckv_new = rms_norm(matmul(x, params["wkv_a"]), params["kv_norm"], cfg.norm_eps)
+    kr_new = apply_rope(matmul(x, params["wk_rope"]), cur, cfg.rope_theta)
+    slot = torch.remainder(cur, smax).long()
+    ckv, krope = cache["ckv"], cache["k_rope"]
+    ckv.index_copy_(1, slot, ckv_new.to(ckv.dtype))
+    krope.index_copy_(1, slot, kr_new.to(krope.dtype))
+
+    # absorb wkv_b's K half into q_nope: q_abs (B, 1, H, kv_lora_rank)
+    wkv_b = params["wkv_b"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim)
+    w_k, w_v = wkv_b.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    q_abs = einsum("bqhd,rhd->bqhr", q_nope, w_k)
+    # fp32 scores of the operands' exact products, as the reference's
+    # preferred_element_type=float32
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_abs.float(), ckv.float())
+              + torch.einsum("bqhd,bsd->bhqs", q_rope.float(), krope.float()))
+    scores = scores / math.sqrt(m.qk_head_dim)
+    n_valid = torch.clamp(cur + 1, max=smax)
+    mask = torch.arange(smax, device=x.device)[None, :] < n_valid
+    p = _softmax_weights(scores, mask, x.dtype)
+    ctx = einsum("bhqs,bsr->bqhr", p, ckv)                    # (B, 1, H, r)
+    out = einsum("bqhr,rhd->bqhd", ctx, w_v).reshape(b, 1, h * m.v_head_dim)
     cache["len"].add_(1)
     return matmul(out, params["wo"]), cache

@@ -1,6 +1,7 @@
-"""Model assembly, the ``attn``, ``swa``, ``ssd`` and ``rglru`` mixers
-with ``dense``, ``moe`` or no FFN, and the encoder-decoder backbone:
-TransformerLM over per-layer block kinds.
+"""Model assembly: TransformerLM over per-layer block kinds, every mixer
+(``attn``, ``swa``, ``mla``, ``ssd``, ``rglru``) with ``dense``, ``moe``
+or no FFN, token or embedding inputs, the encoder-decoder backbone and
+multi-token prediction.
 
 Ports ``src/repro/models/model.py``.  Layers keep the reference's scan
 *segments* (``ModelConfig.scan_segments``): each segment stacks its
@@ -29,11 +30,16 @@ under autograd: causal self-attention, sliding-window self-attention
 (``swa``, whose decode cache is a ring buffer one window wide), the
 encoder's bidirectional self-attention and the decoder's cross-attention
 over the encoder output (``encoder_layers`` > 0; the encoder reads
-``batch["enc_embeds"]``).  SSD blocks run the Hopper SSD scan kernel,
-forward only; RG-LRU blocks (``models/griffin.py``) and MoE FFNs
-(``models/moe.py``) are PyTorch ops.  MLA, frame-embedding inputs and
-multi-token prediction raise ``NotImplementedError`` naming their
-ROADMAP item.
+``batch["enc_embeds"]``), and MLA's prefill at q/k dim 192 over v dim
+128 (its decode is the absorbed form over the latent cache, PyTorch
+ops).  SSD blocks run the Hopper SSD scan kernel, forward only; RG-LRU
+blocks (``models/griffin.py``) and MoE FFNs (``models/moe.py``) are
+PyTorch ops.  An ``input_kind="embeds"`` model (llava) reads
+``batch["embeds"]`` (B, S, d); its decode takes {"embeds": (B, 1, d)} or
+falls back to token ids through the table, as the serve plane sends.
+With ``cfg.mtp`` (deepseek-v3) the parameter tree carries the
+multi-token-prediction block and ``loss_fn`` adds its loss; serving does
+not run it.
 """
 from __future__ import annotations
 
@@ -51,7 +57,11 @@ from repro_torch.models.layers import (
     attention_train,
     make_attention_defs,
     make_ffn_defs,
+    make_mla_defs,
     make_norm_def,
+    matmul,
+    mla_decode,
+    mla_train,
     rms_norm,
     swiglu,
 )
@@ -59,24 +69,6 @@ from repro_torch.models.spec import pdef, stack_defs, tree_leaves, tree_map
 
 
 ENCODER_KIND: BlockKind = ("bidir", "dense")
-
-
-def _not_ported(what: str, name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} {name!r} is not ported yet: ROADMAP.md, 'Next slices' item 4")
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    cfg.validate()
-    for mixer, ffn in cfg.block_kinds():
-        if mixer not in ("attn", "swa", "ssd", "rglru"):
-            raise _not_ported("mixer", mixer)
-        if ffn not in ("dense", "moe", "none"):
-            raise _not_ported("ffn", ffn)
-    if cfg.input_kind != "tokens":
-        raise _not_ported("input kind", cfg.input_kind)
-    if cfg.mtp:
-        raise _not_ported("multi-token prediction", cfg.name)
 
 
 def _layer(tree: Any, i: int) -> Any:
@@ -126,6 +118,8 @@ def block_defs(cfg: ModelConfig, kind: BlockKind, *, cross: bool = False) -> dic
     d: dict[str, Any] = {"ln1": make_norm_def(cfg.d_model)}
     if mixer in ("attn", "swa", "bidir"):
         d["attn"] = make_attention_defs(cfg)
+    elif mixer == "mla":
+        d["attn"] = make_mla_defs(cfg)
     elif mixer == "ssd":
         d["ssd"] = ssm.make_ssd_defs(cfg)
     else:
@@ -178,6 +172,8 @@ def block_train(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: BlockKind
         y = attention_train(params["attn"], h, cfg, bidirectional=mixer == "bidir")
     elif mixer == "swa":
         y = attention_train(params["attn"], h, cfg, window=cfg.window)
+    elif mixer == "mla":
+        y = mla_train(params["attn"], h, cfg)
     elif mixer == "ssd":
         y = ssm.ssd_block_train(params["ssd"], h, cfg)
     else:
@@ -193,6 +189,9 @@ def block_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     if mixer in ("attn", "swa"):     # a window is the width of the swa ring buffer
         y, c = attention_decode(params["attn"], h, cache["attn"], cfg)
+        new_cache = {**cache, "attn": c}
+    elif mixer == "mla":
+        y, c = mla_decode(params["attn"], h, cache["attn"], cfg)
         new_cache = {**cache, "attn": c}
     elif mixer == "ssd":
         y, c = ssm.ssd_block_decode(params["ssd"], h, cache["ssd"], cfg)
@@ -213,15 +212,20 @@ def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: BlockKi
                   enc_out: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
     """Like block_train but also captures the decode cache (prefill path).
     A sliding-window layer keeps the last ``w = min(window, S)`` keys in
-    the ring-buffer layout, token p at slot p % w."""
+    the ring-buffer layout, token p at slot p % w; an MLA layer keeps its
+    latent ``ckv`` and roped ``k_rope``."""
     mixer, s = kind[0], x.shape[1]
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
+    length = torch.tensor(s, dtype=torch.int32, device=x.device)
     if mixer in ("attn", "swa"):
         window = cfg.window if mixer == "swa" else 0
         y, kvs = attention_train(params["attn"], h, cfg, window=window, return_kv=True)
         if window and s > window:
             kvs = {k: torch.roll(v[:, -window:], s % window, dims=1) for k, v in kvs.items()}
-        entry = {"attn": {**kvs, "len": torch.tensor(s, dtype=torch.int32, device=x.device)}}
+        entry = {"attn": {**kvs, "len": length}}
+    elif mixer == "mla":
+        y, c = mla_train(params["attn"], h, cfg, return_cache=True)
+        entry = {"attn": {**c, "len": length}}
     elif mixer == "ssd":
         y, c = ssm.ssd_block_train(params["ssd"], h, cfg, return_state=True)
         entry = {"ssd": c}
@@ -248,6 +252,15 @@ def _block_cache_defs(cfg: ModelConfig, kind: BlockKind, batch: int,
             "conv": pdef((batch, "batch"), (cfg.rglru.conv_width - 1, None), (w, "d_ff"),
                          init="zeros"),
             "h": pdef((batch, "batch"), (w, "d_ff"), init="zeros"),
+        }}
+    if mixer == "mla":   # the compressed latent and the shared roped key: no ring buffer
+        m = cfg.mla
+        return {"attn": {
+            "ckv": pdef((batch, "batch"), (seq_len, "seq"), (m.kv_lora_rank, None),
+                        init="zeros"),
+            "k_rope": pdef((batch, "batch"), (seq_len, "seq"), (m.qk_rope_head_dim, None),
+                           init="zeros"),
+            "len": pdef(init="zeros", dtype=torch.int32),
         }}
     if mixer == "ssd":
         s = cfg.ssm
@@ -280,7 +293,7 @@ def _block_cache_defs(cfg: ModelConfig, kind: BlockKind, batch: int,
 
 
 def param_defs(cfg: ModelConfig) -> dict:
-    _check_supported(cfg)
+    cfg.validate()
     cross = cfg.encoder_layers > 0
     defs: dict[str, Any] = {
         "embed": pdef((cfg.vocab_size, "vocab"), (cfg.d_model, "d_model"),
@@ -299,12 +312,24 @@ def param_defs(cfg: ModelConfig) -> dict:
             "blocks": stack_defs(block_defs(cfg, ENCODER_KIND), cfg.encoder_layers),
             "final_norm": make_norm_def(cfg.d_model),
         }
+    if cfg.mtp:
+        defs["mtp"] = {
+            "proj": pdef((2 * cfg.d_model, "d_model"), (cfg.d_model, "d_model")),
+            "block": block_defs(cfg, _mtp_kind(cfg)),
+            "norm_h": make_norm_def(cfg.d_model),
+            "norm_e": make_norm_def(cfg.d_model),
+        }
     return defs
+
+
+def _mtp_kind(cfg: ModelConfig) -> BlockKind:
+    """The multi-token-prediction block: the pattern's last mixer, dense FFN."""
+    return (cfg.pattern[-1][0], "dense")
 
 
 def cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     """Decode-state tree matching the segment structure."""
-    _check_supported(cfg)
+    cfg.validate()
     return {
         "segments": [
             {str(u): stack_defs(_block_cache_defs(cfg, kind, batch, seq_len), repeats)
@@ -320,6 +345,8 @@ def cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
 
 
 def embed_inputs(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.input_kind == "embeds":
+        return batch["embeds"].to(cfg.cdtype)
     return F.embedding(batch["inputs"], params["embed"]).to(cfg.cdtype)
 
 
@@ -402,10 +429,11 @@ def _ce_chunk(params: dict, h: torch.Tensor, targets: torch.Tensor,
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool = True,
             ce_chunk: int = 512) -> tuple[torch.Tensor, dict]:
     """Scalar fp32 loss (mean CE + z-loss over targets >= 0, plus the aux
-    loss) and its metrics ``ce_loss`` and ``aux_loss``.  The CE runs in
-    sequence chunks of ``ce_chunk`` when they divide the sequence, so the
-    (B, S, vocab) logits are never held at once; under ``remat`` each
-    chunk's logits are recomputed in the backward."""
+    loss; with ``cfg.mtp`` plus 0.3 times the multi-token-prediction loss)
+    and its metrics ``ce_loss``, ``aux_loss`` (and ``mtp_loss``).  The CE
+    runs in sequence chunks of ``ce_chunk`` when they divide the sequence,
+    so the (B, S, vocab) logits are never held at once; under ``remat``
+    each chunk's logits are recomputed in the backward."""
     h, _, aux = forward_train(params, batch, cfg, remat=remat)
     targets = batch["targets"]
     b, s = targets.shape
@@ -423,7 +451,30 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool = True,
     else:
         tot, cnt = _ce_chunk(params, h, targets, cfg)
     loss = tot / torch.clamp(cnt, min=1.0)
-    return loss + aux, {"ce_loss": loss, "aux_loss": aux}
+    metrics = {"ce_loss": loss, "aux_loss": aux}
+    if cfg.mtp:
+        metrics["mtp_loss"] = _mtp_loss(params, h, batch, cfg)
+        loss = loss + 0.3 * metrics["mtp_loss"]
+    return loss + aux, metrics
+
+
+def _mtp_loss(params: dict, h: torch.Tensor, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """DeepSeek-V3 multi-token prediction: one extra depth predicting t+2.
+
+    h'_t = W [RMSNorm(h_t) ; RMSNorm(Emb(target_{t+1}))] -> block -> head."""
+    mtp = params["mtp"]
+    targets = batch["targets"]
+    # teacher embedding of the next token (targets shifted left by one)
+    nxt = torch.cat([targets[:, 1:], targets[:, -1:]], dim=1)
+    e = F.embedding(nxt.clamp(min=0), params["embed"]).to(h.dtype)
+    hn = rms_norm(h, mtp["norm_h"], cfg.norm_eps)
+    en = rms_norm(e, mtp["norm_e"], cfg.norm_eps)
+    hm = matmul(torch.cat([hn, en], dim=-1), mtp["proj"])
+    hm, _ = block_train(mtp["block"], hm, cfg, _mtp_kind(cfg))
+    # predict t+2: targets shifted by two
+    t2 = torch.cat([targets[:, 2:], targets[:, -2:]], dim=1)
+    tot, cnt = _ce_chunk(params, hm, t2, cfg)
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 @torch.no_grad()
@@ -479,11 +530,16 @@ def prefill_cross_memory(params: dict, cache: dict, enc_out: torch.Tensor,
 @torch.no_grad()
 def decode_step(params: dict, state: dict, batch: dict, cfg: ModelConfig
                 ) -> tuple[torch.Tensor, dict]:
-    """One-token decode.  batch: {"inputs": (B,1) ids}, optionally
-    {"cross_memory": {"k","v"}} for every enc-dec layer (else each layer
-    reads its cache's ``cross`` entry).  Returns (logits, state); the
-    state's caches are updated in place (see :func:`_widen`)."""
-    x = embed_inputs(params, batch, cfg)
+    """One-token decode.  batch: {"inputs": (B,1) ids} or, for an
+    ``input_kind="embeds"`` model, {"embeds": (B,1,d)} (ids otherwise, as
+    the serve plane sends); optionally {"cross_memory": {"k","v"}} for
+    every enc-dec layer (else each layer reads its cache's ``cross``
+    entry).  Returns (logits, state); the state's caches are updated in
+    place (see :func:`_widen`)."""
+    if cfg.input_kind == "embeds" and "embeds" in batch:
+        x = batch["embeds"].to(cfg.cdtype)
+    else:
+        x = F.embedding(batch["inputs"], params["embed"]).to(cfg.cdtype)
     cross_mem = batch.get("cross_memory")
     for seg_params, seg_cache, (unit, repeats) in zip(
             params["segments"], state["segments"], cfg.scan_segments()):

@@ -97,11 +97,19 @@ def param_bytes(defs: Any) -> int:
                for d in tree_leaves(defs, is_def))
 
 
+# a leaf of more elements than DRAW_WHOLE draws its fp32 normals in slices
+# of at most DRAW_SLICE elements, straight into the stored dtype: in one
+# piece a stacked FFN leaf of llava-next-34b (60 x 7168 x 20480) would take
+# 35 GB of fp32 beside the weights already drawn
+DRAW_WHOLE, DRAW_SLICE = 1 << 31, 1 << 28
+
+
 def materialize(defs: Any, seed: int, device: str | torch.device) -> Any:
     """Real tensors on ``device``.  Each leaf draws from its own
     ``torch.Generator``, seeded from ``(seed, leaf index)`` — the
-    counterpart of the reference's ``fold_in(key, i)``.  The numbers
-    differ from JAX's; tests carry JAX weights across with
+    counterpart of the reference's ``fold_in(key, i)`` — in one piece, or
+    above DRAW_WHOLE elements slice by slice over its leading axes.  The
+    numbers differ from JAX's; tests carry JAX weights across with
     :func:`repro_torch.bridge.params_from_numpy` instead."""
     device = torch.device(device)
     counter = iter(range(len(tree_leaves(defs, is_def))))
@@ -116,8 +124,17 @@ def materialize(defs: Any, seed: int, device: str | torch.device) -> Any:
         gen = torch.Generator(device=device).manual_seed(leaf_seed)
         fan_in = d.shape[0] if len(d.shape) >= 2 else max(d.shape[0], 1)
         scale = d.scale if d.scale is not None else 1.0 / math.sqrt(fan_in)
-        x = torch.randn(d.shape, generator=gen, dtype=torch.float32, device=device)
-        return (x * scale).to(d.dtype)
+        if math.prod(d.shape) <= DRAW_WHOLE:
+            x = torch.randn(d.shape, generator=gen, dtype=torch.float32, device=device)
+            return x.mul_(scale).to(d.dtype)
+        lead = 1                   # leading axes to slice over
+        while math.prod(d.shape[lead:]) > DRAW_SLICE:
+            lead += 1
+        out = torch.empty(d.shape, dtype=d.dtype, device=device)
+        for part in out.view(-1, *d.shape[lead:]):
+            part.copy_(torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                                   device=device).mul_(scale))
+        return out
 
     return tree_map(init_one, defs, is_def)
 

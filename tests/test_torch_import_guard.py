@@ -52,9 +52,12 @@ print(json.dumps(sorted(m for m in sys.modules
 
 @pytest.mark.parametrize("name", ["repro_torch.models.griffin",
                                   "repro_torch.configs.recurrentgemma_9b",
-                                  "repro_torch.configs.gemma3_27b"])
+                                  "repro_torch.configs.gemma3_27b",
+                                  "repro_torch.configs.llava_next_34b",
+                                  "repro_torch.configs.deepseek_67b",
+                                  "repro_torch.configs.deepseek_v3_671b"])
 def test_guard_covers_the_newest_modules(name):
-    """The RG-LRU block and both new configs are among the modules the
+    """The RG-LRU block and the newest configs are among the modules the
     guard imports with jax blocked, and among the sources it scans."""
     assert name in MODULES
     path = PORT.parent.joinpath(*name.split(".")).with_suffix(".py")

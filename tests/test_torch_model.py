@@ -1,7 +1,10 @@
 """The port's decoder-only attention models against ``repro.models`` with
 the same weights: granite-3-2b, minitron-4b (head padding, D 128),
-olmoe-1b-7b (MoE FFNs), gemma3-27b (5 sliding-window : 1 global layers)
-and recurrentgemma-9b (2 RG-LRU : 1 sliding-window layers, MQA).
+olmoe-1b-7b (MoE FFNs), gemma3-27b (5 sliding-window : 1 global layers),
+recurrentgemma-9b (2 RG-LRU : 1 sliding-window layers, MQA),
+llava-next-34b (embedding inputs, head padding), deepseek-67b (dense GQA)
+and deepseek-v3-671b (MLA with absorbed decode, a dense layer before the
+MoE layers with a shared expert, multi-token prediction).
 
 JAX materializes the weights; ``repro_torch.bridge.params_from_numpy``
 carries them across.  Smoke size, fp32: logits, prefill caches and a
@@ -30,7 +33,8 @@ from repro_torch.configs import ALIASES, get_config, get_smoke_config
 from repro_torch.models import spec as TS
 
 ARCH = "granite_3_2b"            # the base of the architecture-free tests
-ARCHS = ("granite_3_2b", "minitron_4b", "olmoe_1b_7b", "gemma3_27b", "recurrentgemma_9b")
+ARCHS = ("granite_3_2b", "minitron_4b", "olmoe_1b_7b", "gemma3_27b", "recurrentgemma_9b",
+         "llava_next_34b", "deepseek_67b", "deepseek_v3_671b")
 WINDOWED = ("gemma3_27b", "recurrentgemma_9b")
 
 
@@ -53,8 +57,21 @@ def setup(arch):
     jp = jax.tree.map(jnp.asarray, _fp32_np(JS.materialize(JM.param_defs(jc),
                                                            jax.random.PRNGKey(42))))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
-    ids = np.random.default_rng(0).integers(0, jc.vocab_size, size=(2, 16)).astype(np.int32)
+    ids = _tokens(jc, np.random.default_rng(0), 2, 16)
     return jc, tc, jp, tp, ids
+
+
+def _tokens(cfg, rng, b, s):
+    """A model's input sequence: token ids, or for an ``embeds`` model
+    (llava) embeddings at the embedding table's scale, drawn from ``rng``."""
+    if cfg.input_kind == "embeds":
+        return rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    return rng.integers(0, cfg.vocab_size, size=(b, s)).astype(np.int32)
+
+
+def _feed(cfg, x):
+    """The batch entry of an input sequence (numpy, jax or torch)."""
+    return {"embeds" if cfg.input_kind == "embeds" else "inputs": x}
 
 
 def _close(got, want, tol=2e-3):
@@ -153,6 +170,24 @@ def test_materialize_seeded_per_leaf():
     assert meta["embed"].device.type == "meta" and meta["embed"].dtype == torch.bfloat16
 
 
+def test_materialize_draws_large_leaves_in_slices(monkeypatch):
+    """A leaf over DRAW_WHOLE elements is drawn slice by slice over its
+    leading axes (no fp32 copy of the whole): the same shape, dtype, scale
+    and seed-determinism as a leaf drawn whole; a leaf under it is drawn
+    as before, bit for bit."""
+    defs = {"big": TS.pdef((3, None), (4, None), (50, None)),
+            "small": TS.pdef((8, None), (8, None))}
+    before = TS.materialize(defs, 5, "cpu")
+    monkeypatch.setattr(TS, "DRAW_WHOLE", 100)
+    monkeypatch.setattr(TS, "DRAW_SLICE", 60)           # slices of (50,): 12 draws
+    a, b = TS.materialize(defs, 5, "cpu"), TS.materialize(defs, 5, "cpu")
+    assert torch.equal(a["small"], before["small"])
+    assert a["big"].shape == (3, 4, 50) and a["big"].dtype == torch.bfloat16
+    assert torch.equal(a["big"], b["big"]) and not torch.equal(a["big"], before["big"])
+    assert abs(a["big"].float().std().item() - 1 / np.sqrt(3)) < 0.1   # fan_in = shape[0]
+    assert len({tuple(r.tolist()) for r in a["big"].float().reshape(12, 50)}) == 12
+
+
 def test_bridge_carries_bf16_bit_for_bit():
     x = jax.random.normal(jax.random.PRNGKey(0), (5, 7)).astype(jnp.bfloat16)
     tree = params_from_numpy({"a": [np.asarray(x)], "n": np.asarray(jnp.int32(3))}, "cpu")
@@ -165,8 +200,8 @@ def test_bridge_carries_bf16_bit_for_bit():
 
 def test_forward_train_logits_match(setup):
     jc, tc, jp, tp, ids = setup
-    jh, _, jaux = JM.forward_train(jp, {"inputs": jnp.asarray(ids)}, jc, remat=False)
-    th, enc, aux = TM.forward_train(tp, {"inputs": torch.from_numpy(ids)}, tc)
+    jh, _, jaux = JM.forward_train(jp, _feed(jc, jnp.asarray(ids)), jc, remat=False)
+    th, enc, aux = TM.forward_train(tp, _feed(tc, torch.from_numpy(ids)), tc)
     assert enc is None and (float(aux) == 0.0) == (tc.moe is None)
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
     _close(th, jh)
@@ -180,39 +215,45 @@ def test_fp32_activations_on_bf16_weights_promote_like_jax(setup):
     jp = JS.materialize(JM.param_defs(jc), jax.random.PRNGKey(3))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     assert tp["embed"].dtype == torch.bfloat16
-    jl, _ = JM.prefill_forward(jp, {"inputs": jnp.asarray(ids)}, jc, remat=False)
-    tl, _ = TM.prefill_forward(tp, {"inputs": torch.from_numpy(ids)}, tc)
+    jl, _ = JM.prefill_forward(jp, _feed(jc, jnp.asarray(ids)), jc, remat=False)
+    tl, _ = TM.prefill_forward(tp, _feed(tc, torch.from_numpy(ids)), tc)
     assert tl.dtype == torch.float32
     _close(tl, jl)
 
 
 def test_prefill_logits_and_cache_match(setup):
     jc, tc, jp, tp, ids = setup
-    jl, jcache = JM.prefill_forward(jp, {"inputs": jnp.asarray(ids)}, jc, remat=False)
-    tl, tcache = TM.prefill_forward(tp, {"inputs": torch.from_numpy(ids)}, tc)
+    jl, jcache = JM.prefill_forward(jp, _feed(jc, jnp.asarray(ids)), jc, remat=False)
+    tl, tcache = TM.prefill_forward(tp, _feed(tc, torch.from_numpy(ids)), tc)
     _close(tl, jl)
     _close_trees(tcache, jcache)
 
 
 def test_decode_steps_match(setup):
     jc, tc, jp, tp, ids = setup
-    b, s = ids.shape
+    b, s = ids.shape[:2]
     jcache = JS.materialize(JM.cache_defs(jc, b, s), jax.random.PRNGKey(0))
     tcache = params_from_numpy(jax.tree.map(np.asarray, jcache), "cpu")
-    step = jax.jit(lambda p, c, x: JM.decode_step(p, c, {"inputs": x}, jc))
+    step = jax.jit(lambda p, c, x: JM.decode_step(p, c, _feed(jc, x), jc))
     for t in range(s):
         jl, jcache = step(jp, jcache, jnp.asarray(ids[:, t:t + 1]))
-        tl, tcache = TM.decode_step(tp, tcache, {"inputs": torch.from_numpy(ids[:, t:t + 1])},
+        tl, tcache = TM.decode_step(tp, tcache, _feed(tc, torch.from_numpy(ids[:, t:t + 1])),
                                     tc)
         _close(tl, jl)
-    # the first layer's keys (or recurrent state) at 2e-3; every layer's
-    # cache at the repo's bf16 tolerance where it holds bf16 (these caches
-    # are drawn bf16)
+    # the first layer's keys (or recurrent state, or MLA latents) at 2e-3,
+    # plus, where the leaf is stored in bf16, the one rounding to bf16 of
+    # values computed in fp32 (two fp32 results 1e-7 apart can round to
+    # neighbouring bf16 values, 2^-8 apart: llava's keys do once in 16
+    # steps); every layer's cache at the repo's bf16 tolerance where it
+    # holds bf16 (these caches are drawn bf16)
     first_t, first_j = tcache["segments"][0]["0"], jcache["segments"][0]["0"]
-    if "attn" in first_t:
-        _close(first_t["attn"]["k"], first_j["attn"]["k"])
-    else:
-        _close_trees(first_t, first_j)
+    for path, got in _leaves(first_t).items():
+        if path[-1] in ("v", "len") and "k" in first_t.get("attn", {}):
+            continue                       # an attention layer: its keys
+        want = np.asarray(_leaves(first_j)[path], np.float32)
+        rtol = 2e-3 + (2.0 ** -8 if got.dtype == torch.bfloat16 else 0.0)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol, atol=2e-3,
+                                   err_msg=str(path))
     _close_trees(tcache, jcache, bf16_tol=2e-2)
 
 
@@ -221,7 +262,10 @@ def test_decode_matches_train_forward(arch):
     model runs at capacity factor n_experts / top_k, where capacity equals
     the token count and nothing is dropped: at the shipped 1.25 the
     forward's 32 tokens drop assignments a decode step's 2 keep, so the two
-    compute different functions (tests/test_models.py leaves olmoe out)."""
+    compute different functions (tests/test_models.py leaves olmoe out).
+    An ``embeds`` model (llava) decodes its embeddings, as
+    tests/test_models.py feeds them; deepseek-v3's absorbed MLA decode
+    sums in another order than the prefill's materialised K/V."""
     tc = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
     if tc.moe:
         tc = tc.scaled(moe=dataclasses.replace(
@@ -229,30 +273,47 @@ def test_decode_matches_train_forward(arch):
     fp32 = lambda tree: TS.tree_map(  # noqa: E731
         lambda x: x.float() if x.is_floating_point() else x, tree)
     params = fp32(TS.materialize(TM.param_defs(tc), 42, "cpu"))
-    ids = torch.randint(0, tc.vocab_size, (2, 16), generator=torch.Generator().manual_seed(0))
-    h, _, _ = TM.forward_train(params, {"inputs": ids}, tc)
+    ids = torch.from_numpy(_tokens(tc, np.random.default_rng(0), 2, 16))
+    h, _, _ = TM.forward_train(params, _feed(tc, ids), tc)
     train_logits = TM._logits(params, h, tc)
     cache = fp32(TS.materialize(TM.cache_defs(tc, 2, 16), 0, "cpu"))
     dec = []
     for t in range(16):
-        logits, cache = TM.decode_step(params, cache, {"inputs": ids[:, t:t + 1]}, tc)
+        logits, cache = TM.decode_step(params, cache, _feed(tc, ids[:, t:t + 1]), tc)
         dec.append(logits[:, 0])
     torch.testing.assert_close(torch.stack(dec, dim=1), train_logits, rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("name", ["llava_next_34b"])
-def test_unported_architectures_say_where_they_wait(name):
-    assert name not in ALIASES.values()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config(name)
+def test_every_reference_architecture_is_ported():
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    assert sorted(ALIASES.values()) == sorted(JAX_ARCH_IDS)
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("no_such_model")
 
 
-@pytest.mark.parametrize("pattern,item", [((("mla", "dense"),), 4)])
-def test_unported_mixers_say_where_they_wait(pattern, item):
-    from repro_torch.models.config import MLACfg, RGLRUCfg
-    cfg = get_smoke_config(ARCH).scaled(pattern=pattern, rglru=RGLRUCfg(), mla=MLACfg())
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        TM.param_defs(cfg)
+def test_deepseek_v3_first_3_dense():
+    """tests/test_models.py's case, and the scan segments it gives: three
+    dense MLA layers, then 58 MoE ones; at the card's cut of 5 layers, 3
+    and 2."""
+    cfg = get_config("deepseek_v3_671b")
+    kinds = cfg.block_kinds()
+    assert all(f == "dense" for _, f in kinds[:3])
+    assert all(f == "moe" for _, f in kinds[3:])
+    assert cfg.scan_segments() == [((("mla", "dense"),), 3), ((("mla", "moe"),), 58)]
+    assert cfg.scaled(n_layers=5).scan_segments() == [((("mla", "dense"),), 3),
+                                                      ((("mla", "moe"),), 2)]
+
+
+def test_mla_absorbed_decode_equivalence_is_covered():
+    """As tests/test_models.py: the equivalence is
+    test_decode_matches_train_forward[deepseek_v3_671b]; here the MLA cache
+    is the compressed latent and the roped key, not per-head K/V."""
+    cfg = get_smoke_config("deepseek_v3_671b")
+    cd = TM.cache_defs(cfg, batch=2, seq_len=16)
+    seg0 = cd["segments"][0]["0"]
+    assert sorted(seg0["attn"]) == ["ckv", "k_rope", "len"]
+    assert seg0["attn"]["ckv"].shape == (1, 2, 16, cfg.mla.kv_lora_rank)
+    assert seg0["attn"]["k_rope"].shape == (1, 2, 16, cfg.mla.qk_rope_head_dim)
 
 
 def test_gemma3_pattern_is_5_local_1_global():
@@ -346,11 +407,12 @@ def test_decode_after_wrapped_prefill_matches_forward(wide):
     torch.testing.assert_close(torch.stack(got, dim=1), want, rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("wide", WINDOWED)
+@pytest.mark.parametrize("wide", WINDOWED + ("deepseek_v3_671b",))
 def test_bridge_carries_the_new_trees(wide):
     """bridge.params_from_numpy is a generic tree map: the default (bf16)
-    JAX trees of both new models, the RG-LRU's fp32 gate leaves among
-    them, cross with every name, shape, dtype and bit kept."""
+    JAX trees of the windowed models (the RG-LRU's fp32 gate leaves among
+    them) and of deepseek-v3 (MLA with its fp32 norms, the shared expert,
+    the MTP block) cross with every name, shape, dtype and bit kept."""
     jc = jax_smoke(wide)
     jp = JS.materialize(JM.param_defs(jc), jax.random.PRNGKey(0))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
@@ -364,3 +426,5 @@ def test_bridge_carries_the_new_trees(wide):
                               else want), path
     fp32 = {p[-1] for p in g if g[p].dtype == torch.float32}
     assert ({"b_a", "b_x", "lam"} <= fp32) == (wide == "recurrentgemma_9b")
+    assert ({"q_norm", "kv_norm"} <= fp32) == (wide == "deepseek_v3_671b")
+    assert any(p[0] == "mtp" for p in g) == (wide == "deepseek_v3_671b")

@@ -1,8 +1,7 @@
 """The port's serving plane: tests/test_serve.py on the torch backend,
 token-stream parity with ``JaxDecodeBackend`` on the same fp32 weights
-(granite-3-2b, mamba2-780m, minitron-4b, olmoe-1b-7b, and
-seamless-m4t-medium on the reference's zero cross memory), a continuous
-run and the launcher."""
+(all ten architectures, seamless-m4t-medium on the reference's zero cross
+memory), a continuous run and the launcher."""
 from __future__ import annotations
 
 import dataclasses
@@ -80,12 +79,15 @@ def _fp32_pair(max_len=64, arch="granite_3_2b"):
 
 
 @pytest.mark.parametrize("arch", ["granite_3_2b", "mamba2_780m", "minitron_4b", "olmoe_1b_7b",
-                                  "seamless_m4t_medium", "recurrentgemma_9b", "gemma3_27b"])
+                                  "seamless_m4t_medium", "recurrentgemma_9b", "gemma3_27b",
+                                  "llava_next_34b", "deepseek_67b", "deepseek_v3_671b"])
 def test_token_streams_match_jax_backend(arch):
     """A full static serve() with a replica kill gives the same tokens on
     both backends (fresh replicas, the same fp32 weights).  The reference's
     backend never fills an enc-dec model's cross memory (its replica cache
-    is the zero ``cache_defs``), so seamless decodes against zeros on both."""
+    is the zero ``cache_defs``), so seamless decodes against zeros on both.
+    The serve plane sends token ids, so llava (an ``embeds`` model) decodes
+    them through its embedding table on both."""
     jc, tc, jb, tb = _fp32_pair(arch=arch)
     jreqs = _reqs(jc, 6, new_tokens=8, cls=JaxRequest)
     treqs = _reqs(tc, 6, new_tokens=8)
@@ -132,6 +134,7 @@ def test_serve_continuous_clean():
     ["--arch", "minitron-4b", "--device", "cpu", "--kill", "replica0:5", "--requests", "4"],
     ["--arch", "recurrentgemma-9b", "--device", "cpu", "--kill", "replica0:5", "--requests", "4"],
     ["--arch", "gemma3-27b", "--device", "cpu", "--kill", "replica0:5", "--requests", "4"],
+    ["--arch", "deepseek-v3-671b", "--device", "cpu", "--kill", "replica0:5", "--requests", "4"],
     ["--decode", "sim", "--continuous", "--kill", "replica1:3", "--requests", "12"]])
 def test_launcher(argv, monkeypatch, capsys):
     from repro_torch.launch import serve
