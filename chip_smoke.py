@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: its serving and training paths on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--archs a,b,...] [--no-train]
 
 Runs from the root of a checkout on a machine with one NVIDIA H100 (or
 another Hopper card) and the CUDA toolkit.  It builds the port's CUDA
@@ -16,8 +16,12 @@ FFNs), seamless-m4t-medium (flash in the encoder, the decoder and its
 cross-attention over the encoder frames), recurrentgemma-9b (the RG-LRU
 and windowed flash at D 256, MQA) and gemma3-27b (5 windowed : 1 global
 flash layers), the last two over 2560-token prompts that wrap their
-ring-buffer caches; all but seamless also through the WRATH serve driver
-with a replica kill; then
+ring-buffer caches; llava-next-34b (embedding inputs, flash over padded
+heads), deepseek-67b (cut to 40 layers) and deepseek-v3-671b (cut to 3
+dense + 2 MoE layers of 256 experts: MLA through flash at q/k dim 192,
+v dim 128, its absorbed decode over the latent cache), where the whole
+model does not fit the card; all but seamless also through the WRATH
+serve driver with a replica kill; then
 granite-3-2b's training plane: ``loss_fn`` gradients through the kernels
 against the plain attention at depth 2, ``build_train_step`` at full
 depth, and ``WrathTrainSupervisor`` at depth 4 through a host loss and a
@@ -67,21 +71,41 @@ SSD_TOL = {"torch.bfloat16": 5e-2, "torch.float32": 2e-3}
 CHUNK_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-5}
 
 ARCHS = ("granite_3_2b", "mamba2_780m", "minitron_4b", "olmoe_1b_7b", "seamless_m4t_medium",
-         "recurrentgemma_9b", "gemma3_27b")
+         "recurrentgemma_9b", "gemma3_27b", "llava_next_34b", "deepseek_67b", "deepseek_v3_671b")
 # the reference's serve plane decodes an enc-dec model against a cross memory
 # it never fills (ROADMAP.md, Queue 3), so seamless-m4t-medium is not served
 SERVE_ARCHS = ("granite_3_2b", "mamba2_780m", "minitron_4b", "olmoe_1b_7b",
-               "recurrentgemma_9b", "gemma3_27b")
+               "recurrentgemma_9b", "gemma3_27b", "llava_next_34b", "deepseek_67b",
+               "deepseek_v3_671b")
+# the depth each model runs at on one card where the whole does not fit in
+# bf16, at full width (the port has no sharding yet, ROADMAP.md, Queue 1
+# item 7): deepseek-67b's 95 layers are 135 GB, its first 40 58.7 GB;
+# deepseek-v3-671b's 61 are 1.34 TB, its first 5 (the 3 dense layers and 2
+# of 256-expert MoE, with the embedding, head and MTP block) 54.6 GB.
+# llava-next-34b runs whole (60 layers, 68.8 GB)
+CARD_DEPTH = {"deepseek_67b": 40, "deepseek_v3_671b": 5}
+# the most device memory any phase may hold (max_memory_allocated), of 80 GB
+MAX_PEAK_GB = 76.0
 # the prompt each path prefills (B 4) before its teacher-forced decode: 1024
 # but where named.  The windowed models take 2560 tokens, 2.5 windows of
 # gemma3's 1024 and 1.25 of recurrentgemma's 2048: 2560 mod window = 512
 # for both, so the prefill's ring buffers roll and the window mask bites
 PROMPT = {"seamless_m4t_medium": 256, "recurrentgemma_9b": 2560, "gemma3_27b": 2560}
-# the depth of the fp32 and per-layer fan-in comparisons where the full
-# depth does not fit the card in fp32 (gemma3-27b: 108 GB): the first 12
-# layers' weights, two (5 windowed + 1 global) units, so both kinds of layer
-# and the ring wrap are covered; the bf16 path runs at full depth
-CMP_DEPTH = {"gemma3_27b": 12}
+# the prompt of the decode-vs-forward comparisons where it is not PROMPT's:
+# deepseek-v3 compares at the no-drop capacity n_experts / top_k (32), where
+# the scatter buffer is (experts, tokens, d): 15 GB in bf16 at 4 x 1032
+# tokens, 2.0 GB at 4 x 136
+CMP_PROMPT = {"deepseek_v3_671b": 128}
+# the depth of the fp32 and per-layer fan-in comparisons where the card's
+# depth does not fit it in fp32 (gemma3-27b: 108 GB): the first 12 layers'
+# weights, two (5 windowed + 1 global) units, so both kinds of layer and the
+# ring wrap are covered; llava-next-34b (30.4 GB in fp32 at 12 layers) and
+# deepseek-67b (39.9 GB) alike; the bf16 path runs at the card's depth
+CMP_DEPTH = {"gemma3_27b": 12, "llava_next_34b": 12, "deepseek_67b": 12}
+# deepseek-v3's comparisons take the first layer of each segment, one dense
+# and one MoE layer (14.63 B parameters, 58.5 GB in fp32): its first layers
+# alone would all be dense
+CMP_CUT = {"deepseek_v3_671b": {"n_layers": 2, "first_k_dense": 1}}
 
 # decode vs forward, per-row relative L2 error of the logits at full
 # depth.  The reference's init draws stacked weights with fan-in = layer
@@ -134,11 +158,23 @@ FP32_GATED_AT_REFERENCE_INIT = ("granite_3_2b", "mamba2_780m")
 # decode keeps the RG-LRU state h in the model dtype, as the reference's
 # does (griffin.py:rglru_block_decode), so its bf16 decode also drifts
 # from the prefill's fp32 scan: reference behaviour, part of its reading.
+# llava-next-34b (60 layers), deepseek-67b (40) and deepseek-v3-671b (5;
+# same card and limit; fp32 decode vs forward at the reference init 1.0e-3
+# and 1.4e-3 at 12 layers, 3.1e-4 on one dense + one MoE layer, so all
+# three are gated at the per-layer fan-in init, 5.7e-6, 4.2e-6, 2.6e-6):
+# reference init 0.147, 0.106 and 0.404 (bf16 forward vs fp32 0.54, 0.61
+# at 12 layers, 0.70 at 2; deepseek-v3 compares at the no-drop capacity
+# over a 128-token prompt, its experts flip in 27 of 72 compared rows,
+# and its absorbed MLA decode sums in another order than the prefill's
+# per-head K/V); fan-in init 0.0169 (0.0167), 0.0165 (0.0169) and 0.0652
+# (0.0655, 2 of 36 rows flip an expert in bf16, none in fp32)
 BF16_REL_TOL = {"granite_3_2b": 0.25, "mamba2_780m": 0.9, "minitron_4b": 0.21,
                 "olmoe_1b_7b": 2.4, "seamless_m4t_medium": 0.69,
-                "recurrentgemma_9b": 1.52, "gemma3_27b": 0.243}
+                "recurrentgemma_9b": 1.52, "gemma3_27b": 0.243,
+                "llava_next_34b": 0.294, "deepseek_67b": 0.211, "deepseek_v3_671b": 0.81}
 WC_BF16_REL_TOL = {"minitron_4b": 0.048, "olmoe_1b_7b": 0.21, "seamless_m4t_medium": 0.022,
-                   "recurrentgemma_9b": 0.10, "gemma3_27b": 0.035}
+                   "recurrentgemma_9b": 0.10, "gemma3_27b": 0.035,
+                   "llava_next_34b": 0.034, "deepseek_67b": 0.033, "deepseek_v3_671b": 0.13}
 # mamba2-780m cut to its first layer (same weights), bf16 decode vs
 # forward over 128 steps: twice the 9.3e-3 measured on an H100
 DEPTH1_BF16_REL_TOL = 0.02
@@ -199,18 +235,18 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b: int, s: int, sk: int, h: int, kv: int, d: int, dtype, causal: bool,
-                    window: int) -> tuple[float, str, float, float]:
+def attention_bound(b: int, s: int, sk: int, h: int, kv: int, dk: int, dv: int, dtype,
+                    causal: bool, window: int) -> tuple[float, str, float, float]:
     """(bound ms, bound_by, flops, bytes) for the unmasked pairs this input
-    has: S queries over Sk keys."""
+    has: S queries over Sk keys, q/k head dim dk, v (and o) head dim dv."""
     pairs = 0
     for q in range(s):
         lo = max(0, q - window + 1) if window else 0
         hi = min(q + 1, sk) if causal else sk
         pairs += max(hi - lo, 0)
-    flops = 4.0 * b * h * d * pairs                    # q.k and p.v, 2 FLOPs per MAC
+    flops = 2.0 * b * h * (dk + dv) * pairs           # q.k and p.v, 2 FLOPs per MAC
     es = 2 if dtype == "torch.bfloat16" else 4
-    nbytes = float(es * (2 * b * s * h * d + 2 * b * sk * kv * d))   # q, o, k, v
+    nbytes = float(es * (b * s * h * (dk + dv) + b * sk * kv * (dk + dv)))   # q, o, k, v
     t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / PEAK_BYTES_S
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
@@ -222,37 +258,46 @@ def phase_kernel_cases(seed: int) -> list[dict]:
     from repro_torch.kernels.ref import flash_attention_ref
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    cases = [  # (name, B, S, Sk, H, KV, D, dtype, causal, window)
-        ("granite_prefill", 4, 1024, 1024, 32, 8, 64, torch.bfloat16, True, 0),
-        ("granite_prefill_s2048", 4, 2048, 2048, 32, 8, 64, torch.bfloat16, True, 0),
-        ("ragged_s1000", 4, 1000, 1000, 32, 8, 64, torch.bfloat16, True, 0),
-        ("window256", 4, 1024, 1024, 32, 8, 64, torch.bfloat16, True, 256),
-        ("noncausal", 4, 1024, 1024, 32, 8, 64, torch.bfloat16, False, 0),
-        ("fp32", 4, 1024, 1024, 32, 8, 64, torch.float32, True, 0),
-        ("d128", 4, 1024, 1024, 32, 8, 128, torch.bfloat16, True, 0),
-        ("short_s100", 4, 100, 100, 32, 8, 64, torch.bfloat16, True, 0),   # one partial q tile
+    cases = [  # (name, B, S, Sk, H, KV, D, Dv, dtype, causal, window)
+        ("granite_prefill", 4, 1024, 1024, 32, 8, 64, 64, torch.bfloat16, True, 0),
+        ("granite_prefill_s2048", 4, 2048, 2048, 32, 8, 64, 64, torch.bfloat16, True, 0),
+        ("ragged_s1000", 4, 1000, 1000, 32, 8, 64, 64, torch.bfloat16, True, 0),
+        ("window256", 4, 1024, 1024, 32, 8, 64, 64, torch.bfloat16, True, 256),
+        ("noncausal", 4, 1024, 1024, 32, 8, 64, 64, torch.bfloat16, False, 0),
+        ("fp32", 4, 1024, 1024, 32, 8, 64, 64, torch.float32, True, 0),
+        ("d128", 4, 1024, 1024, 32, 8, 128, 128, torch.bfloat16, True, 0),
+        ("short_s100", 4, 100, 100, 32, 8, 64, 64, torch.bfloat16, True, 0),  # one partial q tile
         # the model paths of minitron-4b (24 heads padded to 32, kv expanded
         # to them) and olmoe-1b-7b, seamless-m4t-medium's encoder and its
         # decoder's cross-attention (S 256 queries over the 1024 frames), and
         # that cross-attention over a ragged key length
-        ("minitron_prefill", 4, 1024, 1024, 32, 32, 128, torch.bfloat16, True, 0),
-        ("olmoe_prefill", 4, 1024, 1024, 16, 16, 128, torch.bfloat16, True, 0),
-        ("seamless_encoder", 4, 1024, 1024, 16, 16, 64, torch.bfloat16, False, 0),
-        ("seamless_cross", 4, 256, 1024, 16, 16, 64, torch.bfloat16, False, 0),
-        ("cross_ragged", 4, 256, 1000, 16, 16, 64, torch.bfloat16, False, 0),
+        ("minitron_prefill", 4, 1024, 1024, 32, 32, 128, 128, torch.bfloat16, True, 0),
+        ("olmoe_prefill", 4, 1024, 1024, 16, 16, 128, 128, torch.bfloat16, True, 0),
+        ("seamless_encoder", 4, 1024, 1024, 16, 16, 64, 64, torch.bfloat16, False, 0),
+        ("seamless_cross", 4, 256, 1024, 16, 16, 64, 64, torch.bfloat16, False, 0),
+        ("cross_ragged", 4, 256, 1000, 16, 16, 64, 64, torch.bfloat16, False, 0),
         # recurrentgemma-9b's local attention (D 256, MQA, window 2048) in both
         # dtypes, and gemma3-27b's local and global layers, at their 2560-token
         # prefill
-        ("recurrentgemma_prefill", 4, 2560, 2560, 16, 1, 256, torch.bfloat16, True, 2048),
-        ("recurrentgemma_prefill_fp32", 4, 2560, 2560, 16, 1, 256, torch.float32, True, 2048),
-        ("gemma3_local", 4, 2560, 2560, 32, 16, 128, torch.bfloat16, True, 1024),
-        ("gemma3_global", 4, 2560, 2560, 32, 16, 128, torch.bfloat16, True, 0),
+        ("recurrentgemma_prefill", 4, 2560, 2560, 16, 1, 256, 256, torch.bfloat16, True, 2048),
+        ("recurrentgemma_prefill_fp32", 4, 2560, 2560, 16, 1, 256, 256, torch.float32, True,
+         2048),
+        ("gemma3_local", 4, 2560, 2560, 32, 16, 128, 128, torch.bfloat16, True, 1024),
+        ("gemma3_global", 4, 2560, 2560, 32, 16, 128, 128, torch.bfloat16, True, 0),
+        # deepseek-v3's MLA prefill (128 heads, q/k dim 192, v dim 128) in
+        # both dtypes and over a ragged length; llava-next-34b's (56 heads
+        # padded to 64, kv expanded to them) and deepseek-67b's (GQA 64 / 8)
+        ("deepseek_v3_mla", 4, 1024, 1024, 128, 128, 192, 128, torch.bfloat16, True, 0),
+        ("deepseek_v3_mla_fp32", 4, 1024, 1024, 128, 128, 192, 128, torch.float32, True, 0),
+        ("mla_ragged_s1000", 4, 1000, 1000, 128, 128, 192, 128, torch.bfloat16, True, 0),
+        ("llava_prefill", 4, 1024, 1024, 64, 64, 128, 128, torch.bfloat16, True, 0),
+        ("deepseek67b_prefill", 4, 1024, 1024, 64, 8, 128, 128, torch.bfloat16, True, 0),
     ]
     results = []
-    for name, b, s, sk, h, kv, d, dtype, causal, window in cases:
+    for name, b, s, sk, h, kv, d, dv, dtype, causal, window in cases:
         q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
         k = torch.randn(b, sk, kv, d, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(b, sk, kv, d, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(b, sk, kv, dv, generator=gen, device="cuda").to(dtype)
         out = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         ref = flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -269,9 +314,9 @@ def phase_kernel_cases(seed: int) -> list[dict]:
         plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal, window=window),
                            iters=5, warmup=1)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib_kw))
-        bound_ms, bound_by, flops, nbytes = attention_bound(b, s, sk, h, kv, d, str(dtype),
+        bound_ms, bound_by, flops, nbytes = attention_bound(b, s, sk, h, kv, d, dv, str(dtype),
                                                             causal, window)
-        row = {"case": name, "shape": [b, s, h, kv, d], "sk": sk, "dtype": str(dtype),
+        row = {"case": name, "shape": [b, s, h, kv, d], "dv": dv, "sk": sk, "dtype": str(dtype),
                "causal": causal, "window": window, "max_abs_err": err,
                "ref_abs_max": ref.float().abs().max().item(), "max_scaled_err": scaled,
                "tol": tol, "finite": bool(torch.isfinite(out.float()).all()), "ms": ms,
@@ -456,8 +501,9 @@ def _path_logits(params, cfg, ids, s: int, steps: int, *, enc=None, state_dtype=
     """Prefill ``ids[:, :s]``, teacher-force ``steps`` decode steps, and
     run the forward over all ``s + steps`` tokens; returns both sets of
     logits at positions s-1 .. s+steps-1 with (if ``timed``) the timings
-    and device profiles.  ``enc`` is an enc-dec model's encoder frames
-    (B, Se, d), fed to the prefill and the forward.  ``state_dtype``
+    and device profiles.  ``ids`` are token ids (B, S), or an ``embeds``
+    model's embeddings (B, S, d).  ``enc`` is an enc-dec model's encoder
+    frames (B, Se, d), fed to the prefill and the forward.  ``state_dtype``
     recasts the SSD state that the prefill hands to decode."""
     from repro_torch.distributed.step import build_prefill_step, build_serve_step
     from repro_torch.models import cache_defs, forward_train, materialize
@@ -465,9 +511,10 @@ def _path_logits(params, cfg, ids, s: int, steps: int, *, enc=None, state_dtype=
     from repro_torch.models.spec import tree_map
 
     b = ids.shape[0]
+    key = "embeds" if cfg.input_kind == "embeds" else "inputs"
     prefill, serve_step = build_prefill_step(cfg), build_serve_step(cfg)
     frames = {} if enc is None else {"enc_embeds": enc}
-    prompt = {"inputs": ids[:, :s], **frames}
+    prompt = {key: ids[:, :s], **frames}
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
@@ -475,11 +522,11 @@ def _path_logits(params, cfg, ids, s: int, steps: int, *, enc=None, state_dtype=
     torch.cuda.synchronize()
     first_prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_launches = launch_counts()
-    # an attention cache of length s has no free slot: copy it into a
-    # longer one; a sliding window's ring buffer (min(window, s) wide) goes
-    # to the front of one min(window, s + steps) wide; an SSD or RG-LRU
-    # prefill cache (conv and state) is the decode cache, and so is an
-    # enc-dec model's cross memory (the encoder's length, not s)
+    # an attention (or MLA latent) cache of length s has no free slot: copy
+    # it into a longer one; a sliding window's ring buffer (min(window, s)
+    # wide) goes to the front of one min(window, s + steps) wide; an SSD or
+    # RG-LRU prefill cache (conv and state) is the decode cache, and so is
+    # an enc-dec model's cross memory (the encoder's length, not s)
     cache = tree_map(lambda t: t.to(cfg.cdtype) if t.is_floating_point() else t,
                      materialize(cache_defs(cfg, b, s + steps), 0, "cuda"))
     for dst, src in zip(cache["segments"], pcache["segments"]):
@@ -492,10 +539,9 @@ def _path_logits(params, cfg, ids, s: int, steps: int, *, enc=None, state_dtype=
             if "rglru" in dst[u]:
                 dst[u]["rglru"] = src[u]["rglru"]
                 continue
-            w = src[u]["attn"]["k"].shape[2]
-            dst[u]["attn"]["k"][:, :, :w].copy_(src[u]["attn"]["k"])
-            dst[u]["attn"]["v"][:, :, :w].copy_(src[u]["attn"]["v"])
-            dst[u]["attn"]["len"].copy_(src[u]["attn"]["len"])
+            for name, leaf in src[u]["attn"].items():    # k, v or ckv, k_rope; len
+                dst_leaf = dst[u]["attn"][name]
+                (dst_leaf[:, :, :leaf.shape[2]] if name != "len" else dst_leaf).copy_(leaf)
             if "cross" in dst[u]:
                 dst[u]["cross"] = src[u]["cross"]
     del pcache
@@ -503,7 +549,7 @@ def _path_logits(params, cfg, ids, s: int, steps: int, *, enc=None, state_dtype=
     for t in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, cache = serve_step(params, cache, {"inputs": ids[:, s + t:s + t + 1]})
+        lg, cache = serve_step(params, cache, {key: ids[:, s + t:s + t + 1]})
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         dec.append(lg[:, 0])
@@ -515,11 +561,11 @@ def _path_logits(params, cfg, ids, s: int, steps: int, *, enc=None, state_dtype=
             # one more step on the full cache (an attention ring buffer wraps
             # onto slot 0; timing only)
             "decode_step": device_profile(
-                lambda: serve_step(params, cache, {"inputs": ids[:, s:s + 1]})),
+                lambda: serve_step(params, cache, {key: ids[:, s:s + 1]})),
         }
     del cache
     with torch.no_grad():
-        h, _, _ = forward_train(params, {"inputs": ids, **frames}, cfg)
+        h, _, _ = forward_train(params, {key: ids, **frames}, cfg)
     out.update(got=torch.stack(dec, dim=1), ref=_logits(params, h[:, s - 1:], cfg))
     if timed:
         prefill_ms = statistics.median(
@@ -551,11 +597,11 @@ def ssd_state_readings(params, cfg, ids, s: int, steps: int) -> dict:
 
 
 def expected_launches(cfg) -> dict[str, int]:
-    """Kernel launches of one prefill: one per attention (global or
-    windowed) or SSD layer, none for an RG-LRU layer; an enc-dec model adds
+    """Kernel launches of one prefill: one per attention (global, windowed
+    or MLA) or SSD layer, none for an RG-LRU layer; an enc-dec model adds
     one per encoder layer and a cross-attention per decoder layer."""
     mixers = [m for m, _ in cfg.block_kinds()]
-    attn = mixers.count("attn") + mixers.count("swa")
+    attn = mixers.count("attn") + mixers.count("swa") + mixers.count("mla")
     if cfg.encoder_layers:
         attn = cfg.encoder_layers + 2 * attn
     return {"flash_attention": attn, "flash_attention_bwd": 0, "ssd_scan": mixers.count("ssd")}
@@ -596,9 +642,10 @@ def moe_probe(first_pos: int):
 
 def moe_flips(calls: list, n_layers: int, steps: int) -> dict:
     """From a moe_probe over one ``_path_logits`` run (a prefill, ``steps``
-    decode steps, then the forward; each pass calls every layer once): the
-    least top-k gap of each pass and the rows, over all layers, whose chosen
-    experts differ between the prefill or decode pass and the forward."""
+    decode steps, then the forward; each pass calls each of the
+    ``n_layers`` MoE layers once): the least top-k gap of each pass and the
+    rows, over all layers, whose chosen experts differ between the prefill
+    or decode pass and the forward."""
     passes = [calls[i:i + n_layers] for i in range(0, len(calls), n_layers)]
     check(len(passes) == steps + 2, f"moe_probe: {len(calls)} calls, expected "
           f"{(steps + 2) * n_layers}")
@@ -659,6 +706,50 @@ def _to_fp32(params):
     return tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
 
 
+def _map_in_place(tree, fn) -> None:
+    """Replace each leaf of a tree of dicts and lists by ``fn(leaf)``, one
+    at a time: the old leaf is freed before the next is made, so the peak
+    is the tree plus one leaf."""
+    for k in (tree if isinstance(tree, dict) else range(len(tree))):
+        if isinstance(tree[k], (dict, list)):
+            _map_in_place(tree[k], fn)
+        else:
+            tree[k] = fn(tree[k])
+
+
+def _recast(params: dict, dtype) -> dict:
+    """Recast ``params``' floating leaves to ``dtype`` in place; returns
+    the leaves' dtypes before, for :func:`_restore`."""
+    from repro_torch.models.spec import tree_map
+    before = tree_map(lambda t: t.dtype, params)
+    _map_in_place(params, lambda t: t.to(dtype) if t.is_floating_point() else t)
+    return before
+
+
+def _restore(params: dict, dtypes) -> None:
+    """Recast each leaf back, in place, to its dtype in ``dtypes`` (a tree
+    like ``params``; fp32 back to bf16 is exact for values drawn in bf16)."""
+    from repro_torch.models.spec import tree_leaves
+    it = iter(tree_leaves(dtypes, lambda x: isinstance(x, torch.dtype)))
+    _map_in_place(params, lambda t: t.to(next(it)))
+
+
+def _cut_in_place(params: dict, cfg, cut):
+    """(params, cut): ``params`` (drawn at ``cfg``) cut in place to the
+    config ``cut``, the first r layers of each segment ``cut`` keeps (its
+    segments must be cfg's first ones, each unit the same with r no more
+    than cfg's repeats), each kept leaf copied and the whole one freed as
+    it goes: the peak is the whole tree plus one leaf's copy."""
+    segs, kept = cfg.scan_segments(), cut.scan_segments()
+    check(len(kept) <= len(segs) and all(
+        unit == k_unit and 0 < r <= reps for (unit, reps), (k_unit, r) in zip(segs, kept)),
+        f"{cfg.name}: {kept} is not a cut of {segs}")
+    for seg, (_, r) in zip(params["segments"], kept):
+        _map_in_place(seg, lambda t, r=r: t[:r].clone())
+    del params["segments"][len(kept):]
+    return params, cut
+
+
 def _compared(params, cfg, ids, s: int, steps: int, enc, moe_out: dict, key: str) -> dict:
     """An untimed ``_path_logits`` run; an MoE model's under ``moe_probe``,
     its routing readings stored in ``moe_out[key]``."""
@@ -666,8 +757,12 @@ def _compared(params, cfg, ids, s: int, steps: int, enc, moe_out: dict, key: str
         return _path_logits(params, cfg, ids, s, steps, enc=enc, timed=False)
     with moe_probe(s - 1) as calls:
         out = _path_logits(params, cfg, ids, s, steps, enc=enc, timed=False)
-    moe_out[key] = moe_flips(calls, cfg.n_layers, steps)
+    moe_out[key] = moe_flips(calls, _moe_layers(cfg), steps)
     return out
+
+
+def _moe_layers(cfg) -> int:
+    return sum(ffn == "moe" for _, ffn in cfg.block_kinds())
 
 
 def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
@@ -682,14 +777,18 @@ def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
     Archs not in FP32_GATED_AT_REFERENCE_INIT are also compared on the
     weights rescaled by ``_fan_in_per_layer``, where the fp32 gate holds.
     An arch in CMP_DEPTH runs its fp32 and fan-in comparisons (and the bf16
-    forward they are read against) on its first CMP_DEPTH layers, after the
-    full-depth weights are freed; ``peak_gb`` holds each part's peak."""
-    from repro_torch.configs import get_config
+    forward they are read against) on its first CMP_DEPTH layers, an arch in
+    CMP_CUT on that cut, after the rest of the weights is freed; an arch in
+    CARD_DEPTH runs at that depth throughout.  An arch in CMP_PROMPT runs
+    its comparisons over that prompt.  ``peak_gb`` holds each part's peak.
+    An ``embeds`` model (llava) prefills and decodes embeddings drawn from
+    the seed at its embedding table's scale (unit normal)."""
     from repro_torch.distributed.step import build_prefill_step
     from repro_torch.models import materialize, param_defs
 
-    cfg = get_config(arch)
+    cfg = card_config(arch)
     b, s = 4, PROMPT.get(arch, 1024)
+    s_cmp = CMP_PROMPT.get(arch, s)
     enc = None
     if cfg.encoder_layers:
         enc_len = 1024
@@ -708,8 +807,13 @@ def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(seed)
-    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s + steps),
-                                        dtype=np.int32)).cuda()
+    if cfg.input_kind == "embeds":
+        ids = torch.from_numpy(rng.standard_normal((b, s + steps, cfg.d_model))
+                               .astype(np.float32)).cuda()
+    else:
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s + steps),
+                                            dtype=np.int32)).cuda()
+    ids_cmp = ids[:, :s_cmp + steps]
     if cfg.encoder_layers:      # frames as data/pipeline.py:batch_for draws them
         enc = torch.from_numpy(rng.standard_normal((b, enc_len, cfg.d_model))
                                .astype(np.float32) * 0.02).cuda()
@@ -736,29 +840,34 @@ def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
                               "prefill_dropped_share_by_layer": [c["dropped"] for c in calls],
                               "decode_vs_forward_rel_err_max":
                               _rel_rows(bf["got"], bf["ref"]).max().item()}
-        bf_cmp = _compared(params, cmp_cfg, ids, s, steps, enc, moe_out, "bf16")
+        bf_cmp = _compared(params, cmp_cfg, ids_cmp, s_cmp, steps, enc, moe_out, "bf16")
     peak("bf16_path")
-    # -- the comparisons' depth: the first CMP_DEPTH layers, the rest freed --
-    depth = CMP_DEPTH.get(arch, cfg.n_layers)
+    # -- the comparisons' depth: CMP_DEPTH's or CMP_CUT's layers, the rest freed
+    cut = CMP_CUT.get(arch) or {"n_layers": CMP_DEPTH.get(arch, cfg.n_layers)}
     bf_at_depth = bf_cmp              # the bf16 forward the fp32 one is read against
-    if depth < cfg.n_layers:
-        params, cmp_cfg = _first_layers(params, cmp_cfg, depth, clone=True)
+    if cmp_cfg.scaled(**cut).scan_segments() != cfg.scan_segments():
+        params, cmp_cfg = _cut_in_place(params, cmp_cfg, cmp_cfg.scaled(**cut))
         torch.cuda.empty_cache()
-        bf_at_depth = _compared(params, cmp_cfg, ids, s, steps, enc, moe_out, "bf16_cut")
+        bf_at_depth = _compared(params, cmp_cfg, ids_cmp, s_cmp, steps, enc, moe_out,
+                                "bf16_cut")
         peak("bf16_cut")
+    depth = cmp_cfg.n_layers
     # -- the same weights and tokens in fp32: the algorithms must agree ----
+    # (recast in place and back: two copies of a cut's weights may not fit)
     cfg32 = cmp_cfg.scaled(compute_dtype="float32")
-    params32 = _to_fp32(params)
-    f32 = _path_logits(params32, cfg32, ids, s, steps, enc=enc)
-    del params32
+    dtypes = _recast(params, torch.float32)
+    f32 = _path_logits(params, cfg32, ids_cmp, s_cmp, steps, enc=enc)
+    _restore(params, dtypes)
     peak("fp32")
     # -- and on the well-conditioned init ----------------------------------
     wc = None
     if arch not in FP32_GATED_AT_REFERENCE_INIT:
         params = _fan_in_per_layer(params, cfg)    # replaces the reference-init copy
-        wc_bf = _compared(params, cmp_cfg, ids, s, steps, enc, moe_out, "fan_in_per_layer_bf16")
-        params = _to_fp32(params)
-        wc_32 = _compared(params, cfg32, ids, s, steps, enc, moe_out, "fan_in_per_layer_fp32")
+        wc_bf = _compared(params, cmp_cfg, ids_cmp, s_cmp, steps, enc, moe_out,
+                          "fan_in_per_layer_bf16")
+        _recast(params, torch.float32)
+        wc_32 = _compared(params, cfg32, ids_cmp, s_cmp, steps, enc, moe_out,
+                          "fan_in_per_layer_fp32")
         wc_rel_32, wc_rel_bf = _rel_rows(wc_32["got"], wc_32["ref"]), _rel_rows(wc_bf["got"],
                                                                                 wc_bf["ref"])
         wc = {"init": "fan_in_per_layer", "fp32_rel_err_max": wc_rel_32.max().item(),
@@ -782,7 +891,8 @@ def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
                  (bf["got"], bf["ref"], bf_cmp["got"], bf_cmp["ref"], bf_at_depth["got"],
                   bf_at_depth["ref"], f32["got"], f32["ref"]))
     bf16_tol = BF16_REL_TOL[arch]
-    out = {"config": cfg.name, "batch": b, "prompt": s, "decode_steps": steps,
+    out = {"config": cfg.name, "layers": cfg.n_layers, "batch": b, "prompt": s,
+           "compared_prompt": s_cmp, "decode_steps": steps,
            "init_s": init_s, "prefill_launches": bf["prefill_launches"],
            "first_prefill_ms": bf["first_prefill_ms"], "prefill_ms": bf["prefill_ms"],
            "decode_step_ms": statistics.median(bf["step_ms"]),
@@ -832,14 +942,24 @@ def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
         got = depth1["bf16_state"]["rel_err_max"]
         check(got <= DEPTH1_BF16_REL_TOL, f"{arch}: bf16 decode vs forward at depth 1: "
               f"max per-row relative error {got} > {DEPTH1_BF16_REL_TOL}")
+    check(out["peak_mem_gb"] <= MAX_PEAK_GB,
+          f"{arch}: peak device memory {peaks} GB over {MAX_PEAK_GB}")
     return bf["launches"]
 
 
-def phase_serve(arch: str, seed: int) -> None:
+def card_config(arch: str):
+    """The configuration an arch runs at on the card: full width, at
+    CARD_DEPTH's depth where it has one."""
     from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg.scaled(n_layers=CARD_DEPTH[arch]) if arch in CARD_DEPTH else cfg
+
+
+def phase_serve(arch: str, seed: int) -> None:
     from repro_torch.serve import Request, TorchDecodeBackend, WrathServeDriver
 
-    cfg = get_config(arch)
+    cfg = card_config(arch)
+    torch.cuda.reset_peak_memory_stats()
     backend = TorchDecodeBackend(cfg, max_batch=4, max_len=128, seed=seed, device="cuda")
     rng = np.random.default_rng(seed + 1)
 
@@ -851,9 +971,9 @@ def phase_serve(arch: str, seed: int) -> None:
     driver = WrathServeDriver(cfg, n_replicas=2, max_batch=4, decode=backend, max_len=128)
     reqs = requests()
     rep = driver.serve(reqs, kill_replica_at=("replica0", 5))
-    emit("serve_static_kill", config=cfg.name, completed=rep.completed, failed=rep.failed,
-         tokens=rep.tokens_generated, tokens_per_s=rep.tokens_per_s, wall_s=rep.wall_s,
-         decode_steps=rep.decode_steps, denylisted=rep.denylisted,
+    emit("serve_static_kill", config=cfg.name, layers=cfg.n_layers, completed=rep.completed,
+         failed=rep.failed, tokens=rep.tokens_generated, tokens_per_s=rep.tokens_per_s,
+         wall_s=rep.wall_s, decode_steps=rep.decode_steps, denylisted=rep.denylisted,
          recoveries=rep.recoveries)
     check(rep.completed == SERVE_REQUESTS and rep.failed == 0,
           f"{arch}: static serve completed {rep.completed}/{SERVE_REQUESTS}")
@@ -865,12 +985,14 @@ def phase_serve(arch: str, seed: int) -> None:
                           max_len=128) as cont:
         reqs = requests()
         rep = cont.serve_continuous(reqs, horizon=300.0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     emit("serve_continuous", config=cfg.name, completed=rep.completed, failed=rep.failed,
          tokens=rep.tokens_generated, tokens_per_s=rep.tokens_per_s,
          requests_per_s=rep.requests_per_s, p50_s=rep.p50_s, p99_s=rep.p99_s,
-         wall_s=rep.wall_s, decode_steps=rep.decode_steps)
+         wall_s=rep.wall_s, decode_steps=rep.decode_steps, serve_peak_gb=peak_gb)
     check(rep.completed == SERVE_REQUESTS and rep.failed == 0,
           f"{arch}: continuous serve completed {rep.completed}/{SERVE_REQUESTS}")
+    check(peak_gb <= MAX_PEAK_GB, f"{arch}: serve peak device memory {peak_gb} GB")
     driver.shutdown()
     del backend, driver, cont
 
@@ -889,7 +1011,7 @@ def attention_bwd_bound(b: int, s: int, h: int, kv: int, d: int, dtype, causal: 
     """(bound ms, bound_by, flops, bytes) of the attention gradient on these
     inputs: five products over the visible pairs (q k, dO v, P^T dO, dS k,
     dS^T q); q, k, v, o, dO and the three gradients moved once, and lse."""
-    _, _, fwd_flops, _ = attention_bound(b, s, s, h, kv, d, dtype, causal, window)
+    _, _, fwd_flops, _ = attention_bound(b, s, s, h, kv, d, d, dtype, causal, window)
     flops = fwd_flops * 5 / 2                          # the forward's two products are 4 D a pair
     es = 2 if dtype == "torch.bfloat16" else 4
     nbytes = float(es * (4 * b * s * h * d + 4 * b * s * kv * d) + 4 * b * h * s)
@@ -1260,7 +1382,13 @@ def phase_train_supervisor(seed: int) -> dict[str, int]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--archs", default=",".join(ARCHS),
+                    help="the model paths to drive, comma-separated (default: all)")
+    ap.add_argument("--no-train", action="store_true",
+                    help="leave out the training plane's phases")
     args = ap.parse_args()
+    archs = [a for a in args.archs.split(",") if a]
+    check(set(archs) <= set(ARCHS), f"--archs: unknown {sorted(set(archs) - set(ARCHS))}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1298,7 +1426,7 @@ def main() -> int:
     # -- 4. prefill + decode at full width and depth, 5. serve, per path -----
     # each path's counts are zeroed just before its run and read just after
     path_launches, resident = {}, {}
-    for arch in ARCHS:
+    for arch in archs:
         t0 = time.perf_counter()
         path_launches[f"{arch} prefill+decode"] = phase_prefill_decode(arch, args.seed)
         if arch in SERVE_ARCHS:
@@ -1310,15 +1438,16 @@ def main() -> int:
               "its phases")
 
     # -- 6. the training plane: gradients, a full train step, the supervisor
-    t0 = time.perf_counter()
-    phase_train_grad_check(args.seed)
-    seconds["train_grad_check"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    path_launches["granite_3_2b train_step (one step)"] = phase_train_step(args.seed)
-    seconds["train_step"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    path_launches["granite_3_2b train_supervisor"] = phase_train_supervisor(args.seed)
-    seconds["train_supervisor"] = time.perf_counter() - t0
+    if not args.no_train:
+        t0 = time.perf_counter()
+        phase_train_grad_check(args.seed)
+        seconds["train_grad_check"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        path_launches["granite_3_2b train_step (one step)"] = phase_train_step(args.seed)
+        seconds["train_step"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        path_launches["granite_3_2b train_supervisor"] = phase_train_supervisor(args.seed)
+        seconds["train_supervisor"] = time.perf_counter() - t0
     emit("timing", seconds=seconds, resident_gb_after=resident)
 
     # -- 7. the kernel table ------------------------------------------------
@@ -1345,6 +1474,12 @@ def main() -> int:
                       "bound_by": c["bound_by"], "bound_frac": c["bound_ms"] / c["ms"],
                       "library_ms": c["library_ms"],
                       "vs_library": c.get("vs_library")})
+    # the flash forward at MLA's head dims (q/k 192, v 128), its own readings
+    mla = next(c for c in flash_cases if c["case"] == "deepseek_v3_mla")
+    table[0]["head_dims"] = [[64, 64], [128, 128], [256, 256], [192, 128]]
+    table[0]["dk192_dv128"] = {k: mla[k] for k in (
+        "case", "shape", "dv", "max_abs_err", "max_scaled_err", "tol", "ms", "plain_ms",
+        "bound_ms", "bound_by", "bound_frac", "library_ms", "vs_library")}
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
