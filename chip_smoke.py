@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: its serving and training paths on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--archs a,b,...] [--no-train]
+    python3 chip_smoke.py [--seed N]
 
 Runs from the root of a checkout on a machine with one NVIDIA H100 (or
 another Hopper card) and the CUDA toolkit.  It builds the port's CUDA
@@ -667,7 +667,8 @@ def _fan_in_per_layer(params: dict, cfg) -> dict:
     rescaled from the reference's fan-in (its stack depth L) to d_in: a
     well-conditioned init where attention is not near-hard.  ``cfg`` is
     the config the weights were drawn at: L comes from its definitions, so
-    a cut of them (``_first_layers``) is rescaled as the whole would be;
+    a cut of them (``_first_layers``, ``_cut_in_place``) is rescaled as the
+    whole would be;
     leaves drawn at a scale of their own (convolutions, the RG-LRU's gate
     matrices) keep it."""
     from repro_torch.models import param_defs
@@ -686,10 +687,9 @@ def _fan_in_per_layer(params: dict, cfg) -> dict:
     return out
 
 
-def _first_layers(params: dict, cfg, n: int, *, clone: bool = False):
+def _first_layers(params: dict, cfg, n: int):
     """(params, cfg) of the model cut to its first ``n`` layers, the same
-    weights: ``n`` whole units of the first scan segment.  ``clone`` copies
-    the cut leaves, so the whole tree can then be freed."""
+    weights as views: ``n`` whole units of the first scan segment."""
     from repro_torch.models.spec import tree_map
 
     unit, repeats = cfg.scan_segments()[0]
@@ -697,13 +697,8 @@ def _first_layers(params: dict, cfg, n: int, *, clone: bool = False):
     cut = cfg.scaled(n_layers=n)
     check(r * len(unit) == n and 0 < r <= repeats and cut.scan_segments() == [(unit, r)],
           f"{cfg.name}: {n} layers are not whole units of the first segment")
-    seg = tree_map(lambda t: t[:r].clone() if clone else t[:r], params["segments"][0])
+    seg = tree_map(lambda t: t[:r], params["segments"][0])
     return {**params, "segments": [seg]}, cut
-
-
-def _to_fp32(params):
-    from repro_torch.models.spec import tree_map
-    return tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
 
 
 def _map_in_place(tree, fn) -> None:
@@ -1382,13 +1377,7 @@ def phase_train_supervisor(seed: int) -> dict[str, int]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--archs", default=",".join(ARCHS),
-                    help="the model paths to drive, comma-separated (default: all)")
-    ap.add_argument("--no-train", action="store_true",
-                    help="leave out the training plane's phases")
     args = ap.parse_args()
-    archs = [a for a in args.archs.split(",") if a]
-    check(set(archs) <= set(ARCHS), f"--archs: unknown {sorted(set(archs) - set(ARCHS))}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1426,7 +1415,7 @@ def main() -> int:
     # -- 4. prefill + decode at full width and depth, 5. serve, per path -----
     # each path's counts are zeroed just before its run and read just after
     path_launches, resident = {}, {}
-    for arch in archs:
+    for arch in ARCHS:
         t0 = time.perf_counter()
         path_launches[f"{arch} prefill+decode"] = phase_prefill_decode(arch, args.seed)
         if arch in SERVE_ARCHS:
@@ -1438,16 +1427,15 @@ def main() -> int:
               "its phases")
 
     # -- 6. the training plane: gradients, a full train step, the supervisor
-    if not args.no_train:
-        t0 = time.perf_counter()
-        phase_train_grad_check(args.seed)
-        seconds["train_grad_check"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        path_launches["granite_3_2b train_step (one step)"] = phase_train_step(args.seed)
-        seconds["train_step"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        path_launches["granite_3_2b train_supervisor"] = phase_train_supervisor(args.seed)
-        seconds["train_supervisor"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_train_grad_check(args.seed)
+    seconds["train_grad_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_launches["granite_3_2b train_step (one step)"] = phase_train_step(args.seed)
+    seconds["train_step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_launches["granite_3_2b train_supervisor"] = phase_train_supervisor(args.seed)
+    seconds["train_supervisor"] = time.perf_counter() - t0
     emit("timing", seconds=seconds, resident_gb_after=resident)
 
     # -- 7. the kernel table ------------------------------------------------

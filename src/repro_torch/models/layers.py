@@ -163,10 +163,6 @@ def _softmax_weights(scores: torch.Tensor, mask: torch.Tensor,
     return torch.softmax(scores.masked_fill(~mask, NEG_INF), dim=-1).to(dtype)
 
 
-def _weighted_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    return einsum("bkgqs,bskd->bqkgd", p, v)
-
-
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool, window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """Dense attention with GQA and optional sliding window.
@@ -189,7 +185,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window:
         mask &= kpos > qpos - window
     p = _softmax_weights(scores, mask, q.dtype)
-    return _weighted_values(p, v).reshape(b, sq, h, dv)
+    return einsum("bkgqs,bskd->bqkgd", p, v).reshape(b, sq, h, dv)
 
 
 def blockwise_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -360,7 +356,7 @@ def attention_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfi
     scores = torch.einsum("bqkgd,bskd->bkgqs", qh.float(), ck.float()) / math.sqrt(hd)
     mask = torch.arange(smax, device=x.device)[None, :] < n_valid
     p = _softmax_weights(scores, mask, x.dtype)
-    out = _weighted_values(p, cv).reshape(b, 1, h * hd)
+    out = einsum("bkgqs,bskd->bqkgd", p, cv).reshape(b, 1, h * hd)
     cache["len"].add_(1)
     return matmul(out, params["wo"]), cache
 

@@ -107,9 +107,9 @@ def main() -> int:
         params = materialize(param_defs(drawn), 0, "cuda")
         depth = cs.CMP_DEPTH.get(arch, cfg.n_layers)
         if depth < cfg.n_layers:    # fp32 at full depth does not fit: chip_smoke's cut
-            params, cfg = cs._first_layers(params, cfg, depth, clone=True)
+            params, cfg = cs._cut_in_place(params, cfg, cfg.scaled(n_layers=depth))
             torch.cuda.empty_cache()
-        params = cs._to_fp32(params)
+        cs._recast(params, torch.float32)
         rng = np.random.default_rng(0)
         ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s + steps),
                                             dtype=np.int32)).cuda()
