@@ -42,6 +42,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -1382,6 +1383,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # read at the first CUDA allocation: the models of 55-69 GB and their
+    # fp32 cuts, one after another, leave the card's free memory in pieces
+    # that a fixed segment of 14 GiB (a stacked expert leaf in fp32) cannot
+    # use; growable segments map what is free into one range
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
@@ -1393,7 +1399,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda)
+         count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
+         alloc_conf=os.environ["PYTORCH_CUDA_ALLOC_CONF"])
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
