@@ -101,8 +101,12 @@ CMP_PROMPT = {"deepseek_v3_671b": 128}
 # depth does not fit it in fp32 (gemma3-27b: 108 GB): the first 12 layers'
 # weights, two (5 windowed + 1 global) units, so both kinds of layer and the
 # ring wrap are covered; llava-next-34b (30.4 GB in fp32 at 12 layers) and
-# deepseek-67b (39.9 GB) alike; the bf16 path runs at the card's depth
-CMP_DEPTH = {"gemma3_27b": 12, "llava_next_34b": 12, "deepseek_67b": 12}
+# deepseek-67b (39.9 GB) alike; the bf16 path runs at the card's depth.
+# recurrentgemma-9b's fits in fp32 but its 38 layers take ~4 s a 2560-token
+# fp32 prefill, over half its phase; so it compares its first 12 (4 units
+# of 2 RG-LRU + 1 windowed layer), to keep the whole run near 9 minutes
+CMP_DEPTH = {"gemma3_27b": 12, "llava_next_34b": 12, "deepseek_67b": 12,
+             "recurrentgemma_9b": 12}
 # deepseek-v3's comparisons take the first layer of each segment, one dense
 # and one MoE layer (14.63 B parameters, 58.5 GB in fp32): its first layers
 # alone would all be dense
@@ -152,7 +156,8 @@ FP32_GATED_AT_REFERENCE_INIT = ("granite_3_2b", "mamba2_780m")
 # 48 rows flip an expert in bf16, none in fp32, least top-8/9 gap 1.85e-6).
 # recurrentgemma-9b and gemma3-27b (same card and limit; fp32 decode vs
 # forward at the reference init 1.8e-3 at 38 layers and 6.6e-4 at gemma3's
-# 12, so both are gated at the per-layer fan-in init, 9.7e-6 and 5.1e-6):
+# 12, so both are gated at the per-layer fan-in init, 9.7e-6 and 5.1e-6;
+# recurrentgemma's fp32 and fan-in comparisons now run on 12 layers too):
 # reference init 0.762 (bf16 forward vs fp32 0.96) and 0.122 (gemma3 at
 # full depth; its bf16 forward is 0.83 from fp32 at 12 layers); fan-in
 # init 0.0501 (0.0401) and 0.0174 (0.0175, 12 layers).  recurrentgemma's
