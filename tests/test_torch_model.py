@@ -229,31 +229,70 @@ def test_prefill_logits_and_cache_match(setup):
     _close_trees(tcache, jcache)
 
 
+def _bf16_ordinal(x):
+    """Each float32 value of ``x`` (a bf16 value widened) as its place in
+    the ordered bf16 values: neighbours differ by one."""
+    bits = (np.ascontiguousarray(x, np.float32).view(np.uint32) >> 16).astype(np.int64)
+    return np.where(bits & 0x8000, -(bits & 0x7FFF), bits)
+
+
+def _first_segment(cache):
+    """The float leaves of a cache's first scan segment, as fp32 numpy."""
+    return {p: np.asarray(v.float() if torch.is_tensor(v) else v, np.float32)
+            for p, v in _leaves(cache["segments"][0]["0"]).items()
+            if (v.is_floating_point() if torch.is_tensor(v)
+                else jnp.issubdtype(v.dtype, jnp.floating))}
+
+
 def test_decode_steps_match(setup):
     jc, tc, jp, tp, ids = setup
     b, s = ids.shape[:2]
     jcache = JS.materialize(JM.cache_defs(jc, b, s), jax.random.PRNGKey(0))
     tcache = params_from_numpy(jax.tree.map(np.asarray, jcache), "cpu")
     step = jax.jit(lambda p, c, x: JM.decode_step(p, c, _feed(jc, x), jc))
+    widen_j = lambda c: jax.tree.map(  # noqa: E731
+        lambda x: x.astype(jnp.float32) if jnp.issubdtype(x.dtype, jnp.floating) else x, c)
+    widen_t = lambda c: TS.tree_map(  # noqa: E731  (a copy: the step writes in place)
+        lambda x: x.to(torch.float32 if x.is_floating_point() else x.dtype, copy=True), c)
+    # the first segment's values as each step computes them, before a bf16
+    # store rounds them: each step also runs on an fp32 copy of its cache
+    raw_j, raw_t = _first_segment(jcache), _first_segment(tcache)
     for t in range(s):
-        jl, jcache = step(jp, jcache, jnp.asarray(ids[:, t:t + 1]))
-        tl, tcache = TM.decode_step(tp, tcache, _feed(tc, torch.from_numpy(ids[:, t:t + 1])),
-                                    tc)
+        x = ids[:, t:t + 1]
+        for raw, before, after in (
+                (raw_j, _first_segment(jcache), step(jp, widen_j(jcache), jnp.asarray(x))[1]),
+                (raw_t, _first_segment(tcache),
+                 TM.decode_step(tp, widen_t(tcache), _feed(tc, torch.from_numpy(x)), tc)[1])):
+            after = _first_segment(after)
+            for path in raw:
+                raw[path] = np.where(after[path] != before[path], after[path], raw[path])
+        jl, jcache = step(jp, jcache, jnp.asarray(x))
+        tl, tcache = TM.decode_step(tp, tcache, _feed(tc, torch.from_numpy(x)), tc)
         _close(tl, jl)
-    # the first layer's keys (or recurrent state, or MLA latents) at 2e-3,
-    # plus, where the leaf is stored in bf16, the one rounding to bf16 of
-    # values computed in fp32 (two fp32 results 1e-7 apart can round to
-    # neighbouring bf16 values, 2^-8 apart: llava's keys do once in 16
-    # steps); every layer's cache at the repo's bf16 tolerance where it
-    # holds bf16 (these caches are drawn bf16)
-    first_t, first_j = tcache["segments"][0]["0"], jcache["segments"][0]["0"]
-    for path, got in _leaves(first_t).items():
-        if path[-1] in ("v", "len") and "k" in first_t.get("attn", {}):
+    # the first segment's keys (or recurrent state, or MLA latents) at
+    # 2e-3, as computed and as stored.  A leaf stored in bf16 holds a value
+    # rounded once, so where the two computed values lie on either side of
+    # a bf16 rounding boundary they round to neighbouring bf16 values:
+    # allowed at few elements, by exactly one bf16 ulp, and only where the
+    # reference's computed value is within 2e-3 of the boundary
+    first_t, first_j = _first_segment(tcache), _first_segment(jcache)
+    attention = "k" in tcache["segments"][0]["0"].get("attn", {})
+    for path, got in first_t.items():
+        if attention and path[-1] == "v":
             continue                       # an attention layer: its keys
-        want = np.asarray(_leaves(first_j)[path], np.float32)
-        rtol = 2e-3 + (2.0 ** -8 if got.dtype == torch.bfloat16 else 0.0)
-        np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol, atol=2e-3,
-                                   err_msg=str(path))
+        _close(torch.from_numpy(raw_t[path]), raw_j[path])
+        want = first_j[path]
+        apart = np.abs(got - want) > 2e-3 + 2e-3 * np.abs(want)
+        if not apart.any():
+            continue
+        assert _leaves(tcache["segments"][0]["0"])[path].dtype == torch.bfloat16, path
+        boundary = (got + want)[apart] / 2
+        assert (np.abs(_bf16_ordinal(got[apart]) - _bf16_ordinal(want[apart])) == 1).all(), path
+        assert (np.abs(raw_j[path][apart] - boundary)
+                <= 2e-3 + 2e-3 * np.abs(boundary)).all(), path
+        assert apart.sum() <= max(1, got.size // 1000), (path, int(apart.sum()))
+    # every layer's cache at the repo's bf16 tolerance where it holds bf16
+    # (these caches are drawn bf16)
     _close_trees(tcache, jcache, bf16_tol=2e-2)
 
 

@@ -4,15 +4,17 @@
     python3 tools/decode_sensitivity.py [ARCH ...]    # default: the three below
 
 On one NVIDIA GPU, from the repo root.  For each architecture at full
-width (random weights from seed 0, as ``chip_smoke.py`` draws them, cast
-to fp32; an MoE at capacity factor n_experts / top_k, where nothing
-drops) it prints one JSON line per reading of ``chip_smoke.py``'s
-decode-vs-forward measure (the per-row relative L2 error of the logits at
-the prompt's last position and at 8 teacher-forced decode steps), over
-``chip_smoke.py``'s prompt (``PROMPT``):
+width and ``chip_smoke.py``'s card depth (``card_config``; random weights
+from seed 0, as ``chip_smoke.py`` draws them, cast to fp32; an MoE at
+capacity factor n_experts / top_k, where nothing drops) it prints one JSON
+line per reading of ``chip_smoke.py``'s decode-vs-forward measure (the
+per-row relative L2 error of the logits at the prompt's last position and
+at 8 teacher-forced decode steps), over ``chip_smoke.py``'s compared
+prompt (``CMP_PROMPT``, else ``PROMPT``; an ``embeds`` model fed
+unit-normal embeddings):
 
-* ``reference_init`` at ``chip_smoke.py``'s comparison depth (the full
-  depth, or ``CMP_DEPTH`` where fp32 at full depth does not fit), and the
+* ``reference_init`` at ``chip_smoke.py``'s comparison depth (the card's
+  depth, or its ``CMP_CUT`` where fp32 there does not fit), and the
   model cut to its first 1, 2, 4, 8 and 16 units of layers (the same
   weights; a unit is the first scan segment's, one layer but for the
   windowed models): how the reading grows with depth;
@@ -91,28 +93,31 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.models import materialize, param_defs
-    from repro_torch.models.spec import tree_map
 
     build.build_all()
     for arch in sys.argv[1:] or ARCHS:
-        drawn = get_config(arch)
+        drawn = cs.card_config(arch)
         cfg = drawn.scaled(compute_dtype="float32")
         if cfg.moe:
             cfg = cfg.scaled(moe=dataclasses.replace(
                 cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
-        b, s, steps, enc = 4, cs.PROMPT.get(arch, 1024), 8, None
+        b, steps, enc = 4, 8, None
+        s = cs.CMP_PROMPT.get(arch, cs.PROMPT.get(arch, 1024))
         params = materialize(param_defs(drawn), 0, "cuda")
-        depth = cs.CMP_DEPTH.get(arch, cfg.n_layers)
-        if depth < cfg.n_layers:    # fp32 at full depth does not fit: chip_smoke's cut
-            params, cfg = cs._cut_in_place(params, cfg, cfg.scaled(n_layers=depth))
+        if arch in cs.CMP_CUT:      # fp32 at the card's depth does not fit: chip_smoke's cut
+            params, cfg = cs._cut_in_place(params, cfg, cfg.scaled(**cs.CMP_CUT[arch]))
             torch.cuda.empty_cache()
+        depth = cfg.n_layers
         cs._recast(params, torch.float32)
         rng = np.random.default_rng(0)
-        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s + steps),
-                                            dtype=np.int32)).cuda()
+        if cfg.input_kind == "embeds":
+            ids = torch.from_numpy(rng.standard_normal((b, s + steps, cfg.d_model))
+                                   .astype(np.float32)).cuda()
+        else:
+            ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s + steps),
+                                                dtype=np.int32)).cuda()
         if cfg.encoder_layers:
             enc = torch.from_numpy(rng.standard_normal((b, 1024, cfg.d_model))
                                    .astype(np.float32) * 0.02).cuda()
