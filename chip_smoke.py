@@ -25,8 +25,12 @@ serve driver with a replica kill; then
 granite-3-2b's training plane: ``loss_fn`` gradients through the kernels
 against the plain attention at depth 2, ``build_train_step`` at full
 depth, and ``WrathTrainSupervisor`` at depth 4 through a host loss and a
-NaN.  Each phase prints one JSON line; any failed check ends the run
-with a nonzero exit.
+NaN; last the paper's evaluation path through the port's WRATH engine
+(``run_app`` → ``DataFlowKernel`` → ``FailureInjector``): fedlearn and
+moldesign at the paper's scale computing on the card inside the DFK's
+tasks, held to their CPU runs, with and without injected failures, and
+Table IV's and fig 4's MapReduce cases.  Each phase prints one JSON line;
+any failed check ends the run with a nonzero exit.
 The line before the last is the kernel table
 (``{"kernels": [...]}``), the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1383,6 +1387,304 @@ def phase_train_supervisor(seed: int) -> dict[str, int]:
     return launches
 
 
+# the paper's evaluation path (§VII) through the port's engine: fedlearn's
+# MLP and moldesign's eigenvalue and ridge surrogate compute on the card
+# inside the DFK's tasks; Table IV's and fig 4's MapReduce runs are host-side.
+# fedlearn's card-vs-CPU limit is set from its reading: 6.0e-8 with TF32 off
+# (NVIDIA H100 80GB HBM3, 700 W), so 1e-6 leaves a margin of ~17x, and the
+# phase checks that the same run with TF32 on reads above it
+WRATH_APP_TOL = {"fedlearn_card_vs_cpu": 1e-6, "fedlearn_injected_vs_clean": 1e-6,
+                 "moldesign_energy": 1e-5}
+
+
+def run_app_kept(apps, app: str, cluster, **kw):
+    """``apps.run_app`` (``apps`` is either package's ``apps``), keeping the
+    app's futures, which it reports only as metrics: the registry's entry
+    is wrapped in place for the run, so its workflow scope keeps the app's
+    name."""
+    submit, kept = apps.APPS[app], []
+
+    def keep(**app_kwargs):
+        kept.extend(submit(**app_kwargs))
+        return kept
+
+    apps.APPS[app] = keep
+    try:
+        return apps.run_app(app, cluster, **kw), kept
+    finally:
+        apps.APPS[app] = submit
+
+
+def _profiled(fn):
+    """``fn()`` under the profiler, with the CUDA kernels it launched from
+    any thread (CUPTI traces the device, not the calling thread) and
+    their summed device ms. After the earlier phases' windows the
+    profiler drops records (a client_update read 66 of its 87 kernels,
+    NVIDIA H100), so these are readings, not counts to gate on."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset"))]
+    return (out, sum(e.count for e in kernels),
+            sum(e.self_device_time_total for e in kernels) / 1e3)
+
+
+def _allocations(fn):
+    """``fn()`` and the CUDA allocations it made from any thread: the
+    caching allocator's count of requests, which nothing drops."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_stats()["allocation.all.allocated"] - before
+
+
+def _rel_l2(got: dict, want: dict) -> float:
+    num = sum(float(np.sum((got[k].astype(np.float64) - want[k]) ** 2)) for k in want)
+    return math.sqrt(num / sum(float(np.sum(want[k].astype(np.float64) ** 2)) for k in want))
+
+
+def _first_calls_ms() -> dict[str, float]:
+    """The first CUDA calls fedlearn's and moldesign's tasks make, each
+    timed to its synchronize, so no task pays for a library's lazy load
+    (client_update's est_duration_s of 0.5 feeds the straggler watch): the
+    context, cuBLAS, the solver behind eigvalsh and solve, and cuBLAS
+    again from a new thread, as each executor worker makes its own handle."""
+    import threading
+
+    def first(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    out = {"context": first(lambda: torch.ones(1, device="cuda"))}
+    a = torch.eye(16, device="cuda") + 0.1
+    out |= {"matmul": first(lambda: a @ a),
+            "eigvalsh": first(lambda: torch.linalg.eigvalsh(a)),
+            "solve": first(lambda: torch.linalg.solve(a, a[:, 0]))}
+    worker = threading.Thread(target=lambda: out.__setitem__("matmul_new_thread",
+                                                             first(lambda: a @ a)))
+    worker.start()
+    worker.join(timeout=60)
+    check(not worker.is_alive(), "wrath_apps: a new thread's first matmul did not return")
+    return out
+
+
+def _app_row(res) -> dict:
+    return {"success": res.success, "error": res.error, "makespan_s": res.makespan,
+            "task_sr": res.task_success_rate, "retry_sr": res.retry_success_rate,
+            "overhead_ratio": res.overhead_ratio, "injected": res.injected,
+            "retries": res.stats["retries"]}
+
+
+def phase_wrath_apps(seed: int) -> dict[str, int]:
+    """fedlearn and moldesign at the paper's scale on the card through
+    ``run_app`` → ``DataFlowKernel`` → ``FailureInjector``, each against
+    the same run on the CPU; then Table IV's and fig 4's MapReduce cases."""
+    from repro_torch import apps
+    from repro_torch.apps import fedlearn as fl, moldesign, run_app
+    from repro_torch.core import MonitoringDatabase
+    from repro_torch.core.failures import RandomSeedError
+    from repro_torch.engine import Cluster
+    from repro_torch.engine.policies import WrathPolicy
+    from repro_torch.injection import FailureInjector
+
+    out: dict = {"first_call_ms": _first_calls_ms()}
+    # the CUDA allocations of the tasks' work, from calls on this thread at
+    # the run's shapes: a run makes at least their sum over its tasks, and
+    # falls short of it by a whole task's count when one task computed on
+    # the CPU (each executor thread's first cuBLAS call adds its workspace,
+    # so each probe is the second call, after autograd's thread has its own).
+    # simulate runs here on each molecule the run simulates, to its first
+    # draw that converges
+    clients, rounds, epochs, n = fl.SCALES["paper"]
+    init, batch, mrounds, pool = moldesign.SCALES["paper"]
+    sim_ids = list(range(init)) + list(range(init, pool))[:mrounds * batch]
+    p0 = fl.init_params(seed)
+
+    def simulate_all() -> None:
+        for mol_id in sim_ids:
+            while True:
+                try:
+                    moldesign.simulate.fn(mol_id, seed, device="cuda")
+                    break
+                except RandomSeedError:
+                    continue
+
+    def probe(fn) -> int:
+        fn()
+        return _allocations(fn)[1]
+
+    fit = [(m, float(m)) for m in range(init)]
+    w0 = moldesign.train_surrogate.fn(fit, device="cuda")
+    probed = {
+        "client_update": probe(lambda: fl.client_update.fn(p0, 0, n, epochs, device="cuda")),
+        "evaluate": probe(lambda: fl.evaluate.fn(p0, device="cuda")),
+        "simulate_all": probe(simulate_all),
+        "train_surrogate": probe(lambda: moldesign.train_surrogate.fn(fit, device="cuda")),
+        "inference": probe(lambda: moldesign.inference.fn(w0, list(range(init, pool)),
+                                                          device="cuda"))}
+    check(min(probed.values()) > 0, f"wrath_apps: a task allocated nothing on the card: {probed}")
+    out["allocations_probed"] = probed
+    zero_counts()
+
+    # -- fedlearn, 8 clients x 3 rounds x 3 epochs x 1024 samples: 30 tasks
+    def fedlearn(device: str, **kw):
+        kw.setdefault("policy", [WrathPolicy()])
+        return run_app_kept(apps, "fedlearn", kw.pop("cluster", Cluster.homogeneous(4)),
+                            scale="paper", seed=seed, device=device, wait_timeout=300, **kw)
+
+    ((clean, kept), allocs), kernels, device_ms = _profiled(
+        lambda: _allocations(lambda: fedlearn("cuda")))
+    check(clean.success, f"wrath_apps: fedlearn on the card failed: {clean.error}")
+    losses = [f.result(timeout=0) for f in kept[:-1]]
+    params = kept[-1].result(timeout=0)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"wrath_apps: fedlearn's loss did not fall: {losses}")
+    least = clients * rounds * probed["client_update"] + rounds * probed["evaluate"]
+    check(kernels > 0, "wrath_apps: no CUDA kernel ran inside fedlearn's tasks")
+    # a surplus under one client_update's count: one that ran elsewhere shows
+    check(least <= allocs < least + probed["client_update"],
+          f"wrath_apps: fedlearn's run made {allocs} CUDA allocations, against the "
+          f"{least} of its {clients * rounds} client_updates and {rounds} evaluates")
+    cpu, kept_cpu = fedlearn("cpu")
+    check(cpu.success, f"wrath_apps: fedlearn on the CPU failed: {cpu.error}")
+    params_cpu = kept_cpu[-1].result(timeout=0)
+    card_vs_cpu = _rel_l2(params, params_cpu)
+    check(card_vs_cpu <= WRATH_APP_TOL["fedlearn_card_vs_cpu"],
+          f"wrath_apps: fedlearn card vs CPU rel L2 {card_vs_cpu}")
+    # the limit tells TF32 from fp32: the same run with TF32's matmuls reads above it
+    tf32_was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32, kept_tf32 = fedlearn("cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32_was
+    check(tf32.success, f"wrath_apps: fedlearn with TF32 on failed: {tf32.error}")
+    tf32_vs_cpu = _rel_l2(kept_tf32[-1].result(timeout=0), params_cpu)
+    check(tf32_vs_cpu > WRATH_APP_TOL["fedlearn_card_vs_cpu"],
+          f"wrath_apps: fedlearn with TF32 on reads {tf32_vs_cpu} from the CPU run, within "
+          f"the fp32 limit {WRATH_APP_TOL['fedlearn_card_vs_cpu']}")
+
+    mon = MonitoringDatabase()
+    inj = FailureInjector("memory", rate=0.3, seed=seed)
+    hurt, kept_hurt = fedlearn("cuda", cluster=Cluster.paper_testbed(small_nodes=3, big_nodes=1),
+                               injector=inj, monitor=mon, default_pool="small-mem")
+    moved = {name: hist["big-mem"].successes for name in ("client_update", "aggregate", "evaluate")
+             if "big-mem" in (hist := mon.pool_history(name))}
+    check(hurt.success and inj.count > 0 and hurt.stats["retries"] > 0 and any(moved.values()),
+          f"wrath_apps: memory-injected fedlearn under WRATH: success {hurt.success}, "
+          f"injected {inj.count}, retries {hurt.stats['retries']}, on big-mem {moved}")
+    injected_vs_clean = _rel_l2(kept_hurt[-1].result(timeout=0), params)
+    check(injected_vs_clean <= WRATH_APP_TOL["fedlearn_injected_vs_clean"],
+          f"wrath_apps: memory-injected fedlearn vs the clean run rel L2 {injected_vs_clean}")
+    base, _ = fedlearn("cuda", cluster=Cluster.paper_testbed(small_nodes=3, big_nodes=1),
+                       injector=FailureInjector("memory", rate=0.3, seed=seed),
+                       default_pool="small-mem", policy=[])
+    check(not base.success, "wrath_apps: memory-injected fedlearn succeeded with no policy")
+    out["fedlearn"] = {
+        "scale": "paper", "tasks": clean.stats["submitted"], "losses": losses,
+        "card": {**_app_row(clean), "cuda_kernels": kernels, "device_ms": device_ms,
+                 "cuda_allocations": allocs, "least_allocations": least},
+        "cpu": _app_row(cpu), "card_vs_cpu_rel_l2": card_vs_cpu,
+        "tf32_card_vs_cpu_rel_l2": tf32_vs_cpu,
+        "memory_injected_wrath": {**_app_row(hurt), "on_big_mem": moved,
+                                  "vs_clean_rel_l2": injected_vs_clean},
+        "memory_injected_baseline": _app_row(base), "tol": WRATH_APP_TOL}
+
+    # -- moldesign, 16 rounds: Random Seed Errors retried in place --------
+    def mol(device: str):
+        moldesign._ATTEMPTS.clear()       # the same seed-error draws each run
+        mon = MonitoringDatabase()
+        res, kept = run_app_kept(apps, "moldesign", Cluster.homogeneous(4),
+                                 policy=[WrathPolicy()], monitor=mon, scale="paper",
+                                 seed=seed, device=device, default_retries=6,
+                                 wait_timeout=300)
+        check(res.success, f"wrath_apps: moldesign on {device} failed: {res.error}")
+        vals = [f.result(timeout=0) for f in kept]
+        seed_errors = sum(r.exception_type == "RandomSeedError" for r in mon.failures)
+        return res, vals, seed_errors
+
+    ((mres, mvals, seed_errors), mallocs), mkernels, mdevice_ms = _profiled(
+        lambda: _allocations(lambda: mol("cuda")))
+    _, cvals, cpu_seed_errors = mol("cpu")
+    check(seed_errors > 0, "wrath_apps: moldesign recovered no RandomSeedError")
+    energies = [(v, c) for v, c in zip(mvals, cvals) if isinstance(v, tuple)]
+    picked = [(v, c) for v, c in zip(mvals, cvals) if isinstance(v, list)]
+    energy_err = max(abs(v[1] - c[1]) / abs(c[1]) for v, c in energies)
+    check(all(v[0] == c[0] for v, c in energies) and energy_err <= WRATH_APP_TOL["moldesign_energy"],
+          f"wrath_apps: moldesign energies card vs CPU {energy_err}")
+    check(all(v == c for v, c in picked), "wrath_apps: moldesign picked other molecules on the card")
+    check(sorted(v[0] for v, _ in energies) == sim_ids,
+          f"wrath_apps: moldesign simulated {sorted(v[0] for v, _ in energies)}")
+    mleast = probed["simulate_all"] + mrounds * (probed["train_surrogate"] + probed["inference"])
+    check(mkernels > 0, "wrath_apps: no CUDA kernel ran inside moldesign's tasks")
+    check(mallocs >= mleast,
+          f"wrath_apps: moldesign's run made {mallocs} CUDA allocations, fewer than the "
+          f"{mleast} of its {len(energies)} simulates and {mrounds} rounds' surrogate and "
+          f"inference")
+    out["moldesign"] = {"scale": "paper", "tasks": mres.stats["submitted"],
+                        "card": {**_app_row(mres), "cuda_kernels": mkernels,
+                                 "device_ms": mdevice_ms, "cuda_allocations": mallocs,
+                                 "least_allocations": mleast},
+                        "random_seed_errors": {"card": seed_errors, "cpu": cpu_seed_errors},
+                        "energy_rel_err": energy_err, "simulations": len(energies),
+                        "rounds_picked_equal": len(picked)}
+
+    # -- Table IV: MapReduce, import and memory failures, rate 0.4 --------
+    def testbed(failure: str):
+        if failure == "import":
+            return Cluster.paper_testbed(small_nodes=3, big_nodes=1, with_pkg_pool=True,
+                                         package="wrathpkg"), "no-pkg"
+        return Cluster.paper_testbed(small_nodes=3, big_nodes=1), "small-mem"
+
+    def mapreduce(failure, mode, inj, scale, cluster=None, pool=None):
+        if cluster is None:
+            cluster, pool = testbed(failure)
+        return run_app("mapreduce", cluster, policy=[WrathPolicy()] if mode == "wrath" else [],
+                       monitor=MonitoringDatabase(), injector=inj, scale=scale,
+                       default_pool=pool, default_retries=2, wait_timeout=120)
+
+    table4 = {}
+    for failure in ("import", "memory"):
+        for mode in ("wrath", "baseline"):
+            runs = [mapreduce(failure, mode, FailureInjector(
+                failure, rate=0.4, seed=r, app_tag=f"t4:{failure}:{r}"), "small")
+                for r in range(4)]
+            table4[f"{mode}_{failure}"] = {
+                key: statistics.mean(float(getattr(x, attr)) for x in runs)
+                for key, attr in (("task_sr", "task_success_rate"),
+                                  ("retry_sr", "retry_success_rate"), ("app_success", "success"),
+                                  ("makespan_s", "makespan"), ("overhead_ratio", "overhead_ratio"))}
+            table4[f"{mode}_{failure}"]["task_sr_by_seed"] = [x.task_success_rate for x in runs]
+            table4[f"{mode}_{failure}"]["retry_sr_by_seed"] = [x.retry_success_rate for x in runs]
+    out["table4"] = table4
+    # the CPU tests' own cases (tests/test_apps.py): Table IV's, and fig 4's
+    t4 = {mode: mapreduce("memory", mode, FailureInjector("memory", rate=0.4, seed=1,
+                                                          app_tag="t4"), "tiny")
+          for mode in ("wrath", "baseline")}
+    check(t4["wrath"].success and t4["wrath"].retry_success_rate > 0.4
+          and not t4["baseline"].success,
+          f"wrath_apps: Table IV case: wrath {_app_row(t4['wrath'])}, "
+          f"baseline {_app_row(t4['baseline'])}")
+    fig4 = {mode: mapreduce("zero_division", mode, FailureInjector(
+        "zero_division", rate=0.3, seed=5, app_tag="ttf"), "tiny",
+        cluster=Cluster.homogeneous(4)) for mode in ("wrath", "baseline")}
+    check(fig4["wrath"].stats["retries"] == 0 and fig4["baseline"].stats["retries"] > 0
+          and not fig4["wrath"].success and not fig4["baseline"].success,
+          f"wrath_apps: fig 4 case: wrath {_app_row(fig4['wrath'])}, "
+          f"baseline {_app_row(fig4['baseline'])}")
+    out["table4_test_case"] = {k: _app_row(v) for k, v in t4.items()}
+    out["fig4_test_case"] = {k: _app_row(v) for k, v in fig4.items()}
+    launches = launch_counts()
+    check(not any(launches.values()), f"wrath_apps: a model kernel ran: {launches}")
+    emit("wrath_apps", **out)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1451,9 +1753,14 @@ def main() -> int:
     t0 = time.perf_counter()
     path_launches["granite_3_2b train_supervisor"] = phase_train_supervisor(args.seed)
     seconds["train_supervisor"] = time.perf_counter() - t0
+
+    # -- 7. the WRATH engine and the TaPS apps (fedlearn, moldesign on the card)
+    t0 = time.perf_counter()
+    path_launches["wrath_apps (fedlearn, moldesign, mapreduce)"] = phase_wrath_apps(args.seed)
+    seconds["wrath_apps"] = time.perf_counter() - t0
     emit("timing", seconds=seconds, resident_gb_after=resident)
 
-    # -- 7. the kernel table ------------------------------------------------
+    # -- 8. the kernel table ------------------------------------------------
     rows = [("flash_attention", flash_cases, "granite_prefill",
              "src/repro_torch/kernels/csrc/flash_attention.cu"),
             ("flash_attention_bwd", bwd_cases, "granite_train",

@@ -2,7 +2,7 @@
 
 Mirrors Parsl's ``python_app`` interface: decorating a function with
 ``@task`` yields a :class:`TaskDef`; invoking it while a
-:class:`~repro.engine.dfk.DataFlowKernel` session is active returns an
+:class:`~repro_torch.engine.dfk.DataFlowKernel` session is active returns an
 :class:`AppFuture`.  Futures may be passed as arguments to other tasks to
 express DAG dependencies.
 """
@@ -265,9 +265,9 @@ class TaskDef:
     Per-invocation placement and resilience are settable via
     :meth:`options`: ``pool=`` pins the target resource pool,
     ``workflow=`` routes the invocation into a specific
-    :class:`~repro.engine.workflow.Workflow` scope (instead of the
+    :class:`~repro_torch.engine.workflow.Workflow` scope (instead of the
     thread's active scope), and ``policy=`` pushes per-call resilience
-    middleware (a :class:`~repro.engine.policies.ResiliencePolicy`, a
+    middleware (a :class:`~repro_torch.engine.policies.ResiliencePolicy`, a
     list of them, or a bare retry-handler callable) that resolves ahead
     of the workflow's and the engine's stacks.
     """
@@ -281,9 +281,17 @@ class TaskDef:
     policy: Any = None
 
     def __call__(self, *args: Any, **kwargs: Any) -> AppFuture:
-        raise NotImplementedError(
-            "the DataFlowKernel (engine/dfk.py) is not ported yet: "
-            "ROADMAP.md, 'Next slices' item 5")
+        from repro_torch.engine.dfk import DataFlowKernel
+
+        dfk = DataFlowKernel.current()
+        if dfk is None and self.workflow is not None:
+            dfk = self.workflow.dfk
+        if dfk is None:
+            raise RuntimeError(
+                f"task {self.name!r} invoked outside a DataFlowKernel session; "
+                "use `with DataFlowKernel(...) as dfk:`"
+            )
+        return dfk.submit(self, args, kwargs)
 
     def options(self, **overrides: Any) -> "TaskDef":
         """Return a copy with modified resources / retry / placement /

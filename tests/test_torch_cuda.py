@@ -396,3 +396,39 @@ def test_cuda_mla_decode_matches_cpu():
         for name in ("ckv", "k_rope"):
             torch.testing.assert_close(card[name].cpu(), cpu[name], rtol=1e-4, atol=1e-4)
         assert int(card["len"]) == int(cpu["len"]) == t + 1
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_hashes_equal_to_its_host_copy():
+    """The task store keys a CUDA tensor by value, as its host copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.checkpoint.task_store import hash_value
+
+    t = torch.randn(64, 32, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    for x in (t, t[3:9].T, t.to(torch.bfloat16)):
+        assert hash_value(x) == hash_value(x.cpu())
+        assert hash_value(x) == hash_value(x.clone())
+    assert hash_value(t) != hash_value(t.to(torch.bfloat16).cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_fedlearn_client_update_matches_cpu():
+    """fedlearn's local SGD on the card equals its CPU run at 1e-5 (TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.apps import fedlearn
+
+    params = fedlearn.init_params(seed=2)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = fedlearn.client_update.fn(params, 1, 1024, 3, device="cuda")
+        loss = fedlearn.evaluate.fn(got, device="cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    want = fedlearn.client_update.fn(params, 1, 1024, 3, device="cpu")
+    for k in want:
+        torch.testing.assert_close(torch.from_numpy(got[k]), torch.from_numpy(want[k]),
+                                   rtol=1e-5, atol=1e-5)
+    assert loss == pytest.approx(fedlearn.evaluate.fn(want, device="cpu"), rel=1e-5)

@@ -55,10 +55,17 @@ print(json.dumps(sorted(m for m in sys.modules
                                   "repro_torch.configs.gemma3_27b",
                                   "repro_torch.configs.llava_next_34b",
                                   "repro_torch.configs.deepseek_67b",
-                                  "repro_torch.configs.deepseek_v3_671b"])
+                                  "repro_torch.configs.deepseek_v3_671b",
+                                  "repro_torch.engine.dfk",
+                                  "repro_torch.api",
+                                  "repro_torch.checkpoint.task_store",
+                                  "repro_torch.injection.engines",
+                                  "repro_torch.apps.fedlearn",
+                                  "repro_torch.apps.moldesign"])
 def test_guard_covers_the_newest_modules(name):
-    """The RG-LRU block and the newest configs are among the modules the
-    guard imports with jax blocked, and among the sources it scans."""
+    """The RG-LRU block, the newest configs, the engine and the apps are
+    among the modules the guard imports with jax blocked, and among the
+    sources it scans."""
     assert name in MODULES
     path = PORT.parent.joinpath(*name.split(".")).with_suffix(".py")
     assert path in SOURCES
@@ -90,6 +97,20 @@ def test_backend_refuses_missing_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_torch_apps_refuse_missing_card():
+    """The two apps that compute run on the card unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from repro_torch.apps import run_app
+    from repro_torch.engine import Cluster
+
+    for app in ("fedlearn", "moldesign"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_app(app, Cluster.homogeneous(2), scale="tiny", wait_timeout=30)
+    assert run_app("fedlearn", Cluster.homogeneous(2), scale="tiny",
+                   wait_timeout=30, device="cpu").success
 
 
 def test_chip_smoke_fails_without_card_and_alone(tmp_path):
