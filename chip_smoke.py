@@ -29,7 +29,11 @@ NaN; last the paper's evaluation path through the port's WRATH engine
 (``run_app`` → ``DataFlowKernel`` → ``FailureInjector``): fedlearn and
 moldesign at the paper's scale computing on the card inside the DFK's
 tasks, held to their CPU runs, with and without injected failures, and
-Table IV's and fig 4's MapReduce cases.  Each phase prints one JSON line;
+Table IV's and fig 4's MapReduce cases; then fedlearn again on the card
+under the sim plane's virtual clock (``SimHarness``), clean and with a
+node lost mid-round, its trace equal to the CPU run's byte for byte, and
+the sim plane's host checks (chaos and serve campaigns, the chaos corpus,
+the analysis CLI's gates).  Each phase prints one JSON line;
 any failed check ends the run with a nonzero exit.
 The line before the last is the kernel table
 (``{"kernels": [...]}``), the last line is
@@ -1685,6 +1689,178 @@ def phase_wrath_apps(seed: int) -> dict[str, int]:
     return launches
 
 
+# the sim plane: fedlearn under ``SimHarness`` (the WRATH engine on the
+# virtual clock) runs each task's body inline, on the thread that drives the
+# clock, and lets it take its est_duration_s in virtual time.  The fault
+# takes default-n001 down 0.1 virtual s into the first round, while its two
+# client_updates run (0 to 0.5 s): the heartbeat watcher sees the silence
+# before they deliver and fails them over (a retry_decision, then a second
+# attempt on another node).  A fault at 0.25 s or later finds them done.
+SIM_FAULT = (0.1, "default-n001")
+
+
+def sim_fedlearn(sim, policy, submit, *, fault=None, **kw) -> dict:
+    """fedlearn's ``submit`` (either package's: ``sim`` is its ``sim``
+    package, ``policy`` its ``WrathPolicy``) inside ``SimHarness`` on four
+    nodes with a trace; ``fault`` is (virtual s, node) for ``fail_node``."""
+    h = sim.SimHarness(sim.SimCluster.homogeneous(4), policy=[policy()], trace=True)
+    t0 = time.perf_counter()
+    with h:
+        futs = submit(**kw)
+        if fault is not None:
+            h.advance(fault[0])
+            h.fail_node(fault[1])
+        done = h.wait_all(timeout=600)
+    wall_s = time.perf_counter() - t0
+    return {"done": done, "trace": h.trace(), "makespan_s": h.clock.now(),
+            "stats": dict(h.dfk.stats), "wall_s": wall_s,
+            "losses": [f.result(timeout=0) for f in futs[:-1]],
+            "params": futs[-1].result(timeout=0)}
+
+
+def rerouted(trace: str, node: str) -> dict:
+    """What the trace shows of ``node``'s loss: the later attempts placed
+    off it, the node each of their tasks finished on, and the placements
+    on it after its heartbeat was lost."""
+    retried, finished, after_loss, lost = [], {}, 0, False
+    for line in trace.splitlines():
+        _, scope, event, payload = line.split(" ", 3)
+        d = json.loads(payload)
+        if event == "heartbeat_lost" and d["node"] == node:
+            lost = True
+        elif scope == "task" and event == "scheduled":
+            if d["attempt"] > 0 and d["node"] != node:
+                retried.append(line)
+            if lost and d["node"] == node:
+                after_loss += 1
+        elif scope == "task" and event == "finished":
+            finished[d["task_id"]] = d["node"]
+    ids = [json.loads(line.split(" ", 3)[3])["task_id"] for line in retried]
+    return {"retried": retried, "finished_on": {t: finished.get(t) for t in ids},
+            "placed_after_loss": after_loss}
+
+
+def sim_host_planes(seed: int, scenarios: int, serve_scenarios: int) -> dict:
+    """The sim plane's host checks: a seeded chaos campaign twice (every
+    invariant, one sha256 of the traces), a serve campaign with its
+    determinism check, each chaos-corpus entry replayed twice with its
+    promoted signatures, and the analysis CLI's two gates."""
+    import hashlib
+
+    from repro_torch.sim import (campaign, load_corpus, run_scenario, serve_campaign,
+                                 violation_signature)
+
+    out: dict = {}
+    digests, walls = [], []
+    for _ in range(2):
+        rep = campaign(scenarios, base_seed=seed)
+        check(rep.ok, f"wrath_sim: {rep.summary()}")
+        digests.append(hashlib.sha256("\n".join(r.trace for r in rep.results).encode())
+                       .hexdigest())
+        walls.append(rep.wall_seconds)
+    check(digests[0] == digests[1], f"wrath_sim: two campaigns, two digests {digests}")
+    out["campaign"] = {"scenarios": scenarios, "base_seed": seed, "sha256": digests[0],
+                       "events": sum(r.events_executed for r in rep.results),
+                       "wall_s": walls, "scenarios_per_s": [scenarios / w for w in walls]}
+    t0 = time.perf_counter()
+    results = serve_campaign(serve_scenarios, base_seed=seed, check_determinism=True)
+    wall = time.perf_counter() - t0
+    bad = [(r.seed, r.violations) for r in results if not r.ok]
+    check(not bad, f"wrath_sim: serve campaign violations {bad}")
+    out["serve_campaign"] = {"scenarios": serve_scenarios, "base_seed": seed, "wall_s": wall,
+                             "scenarios_per_s": serve_scenarios / wall}
+    entries = load_corpus(ROOT / "tests" / "chaos_corpus")
+    check(bool(entries), "wrath_sim: no chaos corpus entry")
+    for path, scenario, expect, _ in entries:
+        first, second = run_scenario(scenario), run_scenario(scenario)
+        check(first.trace == second.trace, f"wrath_sim: {path.name} replays two traces")
+        got = sorted({violation_signature(v) for v in first.violations})
+        check(got == sorted(expect), f"wrath_sim: {path.name} gave {got}, pinned {expect}")
+    out["corpus_entries"] = len(entries)
+    out["analysis"] = {}
+    for flag in ("--strict", "--check-registry"):
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis", flag],
+                              capture_output=True, text=True, cwd=ROOT, timeout=300,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        check(proc.returncode == 0,
+              f"wrath_sim: analysis {flag} exit {proc.returncode}: {proc.stdout}{proc.stderr}")
+        out["analysis"][flag] = proc.stdout.strip().splitlines()[-1]
+    return out
+
+
+def phase_wrath_sim(seed: int) -> dict[str, int]:
+    """fedlearn at the paper's scale computing on the card under the sim
+    plane's virtual clock, clean and with a node lost mid-round, each held
+    to the same run on the CPU (trace byte for byte, weights at the
+    wrath_apps limit); then the sim plane's host checks."""
+    from repro_torch import sim
+    from repro_torch.apps import fedlearn as fl
+    from repro_torch.engine.policies import WrathPolicy
+
+    clients, rounds, epochs, n = fl.SCALES["paper"]
+    p0 = fl.init_params(seed)
+
+    def probe(fn) -> int:
+        fn()
+        return _allocations(fn)[1]
+
+    # the tasks run on this thread, so each probe is what one task allocates
+    probed = {"client_update": probe(lambda: fl.client_update.fn(p0, 0, n, epochs, device="cuda")),
+              "evaluate": probe(lambda: fl.evaluate.fn(p0, device="cuda"))}
+    check(min(probed.values()) > 0, f"wrath_sim: a task allocated nothing on the card: {probed}")
+    least = clients * rounds * probed["client_update"] + rounds * probed["evaluate"]
+    zero_counts()
+
+    def run(device: str, fault=None) -> dict:
+        return sim_fedlearn(sim, WrathPolicy, fl.submit, fault=fault, scale="paper", seed=seed,
+                            device=device)
+
+    tol = WRATH_APP_TOL["fedlearn_card_vs_cpu"]
+    out: dict = {"scale": "paper", "fault": list(SIM_FAULT), "allocations_probed": probed,
+                 "least_allocations": least, "tol": tol}
+    runs = {}
+    for name, fault in (("clean", None), ("faulted", SIM_FAULT)):
+        card, allocs = _allocations(lambda: run("cuda", fault))
+        cpu = run("cpu", fault)
+        check(card["done"] and cpu["done"], f"wrath_sim: the {name} run did not finish")
+        check(card["trace"] == cpu["trace"],
+              f"wrath_sim: the {name} run's trace on the card differs from the CPU's")
+        vs_cpu = _rel_l2(card["params"], cpu["params"])
+        check(vs_cpu <= tol, f"wrath_sim: {name} card vs CPU rel L2 {vs_cpu}")
+        check(allocs >= least, f"wrath_sim: the {name} run made {allocs} CUDA allocations, "
+              f"fewer than the {least} of its {clients * rounds} client_updates and "
+              f"{rounds} evaluates")
+        losses = card["losses"]
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"wrath_sim: the {name} run's loss did not fall: {losses}")
+        runs[name] = card
+        out[name] = {"virtual_makespan_s": card["makespan_s"], "wall_s": card["wall_s"],
+                     "cpu_wall_s": cpu["wall_s"], "trace_lines": len(card["trace"].splitlines()),
+                     "tasks": card["stats"]["submitted"], "retries": card["stats"]["retries"],
+                     "losses": losses, "card_vs_cpu_rel_l2": vs_cpu, "cuda_allocations": allocs}
+    clean, faulted = runs["clean"], runs["faulted"]
+    check(all(np.array_equal(faulted["params"][k], clean["params"][k]) for k in clean["params"]),
+          "wrath_sim: the faulted run's weights differ from the clean run's")
+    # the lost node's running client_updates are failed over; their first
+    # attempts may still deliver first (heartbeat silence is not proof of
+    # death, sim/cluster.py hardware_down), and no task is placed there again
+    moved = rerouted(faulted["trace"], SIM_FAULT[1])
+    check("heartbeat_lost" in faulted["trace"] and "heartbeat_lost" not in clean["trace"],
+          "wrath_sim: heartbeat_lost is not in the faulted trace alone")
+    check(bool(moved["retried"]) and faulted["stats"]["retries"] >= 1
+          and moved["placed_after_loss"] == 0,
+          f"wrath_sim: {SIM_FAULT[1]}'s loss was not rerouted: retries "
+          f"{faulted['stats']['retries']}, {moved}")
+    out["faulted"]["rerouted"] = moved
+    out["device_profile"] = {k: v for k, v in device_profile(lambda: run("cuda")).items()
+                             if k != "top"}
+    launches = launch_counts()
+    check(not any(launches.values()), f"wrath_sim: a model kernel ran: {launches}")
+    out["host"] = sim_host_planes(seed, 500, 50)
+    emit("wrath_sim", **out)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1758,9 +1934,14 @@ def main() -> int:
     t0 = time.perf_counter()
     path_launches["wrath_apps (fedlearn, moldesign, mapreduce)"] = phase_wrath_apps(args.seed)
     seconds["wrath_apps"] = time.perf_counter() - t0
+
+    # -- 8. the WRATH engine on the virtual clock, fedlearn on the card ------
+    t0 = time.perf_counter()
+    path_launches["wrath_sim (fedlearn under SimHarness)"] = phase_wrath_sim(args.seed)
+    seconds["wrath_sim"] = time.perf_counter() - t0
     emit("timing", seconds=seconds, resident_gb_after=resident)
 
-    # -- 8. the kernel table ------------------------------------------------
+    # -- 9. the kernel table ------------------------------------------------
     rows = [("flash_attention", flash_cases, "granite_prefill",
              "src/repro_torch/kernels/csrc/flash_attention.cu"),
             ("flash_attention_bwd", bwd_cases, "granite_train",

@@ -1,8 +1,8 @@
 """Virtual time: the deterministic clock behind the simulation plane.
 
-A :class:`VirtualClock` is a :class:`repro.engine.events.Clock` whose time
+A :class:`VirtualClock` is a :class:`repro_torch.engine.events.Clock` whose time
 advances only by decree — :meth:`advance_to` — never by the passage of
-real time.  The :class:`~repro.engine.events.EventLoop` drives it from
+real time.  The :class:`~repro_torch.engine.events.EventLoop` drives it from
 ``run_until``: pop the next scheduled event, jump the clock to its
 timestamp, execute.  A "60-second" heartbeat-loss scenario therefore
 costs exactly the callbacks it runs, and two runs of the same scenario

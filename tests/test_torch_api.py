@@ -2,12 +2,12 @@
 own tests, plus the store's hashing of torch tensors.
 
 Ports, against ``repro_torch``, of the tests of ``tests/test_api.py`` and
-``tests/test_task_store.py`` that run on the wall clock (those on
-``SimCluster``/``SimHarness`` wait for the port of ``sim``).  Bodies are the
-reference's with the imports rewritten.  The last tests cover the one
-deliberate edit of the copied store: tensors hash by value.  The rest run
-the same inputs through both packages: the store's hashes, keys and files,
-and the facade's outcomes and counts.
+``tests/test_task_store.py``: those on the wall clock, then those on the
+port's ``SimCluster``/``SimHarness``.  Bodies are the reference's with the
+imports rewritten.  Tests between the two parts cover the one deliberate
+edit of the copied store, tensors hash by value, and run the same inputs
+through both packages: the store's hashes, keys and files, and the
+facade's outcomes and counts.
 """
 import json
 import pickle
@@ -46,6 +46,7 @@ from repro_torch.checkpoint.task_store import (
     lineage_key,
 )
 from repro_torch.core import wrath_retry_handler
+from repro_torch.sim import SimCluster, SimHarness
 
 
 # ===== ported from tests/test_api.py =====
@@ -762,3 +763,357 @@ def test_facade_outcomes_equal_reference():
     want, got = _facade_outcomes(ref_api), _facade_outcomes(port_api)
     assert want["decisions"] and want["map"] == [11, 44, 3, 7]
     assert got == want
+
+
+# ===== ported from tests/test_api.py: the tests on the sim plane =====
+@task
+def sim_napper(x, duration=1.0):
+    return x                  # its nap is the scripted *virtual* duration
+
+
+def _napper_durations(rec, node):
+    """Sim duration script: a task naps its own ``duration=`` kwarg
+    (virtually); templates without one fall through to their defaults."""
+    return rec.kwargs.get("duration")
+
+
+def test_nested_cancel_kills_descendants_not_siblings_propagate_none():
+    """Satellite acceptance: with propagate="none", cancelling a sub-scope
+    kills its queued + running descendants while sibling scopes finish."""
+    with SimHarness(SimCluster.homogeneous(1, workers_per_node=2),
+                    durations=_napper_durations) as h:
+        with h.dfk.workflow("root") as root:
+            with root.workflow("victim", propagate="none") as victim:
+                # 2 workers: first two run, the rest queue behind them
+                running = [sim_napper(i, duration=3.0) for i in range(2)]
+                queued = [sim_napper(i, duration=0.1) for i in range(4)]
+            with root.workflow("sibling") as sibling:
+                safe = [sim_napper(i, duration=0.1) for i in range(2)]
+        h.advance(0.3)         # let the first nappers reach RUNNING
+        n = victim.cancel("test cancel")
+        assert n == len(running) + len(queued)
+        for f in running + queued:
+            assert isinstance(f.exception(timeout=0), TaskCancelledError)
+        # sibling scope is untouched and completes
+        assert [h.result(f, timeout=20) for f in safe] == [0, 1]
+        assert victim.cancelled and not sibling.cancelled
+        assert sibling.stats()["completed"] == 2
+
+
+def test_propagate_siblings_fast_fails_scope_subtree():
+    with SimHarness(SimCluster.homogeneous(2),
+                    durations=_napper_durations) as h:
+        with h.dfk.workflow("root") as root:
+            with root.workflow("doomed", propagate="siblings") as doomed:
+                sibs = [sim_napper(i, duration=3.0) for i in range(3)]
+                bad = fatal()
+            safe = sim_napper(99, duration=0.1)
+        with pytest.raises(ValueError):
+            h.result(bad, timeout=10)
+        # terminal failure of `bad` fast-fails its siblings...
+        for f in sibs:
+            assert isinstance(f.exception(timeout=0), TaskCancelledError)
+        assert doomed.cancelled
+        # ...but not the parent scope's other members
+        assert h.result(safe, timeout=20) == 99
+        assert not root.cancelled
+
+
+def test_propagate_ancestors_fast_fails_whole_tree():
+    with SimHarness(SimCluster.homogeneous(2),
+                    durations=_napper_durations) as h:
+        with h.dfk.workflow("root") as root:
+            other = [sim_napper(i, duration=3.0) for i in range(2)]
+            with root.workflow("stage", propagate="ancestors") as stage:
+                bad = fatal()
+        with pytest.raises(ValueError):
+            h.result(bad, timeout=10)
+        for f in other:        # the whole ancestor tree is cancelled
+            assert isinstance(f.exception(timeout=0), TaskCancelledError)
+        assert root.cancelled and stage.cancelled
+
+
+def test_replicate_races_n_copies_on_distinct_nodes():
+    from repro_torch.engine.cluster import current_node
+    ran_on = set()
+
+    with SimHarness(SimCluster.homogeneous(3, workers_per_node=1),
+                    durations={"where": 0.4}) as h:
+        @task
+        def where():
+            ran_on.add(current_node().name)
+            return True
+
+        fut = where.options(policy=replicate(3))()
+        assert h.result(fut, timeout=10) is True
+        assert h.dfk.stats["replicas"] == 2    # n - 1 racing copies
+        h.advance(0.6)                         # let the losing replicas finish
+    # placement diversity: original + copies all executed on distinct nodes
+    assert len(ran_on) == 3, ran_on
+
+
+def test_replicate_survives_original_terminal_failure():
+    """A healthy replica's result must win over the original's error."""
+    from repro_torch.engine.cluster import current_node
+
+    with SimHarness(SimCluster.homogeneous(3, workers_per_node=1),
+                    durations={"picky": 0.2}) as h:
+        @task(max_retries=0)
+        def picky():
+            if current_node().name.endswith("n000"):
+                raise ValueError("bad node")   # original lands here first
+            return "ok"                        # replicas finish at +0.2s
+
+        fut = picky.options(policy=replicate(3))()
+        assert h.result(fut, timeout=10) == "ok"
+        assert h.dfk.stats["retry_success"] == 0   # won by replica, not retry
+
+
+def test_replicate_all_attempts_fail_resolves_with_error():
+    with SimHarness(SimCluster.homogeneous(3, workers_per_node=1)) as h:
+        @task(max_retries=0)
+        def doomed():
+            raise ValueError("every attempt fails")
+
+        fut = doomed.options(policy=replicate(3))()
+        h.run_until(fut.done, timeout=10)
+        assert isinstance(fut.exception(timeout=0), ValueError)
+
+
+def test_map_backpressure_releases_slot_when_submit_raises():
+    """Regression: a submission failure after gate.acquire() leaked the
+    backpressure slot, deadlocking the rest of the sweep at cap-1."""
+    class ExplodesOnBind(ResiliencePolicy):
+        def bind(self, dfk):
+            raise RuntimeError("bind exploded")
+
+    with SimHarness(SimCluster.homogeneous(1, workers_per_node=1),
+                    durations=_napper_durations) as h:
+        bad = add_one.options(policy=ExplodesOnBind())
+        with pytest.raises(RuntimeError, match="bind exploded"):
+            h.dfk.map(bad, [(i,) for i in range(4)], max_outstanding=1)
+        # every acquired slot was released and no phantom outstanding task
+        # remains: a full-width healthy sweep through the same cap runs dry
+        futs = h.dfk.map(add_one, [(i,) for i in range(4)],
+                         max_outstanding=1)
+        assert [h.result(f) for f in futs] == [1, 2, 3, 4]
+        assert h.dfk.wait_all(timeout=10)
+
+
+def test_failed_submission_rolls_back_books_and_resolves_scope_future(monkeypatch):
+    """A submission that dies after registering must neither strand
+    wait_all (phantom outstanding) nor hang Workflow.wait() on a member
+    future the engine disowned."""
+    with SimHarness(SimCluster.homogeneous(1)) as h:
+        with h.dfk.workflow("w") as wf:
+            ok_fut = add_one(1)
+
+            def boom(*a, **k):
+                raise OSError("monitor down")
+
+            monkeypatch.setattr(h.monitor, "record_task_event", boom)
+            with pytest.raises(OSError, match="monitor down"):
+                add_one(2)
+            monkeypatch.undo()
+        assert wf.wait(timeout=10)            # scope must not hang
+        assert h.result(ok_fut) == 2
+        dead = [f for f in wf.futures() if f.exception(timeout=0) is not None]
+        assert len(dead) == 1
+        assert "submission of task" in str(dead[0].exception(timeout=0))
+        assert h.dfk.wait_all(timeout=10)
+        assert h.dfk._outstanding == 0
+
+
+# ===== ported from tests/test_task_store.py: the tests on the sim plane =====
+def test_restarted_engine_resumes_from_completed_frontier():
+    """The tentpole property: a fresh engine on the same store resolves
+    previously-committed lineage without dispatching a single task."""
+    store = TaskStore()
+    _reset()
+    with SimHarness(SimCluster.homogeneous(2), checkpoint=store) as h:
+        out = mul10(inc(1))
+        assert h.result(out) == 20
+    assert CALLS == [("inc", 1), ("mul10", 2)]
+    assert len(store) == 2
+
+    _reset()
+    with SimHarness(SimCluster.homogeneous(2), checkpoint=store) as h:
+        out = mul10(inc(1))
+        assert h.result(out) == 20
+        assert h.dfk.stats["memo_hits"] == 2
+        assert h.dfk.task_store is store
+    assert CALLS == []                    # nothing re-executed
+
+
+def test_memoization_misses_when_an_ancestor_arg_changes():
+    store = TaskStore()
+    _reset()
+    with SimHarness(SimCluster.homogeneous(2), checkpoint=store) as h:
+        assert h.result(mul10(inc(1))) == 20
+    _reset()
+    with SimHarness(SimCluster.homogeneous(2), checkpoint=store) as h:
+        # changed root arg -> new lineage keys all the way down
+        assert h.result(mul10(inc(2))) == 30
+        assert h.dfk.stats["memo_hits"] == 0
+    assert CALLS == [("inc", 2), ("mul10", 3)]
+
+
+def test_explicit_rollback_invalidates_descendants_and_reexecutes():
+    store = TaskStore()
+    _reset()
+    with SimHarness(SimCluster.homogeneous(2), checkpoint=store) as h:
+        h.result(mul10(inc(1)))
+    [parent_key] = [k for k in store.keys()
+                    if store.entry(k)["task_name"] == "inc"]
+    store.invalidate(parent_key, descendants=True)
+    assert len(store) == 0
+    _reset()
+    with SimHarness(SimCluster.homogeneous(2), checkpoint=store) as h:
+        assert h.result(mul10(inc(1))) == 20
+        assert h.dfk.stats["memo_hits"] == 0
+    assert CALLS == [("inc", 1), ("mul10", 2)]
+
+
+def test_invalid_cached_result_triggers_dependency_aware_rollback():
+    """A cached result that fails the stack's result validation is rolled
+    back *with its descendants*, then the lineage re-executes fresh."""
+    from repro_torch.api import replicate
+
+    store = TaskStore()
+    _reset()
+    with SimHarness(SimCluster.homogeneous(2), checkpoint=store) as h:
+        h.result(mul10(inc(1)))
+    [parent_key] = [k for k in store.keys()
+                    if store.entry(k)["task_name"] == "inc"]
+    # poison the committed parent value (e.g. bit-rot in the store)
+    store.commit(parent_key, -7, task_name="inc")
+
+    _reset()
+    validated = inc.options(policy=replicate(1, validate=lambda v: v >= 0))
+    with SimHarness(SimCluster.homogeneous(2), checkpoint=store) as h:
+        out = mul10(validated(1))
+        assert h.result(out) == 20        # recomputed, not the poisoned -7
+        assert h.dfk.stats["memo_hits"] == 0
+    # both the parent and its dependent child re-executed
+    assert CALLS == [("inc", 1), ("mul10", 2)]
+    assert store.lookup(parent_key) == (True, 2)
+
+
+def test_memo_hit_links_new_parent_lineage():
+    """Converging DAGs end to end: a child that memo-hits via a different
+    parent (same parent *value*, hence same child key) must gain the new
+    parent edge so rolling back that parent also drops the child."""
+    @task
+    def const_two(x):
+        CALLS.append(("const_two", x))
+        return 2
+
+    store = TaskStore()
+    _reset()
+    with SimHarness(SimCluster.homogeneous(2), checkpoint=store) as h:
+        h.result(mul10(inc(1)))           # child key via inc's output (2)
+    _reset()
+    with SimHarness(SimCluster.homogeneous(2), checkpoint=store) as h:
+        assert h.result(mul10(const_two(0))) == 20
+        assert h.dfk.stats["memo_hits"] == 1      # the child short-circuits
+    assert CALLS == [("const_two", 0)]
+    [pb] = [k for k in store.keys()
+            if store.entry(k)["task_name"] == "const_two"]
+    [child] = [k for k in store.keys()
+               if store.entry(k)["task_name"] == "mul10"]
+    assert pb in store.entry(child)["parents"]
+    assert child in store.invalidate(pb, descendants=True)
+
+
+def test_workflow_scope_checkpoint_kwarg():
+    store = TaskStore()
+    _reset()
+    with SimHarness(SimCluster.homogeneous(2)) as h:
+        with h.dfk.workflow("stage", checkpoint=store):
+            h.result(inc(5))
+    assert len(store) == 1
+    _reset()
+    with SimHarness(SimCluster.homogeneous(2)) as h:
+        with h.dfk.workflow("stage", checkpoint=store):
+            fut = inc(5)
+        assert h.result(fut) == 6
+        assert h.dfk.stats["memo_hits"] == 1
+        # unscoped submissions bypass the scope's store
+        assert h.result(inc(7)) == 8
+    assert CALLS == [("inc", 7)]
+
+
+def test_failures_are_never_committed():
+    @task(max_retries=0)
+    def boom():
+        CALLS.append(("boom",))
+        raise ValueError("nope")
+
+    store = TaskStore()
+    _reset()
+    for _ in range(2):
+        with SimHarness(SimCluster.homogeneous(2), checkpoint=store) as h:
+            fut = boom()
+            h.run_until(fut.done)
+            with pytest.raises(ValueError):
+                fut.result(timeout=0)
+    assert len(store) == 0
+    assert CALLS == [("boom",), ("boom",)]  # re-executed after restart
+
+
+def test_late_duplicate_delivery_cannot_overwrite_committed_winner():
+    """Commits happen only for the attempt that won the task: a stale
+    racing attempt delivering a different value after resolution must be
+    discarded without touching the store."""
+    store = TaskStore()
+    _reset()
+    with SimHarness(SimCluster.homogeneous(2), checkpoint=store) as h:
+        fut = inc(1)
+        assert h.result(fut) == 2
+        rec = fut.record
+        assert store.lookup(rec.lineage_key) == (True, 2)
+        h.dfk._on_result(rec, -99, None, None)   # late loser delivery
+        assert store.lookup(rec.lineage_key) == (True, 2)
+        assert len(store) == 1
+
+
+def test_memo_commit_only_policy_receives_commits():
+    """A policy overriding only memo_commit (e.g. a commit auditor or a
+    mirror store) must still be wired into the checkpoint fan-out."""
+    seen = []
+
+    class AuditCommits(ResiliencePolicy):
+        def memo_commit(self, rec, result, ctx):
+            seen.append((rec.name, result))
+
+    _reset()
+    with SimHarness(SimCluster.homogeneous(2),
+                    policy=[AuditCommits()]) as h:
+        assert h.result(inc(1)) == 2
+    assert seen == [("inc", 2)]
+
+
+def test_task_store_attr_resolves_past_non_store_checkpointers():
+    """dfk.task_store must find the checkpoint= store even when another
+    memo-hook policy precedes it in the stack."""
+    class AuditCommits(ResiliencePolicy):
+        def memo_commit(self, rec, result, ctx):
+            pass
+
+    store = TaskStore()
+    with SimHarness(SimCluster.homogeneous(2),
+                    policy=[AuditCommits()], checkpoint=store) as h:
+        assert h.dfk.task_store is store
+
+
+def test_memo_lookup_errors_degrade_to_execution():
+    """A broken store must never wedge dispatch — the task just runs."""
+    class BrokenStore(ResiliencePolicy):
+        def memo_lookup(self, rec, ctx):
+            raise OSError("store unreachable")
+
+    _reset()
+    with SimHarness(SimCluster.homogeneous(2),
+                    policy=[BrokenStore()]) as h:
+        assert h.result(inc(1)) == 2
+    assert CALLS == [("inc", 1)]

@@ -2,9 +2,9 @@
 
 Ports, against ``repro_torch``, of all of ``tests/test_scheduler.py`` and
 ``tests/test_wrath_policy.py``, and of the tests of ``tests/test_engine.py``
-and ``tests/test_work_stealing.py`` that run on the wall clock (those on
-``SimCluster``/``SimHarness`` wait for the port of ``sim``).  Bodies are the
-reference's with the imports rewritten; ``_sched_record`` is
+and ``tests/test_work_stealing.py``: those on the wall clock, then those on the
+port's ``SimCluster``/``SimHarness``.  Bodies are the reference's with the
+imports rewritten; ``_sched_record`` is
 ``test_scheduler.py``'s ``_record``, renamed apart from the policy tests'.
 """
 import queue
@@ -43,7 +43,9 @@ from repro_torch.engine import (
 )
 from repro_torch.engine.cluster import RunQueue
 from repro_torch.engine.events import EventLoop
+from repro_torch.engine.policies import StragglerPolicy, WrathPolicy
 from repro_torch.engine.task import ResourceSpec, TaskDef, new_task_record
+from repro_torch.sim import SimCluster, SimHarness, campaign
 
 
 # ===== ported from tests/test_scheduler.py =====
@@ -786,3 +788,244 @@ def test_appfuture_cancel_raises_cancelled_error():
         fut.result(timeout=0)
     with pytest.raises(CancelledError):
         fut.exception(timeout=0)
+
+
+# ===== ported from tests/test_engine.py: the tests on the sim plane =====
+def test_transient_contention_retry_succeeds():
+    """Two 6 GB tasks on one 8 GB node: the loser backs off and succeeds."""
+    cluster = SimCluster.homogeneous(1, memory_gb=8, workers_per_node=2)
+    with SimHarness(cluster, durations={"hold": 0.2}, policy=WrathPolicy(),
+                    default_retries=6) as h:
+        @task(memory_gb=6)
+        def hold(t):
+            return t
+
+        futs = [hold(0.2), hold(0.2)]
+        assert [h.result(f, timeout=15) for f in futs] == [0.2, 0.2]
+        assert h.dfk.stats["retries"] >= 1  # the loser was retried with backoff
+
+
+def test_heartbeats_flow_to_monitor():
+    with SimHarness(SimCluster.homogeneous(2)) as h:
+        h.advance(0.25)
+        beats = h.monitor.last_heartbeats()
+        assert len(beats) == 2
+        assert all(h.clock.time() - t < 5 for t in beats.values())
+
+
+def test_hardware_shutdown_detected_and_rerouted():
+    """Kill a node mid-run: heartbeat loss reroutes its tasks (WRATH)."""
+    cluster = SimCluster.homogeneous(3, workers_per_node=1)
+    with SimHarness(cluster, durations={"slow": 0.3}, policy=WrathPolicy(),
+                    default_retries=3, heartbeat_period=0.03,
+                    heartbeat_threshold=3) as h:
+        @task
+        def slow(x):
+            return x
+
+        futs = [slow(i) for i in range(3)]
+        h.advance(0.05)
+        h.fail_node(cluster.all_nodes()[0].name)
+        results = sorted(h.result(f, timeout=30) for f in futs)
+        assert results == [0, 1, 2]
+    events = [e["event"] for e in h.monitor.system_events]
+    assert "heartbeat_lost" in events or "denylist_add" in events
+
+
+def test_worker_killed_respawns():
+    from repro_torch.engine.cluster import kill_current_worker
+    cluster = SimCluster.homogeneous(2, workers_per_node=1)
+    with SimHarness(cluster, policy=WrathPolicy(), default_retries=2) as h:
+        killed = {"done": False}
+
+        @task
+        def murder():
+            if not killed["done"]:
+                killed["done"] = True
+                kill_current_worker()
+            return "survived"
+
+        assert h.result(murder(), timeout=15) == "survived"
+        # node managers respawn killed workers
+        h.advance(0.2)
+        for node in cluster.all_nodes():
+            assert sum(1 for w in node.workers if w.alive) >= 1
+
+
+def test_speculative_execution_beats_straggler():
+    nodes = [Node("fast", speed=1.0, workers_per_node=1),
+             Node("slug", speed=0.02, workers_per_node=1)]
+    cluster = SimCluster([ResourcePool("p", nodes)])
+    with SimHarness(cluster, durations={"work": 0.1},
+                    policy=[StragglerPolicy(2.0)],
+                    heartbeat_period=0.03) as h:
+        @task(est_duration_s=0.1)
+        def work(x):
+            return x
+
+        # keep "fast" busy briefly so one task lands on the straggler
+        futs = [work(i) for i in range(2)]
+        t0 = h.clock.now()
+        assert sorted(h.result(f, timeout=30) for f in futs) == [0, 1]
+        elapsed = h.clock.now() - t0
+        # without speculation the straggler task would take ~5s (0.1/0.02)
+        assert elapsed < 4.0
+    assert h.dfk.stats["speculations"] >= 1
+
+
+# ===== ported from tests/test_work_stealing.py: the tests on the sim plane =====
+def _skew() -> SimCluster:
+    nodes = [Node("fast", speed=1.0, workers_per_node=1),
+             Node("slug", speed=0.25, workers_per_node=1)]
+    return SimCluster([ResourcePool("p", nodes)])
+
+
+def test_steal_moves_queued_task_to_idle_node():
+    with SimHarness(_skew(), durations={"work": 1.0},
+                    work_stealing=True) as h:
+        @task
+        def work(i):
+            return i
+
+        futs = [work(i) for i in range(4)]
+        assert h.wait_all(timeout=30)
+        assert [h.result(f) for f in futs] == [0, 1, 2, 3]
+        assert h.dfk.stats["steals"] == 1
+        stolen = [f.record for f in futs if f.record.steal_path]
+        assert len(stolen) == 1
+        hop = stolen[0].steal_path[-1]
+        assert hop["from"] == "slug" and hop["to"] == "fast"
+        # the attempt ran on the thief, not where placement put it
+        assert stolen[0].attempts[-1]["node"] == "fast"
+        # makespan is bounded by the slug's one *running* task (4 virtual
+        # seconds), not its whole backlog (8 without stealing)
+        assert h.clock.now() <= 4.5
+
+
+def test_no_stealing_without_the_flag():
+    with SimHarness(_skew(), durations={"work": 1.0}) as h:
+        @task
+        def work(i):
+            return i
+
+        futs = [work(i) for i in range(4)]
+        assert h.wait_all(timeout=30)
+        assert h.dfk.stats["steals"] == 0
+        assert all(not f.record.steal_path for f in futs)
+        assert h.clock.now() >= 7.5
+
+
+def test_stolen_task_failure_propagates_to_owning_scope():
+    """A stolen task's failure lands in the Workflow scope that owns it,
+    attributed to the thief node — the steal-tree record keeps hierarchy
+    bookkeeping correct across the migration."""
+    with SimHarness(_skew(), durations={"work": 1.0, "boom": 1.0},
+                    work_stealing=True) as h:
+        @task
+        def work(i):
+            return i
+
+        @task(max_retries=0)
+        def boom():
+            raise ZeroDivisionError("stolen and doomed")
+
+        wf = h.dfk.workflow("grp", propagate="siblings")
+        f0 = work(0)                            # fast, 0→1
+        sib = work.options(workflow=wf)(1)      # slug, running 0→4
+        filler = work(2)                        # fast queue, 1→2
+        bad = boom.options(workflow=wf)()       # slug queue → stolen at 2
+        assert h.wait_all(timeout=60)
+        assert h.result(f0) == 0 and h.result(filler) == 2
+        assert h.dfk.stats["steals"] >= 1
+        rec = bad.record
+        assert rec.steal_path and rec.steal_path[-1]["to"] == "fast"
+        assert rec.attempts[-1]["node"] == "fast"
+        assert isinstance(bad.exception(timeout=0), ZeroDivisionError)
+        # siblings propagation fired in the *owning* scope: the running
+        # sibling was cancelled instead of completing at t=4
+        assert sib.exception(timeout=0) is not None
+        # tasks outside the scope were untouched by the propagation
+        assert f0.exception(timeout=0) is None
+
+
+def test_cancelled_scope_tasks_are_not_stolen_back_to_life():
+    with SimHarness(_skew(), durations={"work": 1.0},
+                    work_stealing=True) as h:
+        @task
+        def work(i):
+            return i
+
+        wf = h.dfk.workflow("doomed")
+        f0 = work(0)                            # fast, 0→1
+        running = work.options(workflow=wf)(1)  # slug, running 0→4
+        filler = work(2)                        # fast queue, 1→2
+        victim = work.options(workflow=wf)(3)   # slug queue
+        h.advance(0.5)                          # placed; victim still queued
+        wf.cancel("scripted")
+        assert h.wait_all(timeout=30)
+        assert victim.exception(timeout=0) is not None
+        assert not victim.record.attempts       # never ran anywhere
+        assert not victim.record.steal_path
+        assert running.exception(timeout=0) is not None
+        # when the fast node went idle there was nothing left to steal
+        assert h.dfk.stats["steals"] == 0
+        assert h.result(f0) == 0 and h.result(filler) == 2
+
+
+def test_node_loss_after_steal_attributes_to_thief():
+    """Heartbeat loss on the *thief* fails and reroutes the stolen task:
+    the sweep keys on the assignment table, which the steal re-pointed.
+    Without that re-pointing the sweep would find nothing on the dead
+    node and no retry would ever fire."""
+    with SimHarness(_skew(), durations={"work": 1.0, "roam": 5.0},
+                    work_stealing=True, heartbeat_period=0.1,
+                    heartbeat_threshold=1.0) as h:
+        @task
+        def work(i):
+            return i
+
+        @task
+        def roam():
+            return "done"
+
+        work(0), work(1), work(2)               # fast 0→1, slug 0→4, fast 1→2
+        fut = roam()                            # slug queue → stolen at 2
+        assert h.run_until(lambda: h.dfk.stats["steals"] >= 1, timeout=10)
+        assert fut.record.steal_path[-1]["to"] == "fast"
+        h.fail_node("fast")                     # thief goes silent mid-run
+        # the watcher fails the stolen task ON THE THIEF within the
+        # staleness window (well before the in-flight delivery at t=7)
+        # and reroutes it — only possible with the re-pointed assignment
+        assert h.run_until(lambda: h.dfk.stats["retries"] >= 1, timeout=2.5)
+        assert h.wait_all(timeout=200)
+        assert fut.result(timeout=0) == "done"
+        # real-cluster parity: heartbeat silence is not proof of death —
+        # the thief's in-flight attempt still delivered (t=7, before the
+        # slug-side retry could finish) and won the future
+        assert fut.record.attempts[-1]["node"] == "fast"
+        assert fut.record.attempts[-1]["ok"]
+
+
+def test_steal_interleavings_trace_deterministic():
+    def one() -> str:
+        with SimHarness(_skew(), durations={"work": 1.0},
+                        work_stealing=True, trace=True) as h:
+            @task
+            def work(i):
+                return i
+
+            futs = [work(i) for i in range(12)]
+            assert h.wait_all(timeout=120)
+            assert h.dfk.stats["steals"] >= 1
+            assert all(f.exception(timeout=0) is None for f in futs)
+            return h.trace()
+
+    first, second = one(), one()
+    assert "stolen" in first
+    assert first == second
+
+
+def test_same_seed_campaign_identical_with_stealing():
+    rep = campaign(6, determinism_checks=6,
+                   engine_kwargs={"work_stealing": True})
+    assert rep.ok, rep.violations

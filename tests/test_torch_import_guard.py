@@ -61,13 +61,24 @@ print(json.dumps(sorted(m for m in sys.modules
                                   "repro_torch.checkpoint.task_store",
                                   "repro_torch.injection.engines",
                                   "repro_torch.apps.fedlearn",
-                                  "repro_torch.apps.moldesign"])
+                                  "repro_torch.apps.moldesign",
+                                  "repro_torch.sim",
+                                  "repro_torch.sim.cluster",
+                                  "repro_torch.sim.harness",
+                                  "repro_torch.sim.serve",
+                                  "repro_torch.sim.search",
+                                  "repro_torch.sim.__main__",
+                                  "repro_torch.analysis",
+                                  "repro_torch.analysis.event_check",
+                                  "repro_torch.analysis.__main__"])
 def test_guard_covers_the_newest_modules(name):
-    """The RG-LRU block, the newest configs, the engine and the apps are
-    among the modules the guard imports with jax blocked, and among the
-    sources it scans."""
+    """The RG-LRU block, the newest configs, the engine, the apps, the sim
+    plane and the analysis plane are among the modules the guard imports
+    with jax blocked, and among the sources it scans."""
     assert name in MODULES
     path = PORT.parent.joinpath(*name.split(".")).with_suffix(".py")
+    if not path.exists():                       # a package: its __init__
+        path = path.with_suffix("") / "__init__.py"
     assert path in SOURCES
 
 
