@@ -33,8 +33,15 @@ Table IV's and fig 4's MapReduce cases; then fedlearn again on the card
 under the sim plane's virtual clock (``SimHarness``), clean and with a
 node lost mid-round, its trace equal to the CPU run's byte for byte, and
 the sim plane's host checks (chaos and serve campaigns, the chaos corpus,
-the analysis CLI's gates).  Each phase prints one JSON line;
-any failed check ends the run with a nonzero exit.
+the analysis CLI's gates); then ``autotune``: the autotuner sweeps every
+flash kv tile and SSD chunk tile the kernels are built for at the model
+paths' shapes into a fresh cache, each tile held to the plain version,
+and ``ops.flash_attention`` / ``ops.ssd_scan`` launch the persisted
+winner; last ``roofline``: granite-3-2b's train step, prefill and decode
+step and mamba2-780m's prefill, each counted once by the port's roofline
+counter (FLOPs, bytes, the kernels credited per launch) and read against
+the H100's peaks with the phases' measured times (``mfu``).  Each phase
+prints one JSON line; any failed check ends the run with a nonzero exit.
 The line before the last is the kernel table
 (``{"kernels": [...]}``), the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -66,9 +73,10 @@ from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside them, HBM
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
-PEAK_BYTES_S = 3.35e12
+# the H100's peaks are repro_torch.launch.mesh's; the kernels' bounds (FLOPs
+# and bytes a call needs, over those peaks) are repro_torch.roofline.cost's
+# attention_bound, attention_bwd_bound and ssd_bound, which the roofline
+# counter credits each launch with
 
 # kernel vs plain tolerances, as tests/test_kernels.py holds the Pallas kernels
 # (allclose with rtol = atol = tol, i.e. max |out - ref| / (1 + |ref|) <= tol)
@@ -252,27 +260,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b: int, s: int, sk: int, h: int, kv: int, dk: int, dv: int, dtype,
-                    causal: bool, window: int) -> tuple[float, str, float, float]:
-    """(bound ms, bound_by, flops, bytes) for the unmasked pairs this input
-    has: S queries over Sk keys, q/k head dim dk, v (and o) head dim dv."""
-    pairs = 0
-    for q in range(s):
-        lo = max(0, q - window + 1) if window else 0
-        hi = min(q + 1, sk) if causal else sk
-        pairs += max(hi - lo, 0)
-    flops = 2.0 * b * h * (dk + dv) * pairs           # q.k and p.v, 2 FLOPs per MAC
-    es = 2 if dtype == "torch.bfloat16" else 4
-    nbytes = float(es * (b * s * h * (dk + dv) + b * sk * kv * (dk + dv)))   # q, o, k, v
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / PEAK_BYTES_S
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
-            flops, nbytes)
-
-
 def phase_kernel_cases(seed: int) -> list[dict]:
     from repro_torch.kernels.ops import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.roofline.cost import attention_bound
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cases = [  # (name, B, S, Sk, H, KV, D, Dv, dtype, causal, window)
@@ -350,39 +341,12 @@ def phase_kernel_cases(seed: int) -> list[dict]:
     return results
 
 
-def ssd_bound(b: int, l: int, h: int, p: int, n: int, q: int, dtype,
-              a_dtype) -> tuple[float, str, float, float]:
-    """(bound ms, bound_by, flops, bytes) of one SSD scan on these inputs.
-
-    FLOPs count what the function needs, 2 per MAC, chunk by chunk (the
-    last one may be short): C B^T on the causal pairs only, once per
-    (batch, chunk) since all heads share one B/C group; per head the
-    decay tile times x dt on the same pairs (P MACs a pair), C . state
-    (P N MACs a step; none in the first chunk, whose carried state is zero)
-    and the state update (P N MACs a step).  Bytes: x, dt, a, b, c read
-    once, y and the final state written once."""
-    pairs = steps = carried = 0
-    for l0 in range(0, l, q):
-        qc = min(q, l - l0)
-        pairs += qc * (qc + 1) // 2
-        steps += qc
-        carried += qc if l0 else 0
-    flops = 2.0 * b * (pairs * n + h * (pairs * p + (carried + steps) * p * n))
-    es = 2 if dtype == "torch.bfloat16" else 4
-    a_es = 2 if a_dtype == "torch.bfloat16" else 4
-    nbytes = float(es * (2 * b * l * h * p + 2 * b * l * n + b * l * h + b * h * p * n)
-                   + a_es * h)
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / PEAK_BYTES_S
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
-            flops, nbytes)
-
-
 def phase_ssd_cases(seed: int) -> list[dict]:
     """The SSD kernel against ssd_ref at mamba2-780m's head shape (P 64,
     N 128, 48 heads), inputs drawn as tests/test_kernels.py draws them."""
     from repro_torch.kernels.ops import ssd_scan
     from repro_torch.kernels.ref import ssd_ref
+    from repro_torch.roofline.cost import ssd_bound
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cases = [  # (name, B, L, H, Q, dtype); chunk64 reuses mamba2_prefill's inputs
@@ -513,39 +477,20 @@ def _rel_rows(a, b):
     return (a - b).norm(dim=-1) / b.norm(dim=-1)
 
 
-def _path_logits(params, cfg, ids, s: int, steps: int, *, enc=None, state_dtype=None,
-                 timed: bool = True) -> dict:
-    """Prefill ``ids[:, :s]``, teacher-force ``steps`` decode steps, and
-    run the forward over all ``s + steps`` tokens; returns both sets of
-    logits at positions s-1 .. s+steps-1 with (if ``timed``) the timings
-    and device profiles.  ``ids`` are token ids (B, S), or an ``embeds``
-    model's embeddings (B, S, d).  ``enc`` is an enc-dec model's encoder
-    frames (B, Se, d), fed to the prefill and the forward.  ``state_dtype``
-    recasts the SSD state that the prefill hands to decode."""
-    from repro_torch.distributed.step import build_prefill_step, build_serve_step
-    from repro_torch.models import cache_defs, forward_train, materialize
-    from repro_torch.models.model import _logits
-    from repro_torch.models.spec import tree_map
+def decode_cache(cfg, pcache, b: int, length: int, state_dtype=None):
+    """The decode cache of ``length`` positions that a prefill's cache
+    ``pcache`` hands on.  An attention (or MLA latent) cache of the
+    prompt's length has no free slot: it is copied into a longer one; a
+    sliding window's ring buffer (min(window, s) wide) goes to the front of
+    one min(window, length) wide; an SSD or RG-LRU prefill cache (conv and
+    state) is the decode cache, and so is an enc-dec model's cross memory
+    (the encoder's length).  ``state_dtype`` recasts the SSD state."""
+    from repro_torch.models import cache_defs, materialize
+    from repro_torch.models.spec import tree_leaves, tree_map
 
-    b = ids.shape[0]
-    key = "embeds" if cfg.input_kind == "embeds" else "inputs"
-    prefill, serve_step = build_prefill_step(cfg), build_serve_step(cfg)
-    frames = {} if enc is None else {"enc_embeds": enc}
-    prompt = {key: ids[:, :s], **frames}
-    torch.cuda.synchronize()
-    zero_counts()
-    t0 = time.perf_counter()
-    logits, pcache = prefill(params, prompt)
-    torch.cuda.synchronize()
-    first_prefill_ms = (time.perf_counter() - t0) * 1e3
-    prefill_launches = launch_counts()
-    # an attention (or MLA latent) cache of length s has no free slot: copy
-    # it into a longer one; a sliding window's ring buffer (min(window, s)
-    # wide) goes to the front of one min(window, s + steps) wide; an SSD or
-    # RG-LRU prefill cache (conv and state) is the decode cache, and so is
-    # an enc-dec model's cross memory (the encoder's length, not s)
+    device = next(t.device for t in tree_leaves(pcache) if isinstance(t, torch.Tensor))
     cache = tree_map(lambda t: t.to(cfg.cdtype) if t.is_floating_point() else t,
-                     materialize(cache_defs(cfg, b, s + steps), 0, "cuda"))
+                     materialize(cache_defs(cfg, b, length), 0, device))
     for dst, src in zip(cache["segments"], pcache["segments"]):
         for u in dst:
             if "ssd" in dst[u]:
@@ -561,6 +506,35 @@ def _path_logits(params, cfg, ids, s: int, steps: int, *, enc=None, state_dtype=
                 (dst_leaf[:, :, :leaf.shape[2]] if name != "len" else dst_leaf).copy_(leaf)
             if "cross" in dst[u]:
                 dst[u]["cross"] = src[u]["cross"]
+    return cache
+
+
+def _path_logits(params, cfg, ids, s: int, steps: int, *, enc=None, state_dtype=None,
+                 timed: bool = True) -> dict:
+    """Prefill ``ids[:, :s]``, teacher-force ``steps`` decode steps, and
+    run the forward over all ``s + steps`` tokens; returns both sets of
+    logits at positions s-1 .. s+steps-1 with (if ``timed``) the timings
+    and device profiles.  ``ids`` are token ids (B, S), or an ``embeds``
+    model's embeddings (B, S, d).  ``enc`` is an enc-dec model's encoder
+    frames (B, Se, d), fed to the prefill and the forward.  ``state_dtype``
+    recasts the SSD state that the prefill hands to decode."""
+    from repro_torch.distributed.step import build_prefill_step, build_serve_step
+    from repro_torch.models import forward_train
+    from repro_torch.models.model import _logits
+
+    b = ids.shape[0]
+    key = "embeds" if cfg.input_kind == "embeds" else "inputs"
+    prefill, serve_step = build_prefill_step(cfg), build_serve_step(cfg)
+    frames = {} if enc is None else {"enc_embeds": enc}
+    prompt = {key: ids[:, :s], **frames}
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, pcache = prefill(params, prompt)
+    torch.cuda.synchronize()
+    first_prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = launch_counts()
+    cache = decode_cache(cfg, pcache, b, s + steps, state_dtype)
     del pcache
     dec, step_ms = [logits[:, 0]], []
     for t in range(steps):
@@ -840,6 +814,8 @@ def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
     check(bf["prefill_launches"] == want,
           f"{arch}: prefill launched {bf['prefill_launches']}, expected {want}")
     check(bf["launches"] == want, f"{arch}: decode launched a kernel: {bf['launches']}")
+    if arch in ROOFLINE_PREFILL:
+        count_serving_paths(arch, params, cfg, ids, s, steps, bf)
     depth1 = ssd_state_readings(params, cfg, ids, s, steps) if cfg.ssm else None
     moe_out = {}
     bf_cmp = bf
@@ -959,6 +935,258 @@ def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
     return bf["launches"]
 
 
+# the paths the roofline phase reads: granite-3-2b's prefill and decode step
+# and mamba2-780m's prefill (counted in phase_prefill_decode), and granite's
+# train step (counted in phase_train_step); each runs once, untimed, under
+# the port's roofline counter, beside the timed runs whose ms it is read with
+ROOFLINE_PREFILL = ("granite_3_2b", "mamba2_780m")
+ROOFLINE_DECODE = ("granite_3_2b",)
+ROOFLINE_RUNS: dict[str, dict] = {}
+
+
+def count_serving_paths(arch: str, params, cfg, ids, s: int, steps: int, bf: dict) -> None:
+    """One prefill (and for ROOFLINE_DECODE one decode step on its cache)
+    under the roofline counter, with the timed runs' prefill and decode ms."""
+    from repro_torch.distributed.step import build_prefill_step, build_serve_step
+    from repro_torch.roofline import count_step
+    from repro_torch.roofline.cost import attention_bound, ssd_bound
+
+    b = ids.shape[0]
+    key = "embeds" if cfg.input_kind == "embeds" else "inputs"
+    hd = cfg.resolved_head_dim
+    per_launch = {}
+    if cfg.ssm:
+        h, p = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim
+        per_launch["ssd_scan"] = ssd_bound(b, s, h, p, cfg.ssm.d_state, min(cfg.ssm.chunk, s),
+                                           "torch.bfloat16", "torch.bfloat16")[2]
+    else:
+        per_launch["flash_attention"] = attention_bound(b, s, s, cfg.n_heads, cfg.n_kv_heads, hd,
+                                                        hd, "torch.bfloat16", True, 0)[2]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    (_, pcache), cost = count_step(build_prefill_step(cfg), params, {key: ids[:, :s]})
+    ROOFLINE_RUNS[f"{arch} prefill"] = dict(
+        cfg=cfg, cost=cost, ms=bf["prefill_ms"], kind="serve", batch=b, seq=s, tokens=b * s,
+        expected=expected_launches(cfg), per_launch=per_launch, peak_gb=peak_gb)
+    if arch in ROOFLINE_DECODE:
+        cache = decode_cache(cfg, pcache, b, s + steps)
+        _, cost = count_step(build_serve_step(cfg), params, cache, {key: ids[:, s:s + 1]})
+        ROOFLINE_RUNS[f"{arch} decode_step"] = dict(
+            cfg=cfg, cost=cost, ms=statistics.median(bf["step_ms"]), kind="serve", batch=b,
+            seq=1, tokens=b, expected={k: 0 for k in launch_counts()}, per_launch={},
+            peak_gb=peak_gb)
+        del cache
+    del pcache
+
+
+def phase_roofline() -> None:
+    """Each counted path read against the H100's roofline: FLOPs and bytes
+    (aten ops plus the kernels' per-launch credits), the compute and memory
+    terms, the dominant one, model FLOPs (6 N D train, 2 N D serve), their
+    share of the counted FLOPs (useful_ratio), the roofline fraction and,
+    with the path's measured time, mfu = model_flops / (989 TFLOP/s x s)."""
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    from repro_torch.models import param_defs
+    from repro_torch.roofline import analyze, mfu
+
+    want_paths = {f"{a} prefill" for a in ROOFLINE_PREFILL} | {
+        f"{a} decode_step" for a in ROOFLINE_DECODE} | {"granite_3_2b train_step"}
+    check(set(ROOFLINE_RUNS) == want_paths,
+          f"roofline: counted paths {sorted(ROOFLINE_RUNS)}, expected {sorted(want_paths)}")
+    for path, run in ROOFLINE_RUNS.items():
+        cfg, cost = run["cfg"], run["cost"]
+        defs = param_defs(cfg)
+        rep = analyze(arch=cfg.name, shape=f"b{run['batch']}_s{run['seq']}", mesh_name="single",
+                      chips=1, cost=cost, cfg=cfg, defs=defs, kind=run["kind"],
+                      tokens=run["tokens"], per_device_hbm_bytes=run["peak_gb"] * 1e9)
+        secs = run["ms"] / 1e3
+        launches = {k: cost.kernel_launches.get(k, 0) for k in run["expected"]}
+        credited = {k: {"launches": launches[k], "flops": cost.kernel_flops.get(k, 0.0),
+                        "per_launch_flops": f, "bytes": cost.kernel_bytes.get(k, 0.0)}
+                    for k, f in run["per_launch"].items()}
+        # the prefill applies the (tied) head to the last position only, so
+        # its counted FLOPs may fall short of 2 N D by the other positions' head
+        head_skipped = (2.0 * cfg.vocab_size * cfg.d_model * run["batch"] * (run["seq"] - 1)
+                        if path.endswith("prefill") else 0.0)
+        row = {"path": path, "config": cfg.name, "layers": cfg.n_layers,
+               "batch": run["batch"], "seq": run["seq"], **rep.row(),
+               "flops": rep.hlo_flops, "bytes": rep.hlo_bytes, "model_flops": rep.model_flops,
+               "aten_flops": cost.aten_flops, "aten_bytes": cost.aten_bytes,
+               "attn_score_bytes": cost.attn_score_bytes, "coll": dict(cost.coll),
+               "compute_s": rep.compute_s, "memory_s": rep.memory_s,
+               "collective_s": rep.collective_s, "useful_ratio": rep.useful_ratio,
+               "roofline_fraction": rep.roofline_fraction, "head_skipped_flops": head_skipped,
+               "measured_ms": run["ms"], "mfu": mfu(rep.model_flops, secs),
+               "bound_ms": max(rep.compute_s, rep.memory_s, rep.collective_s) * 1e3,
+               "achieved_tflops": rep.hlo_flops / secs / 1e12,
+               "achieved_tb_s": rep.hlo_bytes / secs / 1e12,
+               "peak_flops_bf16": PEAK_FLOPS_BF16, "kernel_launches": launches,
+               "expected_launches": run["expected"], "kernels": credited}
+        row["bound_frac"] = row["bound_ms"] / run["ms"]
+        emit("roofline", **row)
+        check(launches == run["expected"],
+              f"roofline {path}: the counter credited {launches} launches, expected "
+              f"{run['expected']}")
+        for k, c in credited.items():
+            check(math.isclose(c["flops"], c["launches"] * c["per_launch_flops"], rel_tol=1e-9),
+                  f"roofline {path}: {k} credited {c['flops']} FLOPs, not {c['launches']} "
+                  f"launches x {c['per_launch_flops']}")
+        check(all(math.isfinite(row[k]) for k in ("flops", "bytes", "mfu", "useful_ratio"))
+              and rep.hlo_flops > 0 and rep.hlo_bytes > 0 and rep.coll_bytes == 0,
+              f"roofline {path}: counted flops {rep.hlo_flops}, bytes {rep.hlo_bytes}, "
+              f"collective bytes {rep.coll_bytes}")
+        if path.endswith("prefill"):
+            check(0 < rep.useful_ratio and rep.hlo_flops >= rep.model_flops - head_skipped,
+                  f"roofline {path}: counted {rep.hlo_flops} FLOPs, below model FLOPs "
+                  f"{rep.model_flops} less the skipped head {head_skipped}")
+        else:
+            check(0 < rep.useful_ratio <= 1,
+                  f"roofline {path}: useful_ratio {rep.useful_ratio} not in (0, 1]")
+
+
+# the autotune phase's sweeps: the flash forward at the model paths' shapes
+# (phase_kernel_cases' cases; every (head dims, kv tile) instantiation among
+# them), the SSD kernel at mamba2-780m's prefill (P 64, N 128, 48 heads)
+AUTOTUNE_FLASH = [  # (case, B, S, H, KV, D, Dv, window), bf16, causal
+    ("granite_prefill", 4, 1024, 32, 8, 64, 64, 0),
+    ("d128", 4, 1024, 32, 8, 128, 128, 0),
+    ("minitron_prefill", 4, 1024, 32, 32, 128, 128, 0),
+    ("llava_prefill", 4, 1024, 64, 64, 128, 128, 0),
+    ("deepseek_v3_mla", 4, 1024, 128, 128, 192, 128, 0),
+    ("recurrentgemma_prefill", 4, 2560, 16, 1, 256, 256, 2048),
+]
+AUTOTUNE_SSD = ("mamba2_prefill", 4, 1024, 48, 64, 128)   # (case, B, L, H, P, N)
+
+
+def phase_autotune(seed: int) -> tuple[list[dict], dict[str, int]]:
+    """The autotuner on the card into a fresh cache directory: every kv tile
+    of the flash forward at AUTOTUNE_FLASH's shapes and every bf16 chunk
+    tile of the SSD kernel at AUTOTUNE_SSD's, each held to the plain version
+    at the kernel cases' limits, swept (µs per tile, the default's µs, the
+    winner) and persisted; then ops.flash_attention and ops.ssd_scan with no
+    tile named launch the persisted winners.  Returns a row per tile and the
+    launches of those two consulting calls."""
+    import tempfile
+
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.flash_attention import KV_TILES, flash_attention_cuda
+    from repro_torch.kernels.ops import flash_attention, ssd_scan
+    from repro_torch.kernels.ref import flash_attention_ref, ssd_ref
+    from repro_torch.kernels.ssd_scan import CHUNKS, ssd_scan_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    env = "REPRO_TORCH_AUTOTUNE_CACHE"
+    before = os.environ.get(env)
+    tiles, winners = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ[env] = tmp
+        try:
+            cache = autotune.default_cache()
+            check(len(cache) == 0 and cache.directory == Path(tmp),
+                  f"autotune: the cache at {cache.directory} is not fresh")
+            tol = TOL["torch.bfloat16"]
+            for case, b, s, h, kv, d, dv, window in AUTOTUNE_FLASH:
+                q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+                k = torch.randn(b, s, kv, d, generator=gen, device="cuda").to(torch.bfloat16)
+                v = torch.randn(b, s, kv, dv, generator=gen, device="cuda").to(torch.bfloat16)
+                ref = flash_attention_ref(q, k, v, causal=True, window=window)
+                rows = {}
+                for tile in KV_TILES[(d, dv)]:
+                    out = flash_attention_cuda(q, k, v, causal=True, window=window, kv_tile=tile)
+                    torch.cuda.synchronize()
+                    err = scaled_err(out, ref)
+                    rows[tile] = {"kernel": "flash_attention", "case": case, "head_dims": [d, dv],
+                                  "kv_tile": tile,
+                                  "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+                                  "max_scaled_err": err, "tol": tol,
+                                  "finite": bool(torch.isfinite(out.float()).all())}
+                    check(err <= tol and rows[tile]["finite"],
+                          f"autotune {case}: kv tile {tile}: max |out - ref| / (1 + |ref|) = "
+                          f"{err} > {tol}")
+                res = autotune.autotune_flash_attention(q, k, v, causal=True, window=window,
+                                                        cache=cache)
+                for r in res.sweep:
+                    rows[r["blocks"]["kv_tile"]]["us"] = r["us"]
+                tiles += rows.values()
+                winners[case] = res.blocks
+                emit("autotune", kernel="flash_attention", case=case,
+                     shape=[b, s, h, kv, d], dv=dv, window=window, sweep=res.sweep,
+                     default_us=res.default_us, winner=res.blocks, us=res.us,
+                     speedup=res.speedup, tiles=list(rows.values()))
+                check(all(r["agrees"] for r in res.sweep),
+                      f"autotune {case}: a tile disagrees with the default: {res.sweep}")
+                if case == "granite_prefill":
+                    granite = (q, k, v, ref, res.blocks["kv_tile"])
+                del q, k, v, ref
+            case, b, l, h, p, n = AUTOTUNE_SSD
+            x = torch.randn(b, l, h, p, generator=gen, device="cuda").to(torch.bfloat16)
+            dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda")).to(torch.bfloat16)
+            a = (-torch.exp(0.3 * torch.randn(h, generator=gen, device="cuda"))).to(
+                torch.bfloat16)
+            bm = torch.randn(b, l, n, generator=gen, device="cuda").to(torch.bfloat16)
+            cm = torch.randn(b, l, n, generator=gen, device="cuda").to(torch.bfloat16)
+            ref_y, ref_st = ssd_ref(x, dt, a, bm, cm)
+            rows, tol = {}, SSD_TOL["torch.bfloat16"]
+            for chunk in CHUNKS[torch.bfloat16]:
+                y, st = ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk)
+                torch.cuda.synchronize()
+                err = max(scaled_err(y, ref_y), scaled_err(st, ref_st))
+                rows[chunk] = {"kernel": "ssd_scan", "case": case, "chunk": chunk,
+                               "max_abs_err": max((y.float() - ref_y.float()).abs().max().item(),
+                                                  (st.float() - ref_st.float()).abs().max().item()),
+                               "max_scaled_err": err, "tol": tol,
+                               "finite": bool(torch.isfinite(y.float()).all()
+                                              and torch.isfinite(st.float()).all())}
+                check(err <= tol and rows[chunk]["finite"],
+                      f"autotune {case}: chunk {chunk}: max scaled error {err} > {tol}")
+            res = autotune.autotune_ssd_scan(x, dt, a, bm, cm, cache=cache)
+            for r in res.sweep:
+                rows[r["blocks"]["chunk"]]["us"] = r["us"]
+            tiles += rows.values()
+            winners[case] = res.blocks
+            emit("autotune", kernel="ssd_scan", case=case, shape=[b, l, h, p, n],
+                 sweep=res.sweep, default_us=res.default_us, winner=res.blocks, us=res.us,
+                 speedup=res.speedup, tiles=list(rows.values()))
+            check(all(r["agrees"] for r in res.sweep),
+                  f"autotune {case}: a chunk disagrees with the default: {res.sweep}")
+            # the winners are on disk, and the entry points launch them when
+            # the caller names no tile
+            disk = autotune.AutotuneCache(tmp)
+            check(len(disk) == len(winners), f"autotune: {len(disk)} entries persisted, "
+                  f"{len(winners)} sweeps")
+            q, k, v, ref, tile = granite
+            check(autotune.tuned_flash_tile(q, k, v, causal=True, window=0) == tile,
+                  "autotune: the consultation path does not resolve to granite's winner")
+            zero_counts()
+            got = flash_attention(q, k, v, causal=True)
+            y, st = ssd_scan(x, dt, a, bm, cm)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            want = flash_attention_cuda(q, k, v, causal=True, window=0, kv_tile=tile)
+            want_y, want_st = ssd_scan_cuda(x, dt, a, bm, cm, chunk=res.blocks["chunk"])
+            consult = {"flash_kv_tile": tile, "flash_equal_to_winner": torch.equal(got, want),
+                       "flash_max_scaled_err": scaled_err(got, ref),
+                       "ssd_chunk": res.blocks["chunk"],
+                       "ssd_equal_to_winner": torch.equal(y, want_y) and torch.equal(st, want_st),
+                       "ssd_max_scaled_err": max(scaled_err(y, ref_y), scaled_err(st, ref_st)),
+                       "launches": launches}
+            emit("autotune_consult", cache_entries=len(disk), winners=winners, **consult)
+            check(consult["flash_equal_to_winner"] and consult["ssd_equal_to_winner"],
+                  f"autotune: the entry points did not launch the persisted winners: {consult}")
+            check(consult["flash_max_scaled_err"] <= TOL["torch.bfloat16"]
+                  and consult["ssd_max_scaled_err"] <= SSD_TOL["torch.bfloat16"],
+                  f"autotune: the winners' outputs are off the plain versions: {consult}")
+            check(launches == {"flash_attention": 1, "flash_attention_bwd": 0, "ssd_scan": 1},
+                  f"autotune: the consulting calls launched {launches}")
+        finally:
+            if before is None:
+                os.environ.pop(env, None)
+            else:
+                os.environ[env] = before
+    del granite, x, dt, a, bm, cm, ref_y, ref_st, got, y, st, want, want_y, want_st
+    torch.cuda.empty_cache()
+    return tiles, launches
+
+
 def card_config(arch: str):
     """The configuration an arch runs at on the card: full width, at
     CARD_DEPTH's depth where it has one."""
@@ -1018,21 +1246,6 @@ def release() -> float:
     return torch.cuda.memory_allocated() / 1e9
 
 
-def attention_bwd_bound(b: int, s: int, h: int, kv: int, d: int, dtype, causal: bool,
-                        window: int) -> tuple[float, str, float, float]:
-    """(bound ms, bound_by, flops, bytes) of the attention gradient on these
-    inputs: five products over the visible pairs (q k, dO v, P^T dO, dS k,
-    dS^T q); q, k, v, o, dO and the three gradients moved once, and lse."""
-    _, _, fwd_flops, _ = attention_bound(b, s, s, h, kv, d, d, dtype, causal, window)
-    flops = fwd_flops * 5 / 2                          # the forward's two products are 4 D a pair
-    es = 2 if dtype == "torch.bfloat16" else 4
-    nbytes = float(es * (4 * b * s * h * d + 4 * b * s * kv * d) + 4 * b * h * s)
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / PEAK_BYTES_S
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
-            flops, nbytes)
-
-
 def _sdpa_kw(s: int, causal: bool, window: int) -> dict:
     mask = None
     if window:
@@ -1047,6 +1260,7 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
     against it off."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
     from repro_torch.kernels.ref import flash_attention_lse_ref, flash_attention_ref
+    from repro_torch.roofline.cost import attention_bwd_bound
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
     cases = [  # (name, B, S, H, KV, D, dtype, causal, window)
@@ -1285,12 +1499,15 @@ def _grad_check_init(init: str, params_bf, batch, base) -> None:
 def phase_train_step(seed: int) -> dict[str, int]:
     """granite-3-2b at full width and depth through build_train_step: bf16,
     B 4, S 1024, remat; one warm-up step, then three timed steps on one
-    fixed batch.  Returns one step's kernel launches."""
+    fixed batch, and one more under the roofline counter (ROOFLINE_RUNS).
+    Returns one step's kernel launches."""
     from repro_torch.configs import get_config
     from repro_torch.data import batch_for
     from repro_torch.distributed.step import batch_to, build_train_step
     from repro_torch.models import materialize, param_defs
     from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.roofline import count_step
+    from repro_torch.roofline.cost import attention_bound, attention_bwd_bound
 
     cfg = get_config("granite_3_2b")
     b, s = 4, 1024
@@ -1321,6 +1538,15 @@ def phase_train_step(seed: int) -> dict[str, int]:
     ms = statistics.median(x["ms"] for x in steps)
     attn = [m for m, _ in cfg.block_kinds()].count("attn")
     want = {"flash_attention": 2 * attn, "flash_attention_bwd": attn, "ssd_scan": 0}
+    _, cost = count_step(step, params, opt_state, batch)
+    hd = cfg.resolved_head_dim
+    ROOFLINE_RUNS["granite_3_2b train_step"] = dict(
+        cfg=cfg, cost=cost, ms=ms, kind="train",
+        batch=b, seq=s, tokens=b * s, expected=want, peak_gb=peak_gb,
+        per_launch={"flash_attention": attention_bound(b, s, s, cfg.n_heads, cfg.n_kv_heads, hd,
+                                                       hd, "torch.bfloat16", True, 0)[2],
+                    "flash_attention_bwd": attention_bwd_bound(b, s, cfg.n_heads, cfg.n_kv_heads,
+                                                               hd, "torch.bfloat16", True, 0)[2]})
     emit("train_step", config=cfg.name, layers=cfg.n_layers, batch=b, seq=s, remat=True,
          dtype="bfloat16", warmup_step_ms=warmup_ms, step_ms=ms, tokens_per_s=b * s / ms * 1e3,
          steps=steps, peak_mem_gb=peak_gb, expected_launches=want, device_profile=prof)
@@ -1939,9 +2165,18 @@ def main() -> int:
     t0 = time.perf_counter()
     path_launches["wrath_sim (fedlearn under SimHarness)"] = phase_wrath_sim(args.seed)
     seconds["wrath_sim"] = time.perf_counter() - t0
+
+    # -- 9. the autotuner (a fresh cache), 10. the roofline of four paths ----
+    t0 = time.perf_counter()
+    tiles, path_launches["autotune (entry points consulting the cache)"] = phase_autotune(
+        args.seed)
+    seconds["autotune"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_roofline()
+    seconds["roofline"] = time.perf_counter() - t0
     emit("timing", seconds=seconds, resident_gb_after=resident)
 
-    # -- 9. the kernel table ------------------------------------------------
+    # -- 11. the kernel table -----------------------------------------------
     rows = [("flash_attention", flash_cases, "granite_prefill",
              "src/repro_torch/kernels/csrc/flash_attention.cu"),
             ("flash_attention_bwd", bwd_cases, "granite_train",
@@ -1973,6 +2208,15 @@ def main() -> int:
           f"flash cases ran head dims {head_dims}, the launcher takes {sorted(HEAD_DIMS)}")
     mla = next(c for c in flash_cases if c["case"] == "deepseek_v3_mla")
     table[0]["head_dims"] = [list(d) for d in head_dims]
+    # every tile instantiation, held to the plain version and timed by the
+    # autotuner (µs a launch)
+    for row in table:
+        row["tiles"] = [t for t in tiles if t["kernel"] == row["name"]]
+    from repro_torch.kernels.flash_attention import KV_TILES
+    built = sorted((d, dv, t) for (d, dv), ts in KV_TILES.items() for t in ts)
+    swept = sorted((*t["head_dims"], t["kv_tile"]) for t in table[0]["tiles"])
+    check(sorted(set(swept)) == built,
+          f"autotune swept flash tiles {sorted(set(swept))}, the kernel is built for {built}")
     table[0]["dk192_dv128"] = {k: mla[k] for k in (
         "case", "shape", "dv", "max_abs_err", "max_scaled_err", "tol", "ms", "plain_ms",
         "bound_ms", "bound_by", "bound_frac", "library_ms", "vs_library")}

@@ -57,7 +57,7 @@
 // are unchanged.  In bf16 the 128-key tile of D 64/128 does not fit: Q
 // is 64 KB and a K/V stage 2 x 64 KB, over the 227 KB of an SM, and the
 // O accumulator (64 x 256 fp32 a warpgroup) takes 128 registers a thread
-// on top of S.  So D 256 takes 64-key tiles (Smem<256>::WN): K/V 32 KB a
+// on top of S.  So D 256 takes 64-key tiles (Smem<256, 256, 64>): K/V 32 KB a
 // stage, two stages and Q ~193 KB at one block an SM; S = Q K^T as
 // m64n64k16 over 16 k-steps and O += P V as m64n256k16, the widest wgmma
 // N.  In fp32 one q row's q[D] and acc[D] would be 512 floats a thread,
@@ -125,32 +125,51 @@ __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
 
 // Shared memory of the bf16 kernel: Q, then STAGES K tiles (each DK / 64
 // boxes of WN rows x 128 bytes), STAGES V tiles (DV / 64 boxes each), then
-// the mbarriers.  At D 64 two stages keep a block at 80 KB, so two blocks
-// share an SM; a third stage (two blocks still fit) gained nothing.  At D
-// 256 the kv tile is 64 rows, and two stages are all that fit; so at
-// (192, 128), where a third stage would take 289 KB.
-template <int DK, int DV>
+// the mbarriers.  The kv tile WN is a template parameter (the autotuner
+// picks among the instantiations, kernels/flash_attention.py:KV_TILES);
+// the stages and the blocks an SM follow from the shared-memory budget:
+// two blocks an SM where two stages fit twice in the SM's 228 KB, else one
+// block with as many stages as fit in 227 KB, at most three.  So D 64 with
+// 128-key tiles keeps 80 KB and two blocks (a third stage, two blocks
+// still fitting, gained nothing); D 128 with 128-key tiles 224 KB, three
+// stages at one block; D 256 (64-key tiles only: 128 would not fit beside
+// Q) and (192, 128) with 128-key tiles two stages at one block.  A 64-key
+// tile halves a stage: D 64 48 KB and D 128 96 KB at two blocks an SM,
+// (192, 128) 168 KB with three stages at one.
+constexpr size_t SM_SMEM = 233472;      // 228 KB of shared memory an SM
+constexpr size_t BLOCK_SMEM = 232448;   // 227 KB a block may take
+constexpr size_t BLOCK_RESERVED = 1024; // the system's share of each resident block
+
+// bytes of a block with `stages` K/V stages (1024: alignment)
+constexpr size_t smem_bytes(int dk, int dv, int wn, int stages) {
+  return 1024 + (size_t)WM * dk * 2 + (size_t)stages * ((size_t)wn * dk * 2 + (size_t)wn * dv * 2) +
+         8 * (1 + 3 * stages);
+}
+
+template <int DK, int DV, int WN_>
 struct Smem {
-  static constexpr int WN = DK == 256 ? 64 : 128;   // kv rows per tile
-  static constexpr int STAGES = DK == 128 ? 3 : 2;
-  static constexpr int BLOCKS_PER_SM = DK == 64 ? 2 : 1;
+  static constexpr int WN = WN_;                      // kv rows per tile
+  static_assert(WN == 64 || WN == 128, "kv tiles of 64 or 128 rows");
   static constexpr uint32_t Q_BYTES = WM * DK * 2;
   static constexpr uint32_t K_BYTES = WN * DK * 2;
   static constexpr uint32_t V_BYTES = WN * DV * 2;
-  static constexpr size_t BYTES =
-      1024 + Q_BYTES + STAGES * (K_BYTES + V_BYTES) + 8 * (1 + 3 * STAGES);   // 1024: alignment
-  static_assert(BYTES <= 232448, "over the shared memory of an SM");
+  static constexpr int BLOCKS_PER_SM =
+      2 * (smem_bytes(DK, DV, WN, 2) + BLOCK_RESERVED) <= SM_SMEM ? 2 : 1;
+  static constexpr int STAGES =
+      BLOCKS_PER_SM == 2 ? 2 : (smem_bytes(DK, DV, WN, 3) <= BLOCK_SMEM ? 3 : 2);
+  static constexpr size_t BYTES = smem_bytes(DK, DV, WN, STAGES);
+  static_assert(BYTES <= BLOCK_SMEM, "over the shared memory of an SM");
 };
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma, TMA, two consumer warpgroups of 64 q rows
 // ---------------------------------------------------------------------------
-template <int DK, int DV>
-__global__ void __launch_bounds__(256, Smem<DK, DV>::BLOCKS_PER_SM)
+template <int DK, int DV, int WN_>
+__global__ void __launch_bounds__(256, Smem<DK, DV, WN_>::BLOCKS_PER_SM)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, Params p) {
-  using L = Smem<DK, DV>;
+  using L = Smem<DK, DV, WN_>;
   constexpr int STAGES = L::STAGES;
   constexpr int WN = L::WN;
   constexpr int K_BOXES = DK / BOX, V_BOXES = DV / BOX;
@@ -520,20 +539,32 @@ __global__ void __launch_bounds__(BM * PARTS) flash_fwd_f32_wide(Params p) {
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-template <int DK, int DV>
+template <int DK, int DV, int WN>
 int launch_bf16(const Params& p, const long long* layout, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   int err = encode(&tm_q, p.q, layout, WM);
-  if (!err) err = encode(&tm_k, p.k, layout + 11, Smem<DK, DV>::WN);
-  if (!err) err = encode(&tm_v, p.v, layout + 22, Smem<DK, DV>::WN);
+  if (!err) err = encode(&tm_k, p.k, layout + 11, WN);
+  if (!err) err = encode(&tm_v, p.v, layout + 22, WN);
   if (err) return err;
-  constexpr size_t smem = Smem<DK, DV>::BYTES;
-  static uint32_t opted = 0;   // a bit per device
-  err = opt_in_smem(reinterpret_cast<const void*>(flash_fwd_bf16<DK, DV>), smem, opted);
+  constexpr size_t smem = Smem<DK, DV, WN>::BYTES;
+  static uint32_t opted = 0;   // a bit per device, one variable per instantiation
+  err = opt_in_smem(reinterpret_cast<const void*>(flash_fwd_bf16<DK, DV, WN>), smem, opted);
   if (err) return err;
   const dim3 grid(p.B * p.H, (p.S + WM - 1) / WM);
-  flash_fwd_bf16<DK, DV><<<grid, 256, smem, stream>>>(tm_q, tm_k, tm_v, p);
+  flash_fwd_bf16<DK, DV, WN><<<grid, 256, smem, stream>>>(tm_q, tm_k, tm_v, p);
   return 0;
+}
+
+// the bf16 kernel at head dims (DK, DV) with a kv tile of kv_tile rows:
+// 64 or 128, and 64 alone at D 256 (kernels/flash_attention.py:KV_TILES)
+template <int DK, int DV>
+int launch_bf16_tile(const Params& p, const long long* layout, cudaStream_t stream,
+                     int kv_tile) {
+  if (kv_tile == 64) return launch_bf16<DK, DV, 64>(p, layout, stream);
+  if constexpr (DK != 256) {
+    if (kv_tile == 128) return launch_bf16<DK, DV, 128>(p, layout, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int D>
@@ -551,27 +582,29 @@ void launch_f32_wide(const Params& p, dim3 grid, cudaStream_t stream) {
 // q: (B, S, H, DK); k: (B, Sk, KV, DK); v: (B, Sk, KV, DV); o: (B, S, H, DV);
 // all contiguous, same dtype (bf16 if is_bf16 else fp32).  layout: for
 // bf16, the TMA layouts of q, k and v (11 values each); unused for fp32.
-// lse: null, or a (B, H, S) fp32 buffer for each row's logsumexp.  Returns
-// cudaGetLastError() after the launch, or a negative code from encode().
+// lse: null, or a (B, H, S) fp32 buffer for each row's logsumexp.
+// kv_tile: the bf16 kernel's kv rows a stage (its layouts' box rows for k
+// and v); unused for fp32.  Returns cudaGetLastError() after the launch, or
+// a negative code from encode().
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int S, int Sk, int H, int KV, int DK, int DV,
                                    int causal, int window, int is_bf16, void* stream,
-                                   const long long* layout, float* lse) {
+                                   const long long* layout, float* lse, int kv_tile) {
   Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)DK), lse};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((S + BM - 1) / BM, B * H);   // the fp32 kernels'
   int err = 0;
   if (DK == DV && DK == 64) {
-    if (is_bf16) err = launch_bf16<64, 64>(p, layout, st);
+    if (is_bf16) err = launch_bf16_tile<64, 64>(p, layout, st, kv_tile);
     else launch_f32<64>(p, grid, st);
   } else if (DK == DV && DK == 128) {
-    if (is_bf16) err = launch_bf16<128, 128>(p, layout, st);
+    if (is_bf16) err = launch_bf16_tile<128, 128>(p, layout, st, kv_tile);
     else launch_f32<128>(p, grid, st);
   } else if (DK == DV && DK == 256) {
-    if (is_bf16) err = launch_bf16<256, 256>(p, layout, st);
+    if (is_bf16) err = launch_bf16_tile<256, 256>(p, layout, st, kv_tile);
     else launch_f32_wide<256, 256>(p, grid, st);
   } else if (DK == 192 && DV == 128) {
-    if (is_bf16) err = launch_bf16<192, 128>(p, layout, st);
+    if (is_bf16) err = launch_bf16_tile<192, 128>(p, layout, st, kv_tile);
     else launch_f32_wide<192, 128>(p, grid, st);
   } else {
     return (int)cudaErrorInvalidValue;

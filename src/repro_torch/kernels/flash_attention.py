@@ -33,10 +33,13 @@ HEAD_DIMS = frozenset({(64, 64), (128, 128), (256, 256), (192, 128)})
 # the head dims the backward kernels take (with v's equal); D 256 and
 # (192, 128) wait in ROADMAP.md, Queue 2 item 1
 BWD_HEAD_DIMS = (64, 128)
-# the bf16 kernel's tiles (WM, Smem<DK, DV>::WN in the source): q rows per
-# block, kv rows per stage; q/k dim 256 takes kv tiles of BLOCK_KV_D256 rows
-BLOCK_Q = BLOCK_KV = 128
-BLOCK_KV_D256 = 64
+# the bf16 kernel's tiles: q rows per block (WM in the source), and by
+# head dims the kv tiles it is built for (WN, rows of K and V a pipeline
+# stage holds), the default first.  At q/k dim 256 a 128-key stage does
+# not fit beside Q in 227 KB, so only 64 rows are built there
+BLOCK_Q = 128
+KV_TILES = {(64, 64): (128, 64), (128, 128): (128, 64), (192, 128): (128, 64),
+            (256, 256): (64,)}
 # the bf16 backward's tiles (ROWS in csrc/flash_attention_bwd.cu): TMA
 # boxes of 64 rows of q, dO, k and v; its lse / Delta scratch pads S to them
 BWD_BOX_ROWS = 64
@@ -105,7 +108,8 @@ def layout_array(q_shape, q_stride, k_shape, k_stride, q_rows: int, kv_rows: int
 def _fn():
     fn = build.library("flash_attention").flash_attention_fwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 3)
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int])
         fn.restype = ctypes.c_int
     return fn
 
@@ -118,9 +122,9 @@ def _bwd_fn():
     return fn
 
 
-def block_kv(d: int) -> int:
-    """kv rows per stage of the bf16 forward kernel at q/k head dim ``d``."""
-    return BLOCK_KV_D256 if d == 256 else BLOCK_KV
+def default_kv_tile(dk: int, dv: int) -> int:
+    """The bf16 forward's kv tile at head dims (dk, dv) when none is named."""
+    return KV_TILES[(dk, dv)][0]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -149,24 +153,34 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool, window: int, return_lse: bool = False):
+                         causal: bool, window: int, return_lse: bool = False,
+                         kv_tile: int | None = None):
     """q: (B, S, H, D); k: (B, Sk, KV, D); v: (B, Sk, KV, Dv) on one CUDA
     device -> o (B, S, H, Dv), and with ``return_lse`` also each row's
-    logsumexp (B, H, S) in fp32.  (D, Dv) is one of HEAD_DIMS."""
+    logsumexp (B, H, S) in fp32.  (D, Dv) is one of HEAD_DIMS.  ``kv_tile``
+    picks the bf16 kernel's kv tile among ``KV_TILES[(D, Dv)]`` (None: the
+    default); the fp32 kernel has one tile and takes None only."""
     _check(q, k, v)
     b, s, h, d = q.shape
     sk, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
-    layout = None
+    layout, tile = None, 0
     if q.dtype == torch.bfloat16:   # the TMA layouts of q, k and v
-        layout = layout_array(q.shape, q.stride(), k.shape, k.stride(), BLOCK_Q, block_kv(d),
+        tile = default_kv_tile(d, dv) if kv_tile is None else kv_tile
+        if tile not in KV_TILES[(d, dv)]:
+            raise ValueError(f"flash_attention: kv tile {tile} at head dims ({d}, {dv}); the "
+                             f"kernel is built for {KV_TILES[(d, dv)]}")
+        layout = layout_array(q.shape, q.stride(), k.shape, k.stride(), BLOCK_Q, tile,
                               v.shape, v.stride())
+    elif kv_tile is not None:
+        raise ValueError(f"flash_attention: the {q.dtype} kernel has one tile; kv_tile "
+                         f"{kv_tile} was named")
     o = q.new_empty((b, s, h, dv))
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     b, s, sk, h, kvh, d, dv, int(causal), int(window), _DTYPES[q.dtype],
                     torch.cuda.current_stream(q.device).cuda_stream, layout,
-                    None if lse is None else lse.data_ptr())
+                    None if lse is None else lse.data_ptr(), tile)
     if err < 0:
         raise RuntimeError(f"flash_attention: TMA tensor map not encoded (code {err})")
     if err:

@@ -14,7 +14,9 @@ Continuous batching with SLO admission and autoscaling::
 ``--decode sim`` swaps the model for the deterministic simulated
 backend on a virtual clock: a minute of traffic replays byte-identically
 in milliseconds.  The model decodes on ``--device`` (default ``cuda``;
-``--device cpu`` runs it on the CPU).
+``--device cpu`` runs it on the CPU).  ``main`` first applies the
+``serve`` launch-environment profile (``launch/env_flags.py``), before
+CUDA initialises, as the reference applies its XLA flag profile.
 """
 from __future__ import annotations
 
@@ -25,11 +27,15 @@ import numpy as np
 
 from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.engine.scheduler import SCHEDULERS, make_scheduler
+from repro_torch.launch.env_flags import apply_env_flags
 from repro_torch.serve import (ReplicaAutoscaler, Request, SLOAdmissionPolicy,
                                TorchDecodeBackend, WrathServeDriver)
 
 
 def main() -> None:
+    # the launch-environment profile must be in the environment before CUDA
+    # initialises: importing torch does not initialise it, the first CUDA call does
+    apply_env_flags("serve")
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-2b",
                     help=f"one of {', '.join(a.replace('_', '-') for a in ARCH_IDS)}")

@@ -7,10 +7,13 @@ hosts with failure injection):
         --inject host_down:50:host01 --inject nan:80
 
 The model trains on ``--device`` (default ``cuda``; ``--device cpu`` runs
-it on the CPU, and without a card the default raises).  The reference's
-XLA flag profile (``apply_xla_flags``) has no counterpart yet (ROADMAP.md,
-Queue 1 item 8), and ``--ckpt-dir`` defaults to ``wrath_train`` under the
-temporary directory (``$TMPDIR``) rather than ``/tmp`` itself.
+it on the CPU, and without a card the default raises).  As the reference
+applies its XLA flag profile first, ``main`` first applies the ``train``
+launch-environment profile (``launch/env_flags.py``; it sets nothing yet:
+no variable has shown on an H100 that this launcher needs it), before
+CUDA initialises.  ``--ckpt-dir`` defaults to
+``wrath_train`` under the temporary directory (``$TMPDIR``) rather than
+``/tmp`` itself.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.engine.policies import WrathPolicy, replay
 from repro_torch.engine.scheduler import SCHEDULERS, make_scheduler
+from repro_torch.launch.env_flags import apply_env_flags
 from repro_torch.optim import OptConfig
 from repro_torch.train import TrainEvent, WrathTrainSupervisor
 
@@ -38,6 +42,9 @@ def parse_event(spec: str) -> TrainEvent:
 
 
 def main(argv: list[str] | None = None) -> None:
+    # the launch-environment profile must be in the environment before CUDA
+    # initialises: importing torch does not initialise it, the first CUDA call does
+    apply_env_flags("train")
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-2b",
                     help=f"one of {', '.join(a.replace('_', '-') for a in ARCH_IDS)}")

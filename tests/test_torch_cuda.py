@@ -432,3 +432,97 @@ def test_cuda_fedlearn_client_update_matches_cpu():
         torch.testing.assert_close(torch.from_numpy(got[k]), torch.from_numpy(want[k]),
                                    rtol=1e-5, atol=1e-5)
     assert loss == pytest.approx(fedlearn.evaluate.fn(want, device="cpu"), rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv,kv_tile", [(64, 64, 64), (64, 64, 128), (128, 128, 64),
+                                          (128, 128, 128), (192, 128, 64), (192, 128, 128),
+                                          (256, 256, 64)])
+@pytest.mark.parametrize("causal,window,s", [(True, 0, 1024), (True, 0, 1000), (True, 256, 700),
+                                             (False, 0, 300)])
+def test_cuda_every_kv_tile_matches_plain_version(d, dv, kv_tile, causal, window, s):
+    """Each (head dims, kv tile) instantiation of the bf16 forward, against
+    the plain version at the bf16 limit: full and ragged tiles, a window,
+    no mask."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    h, kv = (16, 4) if d != 256 else (8, 1)
+    q = torch.randn(2, s, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn(2, s, kv, d, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(2, s, kv, dv, generator=gen, device="cuda").to(torch.bfloat16)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window, kv_tile=kv_tile)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_a_tile_they_are_not_built_for():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    q = torch.zeros(1, 64, 4, 256, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="built for"):
+        flash_attention_cuda(q, q, q, causal=True, window=0, kv_tile=128)
+    with pytest.raises(ValueError, match="one tile"):
+        flash_attention_cuda(q.float(), q.float(), q.float(), causal=True, window=0, kv_tile=64)
+
+
+@pytest.mark.cuda
+def test_cuda_entry_points_launch_the_persisted_winner(tmp_path, monkeypatch):
+    """A sweep on the card persists its winner; ops.flash_attention and
+    ops.ssd_scan with no tile named launch it (bit for bit the launcher at
+    that tile), and the launch counts move by one each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path))
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q = torch.randn(2, 512, 16, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(2, 512, 4, 128, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    res = autotune.autotune_flash_attention(q, k, v, causal=True, repeats=2)
+    assert {r["blocks"]["kv_tile"] for r in res.sweep} == {64, 128}
+    assert all(r["agrees"] for r in res.sweep) and res.default_us > 0
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1
+    assert torch.equal(got, flash_attention_cuda(q, k, v, causal=True, window=0,
+                                                 kv_tile=res.blocks["kv_tile"]))
+    x = torch.randn(1, 512, 4, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    dt = F.softplus(torch.randn(1, 512, 4, generator=gen, device="cuda")).to(torch.bfloat16)
+    a = -torch.rand(4, generator=gen, device="cuda").to(torch.bfloat16)
+    bm, cm = (torch.randn(1, 512, 128, generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    sres = autotune.autotune_ssd_scan(x, dt, a, bm, cm, repeats=2)
+    before = ssd_scan.launches
+    y, st = ssd_scan(x, dt, a, bm, cm)
+    assert ssd_scan.launches == before + 1
+    want_y, want_st = ssd_scan_cuda(x, dt, a, bm, cm, chunk=sres.blocks["chunk"])
+    assert torch.equal(y, want_y) and torch.equal(st, want_st)
+
+
+@pytest.mark.cuda
+def test_cuda_roofline_counter_credits_each_launch():
+    """On the card the kernels launch through ctypes, which dispatch does
+    not see: the counter credits each launch (forward and backward) with
+    its formula, and the launch counts are the wrappers' own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from repro_torch.roofline import count_step
+    from repro_torch.roofline.cost import attention_bound, attention_bwd_bound
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn(2, 256, h, 64, generator=gen, device="cuda").to(torch.bfloat16)
+               .requires_grad_() for h in (8, 2, 2))
+    before = (flash_attention.launches, flash_attention.bwd_launches)
+    _, cost = count_step(lambda: flash_attention(q, k, v).float().sum().backward())
+    assert (flash_attention.launches, flash_attention.bwd_launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    assert dict(cost.kernel_launches) == {"flash_attention": 1, "flash_attention_bwd": 1}
+    assert cost.kernel_flops["flash_attention"] == attention_bound(
+        2, 256, 256, 8, 2, 64, 64, "torch.bfloat16", True, 0)[2]
+    assert cost.kernel_flops["flash_attention_bwd"] == attention_bwd_bound(
+        2, 256, 8, 2, 64, "torch.bfloat16", True, 0)[2]

@@ -22,7 +22,9 @@ PORT = REPO / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                         REPO / "tools" / "flash_ab.py",
                                         REPO / "tools" / "ssd_rounding.py",
-                                        REPO / "tools" / "decode_sensitivity.py"]
+                                        REPO / "tools" / "decode_sensitivity.py",
+                                        REPO / "tools" / "env_profile_ab.py",
+                                        REPO / "tools" / "path_ab.py"]
 MODULES = sorted(
     ".".join(p.relative_to(PORT.parent).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py"))
@@ -70,11 +72,18 @@ print(json.dumps(sorted(m for m in sys.modules
                                   "repro_torch.sim.__main__",
                                   "repro_torch.analysis",
                                   "repro_torch.analysis.event_check",
-                                  "repro_torch.analysis.__main__"])
+                                  "repro_torch.analysis.__main__",
+                                  "repro_torch.roofline",
+                                  "repro_torch.roofline.analysis",
+                                  "repro_torch.roofline.cost",
+                                  "repro_torch.kernels.autotune",
+                                  "repro_torch.launch.mesh",
+                                  "repro_torch.launch.env_flags"])
 def test_guard_covers_the_newest_modules(name):
     """The RG-LRU block, the newest configs, the engine, the apps, the sim
-    plane and the analysis plane are among the modules the guard imports
-    with jax blocked, and among the sources it scans."""
+    plane, the analysis plane, the roofline plane, the autotuner and the
+    launch plane are among the modules the guard imports with jax blocked,
+    and among the sources it scans."""
     assert name in MODULES
     path = PORT.parent.joinpath(*name.split(".")).with_suffix(".py")
     if not path.exists():                       # a package: its __init__

@@ -16,13 +16,15 @@ import torch
 from repro.kernels import flash_attention as jax_flash
 from repro.kernels.ref import attention_ref as jax_attention_ref
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (BLOCK_KV, BLOCK_KV_D256, BLOCK_Q, BWD_BOX_ROWS,
-                                                 HEAD_DIMS, block_kv, flash_attention_bwd_cuda,
+from repro_torch.kernels.flash_attention import (BLOCK_Q, BWD_BOX_ROWS, HEAD_DIMS, KV_TILES,
+                                                 default_kv_tile, flash_attention_bwd_cuda,
                                                  flash_attention_cuda, layout_array, tma_layout)
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.kernels.ref import attention_ref, flash_attention_ref
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the bf16 forward's default kv tiles: D 64 and 128 (and MLA's 192 / 128), and D 256
+BLOCK_KV, BLOCK_KV_D256 = default_kv_tile(64, 64), default_kv_tile(256, 256)
 
 
 def _qkv(b, s, h, kv, d, seed=7):
@@ -200,11 +202,15 @@ def test_build_is_keyed_by_sources():
 
 def test_kv_tile_rows_by_head_dim():
     """D 256 takes 64-row K/V boxes (two stages fit an SM); D 64 and 128
-    keep 128, and so does MLA's q/k dim 192 (with v dim 128)."""
+    default to 128, and so does MLA's q/k dim 192 (with v dim 128); each
+    of those three is also built with 64-row tiles for the autotuner."""
     assert HEAD_DIMS == {(64, 64), (128, 128), (256, 256), (192, 128)}
-    assert [block_kv(d) for d in (64, 128, 256, 192)] == [BLOCK_KV, BLOCK_KV, BLOCK_KV_D256,
-                                                           BLOCK_KV]
+    assert set(KV_TILES) == HEAD_DIMS
+    assert [default_kv_tile(d, dv) for d, dv in ((64, 64), (128, 128), (256, 256), (192, 128))
+            ] == [BLOCK_KV, BLOCK_KV, BLOCK_KV_D256, BLOCK_KV]
     assert BLOCK_KV_D256 == 64 and BLOCK_KV == 128
+    assert all(set(KV_TILES[dims]) == {128, 64} for dims in ((64, 64), (128, 128), (192, 128)))
+    assert KV_TILES[(256, 256)] == (64,)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -26,7 +26,7 @@ from repro_torch.models import spec as TS
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.distributed.step import loss_and_grads
-from repro_torch.kernels.flash_attention import BLOCK_KV, BLOCK_Q, layout_array, tma_layout
+from repro_torch.kernels.flash_attention import BLOCK_Q, default_kv_tile, layout_array, tma_layout
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.kernels.ref import flash_attention_lse_ref, flash_attention_ref
 
@@ -208,6 +208,7 @@ def test_layout_array_takes_v_narrower_than_k():
         return torch.empty(shape, device="meta").stride()
 
     q, k, v = (4, 1024, 128, 192), (4, 1024, 128, 192), (4, 1024, 128, 128)
+    BLOCK_KV = default_kv_tile(192, 128)
     arr = layout_array(q, contiguous(q), k, contiguous(k), BLOCK_Q, BLOCK_KV, v, contiguous(v))
     want = (tma_layout(q, contiguous(q), 2, BLOCK_Q).flat()
             + tma_layout(k, contiguous(k), 2, BLOCK_KV).flat()

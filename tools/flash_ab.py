@@ -17,7 +17,11 @@ forward's (o, lse) beside SDPA's backward (``*_bwd`` shapes); or
 ``repro_torch.kernels.ops.ssd_scan`` (no PyTorch call computes the SSD
 scan).  It reports the kernel's max |out - ref| / (1 + |ref|) against
 its checkout's plain version (``flash_attention_ref``, for the backward
-autograd of it in fp32, or ``ssd_ref``).  Prints one JSON line per run,
+autograd of it in fp32, or ``ssd_ref``).  The ``launch`` shape also
+reports the wrapper's host time a call (``host_us``) and, where the
+checkout has an autotune cache, the tile lookup's alone (``lookup_us``):
+each the best of seven host-clock runs of 500 calls, which filters the
+bursts of a shared host.  Prints one JSON line per run,
 then the median of each number per checkout and shape.  Needs a CUDA
 device.
 """
@@ -35,6 +39,9 @@ SHAPES = {  # flash: (B, S, H, KV, D, window): granite-3-2b's prefill, a
     "s2048": ("flash", (4, 2048, 32, 8, 64, 0)),
     "d128": ("flash", (4, 1024, 32, 8, 128, 0)),
     "window256": ("flash", (4, 1024, 32, 8, 64, 256)),
+    # one 128-key tile of one head: a kernel of a few µs, so the time a call
+    # is the wrapper's host time (checks, the tile lookup, the launch)
+    "launch": ("host", (1, 128, 1, 1, 64, 0)),
     # the same shapes through the backward: granite-3-2b's train step first
     "granite_bwd": ("flash_bwd", (4, 1024, 32, 8, 64, 0)),
     "s2048_bwd": ("flash_bwd", (4, 2048, 32, 8, 64, 0)),
@@ -92,6 +99,39 @@ def time_flash(gen, b, s, h, kv, d, window) -> dict:
             "max_scaled_err": err}
 
 
+def host_us(fn, calls: int = 500, runs: int = 7) -> float:
+    """Best of ``runs`` host-clock runs of ``calls`` calls, µs a call."""
+    import time
+    import torch
+    best = float("inf")
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls)
+    torch.cuda.synchronize()
+    return best * 1e6
+
+
+def time_host(gen, b, s, h, kv, d, window) -> dict:
+    """``time_flash`` plus the wrapper's host time a call and, where the
+    checkout consults an autotune cache, the lookup's alone."""
+    import torch
+    from repro_torch.kernels.ops import flash_attention
+
+    out = time_flash(gen, b, s, h, kv, d, window)
+    q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").bfloat16()
+               for n in (h, kv, kv))
+    out["host_us"] = host_us(lambda: flash_attention(q, k, v, causal=True, window=window))
+    try:
+        from repro_torch.kernels.autotune import tuned_flash_tile
+    except ImportError:                     # a checkout without the autotuner
+        return out
+    out["lookup_us"] = host_us(lambda: tuned_flash_tile(q, k, v, causal=True, window=window))
+    return out
+
+
 def time_flash_bwd(gen, b, s, h, kv, d, window) -> dict:
     import torch
     import torch.nn.functional as F
@@ -146,7 +186,8 @@ def worker(src: str, shapes: list[str], seed: int) -> dict:
     out = {"src": src}
     for name in shapes:
         kind, args = SHAPES[name]
-        timer = {"flash": time_flash, "flash_bwd": time_flash_bwd, "ssd": time_ssd}[kind]
+        timer = {"flash": time_flash, "flash_bwd": time_flash_bwd, "ssd": time_ssd,
+                 "host": time_host}[kind]
         out[name] = timer(gen, *args)
     return out
 
