@@ -37,10 +37,16 @@ the analysis CLI's gates); then ``autotune``: the autotuner sweeps every
 flash kv tile and SSD chunk tile the kernels are built for at the model
 paths' shapes into a fresh cache, each tile held to the plain version,
 and ``ops.flash_attention`` / ``ops.ssd_scan`` launch the persisted
-winner; last ``roofline``: granite-3-2b's train step, prefill and decode
+winner; ``roofline``: granite-3-2b's train step, prefill and decode
 step and mamba2-780m's prefill, each counted once by the port's roofline
 counter (FLOPs, bytes, the kernels credited per launch) and read against
-the H100's peaks with the phases' measured times (``mfu``).  Each phase
+the H100's peaks with the phases' measured times (``mfu``); last
+``distributed``: the distribution plane on a one-rank NCCL group and a
+(1, 1) mesh (granite's prefill and train step and mamba2's prefill under
+``activation_sharding``, each equal to the unsharded run; the
+expert-parallel MoE of olmoe-1b-7b and deepseek-v3-671b against the
+scatter dispatch; the int8 compressor on the step's gradient), then two
+meta-device dry-run cells on the host.  Each phase
 prints one JSON line; any failed check ends the run with a nonzero exit.
 The line before the last is the kernel table
 (``{"kernels": [...]}``), the last line is
@@ -1538,7 +1544,13 @@ def phase_train_step(seed: int) -> dict[str, int]:
     ms = statistics.median(x["ms"] for x in steps)
     attn = [m for m, _ in cfg.block_kinds()].count("attn")
     want = {"flash_attention": 2 * attn, "flash_attention_bwd": attn, "ssd_scan": 0}
+    # the counter's peak of what the step allocates, beside the allocator's
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     _, cost = count_step(step, params, opt_state, batch)
+    peaks = {"counted_gb": cost.peak_bytes / 1e9,
+             "allocator_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
     hd = cfg.resolved_head_dim
     ROOFLINE_RUNS["granite_3_2b train_step"] = dict(
         cfg=cfg, cost=cost, ms=ms, kind="train",
@@ -1549,7 +1561,8 @@ def phase_train_step(seed: int) -> dict[str, int]:
                                                                hd, "torch.bfloat16", True, 0)[2]})
     emit("train_step", config=cfg.name, layers=cfg.n_layers, batch=b, seq=s, remat=True,
          dtype="bfloat16", warmup_step_ms=warmup_ms, step_ms=ms, tokens_per_s=b * s / ms * 1e3,
-         steps=steps, peak_mem_gb=peak_gb, expected_launches=want, device_profile=prof)
+         steps=steps, peak_mem_gb=peak_gb, expected_launches=want, device_profile=prof,
+         count_peak=peaks)
     check(all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"]) for x in steps),
           "train_step: a loss or grad_norm is not finite")
     check(all(x["launches"] == want for x in steps),
@@ -2087,6 +2100,232 @@ def phase_wrath_sim(seed: int) -> dict[str, int]:
     return launches
 
 
+# -- the distribution plane: the port's mesh path on a one-rank NCCL group --
+DIST_REL = 1e-6          # size-1 mesh vs unsharded: the same ops on the same tensors
+DIST_MOE = {"olmoe_1b_7b": (4, 256), "deepseek_v3_671b": (4, 256)}   # (B, S) tokens
+# deepseek-v3's train_4k cell takes ~150 s on a host core: its decode_32k stands in
+DIST_CELLS = (("deepseek-v3-671b", "decode_32k", "single"), ("granite-3-2b", "decode_32k", "multi"))
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b| (0 where both are 0)."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _leaf_rels(got, want) -> tuple[float, int, int]:
+    """(the largest leaf's rel error, leaves bit-equal, leaves) of two trees."""
+    from repro_torch.models.spec import tree_leaves
+    pairs = list(zip(tree_leaves(got), tree_leaves(want)))
+    rels = [_rel(_full(g), w) for g, w in pairs]
+    equal = sum(bool(torch.equal(_full(g), w)) for g, w in pairs)
+    return max(rels), equal, len(pairs)
+
+
+def phase_distributed(seed: int) -> dict[str, dict[str, int]]:
+    """The distribution plane on the card: a one-rank NCCL group (a local
+    store, no network) and a (1, 1) ("data", "model") DeviceMesh.  Under
+    ``activation_sharding`` with the weights distributed by
+    ``distribute_params``: granite-3-2b's bf16 prefill (B 4, S 1024) and one
+    train step (``loss_and_grads`` + ``adamw_apply``, remat) at full depth,
+    and mamba2-780m's prefill, each held to the unsharded run on the same
+    weights (a size-1 mesh runs every op on the whole tensor, so they should
+    be equal bit for bit; gated at DIST_REL) with the same kernel launches;
+    the expert-parallel MoE (``moe_shard_map``) on one full-width layer of
+    olmoe-1b-7b and of deepseek-v3-671b against ``moe_scatter`` at the same
+    capacity, its two all_to_alls and all_gathers counted by CommDebugMode
+    and its gradient finite; the int8 compressor on the train step's
+    gradient; then, with the group closed, two dry-run cells on the host.
+    Returns each mesh path's kernel launches."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.distributed import (ACT_RULES, PARAM_RULES, activation_sharding,
+                                         distribute_params)
+    from repro_torch.distributed.sharding import distribute_like
+    from repro_torch.distributed.step import batch_to, loss_and_grads
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import materialize, param_defs
+    from repro_torch.models.model import prefill_forward
+    from repro_torch.models.moe import make_moe_defs, moe_scatter, moe_shard_map
+    from repro_torch.models.spec import tree_leaves, tree_map
+    from repro_torch.optim import OptConfig, adamw_apply, compress_tree, init_opt_state
+    from repro_torch.optim.adamw import opt_state_defs
+
+    cuda = torch.device("cuda", 0)
+    torch.cuda.set_device(cuda)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=cuda)
+    out: dict = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    launches: dict[str, dict[str, int]] = {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        out["mesh"] = {"shape": list(mesh.shape), "axes": list(mesh.mesh_dim_names)}
+
+        def sharded(fn, *args):
+            with activation_sharding(mesh, ACT_RULES):
+                return fn(*args)
+
+        # granite-3-2b: prefill and one train step, unsharded then on the mesh
+        cfg = get_config("granite_3_2b")
+        b, s = 4, 1024
+        defs = param_defs(cfg)
+        params = materialize(defs, seed, "cuda")
+        batch = batch_to(batch_for(cfg, b, s, 0, seed=seed), cuda)
+        zero_counts()
+        logits_u, _ = prefill_forward(params, {"inputs": batch["inputs"]}, cfg)
+        plain_prefill = launch_counts()
+        dparams = distribute_params(params, defs, PARAM_RULES, mesh)
+        dbatch = {k: distribute_like(v, ("batch", "seq"), ACT_RULES, mesh)
+                  for k, v in batch.items()}
+        zero_counts()
+        logits_s, _ = sharded(prefill_forward, dparams, {"inputs": dbatch["inputs"]}, cfg)
+        torch.cuda.synchronize()
+        launches["distributed granite_3_2b prefill"] = launch_counts()
+        rel = _rel(_full(logits_s), logits_u)
+        out["granite_prefill"] = {"rel_err": rel, "bit_equal": bool(torch.equal(
+            _full(logits_s), logits_u)), "launches": launches["distributed granite_3_2b prefill"],
+            "unsharded_launches": plain_prefill}
+        check(rel <= DIST_REL, f"distributed: granite prefill logits rel err {rel}")
+        check(launches["distributed granite_3_2b prefill"] == plain_prefill
+              and plain_prefill["flash_attention"] == cfg.n_layers,
+              f"distributed: granite prefill launches {launches} vs unsharded {plain_prefill}")
+        del logits_u, logits_s
+
+        opt_cfg = OptConfig(lr=1e-3, warmup_steps=1)
+        opt_state = init_opt_state(params, opt_cfg)
+
+        def train(p, o, bt):
+            loss, _, grads = loss_and_grads(p, bt, cfg, remat=True)
+            new_p, _, om = adamw_apply(p, grads, o, opt_cfg)
+            return loss, grads, new_p, om
+
+        zero_counts()
+        loss_u, grads_u, new_u, om_u = train(params, opt_state, batch)
+        plain_train = launch_counts()
+        del grads_u
+        dopt = distribute_params(opt_state, opt_state_defs(defs, opt_cfg), PARAM_RULES, mesh)
+        zero_counts()
+        loss_s, grads_s, new_s, om_s = sharded(train, dparams, dopt, dbatch)
+        torch.cuda.synchronize()
+        launches["distributed granite_3_2b train step"] = launch_counts()
+        want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+                "ssd_scan": 0}
+        rel_loss = _rel(_full(loss_s), loss_u)
+        rel_p, equal_p, n_p = _leaf_rels(new_s, new_u)
+        out["granite_train_step"] = {
+            "loss": loss_u.item(), "loss_rel_err": rel_loss,
+            "grad_norm": [_full(om_s["grad_norm"]).item(), om_u["grad_norm"].item()],
+            "params_rel_err": rel_p, "params_bit_equal": f"{equal_p}/{n_p}",
+            "launches": launches["distributed granite_3_2b train step"],
+            "unsharded_launches": plain_train}
+        check(rel_loss <= DIST_REL and rel_p <= DIST_REL,
+              f"distributed: granite train step loss {rel_loss} / params {rel_p} rel err")
+        check(launches["distributed granite_3_2b train step"] == plain_train == want,
+              f"distributed: train launches {launches} vs unsharded {plain_train}, want {want}")
+        del new_u, new_s, dopt, opt_state
+
+        # the int8 compressor on that step's gradient: |deq - g| <= scale / 2
+        # per element, plus the fp32 rounding of the largest value
+        local = tree_map(lambda g: g.to_local(), grads_s)
+        qs, scales, _ = compress_tree(local)
+        worst = 0.0
+        for g, q, sc in zip(tree_leaves(local), tree_leaves(qs), tree_leaves(scales)):
+            g32 = g.float()
+            slack = g32.abs().max().item() * 2.0 ** -23
+            worst = max(worst, ((q.float() * sc - g32).abs().max().item() - slack) / sc.item())
+        n = sum(g.numel() for g in tree_leaves(local))
+        out["compress"] = {"leaves": len(tree_leaves(local)), "int8_bytes": n,
+                           "fp32_bytes": 4 * n, "worst_err_over_scale": worst}
+        check(worst <= 0.5, f"distributed: int8 error {worst} of the scale, above 1/2")
+        del local, qs, grads_s, params, dparams, batch, dbatch
+        release()
+
+        # mamba2-780m: the prefill through the SSD kernel on the mesh
+        cfg = get_config("mamba2_780m")
+        defs = param_defs(cfg)
+        params = materialize(defs, seed, "cuda")
+        ids = batch_to(batch_for(cfg, b, s, 0, seed=seed), cuda)["inputs"]
+        zero_counts()
+        logits_u, _ = prefill_forward(params, {"inputs": ids}, cfg)
+        plain_m2 = launch_counts()
+        dparams = distribute_params(params, defs, PARAM_RULES, mesh)
+        zero_counts()
+        logits_s, _ = sharded(prefill_forward, dparams,
+                              {"inputs": distribute_like(ids, ("batch", "seq"), ACT_RULES, mesh)},
+                              cfg)
+        torch.cuda.synchronize()
+        launches["distributed mamba2_780m prefill"] = launch_counts()
+        rel = _rel(_full(logits_s), logits_u)
+        out["mamba2_prefill"] = {"rel_err": rel, "bit_equal": bool(torch.equal(
+            _full(logits_s), logits_u)), "launches": launches["distributed mamba2_780m prefill"]}
+        check(rel <= DIST_REL, f"distributed: mamba2 prefill logits rel err {rel}")
+        check(launches["distributed mamba2_780m prefill"] == plain_m2
+              and plain_m2["ssd_scan"] == cfg.n_layers,
+              f"distributed: mamba2 launches {launches} vs unsharded {plain_m2}")
+        del params, dparams, logits_u, logits_s
+        release()
+
+        # the expert-parallel MoE on one full-width layer
+        out["moe"] = {}
+        for arch, (mb, ms) in DIST_MOE.items():
+            cfg = get_config(arch)
+            mdefs = make_moe_defs(cfg)
+            params = materialize(mdefs, seed, "cuda")
+            x = torch.randn((mb, ms, cfg.d_model), generator=torch.Generator().manual_seed(seed)
+                            ).to(cuda, cfg.cdtype)
+            with torch.no_grad():
+                y_ref, _ = moe_scatter(params, x, cfg)
+            live = tree_map(lambda t: t.detach().requires_grad_(),
+                            distribute_params(params, mdefs, PARAM_RULES, mesh))
+            dx = distribute_like(x, ("batch", "seq", "d_model"), ACT_RULES, mesh)
+            comm = CommDebugMode()
+            with comm:
+                y, aux = sharded(moe_shard_map, live, dx, cfg)
+            counts = {str(k): v for k, v in comm.get_comm_counts().items()}
+            grads = torch.autograd.grad((_full(y).float() ** 2).mean() + _full(aux),
+                                        tree_leaves(live))
+            finite = all(bool(torch.isfinite(g.to_local()).all()) for g in grads)
+            rel = _rel(_full(y), y_ref)
+            out["moe"][arch] = {"experts": cfg.moe.n_experts, "d_model": cfg.d_model,
+                                "tokens": mb * ms, "rel_err_vs_scatter": rel,
+                                "bit_equal": bool(torch.equal(_full(y), y_ref)),
+                                "comm_counts": counts, "grads_finite": finite}
+            check(counts.get("c10d_functional.all_to_all_single", 0) == 2
+                  and counts.get("c10d_functional.all_gather_into_tensor", 0) >= 1,
+                  f"distributed: {arch} expert-parallel collectives {counts}")
+            check(rel <= DIST_REL, f"distributed: {arch} shard_map vs scatter rel err {rel}")
+            check(finite, f"distributed: {arch} expert-parallel gradient not finite")
+            del params, live, grads, y, y_ref, x, dx
+            release()
+    finally:
+        dist.destroy_process_group()
+
+    # two dry-run cells, on the host under a fake group of the mesh's ranks
+    out["dryrun"] = []
+    for arch, shape, mesh_kind in DIST_CELLS:
+        cell = run_cell(arch, shape, mesh_kind, save=False)
+        r = cell.roofline or {}
+        out["dryrun"].append({"arch": arch, "shape": shape, "mesh": mesh_kind,
+                              "status": cell.status, "seconds": cell.seconds,
+                              "per_device_hbm_gb": r.get("per_device_hbm_gb"),
+                              "dominant": r.get("dominant"),
+                              "coll_breakdown": r.get("coll_breakdown"),
+                              "error": cell.error[-300:]})
+        check(cell.status == "ok", f"distributed: dry-run {arch} {shape} {mesh_kind}: "
+              f"{cell.error[-300:]}")
+    emit("distributed", **out)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2174,9 +2413,14 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_roofline()
     seconds["roofline"] = time.perf_counter() - t0
+
+    # -- 11. the distribution plane on a one-rank mesh, two dry-run cells --
+    t0 = time.perf_counter()
+    path_launches.update(phase_distributed(args.seed))
+    seconds["distributed"] = time.perf_counter() - t0
     emit("timing", seconds=seconds, resident_gb_after=resident)
 
-    # -- 11. the kernel table -----------------------------------------------
+    # -- 12. the kernel table -----------------------------------------------
     rows = [("flash_attention", flash_cases, "granite_prefill",
              "src/repro_torch/kernels/csrc/flash_attention.cu"),
             ("flash_attention_bwd", bwd_cases, "granite_train",

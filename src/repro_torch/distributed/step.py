@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import layout_for, to_layout
 from repro_torch.models.model import decode_step, loss_fn, prefill_forward
 from repro_torch.models.spec import tree_leaves, tree_map, tree_zip_map
 from repro_torch.optim import OptConfig, adamw_apply
@@ -45,6 +46,30 @@ def batch_to(batch: dict, device: torch.device) -> dict:
                                device=device) for k, v in batch.items()}
 
 
+def microbatch(v: torch.Tensor, k: int, i: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``k``: rows [i B/k, (i+1) B/k).  Of a DTensor
+    batch whose shard holds a multiple of k rows, each rank takes that
+    slice of its own shard, so the microbatch keeps the batch's layout (its
+    rows interleave the ranks'; the step sums the gradients of all k, so it
+    computes the same update).  Otherwise the rows are gathered, sliced and
+    laid out as the context gives the microbatch's shape (the reference's
+    reshard of a microbatch too small for the batch's axes)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    rows = v.shape[0] // k
+    if not isinstance(v, DTensor):
+        return v.reshape((k, rows) + tuple(v.shape[1:]))[i]
+    local = v.to_local()
+    if local.shape[0] % k:
+        whole = to_layout(v, [Replicate()] * v.device_mesh.ndim)[i * rows:(i + 1) * rows]
+        return to_layout(whole, layout_for(tuple(whole.shape),
+                                           ("batch",) + (None,) * (v.dim() - 1)))
+    part = local.reshape((k, local.shape[0] // k) + tuple(local.shape[1:]))[i]
+    shape = (rows,) + tuple(v.shape[1:])
+    return DTensor.from_local(part, v.device_mesh, v.placements, run_check=False,
+                              shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
 def loss_and_grads(params: Any, batch: dict, cfg: ModelConfig, *, remat: bool = True,
                    ce_chunk: int = 512) -> tuple[torch.Tensor, dict, Any]:
     """``jax.value_and_grad(loss_fn, has_aux=True)``: (loss, metrics, grads),
@@ -53,7 +78,10 @@ def loss_and_grads(params: Any, batch: dict, cfg: ModelConfig, *, remat: bool = 
     live = tree_map(lambda t: t.detach().requires_grad_(), params)
     with torch.enable_grad():
         loss, metrics = loss_fn(live, batch, cfg, remat=remat, ce_chunk=ce_chunk)
-        grads = torch.autograd.grad(loss, tree_leaves(live))
+        # a leaf the loss does not read (an ``embeds`` model's token table)
+        # gets a zero gradient, as jax.grad gives it
+        grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True,
+                                    materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             _like(params, list(grads)))
 
@@ -69,8 +97,7 @@ def build_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
         if k > 1:
             gsum, lsum = None, 0.0
             for i in range(k):
-                mb = {n: v.reshape((k, v.shape[0] // k) + tuple(v.shape[1:]))[i]
-                      for n, v in batch.items()}
+                mb = {n: microbatch(v, k, i) for n, v in batch.items()}
                 loss, _, g = loss_and_grads(params, mb, cfg, **kw)
                 g = tree_map(lambda x: x.to(step_cfg.adtype), g)
                 gsum = g if gsum is None else tree_zip_map(torch.add, gsum, g)

@@ -33,7 +33,8 @@ __all__ = ["FLAG_SETS", "detect_platform", "flag_env", "merged_flags", "apply_en
 FLAG_SETS: dict[str, dict[str, dict[str, str]]] = {
     "train": {"cuda": {}, "cpu": {}},
     "serve": {"cuda": {}, "cpu": {}},
-    # the meta-device dry run (ROADMAP.md, Queue 1 item 7) needs none yet
+    # the meta-device dry run (launch/dryrun.py) runs on the host under a
+    # fake process group and reads no variable
     "dryrun": {"cuda": {}, "cpu": {}},
 }
 

@@ -6,7 +6,11 @@ this module starts no process group and no CUDA context: they build a
 ``torch.distributed.device_mesh.DeviceMesh`` under the process group the
 caller has started (``torch.distributed.init_process_group`` with its
 address, world size and rank).  :func:`elastic_mesh_shape` is the pure
-shape arithmetic of the elastic mesh, which the builder uses.
+shape arithmetic of the elastic mesh, which the builder uses.  The
+distribution plane (``distributed/sharding.py``) lays parameters,
+activations and caches out over these meshes as DTensor placements, and
+``launch/dryrun.py`` runs every architecture on them on the meta device
+under a ``fake`` process group of their rank count.
 
 Hardware constants: one NVIDIA H100 SXM5, dense rates without sparsity,
 from NVIDIA's H100 Tensor Core GPU datasheet (at the card's 700 W limit).

@@ -17,8 +17,9 @@ reference calls ``jax.lax.associative_scan``): ceil(log2 L) passes, not a
 loop over L.  The reference has no Pallas kernel here, so neither device
 has one; the scan is plain tensor code on both.  Decode is the O(1)
 update, with the carried state ``h`` kept in the activations' dtype, as
-the reference keeps it.  The reference's activation-sharding
-``constrain`` has no counterpart yet, as in ``models/layers.py``.
+the reference keeps it.  The conv input and the scan's output are
+constrained to (batch, seq, d_ff) under an activation-sharding context,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig, RGLRUCfg
-from repro_torch.models.layers import matmul
+from repro_torch.models.layers import constrain, matmul
 from repro_torch.models.spec import pdef
 
 _C = 8.0
@@ -105,6 +106,7 @@ def rglru_block_train(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                       return_state: bool = False):
     gate = _gelu(matmul(x, params["in_gate"]))
     lin = matmul(x, params["in_lin"])
+    lin = constrain(lin, ("batch", "seq", "d_ff"))
     width = params["conv_w"].shape[0]
     state = torch.zeros((x.shape[0], width - 1, lin.shape[-1]), dtype=lin.dtype,
                         device=x.device)
@@ -112,6 +114,7 @@ def rglru_block_train(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     conv = sum(xp[:, i:i + lin.shape[1]] * params["conv_w"][i][None, None]
                for i in range(width)) + params["conv_b"][None, None]
     y, h_last = _rglru_core(params, conv)
+    y = constrain(y, ("batch", "seq", "d_ff"))
     out = matmul(y * gate, params["out_proj"])
     if return_state:
         return out, {"conv": lin[:, -(width - 1):], "h": h_last.to(x.dtype)}

@@ -46,7 +46,6 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import griffin, ssm
@@ -55,6 +54,9 @@ from repro_torch.models.config import BlockKind, ModelConfig
 from repro_torch.models.layers import (
     attention_decode,
     attention_train,
+    constrain,
+    gather_fsdp,
+    logsumexp_vocab,
     make_attention_defs,
     make_ffn_defs,
     make_mla_defs,
@@ -64,11 +66,15 @@ from repro_torch.models.layers import (
     mla_train,
     rms_norm,
     swiglu,
+    take_along_vocab,
+    take_rows,
 )
 from repro_torch.models.spec import pdef, stack_defs, tree_leaves, tree_map
 
 
 ENCODER_KIND: BlockKind = ("bidir", "dense")
+#: logical axes of the residual stream between blocks
+RESIDUAL = ("batch", "seq_res", "d_model")
 
 
 def _layer(tree: Any, i: int) -> Any:
@@ -148,7 +154,7 @@ def _apply_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig,
         y = swiglu(params["ffn"], h)
     else:
         y, aux = moe_mod.moe_ffn(params["moe"], h, cfg)
-    return x + y, aux
+    return x + constrain(y, RESIDUAL), aux
 
 
 def _cross(params: dict, x: torch.Tensor, cfg: ModelConfig, enc_out: torch.Tensor | None
@@ -159,7 +165,7 @@ def _cross(params: dict, x: torch.Tensor, cfg: ModelConfig, enc_out: torch.Tenso
         return x, None
     h = rms_norm(x, params["ln_x"], cfg.norm_eps)
     out, kvs = attention_train(params["cross"], h, cfg, kv_source=enc_out, return_kv=True)
-    return x + out, kvs
+    return x + constrain(out, RESIDUAL), kvs
 
 
 def block_train(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: BlockKind, *,
@@ -178,8 +184,9 @@ def block_train(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: BlockKind
         y = ssm.ssd_block_train(params["ssd"], h, cfg)
     else:
         y = griffin.rglru_block_train(params["rglru"], h, cfg)
-    x, _ = _cross(params, x + y, cfg, enc_out)
-    return _apply_ffn(params, x, cfg, kind)
+    x, _ = _cross(params, x + constrain(y, RESIDUAL), cfg, enc_out)
+    x, aux = _apply_ffn(params, x, cfg, kind)
+    return constrain(x, RESIDUAL), aux
 
 
 def block_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
@@ -199,12 +206,12 @@ def block_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
     else:
         y, c = griffin.rglru_block_decode(params["rglru"], h, cache["rglru"], cfg)
         new_cache = {**cache, "rglru": c}
-    x = x + y
+    x = x + constrain(y, RESIDUAL)
     mem = cross_memory if cross_memory is not None else cache.get("cross")
     if mem is not None and "cross" in params:
         h = rms_norm(x, params["ln_x"], cfg.norm_eps)
         y, _ = attention_decode(params["cross"], h, {}, cfg, cross_memory=mem)
-        x = x + y
+        x = x + constrain(y, RESIDUAL)
     return _apply_ffn(params, x, cfg, kind)[0], new_cache
 
 
@@ -232,10 +239,10 @@ def block_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: BlockKi
     else:
         y, c = griffin.rglru_block_train(params["rglru"], h, cfg, return_state=True)
         entry = {"rglru": c}
-    x, cross_kv = _cross(params, x + y, cfg, enc_out)
+    x, cross_kv = _cross(params, x + constrain(y, RESIDUAL), cfg, enc_out)
     if cross_kv is not None:
         entry["cross"] = cross_kv
-    return _apply_ffn(params, x, cfg, kind)[0], entry
+    return constrain(_apply_ffn(params, x, cfg, kind)[0], RESIDUAL), entry
 
 
 # ---------------------------------------------------------------------------
@@ -346,8 +353,10 @@ def cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
 
 def embed_inputs(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     if cfg.input_kind == "embeds":
-        return batch["embeds"].to(cfg.cdtype)
-    return F.embedding(batch["inputs"], params["embed"]).to(cfg.cdtype)
+        x = batch["embeds"]
+    else:
+        x = take_rows(batch["inputs"], params["embed"])
+    return constrain(x.to(cfg.cdtype), ("batch", "seq", "d_model"))
 
 
 def _needs_grad(tree: Any) -> bool:
@@ -384,7 +393,7 @@ def _encoder_forward(params: dict, batch: dict, cfg: ModelConfig, *,
     """The encoder stack over ``batch["enc_embeds"]`` (B, Se, d): its
     normed output, the decoder's cross-attention memory."""
     enc = params["encoder"]
-    x = batch["enc_embeds"].to(cfg.cdtype)
+    x = constrain(batch["enc_embeds"].to(cfg.cdtype), ("batch", "seq", "d_model"))
     layers = _unbind_layers({"0": enc["blocks"]}, cfg.encoder_layers)
     x, _ = _run_layers(x, layers, cfg, (ENCODER_KIND,), grad=_needs_grad(params), remat=remat)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
@@ -410,17 +419,21 @@ def forward_train(params: dict, batch: dict, cfg: ModelConfig, *, remat: bool = 
 
 def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return (h @ w.to(h.dtype)).float()
+    # the positions folded into rows, as matmul folds them: a DTensor
+    # product of a 3-dim view (the prefill's last position) over a
+    # 3-dim mesh expands the weight over the batch instead
+    rows = h.reshape(-1, h.shape[-1])
+    return (rows @ gather_fsdp(w, h).to(h.dtype)).float().reshape(*h.shape[:-1], -1)
 
 
 def _ce_chunk(params: dict, h: torch.Tensor, targets: torch.Tensor,
               cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Cross entropy + z-loss for one sequence chunk; returns (sum, count)
     over the positions whose target is >= 0."""
-    logits = _logits(params, h, cfg)
-    lse = torch.logsumexp(logits, dim=-1)
+    logits = constrain(_logits(params, h, cfg), ("batch", "seq", "vocab"))
+    lse = logsumexp_vocab(logits)
     # a masked target (-1) reads any logit: its term is multiplied by 0
-    gold = torch.gather(logits, -1, targets.clamp(min=0).long()[..., None])[..., 0]
+    gold = constrain(take_along_vocab(logits, targets.clamp(min=0).long()), ("batch", "seq"))
     zloss = 1e-4 * lse ** 2
     valid = (targets >= 0).float()
     return torch.sum((lse - gold + zloss) * valid), torch.sum(valid)
@@ -466,7 +479,8 @@ def _mtp_loss(params: dict, h: torch.Tensor, batch: dict, cfg: ModelConfig) -> t
     targets = batch["targets"]
     # teacher embedding of the next token (targets shifted left by one)
     nxt = torch.cat([targets[:, 1:], targets[:, -1:]], dim=1)
-    e = F.embedding(nxt.clamp(min=0), params["embed"]).to(h.dtype)
+    e = take_rows(nxt.clamp(min=0), params["embed"]).to(h.dtype)
+    e = constrain(e, RESIDUAL)
     hn = rms_norm(h, mtp["norm_h"], cfg.norm_eps)
     en = rms_norm(e, mtp["norm_e"], cfg.norm_eps)
     hm = matmul(torch.cat([hn, en], dim=-1), mtp["proj"])
@@ -519,7 +533,7 @@ def prefill_cross_memory(params: dict, cache: dict, enc_out: torch.Tensor,
             if cross_p is not None and "cross" in entry:
                 entry["cross"] = {
                     name: torch.einsum("bsd,rdf->rbsf", enc_out,
-                                       cross_p[w].to(enc_out.dtype))
+                                       gather_fsdp(cross_p[w], enc_out).to(enc_out.dtype))
                     .reshape(repeats, b, s, kv, hd).to(entry["cross"][name].dtype)
                     for name, w in (("k", "wk"), ("v", "wv"))}
             seg_new[str(u)] = entry
@@ -539,7 +553,8 @@ def decode_step(params: dict, state: dict, batch: dict, cfg: ModelConfig
     if cfg.input_kind == "embeds" and "embeds" in batch:
         x = batch["embeds"].to(cfg.cdtype)
     else:
-        x = F.embedding(batch["inputs"], params["embed"]).to(cfg.cdtype)
+        x = take_rows(batch["inputs"], params["embed"]).to(cfg.cdtype)
+    x = constrain(x, RESIDUAL)
     cross_mem = batch.get("cross_memory")
     for seg_params, seg_cache, (unit, repeats) in zip(
             params["segments"], state["segments"], cfg.scan_segments()):

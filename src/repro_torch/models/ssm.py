@@ -9,9 +9,9 @@ the reference runs ``lax.scan``.  Decode path: the O(1) per-token state
 update, as plain tensor code (the reference has no decode kernel).
 
 Block structure (Mamba-2): in_proj -> (z, x, B, C, dt); depthwise causal
-conv over (x, B, C); SSD core; gated RMSNorm; out_proj.  The reference's
-activation-sharding ``constrain`` has no counterpart yet, as in
-``models/layers.py``.
+conv over (x, B, C); SSD core; gated RMSNorm; out_proj.  Under an
+activation-sharding context (``models/layers.py``) the scan's values are
+laid out over batch and heads and the scan runs on each rank's shard.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ops import ssd_scan as ssd_scan_kernel
 from repro_torch.models.config import ModelConfig, SSMCfg
-from repro_torch.models.layers import matmul, rms_norm
+from repro_torch.models.layers import constrain, is_dtensor, matmul, rms_norm, split_heads
 from repro_torch.models.spec import pdef
 
 
@@ -128,12 +128,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
 
     CUDA tensors go to the Hopper kernel, which takes G == 1 and no
     initial state (what the model passes); anything else raises there
-    rather than take the mirror.  Other tensors run the reference's
-    chunked op.
+    rather than take the mirror.  So do DTensors (the wrapper runs the
+    kernel, or on CPU shards its plain version, on each rank's shard) and
+    meta tensors (the dry-run's abstract evaluation).  CPU tensors run the
+    reference's chunked op.
     """
     l, g = x.shape[1], b.shape[2]
     assert l % chunk == 0, f"L={l} not divisible by chunk={chunk}"
-    if x.device.type == "cuda":
+    if x.device.type != "cpu" or is_dtensor(x):
         if g != 1 or initial_state is not None:
             raise NotImplementedError(
                 "the SSD kernel takes one B/C group and no initial state: "
@@ -183,7 +185,8 @@ def ssd_block_train(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     xin, b_in, c_in = torch.split(conv_out, [dims["d_inner"], g * n, g * n], dim=-1)
     dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None])
     a = -torch.exp(params["a_log"])
-    xh = xin.reshape(bsz, l, h, p)
+    xh = split_heads(xin, (bsz, l, h, p), ("batch", "seq", "heads", None))
+    xh = constrain(xh, ("batch", "seq", "heads", None))
     y, final_state = ssd_scan(xh, dt.to(x.dtype), a.to(x.dtype),
                               b_in.reshape(bsz, l, g, n), c_in.reshape(bsz, l, g, n),
                               chunk=min(s.chunk, l))
@@ -222,13 +225,15 @@ def ssd_block_decode(params: dict, x: torch.Tensor, cache: dict,
     bh = b_in.reshape(bsz, g, n).repeat_interleave(h // g, dim=1)          # (B,H,N)
     ch = c_in.reshape(bsz, g, n).repeat_interleave(h // g, dim=1)
     decay = torch.exp(dt * a[None]).to(x.dtype)[..., None, None]           # (B,H,1,1)
-    upd = _einsum("bhp,bhn,bh->bhpn", xh, bh, dt.to(x.dtype))
+    # broadcast products, not einsums: DTensor's sharding search over a
+    # multi-operand einsum on a 3-D mesh takes minutes
+    upd = (xh * dt.to(x.dtype)[..., None])[..., None] * bh[:, :, None, :]
     state = cache["state"]
     if torch.promote_types(state.dtype, x.dtype) == state.dtype:
         state = state.mul_(decay).add_(upd)
     else:
         state = state * decay + upd
-    y = _einsum("bhpn,bhn->bhp", state, ch)
+    y = (state * ch[:, :, None, :].to(state.dtype)).sum(-1)
     y = y + params["d_skip"].to(x.dtype)[None, :, None] * xh
     y = y.reshape(bsz, 1, dims["d_inner"])
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)

@@ -6,8 +6,9 @@ The reference parses a compiled XLA module and rolls its instructions up
 by trip count.  The port runs eagerly, so :func:`count_step` runs one
 step and counts what it dispatches:
 
-* **FLOPs** of aten ops: ``torch.utils.flop_counter.FlopCounterMode``
-  (matrix products and convolutions, forward and backward).
+* **FLOPs** of aten ops: ``torch.utils.flop_counter``'s per-op formulas
+  (matrix products and convolutions, forward and backward), applied by
+  the same dispatch mode that counts bytes.
 * **Bytes**: a ``TorchDispatchMode`` sums each op's input and output
   bytes, leaving out views and bare allocations.  In eager mode every op
   reads its inputs from and writes its outputs to HBM, so this is the
@@ -30,16 +31,34 @@ step and counts what it dispatches:
   A kernel's credited bytes are its inputs read once and its outputs
   written once; its scores never reach HBM, so it adds nothing to
   ``attn_score_bytes``.
+
+Under a mesh every count is **per device**: the mode passes each DTensor
+op on (``NotImplemented``), so it sees the ops that DTensor runs on this
+rank's local shards, and the functional collectives of its
+redistributions; the shape propagation DTensor runs on fake tensors is
+left out.  ``FlopCounterMode`` itself would see the DTensor op and count
+the whole mesh's work.  The kernels run on local shards too
+(``local_map``), so their credits are per device.
+
+* **Peak bytes**: the most bytes that storages the step allocated (its
+  activations, gradients, collective buffers and outputs, not the
+  arguments :func:`count_step` was given) held at once.  PyTorch keeps a
+  storage's Python object alive as long as the storage, so a finalizer on
+  it runs when its last holder (a view, a tensor saved for the backward)
+  lets go; the count is exact for any device, ``meta`` included, up to
+  the allocator's rounding.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import weakref
 from collections import defaultdict
 from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -180,6 +199,7 @@ class StepCost:
         default_factory=lambda: defaultdict(float))
     kernel_bytes: dict[str, float] = dataclasses.field(
         default_factory=lambda: defaultdict(float))
+    peak_bytes: int = 0
 
     @property
     def flops(self) -> float:
@@ -194,16 +214,64 @@ class StepCost:
         return sum(self.coll.values())
 
 
-class _ByteMode(TorchDispatchMode):
-    """Sums each dispatched op's input and output bytes into ``cost``."""
+class _LiveBytes:
+    """The bytes of the storages the counted ops allocated that are alive,
+    and their peak into ``cost.peak_bytes``.  ``known``: the storages that
+    were there before (the step's arguments), whose views allocate nothing."""
 
-    def __init__(self, cost: StepCost):
+    def __init__(self, cost: StepCost, known: list[torch.Tensor]):
+        self.cost = cost
+        self.seen = {id(_storage(t)) for t in known}
+        self.live = 0
+
+    def add(self, out: Any) -> None:
+        leaves, _ = tree_flatten(out)
+        for t in leaves:
+            if not isinstance(t, torch.Tensor):
+                continue
+            st = _storage(t)
+            if id(st) in self.seen:
+                continue
+            self.seen.add(id(st))
+            n = st.nbytes()
+            self.live += n
+            self.cost.peak_bytes = max(self.cost.peak_bytes, self.live)
+            weakref.finalize(st, self._free, id(st), n)
+
+    def _free(self, key: int, n: int) -> None:
+        self.live -= n
+        self.seen.discard(key)
+
+
+def _storage(t: torch.Tensor):
+    from torch.distributed.tensor import DTensor
+
+    return (t.to_local() if isinstance(t, DTensor) else t).untyped_storage()
+
+
+class _CountMode(TorchDispatchMode):
+    """Sums each dispatched local op's FLOPs and its input and output bytes
+    into ``cost``, and tracks the bytes it allocates (``live``)."""
+
+    def __init__(self, cost: StepCost, live: _LiveBytes):
         super().__init__()
         self.cost = cost
+        self.live = live
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        from torch.utils.flop_counter import flop_registry
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented                  # count the local ops it runs
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if any(issubclass(t, FakeTensor) for t in types) or isinstance(out, FakeTensor):
+            return out                             # DTensor's shape propagation
+        self.live.add(out)
+        formula = flop_registry.get(func.overloadpacket)
+        if formula is not None:
+            self.cost.aten_flops += formula(*args, **kwargs, out_val=out)
         name = func.overloadpacket.__name__
         if func.is_view or name in _ALLOCATIONS:
             return out
@@ -230,11 +298,12 @@ class _ByteMode(TorchDispatchMode):
 
 
 @contextlib.contextmanager
-def counting():
+def counting(inputs: Any = ()):
     """Count everything run inside: ``with counting() as cost: step()``.
-    One count at a time (the kernels' hook is one module global)."""
+    ``inputs``: the tensors the step starts from (a tree), which its peak
+    bytes leave out.  One count at a time (the kernels' hook is one module
+    global)."""
     from torch.distributed.tensor.debug import CommDebugMode
-    from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.kernels import ops
 
@@ -248,22 +317,23 @@ def counting():
         cost.kernel_flops[name] += flops
         cost.kernel_bytes[name] += nbytes
 
-    flop_mode, comm_mode = FlopCounterMode(display=False), CommDebugMode()
+    comm_mode = CommDebugMode()
     ops.launch_hook = credit
     try:
-        with flop_mode, comm_mode, _ByteMode(cost):
+        live = _LiveBytes(cost, [t for t in tree_flatten(inputs)[0]
+                                 if isinstance(t, torch.Tensor)])
+        with comm_mode, _CountMode(cost, live):
             yield cost
     finally:
         ops.launch_hook = None
-        cost.aten_flops = float(flop_mode.get_total_flops())
         cost.coll_counts = {str(op): n for op, n in comm_mode.get_comm_counts().items()}
 
 
 def count_step(fn: Callable[..., Any], *args: Any, **kwargs: Any) -> tuple[Any, StepCost]:
-    """Run ``fn(*args, **kwargs)`` once under :func:`counting`; on CUDA the
-    step is synchronised before the count closes.  Returns (its result,
-    its cost)."""
-    with counting() as cost:
+    """Run ``fn(*args, **kwargs)`` once under :func:`counting` (its
+    arguments are the inputs the peak bytes leave out); on CUDA the step is
+    synchronised before the count closes.  Returns (its result, its cost)."""
+    with counting((args, kwargs)) as cost:
         result = fn(*args, **kwargs)
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()

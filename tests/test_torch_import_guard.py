@@ -24,7 +24,8 @@ SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                         REPO / "tools" / "ssd_rounding.py",
                                         REPO / "tools" / "decode_sensitivity.py",
                                         REPO / "tools" / "env_profile_ab.py",
-                                        REPO / "tools" / "path_ab.py"]
+                                        REPO / "tools" / "path_ab.py",
+                                        REPO / "tools" / "dryrun_table.py"]
 MODULES = sorted(
     ".".join(p.relative_to(PORT.parent).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py"))
@@ -32,6 +33,17 @@ MODULES = sorted(
 BAD_IMPORT = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_torch)|from\s+(jax|repro)(\.|\s)(?!_torch))",
     re.MULTILINE)
+
+
+def test_distribution_slice_modules_are_guarded():
+    """The modules of the distribution slice are among those imported with
+    jax blocked, and their sources import nothing of jax or repro."""
+    new = ("repro_torch.distributed.sharding", "repro_torch.launch.shapes",
+           "repro_torch.launch.dryrun", "repro_torch.optim.compress")
+    assert set(new) <= set(MODULES)
+    for name in new:
+        src = (PORT.parent / (name.replace(".", "/") + ".py")).read_text()
+        assert not BAD_IMPORT.search(src), name
 
 
 def test_every_port_module_imports_without_jax_or_repro():

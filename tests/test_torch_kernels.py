@@ -94,10 +94,21 @@ def test_flash_matches_model_layer_path():
            1e-4)
 
 
-def test_no_silent_fallback_off_cpu():
-    q = torch.empty(1, 64, 2, 64, device="meta")
-    with pytest.raises(ValueError, match="no kernel for device"):
-        flash_attention(q, q, q)
+def test_no_silent_fallback_off_cpu(monkeypatch):
+    """Off the CPU the plain version never runs: a meta tensor (the
+    dry-run's abstract evaluation) gets an uninitialised output of the
+    kernel's shape and counts no launch."""
+    from repro_torch.kernels import ops
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(ops, "flash_attention_ref", plain)
+    q, kv = torch.empty(1, 64, 4, 64, device="meta"), torch.empty(1, 64, 2, 64, device="meta")
+    launches = flash_attention.launches
+    out = flash_attention(q, kv, kv)
+    assert out.device.type == "meta" and tuple(out.shape) == (1, 64, 4, 64)
+    assert flash_attention.launches == launches
     # the launcher itself refuses anything that is not on a CUDA device
     cpu = torch.zeros(1, 64, 2, 64)
     with pytest.raises(ValueError, match="not cuda|is on cpu"):

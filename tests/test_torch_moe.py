@@ -3,7 +3,9 @@
 olmoe-1b-7b's smoke config in fp32: JAX materializes the weights and
 ``repro_torch.bridge.params_from_numpy`` carries them across; the same
 numpy activations go into both.  Tolerance 1e-4, the reference's own
-``test_moe_scatter_matches_gshard``.
+``test_moe_scatter_matches_gshard``; the expert-parallel dispatch runs on
+two- and four-rank gloo groups and is held at 2e-4, as the reference's
+``tests/test_moe_shardmap.py``.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro.models import spec as JS
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import spec as TS
+from torch_gloo import run_group
 
 ARCH = "olmoe_1b_7b"
 TOL = 1e-4
@@ -176,18 +179,92 @@ def test_scatter_matches_gshard():
 
 
 def test_shard_map_without_process_group_is_scatter(weights, monkeypatch):
+    """Without a mesh context the expert-parallel dispatch is the scatter
+    dispatch, as the reference's is, also under a process group of more
+    than one rank: the choice follows the context, not the group's size."""
     _, tp = weights
     _, tc = _configs(dispatch="shard_map")
     x = torch.from_numpy(_x(tc.d_model))
     y, aux = TMoE.moe_ffn(tp, x, tc)
     ys, auxs = TMoE.moe_scatter(tp, x, tc)
     assert torch.equal(y, ys) and torch.equal(aux, auxs)
-    # a process group of more than one rank must not run every expert on
-    # each rank silently
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a, **k: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        TMoE.moe_ffn(tp, x, tc)
+    y2, aux2 = TMoE.moe_ffn(tp, x, tc)
+    assert torch.equal(y2, ys) and torch.equal(aux2, auxs)
+
+
+SHARD_MAP = """
+import dataclasses
+from torch.distributed.tensor.debug import CommDebugMode
+from repro_torch.configs import get_smoke_config
+from repro_torch.distributed import ACT_RULES, PARAM_RULES, activation_sharding, distribute_params
+from repro_torch.distributed.sharding import distribute_like
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import moe as TMoE
+from repro_torch.models.spec import tree_leaves, tree_map
+
+cfg = get_smoke_config("olmoe_1b_7b")
+cfg = dataclasses.replace(cfg, compute_dtype="float32", moe=dataclasses.replace(
+    cfg.moe, capacity_factor=8.0, dispatch="shard_map"))
+mesh = make_mesh(payload["mesh"], ("data", "model"), device_type="cpu")
+whole = tree_map(torch.from_numpy, payload["params"])
+params = tree_map(lambda t: t.detach().requires_grad_(),
+                  distribute_params(whole, TMoE.make_moe_defs(cfg), PARAM_RULES, mesh))
+x = distribute_like(torch.from_numpy(payload["x"]), ("batch", "seq", "d_model"), ACT_RULES,
+                    mesh).requires_grad_()
+r = torch.from_numpy(payload["r"])
+comm = CommDebugMode()
+with comm, activation_sharding(mesh, ACT_RULES):
+    y, aux = TMoE.moe_ffn(params, x, cfg)
+    loss = (y.full_tensor() * r).sum()
+leaves = tree_leaves(params) + [x]
+grads = torch.autograd.grad(loss, leaves)
+result = {"y": y.full_tensor().detach().numpy(), "aux": float(aux.full_tensor()),
+          "grads": [g.full_tensor().numpy() for g in grads],
+          "comm": {str(k): v for k, v in comm.get_comm_counts().items()}}
+# fallbacks: a decode step (one token a sequence) under the mesh, and no
+# mesh context under this multi-rank group, both run the scatter dispatch
+xd = torch.from_numpy(payload["x"][:2, :1])
+with torch.no_grad():
+    want = TMoE.moe_scatter(whole, xd, cfg)[0]
+    with activation_sharding(mesh, ACT_RULES):
+        got = TMoE.moe_ffn(params, distribute_like(xd, ("batch", "seq", "d_model"), ACT_RULES,
+                                                   mesh), cfg)[0].full_tensor()
+    result["decode_fallback"] = float((got - want).abs().max())
+    plain = TMoE.moe_ffn(whole, torch.from_numpy(payload["x"]), cfg)[0]
+    result["no_context"] = bool(torch.equal(
+        plain, TMoE.moe_scatter(whole, torch.from_numpy(payload["x"]), cfg)[0]))
+"""
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2)], ids=["model2", "data2_model2"])
+def test_shard_map_matches_gshard_on_gloo_ranks(weights, mesh):
+    """The expert-parallel dispatch over a gloo group (2 ranks: model 2; 4
+    ranks: data 2 x model 2) equals JAX's moe_gshard at capacity 8.0 on the
+    same numpy inputs at 2e-4, its gradients (params and tokens) equal the
+    port's autograd of moe_gshard, it runs two all_to_alls and the
+    all_gathers, and its fallbacks are the scatter dispatch."""
+    jp, tp = weights
+    jc, tc = _configs(capacity_factor=8.0)
+    x = np.random.default_rng(1).standard_normal((4, 16, jc.d_model)).astype(np.float32)
+    r = np.random.default_rng(2).standard_normal(x.shape).astype(np.float32)
+    y_ref, _ = JMoE.moe_gshard(jp, jnp.asarray(x), jc)
+    live = TS.tree_map(lambda t: t.detach().requires_grad_(), tp)
+    xt = torch.from_numpy(x).requires_grad_()
+    y_port, _ = TMoE.moe_gshard(live, xt, tc)
+    g_ref = torch.autograd.grad((y_port * torch.from_numpy(r)).sum(),
+                                TS.tree_leaves(live) + [xt])
+    got = run_group(mesh[0] * mesh[1], SHARD_MAP,
+                    {"mesh": mesh, "params": jax.tree.map(np.asarray, jp), "x": x, "r": r})
+    np.testing.assert_allclose(got["y"], np.asarray(y_ref), rtol=2e-4, atol=2e-4)
+    for g, want in zip(got["grads"], g_ref):
+        np.testing.assert_allclose(g, want.numpy(), rtol=2e-4, atol=2e-4)
+    assert np.isfinite(got["aux"])
+    assert got["comm"]["c10d_functional.all_to_all_single"] == 2
+    assert got["comm"]["c10d_functional.all_gather_into_tensor"] >= 2   # y and aux
+    assert got["decode_fallback"] <= 1e-5
+    assert got["no_context"]
 
 
 def test_bf16_activations_route_in_fp32(weights):

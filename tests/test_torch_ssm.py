@@ -218,12 +218,22 @@ def test_kernel_function_is_the_model_scan():
     _close(ts, js)
 
 
-def test_no_silent_fallback_off_cpu():
+def test_no_silent_fallback_off_cpu(monkeypatch):
+    """Off the CPU the plain version never runs: meta tensors (the dry-run)
+    get uninitialised outputs of the kernel's shapes and count no launch."""
+    from repro_torch.kernels import ops
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(ops, "ssd_ref", plain)
     x = torch.empty(1, 64, 2, 64, device="meta")
     dt = torch.empty(1, 64, 2, device="meta")
     bc = torch.empty(1, 64, 128, device="meta")
-    with pytest.raises(ValueError, match="no kernel for device"):
-        ssd_scan(x, dt, torch.empty(2, device="meta"), bc, bc)
+    launches = ssd_scan.launches
+    y, state = ssd_scan(x, dt, torch.empty(2, device="meta"), bc, bc)
+    assert tuple(y.shape) == (1, 64, 2, 64) and tuple(state.shape) == (1, 2, 64, 128)
+    assert y.device.type == "meta" and ssd_scan.launches == launches
     cpu = [torch.zeros(t.shape) for t in (x, dt, bc)]
     with pytest.raises(ValueError, match="is on cpu"):
         ssd_scan_cuda(cpu[0], cpu[1], torch.zeros(2), cpu[2], cpu[2], chunk=128)
