@@ -306,6 +306,14 @@ def phase_kernel_cases(seed: int) -> list[dict]:
         ("mla_ragged_s1000", 4, 1000, 1000, 128, 128, 192, 128, torch.bfloat16, True, 0),
         ("llava_prefill", 4, 1024, 1024, 64, 64, 128, 128, torch.bfloat16, True, 0),
         ("deepseek67b_prefill", 4, 1024, 1024, 64, 8, 128, 128, torch.bfloat16, True, 0),
+        # the smoke configs' head dims, which the training CLI runs at (B 2
+        # a host, S 64): D 16 (the windowed models' window of 32 too) and
+        # MLA's q/k 16 + 8 over v 16, on the SIMT kernel in both dtypes
+        ("smoke_d16", 2, 64, 64, 4, 2, 16, 16, torch.bfloat16, True, 0),
+        ("smoke_d16_window32", 2, 64, 64, 4, 1, 16, 16, torch.bfloat16, True, 32),
+        ("smoke_d16_fp32", 2, 64, 64, 4, 2, 16, 16, torch.float32, True, 0),
+        ("smoke_mla", 2, 64, 64, 4, 4, 24, 16, torch.bfloat16, True, 0),
+        ("smoke_mla_fp32", 2, 64, 64, 4, 4, 24, 16, torch.float32, True, 0),
     ]
     results = []
     for name, b, s, sk, h, kv, d, dv, dtype, causal, window in cases:
@@ -355,19 +363,22 @@ def phase_ssd_cases(seed: int) -> list[dict]:
     from repro_torch.roofline.cost import ssd_bound
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    cases = [  # (name, B, L, H, Q, dtype); chunk64 reuses mamba2_prefill's inputs
-        ("mamba2_prefill", 4, 1024, 48, 128, torch.bfloat16),
-        ("mamba2_prefill_l2048", 4, 2048, 48, 128, torch.bfloat16),
-        ("ragged_l1000", 4, 1000, 48, 128, torch.bfloat16),
-        ("chunk64", 4, 1024, 48, 64, torch.bfloat16),
-        ("fp32", 4, 1024, 48, 128, torch.float32),
+    cases = [  # (name, B, L, H, P, N, Q, dtype); chunk64 reuses mamba2_prefill's inputs
+        ("mamba2_prefill", 4, 1024, 48, 64, 128, 128, torch.bfloat16),
+        ("mamba2_prefill_l2048", 4, 2048, 48, 64, 128, 128, torch.bfloat16),
+        ("ragged_l1000", 4, 1000, 48, 64, 128, 128, torch.bfloat16),
+        ("chunk64", 4, 1024, 48, 64, 128, 64, torch.bfloat16),
+        ("fp32", 4, 1024, 48, 64, 128, 128, torch.float32),
         # x, B and C as the model passes them: views of one conv output
         # (B, L, H P + 2 N), read in place through tensor maps
-        ("model_views", 4, 1024, 48, 128, torch.bfloat16),
+        ("model_views", 4, 1024, 48, 64, 128, 128, torch.bfloat16),
+        # the smoke config's shape (8 heads of P 16, N 16, chunk 32), on the
+        # SIMT kernel in both dtypes, as the training CLI runs it
+        ("smoke", 2, 64, 8, 16, 16, 32, torch.bfloat16),
+        ("smoke_fp32", 2, 64, 8, 16, 16, 32, torch.float32),
     ]
-    p, n = 64, 128
     results, base = [], None      # base: mamba2_prefill's inputs and output
-    for name, b, l, h, q, dtype in cases:
+    for name, b, l, h, p, n, q, dtype in cases:
         if name == "chunk64":
             (x, dt, a, bm, cm), y128 = base
         elif name == "model_views":
@@ -427,6 +438,90 @@ def phase_ssd_cases(seed: int) -> list[dict]:
     return results
 
 
+def phase_ssd_bwd_cases(seed: int) -> list[dict]:
+    """The SSD backward kernel (through ``ops.ssd_scan``'s autograd, forward
+    kernel and backward kernel) against autograd of the fp32 plain forward
+    ``ssd_ref`` on the same values, each of dx, ddt, da, db, dc; two
+    launches bit for bit; its time beside the plain ``ssd_bwd_ref``'s."""
+    from repro_torch.kernels.ops import ssd_scan
+    from repro_torch.kernels.ref import ssd_bwd_ref, ssd_ref
+    from repro_torch.kernels.ssd_scan import BWD_TILES, ssd_scan_bwd_cuda
+    from repro_torch.roofline.cost import ssd_bwd_bound
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    cases = [  # (name, B, L, H, P, N, forward chunk, dtype)
+        ("mamba2_train", 4, 1024, 48, 64, 128, 128, torch.bfloat16),
+        ("chunk64", 4, 1024, 48, 64, 128, 64, torch.bfloat16),
+        ("model_views", 4, 1024, 48, 64, 128, 128, torch.bfloat16),
+        ("fp32", 2, 1024, 48, 64, 128, 128, torch.float32),
+        ("smoke", 2, 64, 8, 16, 16, 32, torch.bfloat16),
+    ]
+    names = ("dx", "ddt", "da", "db", "dc")
+    results = []
+    for name, b, l, h, p, n, q, dtype in cases:
+        dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda")).to(dtype)
+        a = (-torch.exp(0.3 * torch.randn(h, generator=gen, device="cuda"))).to(dtype)
+        if name == "model_views":
+            conv = torch.randn(b, l, h * p + 2 * n, generator=gen, device="cuda").to(dtype)
+            x = conv[..., :h * p].reshape(b, l, h, p)
+            bm, cm = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+            check(not x.is_contiguous() and not bm.is_contiguous() and not cm.is_contiguous(),
+                  "model_views: x, B and C must be views of the conv output")
+        else:
+            x = torch.randn(b, l, h, p, generator=gen, device="cuda").to(dtype)
+            bm = torch.randn(b, l, n, generator=gen, device="cuda").to(dtype)
+            cm = torch.randn(b, l, n, generator=gen, device="cuda").to(dtype)
+        dy = torch.randn(b, l, h, p, generator=gen, device="cuda").to(dtype)
+        inputs = (x, dt, a, bm, cm)
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        zero_counts()
+        y, _ = ssd_scan(*leaves, chunk=q)
+        grads = torch.autograd.grad(y, leaves, dy)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        ref_leaves = [t.detach().float().requires_grad_() for t in inputs]
+        ref_y, _ = ssd_ref(*ref_leaves)
+        ref = torch.autograd.grad(ref_y, ref_leaves, dy.float())
+        del ref_y, ref_leaves
+        tol = SSD_TOL[str(dtype)]
+        row = {"case": name, "shape": [b, l, h, p, n], "chunk": q,
+               "tile": BWD_TILES[(p, n)], "dtype": str(dtype), "tol": tol,
+               "max_scaled_err": {k: scaled_err(g, r) for k, g, r in zip(names, grads, ref)},
+               "max_abs_err": {k: (g.float() - r).abs().max().item()
+                               for k, g, r in zip(names, grads, ref)},
+               "ref_abs_max": {k: r.abs().max().item() for k, r in zip(names, ref)},
+               "finite": all(bool(torch.isfinite(g.float()).all()) for g in grads),
+               "launches": launches}
+        # determinism: the kernel twice on the same inputs gives the same bits
+
+        def bwd():
+            return ssd_scan_bwd_cuda(x, dt, a, bm, cm, dy)
+
+        first, again = bwd(), bwd()
+        torch.cuda.synchronize()
+        row["bit_equal"] = all(bool(torch.equal(u, w)) for u, w in zip(first, again))
+        row["vs_autograd_bit_equal"] = all(bool(torch.equal(u, w)) for u, w in zip(first, grads))
+        del first, again
+        row["ms"] = cuda_ms(bwd, iters=5, warmup=1)
+        row["plain_ms"] = cuda_ms(lambda: ssd_bwd_ref(x, dt, a, bm, cm, dy), iters=2, warmup=1)
+        row["library_ms"] = None   # no single PyTorch call computes the SSD scan's gradient
+        bound_ms, bound_by, flops, nbytes = ssd_bwd_bound(b, l, h, p, n, str(dtype),
+                                                          str(a.dtype), tile=BWD_TILES[(p, n)])
+        row.update(bound_ms=bound_ms, bound_by=bound_by, bound_frac=bound_ms / row["ms"],
+                   flops=flops, bytes=nbytes, tflops=flops / (row["ms"] * 1e-3) / 1e12)
+        emit("ssd_bwd_vs_plain", **row)
+        worst = max(row["max_scaled_err"].values())
+        check(worst <= tol and row["finite"],
+              f"ssd backward {name}: max |grad - ref| / (1 + |ref|) = {worst} > {tol}")
+        check(row["bit_equal"], f"ssd backward {name}: two launches differ")
+        check(launches["ssd_scan"] == 1 and launches["ssd_scan_bwd"] == 1,
+              f"ssd backward {name}: autograd launched {launches}")
+        results.append(row)
+        del x, dt, a, bm, cm, dy, leaves, y, grads, ref
+        torch.cuda.empty_cache()
+    return results
+
+
 def kernel_device_ms(fn, iters: int = 50) -> float:
     """Mean device time a call of ``fn`` spends in kernels, from
     torch.profiler (host time between launches excluded)."""
@@ -466,7 +561,8 @@ def device_profile(fn) -> dict:
 def zero_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     from repro_torch.kernels.ops import flash_attention, ssd_scan
-    flash_attention.launches = flash_attention.bwd_launches = ssd_scan.launches = 0
+    flash_attention.launches = flash_attention.bwd_launches = 0
+    ssd_scan.launches = ssd_scan.bwd_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -474,7 +570,7 @@ def launch_counts() -> dict[str, int]:
     from repro_torch.kernels.ops import flash_attention, ssd_scan
     return {"flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
-            "ssd_scan": ssd_scan.launches}
+            "ssd_scan": ssd_scan.launches, "ssd_scan_bwd": ssd_scan.bwd_launches}
 
 
 def _rel_rows(a, b):
@@ -601,7 +697,8 @@ def expected_launches(cfg) -> dict[str, int]:
     attn = mixers.count("attn") + mixers.count("swa") + mixers.count("mla")
     if cfg.encoder_layers:
         attn = cfg.encoder_layers + 2 * attn
-    return {"flash_attention": attn, "flash_attention_bwd": 0, "ssd_scan": mixers.count("ssd")}
+    return {"flash_attention": attn, "flash_attention_bwd": 0, "ssd_scan": mixers.count("ssd"),
+            "ssd_scan_bwd": 0}
 
 
 @contextlib.contextmanager
@@ -995,7 +1092,8 @@ def phase_roofline() -> None:
     from repro_torch.roofline import analyze, mfu
 
     want_paths = {f"{a} prefill" for a in ROOFLINE_PREFILL} | {
-        f"{a} decode_step" for a in ROOFLINE_DECODE} | {"granite_3_2b train_step"}
+        f"{a} decode_step" for a in ROOFLINE_DECODE} | {
+        f"{a} train_step" for a in ("granite_3_2b",) + ROOFLINE_TRAIN}
     check(set(ROOFLINE_RUNS) == want_paths,
           f"roofline: counted paths {sorted(ROOFLINE_RUNS)}, expected {sorted(want_paths)}")
     for path, run in ROOFLINE_RUNS.items():
@@ -1181,7 +1279,8 @@ def phase_autotune(seed: int) -> tuple[list[dict], dict[str, int]]:
             check(consult["flash_max_scaled_err"] <= TOL["torch.bfloat16"]
                   and consult["ssd_max_scaled_err"] <= SSD_TOL["torch.bfloat16"],
                   f"autotune: the winners' outputs are off the plain versions: {consult}")
-            check(launches == {"flash_attention": 1, "flash_attention_bwd": 0, "ssd_scan": 1},
+            check(launches == {"flash_attention": 1, "flash_attention_bwd": 0, "ssd_scan": 1,
+                               "ssd_scan_bwd": 0},
                   f"autotune: the consulting calls launched {launches}")
         finally:
             if before is None:
@@ -1260,6 +1359,24 @@ def _sdpa_kw(s: int, causal: bool, window: int) -> dict:
     return dict(attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
 
 
+def sdpa_backward(q, k, v, do, causal: bool, window: int):
+    """SDPA's forward and backward on (B, S, H, D) inputs, the backward's
+    yardstick: (grads in the model layout, a function that reruns the
+    backward), or (None, the error) where no SDPA backend takes the shape."""
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    do_t = do.transpose(1, 2)
+    try:
+        out = F.scaled_dot_product_attention(*leaves, **_sdpa_kw(q.shape[1], causal, window))
+        grads = torch.autograd.grad(out, leaves, do_t, retain_graph=True)
+    except RuntimeError as e:   # a reading: the yardstick's refusal is reported, not hidden
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+    def rerun():
+        return torch.autograd.grad(out, leaves, do_t, retain_graph=True)
+
+    return [g.transpose(1, 2) for g in grads], rerun
+
+
 def phase_flash_bwd_cases(seed: int) -> list[dict]:
     """The flash backward kernels against autograd of the plain forward in
     fp32, on the same values; and the forward with its lse output on
@@ -1269,21 +1386,36 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
     from repro_torch.roofline.cost import attention_bwd_bound
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
-    cases = [  # (name, B, S, H, KV, D, dtype, causal, window)
-        ("granite_train", 4, 1024, 32, 8, 64, torch.bfloat16, True, 0),
-        ("granite_train_s2048", 4, 2048, 32, 8, 64, torch.bfloat16, True, 0),
-        ("ragged_s100", 4, 100, 32, 8, 64, torch.bfloat16, True, 0),
-        ("window256", 4, 1024, 32, 8, 64, torch.bfloat16, True, 256),
-        ("d128", 4, 1024, 32, 8, 128, torch.bfloat16, True, 0),
-        ("fp32", 4, 1024, 32, 8, 64, torch.float32, True, 0),
-        ("fp32_d128", 2, 512, 32, 8, 128, torch.float32, True, 0),
+    cases = [  # (name, B, S, Sk, H, KV, D, Dv, dtype, causal, window)
+        ("granite_train", 4, 1024, 1024, 32, 8, 64, 64, torch.bfloat16, True, 0),
+        ("granite_train_s2048", 4, 2048, 2048, 32, 8, 64, 64, torch.bfloat16, True, 0),
+        ("ragged_s100", 4, 100, 100, 32, 8, 64, 64, torch.bfloat16, True, 0),
+        ("window256", 4, 1024, 1024, 32, 8, 64, 64, torch.bfloat16, True, 256),
+        ("d128", 4, 1024, 1024, 32, 8, 128, 128, torch.bfloat16, True, 0),
+        ("fp32", 4, 1024, 1024, 32, 8, 64, 64, torch.float32, True, 0),
+        ("fp32_d128", 2, 512, 512, 32, 8, 128, 128, torch.float32, True, 0),
+        # recurrentgemma-9b's windowed MQA layer at its training length
+        # (2560 past the 2048 window, so the mask bites), deepseek-v3's MLA
+        # (q/k 192, v 128), each also in fp32 at a smaller S; seamless's
+        # cross-attention (256 decoder rows over 1024 frames, unmasked)
+        ("recurrentgemma_train", 2, 2560, 2560, 16, 1, 256, 256, torch.bfloat16, True, 2048),
+        ("recurrentgemma_train_fp32", 2, 1024, 1024, 16, 1, 256, 256, torch.float32, True, 768),
+        ("mla_train", 2, 1024, 1024, 128, 128, 192, 128, torch.bfloat16, True, 0),
+        ("mla_train_fp32", 1, 512, 512, 128, 128, 192, 128, torch.float32, True, 0),
+        ("seamless_cross_train", 4, 256, 1024, 16, 16, 64, 64, torch.bfloat16, False, 0),
+        # the smoke configs' head dims, on the SIMT kernels in both dtypes
+        ("smoke_d16_train", 2, 64, 64, 4, 2, 16, 16, torch.bfloat16, True, 0),
+        ("smoke_d16_window32_train", 2, 64, 64, 4, 1, 16, 16, torch.bfloat16, True, 32),
+        ("smoke_d16_train_fp32", 2, 64, 64, 4, 2, 16, 16, torch.float32, True, 0),
+        ("smoke_mla_train", 2, 64, 64, 4, 4, 24, 16, torch.bfloat16, True, 0),
+        ("smoke_mla_train_fp32", 2, 64, 64, 4, 4, 24, 16, torch.float32, True, 0),
     ]
     results = []
-    for name, b, s, h, kv, d, dtype, causal, window in cases:
+    for name, b, s, sk, h, kv, d, dv, dtype, causal, window in cases:
         q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
-        k = torch.randn(b, s, kv, d, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(b, s, kv, d, generator=gen, device="cuda").to(dtype)
-        do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(b, sk, kv, d, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(b, sk, kv, dv, generator=gen, device="cuda").to(dtype)
+        do = torch.randn(b, s, h, dv, generator=gen, device="cuda").to(dtype)
         kw = dict(causal=causal, window=window)
         o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
         grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
@@ -1292,22 +1424,20 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
         ref_out = flash_attention_ref(*leaves, **kw)
         ref = torch.autograd.grad(ref_out, leaves, do.float(), retain_graph=True)
         lse_ref = flash_attention_lse_ref(q, k, v, **kw)
-        # the yardstick: SDPA's backward on the same values
-        lib_leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
-        lib_out = F.scaled_dot_product_attention(*lib_leaves, **_sdpa_kw(s, causal, window))
-        do_t = do.transpose(1, 2)
-        lib = torch.autograd.grad(lib_out, lib_leaves, do_t, retain_graph=True)
+        # the yardstick: SDPA's backward on the same values, where it takes them
+        lib, lib_bwd = sdpa_backward(q, k, v, do, causal, window)
         torch.cuda.synchronize()
         tol = BWD_TOL[str(dtype)]
         names = ("dq", "dk", "dv")
-        row = {"case": name, "shape": [b, s, h, kv, d], "dtype": str(dtype), "causal": causal,
-               "window": window, "tol": tol,
+        row = {"case": name, "shape": [b, s, h, kv, d], "dv": dv, "sk": sk, "dtype": str(dtype),
+               "causal": causal, "window": window, "tol": tol,
                "max_scaled_err": {n: scaled_err(g, r) for n, g, r in zip(names, grads, ref)},
                "max_abs_err": {n: (g.float() - r).abs().max().item()
                                for n, g, r in zip(names, grads, ref)},
                "ref_abs_max": {n: r.abs().max().item() for n, r in zip(names, ref)},
-               "library_max_scaled_err": {n: scaled_err(g.transpose(1, 2), r)
-                                          for n, g, r in zip(names, lib, ref)},
+               "library_max_scaled_err": (None if lib is None else
+                                          {n: scaled_err(g, r) for n, g, r in zip(names, lib, ref)}),
+               "library_refused": None if lib is not None else lib_bwd,
                "lse_max_abs_err": (lse - lse_ref).abs().max().item(), "lse_tol": LSE_TOL,
                "finite": all(bool(torch.isfinite(g.float()).all()) for g in grads)}
         # determinism: a second launch on the same inputs gives the same bits
@@ -1319,23 +1449,22 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
         def bwd():
             return flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
 
-        def lib_bwd():
-            return torch.autograd.grad(lib_out, lib_leaves, do_t, retain_graph=True)
-
         row["ms"] = cuda_ms(bwd)
         row["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(ref_out, leaves, do.float(),
                                                               retain_graph=True),
                                   iters=3, warmup=1)
-        row["library_ms"] = cuda_ms(lib_bwd)
         # device time from the profiler: SDPA's autograd call is paced by the
         # host at these sizes, so its event time varies from call to call
         row["device_ms"] = kernel_device_ms(bwd)
-        row["library_device_ms"] = kernel_device_ms(lib_bwd)
+        row["library_ms"] = row["library_device_ms"] = row["vs_library"] = None
+        if lib is not None:
+            row["library_ms"] = cuda_ms(lib_bwd)
+            row["library_device_ms"] = kernel_device_ms(lib_bwd)
+            row["vs_library"] = row["device_ms"] / row["library_device_ms"]
         bound_ms, bound_by, flops, nbytes = attention_bwd_bound(b, s, h, kv, d, str(dtype),
-                                                                causal, window)
+                                                                causal, window, dv=dv, sk=sk)
         row.update(bound_ms=bound_ms, bound_by=bound_by, bound_frac=bound_ms / row["ms"],
-                   vs_library=row["device_ms"] / row["library_device_ms"], flops=flops,
-                   bytes=nbytes, tflops=flops / (row["ms"] * 1e-3) / 1e12)
+                   flops=flops, bytes=nbytes, tflops=flops / (row["ms"] * 1e-3) / 1e12)
         emit("flash_bwd_vs_plain", **row)
         worst = max(row["max_scaled_err"].values())
         check(worst <= tol and row["finite"],
@@ -1344,7 +1473,7 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
         check(row["lse_max_abs_err"] <= LSE_TOL,
               f"flash forward lse {name}: max |lse - ref| = {row['lse_max_abs_err']}")
         results.append(row)
-        del q, k, v, do, o, lse, grads, leaves, ref_out, ref, lib_leaves, lib_out, lib
+        del q, k, v, do, o, lse, grads, leaves, ref_out, ref, lib, lib_bwd
         torch.cuda.empty_cache()
 
     # the forward with the lse epilogue against without, in turns (off on on off)
@@ -1380,33 +1509,76 @@ def attention_in_dtype(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True, window: int = 0) -> torch.Tensor:
     """Softmax attention computed in q's dtype (the float64 referee)."""
     b, s, h, d = q.shape
-    g = h // k.shape[2]
+    sk, g = k.shape[1], h // k.shape[2]
     k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
-    pos = torch.arange(s, device=q.device)
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    pos, kpos = torch.arange(s, device=q.device), torch.arange(sk, device=q.device)
+    mask = torch.ones((s, sk), dtype=torch.bool, device=q.device)
     if causal:
-        mask &= pos[None, :] <= pos[:, None]
+        mask &= kpos[None, :] <= pos[:, None]
     if window:
-        mask &= pos[None, :] > pos[:, None] - window
+        mask &= kpos[None, :] > pos[:, None] - window
     p = torch.softmax(scores.masked_fill(~mask, -math.inf), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+def ssd_in_dtype(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, *, chunk: int | None = None):
+    """The SSD scan computed in x's dtype (the float64 referee), chunk by
+    chunk, differentiable by autograd: the function ``ssd_ref`` computes
+    (masked before the exp).  b, c: (B, L, N) or (B, L, 1, N)."""
+    if b.dim() == 4:
+        b, c = b[:, :, 0], c[:, :, 0]
+    bb, l, h, p = x.shape
+    n = b.shape[-1]
+    q = chunk or l
+    check(l % q == 0, f"ssd_in_dtype: L {l} is not whole chunks of {q}")
+    nc = l // q
+    xs, bs, cs = x.reshape(bb, nc, q, h, p), b.reshape(bb, nc, q, n), c.reshape(bb, nc, q, n)
+    dts = dt.to(x.dtype).reshape(bb, nc, q, h)
+    cum = torch.cumsum(dts * a.to(x.dtype), dim=2)                       # (B, nc, Q, H)
+    causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
+    lmat = torch.exp(torch.where(causal, cum[:, :, :, None] - cum[:, :, None], -math.inf))
+    u = dts[..., None] * xs
+    y = torch.einsum("bcin,bcjn,bcijh,bcjhp->bcihp", cs, bs, lmat, u)
+    upd = torch.einsum("bcjh,bcjhp,bcjn->bchpn", torch.exp(cum[:, :, -1:] - cum), u, bs)
+    keep = torch.exp(cum[:, :, -1])
+    state = x.new_zeros((bb, h, p, n))
+    s_prev = []
+    for ci in range(nc):
+        s_prev.append(state)
+        state = keep[:, ci, :, None, None] * state + upd[:, ci]
+    y = y + torch.einsum("bcin,bchpn,bcih->bcihp", cs, torch.stack(s_prev, dim=1), torch.exp(cum))
+    return y.reshape(bb, l, h, p), state
+
+
+def _plain_ssd(x, dt, a, b, c, *, chunk=None):
+    """The SSD kernel's plain version ``ssd_ref`` under autograd, as the model
+    calls the kernel's wrapper."""
+    from repro_torch.kernels.ref import ssd_ref
+
+    if b.dim() == 4:
+        b, c = b[:, :, 0], c[:, :, 0]
+    return ssd_ref(x, dt, a, b, c)
+
+
 @contextlib.contextmanager
-def plain_attention(fn=None):
+def plain_attention(fn=None, ssd=None):
     """The model's attention through ``fn`` (default: autograd of the plain
-    version ``flash_attention_ref``) in place of the kernels."""
+    version ``flash_attention_ref``) and its SSD scan through ``ssd``
+    (default: autograd of ``ssd_ref``) in place of the kernels."""
     import repro_torch.models.layers as layers
+    import repro_torch.models.ssm as ssm
     from repro_torch.kernels.ref import flash_attention_ref
 
-    kernel = layers.flash_attention
+    kernel, ssd_kernel = layers.flash_attention, ssm.ssd_scan_kernel
     layers.flash_attention = fn or (lambda q, k, v, *, causal=True, window=0:
                                     flash_attention_ref(q, k, v, causal=causal, window=window))
+    ssm.ssd_scan_kernel = ssd or _plain_ssd
     try:
         yield
     finally:
-        layers.flash_attention = kernel
+        layers.flash_attention, ssm.ssd_scan_kernel = kernel, ssd_kernel
 
 
 def _leaf_paths(tree, path=""):
@@ -1420,44 +1592,87 @@ def _leaf_paths(tree, path=""):
         yield path, tree
 
 
-def phase_train_grad_check(seed: int) -> None:
-    """granite-3-2b at full width and depth 2: loss_fn and every parameter
-    gradient with attention on the kernels (both directions) and with it
-    through the plain version, in fp32 and in bf16 compute, each held to
-    the same loss_fn in float64 (GRAD_CHECK_TOL says how), at the
-    reference's init and at a well-conditioned one."""
+def train_launches(cfg, microbatches: int = 1) -> dict[str, int]:
+    """Kernel launches of one remat train step: per microbatch each
+    attention layer's flash forward twice (remat recomputes it) and its
+    backward once, each SSD layer's scan alike; deepseek-v3's MTP block is
+    not rematerialised: one forward and one backward."""
+    layers = expected_launches(cfg)
+    attn, ssd, mtp = layers["flash_attention"], layers["ssd_scan"], int(bool(cfg.mtp))
+    return {"flash_attention": microbatches * (2 * attn + mtp),
+            "flash_attention_bwd": microbatches * (attn + mtp),
+            "ssd_scan": microbatches * 2 * ssd, "ssd_scan_bwd": microbatches * ssd}
+
+
+# train_grad_check's cases, at full width, at the depth at which the
+# float64 referee fits on the card beside the bf16 weights: (cut, B, S).
+# granite and mamba2 two layers; recurrentgemma one unit (2 RG-LRU + 1
+# windowed layer, 1.71 B parameters) over 2560 tokens, past its 2048
+# window so the mask bites in the backward; seamless two encoder and two
+# decoder layers (0.60 B); deepseek-v3 one dense MLA layer with the MTP
+# block (3.12 B: 25 GB of float64 weights and 25 GB of gradients) at B 1,
+# S 512, its referee's gradients held on the host (GRAD_CHECK_OFFLOAD)
+# while its fp32 runs hold theirs on the card
+GRAD_CHECK = {"granite_3_2b": ({"n_layers": 2}, 2, 1024),
+              "mamba2_780m": ({"n_layers": 2}, 2, 1024),
+              "recurrentgemma_9b": ({"n_layers": 3}, 1, 2560),
+              "seamless_m4t_medium": ({"n_layers": 2, "encoder_layers": 2}, 2, 1024),
+              "deepseek_v3_671b": ({"n_layers": 1, "first_k_dense": 1}, 1, 512)}
+GRAD_CHECK_OFFLOAD = ("deepseek_v3_671b",)
+
+
+def phase_train_grad_check(seed: int) -> dict[str, dict[str, int]]:
+    """For each GRAD_CHECK case at full width: loss_fn and every parameter
+    gradient with attention and the SSD scan on the kernels (both
+    directions) and through their plain versions, in fp32 and in bf16
+    compute, each held to the same loss_fn in float64 (GRAD_CHECK_TOL says
+    how), at the reference's init and at a well-conditioned one.  Returns
+    each case's kernel launches of one bf16 run."""
     from repro_torch.configs import get_config
     from repro_torch.data import batch_for
     from repro_torch.distributed.step import batch_to
     from repro_torch.models import materialize, param_defs
 
-    base = get_config("granite_3_2b").scaled(n_layers=2)
-    b, s = 2, 1024
-    batch = batch_to(batch_for(base, b, s, 0, seed=seed), torch.device("cuda"))
-    reference = materialize(param_defs(base), seed, "cuda")
-    # (L, d_in, d_out) leaves drawn at 1 / sqrt(L): rescaled to 1 / sqrt(d_in)
-    fan_in = _fan_in_per_layer(reference, base)      # granite has no encoder
-    for init, params_bf in (("reference", reference), ("fan_in_per_layer", fan_in)):
-        _grad_check_init(init, params_bf, batch, base)
-    del reference, fan_in
-    torch.cuda.empty_cache()
+    launches = {}
+    for arch, (cut, b, s) in GRAD_CHECK.items():
+        torch.cuda.reset_peak_memory_stats()
+        base = get_config(arch).scaled(**cut)
+        batch = batch_to(batch_for(base, b, s, 0, seed=seed), torch.device("cuda"))
+        params = materialize(param_defs(base), seed, "cuda")
+        _grad_check_init("reference", params, batch, base, arch in GRAD_CHECK_OFFLOAD)
+        # (L, d_in, d_out) leaves drawn at 1 / sqrt(L): rescaled to 1 / sqrt(d_in)
+        params = _fan_in_per_layer(params, base)
+        launches[f"{arch} train_grad_check"] = _grad_check_init(
+            "fan_in_per_layer", params, batch, base, arch in GRAD_CHECK_OFFLOAD)
+        del params, batch
+        check(release() < 1.0, f"train_grad_check {arch}: memory left allocated")
+    return launches
 
 
-def _grad_check_init(init: str, params_bf, batch, base) -> None:
+def _grad_check_init(init: str, params_bf, batch, base, offload: bool) -> dict[str, int]:
     from repro_torch.distributed.step import loss_and_grads
     from repro_torch.models.spec import tree_map
 
     def rel_l2(a_tree, r_tree) -> dict[str, float]:
-        return {path: ((a.double() - r.double()).norm() / r.double().norm()).item()
-                for (path, a), (_, r) in zip(_leaf_paths(a_tree), _leaf_paths(r_tree))}
+        out = {}
+        for (path, a), (_, r) in zip(_leaf_paths(a_tree), _leaf_paths(r_tree)):
+            r = r.to(a.device).double()
+            out[path] = ((a.double() - r).norm() / r.norm()).item()
+        return out
 
     def loss_err(a, r) -> float:
         return abs(a.item() - r.item()) / (1 + abs(r.item()))
 
-    b, s = batch["inputs"].shape
-    with plain_attention(attention_in_dtype):
-        loss64, _, g64 = loss_and_grads(tree_map(lambda t: t.double(), params_bf), batch,
-                                        base.scaled(compute_dtype="float64"))
+    key = "embeds" if base.input_kind == "embeds" else "inputs"
+    b, s = batch[key].shape[:2]
+    with plain_attention(attention_in_dtype, ssd_in_dtype):
+        params64 = tree_map(lambda t: t.double(), params_bf)
+        loss64, _, g64 = loss_and_grads(params64, batch, base.scaled(compute_dtype="float64"))
+        del params64
+    if offload:   # the referee's gradients on the host, compared leaf by leaf on the card
+        g64 = tree_map(lambda t: t.cpu(), g64)
+        torch.cuda.empty_cache()
+    kernel_launches = {}
     for compute in ("float32", "bfloat16"):
         cfg = base.scaled(compute_dtype=compute)
         params = params_bf if compute == "bfloat16" else tree_map(lambda t: t.float(), params_bf)
@@ -1478,17 +1693,18 @@ def _grad_check_init(init: str, params_bf, batch, base) -> None:
         loss_limit = max(tol["loss"], 2 * lp)
         finite = bool(torch.isfinite(loss_k)) and all(
             bool(torch.isfinite(g).all()) for _, g in _leaf_paths(g_k))
-        want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
-                "ssd_scan": 0}
-        what = f"train_grad_check {init} {compute}"
-        emit("train_grad_check", config=cfg.name, init=init, layers=cfg.n_layers, batch=b,
-             seq=s, compute=compute, remat=True, loss_kernel=loss_k.item(),
+        want = train_launches(cfg)
+        what = f"train_grad_check {cfg.name} {init} {compute}"
+        emit("train_grad_check", config=cfg.name, init=init, layers=cfg.n_layers,
+             encoder_layers=cfg.encoder_layers, batch=b, seq=s, compute=compute, remat=True,
+             referee_on_host=offload, loss_kernel=loss_k.item(),
              loss_plain=loss_p.item(), loss_f64=loss64.item(), loss_err_kernel=lk,
              loss_err_plain=lp, loss_limit=loss_limit, worst_leaf=worst,
              worst_leaf_err_kernel=err_k[worst], worst_leaf_err_plain=err_p[worst],
              worst_leaf_limit=limit[worst], rel_l2_kernel_vs_f64=err_k,
              rel_l2_plain_vs_f64=err_p, rel_l2_kernel_vs_plain=k_vs_p, tol=tol, finite=finite,
-             kernel_launches=kernel_launches, plain_launches=plain_launches)
+             kernel_launches=kernel_launches, plain_launches=plain_launches,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         check(finite, f"{what}: a loss or gradient is not finite")
         check(kernel_launches == want, f"{what}: kernel launches {kernel_launches}, "
               f"expected {want}")
@@ -1500,6 +1716,7 @@ def _grad_check_init(init: str, params_bf, batch, base) -> None:
               f"float64 (the plain path {err_p[worst]}), limit {limit[worst]}")
         del params, g_k, g_p
     del g64
+    return kernel_launches
 
 
 def phase_train_step(seed: int) -> dict[str, int]:
@@ -1513,7 +1730,6 @@ def phase_train_step(seed: int) -> dict[str, int]:
     from repro_torch.models import materialize, param_defs
     from repro_torch.optim import OptConfig, init_opt_state
     from repro_torch.roofline import count_step
-    from repro_torch.roofline.cost import attention_bound, attention_bwd_bound
 
     cfg = get_config("granite_3_2b")
     b, s = 4, 1024
@@ -1542,8 +1758,7 @@ def phase_train_step(seed: int) -> dict[str, int]:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prof = device_profile(lambda: step(params, opt_state, batch))
     ms = statistics.median(x["ms"] for x in steps)
-    attn = [m for m, _ in cfg.block_kinds()].count("attn")
-    want = {"flash_attention": 2 * attn, "flash_attention_bwd": attn, "ssd_scan": 0}
+    want = train_launches(cfg)
     # the counter's peak of what the step allocates, beside the allocator's
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1551,14 +1766,10 @@ def phase_train_step(seed: int) -> dict[str, int]:
     _, cost = count_step(step, params, opt_state, batch)
     peaks = {"counted_gb": cost.peak_bytes / 1e9,
              "allocator_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
-    hd = cfg.resolved_head_dim
     ROOFLINE_RUNS["granite_3_2b train_step"] = dict(
         cfg=cfg, cost=cost, ms=ms, kind="train",
         batch=b, seq=s, tokens=b * s, expected=want, peak_gb=peak_gb,
-        per_launch={"flash_attention": attention_bound(b, s, s, cfg.n_heads, cfg.n_kv_heads, hd,
-                                                       hd, "torch.bfloat16", True, 0)[2],
-                    "flash_attention_bwd": attention_bwd_bound(b, s, cfg.n_heads, cfg.n_kv_heads,
-                                                               hd, "torch.bfloat16", True, 0)[2]})
+        per_launch=train_per_launch(cfg, b, s))
     emit("train_step", config=cfg.name, layers=cfg.n_layers, batch=b, seq=s, remat=True,
          dtype="bfloat16", warmup_step_ms=warmup_ms, step_ms=ms, tokens_per_s=b * s / ms * 1e3,
          steps=steps, peak_mem_gb=peak_gb, expected_launches=want, device_profile=prof,
@@ -1628,6 +1839,189 @@ def phase_train_supervisor(seed: int) -> dict[str, int]:
           f"train_supervisor: launches {launches}")
     torch.cuda.empty_cache()
     return launches
+
+
+# train_all: the nine architectures other than granite (whose full-depth
+# step is train_step's), each at full width and cut in depth only, to the
+# deepest whole unit of its layer pattern whose step peaks under
+# MAX_PEAK_GB.  Reckoned from the port's param_defs at 12 bytes a
+# parameter (bf16 weights and gradients, fp32 moments) before activations:
+# minitron-4b 3.33 B at 16 of 32 layers (40 GB); olmoe-1b-7b 3.56 B at 8
+# of 16 (43 GB); recurrentgemma-9b 3.67 B at 12 of 38, four units of 2
+# RG-LRU + 1 windowed (44 GB); gemma3-27b 3.89 B at 6 of 62, one unit of 5
+# windowed + 1 global (47 GB); llava-next-34b 3.15 B at 4 of 60 (38 GB);
+# deepseek-67b 4.45 B at 4 of 95 (53 GB at 12 bytes, 36 GB at its 8: its
+# tuning takes bf16 moments); deepseek-v3-671b 4.29 B at its 3 dense
+# layers with the MTP block (bf16 moments, 34 GB).  One of its MoE layers
+# is 11.3 B parameters, 90 GB at 8 bytes: no MoE layer of it trains on
+# one card.  mamba2-780m (0.78 B) and seamless-m4t-medium (0.98 B) run
+# whole
+TRAIN_ARCHS = ("mamba2_780m", "minitron_4b", "olmoe_1b_7b", "seamless_m4t_medium",
+               "recurrentgemma_9b", "gemma3_27b", "llava_next_34b", "deepseek_67b",
+               "deepseek_v3_671b")
+TRAIN_DEPTH = {"minitron_4b": {"n_layers": 16}, "olmoe_1b_7b": {"n_layers": 8},
+               "recurrentgemma_9b": {"n_layers": 12}, "gemma3_27b": {"n_layers": 6},
+               "llava_next_34b": {"n_layers": 4}, "deepseek_67b": {"n_layers": 4},
+               "deepseek_v3_671b": {"n_layers": 3, "first_k_dense": 3}}
+# B 4, S 1024; the windowed models 2560, past their windows (as PROMPT)
+TRAIN_BATCH = 4
+TRAIN_SEQ = {"recurrentgemma_9b": 2560, "gemma3_27b": 2560}
+# the train steps the roofline phase also reads: the SSD backward's and the
+# MLA backward's (q/k 192, v 128) credits, beside granite's
+ROOFLINE_TRAIN = ("mamba2_780m", "deepseek_v3_671b")
+
+
+def train_per_launch(cfg, mb_batch: int, s: int) -> dict[str, float]:
+    """The FLOPs roofline/cost.py credits each kernel launch of a bf16 train
+    step of ``cfg`` with, at a microbatch of ``mb_batch`` sequences."""
+    from repro_torch.kernels.ssd_scan import BWD_TILES, kernel_chunk
+    from repro_torch.roofline.cost import (attention_bound, attention_bwd_bound, ssd_bound,
+                                           ssd_bwd_bound)
+
+    bf = "torch.bfloat16"
+    if cfg.ssm:
+        h, p, n = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim, cfg.ssm.d_state
+        q = kernel_chunk(min(cfg.ssm.chunk, s), torch.bfloat16, p, n)
+        return {"ssd_scan": ssd_bound(mb_batch, s, h, p, n, q, bf, bf)[2],
+                "ssd_scan_bwd": ssd_bwd_bound(mb_batch, s, h, p, n, bf, bf,
+                                              tile=BWD_TILES[(p, n)])[2]}
+    if cfg.mla:
+        d, dv, kv = cfg.mla.qk_head_dim, cfg.mla.v_head_dim, cfg.n_heads
+    else:
+        d = dv = cfg.resolved_head_dim
+        kv = cfg.n_kv_heads
+    return {"flash_attention": attention_bound(mb_batch, s, s, cfg.n_heads, kv, d, dv, bf, True,
+                                               0)[2],
+            "flash_attention_bwd": attention_bwd_bound(mb_batch, s, cfg.n_heads, kv, d, bf, True,
+                                                       0, dv=dv)[2]}
+
+
+def phase_train_all(seed: int) -> dict[str, dict[str, int]]:
+    """Each TRAIN_ARCHS model through build_train_step at full width, cut to
+    TRAIN_DEPTH: bf16, remat, the reference's step tuning
+    (``launch/dryrun.py:TRAIN_TUNING``: microbatches, accumulation and
+    moment dtypes; the microbatches capped at the batch of 4); one warm-up
+    step, then three timed steps on one batch.  Returns each model's
+    launches of one step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for
+    from repro_torch.distributed.step import batch_to, build_train_step
+    from repro_torch.launch.dryrun import step_tuning
+    from repro_torch.models import materialize, param_defs
+    from repro_torch.optim import init_opt_state
+    from repro_torch.roofline import count_step
+
+    out = {}
+    for arch in TRAIN_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = get_config(arch).scaled(**TRAIN_DEPTH.get(arch, {}))
+        step_cfg, opt_cfg = step_tuning(cfg)
+        step_cfg = dataclasses.replace(step_cfg, microbatches=min(step_cfg.microbatches,
+                                                                  TRAIN_BATCH))
+        # the default 100 warm-up steps keep lr ~0
+        opt_cfg = dataclasses.replace(opt_cfg, lr=1e-3, warmup_steps=1)
+        b, s = TRAIN_BATCH, TRAIN_SEQ.get(arch, 1024)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = materialize(param_defs(cfg), seed, "cuda")
+        opt_state = init_opt_state(params, opt_cfg)
+        step = build_train_step(cfg, opt_cfg, step_cfg)
+        batch = batch_to(batch_for(cfg, b, s, 0, seed=seed), torch.device("cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, _ = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        warmup_ms = (time.perf_counter() - t0) * 1e3
+        steps = []
+        for _ in range(3):
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": m["loss"].item(),
+                          "grad_norm": m["grad_norm"].item(), "launches": launch_counts()})
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        prof = device_profile(lambda: step(params, opt_state, batch))
+        ms = statistics.median(x["ms"] for x in steps)
+        want = train_launches(cfg, step_cfg.microbatches)
+        if arch in ROOFLINE_TRAIN:   # counted once, read in the roofline phase
+            _, cost = count_step(step, params, opt_state, batch)
+            ROOFLINE_RUNS[f"{arch} train_step"] = dict(
+                cfg=cfg, cost=cost, ms=ms, kind="train", batch=b, seq=s, tokens=b * s,
+                expected=want, peak_gb=peak_gb,
+                per_launch=train_per_launch(cfg, b // step_cfg.microbatches, s))
+        emit("train_all", config=cfg.name, layers=cfg.n_layers,
+             encoder_layers=cfg.encoder_layers, cut=TRAIN_DEPTH.get(arch),
+             params_b=sum(t.numel() for _, t in _leaf_paths(params)) / 1e9, batch=b, seq=s,
+             remat=True, dtype="bfloat16", microbatches=step_cfg.microbatches,
+             accum_dtype=step_cfg.accum_dtype, moment_dtype=opt_cfg.moment_dtype,
+             warmup_step_ms=warmup_ms, step_ms=ms, tokens_per_s=b * s / ms * 1e3, steps=steps,
+             peak_mem_gb=peak_gb, expected_launches=want, device_profile=prof,
+             phase_s=time.perf_counter() - t_arch)
+        what = f"train_all {cfg.name}"
+        check(all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"]) for x in steps),
+              f"{what}: a loss or grad_norm is not finite")
+        check(steps[2]["loss"] < steps[0]["loss"],
+              f"{what}: loss did not fall: {[x['loss'] for x in steps]}")
+        check(all(x["launches"] == want for x in steps),
+              f"{what}: launches {[x['launches'] for x in steps]}, expected {want} a step")
+        check(peak_gb <= MAX_PEAK_GB, f"{what}: peak {peak_gb} GB over {MAX_PEAK_GB}")
+        out[f"{arch} train_all (one step)"] = steps[-1]["launches"]
+        del params, opt_state, batch, step, m
+        check(release() < 1.0, f"{what}: memory left allocated")
+    return out
+
+
+def phase_train_cli() -> dict[str, dict[str, int]]:
+    """The training CLI (``python -m repro_torch.launch.train``) on the
+    card at its defaults, in process through ``main(argv)``: each
+    architecture's smoke config, 8 steps through a host loss at step 3,
+    each from a fresh checkpoint directory.  Returns each run's launches."""
+    import io
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import main
+
+    out = {}
+    ckpt = ROOT / "build" / "chip_smoke_cli_ckpt"
+    for arch in ARCHS:
+        name = arch.replace("_", "-")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        zero_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            main(["--arch", name, "--steps", "8", "--inject", "host_down:3:host01", "--json",
+                  "--ckpt-dir", str(ckpt)])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = launch_counts()
+        rep = json.loads(buf.getvalue())
+        mixers = {m for m, _ in get_smoke_config(arch).block_kinds()}
+        uses = []
+        if mixers & {"attn", "swa", "mla"}:
+            uses += ["flash_attention", "flash_attention_bwd"]
+        if "ssd" in mixers:
+            uses += ["ssd_scan", "ssd_scan_bwd"]
+        emit("train_cli", arch=name, steps=rep["steps"], loss_first=rep["loss_first"],
+             loss_last=rep["loss_last"], restores=rep["restores"],
+             recoveries=rep["recoveries"], denylisted=rep["denylisted"], wall_s=wall_s,
+             launches=launches, kernels_used=uses)
+        what = f"train_cli {name}"
+        check(rep["steps"] == 8, f"{what}: {rep['steps']} steps completed, expected 8")
+        check(math.isfinite(rep["loss_first"]) and math.isfinite(rep["loss_last"])
+              and rep["loss_last"] < rep["loss_first"],
+              f"{what}: loss {rep['loss_first']} -> {rep['loss_last']}")
+        # tests/test_torch_train.py::test_train_cli_on_cpu pins these for the same arguments
+        check(rep["restores"] == 0 and rep["recoveries"] == [],
+              f"{what}: restores {rep['restores']}, recoveries {rep['recoveries']}")
+        check(all(launches[k] > 0 for k in uses) and not any(
+            v for k, v in launches.items() if k not in uses),
+              f"{what}: launches {launches}, expected launches of {uses} only")
+        out[f"{arch} train_cli"] = launches
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return out
 
 
 # the paper's evaluation path (§VII) through the port's engine: fedlearn's
@@ -2218,7 +2612,7 @@ def phase_distributed(seed: int) -> dict[str, dict[str, int]]:
         torch.cuda.synchronize()
         launches["distributed granite_3_2b train step"] = launch_counts()
         want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
-                "ssd_scan": 0}
+                "ssd_scan": 0, "ssd_scan_bwd": 0}
         rel_loss = _rel(_full(loss_s), loss_u)
         rel_p, equal_p, n_p = _leaf_rels(new_s, new_u)
         out["granite_train_step"] = {
@@ -2368,6 +2762,7 @@ def main() -> int:
     flash_cases = phase_kernel_cases(args.seed)
     ssd_cases = phase_ssd_cases(args.seed)
     bwd_cases = phase_flash_bwd_cases(args.seed)
+    ssd_bwd_cases = phase_ssd_bwd_cases(args.seed)
     seconds["kernels_vs_plain"] = time.perf_counter() - t0
 
     # -- 4. prefill + decode at full width and depth, 5. serve, per path -----
@@ -2386,7 +2781,7 @@ def main() -> int:
 
     # -- 6. the training plane: gradients, a full train step, the supervisor
     t0 = time.perf_counter()
-    phase_train_grad_check(args.seed)
+    path_launches.update(phase_train_grad_check(args.seed))
     seconds["train_grad_check"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     path_launches["granite_3_2b train_step (one step)"] = phase_train_step(args.seed)
@@ -2394,6 +2789,13 @@ def main() -> int:
     t0 = time.perf_counter()
     path_launches["granite_3_2b train_supervisor"] = phase_train_supervisor(args.seed)
     seconds["train_supervisor"] = time.perf_counter() - t0
+    # the nine other architectures' train steps, then the training CLI on all ten
+    t0 = time.perf_counter()
+    path_launches.update(phase_train_all(args.seed))
+    seconds["train_all"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_launches.update(phase_train_cli())
+    seconds["train_cli"] = time.perf_counter() - t0
 
     # -- 7. the WRATH engine and the TaPS apps (fedlearn, moldesign on the card)
     t0 = time.perf_counter()
@@ -2425,15 +2827,19 @@ def main() -> int:
              "src/repro_torch/kernels/csrc/flash_attention.cu"),
             ("flash_attention_bwd", bwd_cases, "granite_train",
              "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"),
-            ("ssd_scan", ssd_cases, "mamba2_prefill", "src/repro_torch/kernels/csrc/ssd_scan.cu")]
+            ("ssd_scan", ssd_cases, "mamba2_prefill", "src/repro_torch/kernels/csrc/ssd_scan.cu"),
+            ("ssd_scan_bwd", ssd_bwd_cases, "mamba2_train",
+             "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu")]
+    # a gradient replaces the gradient of the Pallas kernel's function,
+    # which the Pallas kernel does not have
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:82",
-                # the gradient of that kernel's function; the Pallas kernel has none
                 "flash_attention_bwd": "src/repro/kernels/flash_attention.py:82",
-                "ssd_scan": "src/repro/kernels/ssd_scan.py:80"}
+                "ssd_scan": "src/repro/kernels/ssd_scan.py:80",
+                "ssd_scan_bwd": "src/repro/kernels/ssd_scan.py:80"}
     table = []
     for name, cases, case, source in rows:
         c = next(c for c in cases if c["case"] == case)
-        by_path = {path: counts[name] for path, counts in path_launches.items()}
+        by_path = {path: counts.get(name, 0) for path, counts in path_launches.items()}
         err = c["max_abs_err"]
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces[name], "launches": sum(by_path.values()),
@@ -2464,6 +2870,20 @@ def main() -> int:
     table[0]["dk192_dv128"] = {k: mla[k] for k in (
         "case", "shape", "dv", "max_abs_err", "max_scaled_err", "tol", "ms", "plain_ms",
         "bound_ms", "bound_by", "bound_frac", "library_ms", "vs_library")}
+    # the backward's head dims, each the launcher takes, with its D 256
+    # (recurrentgemma-9b) and (192, 128) (deepseek-v3's MLA) readings
+    from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS
+    bwd_dims = sorted({(c["shape"][4], c["dv"]) for c in bwd_cases})
+    check(bwd_dims == sorted(BWD_HEAD_DIMS),
+          f"flash backward cases ran head dims {bwd_dims}, the launcher takes "
+          f"{sorted(BWD_HEAD_DIMS)}")
+    table[1]["head_dims"] = [list(d) for d in bwd_dims]
+    for key, case in (("d256", "recurrentgemma_train"), ("dk192_dv128", "mla_train")):
+        c = next(c for c in bwd_cases if c["case"] == case)
+        table[1][key] = {k: c[k] for k in (
+            "case", "shape", "dv", "window", "max_abs_err", "max_scaled_err", "tol", "ms",
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_frac", "library_ms",
+            "library_device_ms", "vs_library", "library_refused")}
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

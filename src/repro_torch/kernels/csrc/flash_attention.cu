@@ -47,9 +47,16 @@
 //    tensor maps; no copy of K or V is made.
 //  * fp32 inputs take a plain SIMT kernel (one q row per thread), exact
 //    in fp32 to the reference's 1e-4.
+//  * The smoke configs' head dims, (16, 16) and (24, 16) (MLA's 16 + 8
+//    q/k columns over 16 of v), take that SIMT kernel in both dtypes:
+//    a bf16 tile of 16 or 24 columns is not whole 64-column TMA boxes.
+//    The SIMT kernels are templated on the element type T (bf16 or fp32
+//    in memory; the arithmetic is fp32), and the launcher picks the route
+//    by head dims and dtype alone, never after another route failed.
 //
 // The kernels are templated on the q/k head dim DK and the v head dim DV:
-// (64, 64), (128, 128) and (256, 256), and (192, 128) for deepseek-v3's
+// (64, 64), (128, 128) and (256, 256), (16, 16) and (24, 16) (SIMT, above),
+// and (192, 128) for deepseek-v3's
 // multi-head latent attention (MLA), whose prefill attends with 128 "nope"
 // + 64 rope columns of q and k and 128 columns of v.
 //
@@ -347,32 +354,58 @@ __global__ void __launch_bounds__(256, Smem<DK, DV, WN_>::BLOCKS_PER_SM)
   }
 }
 
+// four consecutive elements (16-byte aligned as fp32, 8-byte as bf16) as floats
+__device__ __forceinline__ float4 load4(const float* src) {
+  return *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
+  const uint2 u = *reinterpret_cast<const uint2*>(src);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// rows [k0, k0 + ROWS) of a (Sk, W) operand of type T with `stride`
+// elements between rows into shared memory as fp32, zeros past Sk; every
+// thread of the block
+template <int ROWS, int W, typename T>
+__device__ __forceinline__ void load_rows(float (*dst)[W], const T* src, size_t stride,
+                                          int k0, int Sk) {
+  static_assert(W % 4 == 0, "rows of whole float4s");
+  for (int c = threadIdx.x; c < ROWS * W / 4; c += blockDim.x) {
+    const int r = c / (W / 4), cc = c % (W / 4);
+    float4 v4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k0 + r < Sk) v4 = load4(src + (size_t)(k0 + r) * stride + cc * 4);
+    *reinterpret_cast<float4*>(&dst[r][cc * 4]) = v4;
+  }
+}
+
 // ---------------------------------------------------------------------------
-// fp32: SIMT, one q row per thread
+// SIMT, one q row per thread: fp32 at D 64 and 128, both dtypes at the
+// smoke configs' (16, 16) and (24, 16); T is the element type in memory
 // ---------------------------------------------------------------------------
-template <int D>
+template <int DK, int DV, typename T>
 __global__ void __launch_bounds__(BM) flash_fwd_f32(Params p) {
-  __shared__ __align__(16) float sK[TN][D];
-  __shared__ __align__(16) float sV[TN][D];
+  __shared__ __align__(16) float sK[TN][DK];
+  __shared__ __align__(16) float sV[TN][DV];
 
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
   const int kvh = h / (p.H / p.KV);
   const int q0 = blockIdx.x * BM;
   const int qpos = q0 + threadIdx.x;
-  const size_t q_stride = (size_t)p.H * D;
-  const size_t kv_stride = (size_t)p.KV * D;
-  const float* qb = static_cast<const float*>(p.q) + ((size_t)b * p.S * p.H + h) * D;
-  const float* kb = static_cast<const float*>(p.k) + ((size_t)b * p.Sk * p.KV + kvh) * D;
-  const float* vb = static_cast<const float*>(p.v) + ((size_t)b * p.Sk * p.KV + kvh) * D;
-  float* ob = static_cast<float*>(p.o) + ((size_t)b * p.S * p.H + h) * D;
+  const size_t q_stride = (size_t)p.H * DK, o_stride = (size_t)p.H * DV;
+  const size_t k_stride = (size_t)p.KV * DK, v_stride = (size_t)p.KV * DV;
+  const T* qb = static_cast<const T*>(p.q) + ((size_t)b * p.S * p.H + h) * DK;
+  const T* kb = static_cast<const T*>(p.k) + ((size_t)b * p.Sk * p.KV + kvh) * DK;
+  const T* vb = static_cast<const T*>(p.v) + ((size_t)b * p.Sk * p.KV + kvh) * DV;
+  T* ob = static_cast<T*>(p.o) + ((size_t)b * p.S * p.H + h) * DV;
 
-  float q[D], acc[D];
+  float q[DK], acc[DV];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    q[d] = qpos < p.S ? qb[(size_t)qpos * q_stride + d] : 0.f;
-    acc[d] = 0.f;
-  }
+  for (int d = 0; d < DK; ++d) q[d] = qpos < p.S ? to_f(qb[(size_t)qpos * q_stride + d]) : 0.f;
+#pragma unroll
+  for (int d = 0; d < DV; ++d) acc[d] = 0.f;
   float m = NEG_INF, l = 0.f;
 
   int t_lo, t_hi;
@@ -380,16 +413,8 @@ __global__ void __launch_bounds__(BM) flash_fwd_f32(Params p) {
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * TN;
     __syncthreads();
-    for (int c = threadIdx.x; c < TN * D / 4; c += blockDim.x) {
-      const int r = c / (D / 4), cc = c % (D / 4);
-      float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
-      if (k0 + r < p.Sk) {
-        kv4 = *reinterpret_cast<const float4*>(kb + (size_t)(k0 + r) * kv_stride + cc * 4);
-        vv4 = *reinterpret_cast<const float4*>(vb + (size_t)(k0 + r) * kv_stride + cc * 4);
-      }
-      *reinterpret_cast<float4*>(&sK[r][cc * 4]) = kv4;
-      *reinterpret_cast<float4*>(&sV[r][cc * 4]) = vv4;
-    }
+    load_rows<TN, DK>(sK, kb, k_stride, k0, p.Sk);
+    load_rows<TN, DV>(sV, vb, v_stride, k0, p.Sk);
     __syncthreads();
 
     float s[TN];
@@ -398,7 +423,7 @@ __global__ void __launch_bounds__(BM) flash_fwd_f32(Params p) {
     for (int j = 0; j < TN; ++j) {
       float dot = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(q[d], sK[j][d], dot);
+      for (int d = 0; d < DK; ++d) dot = fmaf(q[d], sK[j][d], dot);
       s[j] = visible(p, qpos, k0 + j) ? dot * p.scale_log2 : NEG_INF;
       mx = fmaxf(mx, s[j]);
     }
@@ -406,13 +431,13 @@ __global__ void __launch_bounds__(BM) flash_fwd_f32(Params p) {
     m = mx;
     l *= alpha;
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+    for (int d = 0; d < DV; ++d) acc[d] *= alpha;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const float pj = exp2f(s[j] - m);
       l += pj;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(pj, sV[j][d], acc[d]);
+      for (int d = 0; d < DV; ++d) acc[d] = fmaf(pj, sV[j][d], acc[d]);
     }
   }
   if (qpos < p.S && p.lse != nullptr)   // m and l are in base 2 here
@@ -421,28 +446,15 @@ __global__ void __launch_bounds__(BM) flash_fwd_f32(Params p) {
   if (qpos < p.S) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int d = 0; d < D; ++d) ob[(size_t)qpos * q_stride + d] = acc[d] * inv;
-  }
-}
-
-// rows [k0, k0 + ROWS) of a (Sk, W) fp32 operand with `stride` elements
-// between rows into shared memory, zeros past Sk; every thread of the block
-template <int ROWS, int W>
-__device__ __forceinline__ void load_rows(float (*dst)[W], const float* src, size_t stride,
-                                          int k0, int Sk) {
-  for (int c = threadIdx.x; c < ROWS * W / 4; c += blockDim.x) {
-    const int r = c / (W / 4), cc = c % (W / 4);
-    float4 v4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k0 + r < Sk) v4 = *reinterpret_cast<const float4*>(src + (size_t)(k0 + r) * stride + cc * 4);
-    *reinterpret_cast<float4*>(&dst[r][cc * 4]) = v4;
+    for (int d = 0; d < DV; ++d) store_f(ob + (size_t)qpos * o_stride + d, acc[d] * inv);
   }
 }
 
 // ---------------------------------------------------------------------------
 // fp32 at D 256 and (192, 128): SIMT, PARTS threads a q row, each with
-// DK / PARTS columns of q and DV / PARTS of the accumulator
+// DK / PARTS columns of q and DV / PARTS of the accumulator; T as above
 // ---------------------------------------------------------------------------
-template <int DK, int DV>
+template <int DK, int DV, typename T>
 __global__ void __launch_bounds__(BM * PARTS) flash_fwd_f32_wide(Params p) {
   constexpr int DP = DK / PARTS;     // q columns a thread: float4 i at 16 i + 4 part
   constexpr int VP = DV / PARTS;     // accumulator columns a thread, laid out alike
@@ -457,17 +469,16 @@ __global__ void __launch_bounds__(BM * PARTS) flash_fwd_f32_wide(Params p) {
   const int qpos = q0 + threadIdx.x / PARTS;
   const size_t q_stride = (size_t)p.H * DK, o_stride = (size_t)p.H * DV;
   const size_t k_stride = (size_t)p.KV * DK, v_stride = (size_t)p.KV * DV;
-  const float* qb = static_cast<const float*>(p.q) + ((size_t)b * p.S * p.H + h) * DK;
-  const float* kb = static_cast<const float*>(p.k) + ((size_t)b * p.Sk * p.KV + kvh) * DK;
-  const float* vb = static_cast<const float*>(p.v) + ((size_t)b * p.Sk * p.KV + kvh) * DV;
-  float* ob = static_cast<float*>(p.o) + ((size_t)b * p.S * p.H + h) * DV;
+  const T* qb = static_cast<const T*>(p.q) + ((size_t)b * p.S * p.H + h) * DK;
+  const T* kb = static_cast<const T*>(p.k) + ((size_t)b * p.Sk * p.KV + kvh) * DK;
+  const T* vb = static_cast<const T*>(p.v) + ((size_t)b * p.Sk * p.KV + kvh) * DV;
+  T* ob = static_cast<T*>(p.o) + ((size_t)b * p.S * p.H + h) * DV;
 
   float q[DP], acc[VP];
 #pragma unroll
   for (int i = 0; i < DP / 4; ++i) {
     float4 q4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (qpos < p.S)
-      q4 = *reinterpret_cast<const float4*>(qb + (size_t)qpos * q_stride + 16 * i + 4 * part);
+    if (qpos < p.S) q4 = load4(qb + (size_t)qpos * q_stride + 16 * i + 4 * part);
     q[4 * i + 0] = q4.x;
     q[4 * i + 1] = q4.y;
     q[4 * i + 2] = q4.z;
@@ -530,9 +541,9 @@ __global__ void __launch_bounds__(BM * PARTS) flash_fwd_f32_wide(Params p) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < VP / 4; ++i)
-      *reinterpret_cast<float4*>(ob + (size_t)qpos * o_stride + 16 * i + 4 * part) =
-          make_float4(acc[4 * i + 0] * inv, acc[4 * i + 1] * inv, acc[4 * i + 2] * inv,
-                      acc[4 * i + 3] * inv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        store_f(ob + (size_t)qpos * o_stride + 16 * i + 4 * part + e, acc[4 * i + e] * inv);
   }
 }
 
@@ -567,21 +578,29 @@ int launch_bf16_tile(const Params& p, const long long* layout, cudaStream_t stre
   return (int)cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int DK, int DV, typename T = float>
 void launch_f32(const Params& p, dim3 grid, cudaStream_t stream) {
-  flash_fwd_f32<D><<<grid, BM, 0, stream>>>(p);
+  flash_fwd_f32<DK, DV, T><<<grid, BM, 0, stream>>>(p);
 }
 
 template <int DK, int DV>
 void launch_f32_wide(const Params& p, dim3 grid, cudaStream_t stream) {
-  flash_fwd_f32_wide<DK, DV><<<grid, BM * PARTS, 0, stream>>>(p);
+  flash_fwd_f32_wide<DK, DV, float><<<grid, BM * PARTS, 0, stream>>>(p);
+}
+
+// the smoke configs' head dims: the SIMT kernel in either dtype
+template <int DK, int DV>
+void launch_simt(const Params& p, dim3 grid, cudaStream_t stream, int is_bf16) {
+  if (is_bf16) launch_f32<DK, DV, __nv_bfloat16>(p, grid, stream);
+  else launch_f32<DK, DV, float>(p, grid, stream);
 }
 
 }  // namespace
 
 // q: (B, S, H, DK); k: (B, Sk, KV, DK); v: (B, Sk, KV, DV); o: (B, S, H, DV);
 // all contiguous, same dtype (bf16 if is_bf16 else fp32).  layout: for
-// bf16, the TMA layouts of q, k and v (11 values each); unused for fp32.
+// bf16 at the wgmma head dims, the TMA layouts of q, k and v (11 values
+// each); unused for fp32 and for the SIMT head dims (16, 16), (24, 16).
 // lse: null, or a (B, H, S) fp32 buffer for each row's logsumexp.
 // kv_tile: the bf16 kernel's kv rows a stage (its layouts' box rows for k
 // and v); unused for fp32.  Returns cudaGetLastError() after the launch, or
@@ -596,16 +615,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   int err = 0;
   if (DK == DV && DK == 64) {
     if (is_bf16) err = launch_bf16_tile<64, 64>(p, layout, st, kv_tile);
-    else launch_f32<64>(p, grid, st);
+    else launch_f32<64, 64>(p, grid, st);
   } else if (DK == DV && DK == 128) {
     if (is_bf16) err = launch_bf16_tile<128, 128>(p, layout, st, kv_tile);
-    else launch_f32<128>(p, grid, st);
+    else launch_f32<128, 128>(p, grid, st);
   } else if (DK == DV && DK == 256) {
     if (is_bf16) err = launch_bf16_tile<256, 256>(p, layout, st, kv_tile);
     else launch_f32_wide<256, 256>(p, grid, st);
   } else if (DK == 192 && DV == 128) {
     if (is_bf16) err = launch_bf16_tile<192, 128>(p, layout, st, kv_tile);
     else launch_f32_wide<192, 128>(p, grid, st);
+  } else if (DK == 16 && DV == 16) {
+    launch_simt<16, 16>(p, grid, st, is_bf16);
+  } else if (DK == 24 && DV == 16) {
+    launch_simt<24, 16>(p, grid, st, is_bf16);
   } else {
     return (int)cudaErrorInvalidValue;
   }

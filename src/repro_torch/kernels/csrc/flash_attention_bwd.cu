@@ -59,6 +59,29 @@
 //    (dK/dV) and the last q tiles (dQ) run longest, and launch first.
 //  * GQA by index through the tensor maps: no copy of K or V.
 // fp32 inputs take SIMT kernels, one warp a row, exact in fp32.
+//
+// Head dims: (64, 64) and (128, 128) as above; (256, 256) (recurrentgemma-9b)
+// and (192, 128) (deepseek-v3's multi-head latent attention: q/k 192, v
+// 128) in bf16 take the same dQ kernel and a dK/dV kernel of two
+// warpgroups (flash_bwd_dkdv_bf16_split): at D 256 one warpgroup's dK and
+// dV of 64 kv rows are 2 x 64 x 256 / 128 = 256 fp32 registers a thread,
+// past the 255 limit, before S^T and dP^T.  So each warpgroup owns whole
+// 64-column boxes of dK and dV (at D 256 two of each; at (192, 128) the
+// first warpgroup two of dK's three and one of dV's two, the second the
+// rest) and both compute S^T and dP^T over all of DK and DV: the two
+// recomputed products run twice, the price of keeping every accumulator
+// in registers (~210 a thread at D 256, read the build log's ptxas
+// line).  K and V (64 kv rows) stay in 64 KB of shared memory at D 256,
+// and two 64-row stages of Q and dO take 128 KB.  The dQ kernel keeps dQ
+// (DK / 2 a thread), S and dP: 192 registers at D 256.  At (192, 128) the
+// two products differ in depth (S over 192, dP over 128), dO and V have
+// tensor maps of their own (two boxes against q's and k's three), Delta
+// sums over v's 128 columns, and the scale is 1 / sqrt(192).  dQ += dS K
+// is one m64n192k16 a k-step.
+// The smoke configs' head dims, (16, 16) and (24, 16), take the SIMT
+// kernels in both dtypes (T, the element type in memory; fp32 arithmetic):
+// their tiles are not whole 64-column TMA boxes.  The route is chosen by
+// head dims and dtype only.
 
 #include <math.h>
 
@@ -72,7 +95,7 @@ using bf16 = __nv_bfloat16;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int ROWS = 64;   // bf16: rows of a warpgroup's tile, of a stage and of a TMA box
 constexpr int WR = 8;      // fp32 blocks: 8 warps, one row each
-constexpr int TN = 32;     // fp32 kernels: rows of a staged tile
+constexpr int TN = 32;     // SIMT kernels: rows of a staged tile (16 where 32 do not fit)
 
 struct Params {
   const void* q;
@@ -84,12 +107,12 @@ struct Params {
   void* dq;
   void* dk;
   void* dv;
-  float* delta;           // scratch: rowsum(dO * O), (B, H, S) fp32, (B, H, s_pad) bf16
-  float* lse2;            // bf16 scratch: (B, H, s_pad) lse * log2(e); both 0 past S
+  float* delta;           // scratch: rowsum(dO * O), (B, H, S) SIMT, (B, H, s_pad) wgmma
+  float* lse2;            // wgmma scratch: (B, H, s_pad) lse * log2(e); both 0 past S
   int B, S, Sk, H, KV;
   int causal, window;
-  float scale;            // 1 / sqrt(D)
-  float scale_log2;       // log2(e) / sqrt(D): scores in base 2
+  float scale;            // 1 / sqrt(DK)
+  float scale_log2;       // log2(e) / sqrt(DK): scores in base 2
   int s_pad;              // S rounded up to ROWS
 };
 
@@ -139,32 +162,34 @@ __device__ __forceinline__ void store_rows(bf16* base, size_t stride, int row0, 
 // bf16 dQ: wgmma, TMA, one warpgroup of 64 q rows
 // ---------------------------------------------------------------------------
 // Shared memory: Q and dO, then STAGES K tiles and STAGES V tiles (64 rows
-// each: D / 64 boxes of 64 rows x 128 bytes), the mbarriers.  At D 64 the
-// kernel keeps to 128 registers, so four blocks share an SM.
-template <int D>
+// each: DK / 64 or DV / 64 boxes of 64 rows x 128 bytes), the mbarriers.
+// At D 64 the kernel keeps to 128 registers, so four blocks share an SM;
+// at D 256 (192 KB) and (192, 128) (121 KB) one block takes an SM.
+template <int DK, int DV>
 struct DqSmem {
   static constexpr int STAGES = 2;
-  static constexpr int BLOCKS_PER_SM = D == 64 ? 4 : 2;
-  static constexpr uint32_t TILE_BYTES = ROWS * D * 2;
+  static constexpr int BLOCKS_PER_SM = DK == 64 ? 4 : (DK == 128 ? 2 : 1);
+  static constexpr uint32_t K_BYTES = ROWS * DK * 2;   // a Q or a K tile
+  static constexpr uint32_t V_BYTES = ROWS * DV * 2;   // a dO or a V tile
   static constexpr size_t BYTES =
-      1024 + 2 * (1 + STAGES) * TILE_BYTES + 8 * (1 + 2 * STAGES);   // 1024: alignment
+      1024 + (1 + STAGES) * (K_BYTES + V_BYTES) + 8 * (1 + 2 * STAGES);   // 1024: alignment
 };
 
-template <int D>
-__global__ void __launch_bounds__(128, DqSmem<D>::BLOCKS_PER_SM)
+template <int DK, int DV>
+__global__ void __launch_bounds__(128, DqSmem<DK, DV>::BLOCKS_PER_SM)
     flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_do,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, Params p) {
-  using L = DqSmem<D>;
+  using L = DqSmem<DK, DV>;
   constexpr int STAGES = L::STAGES;
-  constexpr int BOXES = D / BOX;
+  constexpr int K_BOXES = DK / BOX, V_BOXES = DV / BOX;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  unsigned char* sdO = sQ + L::TILE_BYTES;
-  unsigned char* sK = sdO + L::TILE_BYTES;
-  unsigned char* sV = sK + STAGES * L::TILE_BYTES;
-  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + STAGES * L::TILE_BYTES);
+  unsigned char* sdO = sQ + L::K_BYTES;
+  unsigned char* sK = sdO + L::V_BYTES;
+  unsigned char* sV = sK + STAGES * L::K_BYTES;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + STAGES * L::V_BYTES);
   uint64_t* full = bar_q + 1;
   uint64_t* empty = full + STAGES;
 
@@ -182,13 +207,13 @@ __global__ void __launch_bounds__(128, DqSmem<D>::BLOCKS_PER_SM)
 
   auto load_kv = [&](int j) {   // kv tile t_lo + j into stage j % STAGES
     const int s = j % STAGES, k0 = (t_lo + j) * ROWS;
-    mbar_expect_tx(&full[s], 2 * L::TILE_BYTES);
+    mbar_expect_tx(&full[s], L::K_BYTES + L::V_BYTES);
 #pragma unroll
-    for (int c = 0; c < BOXES; ++c) {
-      const uint32_t at = s * L::TILE_BYTES + c * ROWS * ROW;
-      tma_load(sK + at, &tm_k, &full[s], c * BOX, kvh, k0, b);
-      tma_load(sV + at, &tm_v, &full[s], c * BOX, kvh, k0, b);
-    }
+    for (int c = 0; c < K_BOXES; ++c)
+      tma_load(sK + s * L::K_BYTES + c * ROWS * ROW, &tm_k, &full[s], c * BOX, kvh, k0, b);
+#pragma unroll
+    for (int c = 0; c < V_BOXES; ++c)
+      tma_load(sV + s * L::V_BYTES + c * ROWS * ROW, &tm_v, &full[s], c * BOX, kvh, k0, b);
   };
 
   if (tid == 0) {
@@ -201,21 +226,23 @@ __global__ void __launch_bounds__(128, DqSmem<D>::BLOCKS_PER_SM)
   }
   __syncthreads();
   if (tid == 0 && n > 0) {
-    mbar_expect_tx(bar_q, 2 * L::TILE_BYTES);
+    mbar_expect_tx(bar_q, L::K_BYTES + L::V_BYTES);
 #pragma unroll
-    for (int c = 0; c < BOXES; ++c) {
-      tma_load(sQ + c * ROWS * ROW, &tm_q, bar_q, c * BOX, h, q0, b);
+    for (int c = 0; c < K_BOXES; ++c) tma_load(sQ + c * ROWS * ROW, &tm_q, bar_q, c * BOX, h, q0, b);
+#pragma unroll
+    for (int c = 0; c < V_BOXES; ++c)
       tma_load(sdO + c * ROWS * ROW, &tm_do, bar_q, c * BOX, h, q0, b);
-    }
     for (int j = 0; j < min(STAGES, n); ++j) load_kv(j);
   }
 
-  // Delta = rowsum(dO * O) and lse in base 2 of the warp's 16 rows, kept
-  // for this thread's rows and stored (0 past S) for the dK/dV kernel
-  const size_t q_stride = (size_t)p.H * D;
-  const size_t q_off = ((size_t)b * p.S * p.H + h) * D;
-  const bf16* ob = static_cast<const bf16*>(p.o) + q_off;
-  const bf16* dob = static_cast<const bf16*>(p.dout) + q_off;
+  // Delta = rowsum(dO * O) over DV and lse in base 2 of the warp's 16
+  // rows, kept for this thread's rows and stored (0 past S) for the dK/dV
+  // kernel
+  const size_t q_stride = (size_t)p.H * DK, o_stride = (size_t)p.H * DV;
+  const size_t q_off = ((size_t)b * p.S * p.H + h) * DK;
+  const size_t o_off = ((size_t)b * p.S * p.H + h) * DV;
+  const bf16* ob = static_cast<const bf16*>(p.o) + o_off;
+  const bf16* dob = static_cast<const bf16*>(p.dout) + o_off;
   const size_t pad_off = ((size_t)b * p.H + h) * p.s_pad;
   const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
   float d0 = 0.f, d1 = 0.f, l0 = 0.f, l1 = 0.f;
@@ -224,11 +251,11 @@ __global__ void __launch_bounds__(128, DqSmem<D>::BLOCKS_PER_SM)
     float acc = 0.f, l2 = 0.f;
     if (row < p.S) {
 #pragma unroll
-      for (int c = 2 * lane; c < D; c += 64) {
+      for (int c = 2 * lane; c < DV; c += 64) {
         const float2 x = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(ob + (size_t)row * q_stride + c));
+            *reinterpret_cast<const __nv_bfloat162*>(ob + (size_t)row * o_stride + c));
         const float2 y = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(dob + (size_t)row * q_stride + c));
+            *reinterpret_cast<const __nv_bfloat162*>(dob + (size_t)row * o_stride + c));
         acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
       }
       l2 = p.lse[((size_t)b * p.H + h) * p.S + row] * LOG2E;
@@ -244,9 +271,9 @@ __global__ void __launch_bounds__(128, DqSmem<D>::BLOCKS_PER_SM)
 
   const uint32_t q_smem = smem_u32(sQ), do_smem = smem_u32(sdO);
   const float sl = p.scale_log2;
-  float dq[D / 2];
+  float dq[DK / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < DK / 2; ++i) dq[i] = 0.f;
   if (n > 0) mbar_wait(bar_q, 0);
 
   for (int i = 0; i < n; ++i) {
@@ -259,12 +286,12 @@ __global__ void __launch_bounds__(128, DqSmem<D>::BLOCKS_PER_SM)
     }
     __syncwarp();
     const int k0 = (t_lo + i) * ROWS;
-    const uint32_t k_s = smem_u32(sK + s * L::TILE_BYTES);
-    const uint32_t v_s = smem_u32(sV + s * L::TILE_BYTES);
+    const uint32_t k_s = smem_u32(sK + s * L::K_BYTES);
+    const uint32_t v_s = smem_u32(sV + s * L::V_BYTES);
     mbar_wait(&full[s], (i / STAGES) & 1);
     float sc[32], dp[32];   // S, dP: 64 q rows x 64 kv columns
-    qk_product<D, ROWS, ROWS, 32, false>(sc, q_smem, k_s);
-    qk_product<D, ROWS, ROWS, 32, false>(dp, do_smem, v_s);
+    qk_product<DK, ROWS, ROWS, 32, false>(sc, q_smem, k_s);
+    qk_product<DV, ROWS, ROWS, 32, false>(dp, do_smem, v_s);
     // test the mask only where a pair of the tile is masked
     const bool edge = k0 + ROWS > p.Sk || (p.causal && k0 + ROWS - 1 > q0) ||
                       (p.window && k0 <= q0 + ROWS - 1 - p.window);
@@ -290,10 +317,10 @@ __global__ void __launch_bounds__(128, DqSmem<D>::BLOCKS_PER_SM)
       dsf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
       dsf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
-    pv_product<D, ROWS>(dq, dsf, k_s);   // dQ += dS K, K read MN-major
+    pv_product<DK, ROWS>(dq, dsf, k_s);   // dQ += dS K, K read MN-major
     mbar_arrive(&empty[s]);
   }
-  store_rows<D>(static_cast<bf16*>(p.dq) + q_off, q_stride, row0, p.S, dq, p.scale, t4);
+  store_rows<DK>(static_cast<bf16*>(p.dq) + q_off, q_stride, row0, p.S, dq, p.scale, t4);
 }
 
 // ---------------------------------------------------------------------------
@@ -455,35 +482,252 @@ __global__ void __launch_bounds__(128, 2)
 }
 
 // ---------------------------------------------------------------------------
-// fp32: SIMT, one warp a row, lane l holding elements l, l + 32, ...
+// bf16 dK/dV at (256, 256) and (192, 128): two warpgroups of the same 64 kv
+// rows, each owning whole 64-column boxes of dK and dV (see the header)
 // ---------------------------------------------------------------------------
+// Shared memory: K and V, then STAGES Q tiles, STAGES dO tiles, the stages'
+// lse and Delta, the mbarriers; one block an SM.
+template <int DK, int DV>
+struct SplitSmem {
+  static constexpr int STAGES = 2;
+  static constexpr uint32_t K_BYTES = ROWS * DK * 2;   // a K or a Q tile
+  static constexpr uint32_t V_BYTES = ROWS * DV * 2;   // a V or a dO tile
+  static constexpr uint32_t VEC_BYTES = ROWS * 4;
+  static constexpr uint32_t STAGE_TX = K_BYTES + V_BYTES + 2 * VEC_BYTES;
+  static constexpr size_t BYTES = 1024 + (1 + STAGES) * (K_BYTES + V_BYTES) +
+                                  STAGES * 2 * VEC_BYTES + 8 * (1 + 2 * STAGES);
+  static_assert(BYTES <= 232448, "over the shared memory of an SM");
+};
+
+// the first warpgroup's columns of a D-column gradient: half its boxes,
+// rounded up; the second warpgroup takes the rest
 template <int D>
+__host__ __device__ constexpr int first_cols() { return (D / BOX + 1) / 2 * BOX; }
+
+// One warpgroup's share of flash_bwd_dkdv_bf16_split: dK columns [KC0,
+// KC0 + WK) and dV columns [VC0, VC0 + WV) of the block's 64 kv rows over
+// its n (head, q tile) items.  Thread 0 (of the first warpgroup) refills
+// the stages.
+template <int DK, int DV, int KC0, int WK, int VC0, int WV>
+__device__ __forceinline__ void dkdv_split_part(
+    const Params& p, const CUtensorMap* tm_q, const CUtensorMap* tm_do, unsigned char* sK,
+    unsigned char* sV, unsigned char* sQ, unsigned char* sdO, float* sL, float* sDl,
+    uint64_t* full, uint64_t* empty, int b, int kvh, int k0, int t_lo, int nq, int n) {
+  using L = SplitSmem<DK, DV>;
+  constexpr int STAGES = L::STAGES;
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int t4 = lane & 3, g = lane >> 2;
+  const int group = p.H / p.KV;
+  const int krow0 = k0 + warp * 16 + g, krow1 = krow0 + 8;
+  const uint32_t k_smem = smem_u32(sK), v_smem = smem_u32(sV);
+  const float sl = p.scale_log2;
+
+  auto load_q = [&](int j) {   // item j into stage j % STAGES
+    const int s = j % STAGES, h = kvh * group + j / nq, q0 = (t_lo + j % nq) * ROWS;
+    mbar_expect_tx(&full[s], L::STAGE_TX);
+#pragma unroll
+    for (int c = 0; c < DK / BOX; ++c)
+      tma_load(sQ + s * L::K_BYTES + c * ROWS * ROW, tm_q, &full[s], c * BOX, h, q0, b);
+#pragma unroll
+    for (int c = 0; c < DV / BOX; ++c)
+      tma_load(sdO + s * L::V_BYTES + c * ROWS * ROW, tm_do, &full[s], c * BOX, h, q0, b);
+    const size_t off = ((size_t)b * p.H + h) * p.s_pad + q0;
+    bulk_load(sL + s * ROWS, p.lse2 + off, L::VEC_BYTES, &full[s]);
+    bulk_load(sDl + s * ROWS, p.delta + off, L::VEC_BYTES, &full[s]);
+  };
+
+  float dk[WK / 2], dv[WV / 2];
+#pragma unroll
+  for (int i = 0; i < WK / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < WV / 2; ++i) dv[i] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES;
+    const int q0 = (t_lo + i % nq) * ROWS;
+    const uint32_t q_s = smem_u32(sQ + s * L::K_BYTES);
+    const uint32_t do_s = smem_u32(sdO + s * L::V_BYTES);
+    const float* lse2 = sL + s * ROWS;
+    const float* delta = sDl + s * ROWS;
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    float st[32], dpt[32];   // S^T, dP^T: 64 kv rows x 64 q columns
+    qk_product<DK, ROWS, ROWS, 32, false>(st, k_smem, q_s);
+    qk_product<DV, ROWS, ROWS, 32, false>(dpt, v_smem, do_s);
+    const bool edge = q0 + ROWS > p.S || k0 + ROWS > p.Sk ||
+                      (p.causal && k0 + ROWS - 1 > q0) ||
+                      (p.window && q0 + ROWS - 1 >= k0 + p.window);
+    wgmma_wait_all_but_one();   // S^T is done; dP^T may still run
+    pin(st);
+    // P^T in place of S^T, then packed as the A operand of P^T dO
+    uint32_t pf[ROWS / 16][4];
+#pragma unroll
+    for (int nb = 0; nb < ROWS / 8; ++nb) {
+      const int c = nb * 8 + 2 * t4;
+      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& pe = st[4 * nb + e];
+        pe = ex2(fmaf(pe, sl, -((e & 1) ? l2.y : l2.x)));
+        if (edge && !visible(p, q0 + c + (e & 1), (e & 2) ? krow1 : krow0)) pe = 0.f;
+      }
+      pf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(st[4 * nb], st[4 * nb + 1]);
+      pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(st[4 * nb + 2], st[4 * nb + 3]);
+    }
+    // dV[:, VC0:VC0+WV] += P^T dO[:, VC0:VC0+WV]; waited for before dS is
+    // formed, so that P's fragments free their registers
+    pv_product<WV, ROWS, false>(dv, pf, do_s + (VC0 / BOX) * ROWS * ROW);
+    wgmma_wait_all();
+    pin(dpt);
+    pin(dv);
+    uint32_t dsf[ROWS / 16][4];
+#pragma unroll
+    for (int nb = 0; nb < ROWS / 8; ++nb) {
+      const float2 d2 = *reinterpret_cast<const float2*>(delta + nb * 8 + 2 * t4);
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[e] = st[4 * nb + e] * (dpt[4 * nb + e] - ((e & 1) ? d2.y : d2.x));
+      dsf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+      dsf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    // dK[:, KC0:KC0+WK] += dS^T Q[:, KC0:KC0+WK]
+    pv_product<WK, ROWS>(dk, dsf, q_s + (KC0 / BOX) * ROWS * ROW);
+    mbar_arrive(&empty[s]);
+    if (tid == 0 && i + STAGES < n) {
+      // item i + STAGES goes where item i was: wait until both warpgroups are done with it
+      mbar_wait(&empty[s], (i / STAGES) & 1);
+      load_q(i + STAGES);
+    }
+    __syncwarp();
+  }
+  const size_t kv_stride = (size_t)p.KV * DK, v_stride = (size_t)p.KV * DV;
+  bf16* dkb = static_cast<bf16*>(p.dk) + ((size_t)b * p.Sk * p.KV + kvh) * DK + KC0;
+  bf16* dvb = static_cast<bf16*>(p.dv) + ((size_t)b * p.Sk * p.KV + kvh) * DV + VC0;
+  store_rows<WK>(dkb, kv_stride, krow0, p.Sk, dk, p.scale, t4);
+  store_rows<WV>(dvb, v_stride, krow0, p.Sk, dv, 1.f, t4);
+}
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(256, 1)
+    flash_bwd_dkdv_bf16_split(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v, Params p) {
+  using L = SplitSmem<DK, DV>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sK = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* sV = sK + L::K_BYTES;
+  unsigned char* sQ = sV + L::V_BYTES;
+  unsigned char* sdO = sQ + STAGES * L::K_BYTES;
+  float* sL = reinterpret_cast<float*>(sdO + STAGES * L::V_BYTES);   // [STAGES][ROWS]
+  float* sDl = sL + STAGES * ROWS;                                    // [STAGES][ROWS]
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(sDl + STAGES * ROWS);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / p.KV, kvh = blockIdx.x % p.KV;
+  const int group = p.H / p.KV;
+  const int k0 = blockIdx.y * ROWS;   // causal: the first kv tiles see the most q tiles
+  int lo, hi;
+  q_range(p, k0, ROWS, lo, hi);
+  const int t_lo = lo / ROWS;
+  const int nq = hi > lo ? (hi + ROWS - 1) / ROWS - t_lo : 0;   // q tiles a head
+  const int n = group * nq;                                     // (head, q tile) items
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], blockDim.x);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && n > 0) {
+    mbar_expect_tx(bar_kv, L::K_BYTES + L::V_BYTES);
+#pragma unroll
+    for (int c = 0; c < DK / BOX; ++c)
+      tma_load(sK + c * ROWS * ROW, &tm_k, bar_kv, c * BOX, kvh, k0, b);
+#pragma unroll
+    for (int c = 0; c < DV / BOX; ++c)
+      tma_load(sV + c * ROWS * ROW, &tm_v, bar_kv, c * BOX, kvh, k0, b);
+    for (int s = 0; s < STAGES && s < n; ++s) {   // items 0 .. STAGES - 1
+      const int h = kvh * group + s / nq, q0 = (t_lo + s % nq) * ROWS;
+      mbar_expect_tx(&full[s], L::STAGE_TX);
+#pragma unroll
+      for (int c = 0; c < DK / BOX; ++c)
+        tma_load(sQ + s * L::K_BYTES + c * ROWS * ROW, &tm_q, &full[s], c * BOX, h, q0, b);
+#pragma unroll
+      for (int c = 0; c < DV / BOX; ++c)
+        tma_load(sdO + s * L::V_BYTES + c * ROWS * ROW, &tm_do, &full[s], c * BOX, h, q0, b);
+      const size_t off = ((size_t)b * p.H + h) * p.s_pad + q0;
+      bulk_load(sL + s * ROWS, p.lse2 + off, L::VEC_BYTES, &full[s]);
+      bulk_load(sDl + s * ROWS, p.delta + off, L::VEC_BYTES, &full[s]);
+    }
+  }
+  if (n > 0) mbar_wait(bar_kv, 0);
+  constexpr int K0 = first_cols<DK>(), V0 = first_cols<DV>();
+  if (tid < 128)
+    dkdv_split_part<DK, DV, 0, K0, 0, V0>(p, &tm_q, &tm_do, sK, sV, sQ, sdO, sL, sDl, full,
+                                          empty, b, kvh, k0, t_lo, nq, n);
+  else
+    dkdv_split_part<DK, DV, K0, DK - K0, V0, DV - V0>(p, &tm_q, &tm_do, sK, sV, sQ, sdO, sL,
+                                                      sDl, full, empty, b, kvh, k0, t_lo, nq, n);
+}
+
+// ---------------------------------------------------------------------------
+// SIMT, one warp a row, lane l holding columns l, l + 32, ... (those below
+// the head dim): fp32 at every head dim, bf16 at the smoke configs' (16,
+// 16) and (24, 16).  T is the element type in memory; TN rows of the other
+// side are staged in fp32 shared memory where they fit in 48 KB, else TN / 2
+// ---------------------------------------------------------------------------
+template <int DK, int DV>
+__host__ __device__ constexpr int simt_rows() { return (DK + DV) * TN * 4 <= 49152 ? TN : TN / 2; }
+
+// column e of a lane holding E_ columns of a D-column row
+template <int D>
+__device__ __forceinline__ bool has_col(int lane, int e) {
+  return D % 32 == 0 || lane + 32 * e < D;
+}
+
+template <int DK, int DV, typename T>
 __global__ void __launch_bounds__(WR * 32) flash_bwd_dq_f32(Params p) {
-  constexpr int E = D / 32;
-  __shared__ __align__(16) float sK[TN][D];
-  __shared__ __align__(16) float sV[TN][D];
+  constexpr int EK = (DK + 31) / 32, EV = (DV + 31) / 32;
+  constexpr int TN_ = simt_rows<DK, DV>();
+  __shared__ __align__(16) float sK[TN_][DK];
+  __shared__ __align__(16) float sV[TN_][DV];
 
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
   const int kvh = h / (p.H / p.KV);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = blockIdx.x * WR, row = q0 + warp;
-  const size_t q_stride = (size_t)p.H * D, kv_stride = (size_t)p.KV * D;
-  const size_t q_off = ((size_t)b * p.S * p.H + h) * D;
-  const float* kb = static_cast<const float*>(p.k) + ((size_t)b * p.Sk * p.KV + kvh) * D;
-  const float* vb = static_cast<const float*>(p.v) + ((size_t)b * p.Sk * p.KV + kvh) * D;
+  const size_t q_stride = (size_t)p.H * DK, o_stride = (size_t)p.H * DV;
+  const size_t k_stride = (size_t)p.KV * DK, v_stride = (size_t)p.KV * DV;
+  const size_t q_off = ((size_t)b * p.S * p.H + h) * DK;
+  const size_t o_off = ((size_t)b * p.S * p.H + h) * DV;
+  const T* kb = static_cast<const T*>(p.k) + ((size_t)b * p.Sk * p.KV + kvh) * DK;
+  const T* vb = static_cast<const T*>(p.v) + ((size_t)b * p.Sk * p.KV + kvh) * DV;
   const size_t row_off = ((size_t)b * p.H + h) * p.S;
   const bool live = row < p.S;
 
-  float q[E], dout[E], dq[E];
+  float q[EK], dq[EK], dout[EV];
   float delta = 0.f;
 #pragma unroll
-  for (int i = 0; i < E; ++i) {
-    const size_t at = q_off + (size_t)row * q_stride + lane + 32 * i;
-    q[i] = live ? static_cast<const float*>(p.q)[at] : 0.f;
-    dout[i] = live ? static_cast<const float*>(p.dout)[at] : 0.f;
-    delta += live ? static_cast<const float*>(p.o)[at] * dout[i] : 0.f;
+  for (int i = 0; i < EK; ++i) {
+    const bool in = live && has_col<DK>(lane, i);
+    q[i] = in ? to_f(static_cast<const T*>(p.q)[q_off + (size_t)row * q_stride + lane + 32 * i])
+              : 0.f;
     dq[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < EV; ++i) {
+    const bool in = live && has_col<DV>(lane, i);
+    const size_t at = o_off + (size_t)row * o_stride + lane + 32 * i;
+    dout[i] = in ? to_f(static_cast<const T*>(p.dout)[at]) : 0.f;
+    delta += in ? to_f(static_cast<const T*>(p.o)[at]) * dout[i] : 0.f;
   }
   delta = warp_sum(delta);
   if (live && lane == 0) p.delta[row_off + row] = delta;
@@ -491,175 +735,246 @@ __global__ void __launch_bounds__(WR * 32) flash_bwd_dq_f32(Params p) {
 
   int lo, hi;
   kv_range(p, q0, WR, lo, hi);
-  for (int k0 = (lo / TN) * TN; k0 < hi; k0 += TN) {
+  for (int k0 = (lo / TN_) * TN_; k0 < hi; k0 += TN_) {
     __syncthreads();
-    for (int c = threadIdx.x; c < TN * D; c += blockDim.x) {
-      const int r = c / D, d = c % D;
-      const bool in = k0 + r < p.Sk;
-      sK[r][d] = in ? kb[(size_t)(k0 + r) * kv_stride + d] : 0.f;
-      sV[r][d] = in ? vb[(size_t)(k0 + r) * kv_stride + d] : 0.f;
+    for (int c = threadIdx.x; c < TN_ * DK; c += blockDim.x) {
+      const int r = c / DK, d = c % DK;
+      sK[r][d] = k0 + r < p.Sk ? to_f(kb[(size_t)(k0 + r) * k_stride + d]) : 0.f;
+    }
+    for (int c = threadIdx.x; c < TN_ * DV; c += blockDim.x) {
+      const int r = c / DV, d = c % DV;
+      sV[r][d] = k0 + r < p.Sk ? to_f(vb[(size_t)(k0 + r) * v_stride + d]) : 0.f;
     }
     __syncthreads();
-    for (int j = 0; j < TN; ++j) {
+    for (int j = 0; j < TN_; ++j) {
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int i = 0; i < E; ++i) {
-        s = fmaf(q[i], sK[j][lane + 32 * i], s);
-        dp = fmaf(dout[i], sV[j][lane + 32 * i], dp);
-      }
+      for (int i = 0; i < EK; ++i)
+        if (has_col<DK>(lane, i)) s = fmaf(q[i], sK[j][lane + 32 * i], s);
+#pragma unroll
+      for (int i = 0; i < EV; ++i)
+        if (has_col<DV>(lane, i)) dp = fmaf(dout[i], sV[j][lane + 32 * i], dp);
       s = warp_sum(s);
       dp = warp_sum(dp);
       if (visible(p, row, k0 + j)) {   // uniform over the warp
         const float ds = exp2f(fmaf(s, p.scale_log2, -lse2)) * (dp - delta);
 #pragma unroll
-        for (int i = 0; i < E; ++i) dq[i] = fmaf(ds, sK[j][lane + 32 * i], dq[i]);
+        for (int i = 0; i < EK; ++i)
+          if (has_col<DK>(lane, i)) dq[i] = fmaf(ds, sK[j][lane + 32 * i], dq[i]);
       }
     }
   }
   if (live)
 #pragma unroll
-    for (int i = 0; i < E; ++i)
-      static_cast<float*>(p.dq)[q_off + (size_t)row * q_stride + lane + 32 * i] = dq[i] * p.scale;
+    for (int i = 0; i < EK; ++i)
+      if (has_col<DK>(lane, i))
+        store_f(static_cast<T*>(p.dq) + q_off + (size_t)row * q_stride + lane + 32 * i,
+                dq[i] * p.scale);
 }
 
-template <int D>
+template <int DK, int DV, typename T>
 __global__ void __launch_bounds__(WR * 32) flash_bwd_dkdv_f32(Params p) {
-  constexpr int E = D / 32;
-  __shared__ __align__(16) float sQ[TN][D];
-  __shared__ __align__(16) float sdO[TN][D];
-  __shared__ float sL[TN], sDl[TN];
+  constexpr int EK = (DK + 31) / 32, EV = (DV + 31) / 32;
+  constexpr int TN_ = simt_rows<DK, DV>();
+  __shared__ __align__(16) float sQ[TN_][DK];
+  __shared__ __align__(16) float sdO[TN_][DV];
+  __shared__ float sL[TN_], sDl[TN_];
 
   const int bk = blockIdx.y;
   const int b = bk / p.KV, kvh = bk % p.KV;
   const int group = p.H / p.KV;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int k0 = blockIdx.x * WR, krow = k0 + warp;
-  const size_t q_stride = (size_t)p.H * D, kv_stride = (size_t)p.KV * D;
-  const size_t kv_off = ((size_t)b * p.Sk * p.KV + kvh) * D;
+  const size_t q_stride = (size_t)p.H * DK, o_stride = (size_t)p.H * DV;
+  const size_t k_stride = (size_t)p.KV * DK, v_stride = (size_t)p.KV * DV;
+  const size_t k_off = ((size_t)b * p.Sk * p.KV + kvh) * DK;
+  const size_t v_off = ((size_t)b * p.Sk * p.KV + kvh) * DV;
   const bool live = krow < p.Sk;
 
-  float k[E], v[E], dk[E], dv[E];
+  float k[EK], dk[EK], v[EV], dv[EV];
 #pragma unroll
-  for (int i = 0; i < E; ++i) {
-    const size_t at = kv_off + (size_t)krow * kv_stride + lane + 32 * i;
-    k[i] = live ? static_cast<const float*>(p.k)[at] : 0.f;
-    v[i] = live ? static_cast<const float*>(p.v)[at] : 0.f;
-    dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < EK; ++i) {
+    const bool in = live && has_col<DK>(lane, i);
+    k[i] = in ? to_f(static_cast<const T*>(p.k)[k_off + (size_t)krow * k_stride + lane + 32 * i])
+              : 0.f;
+    dk[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < EV; ++i) {
+    const bool in = live && has_col<DV>(lane, i);
+    v[i] = in ? to_f(static_cast<const T*>(p.v)[v_off + (size_t)krow * v_stride + lane + 32 * i])
+              : 0.f;
+    dv[i] = 0.f;
   }
 
   int lo, hi;
   q_range(p, k0, WR, lo, hi);
   for (int hh = 0; hh < group; ++hh) {
     const int h = kvh * group + hh;
-    const size_t q_off = ((size_t)b * p.S * p.H + h) * D;
-    const float* qb = static_cast<const float*>(p.q) + q_off;
-    const float* dob = static_cast<const float*>(p.dout) + q_off;
+    const T* qb = static_cast<const T*>(p.q) + ((size_t)b * p.S * p.H + h) * DK;
+    const T* dob = static_cast<const T*>(p.dout) + ((size_t)b * p.S * p.H + h) * DV;
     const size_t row_off = ((size_t)b * p.H + h) * p.S;
-    for (int q0 = (lo / TN) * TN; q0 < hi; q0 += TN) {
+    for (int q0 = (lo / TN_) * TN_; q0 < hi; q0 += TN_) {
       __syncthreads();
-      for (int c = threadIdx.x; c < TN * D; c += blockDim.x) {
-        const int r = c / D, d = c % D;
-        const bool in = q0 + r < p.S;
-        sQ[r][d] = in ? qb[(size_t)(q0 + r) * q_stride + d] : 0.f;
-        sdO[r][d] = in ? dob[(size_t)(q0 + r) * q_stride + d] : 0.f;
+      for (int c = threadIdx.x; c < TN_ * DK; c += blockDim.x) {
+        const int r = c / DK, d = c % DK;
+        sQ[r][d] = q0 + r < p.S ? to_f(qb[(size_t)(q0 + r) * q_stride + d]) : 0.f;
       }
-      for (int i = threadIdx.x; i < TN; i += blockDim.x) {
+      for (int c = threadIdx.x; c < TN_ * DV; c += blockDim.x) {
+        const int r = c / DV, d = c % DV;
+        sdO[r][d] = q0 + r < p.S ? to_f(dob[(size_t)(q0 + r) * o_stride + d]) : 0.f;
+      }
+      for (int i = threadIdx.x; i < TN_; i += blockDim.x) {
         const bool in = q0 + i < p.S;
         sL[i] = in ? p.lse[row_off + q0 + i] * LOG2E : 0.f;
         sDl[i] = in ? p.delta[row_off + q0 + i] : 0.f;
       }
       __syncthreads();
-      for (int j = 0; j < TN; ++j) {
+      for (int j = 0; j < TN_; ++j) {
         float s = 0.f, dp = 0.f;
 #pragma unroll
-        for (int i = 0; i < E; ++i) {
-          s = fmaf(k[i], sQ[j][lane + 32 * i], s);
-          dp = fmaf(v[i], sdO[j][lane + 32 * i], dp);
-        }
+        for (int i = 0; i < EK; ++i)
+          if (has_col<DK>(lane, i)) s = fmaf(k[i], sQ[j][lane + 32 * i], s);
+#pragma unroll
+        for (int i = 0; i < EV; ++i)
+          if (has_col<DV>(lane, i)) dp = fmaf(v[i], sdO[j][lane + 32 * i], dp);
         s = warp_sum(s);
         dp = warp_sum(dp);
         if (live && visible(p, q0 + j, krow)) {   // uniform over the warp
           const float pj = exp2f(fmaf(s, p.scale_log2, -sL[j]));
           const float ds = pj * (dp - sDl[j]);
 #pragma unroll
-          for (int i = 0; i < E; ++i) {
-            dv[i] = fmaf(pj, sdO[j][lane + 32 * i], dv[i]);
-            dk[i] = fmaf(ds, sQ[j][lane + 32 * i], dk[i]);
-          }
+          for (int i = 0; i < EV; ++i)
+            if (has_col<DV>(lane, i)) dv[i] = fmaf(pj, sdO[j][lane + 32 * i], dv[i]);
+#pragma unroll
+          for (int i = 0; i < EK; ++i)
+            if (has_col<DK>(lane, i)) dk[i] = fmaf(ds, sQ[j][lane + 32 * i], dk[i]);
         }
       }
     }
   }
-  if (live)
+  if (live) {
 #pragma unroll
-    for (int i = 0; i < E; ++i) {
-      const size_t at = kv_off + (size_t)krow * kv_stride + lane + 32 * i;
-      static_cast<float*>(p.dk)[at] = dk[i] * p.scale;
-      static_cast<float*>(p.dv)[at] = dv[i];
-    }
+    for (int i = 0; i < EK; ++i)
+      if (has_col<DK>(lane, i))
+        store_f(static_cast<T*>(p.dk) + k_off + (size_t)krow * k_stride + lane + 32 * i,
+                dk[i] * p.scale);
+#pragma unroll
+    for (int i = 0; i < EV; ++i)
+      if (has_col<DV>(lane, i))
+        store_f(static_cast<T*>(p.dv) + v_off + (size_t)krow * v_stride + lane + 32 * i, dv[i]);
+  }
 }
-
 
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
+// the TMA maps of q, dO, k and v: layout holds q's, k's, v's and dO's
+template <int DK, int DV>
+int encode_maps(const Params& p, const long long* layout, CUtensorMap& tm_q, CUtensorMap& tm_do,
+                CUtensorMap& tm_k, CUtensorMap& tm_v) {
+  int err = encode(&tm_q, p.q, layout, ROWS);
+  if (!err) err = encode(&tm_k, p.k, layout + 11, ROWS);
+  if (!err) err = encode(&tm_v, p.v, layout + 22, ROWS);
+  if (!err) err = encode(&tm_do, p.dout, layout + 33, ROWS);
+  return err;
+}
+
+template <int DK, int DV>
+int launch_dq_bf16(const Params& p, const CUtensorMap& tm_q, const CUtensorMap& tm_do,
+                   const CUtensorMap& tm_k, const CUtensorMap& tm_v, cudaStream_t stream) {
+  static uint32_t opted = 0;   // a bit per device
+  const int err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dq_bf16<DK, DV>),
+                              DqSmem<DK, DV>::BYTES, opted);
+  if (err) return err;
+  flash_bwd_dq_bf16<DK, DV><<<dim3(p.B * p.H, (p.S + ROWS - 1) / ROWS), 128,
+                              DqSmem<DK, DV>::BYTES, stream>>>(tm_q, tm_do, tm_k, tm_v, p);
+  return (int)cudaGetLastError();
+}
+
+// D 64 and 128: the dQ kernel, then the one-warpgroup dK/dV kernel
 template <int D>
 int launch_bf16(const Params& p, const long long* layout, cudaStream_t stream) {
   CUtensorMap tm_q, tm_do, tm_k, tm_v;
-  int err = encode(&tm_q, p.q, layout, ROWS);
-  if (!err) err = encode(&tm_do, p.dout, layout, ROWS);
-  if (!err) err = encode(&tm_k, p.k, layout + 11, ROWS);
-  if (!err) err = encode(&tm_v, p.v, layout + 11, ROWS);
+  int err = encode_maps<D, D>(p, layout, tm_q, tm_do, tm_k, tm_v);
+  if (!err) err = launch_dq_bf16<D, D>(p, tm_q, tm_do, tm_k, tm_v, stream);
   if (err) return err;
-  static uint32_t opted_dq = 0, opted_dkdv = 0;   // a bit per device
-  err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dq_bf16<D>), DqSmem<D>::BYTES,
-                    opted_dq);
-  if (!err)
-    err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_bf16<D>), DkdvSmem<D>::BYTES,
-                      opted_dkdv);
+  static uint32_t opted = 0;   // a bit per device
+  err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_bf16<D>), DkdvSmem<D>::BYTES,
+                    opted);
   if (err) return err;
-  flash_bwd_dq_bf16<D><<<dim3(p.B * p.H, (p.S + ROWS - 1) / ROWS), 128, DqSmem<D>::BYTES,
-                         stream>>>(tm_q, tm_do, tm_k, tm_v, p);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
   flash_bwd_dkdv_bf16<D><<<dim3(p.B * p.KV, (p.Sk + ROWS - 1) / ROWS), 128, DkdvSmem<D>::BYTES,
                            stream>>>(tm_q, tm_do, tm_k, tm_v, p);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_f32(const Params& p, cudaStream_t stream) {
-  flash_bwd_dq_f32<D><<<dim3((p.S + WR - 1) / WR, p.B * p.H), WR * 32, 0, stream>>>(p);
+// (256, 256) and (192, 128): the dQ kernel, then the two-warpgroup dK/dV kernel
+template <int DK, int DV>
+int launch_bf16_split(const Params& p, const long long* layout, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  int err = encode_maps<DK, DV>(p, layout, tm_q, tm_do, tm_k, tm_v);
+  if (!err) err = launch_dq_bf16<DK, DV>(p, tm_q, tm_do, tm_k, tm_v, stream);
+  if (err) return err;
+  static uint32_t opted = 0;   // a bit per device
+  err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_bf16_split<DK, DV>),
+                    SplitSmem<DK, DV>::BYTES, opted);
+  if (err) return err;
+  flash_bwd_dkdv_bf16_split<DK, DV><<<dim3(p.B * p.KV, (p.Sk + ROWS - 1) / ROWS), 256,
+                                      SplitSmem<DK, DV>::BYTES, stream>>>(tm_q, tm_do, tm_k,
+                                                                          tm_v, p);
+  return (int)cudaGetLastError();
+}
+
+template <int DK, int DV, typename T>
+int launch_simt(const Params& p, cudaStream_t stream) {
+  flash_bwd_dq_f32<DK, DV, T><<<dim3((p.S + WR - 1) / WR, p.B * p.H), WR * 32, 0, stream>>>(p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_f32<D><<<dim3((p.Sk + WR - 1) / WR, p.B * p.KV), WR * 32, 0, stream>>>(p);
+  flash_bwd_dkdv_f32<DK, DV, T><<<dim3((p.Sk + WR - 1) / WR, p.B * p.KV), WR * 32, 0, stream>>>(
+      p);
   return (int)cudaGetLastError();
+}
+
+template <int DK, int DV>
+int launch_simt_either(const Params& p, cudaStream_t stream, int is_bf16) {
+  return is_bf16 ? launch_simt<DK, DV, __nv_bfloat16>(p, stream)
+                 : launch_simt<DK, DV, float>(p, stream);
 }
 
 }  // namespace
 
-// q, o, dout, dq: (B, S, H, D); k, v, dk, dv: (B, Sk, KV, D); all contiguous,
-// one dtype (bf16 if is_bf16 else fp32).  lse: (B, H, S) fp32 from the
-// forward.  scratch: 2 * B * H * s_pad fp32, s_pad = S rounded up to 64.
-// layout: for bf16, the TMA layouts of q (also dout's) and of k (also
-// v's) with boxes of 64 rows, 11 values each, as
-// kernels/flash_attention.py:tma_layout computes them; unused for fp32.
+// q, dq: (B, S, H, DK); o, dout: (B, S, H, DV); k, dk: (B, Sk, KV, DK);
+// v, dv: (B, Sk, KV, DV); all contiguous, one dtype (bf16 if is_bf16 else
+// fp32).  lse: (B, H, S) fp32 from the forward.  scratch: 2 * B * H * s_pad
+// fp32, s_pad = S rounded up to 64.  layout: for bf16 at the wgmma head
+// dims ((64, 64), (128, 128), (256, 256), (192, 128)), the TMA layouts of
+// q, k, v and dout with boxes of 64 rows, 11 values each, as
+// kernels/flash_attention.py:tma_layout computes them; unused otherwise.
 // The two kernels run in order on `stream`.  Returns cudaGetLastError()
 // after the launches, or a negative code from encode().
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, void* dq, void* dk,
                                    void* dv, float* scratch, int B, int S, int Sk, int H, int KV,
-                                   int D, int causal, int window, int is_bf16, void* stream,
-                                   const long long* layout) {
-  const float scale = 1.f / sqrtf((float)D);
+                                   int DK, int DV, int causal, int window, int is_bf16,
+                                   void* stream, const long long* layout) {
+  const float scale = 1.f / sqrtf((float)DK);
   const int s_pad = (S + ROWS - 1) / ROWS * ROWS;
   Params p{q, k, v, o, dout, lse, dq, dk, dv, scratch, scratch + (size_t)B * H * s_pad,
            B, S, Sk, H, KV, causal, window, scale, LOG2E * scale, s_pad};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && layout == nullptr) return (int)cudaErrorInvalidValue;
-  if (is_bf16 && D == 64) return launch_bf16<64>(p, layout, st);
-  if (is_bf16 && D == 128) return launch_bf16<128>(p, layout, st);
-  if (!is_bf16 && D == 64) return launch_f32<64>(p, st);
-  if (!is_bf16 && D == 128) return launch_f32<128>(p, st);
+  if (DK == 16 && DV == 16) return launch_simt_either<16, 16>(p, st, is_bf16);
+  if (DK == 24 && DV == 16) return launch_simt_either<24, 16>(p, st, is_bf16);
+  if (!is_bf16) {
+    if (DK == 64 && DV == 64) return launch_simt<64, 64, float>(p, st);
+    if (DK == 128 && DV == 128) return launch_simt<128, 128, float>(p, st);
+    if (DK == 256 && DV == 256) return launch_simt<256, 256, float>(p, st);
+    if (DK == 192 && DV == 128) return launch_simt<192, 128, float>(p, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (layout == nullptr) return (int)cudaErrorInvalidValue;
+  if (DK == 64 && DV == 64) return launch_bf16<64>(p, layout, st);
+  if (DK == 128 && DV == 128) return launch_bf16<128>(p, layout, st);
+  if (DK == 256 && DV == 256) return launch_bf16_split<256, 256>(p, layout, st);
+  if (DK == 192 && DV == 128) return launch_bf16_split<192, 128>(p, layout, st);
   return (int)cudaErrorInvalidValue;
 }

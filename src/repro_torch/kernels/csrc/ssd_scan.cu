@@ -89,22 +89,25 @@ namespace {
 
 using namespace hopper;
 
-constexpr int P = 64;         // head dim (mamba2-780m)
-constexpr int N = 128;        // state dim
-constexpr int NS = N + 1;     // padded row stride of B, C, the decay tile and the state
-constexpr int NT = 256;       // threads per block
+constexpr int P = 64;         // head dim (mamba2-780m) of the bf16 wgmma kernel
+constexpr int N = 128;        // its state dim
+constexpr int NT = 256;       // threads per block of the SIMT kernel
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
 
 // ---------------------------------------------------------------------------
-// fp32: SIMT
+// SIMT: fp32 at mamba2's (P 64, N 128), both dtypes at the smoke config's
+// (P 16, N 16)
 // ---------------------------------------------------------------------------
-// The fp32 kernel (the first design, kept for fp32 inputs): one block of 256
+// The SIMT kernel (the first design, kept for fp32 inputs and for the smoke
+// config, whose 16-column rows are not whole TMA boxes): templated on the
+// chunk Q, the head and state dims P and N, the element type T of x, dt, b,
+// c, y and the state (bf16 or fp32; the arithmetic is fp32) and TA of a.
+// The launcher picks it by shape and dtype alone.  One block of 256
 // threads per (b, h) loops over the chunks with the fp32 state in shared
-// memory (32 KB).  A chunk's B, C and x*dt are staged in shared memory as
+// memory (32 KB at P 64, N 128).  A chunk's B, C and x*dt are staged in shared memory as
 // fp32 (about 196 KB at Q 128, so one block an SM), the Q x Q decay tile
 // (C B^T masked, then exp(cs_i - cs_j)) is built in registers and written
 // over C, and the products are fp32 FMAs on the CUDA cores with register
@@ -122,21 +125,36 @@ struct Params {
   long long xs_b, xs_l, bs_b, bs_l, cs_b, cs_l;   // batch and step strides, in elements
 };
 
-template <int Q>
+// padded row strides: of B and the state (NS), of C and the decay tile
+// that is written over it (CS: a Q-wide tile needs Q columns where N < Q)
+template <int Q, int N_>
+struct SimtStrides {
+  static constexpr int NS = N_ + 1;
+  static constexpr int CS = (N_ > Q ? N_ : Q) + 1;
+};
+
+template <int Q, int P_, int N_>
 constexpr size_t smem_bytes() {
   // the fp64 cumsum, then B, C/decay tile, x*dt, state, and three per-step vectors
+  using ST = SimtStrides<Q, N_>;
   return sizeof(double) * Q +
-         sizeof(float) * ((size_t)2 * Q * NS + (size_t)Q * P + (size_t)P * NS + 3 * Q);
+         sizeof(float) * ((size_t)Q * ST::NS + (size_t)Q * ST::CS + (size_t)Q * P_ +
+                          (size_t)P_ * ST::NS + 3 * Q);
 }
 
-template <int Q, typename T, typename TA>
+template <int Q, int P_, int N_, typename T, typename TA>
 __global__ void __launch_bounds__(NT) ssd_fwd(Params prm) {
-  static_assert(Q % 32 == 0 && Q <= N && Q <= NT, "chunk must be 32, 64 or 128");
+  static_assert(Q % 32 == 0 && Q <= NT, "chunk must be 32, 64 or 128");
+  static_assert(P_ % 16 == 0 && N_ % 16 == 0, "P and N must be multiples of 16");
+  static_assert(NT % N_ == 0 && NT % P_ == 0 && (Q * N_) % NT == 0 && (Q * P_) % NT == 0,
+                "rows are split evenly");
+  constexpr int NS = SimtStrides<Q, N_>::NS, CS = SimtStrides<Q, N_>::CS;
+  constexpr int P = P_, N = N_;
   extern __shared__ __align__(16) unsigned char smem[];
   double* cum = reinterpret_cast<double*>(smem);   // (Q,) cumsum of da within the chunk
   float* bs = reinterpret_cast<float*>(cum + Q);   // (Q, NS) B rows
-  float* cs = bs + Q * NS;          // (Q, NS) C rows, then the decay tile
-  float* xdt = cs + Q * NS;         // (Q, P) x * dt
+  float* cs = bs + Q * NS;          // (Q, CS) C rows, then the decay tile
+  float* xdt = cs + Q * CS;         // (Q, P) x * dt
   float* sts = xdt + Q * P;         // (P, NS) the carried state
   float* dts = sts + P * NS;        // (Q,) dt
   float* ein = dts + Q;             // (Q,) exp(cum_i): decay of the carried state into y
@@ -160,9 +178,13 @@ __global__ void __launch_bounds__(NT) ssd_fwd(Params prm) {
   constexpr int RI = NT / 16;
   constexpr int YR = Q / RI;        // rows per thread
   constexpr int DC = Q / 16;        // decay-tile columns per thread
+  constexpr int PC = P / 16;        // y columns per thread
   const int ti = t / 16, tc = t % 16;
-  // (P x N) state update: p = tp + 8 r, n = tn + 32 k
-  const int tp = t / 32, tn = t % 32;
+  // (P x N) state update: p = tp + TPR r, n = tn + TNC k (P 64, N 128: 8 x 4 a thread)
+  constexpr int TNC = N < 32 ? N : 32, TPR = NT / TNC;
+  constexpr int SR = P / TPR, SK = N / TNC;
+  static_assert(SR * TPR == P, "state rows are split evenly");
+  const int tp = t / TNC, tn = t % TNC;
 
   const int nchunks = (L + Q - 1) / Q;
   for (int ch = 0; ch < nchunks; ++ch) {
@@ -175,12 +197,11 @@ __global__ void __launch_bounds__(NT) ssd_fwd(Params prm) {
     // each thread keeps one column (n, or pp of x) and walks the rows; the
     // trip counts are fixed and unrolled so that many loads are in flight
     // at once (one block per SM hides little latency)
-    static_assert(NT % N == 0 && NT % P == 0, "rows are split evenly");
 #pragma unroll 8
     for (int k = 0; k < Q * N / NT; ++k) {
       const int i = t / N + k * (NT / N), n = t % N, l = l0 + i;
       bs[i * NS + n] = l < L ? ld(bg + l * bs_l + n) : 0.f;
-      cs[i * NS + n] = l < L ? ld(cg + l * cs_l + n) : 0.f;
+      cs[i * CS + n] = l < L ? ld(cg + l * cs_l + n) : 0.f;
     }
 #pragma unroll 8
     for (int k = 0; k < Q * P / NT; ++k) {
@@ -218,28 +239,28 @@ __global__ void __launch_bounds__(NT) ssd_fwd(Params prm) {
     __syncthreads();
 
     // -- carried-state term: acc = exp(cum_i) (C_i . state_p) -----------
-    float acc[YR][4];
+    float acc[YR][PC];
 #pragma unroll
     for (int r = 0; r < YR; ++r)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) acc[r][k] = 0.f;
+      for (int k = 0; k < PC; ++k) acc[r][k] = 0.f;
 #pragma unroll 4
     for (int n = 0; n < N; ++n) {
-      float cv[YR], sv[4];
+      float cv[YR], sv[PC];
 #pragma unroll
-      for (int r = 0; r < YR; ++r) cv[r] = cs[(ti + RI * r) * NS + n];
+      for (int r = 0; r < YR; ++r) cv[r] = cs[(ti + RI * r) * CS + n];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) sv[k] = sts[(tc + 16 * k) * NS + n];
+      for (int k = 0; k < PC; ++k) sv[k] = sts[(tc + 16 * k) * NS + n];
 #pragma unroll
       for (int r = 0; r < YR; ++r)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) acc[r][k] = fmaf(cv[r], sv[k], acc[r][k]);
+        for (int k = 0; k < PC; ++k) acc[r][k] = fmaf(cv[r], sv[k], acc[r][k]);
     }
 #pragma unroll
     for (int r = 0; r < YR; ++r) {
       const float e = ein[ti + RI * r];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) acc[r][k] *= e;
+      for (int k = 0; k < PC; ++k) acc[r][k] *= e;
     }
 
     // -- decay tile: (C_i . B_j) exp(cum_i - cum_j) for j <= i, else 0 --
@@ -252,7 +273,7 @@ __global__ void __launch_bounds__(NT) ssd_fwd(Params prm) {
     for (int n = 0; n < N; ++n) {
       float cv[YR], bv[DC];
 #pragma unroll
-      for (int r = 0; r < YR; ++r) cv[r] = cs[(ti + RI * r) * NS + n];
+      for (int r = 0; r < YR; ++r) cv[r] = cs[(ti + RI * r) * CS + n];
 #pragma unroll
       for (int k = 0; k < DC; ++k) bv[k] = bs[(tc + 16 * k) * NS + n];
 #pragma unroll
@@ -274,21 +295,21 @@ __global__ void __launch_bounds__(NT) ssd_fwd(Params prm) {
 #pragma unroll
     for (int r = 0; r < YR; ++r)
 #pragma unroll
-      for (int k = 0; k < DC; ++k) cs[(ti + RI * r) * NS + tc + 16 * k] = dcy[r][k];
+      for (int k = 0; k < DC; ++k) cs[(ti + RI * r) * CS + tc + 16 * k] = dcy[r][k];
     __syncthreads();
 
     // -- intra-chunk term: acc += decay_i . (x dt); write y -------------
     const int jmax = ti + RI * (YR - 1) + 1;   // past this thread's last row
     for (int j = 0; j < jmax; ++j) {
-      float dv[YR], xv[4];
+      float dv[YR], xv[PC];
 #pragma unroll
-      for (int r = 0; r < YR; ++r) dv[r] = cs[(ti + RI * r) * NS + j];
+      for (int r = 0; r < YR; ++r) dv[r] = cs[(ti + RI * r) * CS + j];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) xv[k] = xdt[j * P + tc + 16 * k];
+      for (int k = 0; k < PC; ++k) xv[k] = xdt[j * P + tc + 16 * k];
 #pragma unroll
       for (int r = 0; r < YR; ++r)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) acc[r][k] = fmaf(dv[r], xv[k], acc[r][k]);
+        for (int k = 0; k < PC; ++k) acc[r][k] = fmaf(dv[r], xv[k], acc[r][k]);
     }
 #pragma unroll
     for (int r = 0; r < YR; ++r) {
@@ -296,61 +317,61 @@ __global__ void __launch_bounds__(NT) ssd_fwd(Params prm) {
       if (l < L) {
         T* yrow = yg + (((size_t)bi * L + l) * H + h) * P;
 #pragma unroll
-        for (int k = 0; k < 4; ++k) st(yrow + tc + 16 * k, acc[r][k]);
+        for (int k = 0; k < PC; ++k) store_f(yrow + tc + 16 * k, acc[r][k]);
       }
     }
 
     // -- state = exp(cum_last) state + sum_j wout_j (x dt)_j B_j^T --------
     {
       const float keep = expf((float)cum[Q - 1]);
-      float sacc[8][4];
+      float sacc[SR][SK];
 #pragma unroll
-      for (int r = 0; r < 8; ++r)
+      for (int r = 0; r < SR; ++r)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) sacc[r][k] = sts[(tp + 8 * r) * NS + tn + 32 * k] * keep;
+        for (int k = 0; k < SK; ++k) sacc[r][k] = sts[(tp + TPR * r) * NS + tn + TNC * k] * keep;
 #pragma unroll 4
       for (int j = 0; j < Q; ++j) {
         const float w = wout[j];
-        float xv[8], bv[4];
+        float xv[SR], bv[SK];
 #pragma unroll
-        for (int r = 0; r < 8; ++r) xv[r] = xdt[j * P + tp + 8 * r];
+        for (int r = 0; r < SR; ++r) xv[r] = xdt[j * P + tp + TPR * r];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) bv[k] = bs[j * NS + tn + 32 * k] * w;
+        for (int k = 0; k < SK; ++k) bv[k] = bs[j * NS + tn + TNC * k] * w;
 #pragma unroll
-        for (int r = 0; r < 8; ++r)
+        for (int r = 0; r < SR; ++r)
 #pragma unroll
-          for (int k = 0; k < 4; ++k) sacc[r][k] = fmaf(xv[r], bv[k], sacc[r][k]);
+          for (int k = 0; k < SK; ++k) sacc[r][k] = fmaf(xv[r], bv[k], sacc[r][k]);
       }
       // each thread rewrites only the state elements it read
 #pragma unroll
-      for (int r = 0; r < 8; ++r)
+      for (int r = 0; r < SR; ++r)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) sts[(tp + 8 * r) * NS + tn + 32 * k] = sacc[r][k];
+        for (int k = 0; k < SK; ++k) sts[(tp + TPR * r) * NS + tn + TNC * k] = sacc[r][k];
     }
     __syncthreads();                // before the next chunk restages
   }
 
   T* sg = static_cast<T*>(prm.state) + (size_t)bh * P * N;
-  for (int e = t; e < P * N; e += NT) st(sg + e, sts[(e / N) * NS + e % N]);
+  for (int e = t; e < P * N; e += NT) store_f(sg + e, sts[(e / N) * NS + e % N]);
 }
 
-template <int Q, typename T, typename TA>
+template <int Q, int P_, int N_, typename T, typename TA>
 int launch(const Params& p, int blocks, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<Q>();
+  constexpr size_t smem = smem_bytes<Q, P_, N_>();
   // above 48 KB the launch is refused unless the kernel opts in
-  cudaError_t err = cudaFuncSetAttribute(ssd_fwd<Q, T, TA>,
+  cudaError_t err = cudaFuncSetAttribute(ssd_fwd<Q, P_, N_, T, TA>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ssd_fwd<Q, T, TA><<<blocks, NT, smem, stream>>>(p);
+  ssd_fwd<Q, P_, N_, T, TA><<<blocks, NT, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename TA>
+template <int P_, int N_, typename T, typename TA>
 int by_chunk(const Params& p, int blocks, int q, cudaStream_t stream) {
   switch (q) {
-    case 32: return launch<32, T, TA>(p, blocks, stream);
-    case 64: return launch<64, T, TA>(p, blocks, stream);
-    case 128: return launch<128, T, TA>(p, blocks, stream);
+    case 32: return launch<32, P_, N_, T, TA>(p, blocks, stream);
+    case 64: return launch<64, P_, N_, T, TA>(p, blocks, stream);
+    case 128: return launch<128, P_, N_, T, TA>(p, blocks, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -728,11 +749,13 @@ int bf16_by_chunk(const BfParams& p, const void* x, const void* b, const void* c
 // wider tensor; each (H, P) row of x and each N row of b and c is
 // contiguous.  dt, a, y and state are contiguous.  x, dt, b, c, y, state
 // are of one type (bf16 if is_bf16 else fp32), a bf16 if a_is_bf16 else
-// fp32.  q is the chunk: 64 or 128 for bf16, 32, 64 or 128 for fp32.
-// layout: for bf16, the TMA layouts of x (viewed as (B, L, H, P)), b and
-// c (each viewed as (B, L, 1, N)) with boxes of q rows, as
+// fp32.  (P, N) is (64, 128), bf16 on the wgmma kernel, fp32 on the SIMT
+// one (a fp32); or (16, 16), the SIMT kernel in either dtype.  q is the
+// chunk: 64 or 128 on the wgmma kernel, 32, 64 or 128 on the SIMT one.
+// layout: for the wgmma kernel, the TMA layouts of x (viewed as (B, L, H,
+// P)), b and c (each viewed as (B, L, 1, N)) with boxes of q rows, as
 // kernels/ssd_scan.py:tma_layouts computes them, and of y with boxes of
-// 64 rows, 11 values each; unused for fp32.
+// 64 rows, 11 values each; unused for the SIMT kernel.
 // Returns cudaGetLastError() after the launch, or a negative code from
 // encode().
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* a, const void* b,
@@ -741,16 +764,23 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* a, const 
                             long long xs_b, long long xs_l, long long bs_b, long long bs_l,
                             long long cs_b, long long cs_l, void* stream,
                             const long long* layout) {
-  if (p_dim != P || n_dim != N || B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = B * H;
+  Params sp{x, dt, a, b, c, y, state, L, H, xs_b, xs_l, bs_b, bs_l, cs_b, cs_l};
+  if (p_dim == 16 && n_dim == 16) {   // the smoke config: SIMT in either dtype
+    if (!is_bf16) return a_is_bf16 ? (int)cudaErrorInvalidValue
+                                   : by_chunk<16, 16, float, float>(sp, blocks, q, st);
+    if (a_is_bf16) return by_chunk<16, 16, __nv_bfloat16, __nv_bfloat16>(sp, blocks, q, st);
+    return by_chunk<16, 16, __nv_bfloat16, float>(sp, blocks, q, st);
+  }
+  if (p_dim != P || n_dim != N) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     if (layout == nullptr) return (int)cudaErrorInvalidValue;
     BfParams p{dt, a, y, state, L, H};
     if (a_is_bf16) return bf16_by_chunk<__nv_bfloat16>(p, x, b, c, layout, blocks, q, st);
     return bf16_by_chunk<float>(p, x, b, c, layout, blocks, q, st);
   }
-  Params p{x, dt, a, b, c, y, state, L, H, xs_b, xs_l, bs_b, bs_l, cs_b, cs_l};
-  if (!a_is_bf16) return by_chunk<float, float>(p, blocks, q, st);
+  if (!a_is_bf16) return by_chunk<P, N, float, float>(sp, blocks, q, st);
   return (int)cudaErrorInvalidValue;
 }

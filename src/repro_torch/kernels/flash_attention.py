@@ -14,7 +14,11 @@ design does about it.
 
 :func:`flash_attention_bwd_cuda` launches the gradient's two kernels
 (``csrc/flash_attention_bwd.cu``) from the forward's output and per-row
-logsumexp.  The public entry is :func:`repro_torch.kernels.ops.flash_attention`
+logsumexp, at every head-dim pair the forward takes.  bf16 at the models'
+head dims goes to the wgmma + TMA kernels, fp32 and the smoke configs'
+head dims (16, 16) and (24, 16) in either dtype to SIMT kernels: the route
+follows from dtype and head dims (:func:`tma_route`), never from a failure
+of another route.  The public entry is :func:`repro_torch.kernels.ops.flash_attention`
 (with :class:`repro_torch.kernels.ops.FlashAttention` for autograd), which
 counts the launches; this module only checks and launches.
 """
@@ -28,11 +32,12 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
-# the (q/k head dim, v head dim) pairs the forward kernels take
-HEAD_DIMS = frozenset({(64, 64), (128, 128), (256, 256), (192, 128)})
-# the head dims the backward kernels take (with v's equal); D 256 and
-# (192, 128) wait in ROADMAP.md, Queue 2 item 1
-BWD_HEAD_DIMS = (64, 128)
+# the (q/k head dim, v head dim) pairs the forward and backward kernels
+# take: the models' (bf16 on wgmma + TMA, fp32 on SIMT) and the smoke
+# configs' (SIMT in both dtypes: 16 or 24 columns are not whole TMA boxes)
+SIMT_HEAD_DIMS = frozenset({(16, 16), (24, 16)})
+HEAD_DIMS = frozenset({(64, 64), (128, 128), (256, 256), (192, 128)}) | SIMT_HEAD_DIMS
+BWD_HEAD_DIMS = HEAD_DIMS
 # the bf16 kernel's tiles: q rows per block (WM in the source), and by
 # head dims the kv tiles it is built for (WN, rows of K and V a pipeline
 # stage holds), the default first.  At q/k dim 256 a 128-key stage does
@@ -105,6 +110,23 @@ def layout_array(q_shape, q_stride, k_shape, k_stride, q_rows: int, kv_rows: int
     return arr
 
 
+def bwd_layout_array(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     do: torch.Tensor) -> ctypes.Array:
+    """The 44 layout values a bf16 backward launch takes: q's, k's, v's and
+    dO's, each with boxes of BWD_BOX_ROWS rows, as a C array (cached as
+    :func:`layout_array` caches)."""
+    key = ("bwd", tuple(q.shape), q.stride(), tuple(k.shape), k.stride(), tuple(v.shape),
+           v.stride(), tuple(do.shape), do.stride())
+    arr = _LAYOUTS.get(key)
+    if arr is None:
+        flat = sum((tma_layout(tuple(t.shape), t.stride(), 2, BWD_BOX_ROWS).flat()
+                    for t in (q, k, v, do)), ())
+        if len(_LAYOUTS) >= 256:
+            _LAYOUTS.clear()
+        arr = _LAYOUTS[key] = (ctypes.c_longlong * len(flat))(*flat)
+    return arr
+
+
 def _fn():
     fn = build.library("flash_attention").flash_attention_fwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
@@ -117,9 +139,15 @@ def _fn():
 def _bwd_fn():
     fn = build.library("flash_attention_bwd").flash_attention_bwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
     return fn
+
+
+def tma_route(dtype: torch.dtype, dk: int, dv: int) -> bool:
+    """Whether a call takes the wgmma + TMA kernels (bf16 at the models'
+    head dims) rather than the SIMT ones: by dtype and head dims alone."""
+    return dtype == torch.bfloat16 and (dk, dv) not in SIMT_HEAD_DIMS
 
 
 def default_kv_tile(dk: int, dv: int) -> int:
@@ -159,12 +187,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     device -> o (B, S, H, Dv), and with ``return_lse`` also each row's
     logsumexp (B, H, S) in fp32.  (D, Dv) is one of HEAD_DIMS.  ``kv_tile``
     picks the bf16 kernel's kv tile among ``KV_TILES[(D, Dv)]`` (None: the
-    default); the fp32 kernel has one tile and takes None only."""
+    default); the SIMT kernels (fp32, and the smoke head dims in bf16)
+    have one tile and take None only."""
     _check(q, k, v)
     b, s, h, d = q.shape
     sk, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     layout, tile = None, 0
-    if q.dtype == torch.bfloat16:   # the TMA layouts of q, k and v
+    if tma_route(q.dtype, d, dv):   # the TMA layouts of q, k and v
         tile = default_kv_tile(d, dv) if kv_tile is None else kv_tile
         if tile not in KV_TILES[(d, dv)]:
             raise ValueError(f"flash_attention: kv tile {tile} at head dims ({d}, {dv}); the "
@@ -172,8 +201,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         layout = layout_array(q.shape, q.stride(), k.shape, k.stride(), BLOCK_Q, tile,
                               v.shape, v.stride())
     elif kv_tile is not None:
-        raise ValueError(f"flash_attention: the {q.dtype} kernel has one tile; kv_tile "
-                         f"{kv_tile} was named")
+        raise ValueError(f"flash_attention: the {q.dtype} kernel at head dims ({d}, {dv}) has "
+                         f"one tile; kv_tile {kv_tile} was named")
     o = q.new_empty((b, s, h, dv))
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
@@ -192,27 +221,18 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
                              causal: bool, window: int
                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The gradient of :func:`flash_attention_cuda`: q, o, do (B, S, H, D),
-    k, v (B, Sk, KV, D), lse (B, H, S) fp32 from the forward -> (dq, dk, dv)
-    in the inputs' dtype, dk and dv summed over each kv head's q heads.
-    Head dims in BWD_HEAD_DIMS only, v's equal to q's: D 256 and a v
-    narrower than q (MLA's 192 / 128) raise (ROADMAP.md, Queue 2 item 1)."""
-    if q.dim() == 4 and v.dim() == 4 and v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError(
-            f"flash_attention_bwd: dv {v.shape[-1]} != d {q.shape[-1]} (MLA) has no backward "
-            "kernel yet: ROADMAP.md, Queue 2 item 1")
-    if q.dim() == 4 and q.shape[-1] not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention_bwd: head dim {q.shape[-1]} has no backward kernel yet "
-            f"(it takes {BWD_HEAD_DIMS}): ROADMAP.md, Queue 2 item 1")
+    """The gradient of :func:`flash_attention_cuda`: q (B, S, H, D), o, do
+    (B, S, H, Dv), k (B, Sk, KV, D), v (B, Sk, KV, Dv), lse (B, H, S) fp32
+    from the forward -> (dq, dk, dv) in the inputs' dtype, dk and dv summed
+    over each kv head's q heads.  (D, Dv) is one of BWD_HEAD_DIMS."""
     _check(q, k, v)
     do = do.contiguous()
     b, s, h, d = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
+    sk, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+        if t.shape != (b, s, h, dv) or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"flash_attention_bwd: {name} is {tuple(t.shape)} {t.dtype} on "
-                             f"{t.device}, not like q {tuple(q.shape)} {q.dtype} on {q.device}")
+                             f"{t.device}, not ({b}, {s}, {h}, {dv}) {q.dtype} on {q.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention_bwd: {name} must be contiguous and 16-byte "
                              "aligned")
@@ -222,21 +242,20 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{lse.device}; expected contiguous ({b}, {h}, {s}) float32 on "
                          f"{q.device}")
     layout = None
-    if q.dtype == torch.bfloat16:   # the TMA layouts of q (and dO) and of k (and v)
-        layout = layout_array(q.shape, q.stride(), k.shape, k.stride(), BWD_BOX_ROWS,
-                              BWD_BOX_ROWS)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if tma_route(q.dtype, d, dv):   # the TMA layouts of q, k, v and dO
+        layout = bwd_layout_array(q, k, v, do)
+    dq, dk, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # Delta and lse in base 2 for the dK/dV kernel, written by the dQ kernel
     s_pad = -(-s // BWD_BOX_ROWS) * BWD_BOX_ROWS
     scratch = torch.empty(2 * b * h * s_pad, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                        scratch.data_ptr(), b, s, sk, h, kvh, d, int(causal), int(window),
+                        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(),
+                        scratch.data_ptr(), b, s, sk, h, kvh, d, dv, int(causal), int(window),
                         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
                         layout)
     if err < 0:
         raise RuntimeError(f"flash_attention_bwd: TMA tensor map not encoded (code {err})")
     if err:
         raise RuntimeError(f"flash_attention_bwd: kernel launch failed with CUDA error {err}")
-    return dq, dk, dv
+    return dq, dk, dv_

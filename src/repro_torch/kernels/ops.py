@@ -12,8 +12,10 @@ launches the flash kernel with each row's logsumexp, its backward the
 gradient's kernels (``csrc/flash_attention_bwd.cu``); on the CPU the
 plain forward and ``flash_attention_bwd_ref``.  ``flash_attention``
 takes that path only when autograd needs it (grad enabled and an input
-requiring grad); prefill and decode make the direct call.  The SSD
-scan has no backward yet.
+requiring grad); prefill and decode make the direct call.  The SSD scan
+differentiates alike through :class:`SsdScan`: its backward launches
+``csrc/ssd_scan_bwd.cu``; on the CPU the plain ``ssd_ref`` and
+``ssd_bwd_ref``.
 
 Tiles: on CUDA, a call that names no tile asks the autotune cache
 (``kernels.autotune``) for this device and shape; a miss keeps the
@@ -47,9 +49,10 @@ from repro_torch.kernels.ref import (
     flash_attention_bwd_ref,
     flash_attention_lse_ref,
     flash_attention_ref,
+    ssd_bwd_ref,
     ssd_ref,
 )
-from repro_torch.kernels.ssd_scan import kernel_chunk, ssd_scan_cuda
+from repro_torch.kernels.ssd_scan import kernel_chunk, ssd_scan_bwd_cuda, ssd_scan_cuda
 
 #: ``launch_hook(name, **inputs)`` at each kernel launch while a roofline
 #: count runs, else None: one global lookup a launch.  A module global, not
@@ -183,6 +186,63 @@ flash_attention.launches = 0
 flash_attention.bwd_launches = 0
 
 
+def _ssd_launch(x, dt, a, b, c, chunk: int | None):
+    """The SSD forward on CUDA: the kernel, counted and hooked."""
+    if chunk is None:
+        chunk = tuned_ssd_chunk(x, dt, a, b, c)
+    out = ssd_scan_cuda(x, dt, a, b, c, chunk=chunk)
+    ssd_scan.launches += 1
+    if launch_hook is not None:
+        launch_hook("ssd_scan", x=x, a=a, b=b,
+                    chunk=kernel_chunk(chunk, x.dtype, x.shape[3], b.shape[-1]))
+    return out
+
+
+def _ssd_meta(x, a, b, chunk: int | None):
+    if launch_hook is not None:
+        launch_hook("ssd_scan", x=x, a=a, b=b, chunk=kernel_chunk(
+            chunk or DEFAULT_SSD_CHUNK, x.dtype, x.shape[3], b.shape[-1]))
+    bb, _, h, p = x.shape
+    return torch.empty_like(x), x.new_empty((bb, h, p, b.shape[-1]))
+
+
+class SsdScan(torch.autograd.Function):
+    """The SSD scan with its gradient: ``SsdScan.apply(x, dt, a, b, c,
+    chunk)`` -> (y, final state).  Saves the inputs; the backward
+    recomputes the states it needs (``csrc/ssd_scan_bwd.cu``)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, chunk: int | None = None):
+        if x.device.type == "cuda":
+            y, state = _ssd_launch(x, dt, a, b, c, chunk)
+        elif x.device.type == "meta":
+            y, state = _ssd_meta(x, a, b, chunk)
+        elif x.device.type == "cpu":
+            y, state = ssd_ref(x, dt, a, b, c)
+        else:
+            raise _no_kernel("ssd_scan", x.device)
+        ctx.save_for_backward(x, dt, a, b, c)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a, b, c = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if x.device.type == "cuda":
+            grads = ssd_scan_bwd_cuda(x, dt, a, b, c, dy, dstate)
+            ssd_scan.bwd_launches += 1
+            if launch_hook is not None:
+                launch_hook("ssd_scan_bwd", x=x, a=a, b=b)
+        elif x.device.type == "meta":
+            if launch_hook is not None:
+                launch_hook("ssd_scan_bwd", x=x, a=a, b=b)
+            grads = tuple(torch.empty_like(t) for t in (x, dt, a, b, c))
+        else:
+            grads = ssd_bwd_ref(x, dt, a, b, c, dy, dstate)
+        return (*grads, None)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor, *, chunk: int | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -190,29 +250,22 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     (B, L, 1, N) -> (y (B, L, H, P), final state (B, H, P, N)).  Any L.
     ``chunk``: the kernel's chunk tile; None asks the autotune cache.
 
-    ``ssd_scan.launches`` counts kernel launches (CUDA only)."""
+    ``ssd_scan.launches`` counts forward kernel launches and
+    ``ssd_scan.bwd_launches`` backward ones (CUDA only)."""
     if b.dim() == 4:                        # (B, L, G, N) with G == 1
         if b.shape[2] != 1 or c.shape[2] != 1:
             raise ValueError(f"ssd_scan: {b.shape[2]} B/C groups; the kernel takes one")
         b, c = b[:, :, 0], c[:, :, 0]
     if _is_dtensor(x):
         return _ssd_on_mesh(x, dt, a, b, c, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c)):
+        return SsdScan.apply(x, dt, a, b, c, chunk)
     if x.device.type == "cuda":
-        if chunk is None:
-            chunk = tuned_ssd_chunk(x, dt, a, b, c)
-        out = ssd_scan_cuda(x, dt, a, b, c, chunk=chunk)
-        ssd_scan.launches += 1
-        if launch_hook is not None:
-            launch_hook("ssd_scan", x=x, a=a, b=b, chunk=kernel_chunk(chunk, x.dtype))
-        return out
+        return _ssd_launch(x, dt, a, b, c, chunk)
     if x.device.type == "cpu":
         return ssd_ref(x, dt, a, b, c)
     if x.device.type == "meta":
-        if launch_hook is not None:
-            launch_hook("ssd_scan", x=x, a=a, b=b,
-                        chunk=kernel_chunk(chunk or DEFAULT_SSD_CHUNK, x.dtype))
-        bb, _, h, p = x.shape
-        return torch.empty_like(x), x.new_empty((bb, h, p, b.shape[-1]))
+        return _ssd_meta(x, a, b, chunk)
     raise _no_kernel("ssd_scan", x.device)
 
 
@@ -237,3 +290,4 @@ def _ssd_on_mesh(x, dt, a, b, c, chunk: int | None):
 
 
 ssd_scan.launches = 0
+ssd_scan.bwd_launches = 0

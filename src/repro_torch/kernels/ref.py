@@ -116,3 +116,88 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         state = state * decay[..., None, None] + upd
         ys.append(torch.einsum("bhpn,bn->bhp", state, cf[:, t]))
     return torch.stack(ys, dim=1).to(x.dtype), state.to(x.dtype)
+
+
+def ssd_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, dy: torch.Tensor, dstate: torch.Tensor | None = None, *,
+                chunk: int = 64) -> tuple[torch.Tensor, ...]:
+    """The SSD backward kernel's formulas in fp32 (not autograd), chunk by
+    chunk as ``csrc/ssd_scan_bwd.cu`` states them: the state entering each
+    chunk from a forward pass, then dS carried back over the chunks, and per
+    chunk, with W_ij = (C_i . B_j) e^{cs_i - cs_j} and dY_ij = dy_i . u_j (u
+    = dt x) on j <= i (masked before the exp): du = W^T dy + e^{cs_last -
+    cs_j} dS B_j, dC = (e^{cs_i - cs_j} dY) B + e^{cs_i} S^T dy, dB =
+    (e^{cs_i - cs_j} dY)^T C + e^{cs_last - cs_j} dS^T u, and the gradient
+    of the in-chunk cumsums cs, summed back into dt and a.
+
+    x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, N) [G=1]; dy (B,
+    L, H, P) the gradient of y; ``dstate`` (B, H, P, N) that of the final
+    state (None: zero) -> (dx, ddt, da, db, dc) in the inputs' dtypes."""
+    bb, l, h, p = x.shape
+    n = b.shape[-1]
+    q = chunk
+    nc = -(-l // q)
+    pad = nc * q - l
+
+    def chunked(t: torch.Tensor) -> torch.Tensor:   # steps past L: dt = 0 identities
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((bb, pad) + t.shape[2:])], dim=1)
+        return t.reshape((bb, nc, q) + t.shape[2:])
+
+    xs, dts, bs, cs, dys = (chunked(t) for t in (x, dt, b, c, dy))
+    af = a.float()
+    cum = torch.cumsum(dts.double() * af.double(), dim=2)             # (B, nc, Q, H)
+    total = cum[:, :, -1:]                                           # (B, nc, 1, H)
+    ein = torch.exp(cum).float()                                     # e^{cs_i}
+    wout = torch.exp(total - cum).float()                            # e^{cs_last - cs_j}
+    keep = torch.exp(total[:, :, 0]).float()                         # (B, nc, H)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]              # (B, nc, Q_i, Q_j, H)
+    causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
+    lmat = torch.where(causal, seg, -math.inf).exp().float()         # masked before the exp
+    u = dts[..., None] * xs                                          # (B, nc, Q, H, P)
+
+    # the state entering each chunk
+    upd = torch.einsum("bcjh,bcjhp,bcjn->bchpn", wout, u, bs)
+    state = torch.zeros((bb, h, p, n), dtype=torch.float32, device=x.device)
+    s_prev = []
+    for ci in range(nc):
+        s_prev.append(state)
+        state = keep[:, ci, :, None, None] * state + upd[:, ci]
+    s_prev = torch.stack(s_prev, dim=1)                              # (B, nc, H, P, N)
+
+    # dS carried back: ds_out[c] is the gradient of the state leaving chunk c
+    local = torch.einsum("bcih,bcihp,bcin->bchpn", ein, dys, cs)
+    ds = (torch.zeros_like(state) if dstate is None else dstate.float())
+    ds_out = [None] * nc
+    for ci in reversed(range(nc)):
+        ds_out[ci] = ds
+        ds = keep[:, ci, :, None, None] * ds + local[:, ci]
+    ds_out = torch.stack(ds_out, dim=1)                              # (B, nc, H, P, N)
+
+    g = torch.einsum("bcin,bcjn->bcij", cs, bs)                      # C_i . B_j
+    w = g[..., None] * lmat                                          # (B, nc, Q_i, Q_j, H)
+    dyu = torch.einsum("bcihp,bcjhp->bcijh", dys, u)                 # dy_i . u_j
+    v = lmat * dyu
+    qm = w * dyu
+    ds_b = torch.einsum("bcjn,bchpn->bcjhp", bs, ds_out)             # dS B_j
+    du = torch.einsum("bcijh,bcihp->bcjhp", w, dys) + wout[..., None] * ds_b
+    carried = ein[..., None] * torch.einsum("bcihp,bchpn->bcihn", dys, s_prev)
+    dc = torch.einsum("bcijh,bcjn->bcin", v, bs) + carried.sum(3)
+    db = (torch.einsum("bcijh,bcin->bcjn", v, cs)
+          + torch.einsum("bcjh,bcjhp,bchpn->bcjn", wout * dts, xs, ds_out))
+    rdot = torch.einsum("bcin,bcihn->bcih", cs, carried)
+    tdot = wout * (u * ds_b).sum(-1)                                 # (B, nc, Q, H)
+    sdot = (ds_out * s_prev).sum((-1, -2))                           # (B, nc, H)
+    dcs = qm.sum(3) - qm.sum(2) + rdot - tdot
+    dcs[:, :, -1] += tdot.sum(2) + keep * sdot
+    dda = dcs.flip(2).cumsum(2).flip(2)                              # sum_{i >= k} dcs_i
+    ddt = (xs * du).sum(-1) + af * dda
+    da = (dts * dda).sum((0, 1, 2))
+    dx = dts[..., None] * du
+
+    def unchunk(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        return t.reshape((bb, nc * q) + t.shape[3:])[:, :l].to(like.dtype)
+
+    return (unchunk(dx, x), unchunk(ddt, dt), da.to(a.dtype), unchunk(db, b),
+            unchunk(dc, c))

@@ -11,8 +11,17 @@ and stores y by TMA: this module computes the tensor maps' layouts
 says what bounds the kernel on the H100 and what its design does about
 it.
 
-The public entry is :func:`repro_torch.kernels.ops.ssd_scan`, which
-counts the launches; this module only checks and launches.
+(P, N) is mamba2's (64, 128), bf16 on the wgmma kernel and fp32 on the
+SIMT one, or the smoke config's (16, 16), the SIMT kernel in either dtype:
+the route follows from dtype and shape (:func:`tma_route`).
+
+:func:`ssd_scan_bwd_cuda` launches the gradient's kernel
+(``csrc/ssd_scan_bwd.cu``) at the same shapes and sums its per-head
+shares of da, db and dc.
+
+The public entry is :func:`repro_torch.kernels.ops.ssd_scan` (with
+:class:`repro_torch.kernels.ops.SsdScan` for autograd), which counts the
+launches; this module only checks and launches.
 """
 from __future__ import annotations
 
@@ -25,10 +34,16 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import TmaLayout, tma_layout
 
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
-HEAD_DIMS = (64,)          # P
-STATE_DIMS = (128,)        # N
-# the kernels' chunk tiles: the bf16 kernel's warpgroups take 64 rows each
+# the (P, N) pairs the kernels take: mamba2-780m's, and its smoke config's
+# on the SIMT kernel in either dtype (16-column rows are not whole TMA boxes)
+SIMT_SHAPES = frozenset({(16, 16)})
+SHAPES = frozenset({(64, 128)}) | SIMT_SHAPES
+# the kernels' chunk tiles: the bf16 wgmma kernel's warpgroups take 64 rows
+# each; the SIMT kernel (fp32, and the smoke shape in bf16) takes 32 too
 CHUNKS = {torch.bfloat16: (64, 128), torch.float32: (32, 64, 128)}
+# the backward kernel's own tile by (P, N): the function does not depend on
+# the chunk (csrc/ssd_scan_bwd.cu says why it is 64 at mamba2's shape)
+BWD_TILES = {(64, 128): 64, (16, 16): 32}
 Y_ROWS = 64                # rows of y one warpgroup stores by TMA
 
 
@@ -75,11 +90,19 @@ def _fn():
     return fn
 
 
-def kernel_chunk(chunk: int, dtype: torch.dtype = torch.bfloat16) -> int:
-    """The tile of the ``dtype`` kernel for a requested chunk: the smallest
-    of its CHUNKS that holds it.  Steps past L are exact identities, so a
-    larger tile computes the same function (``min(128, L)`` for a short L)."""
-    tiles = CHUNKS.get(dtype, CHUNKS[torch.float32])
+def tma_route(dtype: torch.dtype, p: int = 64, n: int = 128) -> bool:
+    """Whether a call takes the wgmma + TMA kernel (bf16 at mamba2's (P, N))
+    rather than the SIMT one: by dtype and shape alone."""
+    return dtype == torch.bfloat16 and (p, n) not in SIMT_SHAPES
+
+
+def kernel_chunk(chunk: int, dtype: torch.dtype = torch.bfloat16, p: int = 64,
+                 n: int = 128) -> int:
+    """The tile of the kernel ``dtype`` and (P, N) take for a requested
+    chunk: the smallest of its CHUNKS that holds it.  Steps past L are exact
+    identities, so a larger tile computes the same function (``min(128,
+    L)`` for a short L)."""
+    tiles = CHUNKS[torch.bfloat16] if tma_route(dtype, p, n) else CHUNKS[torch.float32]
     for q in tiles:
         if 0 < chunk <= q:
             return q
@@ -119,9 +142,8 @@ def _check(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)} dt {tuple(dt.shape)} "
                          f"a {tuple(a.shape)} b {tuple(b.shape)} c {tuple(c.shape)} "
                          "do not match")
-    if p not in HEAD_DIMS or n not in STATE_DIMS:
-        raise ValueError(f"ssd_scan: (P, N) = ({p}, {n}); the kernel takes P in "
-                         f"{HEAD_DIMS} and N in {STATE_DIMS}")
+    if (p, n) not in SHAPES:
+        raise ValueError(f"ssd_scan: (P, N) = ({p}, {n}); the kernels take {sorted(SHAPES)}")
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (dt, b, c)):
         raise TypeError(f"ssd_scan: dtypes x {x.dtype} dt {dt.dtype} b {b.dtype} "
                         f"c {c.dtype}; the kernel takes bf16 or fp32, all alike")
@@ -147,14 +169,14 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.T
     """x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, N) on one CUDA
     device -> (y (B, L, H, P), final state (B, H, P, N)), both in x's dtype
     and contiguous.  x, b and c are read through their strides."""
-    q = kernel_chunk(chunk, x.dtype)
+    q = kernel_chunk(chunk, x.dtype, x.shape[-1], b.shape[-1])
     _check(x, dt, a, b, c)
     bb, l, h, p = x.shape
     n = b.shape[-1]
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     state = torch.empty((bb, h, p, n), dtype=x.dtype, device=x.device)
     layout = None
-    if x.dtype == torch.bfloat16:
+    if tma_route(x.dtype, p, n):
         if any(t.data_ptr() % 16 for t in (x, b, c)):
             raise ValueError("ssd_scan: x, b and c must start 16-byte aligned for TMA")
         layout = _layout_array(x, b, c, q)
@@ -169,3 +191,56 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.T
     if err:
         raise RuntimeError(f"ssd_scan: kernel launch failed with CUDA error {err}")
     return y, state
+
+
+def _bwd_fn():
+    fn = build.library("ssd_scan_bwd").ssd_scan_bwd
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                      c: torch.Tensor, dy: torch.Tensor, dstate: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, ...]:
+    """The gradient of :func:`ssd_scan_cuda` on its inputs: dy (B, L, H, P)
+    the gradient of y, ``dstate`` (B, H, P, N) that of the final state
+    (None: zero) -> (dx, ddt, da, db, dc) in the dtypes of x, dt, a, b, c.
+    x, b and c are read through their strides, as the forward reads them.
+    The kernel writes db, dc and da per head (fp32); they are summed here
+    over heads and batch, in one ordered sum each."""
+    _check(x, dt, a, b, c)
+    bb, l, h, p = x.shape
+    n = b.shape[-1]
+    tile = BWD_TILES[(p, n)]
+    dy = dy.contiguous()
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"ssd_scan_bwd: dy is {tuple(dy.shape)} {dy.dtype} on {dy.device}, "
+                         f"not like x {tuple(x.shape)} {x.dtype} on {x.device}")
+    if dstate is not None:
+        dstate = dstate.contiguous()
+        if (dstate.shape != (bb, h, p, n) or dstate.dtype != x.dtype
+                or dstate.device != x.device):
+            raise ValueError(f"ssd_scan_bwd: dstate is {tuple(dstate.shape)} {dstate.dtype} "
+                             f"on {dstate.device}, not ({bb}, {h}, {p}, {n}) {x.dtype}")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    ddt = torch.empty((bb, l, h), dtype=dt.dtype, device=x.device)
+    da_part = torch.empty((bb, h), **f32)
+    db_part = torch.empty((bb, l, h, n), **f32)
+    dc_part = torch.empty((bb, l, h, n), **f32)
+    states = torch.empty((bb * h, -(-l // tile), p, n), **f32)
+    with torch.cuda.device(x.device):
+        err = _bwd_fn()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                        dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
+                        dx.data_ptr(), ddt.data_ptr(), da_part.data_ptr(), db_part.data_ptr(),
+                        dc_part.data_ptr(), states.data_ptr(), bb, l, h, p, n, tile,
+                        _DTYPES[x.dtype], _DTYPES[a.dtype], x.stride(0), x.stride(1),
+                        b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+                        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_scan_bwd: kernel launch failed with CUDA error {err}")
+    return (dx, ddt, da_part.sum(0).to(a.dtype), db_part.sum(2).to(b.dtype),
+            dc_part.sum(2).to(c.dtype))

@@ -128,10 +128,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
 
     CUDA tensors go to the Hopper kernel, which takes G == 1 and no
     initial state (what the model passes); anything else raises there
-    rather than take the mirror.  So do DTensors (the wrapper runs the
-    kernel, or on CPU shards its plain version, on each rank's shard) and
-    meta tensors (the dry-run's abstract evaluation).  CPU tensors run the
-    reference's chunked op.
+    rather than take the mirror.  Under autograd the kernel's backward
+    (``kernels.ops.SsdScan``) gives the gradients.  So do DTensors (the
+    wrapper runs the kernel, or on CPU shards its plain version, on each
+    rank's shard) and meta tensors (the dry-run's abstract evaluation).
+    CPU tensors run the reference's chunked op, differentiated by autograd.
     """
     l, g = x.shape[1], b.shape[2]
     assert l % chunk == 0, f"L={l} not divisible by chunk={chunk}"
@@ -140,9 +141,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
             raise NotImplementedError(
                 "the SSD kernel takes one B/C group and no initial state: "
                 "ROADMAP.md, Queue 2 item 4")
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c)):
-            raise NotImplementedError(
-                "the SSD kernel has no backward yet: ROADMAP.md, Queue 2 item 5")
         # x, b and c stay views of the conv output: the kernel reads them in place
         return ssd_scan_kernel(x, dt, a, b, c, chunk=chunk)
     return _ssd_scan_chunked(x, dt, a, b, c, chunk, initial_state)

@@ -26,8 +26,9 @@ step and counts what it dispatches:
   sees (a flash launch would count as one ``torch.empty``).  Each
   wrapper calls ``kernels.ops.launch_hook`` at its launch, and the count
   credits the launch with the kernel's own formulas below:
-  :func:`attention_bound`, :func:`attention_bwd_bound` and
-  :func:`ssd_bound`, which ``chip_smoke.py`` uses for its bounds too.
+  :func:`attention_bound`, :func:`attention_bwd_bound`, :func:`ssd_bound`
+  and :func:`ssd_bwd_bound`, which ``chip_smoke.py`` uses for its bounds
+  too.
   A kernel's credited bytes are its inputs read once and its outputs
   written once; its scores never reach HBM, so it adds nothing to
   ``attn_score_bytes``.
@@ -96,14 +97,19 @@ def attention_bound(b: int, s: int, sk: int, h: int, kv: int, dk: int, dv: int, 
 
 
 def attention_bwd_bound(b: int, s: int, h: int, kv: int, d: int, dtype, causal: bool,
-                        window: int) -> tuple[float, str, float, float]:
+                        window: int, *, dv: int | None = None,
+                        sk: int | None = None) -> tuple[float, str, float, float]:
     """(bound ms, bound_by, flops, bytes) of the attention gradient on these
-    inputs: five products over the visible pairs (q k, dO v, P^T dO, dS k,
-    dS^T q); q, k, v, o, dO and the three gradients moved once, and lse."""
-    _, _, fwd_flops, _ = attention_bound(b, s, s, h, kv, d, d, dtype, causal, window)
-    flops = fwd_flops * 5 / 2                          # the forward's two products are 4 D a pair
+    inputs: S queries over Sk keys (default S), q/k head dim d, v (and o)
+    head dim dv (default d).  Five products over the visible pairs, 2 FLOPs
+    a MAC: q k and dS k and dS^T q over d, dO v and P^T dO over dv; q, o,
+    dO, k, v and the three gradients moved once, and lse."""
+    dv = d if dv is None else dv
+    sk = s if sk is None else sk
+    pairs = visible_pairs(s, sk, causal, window)
+    flops = 2.0 * b * h * (3 * d + 2 * dv) * pairs
     es = 2 if dtype == "torch.bfloat16" else 4
-    nbytes = float(es * (4 * b * s * h * d + 4 * b * s * kv * d) + 4 * b * h * s)
+    nbytes = float(es * (2 * b * s * h * (d + dv) + 2 * b * sk * kv * (d + dv)) + 4 * b * h * s)
     return _bound(flops, nbytes, dtype)
 
 
@@ -132,6 +138,32 @@ def ssd_bound(b: int, l: int, h: int, p: int, n: int, q: int, dtype,
     return _bound(flops, nbytes, dtype)
 
 
+def ssd_bwd_bound(b: int, l: int, h: int, p: int, n: int, dtype, a_dtype, *,
+                  tile: int = 64) -> tuple[float, str, float, float]:
+    """(bound ms, bound_by, flops, bytes) of one SSD backward on these
+    inputs, tile by tile as ``csrc/ssd_scan_bwd.cu`` cuts the steps (the
+    last tile may be short), 2 FLOPs a MAC.  Per (batch, tile) C B^T on the
+    causal pairs, once for all heads (one B/C group).  Per head, on the
+    same pairs, dy . u and W^T dy (P MACs a pair each) and the intra-tile
+    parts of dC and dB (N each); per step dS B^T and x dS (P N each); the
+    carried parts, where the state is not zero (every tile but the first),
+    dy S into dC and dy^T C into dS (P N a step each); and the states
+    entering every tile but the first, recomputed (P N a step).  Bytes:
+    x, dt, a, b, c and dy read once, dx, ddt, da, db and dc written once."""
+    pairs = steps = carried = 0
+    for l0 in range(0, l, tile):
+        qc = min(tile, l - l0)
+        pairs += qc * (qc + 1) // 2
+        steps += qc
+        carried += qc if l0 else 0
+    flops = 2.0 * b * (pairs * n + h * (pairs * (2 * p + 2 * n)
+                                        + (2 * steps + 3 * carried) * p * n))
+    es = 2 if dtype == "torch.bfloat16" else 4
+    a_es = 2 if a_dtype == "torch.bfloat16" else 4
+    nbytes = float(es * (3 * b * l * h * p + 2 * b * l * h + 4 * b * l * n) + 2 * a_es * h)
+    return _bound(flops, nbytes, dtype)
+
+
 def kernel_cost(name: str, **launch: Any) -> tuple[float, float]:
     """(flops, bytes) of one launch of the port's kernel ``name``, from the
     arguments its wrapper passes to ``kernels.ops.launch_hook``."""
@@ -144,12 +176,20 @@ def kernel_cost(name: str, **launch: Any) -> tuple[float, float]:
                                    launch["window"])
         else:
             cost = attention_bwd_bound(b, s, h, kv, dk, str(q.dtype), launch["causal"],
-                                       launch["window"])
+                                       launch["window"], dv=dv, sk=sk)
     elif name == "ssd_scan":
         x, bm = launch["x"], launch["b"]
         b, l, h, p = x.shape
         cost = ssd_bound(b, l, h, p, bm.shape[-1], launch["chunk"], str(x.dtype),
                          str(launch["a"].dtype))
+    elif name == "ssd_scan_bwd":
+        from repro_torch.kernels.ssd_scan import BWD_TILES
+
+        x, bm = launch["x"], launch["b"]
+        b, l, h, p = x.shape
+        n = bm.shape[-1]
+        cost = ssd_bwd_bound(b, l, h, p, n, str(x.dtype), str(launch["a"].dtype),
+                             tile=BWD_TILES.get((p, n), 64))
     else:
         raise ValueError(f"kernel_cost: no formula for kernel {name!r}")
     return cost[2], cost[3]

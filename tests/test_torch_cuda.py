@@ -13,7 +13,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
 from repro_torch.kernels.ops import flash_attention, ssd_scan
-from repro_torch.kernels.ref import flash_attention_lse_ref, flash_attention_ref, ssd_ref
+from repro_torch.kernels.ref import (flash_attention_lse_ref, flash_attention_ref, ssd_bwd_ref,
+                                     ssd_ref)
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
 
 
 @pytest.mark.cuda
@@ -79,23 +81,6 @@ def test_cuda_window_at_gemma3_gqa(dtype, s):
     want = flash_attention_ref(q, k, v, causal=True, window=1024)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_cuda_flash_backward_refuses_d256_by_name(dtype):
-    """The backward has no D 256 kernel: it raises naming ROADMAP.md and
-    returns nothing from a plain version."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU and nvcc")
-    q, k, v, do = _bwd_inputs(dtype, 1, 128, 16, 1, 256)
-    o, lse = flash_attention_cuda(q, k, v, causal=True, window=0, return_lse=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 2 item 1"):
-        flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=0)
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    out = flash_attention(*leaves, causal=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 2 item 1"):
-        out.backward(do)
 
 
 @pytest.mark.cuda
@@ -349,25 +334,6 @@ def test_cuda_kernel_dk192_dv128_matches_plain_version(dtype, causal, s, b, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_cuda_flash_backward_refuses_dv_ne_d_by_name(dtype):
-    """The backward has no kernel for v narrower than q (MLA): it raises
-    naming ROADMAP.md, through the launcher and through autograd."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU and nvcc")
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    q, k = (torch.randn(1, 128, 4, 192, generator=gen, device="cuda").to(dtype) for _ in "qk")
-    v, do = (torch.randn(1, 128, 4, 128, generator=gen, device="cuda").to(dtype) for _ in "vd")
-    o, lse = flash_attention_cuda(q, k, v, causal=True, window=0, return_lse=True)
-    with pytest.raises(NotImplementedError, match="dv 128 != d 192.*ROADMAP.md, Queue 2 item 1"):
-        flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=0)
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    out = flash_attention(*leaves, causal=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 2 item 1"):
-        out.backward(do)
-
-
-@pytest.mark.cuda
 def test_cuda_mla_decode_matches_cpu():
     """The absorbed MLA decode (PyTorch ops, no kernel) on the card from a
     prefilled latent cache: each step's output and cache against the same
@@ -526,3 +492,83 @@ def test_cuda_roofline_counter_credits_each_launch():
         2, 256, 256, 8, 2, 64, 64, "torch.bfloat16", True, 0)[2]
     assert cost.kernel_flops["flash_attention_bwd"] == attention_bwd_bound(
         2, 256, 8, 2, 64, "torch.bfloat16", True, 0)[2]
+
+
+def _scaled(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).abs() / (1 + want.float().abs())).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,dv,h,kv,causal,window,s,sk", [
+    (256, 256, 16, 1, True, 100, 300, 300), (256, 256, 16, 1, True, 0, 130, 130),
+    (192, 128, 8, 8, True, 0, 300, 300), (192, 128, 8, 8, True, 0, 100, 100),
+    (16, 16, 4, 2, True, 32, 64, 64), (24, 16, 4, 4, True, 0, 64, 64),
+    (64, 64, 16, 16, False, 0, 256, 1000)])
+def test_cuda_flash_backward_every_head_dim_matches_plain(dtype, d, dv, h, kv, causal, window,
+                                                          s, sk):
+    """The backward at D 256 (two warpgroups a dK/dV block in bf16), MLA's
+    (192, 128), the smoke dims on the SIMT kernels, and cross-attention with
+    Sk != S, against autograd of the plain forward in fp32; through
+    autograd it counts one backward launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q = torch.randn(2, s, h, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(2, sk, kv, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(2, sk, kv, dv, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(2, s, h, dv, generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*leaves, **kw), leaves, do.float())
+    tol = 5e-2 if dtype == torch.bfloat16 else 2e-3
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and _scaled(g, w) <= tol
+    before = flash_attention.bwd_launches
+    ag = [t.clone().requires_grad_() for t in (q, k, v)]
+    through = torch.autograd.grad(flash_attention(*ag, **kw), ag, do)
+    assert flash_attention.bwd_launches == before + 1
+    for g, w in zip(through, got):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("p,n,l,h,chunk,views", [(64, 128, 1000, 8, 128, False),
+                                                 (64, 128, 300, 8, 64, True),
+                                                 (16, 16, 64, 8, 32, False),
+                                                 (16, 16, 100, 4, 32, True)])
+def test_cuda_ssd_backward_matches_plain(dtype, p, n, l, h, chunk, views):
+    """The SSD backward kernel against its plain version ``ssd_bwd_ref``
+    (and both against autograd of ``ssd_ref`` where L is short), with a
+    gradient of the final state; x, B and C as views where named; through
+    ``ops.ssd_scan``'s autograd it counts one backward launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    b = 2
+    if views:
+        conv = torch.randn(b, l, h * p + 2 * n, generator=gen, device="cuda").to(dtype)
+        x = conv[..., :h * p].reshape(b, l, h, p)
+        bm, cm = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+    else:
+        x = torch.randn(b, l, h, p, generator=gen, device="cuda").to(dtype)
+        bm, cm = (torch.randn(b, l, n, generator=gen, device="cuda").to(dtype) for _ in "bc")
+    dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda")).to(dtype)
+    a = (-torch.exp(0.3 * torch.randn(h, generator=gen, device="cuda"))).to(dtype)
+    dy = torch.randn(b, l, h, p, generator=gen, device="cuda").to(dtype)
+    dstate = torch.randn(b, h, p, n, generator=gen, device="cuda").to(dtype)
+    got = ssd_scan_bwd_cuda(x, dt, a, bm, cm, dy, dstate)
+    want = ssd_bwd_ref(x, dt, a, bm, cm, dy, dstate)
+    tol = 5e-2 if dtype == torch.bfloat16 else 2e-3
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and _scaled(g, w) <= tol
+    before = ssd_scan.bwd_launches
+    leaves = [t.detach().requires_grad_() for t in (x, dt, a, bm, cm)]
+    y, state = ssd_scan(*leaves, chunk=chunk)
+    through = torch.autograd.grad((y, state), leaves, (dy, dstate))
+    assert ssd_scan.bwd_launches == before + 1
+    for g, w in zip(through, got):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)

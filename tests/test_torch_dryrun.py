@@ -135,6 +135,20 @@ def test_run_cell_in_process():
     assert skipped.status == "skip" and "500k" in skipped.skip_reason
 
 
+def test_mamba2_train_cell_credits_the_ssd_backward():
+    """mamba2-780m's train_4k cell, which failed while the SSD kernel had
+    no backward: ok, with each of its 48 layers' scans credited twice
+    forward (remat recomputes it) and once backward per microbatch."""
+    from repro_torch.launch.dryrun import TRAIN_TUNING, run_cell
+
+    cell = run_cell("mamba2-780m", "train_4k", "single", save=False)
+    assert cell.status == "ok", cell.error
+    microbatches = TRAIN_TUNING["mamba2-780m"][0]
+    assert cell.roofline["kernel_launches"] == {"ssd_scan": 2 * 48 * microbatches,
+                                                "ssd_scan_bwd": 48 * microbatches}
+    assert not dist.is_initialized()
+
+
 @pytest.mark.slow
 def test_dryrun_single_cell_subprocess():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -28,10 +28,11 @@ from repro_torch.models.layers import blockwise_mha
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
-def _inputs(s, d, seed=11, b=2, h=4, kv=2):
+def _inputs(s, d, seed=11, b=2, h=4, kv=2, dv=None):
+    dv = d if dv is None else dv
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(shape, dtype=np.float32)
-            for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d))]
+            for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, dv), (b, s, h, dv))]
 
 
 def _scaled_err(got: torch.Tensor, want) -> float:
@@ -58,9 +59,12 @@ def _torch_grads(arrays, dtype, causal, window):
 
 @pytest.mark.parametrize("window", [0, 24])
 @pytest.mark.parametrize("s", [64, 100])
-@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("d", [16, 64, 256, 192])
 def test_flash_backward_matches_jax_grad_fp32(d, s, window):
-    arrays = _inputs(s, d)
+    """The plain backward at every head dim the kernels take: D 16 (the
+    smoke configs), 64, 256 (recurrentgemma-9b) and MLA's q/k 192 over v
+    128, causal and windowed."""
+    arrays = _inputs(s, d, dv=128 if d == 192 else d)
     want = _jax_grads(arrays, "float32", True, window)
     got = _torch_grads(arrays, "float32", True, window)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):

@@ -16,9 +16,11 @@ import torch
 from repro.kernels import flash_attention as jax_flash
 from repro.kernels.ref import attention_ref as jax_attention_ref
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (BLOCK_Q, BWD_BOX_ROWS, HEAD_DIMS, KV_TILES,
+from repro_torch.kernels.flash_attention import (BLOCK_Q, BWD_BOX_ROWS, BWD_HEAD_DIMS, HEAD_DIMS,
+                                                 KV_TILES, SIMT_HEAD_DIMS, bwd_layout_array,
                                                  default_kv_tile, flash_attention_bwd_cuda,
-                                                 flash_attention_cuda, layout_array, tma_layout)
+                                                 flash_attention_cuda, layout_array, tma_layout,
+                                                 tma_route)
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.kernels.ref import attention_ref, flash_attention_ref
 
@@ -214,9 +216,11 @@ def test_build_is_keyed_by_sources():
 def test_kv_tile_rows_by_head_dim():
     """D 256 takes 64-row K/V boxes (two stages fit an SM); D 64 and 128
     default to 128, and so does MLA's q/k dim 192 (with v dim 128); each
-    of those three is also built with 64-row tiles for the autotuner."""
-    assert HEAD_DIMS == {(64, 64), (128, 128), (256, 256), (192, 128)}
-    assert set(KV_TILES) == HEAD_DIMS
+    of those three is also built with 64-row tiles for the autotuner.  The
+    smoke configs' head dims take the SIMT kernels, which have no kv tile."""
+    assert HEAD_DIMS == {(64, 64), (128, 128), (256, 256), (192, 128), (16, 16), (24, 16)}
+    assert SIMT_HEAD_DIMS == {(16, 16), (24, 16)}
+    assert set(KV_TILES) == HEAD_DIMS - SIMT_HEAD_DIMS
     assert [default_kv_tile(d, dv) for d, dv in ((64, 64), (128, 128), (256, 256), (192, 128))
             ] == [BLOCK_KV, BLOCK_KV, BLOCK_KV_D256, BLOCK_KV]
     assert BLOCK_KV_D256 == 64 and BLOCK_KV == 128
@@ -224,22 +228,23 @@ def test_kv_tile_rows_by_head_dim():
     assert KV_TILES[(256, 256)] == (64,)
 
 
+@pytest.mark.parametrize("dims", sorted(HEAD_DIMS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_backward_refuses_dv_ne_d_naming_roadmap(dtype):
-    """MLA's (192, 128): the backward launcher refuses v narrower than q
-    before any other check, naming where it waits."""
-    q, k = torch.zeros(1, 64, 4, 192, dtype=dtype), torch.zeros(1, 64, 4, 192, dtype=dtype)
-    v, o = torch.zeros(1, 64, 4, 128, dtype=dtype), torch.zeros(1, 64, 4, 128, dtype=dtype)
-    with pytest.raises(NotImplementedError, match=r"dv 128 != d 192.*ROADMAP.md, Queue 2 item 1"):
+def test_backward_takes_every_forward_head_dim(dims, dtype):
+    """The backward launcher takes every head-dim pair the forward takes:
+    bf16 at the models' dims on the wgmma route (its 44 TMA layout values:
+    q, k, v and dO with 64-row boxes), fp32 and the smoke dims on SIMT.  On
+    CPU tensors it passes the shape checks and refuses the device; it never
+    runs a plain version."""
+    d, dv = dims
+    assert BWD_HEAD_DIMS == HEAD_DIMS
+    q, k = torch.zeros(1, 64, 4, d, dtype=dtype), torch.zeros(1, 64, 2, d, dtype=dtype)
+    v, o = torch.zeros(1, 64, 2, dv, dtype=dtype), torch.zeros(1, 64, 4, dv, dtype=dtype)
+    assert tma_route(dtype, d, dv) == (dtype == torch.bfloat16 and dims not in SIMT_HEAD_DIMS)
+    if tma_route(dtype, d, dv):
+        flat = list(bwd_layout_array(q, k, v, o))
+        assert len(flat) == 44
+        assert [flat[i] for i in (0, 11, 22, 33)] == [d, d, dv, dv]          # columns
+        assert [flat[i + 9] for i in (0, 11, 22, 33)] == [BWD_BOX_ROWS] * 4   # box rows
+    with pytest.raises(ValueError, match="is on cpu"):
         flash_attention_bwd_cuda(q, k, v, o, torch.zeros(1, 4, 64), o, causal=True, window=0)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_backward_refuses_d256_naming_roadmap(dtype):
-    """The backward launcher refuses D 256 before any other check (here on
-    CPU tensors), naming where it waits; it does not take a plain version."""
-    q = torch.zeros(1, 64, 4, 256, dtype=dtype)
-    kv = torch.zeros(1, 64, 1, 256, dtype=dtype)
-    lse = torch.zeros(1, 4, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 2 item 1"):
-        flash_attention_bwd_cuda(q, kv, kv, q, lse, q, causal=True, window=0)

@@ -20,7 +20,7 @@ from repro_torch.models import materialize, param_defs
 from repro_torch.roofline import (RooflineReport, active_param_count, analyze, count_step,
                                   counting, mfu, model_flops)
 from repro_torch.roofline.cost import (attention_bound, attention_bwd_bound, kernel_cost,
-                                       ssd_bound, visible_pairs)
+                                       ssd_bound, ssd_bwd_bound, visible_pairs)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -181,6 +181,40 @@ def test_kernel_formulas_equal_the_bound_functions(dtype):
     a = _meta(48, dtype=torch.float32)
     assert kernel_cost("ssd_scan", x=x, a=a, b=bm, chunk=128) == \
         ssd_bound(4, 1024, 48, 64, 128, 128, name, "torch.float32")[2:]
+    assert kernel_cost("ssd_scan_bwd", x=x, a=a, b=bm) == \
+        ssd_bwd_bound(4, 1024, 48, 64, 128, name, "torch.float32", tile=64)[2:]
+    # MLA (q/k 192, v 128) and cross-attention (Sk != S) through the backward
+    q, k, v = _meta(2, 1024, 16, 192, dtype=dtype), _meta(2, 1024, 16, 192, dtype=dtype), \
+        _meta(2, 1024, 16, 128, dtype=dtype)
+    assert kernel_cost("flash_attention_bwd", q=q, k=k, v=v, causal=True, window=0) == \
+        attention_bwd_bound(2, 1024, 16, 16, 192, name, True, 0, dv=128)[2:]
+    q, kv = _meta(2, 256, 16, 64, dtype=dtype), _meta(2, 1000, 16, 64, dtype=dtype)
+    assert kernel_cost("flash_attention_bwd", q=q, k=kv, v=kv, causal=False, window=0) == \
+        attention_bwd_bound(2, 256, 16, 16, 64, name, False, 0, sk=1000)[2:]
+
+
+def test_backward_bounds_count_their_products_and_bytes():
+    """The attention gradient: five products, three over q/k's dim (q k,
+    dS k, dS^T q) and two over v's (dO v, P^T dO), on the visible pairs; q,
+    o, dO, k, v and the gradients once each, and lse.  The SSD gradient at a
+    64-step tile: C B^T on the causal pairs once per batch, per head 2 P + 2
+    N MACs a pair, 2 P N a step, 3 P N a step past the first tile."""
+    pairs = visible_pairs(1024, 1024, True, 0)
+    _, by, flops, nbytes = attention_bwd_bound(2, 1024, 128, 128, 192, "torch.bfloat16", True,
+                                               0, dv=128)
+    assert by == "operations" and flops == 2.0 * 2 * 128 * (3 * 192 + 2 * 128) * pairs
+    assert nbytes == 2 * (2 * 2 * 1024 * 128 * 320 + 2 * 2 * 1024 * 128 * 320) + 4 * 2 * 128 * 1024
+    # at dv == d the formula is the former one: 10 d FLOPs a pair
+    assert attention_bwd_bound(4, 1024, 32, 8, 64, "torch.bfloat16", True, 0)[2] == \
+        2.0 * 4 * 32 * 5 * 64 * pairs
+    _, by, flops, nbytes = ssd_bwd_bound(4, 1024, 48, 64, 128, "torch.bfloat16",
+                                         "torch.bfloat16")
+    tile_pairs = 16 * 64 * 65 // 2
+    assert flops == 2.0 * 4 * (tile_pairs * 128 + 48 * (tile_pairs * (2 * 64 + 2 * 128)
+                                                        + (2 * 1024 + 3 * 960) * 64 * 128))
+    assert nbytes == 2 * (3 * 4 * 1024 * 48 * 64 + 2 * 4 * 1024 * 48 + 4 * 4 * 1024 * 128) \
+        + 2 * 2 * 48
+    assert by == "bytes"
 
 
 @pytest.mark.parametrize("s,sk,causal,window", [

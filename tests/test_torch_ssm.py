@@ -33,11 +33,12 @@ from repro.models import spec as JS
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import ALIASES, get_config, get_smoke_config
 from repro_torch.kernels import build
-from repro_torch.kernels.ops import ssd_scan
-from repro_torch.kernels.ref import ssd_ref
+from repro_torch.kernels import ops
+from repro_torch.kernels.ops import SsdScan, ssd_scan
+from repro_torch.kernels.ref import ssd_bwd_ref, ssd_ref
 from repro_torch.kernels.flash_attention import tma_layout
-from repro_torch.kernels.ssd_scan import (Y_ROWS, _layout_array, kernel_chunk, ssd_scan_cuda,
-                                          tma_layouts)
+from repro_torch.kernels.ssd_scan import (BWD_TILES, Y_ROWS, _layout_array, kernel_chunk,
+                                          ssd_scan_bwd_cuda, ssd_scan_cuda, tma_layouts)
 from repro_torch.models import spec as TS
 
 ARCH = "mamba2_780m"
@@ -216,6 +217,98 @@ def test_kernel_function_is_the_model_scan():
     ty, ts = ssd_scan(*_th(arrays), chunk=32)
     _close(ty, jy)
     _close(ts, js)
+
+
+def _grad_case(b, l, h, p, n, seed=11):
+    """SSD inputs, and random cotangents of y and of the final state."""
+    arrays = _ssd_inputs(b, l, h, p, n, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    dy = rng.standard_normal((b, l, h, p), dtype=np.float32)
+    dstate = rng.standard_normal((b, h, p, n), dtype=np.float32)
+    return arrays, dy, dstate
+
+
+def _jax_ssd_grads(arrays, dy, dstate, chunk):
+    """jax.grad of the reference's chunked ssd_scan (G = 1) through <y, dy>
+    + <final state, dstate>: (dx, ddt, da, db, dc)."""
+    def f(x, dt, a, bm, cm):
+        y, state = JSSM.ssd_scan(x, dt, a, bm[:, :, None], cm[:, :, None], chunk=chunk)
+        return jnp.sum(y * dy) + jnp.sum(state * dstate)
+
+    return jax.grad(f, argnums=(0, 1, 2, 3, 4))(*_jx(arrays))
+
+
+@pytest.mark.parametrize("h", [2, 4])
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_ssd_bwd_ref_matches_jax_grad(chunk, h):
+    """The backward kernel's plain version (its formulas, not autograd)
+    against jax.grad of the reference's scan, each of the five gradients."""
+    arrays, dy, dstate = _grad_case(2, 64, h, 16, 16)
+    want = _jax_ssd_grads(arrays, dy, dstate, chunk)
+    got = ssd_bwd_ref(*_th(arrays), torch.from_numpy(dy), torch.from_numpy(dstate), chunk=chunk)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        _close(g, w, 1e-4)
+
+
+@pytest.mark.parametrize("h", [2, 4])
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_mirror_ssd_scan_autograd_matches_jax_grad(chunk, h):
+    """The model's CPU scan (the reference's chunked op, mirrored) under
+    autograd, against jax.grad of the reference's."""
+    arrays, dy, dstate = _grad_case(2, 64, h, 16, 16)
+    want = _jax_ssd_grads(arrays, dy, dstate, chunk)
+    leaves = [t.requires_grad_() for t in _th(arrays)]
+    x, dt, a, bm, cm = leaves
+    y, state = TSSM.ssd_scan(x, dt, a, bm[:, :, None], cm[:, :, None], chunk=chunk)
+    got = torch.autograd.grad((y * torch.from_numpy(dy)).sum()
+                              + (state * torch.from_numpy(dstate)).sum(), leaves)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-4)
+
+
+def test_ssd_scan_autograd_dispatch(monkeypatch):
+    """``ops.ssd_scan`` takes ``SsdScan`` only under autograd.  On the CPU
+    it runs the plain versions (``ssd_ref``, ``ssd_bwd_ref``) and launches
+    nothing; on meta tensors the backward returns gradients of the inputs'
+    shapes and credits ``ssd_scan_bwd`` to the launch hook, launching
+    nothing either."""
+    arrays, dy, _ = _grad_case(1, 64, 2, 16, 16, seed=5)
+    plain = ssd_scan(*_th(arrays), chunk=32)
+    assert plain[0].grad_fn is None
+    leaves = [t.requires_grad_() for t in _th(arrays)]
+    counts = (ssd_scan.launches, ssd_scan.bwd_launches)
+    y, _ = ssd_scan(*leaves, chunk=32)
+    assert type(y.grad_fn).__name__ == "SsdScanBackward"
+    torch.testing.assert_close(y.detach(), plain[0])
+    got = torch.autograd.grad(y, leaves, torch.from_numpy(dy))
+    want = ssd_bwd_ref(*_th(arrays), torch.from_numpy(dy))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w)
+    assert (ssd_scan.launches, ssd_scan.bwd_launches) == counts
+
+    credited = []
+    monkeypatch.setattr(ops, "launch_hook", lambda name, **kw: credited.append(name))
+    meta = [torch.empty(t.shape, device="meta", requires_grad=True) for t in _th(arrays)]
+    y, state = ssd_scan(*meta, chunk=32)
+    grads = torch.autograd.grad(y, meta, torch.empty(y.shape, device="meta"))
+    assert [tuple(g.shape) for g in grads] == [tuple(t.shape) for t in meta]
+    assert all(g.device.type == "meta" for g in grads)
+    assert credited == ["ssd_scan", "ssd_scan_bwd"]
+    assert (ssd_scan.launches, ssd_scan.bwd_launches) == counts
+
+
+def test_ssd_backward_launcher_takes_the_kernels_shapes():
+    """The backward launcher's tile by (P, N), and on CPU tensors it passes
+    the shape checks and refuses the device, never a plain version."""
+    assert BWD_TILES == {(64, 128): 64, (16, 16): 32}
+    for p, n in BWD_TILES:
+        x, dt, a, bm, cm = _th(_ssd_inputs(1, 64, 2, p, n))
+        with pytest.raises(ValueError, match="is on cpu"):
+            ssd_scan_bwd_cuda(x, dt, a, bm, cm, torch.zeros_like(x))
+    x, dt, a, bm, cm = _th(_ssd_inputs(1, 64, 2, 32, 16))
+    with pytest.raises(ValueError, match=r"\(P, N\)"):
+        ssd_scan_bwd_cuda(x, dt, a, bm, cm, torch.zeros_like(x))
 
 
 def test_no_silent_fallback_off_cpu(monkeypatch):
