@@ -6,8 +6,8 @@
 Runs from the root of a checkout on a machine with one NVIDIA H100 (or
 another Hopper card) and the CUDA toolkit.  It builds the port's CUDA
 kernels from ``src/repro_torch/kernels/csrc/``, holds each against its
-plain PyTorch version (the flash backward against autograd of the plain
-forward), then drives each ported model at full width (random weights
+plain PyTorch version (the flash and SSD backwards against autograd of
+the plain forwards), then drives each ported model at full width (random weights
 from ``--seed``) through the port's entry points at full depth, each with
 prefill and teacher-forced decode checked against the kernel-driven
 forward: granite-3-2b (flash attention), mamba2-780m (the SSD scan),
@@ -22,10 +22,14 @@ dense + 2 MoE layers of 256 experts: MLA through flash at q/k dim 192,
 v dim 128, its absorbed decode over the latent cache), where the whole
 model does not fit the card; all but seamless also through the WRATH
 serve driver with a replica kill; then
-granite-3-2b's training plane: ``loss_fn`` gradients through the kernels
-against the plain attention at depth 2, ``build_train_step`` at full
-depth, and ``WrathTrainSupervisor`` at depth 4 through a host loss and a
-NaN; last the paper's evaluation path through the port's WRATH engine
+the training plane: ``loss_fn`` gradients through the kernels against
+the plain attention and SSD scan, each held to float64, for granite-3-2b,
+mamba2-780m, recurrentgemma-9b, seamless-m4t-medium and deepseek-v3-671b
+(full width, cut in depth); granite's ``build_train_step`` at full depth
+and ``WrathTrainSupervisor`` at depth 4 through a host loss and a NaN;
+then ``train_all``, a train step of each of the nine other models at
+full width (cut in depth where one card does not hold the step,
+``TRAIN_DEPTH``); then the paper's evaluation path through the port's WRATH engine
 (``run_app`` → ``DataFlowKernel`` → ``FailureInjector``): fedlearn and
 moldesign at the paper's scale computing on the card inside the DFK's
 tasks, held to their CPU runs, with and without injected failures, and
@@ -38,7 +42,8 @@ flash kv tile and SSD chunk tile the kernels are built for at the model
 paths' shapes into a fresh cache, each tile held to the plain version,
 and ``ops.flash_attention`` / ``ops.ssd_scan`` launch the persisted
 winner; ``roofline``: granite-3-2b's train step, prefill and decode
-step and mamba2-780m's prefill, each counted once by the port's roofline
+step, mamba2-780m's prefill and train step and deepseek-v3-671b's train
+step (MLA's backward at q/k 192, v 128), each counted once by the port's roofline
 counter (FLOPs, bytes, the kernels credited per launch) and read against
 the H100's peaks with the phases' measured times (``mfu``); last
 ``distributed``: the distribution plane on a one-rank NCCL group and a
@@ -46,7 +51,9 @@ the H100's peaks with the phases' measured times (``mfu``); last
 ``activation_sharding``, each equal to the unsharded run; the
 expert-parallel MoE of olmoe-1b-7b and deepseek-v3-671b against the
 scatter dispatch; the int8 compressor on the step's gradient), then two
-meta-device dry-run cells on the host.  Each phase
+meta-device dry-run cells on the host; last ``train_cli``, the training
+CLI (``repro_torch.launch.train``) on the card at its defaults for all
+ten architectures' smoke configs.  Each phase
 prints one JSON line; any failed check ends the run with a nonzero exit.
 The line before the last is the kernel table
 (``{"kernels": [...]}``), the last line is
@@ -1405,6 +1412,7 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
         ("seamless_cross_train", 4, 256, 1024, 16, 16, 64, 64, torch.bfloat16, False, 0),
         # the smoke configs' head dims, on the SIMT kernels in both dtypes
         ("smoke_d16_train", 2, 64, 64, 4, 2, 16, 16, torch.bfloat16, True, 0),
+        ("smoke_d16_cross_train", 2, 64, 80, 4, 4, 16, 16, torch.bfloat16, False, 0),
         ("smoke_d16_window32_train", 2, 64, 64, 4, 1, 16, 16, torch.bfloat16, True, 32),
         ("smoke_d16_train_fp32", 2, 64, 64, 4, 2, 16, 16, torch.float32, True, 0),
         ("smoke_mla_train", 2, 64, 64, 4, 4, 24, 16, torch.bfloat16, True, 0),
@@ -1844,25 +1852,33 @@ def phase_train_supervisor(seed: int) -> dict[str, int]:
 # train_all: the nine architectures other than granite (whose full-depth
 # step is train_step's), each at full width and cut in depth only, to the
 # deepest whole unit of its layer pattern whose step peaks under
-# MAX_PEAK_GB.  Reckoned from the port's param_defs at 12 bytes a
-# parameter (bf16 weights and gradients, fp32 moments) before activations:
-# minitron-4b 3.33 B at 16 of 32 layers (40 GB); olmoe-1b-7b 3.56 B at 8
-# of 16 (43 GB); recurrentgemma-9b 3.67 B at 12 of 38, four units of 2
-# RG-LRU + 1 windowed (44 GB); gemma3-27b 3.89 B at 6 of 62, one unit of 5
-# windowed + 1 global (47 GB); llava-next-34b 3.15 B at 4 of 60 (38 GB);
-# deepseek-67b 4.45 B at 4 of 95 (53 GB at 12 bytes, 36 GB at its 8: its
-# tuning takes bf16 moments); deepseek-v3-671b 4.29 B at its 3 dense
-# layers with the MTP block (bf16 moments, 34 GB).  One of its MoE layers
-# is 11.3 B parameters, 90 GB at 8 bytes: no MoE layer of it trains on
-# one card.  mamba2-780m (0.78 B) and seamless-m4t-medium (0.98 B) run
-# whole
+# MAX_PEAK_GB.  The step's peak is its optimizer update: AdamW builds the
+# new weights and moments while the old are held, beside the accumulated
+# gradient, so a parameter costs 2 (2 + 8) + 4 = 24 bytes with the
+# reference's fp32 moments and accumulation (granite: 2.53 B, 61.2 GB
+# measured) and 2 (2 + 4) + 2 = 14 with its bf16 ones; the largest leaf
+# adds ~8 bytes a parameter of fp32 temporaries (a first full run on an
+# H100 ran out of memory in that update with minitron at 16 layers, 3.33
+# B: 80 GB reckoned).  From the port's param_defs, with activations of a
+# few GB under remat: minitron-4b 6 of 32 layers (2.23 B, 54 GB + 6 GB
+# for its 0.79 B embedding); olmoe-1b-7b 5 of 16 (2.30 B, 55 + 5 GB);
+# recurrentgemma-9b 6 of 38, two units of 2 RG-LRU + 1 windowed (2.36 B,
+# 57 + 8 GB); llava-next-34b 5 of 60 (3.71 B at 14 bytes, 52 + 12 GB);
+# deepseek-67b 3 of 95 (3.75 B, 53 + 13 GB); deepseek-v3-671b 2 of its 3
+# dense layers with the MTP block (3.71 B, 52 + 15 GB).  gemma3-27b: one
+# whole 5:1 unit is 3.89 B, 93 GB, so no whole unit fits; it trains its
+# first 2 (windowed) layers (2.23 B, 54 + 11 GB), and its global layer's
+# attention (D 128, no window) trains in olmoe's, llava's and
+# deepseek-67b's steps.  No deepseek-v3 MoE layer trains on one card: one
+# is 11.3 B parameters.  mamba2-780m (0.78 B, 20.6 GB measured) and
+# seamless-m4t-medium (0.98 B) run whole
 TRAIN_ARCHS = ("mamba2_780m", "minitron_4b", "olmoe_1b_7b", "seamless_m4t_medium",
                "recurrentgemma_9b", "gemma3_27b", "llava_next_34b", "deepseek_67b",
                "deepseek_v3_671b")
-TRAIN_DEPTH = {"minitron_4b": {"n_layers": 16}, "olmoe_1b_7b": {"n_layers": 8},
-               "recurrentgemma_9b": {"n_layers": 12}, "gemma3_27b": {"n_layers": 6},
-               "llava_next_34b": {"n_layers": 4}, "deepseek_67b": {"n_layers": 4},
-               "deepseek_v3_671b": {"n_layers": 3, "first_k_dense": 3}}
+TRAIN_DEPTH = {"minitron_4b": {"n_layers": 6}, "olmoe_1b_7b": {"n_layers": 5},
+               "recurrentgemma_9b": {"n_layers": 6}, "gemma3_27b": {"n_layers": 2},
+               "llava_next_34b": {"n_layers": 5}, "deepseek_67b": {"n_layers": 3},
+               "deepseek_v3_671b": {"n_layers": 2, "first_k_dense": 2}}
 # B 4, S 1024; the windowed models 2560, past their windows (as PROMPT)
 TRAIN_BATCH = 4
 TRAIN_SEQ = {"recurrentgemma_9b": 2560, "gemma3_27b": 2560}
@@ -1946,7 +1962,7 @@ def phase_train_all(seed: int) -> dict[str, dict[str, int]]:
         ms = statistics.median(x["ms"] for x in steps)
         want = train_launches(cfg, step_cfg.microbatches)
         if arch in ROOFLINE_TRAIN:   # counted once, read in the roofline phase
-            _, cost = count_step(step, params, opt_state, batch)
+            cost = count_step(step, params, opt_state, batch)[1]
             ROOFLINE_RUNS[f"{arch} train_step"] = dict(
                 cfg=cfg, cost=cost, ms=ms, kind="train", batch=b, seq=s, tokens=b * s,
                 expected=want, peak_gb=peak_gb,
@@ -1973,17 +1989,39 @@ def phase_train_all(seed: int) -> dict[str, dict[str, int]]:
     return out
 
 
+@contextlib.contextmanager
+def cli_reports():
+    """The report of each ``WrathTrainSupervisor.run`` the training CLI
+    makes, in order: its JSON carries only the first and last losses."""
+    import repro_torch.launch.train as cli
+
+    reports, base = [], cli.WrathTrainSupervisor
+
+    class Recording(base):
+        def run(self, *args, **kwargs):
+            reports.append(super().run(*args, **kwargs))
+            return reports[-1]
+
+    cli.WrathTrainSupervisor = Recording
+    try:
+        yield reports
+    finally:
+        cli.WrathTrainSupervisor = base
+
+
 def phase_train_cli() -> dict[str, dict[str, int]]:
     """The training CLI (``python -m repro_torch.launch.train``) on the
     card at its defaults, in process through ``main(argv)``: each
     architecture's smoke config, 8 steps through a host loss at step 3,
-    each from a fresh checkpoint directory.  Returns each run's launches."""
+    each from a fresh checkpoint directory.  Gates: 8 steps, finite
+    losses, the recoveries the CPU test pins, launches of each kernel the
+    architecture uses and no other.  Returns each run's launches."""
     import io
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.train import main
 
-    out = {}
+    out, faults = {}, []
     ckpt = ROOT / "build" / "chip_smoke_cli_ckpt"
     for arch in ARCHS:
         name = arch.replace("_", "-")
@@ -1991,7 +2029,7 @@ def phase_train_cli() -> dict[str, dict[str, int]]:
         zero_counts()
         buf = io.StringIO()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), cli_reports() as reports:
             main(["--arch", name, "--steps", "8", "--inject", "host_down:3:host01", "--json",
                   "--ckpt-dir", str(ckpt)])
         torch.cuda.synchronize()
@@ -2004,23 +2042,33 @@ def phase_train_cli() -> dict[str, dict[str, int]]:
             uses += ["flash_attention", "flash_attention_bwd"]
         if "ssd" in mixers:
             uses += ["ssd_scan", "ssd_scan_bwd"]
+        # a reading, not a gate: each step draws a new batch, and a smoke
+        # model's loss moves from batch to batch by about as much as it
+        # falls in 8 steps at the CLI's defaults.  seamless-m4t-medium's,
+        # from the card's weight draw, read 5.995 -> 6.017 as means of the
+        # first and last three steps; from the CPU's draw 6.011 -> 5.984 on
+        # the card and 6.047 -> 6.005 on the CPU (NVIDIA H100 80GB HBM3,
+        # 700.00 W).  The loss falls as a gate in train_all, on one batch
+        losses = reports[0].losses
+        first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
         emit("train_cli", arch=name, steps=rep["steps"], loss_first=rep["loss_first"],
-             loss_last=rep["loss_last"], restores=rep["restores"],
-             recoveries=rep["recoveries"], denylisted=rep["denylisted"], wall_s=wall_s,
-             launches=launches, kernels_used=uses)
+             loss_last=rep["loss_last"], losses=losses, loss_first3=first, loss_last3=last,
+             restores=rep["restores"], recoveries=rep["recoveries"],
+             denylisted=rep["denylisted"], wall_s=wall_s, launches=launches,
+             kernels_used=uses)
         what = f"train_cli {name}"
-        check(rep["steps"] == 8, f"{what}: {rep['steps']} steps completed, expected 8")
-        check(math.isfinite(rep["loss_first"]) and math.isfinite(rep["loss_last"])
-              and rep["loss_last"] < rep["loss_first"],
-              f"{what}: loss {rep['loss_first']} -> {rep['loss_last']}")
-        # tests/test_torch_train.py::test_train_cli_on_cpu pins these for the same arguments
-        check(rep["restores"] == 0 and rep["recoveries"] == [],
-              f"{what}: restores {rep['restores']}, recoveries {rep['recoveries']}")
-        check(all(launches[k] > 0 for k in uses) and not any(
-            v for k, v in launches.items() if k not in uses),
-              f"{what}: launches {launches}, expected launches of {uses} only")
+        faults += [f"{what}: {fault}" for ok, fault in (
+            (rep["steps"] == 8, f"{rep['steps']} steps completed, expected 8"),
+            (all(math.isfinite(x) for x in losses), f"losses {losses}"),
+            # tests/test_torch_train.py::test_train_cli_on_cpu pins these for the same arguments
+            (rep["restores"] == 0 and rep["recoveries"] == [],
+             f"restores {rep['restores']}, recoveries {rep['recoveries']}"),
+            (all(launches[k] > 0 for k in uses)
+             and not any(v for k, v in launches.items() if k not in uses),
+             f"launches {launches}, expected launches of {uses} only")) if not ok]
         out[f"{arch} train_cli"] = launches
     shutil.rmtree(ckpt, ignore_errors=True)
+    check(not faults, "; ".join(faults))
     return out
 
 
@@ -2789,13 +2837,10 @@ def main() -> int:
     t0 = time.perf_counter()
     path_launches["granite_3_2b train_supervisor"] = phase_train_supervisor(args.seed)
     seconds["train_supervisor"] = time.perf_counter() - t0
-    # the nine other architectures' train steps, then the training CLI on all ten
+    # the nine other architectures' train steps (the training CLI comes last)
     t0 = time.perf_counter()
     path_launches.update(phase_train_all(args.seed))
     seconds["train_all"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    path_launches.update(phase_train_cli())
-    seconds["train_cli"] = time.perf_counter() - t0
 
     # -- 7. the WRATH engine and the TaPS apps (fedlearn, moldesign on the card)
     t0 = time.perf_counter()
@@ -2807,7 +2852,7 @@ def main() -> int:
     path_launches["wrath_sim (fedlearn under SimHarness)"] = phase_wrath_sim(args.seed)
     seconds["wrath_sim"] = time.perf_counter() - t0
 
-    # -- 9. the autotuner (a fresh cache), 10. the roofline of four paths ----
+    # -- 9. the autotuner (a fresh cache), 10. the roofline of six paths -----
     t0 = time.perf_counter()
     tiles, path_launches["autotune (entry points consulting the cache)"] = phase_autotune(
         args.seed)
@@ -2820,9 +2865,14 @@ def main() -> int:
     t0 = time.perf_counter()
     path_launches.update(phase_distributed(args.seed))
     seconds["distributed"] = time.perf_counter() - t0
+
+    # -- 12. the training CLI on the card, every architecture ---------------
+    t0 = time.perf_counter()
+    path_launches.update(phase_train_cli())
+    seconds["train_cli"] = time.perf_counter() - t0
     emit("timing", seconds=seconds, resident_gb_after=resident)
 
-    # -- 12. the kernel table -----------------------------------------------
+    # -- 13. the kernel table -----------------------------------------------
     rows = [("flash_attention", flash_cases, "granite_prefill",
              "src/repro_torch/kernels/csrc/flash_attention.cu"),
             ("flash_attention_bwd", bwd_cases, "granite_train",

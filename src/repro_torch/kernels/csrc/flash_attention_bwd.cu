@@ -504,6 +504,28 @@ struct SplitSmem {
 template <int D>
 __host__ __device__ constexpr int first_cols() { return (D / BOX + 1) / 2 * BOX; }
 
+// (head, q tile) item j of a dK/dV block into stage j % STAGES: its Q and
+// dO tiles by TMA, its rows' lse and Delta by bulk copy, all on full[s]
+template <int DK, int DV>
+__device__ __forceinline__ void split_load_item(const Params& p, const CUtensorMap* tm_q,
+                                                const CUtensorMap* tm_do, unsigned char* sQ,
+                                                unsigned char* sdO, float* sL, float* sDl,
+                                                uint64_t* full, int b, int kvh, int t_lo,
+                                                int nq, int j) {
+  using L = SplitSmem<DK, DV>;
+  const int s = j % L::STAGES, h = kvh * (p.H / p.KV) + j / nq, q0 = (t_lo + j % nq) * ROWS;
+  mbar_expect_tx(&full[s], L::STAGE_TX);
+#pragma unroll
+  for (int c = 0; c < DK / BOX; ++c)
+    tma_load(sQ + s * L::K_BYTES + c * ROWS * ROW, tm_q, &full[s], c * BOX, h, q0, b);
+#pragma unroll
+  for (int c = 0; c < DV / BOX; ++c)
+    tma_load(sdO + s * L::V_BYTES + c * ROWS * ROW, tm_do, &full[s], c * BOX, h, q0, b);
+  const size_t off = ((size_t)b * p.H + h) * p.s_pad + q0;
+  bulk_load(sL + s * ROWS, p.lse2 + off, L::VEC_BYTES, &full[s]);
+  bulk_load(sDl + s * ROWS, p.delta + off, L::VEC_BYTES, &full[s]);
+}
+
 // One warpgroup's share of flash_bwd_dkdv_bf16_split: dK columns [KC0,
 // KC0 + WK) and dV columns [VC0, VC0 + WV) of the block's 64 kv rows over
 // its n (head, q tile) items.  Thread 0 (of the first warpgroup) refills
@@ -517,24 +539,9 @@ __device__ __forceinline__ void dkdv_split_part(
   constexpr int STAGES = L::STAGES;
   const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;
   const int t4 = lane & 3, g = lane >> 2;
-  const int group = p.H / p.KV;
   const int krow0 = k0 + warp * 16 + g, krow1 = krow0 + 8;
   const uint32_t k_smem = smem_u32(sK), v_smem = smem_u32(sV);
   const float sl = p.scale_log2;
-
-  auto load_q = [&](int j) {   // item j into stage j % STAGES
-    const int s = j % STAGES, h = kvh * group + j / nq, q0 = (t_lo + j % nq) * ROWS;
-    mbar_expect_tx(&full[s], L::STAGE_TX);
-#pragma unroll
-    for (int c = 0; c < DK / BOX; ++c)
-      tma_load(sQ + s * L::K_BYTES + c * ROWS * ROW, tm_q, &full[s], c * BOX, h, q0, b);
-#pragma unroll
-    for (int c = 0; c < DV / BOX; ++c)
-      tma_load(sdO + s * L::V_BYTES + c * ROWS * ROW, tm_do, &full[s], c * BOX, h, q0, b);
-    const size_t off = ((size_t)b * p.H + h) * p.s_pad + q0;
-    bulk_load(sL + s * ROWS, p.lse2 + off, L::VEC_BYTES, &full[s]);
-    bulk_load(sDl + s * ROWS, p.delta + off, L::VEC_BYTES, &full[s]);
-  };
 
   float dk[WK / 2], dv[WV / 2];
 #pragma unroll
@@ -596,7 +603,8 @@ __device__ __forceinline__ void dkdv_split_part(
     if (tid == 0 && i + STAGES < n) {
       // item i + STAGES goes where item i was: wait until both warpgroups are done with it
       mbar_wait(&empty[s], (i / STAGES) & 1);
-      load_q(i + STAGES);
+      split_load_item<DK, DV>(p, tm_q, tm_do, sQ, sdO, sL, sDl, full, b, kvh, t_lo, nq,
+                              i + STAGES);
     }
     __syncwarp();
   }
@@ -628,13 +636,12 @@ __global__ void __launch_bounds__(256, 1)
 
   const int tid = threadIdx.x;
   const int b = blockIdx.x / p.KV, kvh = blockIdx.x % p.KV;
-  const int group = p.H / p.KV;
   const int k0 = blockIdx.y * ROWS;   // causal: the first kv tiles see the most q tiles
   int lo, hi;
   q_range(p, k0, ROWS, lo, hi);
   const int t_lo = lo / ROWS;
   const int nq = hi > lo ? (hi + ROWS - 1) / ROWS - t_lo : 0;   // q tiles a head
-  const int n = group * nq;                                     // (head, q tile) items
+  const int n = (p.H / p.KV) * nq;                              // (head, q tile) items
 
   if (tid == 0) {
     mbar_init(bar_kv, 1);
@@ -653,19 +660,8 @@ __global__ void __launch_bounds__(256, 1)
 #pragma unroll
     for (int c = 0; c < DV / BOX; ++c)
       tma_load(sV + c * ROWS * ROW, &tm_v, bar_kv, c * BOX, kvh, k0, b);
-    for (int s = 0; s < STAGES && s < n; ++s) {   // items 0 .. STAGES - 1
-      const int h = kvh * group + s / nq, q0 = (t_lo + s % nq) * ROWS;
-      mbar_expect_tx(&full[s], L::STAGE_TX);
-#pragma unroll
-      for (int c = 0; c < DK / BOX; ++c)
-        tma_load(sQ + s * L::K_BYTES + c * ROWS * ROW, &tm_q, &full[s], c * BOX, h, q0, b);
-#pragma unroll
-      for (int c = 0; c < DV / BOX; ++c)
-        tma_load(sdO + s * L::V_BYTES + c * ROWS * ROW, &tm_do, &full[s], c * BOX, h, q0, b);
-      const size_t off = ((size_t)b * p.H + h) * p.s_pad + q0;
-      bulk_load(sL + s * ROWS, p.lse2 + off, L::VEC_BYTES, &full[s]);
-      bulk_load(sDl + s * ROWS, p.delta + off, L::VEC_BYTES, &full[s]);
-    }
+    for (int j = 0; j < STAGES && j < n; ++j)
+      split_load_item<DK, DV>(p, &tm_q, &tm_do, sQ, sdO, sL, sDl, full, b, kvh, t_lo, nq, j);
   }
   if (n > 0) mbar_wait(bar_kv, 0);
   constexpr int K0 = first_cols<DK>(), V0 = first_cols<DV>();

@@ -87,44 +87,39 @@ def tma_layout(shape: tuple[int, int, int, int], stride: tuple[int, int, int, in
 _LAYOUTS: dict[tuple, ctypes.Array] = {}
 
 
-def layout_array(q_shape, q_stride, k_shape, k_stride, q_rows: int, kv_rows: int,
-                 v_shape=None, v_stride=None) -> ctypes.Array:
-    """The 33 layout values a bf16 launch takes (q's with boxes of
-    ``q_rows`` rows, then k's and v's with boxes of ``kv_rows``; v's are
-    k's unless ``v_shape`` and ``v_stride`` are given), as a C array.
-    Cached by shapes, strides and rows (at most 256 entries): building the
-    layouts takes tens of microseconds of host time, next to a kernel of
+def _cached_layouts(key: tuple, parts) -> ctypes.Array:
+    """The flat TMA layouts of ``parts``, (shape, stride, box rows) of bf16
+    tensors, as a C array, cached by ``key`` (at most 256 entries): building
+    the layouts takes tens of microseconds of host time, next to a kernel of
     ~0.05 ms."""
-    if v_shape is None:
-        v_shape, v_stride = k_shape, k_stride
-    key = (tuple(q_shape), tuple(q_stride), tuple(k_shape), tuple(k_stride),
-           tuple(v_shape), tuple(v_stride), q_rows, kv_rows)
     arr = _LAYOUTS.get(key)
     if arr is None:
-        flat = (tma_layout(tuple(q_shape), tuple(q_stride), 2, q_rows).flat()
-                + tma_layout(tuple(k_shape), tuple(k_stride), 2, kv_rows).flat()
-                + tma_layout(tuple(v_shape), tuple(v_stride), 2, kv_rows).flat())
+        flat = sum((tma_layout(tuple(shape), tuple(stride), 2, rows).flat()
+                    for shape, stride, rows in parts), ())
         if len(_LAYOUTS) >= 256:
             _LAYOUTS.clear()
         arr = _LAYOUTS[key] = (ctypes.c_longlong * len(flat))(*flat)
     return arr
+
+
+def layout_array(q_shape, q_stride, k_shape, k_stride, q_rows: int, kv_rows: int,
+                 v_shape=None, v_stride=None) -> ctypes.Array:
+    """The 33 layout values a bf16 launch takes (q's with boxes of
+    ``q_rows`` rows, then k's and v's with boxes of ``kv_rows``; v's are
+    k's unless ``v_shape`` and ``v_stride`` are given), as a C array."""
+    if v_shape is None:
+        v_shape, v_stride = k_shape, k_stride
+    parts = tuple((tuple(shape), tuple(stride), rows) for shape, stride, rows in (
+        (q_shape, q_stride, q_rows), (k_shape, k_stride, kv_rows), (v_shape, v_stride, kv_rows)))
+    return _cached_layouts(parts, parts)
 
 
 def bwd_layout_array(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      do: torch.Tensor) -> ctypes.Array:
     """The 44 layout values a bf16 backward launch takes: q's, k's, v's and
-    dO's, each with boxes of BWD_BOX_ROWS rows, as a C array (cached as
-    :func:`layout_array` caches)."""
-    key = ("bwd", tuple(q.shape), q.stride(), tuple(k.shape), k.stride(), tuple(v.shape),
-           v.stride(), tuple(do.shape), do.stride())
-    arr = _LAYOUTS.get(key)
-    if arr is None:
-        flat = sum((tma_layout(tuple(t.shape), t.stride(), 2, BWD_BOX_ROWS).flat()
-                    for t in (q, k, v, do)), ())
-        if len(_LAYOUTS) >= 256:
-            _LAYOUTS.clear()
-        arr = _LAYOUTS[key] = (ctypes.c_longlong * len(flat))(*flat)
-    return arr
+    dO's, each with boxes of BWD_BOX_ROWS rows, as a C array."""
+    parts = tuple((tuple(t.shape), t.stride(), BWD_BOX_ROWS) for t in (q, k, v, do))
+    return _cached_layouts(parts, parts)
 
 
 def _fn():
