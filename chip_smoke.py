@@ -1614,7 +1614,9 @@ def train_launches(cfg, microbatches: int = 1) -> dict[str, int]:
 
 # train_grad_check's cases, at full width, at the depth at which the
 # float64 referee fits on the card beside the bf16 weights: (cut, B, S).
-# granite and mamba2 two layers; recurrentgemma one unit (2 RG-LRU + 1
+# granite and mamba2 two layers (mamba2 over 512 steps, four of its
+# 128-step chunks: its plain path, ssd_ref under autograd, steps one by
+# one on the host); recurrentgemma one unit (2 RG-LRU + 1
 # windowed layer, 1.71 B parameters) over 2560 tokens, past its 2048
 # window so the mask bites in the backward; seamless two encoder and two
 # decoder layers (0.60 B); deepseek-v3 one dense MLA layer with the MTP
@@ -1622,7 +1624,7 @@ def train_launches(cfg, microbatches: int = 1) -> dict[str, int]:
 # S 512, its referee's gradients held on the host (GRAD_CHECK_OFFLOAD)
 # while its fp32 runs hold theirs on the card
 GRAD_CHECK = {"granite_3_2b": ({"n_layers": 2}, 2, 1024),
-              "mamba2_780m": ({"n_layers": 2}, 2, 1024),
+              "mamba2_780m": ({"n_layers": 2}, 2, 512),
               "recurrentgemma_9b": ({"n_layers": 3}, 1, 2560),
               "seamless_m4t_medium": ({"n_layers": 2, "encoder_layers": 2}, 2, 1024),
               "deepseek_v3_671b": ({"n_layers": 1, "first_k_dense": 1}, 1, 512)}
@@ -1661,18 +1663,26 @@ def _grad_check_init(init: str, params_bf, batch, base, offload: bool) -> dict[s
     from repro_torch.distributed.step import loss_and_grads
     from repro_torch.models.spec import tree_map
 
-    def rel_l2(a_tree, r_tree) -> dict[str, float]:
-        out = {}
-        for (path, a), (_, r) in zip(_leaf_paths(a_tree), _leaf_paths(r_tree)):
-            r = r.to(a.device).double()
-            out[path] = ((a.double() - r).norm() / r.norm()).item()
-        return out
+    def rel_l2(a, r) -> float:
+        return ((a.double() - r.double()).norm() / r.double().norm()).item()
+
+    def errors(g_k, g_p, g64) -> tuple[dict, dict, dict]:
+        """Each leaf's relative L2 error, kernel and plain path against the
+        referee and against each other; a referee leaf on the host is moved
+        to the card once."""
+        err_k, err_p, k_vs_p = {}, {}, {}
+        for (path, k), (_, p), (_, r) in zip(_leaf_paths(g_k), _leaf_paths(g_p),
+                                             _leaf_paths(g64)):
+            r = r.to(k.device)
+            err_k[path], err_p[path], k_vs_p[path] = rel_l2(k, r), rel_l2(p, r), rel_l2(k, p)
+        return err_k, err_p, k_vs_p
 
     def loss_err(a, r) -> float:
         return abs(a.item() - r.item()) / (1 + abs(r.item()))
 
     key = "embeds" if base.input_kind == "embeds" else "inputs"
     b, s = batch[key].shape[:2]
+    t0 = time.perf_counter()
     with plain_attention(attention_in_dtype, ssd_in_dtype):
         params64 = tree_map(lambda t: t.double(), params_bf)
         loss64, _, g64 = loss_and_grads(params64, batch, base.scaled(compute_dtype="float64"))
@@ -1693,7 +1703,7 @@ def _grad_check_init(init: str, params_bf, batch, base, offload: bool) -> dict[s
             loss_p, _, g_p = loss_and_grads(params, batch, cfg)
             torch.cuda.synchronize()
             plain_launches = launch_counts()
-        err_k, err_p, k_vs_p = rel_l2(g_k, g64), rel_l2(g_p, g64), rel_l2(g_k, g_p)
+        err_k, err_p, k_vs_p = errors(g_k, g_p, g64)
         tol = GRAD_CHECK_TOL[compute]
         limit = {leaf: max(tol["grad"], 2 * err_p[leaf]) for leaf in err_k}
         worst = max(err_k, key=lambda leaf: err_k[leaf] / limit[leaf])
@@ -1712,7 +1722,8 @@ def _grad_check_init(init: str, params_bf, batch, base, offload: bool) -> dict[s
              worst_leaf_limit=limit[worst], rel_l2_kernel_vs_f64=err_k,
              rel_l2_plain_vs_f64=err_p, rel_l2_kernel_vs_plain=k_vs_p, tol=tol, finite=finite,
              kernel_launches=kernel_launches, plain_launches=plain_launches,
-             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             seconds=time.perf_counter() - t0)
         check(finite, f"{what}: a loss or gradient is not finite")
         check(kernel_launches == want, f"{what}: kernel launches {kernel_launches}, "
               f"expected {want}")

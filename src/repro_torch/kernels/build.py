@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -71,11 +72,25 @@ def build_all() -> dict[str, dict]:
         procs[src.stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True),
                            tmp, lib, time.perf_counter())
+    # each compiler's output is read on a thread of its own, so that each
+    # build's seconds end when that build does, not when the one before it
+    # in this loop does
+    done: dict[str, tuple[str, float]] = {}
+
+    def drain(name: str, proc: subprocess.Popen, t0: float) -> None:
+        log, _ = proc.communicate()
+        done[name] = (log, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=drain, args=(name, proc, t0))
+               for name, (proc, _, _, t0) in procs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     report: dict[str, dict] = {}
     failed = []
-    for name, (proc, tmp, lib, t0) in procs.items():
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
+    for name, (proc, tmp, lib, _) in procs.items():
+        log, seconds = done[name]
         (out_dir / f"{name}.log").write_text(log)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)

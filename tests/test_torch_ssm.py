@@ -279,7 +279,7 @@ def test_ssd_scan_autograd_dispatch(monkeypatch):
     leaves = [t.requires_grad_() for t in _th(arrays)]
     counts = (ssd_scan.launches, ssd_scan.bwd_launches)
     y, _ = ssd_scan(*leaves, chunk=32)
-    assert type(y.grad_fn).__name__ == "SsdScanBackward"
+    assert type(y.grad_fn).__name__ == f"{SsdScan.__name__}Backward"
     torch.testing.assert_close(y.detach(), plain[0])
     got = torch.autograd.grad(y, leaves, torch.from_numpy(dy))
     want = ssd_bwd_ref(*_th(arrays), torch.from_numpy(dy))
