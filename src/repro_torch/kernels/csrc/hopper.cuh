@@ -24,6 +24,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// a and b as bf16 pairs: hi, each rounded to nearest, and lo, what is
+// left of each (exact in fp32) rounded to bf16.  hi + lo keeps 16 bits of
+// mantissa.  (An integer-only split measured slower.)
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
 // the SIMT kernels' element types: bf16 or fp32 in memory, fp32 arithmetic
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -121,6 +131,11 @@ __device__ __forceinline__ void bulk_wait() {
 // a barrier of `threads` threads (a multiple of 32) on hardware barrier id
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// this warp's arrival at barrier id, without waiting for the others
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // orders this thread's shared-memory stores before later reads by the

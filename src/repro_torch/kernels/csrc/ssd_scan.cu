@@ -424,16 +424,6 @@ __device__ __forceinline__ void load_dt(float (&dtv)[PER], const __nv_bfloat16* 
   }
 }
 
-// a and b as bf16 pairs: hi, each rounded to nearest, and lo, what is
-// left of each (exact in fp32) rounded to bf16.  hi + lo keeps 16 bits of
-// mantissa.  (An integer-only split measured slower.)
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(a - hf.x, b - hf.y);
-}
-
 // warp 0: da = dt a over a chunk (dtv, PER steps a lane) and its cumsum
 // in fp64, into one set of per-step vectors (see the kernel)
 template <int Q>

@@ -15,9 +15,11 @@ it.
 SIMT one, or the smoke config's (16, 16), the SIMT kernel in either dtype:
 the route follows from dtype and shape (:func:`tma_route`).
 
-:func:`ssd_scan_bwd_cuda` launches the gradient's kernel
-(``csrc/ssd_scan_bwd.cu``) at the same shapes and sums its per-head
-shares of da, db and dc.
+:func:`ssd_scan_bwd_cuda` launches the gradient's kernels
+(``csrc/ssd_scan_bwd.cu``) at the same shapes: for bf16 at (64, 128) the
+three tensor-core kernels (chunk-parallel; dB and dC come per group of
+``BWD_HEAD_GROUP`` heads, :func:`bwd_scratch` gives their scratch), else
+the SIMT kernel (per-head shares); it sums the shares of da, db and dc.
 
 The public entry is :func:`repro_torch.kernels.ops.ssd_scan` (with
 :class:`repro_torch.kernels.ops.SsdScan` for autograd), which counts the
@@ -44,6 +46,9 @@ CHUNKS = {torch.bfloat16: (64, 128), torch.float32: (32, 64, 128)}
 # the backward kernel's own tile by (P, N): the function does not depend on
 # the chunk (csrc/ssd_scan_bwd.cu says why it is 64 at mamba2's shape)
 BWD_TILES = {(64, 128): 64, (16, 16): 32}
+# heads a block of the tensor-core backward takes (one B/C tile, their dB
+# and dC summed in registers); the last group may be short
+BWD_HEAD_GROUP = 4
 Y_ROWS = 64                # rows of y one warpgroup stores by TMA
 
 
@@ -202,15 +207,62 @@ def _bwd_fn():
     return fn
 
 
+def _bwd_tc_fn():
+    fn = build.library("ssd_scan_bwd").ssd_scan_bwd_tc
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_scratch(b: int, l: int, h: int, head_group: int = BWD_HEAD_GROUP
+                ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """The tensor-core backward's scratch and shares at mamba2's (64, 128),
+    (shape, dtype) by name: each (b h, chunk)'s per-step vectors (the
+    cumsum as a float pair, dt), the states entering and the gradients
+    leaving each chunk (S, then dS: bf16 hi and lo parts, 32 KB a (b h,
+    chunk) each), da per (b, chunk, h), and dB and dC per head group."""
+    p, n = 64, 128
+    q = BWD_TILES[(p, n)]
+    nc, ng = -(-l // q), -(-h // head_group)
+    f32 = torch.float32
+    return {"vec": ((b * h, nc, 3, q), f32), "states": ((2, b * h, nc, 2, p, n), torch.bfloat16),
+            "da_part": ((b, nc, h), f32), "db_part": ((b, l, ng, n), f32),
+            "dc_part": ((b, l, ng, n), f32)}
+
+
+_BWD_LAYOUTS: dict[tuple, ctypes.Array] = {}
+
+
+def _bwd_layout_array(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> ctypes.Array:
+    """The 44 layout values the tensor-core backward takes (x, b, c as the
+    forward's with boxes of 64 rows, then the contiguous dy of x's shape),
+    cached as :func:`_layout_array` caches the forward's."""
+    q = BWD_TILES[(64, 128)]
+    key = (tuple(x.shape), x.stride(), b.shape[-1], b.stride(), c.stride(),
+           x.storage_offset(), b.storage_offset(), c.storage_offset())
+    arr = _BWD_LAYOUTS.get(key)
+    if arr is None:
+        bb, l, h, p = x.shape
+        flat = (tma_layouts(x, b, c, q).flat()
+                + tma_layout((bb, l, h, p), (l * h * p, h * p, p, 1), 2, q).flat())
+        if len(_BWD_LAYOUTS) >= 256:
+            _BWD_LAYOUTS.clear()
+        arr = _BWD_LAYOUTS[key] = (ctypes.c_longlong * len(flat))(*flat)
+    return arr
+
+
 def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                      c: torch.Tensor, dy: torch.Tensor, dstate: torch.Tensor | None = None
-                      ) -> tuple[torch.Tensor, ...]:
+                      c: torch.Tensor, dy: torch.Tensor, dstate: torch.Tensor | None = None,
+                      *, head_group: int | None = None) -> tuple[torch.Tensor, ...]:
     """The gradient of :func:`ssd_scan_cuda` on its inputs: dy (B, L, H, P)
     the gradient of y, ``dstate`` (B, H, P, N) that of the final state
     (None: zero) -> (dx, ddt, da, db, dc) in the dtypes of x, dt, a, b, c.
     x, b and c are read through their strides, as the forward reads them.
-    The kernel writes db, dc and da per head (fp32); they are summed here
-    over heads and batch, in one ordered sum each."""
+    The kernels write db and dc per head group (the tensor-core route,
+    ``head_group`` heads a group, default ``BWD_HEAD_GROUP``) or per head
+    (SIMT), and da per (b, chunk, h) or per (b, h), in fp32; they are summed
+    here, in one ordered sum each."""
     _check(x, dt, a, b, c)
     bb, l, h, p = x.shape
     n = b.shape[-1]
@@ -228,6 +280,29 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: tor
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     ddt = torch.empty((bb, l, h), dtype=dt.dtype, device=x.device)
+    if tma_route(x.dtype, p, n):
+        hg = BWD_HEAD_GROUP if head_group is None else head_group
+        if hg < 1:
+            raise ValueError(f"ssd_scan_bwd: head_group {hg} must be at least 1")
+        if any(t.data_ptr() % 16 for t in (x, b, c, dy)):
+            raise ValueError("ssd_scan_bwd: x, b, c and dy must start 16-byte aligned for TMA")
+        sc = {k: torch.empty(shape, dtype=dtype, device=x.device)
+              for k, (shape, dtype) in bwd_scratch(bb, l, h, hg).items()}
+        layout = _bwd_layout_array(x, b, c)
+        with torch.cuda.device(x.device):
+            err = _bwd_tc_fn()(
+                x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                dy.data_ptr(), None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
+                ddt.data_ptr(), sc["vec"].data_ptr(), sc["states"][0].data_ptr(),
+                sc["states"][1].data_ptr(), sc["da_part"].data_ptr(), sc["db_part"].data_ptr(),
+                sc["dc_part"].data_ptr(), bb, l, h, hg, _DTYPES[a.dtype], layout,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        if err < 0:
+            raise RuntimeError(f"ssd_scan_bwd: TMA tensor map not encoded (code {err})")
+        if err:
+            raise RuntimeError(f"ssd_scan_bwd: kernel launch failed with CUDA error {err}")
+        return (dx, ddt, sc["da_part"].sum((0, 1)).to(a.dtype),
+                sc["db_part"].sum(2).to(b.dtype), sc["dc_part"].sum(2).to(c.dtype))
     da_part = torch.empty((bb, h), **f32)
     db_part = torch.empty((bb, l, h, n), **f32)
     dc_part = torch.empty((bb, l, h, n), **f32)
