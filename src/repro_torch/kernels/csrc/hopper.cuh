@@ -106,6 +106,14 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// `bytes` contiguous bytes of shared memory (a multiple of 16, both
+// addresses 16-byte aligned) to device memory, in this thread's bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
 // one box of shared memory into a 4-D tensor map, in this thread's bulk
 // group; rows past the tensor's end are not written
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1,

@@ -616,20 +616,17 @@ struct StParams {
 constexpr size_t ST_BYTES = 1024 + 6 * TILE + 2 * VEC * 4 + 16;
 
 // acc (64 x 64 fp32, the wgmma layout: rows warp*16 + g (+8), columns
-// 8 nb + 2 t4 (+1)) as hi and lo parts into box `box` of a state blob
-__device__ __forceinline__ void store_blob(__nv_bfloat16* blob, int box, const float (&acc)[32],
-                                           int warp, int g, int t4) {
-  unsigned char* hi = reinterpret_cast<unsigned char*>(blob) + box * TILE;
-  unsigned char* lo = hi + NBX * TILE;
+// 8 nb + 2 t4 (+1)) as hi and lo parts into two boxes of shared memory,
+// laid out as a blob's
+__device__ __forceinline__ void stage_parts(unsigned char* hi, unsigned char* lo,
+                                            const float (&acc)[32], int warp, int g, int t4) {
 #pragma unroll
   for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const uint32_t off = swz(warp * 16 + g + 8 * r, nb * 8 + 2 * t4);
-      uint32_t h_, l_;
-      split_bf16(acc[4 * nb + 2 * r], acc[4 * nb + 2 * r + 1], h_, l_);
-      *reinterpret_cast<uint32_t*>(hi + off) = h_;
-      *reinterpret_cast<uint32_t*>(lo + off) = l_;
+      split_bf16(acc[4 * nb + 2 * r], acc[4 * nb + 2 * r + 1],
+                 *reinterpret_cast<uint32_t*>(hi + off), *reinterpret_cast<uint32_t*>(lo + off));
     }
 }
 
@@ -655,7 +652,29 @@ __global__ void __launch_bounds__(128, 4)
   const CUtensorMap* tmb = dir ? &tm_c : &tm_b;
   const int steps = nc - 1;
   __nv_bfloat16* out = dir ? prm.ds : prm.st;
-  auto blob = [&](int c) { return out + ((size_t)bh * nc + c) * (BLOB / 2); };
+  float acc[32];
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = warp * 16 + g + 8 * (e >> 1), n = nbx * BOX + nb * 8 + 2 * t4 + (e & 1);
+      acc[4 * nb + e] = dir && prm.dstate != nullptr
+                            ? __bfloat162float(prm.dstate[((size_t)bh * P + p) * N + n])
+                            : 0.f;
+    }
+  // the parts of acc, staged in sHi and sLo, to box nbx of chunk c's blob:
+  // one bulk copy each, whole lines
+  auto store = [&](int c) {
+    stage_parts(sHi, sLo, acc, warp, g, t4);
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0) {
+      unsigned char* dst = reinterpret_cast<unsigned char*>(out + ((size_t)bh * nc + c) * (BLOB / 2));
+      bulk_store(dst + nbx * TILE, sHi, TILE);
+      bulk_store(dst + (NBX + nbx) * TILE, sLo, TILE);
+      bulk_commit();
+    }
+  };
   auto chunk_of = [&](int t) { return dir ? nc - 1 - t : t; };
   auto load = [&](int t) {
     const int s = t & 1, c = chunk_of(t);
@@ -677,17 +696,7 @@ __global__ void __launch_bounds__(128, 4)
     if (steps > 1) load(1);
   }
 
-  float acc[32];
-#pragma unroll
-  for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int p = warp * 16 + g + 8 * (e >> 1), n = nbx * BOX + nb * 8 + 2 * t4 + (e & 1);
-      acc[4 * nb + e] = dir && prm.dstate != nullptr
-                            ? __bfloat162float(prm.dstate[((size_t)bh * P + p) * N + n])
-                            : 0.f;
-    }
-  if (dir) store_blob(blob(nc - 1), nbx, acc, warp, g, t4);
+  if (dir) store(nc - 1);
 
   for (int t = 0; t < steps; ++t) {
     const int s = t & 1, c = chunk_of(t);
@@ -697,6 +706,8 @@ __global__ void __launch_bounds__(128, 4)
     const float* cl = ch + Q;
     const float* dts = cl + Q;
     mbar_wait(full + s, (t >> 1) & 1);
+    if (tid == 0) bulk_wait_read();   // the last store has read sHi and sLo
+    __syncthreads();
     const float chL = ch[Q - 1], clL = cl[Q - 1];
     // the operand this direction scales, as hi and lo parts in the source's
     // layout: x's rows by e^{cs_last - cs_j} dt_j, or C's by e^{cs_i}.  The
@@ -741,9 +752,10 @@ __global__ void __launch_bounds__(128, 4)
     wgmma_wait_all();
     pin(acc);
     __syncthreads();   // stage s and the parts are read
+    store(dir ? c - 1 : c + 1);
     if (tid == 0 && t + 2 < steps) load(t + 2);
-    store_blob(blob(dir ? c - 1 : c + 1), nbx, acc, warp, g, t4);
   }
+  if (tid == 0) bulk_wait();
 }
 
 // ---- 3. every chunk's gradients ---------------------------------------------

@@ -48,7 +48,7 @@ CHUNKS = {torch.bfloat16: (64, 128), torch.float32: (32, 64, 128)}
 BWD_TILES = {(64, 128): 64, (16, 16): 32}
 # heads a block of the tensor-core backward takes (one B/C tile, their dB
 # and dC summed in registers); the last group may be short
-BWD_HEAD_GROUP = 4
+BWD_HEAD_GROUP = 12
 Y_ROWS = 64                # rows of y one warpgroup stores by TMA
 
 

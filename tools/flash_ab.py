@@ -4,6 +4,7 @@
     python3 tools/flash_ab.py SRC [SRC ...] [--shapes granite,s2048,d128] [--rounds 2]
     python3 tools/flash_ab.py SRC [SRC ...] --shapes granite_bwd,s2048_bwd,d128_bwd
     python3 tools/flash_ab.py SRC [SRC ...] --shapes mamba2,mamba2_l2048,model_views
+    python3 tools/flash_ab.py SRC [SRC ...] --shapes ssd_bwd,ssd_bwd_b2
 
 Each SRC is the ``src`` directory of a checkout of this repository.  All
 checkouts' kernels are built first, in parallel.  Then every round runs
@@ -15,9 +16,10 @@ inputs made from a seed: ``repro_torch.kernels.ops.flash_attention``
 inputs; the backward launcher ``flash_attention_bwd_cuda`` from the
 forward's (o, lse) beside SDPA's backward (``*_bwd`` shapes); or
 ``repro_torch.kernels.ops.ssd_scan`` (no PyTorch call computes the SSD
-scan).  It reports the kernel's max |out - ref| / (1 + |ref|) against
+scan); or the SSD backward launcher ``ssd_scan_bwd_cuda`` (``ssd_bwd*``
+shapes).  It reports the kernel's max |out - ref| / (1 + |ref|) against
 its checkout's plain version (``flash_attention_ref``, for the backward
-autograd of it in fp32, or ``ssd_ref``).  The ``launch`` shape also
+autograd of it in fp32, ``ssd_ref``, or ``ssd_bwd_ref``).  The ``launch`` shape also
 reports the wrapper's host time a call (``host_us``) and, where the
 checkout has an autotune cache, the tile lookup's alone (``lookup_us``):
 each the best of seven host-clock runs of 500 calls, which filters the
@@ -53,6 +55,10 @@ SHAPES = {  # flash: (B, S, H, KV, D, window): granite-3-2b's prefill, a
     "mamba2": ("ssd", (4, 1024, 48, 128, False)),
     "mamba2_l2048": ("ssd", (4, 2048, 48, 128, False)),
     "model_views": ("ssd", (4, 1024, 48, 128, True)),
+    # the SSD backward, (B, L, H): mamba2-780m's train shape and the train
+    # step's launch shape (two microbatches of B 2)
+    "ssd_bwd": ("ssd_bwd", (4, 1024, 48)),
+    "ssd_bwd_b2": ("ssd_bwd", (2, 1024, 48)),
 }
 
 
@@ -178,6 +184,23 @@ def time_ssd(gen, b, l, h, chunk, views) -> dict:
             "max_scaled_err": max(scaled_err(y, ref_y), scaled_err(st, ref_st))}
 
 
+def time_ssd_bwd(gen, b, l, h) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import ssd_bwd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+
+    p, n = 64, 128
+    x, dy = (torch.randn(b, l, h, p, generator=gen, device="cuda").bfloat16() for _ in "xy")
+    bm, cm = (torch.randn(b, l, n, generator=gen, device="cuda").bfloat16() for _ in "bc")
+    dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda")).bfloat16()
+    a = (-torch.exp(0.3 * torch.randn(h, generator=gen, device="cuda"))).bfloat16()
+    grads = ssd_scan_bwd_cuda(x, dt, a, bm, cm, dy)
+    ref = ssd_bwd_ref(x, dt, a, bm, cm, dy)
+    return {"ms": cuda_ms(lambda: ssd_scan_bwd_cuda(x, dt, a, bm, cm, dy), iters=20),
+            "max_scaled_err": max(scaled_err(g, r) for g, r in zip(grads, ref))}
+
+
 def worker(src: str, shapes: list[str], seed: int) -> dict:
     sys.path.insert(0, src)
     import torch
@@ -187,7 +210,7 @@ def worker(src: str, shapes: list[str], seed: int) -> dict:
     for name in shapes:
         kind, args = SHAPES[name]
         timer = {"flash": time_flash, "flash_bwd": time_flash_bwd, "ssd": time_ssd,
-                 "host": time_host}[kind]
+                 "ssd_bwd": time_ssd_bwd, "host": time_host}[kind]
         out[name] = timer(gen, *args)
     return out
 
