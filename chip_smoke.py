@@ -108,8 +108,9 @@ SERVE_ARCHS = ("granite_3_2b", "mamba2_780m", "minitron_4b", "olmoe_1b_7b",
                "recurrentgemma_9b", "gemma3_27b", "llava_next_34b", "deepseek_67b",
                "deepseek_v3_671b")
 # the depth each model runs at on one card where the whole does not fit in
-# bf16, at full width (the port has no sharding yet, ROADMAP.md, Queue 1
-# item 7): deepseek-67b's 95 layers are 135 GB, its first 40 58.7 GB;
+# bf16, at full width (this run has one card; the port's sharding, which
+# would spread the rest, is exercised on a (1, 1) mesh in the distributed
+# phase): deepseek-67b's 95 layers are 135 GB, its first 40 58.7 GB;
 # deepseek-v3-671b's 61 are 1.34 TB, its first 5 (the 3 dense layers and 2
 # of 256-expert MoE, with the embedding, head and MTP block) 54.6 GB.
 # llava-next-34b runs whole (60 layers, 68.8 GB)
@@ -510,12 +511,28 @@ def phase_ssd_bwd_cases(seed: int) -> list[dict]:
         row["vs_autograd_bit_equal"] = all(bool(torch.equal(u, w)) for u, w in zip(first, grads))
         del first, again
         row["ms"] = cuda_ms(bwd, iters=5, warmup=1)
+        row["device_ms"] = kernel_device_ms(bwd, iters=10)
         row["plain_ms"] = cuda_ms(lambda: ssd_bwd_ref(x, dt, a, bm, cm, dy), iters=2, warmup=1)
         row["library_ms"] = None   # no single PyTorch call computes the SSD scan's gradient
         bound_ms, bound_by, flops, nbytes = ssd_bwd_bound(b, l, h, p, n, str(dtype),
                                                           str(a.dtype), tile=BWD_TILES[(p, n)])
         row.update(bound_ms=bound_ms, bound_by=bound_by, bound_frac=bound_ms / row["ms"],
                    flops=flops, bytes=nbytes, tflops=flops / (row["ms"] * 1e-3) / 1e12)
+        if name == "mamba2_train":
+            # the train step's own launch shape (two microbatches of B 2): the
+            # first two rows of the same inputs; ms from events (host-paced
+            # at this size), device_ms from the profiler
+
+            def bwd_b2():
+                return ssd_scan_bwd_cuda(x[:2], dt[:2], a, bm[:2], cm[:2], dy[:2])
+
+            b2 = {"ms": cuda_ms(bwd_b2, iters=10, warmup=2),
+                  "device_ms": kernel_device_ms(bwd_b2, iters=10)}
+            b2_bound, b2_by, _, _ = ssd_bwd_bound(2, l, h, p, n, str(dtype), str(a.dtype),
+                                                  tile=BWD_TILES[(p, n)])
+            row["b2"] = dict(b2, bound_ms=b2_bound, bound_by=b2_by,
+                             bound_frac=b2_bound / b2["ms"],
+                             device_bound_frac=b2_bound / b2["device_ms"])
         emit("ssd_bwd_vs_plain", **row)
         worst = max(row["max_scaled_err"].values())
         check(worst <= tol and row["finite"],
@@ -562,6 +579,9 @@ def device_profile(fn) -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "kernels": sum(e.count for e in events),
+            # the SSD backward's kernels (all routes), one mamba2 step's share
+            "ssd_bwd_ms": sum(e.self_device_time_total for e in events
+                              if "ssd_bwd" in e.key) / 1e3,
             "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top]}
 
 

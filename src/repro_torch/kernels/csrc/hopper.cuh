@@ -423,6 +423,11 @@ inline int opt_in_smem(const void* kernel, size_t bytes, uint32_t& opted) {
 inline int encode(CUtensorMap* map, const void* ptr, const long long* layout, int box_rows) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return -1;
+  // the driver encodes only with a context current on the calling thread,
+  // which a thread that has run no CUDA work yet (autograd's, when this
+  // kernel's gradient is its first) does not have: bind this device's
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return -1;
   if (layout[7] != BOX || layout[8] != 1 || layout[9] != box_rows || layout[10] != 1) return -2;
   cuuint64_t dims[4], strides[3];
   cuuint32_t box[4], unit[4] = {1, 1, 1, 1};

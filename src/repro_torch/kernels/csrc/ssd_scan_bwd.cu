@@ -1187,12 +1187,12 @@ int launch(const void* x, const void* dt, const void* a, const void* b, const vo
            const void* dy, const void* dstate, void* dx, void* ddt, float* vec, void* states,
            void* dstates, float* da_part, float* db_part, float* dc_part, int B, int L, int H,
            int hg, const long long* layout, cudaStream_t stream) {
-  CUtensorMap tm_x, tm_b, tm_c, tm_dy;
-  int err = encode(&tm_x, x, layout, Q);
-  if (!err) err = encode(&tm_b, b, layout + 11, Q);
-  if (!err) err = encode(&tm_c, c, layout + 22, Q);
-  if (!err) err = encode(&tm_dy, dy, layout + 33, Q);
-  if (err) return err;
+  CUtensorMap tm[4];   // x, b, c, dy
+  const void* ptrs[4] = {x, b, c, dy};
+  int err = 0;
+  for (int k = 0; k < 4; ++k)   // -1x / -2x: the encoder's code for map k
+    if ((err = encode(&tm[k], ptrs[k], layout + 11 * k, Q))) return err - 10 * (k + 1);
+  const CUtensorMap &tm_x = tm[0], &tm_b = tm[1], &tm_c = tm[2], &tm_dy = tm[3];
   const int nc = (L + Q - 1) / Q, ng = (H + hg - 1) / hg, items = B * H * nc;
   ssd_bwd_prep<TA><<<(items + 3) / 4, 128, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(dt), static_cast<const TA*>(a), vec, L, H, nc, items);
@@ -1255,7 +1255,7 @@ extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* a, const 
 // layout: the TMA layouts of x (B, L, H, P), b and c (B, L, 1, N) and dy
 // (B, L, H, P), each with boxes of 64 rows, 11 values each, as
 // kernels/ssd_scan.py computes them.  Returns cudaGetLastError() after the
-// launches, or a negative code from encode().
+// launches, or encode()'s negative code less 10 (k + 1) for map k.
 extern "C" int ssd_scan_bwd_tc(const void* x, const void* dt, const void* a, const void* b,
                                const void* c, const void* dy, const void* dstate, void* dx,
                                void* ddt, float* vec, void* states, void* dstates,

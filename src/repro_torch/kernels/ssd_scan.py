@@ -298,7 +298,8 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: tor
                 sc["dc_part"].data_ptr(), bb, l, h, hg, _DTYPES[a.dtype], layout,
                 torch.cuda.current_stream(x.device).cuda_stream)
         if err < 0:
-            raise RuntimeError(f"ssd_scan_bwd: TMA tensor map not encoded (code {err})")
+            raise RuntimeError(f"ssd_scan_bwd: TMA tensor map {('x', 'b', 'c', 'dy')[-err // 10 - 1]}"
+                               f" not encoded (code {err % 10 - 10}; layouts {list(layout)})")
         if err:
             raise RuntimeError(f"ssd_scan_bwd: kernel launch failed with CUDA error {err}")
         return (dx, ddt, sc["da_part"].sum((0, 1)).to(a.dtype),

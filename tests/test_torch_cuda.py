@@ -536,19 +536,21 @@ def test_cuda_flash_backward_every_head_dim_matches_plain(dtype, d, dv, h, kv, c
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("p,n,l,h,chunk,views", [(64, 128, 1000, 8, 128, False),
-                                                 (64, 128, 300, 8, 64, True),
-                                                 (16, 16, 64, 8, 32, False),
-                                                 (16, 16, 100, 4, 32, True)])
-def test_cuda_ssd_backward_matches_plain(dtype, p, n, l, h, chunk, views):
-    """The SSD backward kernel against its plain version ``ssd_bwd_ref``
-    (and both against autograd of ``ssd_ref`` where L is short), with a
-    gradient of the final state; x, B and C as views where named; through
-    ``ops.ssd_scan``'s autograd it counts one backward launch."""
+@pytest.mark.parametrize("p,n,b,l,h,chunk,views", [(64, 128, 2, 1000, 8, 128, False),
+                                                   (64, 128, 2, 300, 8, 64, True),
+                                                   (64, 128, 1, 1000, 13, 128, False),
+                                                   (64, 128, 1, 300, 20, 64, True),
+                                                   (16, 16, 2, 64, 8, 32, False),
+                                                   (16, 16, 2, 100, 4, 32, True)])
+def test_cuda_ssd_backward_matches_plain(dtype, p, n, b, l, h, chunk, views):
+    """The SSD backward kernels against their plain version ``ssd_bwd_ref``,
+    with a gradient of the final state; x, B and C as views where named; B
+    1, and head counts the tensor-core route's head group (12) does not
+    divide (8, 13, 20: a short last group); through ``ops.ssd_scan``'s
+    autograd it counts one backward launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     gen = torch.Generator(device="cuda").manual_seed(22)
-    b = 2
     if views:
         conv = torch.randn(b, l, h * p + 2 * n, generator=gen, device="cuda").to(dtype)
         x = conv[..., :h * p].reshape(b, l, h, p)

@@ -13,7 +13,9 @@ same plain version on the card by tests/test_torch_cuda.py and
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -37,8 +39,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ops import SsdScan, ssd_scan
 from repro_torch.kernels.ref import ssd_bwd_ref, ssd_ref
 from repro_torch.kernels.flash_attention import tma_layout
-from repro_torch.kernels.ssd_scan import (BWD_TILES, Y_ROWS, _layout_array, kernel_chunk,
-                                          ssd_scan_bwd_cuda, ssd_scan_cuda, tma_layouts)
+from repro_torch.kernels import ssd_scan as ssd_launcher
+from repro_torch.kernels.ssd_scan import (BWD_HEAD_GROUP, BWD_TILES, Y_ROWS, _layout_array,
+                                          bwd_scratch, kernel_chunk, ssd_scan_bwd_cuda,
+                                          ssd_scan_cuda, tma_layouts)
 from repro_torch.models import spec as TS
 
 ARCH = "mamba2_780m"
@@ -299,9 +303,11 @@ def test_ssd_scan_autograd_dispatch(monkeypatch):
 
 
 def test_ssd_backward_launcher_takes_the_kernels_shapes():
-    """The backward launcher's tile by (P, N), and on CPU tensors it passes
-    the shape checks and refuses the device, never a plain version."""
+    """The backward launcher's tile by (P, N) and the tensor-core route's
+    head group, and on CPU tensors it passes the shape checks and refuses
+    the device, never a plain version."""
     assert BWD_TILES == {(64, 128): 64, (16, 16): 32}
+    assert BWD_HEAD_GROUP == 12
     for p, n in BWD_TILES:
         x, dt, a, bm, cm = _th(_ssd_inputs(1, 64, 2, p, n))
         with pytest.raises(ValueError, match="is on cpu"):
@@ -309,6 +315,165 @@ def test_ssd_backward_launcher_takes_the_kernels_shapes():
     x, dt, a, bm, cm = _th(_ssd_inputs(1, 64, 2, 32, 16))
     with pytest.raises(ValueError, match=r"\(P, N\)"):
         ssd_scan_bwd_cuda(x, dt, a, bm, cm, torch.zeros_like(x))
+
+
+def _fake_launch(monkeypatch):
+    """The backward launcher with its device checks, libraries and stream
+    replaced: each library call is recorded as (route, args) and succeeds,
+    so the launcher's route and scratch can be read on the CPU."""
+    calls = []
+    monkeypatch.setattr(ssd_launcher, "_check", lambda *args: None)
+    monkeypatch.setattr(ssd_launcher, "_bwd_tc_fn",
+                        lambda: lambda *args: calls.append(("wgmma", args)) or 0)
+    monkeypatch.setattr(ssd_launcher, "_bwd_fn",
+                        lambda: lambda *args: calls.append(("simt", args)) or 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+@pytest.mark.parametrize("p,n,dtype,a_dtype,route", [
+    (64, 128, torch.bfloat16, torch.bfloat16, "wgmma"),
+    (64, 128, torch.bfloat16, torch.float32, "wgmma"),
+    (64, 128, torch.float32, torch.float32, "simt"),
+    (16, 16, torch.bfloat16, torch.bfloat16, "simt"),
+    (16, 16, torch.float32, torch.float32, "simt"),
+])
+def test_ssd_backward_launcher_routes(monkeypatch, p, n, dtype, a_dtype, route):
+    """bf16 at (64, 128) takes the tensor-core kernels (one call of
+    ``ssd_scan_bwd_tc``, head group ``BWD_HEAD_GROUP``); fp32 and the smoke
+    shape take the SIMT kernel.  Either way the gradients come back in
+    the inputs' shapes and dtypes."""
+    calls = _fake_launch(monkeypatch)
+    b, l, h = 2, 100, 13
+    x, dt, _, bm, cm = (t.to(dtype) for t in _th(_ssd_inputs(b, l, h, p, n)))
+    a = torch.full((h,), -0.5, dtype=a_dtype)
+    grads = ssd_scan_bwd_cuda(x, dt, a, bm, cm, torch.zeros_like(x))
+    assert [c[0] for c in calls] == [route]
+    for g, t in zip(grads, (x, dt, a, bm, cm)):
+        assert g.shape == t.shape and g.dtype == t.dtype
+    args = calls[0][1]
+    if route == "wgmma":   # B, L, H, the head group, a's dtype
+        assert args[15:20] == (b, l, h, BWD_HEAD_GROUP, int(a_dtype == torch.bfloat16))
+        assert len(args[20]) == 44   # x, b, c and dy's tensor maps
+    else:                  # B, L, H, P, N, the tile
+        assert args[13:19] == (b, l, h, p, n, BWD_TILES[(p, n)])
+
+
+@pytest.mark.parametrize("b,l,h,hg", [(4, 1024, 48, 12), (2, 1024, 48, 12), (1, 1000, 13, 12),
+                                      (2, 300, 5, 4), (1, 50, 3, 3)])
+def test_ssd_backward_scratch(monkeypatch, b, l, h, hg):
+    """The tensor-core route's scratch: per-step vectors and two 32 KB state
+    blobs a (b h, chunk) (bf16 hi and lo parts of S and dS, the bytes of
+    fp32), da per (b, chunk, h), and dB and dC per head group, (B, L,
+    ceil(H / HG), N), where the last group holds the heads left over; the
+    launcher passes these tensors and that group size to the kernels."""
+    nc, ng = -(-l // 64), -(-h // hg)
+    sc = bwd_scratch(b, l, h, hg)
+    assert sc == {"vec": ((b * h, nc, 3, 64), torch.float32),
+                  "states": ((2, b * h, nc, 2, 64, 128), torch.bfloat16),
+                  "da_part": ((b, nc, h), torch.float32),
+                  "db_part": ((b, l, ng, 128), torch.float32),
+                  "dc_part": ((b, l, ng, 128), torch.float32)}
+    assert 2 * 64 * 128 * 2 == 32768        # one blob: hi and lo of a 64 x 128 state
+    last = h - (ng - 1) * hg
+    assert 1 <= last <= hg and (last < hg) == (h % hg != 0)
+    calls = _fake_launch(monkeypatch)
+    x, dt, a, bm, cm = (t.bfloat16() for t in _th(_ssd_inputs(b, min(l, 64), h, 64, 128)))
+    ssd_scan_bwd_cuda(x, dt, a, bm, cm, torch.zeros_like(x), head_group=hg)
+    assert calls[0][1][18] == hg
+    with pytest.raises(ValueError, match="head_group"):
+        ssd_scan_bwd_cuda(x, dt, a, bm, cm, torch.zeros_like(x), head_group=0)
+
+
+def _decomposed_bwd(x, dt, a, bm, cm, dy, dstate, q, hg, cols):
+    """The tensor-core route's decomposition in float64 plain torch: each
+    chunk's cumsum (prep); the states entering and the gradients leaving
+    each chunk, recursed per slice of ``cols`` state columns on its own
+    (states); then per (b, chunk, group of ``hg`` heads) C B^T once and each
+    head's gradients, dB and dC summed over the group's heads and da per
+    (b, chunk, h) (chunks); last the launcher's ordered sums."""
+    bb, l, h, p = x.shape
+    n = bm.shape[-1]
+    nc, ng = -(-l // q), -(-h // hg)
+    pad = nc * q - l
+
+    def chunked(t):
+        t = torch.cat([t, t.new_zeros((bb, pad) + t.shape[2:])], 1) if pad else t
+        return t.reshape((bb, nc, q) + t.shape[2:])
+
+    xs, dts, bs, cs, dys = (chunked(t.double()) for t in (x, dt, bm, cm, dy))
+    a = a.double()
+    cum = torch.cumsum(dts * a, 2)                                   # (B, nc, Q, H)
+    ein, wout, keep = cum.exp(), (cum[:, :, -1:] - cum).exp(), cum[:, :, -1].exp()
+    st = torch.zeros(bb, nc, h, p, n, dtype=torch.float64)
+    ds = torch.zeros_like(st)
+    for n0 in range(0, n, cols):
+        sl = slice(n0, n0 + cols)
+        s = torch.zeros(bb, h, p, cols, dtype=torch.float64)
+        for c in range(nc - 1):
+            s = keep[:, c, :, None, None] * s + torch.einsum(
+                "bjh,bjhp,bjn->bhpn", wout[:, c] * dts[:, c], xs[:, c], bs[:, c, :, sl])
+            st[:, c + 1, ..., sl] = s
+        d = dstate.double()[..., sl].clone()
+        ds[:, nc - 1, ..., sl] = d
+        for c in range(nc - 1, 0, -1):
+            d = keep[:, c, :, None, None] * d + torch.einsum(
+                "bihp,bih,bin->bhpn", dys[:, c], ein[:, c], cs[:, c, :, sl])
+            ds[:, c - 1, ..., sl] = d
+    causal = torch.ones(q, q, dtype=torch.bool).tril()
+    dx, ddt = torch.zeros_like(xs), torch.zeros_like(dts)
+    db_part = torch.zeros(bb, nc, q, ng, n, dtype=torch.float64)
+    dc_part = torch.zeros_like(db_part)
+    da_part = torch.zeros(bb, nc, h, dtype=torch.float64)
+    for bi in range(bb):
+        for c in range(nc):
+            B, C = bs[bi, c], cs[bi, c]
+            g = C @ B.T                                              # once for the group
+            for gi in range(ng):
+                for hh in range(gi * hg, min(h, (gi + 1) * hg)):
+                    cu, d, xh, dyh = cum[bi, c, :, hh], dts[bi, c, :, hh], xs[bi, c, :, hh], dys[bi, c, :, hh]
+                    seg = (cu[:, None] - cu[None, :]).masked_fill(~causal, -torch.inf).exp()
+                    w, dyu = g * seg, (dyh @ xh.T) * d[None, :]
+                    v, qm = seg * dyu, g * seg * dyu
+                    S, dS = st[bi, c, hh], ds[bi, c, hh]
+                    wo = wout[bi, c, :, hh]
+                    du = w.T @ dyh + wo[:, None] * (B @ dS.T)
+                    carried = ein[bi, c, :, hh, None] * (dyh @ S)
+                    xds = xh @ dS
+                    dc_part[bi, c, :, gi] += v @ B + carried
+                    db_part[bi, c, :, gi] += v.T @ C + (wo * d)[:, None] * xds
+                    tdot = wo * d * (B * xds).sum(-1)
+                    dcs = qm.sum(1) - qm.sum(0) + (C * carried).sum(-1) - tdot
+                    dcs[-1] += tdot.sum() + keep[bi, c, hh] * (dS * S).sum()
+                    dda = dcs.flip(0).cumsum(0).flip(0)
+                    dx[bi, c, :, hh] = d[:, None] * du
+                    ddt[bi, c, :, hh] = (xh * du).sum(-1) + a[hh] * dda
+                    da_part[bi, c, hh] = (d * dda).sum()
+
+    def unchunk(t):
+        return t.reshape((bb, nc * q) + t.shape[3:])[:, :l]
+
+    return (unchunk(dx), unchunk(ddt), da_part.sum((0, 1)), unchunk(db_part).sum(2),
+            unchunk(dc_part).sum(2))
+
+
+@pytest.mark.parametrize("l,h,hg,q,cols", [(64, 4, 3, 16, 8), (80, 5, 2, 32, 16),
+                                           (96, 3, 3, 32, 8)])
+def test_decomposed_ssd_backward_matches_jax_grad(l, h, hg, q, cols):
+    """The tensor-core route's decomposition (chunk-parallel state passes per
+    column slice, per-group dB and dC shares, da per chunk, the ordered
+    sums), as plain torch in float64, against jax.grad of the reference's
+    chunked ssd_scan (chunk 16) on the same fp32 inputs, to 1e-4 as
+    ``ssd_bwd_ref`` is held: a short last head group, a ragged last chunk."""
+    arrays, dy, dstate = _grad_case(2, l, h, 16, 16)
+    want = _jax_ssd_grads(arrays, dy, dstate, 16)
+    got = _decomposed_bwd(*_th(arrays), torch.from_numpy(dy), torch.from_numpy(dstate),
+                          q, hg, cols)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        _close(g, w, 1e-4)
 
 
 def test_no_silent_fallback_off_cpu(monkeypatch):
