@@ -215,7 +215,7 @@ def _bwd_tc_fn():
     return fn
 
 
-def bwd_scratch(b: int, l: int, h: int, head_group: int = BWD_HEAD_GROUP
+def bwd_scratch(b: int, l: int, h: int, head_group: int
                 ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
     """The tensor-core backward's scratch and shares at mamba2's (64, 128),
     (shape, dtype) by name: each (b h, chunk)'s per-step vectors (the
@@ -231,38 +231,16 @@ def bwd_scratch(b: int, l: int, h: int, head_group: int = BWD_HEAD_GROUP
             "dc_part": ((b, l, ng, n), f32)}
 
 
-_BWD_LAYOUTS: dict[tuple, ctypes.Array] = {}
-
-
-def _bwd_layout_array(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> ctypes.Array:
-    """The 44 layout values the tensor-core backward takes (x, b, c as the
-    forward's with boxes of 64 rows, then the contiguous dy of x's shape),
-    cached as :func:`_layout_array` caches the forward's."""
-    q = BWD_TILES[(64, 128)]
-    key = (tuple(x.shape), x.stride(), b.shape[-1], b.stride(), c.stride(),
-           x.storage_offset(), b.storage_offset(), c.storage_offset())
-    arr = _BWD_LAYOUTS.get(key)
-    if arr is None:
-        bb, l, h, p = x.shape
-        flat = (tma_layouts(x, b, c, q).flat()
-                + tma_layout((bb, l, h, p), (l * h * p, h * p, p, 1), 2, q).flat())
-        if len(_BWD_LAYOUTS) >= 256:
-            _BWD_LAYOUTS.clear()
-        arr = _BWD_LAYOUTS[key] = (ctypes.c_longlong * len(flat))(*flat)
-    return arr
-
-
 def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                      c: torch.Tensor, dy: torch.Tensor, dstate: torch.Tensor | None = None,
-                      *, head_group: int | None = None) -> tuple[torch.Tensor, ...]:
+                      c: torch.Tensor, dy: torch.Tensor, dstate: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, ...]:
     """The gradient of :func:`ssd_scan_cuda` on its inputs: dy (B, L, H, P)
     the gradient of y, ``dstate`` (B, H, P, N) that of the final state
     (None: zero) -> (dx, ddt, da, db, dc) in the dtypes of x, dt, a, b, c.
     x, b and c are read through their strides, as the forward reads them.
-    The kernels write db and dc per head group (the tensor-core route,
-    ``head_group`` heads a group, default ``BWD_HEAD_GROUP``) or per head
-    (SIMT), and da per (b, chunk, h) or per (b, h), in fp32; they are summed
-    here, in one ordered sum each."""
+    The kernels write db and dc per group of ``BWD_HEAD_GROUP`` heads (the
+    tensor-core route) or per head (SIMT), and da per (b, chunk, h) or per
+    (b, h), in fp32; they are summed here, in one ordered sum each."""
     _check(x, dt, a, b, c)
     bb, l, h, p = x.shape
     n = b.shape[-1]
@@ -281,14 +259,14 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: tor
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     ddt = torch.empty((bb, l, h), dtype=dt.dtype, device=x.device)
     if tma_route(x.dtype, p, n):
-        hg = BWD_HEAD_GROUP if head_group is None else head_group
-        if hg < 1:
-            raise ValueError(f"ssd_scan_bwd: head_group {hg} must be at least 1")
+        hg = BWD_HEAD_GROUP
         if any(t.data_ptr() % 16 for t in (x, b, c, dy)):
             raise ValueError("ssd_scan_bwd: x, b, c and dy must start 16-byte aligned for TMA")
         sc = {k: torch.empty(shape, dtype=dtype, device=x.device)
               for k, (shape, dtype) in bwd_scratch(bb, l, h, hg).items()}
-        layout = _bwd_layout_array(x, b, c)
+        # x, b and c with boxes of the tile's rows, then dy as the forward's
+        # y: contiguous, x's shape, Y_ROWS rows a box
+        layout = _layout_array(x, b, c, tile)
         with torch.cuda.device(x.device):
             err = _bwd_tc_fn()(
                 x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),

@@ -308,6 +308,7 @@ def test_ssd_backward_launcher_takes_the_kernels_shapes():
     the device, never a plain version."""
     assert BWD_TILES == {(64, 128): 64, (16, 16): 32}
     assert BWD_HEAD_GROUP == 12
+    assert Y_ROWS == BWD_TILES[(64, 128)]   # the tensor-core route reads dy by y's layout
     for p, n in BWD_TILES:
         x, dt, a, bm, cm = _th(_ssd_inputs(1, 64, 2, p, n))
         with pytest.raises(ValueError, match="is on cpu"):
@@ -380,11 +381,10 @@ def test_ssd_backward_scratch(monkeypatch, b, l, h, hg):
     last = h - (ng - 1) * hg
     assert 1 <= last <= hg and (last < hg) == (h % hg != 0)
     calls = _fake_launch(monkeypatch)
+    monkeypatch.setattr(ssd_launcher, "BWD_HEAD_GROUP", hg)
     x, dt, a, bm, cm = (t.bfloat16() for t in _th(_ssd_inputs(b, min(l, 64), h, 64, 128)))
-    ssd_scan_bwd_cuda(x, dt, a, bm, cm, torch.zeros_like(x), head_group=hg)
+    ssd_scan_bwd_cuda(x, dt, a, bm, cm, torch.zeros_like(x))
     assert calls[0][1][18] == hg
-    with pytest.raises(ValueError, match="head_group"):
-        ssd_scan_bwd_cuda(x, dt, a, bm, cm, torch.zeros_like(x), head_group=0)
 
 
 def _decomposed_bwd(x, dt, a, bm, cm, dy, dstate, q, hg, cols):
