@@ -3,6 +3,7 @@
 
     python3 tools/flash_ab.py SRC [SRC ...] [--shapes granite,s2048,d128] [--rounds 2]
     python3 tools/flash_ab.py SRC [SRC ...] --shapes granite_bwd,s2048_bwd,d128_bwd
+    python3 tools/flash_ab.py SRC [SRC ...] --shapes d256_bwd,d256_bwd_b1,mla_bwd,mla_bwd_b1
     python3 tools/flash_ab.py SRC [SRC ...] --shapes mamba2,mamba2_l2048,model_views
     python3 tools/flash_ab.py SRC [SRC ...] --shapes ssd_bwd,ssd_bwd_b2
 
@@ -14,7 +15,10 @@ A B B A.  A run times each shape's kernel with CUDA events on bf16
 inputs made from a seed: ``repro_torch.kernels.ops.flash_attention``
 (causal) beside one ``scaled_dot_product_attention`` call on the same
 inputs; the backward launcher ``flash_attention_bwd_cuda`` from the
-forward's (o, lse) beside SDPA's backward (``*_bwd`` shapes); or
+forward's (o, lse) beside SDPA's backward (``*_bwd`` shapes), with the
+device time of each of its CUDA kernels from the profiler (``dq_ms``,
+``dkdv_ms``, and ``sum_ms`` for the pass that sums the dK/dV kernel's
+head shares); or
 ``repro_torch.kernels.ops.ssd_scan`` (no PyTorch call computes the SSD
 scan); or the SSD backward launcher ``ssd_scan_bwd_cuda`` (``ssd_bwd*``
 shapes).  It reports the kernel's max |out - ref| / (1 + |ref|) against
@@ -44,11 +48,18 @@ SHAPES = {  # flash: (B, S, H, KV, D, window): granite-3-2b's prefill, a
     # one 128-key tile of one head: a kernel of a few µs, so the time a call
     # is the wrapper's host time (checks, the tile lookup, the launch)
     "launch": ("host", (1, 128, 1, 1, 64, 0)),
-    # the same shapes through the backward: granite-3-2b's train step first
-    "granite_bwd": ("flash_bwd", (4, 1024, 32, 8, 64, 0)),
-    "s2048_bwd": ("flash_bwd", (4, 2048, 32, 8, 64, 0)),
-    "d128_bwd": ("flash_bwd", (4, 1024, 32, 8, 128, 0)),
-    "window256_bwd": ("flash_bwd", (4, 1024, 32, 8, 64, 256)),
+    # the backward, (B, S, H, KV, D, Dv, window): granite-3-2b's train step
+    # first, then the forward's other shapes; recurrentgemma-9b's windowed
+    # MQA layer and deepseek-v3's MLA (q/k 192, v 128), each at B 2 and at
+    # the train step's own launch shape, B 1 (four microbatches of B 4)
+    "granite_bwd": ("flash_bwd", (4, 1024, 32, 8, 64, 64, 0)),
+    "s2048_bwd": ("flash_bwd", (4, 2048, 32, 8, 64, 64, 0)),
+    "d128_bwd": ("flash_bwd", (4, 1024, 32, 8, 128, 128, 0)),
+    "window256_bwd": ("flash_bwd", (4, 1024, 32, 8, 64, 64, 256)),
+    "d256_bwd": ("flash_bwd", (2, 2560, 16, 1, 256, 256, 2048)),
+    "d256_bwd_b1": ("flash_bwd", (1, 2560, 16, 1, 256, 256, 2048)),
+    "mla_bwd": ("flash_bwd", (2, 1024, 128, 128, 192, 128, 0)),
+    "mla_bwd_b1": ("flash_bwd", (1, 1024, 128, 128, 192, 128, 0)),
     # ssd: (B, L, H, chunk, views): mamba2-780m's prefill (P 64, N 128), a
     # longer prompt, and x, B, C as views of one conv output as the model
     # passes them
@@ -138,14 +149,30 @@ def time_host(gen, b, s, h, kv, d, window) -> dict:
     return out
 
 
-def time_flash_bwd(gen, b, s, h, kv, d, window) -> dict:
+def kernel_device_ms(fn, iters: int = 20) -> dict[str, float]:
+    """Mean device ms a call of ``fn`` spends in each CUDA kernel, from
+    torch.profiler, keyed by the kernel's name as the profiler gives it."""
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def time_flash_bwd(gen, b, s, h, kv, d, dv, window) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
     from repro_torch.kernels.ref import flash_attention_ref
 
-    q, k, v, do = (torch.randn(b, s, n, d, generator=gen, device="cuda").bfloat16()
-                   for n in (h, kv, kv, h))
+    q, k = (torch.randn(b, s, n, d, generator=gen, device="cuda").bfloat16() for n in (h, kv))
+    v, do = (torch.randn(b, s, n, dv, generator=gen, device="cuda").bfloat16() for n in (kv, h))
     kw = {"causal": True, "window": window}
     o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
     grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
@@ -156,7 +183,18 @@ def time_flash_bwd(gen, b, s, h, kv, d, window) -> dict:
     lib_leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
     lib_out = F.scaled_dot_product_attention(*lib_leaves, **_sdpa_kw(s, window))
     do_t = do.transpose(1, 2)
-    return {"ms": cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)),
+
+    def bwd():
+        return flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+
+    by_kernel = kernel_device_ms(bwd)
+
+    def part(tag: str) -> float:
+        return sum(ms for name, ms in by_kernel.items() if tag in name)
+
+    return {"ms": cuda_ms(bwd),
+            "device_ms": sum(by_kernel.values()), "dq_ms": part("flash_bwd_dq"),
+            "dkdv_ms": part("flash_bwd_dkdv"), "sum_ms": part("flash_bwd_sum"),
             "sdpa_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, do_t,
                                                            retain_graph=True)),
             "max_scaled_err": err}
