@@ -549,14 +549,28 @@ def phase_ssd_bwd_cases(seed: int) -> list[dict]:
 def kernel_device_ms(fn, iters: int = 50) -> float:
     """Mean device time a call of ``fn`` spends in kernels, from
     torch.profiler (host time between launches excluded)."""
+    return sum(kernels_device_ms(fn, iters).values())
+
+
+def kernels_device_ms(fn, iters: int = 50) -> dict[str, float]:
+    """Mean device ms a call of ``fn`` spends in each kernel, by the
+    profiler's kernel name."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def flash_bwd_split_ms(by_kernel: dict[str, float]) -> dict[str, float]:
+    """The flash backward's device ms by kernel: dQ, dK/dV and the pass
+    that sums the dK/dV kernel's head shares."""
+    return {part: sum(ms for name, ms in by_kernel.items() if tag in name)
+            for part, tag in (("dq", "flash_bwd_dq"), ("dkdv", "flash_bwd_dkdv"),
+                              ("sum_shares", "flash_bwd_sum"))}
 
 
 def device_profile(fn) -> dict:
@@ -579,9 +593,11 @@ def device_profile(fn) -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "kernels": sum(e.count for e in events),
-            # the SSD backward's kernels (all routes), one mamba2 step's share
+            # the SSD and flash backwards' kernels (all routes), one step's share
             "ssd_bwd_ms": sum(e.self_device_time_total for e in events
                               if "ssd_bwd" in e.key) / 1e3,
+            "flash_bwd_ms": sum(e.self_device_time_total for e in events
+                                if "flash_bwd" in e.key) / 1e3,
             "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top]}
 
 
@@ -1408,10 +1424,12 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
     """The flash backward kernels against autograd of the plain forward in
     fp32, on the same values; and the forward with its lse output on
     against it off."""
-    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (bwd_head_shares, flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
     from repro_torch.kernels.ref import flash_attention_lse_ref, flash_attention_ref
     from repro_torch.roofline.cost import attention_bwd_bound
 
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
     cases = [  # (name, B, S, Sk, H, KV, D, Dv, dtype, causal, window)
         ("granite_train", 4, 1024, 1024, 32, 8, 64, 64, torch.bfloat16, True, 0),
@@ -1493,11 +1511,42 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
                                                                 causal, window, dv=dv, sk=sk)
         row.update(bound_ms=bound_ms, bound_by=bound_by, bound_frac=bound_ms / row["ms"],
                    flops=flops, bytes=nbytes, tflops=flops / (row["ms"] * 1e-3) / 1e12)
+        if name in ("recurrentgemma_train", "mla_train"):
+            # the two-warpgroup dK/dV kernel's shapes: device ms by kernel,
+            # its head shares, and the train step's own launch shape, B 1
+            # (four microbatches of B 4): the first row of the same inputs
+            row["kernel_device_ms"] = flash_bwd_split_ms(kernels_device_ms(bwd, iters=10))
+            row["shares"] = bwd_head_shares(b, kv, h // kv, sk, sm_count)
+
+            def bwd_b1():
+                return flash_attention_bwd_cuda(q[:1], k[:1], v[:1], o[:1], lse[:1], do[:1], **kw)
+
+            first, again = bwd_b1(), bwd_b1()
+            torch.cuda.synchronize()
+            b1_bound, b1_by, _, _ = attention_bwd_bound(1, s, h, kv, d, str(dtype), causal,
+                                                        window, dv=dv, sk=sk)
+            b1 = {"ms": cuda_ms(bwd_b1), "shares": bwd_head_shares(1, kv, h // kv, sk, sm_count),
+                  "max_scaled_err": {n: scaled_err(g, r[:1]) for n, g, r in
+                                     zip(names, first, ref)},
+                  "finite": all(bool(torch.isfinite(g.float()).all()) for g in first),
+                  "bit_equal": all(bool(torch.equal(x, y)) for x, y in zip(first, again)),
+                  "bound_ms": b1_bound, "bound_by": b1_by}
+            by_kernel = kernels_device_ms(bwd_b1, iters=10)
+            b1.update(device_ms=sum(by_kernel.values()),
+                      kernel_device_ms=flash_bwd_split_ms(by_kernel),
+                      bound_frac=b1_bound / b1["ms"])
+            row["b1"] = b1
+            del first, again
         emit("flash_bwd_vs_plain", **row)
         worst = max(row["max_scaled_err"].values())
         check(worst <= tol and row["finite"],
               f"flash backward {name}: max |grad - ref| / (1 + |ref|) = {worst} > {tol}")
         check(row["bit_equal"], f"flash backward {name}: two launches differ")
+        if "b1" in row:
+            worst = max(row["b1"]["max_scaled_err"].values())
+            check(worst <= tol and row["b1"]["finite"],
+                  f"flash backward {name} B 1: max |grad - ref| / (1 + |ref|) = {worst} > {tol}")
+            check(row["b1"]["bit_equal"], f"flash backward {name} B 1: two launches differ")
         check(row["lse_max_abs_err"] <= LSE_TOL,
               f"flash forward lse {name}: max |lse - ref| = {row['lse_max_abs_err']}")
         results.append(row)
@@ -2963,8 +3012,8 @@ def main() -> int:
         c = next(c for c in bwd_cases if c["case"] == case)
         table[1][key] = {k: c[k] for k in (
             "case", "shape", "dv", "window", "max_abs_err", "max_scaled_err", "tol", "ms",
-            "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_frac", "library_ms",
-            "library_device_ms", "vs_library", "library_refused")}
+            "device_ms", "kernel_device_ms", "shares", "b1", "plain_ms", "bound_ms", "bound_by",
+            "bound_frac", "library_ms", "library_device_ms", "vs_library", "library_refused")}
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,9 @@
 //   flash_bwd_dkdv  grid (B*KV, kv tiles): over the q heads of the kv head's
 //                   GQA group and their q tiles dV += P^T dO,
 //                   dK += dS^T Q / sqrt(D), so the group's sum is taken in
-//                   the block and needs no second reduction
+//                   the block and needs no second reduction (but where the
+//                   two-warpgroup kernel splits the group into head shares,
+//                   below)
 //
 // What bounds it on the H100: the tensor cores.  The gradient needs five
 // products over the visible pairs (q k, dO v, P^T dO, dS k, dS^T q): at
@@ -65,19 +67,30 @@
 // 128) in bf16 take the same dQ kernel and a dK/dV kernel of two
 // warpgroups (flash_bwd_dkdv_bf16_split): at D 256 one warpgroup's dK and
 // dV of 64 kv rows are 2 x 64 x 256 / 128 = 256 fp32 registers a thread,
-// past the 255 limit, before S^T and dP^T.  So each warpgroup owns whole
-// 64-column boxes of dK and dV (at D 256 two of each; at (192, 128) the
-// first warpgroup two of dK's three and one of dV's two, the second the
-// rest) and both compute S^T and dP^T over all of DK and DV: the two
-// recomputed products run twice, the price of keeping every accumulator
-// in registers (~210 a thread at D 256, read the build log's ptxas
-// line).  K and V (64 kv rows) stay in 64 KB of shared memory at D 256,
-// and two 64-row stages of Q and dO take 128 KB.  The dQ kernel keeps dQ
-// (DK / 2 a thread), S and dP: 192 registers at D 256.  At (192, 128) the
-// two products differ in depth (S over 192, dP over 128), dO and V have
-// tensor maps of their own (two boxes against q's and k's three), Delta
-// sums over v's 128 columns, and the scale is 1 / sqrt(192).  dQ += dS K
-// is one m64n192k16 a k-step.
+// past the 255 limit.  So each warpgroup owns whole 64-column boxes of dK
+// and dV (at D 256 two of each; at (192, 128) the first warpgroup two of
+// dK's three and one of dV's two, the second the rest).  S^T and dP^T are
+// formed once a block: each warpgroup takes 32 of an item's 64 q columns
+// (m64n32 over all of DK or DV), writes its half of P^T and dS^T to shared
+// memory as bf16 in the swizzled K-major layout a wgmma A descriptor reads,
+// and after a named barrier of both warpgroups (one for P^T, one for dS^T)
+// runs its column slices of dV += P^T dO and dK += dS^T Q with A read from
+// there.  P^T and dS^T alternate between two tiles each, so one barrier
+// pair an item orders all reuse; item i's S^T and dP^T are issued while
+// item i - 1's dV and dK run, and dV while dS^T is formed.  K and V (64 kv
+// rows) stay in 64 KB of shared memory at D 256, two 64-row stages of Q
+// and dO take 128 KB, P^T and dS^T 32 KB (226 KB of 227).  One block an
+// SM: where B * KV * kv tiles fill fewer than two waves (recurrentgemma's
+// MQA at B 1 and 2: 40 and 80 blocks), the launcher splits each kv tile's
+// q heads into head shares over as many blocks
+// (kernels/flash_attention.py:bwd_head_shares); each writes fp32 partial
+// dK and dV to a scratch, and flash_bwd_sum_shares adds the shares in
+// their order, scales dK and rounds once: deterministic, no atomics.  The
+// dQ kernel keeps dQ (DK / 2 a thread), S and dP: 192 registers at D 256.
+// At (192, 128) the two products differ in depth (S over 192, dP over
+// 128), dO and V have tensor maps of their own (two boxes against q's and
+// k's three), Delta sums over v's 128 columns, and the scale is
+// 1 / sqrt(192).  dQ += dS K is one m64n192k16 a k-step.
 // The smoke configs' head dims, (16, 16) and (24, 16), take the SIMT
 // kernels in both dtypes (T, the element type in memory; fp32 arithmetic):
 // their tiles are not whole 64-column TMA boxes.  The route is chosen by
@@ -114,6 +127,8 @@ struct Params {
   float scale;            // 1 / sqrt(DK)
   float scale_log2;       // log2(e) / sqrt(DK): scores in base 2
   int s_pad;              // S rounded up to ROWS
+  float* part;            // split dK/dV kernel: (shares, B, Sk, KV, DK + DV) fp32 partial sums
+  int shares;             // split dK/dV kernel: head shares a kv tile's items are split into
 };
 
 __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
@@ -483,18 +498,20 @@ __global__ void __launch_bounds__(128, 2)
 
 // ---------------------------------------------------------------------------
 // bf16 dK/dV at (256, 256) and (192, 128): two warpgroups of the same 64 kv
-// rows, each owning whole 64-column boxes of dK and dV (see the header)
+// rows, over one head share of the kv head's group (see the header)
 // ---------------------------------------------------------------------------
-// Shared memory: K and V, then STAGES Q tiles, STAGES dO tiles, the stages'
-// lse and Delta, the mbarriers; one block an SM.
+// Shared memory: K and V, then STAGES Q tiles and STAGES dO tiles, two
+// P^T and two dS^T tiles (64 x 64 bf16, one box each), the stages' lse and
+// Delta, the mbarriers; one block an SM.
 template <int DK, int DV>
 struct SplitSmem {
   static constexpr int STAGES = 2;
   static constexpr uint32_t K_BYTES = ROWS * DK * 2;   // a K or a Q tile
   static constexpr uint32_t V_BYTES = ROWS * DV * 2;   // a V or a dO tile
+  static constexpr uint32_t PS_BYTES = ROWS * ROWS * 2;   // a P^T or a dS^T tile
   static constexpr uint32_t VEC_BYTES = ROWS * 4;
   static constexpr uint32_t STAGE_TX = K_BYTES + V_BYTES + 2 * VEC_BYTES;
-  static constexpr size_t BYTES = 1024 + (1 + STAGES) * (K_BYTES + V_BYTES) +
+  static constexpr size_t BYTES = 1024 + (1 + STAGES) * (K_BYTES + V_BYTES) + 4 * PS_BYTES +
                                   STAGES * 2 * VEC_BYTES + 8 * (1 + 2 * STAGES);
   static_assert(BYTES <= 232448, "over the shared memory of an SM");
 };
@@ -504,43 +521,105 @@ struct SplitSmem {
 template <int D>
 __host__ __device__ constexpr int first_cols() { return (D / BOX + 1) / 2 * BOX; }
 
+// the block's tiles in shared memory
+struct SplitTiles {
+  unsigned char *k, *v, *q, *dout, *pt, *dst;
+  float *lse2, *delta;
+};
+
 // (head, q tile) item j of a dK/dV block into stage j % STAGES: its Q and
-// dO tiles by TMA, its rows' lse and Delta by bulk copy, all on full[s]
+// dO tiles by TMA, its rows' lse and Delta by bulk copy, all on full[s].
+// The block's items are the q tiles of heads h0, h0 + 1, ..., nq a head.
 template <int DK, int DV>
 __device__ __forceinline__ void split_load_item(const Params& p, const CUtensorMap* tm_q,
-                                                const CUtensorMap* tm_do, unsigned char* sQ,
-                                                unsigned char* sdO, float* sL, float* sDl,
-                                                uint64_t* full, int b, int kvh, int t_lo,
-                                                int nq, int j) {
+                                                const CUtensorMap* tm_do, const SplitTiles& t,
+                                                uint64_t* full, int b, int h0, int t_lo, int nq,
+                                                int j) {
   using L = SplitSmem<DK, DV>;
-  const int s = j % L::STAGES, h = kvh * (p.H / p.KV) + j / nq, q0 = (t_lo + j % nq) * ROWS;
+  const int s = j % L::STAGES, h = h0 + j / nq, q0 = (t_lo + j % nq) * ROWS;
   mbar_expect_tx(&full[s], L::STAGE_TX);
 #pragma unroll
   for (int c = 0; c < DK / BOX; ++c)
-    tma_load(sQ + s * L::K_BYTES + c * ROWS * ROW, tm_q, &full[s], c * BOX, h, q0, b);
+    tma_load(t.q + s * L::K_BYTES + c * ROWS * ROW, tm_q, &full[s], c * BOX, h, q0, b);
 #pragma unroll
   for (int c = 0; c < DV / BOX; ++c)
-    tma_load(sdO + s * L::V_BYTES + c * ROWS * ROW, tm_do, &full[s], c * BOX, h, q0, b);
+    tma_load(t.dout + s * L::V_BYTES + c * ROWS * ROW, tm_do, &full[s], c * BOX, h, q0, b);
   const size_t off = ((size_t)b * p.H + h) * p.s_pad + q0;
-  bulk_load(sL + s * ROWS, p.lse2 + off, L::VEC_BYTES, &full[s]);
-  bulk_load(sDl + s * ROWS, p.delta + off, L::VEC_BYTES, &full[s]);
+  bulk_load(t.lse2 + s * ROWS, p.lse2 + off, L::VEC_BYTES, &full[s]);
+  bulk_load(t.delta + s * ROWS, p.delta + off, L::VEC_BYTES, &full[s]);
 }
 
-// One warpgroup's share of flash_bwd_dkdv_bf16_split: dK columns [KC0,
+// this thread's values of a 64 x 32 accumulator (rows r0 and r0 + 8, the
+// warpgroup's q columns c0 .. c0 + 31) as bf16 into a 64 x 64 tile laid
+// out as TMA writes a box with the 128-byte swizzle (16-byte chunk c of
+// row r at chunk c ^ (r % 8)), which a K-major wgmma A descriptor reads
+__device__ __forceinline__ void store_swizzled(unsigned char* tile, const float (&x)[16], int c0,
+                                               int r0, int t4) {
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb) {
+    const int chunk = c0 / 8 + nb;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      *reinterpret_cast<uint32_t*>(tile + r * ROW + ((chunk ^ (r & 7)) << 4) + 4 * t4) =
+          pack_bf16(x[4 * nb + 2 * half], x[4 * nb + 2 * half + 1]);
+    }
+  }
+}
+
+// G (64 x N, fp32) += A (64 x 64 at shared address a, bf16, K-major, one
+// box) B (64 x N at shared address b, MN-major, N / 64 boxes), left in
+// flight
+template <int N>
+__device__ __forceinline__ void ss_product(float (&acc)[N / 2], uint32_t a, uint32_t b) {
+  static_assert(N == 64 || N == 128, "64 or 128 columns");
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < ROWS / 16; ++j) {   // 16 k rows a step
+    const uint64_t da = smem_desc(a + j * 32, 1, 64);
+    const uint64_t db = smem_desc(b + j * 16 * ROW, ROWS * ROW / 16, 64);
+    if constexpr (N == 64) wgmma_ss_n64<0, 1>(acc, da, db, 1);
+    else wgmma_ss_n128<0, 1>(acc, da, db, 1);
+  }
+  wgmma_commit();
+}
+
+// rows row0 and row0 + 8 of a wgmma accumulator (64 x D) in fp32 into a
+// (rows, D')-strided scratch, unscaled: a head share's partial sum
+template <int D>
+__device__ __forceinline__ void store_rows_f32(float* base, size_t stride, int row0, int L,
+                                               const float (&acc)[D / 2], int t4) {
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int col = dt * 8 + t4 * 2;
+    if (row0 < L)
+      *reinterpret_cast<float2*>(base + (size_t)row0 * stride + col) =
+          make_float2(acc[4 * dt], acc[4 * dt + 1]);
+    if (row0 + 8 < L)
+      *reinterpret_cast<float2*>(base + (size_t)(row0 + 8) * stride + col) =
+          make_float2(acc[4 * dt + 2], acc[4 * dt + 3]);
+  }
+}
+
+// One warpgroup's share of flash_bwd_dkdv_bf16_split: the S^T and dP^T
+// columns [c0, c0 + 32) of each item (c0 = 32 wg), then dK columns [KC0,
 // KC0 + WK) and dV columns [VC0, VC0 + WV) of the block's 64 kv rows over
-// its n (head, q tile) items.  Thread 0 (of the first warpgroup) refills
-// the stages.
+// all 64 q columns, read from the tiles both warpgroups wrote.  Thread 0
+// (of the first warpgroup) refills the stages.
 template <int DK, int DV, int KC0, int WK, int VC0, int WV>
-__device__ __forceinline__ void dkdv_split_part(
-    const Params& p, const CUtensorMap* tm_q, const CUtensorMap* tm_do, unsigned char* sK,
-    unsigned char* sV, unsigned char* sQ, unsigned char* sdO, float* sL, float* sDl,
-    uint64_t* full, uint64_t* empty, int b, int kvh, int k0, int t_lo, int nq, int n) {
+__device__ __forceinline__ void dkdv_split_part(const Params& p, const CUtensorMap* tm_q,
+                                                const CUtensorMap* tm_do, const SplitTiles& t,
+                                                uint64_t* full, uint64_t* empty, int b, int kvh,
+                                                int h0, int share, int k0, int t_lo, int nq,
+                                                int n, int wg) {
   using L = SplitSmem<DK, DV>;
   constexpr int STAGES = L::STAGES;
   const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;
   const int t4 = lane & 3, g = lane >> 2;
-  const int krow0 = k0 + warp * 16 + g, krow1 = krow0 + 8;
-  const uint32_t k_smem = smem_u32(sK), v_smem = smem_u32(sV);
+  const int r0 = warp * 16 + g;                 // this thread's first row of a tile
+  const int krow0 = k0 + r0, krow1 = krow0 + 8;
+  const int c0 = wg * 32;                       // the warpgroup's q columns of an item
+  const uint32_t k_smem = smem_u32(t.k), v_smem = smem_u32(t.v);
   const float sl = p.scale_log2;
 
   float dk[WK / 2], dv[WV / 2];
@@ -549,27 +628,43 @@ __device__ __forceinline__ void dkdv_split_part(
 #pragma unroll
   for (int i = 0; i < WV / 2; ++i) dv[i] = 0.f;
 
+  // Item i - 1's dV and dK products run on while item i's S^T and dP^T
+  // are issued; its stage is released once they are done.  P^T and dS^T
+  // alternate between two tiles: a warpgroup writes item i's where item
+  // i - 2's were read, which both warpgroups finished before they met at
+  // item i - 1's first barrier.
   for (int i = 0; i < n; ++i) {
     const int s = i % STAGES;
     const int q0 = (t_lo + i % nq) * ROWS;
-    const uint32_t q_s = smem_u32(sQ + s * L::K_BYTES);
-    const uint32_t do_s = smem_u32(sdO + s * L::V_BYTES);
-    const float* lse2 = sL + s * ROWS;
-    const float* delta = sDl + s * ROWS;
+    const uint32_t q_s = smem_u32(t.q + s * L::K_BYTES);
+    const uint32_t do_s = smem_u32(t.dout + s * L::V_BYTES);
+    unsigned char* pt = t.pt + (i & 1) * L::PS_BYTES;
+    unsigned char* dst = t.dst + (i & 1) * L::PS_BYTES;
+    const float* lse2 = t.lse2 + s * ROWS;
+    const float* delta = t.delta + s * ROWS;
     mbar_wait(&full[s], (i / STAGES) & 1);
-    float st[32], dpt[32];   // S^T, dP^T: 64 kv rows x 64 q columns
-    qk_product<DK, ROWS, ROWS, 32, false>(st, k_smem, q_s);
-    qk_product<DV, ROWS, ROWS, 32, false>(dpt, v_smem, do_s);
+    float st[16], dpt[16];   // S^T, dP^T: 64 kv rows x this warpgroup's 32 q columns
+    qk_product<DK, ROWS, ROWS, 16, false>(st, k_smem, q_s + c0 * ROW);
+    qk_product<DV, ROWS, ROWS, 16, false>(dpt, v_smem, do_s + c0 * ROW);
     const bool edge = q0 + ROWS > p.S || k0 + ROWS > p.Sk ||
                       (p.causal && k0 + ROWS - 1 > q0) ||
                       (p.window && q0 + ROWS - 1 >= k0 + p.window);
-    wgmma_wait_all_but_one();   // S^T is done; dP^T may still run
+    wgmma_wait_all_but_one();   // item i - 1's products and S^T are done; dP^T may still run
     pin(st);
-    // P^T in place of S^T, then packed as the A operand of P^T dO
-    uint32_t pf[ROWS / 16][4];
+    if (i > 0) {
+      mbar_arrive(&empty[(i - 1) % STAGES]);
+      if (tid == 0 && i + STAGES - 1 < n) {
+        // the next item goes where item i - 1 was: wait until both warpgroups are done with it
+        const int j = i + STAGES - 1;
+        mbar_wait(&empty[j % STAGES], ((j / STAGES) & 1) ^ 1);
+        split_load_item<DK, DV>(p, tm_q, tm_do, t, full, b, h0, t_lo, nq, j);
+      }
+      __syncwarp();
+    }
+    // P^T in place of S^T; this thread's q columns are c, c + 1
 #pragma unroll
-    for (int nb = 0; nb < ROWS / 8; ++nb) {
-      const int c = nb * 8 + 2 * t4;
+    for (int nb = 0; nb < 4; ++nb) {
+      const int c = c0 + nb * 8 + 2 * t4;
       const float2 l2 = *reinterpret_cast<const float2*>(lse2 + c);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -577,44 +672,47 @@ __device__ __forceinline__ void dkdv_split_part(
         pe = ex2(fmaf(pe, sl, -((e & 1) ? l2.y : l2.x)));
         if (edge && !visible(p, q0 + c + (e & 1), (e & 2) ? krow1 : krow0)) pe = 0.f;
       }
-      pf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(st[4 * nb], st[4 * nb + 1]);
-      pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(st[4 * nb + 2], st[4 * nb + 3]);
     }
-    // dV[:, VC0:VC0+WV] += P^T dO[:, VC0:VC0+WV]; waited for before dS is
-    // formed, so that P's fragments free their registers
-    pv_product<WV, ROWS, false>(dv, pf, do_s + (VC0 / BOX) * ROWS * ROW);
-    wgmma_wait_all();
+    store_swizzled(pt, st, c0, r0, t4);
+    fence_proxy_async();
+    named_sync(1, 256);   // both halves of P^T are written
+    // dV[:, VC0:VC0+WV] += P^T dO[:, VC0:VC0+WV], in flight while dS^T is formed
+    ss_product<WV>(dv, smem_u32(pt), do_s + (VC0 / BOX) * ROWS * ROW);
+    wgmma_wait_all_but_one();   // dP^T is done
     pin(dpt);
-    pin(dv);
-    uint32_t dsf[ROWS / 16][4];
 #pragma unroll
-    for (int nb = 0; nb < ROWS / 8; ++nb) {
-      const float2 d2 = *reinterpret_cast<const float2*>(delta + nb * 8 + 2 * t4);
-      float ds[4];
+    for (int nb = 0; nb < 4; ++nb) {
+      const float2 d2 = *reinterpret_cast<const float2*>(delta + c0 + nb * 8 + 2 * t4);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[e] = st[4 * nb + e] * (dpt[4 * nb + e] - ((e & 1) ? d2.y : d2.x));
-      dsf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      dsf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      for (int e = 0; e < 4; ++e)   // dS^T in place of dP^T
+        dpt[4 * nb + e] = st[4 * nb + e] * (dpt[4 * nb + e] - ((e & 1) ? d2.y : d2.x));
     }
+    store_swizzled(dst, dpt, c0, r0, t4);
+    fence_proxy_async();
+    named_sync(2, 256);   // both halves of dS^T are written
     // dK[:, KC0:KC0+WK] += dS^T Q[:, KC0:KC0+WK]
-    pv_product<WK, ROWS>(dk, dsf, q_s + (KC0 / BOX) * ROWS * ROW);
-    mbar_arrive(&empty[s]);
-    if (tid == 0 && i + STAGES < n) {
-      // item i + STAGES goes where item i was: wait until both warpgroups are done with it
-      mbar_wait(&empty[s], (i / STAGES) & 1);
-      split_load_item<DK, DV>(p, tm_q, tm_do, sQ, sdO, sL, sDl, full, b, kvh, t_lo, nq,
-                              i + STAGES);
-    }
-    __syncwarp();
+    ss_product<WK>(dk, smem_u32(dst), q_s + (KC0 / BOX) * ROWS * ROW);
   }
-  const size_t kv_stride = (size_t)p.KV * DK, v_stride = (size_t)p.KV * DV;
-  bf16* dkb = static_cast<bf16*>(p.dk) + ((size_t)b * p.Sk * p.KV + kvh) * DK + KC0;
-  bf16* dvb = static_cast<bf16*>(p.dv) + ((size_t)b * p.Sk * p.KV + kvh) * DV + VC0;
-  store_rows<WK>(dkb, kv_stride, krow0, p.Sk, dk, p.scale, t4);
-  store_rows<WV>(dvb, v_stride, krow0, p.Sk, dv, 1.f, t4);
+  wgmma_wait_all();
+  pin(dv);
+  pin(dk);
+  if (p.shares == 1) {
+    const size_t kv_stride = (size_t)p.KV * DK, v_stride = (size_t)p.KV * DV;
+    bf16* dkb = static_cast<bf16*>(p.dk) + ((size_t)b * p.Sk * p.KV + kvh) * DK + KC0;
+    bf16* dvb = static_cast<bf16*>(p.dv) + ((size_t)b * p.Sk * p.KV + kvh) * DV + VC0;
+    store_rows<WK>(dkb, kv_stride, krow0, p.Sk, dk, p.scale, t4);
+    store_rows<WV>(dvb, v_stride, krow0, p.Sk, dv, 1.f, t4);
+  } else {   // this share's partial sums, (shares, B, Sk, KV, DK + DV) fp32
+    const size_t stride = (size_t)p.KV * (DK + DV);
+    float* base = p.part + (((size_t)share * p.B + b) * p.Sk * p.KV + kvh) * (DK + DV);
+    store_rows_f32<WK>(base + KC0, stride, krow0, p.Sk, dk, t4);
+    store_rows_f32<WV>(base + DK + VC0, stride, krow0, p.Sk, dv, t4);
+  }
 }
 
+// grid (B * KV * shares, kv tiles): block x takes head share x % shares of
+// kv head (x / shares) % KV, heads [share G / shares, (share + 1) G /
+// shares) of its group of G
 template <int DK, int DV>
 __global__ void __launch_bounds__(256, 1)
     flash_bwd_dkdv_bf16_split(const __grid_constant__ CUtensorMap tm_q,
@@ -624,24 +722,31 @@ __global__ void __launch_bounds__(256, 1)
   using L = SplitSmem<DK, DV>;
   constexpr int STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sK = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  unsigned char* sV = sK + L::K_BYTES;
-  unsigned char* sQ = sV + L::V_BYTES;
-  unsigned char* sdO = sQ + STAGES * L::K_BYTES;
-  float* sL = reinterpret_cast<float*>(sdO + STAGES * L::V_BYTES);   // [STAGES][ROWS]
-  float* sDl = sL + STAGES * ROWS;                                    // [STAGES][ROWS]
-  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(sDl + STAGES * ROWS);
+  SplitTiles t;
+  t.k = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  t.v = t.k + L::K_BYTES;
+  t.q = t.v + L::V_BYTES;
+  t.dout = t.q + STAGES * L::K_BYTES;
+  t.pt = t.dout + STAGES * L::V_BYTES;
+  t.dst = t.pt + 2 * L::PS_BYTES;
+  t.lse2 = reinterpret_cast<float*>(t.dst + 2 * L::PS_BYTES);   // [STAGES][ROWS]
+  t.delta = t.lse2 + STAGES * ROWS;                             // [STAGES][ROWS]
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(t.delta + STAGES * ROWS);
   uint64_t* full = bar_kv + 1;
   uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.x / p.KV, kvh = blockIdx.x % p.KV;
+  const int share = blockIdx.x % p.shares, bk = blockIdx.x / p.shares;
+  const int b = bk / p.KV, kvh = bk % p.KV;
+  const int group = p.H / p.KV;
+  const int h0 = kvh * group + share * group / p.shares;
+  const int heads = kvh * group + (share + 1) * group / p.shares - h0;
   const int k0 = blockIdx.y * ROWS;   // causal: the first kv tiles see the most q tiles
   int lo, hi;
   q_range(p, k0, ROWS, lo, hi);
   const int t_lo = lo / ROWS;
   const int nq = hi > lo ? (hi + ROWS - 1) / ROWS - t_lo : 0;   // q tiles a head
-  const int n = (p.H / p.KV) * nq;                              // (head, q tile) items
+  const int n = heads * nq;                                     // (head, q tile) items
 
   if (tid == 0) {
     mbar_init(bar_kv, 1);
@@ -656,21 +761,49 @@ __global__ void __launch_bounds__(256, 1)
     mbar_expect_tx(bar_kv, L::K_BYTES + L::V_BYTES);
 #pragma unroll
     for (int c = 0; c < DK / BOX; ++c)
-      tma_load(sK + c * ROWS * ROW, &tm_k, bar_kv, c * BOX, kvh, k0, b);
+      tma_load(t.k + c * ROWS * ROW, &tm_k, bar_kv, c * BOX, kvh, k0, b);
 #pragma unroll
     for (int c = 0; c < DV / BOX; ++c)
-      tma_load(sV + c * ROWS * ROW, &tm_v, bar_kv, c * BOX, kvh, k0, b);
+      tma_load(t.v + c * ROWS * ROW, &tm_v, bar_kv, c * BOX, kvh, k0, b);
     for (int j = 0; j < STAGES && j < n; ++j)
-      split_load_item<DK, DV>(p, &tm_q, &tm_do, sQ, sdO, sL, sDl, full, b, kvh, t_lo, nq, j);
+      split_load_item<DK, DV>(p, &tm_q, &tm_do, t, full, b, h0, t_lo, nq, j);
   }
   if (n > 0) mbar_wait(bar_kv, 0);
   constexpr int K0 = first_cols<DK>(), V0 = first_cols<DV>();
   if (tid < 128)
-    dkdv_split_part<DK, DV, 0, K0, 0, V0>(p, &tm_q, &tm_do, sK, sV, sQ, sdO, sL, sDl, full,
-                                          empty, b, kvh, k0, t_lo, nq, n);
+    dkdv_split_part<DK, DV, 0, K0, 0, V0>(p, &tm_q, &tm_do, t, full, empty, b, kvh, h0, share,
+                                          k0, t_lo, nq, n, 0);
   else
-    dkdv_split_part<DK, DV, K0, DK - K0, V0, DV - V0>(p, &tm_q, &tm_do, sK, sV, sQ, sdO, sL,
-                                                      sDl, full, empty, b, kvh, k0, t_lo, nq, n);
+    dkdv_split_part<DK, DV, K0, DK - K0, V0, DV - V0>(p, &tm_q, &tm_do, t, full, empty, b, kvh,
+                                                      h0, share, k0, t_lo, nq, n, 1);
+}
+
+// dK and dV from the head shares' partial sums, (shares, B, Sk, KV, DK +
+// DV) fp32: summed in share order, dK scaled, each rounded to bf16 once.
+// Four columns a thread (DK and DV are whole 64-column boxes, so four
+// never straddle the two).
+template <int DK, int DV>
+__global__ void __launch_bounds__(256) flash_bwd_sum_shares(Params p) {
+  constexpr int W = DK + DV;
+  const size_t rows = (size_t)p.B * p.Sk * p.KV;   // (b, kv row, kv head)
+  const size_t quads = rows * W / 4, share_stride = rows * W;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < quads;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t e = 4 * i, r = e / W;
+    const int c = static_cast<int>(e % W);
+    float4 acc = *reinterpret_cast<const float4*>(p.part + e);
+    for (int j = 1; j < p.shares; ++j) {
+      const float4 x = *reinterpret_cast<const float4*>(p.part + j * share_stride + e);
+      acc.x += x.x, acc.y += x.y, acc.z += x.z, acc.w += x.w;
+    }
+    const float sc = c < DK ? p.scale : 1.f;
+    bf16* dst = c < DK ? static_cast<bf16*>(p.dk) + r * DK + c
+                       : static_cast<bf16*>(p.dv) + r * DV + (c - DK);
+    uint2 out;
+    out.x = pack_bf16(acc.x * sc, acc.y * sc);
+    out.y = pack_bf16(acc.z * sc, acc.w * sc);
+    *reinterpret_cast<uint2*>(dst) = out;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -904,7 +1037,9 @@ int launch_bf16(const Params& p, const long long* layout, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// (256, 256) and (192, 128): the dQ kernel, then the two-warpgroup dK/dV kernel
+// (256, 256) and (192, 128): the dQ kernel, then the two-warpgroup dK/dV
+// kernel over p.shares head shares and, for more than one, the pass that
+// sums them
 template <int DK, int DV>
 int launch_bf16_split(const Params& p, const long long* layout, cudaStream_t stream) {
   CUtensorMap tm_q, tm_do, tm_k, tm_v;
@@ -915,9 +1050,14 @@ int launch_bf16_split(const Params& p, const long long* layout, cudaStream_t str
   err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_bf16_split<DK, DV>),
                     SplitSmem<DK, DV>::BYTES, opted);
   if (err) return err;
-  flash_bwd_dkdv_bf16_split<DK, DV><<<dim3(p.B * p.KV, (p.Sk + ROWS - 1) / ROWS), 256,
-                                      SplitSmem<DK, DV>::BYTES, stream>>>(tm_q, tm_do, tm_k,
-                                                                          tm_v, p);
+  const dim3 grid(p.B * p.KV * p.shares, (p.Sk + ROWS - 1) / ROWS);
+  flash_bwd_dkdv_bf16_split<DK, DV><<<grid, 256, SplitSmem<DK, DV>::BYTES, stream>>>(
+      tm_q, tm_do, tm_k, tm_v, p);
+  err = (int)cudaGetLastError();
+  if (err || p.shares == 1) return err;
+  const size_t quads = (size_t)p.B * p.Sk * p.KV * (DK + DV) / 4;
+  const int sum_blocks = (int)((quads + 255) / 256 < 8192 ? (quads + 255) / 256 : 8192);
+  flash_bwd_sum_shares<DK, DV><<<sum_blocks, 256, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -946,18 +1086,26 @@ int launch_simt_either(const Params& p, cudaStream_t stream, int is_bf16) {
 // dims ((64, 64), (128, 128), (256, 256), (192, 128)), the TMA layouts of
 // q, k, v and dout with boxes of 64 rows, 11 values each, as
 // kernels/flash_attention.py:tma_layout computes them; unused otherwise.
-// The two kernels run in order on `stream`.  Returns cudaGetLastError()
-// after the launches, or a negative code from encode().
+// shares: the head shares of the two-warpgroup dK/dV kernel (bf16 at
+// (256, 256) and (192, 128)), 1 on every other route; above 1, part holds
+// shares * B * Sk * KV * (DK + DV) fp32, as
+// kernels/flash_attention.py:bwd_head_shares chooses it.  The kernels run
+// in order on `stream`.  Returns cudaGetLastError() after the launches, or
+// a negative code from encode().
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, void* dq, void* dk,
                                    void* dv, float* scratch, int B, int S, int Sk, int H, int KV,
                                    int DK, int DV, int causal, int window, int is_bf16,
-                                   void* stream, const long long* layout) {
+                                   void* stream, const long long* layout, float* part,
+                                   int shares) {
   const float scale = 1.f / sqrtf((float)DK);
   const int s_pad = (S + ROWS - 1) / ROWS * ROWS;
   Params p{q, k, v, o, dout, lse, dq, dk, dv, scratch, scratch + (size_t)B * H * s_pad,
-           B, S, Sk, H, KV, causal, window, scale, LOG2E * scale, s_pad};
+           B, S, Sk, H, KV, causal, window, scale, LOG2E * scale, s_pad, part, shares};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool split = is_bf16 && ((DK == 256 && DV == 256) || (DK == 192 && DV == 128));
+  if (shares < 1 || shares > H / KV || (shares > 1 && (!split || part == nullptr)))
+    return (int)cudaErrorInvalidValue;
   if (DK == 16 && DV == 16) return launch_simt_either<16, 16>(p, st, is_bf16);
   if (DK == 24 && DV == 16) return launch_simt_either<24, 16>(p, st, is_bf16);
   if (!is_bf16) {

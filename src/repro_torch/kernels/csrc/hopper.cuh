@@ -227,6 +227,20 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
+// d (64 x 32, f32) {=, +=} a (64 x 16, smem) * b (16 x 32, smem); TA / TB as above
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
 // d (64 x 64, f32) += a (64 x 16, registers) * b (16 x 64, smem, MN-major)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
                                              uint64_t b) {
@@ -330,13 +344,14 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
 // S (64 rows x 2 NS columns, fp32) {=, +=} A B^T over a depth of D, both
 // operands K-major in shared memory: a, the first of the 64 A rows inside
 // an A_ROWS-row tile; b, the first of 2 NS B rows inside a B_ROWS-row
-// tile; D / 64 boxes each.  `accumulate` adds to S instead.  WAIT false
+// tile (a multiple of 8 rows from its start, where the swizzle repeats);
+// D / 64 boxes each.  `accumulate` adds to S instead.  WAIT false
 // leaves the product in flight: the caller waits (wgmma_wait_all, pin)
 // before it touches S.
 template <int D, int A_ROWS, int B_ROWS, int NS, bool WAIT = true>
 __device__ __forceinline__ void qk_product(float (&s)[NS], uint32_t a, uint32_t b,
                                            bool accumulate = false) {
-  static_assert(NS == 64 || NS == 32, "64 or 128 columns");
+  static_assert(NS == 64 || NS == 32 || NS == 16, "32, 64 or 128 columns");
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {   // 16 columns (32 bytes) a step
@@ -344,7 +359,8 @@ __device__ __forceinline__ void qk_product(float (&s)[NS], uint32_t a, uint32_t 
     const uint64_t da = smem_desc(a + (kk / 4) * (A_ROWS * ROW) + col, 1, 64);
     const uint64_t db = smem_desc(b + (kk / 4) * (B_ROWS * ROW) + col, 1, 64);
     if constexpr (NS == 64) wgmma_ss_n128(s, da, db, accumulate || kk > 0);
-    else wgmma_ss_n64(s, da, db, accumulate || kk > 0);
+    else if constexpr (NS == 32) wgmma_ss_n64(s, da, db, accumulate || kk > 0);
+    else wgmma_ss_n32(s, da, db, accumulate || kk > 0);
   }
   wgmma_commit();
   if constexpr (WAIT) {

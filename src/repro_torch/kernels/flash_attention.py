@@ -14,7 +14,11 @@ design does about it.
 
 :func:`flash_attention_bwd_cuda` launches the gradient's two kernels
 (``csrc/flash_attention_bwd.cu``) from the forward's output and per-row
-logsumexp, at every head-dim pair the forward takes.  bf16 at the models'
+logsumexp, at every head-dim pair the forward takes.  At (256, 256) and
+(192, 128) in bf16 the dK/dV kernel may split each kv tile's q heads
+into shares over blocks (:func:`bwd_head_shares`, from the shapes and the
+card's SM count), and a third kernel then sums the shares' fp32 partials
+in a fixed order.  bf16 at the models'
 head dims goes to the wgmma + TMA kernels, fp32 and the smoke configs'
 head dims (16, 16) and (24, 16) in either dtype to SIMT kernels: the route
 follows from dtype and head dims (:func:`tma_route`), never from a failure
@@ -25,6 +29,7 @@ counts the launches; this module only checks and launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -50,6 +55,12 @@ KV_TILES = {(64, 64): (128, 64), (128, 128): (128, 64), (192, 128): (128, 64),
 BWD_BOX_ROWS = 64
 # columns of one TMA box: 128 bytes of bf16, the span of the 128-byte swizzle
 BOX_COLS = 64
+# the bf16 head dims whose dK/dV kernel is two warpgroups of one 64-row kv
+# tile, one block an SM (csrc/flash_attention_bwd.cu:
+# flash_bwd_dkdv_bf16_split); below BWD_SPLIT_WAVES waves of such blocks it
+# splits each kv tile's (head, q tile) items into head shares over blocks
+SPLIT_HEAD_DIMS = frozenset({(256, 256), (192, 128)})
+BWD_SPLIT_WAVES = 2
 
 
 class TmaLayout(NamedTuple):
@@ -122,6 +133,27 @@ def bwd_layout_array(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _cached_layouts(parts, parts)
 
 
+def bwd_head_shares(b: int, kv: int, group: int, sk: int, sm_count: int) -> int:
+    """The head shares the two-warpgroup dK/dV kernel splits each kv
+    tile's items into: its B * KV * ceil(Sk / 64) blocks take one SM each,
+    so where they fill fewer than BWD_SPLIT_WAVES waves of ``sm_count``
+    blocks, each kv tile's ``group`` q heads are cut into as many shares as
+    fill them, at most one a head.  1 (no split, no partial sums) otherwise."""
+    blocks = b * kv * -(-sk // BWD_BOX_ROWS)
+    return max(1, min(group, -(-BWD_SPLIT_WAVES * sm_count // blocks)))
+
+
+def bwd_partial_numel(shares: int, b: int, sk: int, kv: int, dk: int, dv: int) -> int:
+    """fp32 elements of the head shares' partial dK and dV, (shares, B, Sk,
+    KV, DK + DV); none without a split."""
+    return 0 if shares == 1 else shares * b * sk * kv * (dk + dv)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _fn():
     fn = build.library("flash_attention").flash_attention_fwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
@@ -134,7 +166,8 @@ def _fn():
 def _bwd_fn():
     fn = build.library("flash_attention_bwd").flash_attention_bwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int])
         fn.restype = ctypes.c_int
     return fn
 
@@ -236,19 +269,24 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: lse is {tuple(lse.shape)} {lse.dtype} on "
                          f"{lse.device}; expected contiguous ({b}, {h}, {s}) float32 on "
                          f"{q.device}")
-    layout = None
+    layout, shares, part = None, 1, None
     if tma_route(q.dtype, d, dv):   # the TMA layouts of q, k, v and dO
         layout = bwd_layout_array(q, k, v, do)
+        if (d, dv) in SPLIT_HEAD_DIMS:
+            shares = bwd_head_shares(b, kvh, h // kvh, sk, _sm_count(q.device.index))
     dq, dk, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # Delta and lse in base 2 for the dK/dV kernel, written by the dQ kernel
     s_pad = -(-s // BWD_BOX_ROWS) * BWD_BOX_ROWS
     scratch = torch.empty(2 * b * h * s_pad, dtype=torch.float32, device=q.device)
+    if shares > 1:   # the head shares' partial dK and dV, summed by a pass of their own
+        part = torch.empty(bwd_partial_numel(shares, b, sk, kvh, d, dv), dtype=torch.float32,
+                           device=q.device)
     with torch.cuda.device(q.device):
         err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(),
                         scratch.data_ptr(), b, s, sk, h, kvh, d, dv, int(causal), int(window),
                         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-                        layout)
+                        layout, None if part is None else part.data_ptr(), shares)
     if err < 0:
         raise RuntimeError(f"flash_attention_bwd: TMA tensor map not encoded (code {err})")
     if err:

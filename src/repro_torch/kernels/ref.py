@@ -73,14 +73,18 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
-                            causal: bool = True, window: int = 0
+                            causal: bool = True, window: int = 0, shares: int = 1
                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The flash backward kernel's formulas in fp32 (not autograd): P from
     the forward's lse, Delta = rowsum(dO * O), dS = P * (dO V^T - Delta),
     dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D), dV = P^T dO, with dK and dV
     summed over each kv head's q heads.  q (B, S, H, D); o, do (B, S, H,
     Dv); k (B, Sk, KV, D), v (B, Sk, KV, Dv); lse (B, H, S) -> (dq, dk, dv)
-    in the inputs' dtypes."""
+    in the inputs' dtypes.  ``shares`` > 1 sums dK and dV as the
+    two-warpgroup dK/dV kernel does when it splits a group of G q heads
+    into head shares: heads [j G / shares, (j + 1) G / shares) summed into
+    share j's fp32 partial, the partials added in share order, dK scaled
+    after."""
     b, s, h, d = q.shape
     kvh, dv = k.shape[2], v.shape[3]
     qg, kg, vg, scores, mask = _grouped(q, k, v, causal, window)
@@ -92,8 +96,14 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ds = p * (torch.einsum("bkgqd,bkjd->bkgqj", dog, vg) - delta[..., None])
     scale = 1.0 / math.sqrt(d)
     dq = torch.einsum("bkgqj,bkjd->bkgqd", ds, kg) * scale
-    dk = torch.einsum("bkgqj,bkgqd->bkjd", ds, qg) * scale
-    dv = torch.einsum("bkgqj,bkgqd->bkjd", p, dog)
+    group = h // kvh
+    bounds = [j * group // shares for j in range(shares + 1)]
+    dk = dv = None
+    for lo, hi in zip(bounds, bounds[1:]):   # share by share, in order
+        dk_j = torch.einsum("bkgqj,bkgqd->bkjd", ds[:, :, lo:hi], qg[:, :, lo:hi])
+        dv_j = torch.einsum("bkgqj,bkgqd->bkjd", p[:, :, lo:hi], dog[:, :, lo:hi])
+        dk, dv = (dk_j, dv_j) if dk is None else (dk + dk_j, dv + dv_j)
+    dk = dk * scale
     dq = dq.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
     return dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
 

@@ -534,6 +534,62 @@ def test_cuda_flash_backward_every_head_dim_matches_plain(dtype, d, dv, h, kv, c
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+# the two-warpgroup dK/dV kernel, (B, S, H, KV, D, Dv, window), causal: the
+# shapes choose the head shares (kernels/flash_attention.py:bwd_head_shares
+# on the card's 132 SMs): recurrentgemma-9b's MQA at the train step's B 1
+# (7 shares of 16 heads), a GQA group of 5 over 4 shares, a ragged S
+# shorter than two tiles (a share a head), MLA at one share and, at (192,
+# 128), a group of 8 over 3 shares; windows that cross tiles
+SPLIT_BWD_CASES = [(1, 2560, 16, 1, 256, 256, 2048), (1, 1280, 20, 4, 256, 256, 300),
+                   (1, 100, 4, 1, 256, 256, 0), (2, 1000, 8, 8, 192, 128, 0),
+                   (1, 2880, 16, 2, 192, 128, 500), (1, 100, 6, 2, 192, 128, 40)]
+
+
+def _split_bwd_inputs(b, s, h, kv, d, dv, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k = (torch.randn(b, s, n, d, generator=gen, device="cuda").bfloat16() for n in (h, kv))
+    v, do = (torch.randn(b, s, n, dv, generator=gen, device="cuda").bfloat16() for n in (kv, h))
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kv,d,dv,window", SPLIT_BWD_CASES)
+def test_cuda_flash_backward_split_matches_autograd(b, s, h, kv, d, dv, window):
+    """The two-warpgroup dK/dV kernel (S^T and dP^T once a block, P^T and
+    dS^T through shared memory, head shares summed by a pass of their own)
+    against autograd of the plain forward in fp32: 5e-2 (max |out - ref| /
+    (1 + |ref|))."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    q, k, v, do = _split_bwd_inputs(b, s, h, kv, d, dv, seed=31)
+    kw = dict(causal=True, window=window)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*leaves, **kw), leaves, do.float())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert torch.isfinite(g.float()).all(), name
+        assert _scaled(g, w) <= 5e-2, (name, _scaled(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kv,d,dv,window", SPLIT_BWD_CASES)
+def test_cuda_flash_backward_split_is_deterministic(b, s, h, kv, d, dv, window):
+    """Two launches give bit-equal dq, dk and dv: the head shares are
+    summed in their order, with no atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    q, k, v, do = _split_bwd_inputs(b, s, h, kv, d, dv, seed=32)
+    kw = dict(causal=True, window=window)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    first = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    second = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("p,n,b,l,h,chunk,views", [(64, 128, 2, 1000, 8, 128, False),
