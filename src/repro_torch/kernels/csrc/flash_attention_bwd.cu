@@ -85,7 +85,10 @@
 // q heads into head shares over as many blocks
 // (kernels/flash_attention.py:bwd_head_shares); each writes fp32 partial
 // dK and dV to a scratch, and flash_bwd_sum_shares adds the shares in
-// their order, scales dK and rounds once: deterministic, no atomics.  The
+// their order, scales dK and rounds once: deterministic, no atomics.
+// Blocks go in groups of eight (batch, kv head, share) units, kv tile by
+// kv tile, so that the blocks in flight read a few heads' q and dO rows
+// from L2 (ORDER_UNITS; MLA's 128 kv heads otherwise miss it).  The
 // dQ kernel keeps dQ (DK / 2 a thread), S and dP: 192 registers at D 256.
 // At (192, 128) the two products differ in depth (S over 192, dP over
 // 128), dO and V have tensor maps of their own (two boxes against q's and
@@ -127,8 +130,15 @@ struct Params {
   float scale;            // 1 / sqrt(DK)
   float scale_log2;       // log2(e) / sqrt(DK): scores in base 2
   int s_pad;              // S rounded up to ROWS
-  float* part;            // split dK/dV kernel: (shares, B, Sk, KV, DK + DV) fp32 partial sums
-  int shares;             // split dK/dV kernel: head shares a kv tile's items are split into
+};
+
+// the two-warpgroup dK/dV kernel's head shares, an argument of its own:
+// with these two fields in Params, ptxas compiled the dQ and the
+// one-warpgroup dK/dV kernels differently (serialized wgmma, 5-40% slower
+// on the card), though none of them reads the fields
+struct Shares {
+  float* part;            // (n, B, Sk, KV, DK + DV) fp32 partial sums, for n > 1
+  int n;                  // head shares a kv tile's (head, q tile) items are split into
 };
 
 __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
@@ -609,9 +619,9 @@ __device__ __forceinline__ void store_rows_f32(float* base, size_t stride, int r
 template <int DK, int DV, int KC0, int WK, int VC0, int WV>
 __device__ __forceinline__ void dkdv_split_part(const Params& p, const CUtensorMap* tm_q,
                                                 const CUtensorMap* tm_do, const SplitTiles& t,
-                                                uint64_t* full, uint64_t* empty, int b, int kvh,
-                                                int h0, int share, int k0, int t_lo, int nq,
-                                                int n, int wg) {
+                                                const Shares& sh, uint64_t* full, uint64_t* empty,
+                                                int b, int kvh, int h0, int share, int k0,
+                                                int t_lo, int nq, int n, int wg) {
   using L = SplitSmem<DK, DV>;
   constexpr int STAGES = L::STAGES;
   const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;
@@ -696,7 +706,7 @@ __device__ __forceinline__ void dkdv_split_part(const Params& p, const CUtensorM
   wgmma_wait_all();
   pin(dv);
   pin(dk);
-  if (p.shares == 1) {
+  if (sh.n == 1) {
     const size_t kv_stride = (size_t)p.KV * DK, v_stride = (size_t)p.KV * DV;
     bf16* dkb = static_cast<bf16*>(p.dk) + ((size_t)b * p.Sk * p.KV + kvh) * DK + KC0;
     bf16* dvb = static_cast<bf16*>(p.dv) + ((size_t)b * p.Sk * p.KV + kvh) * DV + VC0;
@@ -704,21 +714,28 @@ __device__ __forceinline__ void dkdv_split_part(const Params& p, const CUtensorM
     store_rows<WV>(dvb, v_stride, krow0, p.Sk, dv, 1.f, t4);
   } else {   // this share's partial sums, (shares, B, Sk, KV, DK + DV) fp32
     const size_t stride = (size_t)p.KV * (DK + DV);
-    float* base = p.part + (((size_t)share * p.B + b) * p.Sk * p.KV + kvh) * (DK + DV);
+    float* base = sh.part + (((size_t)share * p.B + b) * p.Sk * p.KV + kvh) * (DK + DV);
     store_rows_f32<WK>(base + KC0, stride, krow0, p.Sk, dk, t4);
     store_rows_f32<WV>(base + DK + VC0, stride, krow0, p.Sk, dv, t4);
   }
 }
 
-// grid (B * KV * shares, kv tiles): block x takes head share x % shares of
-// kv head (x / shares) % KV, heads [share G / shares, (share + 1) G /
-// shares) of its group of G
+// units (b, kv head, head share) of a launch ordered in groups of
+// ORDER_UNITS, each group's blocks kv tile by kv tile: the blocks that run
+// together read the q and dO rows of a few heads, which stay in L2 (MLA:
+// 128 kv heads at B 2; kv head by kv head, the 132 blocks of a wave read
+// 132 heads' rows, 86 MB), and within a group the heaviest tiles (the
+// first, under the causal mask) launch first
+constexpr int ORDER_UNITS = 8;
+
+// grid (B * KV * shares * kv tiles) in the order above; share s of a
+// group of G q heads takes heads [s G / shares, (s + 1) G / shares)
 template <int DK, int DV>
 __global__ void __launch_bounds__(256, 1)
     flash_bwd_dkdv_bf16_split(const __grid_constant__ CUtensorMap tm_q,
                               const __grid_constant__ CUtensorMap tm_do,
                               const __grid_constant__ CUtensorMap tm_k,
-                              const __grid_constant__ CUtensorMap tm_v, Params p) {
+                              const __grid_constant__ CUtensorMap tm_v, Params p, Shares sh) {
   using L = SplitSmem<DK, DV>;
   constexpr int STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -736,12 +753,16 @@ __global__ void __launch_bounds__(256, 1)
   uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x;
-  const int share = blockIdx.x % p.shares, bk = blockIdx.x / p.shares;
+  const int units = p.B * p.KV * sh.n, tiles = (p.Sk + ROWS - 1) / ROWS;
+  const int grp = blockIdx.x / (ORDER_UNITS * tiles), in = blockIdx.x % (ORDER_UNITS * tiles);
+  const int width = min(ORDER_UNITS, units - grp * ORDER_UNITS);
+  const int unit = grp * ORDER_UNITS + in % width;
+  const int share = unit % sh.n, bk = unit / sh.n;
   const int b = bk / p.KV, kvh = bk % p.KV;
   const int group = p.H / p.KV;
-  const int h0 = kvh * group + share * group / p.shares;
-  const int heads = kvh * group + (share + 1) * group / p.shares - h0;
-  const int k0 = blockIdx.y * ROWS;   // causal: the first kv tiles see the most q tiles
+  const int h0 = kvh * group + share * group / sh.n;
+  const int heads = kvh * group + (share + 1) * group / sh.n - h0;
+  const int k0 = in / width * ROWS;   // causal: the first kv tiles see the most q tiles
   int lo, hi;
   q_range(p, k0, ROWS, lo, hi);
   const int t_lo = lo / ROWS;
@@ -771,11 +792,11 @@ __global__ void __launch_bounds__(256, 1)
   if (n > 0) mbar_wait(bar_kv, 0);
   constexpr int K0 = first_cols<DK>(), V0 = first_cols<DV>();
   if (tid < 128)
-    dkdv_split_part<DK, DV, 0, K0, 0, V0>(p, &tm_q, &tm_do, t, full, empty, b, kvh, h0, share,
-                                          k0, t_lo, nq, n, 0);
+    dkdv_split_part<DK, DV, 0, K0, 0, V0>(p, &tm_q, &tm_do, t, sh, full, empty, b, kvh, h0,
+                                          share, k0, t_lo, nq, n, 0);
   else
-    dkdv_split_part<DK, DV, K0, DK - K0, V0, DV - V0>(p, &tm_q, &tm_do, t, full, empty, b, kvh,
-                                                      h0, share, k0, t_lo, nq, n, 1);
+    dkdv_split_part<DK, DV, K0, DK - K0, V0, DV - V0>(p, &tm_q, &tm_do, t, sh, full, empty, b,
+                                                      kvh, h0, share, k0, t_lo, nq, n, 1);
 }
 
 // dK and dV from the head shares' partial sums, (shares, B, Sk, KV, DK +
@@ -783,7 +804,7 @@ __global__ void __launch_bounds__(256, 1)
 // Four columns a thread (DK and DV are whole 64-column boxes, so four
 // never straddle the two).
 template <int DK, int DV>
-__global__ void __launch_bounds__(256) flash_bwd_sum_shares(Params p) {
+__global__ void __launch_bounds__(256) flash_bwd_sum_shares(Params p, Shares sh) {
   constexpr int W = DK + DV;
   const size_t rows = (size_t)p.B * p.Sk * p.KV;   // (b, kv row, kv head)
   const size_t quads = rows * W / 4, share_stride = rows * W;
@@ -791,9 +812,9 @@ __global__ void __launch_bounds__(256) flash_bwd_sum_shares(Params p) {
        i += (size_t)gridDim.x * blockDim.x) {
     const size_t e = 4 * i, r = e / W;
     const int c = static_cast<int>(e % W);
-    float4 acc = *reinterpret_cast<const float4*>(p.part + e);
-    for (int j = 1; j < p.shares; ++j) {
-      const float4 x = *reinterpret_cast<const float4*>(p.part + j * share_stride + e);
+    float4 acc = *reinterpret_cast<const float4*>(sh.part + e);
+    for (int j = 1; j < sh.n; ++j) {
+      const float4 x = *reinterpret_cast<const float4*>(sh.part + j * share_stride + e);
       acc.x += x.x, acc.y += x.y, acc.z += x.z, acc.w += x.w;
     }
     const float sc = c < DK ? p.scale : 1.f;
@@ -1038,10 +1059,11 @@ int launch_bf16(const Params& p, const long long* layout, cudaStream_t stream) {
 }
 
 // (256, 256) and (192, 128): the dQ kernel, then the two-warpgroup dK/dV
-// kernel over p.shares head shares and, for more than one, the pass that
-// sums them
+// kernel over sh.n head shares and, for more than one, the pass that sums
+// them
 template <int DK, int DV>
-int launch_bf16_split(const Params& p, const long long* layout, cudaStream_t stream) {
+int launch_bf16_split(const Params& p, const Shares& sh, const long long* layout,
+                      cudaStream_t stream) {
   CUtensorMap tm_q, tm_do, tm_k, tm_v;
   int err = encode_maps<DK, DV>(p, layout, tm_q, tm_do, tm_k, tm_v);
   if (!err) err = launch_dq_bf16<DK, DV>(p, tm_q, tm_do, tm_k, tm_v, stream);
@@ -1050,14 +1072,14 @@ int launch_bf16_split(const Params& p, const long long* layout, cudaStream_t str
   err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_bf16_split<DK, DV>),
                     SplitSmem<DK, DV>::BYTES, opted);
   if (err) return err;
-  const dim3 grid(p.B * p.KV * p.shares, (p.Sk + ROWS - 1) / ROWS);
-  flash_bwd_dkdv_bf16_split<DK, DV><<<grid, 256, SplitSmem<DK, DV>::BYTES, stream>>>(
-      tm_q, tm_do, tm_k, tm_v, p);
+  const int blocks = p.B * p.KV * sh.n * ((p.Sk + ROWS - 1) / ROWS);
+  flash_bwd_dkdv_bf16_split<DK, DV><<<blocks, 256, SplitSmem<DK, DV>::BYTES, stream>>>(
+      tm_q, tm_do, tm_k, tm_v, p, sh);
   err = (int)cudaGetLastError();
-  if (err || p.shares == 1) return err;
+  if (err || sh.n == 1) return err;
   const size_t quads = (size_t)p.B * p.Sk * p.KV * (DK + DV) / 4;
   const int sum_blocks = (int)((quads + 255) / 256 < 8192 ? (quads + 255) / 256 : 8192);
-  flash_bwd_sum_shares<DK, DV><<<sum_blocks, 256, 0, stream>>>(p);
+  flash_bwd_sum_shares<DK, DV><<<sum_blocks, 256, 0, stream>>>(p, sh);
   return (int)cudaGetLastError();
 }
 
@@ -1101,7 +1123,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   const float scale = 1.f / sqrtf((float)DK);
   const int s_pad = (S + ROWS - 1) / ROWS * ROWS;
   Params p{q, k, v, o, dout, lse, dq, dk, dv, scratch, scratch + (size_t)B * H * s_pad,
-           B, S, Sk, H, KV, causal, window, scale, LOG2E * scale, s_pad, part, shares};
+           B, S, Sk, H, KV, causal, window, scale, LOG2E * scale, s_pad};
+  const Shares sh{part, shares};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool split = is_bf16 && ((DK == 256 && DV == 256) || (DK == 192 && DV == 128));
   if (shares < 1 || shares > H / KV || (shares > 1 && (!split || part == nullptr)))
@@ -1118,7 +1141,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   if (layout == nullptr) return (int)cudaErrorInvalidValue;
   if (DK == 64 && DV == 64) return launch_bf16<64>(p, layout, st);
   if (DK == 128 && DV == 128) return launch_bf16<128>(p, layout, st);
-  if (DK == 256 && DV == 256) return launch_bf16_split<256, 256>(p, layout, st);
-  if (DK == 192 && DV == 128) return launch_bf16_split<192, 128>(p, layout, st);
+  if (DK == 256 && DV == 256) return launch_bf16_split<256, 256>(p, sh, layout, st);
+  if (DK == 192 && DV == 128) return launch_bf16_split<192, 128>(p, sh, layout, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -150,8 +150,11 @@ def time_host(gen, b, s, h, kv, d, window) -> dict:
 
 
 def kernel_device_ms(fn, iters: int = 20) -> dict[str, float]:
-    """Mean device ms a call of ``fn`` spends in each CUDA kernel, from
-    torch.profiler, keyed by the kernel's name as the profiler gives it."""
+    """Mean device ms a launch of each CUDA kernel of ``fn`` takes, from
+    torch.profiler, keyed by the kernel's name as the profiler gives it
+    (each of the flash backward's kernels launches once a call).  The mean
+    is over the launches the profiler recorded, which may be fewer than it
+    ran."""
     import torch
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
@@ -161,7 +164,7 @@ def kernel_device_ms(fn, iters: int = 20) -> dict[str, float]:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+    return {e.key: e.self_device_time_total / 1e3 / e.count for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
 
 
