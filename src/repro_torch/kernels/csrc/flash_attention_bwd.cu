@@ -190,9 +190,12 @@ __device__ __forceinline__ void store_rows(bf16* base, size_t stride, int row0, 
 // each: DK / 64 or DV / 64 boxes of 64 rows x 128 bytes), the mbarriers.
 // At D 64 the kernel keeps to 128 registers, so four blocks share an SM;
 // at D 256 (192 KB) and (192, 128) (121 KB) one block takes an SM.
+// (b, head) units a group of the ordered dQ grid at (192, 128)
+constexpr int ORDER_Q_UNITS = 8;
+
 template <int DK, int DV>
 struct DqSmem {
-  static constexpr int STAGES = 2;
+  static constexpr int STAGES = DK == 192 ? 3 : 2;
   static constexpr int BLOCKS_PER_SM = DK == 64 ? 4 : (DK == 128 ? 2 : 1);
   static constexpr uint32_t K_BYTES = ROWS * DK * 2;   // a Q or a K tile
   static constexpr uint32_t V_BYTES = ROWS * DV * 2;   // a dO or a V tile
@@ -220,10 +223,23 @@ __global__ void __launch_bounds__(128, DqSmem<DK, DV>::BLOCKS_PER_SM)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;   // accumulator row group / column pair
-  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  int b, h, qt;
+  if constexpr (DK == 192) {
+    // (b, head) units in groups of ORDER_Q_UNITS, each group's blocks q
+    // tile by q tile: the blocks in flight read a few heads' K and V
+    const int units = p.B * p.H, tiles = (p.S + ROWS - 1) / ROWS;
+    const int grp = blockIdx.x / (ORDER_Q_UNITS * tiles);
+    const int in = blockIdx.x % (ORDER_Q_UNITS * tiles);
+    const int width = min(ORDER_Q_UNITS, units - grp * ORDER_Q_UNITS);
+    const int unit = grp * ORDER_Q_UNITS + in % width;
+    b = unit / p.H, h = unit % p.H;
+    qt = p.causal ? tiles - 1 - in / width : in / width;
+  } else {
+    b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+    // causal: the first blocks take the last q tiles, which have the most kv tiles
+    qt = p.causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y) : blockIdx.y;
+  }
   const int kvh = h / (p.H / p.KV);
-  // causal: the first blocks take the last q tiles, which have the most kv tiles
-  const int qt = p.causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y) : blockIdx.y;
   const int q0 = qt * ROWS;
   int lo, hi;
   kv_range(p, q0, ROWS, lo, hi);
@@ -1037,8 +1053,10 @@ int launch_dq_bf16(const Params& p, const CUtensorMap& tm_q, const CUtensorMap& 
   const int err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dq_bf16<DK, DV>),
                               DqSmem<DK, DV>::BYTES, opted);
   if (err) return err;
-  flash_bwd_dq_bf16<DK, DV><<<dim3(p.B * p.H, (p.S + ROWS - 1) / ROWS), 128,
-                              DqSmem<DK, DV>::BYTES, stream>>>(tm_q, tm_do, tm_k, tm_v, p);
+  const int tiles = (p.S + ROWS - 1) / ROWS;
+  const dim3 grid = DK == 192 ? dim3(p.B * p.H * tiles) : dim3(p.B * p.H, tiles);
+  flash_bwd_dq_bf16<DK, DV><<<grid, 128, DqSmem<DK, DV>::BYTES, stream>>>(tm_q, tm_do, tm_k,
+                                                                         tm_v, p);
   return (int)cudaGetLastError();
 }
 
