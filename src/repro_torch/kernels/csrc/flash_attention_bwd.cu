@@ -190,12 +190,9 @@ __device__ __forceinline__ void store_rows(bf16* base, size_t stride, int row0, 
 // each: DK / 64 or DV / 64 boxes of 64 rows x 128 bytes), the mbarriers.
 // At D 64 the kernel keeps to 128 registers, so four blocks share an SM;
 // at D 256 (192 KB) and (192, 128) (121 KB) one block takes an SM.
-// (b, head) units a group of the ordered dQ grid at (192, 128)
-constexpr int ORDER_Q_UNITS = 8;
-
 template <int DK, int DV>
 struct DqSmem {
-  static constexpr int STAGES = DK == 192 ? 3 : 2;
+  static constexpr int STAGES = 2;
   static constexpr int BLOCKS_PER_SM = DK == 64 ? 4 : (DK == 128 ? 2 : 1);
   static constexpr uint32_t K_BYTES = ROWS * DK * 2;   // a Q or a K tile
   static constexpr uint32_t V_BYTES = ROWS * DV * 2;   // a dO or a V tile
@@ -223,23 +220,10 @@ __global__ void __launch_bounds__(128, DqSmem<DK, DV>::BLOCKS_PER_SM)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;   // accumulator row group / column pair
-  int b, h, qt;
-  if constexpr (DK == 192) {
-    // (b, head) units in groups of ORDER_Q_UNITS, each group's blocks q
-    // tile by q tile: the blocks in flight read a few heads' K and V
-    const int units = p.B * p.H, tiles = (p.S + ROWS - 1) / ROWS;
-    const int grp = blockIdx.x / (ORDER_Q_UNITS * tiles);
-    const int in = blockIdx.x % (ORDER_Q_UNITS * tiles);
-    const int width = min(ORDER_Q_UNITS, units - grp * ORDER_Q_UNITS);
-    const int unit = grp * ORDER_Q_UNITS + in % width;
-    b = unit / p.H, h = unit % p.H;
-    qt = p.causal ? tiles - 1 - in / width : in / width;
-  } else {
-    b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-    // causal: the first blocks take the last q tiles, which have the most kv tiles
-    qt = p.causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y) : blockIdx.y;
-  }
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int kvh = h / (p.H / p.KV);
+  // causal: the first blocks take the last q tiles, which have the most kv tiles
+  const int qt = p.causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y) : blockIdx.y;
   const int q0 = qt * ROWS;
   int lo, hi;
   kv_range(p, q0, ROWS, lo, hi);
@@ -361,6 +345,211 @@ __global__ void __launch_bounds__(128, DqSmem<DK, DV>::BLOCKS_PER_SM)
     pv_product<DK, ROWS>(dq, dsf, k_s);   // dQ += dS K, K read MN-major
     mbar_arrive(&empty[s]);
   }
+  store_rows<DK>(static_cast<bf16*>(p.dq) + q_off, q_stride, row0, p.S, dq, p.scale, t4);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dQ at (192, 128) and (256, 256): two warpgroups of 64 q rows, 128 q
+// rows of one head a block, over one ring of K/V stages (see the header)
+// ---------------------------------------------------------------------------
+// Shared memory: each warpgroup's Q and dO tile (64 rows), then STAGES K
+// and V stages of KR rows (DK / 64 or DV / 64 boxes of KR rows x 128
+// bytes), the mbarriers; one block an SM.  At D 256 the two warpgroups' Q
+// and dO take 128 KB, so a stage holds 32 kv rows.
+template <int DK, int DV>
+struct PairSmem {
+  static constexpr int KR = DK == 256 ? 32 : ROWS;   // kv rows of a stage
+  static constexpr int STAGES = 3;
+  static constexpr int Q_ROWS = 2 * ROWS;             // q rows of a block
+  static constexpr uint32_t Q_BYTES = ROWS * DK * 2;    // a warpgroup's Q tile
+  static constexpr uint32_t DO_BYTES = ROWS * DV * 2;   // a warpgroup's dO tile
+  static constexpr uint32_t K_BYTES = KR * DK * 2;      // a K stage
+  static constexpr uint32_t V_BYTES = KR * DV * 2;      // a V stage
+  static constexpr size_t BYTES = 1024 + 2 * (Q_BYTES + DO_BYTES) +
+                                  STAGES * (K_BYTES + V_BYTES) + 8 * (1 + 2 * STAGES);
+  static_assert(BYTES <= 232448, "over the shared memory of an SM");
+};
+
+// units (b, head) of a launch ordered in groups of ORDER_UNITS, each
+// group's blocks tile by tile (see flash_bwd_dkdv_bf16_split): the blocks
+// in flight read the K and V of a few heads, which stay in L2
+constexpr int ORDER_UNITS = 8;
+
+// grid (B * H * q tiles of 128 rows) in the order above, the last q tiles
+// (the heaviest under the causal mask) first within a group
+template <int DK, int DV>
+__global__ void __launch_bounds__(256, 1)
+    flash_bwd_dq_bf16_pair(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, Params p) {
+  using L = PairSmem<DK, DV>;
+  constexpr int STAGES = L::STAGES, KR = L::KR;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* sdO = sQ + 2 * L::Q_BYTES;
+  unsigned char* sK = sdO + 2 * L::DO_BYTES;
+  unsigned char* sV = sK + STAGES * L::K_BYTES;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + STAGES * L::V_BYTES);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = tid >> 7;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int units = p.B * p.H, tiles = (p.S + L::Q_ROWS - 1) / L::Q_ROWS;
+  const int grp = blockIdx.x / (ORDER_UNITS * tiles), in = blockIdx.x % (ORDER_UNITS * tiles);
+  const int width = min(ORDER_UNITS, units - grp * ORDER_UNITS);
+  const int unit = grp * ORDER_UNITS + in % width;
+  const int b = unit / p.H, h = unit % p.H;
+  const int kvh = h / (p.H / p.KV);
+  const int qt = p.causal ? tiles - 1 - in / width : in / width;
+  const int q0 = qt * L::Q_ROWS, qw = q0 + wg * ROWS;   // the block's, the warpgroup's first row
+  int lo, hi;
+  kv_range(p, q0, L::Q_ROWS, lo, hi);   // both warpgroups' kv rows: the ring streams these
+  const int t_lo = lo / KR;
+  const int n = hi > lo ? (hi + KR - 1) / KR - t_lo : 0;   // kv tiles with a visible key
+  int wlo, whi;   // this warpgroup's; none where all its rows lie past S
+  kv_range(p, qw, ROWS, wlo, whi);
+  if (qw >= p.S) whi = wlo;
+
+  auto load_kv = [&](int j) {   // kv tile t_lo + j into stage j % STAGES
+    const int s = j % STAGES, k0 = (t_lo + j) * KR;
+    mbar_expect_tx(&full[s], L::K_BYTES + L::V_BYTES);
+#pragma unroll
+    for (int c = 0; c < DK / BOX; ++c)
+      tma_load(sK + s * L::K_BYTES + c * KR * ROW, &tm_k, &full[s], c * BOX, kvh, k0, b);
+#pragma unroll
+    for (int c = 0; c < DV / BOX; ++c)
+      tma_load(sV + s * L::V_BYTES + c * KR * ROW, &tm_v, &full[s], c * BOX, kvh, k0, b);
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], blockDim.x);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && n > 0) {
+    // the second warpgroup's rows only where one of them lies below S
+    const int live = q0 + ROWS < p.S ? 2 : 1;
+    mbar_expect_tx(bar_q, live * (L::Q_BYTES + L::DO_BYTES));
+    for (int w = 0; w < live; ++w) {
+#pragma unroll
+      for (int c = 0; c < DK / BOX; ++c)
+        tma_load(sQ + w * L::Q_BYTES + c * ROWS * ROW, &tm_q, bar_q, c * BOX, h, q0 + w * ROWS, b);
+#pragma unroll
+      for (int c = 0; c < DV / BOX; ++c)
+        tma_load(sdO + w * L::DO_BYTES + c * ROWS * ROW, &tm_do, bar_q, c * BOX, h,
+                 q0 + w * ROWS, b);
+    }
+    for (int j = 0; j < min(STAGES, n); ++j) load_kv(j);
+  }
+
+  // Delta = rowsum(dO * O) over DV and lse in base 2 of the warp's 16
+  // rows, kept for this thread's rows and stored (0 past S) for the dK/dV
+  // kernel; the scratch is padded to whole blocks of 128 rows
+  const size_t q_stride = (size_t)p.H * DK, o_stride = (size_t)p.H * DV;
+  const size_t q_off = ((size_t)b * p.S * p.H + h) * DK;
+  const size_t o_off = ((size_t)b * p.S * p.H + h) * DV;
+  const bf16* ob = static_cast<const bf16*>(p.o) + o_off;
+  const bf16* dob = static_cast<const bf16*>(p.dout) + o_off;
+  const size_t pad_off = ((size_t)b * p.H + h) * p.s_pad;
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;   // warp * 16 = qw - q0 + (warp % 4) * 16
+  float d0 = 0.f, d1 = 0.f, l0 = 0.f, l1 = 0.f;
+  for (int r = 0; r < 16; ++r) {
+    const int row = q0 + warp * 16 + r;
+    float acc = 0.f, l2 = 0.f;
+    if (row < p.S) {
+#pragma unroll
+      for (int c = 2 * lane; c < DV; c += 64) {
+        const float2 x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(ob + (size_t)row * o_stride + c));
+        const float2 y = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(dob + (size_t)row * o_stride + c));
+        acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
+      }
+      l2 = p.lse[((size_t)b * p.H + h) * p.S + row] * LOG2E;
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      p.delta[pad_off + row] = acc;
+      p.lse2[pad_off + row] = l2;
+    }
+    if (r == g) d0 = acc, l0 = l2;
+    if (r == g + 8) d1 = acc, l1 = l2;
+  }
+
+  const uint32_t q_smem = smem_u32(sQ + wg * L::Q_BYTES);
+  const uint32_t do_smem = smem_u32(sdO + wg * L::DO_BYTES);
+  const float sl = p.scale_log2;
+  float dq[DK / 2];
+#pragma unroll
+  for (int i = 0; i < DK / 2; ++i) dq[i] = 0.f;
+  if (n > 0) mbar_wait(bar_q, 0);
+
+  // A tile's dQ product runs on while the next tile's S and dP are issued;
+  // its stage is released (`pend`) once they are done.  A warpgroup that
+  // sees no key of a tile still waits for it and releases it, so that
+  // every arrival on a stage's `empty` counts toward that tile's phase.
+  int pend = -1;
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES, k0 = (t_lo + i) * KR;
+    const uint32_t k_s = smem_u32(sK + s * L::K_BYTES);
+    const uint32_t v_s = smem_u32(sV + s * L::V_BYTES);
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    if (k0 < whi && k0 + KR > wlo) {
+      float sc[KR / 2], dp[KR / 2];   // S, dP: 64 q rows x KR kv columns
+      qk_product<DK, ROWS, KR, KR / 2, false>(sc, q_smem, k_s);
+      qk_product<DV, ROWS, KR, KR / 2, false>(dp, do_smem, v_s);
+      // test the mask only where a pair of the tile is masked
+      const bool edge = k0 + KR > p.Sk || (p.causal && k0 + KR - 1 > qw) ||
+                        (p.window && k0 <= qw + ROWS - 1 - p.window);
+      wgmma_wait_all_but_one();   // the last dQ product and S are done; dP may still run
+      pin(sc);
+      if (pend >= 0) mbar_arrive(&empty[pend]);
+#pragma unroll
+      for (int e = 0; e < KR / 2; ++e) {   // P, in place of S
+        const bool top = (e & 2) == 0;
+        sc[e] = ex2(fmaf(sc[e], sl, -(top ? l0 : l1)));
+        if (edge && !visible(p, top ? row0 : row1, k0 + (e / 4) * 8 + 2 * t4 + (e & 1)))
+          sc[e] = 0.f;
+      }
+      wgmma_wait_all();
+      pin(dp);
+      // dS as the A operand of dS K: 8-column blocks 2j and 2j+1 form k-step j
+      uint32_t dsf[KR / 16][4];
+#pragma unroll
+      for (int nb = 0; nb < KR / 8; ++nb) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[e] = sc[4 * nb + e] * (dp[4 * nb + e] - (e < 2 ? d0 : d1));
+        dsf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+        dsf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      pv_product<DK, KR, false>(dq, dsf, k_s);   // dQ += dS K, K read MN-major, in flight
+      pend = s;
+    } else {
+      if (pend >= 0) {
+        wgmma_wait_all();
+        mbar_arrive(&empty[pend]);
+        pend = -1;
+      }
+      mbar_arrive(&empty[s]);
+    }
+    if (tid == 0 && i > 0 && i + STAGES - 1 < n) {
+      // the next tile goes where tile i - 1 was: wait until both warpgroups are done with it
+      const int j = i + STAGES - 1;
+      mbar_wait(&empty[j % STAGES], ((j / STAGES) & 1) ^ 1);
+      load_kv(j);
+    }
+    __syncwarp();
+  }
+  wgmma_wait_all();
+  pin(dq);
   store_rows<DK>(static_cast<bf16*>(p.dq) + q_off, q_stride, row0, p.S, dq, p.scale, t4);
 }
 
@@ -742,7 +931,6 @@ __device__ __forceinline__ void dkdv_split_part(const Params& p, const CUtensorM
 // 128 kv heads at B 2; kv head by kv head, the 132 blocks of a wave read
 // 132 heads' rows, 86 MB), and within a group the heaviest tiles (the
 // first, under the causal mask) launch first
-constexpr int ORDER_UNITS = 8;
 
 // grid (B * KV * shares * kv tiles) in the order above; share s of a
 // group of G q heads takes heads [s G / shares, (s + 1) G / shares)
@@ -1053,10 +1241,33 @@ int launch_dq_bf16(const Params& p, const CUtensorMap& tm_q, const CUtensorMap& 
   const int err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dq_bf16<DK, DV>),
                               DqSmem<DK, DV>::BYTES, opted);
   if (err) return err;
-  const int tiles = (p.S + ROWS - 1) / ROWS;
-  const dim3 grid = DK == 192 ? dim3(p.B * p.H * tiles) : dim3(p.B * p.H, tiles);
-  flash_bwd_dq_bf16<DK, DV><<<grid, 128, DqSmem<DK, DV>::BYTES, stream>>>(tm_q, tm_do, tm_k,
-                                                                         tm_v, p);
+  flash_bwd_dq_bf16<DK, DV><<<dim3(p.B * p.H, (p.S + ROWS - 1) / ROWS), 128,
+                              DqSmem<DK, DV>::BYTES, stream>>>(tm_q, tm_do, tm_k, tm_v, p);
+  return (int)cudaGetLastError();
+}
+
+// the two-warpgroup dQ kernel; K and V in boxes of its stages' KR rows
+// (tm_k, tm_v have boxes of ROWS)
+template <int DK, int DV>
+int launch_dq_pair(const Params& p, const long long* layout, const CUtensorMap& tm_q,
+                   const CUtensorMap& tm_do, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+                   cudaStream_t stream) {
+  using L = PairSmem<DK, DV>;
+  CUtensorMap tm_kr = tm_k, tm_vr = tm_v;
+  if constexpr (L::KR != ROWS) {
+    long long kl[11], vl[11];
+    for (int i = 0; i < 11; ++i) kl[i] = layout[11 + i], vl[i] = layout[22 + i];
+    kl[9] = vl[9] = L::KR;
+    int err = encode(&tm_kr, p.k, kl, L::KR);
+    if (!err) err = encode(&tm_vr, p.v, vl, L::KR);
+    if (err) return err;
+  }
+  static uint32_t opted = 0;   // a bit per device
+  const int err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dq_bf16_pair<DK, DV>),
+                              L::BYTES, opted);
+  if (err) return err;
+  const int blocks = p.B * p.H * ((p.S + L::Q_ROWS - 1) / L::Q_ROWS);
+  flash_bwd_dq_bf16_pair<DK, DV><<<blocks, 256, L::BYTES, stream>>>(tm_q, tm_do, tm_kr, tm_vr, p);
   return (int)cudaGetLastError();
 }
 
@@ -1076,6 +1287,11 @@ int launch_bf16(const Params& p, const long long* layout, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// the head dims whose bf16 dQ runs the two-warpgroup kernel
+constexpr bool dq_pair(int dk, int dv) {
+  return (dk == 192 && dv == 128) || (dk == 256 && dv == 256);
+}
+
 // (256, 256) and (192, 128): the dQ kernel, then the two-warpgroup dK/dV
 // kernel over sh.n head shares and, for more than one, the pass that sums
 // them
@@ -1084,7 +1300,12 @@ int launch_bf16_split(const Params& p, const Shares& sh, const long long* layout
                       cudaStream_t stream) {
   CUtensorMap tm_q, tm_do, tm_k, tm_v;
   int err = encode_maps<DK, DV>(p, layout, tm_q, tm_do, tm_k, tm_v);
-  if (!err) err = launch_dq_bf16<DK, DV>(p, tm_q, tm_do, tm_k, tm_v, stream);
+  if (!err) {
+    if constexpr (dq_pair(DK, DV))
+      err = launch_dq_pair<DK, DV>(p, layout, tm_q, tm_do, tm_k, tm_v, stream);
+    else
+      err = launch_dq_bf16<DK, DV>(p, tm_q, tm_do, tm_k, tm_v, stream);
+  }
   if (err) return err;
   static uint32_t opted = 0;   // a bit per device
   err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_bf16_split<DK, DV>),
@@ -1122,8 +1343,11 @@ int launch_simt_either(const Params& p, cudaStream_t stream, int is_bf16) {
 // q, dq: (B, S, H, DK); o, dout: (B, S, H, DV); k, dk: (B, Sk, KV, DK);
 // v, dv: (B, Sk, KV, DV); all contiguous, one dtype (bf16 if is_bf16 else
 // fp32).  lse: (B, H, S) fp32 from the forward.  scratch: 2 * B * H * s_pad
-// fp32, s_pad = S rounded up to 64.  layout: for bf16 at the wgmma head
-// dims ((64, 64), (128, 128), (256, 256), (192, 128)), the TMA layouts of
+// fp32, where s_pad is S rounded up to the dQ block's rows (128 where the
+// bf16 dQ kernel is two warpgroups, else 64), as
+// kernels/flash_attention.py:bwd_scratch_rows computes it; another s_pad
+// is refused.  layout: for bf16 at the wgmma head dims ((64, 64), (128,
+// 128), (256, 256), (192, 128)), the TMA layouts of
 // q, k, v and dout with boxes of 64 rows, 11 values each, as
 // kernels/flash_attention.py:tma_layout computes them; unused otherwise.
 // shares: the head shares of the two-warpgroup dK/dV kernel (bf16 at
@@ -1137,9 +1361,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    void* dv, float* scratch, int B, int S, int Sk, int H, int KV,
                                    int DK, int DV, int causal, int window, int is_bf16,
                                    void* stream, const long long* layout, float* part,
-                                   int shares) {
+                                   int shares, int s_pad) {
   const float scale = 1.f / sqrtf((float)DK);
-  const int s_pad = (S + ROWS - 1) / ROWS * ROWS;
+  const int pad_rows = is_bf16 && dq_pair(DK, DV) ? 2 * ROWS : ROWS;
+  if (s_pad < S || s_pad % pad_rows) return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, dout, lse, dq, dk, dv, scratch, scratch + (size_t)B * H * s_pad,
            B, S, Sk, H, KV, causal, window, scale, LOG2E * scale, s_pad};
   const Shares sh{part, shares};

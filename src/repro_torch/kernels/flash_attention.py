@@ -61,6 +61,46 @@ BOX_COLS = 64
 # splits each kv tile's (head, q tile) items into head shares over blocks
 SPLIT_HEAD_DIMS = frozenset({(256, 256), (192, 128)})
 BWD_SPLIT_WAVES = 2
+# the bf16 head dims whose dQ kernel is two warpgroups of 64 q rows, 128 q
+# rows of one head a block over one ring of K/V stages
+# (csrc/flash_attention_bwd.cu: flash_bwd_dq_bf16_pair, routed there by
+# dq_pair); every other route's dQ block has BWD_BOX_ROWS q rows
+DQ_PAIR_HEAD_DIMS = frozenset({(192, 128), (256, 256)})
+# shared memory one block can use on the H100
+SMEM_BYTES = 232448
+
+
+class DqTiles(NamedTuple):
+    """A bf16 dQ kernel's tiles: q rows a block, kv rows a K/V stage,
+    stages, and the shared bytes they take (with 1024 for alignment and the
+    mbarriers), as csrc/flash_attention_bwd.cu's DqSmem and PairSmem lay
+    them out."""
+    rows: int
+    kv_rows: int
+    stages: int
+    smem_bytes: int
+
+
+def bwd_dq_tiles(dk: int, dv: int) -> DqTiles:
+    """The bf16 dQ kernel's tiles at head dims (dk, dv): on the
+    two-warpgroup route each warpgroup's Q and dO (64 rows) stay, and three
+    stages of K and V stream, 32 kv rows a stage at D 256 (where 128 q rows
+    of Q and dO take 128 KB), else 64; on the one-warpgroup route 64 q rows
+    and two 64-row stages."""
+    if (dk, dv) in DQ_PAIR_HEAD_DIMS:
+        rows, kv_rows, stages = 2 * BWD_BOX_ROWS, 32 if dk == 256 else BWD_BOX_ROWS, 3
+    else:
+        rows, kv_rows, stages = BWD_BOX_ROWS, BWD_BOX_ROWS, 2
+    nbytes = 1024 + 2 * rows * (dk + dv) + 2 * stages * kv_rows * (dk + dv) + 8 * (1 + 2 * stages)
+    return DqTiles(rows, kv_rows, stages, nbytes)
+
+
+def bwd_scratch_rows(s: int, dtype: torch.dtype, dk: int, dv: int) -> int:
+    """Rows a (batch, head) of the backward's Delta / lse scratch holds: S
+    rounded up to the dQ block's q rows, since a block stores its every row
+    (0 past S); the dK/dV kernel reads whole 64-row tiles of it."""
+    rows = bwd_dq_tiles(dk, dv).rows if tma_route(dtype, dk, dv) else BWD_BOX_ROWS
+    return -(-s // rows) * rows
 
 
 class TmaLayout(NamedTuple):
@@ -167,7 +207,7 @@ def _bwd_fn():
     fn = build.library("flash_attention_bwd").flash_attention_bwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int])
+                       + [ctypes.c_int] * 2)
         fn.restype = ctypes.c_int
     return fn
 
@@ -276,7 +316,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             shares = bwd_head_shares(b, kvh, h // kvh, sk, _sm_count(q.device.index))
     dq, dk, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # Delta and lse in base 2 for the dK/dV kernel, written by the dQ kernel
-    s_pad = -(-s // BWD_BOX_ROWS) * BWD_BOX_ROWS
+    s_pad = bwd_scratch_rows(s, q.dtype, d, dv)
     scratch = torch.empty(2 * b * h * s_pad, dtype=torch.float32, device=q.device)
     if shares > 1:   # the head shares' partial dK and dV, summed by a pass of their own
         part = torch.empty(bwd_partial_numel(shares, b, sk, kvh, d, dv), dtype=torch.float32,
@@ -286,7 +326,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(),
                         scratch.data_ptr(), b, s, sk, h, kvh, d, dv, int(causal), int(window),
                         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-                        layout, None if part is None else part.data_ptr(), shares)
+                        layout, None if part is None else part.data_ptr(), shares, s_pad)
     if err < 0:
         raise RuntimeError(f"flash_attention_bwd: TMA tensor map not encoded (code {err})")
     if err:

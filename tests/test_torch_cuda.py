@@ -543,6 +543,14 @@ def test_cuda_flash_backward_every_head_dim_matches_plain(dtype, d, dv, h, kv, c
 SPLIT_BWD_CASES = [(1, 2560, 16, 1, 256, 256, 2048), (1, 1280, 20, 4, 256, 256, 300),
                    (1, 100, 4, 1, 256, 256, 0), (2, 1000, 8, 8, 192, 128, 0),
                    (1, 2880, 16, 2, 192, 128, 500), (1, 100, 6, 2, 192, 128, 40)]
+# the two-warpgroup dQ kernel's 128-row blocks (SPLIT_BWD_CASES hold D 256
+# at S 2560 with its window and at S 100 too): 13 (batch, head) units,
+# not a multiple of its block order's groups of 8; S 64, where the second
+# warpgroup's rows all lie past S; a window of 100 that crosses a block's
+# two halves, so that they see different kv tiles
+DQ_PAIR_CASES = [(1, 1000, 13, 13, 192, 128, 0), (2, 64, 8, 8, 192, 128, 0),
+                 (1, 200, 8, 8, 192, 128, 100), (2, 64, 4, 1, 256, 256, 0),
+                 (1, 200, 4, 1, 256, 256, 100)]
 
 
 def _split_bwd_inputs(b, s, h, kv, d, dv, seed):
@@ -553,12 +561,12 @@ def _split_bwd_inputs(b, s, h, kv, d, dv, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,kv,d,dv,window", SPLIT_BWD_CASES)
+@pytest.mark.parametrize("b,s,h,kv,d,dv,window", SPLIT_BWD_CASES + DQ_PAIR_CASES)
 def test_cuda_flash_backward_split_matches_autograd(b, s, h, kv, d, dv, window):
     """The two-warpgroup dK/dV kernel (S^T and dP^T once a block, P^T and
     dS^T through shared memory, head shares summed by a pass of their own)
-    against autograd of the plain forward in fp32: 5e-2 (max |out - ref| /
-    (1 + |ref|))."""
+    and the two-warpgroup dQ kernel (128 q rows a block) against autograd
+    of the plain forward in fp32: 5e-2 (max |out - ref| / (1 + |ref|))."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     q, k, v, do = _split_bwd_inputs(b, s, h, kv, d, dv, seed=31)
@@ -574,7 +582,7 @@ def test_cuda_flash_backward_split_matches_autograd(b, s, h, kv, d, dv, window):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,kv,d,dv,window", SPLIT_BWD_CASES)
+@pytest.mark.parametrize("b,s,h,kv,d,dv,window", SPLIT_BWD_CASES + DQ_PAIR_CASES)
 def test_cuda_flash_backward_split_is_deterministic(b, s, h, kv, d, dv, window):
     """Two launches give bit-equal dq, dk and dv: the head shares are
     summed in their order, with no atomics."""
