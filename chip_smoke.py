@@ -1427,7 +1427,7 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
     from repro_torch.kernels.flash_attention import (bwd_head_shares, flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
     from repro_torch.kernels.ref import flash_attention_lse_ref, flash_attention_ref
-    from repro_torch.roofline.cost import attention_bwd_bound
+    from repro_torch.roofline.cost import attention_bwd_bound, attention_bwd_dq_bound
 
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
@@ -1447,6 +1447,10 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
         ("recurrentgemma_train_fp32", 2, 1024, 1024, 16, 1, 256, 256, torch.float32, True, 768),
         ("mla_train", 2, 1024, 1024, 128, 128, 192, 128, torch.bfloat16, True, 0),
         ("mla_train_fp32", 1, 512, 512, 128, 128, 192, 128, torch.float32, True, 0),
+        # the two-warpgroup dQ kernel's ragged edge at MLA: S 1000 leaves the
+        # last 128-row block's second half partly past S, and 13 (batch,
+        # head) units are not a multiple of its block order's groups of 8
+        ("mla_ragged_train", 1, 1000, 1000, 13, 13, 192, 128, torch.bfloat16, True, 0),
         ("seamless_cross_train", 4, 256, 1024, 16, 16, 64, 64, torch.bfloat16, False, 0),
         # the smoke configs' head dims, on the SIMT kernels in both dtypes
         ("smoke_d16_train", 2, 64, 64, 4, 2, 16, 16, torch.bfloat16, True, 0),
@@ -1511,12 +1515,20 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
                                                                 causal, window, dv=dv, sk=sk)
         row.update(bound_ms=bound_ms, bound_by=bound_by, bound_frac=bound_ms / row["ms"],
                    flops=flops, bytes=nbytes, tflops=flops / (row["ms"] * 1e-3) / 1e12)
-        if name in ("recurrentgemma_train", "mla_train"):
-            # the two-warpgroup dK/dV kernel's shapes: device ms by kernel,
-            # its head shares, and the train step's own launch shape, B 1
-            # (four microbatches of B 4): the first row of the same inputs
-            row["kernel_device_ms"] = flash_bwd_split_ms(kernels_device_ms(bwd, iters=10))
+        if name in ("recurrentgemma_train", "mla_train", "mla_ragged_train"):
+            # the two-warpgroup dQ and dK/dV kernels' shapes: device ms by
+            # kernel, the dQ kernel's own bound and its name, the dK/dV
+            # kernel's head shares
+            by_kernel = kernels_device_ms(bwd, iters=10)
+            row["kernel_device_ms"] = flash_bwd_split_ms(by_kernel)
+            row["dq_kernels"] = sorted(n for n in by_kernel if "flash_bwd_dq" in n)
             row["shares"] = bwd_head_shares(b, kv, h // kv, sk, sm_count)
+            row["dq_bound_ms"], row["dq_bound_by"], _, _ = attention_bwd_dq_bound(
+                b, s, h, kv, d, str(dtype), causal, window, dv=dv, sk=sk)
+            row["dq_bound_frac"] = row["dq_bound_ms"] / row["kernel_device_ms"]["dq"]
+        if name in ("recurrentgemma_train", "mla_train"):
+            # the train step's own launch shape, B 1 (four microbatches of B
+            # 4): the first row of the same inputs
 
             def bwd_b1():
                 return flash_attention_bwd_cuda(q[:1], k[:1], v[:1], o[:1], lse[:1], do[:1], **kw)
@@ -1535,6 +1547,9 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
             b1.update(device_ms=sum(by_kernel.values()),
                       kernel_device_ms=flash_bwd_split_ms(by_kernel),
                       bound_frac=b1_bound / b1["ms"])
+            b1["dq_bound_ms"], b1["dq_bound_by"], _, _ = attention_bwd_dq_bound(
+                1, s, h, kv, d, str(dtype), causal, window, dv=dv, sk=sk)
+            b1["dq_bound_frac"] = b1["dq_bound_ms"] / b1["kernel_device_ms"]["dq"]
             row["b1"] = b1
             del first, again
         emit("flash_bwd_vs_plain", **row)
@@ -1542,6 +1557,11 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
         check(worst <= tol and row["finite"],
               f"flash backward {name}: max |grad - ref| / (1 + |ref|) = {worst} > {tol}")
         check(row["bit_equal"], f"flash backward {name}: two launches differ")
+        if "dq_kernels" in row:   # bf16 at (256, 256) and (192, 128): the two-warpgroup dQ kernel
+            check(row["dq_kernels"] and all("flash_bwd_dq_bf16_pair" in k
+                                            for k in row["dq_kernels"]),
+                  f"flash backward {name}: dQ ran {row['dq_kernels']}, not the two-warpgroup "
+                  "kernel")
         if "b1" in row:
             worst = max(row["b1"]["max_scaled_err"].values())
             check(worst <= tol and row["b1"]["finite"],
@@ -3012,8 +3032,9 @@ def main() -> int:
         c = next(c for c in bwd_cases if c["case"] == case)
         table[1][key] = {k: c[k] for k in (
             "case", "shape", "dv", "window", "max_abs_err", "max_scaled_err", "tol", "ms",
-            "device_ms", "kernel_device_ms", "shares", "b1", "plain_ms", "bound_ms", "bound_by",
-            "bound_frac", "library_ms", "library_device_ms", "vs_library", "library_refused")}
+            "device_ms", "kernel_device_ms", "dq_bound_ms", "dq_bound_by", "dq_bound_frac",
+            "shares", "b1", "plain_ms", "bound_ms", "bound_by", "bound_frac", "library_ms",
+            "library_device_ms", "vs_library", "library_refused")}
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -113,6 +113,25 @@ def attention_bwd_bound(b: int, s: int, h: int, kv: int, d: int, dtype, causal: 
     return _bound(flops, nbytes, dtype)
 
 
+def attention_bwd_dq_bound(b: int, s: int, h: int, kv: int, d: int, dtype, causal: bool,
+                           window: int, *, dv: int | None = None,
+                           sk: int | None = None) -> tuple[float, str, float, float]:
+    """(bound ms, bound_by, flops, bytes) of the attention gradient's dQ
+    kernel alone on these inputs (as :func:`attention_bwd_bound`): three
+    products over the visible pairs, 2 FLOPs a MAC, q k and dS k over d and
+    dO v over dv; q, k, v, o, dO and lse read once, dQ written once, and
+    the Delta and base-2 lse it keeps for the dK/dV kernel (fp32, a row
+    each) written once."""
+    dv = d if dv is None else dv
+    sk = s if sk is None else sk
+    pairs = visible_pairs(s, sk, causal, window)
+    flops = 2.0 * b * h * (2 * d + dv) * pairs
+    es = 2 if dtype == "torch.bfloat16" else 4
+    nbytes = float(es * (b * s * h * (2 * d + 2 * dv) + b * sk * kv * (d + dv))
+                   + 4 * 3 * b * h * s)
+    return _bound(flops, nbytes, dtype)
+
+
 def ssd_bound(b: int, l: int, h: int, p: int, n: int, q: int, dtype,
               a_dtype) -> tuple[float, str, float, float]:
     """(bound ms, bound_by, flops, bytes) of one SSD scan on these inputs.
