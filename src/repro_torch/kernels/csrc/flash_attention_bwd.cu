@@ -13,6 +13,8 @@
 //   flash_bwd_dq    grid (B*H, q tiles):  Delta = rowsum(dO * O) and lse in
 //                   base 2, stored for the second kernel; over the kv tiles
 //                   dP = dO V^T, dS = P * (dP - Delta), dQ += dS K / sqrt(D)
+//                   (at (256, 256) and (192, 128) flash_bwd_dq_bf16_pair,
+//                   128 q rows a block, below)
 //   flash_bwd_dkdv  grid (B*KV, kv tiles): over the q heads of the kv head's
 //                   GQA group and their q tiles dV += P^T dO,
 //                   dK += dS^T Q / sqrt(D), so the group's sum is taken in
@@ -38,12 +40,12 @@
 //    tile MN-major.  P and dS are rounded to bf16 as product operands, as
 //    the forward rounds P; gradients accumulate in fp32 registers and are
 //    written once in the inputs' dtype.
-//  * A block is one warpgroup: its 64 kv rows (dK/dV) or 64 q rows (dQ)
-//    stay in shared memory, and the other side streams through a ring of
-//    64-row stages by TMA (128-byte swizzle, 64-column boxes), with a
-//    "full" mbarrier per stage counting the TMA's bytes and an "empty"
-//    one taking every thread's arrival; one elected thread keeps the ring
-//    STAGES - 1 tiles ahead.  The dK/dV stage also brings the q tile's lse
+//  * At D 64 and 128 a block is one warpgroup: its 64 kv rows (dK/dV) or
+//    64 q rows (dQ) stay in shared memory, and the other side streams
+//    through a ring of 64-row stages by TMA (128-byte swizzle, 64-column
+//    boxes), with a "full" mbarrier per stage counting the TMA's bytes and
+//    an "empty" one taking every thread's arrival; one elected thread keeps
+//    the ring STAGES - 1 tiles ahead.  The dK/dV stage also brings the q tile's lse
 //    and Delta (a 256-byte bulk copy each from a scratch padded to whole
 //    tiles, which the dQ kernel writes).  Within a tile, exp2 of S runs
 //    while dP is in flight, and the dV product while dS is formed; the
@@ -51,20 +53,22 @@
 //    tile's dV and dK products finish.
 //  * Registers decide occupancy, as in the forward: the dQ kernel keeps to
 //    128 at D 64, so four blocks share an SM, the dK/dV kernel (dK, dV,
-//    S^T and dP^T in registers) two.  Measured slower (PERF.md §6): two
+//    S^T and dP^T in registers) two.  Measured slower there (PERF.md §6): two
 //    warpgroups a block, deeper rings, three dK/dV blocks an SM.
 //  * TMA zero-fills rows past S or Sk, so ragged lengths need no padding
 //    copy.  Masks are tested on edge tiles only (the causal diagonal, the
 //    window's ends, the ragged ends); tiles with no visible pair are
 //    neither loaded nor computed.
 //  * Heaviest blocks first: under the causal mask the first kv tiles
-//    (dK/dV) and the last q tiles (dQ) run longest, and launch first.
+//    (dK/dV) and the last q tiles (dQ) run longest, and launch first
+//    (within each group of ORDER_UNITS (batch, head) units at D 256 and
+//    (192, 128)).
 //  * GQA by index through the tensor maps: no copy of K or V.
 // fp32 inputs take SIMT kernels, one warp a row, exact in fp32.
 //
 // Head dims: (64, 64) and (128, 128) as above; (256, 256) (recurrentgemma-9b)
 // and (192, 128) (deepseek-v3's multi-head latent attention: q/k 192, v
-// 128) in bf16 take the same dQ kernel and a dK/dV kernel of two
+// 128) in bf16 take a dQ kernel and a dK/dV kernel of two
 // warpgroups (flash_bwd_dkdv_bf16_split): at D 256 one warpgroup's dK and
 // dV of 64 kv rows are 2 x 64 x 256 / 128 = 256 fp32 registers a thread,
 // past the 255 limit.  So each warpgroup owns whole 64-column boxes of dK
@@ -88,12 +92,39 @@
 // their order, scales dK and rounds once: deterministic, no atomics.
 // Blocks go in groups of eight (batch, kv head, share) units, kv tile by
 // kv tile, so that the blocks in flight read a few heads' q and dO rows
-// from L2 (ORDER_UNITS; MLA's 128 kv heads otherwise miss it).  The
-// dQ kernel keeps dQ (DK / 2 a thread), S and dP: 192 registers at D 256.
+// from L2 (ORDER_UNITS; MLA's 128 kv heads otherwise miss it).
+// The dQ kernel there (flash_bwd_dq_bf16_pair): the one-warpgroup kernel
+// ran one block an SM at these widths (121-192 KB of shared memory), a
+// serial chain a kv tile (S and dP, exp2, dS, the dQ product), and its
+// (batch, head)-fastest grid made a wave's blocks read 132 MLA heads' K
+// and V, past L2.  Now a block holds 128 q rows of one head: two
+// warpgroups, each with its own 64 rows of Q and dO, running the whole
+// m64n64 S and dP (m64n32 at D 256) and the m64n192 (m64n256) dQ product,
+// over one ring of three K/V stages both read (64 kv rows at (192, 128),
+// 206 KB; 32 at D 256, where Q and dO of 128 rows take 128 KB, 230 KB).
+// Each K/V tile so serves 128 q rows, the two chains interleave on the
+// tensor cores, and a tile's dQ product stays in flight while the next
+// tile's S and dP are issued.  The ring streams the union of the two
+// warpgroups' kv tiles; a warpgroup that sees no key of a tile (the first
+// one's last causal tile, a window's edge, rows all past S) waits for it
+// and releases it all the same, so that each arrival on a stage's "empty"
+// counts toward that tile's phase.  Blocks go in groups of ORDER_UNITS
+// (batch, head) units, q tile by q tile, heaviest first; the Delta / lse
+// scratch is padded to 128 rows (kernels/flash_attention.py:
+// bwd_scratch_rows).  What bounds it on an H100 80GB HBM3 at 700 W
+// (PERF.md §6): at MLA's training shape (B 2, S 1024, 128 heads) its own
+// bound is bytes, 0.151 ms, and it takes 0.374 ms; cut-out probes read
+// 0.231 ms with no tile computed (prologue, K/V stream, store: one block
+// an SM overlaps none of them), 0.271 without the dQ product, 0.308
+// without exp2.  So the Delta prologue reads a warp's 16 rows at once.
+// Measured slower: a producer warp of its own (288 threads, which ptxas
+// held to 168 registers, spilling) and clusters of two CTAs that share
+// each K/V tile by TMA multicast (each ring then waits on both CTAs).
 // At (192, 128) the two products differ in depth (S over 192, dP over
 // 128), dO and V have tensor maps of their own (two boxes against q's and
 // k's three), Delta sums over v's 128 columns, and the scale is
-// 1 / sqrt(192).  dQ += dS K is one m64n192k16 a k-step.
+// 1 / sqrt(192).  dQ += dS K is one m64n192k16 a k-step; at D 256 the K
+// and V maps are encoded again with 32-row boxes for the dQ kernel.
 // The smoke configs' head dims, (16, 16) and (24, 16), take the SIMT
 // kernels in both dtypes (T, the element type in memory; fp32 arithmetic):
 // their tiles are not whole 64-column TMA boxes.  The route is chosen by
@@ -131,7 +162,7 @@ struct Params {
   int causal, window;
   float scale;            // 1 / sqrt(DK)
   float scale_log2;       // log2(e) / sqrt(DK): scores in base 2
-  int s_pad;              // S rounded up to ROWS
+  int s_pad;              // S rounded up to the dQ block's rows (64; 128 in pairs)
 };
 
 // the two-warpgroup dK/dV kernel's head shares, an argument of its own:
@@ -186,16 +217,16 @@ __device__ __forceinline__ void store_rows(bf16* base, size_t stride, int row0, 
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ: wgmma, TMA, one warpgroup of 64 q rows
+// bf16 dQ at D 64 and 128: wgmma, TMA, one warpgroup of 64 q rows
 // ---------------------------------------------------------------------------
 // Shared memory: Q and dO, then STAGES K tiles and STAGES V tiles (64 rows
 // each: DK / 64 or DV / 64 boxes of 64 rows x 128 bytes), the mbarriers.
 // At D 64 the kernel keeps to 128 registers, so four blocks share an SM;
-// at D 256 (192 KB) and (192, 128) (121 KB) one block takes an SM.
+// at D 128 two.
 template <int DK, int DV>
 struct DqSmem {
   static constexpr int STAGES = 2;
-  static constexpr int BLOCKS_PER_SM = DK == 64 ? 4 : (DK == 128 ? 2 : 1);
+  static constexpr int BLOCKS_PER_SM = DK == 64 ? 4 : 2;
   static constexpr uint32_t K_BYTES = ROWS * DK * 2;   // a Q or a K tile
   static constexpr uint32_t V_BYTES = ROWS * DV * 2;   // a dO or a V tile
   static constexpr size_t BYTES =
@@ -454,9 +485,9 @@ __global__ void __launch_bounds__(256, 1)
   // rows, kept for this thread's rows and stored (0 past S) for the dK/dV
   // kernel; the scratch is padded to whole blocks of 128 rows.  One block
   // takes an SM, so this prologue overlaps no compute: each lane reads
-  // DV / 32 columns of all 16 rows at once (one row after another measured
-  // 0.11 ms slower at MLA), rows past S read row S - 1 and count 0, and
-  // lane r < 16 stores row r's values
+  // DV / 32 columns of all 16 rows at once (one row after another took
+  // 0.11 ms more at MLA's B 2, H100 80GB HBM3 at 700 W), rows past S read
+  // row S - 1 and count 0, and lane r < 16 stores row r's values
   const size_t q_stride = (size_t)p.H * DK, o_stride = (size_t)p.H * DV;
   const size_t q_off = ((size_t)b * p.S * p.H + h) * DK;
   const size_t o_off = ((size_t)b * p.S * p.H + h) * DV;
@@ -1302,25 +1333,15 @@ int launch_bf16(const Params& p, const long long* layout, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// the head dims whose bf16 dQ runs the two-warpgroup kernel
-constexpr bool dq_pair(int dk, int dv) {
-  return (dk == 192 && dv == 128) || (dk == 256 && dv == 256);
-}
-
-// (256, 256) and (192, 128): the dQ kernel, then the two-warpgroup dK/dV
-// kernel over sh.n head shares and, for more than one, the pass that sums
-// them
+// (256, 256) and (192, 128): the two-warpgroup dQ kernel, then the
+// two-warpgroup dK/dV kernel over sh.n head shares and, for more than one,
+// the pass that sums them
 template <int DK, int DV>
 int launch_bf16_split(const Params& p, const Shares& sh, const long long* layout,
                       cudaStream_t stream) {
   CUtensorMap tm_q, tm_do, tm_k, tm_v;
   int err = encode_maps<DK, DV>(p, layout, tm_q, tm_do, tm_k, tm_v);
-  if (!err) {
-    if constexpr (dq_pair(DK, DV))
-      err = launch_dq_pair<DK, DV>(p, layout, tm_q, tm_do, tm_k, tm_v, stream);
-    else
-      err = launch_dq_bf16<DK, DV>(p, tm_q, tm_do, tm_k, tm_v, stream);
-  }
+  if (!err) err = launch_dq_pair<DK, DV>(p, layout, tm_q, tm_do, tm_k, tm_v, stream);
   if (err) return err;
   static uint32_t opted = 0;   // a bit per device
   err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_bf16_split<DK, DV>),
@@ -1378,13 +1399,13 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    void* stream, const long long* layout, float* part,
                                    int shares, int s_pad) {
   const float scale = 1.f / sqrtf((float)DK);
-  const int pad_rows = is_bf16 && dq_pair(DK, DV) ? 2 * ROWS : ROWS;
+  const bool split = is_bf16 && ((DK == 256 && DV == 256) || (DK == 192 && DV == 128));
+  const int pad_rows = split ? 2 * ROWS : ROWS;   // the dQ kernel's block
   if (s_pad < S || s_pad % pad_rows) return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, dout, lse, dq, dk, dv, scratch, scratch + (size_t)B * H * s_pad,
            B, S, Sk, H, KV, causal, window, scale, LOG2E * scale, s_pad};
   const Shares sh{part, shares};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool split = is_bf16 && ((DK == 256 && DV == 256) || (DK == 192 && DV == 128));
   if (shares < 1 || shares > H / KV || (shares > 1 && (!split || part == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (DK == 16 && DV == 16) return launch_simt_either<16, 16>(p, st, is_bf16);

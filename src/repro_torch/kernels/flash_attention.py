@@ -15,11 +15,12 @@ design does about it.
 :func:`flash_attention_bwd_cuda` launches the gradient's two kernels
 (``csrc/flash_attention_bwd.cu``) from the forward's output and per-row
 logsumexp, at every head-dim pair the forward takes.  At (256, 256) and
-(192, 128) in bf16 the dK/dV kernel may split each kv tile's q heads
-into shares over blocks (:func:`bwd_head_shares`, from the shapes and the
-card's SM count), and a third kernel then sums the shares' fp32 partials
-in a fixed order.  bf16 at the models'
-head dims goes to the wgmma + TMA kernels, fp32 and the smoke configs'
+(192, 128) in bf16 the dQ kernel takes 128 q rows a block (its Delta /
+lse scratch padded to them, :func:`bwd_scratch_rows`), and the dK/dV
+kernel may split each kv tile's q heads into shares over blocks
+(:func:`bwd_head_shares`, from the shapes and the card's SM count), and a
+third kernel then sums the shares' fp32 partials in a fixed order.  bf16
+at the models' head dims goes to the wgmma + TMA kernels, fp32 and the smoke configs'
 head dims (16, 16) and (24, 16) in either dtype to SIMT kernels: the route
 follows from dtype and head dims (:func:`tma_route`), never from a failure
 of another route.  The public entry is :func:`repro_torch.kernels.ops.flash_attention`
@@ -55,19 +56,15 @@ KV_TILES = {(64, 64): (128, 64), (128, 128): (128, 64), (192, 128): (128, 64),
 BWD_BOX_ROWS = 64
 # columns of one TMA box: 128 bytes of bf16, the span of the 128-byte swizzle
 BOX_COLS = 64
-# the bf16 head dims whose dK/dV kernel is two warpgroups of one 64-row kv
-# tile, one block an SM (csrc/flash_attention_bwd.cu:
-# flash_bwd_dkdv_bf16_split); below BWD_SPLIT_WAVES waves of such blocks it
-# splits each kv tile's (head, q tile) items into head shares over blocks
+# the bf16 head dims whose backward kernels are two warpgroups a block, one
+# block an SM (csrc/flash_attention_bwd.cu): the dK/dV kernel over one
+# 64-row kv tile (flash_bwd_dkdv_bf16_split), which below BWD_SPLIT_WAVES
+# waves of such blocks splits each kv tile's (head, q tile) items into head
+# shares over blocks, and the dQ kernel over 128 q rows of one head
+# (flash_bwd_dq_bf16_pair); every other route's dQ block has BWD_BOX_ROWS q
+# rows
 SPLIT_HEAD_DIMS = frozenset({(256, 256), (192, 128)})
 BWD_SPLIT_WAVES = 2
-# the bf16 head dims whose dQ kernel is two warpgroups of 64 q rows, 128 q
-# rows of one head a block over one ring of K/V stages
-# (csrc/flash_attention_bwd.cu: flash_bwd_dq_bf16_pair, routed there by
-# dq_pair); every other route's dQ block has BWD_BOX_ROWS q rows
-DQ_PAIR_HEAD_DIMS = frozenset({(192, 128), (256, 256)})
-# shared memory one block can use on the H100
-SMEM_BYTES = 232448
 
 
 class DqTiles(NamedTuple):
@@ -87,11 +84,11 @@ def bwd_dq_tiles(dk: int, dv: int) -> DqTiles:
     stages of K and V stream, 32 kv rows a stage at D 256 (where 128 q rows
     of Q and dO take 128 KB), else 64; on the one-warpgroup route 64 q rows
     and two 64-row stages."""
-    if (dk, dv) in DQ_PAIR_HEAD_DIMS:
+    if (dk, dv) in SPLIT_HEAD_DIMS:
         rows, kv_rows, stages = 2 * BWD_BOX_ROWS, 32 if dk == 256 else BWD_BOX_ROWS, 3
     else:
         rows, kv_rows, stages = BWD_BOX_ROWS, BWD_BOX_ROWS, 2
-    nbytes = 1024 + 2 * rows * (dk + dv) + 2 * stages * kv_rows * (dk + dv) + 8 * (1 + 2 * stages)
+    nbytes = 1024 + 2 * (rows + stages * kv_rows) * (dk + dv) + 8 * (1 + 2 * stages)
     return DqTiles(rows, kv_rows, stages, nbytes)
 
 

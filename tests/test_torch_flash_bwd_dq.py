@@ -27,15 +27,16 @@ import pytest
 import torch
 
 from repro.models.layers import blockwise_mha as jax_blockwise_mha
-from repro_torch.kernels.flash_attention import (BWD_BOX_ROWS, DQ_PAIR_HEAD_DIMS, HEAD_DIMS,
-                                                 SIMT_HEAD_DIMS, SMEM_BYTES, bwd_dq_tiles,
-                                                 bwd_scratch_rows)
+from repro_torch.kernels.flash_attention import (BWD_BOX_ROWS, HEAD_DIMS, SIMT_HEAD_DIMS,
+                                                 SPLIT_HEAD_DIMS, bwd_dq_tiles, bwd_scratch_rows)
 from repro_torch.kernels.ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
                                      flash_attention_ref)
 from repro_torch.roofline.cost import attention_bwd_dq_bound, visible_pairs
 
 # fp32: the same function summed in another order
 TOL = 1e-4
+# shared memory one block can use on the H100
+SMEM_BYTES = 232448
 TMA_HEAD_DIMS = sorted(HEAD_DIMS - SIMT_HEAD_DIMS)
 CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 
@@ -90,7 +91,7 @@ def test_scratch_holds_every_row_a_dq_block_writes(s, d, dv, dtype):
     rows of the last block end inside it; the dK/dV kernel bulk-loads whole
     64-row tiles of it.  128-row blocks on the two-warpgroup route only."""
     pad = bwd_scratch_rows(s, dtype, d, dv)
-    pair = dtype == torch.bfloat16 and (d, dv) in DQ_PAIR_HEAD_DIMS
+    pair = dtype == torch.bfloat16 and (d, dv) in SPLIT_HEAD_DIMS
     rows = 2 * BWD_BOX_ROWS if pair else BWD_BOX_ROWS
     if dtype == torch.bfloat16 and (d, dv) not in SIMT_HEAD_DIMS:
         assert bwd_dq_tiles(d, dv).rows == rows
@@ -111,7 +112,7 @@ def test_dq_tiles_fit_shared_memory(d, dv):
     assert t.smem_bytes <= SMEM_BYTES
     tiles = (t.rows + t.stages * t.kv_rows) * (d + dv) * 2   # bf16 Q, dO and K/V stages
     assert t.smem_bytes == 1024 + tiles + 8 * (1 + 2 * t.stages)
-    if (d, dv) in DQ_PAIR_HEAD_DIMS:
+    if (d, dv) in SPLIT_HEAD_DIMS:
         assert (t.rows, t.stages) == (128, 3)
         assert t.smem_bytes == {(192, 128): 205880, (256, 256): 230456}[(d, dv)]
     else:
@@ -119,17 +120,19 @@ def test_dq_tiles_fit_shared_memory(d, dv):
 
 
 def test_csrc_routes_the_same_head_dims():
-    """The C source's ``dq_pair`` names the head dims ``DQ_PAIR_HEAD_DIMS``
-    does, and its ``PairSmem`` the stages and kv rows of ``bwd_dq_tiles``:
-    the launcher pads the scratch by them."""
+    """The C entry's two-warpgroup route (``split``, which also sets the
+    scratch's padding it accepts) names the head dims ``SPLIT_HEAD_DIMS``
+    does, and ``PairSmem`` the stages and kv rows of ``bwd_dq_tiles``: the
+    launcher pads the scratch by them."""
     src = CSRC.read_text()
-    body = re.search(r"constexpr bool dq_pair\(int dk, int dv\) \{(.*?)\}", src, re.S).group(1)
-    pairs = {(int(a), int(b)) for a, b in re.findall(r"dk == (\d+) && dv == (\d+)", body)}
-    assert pairs == set(DQ_PAIR_HEAD_DIMS)
+    body = re.search(r"const bool split = is_bf16 && (.*?);", src, re.S).group(1)
+    pairs = {(int(a), int(b)) for a, b in re.findall(r"DK == (\d+) && DV == (\d+)", body)}
+    assert pairs == set(SPLIT_HEAD_DIMS)
+    assert "const int pad_rows = split ? 2 * ROWS : ROWS;" in src
     smem = re.search(r"struct PairSmem \{(.*?)\};", src, re.S).group(1)
     assert re.search(r"KR = DK == 256 \? 32 : ROWS;", smem)
     assert re.search(r"STAGES = 3;", smem)
-    for d, dv in DQ_PAIR_HEAD_DIMS:
+    for d, dv in SPLIT_HEAD_DIMS:
         assert bwd_dq_tiles(d, dv).kv_rows == (32 if d == 256 else BWD_BOX_ROWS)
 
 
