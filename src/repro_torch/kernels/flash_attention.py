@@ -10,7 +10,9 @@ latent attention: q/k dim 192, v dim 128); the output has v's width.
 The bf16 kernel loads its tiles by TMA: this module computes the tensor
 maps' layouts (:func:`tma_layout`) and the C side encodes them.  The
 source's header says what bounds the kernel on the H100 and what its
-design does about it.
+design does about it.  bf16 at q/k 192, v 128 (deepseek-v3's MLA) takes
+a kernel of its own, ``csrc/flash_attention_fwd_ws.cu`` (:func:`ws_route`,
+its tiles :func:`fwd_ws_tiles`).
 
 :func:`flash_attention_bwd_cuda` launches the gradient's two kernels
 (``csrc/flash_attention_bwd.cu``) from the forward's output and per-row
@@ -44,6 +46,9 @@ _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 SIMT_HEAD_DIMS = frozenset({(16, 16), (24, 16)})
 HEAD_DIMS = frozenset({(64, 64), (128, 128), (256, 256), (192, 128)}) | SIMT_HEAD_DIMS
 BWD_HEAD_DIMS = HEAD_DIMS
+# the head dims whose bf16 forward is csrc/flash_attention_fwd_ws.cu's
+# kernel (flash_fwd_bf16_ws): 128 q rows a block, one block an SM
+WS_HEAD_DIMS = frozenset({(192, 128)})
 # the bf16 kernel's tiles: q rows per block (WM in the source), and by
 # head dims the kv tiles it is built for (WN, rows of K and V a pipeline
 # stage holds), the default first.  At q/k dim 256 a 128-key stage does
@@ -65,6 +70,28 @@ BOX_COLS = 64
 # rows
 SPLIT_HEAD_DIMS = frozenset({(256, 256), (192, 128)})
 BWD_SPLIT_WAVES = 2
+
+
+class FwdWsTiles(NamedTuple):
+    """The MLA forward kernel's tiles at a kv tile of ``kv_rows`` rows:
+    its K/V stages and the shared bytes they take beside Q's 128 rows (with
+    1024 for alignment and the mbarriers), as
+    csrc/flash_attention_fwd_ws.cu's Smem lays them out."""
+    kv_rows: int
+    stages: int
+    smem_bytes: int
+
+
+def fwd_ws_tiles(kv_rows: int) -> FwdWsTiles:
+    """The tiles of ``flash_fwd_bf16_ws`` at (192, 128) with a kv tile of
+    ``kv_rows`` (128: two stages; 64: four): Q 48 KB, a stage of K and V
+    (192 + 128 columns) 80 or 40 KB, an mbarrier each for Q and, per
+    stage, K and V full and K and V empty."""
+    dk, dv = 192, 128
+    stages = 2 if kv_rows == 128 else 4
+    nbytes = (1024 + BLOCK_Q * dk * 2 + stages * kv_rows * (dk + dv) * 2
+              + 8 * (1 + 4 * stages))
+    return FwdWsTiles(kv_rows, stages, nbytes)
 
 
 class DqTiles(NamedTuple):
@@ -200,6 +227,15 @@ def _fn():
     return fn
 
 
+def _ws_fn():
+    fn = build.library("flash_attention_fwd_ws").flash_attention_fwd_ws
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int])
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _bwd_fn():
     fn = build.library("flash_attention_bwd").flash_attention_bwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
@@ -213,6 +249,13 @@ def tma_route(dtype: torch.dtype, dk: int, dv: int) -> bool:
     """Whether a call takes the wgmma + TMA kernels (bf16 at the models'
     head dims) rather than the SIMT ones: by dtype and head dims alone."""
     return dtype == torch.bfloat16 and (dk, dv) not in SIMT_HEAD_DIMS
+
+
+def ws_route(dtype: torch.dtype, dk: int, dv: int) -> bool:
+    """Whether a forward call takes ``flash_fwd_bf16_ws``
+    (csrc/flash_attention_fwd_ws.cu): bf16 at WS_HEAD_DIMS, by dtype and
+    head dims alone."""
+    return dtype == torch.bfloat16 and (dk, dv) in WS_HEAD_DIMS
 
 
 def default_kv_tile(dk: int, dv: int) -> int:
@@ -270,11 +313,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"one tile; kv_tile {kv_tile} was named")
     o = q.new_empty((b, s, h, dv))
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lse_ptr = None if lse is None else lse.data_ptr()
     with torch.cuda.device(q.device):
-        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    b, s, sk, h, kvh, d, dv, int(causal), int(window), _DTYPES[q.dtype],
-                    torch.cuda.current_stream(q.device).cuda_stream, layout,
-                    None if lse is None else lse.data_ptr(), tile)
+        if ws_route(q.dtype, d, dv):
+            err = _ws_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                           b, s, sk, h, kvh, d, dv, int(causal), int(window), stream, layout,
+                           lse_ptr, tile)
+        else:
+            err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                        b, s, sk, h, kvh, d, dv, int(causal), int(window), _DTYPES[q.dtype],
+                        stream, layout, lse_ptr, tile)
     if err < 0:
         raise RuntimeError(f"flash_attention: TMA tensor map not encoded (code {err})")
     if err:

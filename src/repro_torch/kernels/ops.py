@@ -44,7 +44,8 @@ import math
 import torch
 
 from repro_torch.kernels.autotune import DEFAULT_SSD_CHUNK, tuned_flash_tile, tuned_ssd_chunk
-from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda, flash_attention_cuda,
+                                                 ws_route)
 from repro_torch.kernels.ref import (
     flash_attention_bwd_ref,
     flash_attention_lse_ref,
@@ -109,6 +110,13 @@ def _flash_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     return q.new_empty(q.shape[:3] + v.shape[3:])
 
 
+def _count_forward(q: torch.Tensor, v: torch.Tensor) -> None:
+    """One forward launch; one more of the MLA kernel where it took it."""
+    flash_attention.launches += 1
+    if ws_route(q.dtype, q.shape[3], v.shape[3]):
+        flash_attention.ws_launches += 1
+
+
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its gradient: ``FlashAttention.apply(q, k, v,
     causal, window)``.  Saves q, k, v, o and the rows' logsumexp."""
@@ -120,7 +128,7 @@ class FlashAttention(torch.autograd.Function):
                 kv_tile = tuned_flash_tile(q, k, v, causal=causal, window=window)
             o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                           return_lse=True, kv_tile=kv_tile)
-            flash_attention.launches += 1
+            _count_forward(q, v)
             if launch_hook is not None:
                 launch_hook("flash_attention", q=q, k=k, v=v, causal=causal, window=window)
         elif q.device.type == "meta":
@@ -161,8 +169,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``kv_tile``: the bf16 kernel's kv tile (``flash_attention.KV_TILES``);
     None asks the autotune cache.  ``flash_attention.launches`` counts
-    forward kernel launches and ``flash_attention.bwd_launches`` backward
-    ones (CUDA only)."""
+    forward kernel launches, ``flash_attention.ws_launches`` those of them
+    that took the MLA kernel (``flash_fwd_bf16_ws``), and
+    ``flash_attention.bwd_launches`` backward ones (CUDA only)."""
     if _is_dtensor(q):
         return _flash_on_mesh(q, k, v, causal, window, kv_tile)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
@@ -171,7 +180,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if kv_tile is None:
             kv_tile = tuned_flash_tile(q, k, v, causal=causal, window=window)
         out = flash_attention_cuda(q, k, v, causal=causal, window=window, kv_tile=kv_tile)
-        flash_attention.launches += 1
+        _count_forward(q, v)
         if launch_hook is not None:
             launch_hook("flash_attention", q=q, k=k, v=v, causal=causal, window=window)
         return out
@@ -183,6 +192,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.ws_launches = 0
 flash_attention.bwd_launches = 0
 
 

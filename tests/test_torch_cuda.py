@@ -333,6 +333,45 @@ def test_cuda_kernel_dk192_dv128_matches_plain_version(dtype, causal, s, b, h):
                                rtol=1e-3, atol=1e-3)
 
 
+# the MLA forward kernel (flash_fwd_bf16_ws, bf16 at q/k 192, v 128): B 1
+# and 2; S 64 (a block's second warpgroup all past S), 100 (one partial
+# block) and 1000 (a ragged last tile); 13 (batch, head) units, not a
+# multiple of its block order's groups of 8; GQA (8 q heads over KV 2) with
+# windows that cross its tiles; no mask
+WS_FWD_CASES = [(1, 64, 13, 13, True, 0), (2, 100, 13, 13, True, 0),
+                (1, 1000, 13, 13, True, 0), (2, 1000, 8, 2, True, 300),
+                (2, 100, 8, 2, True, 40), (2, 64, 8, 2, True, 0), (1, 300, 13, 13, False, 0)]
+# the forward's row logsumexp against the plain version's, as chip_smoke.py
+LSE_TOL = 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_tile", [128, 64])
+@pytest.mark.parametrize("b,s,h,kv,causal,window", WS_FWD_CASES)
+def test_cuda_mla_forward_kernel_matches_plain_version(b, s, h, kv, causal, window, kv_tile):
+    """The MLA forward kernel at each kv tile it is built for, against the
+    plain version at the bf16 limit; with the lse buffer its output is the
+    same bit for bit and each row's logsumexp within LSE_TOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k = (torch.randn(b, s, n, 192, generator=gen, device="cuda").bfloat16() for n in (h, kv))
+    v = torch.randn(b, s, kv, 128, generator=gen, device="cuda").bfloat16()
+    kw = dict(causal=causal, window=window)
+    before, ws_before = flash_attention.launches, flash_attention.ws_launches
+    got = flash_attention(q, k, v, kv_tile=kv_tile, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert flash_attention.ws_launches == ws_before + 1 and got.shape == (b, s, h, 128)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, kv_tile=kv_tile, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, got, rtol=0, atol=0)
+    torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, v, **kw), rtol=LSE_TOL,
+                               atol=LSE_TOL)
+
+
 @pytest.mark.cuda
 def test_cuda_mla_decode_matches_cpu():
     """The absorbed MLA decode (PyTorch ops, no kernel) on the card from a

@@ -2,6 +2,7 @@
 """Time the port's kernels of several checkouts in turns on one GPU.
 
     python3 tools/flash_ab.py SRC [SRC ...] [--shapes granite,s2048,d128] [--rounds 2]
+    python3 tools/flash_ab.py SRC [SRC ...] --shapes mla,mla_b1,mla_s1000,granite,d128
     python3 tools/flash_ab.py SRC [SRC ...] --shapes granite_bwd,s2048_bwd,d128_bwd
     python3 tools/flash_ab.py SRC [SRC ...] --shapes d256_bwd,d256_bwd_b1,mla_bwd,mla_bwd_b1
     python3 tools/flash_ab.py SRC [SRC ...] --shapes mamba2,mamba2_l2048,model_views
@@ -13,8 +14,9 @@ each checkout once in a process of its own (the checkouts share package
 names), in the order given and then reversed, so two versions run as
 A B B A.  A run times each shape's kernel with CUDA events on bf16
 inputs made from a seed: ``repro_torch.kernels.ops.flash_attention``
-(causal) beside one ``scaled_dot_product_attention`` call on the same
-inputs; the backward launcher ``flash_attention_bwd_cuda`` from the
+(causal), with its kernels' device ms and names from the profiler and
+its bound (``roofline/cost.py:attention_bound``), beside one
+``scaled_dot_product_attention`` call on the same inputs; the backward launcher ``flash_attention_bwd_cuda`` from the
 forward's (o, lse) beside SDPA's backward (``*_bwd`` shapes), with the
 device time of each of its CUDA kernels from the profiler (``dq_ms``,
 ``dkdv_ms``, and ``sum_ms`` for the pass that sums the dK/dV kernel's
@@ -39,15 +41,20 @@ import statistics
 import subprocess
 import sys
 
-SHAPES = {  # flash: (B, S, H, KV, D, window): granite-3-2b's prefill, a
+SHAPES = {  # flash: (B, S, H, KV, D, Dv, window): granite-3-2b's prefill, a
     # longer prompt, the other head dim, a sliding window
-    "granite": ("flash", (4, 1024, 32, 8, 64, 0)),
-    "s2048": ("flash", (4, 2048, 32, 8, 64, 0)),
-    "d128": ("flash", (4, 1024, 32, 8, 128, 0)),
-    "window256": ("flash", (4, 1024, 32, 8, 64, 256)),
+    "granite": ("flash", (4, 1024, 32, 8, 64, 64, 0)),
+    "s2048": ("flash", (4, 2048, 32, 8, 64, 64, 0)),
+    "d128": ("flash", (4, 1024, 32, 8, 128, 128, 0)),
+    "window256": ("flash", (4, 1024, 32, 8, 64, 64, 256)),
+    # deepseek-v3's MLA prefill (q/k 192, v 128, 128 heads) at B 4, at the
+    # train step's launch shape B 1, and over a ragged length
+    "mla": ("flash", (4, 1024, 128, 128, 192, 128, 0)),
+    "mla_b1": ("flash", (1, 1024, 128, 128, 192, 128, 0)),
+    "mla_s1000": ("flash", (4, 1000, 128, 128, 192, 128, 0)),
     # one 128-key tile of one head: a kernel of a few µs, so the time a call
     # is the wrapper's host time (checks, the tile lookup, the launch)
-    "launch": ("host", (1, 128, 1, 1, 64, 0)),
+    "launch": ("host", (1, 128, 1, 1, 64, 64, 0)),
     # the backward, (B, S, H, KV, D, Dv, window): granite-3-2b's train step
     # first, then the forward's other shapes; recurrentgemma-9b's windowed
     # MQA layer and deepseek-v3's MLA (q/k 192, v 128), each at B 2 and at
@@ -99,21 +106,29 @@ def _sdpa_kw(s: int, window: int) -> dict:
             "enable_gqa": True}
 
 
-def time_flash(gen, b, s, h, kv, d, window) -> dict:
+def time_flash(gen, b, s, h, kv, d, dv, window) -> dict:
+    """The forward's ms (CUDA events) and its kernels' device ms (the
+    profiler) beside SDPA's ms and the bound (``roofline/cost.py``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ops import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.roofline.cost import attention_bound
 
-    q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").bfloat16()
-               for n in (h, kv, kv))
+    q, k = (torch.randn(b, s, n, d, generator=gen, device="cuda").bfloat16() for n in (h, kv))
+    v = torch.randn(b, s, kv, dv, generator=gen, device="cuda").bfloat16()
     got = flash_attention(q, k, v, causal=True, window=window)
     err = scaled_err(got, flash_attention_ref(q, k, v, causal=True, window=window))
+    del got
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    return {"ms": cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window)),
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
+    by_kernel = kernel_device_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
+    bound_ms = attention_bound(b, s, s, h, kv, d, dv, "torch.bfloat16", True, window)[0]
+    return {"ms": ms, "device_ms": sum(by_kernel.values()), "bound_ms": bound_ms,
+            "bound_frac": bound_ms / ms,
             "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, **_sdpa_kw(s, window))),
-            "max_scaled_err": err}
+            "max_scaled_err": err, "kernels": sorted(by_kernel)}
 
 
 def host_us(fn, calls: int = 500, runs: int = 7) -> float:
@@ -131,15 +146,15 @@ def host_us(fn, calls: int = 500, runs: int = 7) -> float:
     return best * 1e6
 
 
-def time_host(gen, b, s, h, kv, d, window) -> dict:
+def time_host(gen, b, s, h, kv, d, dv, window) -> dict:
     """``time_flash`` plus the wrapper's host time a call and, where the
     checkout consults an autotune cache, the lookup's alone."""
     import torch
     from repro_torch.kernels.ops import flash_attention
 
-    out = time_flash(gen, b, s, h, kv, d, window)
-    q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").bfloat16()
-               for n in (h, kv, kv))
+    out = time_flash(gen, b, s, h, kv, d, dv, window)
+    q, k = (torch.randn(b, s, n, d, generator=gen, device="cuda").bfloat16() for n in (h, kv))
+    v = torch.randn(b, s, kv, dv, generator=gen, device="cuda").bfloat16()
     out["host_us"] = host_us(lambda: flash_attention(q, k, v, causal=True, window=window))
     try:
         from repro_torch.kernels.autotune import tuned_flash_tile
@@ -287,7 +302,8 @@ def main() -> int:
             print(json.dumps({"round": r, **row}), flush=True)
             for name in shapes:
                 runs[src].setdefault(name, []).append(row[name])
-    summary = {src: {name: {key: statistics.median(x[key] for x in rows) for key in rows[0]}
+    summary = {src: {name: {key: statistics.median(x[key] for x in rows)
+                            for key in rows[0] if isinstance(rows[0][key], (int, float))}
                      for name, rows in by_shape.items()}
                for src, by_shape in runs.items()}
     print(json.dumps({"median": summary}), flush=True)
