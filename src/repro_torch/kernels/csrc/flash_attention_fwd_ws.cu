@@ -11,8 +11,11 @@
 // bf16, zeros for a row with no visible key, and with a buffer each row's
 // logsumexp in fp32 (natural log, (B, H, S)) for the backward.
 //
-// Checkpoint 1 of its design: flash_fwd_bf16's body with blocks in groups
-// of ORDER_UNITS (batch, head) units, q tile by q tile, heaviest first.
+// Checkpoint 2 of its design: blocks in groups of ORDER_UNITS (batch,
+// head) units, q tile by q tile, heaviest first; a producer warpgroup
+// keeps the K/V ring full (K of tile j + 1 before V of tile j) and two
+// consumer warpgroups of 64 q rows each run S, softmax and P V in series,
+// releasing K and V apart.
 
 #include "hopper.cuh"
 
@@ -27,6 +30,11 @@ constexpr int WM = 128;             // q rows a block: two warpgroups of 64
 // (batch, head) units a group of the block order: the blocks in flight
 // read the K and V of a few heads, which stay in L2
 constexpr int ORDER_UNITS = 8;
+constexpr int CONSUMERS = 256;      // threads of the two consumer warpgroups
+// registers a thread after setmaxnreg: the producer hands the consumers
+// what it frees of the 168 a thread that 384 threads at one block an SM
+// launch with (128 x (168 - 24) = 256 x (240 - 168))
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
 struct Params {
   const void* q;
@@ -55,9 +63,96 @@ struct Smem {
   static_assert(BYTES <= 232448, "over the shared memory of an SM");
 };
 
-// grid (B * H * q tiles) in the order above
+// the consumers' softmax of one tile, in place: S (raw scores of rows row0
+// and row0 + 8, this thread's columns) masked where the tile meets a masked
+// pair, the running max m and normaliser l updated, S replaced by
+// exp2((S - m) scale_log2); returns the factors a0, a1 that rescale what
+// was accumulated against the old max
+template <int WN>
+__device__ __forceinline__ void softmax_tile(const Params& p, float (&sc)[WN / 2], int k0,
+                                             int wq0, int row0, int t4, float& m0, float& m1,
+                                             float& l0, float& l1, float& a0, float& a1) {
+  const int row1 = row0 + 8;
+  const bool edge = k0 + WN > p.Sk || (p.causal && k0 + WN - 1 > wq0) ||
+                    (p.window && k0 <= wq0 + 63 - p.window);
+  if (edge) {
+    // key k0 + c is visible to a row iff lo <= c <= hi; c - 2 t4 is a
+    // constant of the element, so each element costs two compares
+    int lo[2] = {-(1 << 30), -(1 << 30)}, hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? row1 : row0;
+      hi[r] = p.Sk - 1 - k0;
+      if (p.causal) hi[r] = min(hi[r], row - k0);
+      if (p.window) lo[r] = row - p.window + 1 - k0;
+      lo[r] -= 2 * t4;
+      hi[r] -= 2 * t4;
+    }
+#pragma unroll
+    for (int e = 0; e < WN / 2; ++e) {
+      const int c = (e / 4) * 8 + (e & 1), r = (e >> 1) & 1;
+      if (c < lo[r] || c > hi[r]) sc[e] = NEG_INF;
+    }
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int nb = 0; nb < WN / 8; ++nb) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * nb], sc[4 * nb + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * nb + 2], sc[4 * nb + 3]));
+  }
+  // the four lanes of a quad share rows row0 and row1
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float sl = p.scale_log2;
+  a0 = ex2((m0 - mx0) * sl);
+  a1 = ex2((m1 - mx1) * sl);
+  m0 = mx0;
+  m1 = mx1;
+  // a row with no visible key yet keeps p = 0 (an fma against a max of
+  // NEG_INF could leave a residue of ~1e22 in the exponent)
+  const float ms0 = mx0 == NEG_INF ? 0.f : mx0 * sl;
+  const float ms1 = mx1 == NEG_INF ? 0.f : mx1 * sl;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int nb = 0; nb < WN / 8; ++nb) {
+    sc[4 * nb + 0] = ex2(fmaf(sc[4 * nb + 0], sl, -ms0));
+    sc[4 * nb + 1] = ex2(fmaf(sc[4 * nb + 1], sl, -ms0));
+    sc[4 * nb + 2] = ex2(fmaf(sc[4 * nb + 2], sl, -ms1));
+    sc[4 * nb + 3] = ex2(fmaf(sc[4 * nb + 3], sl, -ms1));
+    rs0 += sc[4 * nb] + sc[4 * nb + 1];
+    rs1 += sc[4 * nb + 2] + sc[4 * nb + 3];
+  }
+  l0 = l0 * a0 + rs0;
+  l1 = l1 * a1 + rs1;
+}
+
+// P (fp32, in S's accumulator layout) as bf16 A fragments of P V:
+// 8-column blocks 2j and 2j+1 form k-step j
+template <int WN>
+__device__ __forceinline__ void pack_p(const float (&sc)[WN / 2], uint32_t (&pf)[WN / 16][4]) {
+#pragma unroll
+  for (int nb = 0; nb < WN / 8; ++nb) {
+    pf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(sc[4 * nb], sc[4 * nb + 1]);
+    pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(sc[4 * nb + 2], sc[4 * nb + 3]);
+  }
+}
+
+__device__ __forceinline__ void rescale(float (&o)[DV / 2], float a0, float a1) {
+#pragma unroll
+  for (int dt = 0; dt < DV / 8; ++dt) {
+    o[4 * dt + 0] *= a0;
+    o[4 * dt + 1] *= a0;
+    o[4 * dt + 2] *= a1;
+    o[4 * dt + 3] *= a1;
+  }
+}
+
+// grid (B * H * q tiles) in the order above; 384 threads: two consumer
+// warpgroups of 64 q rows, then the producer warpgroup
 template <int WN_>
-__global__ void __launch_bounds__(256, 1)
+__global__ void __launch_bounds__(384, 1)
     flash_fwd_bf16_ws(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, Params p) {
@@ -66,169 +161,127 @@ __global__ void __launch_bounds__(256, 1)
   constexpr int WN = L::WN;
   constexpr int K_BOXES = DK / BOX, V_BOXES = DV / BOX;
   extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   unsigned char* sQ = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   unsigned char* sK = sQ + L::Q_BYTES;
   unsigned char* sV = sK + STAGES * L::K_BYTES;
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + STAGES * L::V_BYTES);
   uint64_t* full_k = bar_q + 1;
   uint64_t* full_v = full_k + STAGES;
-  uint64_t* empty = full_v + STAGES;
+  uint64_t* empty_k = full_v + STAGES;
+  uint64_t* empty_v = empty_k + STAGES;
 
-  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+  const int tid = threadIdx.x, wg = tid >> 7;
   const int units = p.B * p.H, tiles = (p.S + WM - 1) / WM;
   const int grp = blockIdx.x / (ORDER_UNITS * tiles), in = blockIdx.x % (ORDER_UNITS * tiles);
   const int width = min(ORDER_UNITS, units - grp * ORDER_UNITS);
   const int unit = grp * ORDER_UNITS + in % width;
   const int b = unit / p.H, h = unit % p.H;
-  const int kvh = h / (p.H / p.KV);
-  const int qt = p.causal ? tiles - 1 - in / width : in / width;
+  const int qt = p.causal ? tiles - 1 - in / width : in / width;   // heaviest first
   const int q0 = qt * WM;
   int hi = p.Sk;
-  if (p.causal) hi = min(hi, q0 + WM);
-  const int lo = p.window ? max(0, q0 - p.window + 1) : 0;
+  if (p.causal) hi = min(hi, q0 + WM);                       // keys k <= q
+  const int lo = p.window ? max(0, q0 - p.window + 1) : 0;   // keys k > q - window
   const int t_lo = lo / WN;
-  const int n = hi > lo ? (hi + WN - 1) / WN - t_lo : 0;
-
-  auto load_kv = [&](int j) {
-    const int s = j % STAGES, k0 = (t_lo + j) * WN;
-    mbar_expect_tx(&full_k[s], L::K_BYTES);
-#pragma unroll
-    for (int c = 0; c < K_BOXES; ++c)
-      tma_load(sK + s * L::K_BYTES + c * WN * ROW, &tm_k, &full_k[s], c * BOX, kvh, k0, b);
-    mbar_expect_tx(&full_v[s], L::V_BYTES);
-#pragma unroll
-    for (int c = 0; c < V_BOXES; ++c)
-      tma_load(sV + s * L::V_BYTES + c * WN * ROW, &tm_v, &full_v[s], c * BOX, kvh, k0, b);
-  };
+  const int n = hi > lo ? (hi + WN - 1) / WN - t_lo : 0;    // kv tiles with a visible key
 
   if (tid == 0) {
     mbar_init(bar_q, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full_k[s], 1);
       mbar_init(&full_v[s], 1);
-      mbar_init(&empty[s], blockDim.x);
+      mbar_init(&empty_k[s], CONSUMERS);
+      mbar_init(&empty_v[s], CONSUMERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (tid == 0 && n > 0) {
-    mbar_expect_tx(bar_q, L::Q_BYTES);
-#pragma unroll
-    for (int c = 0; c < K_BOXES; ++c) tma_load(sQ + c * WM * ROW, &tm_q, bar_q, c * BOX, h, q0, b);
-    for (int j = 0; j < min(STAGES, n); ++j) load_kv(j);
-  }
 
-  float o[DV / 2];
+  if (wg == 2) {
+    // the producer: one thread loads Q, then K and V tile by tile, each
+    // into its stage once the consumers have released the tile before it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (tid == CONSUMERS && n > 0) {
+      const int kvh = h / (p.H / p.KV);
+      mbar_expect_tx(bar_q, L::Q_BYTES);
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
-  float m0 = NEG_INF, m1 = NEG_INF;
-  float l0 = 0.f, l1 = 0.f;
-  const int wq0 = q0 + wg * 64;
-  const int row0 = wq0 + warp * 16 + g, row1 = row0 + 8;
-  const uint32_t q_smem = smem_u32(sQ) + wg * 64 * ROW;
-  if (n > 0) mbar_wait(bar_q, 0);
-
-  for (int i = 0; i < n; ++i) {
-    const int s = i % STAGES;
-    const uint32_t phase = (i / STAGES) & 1;
-    if (tid == 0 && i > 0 && i + STAGES - 1 < n) {
-      const int j = i + STAGES - 1;
-      mbar_wait(&empty[j % STAGES], ((j / STAGES) & 1) ^ 1);
-      load_kv(j);
-    }
-    __syncwarp();
-    const int k0 = (t_lo + i) * WN;
-
-    float sc[WN / 2];
-    mbar_wait(&full_k[s], phase);
-    qk_product<DK, WM, WN>(sc, q_smem, smem_u32(sK + s * L::K_BYTES));
-
-    const bool edge = k0 + WN > p.Sk || (p.causal && k0 + WN - 1 > wq0) ||
-                      (p.window && k0 <= wq0 + 63 - p.window);
-    if (edge) {
-      int lo_[2] = {-(1 << 30), -(1 << 30)}, hi_[2];
+      for (int c = 0; c < K_BOXES; ++c)
+        tma_load(sQ + c * WM * ROW, &tm_q, bar_q, c * BOX, h, q0, b);
+      // K of tile j + 1 goes before V of tile j: the consumers' order
+      for (int j = 0; j <= n; ++j) {
+        if (j < n) {
+          const int s = j % STAGES;
+          if (j >= STAGES) mbar_wait(&empty_k[s], ((j / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full_k[s], L::K_BYTES);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = r ? row1 : row0;
-        hi_[r] = p.Sk - 1 - k0;
-        if (p.causal) hi_[r] = min(hi_[r], row - k0);
-        if (p.window) lo_[r] = row - p.window + 1 - k0;
-        lo_[r] -= 2 * t4;
-        hi_[r] -= 2 * t4;
-      }
+          for (int c = 0; c < K_BOXES; ++c)
+            tma_load(sK + s * L::K_BYTES + c * WN * ROW, &tm_k, &full_k[s], c * BOX, kvh,
+                     (t_lo + j) * WN, b);
+        }
+        if (j > 0) {
+          const int i = j - 1, s = i % STAGES;
+          if (i >= STAGES) mbar_wait(&empty_v[s], ((i / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full_v[s], L::V_BYTES);
 #pragma unroll
-      for (int e = 0; e < WN / 2; ++e) {
-        const int c = (e / 4) * 8 + (e & 1), r = (e >> 1) & 1;
-        if (c < lo_[r] || c > hi_[r]) sc[e] = NEG_INF;
+          for (int c = 0; c < V_BOXES; ++c)
+            tma_load(sV + s * L::V_BYTES + c * WN * ROW, &tm_v, &full_v[s], c * BOX, kvh,
+                     (t_lo + i) * WN, b);
+        }
       }
     }
-    float mx0 = m0, mx1 = m1;
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;   // accumulator row group / column pair
+    const int wq0 = q0 + wg * 64;             // the warpgroup's first q row
+    const int row0 = wq0 + warp * 16 + g, row1 = row0 + 8;
+    const uint32_t q_smem = smem_u32(sQ) + wg * 64 * ROW;
+    float o[DV / 2];   // the m64n128 accumulator: 4 values per 8-column block
 #pragma unroll
-    for (int nb = 0; nb < WN / 8; ++nb) {
-      mx0 = fmaxf(mx0, fmaxf(sc[4 * nb], sc[4 * nb + 1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[4 * nb + 2], sc[4 * nb + 3]));
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+    float m0 = NEG_INF, m1 = NEG_INF;   // running max of rows row0, row1 (raw scores)
+    float l0 = 0.f, l1 = 0.f;           // this thread's share of the normaliser
+    if (n > 0) mbar_wait(bar_q, 0);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % STAGES;
+      const uint32_t phase = (i / STAGES) & 1;
+      float sc[WN / 2];
+      mbar_wait(&full_k[s], phase);
+      qk_product<DK, WM, WN>(sc, q_smem, smem_u32(sK + s * L::K_BYTES));
+      mbar_arrive(&empty_k[s]);
+      float a0, a1;
+      softmax_tile<WN>(p, sc, (t_lo + i) * WN, wq0, row0, t4, m0, m1, l0, l1, a0, a1);
+      uint32_t pf[WN / 16][4];
+      pack_p<WN>(sc, pf);
+      rescale(o, a0, a1);
+      mbar_wait(&full_v[s], phase);
+      pv_product<DV, WN>(o, pf, smem_u32(sV + s * L::V_BYTES));
+      mbar_arrive(&empty_v[s]);
     }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float sl = p.scale_log2;
-    const float a0 = ex2((m0 - mx0) * sl), a1 = ex2((m1 - mx1) * sl);
-    m0 = mx0;
-    m1 = mx1;
-    const float ms0 = mx0 == NEG_INF ? 0.f : mx0 * sl;
-    const float ms1 = mx1 == NEG_INF ? 0.f : mx1 * sl;
 
-    uint32_t pf[WN / 16][4];
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int nb = 0; nb < WN / 8; ++nb) {
-      const float p0 = ex2(fmaf(sc[4 * nb], sl, -ms0));
-      const float p1 = ex2(fmaf(sc[4 * nb + 1], sl, -ms0));
-      const float p2 = ex2(fmaf(sc[4 * nb + 2], sl, -ms1));
-      const float p3 = ex2(fmaf(sc[4 * nb + 3], sl, -ms1));
-      rs0 += p0 + p1;
-      rs1 += p2 + p3;
-      pf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(p0, p1);
-      pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(p2, p3);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    if (p.lse != nullptr && t4 == 0) {   // natural log: m is a raw score, l sums exp2((s - m) sl)
+      float* lb = p.lse + ((size_t)b * p.H + h) * p.S;
+      const float sc = p.scale_log2 / LOG2E;
+      if (row0 < p.S) lb[row0] = m0 == NEG_INF ? -INFINITY : m0 * sc + logf(l0);
+      if (row1 < p.S) lb[row1] = m1 == NEG_INF ? -INFINITY : m1 * sc + logf(l1);
     }
-    l0 = l0 * a0 + rs0;
-    l1 = l1 * a1 + rs1;
+    const size_t o_stride = (size_t)p.H * DV;   // elements between sequence positions of o
+    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + ((size_t)b * p.S * p.H + h) * DV;
 #pragma unroll
     for (int dt = 0; dt < DV / 8; ++dt) {
-      o[4 * dt + 0] *= a0;
-      o[4 * dt + 1] *= a0;
-      o[4 * dt + 2] *= a1;
-      o[4 * dt + 3] *= a1;
+      const int col = dt * 8 + t4 * 2;
+      if (row0 < p.S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * o_stride + col) =
+            __floats2bfloat162_rn(o[4 * dt + 0] * inv0, o[4 * dt + 1] * inv0);
+      if (row1 < p.S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * o_stride + col) =
+            __floats2bfloat162_rn(o[4 * dt + 2] * inv1, o[4 * dt + 3] * inv1);
     }
-    mbar_wait(&full_v[s], phase);
-    pv_product<DV, WN>(o, pf, smem_u32(sV + s * L::V_BYTES));
-    mbar_arrive(&empty[s]);
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-  if (p.lse != nullptr && t4 == 0) {
-    float* lb = p.lse + ((size_t)b * p.H + h) * p.S;
-    const float sc = p.scale_log2 / LOG2E;
-    if (row0 < p.S) lb[row0] = m0 == NEG_INF ? -INFINITY : m0 * sc + logf(l0);
-    if (row1 < p.S) lb[row1] = m1 == NEG_INF ? -INFINITY : m1 * sc + logf(l1);
-  }
-  const size_t o_stride = (size_t)p.H * DV;
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + ((size_t)b * p.S * p.H + h) * DV;
-#pragma unroll
-  for (int dt = 0; dt < DV / 8; ++dt) {
-    const int col = dt * 8 + t4 * 2;
-    if (row0 < p.S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * o_stride + col) =
-          __floats2bfloat162_rn(o[4 * dt + 0] * inv0, o[4 * dt + 1] * inv0);
-    if (row1 < p.S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * o_stride + col) =
-          __floats2bfloat162_rn(o[4 * dt + 2] * inv1, o[4 * dt + 3] * inv1);
   }
 }
 
@@ -244,7 +297,7 @@ int launch(const Params& p, const long long* layout, cudaStream_t stream) {
   err = opt_in_smem(reinterpret_cast<const void*>(flash_fwd_bf16_ws<WN>), smem, opted);
   if (err) return err;
   const int blocks = p.B * p.H * ((p.S + WM - 1) / WM);
-  flash_fwd_bf16_ws<WN><<<blocks, 256, smem, stream>>>(tm_q, tm_k, tm_v, p);
+  flash_fwd_bf16_ws<WN><<<blocks, 384, smem, stream>>>(tm_q, tm_k, tm_v, p);
   return 0;
 }
 
