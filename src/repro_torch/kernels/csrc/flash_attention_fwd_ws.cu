@@ -11,11 +11,8 @@
 // bf16, zeros for a row with no visible key, and with a buffer each row's
 // logsumexp in fp32 (natural log, (B, H, S)) for the backward.
 //
-// Checkpoint 2 of its design: blocks in groups of ORDER_UNITS (batch,
-// head) units, q tile by q tile, heaviest first; a producer warpgroup
-// keeps the K/V ring full (K of tile j + 1 before V of tile j) and two
-// consumer warpgroups of 64 q rows each run S, softmax and P V in series,
-// releasing K and V apart.
+// Checkpoint 1 of its design: flash_fwd_bf16's body with blocks in groups
+// of ORDER_UNITS (batch, head) units, q tile by q tile, heaviest first.
 
 #include "hopper.cuh"
 
@@ -241,23 +238,53 @@ __global__ void __launch_bounds__(384, 1)
     for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m0 = NEG_INF, m1 = NEG_INF;   // running max of rows row0, row1 (raw scores)
     float l0 = 0.f, l1 = 0.f;           // this thread's share of the normaliser
-    if (n > 0) mbar_wait(bar_q, 0);
-    for (int i = 0; i < n; ++i) {
-      const int s = i % STAGES;
-      const uint32_t phase = (i / STAGES) & 1;
+    // The two warpgroups take turns at the tensor cores (named barriers 1
+    // and 2, warpgroup 0 first): each issues its S of tile i and its P V of
+    // tile i - 1 in its turn, then runs tile i's softmax while the other's
+    // products run.  S of tile i is issued before tile i - 1's P V, so the
+    // softmax waits only for its own S; P V's fragments and O stay untouched
+    // until it is done.
+    const int me = 1 + wg, other = 2 - wg;
+    if (wg == 1) named_arrive(1, CONSUMERS);
+    if (n > 0) {
+      mbar_wait(bar_q, 0);
       float sc[WN / 2];
-      mbar_wait(&full_k[s], phase);
-      qk_product<DK, WM, WN>(sc, q_smem, smem_u32(sK + s * L::K_BYTES));
-      mbar_arrive(&empty_k[s]);
-      float a0, a1;
-      softmax_tile<WN>(p, sc, (t_lo + i) * WN, wq0, row0, t4, m0, m1, l0, l1, a0, a1);
       uint32_t pf[WN / 16][4];
+      float a0, a1;
+      mbar_wait(&full_k[0], 0);
+      named_sync(me, CONSUMERS);
+      qk_product<DK, WM, WN, WN / 2, false>(sc, q_smem, smem_u32(sK));
+      named_arrive(other, CONSUMERS);
+      wgmma_wait_all();
+      pin(sc);
+      mbar_arrive(&empty_k[0]);
+      softmax_tile<WN>(p, sc, t_lo * WN, wq0, row0, t4, m0, m1, l0, l1, a0, a1);
       pack_p<WN>(sc, pf);
-      rescale(o, a0, a1);
-      mbar_wait(&full_v[s], phase);
-      pv_product<DV, WN>(o, pf, smem_u32(sV + s * L::V_BYTES));
-      mbar_arrive(&empty_v[s]);
+      for (int i = 1; i < n; ++i) {
+        const int s = i % STAGES, sp = (i - 1) % STAGES;
+        mbar_wait(&full_k[s], (i / STAGES) & 1);
+        named_sync(me, CONSUMERS);
+        qk_product<DK, WM, WN, WN / 2, false>(sc, q_smem, smem_u32(sK + s * L::K_BYTES));
+        mbar_wait(&full_v[sp], ((i - 1) / STAGES) & 1);
+        pv_product<DV, WN, false>(o, pf, smem_u32(sV + sp * L::V_BYTES));
+        named_arrive(other, CONSUMERS);
+        wgmma_wait_all_but_one();   // S of tile i is done; P V of tile i - 1 may still run
+        pin(sc);
+        mbar_arrive(&empty_k[s]);
+        softmax_tile<WN>(p, sc, (t_lo + i) * WN, wq0, row0, t4, m0, m1, l0, l1, a0, a1);
+        wgmma_wait_all();
+        pin(o);
+        mbar_arrive(&empty_v[sp]);
+        pack_p<WN>(sc, pf);
+        rescale(o, a0, a1);
+      }
+      const int sl = (n - 1) % STAGES;
+      mbar_wait(&full_v[sl], ((n - 1) / STAGES) & 1);
+      pv_product<DV, WN>(o, pf, smem_u32(sV + sl * L::V_BYTES));
     }
+    // warpgroup 0 takes the turn warpgroup 1 handed it last, so that each
+    // barrier ends with as many arrivals as waits
+    if (wg == 0) named_sync(1, CONSUMERS);
 
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
