@@ -152,7 +152,8 @@ template <int WN_>
 __global__ void __launch_bounds__(384, 1)
     flash_fwd_bf16_ws(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
-                      const __grid_constant__ CUtensorMap tm_v, Params p) {
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_o, Params p) {
   using L = Smem<WN_>;
   constexpr int STAGES = L::STAGES;
   constexpr int WN = L::WN;
@@ -297,34 +298,45 @@ __global__ void __launch_bounds__(384, 1)
       if (row0 < p.S) lb[row0] = m0 == NEG_INF ? -INFINITY : m0 * sc + logf(l0);
       if (row1 < p.S) lb[row1] = m1 == NEG_INF ? -INFINITY : m1 * sc + logf(l1);
     }
-    const size_t o_stride = (size_t)p.H * DV;   // elements between sequence positions of o
-    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + ((size_t)b * p.S * p.H + h) * DV;
+    // O through shared memory: the warpgroup's 64 rows as two 64-column
+    // boxes, swizzled as TMA reads them, into its own rows of Q's first two
+    // boxes (free once its last S is done); one thread stores them, and
+    // rows past S are not written
+    unsigned char* so = sQ + wg * 64 * ROW;
+    const int r0 = warp * 16 + g, r1 = r0 + 8;   // r0 & 7 == r1 & 7 == g
 #pragma unroll
     for (int dt = 0; dt < DV / 8; ++dt) {
-      const int col = dt * 8 + t4 * 2;
-      if (row0 < p.S)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * o_stride + col) =
-            __floats2bfloat162_rn(o[4 * dt + 0] * inv0, o[4 * dt + 1] * inv0);
-      if (row1 < p.S)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * o_stride + col) =
-            __floats2bfloat162_rn(o[4 * dt + 2] * inv1, o[4 * dt + 3] * inv1);
+      unsigned char* box = so + (dt / 8) * WM * ROW + (((dt % 8) ^ g) << 4) + t4 * 4;
+      *reinterpret_cast<uint32_t*>(box + r0 * ROW) =
+          pack_bf16(o[4 * dt + 0] * inv0, o[4 * dt + 1] * inv0);
+      *reinterpret_cast<uint32_t*>(box + r1 * ROW) =
+          pack_bf16(o[4 * dt + 2] * inv1, o[4 * dt + 3] * inv1);
+    }
+    fence_proxy_async();
+    named_sync(3 + wg, 128);
+    if ((tid & 127) == 0 && wq0 < p.S) {
+#pragma unroll
+      for (int c = 0; c < DV / BOX; ++c) tma_store(&tm_o, so + c * WM * ROW, c * BOX, h, wq0, b);
+      bulk_commit();
+      bulk_wait_read();
     }
   }
 }
 
 template <int WN>
 int launch(const Params& p, const long long* layout, cudaStream_t stream) {
-  CUtensorMap tm_q, tm_k, tm_v;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
   int err = encode(&tm_q, p.q, layout, WM);
   if (!err) err = encode(&tm_k, p.k, layout + 11, WN);
   if (!err) err = encode(&tm_v, p.v, layout + 22, WN);
+  if (!err) err = encode(&tm_o, p.o, layout + 33, 64);
   if (err) return err;
   constexpr size_t smem = Smem<WN>::BYTES;
   static uint32_t opted = 0;
   err = opt_in_smem(reinterpret_cast<const void*>(flash_fwd_bf16_ws<WN>), smem, opted);
   if (err) return err;
   const int blocks = p.B * p.H * ((p.S + WM - 1) / WM);
-  flash_fwd_bf16_ws<WN><<<blocks, 384, smem, stream>>>(tm_q, tm_k, tm_v, p);
+  flash_fwd_bf16_ws<WN><<<blocks, 384, smem, stream>>>(tm_q, tm_k, tm_v, tm_o, p);
   return 0;
 }
 
@@ -332,7 +344,8 @@ int launch(const Params& p, const long long* layout, cudaStream_t stream) {
 
 // q: (B, S, H, 192); k: (B, Sk, KV, 192); v: (B, Sk, KV, 128); o: (B, S,
 // H, 128); all bf16, contiguous.  layout: the TMA layouts of q (boxes of
-// 128 rows), k and v (boxes of kv_tile rows), 11 values each.  lse: null,
+// 128 rows), k and v (boxes of kv_tile rows) and o (boxes of 64 rows), 11
+// values each.  lse: null,
 // or a (B, H, S) fp32 buffer for each row's logsumexp.  kv_tile: 128 or
 // 64 (kernels/flash_attention.py:KV_TILES).  Returns cudaGetLastError()
 // after the launch, a negative code from encode(), or

@@ -189,6 +189,16 @@ def layout_array(q_shape, q_stride, k_shape, k_stride, q_rows: int, kv_rows: int
     return _cached_layouts(parts, parts)
 
 
+def ws_layout_array(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                    kv_rows: int) -> ctypes.Array:
+    """The 44 layout values the MLA forward kernel takes: q's with boxes of
+    BLOCK_Q rows, k's and v's with boxes of ``kv_rows``, and o's with boxes
+    of 64 rows (a consumer warpgroup's), as a C array."""
+    parts = tuple((tuple(t.shape), t.stride(), rows)
+                  for t, rows in ((q, BLOCK_Q), (k, kv_rows), (v, kv_rows), (o, 64)))
+    return _cached_layouts(parts, parts)
+
+
 def bwd_layout_array(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      do: torch.Tensor) -> ctypes.Array:
     """The 44 layout values a bf16 backward launch takes: q's, k's, v's and
@@ -300,14 +310,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v)
     b, s, h, d = q.shape
     sk, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
-    layout, tile = None, 0
-    if tma_route(q.dtype, d, dv):   # the TMA layouts of q, k and v
+    tile = 0
+    if tma_route(q.dtype, d, dv):
         tile = default_kv_tile(d, dv) if kv_tile is None else kv_tile
         if tile not in KV_TILES[(d, dv)]:
             raise ValueError(f"flash_attention: kv tile {tile} at head dims ({d}, {dv}); the "
                              f"kernel is built for {KV_TILES[(d, dv)]}")
-        layout = layout_array(q.shape, q.stride(), k.shape, k.stride(), BLOCK_Q, tile,
-                              v.shape, v.stride())
     elif kv_tile is not None:
         raise ValueError(f"flash_attention: the {q.dtype} kernel at head dims ({d}, {dv}) has "
                          f"one tile; kv_tile {kv_tile} was named")
@@ -316,11 +324,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lse_ptr = None if lse is None else lse.data_ptr()
     with torch.cuda.device(q.device):
-        if ws_route(q.dtype, d, dv):
+        if ws_route(q.dtype, d, dv):   # the MLA kernel: TMA layouts of q, k, v and o
             err = _ws_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                           b, s, sk, h, kvh, d, dv, int(causal), int(window), stream, layout,
-                           lse_ptr, tile)
+                           b, s, sk, h, kvh, d, dv, int(causal), int(window), stream,
+                           ws_layout_array(q, k, v, o, tile), lse_ptr, tile)
         else:
+            layout = None
+            if tile:   # the TMA layouts of q, k and v
+                layout = layout_array(q.shape, q.stride(), k.shape, k.stride(), BLOCK_Q, tile,
+                                      v.shape, v.stride())
             err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                         b, s, sk, h, kvh, d, dv, int(causal), int(window), _DTYPES[q.dtype],
                         stream, layout, lse_ptr, tile)
