@@ -275,8 +275,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def phase_kernel_cases(seed: int) -> list[dict]:
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, ws_route
     from repro_torch.kernels.ops import flash_attention
-    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels.ref import flash_attention_lse_ref, flash_attention_ref
     from repro_torch.roofline.cost import attention_bound
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -312,6 +313,8 @@ def phase_kernel_cases(seed: int) -> list[dict]:
         ("deepseek_v3_mla", 4, 1024, 1024, 128, 128, 192, 128, torch.bfloat16, True, 0),
         ("deepseek_v3_mla_fp32", 4, 1024, 1024, 128, 128, 192, 128, torch.float32, True, 0),
         ("mla_ragged_s1000", 4, 1000, 1000, 128, 128, 192, 128, torch.bfloat16, True, 0),
+        # the train step's launch shape (four microbatches of B 1)
+        ("mla_b1", 1, 1024, 1024, 128, 128, 192, 128, torch.bfloat16, True, 0),
         ("llava_prefill", 4, 1024, 1024, 64, 64, 128, 128, torch.bfloat16, True, 0),
         ("deepseek67b_prefill", 4, 1024, 1024, 64, 8, 128, 128, torch.bfloat16, True, 0),
         # the smoke configs' head dims, which the training CLI runs at (B 2
@@ -354,9 +357,29 @@ def phase_kernel_cases(seed: int) -> list[dict]:
                "bound_ms": bound_ms, "bound_by": bound_by, "bound_frac": bound_ms / ms,
                "vs_library": ms / library_ms,
                "tflops": flops / (ms * 1e-3) / 1e12, "flops": flops, "bytes": nbytes}
+        if ws_route(dtype, d, dv):
+            # the MLA kernel (csrc/flash_attention_fwd_ws.cu): the kernel the
+            # profiler saw, and its lse output (the backward reads it) on
+            # against off
+            row["kernels"] = sorted(kernels_device_ms(
+                lambda: flash_attention(q, k, v, causal=causal, window=window), iters=5))
+            o_off = flash_attention_cuda(q, k, v, causal=causal, window=window)
+            o_on, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                             return_lse=True)
+            row["lse_output_equal"] = bool(torch.equal(o_off, o_on))
+            row["lse_max_abs_err"] = (lse - flash_attention_lse_ref(
+                q, k, v, causal=causal, window=window)).abs().max().item()
+            del o_off, o_on, lse
         emit("kernel_vs_plain", **row)
         check(scaled <= tol and row["finite"],
               f"flash_attention {name}: max |out - ref| / (1 + |ref|) = {scaled} > {tol}")
+        if "kernels" in row:
+            check(row["kernels"] and all("flash_fwd_bf16_ws" in n for n in row["kernels"]),
+                  f"flash_attention {name}: ran {row['kernels']}, not the MLA kernel")
+            check(row["lse_output_equal"],
+                  f"flash_attention {name}: the output changes when lse is written")
+            check(row["lse_max_abs_err"] <= LSE_TOL,
+                  f"flash_attention {name}: max |lse - ref| = {row['lse_max_abs_err']}")
         results.append(row)
         del q, k, v, out, ref, lib
         torch.cuda.empty_cache()
@@ -604,7 +627,7 @@ def device_profile(fn) -> dict:
 def zero_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     from repro_torch.kernels.ops import flash_attention, ssd_scan
-    flash_attention.launches = flash_attention.bwd_launches = 0
+    flash_attention.launches = flash_attention.ws_launches = flash_attention.bwd_launches = 0
     ssd_scan.launches = ssd_scan.bwd_launches = 0
 
 
@@ -614,6 +637,13 @@ def launch_counts() -> dict[str, int]:
     return {"flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
             "ssd_scan": ssd_scan.launches, "ssd_scan_bwd": ssd_scan.bwd_launches}
+
+
+def ws_launches() -> int:
+    """The forward launches that took the MLA kernel (flash_fwd_bf16_ws),
+    a share of ``launch_counts()["flash_attention"]``."""
+    from repro_torch.kernels.ops import flash_attention
+    return flash_attention.ws_launches
 
 
 def _rel_rows(a, b):
@@ -679,6 +709,7 @@ def _path_logits(params, cfg, ids, s: int, steps: int, *, enc=None, state_dtype=
     torch.cuda.synchronize()
     first_prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_launches = launch_counts()
+    prefill_ws = ws_launches()
     cache = decode_cache(cfg, pcache, b, s + steps, state_dtype)
     del pcache
     dec, step_ms = [logits[:, 0]], []
@@ -690,7 +721,7 @@ def _path_logits(params, cfg, ids, s: int, steps: int, *, enc=None, state_dtype=
         step_ms.append((time.perf_counter() - t0) * 1e3)
         dec.append(lg[:, 0])
     launches = launch_counts()
-    out = {"prefill_launches": prefill_launches, "launches": launches}
+    out = {"prefill_launches": prefill_launches, "launches": launches, "prefill_ws": prefill_ws}
     if timed:
         out["profiles"] = {
             "prefill": device_profile(lambda: prefill(params, prompt)),
@@ -960,6 +991,10 @@ def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
     check(bf["prefill_launches"] == want,
           f"{arch}: prefill launched {bf['prefill_launches']}, expected {want}")
     check(bf["launches"] == want, f"{arch}: decode launched a kernel: {bf['launches']}")
+    # bf16 MLA layers (q/k 192, v 128) take the MLA kernel, every other layer another
+    mla_layers = [m for m, _ in cfg.block_kinds()].count("mla")
+    check(bf["prefill_ws"] == mla_layers,
+          f"{arch}: the MLA kernel launched {bf['prefill_ws']} times, expected {mla_layers}")
     if arch in ROOFLINE_PREFILL:
         count_serving_paths(arch, params, cfg, ids, s, steps, bf)
     depth1 = ssd_state_readings(params, cfg, ids, s, steps) if cfg.ssm else None
@@ -1078,7 +1113,7 @@ def phase_prefill_decode(arch: str, seed: int) -> dict[str, int]:
               f"max per-row relative error {got} > {DEPTH1_BF16_REL_TOL}")
     check(out["peak_mem_gb"] <= MAX_PEAK_GB,
           f"{arch}: peak device memory {peaks} GB over {MAX_PEAK_GB}")
-    return bf["launches"]
+    return {**bf["launches"], "flash_fwd_bf16_ws": bf["prefill_ws"]}
 
 
 # the paths the roofline phase reads: granite-3-2b's prefill and decode step
@@ -2056,7 +2091,8 @@ def phase_train_all(seed: int) -> dict[str, dict[str, int]]:
             params, opt_state, m = step(params, opt_state, batch)
             torch.cuda.synchronize()
             steps.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": m["loss"].item(),
-                          "grad_norm": m["grad_norm"].item(), "launches": launch_counts()})
+                          "grad_norm": m["grad_norm"].item(), "launches": launch_counts(),
+                          "ws_launches": ws_launches()})
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         prof = device_profile(lambda: step(params, opt_state, batch))
         ms = statistics.median(x["ms"] for x in steps)
@@ -2083,7 +2119,11 @@ def phase_train_all(seed: int) -> dict[str, dict[str, int]]:
         check(all(x["launches"] == want for x in steps),
               f"{what}: launches {[x['launches'] for x in steps]}, expected {want} a step")
         check(peak_gb <= MAX_PEAK_GB, f"{what}: peak {peak_gb} GB over {MAX_PEAK_GB}")
-        out[f"{arch} train_all (one step)"] = steps[-1]["launches"]
+        if cfg.mla is not None:   # bf16 at q/k 192, v 128: the MLA kernel's forwards
+            check(all(x["ws_launches"] > 0 for x in steps),
+                  f"{what}: the MLA kernel launched {[x['ws_launches'] for x in steps]}")
+        out[f"{arch} train_all (one step)"] = {**steps[-1]["launches"],
+                                               "flash_fwd_bf16_ws": steps[-1]["ws_launches"]}
         del params, opt_state, batch, step, m
         check(release() < 1.0, f"{what}: memory left allocated")
     return out
@@ -3020,6 +3060,22 @@ def main() -> int:
     table[0]["dk192_dv128"] = {k: mla[k] for k in (
         "case", "shape", "dv", "max_abs_err", "max_scaled_err", "tol", "ms", "plain_ms",
         "bound_ms", "bound_by", "bound_frac", "library_ms", "vs_library")}
+    # the MLA forward kernel (bf16 at q/k 192, v 128) has a row of its own:
+    # its launches are a share of flash_attention's
+    by_path = {path: counts.get("flash_fwd_bf16_ws", 0) for path, counts in path_launches.items()}
+    mla_rows = {c["case"]: {k: c[k] for k in ("ms", "bound_ms", "bound_frac", "library_ms",
+                                               "vs_library", "max_scaled_err", "kernels")}
+                for c in flash_cases if "kernels" in c}
+    table.append({"name": "flash_fwd_bf16_ws", "route": "cuda",
+                  "source": "src/repro_torch/kernels/csrc/flash_attention_fwd_ws.cu",
+                  "replaces": replaces["flash_attention"], "launches": sum(by_path.values()),
+                  "launches_by_path": {p: n for p, n in by_path.items() if n},
+                  "max_abs_err": mla["max_abs_err"], "max_scaled_err": mla["max_scaled_err"],
+                  "tol": mla["tol"], "ms": mla["ms"], "plain_ms": mla["plain_ms"],
+                  "bound_ms": mla["bound_ms"], "bound_by": mla["bound_by"],
+                  "bound_frac": mla["bound_frac"], "library_ms": mla["library_ms"],
+                  "vs_library": mla["vs_library"], "cases": mla_rows})
+    check(table[-1]["launches"] > 0, "the MLA forward kernel ran on no main path")
     # the backward's head dims, each the launcher takes, with its D 256
     # (recurrentgemma-9b) and (192, 128) (deepseek-v3's MLA) readings
     from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS

@@ -56,9 +56,10 @@
 //
 // The kernels are templated on the q/k head dim DK and the v head dim DV:
 // (64, 64), (128, 128) and (256, 256), (16, 16) and (24, 16) (SIMT, above),
-// and (192, 128) for deepseek-v3's
-// multi-head latent attention (MLA), whose prefill attends with 128 "nope"
-// + 64 rope columns of q and k and 128 columns of v.
+// and in fp32 (192, 128) for deepseek-v3's multi-head latent attention
+// (MLA), whose prefill attends with 128 "nope" + 64 rope columns of q and
+// k and 128 columns of v.  bf16 at (192, 128) is a kernel of its own,
+// csrc/flash_attention_fwd_ws.cu: this entry refuses it.
 //
 // D 256 (recurrentgemma-9b) has instantiations of its own; D 64 and 128
 // are unchanged.  In bf16 the 128-key tile of D 64/128 does not fit: Q
@@ -71,13 +72,9 @@
 // so four threads share a row (flash_fwd_f32_wide), each with 64 of its
 // columns, the dot products summed across the four by warp shuffles, on
 // 16-key tiles that keep K and V in 32 KB of static shared memory.
-// (192, 128) keeps D 128's 128-key tiles: Q is 48 KB, a K/V stage 48 +
-// 32 KB, two stages and Q ~209 KB at one block an SM.  S = Q K^T is
-// m64n128k16 over 12 k-steps, three 64-column boxes of Q and K; O += P V
-// is m64n128k16 as at D 128, so the registers are D 128's (S and O each
-// 64 a thread).  V has a tensor map of its own (DV columns); the scale is
-// 1 / sqrt(DK).  In fp32 the four-threads-a-row kernel takes it, each
-// thread with 48 columns of q and 32 of the accumulator.
+// At (192, 128) in fp32 the four-threads-a-row kernel takes it, each
+// thread with 48 columns of q and 32 of the accumulator; V's columns are
+// DV and the scale is 1 / sqrt(DK).
 // A row with no visible key at all (only possible when S > Sk) comes out
 // as zeros in the bf16 kernel; the reference averages every key there.
 //
@@ -140,9 +137,8 @@ __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
 // 128-key tiles keeps 80 KB and two blocks (a third stage, two blocks
 // still fitting, gained nothing); D 128 with 128-key tiles 224 KB, three
 // stages at one block; D 256 (64-key tiles only: 128 would not fit beside
-// Q) and (192, 128) with 128-key tiles two stages at one block.  A 64-key
-// tile halves a stage: D 64 48 KB and D 128 96 KB at two blocks an SM,
-// (192, 128) 168 KB with three stages at one.
+// Q) two stages at one block.  A 64-key tile halves a stage: D 64 48 KB
+// and D 128 96 KB at two blocks an SM.
 constexpr size_t SM_SMEM = 233472;      // 228 KB of shared memory an SM
 constexpr size_t BLOCK_SMEM = 232448;   // 227 KB a block may take
 constexpr size_t BLOCK_RESERVED = 1024; // the system's share of each resident block
@@ -622,9 +618,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   } else if (DK == DV && DK == 256) {
     if (is_bf16) err = launch_bf16_tile<256, 256>(p, layout, st, kv_tile);
     else launch_f32_wide<256, 256>(p, grid, st);
-  } else if (DK == 192 && DV == 128) {
-    if (is_bf16) err = launch_bf16_tile<192, 128>(p, layout, st, kv_tile);
-    else launch_f32_wide<192, 128>(p, grid, st);
+  } else if (DK == 192 && DV == 128 && !is_bf16) {
+    launch_f32_wide<192, 128>(p, grid, st);
   } else if (DK == 16 && DV == 16) {
     launch_simt<16, 16>(p, grid, st, is_bf16);
   } else if (DK == 24 && DV == 16) {

@@ -11,8 +11,53 @@
 // bf16, zeros for a row with no visible key, and with a buffer each row's
 // logsumexp in fp32 (natural log, (B, H, S)) for the backward.
 //
-// Checkpoint 1 of its design: flash_fwd_bf16's body with blocks in groups
-// of ORDER_UNITS (batch, head) units, q tile by q tile, heaviest first.
+// What bounds it on the H100 at MLA's prefill shape (B 4, S 1024, 128
+// heads, causal): by the roofline, bytes: q, k, v and o once, 671 MB,
+// 0.200 ms at 3.35 TB/s, against 172 GFLOP of visible pairs, 0.174 ms at
+// 989 TFLOP/s.  But a block of 128 q rows reads its head's K and V for
+// every kv tile up to its diagonal, 36 tiles of 80 KB a head: 1.47 GB
+// through L2, most of it from L2, and L2 delivers ~5.7 TB/s.  A probe that
+// computes nothing (the stream, Q and the stores alone) reads 0.316 ms one
+// block a launch slot, 0.251 with the persistent grid below (PERF.md §6).
+//
+// What the design does about it:
+//  * Blocks run 128 q rows of one (batch, head) as two consumer
+//    warpgroups of 64 rows, and a producer warpgroup.  The producer drops
+//    to 24 registers a thread (setmaxnreg), the consumers take 240; one
+//    producer thread loads each warpgroup's Q rows and keeps a ring of two
+//    128-key K/V stages full by TMA (128-byte swizzle, 64-column boxes), K
+//    of tile j + 1 before V of tile j, the consumers' order.  K and V have
+//    "full" and "empty" mbarriers of their own, so K of a stage is refilled
+//    once both S products have read it, not after P V.
+//  * The consumers take turns at the tensor cores (named barriers 1 and
+//    2): each issues S of tile i (m64n128k16 over 12 k-steps, Q and K from
+//    shared memory) and P V of tile i - 1 (m64n128k16, P from registers, V
+//    MN-major) in its turn, then runs tile i's mask, max and exp2 while the
+//    other warpgroup's products run.  Only S waits before the softmax; P V's
+//    fragments and the O accumulator stay untouched until it is done.
+//  * A persistent grid, one block an SM: each block's producer takes its
+//    next item from a counter (the first gridDim.x by block index), loads
+//    that item's first K tile while the last item ends, and a warpgroup's Q
+//    rows once the warpgroup has stored its O from them.  The items keep the
+//    launch order, so the blocks in flight read the K and V of a few heads,
+//    which stay in L2: (batch, head) units in groups of ORDER_UNITS, q tile
+//    by q tile, the heaviest under the causal mask first.
+//  * O goes through shared memory: each warpgroup writes its 64 rows,
+//    swizzled as TMA reads them, into its own rows of Q, and one thread
+//    stores them as two 64-column boxes; rows past S are not written.
+//  * TMA zero-fills rows past S or Sk; keys past Sk are still masked, as
+//    are the causal diagonal tile and a window's first tiles; tiles with no
+//    visible pair are neither loaded nor computed.  GQA by index: q head h
+//    reads kv head h / (H / KV) through the K/V tensor maps.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6), MLA B 4,
+// by step: the old kernel 0.618 ms; its body in the grouped order 0.436; a
+// producer warpgroup 0.440; turns and S before P V 0.395; O by TMA 0.362;
+// the persistent grid 0.339.  Measured slower: a persistent grid that
+// strides its items (0.425: its blocks drift apart in the order and miss
+// L2), clusters of two CTAs on adjacent q tiles sharing each K/V tile by
+// TMA multicast (0.728), 64-key tiles in four stages (0.400 against
+// 0.366); L2 eviction hints on the loads changed nothing.
 
 #include "hopper.cuh"
 
@@ -42,30 +87,31 @@ struct Params {
   int causal, window;
   float scale_log2;           // log2(e) / sqrt(DK): scores in base 2
   float* lse;                 // (B, H, S) fp32 row logsumexp, or null
+  // the launch's next item (past the first gridDim.x) and its blocks that
+  // have taken their last: 0 at a launch's start, set back to 0 at its
+  // end; one pair a stream (kernels/flash_attention.py:_sched_counters)
+  unsigned int* sched;
 };
 
-// Shared memory: Q (128 rows, three 64-column boxes), then STAGES K tiles
+// Shared memory: Q (128 rows, three 64-column boxes; each warpgroup's 64
+// rows of each box hold its O at the end of an item), then STAGES K tiles
 // (three boxes of WN rows) and STAGES V tiles (two boxes), then the
-// mbarriers; one block an SM.
-template <int WN_>
-struct Smem {
-  static constexpr int WN = WN_;                       // kv rows a tile
-  static_assert(WN == 64 || WN == 128, "kv tiles of 64 or 128 rows");
-  static constexpr int STAGES = WN == 128 ? 2 : 4;
-  static constexpr uint32_t Q_BYTES = WM * DK * 2;
-  static constexpr uint32_t K_BYTES = WN * DK * 2;
-  static constexpr uint32_t V_BYTES = WN * DV * 2;
-  static constexpr size_t BYTES =
-      1024 + Q_BYTES + STAGES * (K_BYTES + V_BYTES) + 8 * (1 + 4 * STAGES);
-  static_assert(BYTES <= 232448, "over the shared memory of an SM");
-};
+// mbarriers (Q full and empty a warpgroup, two item slots full and empty,
+// K and V full and empty a stage) and the two item slots; one block an SM.
+constexpr int WN = 128;             // kv rows a tile (kernels/flash_attention.py:KV_TILES)
+constexpr int STAGES = 2;
+constexpr uint32_t Q_BYTES = WM * DK * 2;
+constexpr uint32_t K_BYTES = WN * DK * 2;
+constexpr uint32_t V_BYTES = WN * DV * 2;
+constexpr size_t SMEM_BYTES =
+    1024 + Q_BYTES + STAGES * (K_BYTES + V_BYTES) + 8 * (8 + 4 * STAGES) + 8;
+static_assert(SMEM_BYTES <= 232448, "over the shared memory of an SM");
 
 // the consumers' softmax of one tile, in place: S (raw scores of rows row0
 // and row0 + 8, this thread's columns) masked where the tile meets a masked
 // pair, the running max m and normaliser l updated, S replaced by
 // exp2((S - m) scale_log2); returns the factors a0, a1 that rescale what
 // was accumulated against the old max
-template <int WN>
 __device__ __forceinline__ void softmax_tile(const Params& p, float (&sc)[WN / 2], int k0,
                                              int wq0, int row0, int t4, float& m0, float& m1,
                                              float& l0, float& l1, float& a0, float& a1) {
@@ -127,7 +173,6 @@ __device__ __forceinline__ void softmax_tile(const Params& p, float (&sc)[WN / 2
 
 // P (fp32, in S's accumulator layout) as bf16 A fragments of P V:
 // 8-column blocks 2j and 2j+1 form k-step j
-template <int WN>
 __device__ __forceinline__ void pack_p(const float (&sc)[WN / 2], uint32_t (&pf)[WN / 16][4]) {
 #pragma unroll
   for (int nb = 0; nb < WN / 8; ++nb) {
@@ -146,45 +191,67 @@ __device__ __forceinline__ void rescale(float (&o)[DV / 2], float a0, float a1) 
   }
 }
 
-// grid (B * H * q tiles) in the order above; 384 threads: two consumer
-// warpgroups of 64 q rows, then the producer warpgroup
-template <int WN_>
+// one work item: 128 q rows of one (batch, head), and its kv tiles
+struct Item {
+  int b, h, q0;
+  int t_lo, n;   // the first kv tile with a visible key, and how many
+};
+
+// item x of a launch (x < B * H * tiles): units in groups of ORDER_UNITS,
+// each group's items q tile by q tile, the last q tiles (the heaviest
+// under the causal mask) first
+__device__ __forceinline__ Item item_at(const Params& p, int x, int tiles) {
+  const int units = p.B * p.H;
+  const int grp = x / (ORDER_UNITS * tiles), in = x % (ORDER_UNITS * tiles);
+  const int width = min(ORDER_UNITS, units - grp * ORDER_UNITS);
+  const int unit = grp * ORDER_UNITS + in % width;
+  Item it;
+  it.b = unit / p.H;
+  it.h = unit % p.H;
+  const int qt = p.causal ? tiles - 1 - in / width : in / width;
+  it.q0 = qt * WM;
+  int hi = p.Sk;
+  if (p.causal) hi = min(hi, it.q0 + WM);                        // keys k <= q
+  const int lo = p.window ? max(0, it.q0 - p.window + 1) : 0;    // keys k > q - window
+  it.t_lo = lo / WN;
+  it.n = hi > lo ? (hi + WN - 1) / WN - it.t_lo : 0;            // kv tiles with a visible key
+  return it;
+}
+
+// a persistent grid of at most one block an SM: block x takes item x,
+// then the counter's next until the items run out; 384 threads: two
+// consumer warpgroups of 64 q rows, then the producer warpgroup
 __global__ void __launch_bounds__(384, 1)
     flash_fwd_bf16_ws(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       const __grid_constant__ CUtensorMap tm_o, Params p) {
-  using L = Smem<WN_>;
-  constexpr int STAGES = L::STAGES;
-  constexpr int WN = L::WN;
   constexpr int K_BOXES = DK / BOX, V_BOXES = DV / BOX;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   unsigned char* sQ = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  unsigned char* sK = sQ + L::Q_BYTES;
-  unsigned char* sV = sK + STAGES * L::K_BYTES;
-  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + STAGES * L::V_BYTES);
-  uint64_t* full_k = bar_q + 1;
+  unsigned char* sK = sQ + Q_BYTES;
+  unsigned char* sV = sK + STAGES * K_BYTES;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sV + STAGES * V_BYTES);   // [2]
+  uint64_t* empty_q = full_q + 2;                                               // [2]
+  uint64_t* full_x = empty_q + 2;     // [2]: an item index published
+  uint64_t* empty_x = full_x + 2;     // [2]: and read by every consumer
+  uint64_t* full_k = empty_x + 2;
   uint64_t* full_v = full_k + STAGES;
   uint64_t* empty_k = full_v + STAGES;
   uint64_t* empty_v = empty_k + STAGES;
+  int* next_x = reinterpret_cast<int*>(empty_v + STAGES);   // [2]
 
   const int tid = threadIdx.x, wg = tid >> 7;
-  const int units = p.B * p.H, tiles = (p.S + WM - 1) / WM;
-  const int grp = blockIdx.x / (ORDER_UNITS * tiles), in = blockIdx.x % (ORDER_UNITS * tiles);
-  const int width = min(ORDER_UNITS, units - grp * ORDER_UNITS);
-  const int unit = grp * ORDER_UNITS + in % width;
-  const int b = unit / p.H, h = unit % p.H;
-  const int qt = p.causal ? tiles - 1 - in / width : in / width;   // heaviest first
-  const int q0 = qt * WM;
-  int hi = p.Sk;
-  if (p.causal) hi = min(hi, q0 + WM);                       // keys k <= q
-  const int lo = p.window ? max(0, q0 - p.window + 1) : 0;   // keys k > q - window
-  const int t_lo = lo / WN;
-  const int n = hi > lo ? (hi + WN - 1) / WN - t_lo : 0;    // kv tiles with a visible key
+  const int tiles = (p.S + WM - 1) / WM, items = p.B * p.H * tiles;
 
   if (tid == 0) {
-    mbar_init(bar_q, 1);
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(&full_q[w], 1);
+      mbar_init(&empty_q[w], 1);
+      mbar_init(&full_x[w], 1);
+      mbar_init(&empty_x[w], CONSUMERS);
+    }
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full_k[s], 1);
       mbar_init(&full_v[s], 1);
@@ -196,49 +263,78 @@ __global__ void __launch_bounds__(384, 1)
   __syncthreads();
 
   if (wg == 2) {
-    // the producer: one thread loads Q, then K and V tile by tile, each
-    // into its stage once the consumers have released the tile before it
+    // the producer: one thread, item after item, loads K of the item's
+    // first kv tile, each warpgroup's 64 rows of Q once that warpgroup has
+    // stored the last item's O from them, then K and V tile by tile (K of
+    // tile j + 1 before V of tile j: the consumers' order), each into its
+    // stage once the consumers have released the tile before it
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
-    if (tid == CONSUMERS && n > 0) {
-      const int kvh = h / (p.H / p.KV);
-      mbar_expect_tx(bar_q, L::Q_BYTES);
+    if (tid == CONSUMERS) {
+      int jk = 0, jv = 0;   // K and V tiles loaded so far, over all items
+      auto load_k = [&](const Item& it, int i) {
+        const int s = jk % STAGES;
+        if (jk >= STAGES) mbar_wait(&empty_k[s], ((jk / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full_k[s], K_BYTES);
+        const int kvh = it.h / (p.H / p.KV);
 #pragma unroll
-      for (int c = 0; c < K_BOXES; ++c)
-        tma_load(sQ + c * WM * ROW, &tm_q, bar_q, c * BOX, h, q0, b);
-      // K of tile j + 1 goes before V of tile j: the consumers' order
-      for (int j = 0; j <= n; ++j) {
-        if (j < n) {
-          const int s = j % STAGES;
-          if (j >= STAGES) mbar_wait(&empty_k[s], ((j / STAGES) & 1) ^ 1);
-          mbar_expect_tx(&full_k[s], L::K_BYTES);
+        for (int c = 0; c < K_BOXES; ++c)
+          tma_load(sK + s * K_BYTES + c * WN * ROW, &tm_k, &full_k[s], c * BOX, kvh,
+                   (it.t_lo + i) * WN, it.b);
+        ++jk;
+      };
+      auto load_v = [&](const Item& it, int i) {
+        const int s = jv % STAGES;
+        if (jv >= STAGES) mbar_wait(&empty_v[s], ((jv / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full_v[s], V_BYTES);
+        const int kvh = it.h / (p.H / p.KV);
 #pragma unroll
-          for (int c = 0; c < K_BOXES; ++c)
-            tma_load(sK + s * L::K_BYTES + c * WN * ROW, &tm_k, &full_k[s], c * BOX, kvh,
-                     (t_lo + j) * WN, b);
+        for (int c = 0; c < V_BOXES; ++c)
+          tma_load(sV + s * V_BYTES + c * WN * ROW, &tm_v, &full_v[s], c * BOX, kvh,
+                   (it.t_lo + i) * WN, it.b);
+        ++jv;
+      };
+      // items in launch order: the first gridDim.x by block, the rest taken
+      // one at a time from a counter, so that the items in flight stay
+      // together in the order and their K/V in L2
+      int x = blockIdx.x;
+      for (int round = 0;; ++round) {
+        const int slot = round & 1;
+        if (round >= 2) mbar_wait(&empty_x[slot], ((round >> 1) & 1) ^ 1);
+        next_x[slot] = x;
+        mbar_arrive(&full_x[slot]);
+        if (x >= items) break;
+        const Item it = item_at(p, x, tiles);
+        if (it.n > 0) load_k(it, 0);
+        for (int w = 0; w < 2; ++w) {
+          // every item's O goes through these rows, so wait for each
+          if (round > 0) mbar_wait(&empty_q[w], (round - 1) & 1);
+          if (it.n > 0) {
+            mbar_expect_tx(&full_q[w], Q_BYTES / 2);
+#pragma unroll
+            for (int c = 0; c < K_BOXES; ++c)
+              tma_load(sQ + c * WM * ROW + w * 64 * ROW, &tm_q, &full_q[w], c * BOX, it.h,
+                       it.q0 + w * 64, it.b);
+          }
         }
-        if (j > 0) {
-          const int i = j - 1, s = i % STAGES;
-          if (i >= STAGES) mbar_wait(&empty_v[s], ((i / STAGES) & 1) ^ 1);
-          mbar_expect_tx(&full_v[s], L::V_BYTES);
-#pragma unroll
-          for (int c = 0; c < V_BOXES; ++c)
-            tma_load(sV + s * L::V_BYTES + c * WN * ROW, &tm_v, &full_v[s], c * BOX, kvh,
-                     (t_lo + i) * WN, b);
+        for (int j = 1; j <= it.n; ++j) {
+          if (j < it.n) load_k(it, j);
+          load_v(it, j - 1);
         }
+        x = gridDim.x + (int)atomicAdd(&p.sched[0], 1u);
+      }
+      // the last block to take its last item sets both counters back to 0
+      __threadfence();
+      if (atomicAdd(&p.sched[1], 1u) == gridDim.x - 1) {
+        p.sched[0] = 0;
+        p.sched[1] = 0;
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
     const int warp = (tid >> 5) & 3, lane = tid & 31;
     const int g = lane >> 2, t4 = lane & 3;   // accumulator row group / column pair
-    const int wq0 = q0 + wg * 64;             // the warpgroup's first q row
-    const int row0 = wq0 + warp * 16 + g, row1 = row0 + 8;
     const uint32_t q_smem = smem_u32(sQ) + wg * 64 * ROW;
-    float o[DV / 2];   // the m64n128 accumulator: 4 values per 8-column block
-#pragma unroll
-    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
-    float m0 = NEG_INF, m1 = NEG_INF;   // running max of rows row0, row1 (raw scores)
-    float l0 = 0.f, l1 = 0.f;           // this thread's share of the normaliser
+    unsigned char* so = sQ + wg * 64 * ROW;   // the warpgroup's rows of Q, then of O
     // The two warpgroups take turns at the tensor cores (named barriers 1
     // and 2, warpgroup 0 first): each issues its S of tile i and its P V of
     // tile i - 1 in its turn, then runs tile i's softmax while the other's
@@ -247,120 +343,149 @@ __global__ void __launch_bounds__(384, 1)
     // until it is done.
     const int me = 1 + wg, other = 2 - wg;
     if (wg == 1) named_arrive(1, CONSUMERS);
-    if (n > 0) {
-      mbar_wait(bar_q, 0);
-      float sc[WN / 2];
-      uint32_t pf[WN / 16][4];
-      float a0, a1;
-      mbar_wait(&full_k[0], 0);
-      named_sync(me, CONSUMERS);
-      qk_product<DK, WM, WN, WN / 2, false>(sc, q_smem, smem_u32(sK));
-      named_arrive(other, CONSUMERS);
-      wgmma_wait_all();
-      pin(sc);
-      mbar_arrive(&empty_k[0]);
-      softmax_tile<WN>(p, sc, t_lo * WN, wq0, row0, t4, m0, m1, l0, l1, a0, a1);
-      pack_p<WN>(sc, pf);
-      for (int i = 1; i < n; ++i) {
-        const int s = i % STAGES, sp = (i - 1) % STAGES;
-        mbar_wait(&full_k[s], (i / STAGES) & 1);
+    int base = 0, loaded = 0;   // kv tiles and Q tiles consumed so far, over all items
+    for (int round = 0;; ++round) {
+      const int slot = round & 1;
+      mbar_wait(&full_x[slot], (round >> 1) & 1);
+      const int x = next_x[slot];
+      mbar_arrive(&empty_x[slot]);
+      if (x >= items) break;
+      const Item it = item_at(p, x, tiles);
+      const int wq0 = it.q0 + wg * 64;   // the warpgroup's first q row
+      const int row0 = wq0 + warp * 16 + g, row1 = row0 + 8;
+      float o[DV / 2];   // the m64n128 accumulator: 4 values per 8-column block
+#pragma unroll
+      for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+      float m0 = NEG_INF, m1 = NEG_INF;   // running max of rows row0, row1 (raw scores)
+      float l0 = 0.f, l1 = 0.f;           // this thread's share of the normaliser
+      const int n = it.n;
+      if (n > 0) {
+        mbar_wait(&full_q[wg], loaded & 1);
+        ++loaded;
+        float sc[WN / 2];
+        uint32_t pf[WN / 16][4];
+        float a0, a1;
+        int s = base % STAGES;
+        mbar_wait(&full_k[s], (base / STAGES) & 1);
         named_sync(me, CONSUMERS);
-        qk_product<DK, WM, WN, WN / 2, false>(sc, q_smem, smem_u32(sK + s * L::K_BYTES));
-        mbar_wait(&full_v[sp], ((i - 1) / STAGES) & 1);
-        pv_product<DV, WN, false>(o, pf, smem_u32(sV + sp * L::V_BYTES));
+        qk_product<DK, WM, WN, WN / 2, false>(sc, q_smem, smem_u32(sK + s * K_BYTES));
         named_arrive(other, CONSUMERS);
-        wgmma_wait_all_but_one();   // S of tile i is done; P V of tile i - 1 may still run
+        wgmma_wait_all();
         pin(sc);
         mbar_arrive(&empty_k[s]);
-        softmax_tile<WN>(p, sc, (t_lo + i) * WN, wq0, row0, t4, m0, m1, l0, l1, a0, a1);
-        wgmma_wait_all();
-        pin(o);
-        mbar_arrive(&empty_v[sp]);
-        pack_p<WN>(sc, pf);
-        rescale(o, a0, a1);
+        softmax_tile(p, sc, it.t_lo * WN, wq0, row0, t4, m0, m1, l0, l1, a0, a1);
+        pack_p(sc, pf);
+        for (int i = 1; i < n; ++i) {
+          const int j = base + i, sp = (j - 1) % STAGES;
+          s = j % STAGES;
+          mbar_wait(&full_k[s], (j / STAGES) & 1);
+          named_sync(me, CONSUMERS);
+          qk_product<DK, WM, WN, WN / 2, false>(sc, q_smem, smem_u32(sK + s * K_BYTES));
+          mbar_wait(&full_v[sp], ((j - 1) / STAGES) & 1);
+          pv_product<DV, WN, false>(o, pf, smem_u32(sV + sp * V_BYTES));
+          named_arrive(other, CONSUMERS);
+          wgmma_wait_all_but_one();   // S of tile i is done; P V of tile i - 1 may still run
+          pin(sc);
+          mbar_arrive(&empty_k[s]);
+          softmax_tile(p, sc, (it.t_lo + i) * WN, wq0, row0, t4, m0, m1, l0, l1, a0, a1);
+          wgmma_wait_all();
+          pin(o);
+          mbar_arrive(&empty_v[sp]);
+          pack_p(sc, pf);
+          rescale(o, a0, a1);
+        }
+        const int jl = base + n - 1;
+        s = jl % STAGES;
+        mbar_wait(&full_v[s], (jl / STAGES) & 1);
+        pv_product<DV, WN>(o, pf, smem_u32(sV + s * V_BYTES));
+        mbar_arrive(&empty_v[s]);
+        base += n;
       }
-      const int sl = (n - 1) % STAGES;
-      mbar_wait(&full_v[sl], ((n - 1) / STAGES) & 1);
-      pv_product<DV, WN>(o, pf, smem_u32(sV + sl * L::V_BYTES));
+
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+      if (p.lse != nullptr && t4 == 0) {   // natural log: m is a raw score, l sums exp2((s - m) sl)
+        float* lb = p.lse + ((size_t)it.b * p.H + it.h) * p.S;
+        const float sc = p.scale_log2 / LOG2E;
+        if (row0 < p.S) lb[row0] = m0 == NEG_INF ? -INFINITY : m0 * sc + logf(l0);
+        if (row1 < p.S) lb[row1] = m1 == NEG_INF ? -INFINITY : m1 * sc + logf(l1);
+      }
+      // O through shared memory: the warpgroup's 64 rows as two 64-column
+      // boxes, swizzled as TMA reads them, into its own rows of Q's first two
+      // boxes (its last S is done; an item with no kv tile first waits until
+      // the last item's store has read them); one thread stores them, rows
+      // past S are not written, and hands the rows back to the producer
+      if (n == 0) named_sync(3 + wg, 128);
+      const int r0 = warp * 16 + g, r1 = r0 + 8;   // r0 & 7 == r1 & 7 == g
+#pragma unroll
+      for (int dt = 0; dt < DV / 8; ++dt) {
+        unsigned char* box = so + (dt / 8) * WM * ROW + (((dt % 8) ^ g) << 4) + t4 * 4;
+        *reinterpret_cast<uint32_t*>(box + r0 * ROW) =
+            pack_bf16(o[4 * dt + 0] * inv0, o[4 * dt + 1] * inv0);
+        *reinterpret_cast<uint32_t*>(box + r1 * ROW) =
+            pack_bf16(o[4 * dt + 2] * inv1, o[4 * dt + 3] * inv1);
+      }
+      fence_proxy_async();
+      named_sync(3 + wg, 128);
+      if ((tid & 127) == 0) {
+        if (wq0 < p.S) {
+#pragma unroll
+          for (int c = 0; c < DV / BOX; ++c)
+            tma_store(&tm_o, so + c * WM * ROW, c * BOX, it.h, wq0, it.b);
+          bulk_commit();
+          bulk_wait_read();
+        }
+        mbar_arrive(&empty_q[wg]);
+      }
     }
     // warpgroup 0 takes the turn warpgroup 1 handed it last, so that each
     // barrier ends with as many arrivals as waits
     if (wg == 0) named_sync(1, CONSUMERS);
-
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-    if (p.lse != nullptr && t4 == 0) {   // natural log: m is a raw score, l sums exp2((s - m) sl)
-      float* lb = p.lse + ((size_t)b * p.H + h) * p.S;
-      const float sc = p.scale_log2 / LOG2E;
-      if (row0 < p.S) lb[row0] = m0 == NEG_INF ? -INFINITY : m0 * sc + logf(l0);
-      if (row1 < p.S) lb[row1] = m1 == NEG_INF ? -INFINITY : m1 * sc + logf(l1);
-    }
-    // O through shared memory: the warpgroup's 64 rows as two 64-column
-    // boxes, swizzled as TMA reads them, into its own rows of Q's first two
-    // boxes (free once its last S is done); one thread stores them, and
-    // rows past S are not written
-    unsigned char* so = sQ + wg * 64 * ROW;
-    const int r0 = warp * 16 + g, r1 = r0 + 8;   // r0 & 7 == r1 & 7 == g
-#pragma unroll
-    for (int dt = 0; dt < DV / 8; ++dt) {
-      unsigned char* box = so + (dt / 8) * WM * ROW + (((dt % 8) ^ g) << 4) + t4 * 4;
-      *reinterpret_cast<uint32_t*>(box + r0 * ROW) =
-          pack_bf16(o[4 * dt + 0] * inv0, o[4 * dt + 1] * inv0);
-      *reinterpret_cast<uint32_t*>(box + r1 * ROW) =
-          pack_bf16(o[4 * dt + 2] * inv1, o[4 * dt + 3] * inv1);
-    }
-    fence_proxy_async();
-    named_sync(3 + wg, 128);
-    if ((tid & 127) == 0 && wq0 < p.S) {
-#pragma unroll
-      for (int c = 0; c < DV / BOX; ++c) tma_store(&tm_o, so + c * WM * ROW, c * BOX, h, wq0, b);
-      bulk_commit();
-      bulk_wait_read();
-    }
   }
 }
 
-template <int WN>
 int launch(const Params& p, const long long* layout, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  int err = encode(&tm_q, p.q, layout, WM);
+  int err = encode(&tm_q, p.q, layout, 64);
   if (!err) err = encode(&tm_k, p.k, layout + 11, WN);
   if (!err) err = encode(&tm_v, p.v, layout + 22, WN);
   if (!err) err = encode(&tm_o, p.o, layout + 33, 64);
   if (err) return err;
-  constexpr size_t smem = Smem<WN>::BYTES;
   static uint32_t opted = 0;
-  err = opt_in_smem(reinterpret_cast<const void*>(flash_fwd_bf16_ws<WN>), smem, opted);
+  err = opt_in_smem(reinterpret_cast<const void*>(flash_fwd_bf16_ws), SMEM_BYTES, opted);
   if (err) return err;
-  const int blocks = p.B * p.H * ((p.S + WM - 1) / WM);
-  flash_fwd_bf16_ws<WN><<<blocks, 384, smem, stream>>>(tm_q, tm_k, tm_v, tm_o, p);
+  const int items = p.B * p.H * ((p.S + WM - 1) / WM);
+  static int sms[32] = {0};   // SMs of each device, read once
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 32 && sms[dev] == 0)
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  const int blocks = min(items, dev < 32 ? sms[dev] : 132);
+  flash_fwd_bf16_ws<<<blocks, 384, SMEM_BYTES, stream>>>(tm_q, tm_k, tm_v, tm_o, p);
   return 0;
 }
 
 }  // namespace
 
 // q: (B, S, H, 192); k: (B, Sk, KV, 192); v: (B, Sk, KV, 128); o: (B, S,
-// H, 128); all bf16, contiguous.  layout: the TMA layouts of q (boxes of
-// 128 rows), k and v (boxes of kv_tile rows) and o (boxes of 64 rows), 11
-// values each.  lse: null,
-// or a (B, H, S) fp32 buffer for each row's logsumexp.  kv_tile: 128 or
-// 64 (kernels/flash_attention.py:KV_TILES).  Returns cudaGetLastError()
-// after the launch, a negative code from encode(), or
-// cudaErrorInvalidValue for head dims or a tile it is not built for.
+// H, 128); all bf16, contiguous.  layout: the TMA layouts of q and o
+// (boxes of 64 rows) and k and v (boxes of kv_tile rows), 11 values each.
+// lse: null, or a (B, H, S) fp32 buffer for each row's logsumexp.
+// kv_tile: 128 (kernels/flash_attention.py:KV_TILES).  sched: the
+// stream's two counters, 0.  Returns cudaGetLastError() after the launch,
+// a negative code from encode(), or cudaErrorInvalidValue for head dims or
+// a tile it is not built for.
 extern "C" int flash_attention_fwd_ws(const void* q, const void* k, const void* v, void* o,
                                       int B, int S, int Sk, int H, int KV, int dk, int dv,
                                       int causal, int window, void* stream,
-                                      const long long* layout, float* lse, int kv_tile) {
+                                      const long long* layout, float* lse, int kv_tile,
+                                      unsigned int* sched) {
   const bool routed = dk == 192 && dv == 128;
-  if (!routed) return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)DK), lse};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err;
-  if (kv_tile == 128) err = launch<128>(p, layout, st);
-  else if (kv_tile == 64) err = launch<64>(p, layout, st);
-  else return (int)cudaErrorInvalidValue;
+  if (!routed || kv_tile != WN) return (int)cudaErrorInvalidValue;
+  Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)DK), lse, sched};
+  const int err = launch(p, layout, static_cast<cudaStream_t>(stream));
   return err ? err : (int)cudaGetLastError();
 }

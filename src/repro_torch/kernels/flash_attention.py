@@ -11,8 +11,7 @@ The bf16 kernel loads its tiles by TMA: this module computes the tensor
 maps' layouts (:func:`tma_layout`) and the C side encodes them.  The
 source's header says what bounds the kernel on the H100 and what its
 design does about it.  bf16 at q/k 192, v 128 (deepseek-v3's MLA) takes
-a kernel of its own, ``csrc/flash_attention_fwd_ws.cu`` (:func:`ws_route`,
-its tiles :func:`fwd_ws_tiles`).
+a kernel of its own, ``csrc/flash_attention_fwd_ws.cu`` (:func:`ws_route`).
 
 :func:`flash_attention_bwd_cuda` launches the gradient's two kernels
 (``csrc/flash_attention_bwd.cu``) from the forward's output and per-row
@@ -49,12 +48,13 @@ BWD_HEAD_DIMS = HEAD_DIMS
 # the head dims whose bf16 forward is csrc/flash_attention_fwd_ws.cu's
 # kernel (flash_fwd_bf16_ws): 128 q rows a block, one block an SM
 WS_HEAD_DIMS = frozenset({(192, 128)})
-# the bf16 kernel's tiles: q rows per block (WM in the source), and by
-# head dims the kv tiles it is built for (WN, rows of K and V a pipeline
+# the bf16 kernels' tiles: q rows per block (WM in the sources), and by
+# head dims the kv tiles they are built for (WN, rows of K and V a pipeline
 # stage holds), the default first.  At q/k dim 256 a 128-key stage does
-# not fit beside Q in 227 KB, so only 64 rows are built there
+# not fit beside Q in 227 KB, so only 64 rows are built there; the MLA
+# kernel (192, 128) is built for 128 rows (64 read slower, PERF.md §6)
 BLOCK_Q = 128
-KV_TILES = {(64, 64): (128, 64), (128, 128): (128, 64), (192, 128): (128, 64),
+KV_TILES = {(64, 64): (128, 64), (128, 128): (128, 64), (192, 128): (128,),
             (256, 256): (64,)}
 # the bf16 backward's tiles (ROWS in csrc/flash_attention_bwd.cu): TMA
 # boxes of 64 rows of q, dO, k and v; its lse / Delta scratch pads S to them
@@ -70,28 +70,6 @@ BOX_COLS = 64
 # rows
 SPLIT_HEAD_DIMS = frozenset({(256, 256), (192, 128)})
 BWD_SPLIT_WAVES = 2
-
-
-class FwdWsTiles(NamedTuple):
-    """The MLA forward kernel's tiles at a kv tile of ``kv_rows`` rows:
-    its K/V stages and the shared bytes they take beside Q's 128 rows (with
-    1024 for alignment and the mbarriers), as
-    csrc/flash_attention_fwd_ws.cu's Smem lays them out."""
-    kv_rows: int
-    stages: int
-    smem_bytes: int
-
-
-def fwd_ws_tiles(kv_rows: int) -> FwdWsTiles:
-    """The tiles of ``flash_fwd_bf16_ws`` at (192, 128) with a kv tile of
-    ``kv_rows`` (128: two stages; 64: four): Q 48 KB, a stage of K and V
-    (192 + 128 columns) 80 or 40 KB, an mbarrier each for Q and, per
-    stage, K and V full and K and V empty."""
-    dk, dv = 192, 128
-    stages = 2 if kv_rows == 128 else 4
-    nbytes = (1024 + BLOCK_Q * dk * 2 + stages * kv_rows * (dk + dv) * 2
-              + 8 * (1 + 4 * stages))
-    return FwdWsTiles(kv_rows, stages, nbytes)
 
 
 class DqTiles(NamedTuple):
@@ -191,11 +169,11 @@ def layout_array(q_shape, q_stride, k_shape, k_stride, q_rows: int, kv_rows: int
 
 def ws_layout_array(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                     kv_rows: int) -> ctypes.Array:
-    """The 44 layout values the MLA forward kernel takes: q's with boxes of
-    BLOCK_Q rows, k's and v's with boxes of ``kv_rows``, and o's with boxes
-    of 64 rows (a consumer warpgroup's), as a C array."""
+    """The 44 layout values the MLA forward kernel takes: q's and o's with
+    boxes of 64 rows (a consumer warpgroup's), k's and v's with boxes of
+    ``kv_rows``, as a C array."""
     parts = tuple((tuple(t.shape), t.stride(), rows)
-                  for t, rows in ((q, BLOCK_Q), (k, kv_rows), (v, kv_rows), (o, 64)))
+                  for t, rows in ((q, 64), (k, kv_rows), (v, kv_rows), (o, 64)))
     return _cached_layouts(parts, parts)
 
 
@@ -241,9 +219,24 @@ def _ws_fn():
     fn = build.library("flash_attention_fwd_ws").flash_attention_fwd_ws
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int])
+                       + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+_SCHED: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _sched_counters(device: torch.device, stream: int) -> torch.Tensor:
+    """The MLA kernel's two item counters for launches on ``stream``: zeros
+    made once, which every launch sets back to 0 as it ends.  Launches on
+    one stream run one after another, so each finds them at 0; another
+    stream has its own pair."""
+    key = (device.index, stream)
+    counters = _SCHED.get(key)
+    if counters is None:
+        counters = _SCHED[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return counters
 
 
 def _bwd_fn():
@@ -327,7 +320,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if ws_route(q.dtype, d, dv):   # the MLA kernel: TMA layouts of q, k, v and o
             err = _ws_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                            b, s, sk, h, kvh, d, dv, int(causal), int(window), stream,
-                           ws_layout_array(q, k, v, o, tile), lse_ptr, tile)
+                           ws_layout_array(q, k, v, o, tile), lse_ptr, tile,
+                           _sched_counters(q.device, stream).data_ptr())
         else:
             layout = None
             if tile:   # the TMA layouts of q, k and v

@@ -126,10 +126,12 @@ def test_device_signature_shape():
 
 def test_candidate_grids():
     """The tiles the Hopper kernels are built for, not VMEM-sized powers of
-    two: the flash forward's kv tile (64 alone at D 256), the SSD chunk."""
-    for dims in ((64, 64), (128, 128), (192, 128)):
+    two: the flash forward's kv tile (64 alone at D 256, 128 alone for
+    MLA's kernel at (192, 128)), the SSD chunk."""
+    for dims in ((64, 64), (128, 128)):
         assert flash_tile_candidates(*dims) == [128, 64]
     assert flash_tile_candidates(256, 256) == [64]
+    assert flash_tile_candidates(192, 128) == [128]
     assert ssd_chunk_candidates(torch.bfloat16) == [64, 128]
     assert ssd_chunk_candidates(torch.float32) == [32, 64, 128]
     assert DEFAULT_SSD_CHUNK in ssd_chunk_candidates(torch.bfloat16)
@@ -450,7 +452,7 @@ _TIMING_SEEDS = range(6)
 
 @pytest.mark.parametrize("seed", _TIMING_SEEDS)
 @pytest.mark.parametrize("grid,default", [
-    ((128, 64), {"kv_tile": 128}),          # flash bf16 at D 64, 128, (192, 128)
+    ((128, 64), {"kv_tile": 128}),          # flash bf16 at D 64, 128
     ((64,), {"kv_tile": 64}),               # flash bf16 at D 256
     ((64, 128), {"chunk": 128}),            # SSD bf16
     ((32, 64, 128), {"chunk": 128}),        # SSD fp32

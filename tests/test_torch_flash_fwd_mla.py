@@ -3,9 +3,10 @@ function it computes, its block order, its tiles and its route.
 
 bf16 attention at q/k head dim 192 and v head dim 128 (deepseek-v3's
 multi-head latent attention) runs ``flash_fwd_bf16_ws``
-(``csrc/flash_attention_fwd_ws.cu``): blocks of 128 q rows in groups of
-ORDER_UNITS (batch, head) units, q tile by q tile, heaviest first; a
-producer warpgroup and two consumer warpgroups over a ring of K/V stages.
+(``csrc/flash_attention_fwd_ws.cu``): a persistent grid whose blocks take
+items of 128 q rows in the launch order, (batch, head) units in groups of
+ORDER_UNITS, q tile by q tile, heaviest first; a producer warpgroup and
+two consumer warpgroups over a ring of K/V stages.
 Its function is ``flash_attention_ref``'s, held here with its row
 logsumexp against the JAX package's ``blockwise_mha`` (the Pallas
 ``flash_attention_bh`` takes one head dim only) on the same numpy inputs.
@@ -28,7 +29,7 @@ import torch
 
 from repro.models.layers import blockwise_mha as jax_blockwise_mha
 from repro_torch.kernels.flash_attention import (BLOCK_Q, HEAD_DIMS, KV_TILES, WS_HEAD_DIMS,
-                                                 fwd_ws_tiles, tma_route, ws_route)
+                                                 tma_route, ws_route)
 from repro_torch.kernels.ref import flash_attention_lse_ref, flash_attention_ref
 
 # fp32: the same function summed in another order
@@ -44,8 +45,8 @@ def _order_units() -> int:
 
 
 def block_order(b: int, h: int, s: int, causal: bool) -> list[tuple[int, int, int]]:
-    """(batch, head, q tile) of each block of the kernel's 1-D grid, in
-    launch order, as the kernel maps blockIdx.x."""
+    """(batch, head, q tile) of each item of a launch, in the order the
+    blocks take them, as the kernel's ``item_at`` maps an item index."""
     units, tiles, group = b * h, -(-s // BLOCK_Q), _order_units()
     out = []
     for x in range(units * tiles):
@@ -62,9 +63,10 @@ def block_order(b: int, h: int, s: int, causal: bool) -> list[tuple[int, int, in
                                           (1, 128, 1024, True)])
 def test_block_order_covers_each_tile_once_heaviest_first(b, h, s, causal):
     """Each (batch, head, q tile) once; within a group of ORDER_UNITS units
-    the causal q tiles run from the last (the most kv tiles) down; and the
-    132 blocks of any wave read the K/V of a few heads: at MLA's B 4 at most
-    four groups, 20 MB of K/V, inside the 50 MB L2."""
+    the causal q tiles run from the last (the most kv tiles) down; and any
+    132 items in a row, the blocks' items in flight, read the K/V of a few
+    heads: at MLA's B 4 at most four groups, 20 MB of K/V, inside the 50 MB
+    L2."""
     order = block_order(b, h, s, causal)
     tiles, group = -(-s // BLOCK_Q), _order_units()
     assert group == 8
@@ -80,24 +82,22 @@ def test_block_order_covers_each_tile_once_heaviest_first(b, h, s, causal):
 
 
 def test_tiles_fit_shared_memory_and_match_the_source():
-    """The kernel's shared memory at each kv tile it is built for (exactly
-    ``KV_TILES[(192, 128)]``): Q of 128 rows (48 KB), its K/V stages (two
-    of 128 rows, four of 64: 160 KB), 1024 bytes for alignment and nine or
-    seventeen mbarriers, within the 232,448 bytes a block can use; the C
-    source's Smem and launcher say the same."""
+    """The kernel's shared memory at the kv tile it is built for (exactly
+    ``KV_TILES[(192, 128)]``), laid out as the C source lays it out: Q of
+    128 rows (48 KB), two K/V stages of 128 rows (80 KB each), 1024 bytes
+    for alignment, sixteen mbarriers (each warpgroup's Q full and empty,
+    two item slots full and empty, K and V full and empty a stage) and the
+    two item slots, within the 232,448 bytes a block can use; the C
+    source's constants and its entry's tile check say the same."""
     src = CSRC.read_text()
-    built = {int(t) for t in re.findall(r"kv_tile == (\d+)\) err = launch<\1>", src)}
-    assert built == set(KV_TILES[(192, 128)]) == {64, 128}
-    smem = re.search(r"struct Smem \{(.*?)\};", src, re.S).group(1)
-    assert re.search(r"STAGES = WN == 128 \? 2 : 4;", smem)
-    assert "8 * (1 + 4 * STAGES)" in smem
-    for kv_rows in KV_TILES[(192, 128)]:
-        t = fwd_ws_tiles(kv_rows)
-        assert t.smem_bytes <= SMEM_BYTES
-        assert t.stages * t.kv_rows == 256
-        assert t.smem_bytes == (1024 + BLOCK_Q * 192 * 2 + t.stages * t.kv_rows * 320 * 2
-                                + 8 * (1 + 4 * t.stages))
-    assert fwd_ws_tiles(128).smem_bytes == 214088
+    (wn,) = KV_TILES[(192, 128)]
+    assert wn == int(re.search(r"constexpr int WN = (\d+);", src).group(1)) == 128
+    assert "kv_tile != WN" in src
+    stages = int(re.search(r"constexpr int STAGES = (\d+);", src).group(1))
+    assert stages == 2
+    assert "1024 + Q_BYTES + STAGES * (K_BYTES + V_BYTES) + 8 * (8 + 4 * STAGES) + 8;" in src
+    nbytes = 1024 + BLOCK_Q * 192 * 2 + stages * wn * (192 + 128) * 2 + 8 * (8 + 4 * stages) + 8
+    assert nbytes == 214152 <= SMEM_BYTES
 
 
 def test_csrc_routes_the_same_head_dims():

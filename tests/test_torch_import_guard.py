@@ -89,13 +89,15 @@ print(json.dumps(sorted(m for m in sys.modules
                                   "repro_torch.roofline.analysis",
                                   "repro_torch.roofline.cost",
                                   "repro_torch.kernels.autotune",
+                                  "repro_torch.kernels.flash_attention",
                                   "repro_torch.launch.mesh",
                                   "repro_torch.launch.env_flags"])
 def test_guard_covers_the_newest_modules(name):
     """The RG-LRU block, the newest configs, the engine, the apps, the sim
-    plane, the analysis plane, the roofline plane, the autotuner and the
-    launch plane are among the modules the guard imports with jax blocked,
-    and among the sources it scans."""
+    plane, the analysis plane, the roofline plane, the autotuner, the
+    launch plane and the flash launcher (which launches the MLA kernel,
+    csrc/flash_attention_fwd_ws.cu) are among the modules the guard
+    imports with jax blocked, and among the sources it scans."""
     assert name in MODULES
     path = PORT.parent.joinpath(*name.split(".")).with_suffix(".py")
     if not path.exists():                       # a package: its __init__

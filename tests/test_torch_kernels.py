@@ -215,17 +215,18 @@ def test_build_is_keyed_by_sources():
 
 def test_kv_tile_rows_by_head_dim():
     """D 256 takes 64-row K/V boxes (two stages fit an SM); D 64 and 128
-    default to 128, and so does MLA's q/k dim 192 (with v dim 128); each
-    of those three is also built with 64-row tiles for the autotuner.  The
-    smoke configs' head dims take the SIMT kernels, which have no kv tile."""
+    default to 128, and so does MLA's q/k dim 192 (with v dim 128); D 64
+    and 128 are also built with 64-row tiles for the autotuner, MLA's
+    kernel with 128 rows alone.  The smoke configs' head dims take the
+    SIMT kernels, which have no kv tile."""
     assert HEAD_DIMS == {(64, 64), (128, 128), (256, 256), (192, 128), (16, 16), (24, 16)}
     assert SIMT_HEAD_DIMS == {(16, 16), (24, 16)}
     assert set(KV_TILES) == HEAD_DIMS - SIMT_HEAD_DIMS
     assert [default_kv_tile(d, dv) for d, dv in ((64, 64), (128, 128), (256, 256), (192, 128))
             ] == [BLOCK_KV, BLOCK_KV, BLOCK_KV_D256, BLOCK_KV]
     assert BLOCK_KV_D256 == 64 and BLOCK_KV == 128
-    assert all(set(KV_TILES[dims]) == {128, 64} for dims in ((64, 64), (128, 128), (192, 128)))
-    assert KV_TILES[(256, 256)] == (64,)
+    assert all(set(KV_TILES[dims]) == {128, 64} for dims in ((64, 64), (128, 128)))
+    assert KV_TILES[(256, 256)] == (64,) and KV_TILES[(192, 128)] == (128,)
 
 
 @pytest.mark.parametrize("dims", sorted(HEAD_DIMS))
