@@ -56,8 +56,8 @@
 // the persistent grid 0.339.  Measured slower: a persistent grid that
 // strides its items (0.425: its blocks drift apart in the order and miss
 // L2), clusters of two CTAs on adjacent q tiles sharing each K/V tile by
-// TMA multicast (0.728), 64-key tiles in four stages (0.400 against
-// 0.366); L2 eviction hints on the loads changed nothing.
+// TMA multicast (0.728), 64-key tiles in four stages; L2 eviction hints
+// on the loads changed nothing.
 
 #include "hopper.cuh"
 
