@@ -7,7 +7,11 @@ Runs from the root of a checkout on a machine with one NVIDIA H100 (or
 another Hopper card) and the CUDA toolkit.  It builds the port's CUDA
 kernels from ``src/repro_torch/kernels/csrc/``, holds each against its
 plain PyTorch version (the flash and SSD backwards against autograd of
-the plain forwards), then drives each ported model at full width (random weights
+the plain forwards), then the SSD kernels at B/C groups (G > 1) and from
+an initial state (``ssd_groups``: both directions against ``ssd_ref`` and
+``ssd_bwd_ref``, and mamba2-780m at full width and depth with 8 groups,
+its prefill against the plain path, its decode at depth 1 and its train
+step's gradients at depth 2), then drives each ported model at full width (random weights
 from ``--seed``) through the port's entry points at full depth, each with
 prefill and teacher-forced decode checked against the kernel-driven
 forward: granite-3-2b (flash attention), mamba2-780m (the SSD scan),
@@ -53,7 +57,9 @@ expert-parallel MoE of olmoe-1b-7b and deepseek-v3-671b against the
 scatter dispatch; the int8 compressor on the step's gradient), then two
 meta-device dry-run cells on the host; last ``train_cli``, the training
 CLI (``repro_torch.launch.train``) on the card at its defaults for all
-ten architectures' smoke configs.  Each phase
+ten architectures' smoke configs; and ``examples``, the port's serving
+and resilient-training examples (``examples/torch/``) on the card, in
+process.  Each phase
 prints one JSON line; any failed check ends the run with a nonzero exit.
 The line before the last is the kernel table
 (``{"kernels": [...]}``), the last line is
@@ -113,8 +119,13 @@ SERVE_ARCHS = ("granite_3_2b", "mamba2_780m", "minitron_4b", "olmoe_1b_7b",
 # phase): deepseek-67b's 95 layers are 135 GB, its first 40 58.7 GB;
 # deepseek-v3-671b's 61 are 1.34 TB, its first 5 (the 3 dense layers and 2
 # of 256-expert MoE, with the embedding, head and MTP block) 54.6 GB.
-# llava-next-34b runs whole (60 layers, 68.8 GB)
-CARD_DEPTH = {"deepseek_67b": 40, "deepseek_v3_671b": 5}
+# gemma3-27b (62 layers, 54 GB) and llava-next-34b (60, 68.8 GB) fit whole
+# and ran whole until the SSD groups and examples phases came in; they run
+# their first 30 layers (five 5:1 units of gemma3), which takes back more
+# than those phases add (the two models' phases took 88 and 70 s of an
+# 1130 s run on an NVIDIA H100 80GB HBM3 at 700.00 W)
+CARD_DEPTH = {"deepseek_67b": 40, "deepseek_v3_671b": 5, "gemma3_27b": 30,
+              "llava_next_34b": 30}
 # the most device memory any phase may hold (max_memory_allocated), of 80 GB
 MAX_PEAK_GB = 76.0
 # the prompt each path prefills (B 4) before its teacher-forced decode: 1024
@@ -446,7 +457,8 @@ def phase_ssd_cases(seed: int) -> list[dict]:
                        vs_chunk128_max_scaled_diff=scaled_err(y, y128),
                        vs_chunk128_tol=CHUNK_TOL[str(dtype)])
         row["ms"] = cuda_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=q))
-        row["plain_ms"] = cuda_ms(lambda: ssd_ref(x, dt, a, bm, cm), iters=2, warmup=1)
+        # one call: the plain scan steps one by one on the host (~0.45 s)
+        row["plain_ms"] = cuda_ms(lambda: ssd_ref(x, dt, a, bm, cm), iters=1, warmup=0)
         row["library_ms"] = None   # no single PyTorch call computes the SSD scan
         bound_ms, bound_by, flops, nbytes = ssd_bound(b, l, h, p, n, q, str(dtype),
                                                       str(a.dtype))
@@ -530,7 +542,8 @@ def phase_ssd_bwd_cases(seed: int) -> list[dict]:
 
         first, again = bwd(), bwd()
         torch.cuda.synchronize()
-        row["bit_equal"] = all(bool(torch.equal(u, w)) for u, w in zip(first, again))
+        # the five gradients (no initial state: its gradient is None)
+        row["bit_equal"] = all(bool(torch.equal(u, w)) for u, w in zip(first[:5], again[:5]))
         row["vs_autograd_bit_equal"] = all(bool(torch.equal(u, w)) for u, w in zip(first, grads))
         del first, again
         row["ms"] = cuda_ms(bwd, iters=5, warmup=1)
@@ -567,6 +580,338 @@ def phase_ssd_bwd_cases(seed: int) -> list[dict]:
         del x, dt, a, bm, cm, dy, leaves, y, grads, ref
         torch.cuda.empty_cache()
     return results
+
+
+# the ssd_groups phase: the SSD kernels at B/C groups (G > 1) and from an
+# initial state.  Kernel cases (name, B, L, H, P, N, G, initial state:
+# None, "x" (x's dtype) or "fp32", chunk, dtype): mamba2-780m's head shape
+# at G 2 and G 8 (6 heads a group), G 8 at Mamba2Config's chunk 256 (the
+# kernels' largest tile, 128) and over a ragged L; the SIMT route in fp32
+# and at the smoke shape (16, 16)
+SSD_GROUP_CASES = [
+    ("g2", 4, 1024, 48, 64, 128, 2, None, 128, torch.bfloat16),
+    ("g2_s0", 4, 1024, 48, 64, 128, 2, "x", 128, torch.bfloat16),
+    ("g8", 4, 1024, 48, 64, 128, 8, None, 256, torch.bfloat16),
+    ("g8_s0", 4, 1024, 48, 64, 128, 8, "x", 256, torch.bfloat16),
+    ("g8_s0_l1000", 4, 1000, 48, 64, 128, 8, "x", 128, torch.bfloat16),
+    ("g8_s0_fp32", 1, 512, 48, 64, 128, 8, "fp32", 128, torch.float32),
+    ("smoke_g2_s0", 2, 64, 8, 16, 16, 2, "x", 32, torch.bfloat16),
+]
+# the split-scan identity: L 1024 against its first 512 steps, then the
+# last 512 from their final state, handed on in fp32 (the fp32 kernel's
+# state over the same first half); the SSD tolerance.  The state as the
+# bf16 kernel returns it, rounded to bf16, read 0.077 on an NVIDIA H100
+# 80GB HBM3 at 700.00 W (y near zero against C S of hundreds): a reading
+# beside the gate, not gated
+SPLIT_TOL = 5e-2
+# da in the ssd_groups cases: max |da - ref| / (1 + max |ref|) over the H
+# heads, not element by element.  A head's da sums dt dda over every (b,
+# step), terms of up to ~1e4 that cancel; the fp32 kernel and the fp32
+# plain version each miss a float64 referee by ~0.01 on a head (the fp32
+# case's ``da_max_abs_err_vs_f64``), which reads ~1e-2 element by element
+# where a head's total lies near 0, for either of them.  The
+# element-by-element figure is kept beside it
+# the model case: mamba2-780m at full width and depth with Hugging Face's
+# Mamba2Config default (and Mamba-Codestral-7B-v0.1's) 8 B/C groups;
+# its train step's loss and gradients at a cut depth, as GRAD_CHECK's
+# mamba2 case (cut, B, S); its decode at depth 1 in fp32 over a 120-token
+# prompt (a chunk of its own) and 8 steps (128 tokens: whole chunks)
+SSD_GROUPS_MODEL = {"n_groups": 8}
+# its prefill runs at full depth (48 layers); the kernel path is held to
+# the plain path on its first 12 layers, the cut CMP_CUT gives the other
+# long comparisons (the plain scan steps one by one on the host: at 48
+# layers the two comparisons took most of this phase's ~65 s)
+SSD_GROUPS_CMP_CUT = {"n_layers": 12}
+# its bf16 prefill logits, kernel path against the plain path (per-row
+# relative L2) on the 12-layer cut: twice the 0.0392 read there (NVIDIA
+# H100 80GB HBM3, 700.00 W; the same in two runs), as BF16_REL_TOL's
+# limits were set (at 48 layers it read 0.241).  The plain path rounds y
+# to bf16 as the kernel does but from exact fp32 products, and depth
+# amplifies the difference.  fp32 holds it to FP32_REL_TOL (8.3e-6)
+SSD_GROUPS_BF16_TOL = 0.08
+SSD_GROUPS_TRAIN_CUT = ({"n_layers": 2}, 2, 512)
+SSD_GROUPS_DECODE = (120, 8)
+
+
+def _group_inputs(gen, b, l, h, p, n, g, s0_kind, dtype):
+    x = torch.randn(b, l, h, p, generator=gen, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda")).to(dtype)
+    a = (-torch.exp(0.3 * torch.randn(h, generator=gen, device="cuda"))).to(dtype)
+    bm, cm = (torch.randn(b, l, g, n, generator=gen, device="cuda").to(dtype) for _ in "bc")
+    s0 = None
+    if s0_kind:
+        s0 = torch.randn(b, h, p, n, generator=gen, device="cuda")
+        s0 = s0 if s0_kind == "fp32" else s0.to(dtype)
+    dy = torch.randn(b, l, h, p, generator=gen, device="cuda").to(dtype)
+    dstate = torch.randn(b, h, p, n, generator=gen, device="cuda").to(dtype)
+    return (x, dt, a, bm, cm), s0, dy, dstate
+
+
+def phase_ssd_groups(seed: int, ssd_cases: list[dict],
+                     ssd_bwd_cases: list[dict]) -> tuple[list[dict], dict[str, dict[str, int]]]:
+    """The SSD kernels at B/C groups and from an initial state: each
+    SSD_GROUP_CASES case through ``ops.ssd_scan``'s autograd (one forward
+    and one backward launch) against ``ssd_ref`` and ``ssd_bwd_ref`` in
+    fp32, y, the final state and all six gradients, two launches bit for
+    bit, with ms, bounds and the G 1 row (``mamba2_prefill``,
+    ``mamba2_train``) beside; the split-scan identity; then the model case
+    (``ssd_groups_model``).  Returns the rows and the model case's launches
+    by path."""
+    from repro_torch.kernels.ops import ssd_scan
+    from repro_torch.kernels.ref import ssd_bwd_ref, ssd_ref
+    from repro_torch.kernels.ssd_scan import (BWD_TILES, bwd_head_block, kernel_chunk,
+                                              ssd_scan_bwd_cuda, ssd_scan_cuda)
+    from repro_torch.roofline.cost import ssd_bound, ssd_bwd_bound
+
+    g1_fwd = next(c for c in ssd_cases if c["case"] == "mamba2_prefill")
+    g1_bwd = next(c for c in ssd_bwd_cases if c["case"] == "mamba2_train")
+    g1 = {"fwd_ms": g1_fwd["ms"], "fwd_bound_frac": g1_fwd["bound_frac"],
+          "bwd_ms": g1_bwd["ms"], "bwd_device_ms": g1_bwd["device_ms"],
+          "bwd_bound_frac": g1_bwd["bound_frac"]}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    names = ("dx", "ddt", "da", "db", "dc", "ds0")
+    rows = []
+    for name, b, l, h, p, n, g, s0_kind, chunk, dtype in SSD_GROUP_CASES:
+        inputs, s0, dy, dstate = _group_inputs(gen, b, l, h, p, n, g, s0_kind, dtype)
+        leaves = [t.detach().requires_grad_() for t in inputs + ((s0,) if s0 is not None else ())]
+        zero_counts()
+        y, st = ssd_scan(*leaves[:5], chunk=chunk,
+                         initial_state=leaves[5] if s0 is not None else None)
+        grads = torch.autograd.grad((y, st), leaves, (dy, dstate))
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        f32 = [t.float() for t in inputs]
+        s0_32 = None if s0 is None else s0.float()
+        ref_y, ref_st = ssd_ref(*f32, s0_32)
+        ref_g = [r for r in ssd_bwd_ref(*f32, dy.float(), dstate.float(),
+                                        initial_state=s0_32) if r is not None]
+        errs = {"y": scaled_err(y, ref_y), "state": scaled_err(st, ref_st)}
+        errs.update({k: scaled_err(gr, r) for k, gr, r in zip(names, grads, ref_g)})
+        # da per head sums dt dda over every (b, step): terms up to ~1e4
+        # that cancel to a head's total, which may lie near 0, so its
+        # rounding scales with the vector (the note after SPLIT_TOL)
+        da_elementwise = errs["da"]
+        errs["da"] = ((grads[2].float() - ref_g[2]).abs().max()
+                      / (1 + ref_g[2].abs().max())).item()
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in (y, st, *grads))
+        if dtype == torch.float32:   # da, kernel and plain version, against float64
+            l64 = [t.detach().double().requires_grad_() for t in leaves]
+            y64, st64 = ssd_in_dtype(*l64[:5], chunk=max(q for q in range(1, 65) if l % q == 0),
+                                     initial_state=l64[5] if s0 is not None else None)
+            da64 = torch.autograd.grad((y64, st64), l64[2], (dy.double(), dstate.double()))[0]
+            da_vs_f64 = {"kernel": (grads[2].double() - da64).abs().max().item(),
+                         "plain": (ref_g[2].double() - da64).abs().max().item(),
+                         "min_abs_da": da64.abs().min().item()}
+            del l64, y64, st64, da64
+        del ref_y, ref_st, ref_g, f32
+
+        def fwd():
+            return ssd_scan_cuda(*inputs, chunk=chunk, initial_state=s0)
+
+        def bwd():
+            return ssd_scan_bwd_cuda(*inputs, dy, dstate, s0)
+
+        first, again = fwd(), fwd()
+        b1, b2 = bwd(), bwd()
+        torch.cuda.synchronize()
+        bit_equal = (all(bool(torch.equal(u, w)) for u, w in zip(first, again))
+                     and all(u is w is None or bool(torch.equal(u, w)) for u, w in zip(b1, b2))
+                     and all(bool(torch.equal(u, w)) for u, w in zip(b1, grads)))
+        del first, again, b1, b2
+        tol = SSD_TOL[str(dtype)]
+        s0_dtype = None if s0 is None else str(s0.dtype)
+        q, tile = kernel_chunk(chunk, dtype, p, n), BWD_TILES[(p, n)]
+        row = {"case": name, "shape": [b, l, h, p, n], "groups": g,
+               "heads_a_group": h // g, "bwd_heads_a_block": bwd_head_block(h, g),
+               "initial_state": s0_dtype, "chunk": chunk, "tile": q, "dtype": str(dtype),
+               "max_scaled_err": errs, "da_elementwise_scaled_err": da_elementwise,
+               "da_max_abs_err_vs_f64": da_vs_f64 if dtype == torch.float32 else None,
+               "tol": tol, "finite": finite, "bit_equal": bit_equal,
+               "launches": launches, "ms": cuda_ms(fwd), "bwd_ms": cuda_ms(bwd, iters=5),
+               "bwd_device_ms": kernel_device_ms(bwd, iters=10)}
+        fb, fby, _, _ = ssd_bound(b, l, h, p, n, q, str(dtype), str(inputs[2].dtype), g=g,
+                                  s0_dtype=s0_dtype)
+        bb_, bby, _, _ = ssd_bwd_bound(b, l, h, p, n, str(dtype), str(inputs[2].dtype),
+                                       tile=tile, g=g, s0_dtype=s0_dtype)
+        row.update(bound_ms=fb, bound_by=fby, bound_frac=fb / row["ms"], bwd_bound_ms=bb_,
+                   bwd_bound_by=bby, bwd_bound_frac=bb_ / row["bwd_ms"],
+                   bwd_device_bound_frac=bb_ / row["bwd_device_ms"], g1=g1)
+        if name == "g8":   # the split-scan identity on this case's inputs
+            x, dt, a, bm, cm = inputs
+            half = l // 2
+            first = (x[:, :half], dt[:, :half].contiguous(), a, bm[:, :half], cm[:, :half])
+            last = (x[:, half:], dt[:, half:].contiguous(), a, bm[:, half:], cm[:, half:])
+            y0, s_half = ssd_scan(*first, chunk=chunk)
+            # the first half's final state handed on in fp32 (the fp32
+            # kernel's), and as the bf16 kernel returns it (a reading)
+            _, s_half32 = ssd_scan(*(t.float() for t in first), chunk=chunk)
+            y1, s_end = ssd_scan(*last, chunk=chunk, initial_state=s_half32)
+            y1_bf, _ = ssd_scan(*last, chunk=chunk, initial_state=s_half)
+            row["split_scan"] = {"y": scaled_err(torch.cat([y0, y1], 1), y),
+                                 "state": scaled_err(s_end, st), "tol": SPLIT_TOL,
+                                 "y_bf16_state": scaled_err(torch.cat([y0, y1_bf], 1), y)}
+            check(max(row["split_scan"]["y"], row["split_scan"]["state"]) <= SPLIT_TOL,
+                  f"ssd_groups {name}: the split scan differs from the whole: "
+                  f"{row['split_scan']}")
+        emit("ssd_groups", **row)
+        worst = max(errs.values())
+        check(worst <= tol and finite, f"ssd_groups {name}: max |out - ref| / (1 + |ref|) = "
+              f"{errs} > {tol}")
+        check(bit_equal, f"ssd_groups {name}: two launches (or autograd's) differ")
+        check(launches["ssd_scan"] == 1 and launches["ssd_scan_bwd"] == 1,
+              f"ssd_groups {name}: autograd launched {launches}")
+        rows.append(row)
+        del inputs, s0, dy, dstate, leaves, y, st, grads
+        torch.cuda.empty_cache()
+    return rows, phase_ssd_groups_model(seed)
+
+
+def phase_ssd_groups_model(seed: int) -> dict[str, dict[str, int]]:
+    """mamba2-780m at full width with SSD_GROUPS_MODEL's 8 B/C groups,
+    random weights from ``seed``: the kernel path's prefill (B 4, S 1024)
+    at full depth, the config's chunk 128 and Mamba2Config's 256 (one
+    tile, bit for bit); then, cut in place to SSD_GROUPS_CMP_CUT, its
+    prefill logits against the plain path (``ssd_ref`` through
+    ``plain_attention(ssd=...)``) in bf16 and, recast in place, in fp32,
+    and decode against the forward at depth 1 in fp32; last the train
+    step's loss and gradients at SSD_GROUPS_TRAIN_CUT against the plain
+    path, each held to float64 (``_grad_check_init``).  Returns the
+    launches by path."""
+    from repro_torch.data import batch_for
+    from repro_torch.distributed.step import batch_to, build_prefill_step
+    from repro_torch.models import materialize, param_defs
+    from repro_torch.models.spec import tree_map
+
+    t0 = time.perf_counter()
+    base = card_config("mamba2_780m")
+    cfg = dataclasses.replace(base, name=f"{base.name}-g{SSD_GROUPS_MODEL['n_groups']}",
+                              ssm=dataclasses.replace(base.ssm, **SSD_GROUPS_MODEL))
+    torch.cuda.reset_peak_memory_stats()
+    params = materialize(param_defs(cfg), seed, "cuda")
+    b, s = 4, 1024
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(b, s), dtype=np.int32)).cuda()
+    prompt = {"inputs": ids}
+    out = {"config": cfg.name, "layers": cfg.n_layers, "n_groups": cfg.ssm.n_groups,
+           "heads": cfg.d_model * cfg.ssm.expand // cfg.ssm.head_dim, "batch": b, "prompt": s}
+    parts = {"init": time.perf_counter() - t0}
+    # -- the main path at full depth: counts zeroed just before, read after
+    t1 = time.perf_counter()
+    want = expected_launches(cfg)
+    zero_counts()
+    logits = build_prefill_step(cfg)(params, prompt)[0]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    c256 = cfg.scaled(ssm=dataclasses.replace(cfg.ssm, chunk=256))
+    out.update(prefill_launches=launches, chunk256_bit_equal=bool(torch.equal(
+        logits, build_prefill_step(c256)(params, prompt)[0])),
+        finite=bool(torch.isfinite(logits.float()).all()))
+    del logits
+    parts["prefill"] = time.perf_counter() - t1
+    # -- the comparisons, on the cut ----------------------------------------
+    params, ccfg = _cut_in_place(params, cfg, cfg.scaled(**SSD_GROUPS_CMP_CUT))
+    torch.cuda.empty_cache()
+    out["cmp_layers"] = ccfg.n_layers
+    for compute in ("bfloat16", "float32"):
+        t1 = time.perf_counter()
+        c = ccfg.scaled(compute_dtype=compute)
+        dtypes = _recast(params, torch.float32) if compute == "float32" else None
+        logits = build_prefill_step(c)(params, prompt)[0]
+        with plain_attention(ssd=_plain_ssd):
+            plain = build_prefill_step(c)(params, prompt)[0]
+        torch.cuda.synchronize()
+        out[compute] = {"kernel_vs_plain_rel_err_max": _rel_rows(logits, plain).max().item(),
+                        "finite": bool(torch.isfinite(logits.float()).all())}
+        del logits, plain
+        if compute == "float32":
+            # decode against the forward on the first layer alone, fp32
+            seg, = params["segments"]
+            params1 = {**params, "segments": [tree_map(lambda t: t[:1], seg)]}
+            sp, steps = SSD_GROUPS_DECODE
+            r = _path_logits(params1, c.scaled(n_layers=1), ids[:, :sp + steps], sp, steps,
+                             timed=False)
+            out["depth1_fp32_decode_rel_err_max"] = _rel_rows(r["got"], r["ref"]).max().item()
+            out["depth1_launches"] = r["launches"]
+            del seg, params1, r
+            _restore(params, dtypes)
+        parts[compute] = time.perf_counter() - t1
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    check(release() < 1.0, "ssd_groups model: memory left allocated")
+    # -- the train step at a cut depth, kernel and plain paths against float64
+    cut, tb, ts = SSD_GROUPS_TRAIN_CUT
+    tcfg = cfg.scaled(**cut)
+    batch = batch_to(batch_for(tcfg, tb, ts, 0, seed=seed), torch.device("cuda"))
+    tparams = materialize(param_defs(tcfg), seed, "cuda")
+    t1 = time.perf_counter()
+    train = _grad_check_init("reference", tparams, batch, tcfg, False)
+    del tparams, batch
+    check(release() < 1.0, "ssd_groups train: memory left allocated")
+    parts["train_grad_check"] = time.perf_counter() - t1
+    out.update(seconds=time.perf_counter() - t0, seconds_by_part=parts, fp32_tol=FP32_REL_TOL,
+               bf16_tol=SSD_GROUPS_BF16_TOL)
+    emit("ssd_groups_model", **out)
+    check(out["finite"] and out["chunk256_bit_equal"],
+          f"ssd_groups model: prefill not finite, or chunk 256 differs from 128: {out}")
+    check(out["prefill_launches"] == want, f"ssd_groups model: prefill launched "
+          f"{out['prefill_launches']}, expected {want}")
+    for compute, tol in (("bfloat16", SSD_GROUPS_BF16_TOL), ("float32", FP32_REL_TOL)):
+        o = out[compute]
+        check(o["finite"], f"ssd_groups model {compute}: logits not finite")
+        check(o["kernel_vs_plain_rel_err_max"] <= tol,
+              f"ssd_groups model {compute}: prefill logits vs the plain path "
+              f"{o['kernel_vs_plain_rel_err_max']} > {tol}")
+    check(out["depth1_fp32_decode_rel_err_max"] <= FP32_REL_TOL,
+          f"ssd_groups model: fp32 decode vs forward at depth 1 "
+          f"{out['depth1_fp32_decode_rel_err_max']} > {FP32_REL_TOL}")
+    return {f"{cfg.name} ssd_groups prefill": launches,
+            f"{cfg.name} ssd_groups train_grad_check": train}
+
+
+def phase_examples() -> dict[str, dict[str, int]]:
+    """The port's examples on the card, in process at small arguments,
+    their printing kept out of this script's output: ``serving.py``
+    (granite's smoke config on three replicas, one killed mid-traffic;
+    every request completes) and ``resilient_training.py`` (30 steps
+    through a host loss, a NaN and a straggler; the loss falls, a restore
+    and the NaN's recovery reported).  Returns the launches by path."""
+    import importlib.util
+    import io
+
+    def example(name: str):
+        spec = importlib.util.spec_from_file_location(f"torch_example_{name}",
+                                                      ROOT / "examples" / "torch" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    runs = {"serving": ["--requests", "8", "--new-tokens", "8", "--replicas", "3"],
+            "resilient_training": ["--steps", "30",
+                                   "--ckpt", str(ROOT / "build" / "chip_smoke_example_ckpt")]}
+    out, launches = {}, {}
+    for name, argv in runs.items():
+        t0 = time.perf_counter()
+        zero_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            res = example(name).main(argv)
+        torch.cuda.synchronize()
+        launches[f"examples {name}"] = launch_counts()
+        out[name] = dict(res, seconds=time.perf_counter() - t0,
+                         printed_lines=len(printed.getvalue().splitlines()),
+                         launches=launches[f"examples {name}"])
+    emit("examples", **out)
+    sv, tr = out["serving"], out["resilient_training"]
+    check(sv["device"].startswith("cuda") and tr["device"].startswith("cuda"),
+          f"examples ran on {sv['device']} and {tr['device']}, not the card")
+    check(sv["completed"] == sv["static_completed"] == sv["requests"] and not sv["failed"]
+          and sv["recoveries"] >= 1, f"examples serving: {sv}")
+    check(tr["last_loss"] < tr["first_loss"] and tr["restores"] >= 1
+          and "NumericalDivergenceError" in tr["recoveries"], f"examples training: {tr}")
+    # serving decodes token by token (no kernel: the reference has no decode
+    # kernel); training runs the flash kernels both ways
+    check(tr["launches"]["flash_attention"] > 0 and tr["launches"]["flash_attention_bwd"] > 0,
+          f"examples training: no kernel launched ({tr['launches']})")
+    return launches
 
 
 def kernel_device_ms(fn, iters: int = 50) -> float:
@@ -1655,43 +2000,44 @@ def attention_in_dtype(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def ssd_in_dtype(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                 c: torch.Tensor, *, chunk: int | None = None):
+                 c: torch.Tensor, *, chunk: int | None = None, initial_state=None):
     """The SSD scan computed in x's dtype (the float64 referee), chunk by
     chunk, differentiable by autograd: the function ``ssd_ref`` computes
-    (masked before the exp).  b, c: (B, L, N) or (B, L, 1, N)."""
-    if b.dim() == 4:
-        b, c = b[:, :, 0], c[:, :, 0]
+    (masked before the exp).  b, c: (B, L, N) or (B, L, G, N), head h
+    reading group h // (H / G); ``initial_state`` (B, H, P, N) or None."""
+    if b.dim() == 3:
+        b, c = b[:, :, None], c[:, :, None]
     bb, l, h, p = x.shape
-    n = b.shape[-1]
+    g, n = b.shape[2], b.shape[3]
+    b, c = b.repeat_interleave(h // g, dim=2), c.repeat_interleave(h // g, dim=2)
     q = chunk or l
     check(l % q == 0, f"ssd_in_dtype: L {l} is not whole chunks of {q}")
     nc = l // q
-    xs, bs, cs = x.reshape(bb, nc, q, h, p), b.reshape(bb, nc, q, n), c.reshape(bb, nc, q, n)
+    xs, bs, cs = (t.reshape(bb, nc, q, h, t.shape[-1]) for t in (x, b, c))
     dts = dt.to(x.dtype).reshape(bb, nc, q, h)
     cum = torch.cumsum(dts * a.to(x.dtype), dim=2)                       # (B, nc, Q, H)
     causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
     lmat = torch.exp(torch.where(causal, cum[:, :, :, None] - cum[:, :, None], -math.inf))
     u = dts[..., None] * xs
-    y = torch.einsum("bcin,bcjn,bcijh,bcjhp->bcihp", cs, bs, lmat, u)
-    upd = torch.einsum("bcjh,bcjhp,bcjn->bchpn", torch.exp(cum[:, :, -1:] - cum), u, bs)
+    y = torch.einsum("bcihn,bcjhn,bcijh,bcjhp->bcihp", cs, bs, lmat, u)
+    upd = torch.einsum("bcjh,bcjhp,bcjhn->bchpn", torch.exp(cum[:, :, -1:] - cum), u, bs)
     keep = torch.exp(cum[:, :, -1])
-    state = x.new_zeros((bb, h, p, n))
+    state = x.new_zeros((bb, h, p, n)) if initial_state is None else initial_state.to(x.dtype)
     s_prev = []
     for ci in range(nc):
         s_prev.append(state)
         state = keep[:, ci, :, None, None] * state + upd[:, ci]
-    y = y + torch.einsum("bcin,bchpn,bcih->bcihp", cs, torch.stack(s_prev, dim=1), torch.exp(cum))
+    y = y + torch.einsum("bcihn,bchpn,bcih->bcihp", cs, torch.stack(s_prev, dim=1),
+                         torch.exp(cum))
     return y.reshape(bb, l, h, p), state
 
 
-def _plain_ssd(x, dt, a, b, c, *, chunk=None):
+def _plain_ssd(x, dt, a, b, c, *, chunk=None, initial_state=None):
     """The SSD kernel's plain version ``ssd_ref`` under autograd, as the model
-    calls the kernel's wrapper."""
+    calls the kernel's wrapper (B/C in groups, an initial state)."""
     from repro_torch.kernels.ref import ssd_ref
 
-    if b.dim() == 4:
-        b, c = b[:, :, 0], c[:, :, 0]
-    return ssd_ref(x, dt, a, b, c)
+    return ssd_ref(x, dt, a, b, c, initial_state)
 
 
 @contextlib.contextmanager
@@ -2952,10 +3298,17 @@ def main() -> int:
     bwd_cases = phase_flash_bwd_cases(args.seed)
     ssd_bwd_cases = phase_ssd_bwd_cases(args.seed)
     seconds["kernels_vs_plain"] = time.perf_counter() - t0
+    # B/C groups and an initial state: the kernels, then mamba2 at G 8;
+    # the model case's counts are zeroed just before each run, read after
+    path_launches = {}
+    t0 = time.perf_counter()
+    group_cases, group_launches = phase_ssd_groups(args.seed, ssd_cases, ssd_bwd_cases)
+    path_launches.update(group_launches)
+    seconds["ssd_groups"] = time.perf_counter() - t0
 
     # -- 4. prefill + decode at full width and depth, 5. serve, per path -----
     # each path's counts are zeroed just before its run and read just after
-    path_launches, resident = {}, {}
+    resident = {}
     for arch in ARCHS:
         t0 = time.perf_counter()
         path_launches[f"{arch} prefill+decode"] = phase_prefill_decode(arch, args.seed)
@@ -3010,9 +3363,14 @@ def main() -> int:
     t0 = time.perf_counter()
     path_launches.update(phase_train_cli())
     seconds["train_cli"] = time.perf_counter() - t0
+
+    # -- 13. the port's examples on the card (serving, resilient training) --
+    t0 = time.perf_counter()
+    path_launches.update(phase_examples())
+    seconds["examples"] = time.perf_counter() - t0
     emit("timing", seconds=seconds, resident_gb_after=resident)
 
-    # -- 13. the kernel table -----------------------------------------------
+    # -- 14. the kernel table -----------------------------------------------
     rows = [("flash_attention", flash_cases, "granite_prefill",
              "src/repro_torch/kernels/csrc/flash_attention.cu"),
             ("flash_attention_bwd", bwd_cases, "granite_train",
@@ -3091,6 +3449,14 @@ def main() -> int:
             "device_ms", "kernel_device_ms", "dq_bound_ms", "dq_bound_by", "dq_bound_frac",
             "shares", "b1", "plain_ms", "bound_ms", "bound_by", "bound_frac", "library_ms",
             "library_device_ms", "vs_library", "library_refused")}
+    # the SSD rows at B/C groups and from an initial state, the G 1 row beside
+    for row, key in ((table[2], ""), (table[3], "bwd_")):
+        row["groups"] = {c["case"]: {k.removeprefix(key): c[k] for k in (
+            f"{key}ms", f"{key}bound_ms", f"{key}bound_by", f"{key}bound_frac")}
+            | {"max_scaled_err": c["max_scaled_err"], "groups": c["groups"],
+               "initial_state": c["initial_state"]}
+            for c in group_cases}
+        row["groups_g1"] = group_cases[0]["g1"]
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

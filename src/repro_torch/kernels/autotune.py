@@ -207,8 +207,14 @@ def flash_key(b: int, s: int, sk: int, h: int, kv: int, dk: int, dv: int, dtype:
             f"_c{int(causal)}_w{window}")
 
 
-def ssd_key(bb: int, l: int, h: int, p: int, n: int, dtype: Any) -> str:
-    return f"b{bb}_l{l}_h{h}_p{p}_n{n}_{_dtype_name(dtype)}"
+def ssd_key(bb: int, l: int, h: int, p: int, n: int, dtype: Any, g: int = 1) -> str:
+    """The reference's key; a call with G > 1 B/C groups adds ``_g{G}``."""
+    key = f"b{bb}_l{l}_h{h}_p{p}_n{n}_{_dtype_name(dtype)}"
+    return key if g == 1 else f"{key}_g{g}"
+
+
+def _ssd_groups(b: torch.Tensor) -> int:
+    return b.shape[2] if b.dim() == 4 else 1
 
 
 def flash_tile_candidates(dk: int, dv: int) -> list[int]:
@@ -323,7 +329,8 @@ def autotune_ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: tor
                       runner: Callable[[dict[str, int]], tuple[Any, float]] | None = None
                       ) -> TuneResult:
     """Sweep the SSD kernel's chunk tile on model-layout CUDA tensors (b, c
-    (B, L, N)); persist the winner.  ``runner`` as for flash."""
+    (B, L, N) or (B, L, G, N)); persist the winner.  ``runner`` as for
+    flash."""
     bb, l, h, p = x.shape
     n = b.shape[-1]
     if runner is None:
@@ -334,7 +341,7 @@ def autotune_ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: tor
     result = _sweep(runner, [{"chunk": ch} for ch in chunks], {"chunk": DEFAULT_SSD_CHUNK},
                     AGREE_TOL["ssd_scan"][x.dtype])
     cache = cache or default_cache()
-    cache.store("ssd_scan", ssd_key(bb, l, h, p, n, x.dtype), result)
+    cache.store("ssd_scan", ssd_key(bb, l, h, p, n, x.dtype, _ssd_groups(b)), result)
     return result
 
 
@@ -384,7 +391,7 @@ def tuned_ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch
         return cache.memo[shape]
     bb, l, h, p = x.shape
     n = b.shape[-1]
-    hit = cache.lookup("ssd_scan", ssd_key(bb, l, h, p, n, x.dtype)) or {}
+    hit = cache.lookup("ssd_scan", ssd_key(bb, l, h, p, n, x.dtype, _ssd_groups(b))) or {}
     chunk = hit.get("chunk")
     if chunk not in CHUNKS.get(x.dtype, ()):
         chunk = (autotune_ssd_scan(x, dt, a, b, c, cache=cache).blocks["chunk"]

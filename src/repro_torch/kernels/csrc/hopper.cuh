@@ -40,6 +40,23 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
+// What an SSD call with B/C groups (G > 1) or an initial state adds: an
+// argument of its own, read only by the kernels' X instantiations, so that
+// the G = 1 instantiations keep their code (more fields in a kernel's
+// Params have made ptxas serialize wgmma in other kernels).
+struct SsdExt {
+  const void* s0;   // (B, H, P, N) contiguous, or null: a zero initial state
+  float* ds0;       // the backward's: (B, H, P, N) fp32, s0's gradient (null: none)
+  int hpg;          // heads a B/C group: head h reads group h / hpg
+  int s0_f32;       // s0 is fp32 (else of x's type T)
+};
+
+// element i of s0, of type T unless it is fp32
+template <typename T>
+__device__ __forceinline__ float ld_s0(const SsdExt& e, size_t i) {
+  return e.s0_f32 ? static_cast<const float*>(e.s0)[i] : to_f(static_cast<const T*>(e.s0)[i]);
+}
+
 // 2^x on the special-function unit
 __device__ __forceinline__ float ex2(float x) {
   float y;

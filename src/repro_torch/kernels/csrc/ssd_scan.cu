@@ -10,6 +10,13 @@
 //          + exp(cs_i) (C_i . state)                              carried state
 //   state  = exp(cs_Q) state + sum_j exp(cs_Q - cs_j) dt_j x_j B_j^T
 //
+// B and C come in G groups dividing H: head h reads group h / (H / G).
+// The state starts from an initial state S_0 where one is given, else
+// from zero.  A call with G > 1 or an S_0 runs the kernels' X
+// instantiations, which take both through an argument of their own
+// (hopper.cuh: SsdExt); G = 1 with no S_0 runs instantiations that read
+// neither (X = false), whose code does not see the argument.
+//
 // Steps past L are dt = 0 identities (exp(0) = 1, dt x = 0): they leave
 // the state as it is, and their y is not written.  y and the final state
 // are written in x's type.  Two kernels: ssd_fwd_bf16 for bf16 inputs
@@ -19,10 +26,12 @@
 // H 48, P 64, N 128, Q 128, bf16) one launch must move about 56 MB (x and
 // y 25.2 MB each, B and C 2.1 MB, the state 3.1 MB, dt 0.4 MB), 0.0167 ms
 // at 3.35 TB/s.  The function needs 7.7 GFLOP (2 per MAC): per chunk C B^T
-// on the causal pairs only, once for all heads (one B/C group), and per
-// head the decay tile times x dt on the same pairs, C . state (none in the
-// first chunk, whose carried state is zero) and the state update; that is
-// 0.0078 ms at 989 TFLOP/s.  So bytes bound it, by 2x.
+// on the causal pairs only, once a B/C group (here one), and per head the
+// decay tile times x dt on the same pairs, C . state (none in the first
+// chunk, whose carried state is zero unless S_0 is given) and the state
+// update; that is 0.0078 ms at 989 TFLOP/s.  So bytes bound it, by 2x.
+// At G 8 from a bf16 S_0 (B and C 16.8 MB, S_0 3.1 MB) 73.8 MB, 0.0220 ms of
+// bytes (roofline/cost.py:ssd_bound).
 //
 // What the bf16 design does about it:
 //  * The TPU grid's sequential chunk axis is a loop inside one block per
@@ -69,7 +78,7 @@
 //    vectors) while warpgroup 1 finishes its rows.
 //  * 165 KB of shared memory and up to 170 registers a thread: one block
 //    an SM, so the 192 blocks of the prefill run in two waves.  C B^T is
-//    still computed once per head (G = 1 would let heads share it).
+//    computed once per head (the heads of a group could share it).
 //
 // What the measurements say still holds it back (0.100 ms at mamba2's
 // prefill, 17% of the byte bound; probes that drop one piece each, timed
@@ -142,8 +151,8 @@ constexpr size_t smem_bytes() {
                           (size_t)P_ * ST::NS + 3 * Q);
 }
 
-template <int Q, int P_, int N_, typename T, typename TA>
-__global__ void __launch_bounds__(NT) ssd_fwd(Params prm) {
+template <int Q, int P_, int N_, typename T, typename TA, bool X>
+__global__ void __launch_bounds__(NT) ssd_fwd(Params prm, SsdExt ext) {
   static_assert(Q % 32 == 0 && Q <= NT, "chunk must be 32, 64 or 128");
   static_assert(P_ % 16 == 0 && N_ % 16 == 0, "P and N must be multiples of 16");
   static_assert(NT % N_ == 0 && NT % P_ == 0 && (Q * N_) % NT == 0 && (Q * P_) % NT == 0,
@@ -166,13 +175,22 @@ __global__ void __launch_bounds__(NT) ssd_fwd(Params prm) {
   // this (b, h)'s rows at step 0; step l is l strides further on
   const T* xg = static_cast<const T*>(prm.x) + bi * prm.xs_b + h * P;
   const T* dtg = static_cast<const T*>(prm.dt) + (size_t)bi * L * H + h;
-  const T* bg = static_cast<const T*>(prm.b) + bi * prm.bs_b;
-  const T* cg = static_cast<const T*>(prm.c) + bi * prm.cs_b;
+  // this head's B/C group (X: the groups of a step lie N apart)
+  const int grp = X ? h / ext.hpg : 0;
+  const T* bg = static_cast<const T*>(prm.b) + bi * prm.bs_b + grp * N;
+  const T* cg = static_cast<const T*>(prm.c) + bi * prm.cs_b + grp * N;
   const long long xs_l = prm.xs_l, bs_l = prm.bs_l, cs_l = prm.cs_l;
   T* yg = static_cast<T*>(prm.y);
   const float a = ld(static_cast<const TA*>(prm.a) + h);
 
-  for (int e = t; e < P * NS; e += NT) sts[e] = 0.f;
+  if (X && ext.s0 != nullptr) {   // the initial state, else zero
+    for (int e = t; e < P * NS; e += NT) {
+      const int pp = e / NS, n = e % NS;
+      sts[e] = n < N ? ld_s0<T>(ext, ((size_t)bh * P + pp) * N + n) : 0.f;
+    }
+  } else {
+    for (int e = t; e < P * NS; e += NT) sts[e] = 0.f;
+  }
 
   // (Q x P) and (Q x Q) products: rows i = ti + RI r, columns tc + 16 k
   constexpr int RI = NT / 16;
@@ -355,23 +373,30 @@ __global__ void __launch_bounds__(NT) ssd_fwd(Params prm) {
   for (int e = t; e < P * N; e += NT) store_f(sg + e, sts[(e / N) * NS + e % N]);
 }
 
-template <int Q, int P_, int N_, typename T, typename TA>
-int launch(const Params& p, int blocks, cudaStream_t stream) {
+template <int Q, int P_, int N_, typename T, typename TA, bool X>
+int launch(const Params& p, const SsdExt& ext, int blocks, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<Q, P_, N_>();
   // above 48 KB the launch is refused unless the kernel opts in
-  cudaError_t err = cudaFuncSetAttribute(ssd_fwd<Q, P_, N_, T, TA>,
+  cudaError_t err = cudaFuncSetAttribute(ssd_fwd<Q, P_, N_, T, TA, X>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ssd_fwd<Q, P_, N_, T, TA><<<blocks, NT, smem, stream>>>(p);
+  ssd_fwd<Q, P_, N_, T, TA, X><<<blocks, NT, smem, stream>>>(p, ext);
   return (int)cudaGetLastError();
 }
 
+template <int Q, int P_, int N_, typename T, typename TA>
+int launch_x(const Params& p, const SsdExt& ext, bool x, int blocks, cudaStream_t stream) {
+  return x ? launch<Q, P_, N_, T, TA, true>(p, ext, blocks, stream)
+           : launch<Q, P_, N_, T, TA, false>(p, ext, blocks, stream);
+}
+
 template <int P_, int N_, typename T, typename TA>
-int by_chunk(const Params& p, int blocks, int q, cudaStream_t stream) {
+int by_chunk(const Params& p, const SsdExt& ext, bool x, int blocks, int q,
+             cudaStream_t stream) {
   switch (q) {
-    case 32: return launch<32, P_, N_, T, TA>(p, blocks, stream);
-    case 64: return launch<64, P_, N_, T, TA>(p, blocks, stream);
-    case 128: return launch<128, P_, N_, T, TA>(p, blocks, stream);
+    case 32: return launch_x<32, P_, N_, T, TA>(p, ext, x, blocks, stream);
+    case 64: return launch_x<64, P_, N_, T, TA>(p, ext, x, blocks, stream);
+    case 128: return launch_x<128, P_, N_, T, TA>(p, ext, x, blocks, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -462,12 +487,12 @@ __device__ __forceinline__ void scan_chunk(float* set, const float (&dtv)[Q / 32
   }
 }
 
-template <int Q, typename TA>
+template <int Q, typename TA, bool X>
 __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
     ssd_fwd_bf16(const __grid_constant__ CUtensorMap tm_x,
                  const __grid_constant__ CUtensorMap tm_b,
                  const __grid_constant__ CUtensorMap tm_c,
-                 const __grid_constant__ CUtensorMap tm_y, BfParams prm) {
+                 const __grid_constant__ CUtensorMap tm_y, BfParams prm, SsdExt ext) {
   using TL = Tile<Q>;
   constexpr int NWG = TL::NWG, NW = TL::NW, PER = Q / 32;
   extern __shared__ unsigned char smem_raw[];
@@ -498,18 +523,22 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
   // this thread's accumulator rows: chunk rows row0 and row0 + 8, and
   // state rows p0 and p0 + 8
   const int p0 = warp * 16 + g, row0 = wg * 64 + p0;
+  // this head's B/C group, the tensor maps' group coordinate; X with an
+  // initial state carries it into the first chunk too
+  const int grp = X ? h / ext.hpg : 0;
+  const bool has_s0 = X && ext.s0 != nullptr;
 
   auto load_c = [&](int ch) {   // chunk ch's C
     mbar_expect_tx(full_c, TL::CB_BYTES);
 #pragma unroll
     for (int c = 0; c < N / BOX; ++c)
-      tma_load(sC + c * Q * ROW, &tm_c, full_c, c * BOX, 0, ch * Q, bi);
+      tma_load(sC + c * Q * ROW, &tm_c, full_c, c * BOX, grp, ch * Q, bi);
   };
   auto load_bx = [&](int ch) {  // chunk ch's B and x
     mbar_expect_tx(full_bx, TL::CB_BYTES + TL::X_BYTES);
 #pragma unroll
     for (int c = 0; c < N / BOX; ++c)
-      tma_load(sB + c * Q * ROW, &tm_b, full_bx, c * BOX, 0, ch * Q, bi);
+      tma_load(sB + c * Q * ROW, &tm_b, full_bx, c * BOX, grp, ch * Q, bi);
     tma_load(sX, &tm_x, full_bx, 0, h, ch * Q, bi);
   };
 
@@ -534,8 +563,41 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
   // the fp32 state, (P x NW) of it in each warpgroup: the accumulator of
   // the update, kept in registers from the first chunk to the last
   float state[NW / 2];
+  // the state's hi and lo bf16 copies for C . state, written as TMA would
+  // (K-major, 128-byte swizzle)
+  auto write_copies = [&]() {
 #pragma unroll
-  for (int i = 0; i < NW / 2; ++i) state[i] = 0.f;
+    for (int nb = 0; nb < NW / 8; ++nb) {
+      const int n = wg * NW + nb * 8 + 2 * t4;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int pr = p0 + 8 * r;
+        const uint32_t off = (n / BOX) * (P * ROW) + pr * ROW + (n % BOX) * 2;
+        const uint32_t swz = off ^ ((pr & 7) << 4);
+        split_bf16(state[4 * nb + 2 * r], state[4 * nb + 2 * r + 1],
+                   *reinterpret_cast<uint32_t*>(sStHi + swz),
+                   *reinterpret_cast<uint32_t*>(sStLo + swz));
+      }
+    }
+    fence_proxy_async();
+  };
+  if (has_s0) {   // the initial state, and its copies for the first chunk
+    const size_t s0b = (size_t)bh * P * N;
+#pragma unroll
+    for (int nb = 0; nb < NW / 8; ++nb) {
+      const int n = wg * NW + nb * 8 + 2 * t4;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+          state[4 * nb + 2 * r + k] = ld_s0<__nv_bfloat16>(ext, s0b + (p0 + 8 * r) * N + n + k);
+    }
+    write_copies();
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) state[i] = 0.f;
+  }
 
   for (int ch = 0; ch < nchunks; ++ch) {
     const uint32_t phase = ch & 1;   // of both full barriers: one load each a chunk
@@ -552,7 +614,7 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
     float y[P / 2];
 #pragma unroll
     for (int i = 0; i < P / 2; ++i) y[i] = 0.f;
-    if (ch > 0) {   // the first chunk's carried state is zero
+    if (ch > 0 || has_s0) {   // the first chunk's carried state is zero unless given
       qk_product<N, Q, P>(y, smem_u32(sC) + wg * 64 * ROW, smem_u32(sStHi));
       qk_product<N, Q, P>(y, smem_u32(sC) + wg * 64 * ROW, smem_u32(sStLo), true);
       const float e0 = ex2(c0h + c0l), e1 = ex2(c1h + c1l);
@@ -670,24 +732,8 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
       wgmma_wait_all();
       pin(state);
     }
-    // -- the state's hi and lo bf16 copies for the next chunk's C . state,
-    //    written as TMA would (K-major, 128-byte swizzle) ----------------
-    if (ch + 1 < nchunks) {
-#pragma unroll
-      for (int nb = 0; nb < NW / 8; ++nb) {
-        const int n = wg * NW + nb * 8 + 2 * t4;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int pr = p0 + 8 * r;
-          const uint32_t off = (n / BOX) * (P * ROW) + pr * ROW + (n % BOX) * 2;
-          const uint32_t swz = off ^ ((pr & 7) << 4);
-          split_bf16(state[4 * nb + 2 * r], state[4 * nb + 2 * r + 1],
-                     *reinterpret_cast<uint32_t*>(sStHi + swz),
-                     *reinterpret_cast<uint32_t*>(sStLo + swz));
-        }
-      }
-      fence_proxy_async();
-    }
+    // -- the state's hi and lo copies for the next chunk's C . state ----
+    if (ch + 1 < nchunks) write_copies();
     __syncthreads();   // B and x are read, the state copies written
     if (tid == 0 && ch + 1 < nchunks) load_bx(ch + 1);
   }
@@ -704,9 +750,9 @@ __global__ void __launch_bounds__(Tile<Q>::THREADS, Tile<Q>::BLOCKS_PER_SM)
   if ((tid & 127) == 0) bulk_wait();
 }
 
-template <int Q, typename TA>
-int launch_bf16(const BfParams& p, const void* x, const void* b, const void* c,
-                const long long* layout, int blocks, cudaStream_t stream) {
+template <int Q, typename TA, bool X>
+int launch_bf16(const BfParams& p, const SsdExt& ext, const void* x, const void* b,
+                const void* c, const long long* layout, int blocks, cudaStream_t stream) {
   CUtensorMap tm_x, tm_b, tm_c, tm_y;
   int err = encode(&tm_x, x, layout, Q);
   if (!err) err = encode(&tm_b, b, layout + 11, Q);
@@ -715,35 +761,47 @@ int launch_bf16(const BfParams& p, const void* x, const void* b, const void* c,
   if (err) return err;
   constexpr size_t smem = Tile<Q>::BYTES;
   static uint32_t opted = 0;   // a bit per device
-  err = opt_in_smem(reinterpret_cast<const void*>(ssd_fwd_bf16<Q, TA>), smem, opted);
+  err = opt_in_smem(reinterpret_cast<const void*>(ssd_fwd_bf16<Q, TA, X>), smem, opted);
   if (err) return err;
-  ssd_fwd_bf16<Q, TA><<<blocks, Tile<Q>::THREADS, smem, stream>>>(tm_x, tm_b, tm_c, tm_y, p);
+  ssd_fwd_bf16<Q, TA, X><<<blocks, Tile<Q>::THREADS, smem, stream>>>(tm_x, tm_b, tm_c, tm_y, p,
+                                                                     ext);
   return (int)cudaGetLastError();
 }
 
+template <int Q, typename TA>
+int bf16_x(const BfParams& p, const SsdExt& ext, bool x_ext, const void* x, const void* b,
+           const void* c, const long long* layout, int blocks, cudaStream_t stream) {
+  return x_ext ? launch_bf16<Q, TA, true>(p, ext, x, b, c, layout, blocks, stream)
+               : launch_bf16<Q, TA, false>(p, ext, x, b, c, layout, blocks, stream);
+}
+
 template <typename TA>
-int bf16_by_chunk(const BfParams& p, const void* x, const void* b, const void* c,
-                  const long long* layout, int blocks, int q, cudaStream_t stream) {
+int bf16_by_chunk(const BfParams& p, const SsdExt& ext, bool x_ext, const void* x,
+                  const void* b, const void* c, const long long* layout, int blocks, int q,
+                  cudaStream_t stream) {
   switch (q) {
-    case 64: return launch_bf16<64, TA>(p, x, b, c, layout, blocks, stream);
-    case 128: return launch_bf16<128, TA>(p, x, b, c, layout, blocks, stream);
+    case 64: return bf16_x<64, TA>(p, ext, x_ext, x, b, c, layout, blocks, stream);
+    case 128: return bf16_x<128, TA>(p, ext, x_ext, x, b, c, layout, blocks, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// x, y: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, N); state:
-// (B, H, P, N).  x, b and c are read through their batch and step
-// strides (xs_*, bs_*, cs_*, in elements), so they may be views of one
-// wider tensor; each (H, P) row of x and each N row of b and c is
-// contiguous.  dt, a, y and state are contiguous.  x, dt, b, c, y, state
+// x, y: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, G, N), G =
+// groups dividing H, head h reading group h / (H / G); state: (B, H, P,
+// N).  x, b and c are read through their batch and step strides (xs_*,
+// bs_*, cs_*, in elements), so they may be views of one wider tensor;
+// each (H, P) row of x and each step's (G, N) row of b and c is
+// contiguous.  s0: the initial state (B, H, P, N) contiguous, fp32 if
+// s0_f32 else of x's type, or null (zero).  G > 1 or an s0 runs the X
+// instantiations.  dt, a, y and state are contiguous.  x, dt, b, c, y, state
 // are of one type (bf16 if is_bf16 else fp32), a bf16 if a_is_bf16 else
 // fp32.  (P, N) is (64, 128), bf16 on the wgmma kernel, fp32 on the SIMT
 // one (a fp32); or (16, 16), the SIMT kernel in either dtype.  q is the
 // chunk: 64 or 128 on the wgmma kernel, 32, 64 or 128 on the SIMT one.
 // layout: for the wgmma kernel, the TMA layouts of x (viewed as (B, L, H,
-// P)), b and c (each viewed as (B, L, 1, N)) with boxes of q rows, as
+// P)), b and c (each viewed as (B, L, G, N)) with boxes of q rows, as
 // kernels/ssd_scan.py:tma_layouts computes them, and of y with boxes of
 // 64 rows, 11 values each; unused for the SIMT kernel.
 // Returns cudaGetLastError() after the launch, or a negative code from
@@ -753,24 +811,28 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* a, const 
                             int p_dim, int n_dim, int q, int is_bf16, int a_is_bf16,
                             long long xs_b, long long xs_l, long long bs_b, long long bs_l,
                             long long cs_b, long long cs_l, void* stream,
-                            const long long* layout) {
-  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+                            const long long* layout, const void* s0, int s0_f32, int groups) {
+  if (B <= 0 || L <= 0 || H <= 0 || groups <= 0 || H % groups) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = B * H;
   Params sp{x, dt, a, b, c, y, state, L, H, xs_b, xs_l, bs_b, bs_l, cs_b, cs_l};
+  const SsdExt ext{s0, nullptr, H / groups, s0_f32};
+  const bool xe = groups > 1 || s0 != nullptr;
   if (p_dim == 16 && n_dim == 16) {   // the smoke config: SIMT in either dtype
     if (!is_bf16) return a_is_bf16 ? (int)cudaErrorInvalidValue
-                                   : by_chunk<16, 16, float, float>(sp, blocks, q, st);
-    if (a_is_bf16) return by_chunk<16, 16, __nv_bfloat16, __nv_bfloat16>(sp, blocks, q, st);
-    return by_chunk<16, 16, __nv_bfloat16, float>(sp, blocks, q, st);
+                                   : by_chunk<16, 16, float, float>(sp, ext, xe, blocks, q, st);
+    if (a_is_bf16)
+      return by_chunk<16, 16, __nv_bfloat16, __nv_bfloat16>(sp, ext, xe, blocks, q, st);
+    return by_chunk<16, 16, __nv_bfloat16, float>(sp, ext, xe, blocks, q, st);
   }
   if (p_dim != P || n_dim != N) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     if (layout == nullptr) return (int)cudaErrorInvalidValue;
     BfParams p{dt, a, y, state, L, H};
-    if (a_is_bf16) return bf16_by_chunk<__nv_bfloat16>(p, x, b, c, layout, blocks, q, st);
-    return bf16_by_chunk<float>(p, x, b, c, layout, blocks, q, st);
+    if (a_is_bf16)
+      return bf16_by_chunk<__nv_bfloat16>(p, ext, xe, x, b, c, layout, blocks, q, st);
+    return bf16_by_chunk<float>(p, ext, xe, x, b, c, layout, blocks, q, st);
   }
-  if (!a_is_bf16) return by_chunk<P, N, float, float>(sp, blocks, q, st);
+  if (!a_is_bf16) return by_chunk<P, N, float, float>(sp, ext, xe, blocks, q, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,7 +4,14 @@
 // src/repro/kernels/ssd_scan.py:ssd_scan_kernel.  The Pallas kernel is
 // forward-only: the JAX package trains through autodiff of the jnp
 // ssd_scan (src/repro/models/ssm.py), and these kernels compute that
-// gradient with one B/C group (G = 1) and no initial state.
+// gradient at any B/C group count G dividing H (head h reads group h /
+// (H / G); dB and dC sum over a group's heads) and from an optional
+// initial state S_0, whose gradient is dS carried back past the first
+// chunk:  dS_0 = e^{cs_last} dS' + sum_i e^{cs_i} dy_i C_i^T over chunk 0.
+// A call with G > 1 or an S_0 runs the kernels' X instantiations, which
+// take both through an argument of their own (hopper.cuh: SsdExt); G = 1
+// with no S_0 runs instantiations that read neither (X = false), whose
+// code does not see the argument.
 //
 // Per (b, h), a chunk of Q steps with in-chunk cumulative sums cs of da =
 // dt a, u_j = dt_j x_j and S the state entering the chunk (P x N):
@@ -55,8 +62,9 @@
 //     out as the 128-byte swizzle puts them in shared memory (32 KB a (b h,
 //     chunk) each: the bytes of fp32), so that kernel 3 takes each with
 //     plain bulk copies.
-//  3. ssd_bwd_chunks, a block per (b, chunk, group of HG heads), two
-//     warpgroups: C B^T once a chunk for the group's heads (warpgroup 0
+//  3. ssd_bwd_chunks, a block per (b, chunk, block of HG heads of one B/C
+//     group; a group's last block may be short), two
+//     warpgroups: C B^T once a chunk for the block's heads (warpgroup 0
 //     keeps it as G^T in registers), then per head, its tiles (x and dy by
 //     TMA, S and dS by bulk copy) double-buffered across the heads:
 //       warpgroup 0: du = B dS^T (scaled by e^{cs_last - cs_j}) + W^T dy,
@@ -71,13 +79,15 @@
 //     warp shuffles, and one warp of warpgroup 1 turns them into dcs, its
 //     in-chunk reverse sum dda (a warp scan in fp64), ddt and the head's
 //     share of da while the others go on to the next head.  dB and dC are
-//     summed over the group's heads in the accumulators and written once a
-//     group as fp32 (B, L, H / HG, N); da per (b, chunk, h).  The launcher
-//     sums each in one ordered torch sum: no atomics, bit for bit.
+//     summed over the block's heads in the accumulators and written once a
+//     block as fp32 (B, L, blocks, N), each group's blocks in turn; da per
+//     (b, chunk, h).  The launcher sums each over a group's blocks in one
+//     ordered torch sum: no atomics, bit for bit.
 //
 // One backward call runs these three kernels, then the launcher's three
 // ordered torch sums and their casts.  HG is 12 (kernels/ssd_scan.py:
-// BWD_HEAD_GROUP): on an H100 a sweep of 1-48 heads (event times) put
+// BWD_HEAD_GROUP), or a group's H / G heads where fewer (6 at G 8 on 48
+// heads, bwd_head_block): on an H100 a sweep of 1-48 heads (event times) put
 // 12-24 first, and of 4, 8, 12 and 16 (the profiler's device time of a
 // call) 12 was least at both B 4 and B 2.  Fewer heads a group add blocks
 // but also partial bytes and block starts, whose first loads nothing
@@ -205,8 +215,8 @@ struct Smem {
   static_assert(BYTES <= 232448, "over the shared memory of an SM");
 };
 
-template <int Q, int P, int N, typename T, typename TA>
-__global__ void __launch_bounds__(NT, 1) ssd_bwd(Params prm) {
+template <int Q, int P, int N, typename T, typename TA, bool X>
+__global__ void __launch_bounds__(NT, 1) ssd_bwd(Params prm, SsdExt ext) {
   static_assert(Q % 32 == 0 && Q <= 128, "tiles of 32, 64 or 128 steps");
   static_assert(P % 16 == 0 && N % 16 == 0, "P and N must be multiples of 16");
   using SM = Smem<Q, P, N>;
@@ -241,8 +251,9 @@ __global__ void __launch_bounds__(NT, 1) ssd_bwd(Params prm) {
   // this (b, h)'s rows at step 0; step l is l strides further on
   const T* xg = static_cast<const T*>(prm.x) + bi * prm.xs_b + h * P;
   const T* dtg = static_cast<const T*>(prm.dt) + (size_t)bi * L * H + h;
-  const T* bg = static_cast<const T*>(prm.b) + bi * prm.bs_b;
-  const T* cg = static_cast<const T*>(prm.c) + bi * prm.cs_b;
+  const int grp = X ? h / ext.hpg : 0;   // this head's B/C group, N apart in a step
+  const T* bg = static_cast<const T*>(prm.b) + bi * prm.bs_b + grp * N;
+  const T* cg = static_cast<const T*>(prm.c) + bi * prm.cs_b + grp * N;
   const T* dyg = static_cast<const T*>(prm.dy) + (size_t)bi * L * H * P + h * P;
   T* dxg = static_cast<T*>(prm.dx) + (size_t)bi * L * H * P + h * P;
   T* ddtg = static_cast<T*>(prm.ddt) + (size_t)bi * L * H + h;
@@ -305,7 +316,14 @@ __global__ void __launch_bounds__(NT, 1) ssd_bwd(Params prm) {
   };
 
   // -- pass 1: the state entering each tile, into the scratch ---------------
-  for (int e = t; e < P * NS; e += NT) sS[e] = 0.f;
+  if (X && ext.s0 != nullptr) {   // from the initial state, else zero
+    for (int e = t; e < P * NS; e += NT) {
+      const int pp = e / NS, n = e % NS;
+      sS[e] = n < N ? ld_s0<T>(ext, ((size_t)bh * P + pp) * N + n) : 0.f;
+    }
+  } else {
+    for (int e = t; e < P * NS; e += NT) sS[e] = 0.f;
+  }
   __syncthreads();
   for (int tile = 0; tile < ntiles; ++tile) {
     const int l0 = tile * Q;
@@ -533,27 +551,36 @@ __global__ void __launch_bounds__(NT, 1) ssd_bwd(Params prm) {
     __syncthreads();   // before the next tile restages
   }
   if (t == 0) prm.da_part[bh] = (float)da_acc;
+  if (X && ext.ds0 != nullptr)   // dS carried back past the first tile: s0's gradient
+    for (int e = t; e < P * N; e += NT) ext.ds0[(size_t)bh * P * N + e] = sDS[(e / N) * NS + e % N];
 }
 
-template <int Q, int P, int N, typename T, typename TA>
-int launch(const Params& p, int blocks, cudaStream_t stream) {
+template <int Q, int P, int N, typename T, typename TA, bool X>
+int launch(const Params& p, const SsdExt& ext, int blocks, cudaStream_t stream) {
   constexpr size_t smem = Smem<Q, P, N>::BYTES;
   static uint32_t opted = 0;   // a bit per device
-  const int err = opt_in_smem(reinterpret_cast<const void*>(ssd_bwd<Q, P, N, T, TA>), smem,
+  const int err = opt_in_smem(reinterpret_cast<const void*>(ssd_bwd<Q, P, N, T, TA, X>), smem,
                               opted);
   if (err) return err;
-  ssd_bwd<Q, P, N, T, TA><<<blocks, NT, smem, stream>>>(p);
+  ssd_bwd<Q, P, N, T, TA, X><<<blocks, NT, smem, stream>>>(p, ext);
   return (int)cudaGetLastError();
 }
 
+template <int Q, int P, int N, typename T, typename TA>
+int launch_x(const Params& p, const SsdExt& ext, bool x, int blocks, cudaStream_t stream) {
+  return x ? launch<Q, P, N, T, TA, true>(p, ext, blocks, stream)
+           : launch<Q, P, N, T, TA, false>(p, ext, blocks, stream);
+}
+
 template <int Q, int P, int N>
-int by_dtype(const Params& p, int blocks, int is_bf16, int a_is_bf16, cudaStream_t stream) {
+int by_dtype(const Params& p, const SsdExt& ext, bool x, int blocks, int is_bf16,
+             int a_is_bf16, cudaStream_t stream) {
   if (!is_bf16) {
     if (a_is_bf16) return (int)cudaErrorInvalidValue;
-    return launch<Q, P, N, float, float>(p, blocks, stream);
+    return launch_x<Q, P, N, float, float>(p, ext, x, blocks, stream);
   }
-  if (a_is_bf16) return launch<Q, P, N, __nv_bfloat16, __nv_bfloat16>(p, blocks, stream);
-  return launch<Q, P, N, __nv_bfloat16, float>(p, blocks, stream);
+  if (a_is_bf16) return launch_x<Q, P, N, __nv_bfloat16, __nv_bfloat16>(p, ext, x, blocks, stream);
+  return launch_x<Q, P, N, __nv_bfloat16, float>(p, ext, x, blocks, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -652,11 +679,14 @@ __device__ __forceinline__ void stage_parts(unsigned char* hi, unsigned char* lo
 // blockIdx: (b h, 64-column slice, direction).  Direction 0 walks chunks
 // 0 .. nc-2 forward and writes S entering chunks 1 .. nc-1; direction 1
 // starts from dstate, walks chunks nc-1 .. 1 back and writes dS leaving
-// chunks nc-1 .. 0.
+// chunks nc-1 .. 0.  X with an initial state: direction 0 starts from it
+// and writes it as S entering chunk 0 too; direction 1 takes one more
+// step, past chunk 0, and writes s0's gradient (fp32, ext.ds0).
+template <bool X>
 __global__ void __launch_bounds__(128, 4)
     ssd_bwd_states(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_b,
                    const __grid_constant__ CUtensorMap tm_c,
-                   const __grid_constant__ CUtensorMap tm_dy, StParams prm) {
+                   const __grid_constant__ CUtensorMap tm_dy, StParams prm, SsdExt ext) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
   unsigned char* sHi = base + 4 * TILE;   // the scaled operand's parts
@@ -669,7 +699,9 @@ __global__ void __launch_bounds__(128, 4)
   const int H = prm.H, nc = prm.nc, bi = bh / H, h = bh % H;
   const CUtensorMap* tma = dir ? &tm_dy : &tm_x;
   const CUtensorMap* tmb = dir ? &tm_c : &tm_b;
-  const int steps = nc - 1;
+  const int grp = X ? h / ext.hpg : 0;   // this head's B/C group
+  const bool has_s0 = X && ext.s0 != nullptr;
+  const int steps = nc - 1 + (has_s0 && dir ? 1 : 0);
   __nv_bfloat16* out = dir ? prm.ds : prm.st;
   float acc[32];
 #pragma unroll
@@ -677,9 +709,10 @@ __global__ void __launch_bounds__(128, 4)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int p = warp * 16 + g + 8 * (e >> 1), n = nbx * BOX + nb * 8 + 2 * t4 + (e & 1);
-      acc[4 * nb + e] = dir && prm.dstate != nullptr
-                            ? __bfloat162float(prm.dstate[((size_t)bh * P + p) * N + n])
-                            : 0.f;
+      const size_t at = ((size_t)bh * P + p) * N + n;
+      if (has_s0 && !dir) acc[4 * nb + e] = ld_s0<__nv_bfloat16>(ext, at);
+      else
+        acc[4 * nb + e] = dir && prm.dstate != nullptr ? __bfloat162float(prm.dstate[at]) : 0.f;
     }
   // the parts of acc, staged in sHi and sLo, to box nbx of chunk c's blob:
   // one bulk copy each, whole lines
@@ -700,7 +733,7 @@ __global__ void __launch_bounds__(128, 4)
     unsigned char* sa = base + s * 2 * TILE;
     mbar_expect_tx(full + s, 2 * TILE + VEC * 4);
     tma_load(sa, tma, full + s, 0, h, c * Q, bi);
-    tma_load(sa + TILE, tmb, full + s, nbx * BOX, 0, c * Q, bi);
+    tma_load(sa + TILE, tmb, full + s, nbx * BOX, grp, c * Q, bi);
     bulk_load(sVec + s * VEC, prm.vec + ((size_t)bh * nc + c) * VEC, VEC * 4, full + s);
   };
 
@@ -716,6 +749,7 @@ __global__ void __launch_bounds__(128, 4)
   }
 
   if (dir) store(nc - 1);
+  else if (has_s0) store(0);
 
   for (int t = 0; t < steps; ++t) {
     const int s = t & 1, c = chunk_of(t);
@@ -771,7 +805,18 @@ __global__ void __launch_bounds__(128, 4)
     wgmma_wait_all();
     pin(acc);
     __syncthreads();   // stage s and the parts are read
-    store(dir ? c - 1 : c + 1);
+    if (has_s0 && dir && c == 0) {   // past chunk 0: s0's gradient, fp32
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int p = warp * 16 + g + 8 * r, n = nbx * BOX + nb * 8 + 2 * t4;
+          *reinterpret_cast<float2*>(ext.ds0 + ((size_t)bh * P + p) * N + n) =
+              make_float2(acc[4 * nb + 2 * r], acc[4 * nb + 2 * r + 1]);
+        }
+    } else {
+      store(dir ? c - 1 : c + 1);
+    }
     if (tid == 0 && t + 2 < steps) load(t + 2);
   }
   if (tid == 0) bulk_wait();
@@ -809,11 +854,11 @@ static_assert(CH_BYTES <= 232448, "over the shared memory of an SM");
 
 constexpr int BAR_HEAD = 1, BAR_V = 2, BAR_WG0 = 3;   // named barriers
 
-template <typename TA>
+template <typename TA, bool X>
 __global__ void __launch_bounds__(256, 1)
     ssd_bwd_chunks(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_b,
                    const __grid_constant__ CUtensorMap tm_c,
-                   const __grid_constant__ CUtensorMap tm_dy, ChParams prm) {
+                   const __grid_constant__ CUtensorMap tm_dy, ChParams prm, SsdExt ext) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
   unsigned char* sC = base;
@@ -829,7 +874,21 @@ __global__ void __launch_bounds__(256, 1)
   const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const int L = prm.L, H = prm.H, nc = prm.nc, ng = prm.ng;
   const int gi = blockIdx.x % ng, c = (blockIdx.x / ng) % nc, bi = blockIdx.x / (ng * nc);
-  const int h0 = gi * prm.hg, nh = min(prm.hg, H - h0), l0 = c * Q;
+  // X: the ng blocks of a (b, chunk) are each B/C group's blocks in turn,
+  // a group's last block short where hg does not divide its heads
+  int grp = 0, h0, nh;
+  if constexpr (X) {
+    const int bpg = ng / (H / ext.hpg);   // blocks a group
+    grp = gi / bpg;
+    h0 = grp * ext.hpg + (gi % bpg) * prm.hg;
+    nh = min(prm.hg, (grp + 1) * ext.hpg - h0);
+  } else {
+    h0 = gi * prm.hg;
+    nh = min(prm.hg, H - h0);
+  }
+  const int l0 = c * Q;
+  // the state entering the chunk is zero in chunk 0 unless s0 is given
+  const bool carried = c > 0 || (X && ext.s0 != nullptr);
   const int r0 = warp * 16 + g;   // this thread's accumulator rows r0 and r0 + 8
 
   auto load_head = [&](int k) {
@@ -837,14 +896,14 @@ __global__ void __launch_bounds__(256, 1)
     const size_t item = ((size_t)bi * H + h) * nc + c;
     unsigned char* st = stage(s);
     uint64_t* bar = bars + 1 + s;
-    mbar_expect_tx(bar, 2 * TILE + (c > 0 ? BLOB : 0) + BLOB + VEC * 4);
+    mbar_expect_tx(bar, 2 * TILE + (carried ? BLOB : 0) + BLOB + VEC * 4);
     tma_load(st, &tm_x, bar, 0, h, l0, bi);
     tma_load(st + TILE, &tm_dy, bar, 0, h, l0, bi);
     const unsigned char* bs = reinterpret_cast<const unsigned char*>(prm.st) + item * BLOB;
     const unsigned char* bd = reinterpret_cast<const unsigned char*>(prm.ds) + item * BLOB;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      if (c > 0) bulk_load(st + (2 + q) * TILE, bs + q * TILE, TILE, bar);   // S_0 is zero
+      if (carried) bulk_load(st + (2 + q) * TILE, bs + q * TILE, TILE, bar);
       bulk_load(st + (6 + q) * TILE, bd + q * TILE, TILE, bar);
     }
     bulk_load(sVec + s * VEC, prm.vec + item * VEC, VEC * 4, bar);
@@ -859,8 +918,8 @@ __global__ void __launch_bounds__(256, 1)
     mbar_expect_tx(bars, 4 * TILE);
 #pragma unroll
     for (int q = 0; q < NBX; ++q) {
-      tma_load(sC + q * TILE, &tm_c, bars, q * BOX, 0, l0, bi);
-      tma_load(sB + q * TILE, &tm_b, bars, q * BOX, 0, l0, bi);
+      tma_load(sC + q * TILE, &tm_c, bars, q * BOX, grp, l0, bi);
+      tma_load(sB + q * TILE, &tm_b, bars, q * BOX, grp, l0, bi);
     }
     load_head(0);
     if (nh > 1) load_head(1);
@@ -1039,7 +1098,7 @@ __global__ void __launch_bounds__(256, 1)
         wdt[r] = ex2((chL - ch[row]) + (clL - cl[row])) * dts[row];
       }
       float rp[2] = {0.f, 0.f}, tp[2] = {0.f, 0.f}, sd = 0.f;
-      if (c > 0) {   // S_0 is zero
+      if (carried) {
         // <dS', S> over hi + lo, 16 bytes of each part a step; both blobs
         // share one layout
         for (int e = ltid; e < NBX * TILE / 16; e += 128) {
@@ -1136,7 +1195,7 @@ __global__ void __launch_bounds__(256, 1)
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) sd += __shfl_xor_sync(FULL, sd, off);
-      if (lane == 0) rs.sdot[warp] = c > 0 ? sd : 0.f;
+      if (lane == 0) rs.sdot[warp] = carried ? sd : 0.f;
       // the finishing warp keeps this head's dt (the stage is refilled after
       // the barrier)
       float fdt[2];
@@ -1201,45 +1260,66 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
-template <typename TA>
+template <typename TA, bool X>
 int launch(const void* x, const void* dt, const void* a, const void* b, const void* c,
            const void* dy, const void* dstate, void* dx, void* ddt, float* vec, void* states,
            void* dstates, float* da_part, float* db_part, float* dc_part, int B, int L, int H,
-           int hg, const long long* layout, cudaStream_t stream) {
+           int hg, const long long* layout, const SsdExt& ext, cudaStream_t stream) {
   CUtensorMap tm[4];   // x, b, c, dy
   const void* ptrs[4] = {x, b, c, dy};
   int err = 0;
   for (int k = 0; k < 4; ++k)   // -1x / -2x: the encoder's code for map k
     if ((err = encode(&tm[k], ptrs[k], layout + 11 * k, Q))) return err - 10 * (k + 1);
   const CUtensorMap &tm_x = tm[0], &tm_b = tm[1], &tm_c = tm[2], &tm_dy = tm[3];
-  const int nc = (L + Q - 1) / Q, ng = (H + hg - 1) / hg, items = B * H * nc;
+  // blocks of hg heads a (b, chunk), each B/C group's in turn (G = H / hpg)
+  const int nc = (L + Q - 1) / Q, items = B * H * nc;
+  const int ng = X ? (H / ext.hpg) * ((ext.hpg + hg - 1) / hg) : (H + hg - 1) / hg;
   ssd_bwd_prep<TA><<<(items + 3) / 4, 128, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(dt), static_cast<const TA*>(a), vec, L, H, nc, items);
   if ((err = (int)cudaGetLastError())) return err;
   static uint32_t opted_st = 0, opted_ch = 0;   // a bit per device
-  if ((err = opt_in_smem(reinterpret_cast<const void*>(ssd_bwd_states), ST_BYTES, opted_st)))
+  if ((err = opt_in_smem(reinterpret_cast<const void*>(ssd_bwd_states<X>), ST_BYTES, opted_st)))
     return err;
   StParams sp{static_cast<const __nv_bfloat16*>(dstate), vec,
               static_cast<__nv_bfloat16*>(states), static_cast<__nv_bfloat16*>(dstates), H, nc};
-  ssd_bwd_states<<<dim3(B * H, NBX, 2), 128, ST_BYTES, stream>>>(tm_x, tm_b, tm_c, tm_dy, sp);
+  ssd_bwd_states<X><<<dim3(B * H, NBX, 2), 128, ST_BYTES, stream>>>(tm_x, tm_b, tm_c, tm_dy, sp,
+                                                                     ext);
   if ((err = (int)cudaGetLastError())) return err;
-  if ((err = opt_in_smem(reinterpret_cast<const void*>(ssd_bwd_chunks<TA>), CH_BYTES, opted_ch)))
+  if ((err = opt_in_smem(reinterpret_cast<const void*>(ssd_bwd_chunks<TA, X>), CH_BYTES,
+                         opted_ch)))
     return err;
   ChParams cp{vec, static_cast<const __nv_bfloat16*>(states),
               static_cast<const __nv_bfloat16*>(dstates), a, static_cast<__nv_bfloat16*>(dx),
               static_cast<__nv_bfloat16*>(ddt), da_part, db_part, dc_part, L, H, nc, hg, ng};
-  ssd_bwd_chunks<TA><<<B * nc * ng, 256, CH_BYTES, stream>>>(tm_x, tm_b, tm_c, tm_dy, cp);
+  ssd_bwd_chunks<TA, X><<<B * nc * ng, 256, CH_BYTES, stream>>>(tm_x, tm_b, tm_c, tm_dy, cp,
+                                                                ext);
   return (int)cudaGetLastError();
+}
+
+template <typename TA>
+int launch_x(const void* x, const void* dt, const void* a, const void* b, const void* c,
+             const void* dy, const void* dstate, void* dx, void* ddt, float* vec, void* states,
+             void* dstates, float* da_part, float* db_part, float* dc_part, int B, int L, int H,
+             int hg, const long long* layout, const SsdExt& ext, bool xe,
+             cudaStream_t stream) {
+  return xe ? launch<TA, true>(x, dt, a, b, c, dy, dstate, dx, ddt, vec, states, dstates,
+                               da_part, db_part, dc_part, B, L, H, hg, layout, ext, stream)
+            : launch<TA, false>(x, dt, a, b, c, dy, dstate, dx, ddt, vec, states, dstates,
+                                da_part, db_part, dc_part, B, L, H, hg, layout, ext, stream);
 }
 
 }  // namespace tc
 
 }  // namespace
 
-// x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, N), as the forward
-// took them (x, b and c through their batch and step strides, in
-// elements); dy, dx: (B, L, H, P) contiguous; dstate: (B, H, P, N)
-// contiguous or null; ddt: (B, L, H) contiguous.  x, dt, b, c, dy, dstate,
+// x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, G, N), G =
+// groups dividing H, as the forward took them (x, b and c through their
+// batch and step strides, in elements; a step's (G, N) row contiguous);
+// dy, dx: (B, L, H, P) contiguous; dstate: (B, H, P, N) contiguous or
+// null; ddt: (B, L, H) contiguous; s0 the forward's initial state (B, H,
+// P, N) contiguous, fp32 if s0_f32 else of x's type, or null, and ds0 its
+// gradient's fp32 buffer (written where s0 is given).  G > 1 or an s0 runs
+// the X instantiations.  x, dt, b, c, dy, dstate,
 // dx, ddt are of one type (bf16 if is_bf16 else fp32), a bf16 if a_is_bf16
 // else fp32.  The fp32 outputs da_part (B, H), db_part and dc_part (B, L,
 // H, N) are each head's shares, which the caller sums; states is scratch
@@ -1252,16 +1332,18 @@ extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* a, const 
                             float* states, int B, int L, int H, int p_dim, int n_dim, int tile,
                             int is_bf16, int a_is_bf16, long long xs_b, long long xs_l,
                             long long bs_b, long long bs_l, long long cs_b, long long cs_l,
-                            void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+                            void* stream, const void* s0, float* ds0, int s0_f32, int groups) {
+  if (B <= 0 || L <= 0 || H <= 0 || groups <= 0 || H % groups) return (int)cudaErrorInvalidValue;
   Params p{x, dt, a, b, c, dy, dstate, dx, ddt, da_part, db_part, dc_part, states, L, H,
            xs_b, xs_l, bs_b, bs_l, cs_b, cs_l};
+  const SsdExt ext{s0, ds0, H / groups, s0_f32};
+  const bool xe = groups > 1 || s0 != nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = B * H;
   if (p_dim == 64 && n_dim == 128 && tile == 64 && !is_bf16 && !a_is_bf16)
-    return launch<64, 64, 128, float, float>(p, blocks, st);
+    return launch_x<64, 64, 128, float, float>(p, ext, xe, blocks, st);
   if (p_dim == 16 && n_dim == 16 && tile == 32)
-    return by_dtype<32, 16, 16>(p, blocks, is_bf16, a_is_bf16, st);
+    return by_dtype<32, 16, 16>(p, ext, xe, blocks, is_bf16, a_is_bf16, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1270,8 +1352,10 @@ extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* a, const 
 // P, N) contiguous or null, dx and ddt bf16 contiguous; a bf16 if
 // a_is_bf16 else fp32.  Scratch: vec (B H, nc, 3, 64) fp32; states and
 // dstates (B H, nc) blobs of 32 KB.  Outputs: da_part (B, nc, H), db_part
-// and dc_part (B, L, ceil(H / head_group), N), fp32 shares the caller sums.
-// layout: the TMA layouts of x (B, L, H, P), b and c (B, L, 1, N) and dy
+// and dc_part (B, L, G ceil(H / G / head_group), N), fp32 shares per block
+// of head_group heads, group by group, which the caller sums; s0, ds0,
+// s0_f32 and groups as for ssd_scan_bwd.
+// layout: the TMA layouts of x (B, L, H, P), b and c (B, L, G, N) and dy
 // (B, L, H, P), each with boxes of 64 rows, 11 values each, as
 // kernels/ssd_scan.py computes them.  Returns cudaGetLastError() after the
 // launches, or encode()'s negative code less 10 (k + 1) for map k.
@@ -1280,13 +1364,19 @@ extern "C" int ssd_scan_bwd_tc(const void* x, const void* dt, const void* a, con
                                void* ddt, float* vec, void* states, void* dstates,
                                float* da_part, float* db_part, float* dc_part, int B, int L,
                                int H, int head_group, int a_is_bf16, const long long* layout,
-                               void* stream) {
-  if (B <= 0 || L <= 0 || H <= 0 || head_group <= 0 || layout == nullptr)
+                               void* stream, const void* s0, float* ds0, int s0_f32,
+                               int groups) {
+  if (B <= 0 || L <= 0 || H <= 0 || head_group <= 0 || layout == nullptr || groups <= 0 ||
+      H % groups || (groups > 1 && head_group > H / groups))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const SsdExt ext{s0, ds0, H / groups, s0_f32};
+  const bool xe = groups > 1 || s0 != nullptr;
   if (a_is_bf16)
-    return tc::launch<__nv_bfloat16>(x, dt, a, b, c, dy, dstate, dx, ddt, vec, states, dstates,
-                                     da_part, db_part, dc_part, B, L, H, head_group, layout, st);
-  return tc::launch<float>(x, dt, a, b, c, dy, dstate, dx, ddt, vec, states, dstates, da_part,
-                           db_part, dc_part, B, L, H, head_group, layout, st);
+    return tc::launch_x<__nv_bfloat16>(x, dt, a, b, c, dy, dstate, dx, ddt, vec, states,
+                                       dstates, da_part, db_part, dc_part, B, L, H, head_group,
+                                       layout, ext, xe, st);
+  return tc::launch_x<float>(x, dt, a, b, c, dy, dstate, dx, ddt, vec, states, dstates,
+                             da_part, db_part, dc_part, B, L, H, head_group, layout, ext, xe,
+                             st);
 }

@@ -1,8 +1,9 @@
 """Public wrappers around the port's kernels.
 
 ``flash_attention`` takes model-layout tensors (B, S, H, D) with GQA
-(kv heads ≤ q heads); ``ssd_scan`` takes the SSD scan's inputs with one
-B/C group.  On a CUDA tensor each launches its Hopper kernel
+(kv heads ≤ q heads); ``ssd_scan`` takes the SSD scan's inputs with any
+number of B/C groups that divides the heads, and an optional initial
+state.  On a CUDA tensor each launches its Hopper kernel
 (``kernels/csrc/``) or raises; on a CPU tensor it runs the kernel's
 plain version (``kernels.ref``).  Neither falls back from the kernel to
 the plain version.
@@ -196,107 +197,151 @@ flash_attention.ws_launches = 0
 flash_attention.bwd_launches = 0
 
 
-def _ssd_launch(x, dt, a, b, c, chunk: int | None):
+def _ssd_hook(name: str, x, a, b, initial_state, **kw) -> None:
+    """Credit a launch to the roofline counter: B/C's group count is in
+    ``b``'s shape, an initial state's bytes in ``initial_state``."""
+    if launch_hook is not None:
+        launch_hook(name, x=x, a=a, b=b, initial_state=initial_state, **kw)
+
+
+def _ssd_launch(x, dt, a, b, c, chunk: int | None, initial_state=None):
     """The SSD forward on CUDA: the kernel, counted and hooked."""
     if chunk is None:
         chunk = tuned_ssd_chunk(x, dt, a, b, c)
-    out = ssd_scan_cuda(x, dt, a, b, c, chunk=chunk)
+    out = ssd_scan_cuda(x, dt, a, b, c, chunk=chunk, initial_state=initial_state)
     ssd_scan.launches += 1
-    if launch_hook is not None:
-        launch_hook("ssd_scan", x=x, a=a, b=b,
-                    chunk=kernel_chunk(chunk, x.dtype, x.shape[3], b.shape[-1]))
+    _ssd_hook("ssd_scan", x, a, b, initial_state,
+              chunk=kernel_chunk(chunk, x.dtype, x.shape[3], b.shape[-1]))
     return out
 
 
-def _ssd_meta(x, a, b, chunk: int | None):
-    if launch_hook is not None:
-        launch_hook("ssd_scan", x=x, a=a, b=b, chunk=kernel_chunk(
-            chunk or DEFAULT_SSD_CHUNK, x.dtype, x.shape[3], b.shape[-1]))
+def _ssd_meta(x, a, b, chunk: int | None, initial_state=None):
+    _ssd_hook("ssd_scan", x, a, b, initial_state, chunk=kernel_chunk(
+        chunk or DEFAULT_SSD_CHUNK, x.dtype, x.shape[3], b.shape[-1]))
     bb, _, h, p = x.shape
     return torch.empty_like(x), x.new_empty((bb, h, p, b.shape[-1]))
 
 
 class SsdScan(torch.autograd.Function):
     """The SSD scan with its gradient: ``SsdScan.apply(x, dt, a, b, c,
-    chunk)`` -> (y, final state).  Saves the inputs; the backward
-    recomputes the states it needs (``csrc/ssd_scan_bwd.cu``)."""
+    chunk, initial_state)`` -> (y, final state).  Saves the inputs; the
+    backward recomputes the states it needs (``csrc/ssd_scan_bwd.cu``) and
+    gives the initial state's gradient where one was passed."""
 
     @staticmethod
-    def forward(ctx, x, dt, a, b, c, chunk: int | None = None):
+    def forward(ctx, x, dt, a, b, c, chunk: int | None = None, initial_state=None):
         if x.device.type == "cuda":
-            y, state = _ssd_launch(x, dt, a, b, c, chunk)
+            y, state = _ssd_launch(x, dt, a, b, c, chunk, initial_state)
         elif x.device.type == "meta":
-            y, state = _ssd_meta(x, a, b, chunk)
+            y, state = _ssd_meta(x, a, b, chunk, initial_state)
         elif x.device.type == "cpu":
-            y, state = ssd_ref(x, dt, a, b, c)
+            y, state = ssd_ref(x, dt, a, b, c, initial_state)
         else:
             raise _no_kernel("ssd_scan", x.device)
-        ctx.save_for_backward(x, dt, a, b, c)
+        ctx.save_for_backward(x, dt, a, b, c, initial_state)
         return y, state
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        x, dt, a, b, c = ctx.saved_tensors
+        x, dt, a, b, c, s0 = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
         if x.device.type == "cuda":
-            grads = ssd_scan_bwd_cuda(x, dt, a, b, c, dy, dstate)
+            grads = ssd_scan_bwd_cuda(x, dt, a, b, c, dy, dstate, s0)
             ssd_scan.bwd_launches += 1
-            if launch_hook is not None:
-                launch_hook("ssd_scan_bwd", x=x, a=a, b=b)
+            _ssd_hook("ssd_scan_bwd", x, a, b, s0)
         elif x.device.type == "meta":
-            if launch_hook is not None:
-                launch_hook("ssd_scan_bwd", x=x, a=a, b=b)
-            grads = tuple(torch.empty_like(t) for t in (x, dt, a, b, c))
+            _ssd_hook("ssd_scan_bwd", x, a, b, s0)
+            grads = tuple(None if t is None else torch.empty_like(t)
+                          for t in (x, dt, a, b, c, s0))
         else:
-            grads = ssd_bwd_ref(x, dt, a, b, c, dy, dstate)
-        return (*grads, None)
+            grads = ssd_bwd_ref(x, dt, a, b, c, dy, dstate, initial_state=s0)
+        *grads, ds0 = grads
+        return (*grads, None, ds0)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-             c: torch.Tensor, *, chunk: int | None = None
+             c: torch.Tensor, *, chunk: int | None = None,
+             initial_state: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, N) or
-    (B, L, 1, N) -> (y (B, L, H, P), final state (B, H, P, N)).  Any L.
-    ``chunk``: the kernel's chunk tile; None asks the autotune cache.
+    """x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, G, N) with G
+    dividing H (head h reads group h // (H / G)), or (B, L, N) for G = 1;
+    ``initial_state`` (B, H, P, N) or None (zero) -> (y (B, L, H, P),
+    final state (B, H, P, N)).  Any L.  ``chunk``: the kernel's chunk
+    tile; None asks the autotune cache.
 
     ``ssd_scan.launches`` counts forward kernel launches and
     ``ssd_scan.bwd_launches`` backward ones (CUDA only)."""
-    if b.dim() == 4:                        # (B, L, G, N) with G == 1
-        if b.shape[2] != 1 or c.shape[2] != 1:
-            raise ValueError(f"ssd_scan: {b.shape[2]} B/C groups; the kernel takes one")
-        b, c = b[:, :, 0], c[:, :, 0]
     if _is_dtensor(x):
-        return _ssd_on_mesh(x, dt, a, b, c, chunk)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c)):
-        return SsdScan.apply(x, dt, a, b, c, chunk)
+        return _ssd_on_mesh(x, dt, a, b, c, chunk, initial_state)
+    leaves = (x, dt, a, b, c) + (() if initial_state is None else (initial_state,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        return SsdScan.apply(x, dt, a, b, c, chunk, initial_state)
     if x.device.type == "cuda":
-        return _ssd_launch(x, dt, a, b, c, chunk)
+        return _ssd_launch(x, dt, a, b, c, chunk, initial_state)
     if x.device.type == "cpu":
-        return ssd_ref(x, dt, a, b, c)
+        return ssd_ref(x, dt, a, b, c, initial_state)
     if x.device.type == "meta":
-        return _ssd_meta(x, a, b, chunk)
+        return _ssd_meta(x, a, b, chunk, initial_state)
     raise _no_kernel("ssd_scan", x.device)
 
 
-def _ssd_on_mesh(x, dt, a, b, c, chunk: int | None):
+def _head_offset(mesh, pl: list, h: int) -> int:
+    """The first head of this rank's shard of H heads sharded as ``pl``
+    (a tensor dim sharded over several mesh dims is cut over them in mesh
+    order, the first outermost)."""
+    idx, ranks = 0, 1
+    for i, p in enumerate(pl):
+        if p.is_shard(2):
+            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+            ranks *= mesh.size(i)
+    return idx * (h // ranks)
+
+
+def _ssd_on_mesh(x, dt, a, b, c, chunk: int | None, initial_state=None):
     """:func:`ssd_scan` on each rank's (batch, heads) shard: x and dt keep
-    their batch and heads shardings, a its heads', b and c their batch's;
-    the state (B, H, P, N) comes out sharded as x's batch and heads."""
+    their batch and heads shardings, a its heads', the initial and final
+    states (B, H, P, N) x's batch and heads.  B and C keep their batch's;
+    their G groups are sharded with the heads where the heads' ranks
+    divide G, else replicated and each rank takes its heads' groups: the
+    one group they share, or one per head where they straddle groups."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     pl = _bh_layout(x)
+    mesh = x.device_mesh
+    h = x.shape[2]
+    head_ranks = math.prod(mesh.size(i) for i, p in enumerate(pl) if p.is_shard(2))
+    g = b.shape[2] if b.dim() == 4 else 1
     a_pl = [Shard(0) if p.is_shard(2) else Replicate() for p in pl]
-    bc_pl = [p if p.is_shard(0) else Replicate() for p in pl]
     state_pl = [Shard(1) if p.is_shard(2) else p for p in pl]
+    pick = None
+    if b.dim() == 4 and g % head_ranks == 0:
+        bc_pl = pl                                # groups sharded with the heads
+    else:
+        bc_pl = [p if p.is_shard(0) else Replicate() for p in pl]
+        if g > 1:
+            hpg, hl = h // g, h // head_ranks
 
-    def local(x_, dt_, a_, b_, c_):
-        return ssd_scan(x_, dt_, a_, b_, c_, chunk=chunk)
+            def pick(t):                          # this rank's heads' groups
+                h0 = _head_offset(mesh, pl, h)
+                if hpg % hl == 0:
+                    return t[:, :, h0 // hpg:h0 // hpg + 1]
+                idx = torch.arange(h0, h0 + hl, device=t.device) // hpg
+                return t.index_select(2, idx)
 
-    return local_map(local, out_placements=(pl, state_pl),
-                     in_placements=(pl, pl, a_pl, bc_pl, bc_pl), device_mesh=x.device_mesh)(
-        _to(x, pl), _to(dt, pl), _to(a, a_pl), _to(b, bc_pl), _to(c, bc_pl))
+    def local(x_, dt_, a_, b_, c_, *s0):
+        if pick is not None:
+            b_, c_ = pick(b_), pick(c_)
+        return ssd_scan(x_, dt_, a_, b_, c_, chunk=chunk, initial_state=s0[0] if s0 else None)
+
+    args = [_to(x, pl), _to(dt, pl), _to(a, a_pl), _to(b, bc_pl), _to(c, bc_pl)]
+    in_pl = [pl, pl, a_pl, bc_pl, bc_pl]
+    if initial_state is not None:
+        args.append(_to(initial_state, state_pl))
+        in_pl.append(state_pl)
+    return local_map(local, out_placements=(pl, state_pl), in_placements=tuple(in_pl),
+                     device_mesh=mesh)(*args)
 
 
 ssd_scan.launches = 0

@@ -108,29 +108,52 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
 
 
+def ssd_groups(b: torch.Tensor, c: torch.Tensor, h: int
+               ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """b and c as (B, L, G, N) with their group count G, which must divide
+    the H heads: head h reads group h // (H / G).  (B, L, N) is G = 1."""
+    if b.dim() == 3:
+        b, c = b[:, :, None], c[:, :, None]
+    g = b.shape[2]
+    if g == 0 or h % g or c.shape != b.shape:
+        raise ValueError(f"ssd_scan: b {tuple(b.shape)} and c {tuple(c.shape)}: the group "
+                         f"count must divide the {h} heads and b and c must match")
+    return b, c, g
+
+
 def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-            c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+            c: torch.Tensor, initial_state: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Naive per-step SSD recurrence (fp32).
 
-    x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, N)  [G=1].
-    Returns (y (B, L, H, P), final_state (B, H, P, N)) in x's dtype.
+    x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, G, N) or (B, L,
+    N) (G = 1), G dividing H; ``initial_state`` (B, H, P, N), held in fp32
+    (None: zero).  Returns (y (B, L, H, P), final_state (B, H, P, N)) in
+    x's dtype.
     """
     bb, l, h, p = x.shape
-    n = b.shape[-1]
-    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
-    state = torch.zeros((bb, h, p, n), dtype=torch.float32, device=x.device)
+    b, c, g = ssd_groups(b, c, h)
+    r, n = h // g, b.shape[-1]
+    xf = x.float().reshape(bb, l, g, r, p)
+    dtf = dt.float().reshape(bb, l, g, r)
+    af = a.float().reshape(g, r)
+    bf, cf = b.float(), c.float()
+    state = (torch.zeros((bb, g, r, p, n), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float().reshape(bb, g, r, p, n))
     ys = []
     for t in range(l):
-        decay = torch.exp(dtf[:, t] * a[None, :].float())             # (B,H)
-        upd = torch.einsum("bhp,bn,bh->bhpn", xf[:, t], bf[:, t], dtf[:, t])
+        decay = torch.exp(dtf[:, t] * af[None])                       # (B,G,R)
+        upd = torch.einsum("bgrp,bgn,bgr->bgrpn", xf[:, t], bf[:, t], dtf[:, t])
         state = state * decay[..., None, None] + upd
-        ys.append(torch.einsum("bhpn,bn->bhp", state, cf[:, t]))
-    return torch.stack(ys, dim=1).to(x.dtype), state.to(x.dtype)
+        ys.append(torch.einsum("bgrpn,bgn->bgrp", state, cf[:, t]))
+    y = torch.stack(ys, dim=1).reshape(bb, l, h, p)
+    return y.to(x.dtype), state.reshape(bb, h, p, n).to(x.dtype)
 
 
 def ssd_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                 c: torch.Tensor, dy: torch.Tensor, dstate: torch.Tensor | None = None, *,
-                chunk: int = 64) -> tuple[torch.Tensor, ...]:
+                chunk: int = 64, initial_state: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor | None, ...]:
     """The SSD backward kernel's formulas in fp32 (not autograd), chunk by
     chunk as ``csrc/ssd_scan_bwd.cu`` states them: the state entering each
     chunk from a forward pass, then dS carried back over the chunks, and per
@@ -138,13 +161,18 @@ def ssd_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Ten
     = dt x) on j <= i (masked before the exp): du = W^T dy + e^{cs_last -
     cs_j} dS B_j, dC = (e^{cs_i - cs_j} dY) B + e^{cs_i} S^T dy, dB =
     (e^{cs_i - cs_j} dY)^T C + e^{cs_last - cs_j} dS^T u, and the gradient
-    of the in-chunk cumsums cs, summed back into dt and a.
+    of the in-chunk cumsums cs, summed back into dt and a.  dB and dC are
+    summed over each group's heads; dS carried back past the first chunk
+    is the initial state's gradient.
 
-    x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, N) [G=1]; dy (B,
-    L, H, P) the gradient of y; ``dstate`` (B, H, P, N) that of the final
-    state (None: zero) -> (dx, ddt, da, db, dc) in the inputs' dtypes."""
+    x: (B, L, H, P); dt: (B, L, H); a: (H,); b, c: (B, L, G, N) or (B, L,
+    N) (G = 1); dy (B, L, H, P) the gradient of y; ``dstate`` (B, H, P, N)
+    that of the final state (None: zero); ``initial_state`` (B, H, P, N)
+    or None (zero) -> (dx, ddt, da, db, dc, d initial_state) in the
+    inputs' dtypes, the last None where no initial state is given."""
     bb, l, h, p = x.shape
-    n = b.shape[-1]
+    b4, c4, g = ssd_groups(b, c, h)
+    r, n = h // g, b4.shape[-1]
     q = chunk
     nc = -(-l // q)
     pad = nc * q - l
@@ -155,59 +183,67 @@ def ssd_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Ten
             t = torch.cat([t, t.new_zeros((bb, pad) + t.shape[2:])], dim=1)
         return t.reshape((bb, nc, q) + t.shape[2:])
 
-    xs, dts, bs, cs, dys = (chunked(t) for t in (x, dt, b, c, dy))
-    af = a.float()
-    cum = torch.cumsum(dts.double() * af.double(), dim=2)             # (B, nc, Q, H)
-    total = cum[:, :, -1:]                                           # (B, nc, 1, H)
+    def heads(t: torch.Tensor) -> torch.Tensor:     # the head axis 3 as (G, R)
+        return t.reshape(t.shape[:3] + (g, r) + t.shape[4:])
+
+    xs, dts, dys = (heads(chunked(t)) for t in (x, dt, dy))           # (B, nc, Q, G, R, ...)
+    bs, cs = chunked(b4), chunked(c4)                                # (B, nc, Q, G, N)
+    af = a.float().reshape(g, r)
+    cum = torch.cumsum(dts.double() * af.double(), dim=2)             # (B, nc, Q, G, R)
+    total = cum[:, :, -1:]                                           # (B, nc, 1, G, R)
     ein = torch.exp(cum).float()                                     # e^{cs_i}
     wout = torch.exp(total - cum).float()                            # e^{cs_last - cs_j}
-    keep = torch.exp(total[:, :, 0]).float()                         # (B, nc, H)
-    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]              # (B, nc, Q_i, Q_j, H)
-    causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()[None, None, :, :, None]
+    keep = torch.exp(total[:, :, 0]).float()                         # (B, nc, G, R)
+    seg = cum[:, :, :, None] - cum[:, :, None]                       # (B, nc, Q_i, Q_j, G, R)
+    causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()[
+        None, None, :, :, None, None]
     lmat = torch.where(causal, seg, -math.inf).exp().float()         # masked before the exp
-    u = dts[..., None] * xs                                          # (B, nc, Q, H, P)
+    u = dts[..., None] * xs                                          # (B, nc, Q, G, R, P)
 
     # the state entering each chunk
-    upd = torch.einsum("bcjh,bcjhp,bcjn->bchpn", wout, u, bs)
-    state = torch.zeros((bb, h, p, n), dtype=torch.float32, device=x.device)
+    upd = torch.einsum("bcjgr,bcjgrp,bcjgn->bcgrpn", wout, u, bs)
+    state = (torch.zeros((bb, g, r, p, n), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float().reshape(bb, g, r, p, n))
     s_prev = []
     for ci in range(nc):
         s_prev.append(state)
-        state = keep[:, ci, :, None, None] * state + upd[:, ci]
-    s_prev = torch.stack(s_prev, dim=1)                              # (B, nc, H, P, N)
+        state = keep[:, ci, ..., None, None] * state + upd[:, ci]
+    s_prev = torch.stack(s_prev, dim=1)                              # (B, nc, G, R, P, N)
 
     # dS carried back: ds_out[c] is the gradient of the state leaving chunk c
-    local = torch.einsum("bcih,bcihp,bcin->bchpn", ein, dys, cs)
-    ds = (torch.zeros_like(state) if dstate is None else dstate.float())
+    local = torch.einsum("bcigr,bcigrp,bcign->bcgrpn", ein, dys, cs)
+    ds = (torch.zeros_like(state) if dstate is None
+          else dstate.float().reshape(bb, g, r, p, n))
     ds_out = [None] * nc
     for ci in reversed(range(nc)):
         ds_out[ci] = ds
-        ds = keep[:, ci, :, None, None] * ds + local[:, ci]
-    ds_out = torch.stack(ds_out, dim=1)                              # (B, nc, H, P, N)
+        ds = keep[:, ci, ..., None, None] * ds + local[:, ci]
+    ds_out = torch.stack(ds_out, dim=1)                              # (B, nc, G, R, P, N)
 
-    g = torch.einsum("bcin,bcjn->bcij", cs, bs)                      # C_i . B_j
-    w = g[..., None] * lmat                                          # (B, nc, Q_i, Q_j, H)
-    dyu = torch.einsum("bcihp,bcjhp->bcijh", dys, u)                 # dy_i . u_j
+    gm = torch.einsum("bcign,bcjgn->bcijg", cs, bs)                  # C_i . B_j per group
+    w = gm[..., None] * lmat                                         # (B, nc, Q_i, Q_j, G, R)
+    dyu = torch.einsum("bcigrp,bcjgrp->bcijgr", dys, u)              # dy_i . u_j
     v = lmat * dyu
     qm = w * dyu
-    ds_b = torch.einsum("bcjn,bchpn->bcjhp", bs, ds_out)             # dS B_j
-    du = torch.einsum("bcijh,bcihp->bcjhp", w, dys) + wout[..., None] * ds_b
-    carried = ein[..., None] * torch.einsum("bcihp,bchpn->bcihn", dys, s_prev)
-    dc = torch.einsum("bcijh,bcjn->bcin", v, bs) + carried.sum(3)
-    db = (torch.einsum("bcijh,bcin->bcjn", v, cs)
-          + torch.einsum("bcjh,bcjhp,bchpn->bcjn", wout * dts, xs, ds_out))
-    rdot = torch.einsum("bcin,bcihn->bcih", cs, carried)
-    tdot = wout * (u * ds_b).sum(-1)                                 # (B, nc, Q, H)
-    sdot = (ds_out * s_prev).sum((-1, -2))                           # (B, nc, H)
+    ds_b = torch.einsum("bcjgn,bcgrpn->bcjgrp", bs, ds_out)          # dS B_j
+    du = torch.einsum("bcijgr,bcigrp->bcjgrp", w, dys) + wout[..., None] * ds_b
+    carried = ein[..., None] * torch.einsum("bcigrp,bcgrpn->bcigrn", dys, s_prev)
+    dc = torch.einsum("bcijgr,bcjgn->bcign", v, bs) + carried.sum(4)
+    db = (torch.einsum("bcijgr,bcign->bcjgn", v, cs)
+          + torch.einsum("bcjgr,bcjgrp,bcgrpn->bcjgn", wout * dts, xs, ds_out))
+    rdot = torch.einsum("bcign,bcigrn->bcigr", cs, carried)
+    tdot = wout * (u * ds_b).sum(-1)                                 # (B, nc, Q, G, R)
+    sdot = (ds_out * s_prev).sum((-1, -2))                           # (B, nc, G, R)
     dcs = qm.sum(3) - qm.sum(2) + rdot - tdot
     dcs[:, :, -1] += tdot.sum(2) + keep * sdot
     dda = dcs.flip(2).cumsum(2).flip(2)                              # sum_{i >= k} dcs_i
     ddt = (xs * du).sum(-1) + af * dda
-    da = (dts * dda).sum((0, 1, 2))
+    da = (dts * dda).sum((0, 1, 2)).reshape(h)
     dx = dts[..., None] * du
 
     def unchunk(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-        return t.reshape((bb, nc * q) + t.shape[3:])[:, :l].to(like.dtype)
+        return t.reshape((bb, nc * q) + like.shape[2:])[:, :l].to(like.dtype)
 
+    ds0 = None if initial_state is None else ds.reshape(bb, h, p, n).to(initial_state.dtype)
     return (unchunk(dx, x), unchunk(ddt, dt), da.to(a.dtype), unchunk(db, b),
-            unchunk(dc, c))
+            unchunk(dc, c), ds0)

@@ -126,23 +126,20 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     c:  (B, L, G, N) output projections
     Returns (y (B, L, H, P), final_state (B, H, P, N)).
 
-    CUDA tensors go to the Hopper kernel, which takes G == 1 and no
-    initial state (what the model passes); anything else raises there
-    rather than take the mirror.  Under autograd the kernel's backward
-    (``kernels.ops.SsdScan``) gives the gradients.  So do DTensors (the
-    wrapper runs the kernel, or on CPU shards its plain version, on each
-    rank's shard) and meta tensors (the dry-run's abstract evaluation).
-    CPU tensors run the reference's chunked op, differentiated by autograd.
+    CUDA tensors go to the Hopper kernel, which takes any G dividing H
+    and an initial state, as this function does, and reads B and C in
+    place; it never takes the mirror.  Under autograd the kernel's
+    backward (``kernels.ops.SsdScan``) gives the gradients, the initial
+    state's among them.  So do DTensors (the wrapper runs the kernel, or
+    on CPU shards its plain version, on each rank's shard) and meta
+    tensors (the dry-run's abstract evaluation).  CPU tensors run the
+    reference's chunked op, differentiated by autograd.
     """
-    l, g = x.shape[1], b.shape[2]
+    l = x.shape[1]
     assert l % chunk == 0, f"L={l} not divisible by chunk={chunk}"
     if x.device.type != "cpu" or is_dtensor(x):
-        if g != 1 or initial_state is not None:
-            raise NotImplementedError(
-                "the SSD kernel takes one B/C group and no initial state: "
-                "ROADMAP.md, Queue 2 item 4")
         # x, b and c stay views of the conv output: the kernel reads them in place
-        return ssd_scan_kernel(x, dt, a, b, c, chunk=chunk)
+        return ssd_scan_kernel(x, dt, a, b, c, chunk=chunk, initial_state=initial_state)
     return _ssd_scan_chunked(x, dt, a, b, c, chunk, initial_state)
 
 

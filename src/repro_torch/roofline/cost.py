@@ -132,54 +132,61 @@ def attention_bwd_dq_bound(b: int, s: int, h: int, kv: int, d: int, dtype, causa
     return _bound(flops, nbytes, dtype)
 
 
+def _es(dtype) -> int:
+    return 2 if dtype == "torch.bfloat16" else 4
+
+
 def ssd_bound(b: int, l: int, h: int, p: int, n: int, q: int, dtype,
-              a_dtype) -> tuple[float, str, float, float]:
+              a_dtype, *, g: int = 1, s0_dtype=None) -> tuple[float, str, float, float]:
     """(bound ms, bound_by, flops, bytes) of one SSD scan on these inputs.
 
     FLOPs count what the function needs, 2 per MAC, chunk by chunk (the
     last one may be short): C B^T on the causal pairs only, once per
-    (batch, chunk) since all heads share one B/C group; per head the
+    (batch, chunk, B/C group) since a group's heads share it; per head the
     decay tile times x dt on the same pairs (P MACs a pair), C . state
-    (P N MACs a step; none in the first chunk, whose carried state is zero)
-    and the state update (P N MACs a step).  Bytes: x, dt, a, b, c read
-    once, y and the final state written once."""
+    (P N MACs a step; none in the first chunk, whose carried state is zero
+    unless an initial state of dtype ``s0_dtype`` is given) and the state
+    update (P N MACs a step).  Bytes: x, dt, a, the G groups of b and c
+    and the initial state read once, y and the final state written once."""
     pairs = steps = carried = 0
     for l0 in range(0, l, q):
         qc = min(q, l - l0)
         pairs += qc * (qc + 1) // 2
         steps += qc
-        carried += qc if l0 else 0
-    flops = 2.0 * b * (pairs * n + h * (pairs * p + (carried + steps) * p * n))
-    es = 2 if dtype == "torch.bfloat16" else 4
-    a_es = 2 if a_dtype == "torch.bfloat16" else 4
-    nbytes = float(es * (2 * b * l * h * p + 2 * b * l * n + b * l * h + b * h * p * n)
-                   + a_es * h)
+        carried += qc if l0 or s0_dtype else 0
+    flops = 2.0 * b * (g * pairs * n + h * (pairs * p + (carried + steps) * p * n))
+    es = _es(dtype)
+    nbytes = float(es * (2 * b * l * h * p + 2 * b * l * g * n + b * l * h + b * h * p * n)
+                   + _es(a_dtype) * h + (_es(s0_dtype) * b * h * p * n if s0_dtype else 0))
     return _bound(flops, nbytes, dtype)
 
 
 def ssd_bwd_bound(b: int, l: int, h: int, p: int, n: int, dtype, a_dtype, *,
-                  tile: int = 64) -> tuple[float, str, float, float]:
+                  tile: int = 64, g: int = 1, s0_dtype=None) -> tuple[float, str, float, float]:
     """(bound ms, bound_by, flops, bytes) of one SSD backward on these
     inputs, tile by tile as ``csrc/ssd_scan_bwd.cu`` cuts the steps (the
-    last tile may be short), 2 FLOPs a MAC.  Per (batch, tile) C B^T on the
-    causal pairs, once for all heads (one B/C group).  Per head, on the
-    same pairs, dy . u and W^T dy (P MACs a pair each) and the intra-tile
-    parts of dC and dB (N each); per step dS B^T and x dS (P N each); the
-    carried parts, where the state is not zero (every tile but the first),
-    dy S into dC and dy^T C into dS (P N a step each); and the states
-    entering every tile but the first, recomputed (P N a step).  Bytes:
-    x, dt, a, b, c and dy read once, dx, ddt, da, db and dc written once."""
+    last tile may be short), 2 FLOPs a MAC.  Per (batch, tile, B/C group)
+    C B^T on the causal pairs, once for the group's heads.  Per head, on
+    the same pairs, dy . u and W^T dy (P MACs a pair each) and the
+    intra-tile parts of dC and dB (N each); per step dS B^T and x dS (P N
+    each); the carried parts, where the state is not zero (every tile but
+    the first, and the first too from an initial state of dtype
+    ``s0_dtype``), dy S into dC and dy^T C into dS (P N a step each); and
+    the states entering those tiles, recomputed (P N a step).  Bytes: x,
+    dt, a, the G groups of b and c, dy and the initial state read once,
+    dx, ddt, da, db, dc and the initial state's gradient written once."""
     pairs = steps = carried = 0
     for l0 in range(0, l, tile):
         qc = min(tile, l - l0)
         pairs += qc * (qc + 1) // 2
         steps += qc
-        carried += qc if l0 else 0
-    flops = 2.0 * b * (pairs * n + h * (pairs * (2 * p + 2 * n)
-                                        + (2 * steps + 3 * carried) * p * n))
-    es = 2 if dtype == "torch.bfloat16" else 4
-    a_es = 2 if a_dtype == "torch.bfloat16" else 4
-    nbytes = float(es * (3 * b * l * h * p + 2 * b * l * h + 4 * b * l * n) + 2 * a_es * h)
+        carried += qc if l0 or s0_dtype else 0
+    flops = 2.0 * b * (g * pairs * n + h * (pairs * (2 * p + 2 * n)
+                                            + (2 * steps + 3 * carried) * p * n))
+    es = _es(dtype)
+    nbytes = float(es * (3 * b * l * h * p + 2 * b * l * h + 4 * b * l * g * n)
+                   + 2 * _es(a_dtype) * h
+                   + (2 * _es(s0_dtype) * b * h * p * n if s0_dtype else 0))
     return _bound(flops, nbytes, dtype)
 
 
@@ -196,19 +203,20 @@ def kernel_cost(name: str, **launch: Any) -> tuple[float, float]:
         else:
             cost = attention_bwd_bound(b, s, h, kv, dk, str(q.dtype), launch["causal"],
                                        launch["window"], dv=dv, sk=sk)
-    elif name == "ssd_scan":
-        x, bm = launch["x"], launch["b"]
-        b, l, h, p = x.shape
-        cost = ssd_bound(b, l, h, p, bm.shape[-1], launch["chunk"], str(x.dtype),
-                         str(launch["a"].dtype))
-    elif name == "ssd_scan_bwd":
+    elif name in ("ssd_scan", "ssd_scan_bwd"):
         from repro_torch.kernels.ssd_scan import BWD_TILES
 
-        x, bm = launch["x"], launch["b"]
+        x, bm, s0 = launch["x"], launch["b"], launch.get("initial_state")
         b, l, h, p = x.shape
         n = bm.shape[-1]
-        cost = ssd_bwd_bound(b, l, h, p, n, str(x.dtype), str(launch["a"].dtype),
-                             tile=BWD_TILES.get((p, n), 64))
+        kw = dict(g=bm.shape[2] if bm.dim() == 4 else 1,
+                  s0_dtype=None if s0 is None else str(s0.dtype))
+        if name == "ssd_scan":
+            cost = ssd_bound(b, l, h, p, n, launch["chunk"], str(x.dtype),
+                             str(launch["a"].dtype), **kw)
+        else:
+            cost = ssd_bwd_bound(b, l, h, p, n, str(x.dtype), str(launch["a"].dtype),
+                                 tile=BWD_TILES.get((p, n), 64), **kw)
     else:
         raise ValueError(f"kernel_cost: no formula for kernel {name!r}")
     return cost[2], cost[3]

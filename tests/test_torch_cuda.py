@@ -687,7 +687,8 @@ def test_cuda_ssd_backward_matches_plain(dtype, p, n, b, l, h, chunk, views):
     got = ssd_scan_bwd_cuda(x, dt, a, bm, cm, dy, dstate)
     want = ssd_bwd_ref(x, dt, a, bm, cm, dy, dstate)
     tol = 5e-2 if dtype == torch.bfloat16 else 2e-3
-    for g, w in zip(got, want):
+    assert got[5] is None and want[5] is None      # no initial state, no gradient of it
+    for g, w in zip(got[:5], want[:5]):
         assert g.dtype == w.dtype and g.shape == w.shape and _scaled(g, w) <= tol
     before = ssd_scan.bwd_launches
     leaves = [t.detach().requires_grad_() for t in (x, dt, a, bm, cm)]
@@ -696,3 +697,115 @@ def test_cuda_ssd_backward_matches_plain(dtype, p, n, b, l, h, chunk, views):
     assert ssd_scan.bwd_launches == before + 1
     for g, w in zip(through, got):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+# B/C groups (G > 1) and an initial state: (dtype, P, N, B, L, H, G, chunk,
+# initial state: None, "x" (x's dtype) or "fp32", B/C as conv views).  The
+# wgmma + TMA route (bf16 at (64, 128)) at mamba2's G 8 on 48 heads (6 a
+# group: the backward's blocks hold 6 heads), 8 heads in 2 and 4 groups, 40
+# in 2 (blocks of 12 and 8 heads a group), G 1 from a state, a ragged L,
+# the chunk 256 of Mamba2Config (the kernel's largest tile); the SIMT route
+# in fp32 and at the smoke shape (16, 16)
+SSD_GROUP_CASES = [
+    (torch.bfloat16, 64, 128, 1, 1024, 48, 8, 128, "x", True),
+    (torch.bfloat16, 64, 128, 2, 1000, 8, 2, 128, "x", False),
+    (torch.bfloat16, 64, 128, 2, 300, 8, 4, 64, None, True),
+    (torch.bfloat16, 64, 128, 1, 512, 40, 2, 256, "fp32", False),
+    (torch.bfloat16, 64, 128, 2, 100, 4, 1, 128, "x", False),
+    (torch.float32, 64, 128, 1, 300, 8, 2, 128, "x", False),
+    (torch.bfloat16, 16, 16, 2, 100, 8, 2, 32, "x", True),
+    (torch.float32, 16, 16, 2, 64, 8, 4, 32, "fp32", False),
+]
+
+
+def _group_inputs(dtype, p, n, b, l, h, g, s0, views, seed=31):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if views:   # the model's split of its conv output (B, L, H P + 2 G N)
+        conv = torch.randn(b, l, h * p + 2 * g * n, generator=gen, device="cuda").to(dtype)
+        x = conv[..., :h * p].reshape(b, l, h, p)
+        bm = conv[..., h * p:h * p + g * n].reshape(b, l, g, n)
+        cm = conv[..., h * p + g * n:].reshape(b, l, g, n)
+    else:
+        x = torch.randn(b, l, h, p, generator=gen, device="cuda").to(dtype)
+        bm, cm = (torch.randn(b, l, g, n, generator=gen, device="cuda").to(dtype) for _ in "bc")
+    dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda")).to(dtype)
+    a = (-torch.exp(0.3 * torch.randn(h, generator=gen, device="cuda"))).to(dtype)
+    init = None
+    if s0 is not None:
+        init = torch.randn(b, h, p, n, generator=gen, device="cuda")
+        init = init if s0 == "fp32" else init.to(dtype)
+    dy = torch.randn(b, l, h, p, generator=gen, device="cuda").to(dtype)
+    dstate = torch.randn(b, h, p, n, generator=gen, device="cuda").to(dtype)
+    return (x, dt, a, bm, cm), init, dy, dstate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,p,n,b,l,h,g,chunk,s0,views", SSD_GROUP_CASES)
+def test_cuda_ssd_groups_forward_matches_plain(dtype, p, n, b, l, h, g, chunk, s0, views):
+    """The forward kernels at G B/C groups and from an initial state
+    against ``ssd_ref`` (bf16 5e-2, fp32 2e-3): one launch, no mirror."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    inputs, init, _, _ = _group_inputs(dtype, p, n, b, l, h, g, s0, views)
+    before = ssd_scan.launches
+    y, state = ssd_scan(*inputs, chunk=chunk, initial_state=init)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    want_y, want_state = ssd_ref(*inputs, init)
+    tol = 5e-2 if dtype == torch.bfloat16 else 2e-3
+    assert y.dtype == state.dtype == dtype
+    assert _scaled(y, want_y) <= tol and _scaled(state, want_state) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,p,n,b,l,h,g,chunk,s0,views", SSD_GROUP_CASES)
+def test_cuda_ssd_groups_backward_matches_plain(dtype, p, n, b, l, h, g, chunk, s0, views):
+    """The backward kernels at G groups and from an initial state against
+    ``ssd_bwd_ref``: dx, ddt, da, db, dc and the initial state's gradient,
+    two launches bit for bit, and through ``ops.ssd_scan``'s autograd one
+    forward and one backward launch giving the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    inputs, init, dy, dstate = _group_inputs(dtype, p, n, b, l, h, g, s0, views)
+    got = ssd_scan_bwd_cuda(*inputs, dy, dstate, init)
+    again = ssd_scan_bwd_cuda(*inputs, dy, dstate, init)
+    want = ssd_bwd_ref(*inputs, dy, dstate, initial_state=init)
+    tol = 5e-2 if dtype == torch.bfloat16 else 2e-3
+    assert (got[5] is None) == (init is None)
+    for k, (u, v, w) in enumerate(zip(got, again, want)):
+        if w is None:
+            continue
+        assert u.dtype == w.dtype and u.shape == w.shape, k
+        assert _scaled(u, w) <= tol, (k, _scaled(u, w))
+        assert torch.equal(u, v), k
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    if init is not None:
+        leaves.append(init.detach().requires_grad_())
+    counts = (ssd_scan.launches, ssd_scan.bwd_launches)
+    y, state = ssd_scan(*leaves[:5], chunk=chunk,
+                        initial_state=leaves[5] if init is not None else None)
+    through = torch.autograd.grad((y, state), leaves, (dy, dstate))
+    assert (ssd_scan.launches, ssd_scan.bwd_launches) == (counts[0] + 1, counts[1] + 1)
+    for u, w in zip(through, got):
+        torch.testing.assert_close(u, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,g", [(torch.bfloat16, 8), (torch.float32, 2)])
+def test_cuda_ssd_split_scan_identity(dtype, g):
+    """The scan of L steps equals the scan of its first half followed by
+    the second half from that half's final state (kept in fp32), to the
+    SSD tolerance: the initial state enters where the carried one would."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    (x, dt, a, bm, cm), _, _, _ = _group_inputs(dtype, 64, 128, 2, 1024, 16, g, None, False)
+    y, state = ssd_scan(x, dt, a, bm, cm, chunk=128)
+    half = 512
+    dt0, dt1 = dt[:, :half].contiguous(), dt[:, half:].contiguous()   # read packed
+    y0, s_half = ssd_scan(x[:, :half], dt0, a, bm[:, :half], cm[:, :half], chunk=128)
+    ref_half = ssd_ref(x[:, :half], dt0, a, bm[:, :half], cm[:, :half])[1]
+    y1, s_end = ssd_scan(x[:, half:], dt1, a, bm[:, half:], cm[:, half:], chunk=128,
+                         initial_state=s_half)
+    tol = 5e-2 if dtype == torch.bfloat16 else 2e-3
+    assert _scaled(s_half, ref_half) <= tol
+    assert _scaled(torch.cat([y0, y1], 1), y) <= tol and _scaled(s_end, state) <= tol

@@ -2,8 +2,9 @@
 
 Every ``repro_torch`` module and ``chip_smoke.py`` import with jax
 blocked and leave no ``repro.*`` module behind; the sources (and
-the tools under ``tools/``) hold no jax or ``repro.`` import; entry points
-refuse to run on a missing card.
+the tools under ``tools/`` and the examples under ``examples/torch/``)
+hold no jax or ``repro.`` import; entry points refuse to run on a
+missing card.
 """
 from __future__ import annotations
 
@@ -25,7 +26,10 @@ SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                         REPO / "tools" / "decode_sensitivity.py",
                                         REPO / "tools" / "env_profile_ab.py",
                                         REPO / "tools" / "path_ab.py",
-                                        REPO / "tools" / "dryrun_table.py"]
+                                        REPO / "tools" / "dryrun_table.py",
+                                        REPO / "tools" / "ptxas_table.py"]
+# the port's examples: they import repro_torch alone
+SOURCES += sorted((REPO / "examples" / "torch").glob("*.py"))
 MODULES = sorted(
     ".".join(p.relative_to(PORT.parent).with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py"))

@@ -495,9 +495,17 @@ def test_no_silent_fallback_off_cpu(monkeypatch):
     cpu = [torch.zeros(t.shape) for t in (x, dt, bc)]
     with pytest.raises(ValueError, match="is on cpu"):
         ssd_scan_cuda(cpu[0], cpu[1], torch.zeros(2), cpu[2], cpu[2], chunk=128)
-    g2 = torch.zeros(1, 64, 2, 128)
-    with pytest.raises(ValueError, match="2 B/C groups"):
-        ssd_scan(cpu[0], cpu[1], torch.zeros(2), g2, g2)
+    # B/C groups and an initial state on meta tensors: the kernel's shapes,
+    # no plain version; on the launcher, a group count that does not
+    # divide the heads is refused
+    g2 = torch.empty(1, 64, 2, 128, device="meta")
+    s0 = torch.empty(1, 2, 64, 128, device="meta")
+    y, state = ssd_scan(x, dt, torch.empty(2, device="meta"), g2, g2, initial_state=s0)
+    assert tuple(y.shape) == (1, 64, 2, 64) and tuple(state.shape) == (1, 2, 64, 128)
+    assert ssd_scan.launches == launches
+    g3 = torch.zeros(1, 64, 3, 128)
+    with pytest.raises(ValueError, match="3 B/C groups do not divide 2 heads"):
+        ssd_scan_cuda(cpu[0], cpu[1], torch.zeros(2), g3, g3, chunk=128)
 
 
 @pytest.mark.parametrize("p,n,dtype,a_dtype,chunk,match", [
@@ -505,7 +513,7 @@ def test_no_silent_fallback_off_cpu(monkeypatch):
     (64, 64, torch.float32, torch.float32, 128, r"\(P, N\)"),
     (64, 128, torch.float16, torch.float16, 128, "bf16 or fp32"),
     (64, 128, torch.float32, torch.bfloat16, 128, "x's dtype or fp32"),
-    (64, 128, torch.float32, torch.float32, 256, "chunk 256"),
+    (64, 128, torch.float32, torch.float32, 0, "chunk 0"),
     (64, 128, torch.float32, torch.float32, 128, "row of x .* must be contiguous"),
 ])
 def test_launcher_rejects_what_the_kernel_does_not_take(p, n, dtype, a_dtype, chunk, match):

@@ -23,7 +23,8 @@ device time of each of its CUDA kernels from the profiler (``dq_ms``,
 head shares); or
 ``repro_torch.kernels.ops.ssd_scan`` (no PyTorch call computes the SSD
 scan); or the SSD backward launcher ``ssd_scan_bwd_cuda`` (``ssd_bwd*``
-shapes).  It reports the kernel's max |out - ref| / (1 + |ref|) against
+shapes), each with its kernels' device ms from the profiler; the
+``ssd_launch`` shape gives the two SSD wrappers' host time a call.  It reports the kernel's max |out - ref| / (1 + |ref|) against
 its checkout's plain version (``flash_attention_ref``, for the backward
 autograd of it in fp32, ``ssd_ref``, or ``ssd_bwd_ref``).  The ``launch`` shape also
 reports the wrapper's host time a call (``host_us``) and, where the
@@ -77,6 +78,9 @@ SHAPES = {  # flash: (B, S, H, KV, D, Dv, window): granite-3-2b's prefill, a
     # step's launch shape (two microbatches of B 2)
     "ssd_bwd": ("ssd_bwd", (4, 1024, 48)),
     "ssd_bwd_b2": ("ssd_bwd", (2, 1024, 48)),
+    # one 64-step chunk of two heads: the SSD wrappers' host time a call,
+    # forward (ops.ssd_scan) and backward (ssd_scan_bwd_cuda)
+    "ssd_launch": ("ssd_host", (1, 64, 2)),
 }
 
 
@@ -164,12 +168,13 @@ def time_host(gen, b, s, h, kv, d, dv, window) -> dict:
     return out
 
 
-def kernel_device_ms(fn, iters: int = 20) -> dict[str, float]:
+def kernel_device_ms(fn, iters: int = 20, per_call: bool = False) -> dict[str, float]:
     """Mean device ms a launch of each CUDA kernel of ``fn`` takes, from
     torch.profiler, keyed by the kernel's name as the profiler gives it
     (each of the flash backward's kernels launches once a call).  The mean
     is over the launches the profiler recorded, which may be fewer than it
-    ran."""
+    ran.  ``per_call``: each kernel's device ms a call of ``fn`` instead
+    (a kernel may launch more than once a call: the SSD backward's sums)."""
     import torch
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
@@ -179,7 +184,8 @@ def kernel_device_ms(fn, iters: int = 20) -> dict[str, float]:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / e.count for e in prof.key_averages()
+    return {e.key: e.self_device_time_total / 1e3 / (iters if per_call else e.count)
+            for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
 
 
@@ -237,6 +243,8 @@ def time_ssd(gen, b, l, h, chunk, views) -> dict:
     y, st = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
     ref_y, ref_st = ssd_ref(x, dt, a, bm, cm)
     return {"ms": cuda_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=chunk)),
+            "device_ms": sum(kernel_device_ms(lambda: ssd_scan(x, dt, a, bm, cm, chunk=chunk),
+                                              per_call=True).values()),
             "max_scaled_err": max(scaled_err(y, ref_y), scaled_err(st, ref_st))}
 
 
@@ -254,7 +262,26 @@ def time_ssd_bwd(gen, b, l, h) -> dict:
     grads = ssd_scan_bwd_cuda(x, dt, a, bm, cm, dy)
     ref = ssd_bwd_ref(x, dt, a, bm, cm, dy)
     return {"ms": cuda_ms(lambda: ssd_scan_bwd_cuda(x, dt, a, bm, cm, dy), iters=20),
-            "max_scaled_err": max(scaled_err(g, r) for g, r in zip(grads, ref))}
+            "device_ms": sum(kernel_device_ms(lambda: ssd_scan_bwd_cuda(x, dt, a, bm, cm, dy),
+                                              per_call=True).values()),
+            "max_scaled_err": max(scaled_err(g, r) for g, r in zip(grads[:5], ref[:5]))}
+
+
+def time_ssd_host(gen, b, l, h) -> dict:
+    """The SSD wrappers' host time a call (best of seven runs of 500
+    calls) at a shape whose kernels take a few µs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+
+    p, n = 64, 128
+    x, dy = (torch.randn(b, l, h, p, generator=gen, device="cuda").bfloat16() for _ in "xy")
+    bm, cm = (torch.randn(b, l, n, generator=gen, device="cuda").bfloat16() for _ in "bc")
+    dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda")).bfloat16()
+    a = (-torch.exp(0.3 * torch.randn(h, generator=gen, device="cuda"))).bfloat16()
+    return {"fwd_host_us": host_us(lambda: ssd_scan(x, dt, a, bm, cm, chunk=64)),
+            "bwd_host_us": host_us(lambda: ssd_scan_bwd_cuda(x, dt, a, bm, cm, dy))}
 
 
 def worker(src: str, shapes: list[str], seed: int) -> dict:
@@ -266,7 +293,7 @@ def worker(src: str, shapes: list[str], seed: int) -> dict:
     for name in shapes:
         kind, args = SHAPES[name]
         timer = {"flash": time_flash, "flash_bwd": time_flash_bwd, "ssd": time_ssd,
-                 "ssd_bwd": time_ssd_bwd, "host": time_host}[kind]
+                 "ssd_bwd": time_ssd_bwd, "host": time_host, "ssd_host": time_ssd_host}[kind]
         out[name] = timer(gen, *args)
     return out
 
