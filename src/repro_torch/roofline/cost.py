@@ -172,17 +172,19 @@ def ssd_bwd_bound(b: int, l: int, h: int, p: int, n: int, dtype, a_dtype, *,
     each); the carried parts, where the state is not zero (every tile but
     the first, and the first too from an initial state of dtype
     ``s0_dtype``), dy S into dC and dy^T C into dS (P N a step each); and
-    the states entering those tiles, recomputed (P N a step).  Bytes: x,
+    the states entering every tile but the first, recomputed (P N a step:
+    the first tile's is zero or the given state).  Bytes: x,
     dt, a, the G groups of b and c, dy and the initial state read once,
     dx, ddt, da, db, dc and the initial state's gradient written once."""
-    pairs = steps = carried = 0
+    pairs = steps = carried = recomputed = 0
     for l0 in range(0, l, tile):
         qc = min(tile, l - l0)
         pairs += qc * (qc + 1) // 2
         steps += qc
         carried += qc if l0 or s0_dtype else 0
+        recomputed += qc if l0 else 0
     flops = 2.0 * b * (g * pairs * n + h * (pairs * (2 * p + 2 * n)
-                                            + (2 * steps + 3 * carried) * p * n))
+                                            + (2 * steps + 2 * carried + recomputed) * p * n))
     es = _es(dtype)
     nbytes = float(es * (3 * b * l * h * p + 2 * b * l * h + 4 * b * l * g * n)
                    + 2 * _es(a_dtype) * h

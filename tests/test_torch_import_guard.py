@@ -27,7 +27,9 @@ SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                         REPO / "tools" / "env_profile_ab.py",
                                         REPO / "tools" / "path_ab.py",
                                         REPO / "tools" / "dryrun_table.py",
-                                        REPO / "tools" / "ptxas_table.py"]
+                                        REPO / "tools" / "ptxas_table.py",
+                                        REPO / "tools" / "ssd_host_ab.py",
+                                        REPO / "tools" / "ssd_da_precision.py"]
 # the port's examples: they import repro_torch alone
 SOURCES += sorted((REPO / "examples" / "torch").glob("*.py"))
 MODULES = sorted(

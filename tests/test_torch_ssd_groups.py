@@ -20,6 +20,7 @@ the same plain versions on the card by tests/test_torch_cuda.py and
 from __future__ import annotations
 
 import contextlib
+import re
 import dataclasses
 import types
 
@@ -391,9 +392,90 @@ def test_bounds_count_groups_and_the_state():
     assert bs - b1 == 4 * 4 * 48 * 64 * 128
     assert fs - f1 == 2.0 * 4 * 48 * 128 * 64 * 128
     bargs = (4, 1024, 48, 64, 128, "torch.bfloat16", "torch.bfloat16")
-    _, _, _, bb1 = ssd_bwd_bound(*bargs)
+    _, _, fb1, bb1 = ssd_bwd_bound(*bargs)
     _, _, _, bbs = ssd_bwd_bound(*bargs, g=8, s0_dtype="torch.bfloat16")
     assert bbs - bb1 == 2 * (4 * 4 * 1024 * 7 * 128) + 2 * 2 * 4 * 48 * 64 * 128
+    # the backward from a state: the first tile's two carried products
+    # (dy S into dC, dy^T C into dS), not its state's recompute, which is
+    # given; at G 1 and no state, per head 2 P N a step and P N on each
+    # tile after the first (64 steps a tile at (64, 128))
+    _, _, fbs, _ = ssd_bwd_bound(*bargs, s0_dtype="torch.bfloat16")
+    assert fbs - fb1 == 2.0 * 4 * 48 * (2 * 64) * 64 * 128
+    pairs = 16 * 64 * 65 // 2
+    assert fb1 == 2.0 * 4 * (pairs * 128 + 48 * (pairs * (2 * 64 + 2 * 128)
+                                                  + (2 * 1024 + 3 * (1024 - 64)) * 64 * 128))
+    _, _, f1t, _ = ssd_bwd_bound(1, 64, 1, 64, 128, "torch.float32", "torch.float32")
+    _, _, f1s, _ = ssd_bwd_bound(1, 64, 1, 64, 128, "torch.float32", "torch.float32",
+                                 s0_dtype="torch.float32")
+    assert f1s - f1t == 2.0 * 2 * 64 * 64 * 128
+
+
+def _repo_module(name: str, path: str):
+    """A script of the repository (``chip_smoke.py``, ``tools/*.py``) as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parent.parent / path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("g,with_s0", [(1, False), (2, True)])
+def test_da_referee_gives_each_term_of_da(g, with_s0):
+    """chip_smoke.py's float64 referee for da: with a per step its gradient
+    is each step's term of da, which sum to the gradient with a per head;
+    the fp32 plain version lies within the fp32 tolerance of it element by
+    element and within 1e-5 of sum |terms|."""
+    cs = _repo_module("chip_smoke_for_test", "chip_smoke.py")
+    rng = np.random.default_rng(11)
+    b, l, h, p, n = 2, 64, 4, 8, 8
+    x = torch.from_numpy(rng.standard_normal((b, l, h, p), dtype=np.float32))
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((b, l, h), dtype=np.float32)))
+    a = -torch.exp(0.3 * torch.from_numpy(rng.standard_normal(h, dtype=np.float32)))
+    bm, cm = (torch.from_numpy(rng.standard_normal((b, l, g, n), dtype=np.float32))
+              for _ in "bc")
+    s0 = (torch.from_numpy(rng.standard_normal((b, h, p, n), dtype=np.float32))
+          if with_s0 else None)
+    dy = torch.from_numpy(rng.standard_normal((b, l, h, p), dtype=np.float32))
+    dstate = torch.from_numpy(rng.standard_normal((b, h, p, n), dtype=np.float32))
+    plain = ssd_bwd_ref(x, dt, a, bm, cm, dy, dstate, initial_state=s0)[2]
+    got = cs.da_vs_float64((x, dt, a, bm, cm), s0, dy, dstate, plain, plain)
+    assert got["kernel"] == got["plain"]
+    assert got["plain"]["elementwise_scaled"] < 2e-3
+    assert got["plain"]["terms_scaled"] < 1e-5
+    leaves = [t.double().requires_grad_() for t in (x, dt, a, bm, cm)]
+    y, st = cs.ssd_in_dtype(*leaves, chunk=16,
+                            initial_state=None if s0 is None else s0.double())
+    da, = torch.autograd.grad((y, st), leaves[2], (dy.double(), dstate.double()))
+    err = (plain.double() - da).abs().max().item()
+    assert err == pytest.approx(got["plain"]["max_abs_err"], rel=1e-9, abs=1e-12)
+
+
+def test_host_ab_loads_another_checkout_beside_this_one(tmp_path):
+    """tools/ssd_host_ab.py's copy of a checkout's package: every import
+    renamed, so it loads beside ``repro_torch``, its kernels building under
+    its own build/."""
+    import sys
+
+    tool = _repo_module("ssd_host_ab_for_test", "tools/ssd_host_ab.py")
+    dest = tool.other_package(tool.ROOT / "src", tmp_path / "src")
+    for f in (dest / "repro_torch_other").rglob("*.py"):
+        assert not re.search(r"\brepro_torch\b", f.read_text()), f
+    sys.path.insert(0, str(dest))
+    try:
+        import importlib
+
+        other = importlib.import_module("repro_torch_other.kernels.ssd_scan")
+        assert other.build.BUILD_ROOT == tmp_path / "build" / "repro_torch_kernels"
+        assert other.kernel_chunk(256) == launcher.kernel_chunk(256) == 128
+        assert other.ssd_scan_bwd_cuda is not launcher.ssd_scan_bwd_cuda
+    finally:
+        sys.path.remove(str(dest))
+        for name in [m for m in sys.modules if m.startswith("repro_torch_other")]:
+            del sys.modules[name]
 
 
 def _fake_libraries(monkeypatch):
