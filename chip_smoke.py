@@ -11,7 +11,14 @@ the plain forwards), then the SSD kernels at B/C groups (G > 1) and from
 an initial state (``ssd_groups``: both directions against ``ssd_ref`` and
 ``ssd_bwd_ref``, and mamba2-780m at full width and depth with 8 groups,
 its prefill against the plain path, its decode at depth 1 and its train
-step's gradients at depth 2), then drives each ported model at full width (random weights
+step's gradients at depth 2), then the kernels off the ten configs' shapes
+(``shapes``: the padded bf16 route and the general SIMT route of
+``kernels/*.py:route`` at small cases in bf16, fp16 and fp32, both
+directions, against the plain versions; phi-2's (D 80) and
+phi-3-mini's (D 96) attention and Zamba2's SSD (P 64, N 64) at full
+width, timed beside their bounds, the plain versions and SDPA; granite at
+head dim 40 and mamba2 at (P, N) = (32, 64), prefill, decode and a train
+step's gradients, kernel path against plain path), then drives each ported model at full width (random weights
 from ``--seed``) through the port's entry points at full depth, each with
 prefill and teacher-forced decode checked against the kernel-driven
 forward: granite-3-2b (flash attention), mamba2-780m (the SSD scan),
@@ -99,8 +106,8 @@ ROOT = Path(__file__).resolve().parent
 
 # kernel vs plain tolerances, as tests/test_kernels.py holds the Pallas kernels
 # (allclose with rtol = atol = tol, i.e. max |out - ref| / (1 + |ref|) <= tol)
-TOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-4}
-SSD_TOL = {"torch.bfloat16": 5e-2, "torch.float32": 2e-3}
+TOL = {"torch.bfloat16": 2e-2, "torch.float16": 2e-2, "torch.float32": 1e-4}
+SSD_TOL = {"torch.bfloat16": 5e-2, "torch.float16": 5e-2, "torch.float32": 2e-3}
 # the SSD kernel at chunk 64 against itself at chunk 128, same inputs and
 # the same scaled measure: both carry fp32 and differ only in the order of
 # their sums and in the two final roundings to bf16 (2^-8 relative each)
@@ -230,7 +237,7 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 16, 16
 # (1 + |ref|) of each of dq, dk, dv: bf16 rounds P and dS as product
 # operands and reads the bf16 O for Delta; fp32 is exact arithmetic in
 # another order
-BWD_TOL = {"torch.bfloat16": 5e-2, "torch.float32": 2e-3}
+BWD_TOL = {"torch.bfloat16": 5e-2, "torch.float16": 5e-2, "torch.float32": 2e-3}
 # each row's logsumexp from the forward against the plain version's
 LSE_TOL = 1e-3
 # loss_fn's loss and every parameter's gradient (granite-3-2b at full
@@ -911,6 +918,391 @@ def phase_examples() -> dict[str, dict[str, int]]:
     check(tr["launches"]["flash_attention"] > 0 and tr["launches"]["flash_attention_bwd"] > 0,
           f"examples training: no kernel launched ({tr['launches']})")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# shapes: the flash and SSD kernels off the ten configs' shapes.  Each
+# route (kernels/flash_attention.py:route, kernels/ssd_scan.py:route) at
+# small cases in bf16, fp16 and fp32, forward and backward, against the
+# plain versions; the padded bf16 route at public models' full-width
+# shapes (phi-2's attention at D 80, phi-3-mini's at D 96, Zamba2's Mamba-2
+# layers at (P, N) = (64, 64)) and the general route at phi-2's in fp16,
+# timed beside their bounds, the plain versions and SDPA; then granite at
+# head dim 40 and mamba2 at (P, N) = (32, 64), each through prefill and
+# decode and a train-step gradient, kernel path against plain path.
+# ---------------------------------------------------------------------------
+SHAPES_FLASH_CASES = [  # (dk, dv, dtype, causal, window) at B 2, S 130, H 4 over KV 2
+    (40, 40, torch.bfloat16, True, 48), (80, 80, torch.bfloat16, True, 0),
+    (96, 64, torch.bfloat16, True, 0), (8, 8, torch.bfloat16, False, 0),
+    (160, 128, torch.bfloat16, True, 0), (144, 64, torch.bfloat16, False, 0),
+    (200, 200, torch.bfloat16, True, 48), (20, 20, torch.bfloat16, True, 0),
+    (80, 80, torch.float16, True, 0), (256, 256, torch.float16, True, 48),
+    (96, 96, torch.float32, True, 0), (200, 136, torch.float32, False, 0),
+    (5, 3, torch.float32, True, 0),
+]
+# B * H past 65535 (the old grid's limit): B 1, S 16, 65600 heads (MHA)
+SHAPES_FLASH_WIDE = [(64, 64, torch.float32), (48, 48, torch.float16)]
+SHAPES_SSD_CASES = [  # (P, N, dtype, G, initial state) at B 1, L 100, H 4, chunk 64
+    (32, 64, torch.bfloat16, 1, False), (64, 64, torch.bfloat16, 2, True),
+    (8, 16, torch.bfloat16, 1, True), (24, 40, torch.bfloat16, 1, False),
+    (20, 64, torch.bfloat16, 1, False), (96, 128, torch.bfloat16, 2, True),
+    (128, 256, torch.float16, 1, False), (32, 64, torch.float32, 2, True),
+    (64, 128, torch.float16, 1, True),
+]
+SHAPES_PUBLIC_FLASH = [  # (case, B, S, H (MHA), D, dtype), causal
+    ("phi2_d80", 4, 1024, 32, 80, torch.bfloat16),
+    ("phi3_mini_d96", 4, 1024, 32, 96, torch.bfloat16),
+    ("phi2_d80_fp16", 4, 1024, 32, 80, torch.float16),
+]
+SHAPES_PUBLIC_SSD = [  # (case, B, L, H, P, N, dtype), chunk 128
+    ("zamba2_p64_n64", 4, 1024, 48, 64, 64, torch.bfloat16),
+    ("zamba2_p64_n64_fp16", 1, 1024, 48, 64, 64, torch.float16),
+]
+# the two scaled smoke configs: (cut of the smoke config, B, S, decode
+# steps; an SSD model's forward over S + steps takes whole chunks of 32)
+SHAPES_MODELS = {"granite_3_2b": ({"head_dim": 40}, 2, 128, 8),
+                 "mamba2_780m": ({"ssm": {"head_dim": 32, "d_state": 64}}, 2, 128, 32)}
+# kernel path against plain path on those models: relative L2 of a row of
+# logits, the forward's and the backward's own dtype limits (SSD_TOL)
+SHAPES_MODEL_TOL = {"bfloat16": 5e-2, "float32": 2e-3}
+
+
+def zero_route_counts() -> None:
+    """Set the padded and the general routes' launch counts to 0."""
+    from repro_torch.kernels.ops import flash_attention, ssd_scan
+    for fn in (flash_attention, ssd_scan):
+        fn.pad_launches = fn.bwd_pad_launches = fn.any_launches = fn.bwd_any_launches = 0
+
+
+def route_counts() -> dict[str, int]:
+    """The padded and the general routes' launches, per kernel row."""
+    from repro_torch.kernels.ops import flash_attention, ssd_scan
+    return {"flash_fwd_bf16_pad": flash_attention.pad_launches,
+            "flash_fwd_any": flash_attention.any_launches,
+            "flash_bwd_bf16_pad": flash_attention.bwd_pad_launches,
+            "flash_bwd_any": flash_attention.bwd_any_launches,
+            "ssd_fwd_bf16_pad": ssd_scan.pad_launches, "ssd_fwd_any": ssd_scan.any_launches,
+            "ssd_bwd_bf16_pad": ssd_scan.bwd_pad_launches,
+            "ssd_bwd_any": ssd_scan.bwd_any_launches}
+
+
+def _flash_small(gen, b, s, h, kv, dk, dv, dtype, causal, window) -> dict:
+    """One flash case through ``ops.flash_attention`` under autograd
+    (forward and backward kernels of the route), against autograd of the
+    plain version in fp32 on the same values."""
+    from repro_torch.kernels.flash_attention import route
+    from repro_torch.kernels.ops import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    q = torch.randn(b, s, h, dk, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(b, s, kv, dk, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(b, s, kv, dv, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(b, s, h, dv, generator=gen, device="cuda").to(dtype)
+    kind = route(dtype, dk, dv).kind
+    zero_counts()
+    zero_route_counts()
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal, window=window)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    launches = {**launch_counts(), **{n: c for n, c in route_counts().items() if c}}
+    ref_leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref = flash_attention_ref(*ref_leaves, causal=causal, window=window)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, do.float())
+    row = {"shape": [b, s, h, kv, dk], "dv": dv, "dtype": str(dtype), "causal": causal,
+           "window": window, "route": kind, "tol": TOL[str(dtype)],
+           "bwd_tol": BWD_TOL[str(dtype)], "max_scaled_err": scaled_err(out, ref),
+           "bwd_max_scaled_err": {n: scaled_err(g, r) for n, g, r in
+                                  zip(("dq", "dk", "dv"), grads, ref_grads)},
+           "finite": bool(torch.isfinite(out.float()).all())
+           and all(bool(torch.isfinite(g.float()).all()) for g in grads),
+           "launches": launches}
+    what = f"shapes flash {row['shape']} dv {dv} {dtype}"
+    check(row["finite"], f"{what}: not finite")
+    check(row["max_scaled_err"] <= row["tol"],
+          f"{what}: forward {row['max_scaled_err']} > {row['tol']}")
+    worst = max(row["bwd_max_scaled_err"].values())
+    check(worst <= row["bwd_tol"], f"{what}: backward {row['bwd_max_scaled_err']}")
+    on_route = {"pad": "flash_fwd_bf16_pad", "any": "flash_fwd_any"}.get(kind)
+    check(launches["flash_attention"] == 1 and launches["flash_attention_bwd"] == 1
+          and (on_route is None or launches.get(on_route) == 1
+               and launches.get(on_route.replace("fwd", "bwd")) == 1),
+          f"{what}: launched {launches} on route {kind}")
+    return row
+
+
+def _ssd_small(gen, b, l, h, p, n, dtype, g, init) -> dict:
+    """One SSD case through ``ops.ssd_scan`` under autograd, against
+    autograd of ``ssd_ref`` in fp32 on the same values (every gradient,
+    the initial state's among them)."""
+    from repro_torch.kernels.ops import ssd_scan
+    from repro_torch.kernels.ref import ssd_ref
+    from repro_torch.kernels.ssd_scan import route
+
+    x = torch.randn(b, l, h, p, generator=gen, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda")).to(dtype)
+    a = -torch.exp(0.3 * torch.randn(h, generator=gen, device="cuda"))
+    bm = torch.randn(b, l, g, n, generator=gen, device="cuda").to(dtype)
+    cm = torch.randn(b, l, g, n, generator=gen, device="cuda").to(dtype)
+    s0 = torch.randn(b, h, p, n, generator=gen, device="cuda") if init else None
+    dy = torch.randn(b, l, h, p, generator=gen, device="cuda").to(dtype)
+    dst = torch.randn(b, h, p, n, generator=gen, device="cuda").to(dtype)
+    inputs = (x, dt, a, bm, cm) + ((s0,) if init else ())
+    kind = route(dtype, p, n).kind
+    zero_counts()
+    zero_route_counts()
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    y, st = ssd_scan(*leaves[:5], chunk=64, initial_state=leaves[5] if init else None)
+    grads = torch.autograd.grad((y, st), leaves, (dy, dst))
+    torch.cuda.synchronize()
+    launches = {**launch_counts(), **{k: c for k, c in route_counts().items() if c}}
+    ref_leaves = [t.detach().float().requires_grad_() for t in inputs]
+    ry, rst = ssd_ref(*ref_leaves[:5], ref_leaves[5] if init else None)
+    ref = torch.autograd.grad((ry, rst), ref_leaves, (dy.float(), dst.float()))
+    names = ("dx", "ddt", "da", "db", "dc", "ds0")
+    tol = SSD_TOL[str(dtype)]
+    # da sums dt dda over every step of a head: held to its own scale (as
+    # ssd_groups' bf16 rows hold it to the plain version element by element,
+    # these H = 4 values each gather 100 steps' terms that cancel)
+    errs = {nm: scaled_err(gr, r) for nm, gr, r in zip(names, grads, ref) if nm != "da"}
+    errs["da"] = ((grads[2].float() - ref[2]).abs().max() / (1 + ref[2].abs().max())).item()
+    row = {"shape": [b, l, h, p, n], "groups": g, "initial_state": init, "dtype": str(dtype),
+           "route": kind, "tol": tol, "y_max_scaled_err": scaled_err(y, ry),
+           "state_max_scaled_err": scaled_err(st, rst), "bwd_max_scaled_err": errs,
+           "finite": all(bool(torch.isfinite(t.float()).all()) for t in (y, st, *grads)),
+           "launches": launches}
+    what = f"shapes ssd {row['shape']} G {g} {dtype}"
+    check(row["finite"], f"{what}: not finite")
+    worst = max([row["y_max_scaled_err"], row["state_max_scaled_err"], *errs.values()])
+    check(worst <= tol, f"{what}: {row['y_max_scaled_err']} {row['state_max_scaled_err']} {errs}")
+    on_route = {"pad": "ssd_fwd_bf16_pad", "any": "ssd_fwd_any"}.get(kind)
+    check(launches["ssd_scan"] == 1 and launches["ssd_scan_bwd"] == 1
+          and (on_route is None or launches.get(on_route) == 1
+               and launches.get(on_route.replace("fwd", "bwd")) == 1),
+          f"{what}: launched {launches} on route {kind}")
+    return row
+
+
+def _flash_public(gen, name, b, s, h, d, dtype) -> dict:
+    """A full-width flash forward and backward (MHA, causal): ms by events
+    and by device, the kernels the profiler saw, the bound at the real
+    dims, the plain version's and SDPA's times; held to the plain version."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda, route)
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
+    from repro_torch.roofline.cost import attention_bound, attention_bwd_bound
+
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    o, lse = flash_attention_cuda(q, k, v, causal=True, window=0, return_lse=True)
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q, k, v, causal=True, window=0)
+    fwd = {"max_abs_err": (o.float() - ref.float()).abs().max().item(),
+           "max_scaled_err": scaled_err(o, ref), "tol": TOL[str(dtype)]}
+    del ref
+    fwd["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True, window=0))
+    by_kernel = kernels_device_ms(lambda: flash_attention_cuda(q, k, v, causal=True, window=0),
+                                  iters=10)
+    fwd["device_ms"], fwd["kernels"] = sum(by_kernel.values()), sorted(by_kernel)
+    fwd["plain_ms"] = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True, window=0),
+                              iters=2, warmup=1)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    fwd["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                       is_causal=True))
+    bound_ms, bound_by, _, _ = attention_bound(b, s, s, h, h, d, d, str(dtype), True, 0)
+    fwd.update(bound_ms=bound_ms, bound_by=bound_by, bound_frac=bound_ms / fwd["ms"],
+               device_bound_frac=bound_ms / fwd["device_ms"],
+               vs_library=fwd["ms"] / fwd["library_ms"])
+
+    def bwd():
+        return flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=0)
+
+    grads = bwd()
+    torch.cuda.synchronize()
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref_grads = torch.autograd.grad(flash_attention_ref(*leaves, causal=True, window=0), leaves,
+                                    do.float())
+    back = {"max_scaled_err": {n: scaled_err(g, r) for n, g, r in
+                               zip(("dq", "dk", "dv"), grads, ref_grads)},
+            "max_abs_err": max((g.float() - r).abs().max().item()
+                               for g, r in zip(grads, ref_grads)),
+            "tol": BWD_TOL[str(dtype)]}
+    del grads, ref_grads, leaves
+    back["ms"] = cuda_ms(bwd, iters=10)
+    by_kernel = kernels_device_ms(bwd, iters=10)
+    back["device_ms"], back["kernels"] = sum(by_kernel.values()), sorted(by_kernel)
+    back["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_ref(
+        q, k, v, o, lse, do, causal=True, window=0), iters=2, warmup=1)
+    sdpa, rerun = sdpa_backward(q, k, v, do, True, 0)
+    back["library_ms"] = cuda_ms(rerun, iters=10) if sdpa is not None else None
+    if sdpa is None:
+        back["library_refused"] = rerun
+    bound_ms, bound_by, _, _ = attention_bwd_bound(b, s, h, h, d, str(dtype), True, 0)
+    back.update(bound_ms=bound_ms, bound_by=bound_by, bound_frac=bound_ms / back["ms"],
+                device_bound_frac=bound_ms / back["device_ms"],
+                vs_library=(back["ms"] / back["library_ms"]) if back["library_ms"] else None)
+    row = {"case": name, "shape": [b, s, h, h, d], "dtype": str(dtype),
+           "route": route(dtype, d, d).kind, "bucket": list(route(dtype, d, d).dims),
+           "forward": fwd, "backward": back}
+    check(fwd["max_scaled_err"] <= fwd["tol"], f"shapes {name}: forward {fwd['max_scaled_err']}")
+    check(max(back["max_scaled_err"].values()) <= back["tol"],
+          f"shapes {name}: backward {back['max_scaled_err']}")
+    # the padded route: the bucket's kernels at hopper::Widths (the real dims)
+    tags = (("hopper::Widths",) * 2 if row["route"] == "pad" else ("flash_fwd_any", "_any<"))
+    for part, tag in zip((fwd, back), tags):
+        check(part["kernels"] and all(tag in n for n in part["kernels"]),
+              f"shapes {name}: ran {part['kernels']}, not {tag}")
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return row
+
+
+def _ssd_public(gen, name, b, l, h, p, n, dtype) -> dict:
+    """A full-width SSD forward and backward: ms by events and by device,
+    the kernels the profiler saw, the bound at the real (P, N), the plain
+    versions' times (no PyTorch call computes the scan); held to autograd
+    of ``ssd_ref`` in fp32."""
+    from repro_torch.kernels.ref import ssd_bwd_ref, ssd_ref
+    from repro_torch.kernels.ssd_scan import (bwd_tile, route, ssd_scan_bwd_cuda,
+                                              ssd_scan_cuda)
+    from repro_torch.roofline.cost import ssd_bound, ssd_bwd_bound
+
+    x = torch.randn(b, l, h, p, generator=gen, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda")).to(dtype)
+    a = (-torch.exp(0.3 * torch.randn(h, generator=gen, device="cuda"))).to(dtype)
+    bm = torch.randn(b, l, n, generator=gen, device="cuda").to(dtype)
+    cm = torch.randn(b, l, n, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(b, l, h, p, generator=gen, device="cuda").to(dtype)
+    inputs = (x, dt, a, bm, cm)
+    tol = SSD_TOL[str(dtype)]
+
+    def fwd():
+        return ssd_scan_cuda(x, dt, a, bm, cm, chunk=128)
+
+    def bwd():
+        return ssd_scan_bwd_cuda(x, dt, a, bm, cm, dy)
+
+    y, st = fwd()
+    grads = bwd()
+    torch.cuda.synchronize()
+    leaves = [t.detach().float().requires_grad_() for t in inputs]
+    ry, rst = ssd_ref(*leaves)
+    ref = torch.autograd.grad(ry, leaves, dy.float())
+    names = ("dx", "ddt", "da", "db", "dc")
+    errs = {nm: scaled_err(g, r) for nm, g, r in zip(names, grads, ref)}
+    forward = {"max_scaled_err": max(scaled_err(y, ry), scaled_err(st, rst)),
+               "max_abs_err": max((y.float() - ry).abs().max().item(),
+                                  (st.float() - rst).abs().max().item()), "tol": tol}
+    back = {"max_scaled_err": errs, "tol": tol,
+            "max_abs_err": max((g.float() - r).abs().max().item() for g, r in zip(grads, ref))}
+    del y, st, grads, ry, rst, ref, leaves
+    forward["ms"] = cuda_ms(fwd, iters=10)
+    by_kernel = kernels_device_ms(fwd, iters=10)
+    forward["device_ms"], forward["kernels"] = sum(by_kernel.values()), sorted(by_kernel)
+    forward["plain_ms"] = cuda_ms(lambda: ssd_ref(*inputs), iters=1, warmup=0)
+    forward["library_ms"] = None   # no single PyTorch call computes the SSD scan
+    bound_ms, bound_by, _, _ = ssd_bound(b, l, h, p, n, 128, str(dtype), str(a.dtype))
+    forward.update(bound_ms=bound_ms, bound_by=bound_by, bound_frac=bound_ms / forward["ms"],
+                   device_bound_frac=bound_ms / forward["device_ms"])
+    back["ms"] = cuda_ms(bwd, iters=5, warmup=1)
+    by_kernel = kernels_device_ms(bwd, iters=5)
+    back["device_ms"], back["kernels"] = sum(by_kernel.values()), sorted(by_kernel)
+    back["plain_ms"] = cuda_ms(lambda: ssd_bwd_ref(x, dt, a, bm, cm, dy), iters=1, warmup=0)
+    back["library_ms"] = None
+    bound_ms, bound_by, _, _ = ssd_bwd_bound(b, l, h, p, n, str(dtype), str(a.dtype),
+                                             tile=bwd_tile(dtype, p, n))
+    back.update(bound_ms=bound_ms, bound_by=bound_by, bound_frac=bound_ms / back["ms"],
+                device_bound_frac=bound_ms / back["device_ms"])
+    kind = route(dtype, p, n).kind
+    row = {"case": name, "shape": [b, l, h, p, n], "dtype": str(dtype), "route": kind,
+           "forward": forward, "backward": back}
+    check(forward["max_scaled_err"] <= tol, f"shapes {name}: forward {forward['max_scaled_err']}")
+    check(max(errs.values()) <= tol, f"shapes {name}: backward {errs}")
+    kernel = "ssd_fwd_bf16_pad" if kind == "pad" else "ssd_fwd_any"
+    check(forward["kernels"] and all(kernel in k for k in forward["kernels"]),
+          f"shapes {name}: the forward ran {forward['kernels']}, not {kernel}")
+    del x, dt, a, bm, cm, dy
+    torch.cuda.empty_cache()
+    return row
+
+
+def _shapes_model(arch: str, seed: int) -> dict[str, int]:
+    """A smoke config cut off the built shapes, on the card: prefill and
+    decode, kernel path against plain path in bf16 (the padded route) and
+    fp32 (the general route), then a train step's loss and gradients held
+    to float64 as train_grad_check holds them.  Returns the route
+    launches of the run (counted from 0)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import batch_for
+    from repro_torch.distributed.step import batch_to
+    from repro_torch.models import materialize, param_defs
+    from repro_torch.models.spec import tree_map
+
+    cut, b, s, steps = SHAPES_MODELS[arch]
+    base = get_smoke_config(arch)
+    if "ssm" in cut:
+        base = base.scaled(ssm=dataclasses.replace(base.ssm, **cut["ssm"]))
+    else:
+        base = base.scaled(**cut)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    ids = torch.randint(0, base.vocab_size, (b, s + steps), generator=gen, device="cuda")
+    zero_route_counts()
+    out = {"config": base.name, "cut": cut, "batch": b, "prompt": s, "steps": steps}
+    for compute in ("bfloat16", "float32"):
+        cfg = base.scaled(compute_dtype=compute)
+        params = materialize(param_defs(cfg), seed, "cuda")
+        if compute == "float32":
+            params = tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
+        k = _path_logits(params, cfg, ids, s, steps, timed=False)
+        with plain_attention():
+            p = _path_logits(params, cfg, ids, s, steps, timed=False)
+        want = expected_launches(cfg)
+        row = {"prefill_launches": k["prefill_launches"], "plain_launches": p["prefill_launches"],
+               "decode_rel_err": _rel_rows(k["got"], p["got"]).max().item(),
+               "forward_rel_err": _rel_rows(k["ref"], p["ref"]).max().item(),
+               "tol": SHAPES_MODEL_TOL[compute],
+               "finite": bool(torch.isfinite(k["got"].float()).all())}
+        out[compute] = row
+        what = f"shapes {arch} {compute}"
+        check(row["finite"], f"{what}: logits not finite")
+        check(row["prefill_launches"] == want, f"{what}: prefill launched "
+              f"{row['prefill_launches']}, expected {want}")
+        check(not any(row["plain_launches"].values()), f"{what}: the plain path launched")
+        check(max(row["decode_rel_err"], row["forward_rel_err"]) <= row["tol"],
+              f"{what}: kernel path vs plain path {row['decode_rel_err']} "
+              f"{row['forward_rel_err']} > {row['tol']}")
+        del params, k, p
+    batch = batch_to(batch_for(base, b, s, 0, seed=seed), torch.device("cuda"))
+    params = materialize(param_defs(base), seed, "cuda")
+    _grad_check_init("reference", params, batch, base, False)
+    launches = route_counts()
+    out["route_launches"] = launches
+    emit("shapes_model", **out)
+    del params, batch
+    return launches
+
+
+def phase_shapes(seed: int) -> tuple[dict, dict[str, dict[str, int]]]:
+    """The routes off the built shapes (see the section's head): returns
+    the readings of the kernel table's route rows and the two models'
+    route launches by path."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    t0 = time.perf_counter()
+    small = [_flash_small(gen, 2, 130, 4, 2, *case) for case in SHAPES_FLASH_CASES]
+    small += [_flash_small(gen, 1, 16, 65600, 65600, d, d, dtype, True, 0)
+              for d, _, dtype in SHAPES_FLASH_WIDE]
+    ssd_small = [_ssd_small(gen, 1, 100, 4, *case) for case in SHAPES_SSD_CASES]
+    emit("shapes_small", flash=small, ssd=ssd_small, seconds=time.perf_counter() - t0)
+    public = {c[0]: _flash_public(gen, *c) for c in SHAPES_PUBLIC_FLASH}
+    public.update({c[0]: _ssd_public(gen, *c) for c in SHAPES_PUBLIC_SSD})
+    for row in public.values():
+        emit("shapes_public", **row)
+    launches = {f"{arch} {SHAPES_MODELS[arch][0]} prefill+decode+train (shapes)":
+                _shapes_model(arch, seed) for arch in SHAPES_MODELS}
+    for arch_launches in launches.values():
+        check(any(arch_launches.values()), f"shapes: a model launched no route kernel "
+              f"({arch_launches})")
+    return public, launches
 
 
 def kernel_device_ms(fn, iters: int = 50) -> float:
@@ -3336,6 +3728,12 @@ def main() -> int:
     group_cases, group_launches = phase_ssd_groups(args.seed, ssd_cases, ssd_bwd_cases)
     path_launches.update(group_launches)
     seconds["ssd_groups"] = time.perf_counter() - t0
+    # every route off the ten configs' shapes: small cases, public models'
+    # full-width shapes, two scaled configs (their counts zeroed just before)
+    t0 = time.perf_counter()
+    shape_rows, shape_launches = phase_shapes(args.seed)
+    path_launches.update(shape_launches)
+    seconds["shapes"] = time.perf_counter() - t0
 
     # -- 4. prefill + decode at full width and depth, 5. serve, per path -----
     # each path's counts are zeroed just before its run and read just after
@@ -3488,6 +3886,40 @@ def main() -> int:
                "initial_state": c["initial_state"]}
             for c in group_cases}
         row["groups_g1"] = group_cases[0]["g1"]
+    # the padded and the general routes (kernels/*.py:route), each with its
+    # readings at a public model's full-width shape
+    csrc = "src/repro_torch/kernels/csrc/"
+    for name, source, case, part, also in (
+            ("flash_fwd_bf16_pad", "flash_attention_pad.cu", "phi2_d80", "forward",
+             "phi3_mini_d96"),
+            ("flash_bwd_bf16_pad", "flash_attention_bwd_pad.cu", "phi2_d80", "backward",
+             "phi3_mini_d96"),
+            ("flash_fwd_any", "flash_attention_any.cu", "phi2_d80_fp16", "forward", None),
+            ("flash_bwd_any", "flash_attention_any.cu", "phi2_d80_fp16", "backward", None),
+            ("ssd_fwd_bf16_pad", "ssd_scan_pad.cu", "zamba2_p64_n64", "forward", None),
+            ("ssd_bwd_bf16_pad", "ssd_scan_bwd_pad.cu", "zamba2_p64_n64", "backward", None),
+            ("ssd_fwd_any", "ssd_scan_any.cu", "zamba2_p64_n64_fp16", "forward", None),
+            ("ssd_bwd_any", "ssd_scan_any.cu", "zamba2_p64_n64_fp16", "backward", None)):
+        c = shape_rows[case][part]
+        by_path = {path: counts.get(name, 0) for path, counts in path_launches.items()}
+        err = c["max_scaled_err"]
+        row = {"name": name, "route": "cuda", "source": csrc + source,
+               "replaces": replaces["flash_attention" if "flash" in name else "ssd_scan"],
+               "launches": sum(by_path.values()),
+               "launches_by_path": {p: k for p, k in by_path.items() if k},
+               "case": case, "shape": shape_rows[case]["shape"],
+               "dtype": shape_rows[case]["dtype"], "max_abs_err": c["max_abs_err"],
+               "max_scaled_err": max(err.values()) if isinstance(err, dict) else err,
+               "tol": c["tol"], "ms": c["ms"], "device_ms": c["device_ms"],
+               "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+               "bound_by": c["bound_by"], "bound_frac": c["bound_frac"],
+               "library_ms": c["library_ms"], "vs_library": c.get("vs_library")}
+        if also:
+            row[also] = {k: shape_rows[also][part][k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_frac",
+                "library_ms", "vs_library", "max_scaled_err")}
+        table.append(row)
+        check(row["launches"] > 0, f"the {name} route ran on no main path")
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -47,8 +47,9 @@ from typing import Any, Callable, Iterable, Sequence
 
 import torch
 
-from repro_torch.kernels.flash_attention import KV_TILES, default_kv_tile, flash_attention_cuda
-from repro_torch.kernels.ssd_scan import CHUNKS, ssd_scan_cuda
+from repro_torch.kernels.flash_attention import (default_kv_tile, flash_attention_cuda, kv_tiles,
+                                                 tma_route)
+from repro_torch.kernels.ssd_scan import chunk_tiles, ssd_scan_cuda
 
 __all__ = [
     "AutotuneCache", "TuneResult", "device_signature", "default_cache",
@@ -68,7 +69,7 @@ DEFAULT_SSD_CHUNK = 128
 #: the tile changes the order of the sums, not the function (flash as the
 #: kernel is held to its plain version; SSD as chip_smoke.py's CHUNK_TOL)
 AGREE_TOL = {"flash_attention": {torch.bfloat16: 2e-2, torch.float32: 1e-4},
-             "ssd_scan": {torch.bfloat16: 1e-2, torch.float32: 1e-5}}
+             "ssd_scan": {torch.bfloat16: 1e-2, torch.float16: 1e-2, torch.float32: 1e-5}}
 #: launches timed between one pair of CUDA events
 _ITERS = 10
 
@@ -219,13 +220,14 @@ def _ssd_groups(b: torch.Tensor) -> int:
 
 def flash_tile_candidates(dk: int, dv: int) -> list[int]:
     """The kv tiles the bf16 flash forward is built for at these head dims
-    (rows of K and V a pipeline stage holds)."""
-    return list(KV_TILES[(dk, dv)])
+    (rows of K and V a pipeline stage holds): their bucket's."""
+    return list(kv_tiles(dk, dv))
 
 
-def ssd_chunk_candidates(dtype: torch.dtype = torch.bfloat16) -> list[int]:
-    """The chunk tiles the SSD kernel is built for in ``dtype``."""
-    return list(CHUNKS[dtype])
+def ssd_chunk_candidates(dtype: torch.dtype = torch.bfloat16, p: int = 64,
+                         n: int = 128) -> list[int]:
+    """The chunk tiles the SSD kernel of ``dtype`` and (P, N) is built for."""
+    return list(chunk_tiles(dtype, p, n))
 
 
 # --------------------------------------------------------------------------
@@ -337,7 +339,7 @@ def autotune_ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: tor
         _require_cuda("autotune_ssd_scan", x, dt, a, b, c)
         runner = _timed_runner(lambda blocks: ssd_scan_cuda(x, dt, a, b, c,
                                                             chunk=blocks["chunk"]), repeats)
-    chunks = candidates or ssd_chunk_candidates(x.dtype)
+    chunks = candidates or ssd_chunk_candidates(x.dtype, p, n)
     result = _sweep(runner, [{"chunk": ch} for ch in chunks], {"chunk": DEFAULT_SSD_CHUNK},
                     AGREE_TOL["ssd_scan"][x.dtype])
     cache = cache or default_cache()
@@ -367,7 +369,7 @@ def tuned_flash_tile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causa
         return cache.memo[shape]
     b, s, h, dk = q.shape
     sk, kv, dv = k.shape[1], k.shape[2], v.shape[3]
-    if (dk, dv) not in KV_TILES:
+    if not tma_route(q.dtype, dk, dv):
         tile = None
     else:
         key = flash_key(b, s, sk, h, kv, dk, dv, q.dtype, causal=causal, window=window)
@@ -393,7 +395,7 @@ def tuned_ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch
     n = b.shape[-1]
     hit = cache.lookup("ssd_scan", ssd_key(bb, l, h, p, n, x.dtype, _ssd_groups(b))) or {}
     chunk = hit.get("chunk")
-    if chunk not in CHUNKS.get(x.dtype, ()):
+    if chunk not in chunk_tiles(x.dtype, p, n):
         chunk = (autotune_ssd_scan(x, dt, a, b, c, cache=cache).blocks["chunk"]
                  if _tune_on_miss() else DEFAULT_SSD_CHUNK)
     cache.memo[shape] = chunk

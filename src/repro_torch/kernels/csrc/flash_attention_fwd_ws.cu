@@ -472,7 +472,8 @@ int launch(const Params& p, const long long* layout, cudaStream_t stream) {
 }  // namespace
 
 // q: (B, S, H, 192); k: (B, Sk, KV, 192); v: (B, Sk, KV, 128); o: (B, S,
-// H, 128); all bf16, contiguous.  layout: the TMA layouts of q and o
+// H, 128); all bf16, contiguous (or, on the padded route, q/k dim dk in
+// (128, 192] and v dim dv up to 128, multiples of 8).  layout: the TMA layouts of q and o
 // (boxes of 64 rows) and k and v (boxes of kv_tile rows), 11 values each.
 // lse: null, or a (B, H, S) fp32 buffer for each row's logsumexp.
 // kv_tile: 128 (kernels/flash_attention.py:KV_TILES).  sched: the
@@ -485,8 +486,13 @@ extern "C" int flash_attention_fwd_ws(const void* q, const void* k, const void* 
                                       const long long* layout, float* lse, int kv_tile,
                                       unsigned int* sched) {
   const bool routed = dk == 192 && dv == 128;
-  if (!routed || kv_tile != WN) return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)DK), lse, sched};
+  // the padded route (kernels/flash_attention.py:route): real head dims,
+  // multiples of 8, whose smallest built pair is (192, 128).  The tensor
+  // maps carry them: TMA zero-fills q, k and v past them and clips O's
+  // stores, so the kernel is this one, scaled by 1 / sqrt(real dk)
+  const bool padded = dk > 128 && dk <= DK && dv > 0 && dv <= DV && dk % 8 == 0 && dv % 8 == 0;
+  if (!(routed || padded) || kv_tile != WN) return (int)cudaErrorInvalidValue;
+  Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)dk), lse, sched};
   const int err = launch(p, layout, static_cast<cudaStream_t>(stream));
   return err ? err : (int)cudaGetLastError();
 }

@@ -11,6 +11,7 @@
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,6 +40,27 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// and fp16, on the general SIMT kernels (csrc/*_any.cu)
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+__device__ __forceinline__ void store_f(__half* p, float v) { *p = __float2half_rn(v); }
+
+// A launch's real widths (flash: the q/k and v head dims; SSD: P and N).
+// FixedWidths: the instantiation's own, compile-time constants, so the
+// code that reads them is the code of a kernel without them.  Widths: the
+// padded route's, at run time inside the instantiation's (a bucket): TMA
+// zero-fills the columns past them, and stores stop at them.
+template <int W0, int W1>
+struct FixedWidths {
+  static constexpr bool PADDED = false;
+  __device__ __forceinline__ int w0() const { return W0; }
+  __device__ __forceinline__ int w1() const { return W1; }
+};
+struct Widths {
+  static constexpr bool PADDED = true;
+  int v0, v1;
+  __device__ __forceinline__ int w0() const { return v0; }
+  __device__ __forceinline__ int w1() const { return v1; }
+};
 
 // What an SSD call with B/C groups (G > 1) or an initial state adds: an
 // argument of its own, read only by the kernels' X instantiations, so that

@@ -22,9 +22,17 @@ kernel may split each kv tile's q heads into shares over blocks
 (:func:`bwd_head_shares`, from the shapes and the card's SM count), and a
 third kernel then sums the shares' fp32 partials in a fixed order.  bf16
 at the models' head dims goes to the wgmma + TMA kernels, fp32 and the smoke configs'
-head dims (16, 16) and (24, 16) in either dtype to SIMT kernels: the route
-follows from dtype and head dims (:func:`tma_route`), never from a failure
-of another route.  The public entry is :func:`repro_torch.kernels.ops.flash_attention`
+head dims (16, 16) and (24, 16) in either dtype to SIMT kernels.
+
+Every other head-dim pair up to 256 and fp16 take one of two more routes
+(:func:`route`): bf16 at head dims that are multiples of 8 takes the
+wgmma + TMA kernels of the smallest built pair that holds them (its
+bucket, ``BUCKETS``), with tensor maps at the real dims (TMA zero-fills
+the last box's columns past them; ``csrc/flash_attention_pad.cu``,
+``csrc/flash_attention_bwd_pad.cu``, and ``flash_fwd_bf16_ws`` in the
+(192, 128) bucket), and everything else the general SIMT kernels
+(``csrc/flash_attention_any.cu``).  The route follows from dtype and head
+dims alone, never from a failure of another route.  The public entry is :func:`repro_torch.kernels.ops.flash_attention`
 (with :class:`repro_torch.kernels.ops.FlashAttention` for autograd), which
 counts the launches; this module only checks and launches.
 """
@@ -38,13 +46,19 @@ import torch
 
 from repro_torch.kernels import build
 
-_DTYPES = {torch.bfloat16: 1, torch.float32: 0}
-# the (q/k head dim, v head dim) pairs the forward and backward kernels
-# take: the models' (bf16 on wgmma + TMA, fp32 on SIMT) and the smoke
-# configs' (SIMT in both dtypes: 16 or 24 columns are not whole TMA boxes)
+_DTYPES = {torch.bfloat16: 1, torch.float32: 0, torch.float16: 2}
+# the largest q/k and v head dim any route takes
+MAX_HEAD_DIM = 256
+# the (q/k head dim, v head dim) pairs with instantiations of their own
+# (every other pair takes a bucket's or the general kernels, see route):
+# the models' (bf16 on wgmma + TMA, fp32 on SIMT) and the smoke configs'
+# (SIMT in both dtypes: 16 or 24 columns are not whole TMA boxes)
 SIMT_HEAD_DIMS = frozenset({(16, 16), (24, 16)})
 HEAD_DIMS = frozenset({(64, 64), (128, 128), (256, 256), (192, 128)}) | SIMT_HEAD_DIMS
 BWD_HEAD_DIMS = HEAD_DIMS
+# the built pairs a padded bf16 call runs on (its bucket: the first that
+# holds both head dims), smallest first
+BUCKETS = ((64, 64), (128, 128), (192, 128), (256, 256))
 # the head dims whose bf16 forward is csrc/flash_attention_fwd_ws.cu's
 # kernel (flash_fwd_bf16_ws): 128 q rows a block, one block an SM
 WS_HEAD_DIMS = frozenset({(192, 128)})
@@ -84,11 +98,12 @@ class DqTiles(NamedTuple):
 
 
 def bwd_dq_tiles(dk: int, dv: int) -> DqTiles:
-    """The bf16 dQ kernel's tiles at head dims (dk, dv): on the
-    two-warpgroup route each warpgroup's Q and dO (64 rows) stay, and three
-    stages of K and V stream, 32 kv rows a stage at D 256 (where 128 q rows
-    of Q and dO take 128 KB), else 64; on the one-warpgroup route 64 q rows
-    and two 64-row stages."""
+    """The bf16 dQ kernel's tiles at head dims (dk, dv), those of their
+    bucket: on the two-warpgroup route each warpgroup's Q and dO (64 rows)
+    stay, and three stages of K and V stream, 32 kv rows a stage at D 256
+    (where 128 q rows of Q and dO take 128 KB), else 64; on the
+    one-warpgroup route 64 q rows and two 64-row stages."""
+    dk, dv = bucket(dk, dv)
     if (dk, dv) in SPLIT_HEAD_DIMS:
         rows, kv_rows, stages = 2 * BWD_BOX_ROWS, 32 if dk == 256 else BWD_BOX_ROWS, 3
     else:
@@ -103,6 +118,47 @@ def bwd_scratch_rows(s: int, dtype: torch.dtype, dk: int, dv: int) -> int:
     (0 past S); the dK/dV kernel reads whole 64-row tiles of it."""
     rows = bwd_dq_tiles(dk, dv).rows if tma_route(dtype, dk, dv) else BWD_BOX_ROWS
     return -(-s // rows) * rows
+
+
+class Route(NamedTuple):
+    """How a call runs: ``kind`` "tma" (bf16 at a built pair), "pad" (bf16
+    at head dims that are multiples of 8 inside a built pair, on its
+    kernels), "simt" (fp32 at a built pair, and the smoke configs' head
+    dims in bf16 and fp32) or "any" (the general SIMT kernels); ``dims``
+    the instantiation's head dims: the bucket on "tma" and "pad", the real
+    dims otherwise."""
+    kind: str
+    dims: tuple[int, int]
+
+
+_ROUTES: dict[tuple, Route] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def bucket(dk: int, dv: int) -> tuple[int, int]:
+    """The smallest built pair that holds head dims (dk, dv) (phi-2's D 80
+    takes (128, 128)); (dk, dv) itself where none does."""
+    return next(((bk, bv) for bk, bv in BUCKETS if dk <= bk and dv <= bv), (dk, dv))
+
+
+def route(dtype: torch.dtype, dk: int, dv: int) -> Route:
+    """The route of a call, by dtype and head dims alone (cached: a call
+    asks once a shape)."""
+    key = (dtype, dk, dv)
+    r = _ROUTES.get(key)
+    if r is None:
+        if dtype == torch.bfloat16 and (dk, dv) in BUCKETS:
+            r = Route("tma", (dk, dv))
+        elif ((dk, dv) in SIMT_HEAD_DIMS and dtype in (torch.bfloat16, torch.float32)
+              or dtype == torch.float32 and (dk, dv) in BUCKETS):
+            r = Route("simt", (dk, dv))
+        elif (dtype == torch.bfloat16 and dk % 8 == 0 and dv % 8 == 0
+              and bucket(dk, dv) in BUCKETS):
+            r = Route("pad", bucket(dk, dv))
+        else:
+            r = Route("any", (dk, dv))
+        _ROUTES[key] = r
+    return r
 
 
 class TmaLayout(NamedTuple):
@@ -121,12 +177,12 @@ def tma_layout(shape: tuple[int, int, int, int], stride: tuple[int, int, int, in
                elem_bytes: int, rows: int) -> TmaLayout:
     """The tensor-map layout of a (B, S, heads, D) tensor with element
     strides ``stride`` whose boxes are ``rows`` sequence positions by
-    BOX_COLS columns of one head.  Raises where TMA would refuse it: a head
-    dim that is not whole boxes, a D that is not contiguous, or a byte
-    stride that is not a multiple of 16 below 2**40."""
+    BOX_COLS columns of one head.  ``dims`` carry the real D: where D is not
+    whole boxes, TMA zero-fills the last box's columns past it.  Raises
+    where TMA would refuse it: a D that is not contiguous, or a byte stride
+    that is not a multiple of 16 below 2**40 (in bf16 a contiguous D that
+    is not a multiple of 8)."""
     b, s, h, d = shape
-    if d % BOX_COLS:
-        raise ValueError(f"tma_layout: head dim {d} is not a multiple of {BOX_COLS}")
     if stride[3] != 1:
         raise ValueError(f"tma_layout: head dim stride {stride[3]}, not 1")
     strides = (stride[2] * elem_bytes, stride[1] * elem_bytes, stride[0] * elem_bytes)
@@ -239,6 +295,40 @@ def _sched_counters(device: torch.device, stream: int) -> torch.Tensor:
     return counters
 
 
+def _pad_fn():
+    fn = build.library("flash_attention_pad").flash_attention_fwd_pad
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _any_fn():
+    fn = build.library("flash_attention_any").flash_attention_fwd_any
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_pad_fn():
+    fn = build.library("flash_attention_bwd_pad").flash_attention_bwd_pad
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 2)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_any_fn():
+    fn = build.library("flash_attention_any").flash_attention_bwd_any
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _bwd_fn():
     fn = build.library("flash_attention_bwd").flash_attention_bwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
@@ -249,21 +339,28 @@ def _bwd_fn():
 
 
 def tma_route(dtype: torch.dtype, dk: int, dv: int) -> bool:
-    """Whether a call takes the wgmma + TMA kernels (bf16 at the models'
-    head dims) rather than the SIMT ones: by dtype and head dims alone."""
-    return dtype == torch.bfloat16 and (dk, dv) not in SIMT_HEAD_DIMS
+    """Whether a call takes the wgmma + TMA kernels (bf16 at a built pair,
+    or padded inside one) rather than the SIMT ones: by dtype and head dims
+    alone."""
+    return route(dtype, dk, dv).kind in ("tma", "pad")
 
 
 def ws_route(dtype: torch.dtype, dk: int, dv: int) -> bool:
     """Whether a forward call takes ``flash_fwd_bf16_ws``
-    (csrc/flash_attention_fwd_ws.cu): bf16 at WS_HEAD_DIMS, by dtype and
-    head dims alone."""
-    return dtype == torch.bfloat16 and (dk, dv) in WS_HEAD_DIMS
+    (csrc/flash_attention_fwd_ws.cu): bf16 at WS_HEAD_DIMS or padded inside
+    them, by dtype and head dims alone."""
+    r = route(dtype, dk, dv)
+    return r.kind in ("tma", "pad") and r.dims in WS_HEAD_DIMS
+
+
+def kv_tiles(dk: int, dv: int) -> tuple[int, ...]:
+    """The bf16 forward's kv tiles at head dims (dk, dv): their bucket's."""
+    return KV_TILES[bucket(dk, dv)]
 
 
 def default_kv_tile(dk: int, dv: int) -> int:
     """The bf16 forward's kv tile at head dims (dk, dv) when none is named."""
-    return KV_TILES[(dk, dv)][0]
+    return kv_tiles(dk, dv)[0]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -276,19 +373,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"v {tuple(v.shape)} do not match")
     if kvh == 0 or h % kvh:
         raise ValueError(f"flash_attention: {h} q heads do not group over {kvh} kv heads")
-    if (d, v.shape[-1]) not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dims (q/k {d}, v {v.shape[-1]}) not in "
-                         f"{sorted(HEAD_DIMS)}")
+    if not (1 <= d <= MAX_HEAD_DIM and 1 <= v.shape[-1] <= MAX_HEAD_DIM):
+        raise ValueError(f"flash_attention: head dims (q/k {d}, v {v.shape[-1]}) past the "
+                         f"limit: the kernels take 1 <= D, Dv <= {MAX_HEAD_DIM}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
-                        "the kernel takes bf16 or fp32, all alike")
+                        "the kernels take bf16, fp16 or fp32, all alike")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {t.device}, not {q.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must be contiguous and 16-byte aligned")
-    if s == 0 or sk == 0 or b * h > 65535:
-        raise ValueError(f"flash_attention: empty sequence or B*H = {b * h} over the grid limit")
+    if s == 0 or sk == 0 or b * h == 0:
+        raise ValueError("flash_attention: empty batch, heads or sequence")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -296,19 +393,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          kv_tile: int | None = None):
     """q: (B, S, H, D); k: (B, Sk, KV, D); v: (B, Sk, KV, Dv) on one CUDA
     device -> o (B, S, H, Dv), and with ``return_lse`` also each row's
-    logsumexp (B, H, S) in fp32.  (D, Dv) is one of HEAD_DIMS.  ``kv_tile``
-    picks the bf16 kernel's kv tile among ``KV_TILES[(D, Dv)]`` (None: the
-    default); the SIMT kernels (fp32, and the smoke head dims in bf16)
-    have one tile and take None only."""
+    logsumexp (B, H, S) in fp32.  1 <= D, Dv <= MAX_HEAD_DIM; bf16, fp16
+    or fp32 (:func:`route` picks the kernel).  ``kv_tile`` picks the bf16
+    wgmma kernel's kv tile among its bucket's ``KV_TILES`` (None: the
+    default); the SIMT kernels (fp32, fp16, the smoke head dims, head dims
+    that are not multiples of 8) have one tile and take None only."""
     _check(q, k, v)
     b, s, h, d = q.shape
     sk, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
+    r = route(q.dtype, d, dv)
     tile = 0
-    if tma_route(q.dtype, d, dv):
-        tile = default_kv_tile(d, dv) if kv_tile is None else kv_tile
-        if tile not in KV_TILES[(d, dv)]:
+    if r.kind in ("tma", "pad"):
+        tile = KV_TILES[r.dims][0] if kv_tile is None else kv_tile
+        if tile not in KV_TILES[r.dims]:
             raise ValueError(f"flash_attention: kv tile {tile} at head dims ({d}, {dv}); the "
-                             f"kernel is built for {KV_TILES[(d, dv)]}")
+                             f"kernel is built for {KV_TILES[r.dims]}")
     elif kv_tile is not None:
         raise ValueError(f"flash_attention: the {q.dtype} kernel at head dims ({d}, {dv}) has "
                          f"one tile; kv_tile {kv_tile} was named")
@@ -317,11 +416,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lse_ptr = None if lse is None else lse.data_ptr()
     with torch.cuda.device(q.device):
-        if ws_route(q.dtype, d, dv):   # the MLA kernel: TMA layouts of q, k, v and o
+        if tile and r.dims in WS_HEAD_DIMS:   # the MLA kernel: TMA layouts of q, k, v and o
             err = _ws_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                            b, s, sk, h, kvh, d, dv, int(causal), int(window), stream,
                            ws_layout_array(q, k, v, o, tile), lse_ptr, tile,
                            _sched_counters(q.device, stream).data_ptr())
+        elif r.kind == "any":
+            err = _any_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                            b, s, sk, h, kvh, d, dv, int(causal), int(window), _DTYPES[q.dtype],
+                            stream, lse_ptr)
+        elif r.kind == "pad":   # the bucket's kernel, TMA layouts at the real dims
+            layout = layout_array(q.shape, q.stride(), k.shape, k.stride(), BLOCK_Q, tile,
+                                  v.shape, v.stride())
+            err = _pad_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                            b, s, sk, h, kvh, d, dv, *r.dims, int(causal), int(window),
+                            stream, layout, lse_ptr, tile)
         else:
             layout = None
             if tile:   # the TMA layouts of q, k and v
@@ -344,7 +453,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradient of :func:`flash_attention_cuda`: q (B, S, H, D), o, do
     (B, S, H, Dv), k (B, Sk, KV, D), v (B, Sk, KV, Dv), lse (B, H, S) fp32
     from the forward -> (dq, dk, dv) in the inputs' dtype, dk and dv summed
-    over each kv head's q heads.  (D, Dv) is one of BWD_HEAD_DIMS."""
+    over each kv head's q heads.  Head dims and dtypes as the forward's,
+    on the route of the same name (:func:`route`)."""
     _check(q, k, v)
     do = do.contiguous()
     b, s, h, d = q.shape
@@ -361,24 +471,34 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: lse is {tuple(lse.shape)} {lse.dtype} on "
                          f"{lse.device}; expected contiguous ({b}, {h}, {s}) float32 on "
                          f"{q.device}")
+    r = route(q.dtype, d, dv)
     layout, shares, part = None, 1, None
-    if tma_route(q.dtype, d, dv):   # the TMA layouts of q, k, v and dO
+    if r.kind in ("tma", "pad"):   # the TMA layouts of q, k, v and dO
         layout = bwd_layout_array(q, k, v, do)
-        if (d, dv) in SPLIT_HEAD_DIMS:
+        if r.dims in SPLIT_HEAD_DIMS:
             shares = bwd_head_shares(b, kvh, h // kvh, sk, _sm_count(q.device.index))
     dq, dk, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # Delta and lse in base 2 for the dK/dV kernel, written by the dQ kernel
     s_pad = bwd_scratch_rows(s, q.dtype, d, dv)
     scratch = torch.empty(2 * b * h * s_pad, dtype=torch.float32, device=q.device)
     if shares > 1:   # the head shares' partial dK and dV, summed by a pass of their own
-        part = torch.empty(bwd_partial_numel(shares, b, sk, kvh, d, dv), dtype=torch.float32,
+        part = torch.empty(bwd_partial_numel(shares, b, sk, kvh, *r.dims), dtype=torch.float32,
                            device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(), scratch.data_ptr())
     with torch.cuda.device(q.device):
-        err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(),
-                        scratch.data_ptr(), b, s, sk, h, kvh, d, dv, int(causal), int(window),
-                        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-                        layout, None if part is None else part.data_ptr(), shares, s_pad)
+        if r.kind == "any":
+            err = _bwd_any_fn()(*ptrs, b, s, sk, h, kvh, d, dv, int(causal), int(window),
+                                _DTYPES[q.dtype], stream)
+        elif r.kind == "pad":   # the bucket's kernels, TMA layouts at the real dims
+            err = _bwd_pad_fn()(*ptrs, b, s, sk, h, kvh, d, dv, *r.dims, int(causal),
+                                int(window), stream, layout,
+                                None if part is None else part.data_ptr(), shares, s_pad)
+        else:
+            err = _bwd_fn()(*ptrs, b, s, sk, h, kvh, d, dv, int(causal), int(window),
+                            _DTYPES[q.dtype], stream, layout,
+                            None if part is None else part.data_ptr(), shares, s_pad)
     if err < 0:
         raise RuntimeError(f"flash_attention_bwd: TMA tensor map not encoded (code {err})")
     if err:

@@ -47,6 +47,7 @@ import torch
 from repro_torch.kernels.autotune import DEFAULT_SSD_CHUNK, tuned_flash_tile, tuned_ssd_chunk
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda, flash_attention_cuda,
                                                  ws_route)
+from repro_torch.kernels.flash_attention import route as flash_route
 from repro_torch.kernels.ref import (
     flash_attention_bwd_ref,
     flash_attention_lse_ref,
@@ -55,6 +56,7 @@ from repro_torch.kernels.ref import (
     ssd_ref,
 )
 from repro_torch.kernels.ssd_scan import kernel_chunk, ssd_scan_bwd_cuda, ssd_scan_cuda
+from repro_torch.kernels.ssd_scan import route as ssd_route
 
 #: ``launch_hook(name, **inputs)`` at each kernel launch while a roofline
 #: count runs, else None: one global lookup a launch.  A module global, not
@@ -111,11 +113,20 @@ def _flash_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     return q.new_empty(q.shape[:3] + v.shape[3:])
 
 
+def _count_route(fn, prefix: str, kind: str) -> None:
+    """One launch on the padded or the general route, by the route's kind."""
+    if kind in ("pad", "any"):
+        name = f"{prefix}{kind}_launches"
+        setattr(fn, name, getattr(fn, name) + 1)
+
+
 def _count_forward(q: torch.Tensor, v: torch.Tensor) -> None:
-    """One forward launch; one more of the MLA kernel where it took it."""
+    """One forward launch; one more of the MLA kernel where it took it, and
+    of the padded or the general route where it took one."""
     flash_attention.launches += 1
     if ws_route(q.dtype, q.shape[3], v.shape[3]):
         flash_attention.ws_launches += 1
+    _count_route(flash_attention, "", flash_route(q.dtype, q.shape[3], v.shape[3]).kind)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -152,6 +163,8 @@ class FlashAttention(torch.autograd.Function):
         if q.device.type == "cuda":
             dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
             flash_attention.bwd_launches += 1
+            _count_route(flash_attention, "bwd_",
+                         flash_route(q.dtype, q.shape[3], v.shape[3]).kind)
             if launch_hook is not None:
                 launch_hook("flash_attention_bwd", q=q, k=k, v=v, **kw)
         elif q.device.type == "meta":
@@ -172,7 +185,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     None asks the autotune cache.  ``flash_attention.launches`` counts
     forward kernel launches, ``flash_attention.ws_launches`` those of them
     that took the MLA kernel (``flash_fwd_bf16_ws``), and
-    ``flash_attention.bwd_launches`` backward ones (CUDA only)."""
+    ``flash_attention.bwd_launches`` backward ones (CUDA only);
+    ``pad_launches`` / ``bwd_pad_launches`` and ``any_launches`` /
+    ``bwd_any_launches`` those that took the padded and the general route
+    (``kernels.flash_attention.route``)."""
     if _is_dtensor(q):
         return _flash_on_mesh(q, k, v, causal, window, kv_tile)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
@@ -195,6 +211,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 flash_attention.ws_launches = 0
 flash_attention.bwd_launches = 0
+flash_attention.pad_launches = flash_attention.bwd_pad_launches = 0
+flash_attention.any_launches = flash_attention.bwd_any_launches = 0
 
 
 def _ssd_hook(name: str, x, a, b, initial_state, **kw) -> None:
@@ -210,6 +228,7 @@ def _ssd_launch(x, dt, a, b, c, chunk: int | None, initial_state=None):
         chunk = tuned_ssd_chunk(x, dt, a, b, c)
     out = ssd_scan_cuda(x, dt, a, b, c, chunk=chunk, initial_state=initial_state)
     ssd_scan.launches += 1
+    _count_route(ssd_scan, "", ssd_route(x.dtype, x.shape[3], b.shape[-1]).kind)
     _ssd_hook("ssd_scan", x, a, b, initial_state,
               chunk=kernel_chunk(chunk, x.dtype, x.shape[3], b.shape[-1]))
     return out
@@ -249,6 +268,7 @@ class SsdScan(torch.autograd.Function):
         if x.device.type == "cuda":
             grads = ssd_scan_bwd_cuda(x, dt, a, b, c, dy, dstate, s0)
             ssd_scan.bwd_launches += 1
+            _count_route(ssd_scan, "bwd_", ssd_route(x.dtype, x.shape[3], b.shape[-1]).kind)
             _ssd_hook("ssd_scan_bwd", x, a, b, s0)
         elif x.device.type == "meta":
             _ssd_hook("ssd_scan_bwd", x, a, b, s0)
@@ -271,7 +291,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     tile; None asks the autotune cache.
 
     ``ssd_scan.launches`` counts forward kernel launches and
-    ``ssd_scan.bwd_launches`` backward ones (CUDA only)."""
+    ``ssd_scan.bwd_launches`` backward ones (CUDA only); ``pad_launches``
+    / ``bwd_pad_launches`` and ``any_launches`` / ``bwd_any_launches``
+    those that took the padded and the general route
+    (``kernels.ssd_scan.route``)."""
     if _is_dtensor(x):
         return _ssd_on_mesh(x, dt, a, b, c, chunk, initial_state)
     leaves = (x, dt, a, b, c) + (() if initial_state is None else (initial_state,))
@@ -346,3 +369,5 @@ def _ssd_on_mesh(x, dt, a, b, c, chunk: int | None, initial_state=None):
 
 ssd_scan.launches = 0
 ssd_scan.bwd_launches = 0
+ssd_scan.pad_launches = ssd_scan.bwd_pad_launches = 0
+ssd_scan.any_launches = ssd_scan.bwd_any_launches = 0

@@ -12,8 +12,13 @@ says what bounds the kernel on the H100 and what its design does about
 it.
 
 (P, N) is mamba2's (64, 128), bf16 on the wgmma kernel and fp32 on the
-SIMT one, or the smoke config's (16, 16), the SIMT kernel in either dtype:
-the route follows from dtype and shape (:func:`tma_route`).  b and c are
+SIMT one, or the smoke config's (16, 16), the SIMT kernel in either dtype.
+Every other (P, N) up to (128, 256) and fp16 take one of two more routes
+(:func:`route`): bf16 with P and N multiples of 8 up to (64, 128) takes
+the wgmma kernels built for (64, 128) with tensor maps at the real dims
+(``csrc/ssd_scan_pad.cu``, ``csrc/ssd_scan_bwd_pad.cu``), everything else
+the general SIMT kernels (``csrc/ssd_scan_any.cu``).  The route follows
+from dtype and shape alone.  b and c are
 (B, L, G, N) with G dividing H (head h reads group h // (H / G)), or (B,
 L, N) for G = 1; an optional initial state (B, H, P, N) in x's dtype or
 fp32 starts the scan.  A call with G > 1 or an initial state runs the
@@ -44,14 +49,20 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import TmaLayout, tma_layout
 
-_DTYPES = {torch.bfloat16: 1, torch.float32: 0}
-# the (P, N) pairs the kernels take: mamba2-780m's, and its smoke config's
-# on the SIMT kernel in either dtype (16-column rows are not whole TMA boxes)
+_DTYPES = {torch.bfloat16: 1, torch.float32: 0, torch.float16: 2}
+# the largest P and N any route takes
+MAX_P, MAX_N = 128, 256
+# the (P, N) pairs with instantiations of their own: mamba2-780m's, and
+# its smoke config's on the SIMT kernel in either dtype (16-column rows are
+# not whole TMA boxes); the wgmma kernels' (P, N), which a padded call runs on
 SIMT_SHAPES = frozenset({(16, 16)})
 SHAPES = frozenset({(64, 128)}) | SIMT_SHAPES
+BUCKET = (64, 128)
 # the kernels' chunk tiles: the bf16 wgmma kernel's warpgroups take 64 rows
-# each; the SIMT kernel (fp32, and the smoke shape in bf16) takes 32 too
+# each; the SIMT kernel (fp32, and the smoke shape in bf16) takes 32 too;
+# the general kernels (ANY_CHUNK) 32 alone
 CHUNKS = {torch.bfloat16: (64, 128), torch.float32: (32, 64, 128)}
+ANY_CHUNK = 32
 # the backward kernel's own tile by (P, N): the function does not depend on
 # the chunk (csrc/ssd_scan_bwd.cu says why it is 64 at mamba2's shape)
 BWD_TILES = {(64, 128): 64, (16, 16): 32}
@@ -59,6 +70,38 @@ BWD_TILES = {(64, 128): 64, (16, 16): 32}
 # and dC summed in registers), at most: see bwd_head_block
 BWD_HEAD_GROUP = 12
 Y_ROWS = 64                # rows of y one warpgroup stores by TMA
+
+
+class Route(NamedTuple):
+    """How a call runs: ``kind`` "tma" (bf16 at (64, 128)), "pad" (bf16 at
+    P and N multiples of 8 up to (64, 128), on its kernels), "simt" (fp32
+    at (64, 128), and (16, 16) in bf16 and fp32) or "any" (the general SIMT
+    kernels); ``dims`` the instantiation's (P, N): BUCKET on "tma" and
+    "pad", the real (P, N) otherwise."""
+    kind: str
+    dims: tuple[int, int]
+
+
+_ROUTES: dict[tuple, Route] = {}
+
+
+def route(dtype: torch.dtype, p: int, n: int) -> Route:
+    """The route of a call, by dtype and (P, N) alone (cached)."""
+    key = (dtype, p, n)
+    r = _ROUTES.get(key)
+    if r is None:
+        if dtype == torch.bfloat16 and (p, n) == BUCKET:
+            r = Route("tma", BUCKET)
+        elif ((p, n) in SIMT_SHAPES and dtype in (torch.bfloat16, torch.float32)
+              or dtype == torch.float32 and (p, n) == BUCKET):
+            r = Route("simt", (p, n))
+        elif (dtype == torch.bfloat16 and p % 8 == 0 and n % 8 == 0 and p <= BUCKET[0]
+              and n <= BUCKET[1]):
+            r = Route("pad", BUCKET)
+        else:
+            r = Route("any", (p, n))
+        _ROUTES[key] = r
+    return r
 
 
 class SsdTma(NamedTuple):
@@ -112,9 +155,25 @@ def _fn():
 
 
 def tma_route(dtype: torch.dtype, p: int = 64, n: int = 128) -> bool:
-    """Whether a call takes the wgmma + TMA kernel (bf16 at mamba2's (P, N))
-    rather than the SIMT one: by dtype and shape alone."""
-    return dtype == torch.bfloat16 and (p, n) not in SIMT_SHAPES
+    """Whether a call takes the wgmma + TMA kernels (bf16 at mamba2's (P,
+    N), or padded inside it) rather than SIMT ones: by dtype and shape
+    alone."""
+    return route(dtype, p, n).kind in ("tma", "pad")
+
+
+def chunk_tiles(dtype: torch.dtype, p: int = 64, n: int = 128) -> tuple[int, ...]:
+    """The chunk tiles the kernel of ``dtype`` and (P, N) is built for."""
+    kind = route(dtype, p, n).kind
+    if kind == "any":
+        return (ANY_CHUNK,)
+    return CHUNKS[torch.bfloat16] if kind in ("tma", "pad") else CHUNKS[torch.float32]
+
+
+def bwd_tile(dtype: torch.dtype, p: int, n: int) -> int:
+    """The backward kernels' chunk at ``dtype`` and (P, N): BWD_TILES by the
+    route's dims, ANY_CHUNK on the general kernels."""
+    r = route(dtype, p, n)
+    return ANY_CHUNK if r.kind == "any" else BWD_TILES[r.dims]
 
 
 def kernel_chunk(chunk: int, dtype: torch.dtype = torch.bfloat16, p: int = 64,
@@ -125,7 +184,7 @@ def kernel_chunk(chunk: int, dtype: torch.dtype = torch.bfloat16, p: int = 64,
     not depend on the chunk: steps past L are exact identities and the
     state carries across tiles, so any tile computes it (``min(128, L)``
     for a short L)."""
-    tiles = CHUNKS[torch.bfloat16] if tma_route(dtype, p, n) else CHUNKS[torch.float32]
+    tiles = chunk_tiles(dtype, p, n)
     if chunk < 1:
         raise ValueError(f"ssd_scan: chunk {chunk} is not a positive step count")
     return next((q for q in tiles if chunk <= q), tiles[-1])
@@ -169,11 +228,12 @@ def _check(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                          "do not match")
     if g == 0 or h % g:
         raise ValueError(f"ssd_scan: {g} B/C groups do not divide {h} heads")
-    if (p, n) not in SHAPES:
-        raise ValueError(f"ssd_scan: (P, N) = ({p}, {n}); the kernels take {sorted(SHAPES)}")
+    if not (1 <= p <= MAX_P and 1 <= n <= MAX_N):
+        raise ValueError(f"ssd_scan: (P, N) = ({p}, {n}) past the limit: the kernels take "
+                         f"P <= {MAX_P} and N <= {MAX_N}")
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (dt, b, c)):
         raise TypeError(f"ssd_scan: dtypes x {x.dtype} dt {dt.dtype} b {b.dtype} "
-                        f"c {c.dtype}; the kernel takes bf16 or fp32, all alike")
+                        f"c {c.dtype}; the kernels take bf16, fp16 or fp32, all alike")
     if a.dtype not in (x.dtype, torch.float32):
         raise TypeError(f"ssd_scan: a is {a.dtype}; the kernel takes x's dtype or fp32")
     # x, b and c may be strided views (the model's split of its conv
@@ -224,22 +284,68 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.T
     g, n = groups(b), b.shape[-1]
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     state = torch.empty((bb, h, p, n), dtype=x.dtype, device=x.device)
+    r = route(x.dtype, p, n)
     layout = None
-    if tma_route(x.dtype, p, n):
+    if r.kind in ("tma", "pad"):
         if any(t.data_ptr() % 16 for t in (x, b, c)):
             raise ValueError("ssd_scan: x, b and c must start 16-byte aligned for TMA")
         layout = _layout_array(x, b, c, q)
+    ptrs = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            y.data_ptr(), state.data_ptr())
+    strides = (x.stride(0), x.stride(1), b.stride(0), b.stride(1), c.stride(0), c.stride(1))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = _fn()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                    y.data_ptr(), state.data_ptr(), bb, l, h, p, n, q, _DTYPES[x.dtype],
-                    _DTYPES[a.dtype], x.stride(0), x.stride(1), b.stride(0), b.stride(1),
-                    c.stride(0), c.stride(1), torch.cuda.current_stream(x.device).cuda_stream,
-                    layout, *_state_args(initial_state), g)
+        if r.kind == "any":
+            err = _any_fn()(*ptrs, bb, l, h, p, n, _DTYPES[x.dtype],
+                            int(a.dtype == torch.float32), *strides, stream,
+                            *_state_args(initial_state), g)
+        elif r.kind == "pad":   # mamba2's kernel, TMA layouts at the real (P, N)
+            err = _pad_fn()(*ptrs, bb, l, h, p, n, q, int(a.dtype == torch.bfloat16), stream,
+                            layout, *_state_args(initial_state), g)
+        else:
+            err = _fn()(*ptrs, bb, l, h, p, n, q, _DTYPES[x.dtype], _DTYPES[a.dtype], *strides,
+                        stream, layout, *_state_args(initial_state), g)
     if err < 0:
         raise RuntimeError(f"ssd_scan: TMA tensor map not encoded (code {err})")
     if err:
         raise RuntimeError(f"ssd_scan: kernel launch failed with CUDA error {err}")
     return y, state
+
+
+def _pad_fn():
+    fn = build.library("ssd_scan_pad").ssd_scan_fwd_pad
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 2)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _any_fn():
+    fn = build.library("ssd_scan_any").ssd_scan_fwd_any
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_pad_fn():
+    fn = build.library("ssd_scan_bwd_pad").ssd_scan_bwd_pad
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 4)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_any_fn():
+    fn = build.library("ssd_scan_any").ssd_scan_bwd_any
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2)
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _bwd_fn():
@@ -314,7 +420,8 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: tor
     _check(x, dt, a, b, c, initial_state)
     bb, l, h, p = x.shape
     g, n = groups(b), b.shape[-1]
-    tile = BWD_TILES[(p, n)]
+    r = route(x.dtype, p, n)
+    tile = bwd_tile(x.dtype, p, n)
     dy = dy.contiguous()
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"ssd_scan_bwd: dy is {tuple(dy.shape)} {dy.dtype} on {dy.device}, "
@@ -332,7 +439,8 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: tor
     s0_ptr, s0_f32 = _state_args(initial_state)
     # the kernels' last four arguments: s0, its gradient's fp32 buffer, s0's dtype, G
     state_args = (s0_ptr, None if ds0 is None else ds0.data_ptr(), s0_f32, g)
-    if tma_route(x.dtype, p, n):
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if r.kind in ("tma", "pad"):
         hg = bwd_head_block(h, g)
         if any(t.data_ptr() % 16 for t in (x, b, c, dy)):
             raise ValueError("ssd_scan_bwd: x, b, c and dy must start 16-byte aligned for TMA")
@@ -341,20 +449,44 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: tor
         # x, b and c with boxes of the tile's rows, then dy as the forward's
         # y: contiguous, x's shape, Y_ROWS rows a box
         layout = _layout_array(x, b, c, tile)
-        with torch.cuda.device(x.device):
-            err = _bwd_tc_fn()(
-                x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        ptrs = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                 dy.data_ptr(), None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
                 ddt.data_ptr(), sc["vec"].data_ptr(), sc["states"][0].data_ptr(),
                 sc["states"][1].data_ptr(), sc["da_part"].data_ptr(), sc["db_part"].data_ptr(),
-                sc["dc_part"].data_ptr(), bb, l, h, hg, _DTYPES[a.dtype], layout,
-                torch.cuda.current_stream(x.device).cuda_stream, *state_args)
+                sc["dc_part"].data_ptr())
+        with torch.cuda.device(x.device):
+            if r.kind == "pad":   # mamba2's kernels, TMA layouts at the real (P, N)
+                err = _bwd_pad_fn()(*ptrs, bb, l, h, hg, _DTYPES[a.dtype], layout, stream,
+                                    *state_args, p, n)
+            else:
+                err = _bwd_tc_fn()(*ptrs, bb, l, h, hg, _DTYPES[a.dtype], layout, stream,
+                                   *state_args)
         if err < 0:
             raise RuntimeError(f"ssd_scan_bwd: TMA tensor map {('x', 'b', 'c', 'dy')[-err // 10 - 1]}"
                                f" not encoded (code {err % 10 - 10}; layouts {list(layout)})")
         if err:
             raise RuntimeError(f"ssd_scan_bwd: kernel launch failed with CUDA error {err}")
         da_part, db_part, dc_part = sc["da_part"].sum((0, 1)), sc["db_part"], sc["dc_part"]
+        if r.kind == "pad":   # the shares are at N 128, zero past the real N
+            db_part, dc_part = db_part[..., :n], dc_part[..., :n]
+    elif r.kind == "any":
+        da_part = torch.empty((bb, h), **f32)
+        db_part = torch.empty((bb, l, h, n), **f32)
+        dc_part = torch.empty((bb, l, h, n), **f32)
+        states = torch.empty((bb * h, -(-l // tile), p, n), **f32)
+        dstates = torch.empty((bb * h, p, n), **f32)
+        with torch.cuda.device(x.device):
+            err = _bwd_any_fn()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+                                c.data_ptr(), dy.data_ptr(),
+                                None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
+                                ddt.data_ptr(), da_part.data_ptr(), db_part.data_ptr(),
+                                dc_part.data_ptr(), states.data_ptr(), dstates.data_ptr(),
+                                bb, l, h, p, n, _DTYPES[x.dtype], int(a.dtype == torch.float32),
+                                x.stride(0), x.stride(1), b.stride(0), b.stride(1),
+                                c.stride(0), c.stride(1), stream, *state_args)
+        if err:
+            raise RuntimeError(f"ssd_scan_bwd: kernel launch failed with CUDA error {err}")
+        da_part = da_part.sum(0)
     else:
         da_part = torch.empty((bb, h), **f32)
         db_part = torch.empty((bb, l, h, n), **f32)
@@ -367,8 +499,8 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: tor
                             ddt.data_ptr(), da_part.data_ptr(), db_part.data_ptr(),
                             dc_part.data_ptr(), states.data_ptr(), bb, l, h, p, n, tile,
                             _DTYPES[x.dtype], _DTYPES[a.dtype], x.stride(0), x.stride(1),
-                            b.stride(0), b.stride(1), c.stride(0), c.stride(1),
-                            torch.cuda.current_stream(x.device).cuda_stream, *state_args)
+                            b.stride(0), b.stride(1), c.stride(0), c.stride(1), stream,
+                            *state_args)
         if err:
             raise RuntimeError(f"ssd_scan_bwd: kernel launch failed with CUDA error {err}")
         da_part = da_part.sum(0)

@@ -66,7 +66,10 @@ from torch.utils._pytree import tree_flatten
 from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_F32
 
 #: peak FLOP/s by the dtype's name, as the kernels' bounds read it
-PEAK_FLOPS = {"torch.bfloat16": PEAK_FLOPS_BF16, "torch.float32": PEAK_FLOPS_F32}
+PEAK_FLOPS = {"torch.bfloat16": PEAK_FLOPS_BF16, "torch.float16": PEAK_FLOPS_BF16,
+              "torch.float32": PEAK_FLOPS_F32}
+#: bytes an element by the dtype's name
+_ELEM_BYTES = {"torch.bfloat16": 2, "torch.float16": 2}
 PEAK_BYTES_S = HBM_BW
 
 
@@ -91,7 +94,7 @@ def attention_bound(b: int, s: int, sk: int, h: int, kv: int, dk: int, dv: int, 
     has: S queries over Sk keys, q/k head dim dk, v (and o) head dim dv."""
     pairs = visible_pairs(s, sk, causal, window)
     flops = 2.0 * b * h * (dk + dv) * pairs           # q.k and p.v, 2 FLOPs per MAC
-    es = 2 if dtype == "torch.bfloat16" else 4
+    es = _ELEM_BYTES.get(dtype, 4)
     nbytes = float(es * (b * s * h * (dk + dv) + b * sk * kv * (dk + dv)))   # q, o, k, v
     return _bound(flops, nbytes, dtype)
 
@@ -108,7 +111,7 @@ def attention_bwd_bound(b: int, s: int, h: int, kv: int, d: int, dtype, causal: 
     sk = s if sk is None else sk
     pairs = visible_pairs(s, sk, causal, window)
     flops = 2.0 * b * h * (3 * d + 2 * dv) * pairs
-    es = 2 if dtype == "torch.bfloat16" else 4
+    es = _ELEM_BYTES.get(dtype, 4)
     nbytes = float(es * (2 * b * s * h * (d + dv) + 2 * b * sk * kv * (d + dv)) + 4 * b * h * s)
     return _bound(flops, nbytes, dtype)
 
@@ -126,14 +129,14 @@ def attention_bwd_dq_bound(b: int, s: int, h: int, kv: int, d: int, dtype, causa
     sk = s if sk is None else sk
     pairs = visible_pairs(s, sk, causal, window)
     flops = 2.0 * b * h * (2 * d + dv) * pairs
-    es = 2 if dtype == "torch.bfloat16" else 4
+    es = _ELEM_BYTES.get(dtype, 4)
     nbytes = float(es * (b * s * h * (2 * d + 2 * dv) + b * sk * kv * (d + dv))
                    + 4 * 3 * b * h * s)
     return _bound(flops, nbytes, dtype)
 
 
 def _es(dtype) -> int:
-    return 2 if dtype == "torch.bfloat16" else 4
+    return _ELEM_BYTES.get(dtype, 4)
 
 
 def ssd_bound(b: int, l: int, h: int, p: int, n: int, q: int, dtype,

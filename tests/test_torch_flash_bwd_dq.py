@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from repro.models.layers import blockwise_mha as jax_blockwise_mha
-from repro_torch.kernels.flash_attention import (BWD_BOX_ROWS, HEAD_DIMS, SIMT_HEAD_DIMS,
+from repro_torch.kernels.flash_attention import (BUCKETS, BWD_BOX_ROWS, HEAD_DIMS, SIMT_HEAD_DIMS,
                                                  SPLIT_HEAD_DIMS, bwd_dq_tiles, bwd_scratch_rows)
 from repro_torch.kernels.ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
                                      flash_attention_ref)
@@ -110,6 +110,8 @@ def test_dq_tiles_fit_shared_memory(d, dv):
     64-row stages) and 230,456 at D 256 (three 32-row stages)."""
     t = bwd_dq_tiles(d, dv)
     assert t.smem_bytes <= SMEM_BYTES
+    # a padded call's dims take their bucket's tiles: these pairs are buckets
+    assert (d, dv) in BUCKETS and bwd_dq_tiles(d - 8, dv - 8) == t
     tiles = (t.rows + t.stages * t.kv_rows) * (d + dv) * 2   # bf16 Q, dO and K/V stages
     assert t.smem_bytes == 1024 + tiles + 8 * (1 + 2 * t.stages)
     if (d, dv) in SPLIT_HEAD_DIMS:
@@ -124,7 +126,8 @@ def test_csrc_routes_the_same_head_dims():
     scratch's padding it accepts) names the head dims ``SPLIT_HEAD_DIMS``
     does, and ``PairSmem`` the stages and kv rows of ``bwd_dq_tiles``: the
     launcher pads the scratch by them."""
-    src = CSRC.read_text()
+    # the entry is in the source, the kernels' shared memory in its header
+    src = CSRC.read_text() + CSRC.with_suffix(".cuh").read_text()
     body = re.search(r"const bool split = is_bf16 && (.*?);", src, re.S).group(1)
     pairs = {(int(a), int(b)) for a, b in re.findall(r"DK == (\d+) && DV == (\d+)", body)}
     assert pairs == set(SPLIT_HEAD_DIMS)

@@ -16,8 +16,9 @@ import torch
 from repro.kernels import flash_attention as jax_flash
 from repro.kernels.ref import attention_ref as jax_attention_ref
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (BLOCK_Q, BWD_BOX_ROWS, BWD_HEAD_DIMS, HEAD_DIMS,
-                                                 KV_TILES, SIMT_HEAD_DIMS, bwd_layout_array,
+from repro_torch.kernels.flash_attention import (BLOCK_Q, BUCKETS, BWD_BOX_ROWS, BWD_HEAD_DIMS,
+                                                 HEAD_DIMS, KV_TILES, SIMT_HEAD_DIMS,
+                                                 bwd_layout_array,
                                                  default_kv_tile, flash_attention_bwd_cuda,
                                                  flash_attention_cuda, layout_array, tma_layout,
                                                  tma_route)
@@ -119,9 +120,12 @@ def test_no_silent_fallback_off_cpu(monkeypatch):
 
 @pytest.mark.parametrize("shape_q,shape_kv,dtype,match", [
     ((1, 64, 6, 64), (1, 64, 4, 64), torch.float32, "do not group"),
-    ((1, 64, 2, 48), (1, 64, 2, 48), torch.float32, "head dim"),
-    ((1, 64, 2, 64), (1, 64, 2, 64), torch.float16, "bf16 or fp32"),
+    # head dim 48 and fp16 pass the shape checks and refuse the device
+    ((1, 64, 2, 48), (1, 64, 2, 48), torch.float32, "is on cpu"),
+    ((1, 64, 2, 64), (1, 64, 2, 64), torch.float16, "is on cpu"),
     ((1, 64, 2, 64), (1, 32, 3, 64), torch.float32, "do not group"),
+    ((1, 64, 2, 264), (1, 64, 2, 264), torch.bfloat16, r"past the limit: .* <= 256"),
+    ((1, 64, 2, 64), (1, 64, 2, 64), torch.float64, "bf16, fp16 or fp32"),
 ])
 def test_launcher_rejects_what_the_kernel_does_not_take(shape_q, shape_kv, dtype, match):
     q = torch.zeros(shape_q, dtype=dtype)
@@ -131,10 +135,12 @@ def test_launcher_rejects_what_the_kernel_does_not_take(shape_q, shape_kv, dtype
 
 
 @pytest.mark.parametrize("dk,dv,match", [
-    (128, 64, "head dims"),          # v narrower, but not a pair the kernel has
-    (192, 192, "head dims"),
-    (192, 128, "is on cpu"),         # MLA's pair passes the shape check
-    (192, 96, "head dims"),
+    (128, 64, "is on cpu"),          # v narrower: every pair up to 256 passes the shape check
+    (192, 192, "is on cpu"),
+    (192, 128, "is on cpu"),         # MLA's pair
+    (192, 96, "is on cpu"),
+    (128, 264, "head dims .* past the limit"),
+    (264, 128, "head dims .* past the limit"),
 ])
 def test_launcher_takes_v_narrower_only_for_listed_pairs(dk, dv, match):
     q, k = torch.zeros(1, 64, 2, dk), torch.zeros(1, 64, 2, dk)
@@ -161,6 +167,9 @@ def _contiguous(shape):
      ((256, 16, 2560, 4), (512, 8192, 2560 * 8192), (64, 1, 128, 1))),
     ((4, 2560, 1, 256), BLOCK_KV_D256,
      ((256, 1, 2560, 4), (512, 512, 2560 * 512), (64, 1, 64, 1))),
+    # D 72 (a padded route's): the real D in dims, 64-column boxes, the
+    # second box's last 56 columns zero-filled by TMA
+    ((1, 64, 2, 72), BLOCK_Q, ((72, 2, 64, 1), (144, 288, 64 * 288), (64, 1, 128, 1))),
 ])
 def test_tma_layout_of_model_tensors(shape, rows, want):
     """dims innermost first (D, heads, S, B), byte strides of dims 1-3, box."""
@@ -172,7 +181,8 @@ def test_tma_layout_of_model_tensors(shape, rows, want):
 @pytest.mark.parametrize("shape,stride,match", [
     # heads 66 elements (132 bytes) apart: a padded view TMA cannot address
     ((1, 64, 2, 64), (64 * 132, 132, 66, 1), "not a multiple of 16"),
-    ((1, 64, 2, 72), (64 * 144, 144, 72, 1), "not a multiple of 64"),
+    # D 20 in bf16: heads 40 bytes apart, which TMA cannot address
+    ((1, 64, 2, 20), (64 * 40, 40, 20, 1), "not a multiple of 16"),
     ((1, 64, 2, 64), (1, 128, 64, 64 * 128), "stride 8192, not 1"),
 ])
 def test_tma_layout_refuses_what_tma_does_not_take(shape, stride, match):
@@ -227,6 +237,11 @@ def test_kv_tile_rows_by_head_dim():
     assert BLOCK_KV_D256 == 64 and BLOCK_KV == 128
     assert all(set(KV_TILES[dims]) == {128, 64} for dims in ((64, 64), (128, 128)))
     assert KV_TILES[(256, 256)] == (64,) and KV_TILES[(192, 128)] == (128,)
+    # the wgmma pairs are the padded route's buckets, smallest first; a
+    # padded call takes its bucket's tiles
+    assert set(BUCKETS) == set(KV_TILES) == HEAD_DIMS - SIMT_HEAD_DIMS
+    assert [bk * bv for bk, bv in BUCKETS] == sorted(bk * bv for bk, bv in BUCKETS)
+    assert default_kv_tile(80, 80) == default_kv_tile(128, 128)
 
 
 @pytest.mark.parametrize("dims", sorted(HEAD_DIMS))

@@ -307,13 +307,18 @@ def test_ssd_backward_launcher_takes_the_kernels_shapes():
     head group, and on CPU tensors it passes the shape checks and refuses
     the device, never a plain version."""
     assert BWD_TILES == {(64, 128): 64, (16, 16): 32}
+    # the wgmma kernels' (P, N) is the padded route's bucket
+    assert set(BWD_TILES) - ssd_launcher.SIMT_SHAPES == {ssd_launcher.BUCKET}
     assert BWD_HEAD_GROUP == 12
     assert Y_ROWS == BWD_TILES[(64, 128)]   # the tensor-core route reads dy by y's layout
     for p, n in BWD_TILES:
         x, dt, a, bm, cm = _th(_ssd_inputs(1, 64, 2, p, n))
         with pytest.raises(ValueError, match="is on cpu"):
             ssd_scan_bwd_cuda(x, dt, a, bm, cm, torch.zeros_like(x))
-    x, dt, a, bm, cm = _th(_ssd_inputs(1, 64, 2, 32, 16))
+    x, dt, a, bm, cm = _th(_ssd_inputs(1, 64, 2, 32, 16))   # the general route
+    with pytest.raises(ValueError, match="is on cpu"):
+        ssd_scan_bwd_cuda(x, dt, a, bm, cm, torch.zeros_like(x))
+    x, dt, a, bm, cm = _th(_ssd_inputs(1, 64, 2, 136, 16))
     with pytest.raises(ValueError, match=r"\(P, N\)"):
         ssd_scan_bwd_cuda(x, dt, a, bm, cm, torch.zeros_like(x))
 
@@ -509,9 +514,12 @@ def test_no_silent_fallback_off_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("p,n,dtype,a_dtype,chunk,match", [
-    (32, 128, torch.float32, torch.float32, 128, r"\(P, N\)"),
-    (64, 64, torch.float32, torch.float32, 128, r"\(P, N\)"),
-    (64, 128, torch.float16, torch.float16, 128, "bf16 or fp32"),
+    # (P, N) and fp16 off the old menu pass the shape checks and refuse the device
+    (32, 128, torch.float32, torch.float32, 128, "is on cpu"),
+    (64, 64, torch.float32, torch.float32, 128, "is on cpu"),
+    (64, 128, torch.float16, torch.float16, 128, "is on cpu"),
+    (136, 128, torch.float32, torch.float32, 128, r"past the limit: .* P <= 128"),
+    (64, 264, torch.bfloat16, torch.bfloat16, 128, r"past the limit: .* N <= 256"),
     (64, 128, torch.float32, torch.bfloat16, 128, "x's dtype or fp32"),
     (64, 128, torch.float32, torch.float32, 0, "chunk 0"),
     (64, 128, torch.float32, torch.float32, 128, "row of x .* must be contiguous"),

@@ -9,7 +9,10 @@ A log is what ``repro_torch.kernels.build`` keeps beside each library
 by their demangled names with an ``SsdExt`` parameter and a last template
 argument ``false`` dropped, so that a kernel which gained the SSD kernels'
 ``X`` instantiations (B/C groups and an initial state) is read against its
-own parent; an ``X = true`` instantiation has no parent.  Prints one JSON
+own parent; an ``X = true`` instantiation has no parent.  Likewise a
+``hopper::FixedWidths<a, b>`` template argument and parameter (the flash
+kernels at their own head dims) are dropped; a ``hopper::Widths``
+instantiation (the padded route) has no parent.  Prints one JSON
 line a kernel (``old`` / ``new``: registers, spill store bytes, C7515
 warnings; null where a build lacks it) and last a summary line with the
 kernels whose numbers differ.
@@ -42,6 +45,8 @@ def demangle(names: list[str]) -> dict[str, str]:
 def key(name: str) -> str:
     """The name a kernel is matched by across builds."""
     name = re.sub(r",?\s*hopper::SsdExt", "", name).removeprefix("void ")
+    # a kernel at its own widths (hopper.cuh: FixedWidths) against its parent
+    name = re.sub(r"\s*>", ">", re.sub(r",\s*hopper::FixedWidths<\d+, \d+>", "", name))
     return re.sub(r"<false>", "", re.sub(r", false>", ">", name))
 
 

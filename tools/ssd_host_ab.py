@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the SSD wrappers of another checkout and of this one in one process,
-call batch by call batch in turns, at B/C group count 1.
+"""Time the SSD and flash wrappers of another checkout and of this one in
+one process, call batch by call batch in turns, at B/C group count 1.
 
     python3 tools/ssd_host_ab.py OTHER_SRC [--rounds 30] [--calls 200]
 
@@ -13,9 +13,11 @@ versions, in an order that alternates round by round, on the same bf16
 inputs made from a seed: the backward launcher ``ssd_scan_bwd_cuda`` and
 the forward ``kernels.ops.ssd_scan`` at one 64-step chunk of two heads
 (``*_host_us``: a call's wall time over ``--calls`` calls, host-bound),
-and by CUDA events over 50 back-to-back calls mamba2-780m's backward at B
-4 and B 2 (the train step's launch shape) and its forward at B 4, L 1024
-(``*_ms``).  Prints one JSON line a round and last the medians per
+the flash forward ``kernels.ops.flash_attention`` and the backward
+launcher ``flash_attention_bwd_cuda`` at one 128-key tile of one head
+(``flash_*_host_us``, likewise), and by CUDA events over 50 back-to-back
+calls mamba2-780m's backward at B 4 and B 2 (the train step's launch
+shape) and its forward at B 4, L 1024 (``*_ms``).  Prints one JSON line a round and last the medians per
 version and the median and quartiles of the rounds' ratios this / other.
 Needs a CUDA device.
 """
@@ -84,9 +86,15 @@ def calls_of(pkg: str, data: dict) -> dict:
     import importlib
     ops = importlib.import_module(f"{pkg}.kernels.ops")
     bwd = importlib.import_module(f"{pkg}.kernels.ssd_scan").ssd_scan_bwd_cuda
+    flash = importlib.import_module(f"{pkg}.kernels.flash_attention")
     tiny, b4, b2 = data["tiny"], data["b4"], data["b2"]
+    q, k, v, do = data["flash"]
+    o, lse = flash.flash_attention_cuda(q, k, v, causal=True, window=0, return_lse=True)
     out = {"fwd_host_us": lambda: ops.ssd_scan(*tiny[:5], chunk=64),
            "bwd_host_us": lambda: bwd(*tiny),
+           "flash_fwd_host_us": lambda: ops.flash_attention(q, k, v, causal=True),
+           "flash_bwd_host_us": lambda: flash.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                                      causal=True, window=0),
            "fwd_ms": lambda: ops.ssd_scan(*b4[:5], chunk=128),
            "bwd_b4_ms": lambda: bwd(*b4),
            "bwd_b2_ms": lambda: bwd(*b2)}
@@ -107,7 +115,9 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     data = {"tiny": inputs(gen, 1, 64, 2), "b4": inputs(gen, 4, 1024, 48),
-            "b2": inputs(gen, 2, 1024, 48)}
+            "b2": inputs(gen, 2, 1024, 48),
+            "flash": tuple(torch.randn(1, 128, 1, 64, generator=gen, device="cuda").bfloat16()
+                           for _ in range(4))}
     versions = {"other": calls_of("repro_torch_other", data), "this": calls_of("repro_torch", data)}
     runs: dict[str, dict[str, list[float]]] = {v: {} for v in versions}
     for r in range(args.rounds):
