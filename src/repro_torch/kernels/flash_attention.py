@@ -131,9 +131,6 @@ class Route(NamedTuple):
     dims: tuple[int, int]
 
 
-_ROUTES: dict[tuple, Route] = {}
-
-
 @functools.lru_cache(maxsize=None)
 def bucket(dk: int, dv: int) -> tuple[int, int]:
     """The smallest built pair that holds head dims (dk, dv) (phi-2's D 80
@@ -141,24 +138,18 @@ def bucket(dk: int, dv: int) -> tuple[int, int]:
     return next(((bk, bv) for bk, bv in BUCKETS if dk <= bk and dv <= bv), (dk, dv))
 
 
+@functools.lru_cache(maxsize=None)
 def route(dtype: torch.dtype, dk: int, dv: int) -> Route:
-    """The route of a call, by dtype and head dims alone (cached: a call
-    asks once a shape)."""
-    key = (dtype, dk, dv)
-    r = _ROUTES.get(key)
-    if r is None:
-        if dtype == torch.bfloat16 and (dk, dv) in BUCKETS:
-            r = Route("tma", (dk, dv))
-        elif ((dk, dv) in SIMT_HEAD_DIMS and dtype in (torch.bfloat16, torch.float32)
-              or dtype == torch.float32 and (dk, dv) in BUCKETS):
-            r = Route("simt", (dk, dv))
-        elif (dtype == torch.bfloat16 and dk % 8 == 0 and dv % 8 == 0
-              and bucket(dk, dv) in BUCKETS):
-            r = Route("pad", bucket(dk, dv))
-        else:
-            r = Route("any", (dk, dv))
-        _ROUTES[key] = r
-    return r
+    """The route of a call, by dtype and head dims alone (cached: the
+    launchers ask at every call)."""
+    if dtype == torch.bfloat16 and (dk, dv) in BUCKETS:
+        return Route("tma", (dk, dv))
+    if ((dk, dv) in SIMT_HEAD_DIMS and dtype in (torch.bfloat16, torch.float32)
+            or dtype == torch.float32 and (dk, dv) in BUCKETS):
+        return Route("simt", (dk, dv))
+    if dtype == torch.bfloat16 and dk % 8 == 0 and dv % 8 == 0 and bucket(dk, dv) in BUCKETS:
+        return Route("pad", bucket(dk, dv))
+    return Route("any", (dk, dv))
 
 
 class TmaLayout(NamedTuple):

@@ -42,6 +42,7 @@ launches; this module only checks and launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -82,26 +83,18 @@ class Route(NamedTuple):
     dims: tuple[int, int]
 
 
-_ROUTES: dict[tuple, Route] = {}
-
-
+@functools.lru_cache(maxsize=None)
 def route(dtype: torch.dtype, p: int, n: int) -> Route:
     """The route of a call, by dtype and (P, N) alone (cached)."""
-    key = (dtype, p, n)
-    r = _ROUTES.get(key)
-    if r is None:
-        if dtype == torch.bfloat16 and (p, n) == BUCKET:
-            r = Route("tma", BUCKET)
-        elif ((p, n) in SIMT_SHAPES and dtype in (torch.bfloat16, torch.float32)
-              or dtype == torch.float32 and (p, n) == BUCKET):
-            r = Route("simt", (p, n))
-        elif (dtype == torch.bfloat16 and p % 8 == 0 and n % 8 == 0 and p <= BUCKET[0]
-              and n <= BUCKET[1]):
-            r = Route("pad", BUCKET)
-        else:
-            r = Route("any", (p, n))
-        _ROUTES[key] = r
-    return r
+    if dtype == torch.bfloat16 and (p, n) == BUCKET:
+        return Route("tma", BUCKET)
+    if ((p, n) in SIMT_SHAPES and dtype in (torch.bfloat16, torch.float32)
+            or dtype == torch.float32 and (p, n) == BUCKET):
+        return Route("simt", (p, n))
+    if (dtype == torch.bfloat16 and p % 8 == 0 and n % 8 == 0 and p <= BUCKET[0]
+            and n <= BUCKET[1]):
+        return Route("pad", BUCKET)
+    return Route("any", (p, n))
 
 
 class SsdTma(NamedTuple):

@@ -5,7 +5,7 @@
     python3 tools/flash_ab.py SRC [SRC ...] --shapes mla,mla_b1,mla_s1000,granite,d128
     python3 tools/flash_ab.py SRC [SRC ...] --shapes granite_bwd,s2048_bwd,d128_bwd
     python3 tools/flash_ab.py SRC [SRC ...] --shapes d256_bwd,d256_bwd_b1,mla_bwd,mla_bwd_b1
-    python3 tools/flash_ab.py SRC [SRC ...] --shapes mamba2,mamba2_l2048,model_views
+    python3 tools/flash_ab.py SRC [SRC ...] --shapes mamba2,mamba2_b2,mamba2_l2048,model_views
     python3 tools/flash_ab.py SRC [SRC ...] --shapes ssd_bwd,ssd_bwd_b2
 
 Each SRC is the ``src`` directory of a checkout of this repository.  All
@@ -68,10 +68,11 @@ SHAPES = {  # flash: (B, S, H, KV, D, Dv, window): granite-3-2b's prefill, a
     "d256_bwd_b1": ("flash_bwd", (1, 2560, 16, 1, 256, 256, 2048)),
     "mla_bwd": ("flash_bwd", (2, 1024, 128, 128, 192, 128, 0)),
     "mla_bwd_b1": ("flash_bwd", (1, 1024, 128, 128, 192, 128, 0)),
-    # ssd: (B, L, H, chunk, views): mamba2-780m's prefill (P 64, N 128), a
-    # longer prompt, and x, B, C as views of one conv output as the model
-    # passes them
+    # ssd: (B, L, H, chunk, views): mamba2-780m's prefill (P 64, N 128), at
+    # the train step's microbatch B 2, a longer prompt, and x, B, C as views
+    # of one conv output as the model passes them
     "mamba2": ("ssd", (4, 1024, 48, 128, False)),
+    "mamba2_b2": ("ssd", (2, 1024, 48, 128, False)),
     "mamba2_l2048": ("ssd", (4, 2048, 48, 128, False)),
     "model_views": ("ssd", (4, 1024, 48, 128, True)),
     # the SSD backward, (B, L, H): mamba2-780m's train shape and the train
