@@ -327,7 +327,7 @@ void launch_f32_wide(const Params& p, dim3 grid, cudaStream_t stream) {
 
 // the smoke configs' head dims: the SIMT kernel in either dtype
 template <int DK, int DV>
-void launch_simt(const Params& p, dim3 grid, cudaStream_t stream, int is_bf16) {
+void launch_simt(const Params& p, dim3 grid, cudaStream_t stream, bool is_bf16) {
   if (is_bf16) launch_f32<DK, DV, __nv_bfloat16>(p, grid, stream);
   else launch_f32<DK, DV, float>(p, grid, stream);
 }
@@ -335,7 +335,9 @@ void launch_simt(const Params& p, dim3 grid, cudaStream_t stream, int is_bf16) {
 }  // namespace
 
 // q: (B, S, H, DK); k: (B, Sk, KV, DK); v: (B, Sk, KV, DV); o: (B, S, H, DV);
-// all contiguous, same dtype (bf16 if is_bf16 else fp32).  layout: for
+// all contiguous, same dtype, given by the launcher's dtype code: 0 fp32,
+// 1 bf16 (2, fp16, runs csrc/flash_attention_f16.cu and is refused here,
+// as is any other code, with cudaErrorInvalidValue).  layout: for
 // bf16 at the wgmma head dims, the TMA layouts of q, k and v (11 values
 // each); unused for fp32 and for the SIMT head dims (16, 16), (24, 16).
 // lse: null, or a (B, H, S) fp32 buffer for each row's logsumexp.
@@ -344,8 +346,10 @@ void launch_simt(const Params& p, dim3 grid, cudaStream_t stream, int is_bf16) {
 // a negative code from encode().
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int S, int Sk, int H, int KV, int DK, int DV,
-                                   int causal, int window, int is_bf16, void* stream,
+                                   int causal, int window, int dtype, void* stream,
                                    const long long* layout, float* lse, int kv_tile) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const bool is_bf16 = dtype == 1;
   Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)DK), lse};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(B * H, (S + BM - 1) / BM);   // the SIMT kernels'

@@ -434,7 +434,7 @@ int launch_simt(const Params& p, cudaStream_t stream) {
 }
 
 template <int DK, int DV>
-int launch_simt_either(const Params& p, cudaStream_t stream, int is_bf16) {
+int launch_simt_either(const Params& p, cudaStream_t stream, bool is_bf16) {
   return is_bf16 ? launch_simt<DK, DV, __nv_bfloat16>(p, stream)
                  : launch_simt<DK, DV, float>(p, stream);
 }
@@ -442,8 +442,10 @@ int launch_simt_either(const Params& p, cudaStream_t stream, int is_bf16) {
 }  // namespace
 
 // q, dq: (B, S, H, DK); o, dout: (B, S, H, DV); k, dk: (B, Sk, KV, DK);
-// v, dv: (B, Sk, KV, DV); all contiguous, one dtype (bf16 if is_bf16 else
-// fp32).  lse: (B, H, S) fp32 from the forward.  scratch: 2 * B * H * s_pad
+// v, dv: (B, Sk, KV, DV); all contiguous, one dtype, given by the
+// launcher's dtype code: 0 fp32, 1 bf16 (2, fp16, runs
+// csrc/flash_attention_bwd_f16.cu and is refused here, as is any other
+// code, with cudaErrorInvalidValue).  lse: (B, H, S) fp32 from the forward.  scratch: 2 * B * H * s_pad
 // fp32, where s_pad is S rounded up to the dQ block's rows (128 where the
 // bf16 dQ kernel is two warpgroups, else 64), as
 // kernels/flash_attention.py:bwd_scratch_rows computes it; another s_pad
@@ -460,9 +462,11 @@ int launch_simt_either(const Params& p, cudaStream_t stream, int is_bf16) {
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, void* dq, void* dk,
                                    void* dv, float* scratch, int B, int S, int Sk, int H, int KV,
-                                   int DK, int DV, int causal, int window, int is_bf16,
+                                   int DK, int DV, int causal, int window, int dtype,
                                    void* stream, const long long* layout, float* part,
                                    int shares, int s_pad) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const bool is_bf16 = dtype == 1;
   const float scale = 1.f / sqrtf((float)DK);
   const bool split = is_bf16 && ((DK == 256 && DV == 256) || (DK == 192 && DV == 128));
   const int pad_rows = split ? 2 * ROWS : ROWS;   // the dQ kernel's block
