@@ -1,8 +1,11 @@
 // The bf16 flash-attention backward kernels (wgmma + TMA), shared by
-// csrc/flash_attention_bwd.cu (the models' head dims) and
+// csrc/flash_attention_bwd.cu (the models' head dims),
 // csrc/flash_attention_bwd_pad.cu (the padded route: head dims that are
-// multiples of 8 inside a built pair, the Widths instantiations).  The design
-// notes are in csrc/flash_attention_bwd.cu's header.
+// multiples of 8 inside a built pair, the Widths instantiations) and
+// csrc/flash_attention_bwd_f16.cu (fp16 at the built pairs and at such
+// dims, the HalfWidths instantiations: the same kernels in f16 wgmma and
+// f16 tensor maps).  Every kernel's element type T is its W::Elem.  The
+// design notes are in csrc/flash_attention_bwd.cu's header.
 #pragma once
 
 #include <math.h>
@@ -14,10 +17,9 @@
 namespace {
 
 using namespace hopper;
-using bf16 = __nv_bfloat16;
 
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int ROWS = 64;   // bf16: rows of a warpgroup's tile, of a stage and of a TMA box
+constexpr int ROWS = 64;   // wgmma: rows of a warpgroup's tile, of a stage and of a TMA box
 constexpr int WR = 8;      // fp32 blocks: 8 warps, one row each
 constexpr int TN = 32;     // SIMT kernels: rows of a staged tile (16 where 32 do not fit)
 
@@ -75,10 +77,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // rows row0 and row0 + 8 of a wgmma accumulator (64 x D: 4 values per
-// 8-column block) into a (B, L, heads, D) tensor, times `scale`; with PAD,
-// only its first `cols` columns (a multiple of 8 on the padded route)
-template <int D, bool PAD = false>
-__device__ __forceinline__ void store_rows(bf16* base, size_t stride, int row0, int L,
+// 8-column block) into a (B, L, heads, D) tensor of T, times `scale`; with
+// PAD, only its first `cols` columns (a multiple of 8 on the padded route)
+template <int D, bool PAD = false, typename T>
+__device__ __forceinline__ void store_rows(T* base, size_t stride, int row0, int L,
                                            const float (&acc)[D / 2], float scale, int t4,
                                            int cols = D) {
 #pragma unroll
@@ -86,11 +88,10 @@ __device__ __forceinline__ void store_rows(bf16* base, size_t stride, int row0, 
     const int col = dt * 8 + t4 * 2;
     if (PAD && col >= cols) continue;
     if (row0 < L)
-      *reinterpret_cast<__nv_bfloat162*>(base + (size_t)row0 * stride + col) =
-          __floats2bfloat162_rn(acc[4 * dt] * scale, acc[4 * dt + 1] * scale);
+      store2(base + (size_t)row0 * stride + col, acc[4 * dt] * scale, acc[4 * dt + 1] * scale);
     if (row0 + 8 < L)
-      *reinterpret_cast<__nv_bfloat162*>(base + (size_t)(row0 + 8) * stride + col) =
-          __floats2bfloat162_rn(acc[4 * dt + 2] * scale, acc[4 * dt + 3] * scale);
+      store2(base + (size_t)(row0 + 8) * stride + col, acc[4 * dt + 2] * scale,
+             acc[4 * dt + 3] * scale);
   }
 }
 
@@ -122,6 +123,7 @@ __global__ void __launch_bounds__(128, DqSmem<DK, DV>::BLOCKS_PER_SM)
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, Params p, W wd) {
   using L = DqSmem<DK, DV>;
+  using T = typename W::Elem;
   constexpr int STAGES = L::STAGES;
   constexpr int K_BOXES = DK / BOX, V_BOXES = DV / BOX;
   extern __shared__ unsigned char smem_raw[];
@@ -182,8 +184,8 @@ __global__ void __launch_bounds__(128, DqSmem<DK, DV>::BLOCKS_PER_SM)
   const size_t q_stride = (size_t)p.H * dk, o_stride = (size_t)p.H * dv;
   const size_t q_off = ((size_t)b * p.S * p.H + h) * dk;
   const size_t o_off = ((size_t)b * p.S * p.H + h) * dv;
-  const bf16* ob = static_cast<const bf16*>(p.o) + o_off;
-  const bf16* dob = static_cast<const bf16*>(p.dout) + o_off;
+  const T* ob = static_cast<const T*>(p.o) + o_off;
+  const T* dob = static_cast<const T*>(p.dout) + o_off;
   const size_t pad_off = ((size_t)b * p.H + h) * p.s_pad;
   const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
   float d0 = 0.f, d1 = 0.f, l0 = 0.f, l1 = 0.f;
@@ -193,10 +195,10 @@ __global__ void __launch_bounds__(128, DqSmem<DK, DV>::BLOCKS_PER_SM)
     if (row < p.S) {
 #pragma unroll
       for (int c = 2 * lane; c < dv; c += 64) {
-        const float2 x = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(ob + (size_t)row * o_stride + c));
-        const float2 y = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(dob + (size_t)row * o_stride + c));
+        const float2 x =
+            to_f2(*reinterpret_cast<const pair_t<T>*>(ob + (size_t)row * o_stride + c));
+        const float2 y =
+            to_f2(*reinterpret_cast<const pair_t<T>*>(dob + (size_t)row * o_stride + c));
         acc = fmaf(x.x, y.x, fmaf(x.y, y.y, acc));
       }
       l2 = p.lse[((size_t)b * p.H + h) * p.S + row] * LOG2E;
@@ -231,8 +233,8 @@ __global__ void __launch_bounds__(128, DqSmem<DK, DV>::BLOCKS_PER_SM)
     const uint32_t v_s = smem_u32(sV + s * L::V_BYTES);
     mbar_wait(&full[s], (i / STAGES) & 1);
     float sc[32], dp[32];   // S, dP: 64 q rows x 64 kv columns
-    qk_product<DK, ROWS, ROWS, 32, false>(sc, q_smem, k_s);
-    qk_product<DV, ROWS, ROWS, 32, false>(dp, do_smem, v_s);
+    qk_product<DK, ROWS, ROWS, 32, false, T>(sc, q_smem, k_s);
+    qk_product<DV, ROWS, ROWS, 32, false, T>(dp, do_smem, v_s);
     // test the mask only where a pair of the tile is masked
     const bool edge = k0 + ROWS > p.Sk || (p.causal && k0 + ROWS - 1 > q0) ||
                       (p.window && k0 <= q0 + ROWS - 1 - p.window);
@@ -255,13 +257,13 @@ __global__ void __launch_bounds__(128, DqSmem<DK, DV>::BLOCKS_PER_SM)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         ds[e] = sc[4 * nb + e] * (dp[4 * nb + e] - (e < 2 ? d0 : d1));
-      dsf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      dsf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      dsf[nb / 2][(nb % 2) * 2 + 0] = pack2<T>(ds[0], ds[1]);
+      dsf[nb / 2][(nb % 2) * 2 + 1] = pack2<T>(ds[2], ds[3]);
     }
-    pv_product<DK, ROWS>(dq, dsf, k_s);   // dQ += dS K, K read MN-major
+    pv_product<DK, ROWS, true, T>(dq, dsf, k_s);   // dQ += dS K, K read MN-major
     mbar_arrive(&empty[s]);
   }
-  store_rows<DK, W::PADDED>(static_cast<bf16*>(p.dq) + q_off, q_stride, row0, p.S, dq, p.scale,
+  store_rows<DK, W::PADDED>(static_cast<T*>(p.dq) + q_off, q_stride, row0, p.S, dq, p.scale,
                             t4, dk);
 }
 
@@ -301,6 +303,7 @@ __global__ void __launch_bounds__(256, 1)
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v, Params p, W wd) {
   using L = PairSmem<DK, DV>;
+  using T = typename W::Elem;
   constexpr int STAGES = L::STAGES, KR = L::KR;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sQ = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
@@ -376,8 +379,8 @@ __global__ void __launch_bounds__(256, 1)
   const size_t q_stride = (size_t)p.H * dk, o_stride = (size_t)p.H * dv;
   const size_t q_off = ((size_t)b * p.S * p.H + h) * dk;
   const size_t o_off = ((size_t)b * p.S * p.H + h) * dv;
-  const bf16* ob = static_cast<const bf16*>(p.o) + o_off;
-  const bf16* dob = static_cast<const bf16*>(p.dout) + o_off;
+  const T* ob = static_cast<const T*>(p.o) + o_off;
+  const T* dob = static_cast<const T*>(p.dout) + o_off;
   const size_t pad_off = ((size_t)b * p.H + h) * p.s_pad;
   const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;   // warp * 16 = qw - q0 + (warp % 4) * 16
   constexpr int PER = DV / 32;
@@ -395,12 +398,12 @@ __global__ void __launch_bounds__(256, 1)
                      : Vec{};
     const Vec y = in ? *reinterpret_cast<const Vec*>(dob + (size_t)row * o_stride + PER * lane)
                      : Vec{};
-    const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
-    const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+    const pair_t<T>* xp = reinterpret_cast<const pair_t<T>*>(&x);
+    const pair_t<T>* yp = reinterpret_cast<const pair_t<T>*>(&y);
     float acc = 0.f;
 #pragma unroll
     for (int c = 0; c < PER / 2; ++c) {
-      const float2 xf = __bfloat1622float2(xp[c]), yf = __bfloat1622float2(yp[c]);
+      const float2 xf = to_f2(xp[c]), yf = to_f2(yp[c]);
       acc = fmaf(xf.x, yf.x, fmaf(xf.y, yf.y, acc));
     }
     part[r] = acc;
@@ -438,8 +441,8 @@ __global__ void __launch_bounds__(256, 1)
     mbar_wait(&full[s], (i / STAGES) & 1);
     if (k0 < whi && k0 + KR > wlo) {
       float sc[KR / 2], dp[KR / 2];   // S, dP: 64 q rows x KR kv columns
-      qk_product<DK, ROWS, KR, KR / 2, false>(sc, q_smem, k_s);
-      qk_product<DV, ROWS, KR, KR / 2, false>(dp, do_smem, v_s);
+      qk_product<DK, ROWS, KR, KR / 2, false, T>(sc, q_smem, k_s);
+      qk_product<DV, ROWS, KR, KR / 2, false, T>(dp, do_smem, v_s);
       // test the mask only where a pair of the tile is masked
       const bool edge = k0 + KR > p.Sk || (p.causal && k0 + KR - 1 > qw) ||
                         (p.window && k0 <= qw + ROWS - 1 - p.window);
@@ -463,10 +466,10 @@ __global__ void __launch_bounds__(256, 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           ds[e] = sc[4 * nb + e] * (dp[4 * nb + e] - (e < 2 ? d0 : d1));
-        dsf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-        dsf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        dsf[nb / 2][(nb % 2) * 2 + 0] = pack2<T>(ds[0], ds[1]);
+        dsf[nb / 2][(nb % 2) * 2 + 1] = pack2<T>(ds[2], ds[3]);
       }
-      pv_product<DK, KR, false>(dq, dsf, k_s);   // dQ += dS K, K read MN-major, in flight
+      pv_product<DK, KR, false, T>(dq, dsf, k_s);   // dQ += dS K, K read MN-major, in flight
       pend = s;
     } else {
       if (pend >= 0) {
@@ -486,7 +489,7 @@ __global__ void __launch_bounds__(256, 1)
   }
   wgmma_wait_all();
   pin(dq);
-  store_rows<DK, W::PADDED>(static_cast<bf16*>(p.dq) + q_off, q_stride, row0, p.S, dq, p.scale,
+  store_rows<DK, W::PADDED>(static_cast<T*>(p.dq) + q_off, q_stride, row0, p.S, dq, p.scale,
                             t4, dk);
 }
 
@@ -513,6 +516,7 @@ __global__ void __launch_bounds__(128, 2)
                         const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v, Params p, W wd) {
   using L = DkdvSmem<D>;
+  using T = typename W::Elem;
   constexpr int STAGES = L::STAGES;
   constexpr int BOXES = D / BOX;
   extern __shared__ unsigned char smem_raw[];
@@ -590,8 +594,8 @@ __global__ void __launch_bounds__(128, 2)
     const float* delta = sDl + s * ROWS;
     mbar_wait(&full[s], (i / STAGES) & 1);
     float st[32], dpt[32];   // S^T, dP^T: 64 kv rows x 64 q columns
-    qk_product<D, ROWS, ROWS, 32, false>(st, k_smem, q_s);
-    qk_product<D, ROWS, ROWS, 32, false>(dpt, v_smem, do_s);
+    qk_product<D, ROWS, ROWS, 32, false, T>(st, k_smem, q_s);
+    qk_product<D, ROWS, ROWS, 32, false, T>(dpt, v_smem, do_s);
     // test the mask only where a pair of the tile is masked
     const bool edge = q0 + ROWS > p.S || k0 + ROWS > p.Sk ||
                       (p.causal && k0 + ROWS - 1 > q0) ||
@@ -621,10 +625,10 @@ __global__ void __launch_bounds__(128, 2)
         pe = ex2(fmaf(pe, sl, -((e & 1) ? l2.y : l2.x)));
         if (edge && !visible(p, q0 + c + (e & 1), (e & 2) ? krow1 : krow0)) pe = 0.f;
       }
-      pf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(st[4 * nb], st[4 * nb + 1]);
-      pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(st[4 * nb + 2], st[4 * nb + 3]);
+      pf[nb / 2][(nb % 2) * 2 + 0] = pack2<T>(st[4 * nb], st[4 * nb + 1]);
+      pf[nb / 2][(nb % 2) * 2 + 1] = pack2<T>(st[4 * nb + 2], st[4 * nb + 3]);
     }
-    pv_product<D, ROWS, false>(dv, pf, do_s);    // dV += P^T dO, in flight
+    pv_product<D, ROWS, false, T>(dv, pf, do_s);    // dV += P^T dO, in flight
     wgmma_wait_all_but_one();   // dP^T is done
     pin(dpt);
 #pragma unroll
@@ -634,10 +638,10 @@ __global__ void __launch_bounds__(128, 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         ds[e] = st[4 * nb + e] * (dpt[4 * nb + e] - ((e & 1) ? d2.y : d2.x));
-      dsf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      dsf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      dsf[nb / 2][(nb % 2) * 2 + 0] = pack2<T>(ds[0], ds[1]);
+      dsf[nb / 2][(nb % 2) * 2 + 1] = pack2<T>(ds[2], ds[3]);
     }
-    pv_product<D, ROWS, false>(dk, dsf, q_s);    // dK += dS^T Q, in flight
+    pv_product<D, ROWS, false, T>(dk, dsf, q_s);    // dK += dS^T Q, in flight
   }
   wgmma_wait_all();
   pin(dv);
@@ -646,9 +650,9 @@ __global__ void __launch_bounds__(128, 2)
   const size_t k_stride = (size_t)p.KV * dkw, v_stride = (size_t)p.KV * dvw;
   const size_t k_off = ((size_t)b * p.Sk * p.KV + kvh) * dkw;
   const size_t v_off = ((size_t)b * p.Sk * p.KV + kvh) * dvw;
-  store_rows<D, W::PADDED>(static_cast<bf16*>(p.dk) + k_off, k_stride, krow0, p.Sk, dk, p.scale,
+  store_rows<D, W::PADDED>(static_cast<T*>(p.dk) + k_off, k_stride, krow0, p.Sk, dk, p.scale,
                            t4, dkw);
-  store_rows<D, W::PADDED>(static_cast<bf16*>(p.dv) + v_off, v_stride, krow0, p.Sk, dv, 1.f, t4,
+  store_rows<D, W::PADDED>(static_cast<T*>(p.dv) + v_off, v_stride, krow0, p.Sk, dv, 1.f, t4,
                            dvw);
 }
 
@@ -706,9 +710,10 @@ __device__ __forceinline__ void split_load_item(const Params& p, const CUtensorM
 }
 
 // this thread's values of a 64 x 32 accumulator (rows r0 and r0 + 8, the
-// warpgroup's q columns c0 .. c0 + 31) as bf16 into a 64 x 64 tile laid
+// warpgroup's q columns c0 .. c0 + 31) as T into a 64 x 64 tile laid
 // out as TMA writes a box with the 128-byte swizzle (16-byte chunk c of
 // row r at chunk c ^ (r % 8)), which a K-major wgmma A descriptor reads
+template <typename T>
 __device__ __forceinline__ void store_swizzled(unsigned char* tile, const float (&x)[16], int c0,
                                                int r0, int t4) {
 #pragma unroll
@@ -718,15 +723,15 @@ __device__ __forceinline__ void store_swizzled(unsigned char* tile, const float 
     for (int half = 0; half < 2; ++half) {
       const int r = r0 + 8 * half;
       *reinterpret_cast<uint32_t*>(tile + r * ROW + ((chunk ^ (r & 7)) << 4) + 4 * t4) =
-          pack_bf16(x[4 * nb + 2 * half], x[4 * nb + 2 * half + 1]);
+          pack2<T>(x[4 * nb + 2 * half], x[4 * nb + 2 * half + 1]);
     }
   }
 }
 
-// G (64 x N, fp32) += A (64 x 64 at shared address a, bf16, K-major, one
+// G (64 x N, fp32) += A (64 x 64 at shared address a, T, K-major, one
 // box) B (64 x N at shared address b, MN-major, N / 64 boxes), left in
 // flight
-template <int N>
+template <int N, typename T>
 __device__ __forceinline__ void ss_product(float (&acc)[N / 2], uint32_t a, uint32_t b) {
   static_assert(N == 64 || N == 128, "64 or 128 columns");
   wgmma_fence();
@@ -734,8 +739,8 @@ __device__ __forceinline__ void ss_product(float (&acc)[N / 2], uint32_t a, uint
   for (int j = 0; j < ROWS / 16; ++j) {   // 16 k rows a step
     const uint64_t da = smem_desc(a + j * 32, 1, 64);
     const uint64_t db = smem_desc(b + j * 16 * ROW, ROWS * ROW / 16, 64);
-    if constexpr (N == 64) wgmma_ss_n64<0, 1>(acc, da, db, 1);
-    else wgmma_ss_n128<0, 1>(acc, da, db, 1);
+    if constexpr (N == 64) wgmma_ss_n64<0, 1, T>(acc, da, db, 1);
+    else wgmma_ss_n128<0, 1, T>(acc, da, db, 1);
   }
   wgmma_commit();
 }
@@ -769,6 +774,7 @@ __device__ __forceinline__ void dkdv_split_part(const Params& p, const CUtensorM
                                                 int b, int kvh, int h0, int share, int k0,
                                                 int t_lo, int nq, int n, int wg, const W& wd) {
   using L = SplitSmem<DK, DV>;
+  using T = typename W::Elem;
   constexpr int STAGES = L::STAGES;
   const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;
   const int t4 = lane & 3, g = lane >> 2;
@@ -800,8 +806,8 @@ __device__ __forceinline__ void dkdv_split_part(const Params& p, const CUtensorM
     const float* delta = t.delta + s * ROWS;
     mbar_wait(&full[s], (i / STAGES) & 1);
     float st[16], dpt[16];   // S^T, dP^T: 64 kv rows x this warpgroup's 32 q columns
-    qk_product<DK, ROWS, ROWS, 16, false>(st, k_smem, q_s + c0 * ROW);
-    qk_product<DV, ROWS, ROWS, 16, false>(dpt, v_smem, do_s + c0 * ROW);
+    qk_product<DK, ROWS, ROWS, 16, false, T>(st, k_smem, q_s + c0 * ROW);
+    qk_product<DV, ROWS, ROWS, 16, false, T>(dpt, v_smem, do_s + c0 * ROW);
     const bool edge = q0 + ROWS > p.S || k0 + ROWS > p.Sk ||
                       (p.causal && k0 + ROWS - 1 > q0) ||
                       (p.window && q0 + ROWS - 1 >= k0 + p.window);
@@ -829,11 +835,11 @@ __device__ __forceinline__ void dkdv_split_part(const Params& p, const CUtensorM
         if (edge && !visible(p, q0 + c + (e & 1), (e & 2) ? krow1 : krow0)) pe = 0.f;
       }
     }
-    store_swizzled(pt, st, c0, r0, t4);
+    store_swizzled<T>(pt, st, c0, r0, t4);
     fence_proxy_async();
     named_sync(1, 256);   // both halves of P^T are written
     // dV[:, VC0:VC0+WV] += P^T dO[:, VC0:VC0+WV], in flight while dS^T is formed
-    ss_product<WV>(dv, smem_u32(pt), do_s + (VC0 / BOX) * ROWS * ROW);
+    ss_product<WV, T>(dv, smem_u32(pt), do_s + (VC0 / BOX) * ROWS * ROW);
     wgmma_wait_all_but_one();   // dP^T is done
     pin(dpt);
 #pragma unroll
@@ -843,11 +849,11 @@ __device__ __forceinline__ void dkdv_split_part(const Params& p, const CUtensorM
       for (int e = 0; e < 4; ++e)   // dS^T in place of dP^T
         dpt[4 * nb + e] = st[4 * nb + e] * (dpt[4 * nb + e] - ((e & 1) ? d2.y : d2.x));
     }
-    store_swizzled(dst, dpt, c0, r0, t4);
+    store_swizzled<T>(dst, dpt, c0, r0, t4);
     fence_proxy_async();
     named_sync(2, 256);   // both halves of dS^T are written
     // dK[:, KC0:KC0+WK] += dS^T Q[:, KC0:KC0+WK]
-    ss_product<WK>(dk, smem_u32(dst), q_s + (KC0 / BOX) * ROWS * ROW);
+    ss_product<WK, T>(dk, smem_u32(dst), q_s + (KC0 / BOX) * ROWS * ROW);
   }
   wgmma_wait_all();
   pin(dv);
@@ -855,8 +861,8 @@ __device__ __forceinline__ void dkdv_split_part(const Params& p, const CUtensorM
   if (sh.n == 1) {
     const int dkw = wd.w0(), dvw = wd.w1();   // the real widths of dK and dV
     const size_t kv_stride = (size_t)p.KV * dkw, v_stride = (size_t)p.KV * dvw;
-    bf16* dkb = static_cast<bf16*>(p.dk) + ((size_t)b * p.Sk * p.KV + kvh) * dkw + KC0;
-    bf16* dvb = static_cast<bf16*>(p.dv) + ((size_t)b * p.Sk * p.KV + kvh) * dvw + VC0;
+    T* dkb = static_cast<T*>(p.dk) + ((size_t)b * p.Sk * p.KV + kvh) * dkw + KC0;
+    T* dvb = static_cast<T*>(p.dv) + ((size_t)b * p.Sk * p.KV + kvh) * dvw + VC0;
     store_rows<WK, W::PADDED>(dkb, kv_stride, krow0, p.Sk, dk, p.scale, t4, dkw - KC0);
     store_rows<WV, W::PADDED>(dvb, v_stride, krow0, p.Sk, dv, 1.f, t4, dvw - VC0);
   } else {   // this share's partial sums, (shares, B, Sk, KV, DK + DV) fp32, at the
@@ -948,12 +954,13 @@ __global__ void __launch_bounds__(256, 1)
 }
 
 // dK and dV from the head shares' partial sums, (shares, B, Sk, KV, DK +
-// DV) fp32: summed in share order, dK scaled, each rounded to bf16 once.
+// DV) fp32: summed in share order, dK scaled, each rounded to WD::Elem once.
 // Four columns a thread (DK and DV are whole 64-column boxes, so four
 // never straddle the two).
 template <int DK, int DV, class WD>
 __global__ void __launch_bounds__(256) flash_bwd_sum_shares(Params p, Shares sh, WD wd) {
   constexpr int W = DK + DV;
+  using T = typename WD::Elem;
   const size_t rows = (size_t)p.B * p.Sk * p.KV;   // (b, kv row, kv head)
   const size_t quads = rows * W / 4, share_stride = rows * W;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < quads;
@@ -970,13 +977,122 @@ __global__ void __launch_bounds__(256) flash_bwd_sum_shares(Params p, Shares sh,
     if constexpr (WD::PADDED) {
       if (c < DK ? c >= dkw : c - DK >= dvw) continue;
     }
-    bf16* dst = c < DK ? static_cast<bf16*>(p.dk) + r * dkw + c
-                       : static_cast<bf16*>(p.dv) + r * dvw + (c - DK);
+    T* dst = c < DK ? static_cast<T*>(p.dk) + r * dkw + c
+                    : static_cast<T*>(p.dv) + r * dvw + (c - DK);
     uint2 out;
-    out.x = pack_bf16(acc.x * sc, acc.y * sc);
-    out.y = pack_bf16(acc.z * sc, acc.w * sc);
+    out.x = pack2<T>(acc.x * sc, acc.y * sc);
+    out.y = pack2<T>(acc.z * sc, acc.w * sc);
     *reinterpret_cast<uint2*>(dst) = out;
   }
+}
+
+// ---------------------------------------------------------------------------
+// host side: the padded route's launches (Widths in bf16, HalfWidths in
+// fp16), every kernel at the bucket's widths with the real ones in `wd`
+// ---------------------------------------------------------------------------
+// the TMA maps of q, dO, k and v in T: layout holds q's, k's, v's and dO's
+template <typename T>
+int encode_bwd_maps(const Params& p, const long long* layout, CUtensorMap& tm_q,
+                    CUtensorMap& tm_do, CUtensorMap& tm_k, CUtensorMap& tm_v) {
+  constexpr CUtensorMapDataType type = tma_type<T>();
+  int err = encode(&tm_q, p.q, layout, ROWS, type);
+  if (!err) err = encode(&tm_k, p.k, layout + 11, ROWS, type);
+  if (!err) err = encode(&tm_v, p.v, layout + 22, ROWS, type);
+  if (!err) err = encode(&tm_do, p.dout, layout + 33, ROWS, type);
+  return err;
+}
+
+// buckets (64, 64) and (128, 128): the dQ kernel, then the one-warpgroup dK/dV kernel
+template <int D, class W>
+int launch_one(const Params& p, const W& wd, const long long* layout, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  int err = encode_bwd_maps<typename W::Elem>(p, layout, tm_q, tm_do, tm_k, tm_v);
+  if (err) return err;
+  static uint32_t opted_dq = 0, opted_kv = 0;   // a bit per device
+  err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dq_bf16<D, D, W>),
+                    DqSmem<D, D>::BYTES, opted_dq);
+  if (err) return err;
+  flash_bwd_dq_bf16<D, D, W><<<dim3(p.B * p.H, (p.S + ROWS - 1) / ROWS), 128,
+                               DqSmem<D, D>::BYTES, stream>>>(tm_q, tm_do, tm_k, tm_v, p, wd);
+  if ((err = (int)cudaGetLastError())) return err;
+  err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_bf16<D, W>),
+                    DkdvSmem<D>::BYTES, opted_kv);
+  if (err) return err;
+  flash_bwd_dkdv_bf16<D, W><<<dim3(p.B * p.KV, (p.Sk + ROWS - 1) / ROWS), 128,
+                              DkdvSmem<D>::BYTES, stream>>>(tm_q, tm_do, tm_k, tm_v, p, wd);
+  return (int)cudaGetLastError();
+}
+
+// buckets (192, 128) and (256, 256): the two-warpgroup dQ kernel (K and V
+// in boxes of its stages' KR rows), the two-warpgroup dK/dV kernel over
+// sh.n head shares and, for more than one, the pass that sums them
+template <int DK, int DV, class W>
+int launch_split(const Params& p, const Shares& sh, const W& wd, const long long* layout,
+                 cudaStream_t stream) {
+  using L = PairSmem<DK, DV>;
+  using T = typename W::Elem;
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  int err = encode_bwd_maps<T>(p, layout, tm_q, tm_do, tm_k, tm_v);
+  if (err) return err;
+  CUtensorMap tm_kr = tm_k, tm_vr = tm_v;
+  if constexpr (L::KR != ROWS) {
+    long long kl[11], vl[11];
+    for (int i = 0; i < 11; ++i) kl[i] = layout[11 + i], vl[i] = layout[22 + i];
+    kl[9] = vl[9] = L::KR;
+    err = encode(&tm_kr, p.k, kl, L::KR, tma_type<T>());
+    if (!err) err = encode(&tm_vr, p.v, vl, L::KR, tma_type<T>());
+    if (err) return err;
+  }
+  static uint32_t opted_dq = 0, opted_kv = 0;   // a bit per device
+  err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dq_bf16_pair<DK, DV, W>), L::BYTES,
+                    opted_dq);
+  if (err) return err;
+  const int blocks = p.B * p.H * ((p.S + L::Q_ROWS - 1) / L::Q_ROWS);
+  flash_bwd_dq_bf16_pair<DK, DV, W><<<blocks, 256, L::BYTES, stream>>>(tm_q, tm_do, tm_kr, tm_vr,
+                                                                       p, wd);
+  if ((err = (int)cudaGetLastError())) return err;
+  err = opt_in_smem(reinterpret_cast<const void*>(flash_bwd_dkdv_bf16_split<DK, DV, W>),
+                    SplitSmem<DK, DV>::BYTES, opted_kv);
+  if (err) return err;
+  const int kv_blocks = p.B * p.KV * sh.n * ((p.Sk + ROWS - 1) / ROWS);
+  flash_bwd_dkdv_bf16_split<DK, DV, W><<<kv_blocks, 256, SplitSmem<DK, DV>::BYTES, stream>>>(
+      tm_q, tm_do, tm_k, tm_v, p, sh, wd);
+  err = (int)cudaGetLastError();
+  if (err || sh.n == 1) return err;
+  const size_t quads = (size_t)p.B * p.Sk * p.KV * (DK + DV) / 4;
+  const int sum_blocks = (int)((quads + 255) / 256 < 8192 ? (quads + 255) / 256 : 8192);
+  flash_bwd_sum_shares<DK, DV, W><<<sum_blocks, 256, 0, stream>>>(p, sh, wd);
+  return (int)cudaGetLastError();
+}
+
+// the padded route's checks and launch at real head dims dk, dv (multiples
+// of 8) inside the bucket (bk, bv), as flash_attention_bwd_pad and
+// flash_attention_bwd_f16 take them
+template <class W>
+int launch_padded(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                  const float* lse, void* dq, void* dk, void* dv, float* scratch, int B, int S,
+                  int Sk, int H, int KV, int DK, int DV, int bk, int bv, int causal, int window,
+                  void* stream, const long long* layout, float* part, int shares, int s_pad) {
+  if (DK <= 0 || DV <= 0 || DK > bk || DV > bv || DK % 8 || DV % 8 || layout == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const float scale = 1.f / sqrtf((float)DK);
+  const bool split = (bk == 256 && bv == 256) || (bk == 192 && bv == 128);
+  const int pad_rows = split ? 2 * ROWS : ROWS;   // the dQ kernel's block
+  if (s_pad < S || s_pad % pad_rows) return (int)cudaErrorInvalidValue;
+  if (shares < 1 || shares > H / KV || (shares > 1 && (!split || part == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const Params p{q, k, v, o, dout, lse, dq, dk, dv, scratch, scratch + (size_t)B * H * s_pad,
+                 B, S, Sk, H, KV, causal, window, scale, LOG2E * scale, s_pad};
+  const Shares sh{part, shares};
+  W wd;
+  wd.v0 = DK;
+  wd.v1 = DV;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bk == 64 && bv == 64) return launch_one<64>(p, wd, layout, st);
+  if (bk == 128 && bv == 128) return launch_one<128>(p, wd, layout, st);
+  if (bk == 256 && bv == 256) return launch_split<256, 256>(p, sh, wd, layout, st);
+  if (bk == 192 && bv == 128) return launch_split<192, 128>(p, sh, wd, layout, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
