@@ -1065,33 +1065,29 @@ int launch_split(const Params& p, const Shares& sh, const W& wd, const long long
   return (int)cudaGetLastError();
 }
 
-// the padded route's checks and launch at real head dims dk, dv (multiples
-// of 8) inside the bucket (bk, bv), as flash_attention_bwd_pad and
-// flash_attention_bwd_f16 take them
-template <class W>
-int launch_padded(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                  const float* lse, void* dq, void* dk, void* dv, float* scratch, int B, int S,
-                  int Sk, int H, int KV, int DK, int DV, int bk, int bv, int causal, int window,
-                  void* stream, const long long* layout, float* part, int shares, int s_pad) {
+// the padded entries' arguments: real head dims DK, DV (multiples of 8)
+// inside the bucket (bk, bv), the scratch's rows and the head shares;
+// 0, or cudaErrorInvalidValue
+inline int padded_args(int S, int H, int KV, int DK, int DV, int bk, int bv,
+                       const long long* layout, const float* part, int shares, int s_pad) {
   if (DK <= 0 || DV <= 0 || DK > bk || DV > bv || DK % 8 || DV % 8 || layout == nullptr)
     return (int)cudaErrorInvalidValue;
-  const float scale = 1.f / sqrtf((float)DK);
   const bool split = (bk == 256 && bv == 256) || (bk == 192 && bv == 128);
   const int pad_rows = split ? 2 * ROWS : ROWS;   // the dQ kernel's block
   if (s_pad < S || s_pad % pad_rows) return (int)cudaErrorInvalidValue;
   if (shares < 1 || shares > H / KV || (shares > 1 && (!split || part == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const Params p{q, k, v, o, dout, lse, dq, dk, dv, scratch, scratch + (size_t)B * H * s_pad,
-                 B, S, Sk, H, KV, causal, window, scale, LOG2E * scale, s_pad};
-  const Shares sh{part, shares};
-  W wd;
-  wd.v0 = DK;
-  wd.v1 = DV;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bk == 64 && bv == 64) return launch_one<64>(p, wd, layout, st);
-  if (bk == 128 && bv == 128) return launch_one<128>(p, wd, layout, st);
-  if (bk == 256 && bv == 256) return launch_split<256, 256>(p, sh, wd, layout, st);
-  if (bk == 192 && bv == 128) return launch_split<192, 128>(p, sh, wd, layout, st);
+  return 0;
+}
+
+// the bucket (bk, bv)'s kernels at the widths wd (Widths or HalfWidths)
+template <class W>
+int launch_bucket(const Params& p, const Shares& sh, const W& wd, int bk, int bv,
+                  const long long* layout, cudaStream_t stream) {
+  if (bk == 64 && bv == 64) return launch_one<64>(p, wd, layout, stream);
+  if (bk == 128 && bv == 128) return launch_one<128>(p, wd, layout, stream);
+  if (bk == 256 && bv == 256) return launch_split<256, 256>(p, sh, wd, layout, stream);
+  if (bk == 192 && bv == 128) return launch_split<192, 128>(p, sh, wd, layout, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,10 +16,14 @@
 // once in fp16, and the split dK/dV kernel's head shares are summed in a
 // fixed order, so two launches give the same bits.
 //
-// Only the padded route's form is built, at the built pairs with widths
-// equal to the bucket and at dims that are multiples of 8 inside one:
-// (64, 64) and (128, 128) run the one-warpgroup dQ and dK/dV kernels,
-// (192, 128) and (256, 256) the two-warpgroup ones.
+// At the built pairs the kernels take their own widths as compile-time
+// constants (hopper::FixedHalfWidths, never read), as bf16's do: the
+// padded form (hopper::HalfWidths, the real dims at run time) read
+// 1.05-1.21x their device time there (an NVIDIA H100 80GB HBM3 at 700 W,
+// PERF.md §6).  Dims that are
+// multiples of 8 inside a built pair take that padded form.  (64, 64) and
+// (128, 128) run the one-warpgroup dQ and dK/dV kernels, (192, 128) and
+// (256, 256) the two-warpgroup ones.
 
 #include "flash_attention_bwd.cuh"
 
@@ -36,7 +40,22 @@ extern "C" int flash_attention_bwd_f16(const void* q, const void* k, const void*
                                        const long long* layout, float* part, int shares,
                                        int s_pad) {
   if (dtype != 2) return (int)cudaErrorInvalidValue;
-  return launch_padded<HalfWidths>(q, k, v, o, dout, lse, dq, dk, dv, scratch, B, S, Sk, H, KV,
-                                   DK, DV, bk, bv, causal, window, stream, layout, part, shares,
-                                   s_pad);
+  const int err = padded_args(S, H, KV, DK, DV, bk, bv, layout, part, shares, s_pad);
+  if (err) return err;
+  const float scale = 1.f / sqrtf((float)DK);
+  const Params p{q, k, v, o, dout, lse, dq, dk, dv, scratch, scratch + (size_t)B * H * s_pad,
+                 B, S, Sk, H, KV, causal, window, scale, LOG2E * scale, s_pad};
+  const Shares sh{part, shares};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (DK == bk && DV == bv) {   // a built pair: its own widths, fixed
+    if (bk == 64 && bv == 64) return launch_one<64>(p, FixedHalfWidths<64, 64>{}, layout, st);
+    if (bk == 128 && bv == 128)
+      return launch_one<128>(p, FixedHalfWidths<128, 128>{}, layout, st);
+    if (bk == 256 && bv == 256)
+      return launch_split<256, 256>(p, sh, FixedHalfWidths<256, 256>{}, layout, st);
+    if (bk == 192 && bv == 128)
+      return launch_split<192, 128>(p, sh, FixedHalfWidths<192, 128>{}, layout, st);
+  }
+  const HalfWidths wd{{DK, DV}};
+  return launch_bucket(p, sh, wd, bk, bv, layout, st);
 }

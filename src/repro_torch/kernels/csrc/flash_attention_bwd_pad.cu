@@ -16,7 +16,7 @@
 // Delta = rowsum(dO * O) reads O and dO at their real width.  The kernels'
 // Widths instantiations take the real dims as an argument of their own
 // (hopper.cuh), so the buckets' own instantiations keep their code; the
-// launches are flash_attention_bwd.cuh's launch_padded.  What bounds it is
+// launches are flash_attention_bwd.cuh's launch_bucket.  What bounds it is
 // what bounds the bucket (csrc/flash_attention_bwd.cu's header), on the
 // bucket's products: D 80 does 1.6x the MACs it needs.
 
@@ -36,6 +36,12 @@ extern "C" int flash_attention_bwd_pad(const void* q, const void* k, const void*
                                        int bv, int causal, int window, void* stream,
                                        const long long* layout, float* part, int shares,
                                        int s_pad) {
-  return launch_padded<Widths>(q, k, v, o, dout, lse, dq, dk, dv, scratch, B, S, Sk, H, KV, DK,
-                               DV, bk, bv, causal, window, stream, layout, part, shares, s_pad);
+  const int err = padded_args(S, H, KV, DK, DV, bk, bv, layout, part, shares, s_pad);
+  if (err) return err;
+  const float scale = 1.f / sqrtf((float)DK);
+  const Params p{q, k, v, o, dout, lse, dq, dk, dv, scratch, scratch + (size_t)B * H * s_pad,
+                 B, S, Sk, H, KV, causal, window, scale, LOG2E * scale, s_pad};
+  const Widths wd{DK, DV};
+  return launch_bucket(p, Shares{part, shares}, wd, bk, bv, layout,
+                       static_cast<cudaStream_t>(stream));
 }

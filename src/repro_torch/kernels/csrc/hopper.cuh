@@ -84,8 +84,8 @@ __device__ __forceinline__ void store_f(__half* p, float v) { *p = __float2half_
 // code that reads them is the code of a kernel without them.  Widths: the
 // padded route's, at run time inside the instantiation's (a bucket): TMA
 // zero-fills the columns past them, and stores stop at them.  Elem: the
-// flash kernels' element type, bf16 in both; HalfWidths is Widths in fp16
-// (fp16 runs the Widths form alone, at a built pair with the pair's widths).
+// flash kernels' element type, bf16 in both; HalfWidths and
+// FixedHalfWidths are the same in fp16.
 template <int W0, int W1>
 struct FixedWidths {
   using Elem = __nv_bfloat16;
@@ -101,6 +101,10 @@ struct Widths {
   __device__ __forceinline__ int w1() const { return v1; }
 };
 struct HalfWidths : Widths {
+  using Elem = __half;
+};
+template <int W0, int W1>
+struct FixedHalfWidths : FixedWidths<W0, W1> {
   using Elem = __half;
 };
 
