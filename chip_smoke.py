@@ -12,13 +12,17 @@ an initial state (``ssd_groups``: both directions against ``ssd_ref`` and
 ``ssd_bwd_ref``, and mamba2-780m at full width and depth with 8 groups,
 its prefill against the plain path, its decode at depth 1 and its train
 step's gradients at depth 2), then the kernels off the ten configs' shapes
-(``shapes``: the padded bf16 route and the general SIMT route of
-``kernels/*.py:route`` at small cases in bf16, fp16 and fp32, both
-directions, against the plain versions; phi-2's (D 80) and
+(``shapes``: the padded bf16 route, fp16's wgmma route and the general
+SIMT route of ``kernels/*.py:route`` at small cases in bf16, fp16 and
+fp32, both directions, against the plain versions, the fp16 ones with the
+kernels the profiler saw; phi-2's (D 80, bf16, fp16 and fp32) and
 phi-3-mini's (D 96) attention and Zamba2's SSD (P 64, N 64) at full
 width, timed beside their bounds, the plain versions and SDPA; granite at
-head dim 40 and mamba2 at (P, N) = (32, 64), prefill, decode and a train
-step's gradients, kernel path against plain path), then drives each ported model at full width (random weights
+head dim 40 (bf16, fp16, fp32) and mamba2 at (P, N) = (32, 64), prefill,
+decode and a train step's gradients, kernel path against plain path;
+the flash cases also run granite's, llava's, recurrentgemma's and
+deepseek-v3's attention in fp16 at full width beside bf16, both
+directions, on the f16 wgmma kernels), then drives each ported model at full width (random weights
 from ``--seed``) through the port's entry points at full depth, each with
 prefill and teacher-forced decode checked against the kernel-driven
 forward: granite-3-2b (flash attention), mamba2-780m (the SSD scan),
@@ -107,6 +111,45 @@ ROOT = Path(__file__).resolve().parent
 # kernel vs plain tolerances, as tests/test_kernels.py holds the Pallas kernels
 # (allclose with rtol = atol = tol, i.e. max |out - ref| / (1 + |ref|) <= tol)
 TOL = {"torch.bfloat16": 2e-2, "torch.float16": 2e-2, "torch.float32": 1e-4}
+# fp16, by case and direction: each gate a limit of its own, twice its
+# first full reading (NVIDIA H100 80GB HBM3, 700.00 W; max |out - ref| /
+# (1 + |ref|), the backward's worst of dq, dk, dv) and never looser than
+# TOL's and BWD_TOL's fp16 (2e-2, 5e-2).  First readings: forward 6.5e-4 at
+# the four full-width shapes, 3.1e-4 to 6.3e-4 elsewhere; backward 1.1e-3
+# to 2.4e-3; granite at head dim 40, kernel path vs plain path, 3.2e-3
+FP16_TOL = {
+    ("granite_prefill_fp16", "forward"): 1.3e-3, ("llava_prefill_fp16", "forward"): 1.3e-3,
+    ("recurrentgemma_prefill_fp16", "forward"): 1.3e-3,
+    ("deepseek_v3_mla_fp16", "forward"): 1.3e-3,
+    ("granite_train_fp16", "backward"): 3.5e-3, ("llava_train_fp16", "backward"): 3.7e-3,
+    ("recurrentgemma_train_fp16", "backward"): 4.1e-3, ("mla_train_fp16", "backward"): 2.2e-3,
+    ("small_80_80", "forward"): 6.2e-4, ("small_80_80", "backward"): 1.5e-3,
+    ("small_256_256", "forward"): 8.4e-4, ("small_256_256", "backward"): 1.7e-3,
+    ("small_20_20", "forward"): 4.5e-4, ("small_20_20", "backward"): 1.4e-3,
+    ("small_5_3", "forward"): 4.6e-4, ("small_5_3", "backward"): 1.8e-3,
+    ("small_48_48_wide", "forward"): 1.1e-3, ("small_48_48_wide", "backward"): 4.8e-3,
+    ("phi2_d80_fp16", "forward"): 1.3e-3, ("phi2_d80_fp16", "backward"): 2.7e-3,
+    ("granite_3_2b_shapes", "forward"): 6.5e-3,
+}
+# the full-width flash cases run in fp16 beside bf16 (case -> its bf16 twin):
+# device ms and the kernels the profiler saw for both
+FP16_TWINS = {"granite_prefill_fp16": "granite_prefill", "llava_prefill_fp16": "llava_prefill",
+              "recurrentgemma_prefill_fp16": "recurrentgemma_prefill",
+              "deepseek_v3_mla_fp16": "deepseek_v3_mla",
+              "granite_train_fp16": "granite_train", "llava_train_fp16": "llava_train",
+              "recurrentgemma_train_fp16": "recurrentgemma_train",
+              "mla_train_fp16": "mla_train"}
+
+
+def gate(case: str, part: str, dtype, default: float) -> float:
+    """The limit of a case's forward or backward: its own in fp16, else
+    the dtype's ``default``."""
+    return FP16_TOL.get((case, part), default) if dtype == torch.float16 else default
+
+
+def f16_kernels(names) -> bool:
+    """Whether a call ran the f16 wgmma kernels alone (hopper::HalfWidths)."""
+    return bool(names) and all("HalfWidths" in n and "_any<" not in n for n in names)
 SSD_TOL = {"torch.bfloat16": 5e-2, "torch.float16": 5e-2, "torch.float32": 2e-3}
 # the SSD kernel at chunk 64 against itself at chunk 128, same inputs and
 # the same scaled measure: both carry fp32 and differ only in the order of
@@ -255,7 +298,12 @@ LSE_TOL = 1e-3
 # (scores ~N(0, 1)) make a well-conditioned second case, where these
 # limits bind
 GRAD_CHECK_TOL = {"float32": {"loss": 1e-4, "grad": 1e-3},
-                  "bfloat16": {"loss": 2e-2, "grad": 5e-2}}
+                  "bfloat16": {"loss": 2e-2, "grad": 5e-2},
+                  # fp16 (granite at head dim 40 in the shapes phase, the f16
+                  # wgmma route): the loss twice its first reading (2.3e-4,
+                  # NVIDIA H100 80GB HBM3, 700.00 W); the gradients at bf16's
+                  # limit, which twice the reading (0.16) would pass
+                  "float16": {"loss": 4.6e-4, "grad": 5e-2}}
 
 
 def emit(phase: str, **fields) -> None:
@@ -330,6 +378,13 @@ def phase_kernel_cases(seed: int) -> list[dict]:
         ("mla_b1", 1, 1024, 1024, 128, 128, 192, 128, torch.bfloat16, True, 0),
         ("llava_prefill", 4, 1024, 1024, 64, 64, 128, 128, torch.bfloat16, True, 0),
         ("deepseek67b_prefill", 4, 1024, 1024, 64, 8, 128, 128, torch.bfloat16, True, 0),
+        # fp16 beside bf16 (FP16_TWINS): granite's, llava's, recurrentgemma's
+        # and deepseek-v3's MLA, on the f16 wgmma kernels
+        ("granite_prefill_fp16", 4, 1024, 1024, 32, 8, 64, 64, torch.float16, True, 0),
+        ("llava_prefill_fp16", 4, 1024, 1024, 64, 64, 128, 128, torch.float16, True, 0),
+        ("recurrentgemma_prefill_fp16", 4, 2560, 2560, 16, 1, 256, 256, torch.float16, True,
+         2048),
+        ("deepseek_v3_mla_fp16", 4, 1024, 1024, 128, 128, 192, 128, torch.float16, True, 0),
         # the smoke configs' head dims, which the training CLI runs at (B 2
         # a host, S 64): D 16 (the windowed models' window of 32 too) and
         # MLA's q/k 16 + 8 over v 16, on the SIMT kernel in both dtypes
@@ -348,7 +403,7 @@ def phase_kernel_cases(seed: int) -> list[dict]:
         torch.cuda.synchronize()
         ref = flash_attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        tol = TOL[str(dtype)]
+        tol = gate(name, "forward", dtype, TOL[str(dtype)])
         err = (out.float() - ref.float()).abs().max().item()
         scaled = scaled_err(out, ref)
         # the yardstick: one PyTorch call computing the same function
@@ -370,12 +425,20 @@ def phase_kernel_cases(seed: int) -> list[dict]:
                "bound_ms": bound_ms, "bound_by": bound_by, "bound_frac": bound_ms / ms,
                "vs_library": ms / library_ms,
                "tflops": flops / (ms * 1e-3) / 1e12, "flops": flops, "bytes": nbytes}
+        if name in FP16_TWINS or name in FP16_TWINS.values():
+            # fp16 beside bf16: device ms and the kernels the profiler saw
+            by_kernel = kernels_device_ms(
+                lambda: flash_attention(q, k, v, causal=causal, window=window), iters=10)
+            row["device_ms"], row["kernels"] = sum(by_kernel.values()), sorted(by_kernel)
+            row["device_bound_frac"] = bound_ms / row["device_ms"]
         if ws_route(dtype, d, dv):
+            row["ws"] = True
             # the MLA kernel (csrc/flash_attention_fwd_ws.cu): the kernel the
             # profiler saw, and its lse output (the backward reads it) on
             # against off
-            row["kernels"] = sorted(kernels_device_ms(
-                lambda: flash_attention(q, k, v, causal=causal, window=window), iters=5))
+            if "kernels" not in row:
+                row["kernels"] = sorted(kernels_device_ms(
+                    lambda: flash_attention(q, k, v, causal=causal, window=window), iters=5))
             o_off = flash_attention_cuda(q, k, v, causal=causal, window=window)
             o_on, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                              return_lse=True)
@@ -383,10 +446,16 @@ def phase_kernel_cases(seed: int) -> list[dict]:
             row["lse_max_abs_err"] = (lse - flash_attention_lse_ref(
                 q, k, v, causal=causal, window=window)).abs().max().item()
             del o_off, o_on, lse
+        if name in FP16_TWINS:   # the bf16 row at the same shape, earlier in this run
+            twin = next(r for r in results if r["case"] == FP16_TWINS[name])
+            row["vs_bf16_device"] = row["device_ms"] / twin["device_ms"]
         emit("kernel_vs_plain", **row)
         check(scaled <= tol and row["finite"],
               f"flash_attention {name}: max |out - ref| / (1 + |ref|) = {scaled} > {tol}")
-        if "kernels" in row:
+        if name in FP16_TWINS:
+            check(f16_kernels(row["kernels"]),
+                  f"flash_attention {name}: ran {row['kernels']}, not the f16 wgmma kernels")
+        if row.get("ws"):
             check(row["kernels"] and all("flash_fwd_bf16_ws" in n for n in row["kernels"]),
                   f"flash_attention {name}: ran {row['kernels']}, not the MLA kernel")
             check(row["lse_output_equal"],
@@ -937,6 +1006,7 @@ SHAPES_FLASH_CASES = [  # (dk, dv, dtype, causal, window) at B 2, S 130, H 4 ove
     (160, 128, torch.bfloat16, True, 0), (144, 64, torch.bfloat16, False, 0),
     (200, 200, torch.bfloat16, True, 48), (20, 20, torch.bfloat16, True, 0),
     (80, 80, torch.float16, True, 0), (256, 256, torch.float16, True, 48),
+    (20, 20, torch.float16, True, 0), (5, 3, torch.float16, True, 48),
     (96, 96, torch.float32, True, 0), (200, 136, torch.float32, False, 0),
     (5, 3, torch.float32, True, 0),
 ]
@@ -953,6 +1023,8 @@ SHAPES_PUBLIC_FLASH = [  # (case, B, S, H (MHA), D, dtype), causal
     ("phi2_d80", 4, 1024, 32, 80, torch.bfloat16),
     ("phi3_mini_d96", 4, 1024, 32, 96, torch.bfloat16),
     ("phi2_d80_fp16", 4, 1024, 32, 80, torch.float16),
+    # the general route's full-width readings (fp16 at D 80 now runs wgmma)
+    ("phi2_d80_fp32", 4, 1024, 32, 80, torch.float32),
 ]
 SHAPES_PUBLIC_SSD = [  # (case, B, L, H, P, N, dtype), chunk 128
     ("zamba2_p64_n64", 4, 1024, 48, 64, 64, torch.bfloat16),
@@ -964,32 +1036,56 @@ SHAPES_MODELS = {"granite_3_2b": ({"head_dim": 40}, 2, 128, 8),
                  "mamba2_780m": ({"ssm": {"head_dim": 32, "d_state": 64}}, 2, 128, 32)}
 # kernel path against plain path on those models: relative L2 of a row of
 # logits, the forward's and the backward's own dtype limits (SSD_TOL)
-SHAPES_MODEL_TOL = {"bfloat16": 5e-2, "float32": 2e-3}
+SHAPES_MODEL_TOL = {"bfloat16": 5e-2, "float16": 5e-2, "float32": 2e-3}
+# the scaled configs' compute dtypes: granite's D 40 also in fp16 (the f16
+# wgmma route), with its parameters cast as the fp32 run casts them
+SHAPES_MODEL_DTYPES = {"granite_3_2b": ("bfloat16", "float16", "float32"),
+                       "mamba2_780m": ("bfloat16", "float32")}
 
 
 def zero_route_counts() -> None:
-    """Set the padded and the general routes' launch counts to 0."""
+    """Set the padded, the fp16 wgmma and the general routes' launch counts to 0."""
     from repro_torch.kernels.ops import flash_attention, ssd_scan
     for fn in (flash_attention, ssd_scan):
         fn.pad_launches = fn.bwd_pad_launches = fn.any_launches = fn.bwd_any_launches = 0
+    flash_attention.f16_launches = flash_attention.bwd_f16_launches = 0
 
 
 def route_counts() -> dict[str, int]:
-    """The padded and the general routes' launches, per kernel row."""
+    """The padded, the fp16 wgmma and the general routes' launches, per
+    kernel row."""
     from repro_torch.kernels.ops import flash_attention, ssd_scan
     return {"flash_fwd_bf16_pad": flash_attention.pad_launches,
+            "flash_fwd_f16": flash_attention.f16_launches,
             "flash_fwd_any": flash_attention.any_launches,
             "flash_bwd_bf16_pad": flash_attention.bwd_pad_launches,
+            "flash_bwd_f16": flash_attention.bwd_f16_launches,
             "flash_bwd_any": flash_attention.bwd_any_launches,
             "ssd_fwd_bf16_pad": ssd_scan.pad_launches, "ssd_fwd_any": ssd_scan.any_launches,
             "ssd_bwd_bf16_pad": ssd_scan.bwd_pad_launches,
             "ssd_bwd_any": ssd_scan.bwd_any_launches}
 
 
+def flash_kernel_names(q, k, v, do, causal: bool, window: int) -> list[str]:
+    """The kernels one forward launch (with lse) and one backward launch
+    ran, by the profiler's names."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    names = set(kernels_device_ms(lambda: flash_attention_cuda(q, k, v, return_lse=True, **kw),
+                                  iters=1))
+    names |= set(kernels_device_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw),
+                                   iters=1))
+    return sorted(names)
+
+
 def _flash_small(gen, b, s, h, kv, dk, dv, dtype, causal, window) -> dict:
     """One flash case through ``ops.flash_attention`` under autograd
     (forward and backward kernels of the route), against autograd of the
-    plain version in fp32 on the same values."""
+    plain version in fp32 on the same values; in fp16 also the kernels the
+    profiler saw (the f16 wgmma kernels on the "f16" route, the general
+    ones in fp16 on "any")."""
     from repro_torch.kernels.flash_attention import route
     from repro_torch.kernels.ops import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
@@ -1009,21 +1105,32 @@ def _flash_small(gen, b, s, h, kv, dk, dv, dtype, causal, window) -> dict:
     ref_leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
     ref = flash_attention_ref(*ref_leaves, causal=causal, window=window)
     ref_grads = torch.autograd.grad(ref, ref_leaves, do.float())
-    row = {"shape": [b, s, h, kv, dk], "dv": dv, "dtype": str(dtype), "causal": causal,
-           "window": window, "route": kind, "tol": TOL[str(dtype)],
-           "bwd_tol": BWD_TOL[str(dtype)], "max_scaled_err": scaled_err(out, ref),
+    case = f"small_{dk}_{dv}" + ("_wide" if h > 1024 else "")
+    row = {"case": case, "shape": [b, s, h, kv, dk], "dv": dv, "dtype": str(dtype),
+           "causal": causal, "window": window, "route": kind,
+           "tol": gate(case, "forward", dtype, TOL[str(dtype)]),
+           "bwd_tol": gate(case, "backward", dtype, BWD_TOL[str(dtype)]),
+           "max_scaled_err": scaled_err(out, ref),
            "bwd_max_scaled_err": {n: scaled_err(g, r) for n, g, r in
                                   zip(("dq", "dk", "dv"), grads, ref_grads)},
            "finite": bool(torch.isfinite(out.float()).all())
            and all(bool(torch.isfinite(g.float()).all()) for g in grads),
            "launches": launches}
     what = f"shapes flash {row['shape']} dv {dv} {dtype}"
+    if dtype == torch.float16:
+        row["kernels"] = flash_kernel_names(q, k, v, do, causal, window)
+        if kind == "f16":
+            check(f16_kernels(row["kernels"]), f"{what}: ran {row['kernels']}")
+        else:
+            check(row["kernels"] and all("_any<" in n and "__half" in n for n in row["kernels"]),
+                  f"{what}: ran {row['kernels']}, not the general fp16 kernels")
     check(row["finite"], f"{what}: not finite")
     check(row["max_scaled_err"] <= row["tol"],
           f"{what}: forward {row['max_scaled_err']} > {row['tol']}")
     worst = max(row["bwd_max_scaled_err"].values())
     check(worst <= row["bwd_tol"], f"{what}: backward {row['bwd_max_scaled_err']}")
-    on_route = {"pad": "flash_fwd_bf16_pad", "any": "flash_fwd_any"}.get(kind)
+    on_route = {"pad": "flash_fwd_bf16_pad", "f16": "flash_fwd_f16",
+                "any": "flash_fwd_any"}.get(kind)
     check(launches["flash_attention"] == 1 and launches["flash_attention_bwd"] == 1
           and (on_route is None or launches.get(on_route) == 1
                and launches.get(on_route.replace("fwd", "bwd")) == 1),
@@ -1098,7 +1205,8 @@ def _flash_public(gen, name, b, s, h, d, dtype) -> dict:
     torch.cuda.synchronize()
     ref = flash_attention_ref(q, k, v, causal=True, window=0)
     fwd = {"max_abs_err": (o.float() - ref.float()).abs().max().item(),
-           "max_scaled_err": scaled_err(o, ref), "tol": TOL[str(dtype)]}
+           "max_scaled_err": scaled_err(o, ref),
+           "tol": gate(name, "forward", dtype, TOL[str(dtype)])}
     del ref
     fwd["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True, window=0))
     by_kernel = kernels_device_ms(lambda: flash_attention_cuda(q, k, v, causal=True, window=0),
@@ -1126,7 +1234,7 @@ def _flash_public(gen, name, b, s, h, d, dtype) -> dict:
                                zip(("dq", "dk", "dv"), grads, ref_grads)},
             "max_abs_err": max((g.float() - r).abs().max().item()
                                for g, r in zip(grads, ref_grads)),
-            "tol": BWD_TOL[str(dtype)]}
+            "tol": gate(name, "backward", dtype, BWD_TOL[str(dtype)])}
     del grads, ref_grads, leaves
     back["ms"] = cuda_ms(bwd, iters=10)
     by_kernel = kernels_device_ms(bwd, iters=10)
@@ -1147,8 +1255,10 @@ def _flash_public(gen, name, b, s, h, d, dtype) -> dict:
     check(fwd["max_scaled_err"] <= fwd["tol"], f"shapes {name}: forward {fwd['max_scaled_err']}")
     check(max(back["max_scaled_err"].values()) <= back["tol"],
           f"shapes {name}: backward {back['max_scaled_err']}")
-    # the padded route: the bucket's kernels at hopper::Widths (the real dims)
-    tags = (("hopper::Widths",) * 2 if row["route"] == "pad" else ("flash_fwd_any", "_any<"))
+    # the padded route: the bucket's kernels at hopper::Widths (the real
+    # dims), and fp16's at hopper::HalfWidths
+    tags = {"pad": ("hopper::Widths",) * 2, "f16": ("hopper::HalfWidths",) * 2}.get(
+        row["route"], ("flash_fwd_any", "_any<"))
     for part, tag in zip((fwd, back), tags):
         check(part["kernels"] and all(tag in n for n in part["kernels"]),
               f"shapes {name}: ran {part['kernels']}, not {tag}")
@@ -1228,7 +1338,8 @@ def _ssd_public(gen, name, b, l, h, p, n, dtype) -> dict:
 
 def _shapes_model(arch: str, seed: int) -> dict[str, int]:
     """A smoke config cut off the built shapes, on the card: prefill and
-    decode, kernel path against plain path in bf16 (the padded route) and
+    decode, kernel path against plain path in bf16 (the padded route), fp16
+    where SHAPES_MODEL_DTYPES names it (granite: the f16 wgmma route) and
     fp32 (the general route), then a train step's loss and gradients held
     to float64 as train_grad_check holds them.  Returns the route
     launches of the run (counted from 0)."""
@@ -1248,11 +1359,12 @@ def _shapes_model(arch: str, seed: int) -> dict[str, int]:
     ids = torch.randint(0, base.vocab_size, (b, s + steps), generator=gen, device="cuda")
     zero_route_counts()
     out = {"config": base.name, "cut": cut, "batch": b, "prompt": s, "steps": steps}
-    for compute in ("bfloat16", "float32"):
+    for compute in SHAPES_MODEL_DTYPES[arch]:
         cfg = base.scaled(compute_dtype=compute)
         params = materialize(param_defs(cfg), seed, "cuda")
-        if compute == "float32":
-            params = tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
+        if compute != "bfloat16":
+            cast = getattr(torch, compute)
+            params = tree_map(lambda t: t.to(cast) if t.is_floating_point() else t, params)
         k = _path_logits(params, cfg, ids, s, steps, timed=False)
         with plain_attention():
             p = _path_logits(params, cfg, ids, s, steps, timed=False)
@@ -1260,7 +1372,7 @@ def _shapes_model(arch: str, seed: int) -> dict[str, int]:
         row = {"prefill_launches": k["prefill_launches"], "plain_launches": p["prefill_launches"],
                "decode_rel_err": _rel_rows(k["got"], p["got"]).max().item(),
                "forward_rel_err": _rel_rows(k["ref"], p["ref"]).max().item(),
-               "tol": SHAPES_MODEL_TOL[compute],
+               "tol": gate(f"{arch}_shapes", "forward", cfg.cdtype, SHAPES_MODEL_TOL[compute]),
                "finite": bool(torch.isfinite(k["got"].float()).all())}
         out[compute] = row
         what = f"shapes {arch} {compute}"
@@ -1274,7 +1386,9 @@ def _shapes_model(arch: str, seed: int) -> dict[str, int]:
         del params, k, p
     batch = batch_to(batch_for(base, b, s, 0, seed=seed), torch.device("cuda"))
     params = materialize(param_defs(base), seed, "cuda")
-    _grad_check_init("reference", params, batch, base, False)
+    _grad_check_init("reference", params, batch, base, False,
+                     tuple(d for d in ("float32", "bfloat16", "float16")
+                           if d in SHAPES_MODEL_DTYPES[arch]))
     launches = route_counts()
     out["route_launches"] = launches
     emit("shapes_model", **out)
@@ -2223,6 +2337,13 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
         # head) units are not a multiple of its block order's groups of 8
         ("mla_ragged_train", 1, 1000, 1000, 13, 13, 192, 128, torch.bfloat16, True, 0),
         ("seamless_cross_train", 4, 256, 1024, 16, 16, 64, 64, torch.bfloat16, False, 0),
+        # fp16 beside bf16 (FP16_TWINS), on the f16 wgmma kernels: granite's,
+        # llava's (and its bf16 row), recurrentgemma's and MLA's at B 2
+        ("llava_train", 4, 1024, 1024, 64, 64, 128, 128, torch.bfloat16, True, 0),
+        ("granite_train_fp16", 4, 1024, 1024, 32, 8, 64, 64, torch.float16, True, 0),
+        ("llava_train_fp16", 4, 1024, 1024, 64, 64, 128, 128, torch.float16, True, 0),
+        ("recurrentgemma_train_fp16", 2, 2560, 2560, 16, 1, 256, 256, torch.float16, True, 2048),
+        ("mla_train_fp16", 2, 1024, 1024, 128, 128, 192, 128, torch.float16, True, 0),
         # the smoke configs' head dims, on the SIMT kernels in both dtypes
         ("smoke_d16_train", 2, 64, 64, 4, 2, 16, 16, torch.bfloat16, True, 0),
         ("smoke_d16_cross_train", 2, 64, 80, 4, 4, 16, 16, torch.bfloat16, False, 0),
@@ -2248,7 +2369,7 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
         # the yardstick: SDPA's backward on the same values, where it takes them
         lib, lib_bwd = sdpa_backward(q, k, v, do, causal, window)
         torch.cuda.synchronize()
-        tol = BWD_TOL[str(dtype)]
+        tol = gate(name, "backward", dtype, BWD_TOL[str(dtype)])
         names = ("dq", "dk", "dv")
         row = {"case": name, "shape": [b, s, h, kv, d], "dv": dv, "sk": sk, "dtype": str(dtype),
                "causal": causal, "window": window, "tol": tol,
@@ -2276,7 +2397,12 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
                                   iters=3, warmup=1)
         # device time from the profiler: SDPA's autograd call is paced by the
         # host at these sizes, so its event time varies from call to call
-        row["device_ms"] = kernel_device_ms(bwd)
+        if name in FP16_TWINS or name in FP16_TWINS.values():
+            # fp16 beside bf16: the kernels the profiler saw too
+            by_kernel = kernels_device_ms(bwd)
+            row["device_ms"], row["kernels"] = sum(by_kernel.values()), sorted(by_kernel)
+        else:
+            row["device_ms"] = kernel_device_ms(bwd)
         row["library_ms"] = row["library_device_ms"] = row["vs_library"] = None
         if lib is not None:
             row["library_ms"] = cuda_ms(lib_bwd)
@@ -2323,11 +2449,17 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
             b1["dq_bound_frac"] = b1["dq_bound_ms"] / b1["kernel_device_ms"]["dq"]
             row["b1"] = b1
             del first, again
+        if name in FP16_TWINS:   # the bf16 row at the same shape, earlier in this run
+            twin = next(r for r in results if r["case"] == FP16_TWINS[name])
+            row["vs_bf16_device"] = row["device_ms"] / twin["device_ms"]
         emit("flash_bwd_vs_plain", **row)
         worst = max(row["max_scaled_err"].values())
         check(worst <= tol and row["finite"],
               f"flash backward {name}: max |grad - ref| / (1 + |ref|) = {worst} > {tol}")
         check(row["bit_equal"], f"flash backward {name}: two launches differ")
+        if name in FP16_TWINS:
+            check(f16_kernels(row["kernels"]),
+                  f"flash backward {name}: ran {row['kernels']}, not the f16 wgmma kernels")
         if "dq_kernels" in row:   # bf16 at (256, 256) and (192, 128): the two-warpgroup dQ kernel
             check(row["dq_kernels"] and all("flash_bwd_dq_bf16_pair" in k
                                             for k in row["dq_kernels"]),
@@ -2552,7 +2684,8 @@ def phase_train_grad_check(seed: int) -> dict[str, dict[str, int]]:
     return launches
 
 
-def _grad_check_init(init: str, params_bf, batch, base, offload: bool) -> dict[str, int]:
+def _grad_check_init(init: str, params_bf, batch, base, offload: bool,
+                     dtypes: tuple[str, ...] = ("float32", "bfloat16")) -> dict[str, int]:
     from repro_torch.distributed.step import loss_and_grads
     from repro_torch.models.spec import tree_map
 
@@ -2584,9 +2717,10 @@ def _grad_check_init(init: str, params_bf, batch, base, offload: bool) -> dict[s
         g64 = tree_map(lambda t: t.cpu(), g64)
         torch.cuda.empty_cache()
     kernel_launches = {}
-    for compute in ("float32", "bfloat16"):
+    for compute in dtypes:
         cfg = base.scaled(compute_dtype=compute)
-        params = params_bf if compute == "bfloat16" else tree_map(lambda t: t.float(), params_bf)
+        params = params_bf if compute == "bfloat16" else tree_map(
+            lambda t: t.to(getattr(torch, compute)), params_bf)
         zero_counts()
         loss_k, _, g_k = loss_and_grads(params, batch, cfg)
         torch.cuda.synchronize()
@@ -3852,7 +3986,7 @@ def main() -> int:
     by_path = {path: counts.get("flash_fwd_bf16_ws", 0) for path, counts in path_launches.items()}
     mla_rows = {c["case"]: {k: c[k] for k in ("ms", "bound_ms", "bound_frac", "library_ms",
                                                "vs_library", "max_scaled_err", "kernels")}
-                for c in flash_cases if "kernels" in c}
+                for c in flash_cases if c.get("ws")}
     table.append({"name": "flash_fwd_bf16_ws", "route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/flash_attention_fwd_ws.cu",
                   "replaces": replaces["flash_attention"], "launches": sum(by_path.values()),
@@ -3886,16 +4020,27 @@ def main() -> int:
                "initial_state": c["initial_state"]}
             for c in group_cases}
         row["groups_g1"] = group_cases[0]["g1"]
-    # the padded and the general routes (kernels/*.py:route), each with its
-    # readings at a public model's full-width shape
+    # the padded, the fp16 wgmma and the general routes (kernels/*.py:route),
+    # each with its readings at a public model's full-width shape
     csrc = "src/repro_torch/kernels/csrc/"
+    f16_names = {"forward": set(), "backward": set()}
+    for part, rows_ in (("forward", flash_cases), ("backward", bwd_cases)):
+        for c in rows_:
+            f16_names[part].update(n for n in c.get("kernels", ()) if "HalfWidths" in n)
+    for c in shape_rows.values():
+        for part in f16_names:
+            f16_names[part].update(n for n in c[part].get("kernels", ()) if "HalfWidths" in n)
+    f16_names = {part: sorted(names) for part, names in f16_names.items()}
     for name, source, case, part, also in (
             ("flash_fwd_bf16_pad", "flash_attention_pad.cu", "phi2_d80", "forward",
              "phi3_mini_d96"),
             ("flash_bwd_bf16_pad", "flash_attention_bwd_pad.cu", "phi2_d80", "backward",
              "phi3_mini_d96"),
-            ("flash_fwd_any", "flash_attention_any.cu", "phi2_d80_fp16", "forward", None),
-            ("flash_bwd_any", "flash_attention_any.cu", "phi2_d80_fp16", "backward", None),
+            ("flash_fwd_f16", "flash_attention_f16.cu", "phi2_d80_fp16", "forward", "phi2_d80"),
+            ("flash_bwd_f16", "flash_attention_bwd_f16.cu", "phi2_d80_fp16", "backward",
+             "phi2_d80"),
+            ("flash_fwd_any", "flash_attention_any.cu", "phi2_d80_fp32", "forward", None),
+            ("flash_bwd_any", "flash_attention_any.cu", "phi2_d80_fp32", "backward", None),
             ("ssd_fwd_bf16_pad", "ssd_scan_pad.cu", "zamba2_p64_n64", "forward", None),
             ("ssd_bwd_bf16_pad", "ssd_scan_bwd_pad.cu", "zamba2_p64_n64", "backward", None),
             ("ssd_fwd_any", "ssd_scan_any.cu", "zamba2_p64_n64_fp16", "forward", None),
@@ -3918,6 +4063,8 @@ def main() -> int:
             row[also] = {k: shape_rows[also][part][k] for k in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_frac",
                 "library_ms", "vs_library", "max_scaled_err")}
+        if name.endswith("_f16"):   # the fp16 instantiations the run's fp16 rows launched
+            row["instantiations"] = f16_names[part]
         table.append(row)
         check(row["launches"] > 0, f"the {name} route ran on no main path")
     print(json.dumps({"kernels": table}), flush=True)

@@ -1,8 +1,11 @@
 // The bf16 flash-attention forward kernel (wgmma + TMA), shared by
-// csrc/flash_attention.cu (the models' head dims) and
+// csrc/flash_attention.cu (the models' head dims),
 // csrc/flash_attention_pad.cu (the padded route: any head dims that are
-// multiples of 8 inside a built pair, the Widths instantiations).  The design
-// notes are in csrc/flash_attention.cu's header.
+// multiples of 8 inside a built pair, the Widths instantiations) and
+// csrc/flash_attention_f16.cu (fp16 at any such head dims and at the built
+// pairs, the HalfWidths instantiations: the same kernel in f16 wgmma and
+// f16 tensor maps).  The design notes are in csrc/flash_attention.cu's
+// header.
 #pragma once
 
 #include "hopper.cuh"
@@ -94,13 +97,15 @@ struct Smem {
 // multiples of 8 inside the pair), where the tensor maps carry the real
 // dims, so TMA zero-fills q, k and v past them and the scores and O are
 // those of the real dims (the launcher's scale is 1 / sqrt(real DK)), and
-// O's stores stop at the real v dim
+// O's stores stop at the real v dim.  W::Elem is the element type: bf16,
+// or fp16 in the HalfWidths instantiations
 template <int DK, int DV, int WN_, class W>
 __global__ void __launch_bounds__(256, Smem<DK, DV, WN_>::BLOCKS_PER_SM)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, Params p, W wd) {
   using L = Smem<DK, DV, WN_>;
+  using T = typename W::Elem;
   constexpr int STAGES = L::STAGES;
   constexpr int WN = L::WN;
   constexpr int K_BOXES = DK / BOX, V_BOXES = DV / BOX;
@@ -181,7 +186,7 @@ __global__ void __launch_bounds__(256, Smem<DK, DV, WN_>::BLOCKS_PER_SM)
 
     float sc[WN / 2];
     mbar_wait(&full_k[s], phase);
-    qk_product<DK, WM, WN>(sc, q_smem, smem_u32(sK + s * L::K_BYTES));
+    qk_product<DK, WM, WN, WN / 2, true, T>(sc, q_smem, smem_u32(sK + s * L::K_BYTES));
 
     // mask only where this warpgroup's rows meet a masked pair
     const bool edge = k0 + WN > p.Sk || (p.causal && k0 + WN - 1 > wq0) ||
@@ -236,8 +241,8 @@ __global__ void __launch_bounds__(256, Smem<DK, DV, WN_>::BLOCKS_PER_SM)
       const float p3 = ex2(fmaf(sc[4 * nb + 3], sl, -ms1));
       rs0 += p0 + p1;
       rs1 += p2 + p3;
-      pf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(p0, p1);
-      pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(p2, p3);
+      pf[nb / 2][(nb % 2) * 2 + 0] = pack2<T>(p0, p1);
+      pf[nb / 2][(nb % 2) * 2 + 1] = pack2<T>(p2, p3);
     }
     l0 = l0 * a0 + rs0;
     l1 = l1 * a1 + rs1;
@@ -249,7 +254,7 @@ __global__ void __launch_bounds__(256, Smem<DK, DV, WN_>::BLOCKS_PER_SM)
       o[4 * dt + 3] *= a1;
     }
     mbar_wait(&full_v[s], phase);
-    pv_product<DV, WN>(o, pf, smem_u32(sV + s * L::V_BYTES));
+    pv_product<DV, WN, true, T>(o, pf, smem_u32(sV + s * L::V_BYTES));
     mbar_arrive(&empty[s]);
   }
 
@@ -266,7 +271,7 @@ __global__ void __launch_bounds__(256, Smem<DK, DV, WN_>::BLOCKS_PER_SM)
   }
   const int dv = wd.w1();
   const size_t o_stride = (size_t)p.H * dv;   // elements between sequence positions of o
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + ((size_t)b * p.S * p.H + h) * dv;
+  T* ob = static_cast<T*>(p.o) + ((size_t)b * p.S * p.H + h) * dv;
 #pragma unroll
   for (int dt = 0; dt < DV / 8; ++dt) {
     const int col = dt * 8 + t4 * 2;
@@ -274,12 +279,31 @@ __global__ void __launch_bounds__(256, Smem<DK, DV, WN_>::BLOCKS_PER_SM)
       if (col >= dv) continue;   // dv is a multiple of 8: whole pairs
     }
     if (row0 < p.S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * o_stride + col) =
-          __floats2bfloat162_rn(o[4 * dt + 0] * inv0, o[4 * dt + 1] * inv0);
+      store2(ob + (size_t)row0 * o_stride + col, o[4 * dt + 0] * inv0, o[4 * dt + 1] * inv0);
     if (row1 < p.S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * o_stride + col) =
-          __floats2bfloat162_rn(o[4 * dt + 2] * inv1, o[4 * dt + 3] * inv1);
+      store2(ob + (size_t)row1 * o_stride + col, o[4 * dt + 2] * inv1, o[4 * dt + 3] * inv1);
   }
+}
+
+// the kernel at the bucket (DK, DV) and kv tile WN on the padded route's
+// widths (Widths in bf16, HalfWidths in fp16); layout: q's, k's and v's
+// (real dims).  Returns cudaGetLastError() after the launch, or the
+// error of encode() or of the shared-memory opt-in
+template <int DK, int DV, int WN, class W>
+int launch_fwd(const Params& p, const W& wd, const long long* layout, cudaStream_t stream) {
+  constexpr CUtensorMapDataType type = tma_type<typename W::Elem>();
+  CUtensorMap tm_q, tm_k, tm_v;
+  int err = encode(&tm_q, p.q, layout, WM, type);
+  if (!err) err = encode(&tm_k, p.k, layout + 11, WN, type);
+  if (!err) err = encode(&tm_v, p.v, layout + 22, WN, type);
+  if (err) return err;
+  constexpr size_t smem = Smem<DK, DV, WN>::BYTES;
+  static uint32_t opted = 0;   // a bit per device
+  err = opt_in_smem(reinterpret_cast<const void*>(flash_fwd_bf16<DK, DV, WN, W>), smem, opted);
+  if (err) return err;
+  const dim3 grid(p.B * p.H, (p.S + WM - 1) / WM);
+  flash_fwd_bf16<DK, DV, WN, W><<<grid, 256, smem, stream>>>(tm_q, tm_k, tm_v, p, wd);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -59,6 +59,11 @@
 // TMA multicast (0.728), 64-key tiles in four stages; L2 eviction hints
 // on the loads changed nothing, and O staged in 16 KB of its own, so that
 // Q's rows free at an item's last S, gained 1%.
+//
+// fp16 runs the same kernel (flash_attention_fwd_ws_f16 below): the
+// template argument W is hopper::Widths for bf16 and hopper::HalfWidths
+// for fp16, read only for its element type (f16 wgmma, f16 tensor maps, P
+// and O rounded to fp16).
 
 #include "hopper.cuh"
 
@@ -172,13 +177,14 @@ __device__ __forceinline__ void softmax_tile(const Params& p, float (&sc)[WN / 2
   l1 = l1 * a1 + rs1;
 }
 
-// P (fp32, in S's accumulator layout) as bf16 A fragments of P V:
+// P (fp32, in S's accumulator layout) as T A fragments of P V:
 // 8-column blocks 2j and 2j+1 form k-step j
+template <typename T>
 __device__ __forceinline__ void pack_p(const float (&sc)[WN / 2], uint32_t (&pf)[WN / 16][4]) {
 #pragma unroll
   for (int nb = 0; nb < WN / 8; ++nb) {
-    pf[nb / 2][(nb % 2) * 2 + 0] = pack_bf16(sc[4 * nb], sc[4 * nb + 1]);
-    pf[nb / 2][(nb % 2) * 2 + 1] = pack_bf16(sc[4 * nb + 2], sc[4 * nb + 3]);
+    pf[nb / 2][(nb % 2) * 2 + 0] = pack2<T>(sc[4 * nb], sc[4 * nb + 1]);
+    pf[nb / 2][(nb % 2) * 2 + 1] = pack2<T>(sc[4 * nb + 2], sc[4 * nb + 3]);
   }
 }
 
@@ -221,12 +227,15 @@ __device__ __forceinline__ Item item_at(const Params& p, int x, int tiles) {
 
 // a persistent grid of at most one block an SM: block x takes item x,
 // then the counter's next until the items run out; 384 threads: two
-// consumer warpgroups of 64 q rows, then the producer warpgroup
+// consumer warpgroups of 64 q rows, then the producer warpgroup; W:
+// Widths (bf16) or HalfWidths (fp16), for its element type alone
+template <class W>
 __global__ void __launch_bounds__(384, 1)
     flash_fwd_bf16_ws(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       const __grid_constant__ CUtensorMap tm_o, Params p) {
+  using T = typename W::Elem;
   constexpr int K_BOXES = DK / BOX, V_BOXES = DV / BOX;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
@@ -369,21 +378,21 @@ __global__ void __launch_bounds__(384, 1)
         int s = base % STAGES;
         mbar_wait(&full_k[s], (base / STAGES) & 1);
         named_sync(me, CONSUMERS);
-        qk_product<DK, WM, WN, WN / 2, false>(sc, q_smem, smem_u32(sK + s * K_BYTES));
+        qk_product<DK, WM, WN, WN / 2, false, T>(sc, q_smem, smem_u32(sK + s * K_BYTES));
         named_arrive(other, CONSUMERS);
         wgmma_wait_all();
         pin(sc);
         mbar_arrive(&empty_k[s]);
         softmax_tile(p, sc, it.t_lo * WN, wq0, row0, t4, m0, m1, l0, l1, a0, a1);
-        pack_p(sc, pf);
+        pack_p<T>(sc, pf);
         for (int i = 1; i < n; ++i) {
           const int j = base + i, sp = (j - 1) % STAGES;
           s = j % STAGES;
           mbar_wait(&full_k[s], (j / STAGES) & 1);
           named_sync(me, CONSUMERS);
-          qk_product<DK, WM, WN, WN / 2, false>(sc, q_smem, smem_u32(sK + s * K_BYTES));
+          qk_product<DK, WM, WN, WN / 2, false, T>(sc, q_smem, smem_u32(sK + s * K_BYTES));
           mbar_wait(&full_v[sp], ((j - 1) / STAGES) & 1);
-          pv_product<DV, WN, false>(o, pf, smem_u32(sV + sp * V_BYTES));
+          pv_product<DV, WN, false, T>(o, pf, smem_u32(sV + sp * V_BYTES));
           named_arrive(other, CONSUMERS);
           wgmma_wait_all_but_one();   // S of tile i is done; P V of tile i - 1 may still run
           pin(sc);
@@ -392,13 +401,13 @@ __global__ void __launch_bounds__(384, 1)
           wgmma_wait_all();
           pin(o);
           mbar_arrive(&empty_v[sp]);
-          pack_p(sc, pf);
+          pack_p<T>(sc, pf);
           rescale(o, a0, a1);
         }
         const int jl = base + n - 1;
         s = jl % STAGES;
         mbar_wait(&full_v[s], (jl / STAGES) & 1);
-        pv_product<DV, WN>(o, pf, smem_u32(sV + s * V_BYTES));
+        pv_product<DV, WN, true, T>(o, pf, smem_u32(sV + s * V_BYTES));
         mbar_arrive(&empty_v[s]);
         base += n;
       }
@@ -425,9 +434,9 @@ __global__ void __launch_bounds__(384, 1)
       for (int dt = 0; dt < DV / 8; ++dt) {
         unsigned char* box = so + (dt / 8) * WM * ROW + (((dt % 8) ^ g) << 4) + t4 * 4;
         *reinterpret_cast<uint32_t*>(box + r0 * ROW) =
-            pack_bf16(o[4 * dt + 0] * inv0, o[4 * dt + 1] * inv0);
+            pack2<T>(o[4 * dt + 0] * inv0, o[4 * dt + 1] * inv0);
         *reinterpret_cast<uint32_t*>(box + r1 * ROW) =
-            pack_bf16(o[4 * dt + 2] * inv1, o[4 * dt + 3] * inv1);
+            pack2<T>(o[4 * dt + 2] * inv1, o[4 * dt + 3] * inv1);
       }
       fence_proxy_async();
       named_sync(3 + wg, 128);
@@ -448,15 +457,17 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
+template <class W>
 int launch(const Params& p, const long long* layout, cudaStream_t stream) {
+  constexpr CUtensorMapDataType type = tma_type<typename W::Elem>();
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
-  int err = encode(&tm_q, p.q, layout, 64);
-  if (!err) err = encode(&tm_k, p.k, layout + 11, WN);
-  if (!err) err = encode(&tm_v, p.v, layout + 22, WN);
-  if (!err) err = encode(&tm_o, p.o, layout + 33, 64);
+  int err = encode(&tm_q, p.q, layout, 64, type);
+  if (!err) err = encode(&tm_k, p.k, layout + 11, WN, type);
+  if (!err) err = encode(&tm_v, p.v, layout + 22, WN, type);
+  if (!err) err = encode(&tm_o, p.o, layout + 33, 64, type);
   if (err) return err;
   static uint32_t opted = 0;
-  err = opt_in_smem(reinterpret_cast<const void*>(flash_fwd_bf16_ws), SMEM_BYTES, opted);
+  err = opt_in_smem(reinterpret_cast<const void*>(flash_fwd_bf16_ws<W>), SMEM_BYTES, opted);
   if (err) return err;
   const int items = p.B * p.H * ((p.S + WM - 1) / WM);
   static int sms[32] = {0};   // SMs of each device, read once
@@ -465,8 +476,26 @@ int launch(const Params& p, const long long* layout, cudaStream_t stream) {
   if (dev < 32 && sms[dev] == 0)
     cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
   const int blocks = min(items, dev < 32 ? sms[dev] : 132);
-  flash_fwd_bf16_ws<<<blocks, 384, SMEM_BYTES, stream>>>(tm_q, tm_k, tm_v, tm_o, p);
+  flash_fwd_bf16_ws<W><<<blocks, 384, SMEM_BYTES, stream>>>(tm_q, tm_k, tm_v, tm_o, p);
   return 0;
+}
+
+// the entries' shared checks and launch: (dk, dv) (192, 128), or the
+// padded route's dims in that bucket; kv_tile WN
+template <class W>
+int launch_checked(const void* q, const void* k, const void* v, void* o, int B, int S, int Sk,
+                   int H, int KV, int dk, int dv, int causal, int window, void* stream,
+                   const long long* layout, float* lse, int kv_tile, unsigned int* sched) {
+  const bool routed = dk == 192 && dv == 128;
+  // the padded route (kernels/flash_attention.py:route): real head dims,
+  // multiples of 8, whose smallest built pair is (192, 128).  The tensor
+  // maps carry them: TMA zero-fills q, k and v past them and clips O's
+  // stores, so the kernel is this one, scaled by 1 / sqrt(real dk)
+  const bool padded = dk > 128 && dk <= DK && dv > 0 && dv <= DV && dk % 8 == 0 && dv % 8 == 0;
+  if (!(routed || padded) || kv_tile != WN) return (int)cudaErrorInvalidValue;
+  Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)dk), lse, sched};
+  const int err = launch<W>(p, layout, static_cast<cudaStream_t>(stream));
+  return err ? err : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -485,14 +514,19 @@ extern "C" int flash_attention_fwd_ws(const void* q, const void* k, const void* 
                                       int causal, int window, void* stream,
                                       const long long* layout, float* lse, int kv_tile,
                                       unsigned int* sched) {
-  const bool routed = dk == 192 && dv == 128;
-  // the padded route (kernels/flash_attention.py:route): real head dims,
-  // multiples of 8, whose smallest built pair is (192, 128).  The tensor
-  // maps carry them: TMA zero-fills q, k and v past them and clips O's
-  // stores, so the kernel is this one, scaled by 1 / sqrt(real dk)
-  const bool padded = dk > 128 && dk <= DK && dv > 0 && dv <= DV && dk % 8 == 0 && dv % 8 == 0;
-  if (!(routed || padded) || kv_tile != WN) return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)dk), lse, sched};
-  const int err = launch(p, layout, static_cast<cudaStream_t>(stream));
-  return err ? err : (int)cudaGetLastError();
+  return launch_checked<Widths>(q, k, v, o, B, S, Sk, H, KV, dk, dv, causal, window, stream,
+                                layout, lse, kv_tile, sched);
+}
+
+// The same in fp16 (q, k, v and o all fp16; the layouts as above): dtype
+// is the launcher's code, 2 (fp16), and any other is refused with
+// cudaErrorInvalidValue.
+extern "C" int flash_attention_fwd_ws_f16(const void* q, const void* k, const void* v, void* o,
+                                          int B, int S, int Sk, int H, int KV, int dk, int dv,
+                                          int causal, int window, int dtype, void* stream,
+                                          const long long* layout, float* lse, int kv_tile,
+                                          unsigned int* sched) {
+  if (dtype != 2) return (int)cudaErrorInvalidValue;
+  return launch_checked<HalfWidths>(q, k, v, o, B, S, Sk, H, KV, dk, dv, causal, window, stream,
+                                    layout, lse, kv_tile, sched);
 }

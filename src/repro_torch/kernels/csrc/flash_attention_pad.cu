@@ -32,32 +32,13 @@ namespace {
 
 using namespace hopper;
 
-// the bucket's forward at kv tile WN; layout: q's, k's and v's (real dims)
-template <int DK, int DV, int WN>
-int launch_fwd(const Params& p, const Widths& wd, const long long* layout,
-               cudaStream_t stream) {
-  CUtensorMap tm_q, tm_k, tm_v;
-  int err = encode(&tm_q, p.q, layout, WM);
-  if (!err) err = encode(&tm_k, p.k, layout + 11, WN);
-  if (!err) err = encode(&tm_v, p.v, layout + 22, WN);
-  if (err) return err;
-  constexpr size_t smem = Smem<DK, DV, WN>::BYTES;
-  static uint32_t opted = 0;   // a bit per device
-  err = opt_in_smem(reinterpret_cast<const void*>(flash_fwd_bf16<DK, DV, WN, Widths>), smem,
-                    opted);
-  if (err) return err;
-  const dim3 grid(p.B * p.H, (p.S + WM - 1) / WM);
-  flash_fwd_bf16<DK, DV, WN, Widths><<<grid, 256, smem, stream>>>(tm_q, tm_k, tm_v, p, wd);
-  return (int)cudaGetLastError();
-}
-
 // the bucket at kv tile kv_tile (kernels/flash_attention.py:KV_TILES)
 template <int DK, int DV>
 int launch_tile(const Params& p, const Widths& wd, const long long* layout, cudaStream_t stream,
                 int kv_tile) {
-  if (kv_tile == 64) return launch_fwd<DK, DV, 64>(p, wd, layout, stream);
+  if (kv_tile == 64) return launch_fwd<DK, DV, 64, Widths>(p, wd, layout, stream);
   if constexpr (DK != 256) {
-    if (kv_tile == 128) return launch_fwd<DK, DV, 128>(p, wd, layout, stream);
+    if (kv_tile == 128) return launch_fwd<DK, DV, 128, Widths>(p, wd, layout, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -24,15 +24,24 @@ third kernel then sums the shares' fp32 partials in a fixed order.  bf16
 at the models' head dims goes to the wgmma + TMA kernels, fp32 and the smoke configs'
 head dims (16, 16) and (24, 16) in either dtype to SIMT kernels.
 
-Every other head-dim pair up to 256 and fp16 take one of two more routes
-(:func:`route`): bf16 at head dims that are multiples of 8 takes the
-wgmma + TMA kernels of the smallest built pair that holds them (its
+Every other head-dim pair up to 256 and fp16 take one of three more
+routes (:func:`route`): bf16 at head dims that are multiples of 8 takes
+the wgmma + TMA kernels of the smallest built pair that holds them (its
 bucket, ``BUCKETS``), with tensor maps at the real dims (TMA zero-fills
 the last box's columns past them; ``csrc/flash_attention_pad.cu``,
 ``csrc/flash_attention_bwd_pad.cu``, and ``flash_fwd_bf16_ws`` in the
-(192, 128) bucket), and everything else the general SIMT kernels
-(``csrc/flash_attention_any.cu``).  The route follows from dtype and head
-dims alone, never from a failure of another route.  The public entry is :func:`repro_torch.kernels.ops.flash_attention`
+(192, 128) bucket); fp16 at every head-dim pair where bf16 runs on wgmma
+(the built pairs and those dims) takes the same kernels in f16 wgmma with
+f16 tensor maps, the forward's padded form at the bucket's default kv
+tile and the backward's at a built pair's own widths or padded
+(``csrc/flash_attention_f16.cu``, ``csrc/flash_attention_bwd_f16.cu``,
+``flash_attention_fwd_ws_f16`` in ``csrc/flash_attention_fwd_ws.cu``);
+and everything else (fp16 at the smoke dims and at dims that are not
+multiples of 8, fp32 off the built pairs) the general SIMT kernels
+(``csrc/flash_attention_any.cu``).  The C entries take the dtype as a
+code (``_DTYPES``: 0 fp32, 1 bf16, 2 fp16) and refuse one they are not
+built for.  The route follows from dtype and head dims alone, never from
+a failure of another route.  The public entry is :func:`repro_torch.kernels.ops.flash_attention`
 (with :class:`repro_torch.kernels.ops.FlashAttention` for autograd), which
 counts the launches; this module only checks and launches.
 """
@@ -98,8 +107,8 @@ class DqTiles(NamedTuple):
 
 
 def bwd_dq_tiles(dk: int, dv: int) -> DqTiles:
-    """The bf16 dQ kernel's tiles at head dims (dk, dv), those of their
-    bucket: on the two-warpgroup route each warpgroup's Q and dO (64 rows)
+    """The wgmma dQ kernel's tiles (bf16 or fp16) at head dims (dk, dv),
+    those of their bucket: on the two-warpgroup route each warpgroup's Q and dO (64 rows)
     stay, and three stages of K and V stream, 32 kv rows a stage at D 256
     (where 128 q rows of Q and dO take 128 KB), else 64; on the
     one-warpgroup route 64 q rows and two 64-row stages."""
@@ -123,10 +132,11 @@ def bwd_scratch_rows(s: int, dtype: torch.dtype, dk: int, dv: int) -> int:
 class Route(NamedTuple):
     """How a call runs: ``kind`` "tma" (bf16 at a built pair), "pad" (bf16
     at head dims that are multiples of 8 inside a built pair, on its
-    kernels), "simt" (fp32 at a built pair, and the smoke configs' head
-    dims in bf16 and fp32) or "any" (the general SIMT kernels); ``dims``
-    the instantiation's head dims: the bucket on "tma" and "pad", the real
-    dims otherwise."""
+    kernels), "f16" (fp16 where bf16 takes "tma" or "pad": the same
+    kernels in fp16), "simt" (fp32 at a built pair, and
+    the smoke configs' head dims in bf16 and fp32) or "any" (the general
+    SIMT kernels); ``dims`` the instantiation's head dims: the bucket on
+    "tma", "pad" and "f16", the real dims otherwise."""
     kind: str
     dims: tuple[int, int]
 
@@ -149,6 +159,8 @@ def route(dtype: torch.dtype, dk: int, dv: int) -> Route:
         return Route("simt", (dk, dv))
     if dtype == torch.bfloat16 and dk % 8 == 0 and dv % 8 == 0 and bucket(dk, dv) in BUCKETS:
         return Route("pad", bucket(dk, dv))
+    if dtype == torch.float16 and tma_route(torch.bfloat16, dk, dv):
+        return Route("f16", bucket(dk, dv))
     return Route("any", (dk, dv))
 
 
@@ -189,7 +201,7 @@ _LAYOUTS: dict[tuple, ctypes.Array] = {}
 
 def _cached_layouts(key: tuple, parts) -> ctypes.Array:
     """The flat TMA layouts of ``parts``, (shape, stride, box rows) of bf16
-    tensors, as a C array, cached by ``key`` (at most 256 entries): building
+    or fp16 tensors, as a C array, cached by ``key`` (at most 256 entries): building
     the layouts takes tens of microseconds of host time, next to a kernel of
     ~0.05 ms."""
     arr = _LAYOUTS.get(key)
@@ -204,7 +216,7 @@ def _cached_layouts(key: tuple, parts) -> ctypes.Array:
 
 def layout_array(q_shape, q_stride, k_shape, k_stride, q_rows: int, kv_rows: int,
                  v_shape=None, v_stride=None) -> ctypes.Array:
-    """The 33 layout values a bf16 launch takes (q's with boxes of
+    """The 33 layout values a wgmma launch takes (q's with boxes of
     ``q_rows`` rows, then k's and v's with boxes of ``kv_rows``; v's are
     k's unless ``v_shape`` and ``v_stride`` are given), as a C array."""
     if v_shape is None:
@@ -226,7 +238,7 @@ def ws_layout_array(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.
 
 def bwd_layout_array(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      do: torch.Tensor) -> ctypes.Array:
-    """The 44 layout values a bf16 backward launch takes: q's, k's, v's and
+    """The 44 layout values a wgmma backward launch takes: q's, k's, v's and
     dO's, each with boxes of BWD_BOX_ROWS rows, as a C array."""
     parts = tuple((tuple(t.shape), t.stride(), BWD_BOX_ROWS) for t in (q, k, v, do))
     return _cached_layouts(parts, parts)
@@ -320,6 +332,33 @@ def _bwd_any_fn():
     return fn
 
 
+def _f16_fn():
+    fn = build.library("flash_attention_f16").flash_attention_fwd_f16
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _ws_f16_fn():
+    fn = build.library("flash_attention_fwd_ws").flash_attention_fwd_ws_f16
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_f16_fn():
+    fn = build.library("flash_attention_bwd_f16").flash_attention_bwd_f16
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 2)
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _bwd_fn():
     fn = build.library("flash_attention_bwd").flash_attention_bwd
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
@@ -329,19 +368,22 @@ def _bwd_fn():
     return fn
 
 
+TC_KINDS = ("tma", "pad", "f16")   # the routes on the wgmma + TMA kernels
+
+
 def tma_route(dtype: torch.dtype, dk: int, dv: int) -> bool:
     """Whether a call takes the wgmma + TMA kernels (bf16 at a built pair,
-    or padded inside one) rather than the SIMT ones: by dtype and head dims
-    alone."""
-    return route(dtype, dk, dv).kind in ("tma", "pad")
+    or padded inside one, and fp16 at those dims) rather than the SIMT
+    ones: by dtype and head dims alone."""
+    return route(dtype, dk, dv).kind in TC_KINDS
 
 
 def ws_route(dtype: torch.dtype, dk: int, dv: int) -> bool:
     """Whether a forward call takes ``flash_fwd_bf16_ws``
-    (csrc/flash_attention_fwd_ws.cu): bf16 at WS_HEAD_DIMS or padded inside
-    them, by dtype and head dims alone."""
+    (csrc/flash_attention_fwd_ws.cu, in bf16 or fp16): bf16 or fp16 at
+    WS_HEAD_DIMS or padded inside them, by dtype and head dims alone."""
     r = route(dtype, dk, dv)
-    return r.kind in ("tma", "pad") and r.dims in WS_HEAD_DIMS
+    return r.kind in TC_KINDS and r.dims in WS_HEAD_DIMS
 
 
 def kv_tiles(dk: int, dv: int) -> tuple[int, ...]:
@@ -385,20 +427,24 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, S, H, D); k: (B, Sk, KV, D); v: (B, Sk, KV, Dv) on one CUDA
     device -> o (B, S, H, Dv), and with ``return_lse`` also each row's
     logsumexp (B, H, S) in fp32.  1 <= D, Dv <= MAX_HEAD_DIM; bf16, fp16
-    or fp32 (:func:`route` picks the kernel).  ``kv_tile`` picks the bf16
-    wgmma kernel's kv tile among its bucket's ``KV_TILES`` (None: the
-    default); the SIMT kernels (fp32, fp16, the smoke head dims, head dims
-    that are not multiples of 8) have one tile and take None only."""
+    or fp32 (:func:`route` picks the kernel: bf16 and fp16 at head dims
+    that are multiples of 8 inside a built pair the wgmma + TMA kernels,
+    the rest SIMT).  ``kv_tile`` picks the bf16 wgmma kernel's kv tile
+    among its bucket's ``KV_TILES`` (None: the default); fp16 on wgmma is
+    built at the default tile alone, and the SIMT kernels (fp32, the smoke
+    head dims, head dims that are not multiples of 8) have one tile: both
+    take None or that tile only, else ValueError."""
     _check(q, k, v)
     b, s, h, d = q.shape
     sk, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     r = route(q.dtype, d, dv)
     tile = 0
-    if r.kind in ("tma", "pad"):
-        tile = KV_TILES[r.dims][0] if kv_tile is None else kv_tile
-        if tile not in KV_TILES[r.dims]:
-            raise ValueError(f"flash_attention: kv tile {tile} at head dims ({d}, {dv}); the "
-                             f"kernel is built for {KV_TILES[r.dims]}")
+    if r.kind in TC_KINDS:
+        built = KV_TILES[r.dims] if r.kind != "f16" else KV_TILES[r.dims][:1]
+        tile = built[0] if kv_tile is None else kv_tile
+        if tile not in built:
+            raise ValueError(f"flash_attention: kv tile {tile} at head dims ({d}, {dv}) in "
+                             f"{q.dtype}; the kernel is built for {built}")
     elif kv_tile is not None:
         raise ValueError(f"flash_attention: the {q.dtype} kernel at head dims ({d}, {dv}) has "
                          f"one tile; kv_tile {kv_tile} was named")
@@ -407,11 +453,22 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lse_ptr = None if lse is None else lse.data_ptr()
     with torch.cuda.device(q.device):
-        if tile and r.dims in WS_HEAD_DIMS:   # the MLA kernel: TMA layouts of q, k, v and o
+        if tile and r.dims in WS_HEAD_DIMS and r.kind == "f16":   # the MLA kernel in fp16
+            err = _ws_f16_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                               b, s, sk, h, kvh, d, dv, int(causal), int(window),
+                               _DTYPES[q.dtype], stream, ws_layout_array(q, k, v, o, tile),
+                               lse_ptr, tile, _sched_counters(q.device, stream).data_ptr())
+        elif tile and r.dims in WS_HEAD_DIMS:   # the MLA kernel: TMA layouts of q, k, v and o
             err = _ws_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                            b, s, sk, h, kvh, d, dv, int(causal), int(window), stream,
                            ws_layout_array(q, k, v, o, tile), lse_ptr, tile,
                            _sched_counters(q.device, stream).data_ptr())
+        elif r.kind == "f16":   # the bucket's kernel in fp16, TMA layouts at the real dims
+            layout = layout_array(q.shape, q.stride(), k.shape, k.stride(), BLOCK_Q, tile,
+                                  v.shape, v.stride())
+            err = _f16_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                            b, s, sk, h, kvh, d, dv, *r.dims, int(causal), int(window),
+                            _DTYPES[q.dtype], stream, layout, lse_ptr, tile)
         elif r.kind == "any":
             err = _any_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                             b, s, sk, h, kvh, d, dv, int(causal), int(window), _DTYPES[q.dtype],
@@ -464,7 +521,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.device}")
     r = route(q.dtype, d, dv)
     layout, shares, part = None, 1, None
-    if r.kind in ("tma", "pad"):   # the TMA layouts of q, k, v and dO
+    if r.kind in TC_KINDS:   # the TMA layouts of q, k, v and dO
         layout = bwd_layout_array(q, k, v, do)
         if r.dims in SPLIT_HEAD_DIMS:
             shares = bwd_head_shares(b, kvh, h // kvh, sk, _sm_count(q.device.index))
@@ -485,6 +542,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         elif r.kind == "pad":   # the bucket's kernels, TMA layouts at the real dims
             err = _bwd_pad_fn()(*ptrs, b, s, sk, h, kvh, d, dv, *r.dims, int(causal),
                                 int(window), stream, layout,
+                                None if part is None else part.data_ptr(), shares, s_pad)
+        elif r.kind == "f16":   # the same in fp16
+            err = _bwd_f16_fn()(*ptrs, b, s, sk, h, kvh, d, dv, *r.dims, int(causal),
+                                int(window), _DTYPES[q.dtype], stream, layout,
                                 None if part is None else part.data_ptr(), shares, s_pad)
         else:
             err = _bwd_fn()(*ptrs, b, s, sk, h, kvh, d, dv, int(causal), int(window),

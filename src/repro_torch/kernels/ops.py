@@ -114,15 +114,16 @@ def _flash_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 
 
 def _count_route(fn, prefix: str, kind: str) -> None:
-    """One launch on the padded or the general route, by the route's kind."""
-    if kind in ("pad", "any"):
+    """One launch on the padded, the fp16 wgmma or the general route, by the
+    route's kind."""
+    if kind in ("pad", "f16", "any"):
         name = f"{prefix}{kind}_launches"
         setattr(fn, name, getattr(fn, name) + 1)
 
 
 def _count_forward(q: torch.Tensor, v: torch.Tensor) -> None:
     """One forward launch; one more of the MLA kernel where it took it, and
-    of the padded or the general route where it took one."""
+    of the padded, the fp16 wgmma or the general route where it took one."""
     flash_attention.launches += 1
     if ws_route(q.dtype, q.shape[3], v.shape[3]):
         flash_attention.ws_launches += 1
@@ -184,10 +185,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kv_tile``: the bf16 kernel's kv tile (``flash_attention.KV_TILES``);
     None asks the autotune cache.  ``flash_attention.launches`` counts
     forward kernel launches, ``flash_attention.ws_launches`` those of them
-    that took the MLA kernel (``flash_fwd_bf16_ws``), and
+    that took the MLA kernel (``flash_fwd_bf16_ws``, bf16 or fp16), and
     ``flash_attention.bwd_launches`` backward ones (CUDA only);
-    ``pad_launches`` / ``bwd_pad_launches`` and ``any_launches`` /
-    ``bwd_any_launches`` those that took the padded and the general route
+    ``pad_launches`` / ``bwd_pad_launches``, ``f16_launches`` /
+    ``bwd_f16_launches`` and ``any_launches`` / ``bwd_any_launches`` those
+    that took the padded bf16, the fp16 wgmma and the general route
     (``kernels.flash_attention.route``)."""
     if _is_dtensor(q):
         return _flash_on_mesh(q, k, v, causal, window, kv_tile)
@@ -212,6 +214,7 @@ flash_attention.launches = 0
 flash_attention.ws_launches = 0
 flash_attention.bwd_launches = 0
 flash_attention.pad_launches = flash_attention.bwd_pad_launches = 0
+flash_attention.f16_launches = flash_attention.bwd_f16_launches = 0
 flash_attention.any_launches = flash_attention.bwd_any_launches = 0
 
 

@@ -43,8 +43,9 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
 SSD_TOL = {"float32": 2e-3, "bfloat16": 5e-2, "float16": 5e-2}
 # gradients: fp32 the same function in another order; bf16 inputs: the JAX
 # side rounds its probabilities to bf16 before p v, the plain version not
-# (tests/test_torch_flash_bwd.py's limits)
-GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# (tests/test_torch_flash_bwd.py's limits); fp16 alike with 10 mantissa
+# bits (4.9e-4 to 7.7e-4 read at these cases)
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-2, "float16": 2e-3}
 FLASH_DIMS = (8, 20, 40, 48, 72, 80, 96, 112, 160, 200)
 SSD_SHAPES = ((8, 16), (16, 32), (24, 40), (32, 64), (64, 64), (128, 256))
 
@@ -132,7 +133,7 @@ def _jax_flash_grads(arrays, dtype, window):
     return r.jax.grad(f, argnums=(0, 1, 2))(q, k, v)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("dk,dv", [(40, 40), (80, 80), (96, 64)])
 def test_flash_gradients_match_jax_grad(dk, dv, dtype):
     """``ops.flash_attention`` under autograd on the CPU (the plain forward
@@ -225,18 +226,22 @@ def test_flash_route_and_bucket(dk, dv, dtype):
     """bf16 at a built pair: its own kernels; fp32 at a built pair and the
     smoke dims in bf16 or fp32: their SIMT instantiations; bf16 at head
     dims that are multiples of 8: the smallest built pair that holds them
-    (D 80 and 96 take (128, 128)); the rest (fp16, other dims): the general
-    SIMT kernels.  The tiles and the scratch follow the bucket."""
+    (D 80 and 96 take (128, 128)); fp16 wherever bf16 takes those two: the
+    same kernels in fp16 ("f16", the bucket's); the rest (fp16 at the smoke
+    dims and at other dims, fp32 off the built pairs): the general SIMT
+    kernels.  The tiles and the scratch follow the bucket."""
     r = route(dtype, dk, dv)
     assert r is route(dtype, dk, dv)                 # cached
     built = (dk, dv) in BUCKETS
+    smoke = (dk, dv) in {(16, 16), (24, 16)}
+    padded = dk % 8 == 0 and dv % 8 == 0 and dk <= 256 and dv <= 256
     if dtype == torch.bfloat16 and built:
         assert r == ("tma", (dk, dv))
-    elif (dk, dv) in {(16, 16), (24, 16)} and dtype != torch.float16 or (
-            dtype == torch.float32 and built):
+    elif smoke and dtype != torch.float16 or dtype == torch.float32 and built:
         assert r == ("simt", (dk, dv))
-    elif dtype == torch.bfloat16 and dk % 8 == 0 and dv % 8 == 0 and dk <= 256 and dv <= 256:
-        assert r.kind == "pad" and r.dims == bucket(dk, dv)
+    elif dtype != torch.float32 and not smoke and padded:
+        assert r.kind == ("pad" if dtype == torch.bfloat16 else "f16")
+        assert r.dims == bucket(dk, dv) == route(torch.bfloat16, dk, dv).dims
         bk, bv = r.dims
         assert dk <= bk and dv <= bv
         smaller = [bd for bd in BUCKETS if bd[0] * bd[1] < bk * bv]
@@ -439,7 +444,8 @@ def _card() -> torch.device:
     return torch.device("cuda")
 
 
-FLASH_CARD_CASES = [  # (dk, dv, dtype): the padded route in bf16, the general one else
+FLASH_CARD_CASES = [  # (dk, dv, dtype): the padded route in bf16, fp16's wgmma route at
+    # dims that are multiples of 8, the general one else
     (40, 40, "bfloat16"), (80, 80, "bfloat16"), (96, 64, "bfloat16"), (160, 128, "bfloat16"),
     (144, 64, "bfloat16"), (200, 200, "bfloat16"), (20, 20, "bfloat16"), (80, 80, "float16"),
     (256, 256, "float16"), (48, 48, "float32"), (200, 136, "float32"), (5, 3, "float32"),
@@ -465,7 +471,7 @@ def test_cuda_flash_routes_match_plain(dk, dv, dtype):
     torch.cuda.synchronize()
     assert flash_attention.launches == counts[0] + 1
     assert flash_attention.bwd_launches == counts[2] + 1
-    if kind in ("pad", "any"):
+    if kind in ("pad", "f16", "any"):
         assert getattr(flash_attention, f"{kind}_launches") == counts[1] + 1
     ref_leaves = [t.float().clone().requires_grad_() for t in (q, k, v)]
     ref = flash_attention_ref(*ref_leaves, causal=True, window=48)
@@ -584,11 +590,12 @@ def test_flash_launches_pass_every_argument(fake_libraries, dk, dv, dtype):
     r = route(dtype, dk, dv)
     for entry, argtypes, args in fake_libraries:
         assert len(args) == len(argtypes), entry
-        if entry == "flash_attention_fwd_ws":   # the (192, 128) bucket's forward
+        if entry.startswith("flash_attention_fwd_ws"):   # the (192, 128) bucket's forward
             assert r.dims == (192, 128) and args[9:11] == (dk, dv)
+            assert entry.endswith("_f16") == (r.kind == "f16")
             continue
-        assert entry.endswith({"pad": "_pad", "any": "_any"}.get(r.kind, ""))
-        if entry.endswith("_pad"):
+        assert entry.endswith({"pad": "_pad", "f16": "_f16", "any": "_any"}.get(r.kind, ""))
+        if entry.endswith(("_pad", "_f16")):
             assert tuple(args[17:19] if "bwd" in entry else args[11:13]) == r.dims
 
 

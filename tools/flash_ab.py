@@ -7,13 +7,15 @@
     python3 tools/flash_ab.py SRC [SRC ...] --shapes d256_bwd,d256_bwd_b1,mla_bwd,mla_bwd_b1
     python3 tools/flash_ab.py SRC [SRC ...] --shapes mamba2,mamba2_b2,mamba2_l2048,model_views
     python3 tools/flash_ab.py SRC [SRC ...] --shapes ssd_bwd,ssd_bwd_b2
+    python3 tools/flash_ab.py SRC [SRC ...] --shapes granite_fp16,d128_fp16,granite_bwd_fp16
 
 Each SRC is the ``src`` directory of a checkout of this repository.  All
 checkouts' kernels are built first, in parallel.  Then every round runs
 each checkout once in a process of its own (the checkouts share package
 names), in the order given and then reversed, so two versions run as
 A B B A.  A run times each shape's kernel with CUDA events on bf16
-inputs made from a seed: ``repro_torch.kernels.ops.flash_attention``
+inputs (fp16 for the ``*_fp16`` shapes) made from a seed:
+``repro_torch.kernels.ops.flash_attention``
 (causal), with its kernels' device ms and names from the profiler and
 its bound (``roofline/cost.py:attention_bound``), beside one
 ``scaled_dot_product_attention`` call on the same inputs; the backward launcher ``flash_attention_bwd_cuda`` from the
@@ -68,6 +70,17 @@ SHAPES = {  # flash: (B, S, H, KV, D, Dv, window): granite-3-2b's prefill, a
     "d256_bwd_b1": ("flash_bwd", (1, 2560, 16, 1, 256, 256, 2048)),
     "mla_bwd": ("flash_bwd", (2, 1024, 128, 128, 192, 128, 0)),
     "mla_bwd_b1": ("flash_bwd", (1, 1024, 128, 128, 192, 128, 0)),
+    # fp16 on the wgmma kernels, forward and backward: granite's, D 128's,
+    # recurrentgemma's and MLA's, and phi-2's D 80 (the (128, 128) bucket)
+    "granite_fp16": ("flash", (4, 1024, 32, 8, 64, 64, 0, "float16")),
+    "d128_fp16": ("flash", (4, 1024, 32, 8, 128, 128, 0, "float16")),
+    "mla_fp16": ("flash", (4, 1024, 128, 128, 192, 128, 0, "float16")),
+    "d80_fp16": ("flash", (4, 1024, 32, 32, 80, 80, 0, "float16")),
+    "granite_bwd_fp16": ("flash_bwd", (4, 1024, 32, 8, 64, 64, 0, "float16")),
+    "d128_bwd_fp16": ("flash_bwd", (4, 1024, 32, 8, 128, 128, 0, "float16")),
+    "d256_bwd_fp16": ("flash_bwd", (2, 2560, 16, 1, 256, 256, 2048, "float16")),
+    "mla_bwd_fp16": ("flash_bwd", (2, 1024, 128, 128, 192, 128, 0, "float16")),
+    "d80_bwd_fp16": ("flash_bwd", (4, 1024, 32, 32, 80, 80, 0, "float16")),
     # ssd: (B, L, H, chunk, views): mamba2-780m's prefill (P 64, N 128), at
     # the train step's microbatch B 2, a longer prompt, and x, B, C as views
     # of one conv output as the model passes them
@@ -111,7 +124,7 @@ def _sdpa_kw(s: int, window: int) -> dict:
             "enable_gqa": True}
 
 
-def time_flash(gen, b, s, h, kv, d, dv, window) -> dict:
+def time_flash(gen, b, s, h, kv, d, dv, window, dtype="bfloat16") -> dict:
     """The forward's ms (CUDA events) and its kernels' device ms (the
     profiler) beside SDPA's ms and the bound (``roofline/cost.py``)."""
     import torch
@@ -120,15 +133,16 @@ def time_flash(gen, b, s, h, kv, d, dv, window) -> dict:
     from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.roofline.cost import attention_bound
 
-    q, k = (torch.randn(b, s, n, d, generator=gen, device="cuda").bfloat16() for n in (h, kv))
-    v = torch.randn(b, s, kv, dv, generator=gen, device="cuda").bfloat16()
+    dt = getattr(torch, dtype)
+    q, k = (torch.randn(b, s, n, d, generator=gen, device="cuda").to(dt) for n in (h, kv))
+    v = torch.randn(b, s, kv, dv, generator=gen, device="cuda").to(dt)
     got = flash_attention(q, k, v, causal=True, window=window)
     err = scaled_err(got, flash_attention_ref(q, k, v, causal=True, window=window))
     del got
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
     by_kernel = kernel_device_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
-    bound_ms = attention_bound(b, s, s, h, kv, d, dv, "torch.bfloat16", True, window)[0]
+    bound_ms = attention_bound(b, s, s, h, kv, d, dv, str(dt), True, window)[0]
     return {"ms": ms, "device_ms": sum(by_kernel.values()), "bound_ms": bound_ms,
             "bound_frac": bound_ms / ms,
             "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -190,14 +204,15 @@ def kernel_device_ms(fn, iters: int = 20, per_call: bool = False) -> dict[str, f
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
 
 
-def time_flash_bwd(gen, b, s, h, kv, d, dv, window) -> dict:
+def time_flash_bwd(gen, b, s, h, kv, d, dv, window, dtype="bfloat16") -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
     from repro_torch.kernels.ref import flash_attention_ref
 
-    q, k = (torch.randn(b, s, n, d, generator=gen, device="cuda").bfloat16() for n in (h, kv))
-    v, do = (torch.randn(b, s, n, dv, generator=gen, device="cuda").bfloat16() for n in (kv, h))
+    dt = getattr(torch, dtype)
+    q, k = (torch.randn(b, s, n, d, generator=gen, device="cuda").to(dt) for n in (h, kv))
+    v, do = (torch.randn(b, s, n, dv, generator=gen, device="cuda").to(dt) for n in (kv, h))
     kw = {"causal": True, "window": window}
     o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
     grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
@@ -222,7 +237,7 @@ def time_flash_bwd(gen, b, s, h, kv, d, dv, window) -> dict:
             "dkdv_ms": part("flash_bwd_dkdv"), "sum_ms": part("flash_bwd_sum"),
             "sdpa_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, do_t,
                                                            retain_graph=True)),
-            "max_scaled_err": err}
+            "max_scaled_err": err, "kernels": sorted(by_kernel)}
 
 
 def time_ssd(gen, b, l, h, chunk, views) -> dict:

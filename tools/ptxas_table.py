@@ -11,8 +11,12 @@ argument ``false`` dropped, so that a kernel which gained the SSD kernels'
 ``X`` instantiations (B/C groups and an initial state) is read against its
 own parent; an ``X = true`` instantiation has no parent.  Likewise a
 ``hopper::FixedWidths<a, b>`` template argument and parameter (the flash
-kernels at their own head dims) are dropped; a ``hopper::Widths``
-instantiation (the padded route) has no parent.  Prints one JSON
+kernels at their own head dims) are dropped, and so is a sole template
+argument ``<hopper::Widths>`` (the MLA forward, which took one for its
+element type when fp16 came); a ``hopper::Widths`` instantiation of the
+other kernels (the padded route) is read against its own parent, and an
+fp16 one (``hopper::HalfWidths``, ``hopper::FixedHalfWidths<a, b>``) has
+none.  Prints one JSON
 line a kernel (``old`` / ``new``: registers, spill store bytes, C7515
 warnings; null where a build lacks it) and last a summary line with the
 kernels whose numbers differ.
@@ -47,6 +51,8 @@ def key(name: str) -> str:
     name = re.sub(r",?\s*hopper::SsdExt", "", name).removeprefix("void ")
     # a kernel at its own widths (hopper.cuh: FixedWidths) against its parent
     name = re.sub(r"\s*>", ">", re.sub(r",\s*hopper::FixedWidths<\d+, \d+>", "", name))
+    # the MLA forward at its bf16 element type against its parent, which had none
+    name = re.sub(r"(flash_fwd_bf16_ws)<hopper::Widths>", r"\1", name)
     return re.sub(r"<false>", "", re.sub(r", false>", ">", name))
 
 
