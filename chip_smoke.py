@@ -1066,33 +1066,50 @@ def route_counts() -> dict[str, int]:
             "ssd_bwd_any": ssd_scan.bwd_any_launches}
 
 
-def flash_kernel_names(q, k, v, do, causal: bool, window: int) -> list[str]:
-    """The kernels one forward launch (with lse) and one backward launch
-    ran, by the profiler's names."""
+def flash_small_names(cases: list) -> list[list[str]]:
+    """The kernels one forward launch (with lse) and one backward launch of
+    each small flash case (B, S, H, KV, DK, DV, dtype name, causal, window)
+    ran, by the profiler's names, on inputs from a seed.  Run in a process
+    of its own (:func:`flash_names_apart`)."""
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
 
-    def seen(fn) -> set[str]:
-        # late in the whole run the profiler has returned no record for a
-        # short window (PERF.md §6): read it again before reporting none
-        for _ in range(3):
-            names = set(kernels_device_ms(fn, iters=3))
-            if names:
-                return names
-        return set()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = []
+    for b, s, h, kv, dk, dv, dtype, causal, window in cases:
+        dt = getattr(torch, dtype.removeprefix("torch."))
+        q, do = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt) for d in (dk, dv))
+        k, v = (torch.randn(b, s, kv, d, generator=gen, device="cuda").to(dt) for d in (dk, dv))
+        kw = dict(causal=causal, window=window)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        names = set(kernels_device_ms(lambda: flash_attention_cuda(q, k, v, return_lse=True, **kw),
+                                      iters=3))
+        names |= set(kernels_device_ms(
+            lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw), iters=3))
+        out.append(sorted(names))
+    return out
 
-    kw = dict(causal=causal, window=window)
-    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
-    fwd = seen(lambda: flash_attention_cuda(q, k, v, return_lse=True, **kw))
-    bwd = seen(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw))
-    return sorted(fwd | bwd) if fwd and bwd else []
+
+def flash_names_apart(cases: list) -> list[list[str]]:
+    """:func:`flash_small_names` in a process of its own: late in the whole
+    run the profiler in this process has returned no record at all for
+    these few-microsecond windows of the port's kernels (while reading
+    PyTorch's own), which a fresh process reads (PERF.md §6).  The kernels
+    are built by then; the process loads them."""
+    code = ("import json, sys, chip_smoke; "
+            "print(json.dumps(chip_smoke.flash_small_names(json.loads(sys.argv[1]))))")
+    proc = subprocess.run([sys.executable, "-c", code, json.dumps(cases)], capture_output=True,
+                          text=True, cwd=ROOT, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    check(proc.returncode == 0, f"shapes: the kernel-name process exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def _flash_small(gen, b, s, h, kv, dk, dv, dtype, causal, window) -> dict:
     """One flash case through ``ops.flash_attention`` under autograd
     (forward and backward kernels of the route), against autograd of the
-    plain version in fp32 on the same values; in fp16 also the kernels the
-    profiler saw (the f16 wgmma kernels on the "f16" route, the general
-    ones in fp16 on "any")."""
+    plain version in fp32 on the same values."""
     from repro_torch.kernels.flash_attention import route
     from repro_torch.kernels.ops import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
@@ -1124,13 +1141,6 @@ def _flash_small(gen, b, s, h, kv, dk, dv, dtype, causal, window) -> dict:
            and all(bool(torch.isfinite(g.float()).all()) for g in grads),
            "launches": launches}
     what = f"shapes flash {row['shape']} dv {dv} {dtype}"
-    if dtype == torch.float16:
-        row["kernels"] = flash_kernel_names(q, k, v, do, causal, window)
-        if kind == "f16":
-            check(f16_kernels(row["kernels"]), f"{what}: ran {row['kernels']}")
-        else:
-            check(row["kernels"] and all("_any<" in n and "__half" in n for n in row["kernels"]),
-                  f"{what}: ran {row['kernels']}, not the general fp16 kernels")
     check(row["finite"], f"{what}: not finite")
     check(row["max_scaled_err"] <= row["tol"],
           f"{what}: forward {row['max_scaled_err']} > {row['tol']}")
@@ -1409,9 +1419,21 @@ def phase_shapes(seed: int) -> tuple[dict, dict[str, dict[str, int]]]:
     route launches by path."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 19)
     t0 = time.perf_counter()
-    small = [_flash_small(gen, 2, 130, 4, 2, *case) for case in SHAPES_FLASH_CASES]
-    small += [_flash_small(gen, 1, 16, 65600, 65600, d, d, dtype, True, 0)
-              for d, _, dtype in SHAPES_FLASH_WIDE]
+    cases = [(2, 130, 4, 2, *case) for case in SHAPES_FLASH_CASES]
+    cases += [(1, 16, 65600, 65600, d, d, dtype, True, 0) for d, _, dtype in SHAPES_FLASH_WIDE]
+    small = [_flash_small(gen, *case) for case in cases]
+    # fp16: the kernels the profiler saw, the f16 wgmma kernels on the
+    # "f16" route and the general ones in fp16 on "any"
+    f16 = [(row, case) for row, case in zip(small, cases) if case[6] == torch.float16]
+    names = flash_names_apart([(*c[:6], str(c[6]), *c[7:]) for _, c in f16])
+    for (row, _), kernels in zip(f16, names):
+        row["kernels"] = kernels
+        what = f"shapes flash {row['shape']} dv {row['dv']} fp16"
+        if row["route"] == "f16":
+            check(f16_kernels(kernels), f"{what}: ran {kernels}")
+        else:
+            check(kernels and all("_any<" in n and "__half" in n for n in kernels),
+                  f"{what}: ran {kernels}, not the general fp16 kernels")
     ssd_small = [_ssd_small(gen, 1, 100, 4, *case) for case in SHAPES_SSD_CASES]
     emit("shapes_small", flash=small, ssd=ssd_small, seconds=time.perf_counter() - t0)
     public = {c[0]: _flash_public(gen, *c) for c in SHAPES_PUBLIC_FLASH}
