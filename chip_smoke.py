@@ -22,7 +22,10 @@ head dim 40 (bf16, fp16, fp32) and mamba2 at (P, N) = (32, 64), prefill,
 decode and a train step's gradients, kernel path against plain path;
 the flash cases also run granite's, llava's, recurrentgemma's and
 deepseek-v3's attention in fp16 at full width beside bf16, both
-directions, on the f16 wgmma kernels), then drives each ported model at full width (random weights
+directions, on the f16 wgmma kernels; every fp32 backward, there and in
+the flash backward cases, is checked by the profiler's names to run the
+register-tiled kernels of ``csrc/flash_attention_bwd_f32.cu`` alone, with
+their dQ, dK/dV and share-sum device ms), then drives each ported model at full width (random weights
 from ``--seed``) through the port's entry points at full depth, each with
 prefill and teacher-forced decode checked against the kernel-driven
 forward: granite-3-2b (flash attention), mamba2-780m (the SSD scan),
@@ -150,6 +153,16 @@ def gate(case: str, part: str, dtype, default: float) -> float:
 def f16_kernels(names) -> bool:
     """Whether a call ran the f16 wgmma kernels alone (hopper::HalfWidths)."""
     return bool(names) and all("HalfWidths" in n and "_any<" not in n for n in names)
+
+
+def f32_bwd_kernels(names) -> bool:
+    """Whether an fp32 backward ran the register-tiled dQ and dK/dV kernels
+    (csrc/flash_attention_bwd_f32.cu) and no other backward kernel: not the
+    SIMT flash_bwd_{dq,dkdv}_f32 nor the general _any ones."""
+    bwd = [n for n in names if "flash_bwd" in n]
+    return (any("flash_bwd_dq_tiled" in n for n in bwd)
+            and any("flash_bwd_dkdv_tiled" in n for n in bwd)
+            and all("_tiled" in n for n in bwd))
 SSD_TOL = {"torch.bfloat16": 5e-2, "torch.float16": 5e-2, "torch.float32": 2e-3}
 # the SSD kernel at chunk 64 against itself at chunk 128, same inputs and
 # the same scaled measure: both carry fp32 and differ only in the order of
@@ -1023,8 +1036,12 @@ SHAPES_PUBLIC_FLASH = [  # (case, B, S, H (MHA), D, dtype), causal
     ("phi2_d80", 4, 1024, 32, 80, torch.bfloat16),
     ("phi3_mini_d96", 4, 1024, 32, 96, torch.bfloat16),
     ("phi2_d80_fp16", 4, 1024, 32, 80, torch.float16),
-    # the general route's full-width readings (fp16 at D 80 now runs wgmma)
+    # the general route's full-width forward (fp16 at D 80 now runs wgmma),
+    # and phi-2's fp32 backward on the register-tiled kernels
     ("phi2_d80_fp32", 4, 1024, 32, 80, torch.float32),
+    # the general route's full-width backward (fp32's runs the register-tiled
+    # kernels): fp16 at a head dim that is no multiple of 8
+    ("d20_fp16", 4, 1024, 32, 20, torch.float16),
 ]
 SHAPES_PUBLIC_SSD = [  # (case, B, L, H, P, N, dtype), chunk 128
     ("zamba2_p64_n64", 4, 1024, 48, 64, 64, torch.bfloat16),
@@ -1044,16 +1061,18 @@ SHAPES_MODEL_DTYPES = {"granite_3_2b": ("bfloat16", "float16", "float32"),
 
 
 def zero_route_counts() -> None:
-    """Set the padded, the fp16 wgmma and the general routes' launch counts to 0."""
+    """Set the padded, the fp16 wgmma, the general and the fp32 backward's
+    routes' launch counts to 0."""
     from repro_torch.kernels.ops import flash_attention, ssd_scan
     for fn in (flash_attention, ssd_scan):
         fn.pad_launches = fn.bwd_pad_launches = fn.any_launches = fn.bwd_any_launches = 0
     flash_attention.f16_launches = flash_attention.bwd_f16_launches = 0
+    flash_attention.bwd_f32_launches = 0
 
 
 def route_counts() -> dict[str, int]:
-    """The padded, the fp16 wgmma and the general routes' launches, per
-    kernel row."""
+    """The padded, the fp16 wgmma, the general and the fp32 backward's
+    routes' launches, per kernel row."""
     from repro_torch.kernels.ops import flash_attention, ssd_scan
     return {"flash_fwd_bf16_pad": flash_attention.pad_launches,
             "flash_fwd_f16": flash_attention.f16_launches,
@@ -1061,6 +1080,7 @@ def route_counts() -> dict[str, int]:
             "flash_bwd_bf16_pad": flash_attention.bwd_pad_launches,
             "flash_bwd_f16": flash_attention.bwd_f16_launches,
             "flash_bwd_any": flash_attention.bwd_any_launches,
+            "flash_bwd_f32": flash_attention.bwd_f32_launches,
             "ssd_fwd_bf16_pad": ssd_scan.pad_launches, "ssd_fwd_any": ssd_scan.any_launches,
             "ssd_bwd_bf16_pad": ssd_scan.bwd_pad_launches,
             "ssd_bwd_any": ssd_scan.bwd_any_launches}
@@ -1110,7 +1130,7 @@ def _flash_small(gen, b, s, h, kv, dk, dv, dtype, causal, window) -> dict:
     """One flash case through ``ops.flash_attention`` under autograd
     (forward and backward kernels of the route), against autograd of the
     plain version in fp32 on the same values."""
-    from repro_torch.kernels.flash_attention import route
+    from repro_torch.kernels.flash_attention import bwd_route, route
     from repro_torch.kernels.ops import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
 
@@ -1118,7 +1138,7 @@ def _flash_small(gen, b, s, h, kv, dk, dv, dtype, causal, window) -> dict:
     k = torch.randn(b, s, kv, dk, generator=gen, device="cuda").to(dtype)
     v = torch.randn(b, s, kv, dv, generator=gen, device="cuda").to(dtype)
     do = torch.randn(b, s, h, dv, generator=gen, device="cuda").to(dtype)
-    kind = route(dtype, dk, dv).kind
+    kind, bwd_kind = route(dtype, dk, dv).kind, bwd_route(dtype, dk, dv).kind
     zero_counts()
     zero_route_counts()
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -1131,7 +1151,7 @@ def _flash_small(gen, b, s, h, kv, dk, dv, dtype, causal, window) -> dict:
     ref_grads = torch.autograd.grad(ref, ref_leaves, do.float())
     case = f"small_{dk}_{dv}" + ("_wide" if h > 1024 else "")
     row = {"case": case, "shape": [b, s, h, kv, dk], "dv": dv, "dtype": str(dtype),
-           "causal": causal, "window": window, "route": kind,
+           "causal": causal, "window": window, "route": kind, "bwd_route": bwd_kind,
            "tol": gate(case, "forward", dtype, TOL[str(dtype)]),
            "bwd_tol": gate(case, "backward", dtype, BWD_TOL[str(dtype)]),
            "max_scaled_err": scaled_err(out, ref),
@@ -1148,10 +1168,12 @@ def _flash_small(gen, b, s, h, kv, dk, dv, dtype, causal, window) -> dict:
     check(worst <= row["bwd_tol"], f"{what}: backward {row['bwd_max_scaled_err']}")
     on_route = {"pad": "flash_fwd_bf16_pad", "f16": "flash_fwd_f16",
                 "any": "flash_fwd_any"}.get(kind)
+    bwd_on_route = {"pad": "flash_bwd_bf16_pad", "f16": "flash_bwd_f16", "any": "flash_bwd_any",
+                    "f32": "flash_bwd_f32"}.get(bwd_kind)
     check(launches["flash_attention"] == 1 and launches["flash_attention_bwd"] == 1
-          and (on_route is None or launches.get(on_route) == 1
-               and launches.get(on_route.replace("fwd", "bwd")) == 1),
-          f"{what}: launched {launches} on route {kind}")
+          and (on_route is None or launches.get(on_route) == 1)
+          and (bwd_on_route is None or launches.get(bwd_on_route) == 1),
+          f"{what}: launched {launches} on routes {kind}, {bwd_kind}")
     return row
 
 
@@ -1211,7 +1233,7 @@ def _flash_public(gen, name, b, s, h, d, dtype) -> dict:
     """A full-width flash forward and backward (MHA, causal): ms by events
     and by device, the kernels the profiler saw, the bound at the real
     dims, the plain version's and SDPA's times; held to the plain version."""
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+    from repro_torch.kernels.flash_attention import (bwd_route, flash_attention_bwd_cuda,
                                                      flash_attention_cuda, route)
     from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
     from repro_torch.roofline.cost import attention_bound, attention_bwd_bound
@@ -1256,6 +1278,7 @@ def _flash_public(gen, name, b, s, h, d, dtype) -> dict:
     back["ms"] = cuda_ms(bwd, iters=10)
     by_kernel = kernels_device_ms(bwd, iters=10)
     back["device_ms"], back["kernels"] = sum(by_kernel.values()), sorted(by_kernel)
+    back["kernel_device_ms"] = flash_bwd_split_ms(by_kernel)
     back["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_ref(
         q, k, v, o, lse, do, causal=True, window=0), iters=2, warmup=1)
     sdpa, rerun = sdpa_backward(q, k, v, do, True, 0)
@@ -1268,14 +1291,20 @@ def _flash_public(gen, name, b, s, h, d, dtype) -> dict:
                 vs_library=(back["ms"] / back["library_ms"]) if back["library_ms"] else None)
     row = {"case": name, "shape": [b, s, h, h, d], "dtype": str(dtype),
            "route": route(dtype, d, d).kind, "bucket": list(route(dtype, d, d).dims),
-           "forward": fwd, "backward": back}
+           "bwd_route": bwd_route(dtype, d, d).kind,
+           "bwd_bucket": list(bwd_route(dtype, d, d).dims), "forward": fwd, "backward": back}
     check(fwd["max_scaled_err"] <= fwd["tol"], f"shapes {name}: forward {fwd['max_scaled_err']}")
     check(max(back["max_scaled_err"].values()) <= back["tol"],
           f"shapes {name}: backward {back['max_scaled_err']}")
     # the padded route: the bucket's kernels at hopper::Widths (the real
-    # dims), and fp16's at hopper::HalfWidths
+    # dims), and fp16's at hopper::HalfWidths; the fp32 backward the
+    # register-tiled kernels
     tags = {"pad": ("hopper::Widths",) * 2, "f16": ("hopper::HalfWidths",) * 2}.get(
         row["route"], ("flash_fwd_any", "_any<"))
+    if row["bwd_route"] == "f32":
+        tags = (tags[0], "_tiled")
+        check(f32_bwd_kernels(back["kernels"]), f"shapes {name}: the backward ran "
+              f"{back['kernels']}")
     for part, tag in zip((fwd, back), tags):
         check(part["kernels"] and all(tag in n for n in part["kernels"]),
               f"shapes {name}: ran {part['kernels']}, not {tag}")
@@ -1422,14 +1451,24 @@ def phase_shapes(seed: int) -> tuple[dict, dict[str, dict[str, int]]]:
     cases = [(2, 130, 4, 2, *case) for case in SHAPES_FLASH_CASES]
     cases += [(1, 16, 65600, 65600, d, d, dtype, True, 0) for d, _, dtype in SHAPES_FLASH_WIDE]
     small = [_flash_small(gen, *case) for case in cases]
+    # each case drove ops.flash_attention under autograd, its counts zeroed
+    # just before and read just after: together a path of their own
+    small_launches: dict[str, int] = {}
+    for row in small:
+        for name, n in row["launches"].items():
+            small_launches[name] = small_launches.get(name, 0) + n
     # fp16: the kernels the profiler saw, the f16 wgmma kernels on the
-    # "f16" route and the general ones in fp16 on "any"
-    f16 = [(row, case) for row, case in zip(small, cases) if case[6] == torch.float16]
-    names = flash_names_apart([(*c[:6], str(c[6]), *c[7:]) for _, c in f16])
-    for (row, _), kernels in zip(f16, names):
+    # "f16" route and the general ones in fp16 on "any"; fp32: the backward
+    # on the register-tiled kernels alone
+    named = [(row, case) for row, case in zip(small, cases)
+             if case[6] in (torch.float16, torch.float32)]
+    names = flash_names_apart([(*c[:6], str(c[6]), *c[7:]) for _, c in named])
+    for (row, case), kernels in zip(named, names):
         row["kernels"] = kernels
-        what = f"shapes flash {row['shape']} dv {row['dv']} fp16"
-        if row["route"] == "f16":
+        what = f"shapes flash {row['shape']} dv {row['dv']} {case[6]}"
+        if case[6] == torch.float32:
+            check(f32_bwd_kernels(kernels), f"{what}: the backward ran {kernels}")
+        elif row["route"] == "f16":
             check(f16_kernels(kernels), f"{what}: ran {kernels}")
         else:
             check(kernels and all("_any<" in n and "__half" in n for n in kernels),
@@ -1445,6 +1484,7 @@ def phase_shapes(seed: int) -> tuple[dict, dict[str, dict[str, int]]]:
     for arch_launches in launches.values():
         check(any(arch_launches.values()), f"shapes: a model launched no route kernel "
               f"({arch_launches})")
+    launches["shapes small flash cases (ops.flash_attention under autograd)"] = small_launches
     return public, launches
 
 
@@ -2338,7 +2378,8 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
     """The flash backward kernels against autograd of the plain forward in
     fp32, on the same values; and the forward with its lse output on
     against it off."""
-    from repro_torch.kernels.flash_attention import (bwd_head_shares, flash_attention_bwd_cuda,
+    from repro_torch.kernels.flash_attention import (bwd_f32_head_shares, bwd_head_shares,
+                                                     flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
     from repro_torch.kernels.ref import flash_attention_lse_ref, flash_attention_ref
     from repro_torch.roofline.cost import attention_bwd_bound, attention_bwd_dq_bound
@@ -2426,12 +2467,21 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
                                   iters=3, warmup=1)
         # device time from the profiler: SDPA's autograd call is paced by the
         # host at these sizes, so its event time varies from call to call
-        if name in FP16_TWINS or name in FP16_TWINS.values():
-            # fp16 beside bf16: the kernels the profiler saw too
+        if name in FP16_TWINS or name in FP16_TWINS.values() or dtype == torch.float32:
+            # fp16 beside bf16, and fp32 on its register-tiled kernels: the
+            # kernels the profiler saw too
             by_kernel = kernels_device_ms(bwd)
             row["device_ms"], row["kernels"] = sum(by_kernel.values()), sorted(by_kernel)
         else:
             row["device_ms"] = kernel_device_ms(bwd)
+        if dtype == torch.float32:
+            # the dQ kernel, the dK/dV kernel and the head shares' sum apart,
+            # the dQ kernel's own bound, the plan's shares
+            row["kernel_device_ms"] = flash_bwd_split_ms(by_kernel)
+            row["shares"] = bwd_f32_head_shares(b, kv, h // kv, sk, d, dv, sm_count)
+            row["dq_bound_ms"], row["dq_bound_by"], _, _ = attention_bwd_dq_bound(
+                b, s, h, kv, d, str(dtype), causal, window, dv=dv, sk=sk)
+            row["dq_bound_frac"] = row["dq_bound_ms"] / row["kernel_device_ms"]["dq"]
         row["library_ms"] = row["library_device_ms"] = row["vs_library"] = None
         if lib is not None:
             row["library_ms"] = cuda_ms(lib_bwd)
@@ -2440,6 +2490,7 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
         bound_ms, bound_by, flops, nbytes = attention_bwd_bound(b, s, h, kv, d, str(dtype),
                                                                 causal, window, dv=dv, sk=sk)
         row.update(bound_ms=bound_ms, bound_by=bound_by, bound_frac=bound_ms / row["ms"],
+                   device_bound_frac=bound_ms / row["device_ms"],
                    flops=flops, bytes=nbytes, tflops=flops / (row["ms"] * 1e-3) / 1e12)
         if name in ("recurrentgemma_train", "mla_train", "mla_ragged_train"):
             # the two-warpgroup dQ and dK/dV kernels' shapes: device ms by
@@ -2489,6 +2540,10 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
         if name in FP16_TWINS:
             check(f16_kernels(row["kernels"]),
                   f"flash backward {name}: ran {row['kernels']}, not the f16 wgmma kernels")
+        if dtype == torch.float32:
+            check(f32_bwd_kernels(row["kernels"]),
+                  f"flash backward {name}: ran {row['kernels']}, not the register-tiled "
+                  "fp32 kernels alone")
         if "dq_kernels" in row:   # bf16 at (256, 256) and (192, 128): the two-warpgroup dQ kernel
             check(row["dq_kernels"] and all("flash_bwd_dq_bf16_pair" in k
                                             for k in row["dq_kernels"]),
@@ -4069,7 +4124,8 @@ def main() -> int:
             ("flash_bwd_f16", "flash_attention_bwd_f16.cu", "phi2_d80_fp16", "backward",
              "phi2_d80"),
             ("flash_fwd_any", "flash_attention_any.cu", "phi2_d80_fp32", "forward", None),
-            ("flash_bwd_any", "flash_attention_any.cu", "phi2_d80_fp32", "backward", None),
+            ("flash_bwd_any", "flash_attention_any.cu", "d20_fp16", "backward", None),
+            ("flash_bwd_f32", "flash_attention_bwd_f32.cu", "phi2_d80_fp32", "backward", None),
             ("ssd_fwd_bf16_pad", "ssd_scan_pad.cu", "zamba2_p64_n64", "forward", None),
             ("ssd_bwd_bf16_pad", "ssd_scan_bwd_pad.cu", "zamba2_p64_n64", "backward", None),
             ("ssd_fwd_any", "ssd_scan_any.cu", "zamba2_p64_n64_fp16", "forward", None),
@@ -4094,6 +4150,14 @@ def main() -> int:
                 "library_ms", "vs_library", "max_scaled_err")}
         if name.endswith("_f16"):   # the fp16 instantiations the run's fp16 rows launched
             row["instantiations"] = f16_names[part]
+        if name == "flash_bwd_f32":   # the kernels, and every fp32 backward case's readings
+            row["kernels"] = c["kernels"]
+            row["kernel_device_ms"] = c["kernel_device_ms"]
+            row["cases"] = {x["case"]: {k: x.get(k) for k in (
+                "shape", "dv", "window", "ms", "device_ms", "kernel_device_ms", "shares",
+                "bound_ms", "bound_frac", "device_bound_frac", "dq_bound_ms", "dq_bound_frac",
+                "library_ms", "library_device_ms", "vs_library", "max_scaled_err", "kernels")}
+                for x in bwd_cases if x["dtype"] == "torch.float32"}
         table.append(row)
         check(row["launches"] > 0, f"the {name} route ran on no main path")
     print(json.dumps({"kernels": table}), flush=True)

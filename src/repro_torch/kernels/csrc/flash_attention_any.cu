@@ -1,7 +1,9 @@
-// Flash attention forward and backward on SIMT at any head dims up to 256
-// and in bf16, fp16 or fp32: the general route (kernels/flash_attention.py:
-// route), for what the wgmma + TMA kernels do not take (fp16, fp32 and bf16
-// at head dims that are no built pair and not multiples of 8 inside one).
+// Flash attention forward and backward on SIMT at any head dims up to 256:
+// the general route (kernels/flash_attention.py:route), for what the wgmma
+// + TMA kernels do not take (fp16, fp32 and bf16 at head dims that are no
+// built pair and not multiples of 8 inside one), forward in bf16, fp16 or
+// fp32, backward in bf16 or fp16 (the fp32 backward runs
+// csrc/flash_attention_bwd_f32.cu at every head dim).
 //
 // Replaces src/repro/kernels/flash_attention.py:flash_attention_bh (the
 // Pallas kernel, which takes any head dim and float dtype) forward, and the
@@ -403,7 +405,8 @@ extern "C" int flash_attention_fwd_any(const void* q, const void* k, const void*
 }
 
 // The gradient: q, dq (B, S, H, dk); o, dout (B, S, H, dv); k, dk (B, Sk,
-// KV, dk); v, dv (B, Sk, KV, dv); all contiguous, one dtype as above.
+// KV, dk); v, dv (B, Sk, KV, dv); all contiguous, one dtype: 1 bf16, 2 fp16
+// (0, fp32, is refused: csrc/flash_attention_bwd_f32.cu computes it).
 // lse: (B, H, S) fp32 from the forward.  scratch: at least B * H * S fp32
 // (Delta).  The two kernels run in order on `stream`.
 extern "C" int flash_attention_bwd_any(const void* q, const void* k, const void* v,
@@ -416,7 +419,6 @@ extern "C" int flash_attention_bwd_any(const void* q, const void* k, const void*
   const Params p{q, k, v, const_cast<void*>(o), dout, lse, nullptr, dq, dk, dv, scratch,
                  B, S, Sk, H, KV, causal, window, DK, DV, scale, LOG2E * scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_bwd<float>(p, st);
   if (dtype == 1) return launch_bwd<__nv_bfloat16>(p, st);
   if (dtype == 2) return launch_bwd<__half>(p, st);
   return (int)cudaErrorInvalidValue;

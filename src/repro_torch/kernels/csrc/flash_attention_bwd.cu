@@ -64,7 +64,8 @@
 //    (within each group of ORDER_UNITS (batch, head) units at D 256 and
 //    (192, 128)).
 //  * GQA by index through the tensor maps: no copy of K or V.
-// fp32 inputs take SIMT kernels, one warp a row, exact in fp32.
+// fp32 inputs take csrc/flash_attention_bwd_f32.cu's register-tiled
+// kernels at every head dim (kernels/flash_attention.py:bwd_route).
 //
 // Head dims: (64, 64) and (128, 128) as above; (256, 256) (recurrentgemma-9b)
 // and (192, 128) (deepseek-v3's multi-head latent attention: q/k 192, v
@@ -126,9 +127,9 @@
 // 1 / sqrt(192).  dQ += dS K is one m64n192k16 a k-step; at D 256 the K
 // and V maps are encoded again with 32-row boxes for the dQ kernel.
 // The smoke configs' head dims, (16, 16) and (24, 16), take the SIMT
-// kernels in both dtypes (T, the element type in memory; fp32 arithmetic):
-// their tiles are not whole 64-column TMA boxes.  The route is chosen by
-// head dims and dtype only.
+// kernels in bf16 (T, the element type in memory; fp32 arithmetic): their
+// tiles are not whole 64-column TMA boxes.  The route is chosen by head
+// dims and dtype only.
 
 #include "flash_attention_bwd.cuh"
 
@@ -138,8 +139,8 @@ using namespace hopper;
 
 // ---------------------------------------------------------------------------
 // SIMT, one warp a row, lane l holding columns l, l + 32, ... (those below
-// the head dim): fp32 at every head dim, bf16 at the smoke configs' (16,
-// 16) and (24, 16).  T is the element type in memory; TN rows of the other
+// the head dim): bf16 at the smoke configs' (16, 16) and (24, 16).  T is
+// the element type in memory; TN rows of the other
 // side are staged in fp32 shared memory where they fit in 48 KB, else TN / 2
 // ---------------------------------------------------------------------------
 template <int DK, int DV>
@@ -433,18 +434,12 @@ int launch_simt(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int DK, int DV>
-int launch_simt_either(const Params& p, cudaStream_t stream, bool is_bf16) {
-  return is_bf16 ? launch_simt<DK, DV, __nv_bfloat16>(p, stream)
-                 : launch_simt<DK, DV, float>(p, stream);
-}
-
 }  // namespace
 
 // q, dq: (B, S, H, DK); o, dout: (B, S, H, DV); k, dk: (B, Sk, KV, DK);
-// v, dv: (B, Sk, KV, DV); all contiguous, one dtype, given by the
-// launcher's dtype code: 0 fp32, 1 bf16 (2, fp16, runs
-// csrc/flash_attention_bwd_f16.cu and is refused here, as is any other
+// v, dv: (B, Sk, KV, DV); all contiguous bf16, the launcher's dtype code
+// 1 (0, fp32, runs csrc/flash_attention_bwd_f32.cu and 2, fp16,
+// csrc/flash_attention_bwd_f16.cu; both are refused here, as is any other
 // code, with cudaErrorInvalidValue).  lse: (B, H, S) fp32 from the forward.  scratch: 2 * B * H * s_pad
 // fp32, where s_pad is S rounded up to the dQ block's rows (128 where the
 // bf16 dQ kernel is two warpgroups, else 64), as
@@ -465,7 +460,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    int DK, int DV, int causal, int window, int dtype,
                                    void* stream, const long long* layout, float* part,
                                    int shares, int s_pad) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
   const bool is_bf16 = dtype == 1;
   const float scale = 1.f / sqrtf((float)DK);
   const bool split = is_bf16 && ((DK == 256 && DV == 256) || (DK == 192 && DV == 128));
@@ -477,15 +472,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (shares < 1 || shares > H / KV || (shares > 1 && (!split || part == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (DK == 16 && DV == 16) return launch_simt_either<16, 16>(p, st, is_bf16);
-  if (DK == 24 && DV == 16) return launch_simt_either<24, 16>(p, st, is_bf16);
-  if (!is_bf16) {
-    if (DK == 64 && DV == 64) return launch_simt<64, 64, float>(p, st);
-    if (DK == 128 && DV == 128) return launch_simt<128, 128, float>(p, st);
-    if (DK == 256 && DV == 256) return launch_simt<256, 256, float>(p, st);
-    if (DK == 192 && DV == 128) return launch_simt<192, 128, float>(p, st);
-    return (int)cudaErrorInvalidValue;
-  }
+  if (DK == 16 && DV == 16) return launch_simt<16, 16, __nv_bfloat16>(p, st);
+  if (DK == 24 && DV == 16) return launch_simt<24, 16, __nv_bfloat16>(p, st);
   if (layout == nullptr) return (int)cudaErrorInvalidValue;
   if (DK == 64 && DV == 64) return launch_bf16<64>(p, layout, st);
   if (DK == 128 && DV == 128) return launch_bf16<128>(p, layout, st);

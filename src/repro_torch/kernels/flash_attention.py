@@ -22,7 +22,13 @@ kernel may split each kv tile's q heads into shares over blocks
 (:func:`bwd_head_shares`, from the shapes and the card's SM count), and a
 third kernel then sums the shares' fp32 partials in a fixed order.  bf16
 at the models' head dims goes to the wgmma + TMA kernels, fp32 and the smoke configs'
-head dims (16, 16) and (24, 16) in either dtype to SIMT kernels.
+head dims (16, 16) and (24, 16) in bf16 to SIMT kernels.  The fp32
+backward has a route of its own (:func:`bwd_route`, kind "f32"): two
+register-tiled kernels on the CUDA cores at every head-dim pair up to 256
+(``csrc/flash_attention_bwd_f32.cu``, templated on the buckets
+``F32_BUCKETS``, tiles :func:`bwd_f32_tiles`), with head shares and their
+fixed-order sum where few kv tiles would leave SMs idle; the fp32 forward
+keeps its routes.
 
 Every other head-dim pair up to 256 and fp16 take one of three more
 routes (:func:`route`): bf16 at head dims that are multiples of 8 takes
@@ -37,7 +43,8 @@ tile and the backward's at a built pair's own widths or padded
 (``csrc/flash_attention_f16.cu``, ``csrc/flash_attention_bwd_f16.cu``,
 ``flash_attention_fwd_ws_f16`` in ``csrc/flash_attention_fwd_ws.cu``);
 and everything else (fp16 at the smoke dims and at dims that are not
-multiples of 8, fp32 off the built pairs) the general SIMT kernels
+multiples of 8; fp32 off the built pairs, forward only) the general SIMT
+kernels
 (``csrc/flash_attention_any.cu``).  The C entries take the dtype as a
 code (``_DTYPES``: 0 fp32, 1 bf16, 2 fp16) and refuse one they are not
 built for.  The route follows from dtype and head dims alone, never from
@@ -93,6 +100,19 @@ BOX_COLS = 64
 # rows
 SPLIT_HEAD_DIMS = frozenset({(256, 256), (192, 128)})
 BWD_SPLIT_WAVES = 2
+# the fp32 backward's buckets of widths, smallest first (BUCKETS in
+# csrc/flash_attention_bwd_f32.cu): a call takes the first that holds its
+# head dims, with the real dims at run time; by bucket the rows a block keeps
+# (kv rows of dK/dV, q rows of dQ) and the rows a stage streams
+F32_BUCKETS = ((64, 64), (96, 96), (128, 128), (192, 128), (256, 256))
+F32_TILE_ROWS = {(64, 64): (64, 64), (96, 96): (64, 64), (128, 128): (64, 32),
+                 (192, 128): (64, 32), (256, 256): (32, 32)}
+# the floats that pad each of the fp32 kernels' shared rows; the shared
+# memory a block can use on the H100
+F32_PAD = 4
+SMEM_BYTES = 232448
+# the fp32 dK/dV kernel splits a kv tile's q heads until one wave is launched
+F32_SPLIT_WAVES = 1
 
 
 class DqTiles(NamedTuple):
@@ -121,6 +141,51 @@ def bwd_dq_tiles(dk: int, dv: int) -> DqTiles:
     return DqTiles(rows, kv_rows, stages, nbytes)
 
 
+class F32Tiles(NamedTuple):
+    """The fp32 backward's tiles at a bucket: ``dims`` the bucket, ``rows``
+    a block keeps (kv rows of the dK/dV kernel, q rows of the dQ kernel),
+    ``stream_rows`` a stage brings of the other side, ``stages`` (three
+    where both kernels fit them, else two), and the shared bytes of each
+    kernel as csrc/flash_attention_bwd_f32.cu's ``Tiles`` lays them out
+    (rows padded by F32_PAD floats)."""
+    dims: tuple[int, int]
+    rows: int
+    stream_rows: int
+    stages: int
+    dkdv_smem_bytes: int
+    dq_smem_bytes: int
+
+
+def f32_bucket(dk: int, dv: int) -> tuple[int, int]:
+    """The fp32 backward's bucket at head dims (dk, dv): the first of
+    F32_BUCKETS that holds both (phi-2's D 80 takes (96, 96))."""
+    return next((bk, bv) for bk, bv in F32_BUCKETS if dk <= bk and dv <= bv)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_f32_tiles(dk: int, dv: int) -> F32Tiles:
+    """The fp32 backward's tiles at head dims (dk, dv), those of their
+    bucket: K and V (dK/dV) or Q and dO (dQ) of ``rows`` rows stay,
+    ``stages`` stages of ``stream_rows`` rows of the other two stream; the
+    score tiles S^T and dP^T (S and dP in dQ), rows x stream_rows, are two
+    partial sums each where a stage is 32 rows (each half of the threads
+    cut in two over the head dim), then P^T and dS^T; with each stage's
+    base-2 lse and Delta (dK/dV) or the block's (dQ)."""
+    bk, bv = f32_bucket(dk, dv)
+    rows, stream = F32_TILE_ROWS[(bk, bv)]
+    width = bk + bv + 2 * F32_PAD                  # a row of both operands
+    res, stage, lp = rows * width, stream * width, stream + F32_PAD
+    dsplit = 2 if stream == 32 else 1              # partial sums a score tile
+    scores = 2 * dsplit * rows * lp
+
+    def nbytes(stages: int) -> tuple[int, int]:
+        return (4 * (res + stages * stage + scores + stages * 2 * stream),
+                4 * (res + stages * stage + scores + 2 * rows))
+
+    stages = 3 if max(nbytes(3)) <= SMEM_BYTES else 2
+    return F32Tiles((bk, bv), rows, stream, stages, *nbytes(stages))
+
+
 def bwd_scratch_rows(s: int, dtype: torch.dtype, dk: int, dv: int) -> int:
     """Rows a (batch, head) of the backward's Delta / lse scratch holds: S
     rounded up to the dQ block's q rows, since a block stores its every row
@@ -135,8 +200,9 @@ class Route(NamedTuple):
     kernels), "f16" (fp16 where bf16 takes "tma" or "pad": the same
     kernels in fp16), "simt" (fp32 at a built pair, and
     the smoke configs' head dims in bf16 and fp32) or "any" (the general
-    SIMT kernels); ``dims`` the instantiation's head dims: the bucket on
-    "tma", "pad" and "f16", the real dims otherwise."""
+    SIMT kernels), and for the fp32 backward alone "f32" (:func:`bwd_route`);
+    ``dims`` the instantiation's head dims: the bucket on "tma", "pad",
+    "f16" and "f32", the real dims otherwise."""
     kind: str
     dims: tuple[int, int]
 
@@ -162,6 +228,16 @@ def route(dtype: torch.dtype, dk: int, dv: int) -> Route:
     if dtype == torch.float16 and tma_route(torch.bfloat16, dk, dv):
         return Route("f16", bucket(dk, dv))
     return Route("any", (dk, dv))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_route(dtype: torch.dtype, dk: int, dv: int) -> Route:
+    """The backward's route, by dtype and head dims alone: fp32 at every
+    pair takes the register-tiled kernels (kind "f32", ``dims`` its
+    bucket in F32_BUCKETS); every other dtype the forward's route."""
+    if dtype == torch.float32:
+        return Route("f32", f32_bucket(dk, dv))
+    return route(dtype, dk, dv)
 
 
 class TmaLayout(NamedTuple):
@@ -244,14 +320,31 @@ def bwd_layout_array(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _cached_layouts(parts, parts)
 
 
-def bwd_head_shares(b: int, kv: int, group: int, sk: int, sm_count: int) -> int:
-    """The head shares the two-warpgroup dK/dV kernel splits each kv
-    tile's items into: its B * KV * ceil(Sk / 64) blocks take one SM each,
-    so where they fill fewer than BWD_SPLIT_WAVES waves of ``sm_count``
-    blocks, each kv tile's ``group`` q heads are cut into as many shares as
-    fill them, at most one a head.  1 (no split, no partial sums) otherwise."""
-    blocks = b * kv * -(-sk // BWD_BOX_ROWS)
-    return max(1, min(group, -(-BWD_SPLIT_WAVES * sm_count // blocks)))
+def bwd_head_shares(b: int, kv: int, group: int, sk: int, sm_count: int,
+                    rows: int = BWD_BOX_ROWS, waves: int = BWD_SPLIT_WAVES) -> int:
+    """The head shares a dK/dV kernel of one block an SM splits each kv
+    tile's items into (the two-warpgroup bf16 kernel's kv tiles are 64
+    rows, the fp32 kernel's ``bwd_f32_tiles(dk, dv).rows``): its B * KV *
+    ceil(Sk / rows) blocks take one SM each, so where they fill fewer than
+    ``waves`` waves of ``sm_count`` blocks, each kv tile's ``group`` q
+    heads are cut into as many shares as fill them, at most one a head.
+    1 (no split, no partial sums) otherwise."""
+    blocks = b * kv * -(-sk // rows)
+    return max(1, min(group, -(-waves * sm_count // blocks)))
+
+
+def bwd_f32_head_shares(b: int, kv: int, group: int, sk: int, dk: int, dv: int,
+                        sm_count: int) -> int:
+    """The fp32 dK/dV kernel's head shares: as many as fill one wave of
+    ``sm_count`` blocks (F32_SPLIT_WAVES; :func:`bwd_head_shares` at its
+    kv rows, ``bwd_f32_tiles``), rounded up to a divisor of the group, so
+    that every share holds as many heads.  Its blocks hold K and V in
+    shared memory and write their partials whole, so fewer, longer blocks
+    read faster than two waves of shorter ones (D 128's group of 4: 2
+    shares 0.633 ms, 4 shares 0.661, PERF.md §6)."""
+    need = bwd_head_shares(b, kv, group, sk, sm_count, bwd_f32_tiles(dk, dv).rows,
+                           F32_SPLIT_WAVES)
+    return next(n for n in range(need, group + 1) if group % n == 0)
 
 
 def bwd_partial_numel(shares: int, b: int, sk: int, kv: int, dk: int, dv: int) -> int:
@@ -328,6 +421,15 @@ def _bwd_any_fn():
     fn = build.library("flash_attention_any").flash_attention_bwd_any
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_f32_fn():
+    fn = build.library("flash_attention_bwd_f32").flash_attention_bwd_f32
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * 2)
         fn.restype = ctypes.c_int
     return fn
 
@@ -502,7 +604,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, S, H, Dv), k (B, Sk, KV, D), v (B, Sk, KV, Dv), lse (B, H, S) fp32
     from the forward -> (dq, dk, dv) in the inputs' dtype, dk and dv summed
     over each kv head's q heads.  Head dims and dtypes as the forward's,
-    on the route of the same name (:func:`route`)."""
+    on the route :func:`bwd_route` names (fp32: the register-tiled
+    kernels; bf16 and fp16: the forward's route)."""
     _check(q, k, v)
     do = do.contiguous()
     b, s, h, d = q.shape
@@ -519,24 +622,31 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: lse is {tuple(lse.shape)} {lse.dtype} on "
                          f"{lse.device}; expected contiguous ({b}, {h}, {s}) float32 on "
                          f"{q.device}")
-    r = route(q.dtype, d, dv)
+    r = bwd_route(q.dtype, d, dv)
     layout, shares, part = None, 1, None
     if r.kind in TC_KINDS:   # the TMA layouts of q, k, v and dO
         layout = bwd_layout_array(q, k, v, do)
         if r.dims in SPLIT_HEAD_DIMS:
             shares = bwd_head_shares(b, kvh, h // kvh, sk, _sm_count(q.device.index))
+    elif r.kind == "f32":
+        shares = bwd_f32_head_shares(b, kvh, h // kvh, sk, d, dv, _sm_count(q.device.index))
     dq, dk, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # Delta and lse in base 2 for the dK/dV kernel, written by the dQ kernel
     s_pad = bwd_scratch_rows(s, q.dtype, d, dv)
     scratch = torch.empty(2 * b * h * s_pad, dtype=torch.float32, device=q.device)
     if shares > 1:   # the head shares' partial dK and dV, summed by a pass of their own
-        part = torch.empty(bwd_partial_numel(shares, b, sk, kvh, *r.dims), dtype=torch.float32,
+        dims = (d, dv) if r.kind == "f32" else r.dims   # fp32 partials at the real dims
+        part = torch.empty(bwd_partial_numel(shares, b, sk, kvh, *dims), dtype=torch.float32,
                            device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(), scratch.data_ptr())
     with torch.cuda.device(q.device):
-        if r.kind == "any":
+        if r.kind == "f32":
+            err = _bwd_f32_fn()(*ptrs, b, s, sk, h, kvh, d, dv, int(causal), int(window),
+                                _DTYPES[q.dtype], stream,
+                                None if part is None else part.data_ptr(), shares, s_pad)
+        elif r.kind == "any":
             err = _bwd_any_fn()(*ptrs, b, s, sk, h, kvh, d, dv, int(causal), int(window),
                                 _DTYPES[q.dtype], stream)
         elif r.kind == "pad":   # the bucket's kernels, TMA layouts at the real dims

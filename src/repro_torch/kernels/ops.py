@@ -10,7 +10,8 @@ the plain version.
 
 Attention differentiates through :class:`FlashAttention`: its forward
 launches the flash kernel with each row's logsumexp, its backward the
-gradient's kernels (``csrc/flash_attention_bwd.cu``); on the CPU the
+gradient's kernels (``csrc/flash_attention_bwd.cu``; in fp32
+``csrc/flash_attention_bwd_f32.cu``); on the CPU the
 plain forward and ``flash_attention_bwd_ref``.  ``flash_attention``
 takes that path only when autograd needs it (grad enabled and an input
 requiring grad); prefill and decode make the direct call.  The SSD scan
@@ -47,6 +48,7 @@ import torch
 from repro_torch.kernels.autotune import DEFAULT_SSD_CHUNK, tuned_flash_tile, tuned_ssd_chunk
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda, flash_attention_cuda,
                                                  ws_route)
+from repro_torch.kernels.flash_attention import bwd_route as flash_bwd_route
 from repro_torch.kernels.flash_attention import route as flash_route
 from repro_torch.kernels.ref import (
     flash_attention_bwd_ref,
@@ -114,9 +116,9 @@ def _flash_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 
 
 def _count_route(fn, prefix: str, kind: str) -> None:
-    """One launch on the padded, the fp16 wgmma or the general route, by the
-    route's kind."""
-    if kind in ("pad", "f16", "any"):
+    """One launch on the padded, the fp16 wgmma, the general or the fp32
+    backward's route, by the route's kind."""
+    if kind in ("pad", "f16", "any", "f32"):
         name = f"{prefix}{kind}_launches"
         setattr(fn, name, getattr(fn, name) + 1)
 
@@ -165,7 +167,7 @@ class FlashAttention(torch.autograd.Function):
             dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
             flash_attention.bwd_launches += 1
             _count_route(flash_attention, "bwd_",
-                         flash_route(q.dtype, q.shape[3], v.shape[3]).kind)
+                         flash_bwd_route(q.dtype, q.shape[3], v.shape[3]).kind)
             if launch_hook is not None:
                 launch_hook("flash_attention_bwd", q=q, k=k, v=v, **kw)
         elif q.device.type == "meta":
@@ -190,7 +192,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``pad_launches`` / ``bwd_pad_launches``, ``f16_launches`` /
     ``bwd_f16_launches`` and ``any_launches`` / ``bwd_any_launches`` those
     that took the padded bf16, the fp16 wgmma and the general route
-    (``kernels.flash_attention.route``)."""
+    (``kernels.flash_attention.route``), ``bwd_f32_launches`` the backward
+    launches on the fp32 register-tiled kernels (``bwd_route``)."""
     if _is_dtensor(q):
         return _flash_on_mesh(q, k, v, causal, window, kv_tile)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
@@ -216,6 +219,7 @@ flash_attention.bwd_launches = 0
 flash_attention.pad_launches = flash_attention.bwd_pad_launches = 0
 flash_attention.f16_launches = flash_attention.bwd_f16_launches = 0
 flash_attention.any_launches = flash_attention.bwd_any_launches = 0
+flash_attention.bwd_f32_launches = 0
 
 
 def _ssd_hook(name: str, x, a, b, initial_state, **kw) -> None:

@@ -108,6 +108,86 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
 
 
+def flash_attention_bwd_tiled_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                                  causal: bool = True, window: int = 0, rows: int,
+                                  stream_rows: int, widths: tuple[int, int], shares: int = 1
+                                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fp32 backward kernels' decomposition (csrc/flash_attention_bwd_f32.cu)
+    in fp32: q, k, dO and v zero-padded to the bucket's ``widths``; the dQ
+    kernel's blocks of ``rows`` q rows over the kv tiles of
+    ``stream_rows`` that the masks leave visible, scores in base 2 from
+    lse * log2(e), Delta = rowsum(dO * O); the dK/dV kernel's blocks
+    of ``rows`` kv rows over their q tiles of ``stream_rows``, each kv head's
+    group of q heads cut into ``shares`` (heads [j G / shares, (j + 1) G /
+    shares)), each share summed over its heads and tiles in order into fp32
+    partials that are added in share order, dK scaled after.  Shapes and
+    outputs as :func:`flash_attention_bwd_ref`'s."""
+    b, s, h, d = q.shape
+    sk, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
+    group = h // kvh
+    wk, wv = widths
+    qf, kf = (torch.nn.functional.pad(t.float(), (0, wk - d)) for t in (q, k))
+    dof, vf = (torch.nn.functional.pad(t.float(), (0, wv - dv)) for t in (do, v))
+    scale = 1.0 / math.sqrt(d)
+    scale_log2 = math.log2(math.e) * scale
+    lse2 = lse.float() * math.log2(math.e)                             # (B, H, S)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)           # (B, H, S)
+
+    def mask(q0: int, qn: int, k0: int, kn: int) -> torch.Tensor:
+        qp = torch.arange(q0, q0 + qn, device=q.device)[:, None]
+        kp = torch.arange(k0, k0 + kn, device=q.device)[None, :]
+        m = (qp < s) & (kp < sk)
+        if causal:
+            m &= kp <= qp
+        if window:
+            m &= kp > qp - window
+        return m
+
+    def tiles(lo: int, hi: int, limit: int):   # the stream's tiles over [lo, hi)
+        for t in range(lo // stream_rows, -(-hi // stream_rows) if hi > lo else 0):
+            yield t * stream_rows, min(stream_rows, limit - t * stream_rows)
+
+    kv_of = torch.arange(h, device=q.device) // group
+    dq = torch.zeros_like(qf)
+    for q0 in range(0, s, rows):
+        qn = min(rows, s - q0)
+        lo = max(0, q0 - window + 1) if window else 0
+        hi = min(sk, q0 + rows) if causal else sk
+        for k0, kn in tiles(lo, hi, sk):
+            kt, vt = kf[:, k0:k0 + kn, kv_of], vf[:, k0:k0 + kn, kv_of]    # (B, kn, H, W)
+            sc = torch.einsum("bqhd,bnhd->bhqn", qf[:, q0:q0 + qn], kt)
+            dp = torch.einsum("bqhd,bnhd->bhqn", dof[:, q0:q0 + qn], vt)
+            m = mask(q0, qn, k0, kn)
+            p = torch.where(m, torch.exp2(sc * scale_log2 - lse2[:, :, q0:q0 + qn, None]), 0.0)
+            ds = torch.where(m, p * (dp - delta[:, :, q0:q0 + qn, None]), 0.0)
+            dq[:, q0:q0 + qn] += torch.einsum("bhqn,bnhd->bqhd", ds, kt)
+    bounds = [j * group // shares for j in range(shares + 1)]
+    dk = dv_ = None
+    for lo_h, hi_h in zip(bounds, bounds[1:]):   # share by share
+        pk, pv = torch.zeros_like(kf), torch.zeros_like(vf)
+        for k0 in range(0, sk, rows):
+            kn = min(rows, sk - k0)
+            lo = k0 if causal else 0
+            hi = min(s, k0 + rows - 1 + window) if window else s
+            for hh in range(lo_h, hi_h):   # the share's heads of every kv head
+                heads = torch.arange(kvh, device=q.device) * group + hh
+                for q0, qn in tiles(lo, hi, s):
+                    qt, dot = qf[:, q0:q0 + qn, heads], dof[:, q0:q0 + qn, heads]
+                    st = torch.einsum("bnkd,bqkd->bknq", kf[:, k0:k0 + kn], qt)
+                    dpt = torch.einsum("bnkd,bqkd->bknq", vf[:, k0:k0 + kn], dot)
+                    m = mask(q0, qn, k0, kn).T
+                    l2 = lse2[:, heads, q0:q0 + qn][:, :, None]
+                    pt = torch.where(m, torch.exp2(st * scale_log2 - l2), 0.0)
+                    dst = torch.where(m, pt * (dpt - delta[:, heads, q0:q0 + qn][:, :, None]),
+                                      0.0)
+                    pv[:, k0:k0 + kn] += torch.einsum("bknq,bqkd->bnkd", pt, dot)
+                    pk[:, k0:k0 + kn] += torch.einsum("bknq,bqkd->bnkd", dst, qt)
+        dk, dv_ = (pk, pv) if dk is None else (dk + pk, dv_ + pv)
+    return ((dq[..., :d] * scale).to(q.dtype), (dk[..., :d] * scale).to(k.dtype),
+            dv_[..., :dv].to(v.dtype))
+
+
 def ssd_groups(b: torch.Tensor, c: torch.Tensor, h: int
                ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """b and c as (B, L, G, N) with their group count G, which must divide

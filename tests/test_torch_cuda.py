@@ -656,6 +656,85 @@ def test_cuda_flash_backward_split_is_deterministic(b, s, h, kv, d, dv, window):
         assert torch.equal(x, y), name
 
 
+# the fp32 backward's register-tiled kernels (csrc/flash_attention_bwd_f32.cu),
+# (B, S, Sk, H, KV, D, Dv, causal, window): every bucket at its own dims and
+# inside it (D 40, phi-2's 80, (200, 136)), the smoke dims, head dims that
+# are not multiples of 4 (4-byte copies), MHA, GQA and one kv head, ragged
+# S 100 and 130, windows, Sk != S; recurrentgemma-9b's one kv head at B 2,
+# S 1024, window 768 and a GQA group of 4 at D 128, which split each kv
+# tile's q heads into head shares on the card's 132 SMs
+F32_BWD_CASES = [
+    (2, 100, 100, 4, 4, 16, 16, True, 0), (2, 130, 130, 4, 2, 24, 16, True, 48),
+    (2, 130, 130, 4, 1, 40, 40, True, 0), (2, 100, 100, 4, 2, 64, 64, True, 0),
+    (2, 130, 130, 4, 4, 80, 80, True, 48), (2, 100, 100, 4, 1, 128, 128, True, 0),
+    (2, 130, 130, 4, 4, 192, 128, True, 0), (2, 130, 130, 4, 1, 256, 256, True, 48),
+    (1, 100, 100, 4, 2, 5, 3, True, 0), (1, 130, 130, 4, 2, 70, 36, False, 0),
+    (1, 130, 130, 4, 2, 200, 136, True, 0), (2, 64, 200, 4, 4, 64, 64, False, 0),
+    (2, 1024, 1024, 16, 1, 256, 256, True, 768), (2, 512, 512, 32, 8, 128, 128, True, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,sk,h,kv,d,dv,causal,window", F32_BWD_CASES)
+def test_cuda_flash_backward_f32_matches_autograd(b, s, sk, h, kv, d, dv, causal, window):
+    """The fp32 dQ and dK/dV kernels (and the head shares' sum) against
+    autograd of the plain forward in fp32, 2e-3 (max |out - ref| / (1 +
+    |ref|)), the profiler's kernels the register-tiled ones alone; through
+    autograd one backward launch on the "f32" route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import bwd_route
+
+    assert bwd_route(torch.float32, d, dv).kind == "f32"
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    q, do = (torch.randn(b, s, h, n, generator=gen, device="cuda") for n in (d, dv))
+    k, v = (torch.randn(b, sk, kv, n, generator=gen, device="cuda") for n in (d, dv))
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    assert any("flash_bwd_dq_tiled" in n for n in names), names
+    assert any("flash_bwd_dkdv_tiled" in n for n in names), names
+    assert not any("_any<" in n or "flash_bwd_dq_f32" in n or "flash_bwd_dkdv_f32" in n
+                   for n in names), names
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*leaves, **kw), leaves, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.isfinite(g).all(), name
+        assert _scaled(g, w) <= 2e-3, (name, _scaled(g, w))
+    before = (flash_attention.bwd_launches, flash_attention.bwd_f32_launches)
+    ag = [t.clone().requires_grad_() for t in (q, k, v)]
+    through = torch.autograd.grad(flash_attention(*ag, **kw), ag, do)
+    assert (flash_attention.bwd_launches, flash_attention.bwd_f32_launches) == (
+        before[0] + 1, before[1] + 1)
+    for g, w in zip(through, got):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,sk,h,kv,d,dv,causal,window", F32_BWD_CASES)
+def test_cuda_flash_backward_f32_is_deterministic(b, s, sk, h, kv, d, dv, causal, window):
+    """Two launches of the fp32 backward give bit-equal dq, dk and dv: no
+    atomics, the head shares summed in their order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    q, do = (torch.randn(b, s, h, n, generator=gen, device="cuda") for n in (d, dv))
+    k, v = (torch.randn(b, sk, kv, n, generator=gen, device="cuda") for n in (d, dv))
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    first = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    second = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(x, y), name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("p,n,b,l,h,chunk,views", [(64, 128, 2, 1000, 8, 128, False),

@@ -579,7 +579,8 @@ def fake_libraries(monkeypatch):
 def test_flash_launches_pass_every_argument(fake_libraries, dk, dv, dtype):
     """Each route's C entry gets as many arguments as its argtypes name
     (ctypes drops no extra and pads no missing one), forward with and
-    without lse and backward; the padded route passes the bucket."""
+    without lse and backward (on the backward's own route: fp32 takes the
+    register-tiled entry); the padded route passes the bucket."""
     q, k, v, do = _th(_qkv(1, 70, 4, 2, dk, dv, seed=1), str(dtype).removeprefix("torch."))
     o, lse = flash_launcher.flash_attention_cuda(q, k, v, causal=True, window=0,
                                                  return_lse=True)
@@ -594,7 +595,9 @@ def test_flash_launches_pass_every_argument(fake_libraries, dk, dv, dtype):
             assert r.dims == (192, 128) and args[9:11] == (dk, dv)
             assert entry.endswith("_f16") == (r.kind == "f16")
             continue
-        assert entry.endswith({"pad": "_pad", "f16": "_f16", "any": "_any"}.get(r.kind, ""))
+        kind = flash_launcher.bwd_route(dtype, dk, dv).kind if "bwd" in entry else r.kind
+        assert entry.endswith({"pad": "_pad", "f16": "_f16", "any": "_any",
+                               "f32": "_f32"}.get(kind, ""))
         if entry.endswith(("_pad", "_f16")):
             assert tuple(args[17:19] if "bwd" in entry else args[11:13]) == r.dims
 

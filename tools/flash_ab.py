@@ -8,13 +8,15 @@
     python3 tools/flash_ab.py SRC [SRC ...] --shapes mamba2,mamba2_b2,mamba2_l2048,model_views
     python3 tools/flash_ab.py SRC [SRC ...] --shapes ssd_bwd,ssd_bwd_b2
     python3 tools/flash_ab.py SRC [SRC ...] --shapes granite_fp16,d128_fp16,granite_bwd_fp16
+    python3 tools/flash_ab.py SRC [SRC ...] --shapes fp32_bwd,fp32_d128_bwd,d256_bwd_fp32
 
 Each SRC is the ``src`` directory of a checkout of this repository.  All
 checkouts' kernels are built first, in parallel.  Then every round runs
 each checkout once in a process of its own (the checkouts share package
 names), in the order given and then reversed, so two versions run as
 A B B A.  A run times each shape's kernel with CUDA events on bf16
-inputs (fp16 for the ``*_fp16`` shapes) made from a seed:
+inputs (fp16 for the ``*_fp16`` shapes, fp32 for the ``*fp32*`` ones) made
+from a seed:
 ``repro_torch.kernels.ops.flash_attention``
 (causal), with its kernels' device ms and names from the profiler and
 its bound (``roofline/cost.py:attention_bound``), beside one
@@ -81,6 +83,19 @@ SHAPES = {  # flash: (B, S, H, KV, D, Dv, window): granite-3-2b's prefill, a
     "d256_bwd_fp16": ("flash_bwd", (2, 2560, 16, 1, 256, 256, 2048, "float16")),
     "mla_bwd_fp16": ("flash_bwd", (2, 1024, 128, 128, 192, 128, 0, "float16")),
     "d80_bwd_fp16": ("flash_bwd", (4, 1024, 32, 32, 80, 80, 0, "float16")),
+    # fp32: the backward on its register-tiled kernels at chip_smoke.py's
+    # flash_bwd_vs_plain fp32 cases (granite's, D 128's, recurrentgemma's
+    # one kv head with its window, MLA's) and phi-2's D 80, and the forward
+    # (unchanged by the backward's route) at three of them
+    "fp32_bwd": ("flash_bwd", (4, 1024, 32, 8, 64, 64, 0, "float32")),
+    "fp32_d128_bwd": ("flash_bwd", (2, 512, 32, 8, 128, 128, 0, "float32")),
+    "d256_bwd_fp32": ("flash_bwd", (2, 1024, 16, 1, 256, 256, 768, "float32")),
+    "mla_bwd_fp32": ("flash_bwd", (1, 512, 128, 128, 192, 128, 0, "float32")),
+    "d128_bwd_fp32": ("flash_bwd", (4, 1024, 32, 8, 128, 128, 0, "float32")),
+    "d80_bwd_fp32": ("flash_bwd", (4, 1024, 32, 32, 80, 80, 0, "float32")),
+    "granite_fp32": ("flash", (4, 1024, 32, 8, 64, 64, 0, "float32")),
+    "mla_fp32": ("flash", (1, 512, 128, 128, 192, 128, 0, "float32")),
+    "d80_fp32": ("flash", (4, 1024, 32, 32, 80, 80, 0, "float32")),
     # ssd: (B, L, H, chunk, views): mamba2-780m's prefill (P 64, N 128), at
     # the train step's microbatch B 2, a longer prompt, and x, B, C as views
     # of one conv output as the model passes them
