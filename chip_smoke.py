@@ -12,9 +12,10 @@ an initial state (``ssd_groups``: both directions against ``ssd_ref`` and
 ``ssd_bwd_ref``, and mamba2-780m at full width and depth with 8 groups,
 its prefill against the plain path, its decode at depth 1 and its train
 step's gradients at depth 2), then the kernels off the ten configs' shapes
-(``shapes``: the padded bf16 route, fp16's wgmma route and the general
-SIMT route of ``kernels/*.py:route`` at small cases in bf16, fp16 and
-fp32, both directions, against the plain versions, the fp16 ones with the
+(``shapes``: the padded bf16 route, fp16's wgmma route, the general
+SIMT route and fp32's register-tiled route of ``kernels/*.py:route`` at
+small cases in bf16, fp16 and fp32, both directions, against the plain
+versions, the fp16 ones with the
 kernels the profiler saw; phi-2's (D 80, bf16, fp16 and fp32) and
 phi-3-mini's (D 96) attention and Zamba2's SSD (P 64, N 64) at full
 width, timed beside their bounds, the plain versions and SDPA; granite at
@@ -22,11 +23,13 @@ head dim 40 (bf16, fp16, fp32) and mamba2 at (P, N) = (32, 64), prefill,
 decode and a train step's gradients, kernel path against plain path;
 the flash cases also run granite's, llava's, recurrentgemma's and
 deepseek-v3's attention in fp16 at full width beside bf16, both
-directions, on the f16 wgmma kernels; every fp32 backward, there and in
-the flash backward cases, is checked by the profiler's names to run the
-register-tiled kernels of ``csrc/flash_attention_bwd_f32.cu`` alone, with
-their dQ, dK/dV and share-sum device ms), then drives each ported model at full width (random weights
-from ``--seed``) through the port's entry points at full depth, each with
+directions, on the f16 wgmma kernels; every fp32 forward and backward,
+there, in the flash cases and in the flash backward cases, is checked by
+the profiler's names to run the register-tiled kernels of
+``csrc/flash_attention_fwd_f32.cu`` and ``csrc/flash_attention_bwd_f32.cu``
+alone (the forward also by its lse and two launches bit for bit), with
+their device ms), then drives each ported model at full width (random
+weights from ``--seed``) through the port's entry points at full depth, each with
 prefill and teacher-forced decode checked against the kernel-driven
 forward: granite-3-2b (flash attention), mamba2-780m (the SSD scan),
 minitron-4b (flash at D 128 over padded heads), olmoe-1b-7b (flash, MoE
@@ -163,6 +166,14 @@ def f32_bwd_kernels(names) -> bool:
     return (any("flash_bwd_dq_tiled" in n for n in bwd)
             and any("flash_bwd_dkdv_tiled" in n for n in bwd)
             and all("_tiled" in n for n in bwd))
+
+
+def f32_fwd_kernels(names) -> bool:
+    """Whether an fp32 forward ran the register-tiled kernel
+    (csrc/flash_attention_fwd_f32.cu) and no other forward kernel: not the
+    SIMT flash_fwd_f32 nor the general flash_fwd_any."""
+    fwd = [n for n in names if "flash_fwd" in n]
+    return bool(fwd) and all("flash_fwd_f32_tiled" in n for n in fwd)
 SSD_TOL = {"torch.bfloat16": 5e-2, "torch.float16": 5e-2, "torch.float32": 2e-3}
 # the SSD kernel at chunk 64 against itself at chunk 128, same inputs and
 # the same scaled measure: both carry fp32 and differ only in the order of
@@ -400,7 +411,8 @@ def phase_kernel_cases(seed: int) -> list[dict]:
         ("deepseek_v3_mla_fp16", 4, 1024, 1024, 128, 128, 192, 128, torch.float16, True, 0),
         # the smoke configs' head dims, which the training CLI runs at (B 2
         # a host, S 64): D 16 (the windowed models' window of 32 too) and
-        # MLA's q/k 16 + 8 over v 16, on the SIMT kernel in both dtypes
+        # MLA's q/k 16 + 8 over v 16, on the SIMT kernel in bf16 and the
+        # register-tiled kernel's (64, 64) bucket in fp32
         ("smoke_d16", 2, 64, 64, 4, 2, 16, 16, torch.bfloat16, True, 0),
         ("smoke_d16_window32", 2, 64, 64, 4, 1, 16, 16, torch.bfloat16, True, 32),
         ("smoke_d16_fp32", 2, 64, 64, 4, 2, 16, 16, torch.float32, True, 0),
@@ -444,6 +456,24 @@ def phase_kernel_cases(seed: int) -> list[dict]:
                 lambda: flash_attention(q, k, v, causal=causal, window=window), iters=10)
             row["device_ms"], row["kernels"] = sum(by_kernel.values()), sorted(by_kernel)
             row["device_bound_frac"] = bound_ms / row["device_ms"]
+        if dtype == torch.float32:
+            # the register-tiled fp32 kernel: device ms and the kernels the
+            # profiler saw (the smoke cases' names again from a process of
+            # their own, below), its lse, and two launches bit for bit
+            by_kernel = kernels_device_ms(
+                lambda: flash_attention(q, k, v, causal=causal, window=window), iters=10)
+            row["device_ms"], row["kernels"] = sum(by_kernel.values()), sorted(by_kernel)
+            row["device_bound_frac"] = bound_ms / row["device_ms"] if row["device_ms"] else None
+            o1, lse1 = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                            return_lse=True)
+            o2, lse2 = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                            return_lse=True)
+            torch.cuda.synchronize()
+            row["bit_equal"] = bool(torch.equal(o1, o2) and torch.equal(lse1, lse2)
+                                    and torch.equal(o1, out))
+            row["lse_max_abs_err"] = (lse1 - flash_attention_lse_ref(
+                q, k, v, causal=causal, window=window)).abs().max().item()
+            del o1, o2, lse1, lse2
         if ws_route(dtype, d, dv):
             row["ws"] = True
             # the MLA kernel (csrc/flash_attention_fwd_ws.cu): the kernel the
@@ -468,6 +498,14 @@ def phase_kernel_cases(seed: int) -> list[dict]:
         if name in FP16_TWINS:
             check(f16_kernels(row["kernels"]),
                   f"flash_attention {name}: ran {row['kernels']}, not the f16 wgmma kernels")
+        if dtype == torch.float32:
+            check(row["lse_max_abs_err"] <= LSE_TOL and row["bit_equal"],
+                  f"flash_attention {name}: max |lse - ref| = {row['lse_max_abs_err']}, two "
+                  f"launches equal {row['bit_equal']}")
+            if not name.startswith("smoke"):
+                check(f32_fwd_kernels(row["kernels"]),
+                      f"flash_attention {name}: ran {row['kernels']}, not the register-tiled "
+                      "fp32 kernel alone")
         if row.get("ws"):
             check(row["kernels"] and all("flash_fwd_bf16_ws" in n for n in row["kernels"]),
                   f"flash_attention {name}: ran {row['kernels']}, not the MLA kernel")
@@ -478,6 +516,7 @@ def phase_kernel_cases(seed: int) -> list[dict]:
         results.append(row)
         del q, k, v, out, ref, lib
         torch.cuda.empty_cache()
+    f32_smoke_forwards_apart(cases, results, "kernels")
     return results
 
 
@@ -1008,8 +1047,9 @@ def phase_examples() -> dict[str, dict[str, int]]:
 # small cases in bf16, fp16 and fp32, forward and backward, against the
 # plain versions; the padded bf16 route at public models' full-width
 # shapes (phi-2's attention at D 80, phi-3-mini's at D 96, Zamba2's Mamba-2
-# layers at (P, N) = (64, 64)) and the general route at phi-2's in fp16,
-# timed beside their bounds, the plain versions and SDPA; then granite at
+# layers at (P, N) = (64, 64)), fp16's wgmma route and fp32's register-tiled
+# one at phi-2's and the general route at D 20 in fp16, timed beside
+# their bounds, the plain versions and SDPA; then granite at
 # head dim 40 and mamba2 at (P, N) = (32, 64), each through prefill and
 # decode and a train-step gradient, kernel path against plain path.
 # ---------------------------------------------------------------------------
@@ -1036,11 +1076,11 @@ SHAPES_PUBLIC_FLASH = [  # (case, B, S, H (MHA), D, dtype), causal
     ("phi2_d80", 4, 1024, 32, 80, torch.bfloat16),
     ("phi3_mini_d96", 4, 1024, 32, 96, torch.bfloat16),
     ("phi2_d80_fp16", 4, 1024, 32, 80, torch.float16),
-    # the general route's full-width forward (fp16 at D 80 now runs wgmma),
-    # and phi-2's fp32 backward on the register-tiled kernels
+    # phi-2's fp32 forward and backward on the register-tiled kernels
     ("phi2_d80_fp32", 4, 1024, 32, 80, torch.float32),
-    # the general route's full-width backward (fp32's runs the register-tiled
-    # kernels): fp16 at a head dim that is no multiple of 8
+    # the general route's full-width forward and backward (fp16 at D 80
+    # runs wgmma, fp32 the register-tiled kernels): fp16 at a head dim that
+    # is no multiple of 8
     ("d20_fp16", 4, 1024, 32, 20, torch.float16),
 ]
 SHAPES_PUBLIC_SSD = [  # (case, B, L, H, P, N, dtype), chunk 128
@@ -1061,22 +1101,23 @@ SHAPES_MODEL_DTYPES = {"granite_3_2b": ("bfloat16", "float16", "float32"),
 
 
 def zero_route_counts() -> None:
-    """Set the padded, the fp16 wgmma, the general and the fp32 backward's
-    routes' launch counts to 0."""
+    """Set the padded, the fp16 wgmma, the general and the fp32 routes'
+    launch counts to 0."""
     from repro_torch.kernels.ops import flash_attention, ssd_scan
     for fn in (flash_attention, ssd_scan):
         fn.pad_launches = fn.bwd_pad_launches = fn.any_launches = fn.bwd_any_launches = 0
     flash_attention.f16_launches = flash_attention.bwd_f16_launches = 0
-    flash_attention.bwd_f32_launches = 0
+    flash_attention.f32_launches = flash_attention.bwd_f32_launches = 0
 
 
 def route_counts() -> dict[str, int]:
-    """The padded, the fp16 wgmma, the general and the fp32 backward's
-    routes' launches, per kernel row."""
+    """The padded, the fp16 wgmma, the general and the fp32 routes'
+    launches, per kernel row."""
     from repro_torch.kernels.ops import flash_attention, ssd_scan
     return {"flash_fwd_bf16_pad": flash_attention.pad_launches,
             "flash_fwd_f16": flash_attention.f16_launches,
             "flash_fwd_any": flash_attention.any_launches,
+            "flash_fwd_f32": flash_attention.f32_launches,
             "flash_bwd_bf16_pad": flash_attention.bwd_pad_launches,
             "flash_bwd_f16": flash_attention.bwd_f16_launches,
             "flash_bwd_any": flash_attention.bwd_any_launches,
@@ -1126,6 +1167,24 @@ def flash_names_apart(cases: list) -> list[list[str]]:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+def f32_smoke_forwards_apart(cases: list, results: list[dict], key: str) -> None:
+    """The forward kernels of the fp32 smoke cases among ``cases`` (name,
+    B, S, Sk = S, H, KV, D, Dv, dtype, causal, window), read in a process
+    of their own (:func:`flash_names_apart`: the profiler here may return
+    no record of their few-microsecond windows), checked to be the
+    register-tiled fp32 kernel alone and stored under ``key`` in each
+    case's row of ``results``."""
+    small = [(i, c) for i, c in enumerate(cases)
+             if c[8] == torch.float32 and c[0].startswith("smoke")]
+    names = flash_names_apart([(b, s, h, kv, d, dv, str(dtype), causal, window)
+                               for _, (_, b, s, _, h, kv, d, dv, dtype, causal, window)
+                               in small])
+    for (i, (name, *_)), kernels in zip(small, names):
+        check(f32_fwd_kernels(kernels), f"flash forward {name}: ran {kernels}, not the "
+              "register-tiled fp32 kernel alone")
+        results[i][key] = [n for n in kernels if "flash_fwd" in n]
+
+
 def _flash_small(gen, b, s, h, kv, dk, dv, dtype, causal, window) -> dict:
     """One flash case through ``ops.flash_attention`` under autograd
     (forward and backward kernels of the route), against autograd of the
@@ -1167,7 +1226,7 @@ def _flash_small(gen, b, s, h, kv, dk, dv, dtype, causal, window) -> dict:
     worst = max(row["bwd_max_scaled_err"].values())
     check(worst <= row["bwd_tol"], f"{what}: backward {row['bwd_max_scaled_err']}")
     on_route = {"pad": "flash_fwd_bf16_pad", "f16": "flash_fwd_f16",
-                "any": "flash_fwd_any"}.get(kind)
+                "any": "flash_fwd_any", "f32": "flash_fwd_f32"}.get(kind)
     bwd_on_route = {"pad": "flash_bwd_bf16_pad", "f16": "flash_bwd_f16", "any": "flash_bwd_any",
                     "f32": "flash_bwd_f32"}.get(bwd_kind)
     check(launches["flash_attention"] == 1 and launches["flash_attention_bwd"] == 1
@@ -1235,7 +1294,8 @@ def _flash_public(gen, name, b, s, h, d, dtype) -> dict:
     dims, the plain version's and SDPA's times; held to the plain version."""
     from repro_torch.kernels.flash_attention import (bwd_route, flash_attention_bwd_cuda,
                                                      flash_attention_cuda, route)
-    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
+                                         flash_attention_ref)
     from repro_torch.roofline.cost import attention_bound, attention_bwd_bound
 
     q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
@@ -1247,6 +1307,13 @@ def _flash_public(gen, name, b, s, h, d, dtype) -> dict:
            "max_scaled_err": scaled_err(o, ref),
            "tol": gate(name, "forward", dtype, TOL[str(dtype)])}
     del ref
+    if dtype == torch.float32:   # the fp32 forward's lse, and two launches bit for bit
+        fwd["lse_max_abs_err"] = (lse - flash_attention_lse_ref(
+            q, k, v, causal=True, window=0)).abs().max().item()
+        again = flash_attention_cuda(q, k, v, causal=True, window=0, return_lse=True)
+        torch.cuda.synchronize()
+        fwd["bit_equal"] = bool(torch.equal(again[0], o) and torch.equal(again[1], lse))
+        del again
     fwd["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True, window=0))
     by_kernel = kernels_device_ms(lambda: flash_attention_cuda(q, k, v, causal=True, window=0),
                                   iters=10)
@@ -1297,14 +1364,18 @@ def _flash_public(gen, name, b, s, h, d, dtype) -> dict:
     check(max(back["max_scaled_err"].values()) <= back["tol"],
           f"shapes {name}: backward {back['max_scaled_err']}")
     # the padded route: the bucket's kernels at hopper::Widths (the real
-    # dims), and fp16's at hopper::HalfWidths; the fp32 backward the
-    # register-tiled kernels
-    tags = {"pad": ("hopper::Widths",) * 2, "f16": ("hopper::HalfWidths",) * 2}.get(
-        row["route"], ("flash_fwd_any", "_any<"))
-    if row["bwd_route"] == "f32":
-        tags = (tags[0], "_tiled")
-        check(f32_bwd_kernels(back["kernels"]), f"shapes {name}: the backward ran "
-              f"{back['kernels']}")
+    # dims), and fp16's at hopper::HalfWidths; fp32 the register-tiled
+    # kernels both ways
+    tags = {"pad": ("hopper::Widths",) * 2, "f16": ("hopper::HalfWidths",) * 2,
+            "f32": ("flash_fwd_f32_tiled", "_tiled")}.get(row["route"],
+                                                           ("flash_fwd_any", "_any<"))
+    if row["route"] == "f32":
+        check(f32_fwd_kernels(fwd["kernels"]) and f32_bwd_kernels(back["kernels"]),
+              f"shapes {name}: ran {fwd['kernels']} and {back['kernels']}, not the "
+              "register-tiled fp32 kernels alone")
+        check(fwd["lse_max_abs_err"] <= LSE_TOL and fwd["bit_equal"],
+              f"shapes {name}: forward lse {fwd['lse_max_abs_err']}, two launches equal "
+              f"{fwd['bit_equal']}")
     for part, tag in zip((fwd, back), tags):
         check(part["kernels"] and all(tag in n for n in part["kernels"]),
               f"shapes {name}: ran {part['kernels']}, not {tag}")
@@ -1386,7 +1457,8 @@ def _shapes_model(arch: str, seed: int) -> dict[str, int]:
     """A smoke config cut off the built shapes, on the card: prefill and
     decode, kernel path against plain path in bf16 (the padded route), fp16
     where SHAPES_MODEL_DTYPES names it (granite: the f16 wgmma route) and
-    fp32 (the general route), then a train step's loss and gradients held
+    fp32 (the register-tiled fp32 kernels, every forward launch of the
+    kernel path on them), then a train step's loss and gradients held
     to float64 as train_grad_check holds them.  Returns the route
     launches of the run (counted from 0)."""
     from repro_torch.configs import get_smoke_config
@@ -1411,11 +1483,16 @@ def _shapes_model(arch: str, seed: int) -> dict[str, int]:
         if compute != "bfloat16":
             cast = getattr(torch, compute)
             params = tree_map(lambda t: t.to(cast) if t.is_floating_point() else t, params)
+        f32_before = route_counts()["flash_fwd_f32"]
         k = _path_logits(params, cfg, ids, s, steps, timed=False)
+        # the path's forward launches, and those of them on the fp32 kernel
+        fwd_launches = launch_counts()["flash_attention"]
+        f32_launches = route_counts()["flash_fwd_f32"] - f32_before
         with plain_attention():
             p = _path_logits(params, cfg, ids, s, steps, timed=False)
         want = expected_launches(cfg)
         row = {"prefill_launches": k["prefill_launches"], "plain_launches": p["prefill_launches"],
+               "forward_launches": fwd_launches, "f32_forward_launches": f32_launches,
                "decode_rel_err": _rel_rows(k["got"], p["got"]).max().item(),
                "forward_rel_err": _rel_rows(k["ref"], p["ref"]).max().item(),
                "tol": gate(f"{arch}_shapes", "forward", cfg.cdtype, SHAPES_MODEL_TOL[compute]),
@@ -1426,6 +1503,8 @@ def _shapes_model(arch: str, seed: int) -> dict[str, int]:
         check(row["prefill_launches"] == want, f"{what}: prefill launched "
               f"{row['prefill_launches']}, expected {want}")
         check(not any(row["plain_launches"].values()), f"{what}: the plain path launched")
+        check(f32_launches == (fwd_launches if compute == "float32" else 0),
+              f"{what}: {f32_launches} of {fwd_launches} forward launches on the fp32 kernel")
         check(max(row["decode_rel_err"], row["forward_rel_err"]) <= row["tol"],
               f"{what}: kernel path vs plain path {row['decode_rel_err']} "
               f"{row['forward_rel_err']} > {row['tol']}")
@@ -1458,8 +1537,8 @@ def phase_shapes(seed: int) -> tuple[dict, dict[str, dict[str, int]]]:
         for name, n in row["launches"].items():
             small_launches[name] = small_launches.get(name, 0) + n
     # fp16: the kernels the profiler saw, the f16 wgmma kernels on the
-    # "f16" route and the general ones in fp16 on "any"; fp32: the backward
-    # on the register-tiled kernels alone
+    # "f16" route and the general ones in fp16 on "any"; fp32: both ways on
+    # the register-tiled kernels alone
     named = [(row, case) for row, case in zip(small, cases)
              if case[6] in (torch.float16, torch.float32)]
     names = flash_names_apart([(*c[:6], str(c[6]), *c[7:]) for _, c in named])
@@ -1467,7 +1546,8 @@ def phase_shapes(seed: int) -> tuple[dict, dict[str, dict[str, int]]]:
         row["kernels"] = kernels
         what = f"shapes flash {row['shape']} dv {row['dv']} {case[6]}"
         if case[6] == torch.float32:
-            check(f32_bwd_kernels(kernels), f"{what}: the backward ran {kernels}")
+            check(f32_fwd_kernels(kernels) and f32_bwd_kernels(kernels),
+                  f"{what}: ran {kernels}, not the register-tiled fp32 kernels alone")
         elif row["route"] == "f16":
             check(f16_kernels(kernels), f"{what}: ran {kernels}")
         else:
@@ -2414,7 +2494,7 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
         ("llava_train_fp16", 4, 1024, 1024, 64, 64, 128, 128, torch.float16, True, 0),
         ("recurrentgemma_train_fp16", 2, 2560, 2560, 16, 1, 256, 256, torch.float16, True, 2048),
         ("mla_train_fp16", 2, 1024, 1024, 128, 128, 192, 128, torch.float16, True, 0),
-        # the smoke configs' head dims, on the SIMT kernels in both dtypes
+        # the smoke configs' head dims: the SIMT kernels in bf16, the register-tiled ones in fp32
         ("smoke_d16_train", 2, 64, 64, 4, 2, 16, 16, torch.bfloat16, True, 0),
         ("smoke_d16_cross_train", 2, 64, 80, 4, 4, 16, 16, torch.bfloat16, False, 0),
         ("smoke_d16_window32_train", 2, 64, 64, 4, 1, 16, 16, torch.bfloat16, True, 32),
@@ -2452,6 +2532,17 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
                "library_refused": None if lib is not None else lib_bwd,
                "lse_max_abs_err": (lse - lse_ref).abs().max().item(), "lse_tol": LSE_TOL,
                "finite": all(bool(torch.isfinite(g.float()).all()) for g in grads)}
+        if dtype == torch.float32:
+            # the fp32 forward: held to the plain version, the kernel the
+            # profiler saw, two launches bit for bit
+            row["fwd_max_scaled_err"] = scaled_err(o, ref_out.detach())
+            fwd_ms = kernels_device_ms(
+                lambda: flash_attention_cuda(q, k, v, return_lse=True, **kw), iters=5)
+            row["fwd_device_ms"], row["fwd_kernels"] = sum(fwd_ms.values()), sorted(fwd_ms)
+            o2, lse2 = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            torch.cuda.synchronize()
+            row["fwd_bit_equal"] = bool(torch.equal(o2, o) and torch.equal(lse2, lse))
+            del o2, lse2
         # determinism: a second launch on the same inputs gives the same bits
         again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
@@ -2544,6 +2635,10 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
             check(f32_bwd_kernels(row["kernels"]),
                   f"flash backward {name}: ran {row['kernels']}, not the register-tiled "
                   "fp32 kernels alone")
+            check(row["fwd_max_scaled_err"] <= TOL[str(dtype)] and row["fwd_bit_equal"]
+                  and (name.startswith("smoke") or f32_fwd_kernels(row["fwd_kernels"])),
+                  f"flash forward {name}: {row['fwd_max_scaled_err']}, two launches equal "
+                  f"{row['fwd_bit_equal']}, ran {row['fwd_kernels']}")
         if "dq_kernels" in row:   # bf16 at (256, 256) and (192, 128): the two-warpgroup dQ kernel
             check(row["dq_kernels"] and all("flash_bwd_dq_bf16_pair" in k
                                             for k in row["dq_kernels"]),
@@ -2559,6 +2654,7 @@ def phase_flash_bwd_cases(seed: int) -> list[dict]:
         results.append(row)
         del q, k, v, do, o, lse, grads, leaves, ref_out, ref, lib, lib_bwd
         torch.cuda.empty_cache()
+    f32_smoke_forwards_apart(cases, results, "fwd_kernels")
 
     # the forward with the lse epilogue against without, in turns (off on on off)
     q = torch.randn(4, 1024, 32, 64, generator=gen, device="cuda").to(torch.bfloat16)
@@ -2800,15 +2896,20 @@ def _grad_check_init(init: str, params_bf, batch, base, offload: bool,
     if offload:   # the referee's gradients on the host, compared leaf by leaf on the card
         g64 = tree_map(lambda t: t.cpu(), g64)
         torch.cuda.empty_cache()
-    kernel_launches = {}
+    kernel_launches, f32_launches = {}, {}
     for compute in dtypes:
         cfg = base.scaled(compute_dtype=compute)
         params = params_bf if compute == "bfloat16" else tree_map(
             lambda t: t.to(getattr(torch, compute)), params_bf)
+        before = route_counts()
         zero_counts()
         loss_k, _, g_k = loss_and_grads(params, batch, cfg)
         torch.cuda.synchronize()
         kernel_launches = launch_counts()
+        # the run's launches on the routes (counted on from the caller's)
+        routes = {n: c - before[n] for n, c in route_counts().items() if c != before[n]}
+        if compute == "float32":
+            f32_launches = {n: routes.get(n, 0) for n in ("flash_fwd_f32", "flash_bwd_f32")}
         with plain_attention():
             zero_counts()
             loss_p, _, g_p = loss_and_grads(params, batch, cfg)
@@ -2833,20 +2934,25 @@ def _grad_check_init(init: str, params_bf, batch, base, offload: bool,
              worst_leaf_limit=limit[worst], rel_l2_kernel_vs_f64=err_k,
              rel_l2_plain_vs_f64=err_p, rel_l2_kernel_vs_plain=k_vs_p, tol=tol, finite=finite,
              kernel_launches=kernel_launches, plain_launches=plain_launches,
-             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             route_launches=routes, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
              seconds=time.perf_counter() - t0)
         check(finite, f"{what}: a loss or gradient is not finite")
         check(kernel_launches == want, f"{what}: kernel launches {kernel_launches}, "
               f"expected {want}")
         check(not any(plain_launches.values()), f"{what}: the plain run launched "
               f"{plain_launches}")
+        if compute == "float32":   # fp32 on the register-tiled kernels, both directions
+            check(f32_launches == {"flash_fwd_f32": kernel_launches["flash_attention"],
+                                   "flash_bwd_f32": kernel_launches["flash_attention_bwd"]},
+                  f"{what}: {f32_launches} of {kernel_launches} on the fp32 kernels")
         check(lk <= loss_limit, f"{what}: loss {loss_k.item()} is {lk} from the float64 "
               f"loss {loss64.item()}, limit {loss_limit}")
         check(err_k[worst] <= limit[worst], f"{what}: gradient {worst} is {err_k[worst]} from "
               f"float64 (the plain path {err_p[worst]}), limit {limit[worst]}")
         del params, g_k, g_p
     del g64
-    return kernel_launches
+    # the last run's kernel launches, and the fp32 run's on the fp32 kernels
+    return {**kernel_launches, **f32_launches}
 
 
 def phase_train_step(seed: int) -> dict[str, int]:
@@ -4104,8 +4210,9 @@ def main() -> int:
                "initial_state": c["initial_state"]}
             for c in group_cases}
         row["groups_g1"] = group_cases[0]["g1"]
-    # the padded, the fp16 wgmma and the general routes (kernels/*.py:route),
-    # each with its readings at a public model's full-width shape
+    # the padded, the fp16 wgmma, the general and the fp32 routes
+    # (kernels/*.py:route), each with its readings at a public model's
+    # full-width shape
     csrc = "src/repro_torch/kernels/csrc/"
     f16_names = {"forward": set(), "backward": set()}
     for part, rows_ in (("forward", flash_cases), ("backward", bwd_cases)):
@@ -4123,7 +4230,8 @@ def main() -> int:
             ("flash_fwd_f16", "flash_attention_f16.cu", "phi2_d80_fp16", "forward", "phi2_d80"),
             ("flash_bwd_f16", "flash_attention_bwd_f16.cu", "phi2_d80_fp16", "backward",
              "phi2_d80"),
-            ("flash_fwd_any", "flash_attention_any.cu", "phi2_d80_fp32", "forward", None),
+            ("flash_fwd_any", "flash_attention_any.cu", "d20_fp16", "forward", None),
+            ("flash_fwd_f32", "flash_attention_fwd_f32.cu", "phi2_d80_fp32", "forward", None),
             ("flash_bwd_any", "flash_attention_any.cu", "d20_fp16", "backward", None),
             ("flash_bwd_f32", "flash_attention_bwd_f32.cu", "phi2_d80_fp32", "backward", None),
             ("ssd_fwd_bf16_pad", "ssd_scan_pad.cu", "zamba2_p64_n64", "forward", None),
@@ -4150,6 +4258,13 @@ def main() -> int:
                 "library_ms", "vs_library", "max_scaled_err")}
         if name.endswith("_f16"):   # the fp16 instantiations the run's fp16 rows launched
             row["instantiations"] = f16_names[part]
+        if name == "flash_fwd_f32":   # the kernel, and every fp32 forward case's readings
+            row["kernels"] = c["kernels"]
+            row["cases"] = {x["case"]: {k: x.get(k) for k in (
+                "shape", "dv", "sk", "window", "ms", "device_ms", "bound_ms", "bound_frac",
+                "device_bound_frac", "library_ms", "vs_library", "max_scaled_err",
+                "lse_max_abs_err", "kernels")}
+                for x in flash_cases if x["dtype"] == "torch.float32"}
         if name == "flash_bwd_f32":   # the kernels, and every fp32 backward case's readings
             row["kernels"] = c["kernels"]
             row["kernel_device_ms"] = c["kernel_device_ms"]

@@ -45,20 +45,20 @@
 //    the last q tile), so the last wave holds the shortest blocks.
 //  * GQA by index: q head h reads kv head h / (H / KV) through the K/V
 //    tensor maps; no copy of K or V is made.
-//  * fp32 inputs take a plain SIMT kernel (one q row per thread), exact
-//    in fp32 to the reference's 1e-4.
 //  * The smoke configs' head dims, (16, 16) and (24, 16) (MLA's 16 + 8
-//    q/k columns over 16 of v), take that SIMT kernel in both dtypes:
-//    a bf16 tile of 16 or 24 columns is not whole 64-column TMA boxes.
-//    The SIMT kernels are templated on the element type T (bf16 or fp32
-//    in memory; the arithmetic is fp32), and the launcher picks the route
-//    by head dims and dtype alone, never after another route failed.
+//    q/k columns over 16 of v), take a plain SIMT kernel in bf16 (one q
+//    row per thread, fp32 arithmetic): a bf16 tile of 16 or 24 columns is
+//    not whole 64-column TMA boxes.  The launcher picks the route by head
+//    dims and dtype alone, never after another route failed.
+//  * fp32 runs csrc/flash_attention_fwd_f32.cu's register-tiled kernel at
+//    every head-dim pair (kernels/flash_attention.py:route, kind "f32"):
+//    this entry refuses it.
 //
 // The kernels are templated on the q/k head dim DK and the v head dim DV:
-// (64, 64), (128, 128) and (256, 256), (16, 16) and (24, 16) (SIMT, above),
-// and in fp32 (192, 128) for deepseek-v3's multi-head latent attention
+// (64, 64), (128, 128) and (256, 256), and (16, 16) and (24, 16) (SIMT,
+// above).  bf16 at (192, 128), deepseek-v3's multi-head latent attention
 // (MLA), whose prefill attends with 128 "nope" + 64 rope columns of q and
-// k and 128 columns of v.  bf16 at (192, 128) is a kernel of its own,
+// k and 128 columns of v, is a kernel of its own,
 // csrc/flash_attention_fwd_ws.cu: this entry refuses it.
 //
 // D 256 (recurrentgemma-9b) has instantiations of its own; D 64 and 128
@@ -68,13 +68,7 @@
 // on top of S.  So D 256 takes 64-key tiles (Smem<256, 256, 64>): K/V 32 KB a
 // stage, two stages and Q ~193 KB at one block an SM; S = Q K^T as
 // m64n64k16 over 16 k-steps and O += P V as m64n256k16, the widest wgmma
-// N.  In fp32 one q row's q[D] and acc[D] would be 512 floats a thread,
-// so four threads share a row (flash_fwd_f32_wide), each with 64 of its
-// columns, the dot products summed across the four by warp shuffles, on
-// 16-key tiles that keep K and V in 32 KB of static shared memory.
-// At (192, 128) in fp32 the four-threads-a-row kernel takes it, each
-// thread with 48 columns of q and 32 of the accumulator; V's columns are
-// DV and the scale is 1 / sqrt(DK).
+// N.
 // A row with no visible key at all (only possible when S > Sk) comes out
 // as zeros in the bf16 kernel; the reference averages every key there.
 //
@@ -90,10 +84,7 @@ namespace {
 
 using namespace hopper;
 
-// four consecutive elements (16-byte aligned as fp32, 8-byte as bf16) as floats
-__device__ __forceinline__ float4 load4(const float* src) {
-  return *reinterpret_cast<const float4*>(src);
-}
+// four consecutive bf16 elements (8-byte aligned) as floats
 __device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
   const uint2 u = *reinterpret_cast<const uint2*>(src);
   const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
@@ -117,8 +108,8 @@ __device__ __forceinline__ void load_rows(float (*dst)[W], const T* src, size_t 
 }
 
 // ---------------------------------------------------------------------------
-// SIMT, one q row per thread: fp32 at D 64 and 128, both dtypes at the
-// smoke configs' (16, 16) and (24, 16); T is the element type in memory
+// SIMT, one q row per thread: bf16 at the smoke configs' (16, 16) and (24,
+// 16); T is the element type in memory
 // ---------------------------------------------------------------------------
 template <int DK, int DV, typename T>
 __global__ void __launch_bounds__(BM) flash_fwd_f32(Params p) {
@@ -187,103 +178,6 @@ __global__ void __launch_bounds__(BM) flash_fwd_f32(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// fp32 at D 256 and (192, 128): SIMT, PARTS threads a q row, each with
-// DK / PARTS columns of q and DV / PARTS of the accumulator; T as above
-// ---------------------------------------------------------------------------
-template <int DK, int DV, typename T>
-__global__ void __launch_bounds__(BM * PARTS) flash_fwd_f32_wide(Params p) {
-  constexpr int DP = DK / PARTS;     // q columns a thread: float4 i at 16 i + 4 part
-  constexpr int VP = DV / PARTS;     // accumulator columns a thread, laid out alike
-  __shared__ __align__(16) float sK[TN_WIDE][DK];
-  __shared__ __align__(16) float sV[TN_WIDE][DV];
-
-  const int bh = blockIdx.x;   // B * H on x: any B * H
-  const int b = bh / p.H, h = bh % p.H;
-  const int kvh = h / (p.H / p.KV);
-  const int part = threadIdx.x % PARTS;   // the PARTS threads of a row are adjacent lanes
-  const int q0 = blockIdx.y * BM;
-  const int qpos = q0 + threadIdx.x / PARTS;
-  const size_t q_stride = (size_t)p.H * DK, o_stride = (size_t)p.H * DV;
-  const size_t k_stride = (size_t)p.KV * DK, v_stride = (size_t)p.KV * DV;
-  const T* qb = static_cast<const T*>(p.q) + ((size_t)b * p.S * p.H + h) * DK;
-  const T* kb = static_cast<const T*>(p.k) + ((size_t)b * p.Sk * p.KV + kvh) * DK;
-  const T* vb = static_cast<const T*>(p.v) + ((size_t)b * p.Sk * p.KV + kvh) * DV;
-  T* ob = static_cast<T*>(p.o) + ((size_t)b * p.S * p.H + h) * DV;
-
-  float q[DP], acc[VP];
-#pragma unroll
-  for (int i = 0; i < DP / 4; ++i) {
-    float4 q4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (qpos < p.S) q4 = load4(qb + (size_t)qpos * q_stride + 16 * i + 4 * part);
-    q[4 * i + 0] = q4.x;
-    q[4 * i + 1] = q4.y;
-    q[4 * i + 2] = q4.z;
-    q[4 * i + 3] = q4.w;
-  }
-#pragma unroll
-  for (int d = 0; d < VP; ++d) acc[d] = 0.f;
-  float m = NEG_INF, l = 0.f;
-
-  int t_lo, t_hi;
-  kv_tiles(p, q0, TN_WIDE, t_lo, t_hi);
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * TN_WIDE;
-    __syncthreads();
-    load_rows<TN_WIDE, DK>(sK, kb, k_stride, k0, p.Sk);
-    load_rows<TN_WIDE, DV>(sV, vb, v_stride, k0, p.Sk);
-    __syncthreads();
-
-    float s[TN_WIDE];
-    float mx = m;
-#pragma unroll
-    for (int j = 0; j < TN_WIDE; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < DP / 4; ++i) {
-        const float4 k4 = *reinterpret_cast<const float4*>(&sK[j][16 * i + 4 * part]);
-        dot = fmaf(q[4 * i + 0], k4.x, dot);
-        dot = fmaf(q[4 * i + 1], k4.y, dot);
-        dot = fmaf(q[4 * i + 2], k4.z, dot);
-        dot = fmaf(q[4 * i + 3], k4.w, dot);
-      }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      s[j] = visible(p, qpos, k0 + j) ? dot * p.scale_log2 : NEG_INF;
-      mx = fmaxf(mx, s[j]);
-    }
-    const float alpha = exp2f(m - mx);
-    m = mx;
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < VP; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < TN_WIDE; ++j) {
-      const float pj = exp2f(s[j] - m);
-      l += pj;
-#pragma unroll
-      for (int i = 0; i < VP / 4; ++i) {
-        const float4 v4 = *reinterpret_cast<const float4*>(&sV[j][16 * i + 4 * part]);
-        acc[4 * i + 0] = fmaf(pj, v4.x, acc[4 * i + 0]);
-        acc[4 * i + 1] = fmaf(pj, v4.y, acc[4 * i + 1]);
-        acc[4 * i + 2] = fmaf(pj, v4.z, acc[4 * i + 2]);
-        acc[4 * i + 3] = fmaf(pj, v4.w, acc[4 * i + 3]);
-      }
-    }
-  }
-  if (qpos < p.S && p.lse != nullptr && part == 0)   // m and l are in base 2 here
-    p.lse[((size_t)b * p.H + h) * p.S + qpos] =
-        m == NEG_INF ? -INFINITY : (m + log2f(l)) / LOG2E;
-  if (qpos < p.S) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int i = 0; i < VP / 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        store_f(ob + (size_t)qpos * o_stride + 16 * i + 4 * part + e, acc[4 * i + e] * inv);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 template <int DK, int DV, int WN>
@@ -315,60 +209,43 @@ int launch_bf16_tile(const Params& p, const long long* layout, cudaStream_t stre
   return (int)cudaErrorInvalidValue;
 }
 
-template <int DK, int DV, typename T = float>
-void launch_f32(const Params& p, dim3 grid, cudaStream_t stream) {
-  flash_fwd_f32<DK, DV, T><<<grid, BM, 0, stream>>>(p);
-}
-
+// the smoke configs' head dims in bf16: the SIMT kernel
 template <int DK, int DV>
-void launch_f32_wide(const Params& p, dim3 grid, cudaStream_t stream) {
-  flash_fwd_f32_wide<DK, DV, float><<<grid, BM * PARTS, 0, stream>>>(p);
-}
-
-// the smoke configs' head dims: the SIMT kernel in either dtype
-template <int DK, int DV>
-void launch_simt(const Params& p, dim3 grid, cudaStream_t stream, bool is_bf16) {
-  if (is_bf16) launch_f32<DK, DV, __nv_bfloat16>(p, grid, stream);
-  else launch_f32<DK, DV, float>(p, grid, stream);
+void launch_simt(const Params& p, dim3 grid, cudaStream_t stream) {
+  flash_fwd_f32<DK, DV, __nv_bfloat16><<<grid, BM, 0, stream>>>(p);
 }
 
 }  // namespace
 
 // q: (B, S, H, DK); k: (B, Sk, KV, DK); v: (B, Sk, KV, DV); o: (B, S, H, DV);
-// all contiguous, same dtype, given by the launcher's dtype code: 0 fp32,
-// 1 bf16 (2, fp16, runs csrc/flash_attention_f16.cu and is refused here,
-// as is any other code, with cudaErrorInvalidValue).  layout: for
-// bf16 at the wgmma head dims, the TMA layouts of q, k and v (11 values
-// each); unused for fp32 and for the SIMT head dims (16, 16), (24, 16).
-// lse: null, or a (B, H, S) fp32 buffer for each row's logsumexp.
-// kv_tile: the bf16 kernel's kv rows a stage (its layouts' box rows for k
-// and v); unused for fp32.  Returns cudaGetLastError() after the launch, or
+// all contiguous bf16, dtype code 1 (0, fp32, runs
+// csrc/flash_attention_fwd_f32.cu and 2, fp16, csrc/flash_attention_f16.cu:
+// both are refused here, as is any other code, with
+// cudaErrorInvalidValue).  layout: at the wgmma head dims, the TMA layouts
+// of q, k and v (11 values each); unused for the SIMT head dims (16, 16),
+// (24, 16).  lse: null, or a (B, H, S) fp32 buffer for each row's
+// logsumexp.  kv_tile: the wgmma kernel's kv rows a stage (its layouts'
+// box rows for k and v).  Returns cudaGetLastError() after the launch, or
 // a negative code from encode().
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int S, int Sk, int H, int KV, int DK, int DV,
                                    int causal, int window, int dtype, void* stream,
                                    const long long* layout, float* lse, int kv_tile) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  const bool is_bf16 = dtype == 1;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
   Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)DK), lse};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(B * H, (S + BM - 1) / BM);   // the SIMT kernels'
+  const dim3 grid(B * H, (S + BM - 1) / BM);   // the SIMT kernel's
   int err = 0;
   if (DK == DV && DK == 64) {
-    if (is_bf16) err = launch_bf16_tile<64, 64>(p, layout, st, kv_tile);
-    else launch_f32<64, 64>(p, grid, st);
+    err = launch_bf16_tile<64, 64>(p, layout, st, kv_tile);
   } else if (DK == DV && DK == 128) {
-    if (is_bf16) err = launch_bf16_tile<128, 128>(p, layout, st, kv_tile);
-    else launch_f32<128, 128>(p, grid, st);
+    err = launch_bf16_tile<128, 128>(p, layout, st, kv_tile);
   } else if (DK == DV && DK == 256) {
-    if (is_bf16) err = launch_bf16_tile<256, 256>(p, layout, st, kv_tile);
-    else launch_f32_wide<256, 256>(p, grid, st);
-  } else if (DK == 192 && DV == 128 && !is_bf16) {
-    launch_f32_wide<192, 128>(p, grid, st);
+    err = launch_bf16_tile<256, 256>(p, layout, st, kv_tile);
   } else if (DK == 16 && DV == 16) {
-    launch_simt<16, 16>(p, grid, st, is_bf16);
+    launch_simt<16, 16>(p, grid, st);
   } else if (DK == 24 && DV == 16) {
-    launch_simt<24, 16>(p, grid, st, is_bf16);
+    launch_simt<24, 16>(p, grid, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,9 +1,9 @@
 // Flash attention forward and backward on SIMT at any head dims up to 256:
 // the general route (kernels/flash_attention.py:route), for what the wgmma
-// + TMA kernels do not take (fp16, fp32 and bf16 at head dims that are no
-// built pair and not multiples of 8 inside one), forward in bf16, fp16 or
-// fp32, backward in bf16 or fp16 (the fp32 backward runs
-// csrc/flash_attention_bwd_f32.cu at every head dim).
+// + TMA kernels do not take (fp16 and bf16 at head dims that are no built
+// pair and not multiples of 8 inside one), in bf16 or fp16 (fp32 runs
+// csrc/flash_attention_fwd_f32.cu and csrc/flash_attention_bwd_f32.cu at
+// every head dim).
 //
 // Replaces src/repro/kernels/flash_attention.py:flash_attention_bh (the
 // Pallas kernel, which takes any head dim and float dtype) forward, and the
@@ -15,7 +15,7 @@
 // the gradient from it, deterministic, with no atomics.
 //
 // The kernels are templated on a bucket of widths and on the element type
-// T (float, __nv_bfloat16 or __half in memory; the arithmetic is fp32),
+// T (__nv_bfloat16 or __half in memory; the arithmetic is fp32),
 // with the real q/k dim dk and v dim dv at run time:
 //  * forward (flash_fwd_any<PARTS, T>): PARTS adjacent lanes share a q row,
 //    each holding 32 columns of q and of the accumulator (column c at lane
@@ -385,10 +385,10 @@ bool takes(int B, int S, int Sk, int H, int KV, int dk, int dv) {
 }  // namespace
 
 // q: (B, S, H, dk); k: (B, Sk, KV, dk); v: (B, Sk, KV, dv); o: (B, S, H,
-// dv); all contiguous, of one dtype: 0 fp32, 1 bf16, 2 fp16; 1 <= dk, dv
-// <= 256.  lse: null, or a (B, H, S) fp32 buffer.  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for what
-// it does not take.
+// dv); all contiguous, of one dtype: 1 bf16, 2 fp16 (0, fp32, is refused:
+// csrc/flash_attention_fwd_f32.cu computes it); 1 <= dk, dv <= 256.  lse:
+// null, or a (B, H, S) fp32 buffer.  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for what it does not take.
 extern "C" int flash_attention_fwd_any(const void* q, const void* k, const void* v, void* o,
                                        int B, int S, int Sk, int H, int KV, int dk, int dv,
                                        int causal, int window, int dtype, void* stream,
@@ -398,7 +398,6 @@ extern "C" int flash_attention_fwd_any(const void* q, const void* k, const void*
   const Params p{q, k, v, o, nullptr, nullptr, lse, nullptr, nullptr, nullptr, nullptr,
                  B, S, Sk, H, KV, causal, window, dk, dv, scale, LOG2E * scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fwd<float>(p, st);
   if (dtype == 1) return launch_fwd<__nv_bfloat16>(p, st);
   if (dtype == 2) return launch_fwd<__half>(p, st);
   return (int)cudaErrorInvalidValue;

@@ -16,11 +16,9 @@ using namespace hopper;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int BM = 64;        // q rows per block, fp32 kernel
-constexpr int TN = 32;        // kv rows per tile, fp32 kernel
+constexpr int BM = 64;        // q rows per block, SIMT kernel
+constexpr int TN = 32;        // kv rows per tile, SIMT kernel
 constexpr int WM = 128;       // q rows per block, bf16 kernel (two warpgroups of 64)
-constexpr int PARTS = 4;      // threads a q row, fp32 kernel at D 256
-constexpr int TN_WIDE = 16;   // kv rows per tile, fp32 kernel at D 256
 
 struct Params {
   const void* q;

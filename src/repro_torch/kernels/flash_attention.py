@@ -21,35 +21,37 @@ lse scratch padded to them, :func:`bwd_scratch_rows`), and the dK/dV
 kernel may split each kv tile's q heads into shares over blocks
 (:func:`bwd_head_shares`, from the shapes and the card's SM count), and a
 third kernel then sums the shares' fp32 partials in a fixed order.  bf16
-at the models' head dims goes to the wgmma + TMA kernels, fp32 and the smoke configs'
-head dims (16, 16) and (24, 16) in bf16 to SIMT kernels.  The fp32
-backward has a route of its own (:func:`bwd_route`, kind "f32"): two
-register-tiled kernels on the CUDA cores at every head-dim pair up to 256
-(``csrc/flash_attention_bwd_f32.cu``, templated on the buckets
-``F32_BUCKETS``, tiles :func:`bwd_f32_tiles`), with head shares and their
-fixed-order sum where few kv tiles would leave SMs idle; the fp32 forward
-keeps its routes.
+at the models' head dims goes to the wgmma + TMA kernels, the smoke
+configs' head dims (16, 16) and (24, 16) in bf16 to SIMT kernels.  fp32
+takes a route of its own in both directions (:func:`route`, kind "f32";
+:func:`bwd_route` is :func:`route`): register-tiled kernels on the CUDA
+cores at every head-dim pair up to 256, templated on the buckets
+``F32_BUCKETS`` with the real dims at run time, the forward
+``csrc/flash_attention_fwd_f32.cu`` (tiles :func:`fwd_f32_tiles`) and
+the backward's two kernels ``csrc/flash_attention_bwd_f32.cu`` (tiles
+:func:`bwd_f32_tiles`), with head shares and their fixed-order sum where
+few kv tiles would leave SMs idle.
 
-Every other head-dim pair up to 256 and fp16 take one of three more
-routes (:func:`route`): bf16 at head dims that are multiples of 8 takes
-the wgmma + TMA kernels of the smallest built pair that holds them (its
-bucket, ``BUCKETS``), with tensor maps at the real dims (TMA zero-fills
-the last box's columns past them; ``csrc/flash_attention_pad.cu``,
-``csrc/flash_attention_bwd_pad.cu``, and ``flash_fwd_bf16_ws`` in the
-(192, 128) bucket); fp16 at every head-dim pair where bf16 runs on wgmma
-(the built pairs and those dims) takes the same kernels in f16 wgmma with
-f16 tensor maps, the forward's padded form at the bucket's default kv
-tile and the backward's at a built pair's own widths or padded
-(``csrc/flash_attention_f16.cu``, ``csrc/flash_attention_bwd_f16.cu``,
-``flash_attention_fwd_ws_f16`` in ``csrc/flash_attention_fwd_ws.cu``);
-and everything else (fp16 at the smoke dims and at dims that are not
-multiples of 8; fp32 off the built pairs, forward only) the general SIMT
-kernels
-(``csrc/flash_attention_any.cu``).  The C entries take the dtype as a
-code (``_DTYPES``: 0 fp32, 1 bf16, 2 fp16) and refuse one they are not
-built for.  The route follows from dtype and head dims alone, never from
-a failure of another route.  The public entry is :func:`repro_torch.kernels.ops.flash_attention`
-(with :class:`repro_torch.kernels.ops.FlashAttention` for autograd), which
+Every other head-dim pair up to 256 in bf16, and fp16, take one of three
+more routes (:func:`route`): bf16 at head dims that are multiples of 8
+takes the wgmma + TMA kernels of the smallest built pair that holds them
+(its bucket, ``BUCKETS``), with tensor maps at the real dims (TMA
+zero-fills the last box's columns past them;
+``csrc/flash_attention_pad.cu``, ``csrc/flash_attention_bwd_pad.cu``,
+and ``flash_fwd_bf16_ws`` in the (192, 128) bucket); fp16 at every
+head-dim pair where bf16 runs on wgmma (the built pairs and those dims)
+takes the same kernels in f16 wgmma with f16 tensor maps, the forward's
+padded form at the bucket's default kv tile and the backward's at a
+built pair's own widths or padded (``csrc/flash_attention_f16.cu``,
+``csrc/flash_attention_bwd_f16.cu``, ``flash_attention_fwd_ws_f16`` in
+``csrc/flash_attention_fwd_ws.cu``); and everything else (fp16 at the
+smoke dims and at dims that are not multiples of 8) the general SIMT
+kernels (``csrc/flash_attention_any.cu``).  The C entries take the dtype
+as a code (``_DTYPES``: 0 fp32, 1 bf16, 2 fp16) and refuse one they are
+not built for.  The route follows from dtype and head dims alone, never
+from a failure of another route.  The public entry is
+:func:`repro_torch.kernels.ops.flash_attention` (with
+:class:`repro_torch.kernels.ops.FlashAttention` for autograd), which
 counts the launches; this module only checks and launches.
 """
 from __future__ import annotations
@@ -67,8 +69,8 @@ _DTYPES = {torch.bfloat16: 1, torch.float32: 0, torch.float16: 2}
 MAX_HEAD_DIM = 256
 # the (q/k head dim, v head dim) pairs with instantiations of their own
 # (every other pair takes a bucket's or the general kernels, see route):
-# the models' (bf16 on wgmma + TMA, fp32 on SIMT) and the smoke configs'
-# (SIMT in both dtypes: 16 or 24 columns are not whole TMA boxes)
+# the models' (bf16 on wgmma + TMA) and the smoke configs' (bf16 on SIMT:
+# 16 or 24 columns are not whole TMA boxes); fp32 takes F32_BUCKETS
 SIMT_HEAD_DIMS = frozenset({(16, 16), (24, 16)})
 HEAD_DIMS = frozenset({(64, 64), (128, 128), (256, 256), (192, 128)}) | SIMT_HEAD_DIMS
 BWD_HEAD_DIMS = HEAD_DIMS
@@ -100,16 +102,22 @@ BOX_COLS = 64
 # rows
 SPLIT_HEAD_DIMS = frozenset({(256, 256), (192, 128)})
 BWD_SPLIT_WAVES = 2
-# the fp32 backward's buckets of widths, smallest first (BUCKETS in
-# csrc/flash_attention_bwd_f32.cu): a call takes the first that holds its
-# head dims, with the real dims at run time; by bucket the rows a block keeps
-# (kv rows of dK/dV, q rows of dQ) and the rows a stage streams
+# the fp32 kernels' buckets of widths, smallest first (BUCKETS in
+# csrc/flash_attention_fwd_f32.cu and csrc/flash_attention_bwd_f32.cu): a
+# call takes the first that holds its head dims, with the real dims at run
+# time; by bucket the backward's rows a block keeps (kv rows of dK/dV, q
+# rows of dQ) and the rows a stage streams, and the forward's q rows a
+# block keeps and kv rows a stage streams
 F32_BUCKETS = ((64, 64), (96, 96), (128, 128), (192, 128), (256, 256))
 F32_TILE_ROWS = {(64, 64): (64, 64), (96, 96): (64, 64), (128, 128): (64, 32),
                  (192, 128): (64, 32), (256, 256): (32, 32)}
-# the floats that pad each of the fp32 kernels' shared rows; the shared
-# memory a block can use on the H100
+F32_FWD_TILES = {(64, 64): (128, 64), (96, 96): (128, 64), (128, 128): (128, 32),
+                 (192, 128): (128, 32), (256, 256): (64, 32)}
+# the floats that pad each of the fp32 kernels' shared rows (the forward's
+# score rows by F32_SCORE_PAD); the shared memory a block can use on the
+# H100
 F32_PAD = 4
+F32_SCORE_PAD = 8
 SMEM_BYTES = 232448
 # the fp32 dK/dV kernel splits a kv tile's q heads until one wave is launched
 F32_SPLIT_WAVES = 1
@@ -157,9 +165,43 @@ class F32Tiles(NamedTuple):
 
 
 def f32_bucket(dk: int, dv: int) -> tuple[int, int]:
-    """The fp32 backward's bucket at head dims (dk, dv): the first of
+    """The fp32 kernels' bucket at head dims (dk, dv): the first of
     F32_BUCKETS that holds both (phi-2's D 80 takes (96, 96))."""
     return next((bk, bv) for bk, bv in F32_BUCKETS if dk <= bk and dv <= bv)
+
+
+class F32FwdTiles(NamedTuple):
+    """The fp32 forward's tiles at a bucket: ``dims`` the bucket, ``rows``
+    of Q a block keeps, ``stream_rows`` of K and V a stage brings,
+    ``stages`` (three where they fit, else two), ``dsplit`` the score
+    tile's partial sums over the head dim (two where a stage is 32 rows),
+    and the shared bytes as csrc/flash_attention_fwd_f32.cu's ``Tiles``
+    lays them out (one block an SM)."""
+    dims: tuple[int, int]
+    rows: int
+    stream_rows: int
+    stages: int
+    dsplit: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_f32_tiles(dk: int, dv: int) -> F32FwdTiles:
+    """The fp32 forward's tiles at head dims (dk, dv), those of their
+    bucket: Q of ``rows`` rows stays, ``stages`` stages of ``stream_rows``
+    rows of K and V stream (rows padded by F32_PAD floats); the score tile,
+    rows x stream_rows padded by F32_SCORE_PAD, ``dsplit`` partial sums,
+    then P; each row's alpha and l."""
+    bk, bv = f32_bucket(dk, dv)
+    rows, stream = F32_FWD_TILES[(bk, bv)]
+    dsplit = 2 if stream == 32 else 1
+
+    def nbytes(stages: int) -> int:
+        return 4 * (rows * (bk + F32_PAD) + stages * stream * (bk + bv + 2 * F32_PAD)
+                    + dsplit * rows * (stream + F32_SCORE_PAD) + 2 * rows)
+
+    stages = 3 if nbytes(3) <= SMEM_BYTES else 2
+    return F32FwdTiles((bk, bv), rows, stream, stages, dsplit, nbytes(stages))
 
 
 @functools.lru_cache(maxsize=None)
@@ -198,11 +240,11 @@ class Route(NamedTuple):
     """How a call runs: ``kind`` "tma" (bf16 at a built pair), "pad" (bf16
     at head dims that are multiples of 8 inside a built pair, on its
     kernels), "f16" (fp16 where bf16 takes "tma" or "pad": the same
-    kernels in fp16), "simt" (fp32 at a built pair, and
-    the smoke configs' head dims in bf16 and fp32) or "any" (the general
-    SIMT kernels), and for the fp32 backward alone "f32" (:func:`bwd_route`);
-    ``dims`` the instantiation's head dims: the bucket on "tma", "pad",
-    "f16" and "f32", the real dims otherwise."""
+    kernels in fp16), "f32" (fp32 at every pair: the register-tiled
+    kernels, forward and backward), "simt" (the smoke configs' head dims
+    in bf16) or "any" (the general SIMT kernels); ``dims`` the
+    instantiation's head dims: the bucket on "tma", "pad", "f16" and
+    "f32", the real dims otherwise."""
     kind: str
     dims: tuple[int, int]
 
@@ -218,10 +260,11 @@ def bucket(dk: int, dv: int) -> tuple[int, int]:
 def route(dtype: torch.dtype, dk: int, dv: int) -> Route:
     """The route of a call, by dtype and head dims alone (cached: the
     launchers ask at every call)."""
+    if dtype == torch.float32:
+        return Route("f32", f32_bucket(dk, dv))
     if dtype == torch.bfloat16 and (dk, dv) in BUCKETS:
         return Route("tma", (dk, dv))
-    if ((dk, dv) in SIMT_HEAD_DIMS and dtype in (torch.bfloat16, torch.float32)
-            or dtype == torch.float32 and (dk, dv) in BUCKETS):
+    if (dk, dv) in SIMT_HEAD_DIMS and dtype == torch.bfloat16:
         return Route("simt", (dk, dv))
     if dtype == torch.bfloat16 and dk % 8 == 0 and dv % 8 == 0 and bucket(dk, dv) in BUCKETS:
         return Route("pad", bucket(dk, dv))
@@ -230,13 +273,10 @@ def route(dtype: torch.dtype, dk: int, dv: int) -> Route:
     return Route("any", (dk, dv))
 
 
-@functools.lru_cache(maxsize=None)
 def bwd_route(dtype: torch.dtype, dk: int, dv: int) -> Route:
-    """The backward's route, by dtype and head dims alone: fp32 at every
-    pair takes the register-tiled kernels (kind "f32", ``dims`` its
-    bucket in F32_BUCKETS); every other dtype the forward's route."""
-    if dtype == torch.float32:
-        return Route("f32", f32_bucket(dk, dv))
+    """The backward's route: the forward's, for every dtype and head dims
+    (fp32 at every pair on the register-tiled kernels, kind "f32",
+    ``dims`` its bucket in F32_BUCKETS)."""
     return route(dtype, dk, dv)
 
 
@@ -408,6 +448,14 @@ def _any_fn():
     return fn
 
 
+def _fwd_f32_fn():
+    fn = build.library("flash_attention_fwd_f32").flash_attention_fwd_f32
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2)
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _bwd_pad_fn():
     fn = build.library("flash_attention_bwd_pad").flash_attention_bwd_pad
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
@@ -531,11 +579,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     logsumexp (B, H, S) in fp32.  1 <= D, Dv <= MAX_HEAD_DIM; bf16, fp16
     or fp32 (:func:`route` picks the kernel: bf16 and fp16 at head dims
     that are multiples of 8 inside a built pair the wgmma + TMA kernels,
-    the rest SIMT).  ``kv_tile`` picks the bf16 wgmma kernel's kv tile
-    among its bucket's ``KV_TILES`` (None: the default); fp16 on wgmma is
-    built at the default tile alone, and the SIMT kernels (fp32, the smoke
-    head dims, head dims that are not multiples of 8) have one tile: both
-    take None or that tile only, else ValueError."""
+    fp32 the register-tiled kernel, the rest SIMT).  ``kv_tile`` picks the
+    bf16 wgmma kernel's kv tile among its bucket's ``KV_TILES`` (None: the
+    default); fp16 on wgmma is built at the default tile alone, and the
+    fp32 and SIMT kernels (the smoke head dims, head dims that are not
+    multiples of 8) have one tile: both take None or that tile only, else
+    ValueError."""
     _check(q, k, v)
     b, s, h, d = q.shape
     sk, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -571,6 +620,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             err = _f16_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                             b, s, sk, h, kvh, d, dv, *r.dims, int(causal), int(window),
                             _DTYPES[q.dtype], stream, layout, lse_ptr, tile)
+        elif r.kind == "f32":   # the register-tiled kernel of the bucket
+            err = _fwd_f32_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                b, s, sk, h, kvh, d, dv, int(causal), int(window),
+                                _DTYPES[q.dtype], stream, lse_ptr)
         elif r.kind == "any":
             err = _any_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                             b, s, sk, h, kvh, d, dv, int(causal), int(window), _DTYPES[q.dtype],

@@ -9,12 +9,13 @@ plain version (``kernels.ref``).  Neither falls back from the kernel to
 the plain version.
 
 Attention differentiates through :class:`FlashAttention`: its forward
-launches the flash kernel with each row's logsumexp, its backward the
-gradient's kernels (``csrc/flash_attention_bwd.cu``; in fp32
-``csrc/flash_attention_bwd_f32.cu``); on the CPU the
-plain forward and ``flash_attention_bwd_ref``.  ``flash_attention``
-takes that path only when autograd needs it (grad enabled and an input
-requiring grad); prefill and decode make the direct call.  The SSD scan
+launches the flash kernel (in fp32 ``csrc/flash_attention_fwd_f32.cu``)
+with each row's logsumexp, its backward the gradient's kernels
+(``csrc/flash_attention_bwd.cu``; in fp32
+``csrc/flash_attention_bwd_f32.cu``); on the CPU the plain forward and
+``flash_attention_bwd_ref``.  ``flash_attention`` takes that path only
+when autograd needs it (grad enabled and an input requiring grad);
+prefill and decode make the direct call.  The SSD scan
 differentiates alike through :class:`SsdScan`: its backward launches
 ``csrc/ssd_scan_bwd.cu``; on the CPU the plain ``ssd_ref`` and
 ``ssd_bwd_ref``.
@@ -117,7 +118,7 @@ def _flash_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 
 def _count_route(fn, prefix: str, kind: str) -> None:
     """One launch on the padded, the fp16 wgmma, the general or the fp32
-    backward's route, by the route's kind."""
+    route, by the route's kind."""
     if kind in ("pad", "f16", "any", "f32"):
         name = f"{prefix}{kind}_launches"
         setattr(fn, name, getattr(fn, name) + 1)
@@ -125,7 +126,8 @@ def _count_route(fn, prefix: str, kind: str) -> None:
 
 def _count_forward(q: torch.Tensor, v: torch.Tensor) -> None:
     """One forward launch; one more of the MLA kernel where it took it, and
-    of the padded, the fp16 wgmma or the general route where it took one."""
+    of the padded, the fp16 wgmma, the general or the fp32 route where it
+    took one."""
     flash_attention.launches += 1
     if ws_route(q.dtype, q.shape[3], v.shape[3]):
         flash_attention.ws_launches += 1
@@ -192,8 +194,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``pad_launches`` / ``bwd_pad_launches``, ``f16_launches`` /
     ``bwd_f16_launches`` and ``any_launches`` / ``bwd_any_launches`` those
     that took the padded bf16, the fp16 wgmma and the general route
-    (``kernels.flash_attention.route``), ``bwd_f32_launches`` the backward
-    launches on the fp32 register-tiled kernels (``bwd_route``)."""
+    (``kernels.flash_attention.route``), ``f32_launches`` /
+    ``bwd_f32_launches`` the forward and backward launches on the fp32
+    register-tiled kernels (route kind "f32")."""
     if _is_dtensor(q):
         return _flash_on_mesh(q, k, v, causal, window, kv_tile)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
@@ -219,7 +222,7 @@ flash_attention.bwd_launches = 0
 flash_attention.pad_launches = flash_attention.bwd_pad_launches = 0
 flash_attention.f16_launches = flash_attention.bwd_f16_launches = 0
 flash_attention.any_launches = flash_attention.bwd_any_launches = 0
-flash_attention.bwd_f32_launches = 0
+flash_attention.f32_launches = flash_attention.bwd_f32_launches = 0
 
 
 def _ssd_hook(name: str, x, a, b, initial_state, **kw) -> None:

@@ -71,6 +71,65 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
     return lse.reshape(b, h, s)
 
 
+def flash_attention_fwd_tiled_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                                  causal: bool = True, window: int = 0, rows: int,
+                                  stream_rows: int, widths: tuple[int, int]
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 forward kernel's decomposition (csrc/flash_attention_fwd_f32.cu)
+    in fp32: q, k and v zero-padded to the bucket's ``widths`` (and k, v to
+    whole kv tiles); blocks of ``rows`` q rows over the kv tiles of
+    ``stream_rows`` that hold a key some row of the block sees; an online
+    softmax in base 2 (scores masked to -1e30, the running max m, alpha =
+    exp2(m_old - m), P = exp2(s - m), l = l alpha + rowsum(P)), O = O alpha
+    + P V; o = O / max(l, 1e-30) and lse = (m + log2 l) / log2(e), -inf
+    where m stayed -1e30.  A row with no visible key weighs every slot of
+    its block's tiles 1 (zero rows past Sk); a block with no tile writes
+    zeros.  q (B, S, H, D), k (B, Sk, KV, D), v (B, Sk, KV, Dv) -> (o (B, S,
+    H, Dv) in q's dtype, lse (B, H, S) fp32)."""
+    b, s, h, d = q.shape
+    sk, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
+    wk, wv = widths
+    pad_k = -(-sk // stream_rows) * stream_rows - sk
+    kv_of = torch.arange(h, device=q.device) // (h // kvh)
+    qf = torch.nn.functional.pad(q.float(), (0, wk - d))
+    kf = torch.nn.functional.pad(k.float(), (0, wk - d, 0, 0, 0, pad_k))[:, :, kv_of]
+    vf = torch.nn.functional.pad(v.float(), (0, wv - dv, 0, 0, 0, pad_k))[:, :, kv_of]
+    scale_log2 = math.log2(math.e) / math.sqrt(d)
+    neg = -1e30
+    o = torch.zeros((b, s, h, wv), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    for q0 in range(0, s, rows):
+        qn = min(rows, s - q0)
+        hi = min(sk, q0 + rows) if causal else sk
+        lo = max(0, q0 - window + 1) if window else 0
+        m = torch.full((b, h, qn), neg, device=q.device)
+        l = torch.zeros((b, h, qn), device=q.device)
+        acc = torch.zeros((b, h, qn, wv), device=q.device)
+        for t in range(lo // stream_rows, -(-hi // stream_rows) if hi > lo else 0):
+            k0 = t * stream_rows
+            sc = torch.einsum("bqhd,bnhd->bhqn", qf[:, q0:q0 + qn],
+                              kf[:, k0:k0 + stream_rows]) * scale_log2
+            qp = torch.arange(q0, q0 + qn, device=q.device)[:, None]
+            kp = torch.arange(k0, k0 + stream_rows, device=q.device)[None, :]
+            vis = kp < sk
+            if causal:
+                vis = vis & (kp <= qp)
+            if window:
+                vis = vis & (kp > qp - window)
+            sc = torch.where(vis, sc, neg)
+            m_new = torch.maximum(m, sc.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(sc - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhqn,bnhd->bhqd", p,
+                                                        vf[:, k0:k0 + stream_rows])
+            m = m_new
+        o[:, q0:q0 + qn] = (acc / l.clamp_min(1e-30)[..., None]).transpose(1, 2)
+        lse[:, :, q0:q0 + qn] = torch.where(m == neg, -math.inf,
+                                            (m + torch.log2(l)) / math.log2(math.e))
+    return o[..., :dv].to(q.dtype), lse
+
+
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
                             causal: bool = True, window: int = 0, shares: int = 1

@@ -49,8 +49,8 @@ def test_cuda_kernel_matches_plain_version(dtype, causal, window, s, d):
     (torch.bfloat16, False, 0, 300, 2, 8, 2), (torch.float32, False, 0, 100, 2, 8, 2),
     (torch.bfloat16, True, 0, 40, 2, 16, 1), (torch.bfloat16, True, 64, 200, 2, 16, 4)])
 def test_cuda_kernel_d256_matches_plain_version(dtype, causal, window, s, b, h, kv):
-    """D 256: the bf16 kernel's 64-key tiles and the fp32 kernel's four
-    threads a row, against the plain version at the repo's tolerances."""
+    """D 256: the bf16 kernel's 64-key tiles and the fp32 register-tiled
+    kernel, against the plain version at the repo's tolerances."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -313,7 +313,7 @@ def test_cuda_moe_scatter_is_bit_stable(capacity_factor):
     (torch.float32, True, 1000, 1, 16), (torch.float32, True, 130, 2, 8)])
 def test_cuda_kernel_dk192_dv128_matches_plain_version(dtype, causal, s, b, h):
     """MLA's head dims: the bf16 kernel with v's own tensor map and an
-    m64n128k16 P V product, the fp32 kernel of four threads a row, against
+    m64n128k16 P V product, the fp32 register-tiled kernel, against
     the plain version at the repo's tolerances; the output is v's width."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
@@ -714,6 +714,64 @@ def test_cuda_flash_backward_f32_matches_autograd(b, s, sk, h, kv, d, dv, causal
         before[0] + 1, before[1] + 1)
     for g, w in zip(through, got):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+# the fp32 forward's register-tiled kernel (csrc/flash_attention_fwd_f32.cu)
+# at the backward's cases, and Sk < S under a window, whose last rows see no
+# key
+F32_FWD_CASES = F32_BWD_CASES + [(1, 200, 40, 4, 2, 64, 64, True, 16),
+                                 (1, 300, 70, 4, 1, 80, 80, True, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,sk,h,kv,d,dv,causal,window", F32_FWD_CASES)
+def test_cuda_flash_forward_f32_matches_plain(b, s, sk, h, kv, d, dv, causal, window):
+    """The fp32 forward kernel against the plain version at 1e-4 (max |out
+    - ref| / (1 + |ref|)) and its lse at 1e-4 on the rows that see a key,
+    against its tiled mirror on every row at 1e-5; the profiler's kernel the
+    register-tiled one alone, two launches bit for bit, and through
+    ``ops.flash_attention`` one launch on the "f32" route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import fwd_f32_tiles, route
+    from repro_torch.kernels.ref import flash_attention_fwd_tiled_ref
+
+    assert route(torch.float32, d, dv).kind == "f32"
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    q = torch.randn(b, s, h, d, generator=gen, device="cuda")
+    k, v = (torch.randn(b, sk, kv, n, generator=gen, device="cuda") for n in (d, dv))
+    kw = dict(causal=causal, window=window)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    names = set()
+    for _ in range(3):   # the profiler may return no record of a few-microsecond window
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        if names:
+            break
+    assert names and all("flash_fwd_f32_tiled" in n for n in names), names
+    seen = torch.isfinite(lse)                                  # (B, H, S)
+    want_lse = flash_attention_lse_ref(q, k, v, **kw)
+    assert torch.equal(seen, torch.isfinite(want_lse))
+    assert _scaled(lse[seen], want_lse[seen]) <= 1e-4
+    rows = seen.transpose(1, 2)
+    assert _scaled(o[rows], flash_attention_ref(q, k, v, **kw)[rows]) <= 1e-4
+    t = fwd_f32_tiles(d, dv)
+    mo, mlse = flash_attention_fwd_tiled_ref(q, k, v, rows=t.rows, stream_rows=t.stream_rows,
+                                             widths=t.dims, **kw)
+    assert _scaled(o, mo) <= 1e-5 and torch.equal(torch.isinf(lse), torch.isinf(mlse))
+    again = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+    before = (flash_attention.launches, flash_attention.f32_launches)
+    through = flash_attention(q, k, v, **kw)
+    assert (flash_attention.launches, flash_attention.f32_launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    assert torch.equal(through, o)
 
 
 @pytest.mark.cuda

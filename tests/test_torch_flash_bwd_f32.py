@@ -31,7 +31,7 @@ import torch
 
 from repro.models.layers import blockwise_mha as jax_blockwise_mha
 from repro_torch.kernels import flash_attention as flash_launcher
-from repro_torch.kernels.flash_attention import (BUCKETS, F32_BUCKETS, F32_SPLIT_WAVES,
+from repro_torch.kernels.flash_attention import (F32_BUCKETS, F32_SPLIT_WAVES,
                                                  F32_TILE_ROWS,
                                                  bwd_f32_head_shares, bwd_f32_tiles,
                                                  bwd_head_shares, bwd_route,
@@ -148,8 +148,11 @@ def test_f32_tiles_fit_shared_memory(bucket):
 
 def test_csrc_states_the_same_tiles():
     """The C source's bucket table, pad, threads and shared-byte formulas
-    are the launcher's: the launcher plans the head shares at its rows."""
+    (the pad and threads in the header the fp32 kernels share) are the
+    launcher's: the launcher plans the head shares at its rows."""
     src = (CSRC / "flash_attention_bwd_f32.cu").read_text()
+    assert '#include "flash_attention_f32.cuh"' in src
+    src += (CSRC / "flash_attention_f32.cuh").read_text()
     table = re.search(r"constexpr int BUCKETS\[5\]\[4\] = \{(.*?)\};", src, re.S).group(1)
     rows = [tuple(int(x) for x in m) for m in re.findall(r"\{(\d+), (\d+), (\d+), (\d+)\}",
                                                           table)]
@@ -177,7 +180,8 @@ def test_old_fp32_backward_instantiations_are_gone():
     anyc = (CSRC / "flash_attention_any.cu").read_text()
     entry = anyc[anyc.index('extern "C" int flash_attention_bwd_any'):]
     assert "launch_bwd<float>" not in entry and "dtype == 0" not in entry
-    assert "launch_fwd<float>" in anyc   # the fp32 forward keeps its general kernels
+    # the fp32 forward left the general kernels too (csrc/flash_attention_fwd_f32.cu)
+    assert "launch_fwd<float>" not in anyc
 
 
 @pytest.mark.parametrize("dk,dv", HEAD_DIMS + [(1, 1), (5, 3), (8, 8), (20, 20), (96, 64),
@@ -185,17 +189,16 @@ def test_old_fp32_backward_instantiations_are_gone():
                                                (193, 128), (200, 136), (72, 256), (256, 1)])
 def test_fp32_backward_takes_the_f32_route(dk, dv):
     """fp32 backward: kind "f32" at every pair, its bucket the first of
-    F32_BUCKETS that holds both dims; the fp32 forward's route and every
-    bf16 and fp16 route, both directions, are what ``route`` says."""
+    F32_BUCKETS that holds both dims; the fp32 forward's route is the same,
+    and every bf16 and fp16 route, both directions, is what ``route``
+    says."""
     r = bwd_route(torch.float32, dk, dv)
     assert r.kind == "f32" and r.dims == f32_bucket(dk, dv)
     bk, bv = r.dims
     assert dk <= bk and dv <= bv
     earlier = F32_BUCKETS[:F32_BUCKETS.index(r.dims)]
     assert not any(dk <= sk and dv <= sv for sk, sv in earlier)
-    fwd = route(torch.float32, dk, dv)
-    assert fwd.kind == ("simt" if (dk, dv) in BUCKETS or (dk, dv) in {(16, 16), (24, 16)}
-                        else "any")
+    assert route(torch.float32, dk, dv) == r
     for dtype in (torch.bfloat16, torch.float16):
         assert bwd_route(dtype, dk, dv) == route(dtype, dk, dv)
     assert bwd_scratch_rows(100, torch.float32, dk, dv) == 128
@@ -294,12 +297,15 @@ def test_a_failed_fp32_backward_raises_without_another_route(recorded, code):
 
 
 def test_the_fp32_forward_keeps_its_entries(recorded):
-    """The fp32 forward at a built pair and off it: the entries it called
-    before (dtype code 0), with no tile."""
+    """The fp32 forward at a built pair and off it: both on the register-
+    tiled forward's entry (route kind "f32", dtype code 0), with the lse
+    buffer where it is asked for; neither the SIMT nor the general entry."""
     q, k, v = torch.zeros(1, 70, 4, 64), torch.zeros(1, 70, 2, 64), torch.zeros(1, 70, 2, 64)
     flash_launcher.flash_attention_cuda(q, k, v, causal=True, window=0, return_lse=True)
     q, k, v = torch.zeros(1, 70, 4, 80), torch.zeros(1, 70, 2, 80), torch.zeros(1, 70, 2, 80)
     flash_launcher.flash_attention_cuda(q, k, v, causal=True, window=0)
     (f, _, fa), (a, _, aa) = recorded.calls
-    assert (f, a) == ("flash_attention_fwd", "flash_attention_fwd_any")
-    assert fa[13] == 0 and fa[-1] == 0 and aa[13] == 0
+    assert (f, a) == ("flash_attention_fwd_f32", "flash_attention_fwd_f32")
+    assert fa[9:11] == (64, 64) and aa[9:11] == (80, 80)
+    assert fa[13] == 0 and aa[13] == 0
+    assert fa[-1] is not None and aa[-1] is None

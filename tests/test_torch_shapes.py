@@ -223,21 +223,25 @@ def test_ssd_gradients_match_jax_grad(p, n):
                                    (160, 128), (144, 64), (200, 200), (20, 20), (72, 260 - 4),
                                    (1, 1)])
 def test_flash_route_and_bucket(dk, dv, dtype):
-    """bf16 at a built pair: its own kernels; fp32 at a built pair and the
-    smoke dims in bf16 or fp32: their SIMT instantiations; bf16 at head
-    dims that are multiples of 8: the smallest built pair that holds them
-    (D 80 and 96 take (128, 128)); fp16 wherever bf16 takes those two: the
-    same kernels in fp16 ("f16", the bucket's); the rest (fp16 at the smoke
-    dims and at other dims, fp32 off the built pairs): the general SIMT
-    kernels.  The tiles and the scratch follow the bucket."""
+    """bf16 at a built pair: its own kernels; fp32 at every pair: the
+    register-tiled kernels of its bucket in F32_BUCKETS ("f32"); the smoke
+    dims in bf16: their SIMT instantiations; bf16 at head dims that are
+    multiples of 8: the smallest built pair that holds them (D 80 and 96
+    take (128, 128)); fp16 wherever bf16 takes those two: the same kernels
+    in fp16 ("f16", the bucket's); the rest (fp16 at the smoke dims and at
+    other dims): the general SIMT kernels.  The tiles and the scratch
+    follow the bucket."""
     r = route(dtype, dk, dv)
     assert r is route(dtype, dk, dv)                 # cached
     built = (dk, dv) in BUCKETS
     smoke = (dk, dv) in {(16, 16), (24, 16)}
     padded = dk % 8 == 0 and dv % 8 == 0 and dk <= 256 and dv <= 256
-    if dtype == torch.bfloat16 and built:
+    if dtype == torch.float32:
+        assert r == ("f32", flash_launcher.f32_bucket(dk, dv))
+        assert not flash_launcher.tma_route(dtype, dk, dv)
+    elif dtype == torch.bfloat16 and built:
         assert r == ("tma", (dk, dv))
-    elif smoke and dtype != torch.float16 or dtype == torch.float32 and built:
+    elif smoke and dtype == torch.bfloat16:
         assert r == ("simt", (dk, dv))
     elif dtype != torch.float32 and not smoke and padded:
         assert r.kind == ("pad" if dtype == torch.bfloat16 else "f16")

@@ -9,6 +9,7 @@
     python3 tools/flash_ab.py SRC [SRC ...] --shapes ssd_bwd,ssd_bwd_b2
     python3 tools/flash_ab.py SRC [SRC ...] --shapes granite_fp16,d128_fp16,granite_bwd_fp16
     python3 tools/flash_ab.py SRC [SRC ...] --shapes fp32_bwd,fp32_d128_bwd,d256_bwd_fp32
+    python3 tools/flash_ab.py SRC [SRC ...] --shapes granite_fp32,mla_fp32_b4,d256_fp32,d80_fp32
 
 Each SRC is the ``src`` directory of a checkout of this repository.  All
 checkouts' kernels are built first, in parallel.  Then every round runs
@@ -85,8 +86,10 @@ SHAPES = {  # flash: (B, S, H, KV, D, Dv, window): granite-3-2b's prefill, a
     "d80_bwd_fp16": ("flash_bwd", (4, 1024, 32, 32, 80, 80, 0, "float16")),
     # fp32: the backward on its register-tiled kernels at chip_smoke.py's
     # flash_bwd_vs_plain fp32 cases (granite's, D 128's, recurrentgemma's
-    # one kv head with its window, MLA's) and phi-2's D 80, and the forward
-    # (unchanged by the backward's route) at three of them
+    # one kv head with its window, MLA's) and phi-2's D 80; the forward on
+    # its register-tiled kernel at three of them, and at chip_smoke.py's
+    # full-width fp32 cases: MLA at B 4, recurrentgemma-9b's windowed MQA
+    # layer and D 128
     "fp32_bwd": ("flash_bwd", (4, 1024, 32, 8, 64, 64, 0, "float32")),
     "fp32_d128_bwd": ("flash_bwd", (2, 512, 32, 8, 128, 128, 0, "float32")),
     "d256_bwd_fp32": ("flash_bwd", (2, 1024, 16, 1, 256, 256, 768, "float32")),
@@ -96,6 +99,9 @@ SHAPES = {  # flash: (B, S, H, KV, D, Dv, window): granite-3-2b's prefill, a
     "granite_fp32": ("flash", (4, 1024, 32, 8, 64, 64, 0, "float32")),
     "mla_fp32": ("flash", (1, 512, 128, 128, 192, 128, 0, "float32")),
     "d80_fp32": ("flash", (4, 1024, 32, 32, 80, 80, 0, "float32")),
+    "mla_fp32_b4": ("flash", (4, 1024, 128, 128, 192, 128, 0, "float32")),
+    "d256_fp32": ("flash", (4, 2560, 16, 1, 256, 256, 2048, "float32")),
+    "d128_fp32": ("flash", (4, 1024, 32, 8, 128, 128, 0, "float32")),
     # ssd: (B, L, H, chunk, views): mamba2-780m's prefill (P 64, N 128), at
     # the train step's microbatch B 2, a longer prompt, and x, B, C as views
     # of one conv output as the model passes them
