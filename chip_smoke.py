@@ -1576,15 +1576,20 @@ def kernel_device_ms(fn, iters: int = 50) -> float:
 
 def kernels_device_ms(fn, iters: int = 50) -> dict[str, float]:
     """Mean device ms a call of ``fn`` spends in each kernel, by the
-    profiler's kernel name."""
+    profiler's kernel name.  A window the profiler returned no record of
+    is profiled again, up to three times."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_kernel = {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA}
+        if by_kernel:
+            break
+    return by_kernel
 
 
 def flash_bwd_split_ms(by_kernel: dict[str, float]) -> dict[str, float]:
