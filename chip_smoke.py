@@ -12,15 +12,17 @@ an initial state (``ssd_groups``: both directions against ``ssd_ref`` and
 ``ssd_bwd_ref``, and mamba2-780m at full width and depth with 8 groups,
 its prefill against the plain path, its decode at depth 1 and its train
 step's gradients at depth 2), then the kernels off the ten configs' shapes
-(``shapes``: the padded bf16 route, fp16's wgmma route, the general
-SIMT route and fp32's register-tiled route of ``kernels/*.py:route`` at
-small cases in bf16, fp16 and fp32, both directions, against the plain
-versions, the fp16 ones with the
-kernels the profiler saw; phi-2's (D 80, bf16, fp16 and fp32) and
-phi-3-mini's (D 96) attention and Zamba2's SSD (P 64, N 64) at full
-width, timed beside their bounds, the plain versions and SDPA; granite at
-head dim 40 (bf16, fp16, fp32) and mamba2 at (P, N) = (32, 64), prefill,
-decode and a train step's gradients, kernel path against plain path;
+(``shapes``: the padded bf16 route, fp16's wgmma route, the staged
+flash route, the general SSD route and fp32's register-tiled route of
+``kernels/*.py:route`` at small cases in bf16, fp16 and fp32, both
+directions, against the plain versions, the fp16, fp32 and staged ones
+with the kernels the profiler saw, the staged backward bit for bit over
+two launches; the staged route at D 20 in fp16 and bf16, phi-2's (D 80,
+bf16, fp16 and fp32) and phi-3-mini's (D 96) attention and Zamba2's SSD
+(P 64, N 64) at full width, timed beside their bounds, the plain
+versions and SDPA; granite at head dim 40 (bf16, fp16, fp32) and mamba2
+at (P, N) = (32, 64), prefill, decode and a train step's gradients,
+kernel path against plain path;
 the flash cases also run granite's, llava's, recurrentgemma's and
 deepseek-v3's attention in fp16 at full width beside bf16, both
 directions, on the f16 wgmma kernels; every fp32 forward and backward,
@@ -155,13 +157,23 @@ def gate(case: str, part: str, dtype, default: float) -> float:
 
 def f16_kernels(names) -> bool:
     """Whether a call ran the f16 wgmma kernels alone (hopper::HalfWidths)."""
-    return bool(names) and all("HalfWidths" in n and "_any<" not in n for n in names)
+    return bool(names) and all("HalfWidths" in n for n in names)
+
+
+def stage_kernels(names, dtype) -> bool:
+    """Whether a staged call (route kind "stage") ran the bucket's wgmma
+    kernels (hopper::Widths in bf16, hopper::HalfWidths in fp16) and the
+    staging kernel flash_stage, and nothing else."""
+    tag = "hopper::HalfWidths" if dtype in (torch.float16, "torch.float16") else "hopper::Widths"
+    flash = [n for n in names if "flash_stage" not in n]
+    return (bool(flash) and len(flash) < len(names)
+            and all("flash_stage" in n or tag in n for n in names))
 
 
 def f32_bwd_kernels(names) -> bool:
     """Whether an fp32 backward ran the register-tiled dQ and dK/dV kernels
     (csrc/flash_attention_bwd_f32.cu) and no other backward kernel: not the
-    SIMT flash_bwd_{dq,dkdv}_f32 nor the general _any ones."""
+    SIMT flash_bwd_{dq,dkdv}_f32."""
     bwd = [n for n in names if "flash_bwd" in n]
     return (any("flash_bwd_dq_tiled" in n for n in bwd)
             and any("flash_bwd_dkdv_tiled" in n for n in bwd)
@@ -171,7 +183,7 @@ def f32_bwd_kernels(names) -> bool:
 def f32_fwd_kernels(names) -> bool:
     """Whether an fp32 forward ran the register-tiled kernel
     (csrc/flash_attention_fwd_f32.cu) and no other forward kernel: not the
-    SIMT flash_fwd_f32 nor the general flash_fwd_any."""
+    SIMT flash_fwd_f32 of the bf16 smoke dims."""
     fwd = [n for n in names if "flash_fwd" in n]
     return bool(fwd) and all("flash_fwd_f32_tiled" in n for n in fwd)
 SSD_TOL = {"torch.bfloat16": 5e-2, "torch.float16": 5e-2, "torch.float32": 2e-3}
@@ -1048,8 +1060,8 @@ def phase_examples() -> dict[str, dict[str, int]]:
 # plain versions; the padded bf16 route at public models' full-width
 # shapes (phi-2's attention at D 80, phi-3-mini's at D 96, Zamba2's Mamba-2
 # layers at (P, N) = (64, 64)), fp16's wgmma route and fp32's register-tiled
-# one at phi-2's and the general route at D 20 in fp16, timed beside
-# their bounds, the plain versions and SDPA; then granite at
+# one at phi-2's and the staged route at D 20 in fp16 and bf16, timed
+# beside their bounds, the plain versions and SDPA; then granite at
 # head dim 40 and mamba2 at (P, N) = (32, 64), each through prefill and
 # decode and a train-step gradient, kernel path against plain path.
 # ---------------------------------------------------------------------------
@@ -1060,6 +1072,7 @@ SHAPES_FLASH_CASES = [  # (dk, dv, dtype, causal, window) at B 2, S 130, H 4 ove
     (200, 200, torch.bfloat16, True, 48), (20, 20, torch.bfloat16, True, 0),
     (80, 80, torch.float16, True, 0), (256, 256, torch.float16, True, 48),
     (20, 20, torch.float16, True, 0), (5, 3, torch.float16, True, 48),
+    (16, 16, torch.float16, True, 0), (24, 16, torch.float16, True, 48),
     (96, 96, torch.float32, True, 0), (200, 136, torch.float32, False, 0),
     (5, 3, torch.float32, True, 0),
 ]
@@ -1078,10 +1091,11 @@ SHAPES_PUBLIC_FLASH = [  # (case, B, S, H (MHA), D, dtype), causal
     ("phi2_d80_fp16", 4, 1024, 32, 80, torch.float16),
     # phi-2's fp32 forward and backward on the register-tiled kernels
     ("phi2_d80_fp32", 4, 1024, 32, 80, torch.float32),
-    # the general route's full-width forward and backward (fp16 at D 80
-    # runs wgmma, fp32 the register-tiled kernels): fp16 at a head dim that
-    # is no multiple of 8
+    # the staged route's full-width forward and backward: a head dim that
+    # is no multiple of 8, in fp16 and bf16, on the (64, 64) bucket's wgmma
+    # kernels at a pitch of 24
     ("d20_fp16", 4, 1024, 32, 20, torch.float16),
+    ("d20_bf16", 4, 1024, 32, 20, torch.bfloat16),
 ]
 SHAPES_PUBLIC_SSD = [  # (case, B, L, H, P, N, dtype), chunk 128
     ("zamba2_p64_n64", 4, 1024, 48, 64, 64, torch.bfloat16),
@@ -1101,26 +1115,28 @@ SHAPES_MODEL_DTYPES = {"granite_3_2b": ("bfloat16", "float16", "float32"),
 
 
 def zero_route_counts() -> None:
-    """Set the padded, the fp16 wgmma, the general and the fp32 routes'
-    launch counts to 0."""
+    """Set the padded, the fp16 wgmma, the staged, the general (SSD) and
+    the fp32 routes' launch counts to 0."""
     from repro_torch.kernels.ops import flash_attention, ssd_scan
     for fn in (flash_attention, ssd_scan):
-        fn.pad_launches = fn.bwd_pad_launches = fn.any_launches = fn.bwd_any_launches = 0
+        fn.pad_launches = fn.bwd_pad_launches = 0
+    ssd_scan.any_launches = ssd_scan.bwd_any_launches = 0
+    flash_attention.stage_launches = flash_attention.bwd_stage_launches = 0
     flash_attention.f16_launches = flash_attention.bwd_f16_launches = 0
     flash_attention.f32_launches = flash_attention.bwd_f32_launches = 0
 
 
 def route_counts() -> dict[str, int]:
-    """The padded, the fp16 wgmma, the general and the fp32 routes'
-    launches, per kernel row."""
+    """The padded, the fp16 wgmma, the staged, the general (SSD) and the
+    fp32 routes' launches, per kernel row."""
     from repro_torch.kernels.ops import flash_attention, ssd_scan
     return {"flash_fwd_bf16_pad": flash_attention.pad_launches,
             "flash_fwd_f16": flash_attention.f16_launches,
-            "flash_fwd_any": flash_attention.any_launches,
+            "flash_fwd_stage": flash_attention.stage_launches,
             "flash_fwd_f32": flash_attention.f32_launches,
             "flash_bwd_bf16_pad": flash_attention.bwd_pad_launches,
             "flash_bwd_f16": flash_attention.bwd_f16_launches,
-            "flash_bwd_any": flash_attention.bwd_any_launches,
+            "flash_bwd_stage": flash_attention.bwd_stage_launches,
             "flash_bwd_f32": flash_attention.bwd_f32_launches,
             "ssd_fwd_bf16_pad": ssd_scan.pad_launches, "ssd_fwd_any": ssd_scan.any_launches,
             "ssd_bwd_bf16_pad": ssd_scan.bwd_pad_launches,
@@ -1189,7 +1205,8 @@ def _flash_small(gen, b, s, h, kv, dk, dv, dtype, causal, window) -> dict:
     """One flash case through ``ops.flash_attention`` under autograd
     (forward and backward kernels of the route), against autograd of the
     plain version in fp32 on the same values."""
-    from repro_torch.kernels.flash_attention import bwd_route, route
+    from repro_torch.kernels.flash_attention import (bwd_route, flash_attention_bwd_cuda,
+                                                     flash_attention_cuda, route)
     from repro_torch.kernels.ops import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
 
@@ -1226,13 +1243,20 @@ def _flash_small(gen, b, s, h, kv, dk, dv, dtype, causal, window) -> dict:
     worst = max(row["bwd_max_scaled_err"].values())
     check(worst <= row["bwd_tol"], f"{what}: backward {row['bwd_max_scaled_err']}")
     on_route = {"pad": "flash_fwd_bf16_pad", "f16": "flash_fwd_f16",
-                "any": "flash_fwd_any", "f32": "flash_fwd_f32"}.get(kind)
-    bwd_on_route = {"pad": "flash_bwd_bf16_pad", "f16": "flash_bwd_f16", "any": "flash_bwd_any",
-                    "f32": "flash_bwd_f32"}.get(bwd_kind)
+                "stage": "flash_fwd_stage", "f32": "flash_fwd_f32"}.get(kind)
+    bwd_on_route = {"pad": "flash_bwd_bf16_pad", "f16": "flash_bwd_f16",
+                    "stage": "flash_bwd_stage", "f32": "flash_bwd_f32"}.get(bwd_kind)
     check(launches["flash_attention"] == 1 and launches["flash_attention_bwd"] == 1
           and (on_route is None or launches.get(on_route) == 1)
           and (bwd_on_route is None or launches.get(bwd_on_route) == 1),
           f"{what}: launched {launches} on routes {kind}, {bwd_kind}")
+    if kind == "stage":   # the staged backward, two launches bit for bit
+        kw = dict(causal=causal, window=window)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        first = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        row["bwd_bit_equal"] = all(torch.equal(x, y) for x, y in zip(first, again))
+        check(row["bwd_bit_equal"], f"{what}: two staged backward launches differ")
     return row
 
 
@@ -1318,6 +1342,7 @@ def _flash_public(gen, name, b, s, h, d, dtype) -> dict:
     by_kernel = kernels_device_ms(lambda: flash_attention_cuda(q, k, v, causal=True, window=0),
                                   iters=10)
     fwd["device_ms"], fwd["kernels"] = sum(by_kernel.values()), sorted(by_kernel)
+    fwd["stage_device_ms"] = sum(ms for n, ms in by_kernel.items() if "flash_stage" in n)
     fwd["plain_ms"] = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True, window=0),
                               iters=2, warmup=1)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -1346,6 +1371,10 @@ def _flash_public(gen, name, b, s, h, d, dtype) -> dict:
     by_kernel = kernels_device_ms(bwd, iters=10)
     back["device_ms"], back["kernels"] = sum(by_kernel.values()), sorted(by_kernel)
     back["kernel_device_ms"] = flash_bwd_split_ms(by_kernel)
+    back["stage_device_ms"] = sum(ms for n, ms in by_kernel.items() if "flash_stage" in n)
+    again = bwd()
+    back["bit_equal"] = all(torch.equal(x, y) for x, y in zip(bwd(), again))
+    del again
     back["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_ref(
         q, k, v, o, lse, do, causal=True, window=0), iters=2, warmup=1)
     sdpa, rerun = sdpa_backward(q, k, v, do, True, 0)
@@ -1364,11 +1393,17 @@ def _flash_public(gen, name, b, s, h, d, dtype) -> dict:
     check(max(back["max_scaled_err"].values()) <= back["tol"],
           f"shapes {name}: backward {back['max_scaled_err']}")
     # the padded route: the bucket's kernels at hopper::Widths (the real
-    # dims), and fp16's at hopper::HalfWidths; fp32 the register-tiled
-    # kernels both ways
+    # dims), and fp16's at hopper::HalfWidths; the staged route those and
+    # the staging kernel, its backward bit for bit over two launches; fp32
+    # the register-tiled kernels both ways
+    check(back["bit_equal"], f"shapes {name}: two backward launches differ")
+    if row["route"] == "stage":
+        check(stage_kernels(fwd["kernels"], dtype) and stage_kernels(back["kernels"], dtype),
+              f"shapes {name}: ran {fwd['kernels']} and {back['kernels']}, not the bucket's "
+              "wgmma kernels and the staging kernel alone")
     tags = {"pad": ("hopper::Widths",) * 2, "f16": ("hopper::HalfWidths",) * 2,
-            "f32": ("flash_fwd_f32_tiled", "_tiled")}.get(row["route"],
-                                                           ("flash_fwd_any", "_any<"))
+            "f32": ("flash_fwd_f32_tiled", "_tiled"),
+            "stage": ("",) * 2}[row["route"]]
     if row["route"] == "f32":
         check(f32_fwd_kernels(fwd["kernels"]) and f32_bwd_kernels(back["kernels"]),
               f"shapes {name}: ran {fwd['kernels']} and {back['kernels']}, not the "
@@ -1536,11 +1571,12 @@ def phase_shapes(seed: int) -> tuple[dict, dict[str, dict[str, int]]]:
     for row in small:
         for name, n in row["launches"].items():
             small_launches[name] = small_launches.get(name, 0) + n
-    # fp16: the kernels the profiler saw, the f16 wgmma kernels on the
-    # "f16" route and the general ones in fp16 on "any"; fp32: both ways on
-    # the register-tiled kernels alone
+    # fp16, fp32 and the staged cases: the kernels the profiler saw, the
+    # f16 wgmma kernels on the "f16" route, the bucket's wgmma kernels and
+    # the staging kernel on "stage"; fp32 both ways on the register-tiled
+    # kernels alone
     named = [(row, case) for row, case in zip(small, cases)
-             if case[6] in (torch.float16, torch.float32)]
+             if case[6] in (torch.float16, torch.float32) or row["route"] == "stage"]
     names = flash_names_apart([(*c[:6], str(c[6]), *c[7:]) for _, c in named])
     for (row, case), kernels in zip(named, names):
         row["kernels"] = kernels
@@ -1551,8 +1587,9 @@ def phase_shapes(seed: int) -> tuple[dict, dict[str, dict[str, int]]]:
         elif row["route"] == "f16":
             check(f16_kernels(kernels), f"{what}: ran {kernels}")
         else:
-            check(kernels and all("_any<" in n and "__half" in n for n in kernels),
-                  f"{what}: ran {kernels}, not the general fp16 kernels")
+            check(row["route"] == "stage" and stage_kernels(kernels, case[6]),
+                  f"{what}: ran {kernels}, not the bucket's wgmma kernels and the staging "
+                  "kernel alone")
     ssd_small = [_ssd_small(gen, 1, 100, 4, *case) for case in SHAPES_SSD_CASES]
     emit("shapes_small", flash=small, ssd=ssd_small, seconds=time.perf_counter() - t0)
     public = {c[0]: _flash_public(gen, *c) for c in SHAPES_PUBLIC_FLASH}
@@ -4215,9 +4252,10 @@ def main() -> int:
                "initial_state": c["initial_state"]}
             for c in group_cases}
         row["groups_g1"] = group_cases[0]["g1"]
-    # the padded, the fp16 wgmma, the general and the fp32 routes
-    # (kernels/*.py:route), each with its readings at a public model's
-    # full-width shape
+    # the padded, the fp16 wgmma, the staged, the general (SSD) and the
+    # fp32 routes (kernels/*.py:route), each with its readings at a public
+    # model's full-width shape (the staged rows beside the bf16 twin, with
+    # the staging kernel's share of the device ms)
     csrc = "src/repro_torch/kernels/csrc/"
     f16_names = {"forward": set(), "backward": set()}
     for part, rows_ in (("forward", flash_cases), ("backward", bwd_cases)):
@@ -4235,9 +4273,11 @@ def main() -> int:
             ("flash_fwd_f16", "flash_attention_f16.cu", "phi2_d80_fp16", "forward", "phi2_d80"),
             ("flash_bwd_f16", "flash_attention_bwd_f16.cu", "phi2_d80_fp16", "backward",
              "phi2_d80"),
-            ("flash_fwd_any", "flash_attention_any.cu", "d20_fp16", "forward", None),
+            ("flash_fwd_stage", "flash_attention_stage.cu", "d20_fp16", "forward",
+             "d20_bf16"),
             ("flash_fwd_f32", "flash_attention_fwd_f32.cu", "phi2_d80_fp32", "forward", None),
-            ("flash_bwd_any", "flash_attention_any.cu", "d20_fp16", "backward", None),
+            ("flash_bwd_stage", "flash_attention_stage.cu", "d20_fp16", "backward",
+             "d20_bf16"),
             ("flash_bwd_f32", "flash_attention_bwd_f32.cu", "phi2_d80_fp32", "backward", None),
             ("ssd_fwd_bf16_pad", "ssd_scan_pad.cu", "zamba2_p64_n64", "forward", None),
             ("ssd_bwd_bf16_pad", "ssd_scan_bwd_pad.cu", "zamba2_p64_n64", "backward", None),
@@ -4261,6 +4301,10 @@ def main() -> int:
             row[also] = {k: shape_rows[also][part][k] for k in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "bound_frac",
                 "library_ms", "vs_library", "max_scaled_err")}
+        if "_stage" in name:   # the bucket's kernels and the staging kernel's device ms
+            row["kernels"] = c["kernels"]
+            row["stage_device_ms"] = c["stage_device_ms"]
+            row[also]["stage_device_ms"] = shape_rows[also][part]["stage_device_ms"]
         if name.endswith("_f16"):   # the fp16 instantiations the run's fp16 rows launched
             row["instantiations"] = f16_names[part]
         if name == "flash_fwd_f32":   # the kernel, and every fp32 forward case's readings

@@ -30,19 +30,20 @@
 // As csrc/flash_attention_bwd_pad.cu's flash_attention_bwd_pad, all fp16:
 // real head dims dk and dv (multiples of 8) inside the bucket (bk, bv),
 // the layouts of q, k, v and dO at their real dims with boxes of 64 rows,
-// the scratch, part and shares as there.  dtype: the launcher's dtype code,
-// 2 (fp16); another is refused with cudaErrorInvalidValue.
+// the scratch, part, shares and scale_dk as there.  dtype: the launcher's
+// dtype code, 2 (fp16); another is refused with cudaErrorInvalidValue.
 extern "C" int flash_attention_bwd_f16(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const float* lse,
                                        void* dq, void* dk, void* dv, float* scratch, int B,
                                        int S, int Sk, int H, int KV, int DK, int DV, int bk,
                                        int bv, int causal, int window, int dtype, void* stream,
                                        const long long* layout, float* part, int shares,
-                                       int s_pad) {
+                                       int s_pad, int scale_dk) {
   if (dtype != 2) return (int)cudaErrorInvalidValue;
   const int err = padded_args(S, H, KV, DK, DV, bk, bv, layout, part, shares, s_pad);
   if (err) return err;
-  const float scale = 1.f / sqrtf((float)DK);
+  if (!pitch_of(scale_dk, DK)) return (int)cudaErrorInvalidValue;
+  const float scale = 1.f / sqrtf((float)scale_dk);
   const Params p{q, k, v, o, dout, lse, dq, dk, dv, scratch, scratch + (size_t)B * H * s_pad,
                  B, S, Sk, H, KV, causal, window, scale, LOG2E * scale, s_pad};
   const Shares sh{part, shares};

@@ -1,8 +1,8 @@
 // The fp32 flash-attention backward for Hopper (sm_90a), model layout
 // (B, S, H, D), at every q/k head dim dk and v head dim dv from 1 to 256.
 //
-// The gradient of the function csrc/flash_attention.cu and
-// csrc/flash_attention_any.cu compute in fp32, which replaces
+// The gradient of the function csrc/flash_attention_fwd_f32.cu computes
+// in fp32, which replaces
 // src/repro/kernels/flash_attention.py:flash_attention_bh: the Pallas
 // kernel is forward-only and the JAX package trains through autodiff of
 // the jnp blockwise_mha (src/repro/models/layers.py), so these kernels

@@ -29,16 +29,19 @@
 // B * H * s_pad fp32, s_pad S rounded up to the bucket's dQ block (128 at
 // (192, 128) and (256, 256), else 64).  part and shares as there, the
 // partial sums at the bucket's widths, (shares, B, Sk, KV, bk + bv).
+// scale_dk: as csrc/flash_attention_pad.cu's (DK, or on the staged route
+// the real dim that DK, the pitch of its buffers, rounds up).
 extern "C" int flash_attention_bwd_pad(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const float* lse,
                                        void* dq, void* dk, void* dv, float* scratch, int B,
                                        int S, int Sk, int H, int KV, int DK, int DV, int bk,
                                        int bv, int causal, int window, void* stream,
                                        const long long* layout, float* part, int shares,
-                                       int s_pad) {
+                                       int s_pad, int scale_dk) {
   const int err = padded_args(S, H, KV, DK, DV, bk, bv, layout, part, shares, s_pad);
   if (err) return err;
-  const float scale = 1.f / sqrtf((float)DK);
+  if (!pitch_of(scale_dk, DK)) return (int)cudaErrorInvalidValue;
+  const float scale = 1.f / sqrtf((float)scale_dk);
   const Params p{q, k, v, o, dout, lse, dq, dk, dv, scratch, scratch + (size_t)B * H * s_pad,
                  B, S, Sk, H, KV, causal, window, scale, LOG2E * scale, s_pad};
   const Widths wd{DK, DV};

@@ -32,19 +32,21 @@
 // (boxes of 128 rows), k and v (boxes of kv_tile rows) at their real dims,
 // 11 values each, as kernels/flash_attention.py:tma_layout computes them.
 // lse: null or a (B, H, S) fp32 buffer.  kv_tile: the bucket's default, 128
-// at (64, 64) and (128, 128), 64 at (256, 256).  Returns
-// cudaGetLastError() after the launch, a negative code from encode(), or
-// cudaErrorInvalidValue for a dtype, dims, a bucket or a tile it does not
-// take.
+// at (64, 64) and (128, 128), 64 at (256, 256).  scale_dk: as
+// csrc/flash_attention_pad.cu's (dk, or the staged route's real dim).
+// Returns cudaGetLastError() after the launch, a negative code from
+// encode(), or cudaErrorInvalidValue for a dtype, dims, a bucket or a tile
+// it does not take.
 extern "C" int flash_attention_fwd_f16(const void* q, const void* k, const void* v, void* o,
                                        int B, int S, int Sk, int H, int KV, int dk, int dv,
                                        int bk, int bv, int causal, int window, int dtype,
                                        void* stream, const long long* layout, float* lse,
-                                       int kv_tile) {
+                                       int kv_tile, int scale_dk) {
   if (dtype != 2 || dk <= 0 || dv <= 0 || dk > bk || dv > bv || dk % 8 || dv % 8 ||
-      layout == nullptr)
+      layout == nullptr || !pitch_of(scale_dk, dk))
     return (int)cudaErrorInvalidValue;
-  const Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)dk), lse};
+  const Params p{q, k, v, o, B, S, Sk, H, KV, causal, window,
+                 LOG2E / sqrtf((float)scale_dk), lse};
   const HalfWidths wd{{dk, dv}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bk == 64 && bv == 64 && kv_tile == 128)

@@ -485,15 +485,18 @@ int launch(const Params& p, const long long* layout, cudaStream_t stream) {
 template <class W>
 int launch_checked(const void* q, const void* k, const void* v, void* o, int B, int S, int Sk,
                    int H, int KV, int dk, int dv, int causal, int window, void* stream,
-                   const long long* layout, float* lse, int kv_tile, unsigned int* sched) {
+                   const long long* layout, float* lse, int kv_tile, unsigned int* sched,
+                   int scale_dk) {
   const bool routed = dk == 192 && dv == 128;
   // the padded route (kernels/flash_attention.py:route): real head dims,
   // multiples of 8, whose smallest built pair is (192, 128).  The tensor
   // maps carry them: TMA zero-fills q, k and v past them and clips O's
   // stores, so the kernel is this one, scaled by 1 / sqrt(real dk)
   const bool padded = dk > 128 && dk <= DK && dv > 0 && dv <= DV && dk % 8 == 0 && dv % 8 == 0;
-  if (!(routed || padded) || kv_tile != WN) return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)dk), lse, sched};
+  if (!(routed || padded) || kv_tile != WN || !pitch_of(scale_dk, dk))
+    return (int)cudaErrorInvalidValue;
+  Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)scale_dk), lse,
+           sched};
   const int err = launch<W>(p, layout, static_cast<cudaStream_t>(stream));
   return err ? err : (int)cudaGetLastError();
 }
@@ -506,16 +509,18 @@ int launch_checked(const void* q, const void* k, const void* v, void* o, int B, 
 // (boxes of 64 rows) and k and v (boxes of kv_tile rows), 11 values each.
 // lse: null, or a (B, H, S) fp32 buffer for each row's logsumexp.
 // kv_tile: 128 (kernels/flash_attention.py:KV_TILES).  sched: the
-// stream's two counters, 0.  Returns cudaGetLastError() after the launch,
-// a negative code from encode(), or cudaErrorInvalidValue for head dims or
-// a tile it is not built for.
+// stream's two counters, 0.  scale_dk: the q/k head dim the scores are
+// scaled by, dk or on the staged route the real dim that dk, its pitch,
+// rounds up (csrc/flash_attention_pad.cu).  Returns cudaGetLastError()
+// after the launch, a negative code from encode(), or
+// cudaErrorInvalidValue for head dims or a tile it is not built for.
 extern "C" int flash_attention_fwd_ws(const void* q, const void* k, const void* v, void* o,
                                       int B, int S, int Sk, int H, int KV, int dk, int dv,
                                       int causal, int window, void* stream,
                                       const long long* layout, float* lse, int kv_tile,
-                                      unsigned int* sched) {
+                                      unsigned int* sched, int scale_dk) {
   return launch_checked<Widths>(q, k, v, o, B, S, Sk, H, KV, dk, dv, causal, window, stream,
-                                layout, lse, kv_tile, sched);
+                                layout, lse, kv_tile, sched, scale_dk);
 }
 
 // The same in fp16 (q, k, v and o all fp16; the layouts as above): dtype
@@ -525,8 +530,8 @@ extern "C" int flash_attention_fwd_ws_f16(const void* q, const void* k, const vo
                                           int B, int S, int Sk, int H, int KV, int dk, int dv,
                                           int causal, int window, int dtype, void* stream,
                                           const long long* layout, float* lse, int kv_tile,
-                                          unsigned int* sched) {
+                                          unsigned int* sched, int scale_dk) {
   if (dtype != 2) return (int)cudaErrorInvalidValue;
   return launch_checked<HalfWidths>(q, k, v, o, B, S, Sk, H, KV, dk, dv, causal, window, stream,
-                                    layout, lse, kv_tile, sched);
+                                    layout, lse, kv_tile, sched, scale_dk);
 }

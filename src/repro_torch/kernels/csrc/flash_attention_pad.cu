@@ -50,16 +50,22 @@ int launch_tile(const Params& p, const Widths& wd, const long long* layout, cuda
 // (bk, bv): (64, 64), (128, 128) or (256, 256).  layout: the TMA layouts
 // of q (boxes of 128 rows), k and v (boxes of kv_tile rows) at their real
 // dims, 11 values each, as kernels/flash_attention.py:tma_layout computes
-// them.  lse: null or a (B, H, S) fp32 buffer.  Returns cudaGetLastError()
+// them.  lse: null or a (B, H, S) fp32 buffer.  scale_dk: the q/k head
+// dim the scores are scaled by, 1 / sqrt(scale_dk): dk, or on the staged
+// route (kernels/flash_attention.py:route, kind "stage") the real dim that
+// dk, its pitch, rounds up to a multiple of 8.  Returns cudaGetLastError()
 // after the launch, a negative code from encode(), or
 // cudaErrorInvalidValue for dims, a bucket or a tile it does not take.
 extern "C" int flash_attention_fwd_pad(const void* q, const void* k, const void* v, void* o,
                                        int B, int S, int Sk, int H, int KV, int dk, int dv,
                                        int bk, int bv, int causal, int window, void* stream,
-                                       const long long* layout, float* lse, int kv_tile) {
-  if (dk <= 0 || dv <= 0 || dk > bk || dv > bv || dk % 8 || dv % 8 || layout == nullptr)
+                                       const long long* layout, float* lse, int kv_tile,
+                                       int scale_dk) {
+  if (dk <= 0 || dv <= 0 || dk > bk || dv > bv || dk % 8 || dv % 8 || layout == nullptr ||
+      !pitch_of(scale_dk, dk))
     return (int)cudaErrorInvalidValue;
-  const Params p{q, k, v, o, B, S, Sk, H, KV, causal, window, LOG2E / sqrtf((float)dk), lse};
+  const Params p{q, k, v, o, B, S, Sk, H, KV, causal, window,
+                 LOG2E / sqrtf((float)scale_dk), lse};
   const Widths wd{dk, dv};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bk == 64 && bv == 64) return launch_tile<64, 64>(p, wd, layout, st, kv_tile);

@@ -75,7 +75,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-// and fp16, on the general SIMT kernels (csrc/*_any.cu)
+// and fp16, on the SSD's general SIMT kernels (csrc/ssd_scan_any.cu)
 __device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 __device__ __forceinline__ void store_f(__half* p, float v) { *p = __float2half_rn(v); }
 
@@ -562,6 +562,15 @@ inline int opt_in_smem(const void* kernel, size_t bytes, uint32_t& opted) {
   if (e != cudaSuccess) return (int)e;
   if (dev < 32) opted |= 1u << dev;
   return 0;
+}
+
+// Whether a flash entry's q/k head dim dk (a multiple of 8) may be scaled
+// as real_dk: real_dk is dk, or, on the staged route
+// (kernels/flash_attention.py:route, kind "stage"), the real dim whose
+// rows were copied into buffers of pitch dk, real_dk rounded up to a
+// multiple of 8 (host code: no kernel reads it).
+inline bool pitch_of(int real_dk, int dk) {
+  return real_dk > 0 && real_dk <= dk && dk - real_dk < 8;
 }
 
 // the tensor-map data type of a kernel's element type T

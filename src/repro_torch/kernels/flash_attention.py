@@ -33,22 +33,28 @@ the backward's two kernels ``csrc/flash_attention_bwd_f32.cu`` (tiles
 few kv tiles would leave SMs idle.
 
 Every other head-dim pair up to 256 in bf16, and fp16, take one of three
-more routes (:func:`route`): bf16 at head dims that are multiples of 8
-takes the wgmma + TMA kernels of the smallest built pair that holds them
-(its bucket, ``BUCKETS``), with tensor maps at the real dims (TMA
-zero-fills the last box's columns past them;
+more routes (:func:`route`), all on the wgmma + TMA kernels of the
+smallest built pair that holds the dims (its bucket, ``BUCKETS``): bf16
+at head dims that are multiples of 8 with tensor maps at the real dims
+(TMA zero-fills the last box's columns past them;
 ``csrc/flash_attention_pad.cu``, ``csrc/flash_attention_bwd_pad.cu``,
 and ``flash_fwd_bf16_ws`` in the (192, 128) bucket); fp16 at every
-head-dim pair where bf16 runs on wgmma (the built pairs and those dims)
-takes the same kernels in f16 wgmma with f16 tensor maps, the forward's
-padded form at the bucket's default kv tile and the backward's at a
-built pair's own widths or padded (``csrc/flash_attention_f16.cu``,
-``csrc/flash_attention_bwd_f16.cu``, ``flash_attention_fwd_ws_f16`` in
-``csrc/flash_attention_fwd_ws.cu``); and everything else (fp16 at the
-smoke dims and at dims that are not multiples of 8) the general SIMT
-kernels (``csrc/flash_attention_any.cu``).  The C entries take the dtype
-as a code (``_DTYPES``: 0 fp32, 1 bf16, 2 fp16) and refuse one they are
-not built for.  The route follows from dtype and head dims alone, never
+head-dim pair that is a multiple of 8 (the built pairs, the smoke dims
+and the rest) takes the same kernels in f16 wgmma with f16 tensor maps,
+the forward's padded form at the bucket's default kv tile and the
+backward's at a built pair's own widths or padded
+(``csrc/flash_attention_f16.cu``, ``csrc/flash_attention_bwd_f16.cu``,
+``flash_attention_fwd_ws_f16`` in ``csrc/flash_attention_fwd_ws.cu``);
+and bf16 and fp16 at head dims that are not multiples of 8 are staged
+(kind "stage"): TMA needs 16-byte row strides and the kernels store
+aligned pairs, so their rows are copied into buffers whose pitch is each
+head dim rounded up to a multiple of 8, the columns past it zero
+(``csrc/flash_attention_stage.cu``, one launch for every tensor of a
+direction); the padded or fp16 entries run at those pitches with the
+real q/k dim's scale, and the outputs are copied back at the real dims.
+Zero columns leave every score, O, dQ, dK and dV as they are.  The C
+entries take the dtype as a code (``_DTYPES``: 0 fp32, 1 bf16, 2 fp16)
+and refuse one they are not built for.  The route follows from dtype and head dims alone, never
 from a failure of another route.  The public entry is
 :func:`repro_torch.kernels.ops.flash_attention` (with
 :class:`repro_torch.kernels.ops.FlashAttention` for autograd), which
@@ -68,7 +74,7 @@ _DTYPES = {torch.bfloat16: 1, torch.float32: 0, torch.float16: 2}
 # the largest q/k and v head dim any route takes
 MAX_HEAD_DIM = 256
 # the (q/k head dim, v head dim) pairs with instantiations of their own
-# (every other pair takes a bucket's or the general kernels, see route):
+# (every other pair takes a bucket's kernels, see route):
 # the models' (bf16 on wgmma + TMA) and the smoke configs' (bf16 on SIMT:
 # 16 or 24 columns are not whole TMA boxes); fp32 takes F32_BUCKETS
 SIMT_HEAD_DIMS = frozenset({(16, 16), (24, 16)})
@@ -239,12 +245,13 @@ def bwd_scratch_rows(s: int, dtype: torch.dtype, dk: int, dv: int) -> int:
 class Route(NamedTuple):
     """How a call runs: ``kind`` "tma" (bf16 at a built pair), "pad" (bf16
     at head dims that are multiples of 8 inside a built pair, on its
-    kernels), "f16" (fp16 where bf16 takes "tma" or "pad": the same
-    kernels in fp16), "f32" (fp32 at every pair: the register-tiled
-    kernels, forward and backward), "simt" (the smoke configs' head dims
-    in bf16) or "any" (the general SIMT kernels); ``dims`` the
-    instantiation's head dims: the bucket on "tma", "pad", "f16" and
-    "f32", the real dims otherwise."""
+    kernels), "f16" (fp16 at head dims that are multiples of 8: the same
+    kernels in fp16), "stage" (bf16 and fp16 at head dims that are not
+    multiples of 8: "pad" or "f16" on copies at a pitch of a multiple of
+    8), "f32" (fp32 at every pair: the register-tiled kernels, forward and
+    backward) or "simt" (the smoke configs' head dims in bf16); ``dims``
+    the instantiation's head dims: the bucket on "tma", "pad", "f16",
+    "stage" and "f32", the real dims on "simt"."""
     kind: str
     dims: tuple[int, int]
 
@@ -256,21 +263,29 @@ def bucket(dk: int, dv: int) -> tuple[int, int]:
     return next(((bk, bv) for bk, bv in BUCKETS if dk <= bk and dv <= bv), (dk, dv))
 
 
+def pitch(d: int) -> int:
+    """The staged route's row pitch for head dim ``d``: d rounded up to a
+    multiple of 8 (16 bytes of bf16 or fp16)."""
+    return -(-d // 8) * 8
+
+
 @functools.lru_cache(maxsize=None)
 def route(dtype: torch.dtype, dk: int, dv: int) -> Route:
     """The route of a call, by dtype and head dims alone (cached: the
-    launchers ask at every call)."""
+    launchers ask at every call).  Raises for head dims past
+    MAX_HEAD_DIM or a dtype no kernel takes."""
+    if not (1 <= dk <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM) or dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: no route for head dims ({dk}, {dv}) in {dtype}")
     if dtype == torch.float32:
         return Route("f32", f32_bucket(dk, dv))
     if dtype == torch.bfloat16 and (dk, dv) in BUCKETS:
         return Route("tma", (dk, dv))
     if (dk, dv) in SIMT_HEAD_DIMS and dtype == torch.bfloat16:
         return Route("simt", (dk, dv))
-    if dtype == torch.bfloat16 and dk % 8 == 0 and dv % 8 == 0 and bucket(dk, dv) in BUCKETS:
-        return Route("pad", bucket(dk, dv))
-    if dtype == torch.float16 and tma_route(torch.bfloat16, dk, dv):
-        return Route("f16", bucket(dk, dv))
-    return Route("any", (dk, dv))
+    dims = bucket(pitch(dk), pitch(dv))
+    if dk % 8 or dv % 8:
+        return Route("stage", dims)
+    return Route("pad" if dtype == torch.bfloat16 else "f16", dims)
 
 
 def bwd_route(dtype: torch.dtype, dk: int, dv: int) -> Route:
@@ -411,7 +426,7 @@ def _ws_fn():
     fn = build.library("flash_attention_fwd_ws").flash_attention_fwd_ws
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
         fn.restype = ctypes.c_int
     return fn
 
@@ -435,15 +450,7 @@ def _pad_fn():
     fn = build.library("flash_attention_pad").flash_attention_fwd_pad
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int])
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _any_fn():
-    fn = build.library("flash_attention_any").flash_attention_fwd_any
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2)
+                       + [ctypes.c_int] * 2)
         fn.restype = ctypes.c_int
     return fn
 
@@ -460,15 +467,7 @@ def _bwd_pad_fn():
     fn = build.library("flash_attention_bwd_pad").flash_attention_bwd_pad
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int] * 2)
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _bwd_any_fn():
-    fn = build.library("flash_attention_any").flash_attention_bwd_any
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+                       + [ctypes.c_int] * 3)
         fn.restype = ctypes.c_int
     return fn
 
@@ -486,7 +485,7 @@ def _f16_fn():
     fn = build.library("flash_attention_f16").flash_attention_fwd_f16
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int])
+                       + [ctypes.c_int] * 2)
         fn.restype = ctypes.c_int
     return fn
 
@@ -495,7 +494,7 @@ def _ws_f16_fn():
     fn = build.library("flash_attention_fwd_ws").flash_attention_fwd_ws_f16
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
         fn.restype = ctypes.c_int
     return fn
 
@@ -504,9 +503,38 @@ def _bwd_f16_fn():
     fn = build.library("flash_attention_bwd_f16").flash_attention_bwd_f16
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int] * 2)
+                       + [ctypes.c_int] * 3)
         fn.restype = ctypes.c_int
     return fn
+
+
+def _stage_fn():
+    fn = build.library("flash_attention_stage").flash_attention_stage
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _restage(tensors, widths, stream: int) -> list[torch.Tensor]:
+    """``tensors`` (contiguous, 2-byte elements) at the head dims
+    ``widths``: each whose own head dim differs copied row by row, cut or
+    zero-padded past its own, by one launch of the staging kernel
+    (csrc/flash_attention_stage.cu) for all of them; the others as they
+    are (contiguous and 16-byte aligned, which ``_check`` asks of every
+    input)."""
+    out = [t if t.shape[-1] == w else t.new_empty(t.shape[:-1] + (w,))
+           for t, w in zip(tensors, widths)]
+    flat = []
+    for src, dst in zip(tensors, out):
+        if dst is not src:
+            flat += [src.data_ptr(), dst.data_ptr(), src.numel() // src.shape[-1],
+                     src.shape[-1], dst.shape[-1]]
+    if flat:
+        err = _stage_fn()((ctypes.c_longlong * len(flat))(*flat), len(flat) // 5, stream)
+        if err:
+            raise RuntimeError(f"flash_attention: staging copy failed with CUDA error {err}")
+    return out
 
 
 def _bwd_fn():
@@ -518,20 +546,21 @@ def _bwd_fn():
     return fn
 
 
-TC_KINDS = ("tma", "pad", "f16")   # the routes on the wgmma + TMA kernels
+TC_KINDS = ("tma", "pad", "f16", "stage")   # the routes on the wgmma + TMA kernels
 
 
 def tma_route(dtype: torch.dtype, dk: int, dv: int) -> bool:
-    """Whether a call takes the wgmma + TMA kernels (bf16 at a built pair,
-    or padded inside one, and fp16 at those dims) rather than the SIMT
-    ones: by dtype and head dims alone."""
+    """Whether a call takes the wgmma + TMA kernels (bf16 and fp16 at every
+    head-dim pair but the bf16 smoke dims) rather than the SIMT ones: by
+    dtype and head dims alone."""
     return route(dtype, dk, dv).kind in TC_KINDS
 
 
 def ws_route(dtype: torch.dtype, dk: int, dv: int) -> bool:
     """Whether a forward call takes ``flash_fwd_bf16_ws``
     (csrc/flash_attention_fwd_ws.cu, in bf16 or fp16): bf16 or fp16 at
-    WS_HEAD_DIMS or padded inside them, by dtype and head dims alone."""
+    WS_HEAD_DIMS or padded or staged inside them, by dtype and head dims
+    alone."""
     r = route(dtype, dk, dv)
     return r.kind in TC_KINDS and r.dims in WS_HEAD_DIMS
 
@@ -577,13 +606,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, S, H, D); k: (B, Sk, KV, D); v: (B, Sk, KV, Dv) on one CUDA
     device -> o (B, S, H, Dv), and with ``return_lse`` also each row's
     logsumexp (B, H, S) in fp32.  1 <= D, Dv <= MAX_HEAD_DIM; bf16, fp16
-    or fp32 (:func:`route` picks the kernel: bf16 and fp16 at head dims
-    that are multiples of 8 inside a built pair the wgmma + TMA kernels,
-    fp32 the register-tiled kernel, the rest SIMT).  ``kv_tile`` picks the
-    bf16 wgmma kernel's kv tile among its bucket's ``KV_TILES`` (None: the
-    default); fp16 on wgmma is built at the default tile alone, and the
-    fp32 and SIMT kernels (the smoke head dims, head dims that are not
-    multiples of 8) have one tile: both take None or that tile only, else
+    or fp32 (:func:`route` picks the kernel: bf16 and fp16 the wgmma + TMA
+    kernels of the dims' bucket, on copies at a pitch of a multiple of 8
+    where a head dim is not one, but bf16 at the smoke head dims SIMT;
+    fp32 the register-tiled kernel).  ``kv_tile`` picks the bf16 wgmma
+    kernel's kv tile among its bucket's ``KV_TILES`` (None: the default);
+    fp16 on wgmma is built at the default tile alone, and the fp32 and
+    SIMT kernels have one tile: both take None or that tile only, else
     ValueError."""
     _check(q, k, v)
     b, s, h, d = q.shape
@@ -591,7 +620,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     r = route(q.dtype, d, dv)
     tile = 0
     if r.kind in TC_KINDS:
-        built = KV_TILES[r.dims] if r.kind != "f16" else KV_TILES[r.dims][:1]
+        built = KV_TILES[r.dims] if q.dtype == torch.bfloat16 else KV_TILES[r.dims][:1]
         tile = built[0] if kv_tile is None else kv_tile
         if tile not in built:
             raise ValueError(f"flash_attention: kv tile {tile} at head dims ({d}, {dv}) in "
@@ -599,41 +628,43 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     elif kv_tile is not None:
         raise ValueError(f"flash_attention: the {q.dtype} kernel at head dims ({d}, {dv}) has "
                          f"one tile; kv_tile {kv_tile} was named")
-    o = q.new_empty((b, s, h, dv))
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    lse_ptr = None if lse is None else lse.data_ptr()
+    kind, scale_dk, real_dv = r.kind, d, dv
     with torch.cuda.device(q.device):
-        if tile and r.dims in WS_HEAD_DIMS and r.kind == "f16":   # the MLA kernel in fp16
+        if kind == "stage":   # pitched copies on the padded or fp16 route: d, dv their pitches
+            q, k, v = _restage((q, k, v), (pitch(d), pitch(d), pitch(dv)), stream)
+            kind = "pad" if q.dtype == torch.bfloat16 else "f16"
+            d, dv = q.shape[3], v.shape[3]
+        o = q.new_empty((b, s, h, dv))
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
+        lse_ptr = None if lse is None else lse.data_ptr()
+        if tile and r.dims in WS_HEAD_DIMS and kind == "f16":   # the MLA kernel in fp16
             err = _ws_f16_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                b, s, sk, h, kvh, d, dv, int(causal), int(window),
                                _DTYPES[q.dtype], stream, ws_layout_array(q, k, v, o, tile),
-                               lse_ptr, tile, _sched_counters(q.device, stream).data_ptr())
+                               lse_ptr, tile, _sched_counters(q.device, stream).data_ptr(),
+                               scale_dk)
         elif tile and r.dims in WS_HEAD_DIMS:   # the MLA kernel: TMA layouts of q, k, v and o
             err = _ws_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                            b, s, sk, h, kvh, d, dv, int(causal), int(window), stream,
                            ws_layout_array(q, k, v, o, tile), lse_ptr, tile,
-                           _sched_counters(q.device, stream).data_ptr())
-        elif r.kind == "f16":   # the bucket's kernel in fp16, TMA layouts at the real dims
+                           _sched_counters(q.device, stream).data_ptr(), scale_dk)
+        elif kind == "f16":   # the bucket's kernel in fp16, TMA layouts at the real dims
             layout = layout_array(q.shape, q.stride(), k.shape, k.stride(), BLOCK_Q, tile,
                                   v.shape, v.stride())
             err = _f16_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                             b, s, sk, h, kvh, d, dv, *r.dims, int(causal), int(window),
-                            _DTYPES[q.dtype], stream, layout, lse_ptr, tile)
-        elif r.kind == "f32":   # the register-tiled kernel of the bucket
+                            _DTYPES[q.dtype], stream, layout, lse_ptr, tile, scale_dk)
+        elif kind == "f32":   # the register-tiled kernel of the bucket
             err = _fwd_f32_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                 b, s, sk, h, kvh, d, dv, int(causal), int(window),
                                 _DTYPES[q.dtype], stream, lse_ptr)
-        elif r.kind == "any":
-            err = _any_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                            b, s, sk, h, kvh, d, dv, int(causal), int(window), _DTYPES[q.dtype],
-                            stream, lse_ptr)
-        elif r.kind == "pad":   # the bucket's kernel, TMA layouts at the real dims
+        elif kind == "pad":   # the bucket's kernel, TMA layouts at the real dims
             layout = layout_array(q.shape, q.stride(), k.shape, k.stride(), BLOCK_Q, tile,
                                   v.shape, v.stride())
             err = _pad_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                             b, s, sk, h, kvh, d, dv, *r.dims, int(causal), int(window),
-                            stream, layout, lse_ptr, tile)
+                            stream, layout, lse_ptr, tile, scale_dk)
         else:
             layout = None
             if tile:   # the TMA layouts of q, k and v
@@ -642,6 +673,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                         b, s, sk, h, kvh, d, dv, int(causal), int(window), _DTYPES[q.dtype],
                         stream, layout, lse_ptr, tile)
+        if not err and r.kind == "stage":   # O back at v's real head dim
+            (o,) = _restage((o,), (real_dv,), stream)
     if err < 0:
         raise RuntimeError(f"flash_attention: TMA tensor map not encoded (code {err})")
     if err:
@@ -658,7 +691,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from the forward -> (dq, dk, dv) in the inputs' dtype, dk and dv summed
     over each kv head's q heads.  Head dims and dtypes as the forward's,
     on the route :func:`bwd_route` names (fp32: the register-tiled
-    kernels; bf16 and fp16: the forward's route)."""
+    kernels; bf16 and fp16: the forward's route, staged as the forward is:
+    q, k, v, o and dO copied at the pitch in one launch, dq, dk and dv back
+    at the real dims in another)."""
     _check(q, k, v)
     do = do.contiguous()
     b, s, h, d = q.shape
@@ -676,6 +711,14 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{lse.device}; expected contiguous ({b}, {h}, {s}) float32 on "
                          f"{q.device}")
     r = bwd_route(q.dtype, d, dv)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    kind, scale_dk, real = r.kind, d, (d, d, dv)
+    if kind == "stage":   # pitched copies on the padded or fp16 route: d, dv their pitches
+        with torch.cuda.device(q.device):
+            q, k, v, o, do = _restage((q, k, v, o, do), [pitch(n) for n in (d, d, dv, dv, dv)],
+                                      stream)
+        kind = "pad" if q.dtype == torch.bfloat16 else "f16"
+        d, dv = q.shape[3], v.shape[3]
     layout, shares, part = None, 1, None
     if r.kind in TC_KINDS:   # the TMA layouts of q, k, v and dO
         layout = bwd_layout_array(q, k, v, do)
@@ -685,35 +728,35 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         shares = bwd_f32_head_shares(b, kvh, h // kvh, sk, d, dv, _sm_count(q.device.index))
     dq, dk, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # Delta and lse in base 2 for the dK/dV kernel, written by the dQ kernel
-    s_pad = bwd_scratch_rows(s, q.dtype, d, dv)
+    s_pad = bwd_scratch_rows(s, q.dtype, *r.dims)
     scratch = torch.empty(2 * b * h * s_pad, dtype=torch.float32, device=q.device)
     if shares > 1:   # the head shares' partial dK and dV, summed by a pass of their own
         dims = (d, dv) if r.kind == "f32" else r.dims   # fp32 partials at the real dims
         part = torch.empty(bwd_partial_numel(shares, b, sk, kvh, *dims), dtype=torch.float32,
                            device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(), scratch.data_ptr())
     with torch.cuda.device(q.device):
-        if r.kind == "f32":
+        if kind == "f32":
             err = _bwd_f32_fn()(*ptrs, b, s, sk, h, kvh, d, dv, int(causal), int(window),
                                 _DTYPES[q.dtype], stream,
                                 None if part is None else part.data_ptr(), shares, s_pad)
-        elif r.kind == "any":
-            err = _bwd_any_fn()(*ptrs, b, s, sk, h, kvh, d, dv, int(causal), int(window),
-                                _DTYPES[q.dtype], stream)
-        elif r.kind == "pad":   # the bucket's kernels, TMA layouts at the real dims
+        elif kind == "pad":   # the bucket's kernels, TMA layouts at the real dims
             err = _bwd_pad_fn()(*ptrs, b, s, sk, h, kvh, d, dv, *r.dims, int(causal),
                                 int(window), stream, layout,
-                                None if part is None else part.data_ptr(), shares, s_pad)
-        elif r.kind == "f16":   # the same in fp16
+                                None if part is None else part.data_ptr(), shares, s_pad,
+                                scale_dk)
+        elif kind == "f16":   # the same in fp16
             err = _bwd_f16_fn()(*ptrs, b, s, sk, h, kvh, d, dv, *r.dims, int(causal),
                                 int(window), _DTYPES[q.dtype], stream, layout,
-                                None if part is None else part.data_ptr(), shares, s_pad)
+                                None if part is None else part.data_ptr(), shares, s_pad,
+                                scale_dk)
         else:
             err = _bwd_fn()(*ptrs, b, s, sk, h, kvh, d, dv, int(causal), int(window),
                             _DTYPES[q.dtype], stream, layout,
                             None if part is None else part.data_ptr(), shares, s_pad)
+        if not err and r.kind == "stage":   # the gradients back at the real head dims
+            dq, dk, dv_ = _restage((dq, dk, dv_), real, stream)
     if err < 0:
         raise RuntimeError(f"flash_attention_bwd: TMA tensor map not encoded (code {err})")
     if err:

@@ -117,16 +117,16 @@ def _flash_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 
 
 def _count_route(fn, prefix: str, kind: str) -> None:
-    """One launch on the padded, the fp16 wgmma, the general or the fp32
-    route, by the route's kind."""
-    if kind in ("pad", "f16", "any", "f32"):
+    """One launch on the padded, the fp16 wgmma, the staged (flash), the
+    general (SSD) or the fp32 route, by the route's kind."""
+    if kind in ("pad", "f16", "stage", "any", "f32"):
         name = f"{prefix}{kind}_launches"
         setattr(fn, name, getattr(fn, name) + 1)
 
 
 def _count_forward(q: torch.Tensor, v: torch.Tensor) -> None:
     """One forward launch; one more of the MLA kernel where it took it, and
-    of the padded, the fp16 wgmma, the general or the fp32 route where it
+    of the padded, the fp16 wgmma, the staged or the fp32 route where it
     took one."""
     flash_attention.launches += 1
     if ws_route(q.dtype, q.shape[3], v.shape[3]):
@@ -192,8 +192,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     that took the MLA kernel (``flash_fwd_bf16_ws``, bf16 or fp16), and
     ``flash_attention.bwd_launches`` backward ones (CUDA only);
     ``pad_launches`` / ``bwd_pad_launches``, ``f16_launches`` /
-    ``bwd_f16_launches`` and ``any_launches`` / ``bwd_any_launches`` those
-    that took the padded bf16, the fp16 wgmma and the general route
+    ``bwd_f16_launches`` and ``stage_launches`` / ``bwd_stage_launches``
+    those that took the padded bf16, the fp16 wgmma and the staged route
     (``kernels.flash_attention.route``), ``f32_launches`` /
     ``bwd_f32_launches`` the forward and backward launches on the fp32
     register-tiled kernels (route kind "f32")."""
@@ -221,7 +221,7 @@ flash_attention.ws_launches = 0
 flash_attention.bwd_launches = 0
 flash_attention.pad_launches = flash_attention.bwd_pad_launches = 0
 flash_attention.f16_launches = flash_attention.bwd_f16_launches = 0
-flash_attention.any_launches = flash_attention.bwd_any_launches = 0
+flash_attention.stage_launches = flash_attention.bwd_stage_launches = 0
 flash_attention.f32_launches = flash_attention.bwd_f32_launches = 0
 
 

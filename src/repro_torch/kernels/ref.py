@@ -71,6 +71,42 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
     return lse.reshape(b, h, s)
 
 
+def flash_attention_staged_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                               causal: bool = True, window: int = 0,
+                               widths: tuple[int, int]) -> torch.Tensor:
+    """The staged route's function (kernels/flash_attention.py:route, kind
+    "stage") in fp32, differentiable by autograd: q, k and v zero-padded to
+    the pitch (each head dim rounded up to a multiple of 8) and, as TMA
+    zero-fills the tensor maps' last box, on to the bucket's ``widths``;
+    softmax attention there, scaled by 1 / sqrt(q's real head dim); a row
+    with no visible key gives zeros, as the wgmma kernels write; o cut back
+    to v's real head dim.  q (B, S, H, D), k (B, Sk, KV, D), v (B, Sk, KV,
+    Dv) -> o (B, S, H, Dv) in q's dtype."""
+    b, s, h, d = q.shape
+    sk, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
+    wk, wv = widths
+
+    def staged(t: torch.Tensor, width: int) -> torch.Tensor:
+        pitched = torch.nn.functional.pad(t.float(), (0, -(-t.shape[-1] // 8) * 8 - t.shape[-1]))
+        return torch.nn.functional.pad(pitched, (0, width - pitched.shape[-1]))
+
+    qg = staged(q, wk).reshape(b, s, kvh, h // kvh, wk).permute(0, 2, 3, 1, 4)
+    kg, vg = staged(k, wk).permute(0, 2, 1, 3), staged(v, wv).permute(0, 2, 1, 3)
+    scores = torch.einsum("bkgqd,bkjd->bkgqj", qg, kg) / math.sqrt(d)
+    q_pos = torch.arange(s, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((s, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    # masked to a finite floor, so that a row with no visible key stays
+    # finite through autograd before it is zeroed
+    p = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1) * mask.any(-1)[:, None]
+    o = torch.einsum("bkgqj,bkjd->bkgqd", p, vg)                    # (B, KV, G, S, wv)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, wv)[..., :dv].to(q.dtype)
+
+
 def flash_attention_fwd_tiled_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                   causal: bool = True, window: int = 0, rows: int,
                                   stream_rows: int, widths: tuple[int, int]

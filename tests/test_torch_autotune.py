@@ -336,12 +336,15 @@ def test_memo_follows_a_store_and_the_cache_directory(cache_dir, tmp_path, monke
 
 
 def test_unbuilt_head_dims_leave_the_refusal_to_the_launcher(cache_dir):
-    """No kv tile for head dims on the general SIMT route (bf16 at D 20, not
-    a multiple of 8), which has one; D 96 runs its bucket's (128, 128)
-    kernel and takes that kernel's default tile."""
-    assert tuned_flash_tile(*_flash_args(d=20), causal=True, window=0) is None
+    """No kv tile for head dims on a SIMT route (bf16 at the smoke dims D
+    16), which has one; D 96 runs its bucket's (128, 128) kernel and takes
+    that kernel's default tile, and D 20 (not a multiple of 8, staged onto
+    the (64, 64) bucket's kernel) that bucket's."""
+    assert tuned_flash_tile(*_flash_args(d=16), causal=True, window=0) is None
     assert (tuned_flash_tile(*_flash_args(d=96), causal=True, window=0)
             == flash_tile_candidates(128, 128)[0])
+    assert (tuned_flash_tile(*_flash_args(d=20), causal=True, window=0)
+            == flash_tile_candidates(64, 64)[0])
 
 
 # ------------------------------------- parity with repro.kernels.autotune ----

@@ -172,16 +172,17 @@ def test_csrc_states_the_same_tiles():
 def test_old_fp32_backward_instantiations_are_gone():
     """No fp32 backward kernel is left in the SIMT sources: the C entries
     there refuse dtype code 0, and only the bf16 smoke dims instantiate the
-    one-warp-a-row kernels."""
+    one-warp-a-row kernels.  No flash source builds a general SIMT kernel,
+    and none builds fp32 outside the register-tiled sources."""
     bwd = (CSRC / "flash_attention_bwd.cu").read_text()
     assert "if (dtype != 1) return (int)cudaErrorInvalidValue;" in bwd
     assert not re.search(r"launch_simt<\d+, \d+, float>", bwd)
     assert "launch_simt_either" not in bwd
-    anyc = (CSRC / "flash_attention_any.cu").read_text()
-    entry = anyc[anyc.index('extern "C" int flash_attention_bwd_any'):]
-    assert "launch_bwd<float>" not in entry and "dtype == 0" not in entry
-    # the fp32 forward left the general kernels too (csrc/flash_attention_fwd_f32.cu)
-    assert "launch_fwd<float>" not in anyc
+    for src in sorted(CSRC.glob("flash_attention*.c*")):
+        text = src.read_text()
+        assert "_any" not in text, src.name
+        if "f32" not in src.name:
+            assert not re.search(r"<float>|, float>", text), src.name
 
 
 @pytest.mark.parametrize("dk,dv", HEAD_DIMS + [(1, 1), (5, 3), (8, 8), (20, 20), (96, 64),

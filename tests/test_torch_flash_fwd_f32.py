@@ -309,16 +309,16 @@ def test_fp32_forward_takes_one_tile(recorded):
 def test_old_fp32_forward_instantiations_are_gone():
     """No fp32 forward kernel is left in the SIMT sources: the SIMT kernel
     of flash_attention.cu is instantiated for the bf16 smoke dims alone,
-    the four-threads-a-row kernel is gone, and both C entries refuse dtype
-    code 0."""
+    the four-threads-a-row kernel is gone, its C entry refuses dtype code
+    0, and no flash source builds a general SIMT kernel or fp32 outside the
+    register-tiled sources."""
     fa = (CSRC / "flash_attention.cu").read_text()
     assert "flash_fwd_f32_wide" not in fa and "launch_f32" not in fa
     assert "if (dtype != 1) return (int)cudaErrorInvalidValue;" in fa
     assert re.findall(r"flash_fwd_f32<DK, DV, (\w+)>", fa) == ["__nv_bfloat16"]
-    anyc = (CSRC / "flash_attention_any.cu").read_text()
-    entry = anyc[anyc.index('extern "C" int flash_attention_fwd_any'):
-                 anyc.index('extern "C" int flash_attention_bwd_any')]
-    assert "launch_fwd<float>" not in anyc and "dtype == 0" not in entry
+    for src in sorted(CSRC.glob("flash_attention*.c*")):   # no general SIMT kernel is left
+        text = src.read_text()
+        assert "_any" not in text and "launch_fwd<float>" not in text, src.name
     cuh = (CSRC / "flash_attention_fwd.cuh").read_text()
     assert "PARTS" not in cuh and "TN_WIDE" not in cuh
 

@@ -1,15 +1,17 @@
 """fp16 flash attention on the wgmma + TMA kernels (the "f16" route).
 
-fp16 runs the kernels bf16 runs on tensor cores wherever bf16 does (the
-built head-dim pairs and dims that are multiples of 8 inside them), their
-padded form in f16 wgmma with f16 tensor maps
+fp16 runs the kernels bf16 runs on tensor cores at every head-dim pair
+that is a multiple of 8 (the built pairs, the smoke dims and the dims
+inside a built pair), their padded form in f16 wgmma with f16 tensor maps
 (``csrc/flash_attention_f16.cu``, ``csrc/flash_attention_bwd_f16.cu``,
-``flash_attention_fwd_ws_f16``); fp16 elsewhere keeps the general SIMT
-kernels.  On the CPU, with every launcher's library replaced by a fake
-that records its calls, these tests hold the C entries' arguments: fp16
-passes its dtype code (2) to the tensor-core entries, bf16 passes what it
-passed before fp16 came, a kv tile fp16 is not built for is refused, and
-a failed fp16 launch raises without trying another route.  The tests
+``flash_attention_fwd_ws_f16``); at other dims it runs the same entries
+on copies at a pitch of a multiple of 8 (the staged route, "stage",
+tests/test_torch_flash_staged.py).  On the CPU, with every launcher's
+library replaced by a fake that records its calls, these tests hold the C
+entries' arguments: fp16 passes its dtype code (2) to the tensor-core
+entries, bf16 passes what it passed before fp16 came and the scale's head
+dim after it, a kv tile fp16 is not built for is refused, and a failed
+fp16 launch raises without trying another route.  The tests
 marked ``cuda`` hold the fp16 kernels to the plain versions on a card
 (and the backward to itself over two launches) and skip without one.  The
 file imports no JAX.
@@ -106,9 +108,10 @@ def test_fp16_passes_its_dtype_code_to_the_wgmma_entries(recorded, dk, dv):
     for entry, argtypes, args in recorded.calls:
         assert len(args) == len(argtypes), entry
         assert args[_DTYPE_AT[entry]] == FP16, entry
+        assert args[-1] == dk   # the scale's head dim
         if entry == "flash_attention_fwd_f16":
             assert args[9:13] == (dk, dv, *r.dims)
-            assert args[-1] == KV_TILES[r.dims][0]
+            assert args[-2] == KV_TILES[r.dims][0]
         elif entry == "flash_attention_fwd_ws_f16":
             assert args[9:11] == (dk, dv) and args[17] == KV_TILES[r.dims][0]
         else:
@@ -117,30 +120,43 @@ def test_fp16_passes_its_dtype_code_to_the_wgmma_entries(recorded, dk, dv):
 
 @pytest.mark.parametrize("dk,dv", [(20, 20), (5, 3), (16, 16), (24, 16), (72, 36)])
 def test_fp16_off_the_wgmma_dims_keeps_the_general_kernels(recorded, dk, dv):
-    """fp16 at dims that are not multiples of 8 and at the smoke configs'
-    dims: the general SIMT entries, given dtype code 2."""
+    """fp16 at the smoke configs' dims: the f16 entries at the (64, 64)
+    bucket; at dims that are not multiples of 8: the same entries on the
+    staged route, between the staging launches, at the pitches with the
+    real q/k dim for the scale; dtype code 2 throughout."""
     _run(dk, dv, torch.float16)
-    assert route(torch.float16, dk, dv).kind == "any"
-    assert [c[0] for c in recorded.calls] == ["flash_attention_fwd_any", "flash_attention_bwd_any"]
-    assert recorded.calls[0][2][13] == FP16 and recorded.calls[1][2][19] == FP16
+    r = route(torch.float16, dk, dv)
+    staged = dk % 8 != 0 or dv % 8 != 0
+    assert r.kind == ("stage" if staged else "f16")
+    assert r.dims == ((128, 128) if (dk, dv) == (72, 36) else (64, 64))
+    stage = ["flash_attention_stage"] if staged else []
+    assert [c[0] for c in recorded.calls] == [*stage, "flash_attention_fwd_f16", *stage, *stage,
+                                              "flash_attention_bwd_f16", *stage]
+    fwd, bwd = (c[2] for c in recorded.calls if c[0] != "flash_attention_stage")
+    assert fwd[15] == FP16 and bwd[21] == FP16
+    pk, pv = -(-dk // 8) * 8, -(-dv // 8) * 8
+    assert fwd[9:13] == (pk, pv, *r.dims) and fwd[-1] == dk
+    assert bwd[15:19] == (pk, pv, *r.dims) and bwd[-1] == dk
 
 
 def test_bf16_passes_the_arguments_it_passed_before(recorded):
     """bf16 at a built pair and at a padded pair: the same entries, argument
     counts and values as before fp16 came (dtype code 1 where an entry takes
-    one, none on the padded entries)."""
+    one, none on the padded entries), the padded entries with the scale's
+    head dim last."""
     q, k, v = _run(64, 64, torch.bfloat16)
     q2, k2, v2 = _run(80, 80, torch.bfloat16)
     (f, ft, fa), (b, bt, ba), (fp, fpt, fpa), (bp, bpt, bpa) = recorded.calls
     assert (f, b, fp, bp) == ("flash_attention_fwd", "flash_attention_bwd",
                               "flash_attention_fwd_pad", "flash_attention_bwd_pad")
-    assert (len(ft), len(bt), len(fpt), len(bpt)) == (18, 25, 19, 26)
+    assert (len(ft), len(bt), len(fpt), len(bpt)) == (18, 25, 20, 27)
     assert fa[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
     assert fa[4:15] == (1, 70, 70, 4, 2, 64, 64, 1, 0, 1, 0) and fa[17] == 128
     assert ba[10:20] == (1, 70, 70, 4, 2, 64, 64, 1, 0, 1) and ba[23:] == (1, 128)
     assert fpa[:3] == (q2.data_ptr(), k2.data_ptr(), v2.data_ptr())
-    assert fpa[4:16] == (1, 70, 70, 4, 2, 80, 80, 128, 128, 1, 0, 0) and fpa[18] == 128
-    assert bpa[10:22] == (1, 70, 70, 4, 2, 80, 80, 128, 128, 1, 0, 0) and bpa[24:] == (1, 128)
+    assert fpa[4:16] == (1, 70, 70, 4, 2, 80, 80, 128, 128, 1, 0, 0) and fpa[18:] == (128, 80)
+    assert bpa[10:22] == (1, 70, 70, 4, 2, 80, 80, 128, 128, 1, 0, 0)
+    assert bpa[24:] == (1, 128, 80)
 
 
 @pytest.mark.parametrize("dk,dv", [(64, 64), (128, 128), (80, 80), (192, 128), (256, 256)])
@@ -240,20 +256,31 @@ def test_cuda_fp16_runs_the_wgmma_kernels(dk, dv):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dk,dv", [(20, 20), (5, 3), (16, 16)])
 def test_cuda_fp16_off_the_wgmma_dims_runs_the_general_kernels(dk, dv):
-    """fp16 at dims that are not multiples of 8 (and the smoke dims): the
-    general SIMT kernels, within fp16's limits of the plain version."""
+    """fp16 at dims that are not multiples of 8 (the staged route) and at
+    the smoke dims (the f16 route): the f16 wgmma kernels of the (64, 64)
+    bucket (hopper::HalfWidths; staged, the staging kernel beside them),
+    one launch each way on the route's counters, within fp16's limits of
+    the plain version."""
     dev = _card()
     q, k, v, do = _qkv(2, 130, 4, 2, dk, dv, torch.float16, seed=dk + dv, device=dev)
     kw = dict(causal=True, window=0)
-    before = (flash_attention.any_launches, flash_attention.bwd_any_launches)
+    kind = route(torch.float16, dk, dv).kind
+    assert kind == ("f16" if (dk, dv) == (16, 16) else "stage")
+    before = (getattr(flash_attention, f"{kind}_launches"),
+              getattr(flash_attention, f"bwd_{kind}_launches"))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = flash_attention(*leaves, **kw)
     grads = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
-    assert (flash_attention.any_launches, flash_attention.bwd_any_launches) == (
-        before[0] + 1, before[1] + 1)
+    assert (getattr(flash_attention, f"{kind}_launches"),
+            getattr(flash_attention, f"bwd_{kind}_launches")) == (before[0] + 1, before[1] + 1)
+    o, lse = flash_launcher.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     names = _kernel_names(lambda: flash_launcher.flash_attention_cuda(q, k, v, **kw))
-    assert names and all("_any<" in n for n in names), names
+    names += _kernel_names(lambda: flash_launcher.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                                           **kw))
+    flash = [n for n in names if "flash_stage" not in n]
+    assert flash and all("HalfWidths" in n for n in flash), names
+    assert (kind == "stage") == (len(flash) < len(names)), names
     ref_leaves = [t.float().clone().requires_grad_() for t in (q, k, v)]
     ref = flash_attention_ref(*ref_leaves, **kw)
     ref_grads = torch.autograd.grad(ref, ref_leaves, do.float())

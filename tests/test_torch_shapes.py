@@ -8,8 +8,9 @@ inputs from a seed: the flash forward to ``repro.kernels.flash_attention``
 narrower than q and k, its gradient to ``jax.grad`` of ``blockwise_mha``,
 the SSD forward to ``ssd_scan_kernel(interpret=True)`` and its gradient to
 ``jax.grad`` of ``repro.models.ssm.ssd_scan``; the routes (``route``: the
-padded wgmma route in bf16 at head dims that are multiples of 8, the
-general SIMT route for the rest), the tensor maps at real dims and the
+padded wgmma route in bf16 at head dims that are multiples of 8, the same
+kernels on copies at a pitch of a multiple of 8 for the rest of flash, the
+general SIMT route for the rest of the SSD), the tensor maps at real dims and the
 limits' refusals; and two models off the configs' shapes end to end,
 through the weight bridge.  Tolerances are tests/test_kernels.py's: fp32
 1e-4 (SSD 2e-3), bf16 and fp16 2e-2 (SSD 5e-2).
@@ -227,10 +228,11 @@ def test_flash_route_and_bucket(dk, dv, dtype):
     register-tiled kernels of its bucket in F32_BUCKETS ("f32"); the smoke
     dims in bf16: their SIMT instantiations; bf16 at head dims that are
     multiples of 8: the smallest built pair that holds them (D 80 and 96
-    take (128, 128)); fp16 wherever bf16 takes those two: the same kernels
-    in fp16 ("f16", the bucket's); the rest (fp16 at the smoke dims and at
-    other dims): the general SIMT kernels.  The tiles and the scratch
-    follow the bucket."""
+    take (128, 128)); fp16 at every pair that is a multiple of 8 (the smoke
+    dims among them): the same kernels in fp16 ("f16", the bucket's); the
+    rest, in both dtypes: those kernels on copies whose pitch is each head
+    dim rounded up to a multiple of 8 ("stage", the pitches' bucket).  The
+    tiles and the scratch follow the bucket."""
     r = route(dtype, dk, dv)
     assert r is route(dtype, dk, dv)                 # cached
     built = (dk, dv) in BUCKETS
@@ -243,9 +245,11 @@ def test_flash_route_and_bucket(dk, dv, dtype):
         assert r == ("tma", (dk, dv))
     elif smoke and dtype == torch.bfloat16:
         assert r == ("simt", (dk, dv))
-    elif dtype != torch.float32 and not smoke and padded:
+    elif padded:
         assert r.kind == ("pad" if dtype == torch.bfloat16 else "f16")
-        assert r.dims == bucket(dk, dv) == route(torch.bfloat16, dk, dv).dims
+        assert r.dims == bucket(dk, dv)
+        if not smoke:
+            assert r.dims == route(torch.bfloat16, dk, dv).dims
         bk, bv = r.dims
         assert dk <= bk and dv <= bv
         smaller = [bd for bd in BUCKETS if bd[0] * bd[1] < bk * bv]
@@ -255,8 +259,12 @@ def test_flash_route_and_bucket(dk, dv, dtype):
         assert bwd_scratch_rows(100, dtype, dk, dv) == bwd_scratch_rows(100, dtype, *r.dims)
         assert flash_launcher.ws_route(dtype, dk, dv) == (r.dims == (192, 128))
     else:
-        assert r == ("any", (dk, dv))
-        assert not flash_launcher.tma_route(dtype, dk, dv)
+        pk, pv = flash_launcher.pitch(dk), flash_launcher.pitch(dv)
+        assert (pk % 8, pv % 8) == (0, 0) and 0 <= pk - dk < 8 and 0 <= pv - dv < 8
+        assert r == ("stage", bucket(pk, pv)) and r.dims in BUCKETS
+        assert flash_launcher.tma_route(dtype, dk, dv)
+        assert flash_launcher.ws_route(dtype, dk, dv) == (r.dims == (192, 128))
+        assert bwd_scratch_rows(100, dtype, dk, dv) == bwd_scratch_rows(100, dtype, *r.dims)
     assert bucket(80, 80) == bucket(96, 64) == (128, 128)
 
 
@@ -449,7 +457,7 @@ def _card() -> torch.device:
 
 
 FLASH_CARD_CASES = [  # (dk, dv, dtype): the padded route in bf16, fp16's wgmma route at
-    # dims that are multiples of 8, the general one else
+    # dims that are multiples of 8, the staged one else
     (40, 40, "bfloat16"), (80, 80, "bfloat16"), (96, 64, "bfloat16"), (160, 128, "bfloat16"),
     (144, 64, "bfloat16"), (200, 200, "bfloat16"), (20, 20, "bfloat16"), (80, 80, "float16"),
     (256, 256, "float16"), (48, 48, "float32"), (200, 136, "float32"), (5, 3, "float32"),
@@ -475,7 +483,7 @@ def test_cuda_flash_routes_match_plain(dk, dv, dtype):
     torch.cuda.synchronize()
     assert flash_attention.launches == counts[0] + 1
     assert flash_attention.bwd_launches == counts[2] + 1
-    if kind in ("pad", "f16", "any"):
+    if kind in ("pad", "f16", "stage"):
         assert getattr(flash_attention, f"{kind}_launches") == counts[1] + 1
     ref_leaves = [t.float().clone().requires_grad_() for t in (q, k, v)]
     ref = flash_attention_ref(*ref_leaves, causal=True, window=48)
@@ -584,24 +592,30 @@ def test_flash_launches_pass_every_argument(fake_libraries, dk, dv, dtype):
     """Each route's C entry gets as many arguments as its argtypes name
     (ctypes drops no extra and pads no missing one), forward with and
     without lse and backward (on the backward's own route: fp32 takes the
-    register-tiled entry); the padded route passes the bucket."""
+    register-tiled entry); the padded route passes the bucket, the staged
+    one the padded or fp16 entry between its staging launches."""
     q, k, v, do = _th(_qkv(1, 70, 4, 2, dk, dv, seed=1), str(dtype).removeprefix("torch."))
     o, lse = flash_launcher.flash_attention_cuda(q, k, v, causal=True, window=0,
                                                  return_lse=True)
     flash_launcher.flash_attention_cuda(q, k, v, causal=False, window=16)
     flash_launcher.flash_attention_bwd_cuda(q, k, v, o, torch.zeros(1, 4, 70), do,
                                             causal=True, window=0)
-    assert len(fake_libraries) == 3
     r = route(dtype, dk, dv)
+    stages = [c for c in fake_libraries if c[0] == "flash_attention_stage"]
+    assert len(stages) == (6 if r.kind == "stage" else 0)
+    assert len(fake_libraries) == 3 + len(stages)
     for entry, argtypes, args in fake_libraries:
         assert len(args) == len(argtypes), entry
+        if entry == "flash_attention_stage":
+            continue
         if entry.startswith("flash_attention_fwd_ws"):   # the (192, 128) bucket's forward
             assert r.dims == (192, 128) and args[9:11] == (dk, dv)
-            assert entry.endswith("_f16") == (r.kind == "f16")
+            assert entry.endswith("_f16") == (dtype == torch.float16)
             continue
         kind = flash_launcher.bwd_route(dtype, dk, dv).kind if "bwd" in entry else r.kind
-        assert entry.endswith({"pad": "_pad", "f16": "_f16", "any": "_any",
-                               "f32": "_f32"}.get(kind, ""))
+        if kind == "stage":
+            kind = "pad" if dtype == torch.bfloat16 else "f16"
+        assert entry.endswith({"pad": "_pad", "f16": "_f16", "f32": "_f32"}.get(kind, ""))
         if entry.endswith(("_pad", "_f16")):
             assert tuple(args[17:19] if "bwd" in entry else args[11:13]) == r.dims
 

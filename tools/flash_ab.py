@@ -10,6 +10,8 @@
     python3 tools/flash_ab.py SRC [SRC ...] --shapes granite_fp16,d128_fp16,granite_bwd_fp16
     python3 tools/flash_ab.py SRC [SRC ...] --shapes fp32_bwd,fp32_d128_bwd,d256_bwd_fp32
     python3 tools/flash_ab.py SRC [SRC ...] --shapes granite_fp32,mla_fp32_b4,d256_fp32,d80_fp32
+    python3 tools/flash_ab.py SRC [SRC ...] --shapes d20_fp16,d20_bf16,d20_bwd_fp16,d20_bwd_bf16
+    python3 tools/flash_ab.py SRC [SRC ...] --shapes smoke_d16,smoke_mla,smoke_d16_bwd,smoke_mla_bwd
 
 Each SRC is the ``src`` directory of a checkout of this repository.  All
 checkouts' kernels are built first, in parallel.  Then every round runs
@@ -25,7 +27,8 @@ its bound (``roofline/cost.py:attention_bound``), beside one
 forward's (o, lse) beside SDPA's backward (``*_bwd`` shapes), with the
 device time of each of its CUDA kernels from the profiler (``dq_ms``,
 ``dkdv_ms``, and ``sum_ms`` for the pass that sums the dK/dV kernel's
-head shares); or
+head shares) and its bound (``attention_bwd_bound``); both directions
+give the staged route's copies' device ms a call (``stage_ms``); or
 ``repro_torch.kernels.ops.ssd_scan`` (no PyTorch call computes the SSD
 scan); or the SSD backward launcher ``ssd_scan_bwd_cuda`` (``ssd_bwd*``
 shapes), each with its kernels' device ms from the profiler; the
@@ -102,6 +105,18 @@ SHAPES = {  # flash: (B, S, H, KV, D, Dv, window): granite-3-2b's prefill, a
     "mla_fp32_b4": ("flash", (4, 1024, 128, 128, 192, 128, 0, "float32")),
     "d256_fp32": ("flash", (4, 2560, 16, 1, 256, 256, 2048, "float32")),
     "d128_fp32": ("flash", (4, 1024, 32, 8, 128, 128, 0, "float32")),
+    # the staged route (a head dim that is no multiple of 8): D 20 at B 4, S
+    # 1024, 32 MHA heads in fp16 and bf16, both directions
+    "d20_fp16": ("flash", (4, 1024, 32, 32, 20, 20, 0, "float16")),
+    "d20_bf16": ("flash", (4, 1024, 32, 32, 20, 20, 0, "bfloat16")),
+    "d20_bwd_fp16": ("flash_bwd", (4, 1024, 32, 32, 20, 20, 0, "float16")),
+    "d20_bwd_bf16": ("flash_bwd", (4, 1024, 32, 32, 20, 20, 0, "bfloat16")),
+    # the bf16 smoke dims' SIMT kernels at chip_smoke.py's smoke cases (B 2,
+    # S 64): (16, 16) over 2 kv heads, (24, 16) MHA
+    "smoke_d16": ("flash", (2, 64, 4, 2, 16, 16, 0)),
+    "smoke_mla": ("flash", (2, 64, 4, 4, 24, 16, 0)),
+    "smoke_d16_bwd": ("flash_bwd", (2, 64, 4, 2, 16, 16, 0)),
+    "smoke_mla_bwd": ("flash_bwd", (2, 64, 4, 4, 24, 16, 0)),
     # ssd: (B, L, H, chunk, views): mamba2-780m's prefill (P 64, N 128), at
     # the train step's microbatch B 2, a longer prompt, and x, B, C as views
     # of one conv output as the model passes them
@@ -162,13 +177,19 @@ def time_flash(gen, b, s, h, kv, d, dv, window, dtype="bfloat16") -> dict:
     del got
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
-    by_kernel = kernel_device_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
+    by_kernel = kernel_device_ms(lambda: flash_attention(q, k, v, causal=True, window=window),
+                                 per_call=True)
     bound_ms = attention_bound(b, s, s, h, kv, d, dv, str(dt), True, window)[0]
     return {"ms": ms, "device_ms": sum(by_kernel.values()), "bound_ms": bound_ms,
-            "bound_frac": bound_ms / ms,
+            "bound_frac": bound_ms / ms, "stage_ms": _stage_ms(by_kernel),
             "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, **_sdpa_kw(s, window))),
             "max_scaled_err": err, "kernels": sorted(by_kernel)}
+
+
+def _stage_ms(by_kernel: dict[str, float]) -> float:
+    """The staged route's copies (flash_stage) in a call's device ms."""
+    return sum(ms for name, ms in by_kernel.items() if "flash_stage" in name)
 
 
 def host_us(fn, calls: int = 500, runs: int = 7) -> float:
@@ -209,8 +230,11 @@ def kernel_device_ms(fn, iters: int = 20, per_call: bool = False) -> dict[str, f
     torch.profiler, keyed by the kernel's name as the profiler gives it
     (each of the flash backward's kernels launches once a call).  The mean
     is over the launches the profiler recorded, which may be fewer than it
-    ran.  ``per_call``: each kernel's device ms a call of ``fn`` instead
-    (a kernel may launch more than once a call: the SSD backward's sums)."""
+    ran.  ``per_call``: each kernel's device ms a call of ``fn`` instead (a
+    kernel may launch more than once a call: the SSD backward's sums, the
+    staged flash route's two copies): that mean times its launches a call,
+    the nearest whole number to the records over the calls, so that a few
+    dropped records do not read as a faster kernel."""
     import torch
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
@@ -220,7 +244,8 @@ def kernel_device_ms(fn, iters: int = 20, per_call: bool = False) -> dict[str, f
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / (iters if per_call else e.count)
+    return {e.key: e.self_device_time_total / 1e3 / e.count
+            * (max(1, round(e.count / iters)) if per_call else 1)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
 
@@ -230,6 +255,7 @@ def time_flash_bwd(gen, b, s, h, kv, d, dv, window, dtype="bfloat16") -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
     from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.roofline.cost import attention_bwd_bound
 
     dt = getattr(torch, dtype)
     q, k = (torch.randn(b, s, n, d, generator=gen, device="cuda").to(dt) for n in (h, kv))
@@ -248,14 +274,17 @@ def time_flash_bwd(gen, b, s, h, kv, d, dv, window, dtype="bfloat16") -> dict:
     def bwd():
         return flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
 
-    by_kernel = kernel_device_ms(bwd)
+    by_kernel = kernel_device_ms(bwd, per_call=True)
 
     def part(tag: str) -> float:
         return sum(ms for name, ms in by_kernel.items() if tag in name)
 
-    return {"ms": cuda_ms(bwd),
+    ms = cuda_ms(bwd)
+    bound_ms = attention_bwd_bound(b, s, h, kv, d, str(dt), True, window, dv=dv)[0]
+    return {"ms": ms, "bound_ms": bound_ms, "bound_frac": bound_ms / ms,
             "device_ms": sum(by_kernel.values()), "dq_ms": part("flash_bwd_dq"),
             "dkdv_ms": part("flash_bwd_dkdv"), "sum_ms": part("flash_bwd_sum"),
+            "stage_ms": part("flash_stage"),
             "sdpa_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, do_t,
                                                            retain_graph=True)),
             "max_scaled_err": err, "kernels": sorted(by_kernel)}
